@@ -1,12 +1,13 @@
 """PyTorch + CUDA port of the DreamFusion-class text-to-3D trainer.
 
-This package holds the oracle text→3D training path (triplane NeRF,
-occupancy marching, compositing, pixel-space oracle SDS, Adan + EMA) for
-one NVIDIA Hopper card.  Its four render-side kernels are hand-written:
-CUDA C++ under ``csrc/`` (triplane encode, occupancy march, compositing)
-and Triton (the field head, ``ops/activation.py``).  Every kernel has a
-plain PyTorch twin in the same module; a CPU tensor takes the twin, a CUDA
-tensor takes the kernel.
+This package holds two text→3D training paths for one NVIDIA Hopper card,
+both on the triplane NeRF (occupancy marching, compositing, Adan + EMA):
+SD 2.1 guidance (CLIP text, VAE and UNet towers, SDS, Perp-Neg) and the
+pixel-space oracle.  Its kernels are hand-written: CUDA C++ under
+``csrc/`` (triplane encode, occupancy march, compositing, attention,
+convolution) and Triton (the field head, ``ops/activation.py``; GroupNorm,
+``ops/groupnorm.py``).  Every kernel has a plain PyTorch twin in the same
+module; a CPU tensor takes the twin, a CUDA tensor takes the kernel.
 
 The package imports ``torch`` and never ``jax``; it imports nothing from
 ``dreamfusion_tpu``, the JAX package it is held against in the tests.

@@ -2,9 +2,9 @@
 
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
-only the fields the oracle triplane path reads are carried.  ``finalize``
-applies the fix-ups that path needs: the oracle preset and the resolved
-exposure range.
+only the fields the ported paths (the oracle and SD 2.1 guidance on the
+triplane backbone) read are carried.  ``finalize`` applies the fix-ups
+those paths need: the oracle preset and the resolved exposure range.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 class Config:
     # ---- workspace / run mode ----
     text: Optional[str] = None
+    negative: str = ""
     workspace: str = "workspace"
     seed: Optional[int] = None
     test: bool = False
@@ -27,6 +28,7 @@ class Config:
     # ---- guidance ----
     guidance: Tuple[str, ...] = ("SD",)
     guidance_scale: float = 100.0
+    sd_version: str = "2.1"
     oracle_scene: str = "two_sphere"
     fp16: bool = True
     t_range: Tuple[float, float] = (0.02, 0.98)
@@ -72,6 +74,8 @@ class Config:
     triplane_channels: int = 16
     triplane_scales: int = 1
     normal_mode: str = "autograd"
+    hidden_dim_bg: int = 32
+    num_layers_bg: int = 2
 
     # ---- camera / dataset ----
     w: int = 64
@@ -103,8 +107,13 @@ class Config:
     lambda_2d_normal_smooth: float = 0.0
     lambda_3d_normal_smooth: float = 0.0
 
-    # ---- DMTet / perpneg switches (not ported; main.py refuses them) ----
+    # ---- Perp-Neg ----
     perpneg: bool = False
+    negative_w: float = -2.0
+    front_decay_factor: float = 2.0
+    side_decay_factor: float = 10.0
+
+    # ---- DMTet (not ported; the trainer refuses it) ----
     dmtet: bool = False
 
     # ---- misc ----

@@ -25,7 +25,12 @@ from torch import nn
 
 from ..core.math import safe_normalize
 from ..ops.activation import field_head
+from ..ops.freq import freq_encode, freq_encode_dim
 from ..ops.triplane import TriplaneSpec, init_triplane, triplane_encode
+
+# the background encoding's degree: the JAX field's own 6 (its Config's
+# freq_multires_bg is not read there)
+BG_FREQ_DEGREE = 6
 
 SHADING_ALBEDO = 0
 SHADING_LAMBERTIAN = 1
@@ -86,7 +91,8 @@ class NeRFField(nn.Module):
                  num_layers: int = 3, density_act: str = "exp",
                  blob_density: float = 5.0, blob_radius: float = 0.2,
                  triplane_resolution: int = 256, triplane_channels: int = 16,
-                 triplane_scales: int = 1,
+                 triplane_scales: int = 1, bg_radius: float = -1.0,
+                 hidden_dim_bg: int = 32, num_layers_bg: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if density_act != "exp":
@@ -105,6 +111,10 @@ class NeRFField(nn.Module):
             for r in self.spec.resolutions)
         self.sigma_net = BasicMLP(self.spec.output_dim, 4, hidden_dim,
                                   num_layers)
+        # background colour from the ray direction (bg_radius > 0)
+        self.bg_net = BasicMLP(freq_encode_dim(3, BG_FREQ_DEGREE), 3,
+                               hidden_dim_bg, num_layers_bg) \
+            if bg_radius > 0 else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -112,6 +122,13 @@ class NeRFField(nn.Module):
                                init_triplane(self.spec, generator)):
                 p.copy_(init)
         self.sigma_net.reset_parameters(generator)
+        if self.bg_net is not None:
+            self.bg_net.reset_parameters(generator)
+
+    def background(self, d: torch.Tensor) -> torch.Tensor:
+        """Unit ray directions [R, 3] → background colour [R, 3] fp32."""
+        enc = freq_encode(d, BG_FREQ_DEGREE)
+        return torch.sigmoid(self.bg_net(enc, self.compute_dtype).float())
 
     def _unit(self, x: torch.Tensor) -> torch.Tensor:
         return (x + self.bound) / (2 * self.bound)

@@ -56,11 +56,14 @@ class NeRFRenderer(nn.Module):
                     light_d: Optional[torch.Tensor] = None,
                     ambient_ratio=1.0, shading=SHADING_ALBEDO,
                     bg_color=None, max_level: Optional[float] = None,
-                    march_u: Optional[torch.Tensor] = None
+                    march_u: Optional[torch.Tensor] = None,
+                    use_bg_net: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
         """rays [R,3] flat.  With ``flags.perturb`` the march takes the
         stratified draws ``march_u`` [R, grid_fine_steps]; without, the
-        deterministic stratum centres.  bg_color None means white."""
+        deterministic stratum centres.  bg_color None means white; a
+        [] bool ``use_bg_net`` picks the background MLP's colour instead
+        (per step, as the JAX step's ``jnp.where``)."""
         R = rays_o.shape[0]
         if light_d is None:
             light_d = safe_normalize(rays_o)
@@ -95,6 +98,10 @@ class NeRFRenderer(nn.Module):
                              t_thresh=self.t_thresh, binarize=flags.binarize)
         bg = torch.ones((), device=rays_o.device) if bg_color is None \
             else bg_color
+        if use_bg_net is not None and self.field.bg_net is not None:
+            bg = torch.where(use_bg_net,
+                             self.field.background(safe_normalize(rays_d)),
+                             bg)
         results = {
             "image": apply_background(out.image, out.weights_sum, bg),
             "depth": out.depth,

@@ -1,0 +1,110 @@
+"""K10: softmax(q kᵀ · scale) v with fp32 statistics
+(``dreamfusion_tpu/ops/attention.py``: ``chunked_attention``,
+``dense_attention`` and the ``attention`` dispatch between them).
+
+q ``[B, N, h, d]``, k and v ``[B, M, h, d]`` → ``[B, N, h, d]`` in q's
+dtype, scale 1/√d.  Both JAX versions take the logits' statistics in fp32
+and round P to the input dtype before P·V; this one does too.
+
+On a CUDA tensor the forward is one launch of
+``csrc/attention.cu::attention_fwd`` (flash-style, bf16, d = 64 or 512)
+and the backward one launch of ``attention_bwd``.  On a CPU tensor the
+plain version runs (the dense form) and its backward is autograd of it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import kernels
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """``dense_attention``: fp32 logits and softmax, P cast to q's dtype."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float())
+    return o.to(q.dtype)
+
+
+def _check(q, k, v):
+    kernels.check_cuda(q, k, v)
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"attention kernel takes bf16, got {t.dtype}")
+    B, N, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
+        raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not fit")
+    return B, N, k.shape[1], H, D
+
+
+def attention_fwd_cuda(q, k, v, scale: float):
+    """→ (out [B, N, h, d] bf16, lse [B, h, N] fp32)."""
+    B, N, M, H, D = _check(q, k, v)
+    if D not in (64, 512):
+        raise ValueError(f"attention kernel takes d = 64 or 512, got {D}")
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
+    kernels.launch("attention_fwd", kernels.ptr(q), kernels.ptr(k),
+                   kernels.ptr(v), kernels.ptr(o), kernels.ptr(lse), B, N, M,
+                   H, D, float(scale))
+    return o, lse
+
+
+def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
+    """→ (dq, dk, dv), bf16."""
+    B, N, M, H, D = _check(q, k, v)
+    do = do.to(torch.bfloat16).contiguous()
+    kernels.check_cuda(o, lse, do)
+    Np, Mp = -(-N // 8) * 8, -(-M // 8) * 8
+    Z = B * H
+    dev = q.device
+    dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
+    pT = torch.empty(Z, Mp, Np, device=dev, dtype=torch.bfloat16)
+    dsT = torch.empty_like(pT)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    kernels.launch("attention_bwd", kernels.ptr(q), kernels.ptr(k),
+                   kernels.ptr(v), kernels.ptr(o), kernels.ptr(do),
+                   kernels.ptr(lse), kernels.ptr(dq), kernels.ptr(dk),
+                   kernels.ptr(dv), kernels.ptr(dvec), kernels.ptr(pT),
+                   kernels.ptr(dsT), B, N, M, H, D, float(scale))
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        if q.is_cuda:
+            o, lse = attention_fwd_cuda(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+        if q.device.type != "cpu":
+            raise ValueError(f"unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v)
+        return attention_plain(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        if do.is_cuda:
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*attention_bwd_cuda(q, k, v, o, lse, do, ctx.scale),
+                    None)
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = attention_plain(*qkv, ctx.scale)
+            grads = torch.autograd.grad(o, qkv, do)
+        return (*grads, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> torch.Tensor:
+    """q [B, N, h, d], k/v [B, M, h, d] → [B, N, h, d], scale 1/√d."""
+    return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                            1.0 / math.sqrt(q.shape[-1]))

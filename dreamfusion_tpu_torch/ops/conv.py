@@ -1,0 +1,213 @@
+"""K12: NHWC 2-D convolution (``dreamfusion_tpu/ops/conv.py::mm_conv``).
+
+``conv2d(x, w, bias, stride, padding)`` takes x ``[B, H, W, I]`` and the
+weight in the port's layout ``[O, kh, kw, I]`` (input channels contiguous;
+``utils/convert.py`` turns Flax's ``[kh, kw, I, O]`` into it), with padding
+``((top, bottom), (left, right))`` that may be asymmetric: the VAE's
+downsample is padding ((0, 1), (0, 1)) at stride 2, the same as JAX's
+``jnp.pad`` then a VALID conv.  Products accumulate in fp32 and the bias is
+added in fp32, as ``mm_conv`` + ``MMConv`` do; the output is x's dtype or
+fp32.
+
+On a CUDA tensor the forward is one launch of ``csrc/conv.cu::conv_fwd``
+(tensor-core implicit GEMM for bf16, split over K where the output tiles
+alone cannot fill the card; fp32 FMA for the fp32 convs) and the input
+gradient one launch of ``conv_dgrad``.  The weight gradient is on no
+path (every tower is frozen): backward gives none and raises if the weight
+asks for one.  On a CPU tensor the plain version runs: the JAX package's
+shifted-einsum form (``_einsum_conv``) with autograd for dx.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from . import kernels
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+
+def norm_padding(padding: Union[int, Sequence]) -> Pads:
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (pt, pb), (pl, pr) = padding
+    return (int(pt), int(pb)), (int(pl), int(pr))
+
+
+def out_size(H: int, W: int, kh: int, kw: int, stride: Tuple[int, int],
+             pads: Pads) -> Tuple[int, int]:
+    (pt, pb), (pl, pr) = pads
+    return ((H + pt + pb - kh) // stride[0] + 1,
+            (W + pl + pr - kw) // stride[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], stride: Tuple[int, int],
+                 pads: Pads, out_dtype: torch.dtype) -> torch.Tensor:
+    """Sum over taps of shifted-slice einsums in fp32 (``_einsum_conv``)."""
+    B, H, W, _ = x.shape
+    _, kh, kw, _ = w.shape
+    (pt, pb), (pl, pr) = pads
+    sh, sw = stride
+    Ho, Wo = out_size(H, W, kh, kw, stride, pads)
+    xp = F.pad(x.float(), (0, 0, pl, pr, pt, pb))
+    wf = w.float()
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            sl = xp[:, i:i + (Ho - 1) * sh + 1:sh, j:j + (Wo - 1) * sw + 1:sw]
+            term = torch.einsum("bhwc,oc->bhwo", sl, wf[:, i, j])
+            acc = term if acc is None else acc + term
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_TILE, _BK = 128, 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_k(rows: int, n: int, k: int, sms: int, classes: int = 1) -> int:
+    """Split-K factor of the tensor-core path on a card with `sms`
+    multiprocessors: about two blocks per SM when the 128x128 output tiles
+    alone cannot fill the card, and at least 8 k-tiles of 32 per split."""
+    tiles = _cdiv(rows, _TILE) * _cdiv(n, _TILE) * classes
+    if tiles >= sms:
+        return 1
+    return max(1, min(2 * sms // tiles, k // _BK // 8, 16))
+
+
+def _workspace(splits: int, out_numel: int, device):
+    if splits == 1:
+        return None
+    return torch.empty(splits * out_numel, device=device,
+                       dtype=torch.float32)
+
+
+def _pad_channels(x: torch.Tensor, w: torch.Tensor):
+    """The tensor-core path reads 8 input channels at a time: pad narrow
+    inputs (the 3- and 4-channel conv_in) with zero channels."""
+    I = x.shape[-1]
+    if x.dtype != torch.bfloat16 or I % 8 == 0:
+        return x, w
+    pad = 8 - I % 8
+    return F.pad(x, (0, pad)), F.pad(w, (0, pad))
+
+
+def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor], stride: Tuple[int, int],
+                    pads: Pads, out_dtype: torch.dtype) -> torch.Tensor:
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"conv kernel takes fp32 or bf16 x and w of one "
+                         f"dtype, got {x.dtype}, {w.dtype}")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"unsupported output dtype {out_dtype}")
+    x, w = _pad_channels(x.contiguous(), w.contiguous())
+    bias = None if bias is None else bias.float().contiguous()
+    kernels.check_cuda(x, w, bias)
+    B, H, W, I = x.shape
+    O, kh, kw, I2 = w.shape
+    if I2 != I:
+        raise ValueError(f"weight {tuple(w.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    Ho, Wo = out_size(H, W, kh, kw, stride, pads)
+    y = torch.empty(B, Ho, Wo, O, device=x.device, dtype=out_dtype)
+    bf16 = x.dtype == torch.bfloat16
+    splits = (split_k(B * Ho * Wo, O, kh * kw * I, _sm_count(x.device))
+              if bf16 else 1)
+    ws = _workspace(splits, y.numel(), x.device)
+    kernels.launch("conv_fwd", kernels.ptr(x), kernels.ptr(w),
+                   kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo, O,
+                   kh, kw, stride[0], stride[1], pads[0][0], pads[1][0],
+                   int(bf16), int(out_dtype == torch.float32), splits,
+                   kernels.ptr(ws))
+    return y
+
+
+def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
+                      x_shape: Sequence[int], stride: Tuple[int, int],
+                      pads: Pads, out_dtype: torch.dtype) -> torch.Tensor:
+    """dx [B, H, W, I] from dy [B, Ho, Wo, O] (dy is cast to w's dtype)."""
+    dy = dy.to(w.dtype).contiguous()
+    wT = w.permute(3, 1, 2, 0).contiguous()          # [I, kh, kw, O]
+    kernels.check_cuda(dy, wT)
+    B, H, W, I = x_shape
+    O, kh, kw, _ = w.shape
+    _, Ho, Wo, _ = dy.shape
+    dx = torch.empty(B, H, W, I, device=dy.device, dtype=out_dtype)
+    bf16 = w.dtype == torch.bfloat16
+    sh, sw = stride
+    splits = 1
+    if bf16 and O % 8 == 0:
+        splits = split_k(B * _cdiv(H, sh) * _cdiv(W, sw), I,
+                         _cdiv(kh, sh) * _cdiv(kw, sw) * O,
+                         _sm_count(dy.device), sh * sw)
+    ws = _workspace(splits, dx.numel(), dy.device)
+    kernels.launch("conv_dgrad", kernels.ptr(dy), kernels.ptr(wT),
+                   kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                   pads[0][0], pads[1][0], int(bf16),
+                   int(out_dtype == torch.float32), splits, kernels.ptr(ws))
+    return dx
+
+
+class _Conv2d(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, pads, out_dtype):
+        ctx.save_for_backward(w)
+        ctx.cfg = (tuple(x.shape), x.dtype, stride, pads)
+        if x.is_cuda:
+            return conv2d_fwd_cuda(x, w, bias, stride, pads, out_dtype)
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return conv2d_plain(x, w, bias, stride, pads, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            raise NotImplementedError(
+                "conv weight gradient (wgrad) is not ported (ROADMAP queue "
+                "2, K12 wgrad); freeze the weights with requires_grad_(False)")
+        (w,) = ctx.saved_tensors
+        x_shape, x_dtype, stride, pads = ctx.cfg
+        if dy.is_cuda:
+            dx = conv2d_dgrad_cuda(dy, w, x_shape, stride, pads, x_dtype)
+        else:
+            with torch.enable_grad():
+                xr = torch.zeros(x_shape, dtype=torch.float32,
+                                 requires_grad=True)
+                y = conv2d_plain(xr, w, None, stride, pads, torch.float32)
+                (dx,) = torch.autograd.grad(y, xr, dy.float())
+            dx = dx.to(x_dtype)
+        return dx, None, None, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+           stride: Union[int, Tuple[int, int]] = 1,
+           padding: Union[int, Sequence] = 0,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """NHWC conv; w [O, kh, kw, I]; output in ``out_dtype`` (default x's)."""
+    st = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    return _Conv2d.apply(x, w, bias, st, norm_padding(padding),
+                         out_dtype or x.dtype)

@@ -41,6 +41,9 @@ LAUNCHES: Dict[str, int] = {
     "march_rays": 0,                            # K2, CUDA C++
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
+    "attention_fwd": 0, "attention_bwd": 0,     # K10, CUDA C++
+    "groupnorm_fwd": 0, "groupnorm_bwd": 0,     # K11, Triton
+    "conv_fwd": 0, "conv_dgrad": 0,             # K12, CUDA C++
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -54,6 +57,10 @@ _SIGNATURES = {
                       _P],
     "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
                       _P, _P, _P],
+    "conv_fwd": [_P] * 4 + [_I] * 16 + [_P, _P],
+    "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
+    "attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "attention_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,12 @@
-"""The oracle training step (``dreamfusion_tpu/training/trainer.py``, cut to
-the slice): state init, the main-phase step (render → oracle SDS →
-entropy and orient regularizers → backward → guarded Adan → EMA), the
-density-grid update and the analytic-scene PSNR.
+"""The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
+ported paths): state init, the step (render → SDS from the pixel oracle or
+Stable Diffusion → entropy and orient regularizers → backward → guarded
+Adan → EMA), the density-grid update and the analytic-scene PSNR.
+
+Under SD the first ``latent_iter_ratio`` of the run is the warm-up phase:
+normal shading at ambient 1, no background MLP, and the rgb + alpha render
+goes to the guidance as the latent itself; after it, random lambertian or
+textureless shading, the background MLP when drawn, and the VAE encode.
 
 Every random number a step uses is drawn up front by ``draw_step`` (and
 ``draw_grid`` for the grid update) from a ``torch.Generator``; the step
@@ -15,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch.func import functional_call
@@ -27,7 +32,9 @@ from ..core.rays import get_rays, intrinsics_from_fov
 from ..core.sampling import stratified_u
 from ..evaluation.analytic import scene_views
 from ..guidance.oracle import PixelOracleGuidance
-from ..models.nerf import SHADING_ALBEDO
+from ..guidance.perpneg import (adjust_text_embeddings,
+                                interpolate_view_embedding)
+from ..models.nerf import SHADING_ALBEDO, SHADING_NORMAL
 from ..models.renderer import NeRFRenderer, RenderFlags
 from ..ops.occupancy import update_density_grid
 from . import schedules
@@ -41,21 +48,19 @@ def check_slice(cfg: Config) -> None:
     todo = {
         "--backbone other than triplane": (cfg.backbone != "triplane",
                                            "queue 1, item 5"),
-        "guidance other than the pixel oracle": (
-            tuple(cfg.guidance) != ("oracle",), "queue 1, items 4 and 7"),
+        "guidance other than the pixel oracle or SD alone": (
+            tuple(cfg.guidance) not in (("oracle",), ("SD",)),
+            "queue 1, item 7"),
+        "--sd_version 1.x (head dim 40)": (
+            not cfg.sd_version.startswith("2"), "queue 1, item 4"),
         "--test": (cfg.test, "queue 1, item 3"),
         "--save_mesh": (cfg.save_mesh, "queue 1, item 3"),
         "--dmtet": (cfg.dmtet, "queue 1, item 6"),
-        "--perpneg": (cfg.perpneg, "queue 1, item 4"),
         "--image": (cfg.image is not None, "queue 1, item 7"),
         "--optim other than adan": (cfg.optim != "adan", "queue 1, item 3"),
         "--grad_clip": (cfg.grad_clip >= 0, "queue 1, item 3"),
         "--grad_clip_rgb (K5)": (cfg.grad_clip_rgb >= 0, "queue 2, K5"),
-        "the background MLP (--bg_radius > 0)": (cfg.bg_radius > 0,
-                                                 "queue 1, item 3"),
         "--progressive_view": (cfg.progressive_view, "queue 1, item 3"),
-        "--latent_iter_ratio > 0": (cfg.latent_iter_ratio > 0,
-                                    "queue 1, item 4"),
         "--lambda_tv / --lambda_wd": (cfg.lambda_tv > 0 or cfg.lambda_wd > 0,
                                       "queue 1, item 3"),
         "normal-smoothness losses": (
@@ -81,7 +86,8 @@ def build_renderer(cfg: Config) -> NeRFRenderer:
         blob_radius=cfg.blob_radius,
         triplane_resolution=cfg.triplane_resolution,
         triplane_channels=cfg.triplane_channels,
-        triplane_scales=cfg.triplane_scales,
+        triplane_scales=cfg.triplane_scales, bg_radius=cfg.bg_radius,
+        hidden_dim_bg=cfg.hidden_dim_bg, num_layers_bg=cfg.num_layers_bg,
         compute_dtype=torch.bfloat16 if cfg.fp16 else torch.float32)
 
 
@@ -96,10 +102,15 @@ class StepDraws(NamedTuple):
     choice: schedules.ChoiceDraws
     march_u: torch.Tensor              # [B*h*w, grid_fine_steps] stratified
     t: torch.Tensor                    # [B] int64 diffusion timestep
-    noise: torch.Tensor                # [B, h, w, 3] standard normal
+    noise: torch.Tensor                # [B, h, w, 3] pixels (oracle) or
+    #                                    [B, ls, ls, 4] latents (SD)
+    posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
 
 
-def draw_step(gen: torch.Generator, cfg: Config, device) -> StepDraws:
+def draw_step(gen: torch.Generator, cfg: Config, device,
+              latent_size: Optional[int] = None) -> StepDraws:
+    """One step's draws; ``latent_size`` set means SD guidance (latent
+    noise and the VAE posterior draw instead of pixel noise)."""
     B = cfg.batch_size
 
     def U(*shape, lo=0.0, hi=1.0):
@@ -123,7 +134,12 @@ def draw_step(gen: torch.Generator, cfg: Config, device) -> StepDraws:
     march_u = stratified_u(U(B * cfg.h * cfg.w, cfg.grid_fine_steps))
     lo, hi = (int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1]))
     t = torch.randint(lo, hi + 1, (B,), generator=gen, device=device)
-    return StepDraws(pose, fov, choice, march_u, t, N(B, cfg.h, cfg.w, 3))
+    if latent_size is None:
+        return StepDraws(pose, fov, choice, march_u, t,
+                         N(B, cfg.h, cfg.w, 3))
+    ls = latent_size
+    return StepDraws(pose, fov, choice, march_u, t, N(B, ls, ls, 4),
+                     N(B, ls, ls, 4))
 
 
 def draw_grid(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
@@ -173,7 +189,10 @@ def apply_updates_guarded(optimizer: Adan, cfg: Config, state: TrainState,
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device="cpu"):
+    def __init__(self, cfg: Config, device="cpu", guidance=None,
+                 embeddings: Optional[Dict[str, torch.Tensor]] = None):
+        """``guidance`` and ``embeddings`` (``guidance/embeddings.py``) are
+        the SD guidance's; the oracle builds its own."""
         check_slice(cfg)
         # fp32 products stay fp32 on the card: no TF32 in matmuls or
         # convolutions (PyTorch turns it on for cuDNN by default)
@@ -181,9 +200,32 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = torch.device(device)
-        self.guidance = PixelOracleGuidance(cfg.oracle_scene, cfg.t_range)
-        self.flags = RenderFlags(perturb=True, shading_static_albedo=False,
-                                 need_loss_orient=cfg.lambda_orient > 0)
+        self.sd = cfg.guidance == ("SD",)
+        if self.sd:
+            if guidance is None or embeddings is None:
+                raise ValueError("SD guidance needs its towers and prompt "
+                                 "embeddings")
+            self.guidance, self.embeddings = guidance, embeddings
+        else:
+            self.guidance = PixelOracleGuidance(cfg.oracle_scene,
+                                                cfg.t_range)
+        self.latent_size = guidance.cfg.latent_size if self.sd else None
+
+    def flags(self, latent_phase: bool) -> RenderFlags:
+        return RenderFlags(perturb=True, shading_static_albedo=False,
+                           need_loss_orient=(self.cfg.lambda_orient > 0
+                                             and not latent_phase))
+
+    def latent_phase(self, step: int) -> bool:
+        """The warm-up steps, r <= latent_iter_ratio of the exposure range
+        (``Trainer.train``'s ``phase_at``)."""
+        cfg = self.cfg
+        r = schedules.iter_ratio(step, cfg.exp_start_iter or 0,
+                                 cfg.exp_end_iter or cfg.iters)
+        return cfg.latent_iter_ratio > 0 and r <= cfg.latent_iter_ratio
+
+    def draw_step(self, gen: torch.Generator) -> StepDraws:
+        return draw_step(gen, self.cfg, self.device, self.latent_size)
 
     def init_state(self, seed: int) -> TrainState:
         cfg = self.cfg
@@ -220,9 +262,11 @@ class Trainer:
             loss = loss + cfg.lambda_orient * out["loss_orient"]
         return loss
 
-    def render_part(self, state: TrainState, draws: StepDraws):
+    def render_part(self, state: TrainState, draws: StepDraws,
+                    latent_phase: bool = False):
         """Render + every non-guidance loss term →
-        (pred_rgb [B,h,w,3], reg loss, batch, bg colour [3])."""
+        (pred_rgb [B,h,w,3], or rgb + alpha [B,h,w,4] in the warm-up phase,
+        reg loss, batch, bg colour [3])."""
         cfg = self.cfg
         H, W = cfg.h, cfg.w
         r_exp = schedules.iter_ratio(state.step, cfg.exp_start_iter or 0,
@@ -234,26 +278,61 @@ class Trainer:
         ro = batch.rays_o.reshape(-1, 3)
         rd = batch.rays_d.reshape(-1, 3)
         light_d = safe_normalize(ro + choices.light_noise)
+        if latent_phase:
+            ambient, shading, use_bg_net = 1.0, SHADING_NORMAL, None
+        else:
+            ambient, shading = choices.ambient_ratio, choices.shading
+            use_bg_net = choices.use_bg_net
         out = state.renderer.render_grid(
-            self.flags, ro, rd, state.occ_grid, light_d=light_d,
-            ambient_ratio=choices.ambient_ratio, shading=choices.shading,
+            self.flags(latent_phase), ro, rd, state.occ_grid,
+            light_d=light_d, ambient_ratio=ambient, shading=shading,
             bg_color=choices.bg_color.expand(ro.shape), max_level=max_level,
-            march_u=draws.march_u)
+            march_u=draws.march_u, use_bg_net=use_bg_net)
         image = out["image"].reshape(B, H, W, 3)
         wsum = out["weights_sum"].reshape(B, H, W)
         reg = self._volume_reg_losses(out, wsum, state.step)
+        if latent_phase:
+            image = torch.cat([image, wsum[..., None]], dim=-1)
         return image, reg, batch, choices.bg_color
 
+    def _sd_loss(self, pred_rgb, batch, draws: StepDraws,
+                 as_latent: bool) -> torch.Tensor:
+        """SD SDS with the uncond embedding tiled to the batch and the
+        view-interpolated (or Perp-Neg) cond embeddings."""
+        cfg, emb = self.cfg, self.embeddings
+        B = pred_rgb.shape[0]
+        uncond = emb["uncond"].expand(B, -1, -1)
+        kw = dict(guidance_scale=cfg.guidance_scale, as_latent=as_latent,
+                  grad_scale=cfg.lambda_guidance)
+        if cfg.perpneg:
+            pn = adjust_text_embeddings(emb, batch.delta_azimuth,
+                                        cfg.negative_w,
+                                        cfg.front_decay_factor,
+                                        cfg.side_decay_factor)
+            return self.guidance.sds_loss_perpneg(
+                pn.text_z, pn.weights, uncond, pred_rgb, draws.t,
+                draws.noise, draws.posterior_noise, **kw)
+        cond = interpolate_view_embedding(emb, batch.delta_azimuth)
+        return self.guidance.sds_loss(cond, uncond, pred_rgb, draws.t,
+                                      draws.noise, draws.posterior_noise,
+                                      **kw)
+
     def loss_fn(self, state: TrainState, draws: StepDraws):
-        pred_rgb, reg, batch, bg = self.render_part(state, draws)
-        sds = self.guidance.sds_loss_rays(
-            draws.t, draws.noise, batch.rays_o, batch.rays_d, bg, pred_rgb,
-            grad_scale=self.cfg.lambda_guidance)
+        latent_phase = self.latent_phase(state.step)
+        pred_rgb, reg, batch, bg = self.render_part(state, draws,
+                                                    latent_phase)
+        if self.sd:
+            sds = self._sd_loss(pred_rgb, batch, draws, latent_phase)
+        else:
+            sds = self.guidance.sds_loss_rays(
+                draws.t, draws.noise, batch.rays_o, batch.rays_d, bg,
+                pred_rgb, grad_scale=self.cfg.lambda_guidance)
         loss = sds + reg
         return loss, {"loss_reg": reg, "loss_sds": sds, "loss": loss}
 
     def train_step(self, state: TrainState, draws: StepDraws):
-        """One main-phase step; updates ``state`` in place → metrics."""
+        """One step (warm-up or main phase by ``state.step``); updates
+        ``state`` in place → (metrics, gradients)."""
         params = list(state.renderer.parameters())
         loss, metrics = self.loss_fn(state, draws)
         grads = torch.autograd.grad(loss, params, allow_unused=True)

@@ -1,4 +1,4 @@
-"""The four kernels against their plain versions on the card, at small and
+"""The kernels against their plain versions on the card, at small and
 ragged shapes (chip_smoke.py repeats this at the flagship shapes).  Skips
 where there is no CUDA device.  The repository's conftest imports jax,
 which a GPU host for the port need not have, so run there with:
@@ -20,6 +20,10 @@ from dreamfusion_tpu_torch.ops.composite import (composite_bwd_plain,
                                                  composite_rays)
 from dreamfusion_tpu_torch.ops.occupancy import (march_cuda, march_plain,
                                                  probe_edges)
+from dreamfusion_tpu_torch.ops.attention import attention, attention_plain
+from dreamfusion_tpu_torch.ops.conv import conv2d, conv2d_plain, norm_padding
+from dreamfusion_tpu_torch.ops.groupnorm import (group_norm, group_norm_plain,
+                                                 groups_for)
 from dreamfusion_tpu_torch.ops.triplane import (TriplaneSpec,
                                                 triplane_bwd_plain,
                                                 triplane_encode,
@@ -149,3 +153,110 @@ def test_wrappers_count_their_launches(dev):
     triplane_encode(x, [p], TriplaneSpec(16, 4, 1)).sum().backward()
     assert kernels.LAUNCHES["triplane_fwd"] == 1
     assert kernels.LAUNCHES["triplane_bwd"] == 1
+
+
+def _close_to(got, want, rel):
+    """Within rel of the reference's largest magnitude, elementwise."""
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=rel * scale,
+                               rtol=rel)
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad,dtype", [
+    (2, 9, 11, 16, 32, 3, 1, 1, torch.bfloat16),
+    (1, 16, 16, 32, 48, 3, 2, 1, torch.bfloat16),
+    (1, 17, 15, 24, 136, 3, 2, ((0, 1), (0, 1)), torch.bfloat16),
+    (2, 8, 8, 3, 128, 3, 1, 1, torch.bfloat16),
+    (1, 12, 12, 16, 16, 1, 1, 0, torch.bfloat16),
+    (2, 8, 8, 32, 4, 3, 1, 1, torch.float32),
+    (1, 10, 10, 40, 8, 3, 1, 1, torch.float32),
+    (1, 9, 9, 16, 12, 3, 1, 1, torch.bfloat16),        # dgrad on CUDA cores
+    (2, 8, 8, 256, 160, 3, 1, 1, torch.bfloat16),      # split-K 9
+    (1, 16, 16, 128, 256, 3, 2, 1, torch.bfloat16),    # dgrad split-K 4
+])
+def test_conv_kernel(dev, B, H, W, I, O, k, stride, pad, dtype):
+    """K12 forward and dgrad: odd sizes, a partial N tile (48, 136, 160),
+    stride 2 with symmetric and the VAE's (0, 1) padding, a 3-channel input
+    (padded to 8 channels forward, a 3-column N tile in its dgrad), a bf16
+    dgrad with 12 channels (CUDA cores), fp32, and split-K (few output
+    tiles, long K) forward and dgrad."""
+    g = _gen(dev, 4)
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(dtype)
+    bias = torch.randn(O, device=dev, generator=g)
+    xr = x.clone().requires_grad_()
+    y = conv2d(xr, w, bias, stride, pad)
+    ref = conv2d_plain(x, w, bias, (stride, stride), norm_padding(pad), dtype)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    _close_to(y, ref, rel)
+    dy = torch.randn(y.shape, device=dev, generator=g).to(dtype)
+    (dx,) = torch.autograd.grad(y, xr, dy)
+    xp = x.float().cpu().requires_grad_()
+    yp = conv2d_plain(xp, w.cpu(), None, (stride, stride), norm_padding(pad),
+                      torch.float32)
+    (dxp,) = torch.autograd.grad(yp, xp, dy.float().cpu())
+    _close_to(dx.cpu(), dxp, rel)
+
+
+@pytest.mark.parametrize("B,N,M,H,D", [
+    (2, 100, 100, 2, 64),     # ragged query and key tiles
+    (2, 130, 77, 3, 64),      # 77-token cross-attention tail
+    (1, 70, 70, 1, 512),      # the VAE mid-block's width
+    (1, 64, 40, 2, 512),
+])
+def test_attention_kernel(dev, B, N, M, H, D):
+    g = _gen(dev, 5)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
+               for n in (N, M, M))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = attention(*qkv)
+    ref = attention_plain(q, k, v, D ** -0.5)
+    _close_to(o, ref, 2e-2)
+    do = torch.randn(o.shape, device=dev, generator=g).to(bf)
+    grads = torch.autograd.grad(o, qkv, do)
+    qkv32 = [t.float().requires_grad_() for t in (q, k, v)]
+    grads_ref = torch.autograd.grad(attention_plain(*qkv32, D ** -0.5), qkv32,
+                                    do.float())
+    for a, b in zip(grads, grads_ref):
+        _close_to(a, b, 3e-2)
+
+
+@pytest.mark.parametrize("B,H,W,C,eps,silu,dtype", [
+    (2, 8, 8, 64, 1e-5, True, torch.bfloat16),
+    (1, 33, 17, 128, 1e-6, True, torch.bfloat16),
+    (2, 5, 7, 40, 1e-6, False, torch.float32),
+    (1, 64, 64, 32, 1e-5, False, torch.bfloat16),
+])
+def test_groupnorm_kernel(dev, B, H, W, C, eps, silu, dtype):
+    g = _gen(dev, 6)
+    G = groups_for(C)
+    x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3 + 1).to(dtype)
+    wt = torch.randn(C, device=dev, generator=g)
+    bs = torch.randn(C, device=dev, generator=g)
+    xr = x.clone().requires_grad_()
+    y = group_norm(xr, wt, bs, G, eps, silu)
+    ref = group_norm_plain(x, wt, bs, G, eps, silu)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    _close_to(y, ref, rel)
+    dy = torch.randn(y.shape, device=dev, generator=g).to(dtype)
+    (dx,) = torch.autograd.grad(y, xr, dy)
+    x32 = x.float().requires_grad_()
+    (dxp,) = torch.autograd.grad(group_norm_plain(x32, wt, bs, G, eps, silu),
+                                 x32, dy.float())
+    _close_to(dx, dxp, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_new_wrappers_count_their_launches(dev):
+    kernels.reset_launch_counts()
+    x = torch.randn(1, 8, 8, 16, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.randn(16, 3, 3, 16, device=dev, dtype=torch.bfloat16)
+    one = torch.ones(16, device=dev)
+    h = group_norm(conv2d(x, w, None, 1, 1), one, one * 0, 8, 1e-6, True)
+    q = h.reshape(1, 64, 1, 16).repeat(1, 1, 1, 4)
+    attention(q, q, q).float().sum().backward()
+    for name in ("conv_fwd", "conv_dgrad", "groupnorm_fwd", "groupnorm_bwd",
+                 "attention_fwd", "attention_bwd"):
+        assert kernels.LAUNCHES[name] == 1, name

@@ -1,6 +1,7 @@
-"""The port stands alone: importing all of it pulls in neither jax nor the
-JAX package, its Config agrees field by field with the JAX package's, and
-its CLI refuses what it does not port."""
+"""The port stands alone: importing all of it (and chip_smoke.py) pulls in
+neither jax nor the JAX package, its Config agrees field by field with the
+JAX package's, its CLI refuses what it does not port, and it runs on the
+GPU unless the caller asks for the CPU."""
 
 import dataclasses
 import os
@@ -25,7 +26,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'dreamfusion_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 20, names\n"
+        "import chip_smoke\n"
+        "assert len(names) >= 30, names\n"
+        "assert 'dreamfusion_tpu_torch.guidance.sd' in names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dreamfusion_tpu' or m.startswith('dreamfusion_tpu.')]\n"
         "assert not bad, bad\n"
@@ -58,7 +61,7 @@ def test_finalize_fixups_match(overrides):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--text", "a hamburger"],                              # SD guidance
+    ["--text", "a hamburger", "--sd_version", "1.5"],       # head dim 40
     ["--guidance", "oracle", "--backbone", "grid"],
     ["--guidance", "oracle", "--backbone", "triplane", "--save_mesh"],
     ["--guidance", "oracle", "--backbone", "triplane", "--test"],
@@ -67,3 +70,10 @@ def test_finalize_fixups_match(overrides):
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(flags + ["--workspace", str(tmp_path), "--iters", "1"])
+
+
+def test_cli_needs_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--guidance", "oracle", "--backbone", "triplane",
+              "--workspace", str(tmp_path), "--iters", "1"])

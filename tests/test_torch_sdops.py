@@ -1,0 +1,229 @@
+"""The SD path's ops against the JAX package on the CPU, in f32: K12 conv
+(forward and dx, every padding and stride form of the UNet and VAE), K11
+GroupNorm ± SiLU (forward and VJP), K10 attention (forward and VJP), the
+bilinear resize, Perp-Neg and the numeric traps (tanh gelu in GEGLU,
+[cos | sin] timestep embedding, the GroupNorm epsilons, the conv layout).
+Inputs come from a numpy seed; each comparison states its tolerance
+(~1e-4 relative: f32 sums in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dreamfusion_tpu.guidance import perpneg as jperp
+from dreamfusion_tpu.guidance.schedule import make_schedule as jsched
+from dreamfusion_tpu.models import unet as junet
+from dreamfusion_tpu.ops.attention import chunked_attention, dense_attention
+from dreamfusion_tpu.ops.conv import mm_conv
+from dreamfusion_tpu.ops.resize import resize_bilinear as jresize
+from dreamfusion_tpu_torch.guidance import perpneg as pperp
+from dreamfusion_tpu_torch.guidance.schedule import make_schedule as psched
+from dreamfusion_tpu_torch.models import unet as punet
+from dreamfusion_tpu_torch.ops.attention import attention
+from dreamfusion_tpu_torch.ops.conv import conv2d
+from dreamfusion_tpu_torch.ops.groupnorm import group_norm, groups_for
+from dreamfusion_tpu_torch.ops.resize import resize_bilinear
+from dreamfusion_tpu_torch.utils.convert import params_from_jax
+
+torch.set_num_threads(2)
+RTOL = 1e-4
+
+
+def _close(got, want, rtol=RTOL):
+    """Within rtol of the reference's largest magnitude, elementwise."""
+    want = np.asarray(want)
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * max(np.abs(want).max(), 1e-12))
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# K12 conv
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,W,I,O,k,stride,pad", [
+    (9, 11, 5, 7, 3, 1, 1),                     # UNet / VAE 3x3
+    (8, 10, 6, 4, 3, 2, 1),                     # UNet downsample
+    (9, 8, 4, 6, 3, 2, ((0, 1), (0, 1))),       # VAE (0, 1) pad + VALID
+    (6, 6, 5, 3, 1, 1, 0),                      # 1x1
+    (7, 7, 3, 8, 3, 1, 1),                      # 3-channel conv_in
+])
+def test_conv_matches_mm_conv_and_its_vjp(rng, H, W, I, O, k, stride, pad):
+    x = _rand(rng, 2, H, W, I)
+    kern = _rand(rng, k, k, I, O, scale=0.3)
+    gy = None
+
+    def jconv(xx):
+        if isinstance(pad, int):
+            return mm_conv(xx, jnp.asarray(kern), (stride, stride), pad)
+        xp = jnp.pad(xx, ((0, 0), *pad, (0, 0)))
+        return mm_conv(xp, jnp.asarray(kern), (stride, stride), "VALID")
+
+    y_j, vjp = jax.vjp(jconv, jnp.asarray(x))
+    gy = _rand(rng, *y_j.shape)
+    (dx_j,) = vjp(jnp.asarray(gy))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    w = torch.from_numpy(np.ascontiguousarray(kern.transpose(3, 0, 1, 2)))
+    y = conv2d(xt, w, None, stride, pad)
+    _close(y, y_j)
+    (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(gy))
+    _close(dx, dx_j)
+
+
+# ---------------------------------------------------------------------------
+# K11 GroupNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,eps,silu", [(64, 1e-5, True), (32, 1e-6, False),
+                                        (40, 1e-6, True)])
+def test_group_norm_matches_group_norm_fused_and_its_vjp(rng, C, eps, silu):
+    G = groups_for(C)
+    x = _rand(rng, 2, 5, 6, C, scale=2.0) + 0.5
+    scale, bias = _rand(rng, C) + 1.0, _rand(rng, C)
+
+    def jgn(xx):
+        y = junet.group_norm_fused(xx, jnp.asarray(scale), jnp.asarray(bias),
+                                   G, eps)
+        return jax.nn.silu(y) if silu else y
+
+    y_j, vjp = jax.vjp(jgn, jnp.asarray(x))
+    gy = _rand(rng, *y_j.shape)
+    (dx_j,) = vjp(jnp.asarray(gy))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = group_norm(xt, torch.from_numpy(scale), torch.from_numpy(bias), G,
+                   eps, silu)
+    _close(y, y_j)
+    (dx,) = torch.autograd.grad(y, xt, torch.from_numpy(gy))
+    _close(dx, dx_j)
+
+
+@pytest.mark.parametrize("C,eps", [(64, 1e-5), (16, 1e-6), (8, 1e-6)])
+def test_group_norm_matches_groupnorm32(rng, C, eps):
+    """The flax module the towers use (including its narrow-channel group
+    fallback), on a low-variance input where the epsilon shows."""
+    x = _rand(rng, 2, 4, 4, C, scale=3e-3)
+    mod = junet.GroupNorm32(dtype=jnp.float32, epsilon=eps)
+    params = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree.map(lambda a: jnp.asarray(
+        rng.standard_normal(a.shape).astype(np.float32)), params)
+    y_j = mod.apply(params, jnp.asarray(x))
+    gn = params["params"]["GroupNorm_0"]
+    y = punet.GroupNorm32(C, eps)
+    y.weight.data = torch.from_numpy(np.array(gn["scale"]))
+    y.bias.data = torch.from_numpy(np.array(gn["bias"]))
+    _close(y(torch.from_numpy(x)), y_j)
+
+
+# ---------------------------------------------------------------------------
+# K10 attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ref,N,M,h,d", [
+    ("dense", 12, 12, 2, 8), ("dense", 10, 7, 3, 16),
+    ("chunked", 16, 24, 2, 8), ("chunked", 9, 32, 1, 32)])
+def test_attention_matches_jax_and_its_vjp(rng, ref, N, M, h, d):
+    q, k, v = _rand(rng, 2, N, h, d), _rand(rng, 2, M, h, d), \
+        _rand(rng, 2, M, h, d)
+    fn = dense_attention if ref == "dense" else \
+        (lambda a, b, c: chunked_attention(a, b, c, chunk=8))
+    o_j, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+    go = _rand(rng, *o_j.shape)
+    grads_j = vjp(jnp.asarray(go))
+    qkv = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = attention(*qkv)
+    _close(o, o_j)
+    for g, gj in zip(torch.autograd.grad(o, qkv, torch.from_numpy(go)),
+                     grads_j):
+        _close(g, gj)
+
+
+# ---------------------------------------------------------------------------
+# small ops and traps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,out", [((2, 16, 16, 4), (64, 64)),
+                                       ((1, 64, 48, 3), (16, 12)),
+                                       ((1, 20, 20, 3), (7, 30))])
+def test_resize_bilinear_matches_jax(rng, shape, out):
+    x = _rand(rng, *shape)
+    _close(resize_bilinear(torch.from_numpy(x), out),
+           jresize(jnp.asarray(x), out), rtol=1e-5)
+
+
+def test_perpneg_embeddings_and_aggregator_match_jax(rng):
+    emb = {k: _rand(rng, 1, 6, 8) for k in ("front", "side", "back")}
+    az = np.array([-170.0, -90.0, -10.0, 0.0, 45.0, 89.9, 90.0, 135.0],
+                  np.float32)
+    jemb = {k: jnp.asarray(v) for k, v in emb.items()}
+    pemb = {k: torch.from_numpy(v) for k, v in emb.items()}
+    _close(pperp.interpolate_view_embedding(pemb, torch.from_numpy(az)),
+           jperp.interpolate_view_embedding(jemb, jnp.asarray(az)), 1e-6)
+    pn = pperp.adjust_text_embeddings(pemb, torch.from_numpy(az), -2.0, 2.0,
+                                      10.0)
+    jn = jperp.adjust_text_embeddings(jemb, jnp.asarray(az), -2.0, 2.0, 10.0)
+    _close(pn.text_z, jn.text_z, 1e-6)
+    _close(pn.weights, jn.weights, 1e-5)
+    B = az.shape[0]
+    delta = _rand(rng, 3 * B, 4, 4, 4)
+    _close(pperp.weighted_perpendicular_aggregator(
+        torch.from_numpy(delta), pn.weights, B),
+        jperp.weighted_perpendicular_aggregator(jnp.asarray(delta),
+                                                jn.weights, B), 1e-5)
+
+
+def _geglu_pair(rng):
+    dim, out = 8, 6
+    mod = junet.GEGLU(out, dtype=jnp.float32)
+    x = _rand(rng, 3, dim, scale=2.0)
+    params = mod.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    p = punet.GEGLU(dim, out, torch.float32)
+    k = np.array(params["params"]["proj"]["kernel"])
+    p.proj.weight.data = torch.from_numpy(np.ascontiguousarray(k.T))
+    p.proj.bias.data = torch.from_numpy(
+        np.array(params["params"]["proj"]["bias"]))
+    return p(torch.from_numpy(x)), mod.apply(params, jnp.asarray(x))
+
+
+def _temb_pair(rng):
+    t = np.array([0, 1, 20, 500, 980], np.int32)
+    return (punet.timestep_embedding(torch.from_numpy(t).long(), 32),
+            junet.timestep_embedding(jnp.asarray(t), 32))
+
+
+def _conv_layout_pair(rng):
+    """A Flax MMConv's kernel through params_from_jax's conv layout."""
+    mod = junet.MMConv(5, (3, 3), strides=2, padding=1, dtype=jnp.float32)
+    x = _rand(rng, 1, 7, 6, 4)
+    params = mod.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    sd = params_from_jax({"unet": {"conv_in": jax.tree.map(
+        np.asarray, params["params"]), "down_0_res_0": {}}})["unet"]
+    p = punet.Conv2d(4, 5, stride=2)
+    p.weight.data, p.bias.data = sd["conv_in.weight"], sd["conv_in.bias"]
+    return p(torch.from_numpy(x)), mod.apply(params, jnp.asarray(x))
+
+
+def _add_noise_pair(rng):
+    x, n = _rand(rng, 2, 4, 4, 4), _rand(rng, 2, 4, 4, 4)
+    t = np.array([20, 970])
+    return (psched("sd").add_noise(torch.from_numpy(x), torch.from_numpy(n),
+                                   torch.from_numpy(t)),
+            jsched("sd").add_noise(jnp.asarray(x), jnp.asarray(n),
+                                   jnp.asarray(t)))
+
+
+@pytest.mark.parametrize("pair", [_geglu_pair, _temb_pair, _conv_layout_pair,
+                                  _add_noise_pair])
+def test_numeric_traps_match_jax(rng, pair):
+    """GEGLU's gelu is flax's tanh approximation; the timestep embedding is
+    [cos | sin]; the Flax conv kernel [kh, kw, I, O] lands in K12's
+    [O, kh, kw, I]; the latents are noised with SD's schedule at t."""
+    got, want = pair(rng)
+    _close(got, want, 1e-5)

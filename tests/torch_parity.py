@@ -66,9 +66,12 @@ def jax_choice_draws(k_choice) -> pschedules.ChoiceDraws:
         tt(jax.random.normal(k_light, (3,))))
 
 
-def jax_step_draws(cfg, renderer, base_key, step: int) -> StepDraws:
-    """The draws of Trainer._make_train_step('main') at state.step=step:
-    fold_in(base, step) → split 5 (batch, choice, render, guide, tv)."""
+def jax_step_draws(cfg, renderer, base_key, step: int,
+                   latent_size=None) -> StepDraws:
+    """The draws of Trainer._make_train_step('main' or 'latent') at
+    state.step=step: fold_in(base, step) → split 5 (batch, choice, render,
+    guide, tv).  With ``latent_size`` the guide key feeds SD's sds_loss
+    (split 3: posterior, t, latent noise), else the pixel oracle's."""
     key = jax.random.fold_in(base_key, step)
     k_batch, k_choice, k_render, k_guide, _ = jax.random.split(key, 5)
     pose, fov = jax_batch_draws(k_batch, cfg)
@@ -77,13 +80,29 @@ def jax_step_draws(cfg, renderer, base_key, step: int) -> StepDraws:
     k_march = renderer.apply({}, method=lambda m: m.make_rng("render"),
                              rngs={"render": k_render})
     march_u = (jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S
-    (k_oracle,) = jax.random.split(k_guide, 1)
-    k_t, k_noise = jax.random.split(k_oracle)
+    (k_prior,) = jax.random.split(k_guide, 1)
     lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
-    t = jax.random.randint(k_t, (cfg.batch_size,), lo, hi + 1)
-    noise = jax.random.normal(k_noise, (cfg.batch_size, cfg.h, cfg.w, 3))
-    return StepDraws(pose, fov, jax_choice_draws(k_choice), tt(march_u),
-                     tt(t).long(), tt(noise))
+    B = cfg.batch_size
+    choice = jax_choice_draws(k_choice)
+    if latent_size is None:
+        k_t, k_noise = jax.random.split(k_prior)
+        t = jax.random.randint(k_t, (B,), lo, hi + 1)
+        noise = jax.random.normal(k_noise, (B, cfg.h, cfg.w, 3))
+        return StepDraws(pose, fov, choice, tt(march_u), tt(t).long(),
+                         tt(noise))
+    t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
+    return StepDraws(pose, fov, choice, tt(march_u), t, noise, post)
+
+
+def jax_sd_draws(key, B: int, latent_size: int, t_range):
+    """What StableDiffusionGuidance.sds_loss draws from its key:
+    (t [B], latent noise, posterior noise [B, ls, ls, 4])."""
+    k_enc, k_t, k_noise = jax.random.split(key, 3)
+    lo, hi = int(1000 * t_range[0]), int(1000 * t_range[1])
+    shape = (B, latent_size, latent_size, 4)
+    return (tt(jax.random.randint(k_t, (B,), lo, hi + 1)).long(),
+            tt(jax.random.normal(k_noise, shape)),
+            tt(jax.random.normal(k_enc, shape)))
 
 
 def jax_grid_draws(cfg, base_key, step: int) -> torch.Tensor:
