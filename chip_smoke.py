@@ -15,19 +15,36 @@
    (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32).
+   K7 (rasterize + interpolate, forward and backward) and K8 (marching
+   tets and the three mesh regularizers, forward and backward) run at the
+   DMTet stage's shapes: tet_grid_size 128 (274,625 grid vertices,
+   1,572,864 tets, ~1.9M edge slots, 131,072 triangle slots) and 512²
+   renders; K7's forward also at the texture bake's 1024² (after step 4,
+   on the mesh it exported).
 4. Resets the launch counters and trains the flagship-width oracle path
-   through dreamfusion_tpu_torch.main for 300 steps; requires a finite
-   loss at every logged step, finite gradients, a launch of K1-K4, and an
-   analytic-scene PSNR at least 3 dB above the initial one.
+   (stage 1) through dreamfusion_tpu_torch.main for 300 steps, with one
+   eval (validation PNGs at 800²), rolling checkpoints, an 8-frame 800²
+   turntable (cut from 100 frames) and the textured mesh export; requires
+   a finite loss at every logged step, finite gradients, a launch of
+   K1-K4, an analytic-scene PSNR at least 3 dB above the initial one, and
+   the PNGs, checkpoint, mesh.obj (> 0 faces) and albedo PNG on disk; logs
+   each phase's time.
 5. Resets the counters and trains the SD 2.1 path (full SD 2.1 width,
    random weights from the seed) through dreamfusion_tpu_torch.main for 25
    steps: 6 warm-up steps (render as latent) and 19 through the VAE;
    requires finite losses and gradients, a launch of every kernel and a
    non-zero triplane gradient in both phases; logs s/step and peak memory.
-6. Prints one JSON line with every kernel's route, source, the TPU function
-   it replaces, launches on the SD path, error, times and bound; the last
-   line is the result object.  Any failure exits non-zero and prints no
-   result.
+6. Resets the counters and trains the DMTet stage from the stage-1
+   checkpoint (--dmtet --init_with, oracle guidance, lr 0.002, tet grid
+   128, 512² renders) for 100 steps (cut from thousands) with --save_mesh;
+   requires finite losses and gradients, a launch of every K7/K8 kernel
+   and of K1 and K4, non-zero sdf and deform gradients, a face count in
+   (0, max_tris) and a written mesh.obj; logs s/step, peak memory and the
+   analytic PSNR of the albedo render at the first and last step.
+7. Prints one JSON line with every kernel's route, source, the TPU function
+   it replaces, launches on its path (K1-K4 and K10-K12: the SD run; K7
+   and K8: the DMTet run), error, times and bound; the last line is the
+   result object.  Any failure exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -44,9 +61,23 @@ STEPS = 300
 FLAGSHIP = ["--guidance", "oracle", "--backbone", "triplane",
             "--oracle_scene", "two_sphere", "--lr", "0.01", "--seed", "0",
             "--lambda_3d_normal_smooth", "0"]
+# the run's end: one eval at step 300, a checkpoint per 100-step epoch, an
+# 8-frame turntable at the default 800², the textured mesh
+STAGE1_END = ["--eval_interval", "3", "--dataset_size_test", "8",
+              "--save_mesh", "--ckpt", "scratch"]
 SD_STEPS = 25
 SD_FLAGS = ["--text", "a hamburger", "--backbone", "triplane", "--seed", "0",
-            "--lambda_3d_normal_smooth", "0", "--dataset_size_train", "5"]
+            "--lambda_3d_normal_smooth", "0", "--dataset_size_train", "5",
+            "--eval_interval", "0", "--H", "64", "--W", "64",
+            "--dataset_size_test", "2", "--ckpt", "scratch"]
+DMTET_STEPS = 100
+DMTET_FLAGS = ["--guidance", "oracle", "--backbone", "triplane",
+               "--oracle_scene", "two_sphere", "--seed", "0",
+               "--lambda_3d_normal_smooth", "0", "--dmtet", "--lr", "0.002",
+               "--tet_grid_size", "128", "--dataset_size_test", "8",
+               "--save_mesh", "--ckpt", "scratch",
+               # 10-step blocks: the rate leaves out the first; one eval
+               "--dataset_size_train", "10", "--eval_interval", "10"]
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK = {"bf16": 989e12, "fp32": 67e12}    # dense tensor-core bf16, fp32
@@ -80,9 +111,24 @@ KERNELS = {
     "conv_dgrad": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                    "dreamfusion_tpu/ops/conv.py:95"),
 }
+for _n, _f in (("raster", "raster.cu"), ("interpolate", "raster.cu")):
+    for _d in ("fwd", "bwd"):
+        KERNELS[f"{_n}_{_d}"] = ("cuda", f"dreamfusion_tpu_torch/csrc/{_f}",
+                                 "dreamfusion_tpu/ops/raster.py:" +
+                                 ("44" if _n == "raster" else "205"))
+for _n, _line in (("marching_tets", 59), ("vertex_normals", 103),
+                  ("laplacian", 122), ("normal_consistency", 142)):
+    for _d in ("fwd", "bwd"):
+        KERNELS[f"{_n}_{_d}"] = (
+            "cuda", "dreamfusion_tpu_torch/csrc/marching_tets.cu",
+            f"dreamfusion_tpu/ops/marching_tets.py:{_line}")
 ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
                   "field_head_bwd")
+DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
+                      ("raster", "interpolate", "marching", "vertex",
+                       "laplacian", "normal")) + (
+    "triplane_fwd", "triplane_bwd", "field_head_fwd", "field_head_bwd")
 
 
 class SmokeFailure(Exception):
@@ -127,14 +173,14 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
 
 
 def max_err(a, b) -> float:
-    return max(float((x.float() - y.float()).abs().max())
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
                for x, y in zip(a, b))
 
 
 def assert_close(name, got, want, atol, rtol) -> float:
     """Every pair within atol + rtol·|want|; returns the max abs error."""
     for x, y in zip(got, want):
-        x, y = x.float(), y.float()
+        x, y = x.detach().float(), y.detach().float()
         bad = (x - y).abs() > atol + rtol * y.abs()
         check(not bool(bad.any()),
               f"{name}: {int(bad.sum())} of {y.numel()} values outside "
@@ -488,6 +534,283 @@ def sd_kernel_phases(torch, results):
             nbytes(x, dy, wt, bs, dk), 20 * x.numel(), "fp32", lib, where)
 
 
+def _geometry_tet128(torch, dev, g):
+    """The DMTet stage's grid at tet_grid_size 128 with a two-sphere sdf
+    (the oracle scene's shape) and a small deformation."""
+    from dreamfusion_tpu_torch.mesh.tets import CACHE_DIR, load_cached_tet_grid
+    grid = load_cached_tet_grid(CACHE_DIR / "cube_64.npz", 64)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    v = t(grid.vertices)
+    d1 = 0.36 - torch.linalg.norm(v - torch.tensor([0.26, 0, 0.08],
+                                                   device=dev), dim=-1)
+    d2 = 0.24 - torch.linalg.norm(v - torch.tensor([-0.3, 0, -0.14],
+                                                   device=dev), dim=-1)
+    sdf = torch.clamp(4 * torch.maximum(d1, d2), -1, 1)
+    sdf = torch.where(sdf.abs() < 1e-4, 1e-3, sdf)
+    pos = v + torch.randn(v.shape, device=dev, generator=g) * 2e-3
+    return grid, pos.contiguous(), sdf.contiguous(), t(grid.indices), \
+        t(grid.tet_edges), t(grid.unique_edges)
+
+
+def _raster_ops(ids_listed, T, P):
+    """Operations of the tile sweep for this run's data: ~20 fp32 per
+    (pixel, listed triangle) plus 4 per (tile, scanned triangle)."""
+    counts = ids_listed.sum(1)
+    return float(counts.sum()) * P * 20 + ids_listed.shape[0] * T * 4
+
+
+def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
+                  where, backward):
+    """K7 rasterize (and interpolate of the positions) against the plain
+    version; forward, and backward when asked."""
+    from dreamfusion_tpu_torch.ops import raster as K7
+    dev = sx.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    ins_k = [x.clone().requires_grad_(backward) for x in (sx, sy, sz)]
+    ins_p = [x.clone().requires_grad_(backward) for x in (sx, sy, sz)]
+    ok = K7.raster_cuda(*ins_k, faces, valid, H, W, 32, cap, soft)
+    torch.cuda.synchronize()
+    op = K7.raster_plain(*ins_p, faces, valid, H, W, 32, cap, soft)
+    same = ok.tri_id == op.tri_id
+    frac = float(same.float().mean())
+    check(frac >= 0.9999, f"raster_fwd{where}: tri_id differs on "
+          f"{int((~same).sum())} of {same.numel()} pixels")
+    hit = same & (op.tri_id >= 0)
+    check(float(hit.float().mean()) > 0.01, f"raster_fwd{where}: no hit")
+    err = assert_close("raster_fwd", [ok.bary[hit], ok.depth[same],
+                                      ok.alpha[same]],
+                       [op.bary[hit], op.depth[same], op.alpha[same]],
+                       1e-5, 1e-5)
+    T = faces.shape[0]
+    with torch.no_grad():
+        _, _, _, _, bmin, bmax = K7._face_coeffs(sx, sy, sz, faces.long())
+        _, listed = K7.tile_lists(bmin, bmax, valid, H, W, 32, cap, soft)
+    P = 32 * 32
+    det = [x.detach() for x in (sx, sy, sz)]
+    outs = nbytes(*ok) + nbytes(ok.tri_id)        # + the margin winner ids
+    record_kernel(results, "raster_fwd", err, median_ms(
+        lambda: K7.raster_cuda(*det, faces, valid, H, W, 32, cap, soft)),
+        median_ms(lambda: K7.raster_plain(*det, faces, valid, H, W, 32, cap,
+                                          soft), 5, 1),
+        "tri_id on >= 99.99% of pixels; bary, depth, alpha 1e-5",
+        nbytes(sx, sy, sz, faces, valid) + outs,
+        _raster_ops(listed, T, P), "fp32", None,
+        f" [{H}x{W}, {T} faces, cap {cap}, soft {soft}]")
+    log(f"raster{where}: {float((op.tri_id >= 0).float().mean()):.3f} of "
+        f"pixels covered, {float(listed.sum(1).float().mean()):.1f} "
+        f"triangles listed per tile (max {int(listed.sum(1).max())})")
+
+    # interpolate the surface positions through the kernel's bary
+    V = sx.shape[0]
+    attrs = torch.randn(V, 3, device=dev, generator=g)
+    bk = ok.bary.detach().contiguous()
+    ik = K7.interpolate(attrs, ok._replace(bary=bk), faces)
+    torch.cuda.synchronize()
+    ip = K7.interpolate_plain(attrs, bk, ok.tri_id, faces)
+    err = assert_close("interpolate_fwd", [ik], [ip], 1e-6, 1e-5)
+    Pn = H * W
+    record_kernel(results, "interpolate_fwd", err, median_ms(
+        lambda: K7.interpolate(attrs, ok._replace(bary=bk), faces)),
+        median_ms(lambda: K7.interpolate_plain(attrs, bk, ok.tri_id, faces)),
+        "1e-5 rel", nbytes(attrs, bk, ok.tri_id, faces, ik), Pn * 3 * 6,
+        "fp32", None, where)
+    if not backward:
+        return
+    cots = [torch.randn(o.shape, device=dev, generator=g)
+            for o in (ok.bary, ok.depth, ok.alpha)]
+
+    def loss(o):
+        return sum((x * c).sum() for x, c in zip((o.bary, o.depth, o.alpha),
+                                                  cots))
+    gk = torch.autograd.grad(loss(ok), ins_k, retain_graph=True)
+    torch.cuda.synchronize()
+    gp = torch.autograd.grad(loss(op), ins_p, retain_graph=True)
+    scale = max(float(x.abs().max()) for x in gp)
+    # fp32 atomics in any order; pixels whose winner differs are excluded
+    # above only for the forward, so hold the sums to 1e-4 of the largest
+    err = assert_close("raster_bwd", gk, gp, 1e-4 * scale, 1e-4)
+    saved = [ok.tri_id, ok.alpha]
+    hits = float((ok.tri_id >= 0).sum())
+    record_kernel(results, "raster_bwd", err, median_ms(
+        lambda: torch.autograd.grad(loss(ok), ins_k, retain_graph=True)),
+        median_ms(lambda: torch.autograd.grad(loss(op), ins_p,
+                                              retain_graph=True), 5, 1),
+        "1e-4 of max |grad| + 1e-4 rel (atomics)",
+        nbytes(sx, sy, sz, faces, *saved, ok.tri_id, *cots, *gk),
+        hits * 100 + Pn * 120, "fp32", None, where)
+    a1 = attrs.clone().requires_grad_()
+    b1 = bk.clone().requires_grad_()
+    a2 = attrs.clone().requires_grad_()
+    b2 = bk.clone().requires_grad_()
+    yk = K7.interpolate(a1, ok._replace(bary=b1), faces)
+    yp = K7.interpolate_plain(a2, b2, ok.tri_id, faces)
+    c = torch.randn(yk.shape, device=dev, generator=g)
+    gk = torch.autograd.grad(yk, [a1, b1], c, retain_graph=True)
+    torch.cuda.synchronize()
+    gp = torch.autograd.grad(yp, [a2, b2], c, retain_graph=True)
+    scale = max(float(x.abs().max()) for x in gp)
+    err = assert_close("interpolate_bwd", gk, gp, 1e-5 * scale, 1e-5)
+    record_kernel(results, "interpolate_bwd", err, median_ms(
+        lambda: torch.autograd.grad(yk, [a1, b1], c, retain_graph=True)),
+        median_ms(lambda: torch.autograd.grad(yp, [a2, b2], c,
+                                              retain_graph=True)),
+        "1e-5 of max + 1e-5 rel (atomics)",
+        nbytes(attrs, bk, ok.tri_id, faces, c, *gk), Pn * 3 * 8, "fp32",
+        None, where)
+
+
+def dmtet_kernel_phases(torch, results):
+    """K8 and K7 against their plain versions at the DMTet stage's shapes:
+    tet_grid_size 128, max_tris 131,072, a 512² view of the surface."""
+    from dreamfusion_tpu_torch.config import Config, apply_dmtet, finalize
+    from dreamfusion_tpu_torch.ops import marching_tets as K8
+    from dreamfusion_tpu_torch.ops.raster import project_verts, screen_coords
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    grid, pos, sdf, tets, te, ue = _geometry_tet128(torch, dev, g)
+    max_tris = 8 * 128 ** 2
+    V, F, E = pos.shape[0], tets.shape[0], ue.shape[0]
+    where = f" [V {V}, F {F}, E {E}, max_tris {max_tris}]"
+
+    # ---- marching tets --------------------------------------------------
+    p1, s1 = pos.clone().requires_grad_(), sdf.clone().requires_grad_()
+    p2, s2 = pos.clone().requires_grad_(), sdf.clone().requires_grad_()
+    mk = K8.marching_tets(p1, s1, tets, te, ue, max_tris)
+    torch.cuda.synchronize()
+    mp = K8.marching_tets_plain(p2, s2, tets, te, ue, max_tris)
+    check(bool(torch.equal(mk.faces, mp.faces)) and
+          bool(torch.equal(mk.face_mask, mp.face_mask)),
+          "marching_tets_fwd: faces or mask differ from the plain version")
+    n_faces = int(mk.face_mask.sum())
+    check(0 < n_faces < max_tris, f"marching_tets_fwd: {n_faces} faces")
+    err = assert_close("marching_tets_fwd", [mk.verts], [mp.verts], 1e-6, 0)
+    mt_bytes = nbytes(pos, sdf, tets, te, ue, mk.verts, mk.vert_valid,
+                      mk.faces, mk.face_mask)
+    record_kernel(results, "marching_tets_fwd", err, median_ms(
+        lambda: K8.marching_tets(pos, sdf, tets, te, ue, max_tris)),
+        median_ms(lambda: K8.marching_tets_plain(pos, sdf, tets, te, ue,
+                                                 max_tris), 5),
+        "faces and mask equal, verts 1e-6", mt_bytes, E * 12 + F * 12,
+        "fp32", None, f"{where}, {n_faces} faces")
+    c = torch.randn(mk.verts.shape, device=dev, generator=g)
+    gk = torch.autograd.grad(mk.verts, [p1, s1], c, retain_graph=True)
+    torch.cuda.synchronize()
+    gp = torch.autograd.grad(mp.verts, [p2, s2], c, retain_graph=True)
+    scale = max(float(x.abs().max()) for x in gp)
+    err = assert_close("marching_tets_bwd", gk, gp, 1e-5 * scale, 1e-5)
+    record_kernel(results, "marching_tets_bwd", err, median_ms(
+        lambda: torch.autograd.grad(mk.verts, [p1, s1], c,
+                                    retain_graph=True)),
+        median_ms(lambda: torch.autograd.grad(mp.verts, [p2, s2], c,
+                                              retain_graph=True), 5),
+        "1e-5 of max + 1e-5 rel (atomics)", nbytes(pos, sdf, ue, c, *gk),
+        E * 20, "fp32", None, where)
+
+    # ---- the three regularizers on that surface ---------------------------
+    mesh = K8.TetMesh(mk.verts.detach(), mk.vert_valid, mk.faces,
+                      mk.face_mask)
+    T = max_tris
+    cn = torch.randn(mesh.verts.shape, device=dev, generator=g)
+    regs = {
+        "vertex_normals": (lambda m: K8.vertex_normals(m),
+                           lambda m: K8.vertex_normals_plain(
+                               m.verts, m.faces, m.face_mask),
+                           T * 30 + E * 10, T * 40 + E * 15),
+        "laplacian": (K8.laplacian_smooth_loss,
+                      lambda m: K8.laplacian_plain(m.verts, m.faces,
+                                                   m.face_mask),
+                      T * 30 + E * 12, T * 20 + E * 15),
+        "normal_consistency": (K8.normal_consistency_loss,
+                               lambda m: K8.normal_consistency_plain(
+                                   m.verts, m.faces, m.face_mask),
+                               T * 60, T * 70),
+    }
+    for name, (kern, plain, fops, bops) in regs.items():
+        v1 = mesh.verts.clone().requires_grad_()
+        v2 = mesh.verts.clone().requires_grad_()
+        yk = kern(mesh._replace(verts=v1))
+        torch.cuda.synchronize()
+        yp = plain(mesh._replace(verts=v2))
+        out_bytes = nbytes(yk)
+        err = assert_close(f"{name}_fwd", [yk], [yp],
+                           1e-5 * float(yp.abs().max()), 1e-5)
+        record_kernel(results, f"{name}_fwd", err, median_ms(
+            lambda: kern(mesh)), median_ms(lambda: plain(mesh), 5),
+            "1e-5 rel", nbytes(mesh.verts, mesh.faces, mesh.face_mask) +
+            out_bytes, fops, "fp32", None, f"{where}, {n_faces} faces")
+        cot = cn if name == "vertex_normals" else torch.ones((), device=dev)
+        gk = torch.autograd.grad(yk, v1, cot, retain_graph=True)
+        torch.cuda.synchronize()
+        gp = torch.autograd.grad(yp, v2, cot, retain_graph=True)
+        scale = float(gp[0].abs().max())
+        check(scale > 0, f"{name}_bwd: zero gradient")
+        err = assert_close(f"{name}_bwd", gk, gp, 1e-4 * scale, 1e-4)
+        record_kernel(results, f"{name}_bwd", err, median_ms(
+            lambda: torch.autograd.grad(yk, v1, cot, retain_graph=True)),
+            median_ms(lambda: torch.autograd.grad(yp, v2, cot,
+                                                  retain_graph=True), 5),
+            "1e-4 of max + 1e-4 rel (atomics)",
+            nbytes(mesh.verts, mesh.faces, mesh.face_mask, *gk) +
+            (nbytes(cn) if name == "vertex_normals" else 0), bops, "fp32",
+            None, where)
+
+    # ---- K7 at the DMTet view: 512², cap 512, soft edge 1 ------------------
+    cfg = finalize(apply_dmtet(Config(guidance=("oracle",),
+                                      backbone="triplane")))
+    b = circle_view_batch(cfg, 1, 4, cfg.h, cfg.w, dev)
+    clip = project_verts(mesh.verts, b.mvp[0])
+    sx, sy, sz, valid = screen_coords(clip, mesh.faces, mesh.face_mask,
+                                      cfg.h, cfg.w)
+    record_raster(torch, results, sx.contiguous(), sy.contiguous(),
+                  sz.contiguous(), mesh.faces, valid, cfg.h, cfg.w, 512, 1.0,
+                  " (DMTet view)", True)
+
+
+def bake_kernel_phase(torch, results, obj_path):
+    """K7 forward at the texture bake's shape: the UV atlas of the mesh the
+    oracle run exported, 1024², soft edge 0, cap min(1024, T)."""
+    from dreamfusion_tpu_torch.mesh.export import read_obj
+    from dreamfusion_tpu_torch.ops.raster import screen_coords
+    dev = torch.device("cuda")
+    _, tris, uv, _ = read_obj(obj_path)
+    u = torch.from_numpy(uv).to(dev)
+    clip = torch.stack([u[:, 0] * 2 - 1, -(u[:, 1] * 2 - 1),
+                        torch.zeros_like(u[:, 0]),
+                        torch.ones_like(u[:, 0])], -1)
+    faces = torch.from_numpy(tris).to(dev)
+    T = faces.shape[0]
+    sx, sy, sz, valid = screen_coords(
+        clip, faces, torch.ones(T, dtype=torch.bool, device=dev), 1024, 1024)
+    record_raster(torch, results, sx.contiguous(), sy.contiguous(),
+                  sz.contiguous(), faces, valid, 1024, 1024, min(1024, T),
+                  0.0, " (texture bake)", False)
+
+
+def _rounded(d) -> dict:
+    return {k: round(v, 3) for k, v in d.items()}
+
+
+def _check_outputs(ws, summary, what) -> None:
+    """Validation PNGs, the turntable (mp4 or PNG frames) and a mesh.obj
+    with faces and its albedo PNG."""
+    from dreamfusion_tpu_torch.mesh.export import read_obj
+    val = os.listdir(os.path.join(ws, "validation"))
+    res = os.listdir(os.path.join(ws, "results"))
+    check(any(n.endswith("_rgb.png") for n in val),
+          f"{what}: no validation PNG in {ws}")
+    check("df_rgb.mp4" in res or "df_rgb_0000.png" in res,
+          f"{what}: no turntable in {res}")
+    path = summary.get("mesh_path") or ""
+    check(path.endswith("mesh.obj") and os.path.exists(path),
+          f"{what}: no mesh.obj written ({path!r})")
+    _, tris, uv, tex = read_obj(path)
+    check(len(tris) > 0 and uv is not None and tex is not None and
+          os.path.exists(tex), f"{what}: mesh.obj without faces or texture")
+    log(f"{what}: {path} with {len(tris)} faces and {os.path.basename(tex)}")
+
+
 def run() -> dict:
     try:
         import torch
@@ -516,20 +839,30 @@ def run() -> dict:
     for line in kernels.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
+    from dreamfusion_tpu_torch.native import meshops
+    t0 = time.time()
+    meshops.build()
+    log(f"host mesh library built with g++ in {time.time() - t0:.1f} s "
+        f"(build/meshops)")
 
     results = {}
     kernel_phases(torch, results)
     sd_kernel_phases(torch, results)
+    t_k = time.time()
+    dmtet_kernel_phases(torch, results)
+    log(f"K7/K8 phases in {time.time() - t_k:.1f} s")
 
-    # ---- the oracle path (slice 1) ----------------------------------------
+    # ---- the oracle path, stage 1 with the run's end (slices 1, 3) --------
     kernels.reset_launch_counts()
     ws = os.path.join(ROOT, "build", "chip_smoke_ws")
-    summary = port_main.main(FLAGSHIP + ["--iters", str(STEPS),
-                                         "--workspace", ws])
+    summary = port_main.main(FLAGSHIP + STAGE1_END + [
+        "--iters", str(STEPS), "--workspace", ws])
     launches = dict(kernels.LAUNCHES)
     log(f"oracle path: {STEPS} steps, steady {summary['steady_its']:.3f} "
         f"it/s, PSNR {summary['psnr_init']:.3f} -> "
         f"{summary['psnr_final']:.3f} dB, launches {launches}")
+    log(f"oracle run's end (s): {_rounded(summary['phases'])}; export "
+        f"phases (s): {_rounded(summary['export_phases'])}; on {smi_line}")
     check(summary["all_losses_finite"],
           f"non-finite loss: {summary['losses']}")
     check(summary["grad_ok"], "a step had non-finite gradients")
@@ -537,6 +870,11 @@ def run() -> dict:
         check(launches[name] > 0, f"the oracle path never launched {name}")
     gain = summary["psnr_final"] - summary["psnr_init"]
     check(gain >= 3.0, f"PSNR rose only {gain:.3f} dB (bar: 3 dB)")
+    _check_outputs(ws, summary, "oracle")
+    ckpts = os.listdir(os.path.join(ws, "checkpoints"))
+    check("df_ep0003.pth" in ckpts and "df.pth" in ckpts,
+          f"stage-1 checkpoints missing: {sorted(ckpts)}")
+    bake_kernel_phase(torch, results, summary["mesh_path"])
 
     # ---- the SD 2.1 path (slice 2), full width ------------------------------
     torch.cuda.synchronize()
@@ -548,6 +886,7 @@ def run() -> dict:
                                                  "chip_smoke_sd_ws")])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    sd_launches = launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     main_blocks = sd["blocks"][2:]        # steps 11-25: all after warm-up
     s_step = sum(t for _, t in main_blocks) / sum(n for n, _ in main_blocks)
@@ -560,8 +899,10 @@ def run() -> dict:
         f"{launches}")
     check(sd["all_losses_finite"], f"non-finite SD loss: {sd['losses']}")
     check(sd["grad_ok"], "an SD step had non-finite gradients")
-    for name, n in launches.items():
-        check(n > 0, f"the SD path never launched {name}")
+    for name in ORACLE_KERNELS + ("attention_fwd", "attention_bwd",
+                                  "groupnorm_fwd", "groupnorm_bwd",
+                                  "conv_fwd", "conv_dgrad"):
+        check(launches[name] > 0, f"the SD path never launched {name}")
     for latent in (True, False):
         gm = [gr for gr, ph in zip(sd["triplane_grad_max"],
                                    sd["latent_phase"]) if ph == latent]
@@ -569,9 +910,47 @@ def run() -> dict:
         check(len(gm) > 0 and all(g > 0 for g in gm),
               f"zero triplane gradient in the {phase} phase: {gm}")
 
+    # ---- the DMTet stage from the stage-1 checkpoint (slice 3) --------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_dm = time.time()
+    ws2 = os.path.join(ROOT, "build", "chip_smoke_dmtet_ws")
+    dm = port_main.main(DMTET_FLAGS + [
+        "--iters", str(DMTET_STEPS), "--workspace", ws2, "--init_with",
+        os.path.join(ws, "checkpoints")])
+    torch.cuda.synchronize()
+    dm_launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = dm["blocks"][1:]
+    s_step = sum(t for _, t in steady) / sum(n for n, _ in steady)
+    log(f"DMTet path: {DMTET_STEPS} steps in {time.time() - t_dm:.1f} s "
+        f"(start-up and run's end included), losses {dm['losses']}, "
+        f"{s_step:.4f} s/step over steps 11-{DMTET_STEPS} (ms/step by "
+        f"block {[round(1e3 * t / n, 2) for n, t in dm['blocks']]}), peak "
+        f"device memory {peak_gib:.2f} GiB, "
+        f"faces {dm['n_faces'][0]} -> {dm['n_faces'][-1]} of "
+        f"{dm['max_tris']}, albedo PSNR {dm['psnr_init']:.3f} -> "
+        f"{dm['psnr_final']:.3f} dB, run's end (s) "
+        f"{_rounded(dm['phases'])}, export (s) "
+        f"{_rounded(dm['export_phases'])}, on {smi_line}, launches "
+        f"{dm_launches}")
+    check(dm["all_losses_finite"], f"non-finite DMTet loss: {dm['losses']}")
+    check(dm["grad_ok"], "a DMTet step had non-finite gradients")
+    for name in DMTET_KERNELS:
+        check(dm_launches[name] > 0, f"the DMTet path never launched {name}")
+    for gname in ("sdf", "deform"):
+        gm = dm[f"{gname}_grad_max"]
+        check(all(g > 0 for g in gm), f"zero {gname} gradient: {gm}")
+    check(all(0 < n < dm["max_tris"] for n in dm["n_faces"]),
+          f"face counts outside (0, max_tris): {dm['n_faces']}")
+    _check_outputs(ws2, dm, "DMTet")
+
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": (dm_launches if name in DMTET_KERNELS and
+                      name not in ORACLE_KERNELS else sd_launches)[name],
+         **results[name]}
         for name, (route, src, rep) in KERNELS.items()]}
     print(json.dumps(line), flush=True)
     return {"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
 only the fields the ported paths (the oracle and SD 2.1 guidance on the
-triplane backbone) read are carried.  ``finalize`` applies the fix-ups
+triplane backbone, the run's end and the DMTet stage) read are carried.
+``apply_dmtet`` is the ``--dmtet`` preset; ``finalize`` applies the fix-ups
 those paths need: the oracle preset and the resolved exposure range.
 """
 
@@ -23,7 +24,12 @@ class Config:
     seed: Optional[int] = None
     test: bool = False
     six_views: bool = False
+    eval_interval: int = 1
+    save_interval: int = 1
     save_mesh: bool = False
+    mcubes_resolution: int = 256
+    decimate_target: int = 50000
+    ckpt: str = "latest"
 
     # ---- guidance ----
     guidance: Tuple[str, ...] = ("SD",)
@@ -33,6 +39,7 @@ class Config:
     fp16: bool = True
     t_range: Tuple[float, float] = (0.02, 0.98)
     image: Optional[str] = None
+    dmtet_reso_scale: float = 8.0
     bg_radius: float = 1.4
 
     # ---- training ----
@@ -80,8 +87,11 @@ class Config:
     # ---- camera / dataset ----
     w: int = 64
     h: int = 64
+    H: int = 800                       # eval and test render resolution
+    W: int = 800
     dataset_size_train: int = 100
     dataset_size_valid: int = 8
+    dataset_size_test: int = 100
     batch_size: int = 1
     radius_range: Tuple[float, float] = (3.0, 3.5)
     theta_range: Tuple[float, float] = (45.0, 105.0)
@@ -102,6 +112,8 @@ class Config:
     lambda_orient: float = 1e-2
     lambda_tv: float = 0.0
     lambda_wd: float = 0.0
+    lambda_mesh_normal: float = 0.5
+    lambda_mesh_laplacian: float = 0.5
     lambda_guidance: float = 1.0
     lambda_normal: float = 0.0
     lambda_2d_normal_smooth: float = 0.0
@@ -113,17 +125,32 @@ class Config:
     front_decay_factor: float = 2.0
     side_decay_factor: float = 10.0
 
-    # ---- DMTet (not ported; the trainer refuses it) ----
+    # ---- DMTet stage ----
     dmtet: bool = False
+    tet_grid_size: int = 128
+    init_with: str = ""
+    lock_geo: bool = False
 
     # ---- misc ----
     ema_decay: float = 0.95
+    max_keep_ckpt: int = 2
     exp_start_iter: Optional[int] = None
     exp_end_iter: Optional[int] = None
 
     @property
     def cascade(self) -> int:
         return 1 + max(0, int(math.ceil(math.log2(max(self.bound, 1.0)))))
+
+
+def apply_dmtet(cfg: Config) -> Config:
+    """The DMTet refinement stage's overrides (``--dmtet``): training
+    renders ``dmtet_reso_scale`` times larger, the lower half of the
+    timestep range, no warm-up or albedo phase."""
+    h = int(cfg.h * cfg.dmtet_reso_scale)
+    w = int(cfg.w * cfg.dmtet_reso_scale)
+    return replace(cfg, dmtet=True, h=h, w=w, t_range=(0.02, 0.5),
+                   latent_iter_ratio=0.0, albedo_iter_ratio=0.0,
+                   progressive_view=False)
 
 
 def finalize(cfg: Config) -> Config:

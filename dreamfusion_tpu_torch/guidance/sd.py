@@ -22,6 +22,7 @@ from ..models.clip import CLIPTextConfig, CLIPTextEncoder
 from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.resize import resize_bilinear
+from ..utils.device import resolve_device
 from .perpneg import weighted_perpendicular_aggregator
 from .schedule import NoiseSchedule, make_schedule
 
@@ -60,9 +61,9 @@ class SDConfig:
 
 
 class StableDiffusionGuidance:
-    def __init__(self, cfg: SDConfig, device="cpu"):
+    def __init__(self, cfg: SDConfig, device="cuda"):
         self.cfg = cfg
-        with torch.device(device):
+        with torch.device(resolve_device(device)):
             self.unet = UNet2DCondition(cfg.unet_config())
             self.vae = AutoencoderKL(cfg.vae_config())
             self.text_encoder = CLIPTextEncoder(cfg.text_config())

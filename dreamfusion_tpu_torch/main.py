@@ -5,19 +5,30 @@
         --iters 10000 --workspace ws                  # SD 2.1 guidance
     python -m dreamfusion_tpu_torch.main --guidance oracle \\
         --backbone triplane --oracle_scene two_sphere --iters 10000 \\
-        --lr 0.01 --seed 0 --lambda_3d_normal_smooth 0 --workspace ws
+        --lr 0.01 --seed 0 --lambda_3d_normal_smooth 0 --save_mesh \\
+        --ckpt scratch --workspace ws                 # stage 1
+    python -m dreamfusion_tpu_torch.main --guidance oracle \\
+        --backbone triplane --dmtet --init_with ws/checkpoints --lr 0.002 \\
+        --iters 5000 --save_mesh --workspace ws_dmtet  # stage 2 (DMTet)
 
-Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``.  The run
-goes on the GPU; ``--device cpu`` asks for the CPU (the kernels' plain
-versions).  SD guidance runs its towers at full SD 2.1 width with random
-weights drawn from the seed (no pretrained weights ship with the
-repository); ``--tiny_guidance`` uses the test-size towers.  The prompt
-embeddings are computed once at start-up.  The run logs loss and it/s
-every ``dataset_size_train`` steps; under ``--guidance oracle`` it also
-prints the analytic-scene PSNR of the EMA weights at the start and at the
-end.  Flags of parts not ported yet raise NotImplementedError naming the
-ROADMAP item.  Checkpoints, eval and test video and mesh export are not
-ported yet.
+Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``--dmtet``
+applies the DMTet preset (``config.apply_dmtet``).  The run goes on the GPU;
+``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
+guidance runs its towers at full SD 2.1 width with random weights drawn
+from the seed (no pretrained weights ship with the repository);
+``--tiny_guidance`` uses the test-size towers.
+
+A run resumes from ``--ckpt`` (default ``latest``; ``scratch`` starts
+afresh), logs loss and it/s every ``dataset_size_train`` steps (an epoch),
+evaluates every ``eval_interval`` epochs (validation PNGs at H×W, the
+EMA-only ``df`` checkpoint kept best by the metric) and saves the rolling
+checkpoint every ``save_interval`` epochs; the block rates leave out the
+time of evals and saves.  It ends with the turntable video (or PNG frames)
+and, with ``--save_mesh``, ``mesh/mesh.obj`` with its albedo texture.
+``--test`` renders and exports from the checkpoint without training.
+Under ``--guidance oracle`` it also logs the analytic-scene PSNR of the EMA
+weights at the start and the end.  Flags of parts not ported yet raise
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,10 +43,15 @@ from typing import Any, Dict
 
 import torch
 
-from .config import Config, finalize
+from .config import Config, apply_dmtet, finalize
 from .guidance.embeddings import prepare_text_embeddings
 from .guidance.sd import SDConfig, StableDiffusionGuidance
-from .training.trainer import Trainer, check_slice, draw_grid
+from .mesh.export import export_mesh
+from .training.dmtet_trainer import DMTetTrainer
+from .training.trainer import Trainer, check_slice
+from .utils.device import resolve_device
+
+TEX_RES = 1024        # the exported albedo texture's side
 
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "exp_start_iter": int, "exp_end_iter": int}
@@ -82,17 +98,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         v = getattr(args, f.name, None)
         if v is not None:
             overrides[f.name] = tuple(v) if isinstance(v, list) else v
-    return finalize(replace(Config(), **overrides))
-
-
-def resolve_device(name: str) -> torch.device:
-    """The requested device; a CUDA request without a card is an error."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass --device cpu to run on the "
-            "CPU (the kernels' plain versions)")
-    return device
+    cfg = replace(Config(), **overrides)
+    return finalize(apply_dmtet(cfg) if cfg.dmtet else cfg)
 
 
 def build_sd_guidance(cfg: Config, tiny: bool, device, seed: int):
@@ -110,8 +117,12 @@ def build_sd_guidance(cfg: Config, tiny: bool, device, seed: int):
 def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     """The trainer, its state and the step generator of a run."""
     seed = cfg.seed or 0
+    if cfg.dmtet:
+        trainer = DMTetTrainer(cfg, device)
+        state = trainer.init_state(seed, cfg.init_with)
+        return trainer, state, torch.Generator(device=device).manual_seed(seed)
     guidance = emb = None
-    if cfg.guidance != ("oracle",):
+    if cfg.guidance != ("oracle",) and not cfg.test:
         t_g = time.time()
         guidance, emb = build_sd_guidance(cfg, tiny_guidance, device, seed)
         log(f"[startup] SD {cfg.sd_version} guidance "
@@ -122,18 +133,16 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     return trainer, state, torch.Generator(device=device).manual_seed(seed)
 
 
-def run_step(trainer: Trainer, state, gen: torch.Generator):
-    """One training step at state.step, with the density-grid refresh on
-    its cadence → (metrics, gradients)."""
-    cfg = trainer.cfg
-    if state.step % cfg.update_extra_interval == 0:
-        trainer.update_grid(state, draw_grid(gen, cfg, trainer.device))
-    return trainer.train_step(state, trainer.draw_step(gen))
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Train; returns a summary (logged losses, rates, grad_ok and, under
-    the oracle, the PSNRs)."""
+    """Train (or, with --test, only render and export); returns a summary:
+    logged losses, block rates, grad_ok, per-step gradient maxima, the
+    wall seconds of the run's end (``phases``) and, under the oracle, the
+    PSNRs; a DMTet run adds its face counts and regularizer values."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     check_slice(cfg)
@@ -148,48 +157,111 @@ def main(argv=None) -> Dict[str, Any]:
 
     oracle = cfg.guidance == ("oracle",)
     trainer, state, gen = build_run(cfg, device, args.tiny_guidance, log)
+    if cfg.ckpt != "scratch":
+        state, loaded = trainer.load_checkpoint(state, cfg.ckpt)
+        if loaded:
+            log(f"[ckpt] resumed from step {state.step}")
+    summary: Dict[str, Any] = {"device": str(device), "steps": cfg.iters,
+                               "phases": {}}
+    phases = summary["phases"]
+
+    def timed(name: str, fn, *a, **kw):
+        t = time.time()
+        out = fn(*a, **kw)
+        _sync(device)
+        phases[name] = phases.get(name, 0.0) + time.time() - t
+        return out
+
+    def finish(six_views: bool = False) -> Dict[str, Any]:
+        timed("test", trainer.test, state, six_views=six_views)
+        if cfg.save_mesh:
+            ex: Dict[str, float] = {}
+            summary["mesh_path"] = timed(
+                "export", export_mesh, trainer, state,
+                os.path.join(cfg.workspace, "mesh"),
+                resolution=cfg.mcubes_resolution,
+                decimate_target=cfg.decimate_target, tex_res=TEX_RES,
+                phases=ex)
+            summary["export_phases"] = ex
+        log(f"[end] phases (s): "
+            f"{ {k: round(v, 3) for k, v in phases.items()} }")
+        return summary
+
+    if cfg.test:
+        return finish(cfg.six_views)
+
     if oracle:
         psnr0 = trainer.oracle_eval_metric(state)
-        log(f"[eval] step 0 oracle PSNR {psnr0:.4f} dB")
+        log(f"[eval] step {state.step} oracle PSNR {psnr0:.4f} dB")
+        summary["psnr_init"] = psnr0
 
     ok = torch.ones((), dtype=torch.bool, device=device)
-    losses, blocks, tri_grad = [], [], []
-    tri = [i for i, (n, _) in enumerate(state.renderer.named_parameters())
-           if "triplanes" in n]
+    losses, blocks, grad_max, extra = [], [], [], []
+    names = [n for n, _ in trainer.module(state).named_parameters()]
+    # per step, the largest |gradient| of each watched group
+    groups = {"triplane": [i for i, n in enumerate(names)
+                           if "triplanes" in n]}
+    if cfg.dmtet:
+        groups.update(sdf=[names.index("geo.sdf")],
+                      deform=[names.index("geo.deform")])
     t0 = t_blk = time.time()
-    s_blk = 0
-    for step in range(cfg.iters):
-        metrics, grads = run_step(trainer, state, gen)
+    s_blk = start = state.step
+    for _ in range(start, cfg.iters):
+        metrics, grads = trainer.run_step(state, gen)
         ok &= metrics["grad_ok"]
-        tri_grad.append(torch.stack([grads[i].abs().max() for i in tri]).max())
-        done = step + 1
+        grad_max.append(torch.stack([
+            torch.stack([grads[i].abs().max() for i in idx]).max()
+            for idx in groups.values()]))
+        if cfg.dmtet:
+            extra.append(torch.stack([metrics["n_faces"].float(),
+                                      metrics["normal_loss"],
+                                      metrics["lap_loss"]]))
+        done = state.step
         if done % cfg.dataset_size_train == 0 or done == cfg.iters:
             loss = float(metrics["loss"])          # waits for the device
             now = time.time()
             rate = (done - s_blk) / (now - t_blk)
             losses.append(loss)
             blocks.append((done - s_blk, now - t_blk))
-            t_blk, s_blk = now, done
             log(f"[step {done}/{cfg.iters}] loss={loss:.4f} "
-                f"mean_density={float(state.mean_density):.3f} "
-                f"({done / (now - t0):.2f} it/s avg, {rate:.2f} block)")
-    steady = blocks[1:] or blocks
-    steady_its = sum(n for n, _ in steady) / sum(t for _, t in steady)
-    log(f"[train] steady {steady_its:.3f} it/s over "
-        f"{sum(n for n, _ in steady)} steps after the first block")
-    summary = {"losses": losses, "steady_its": steady_its, "blocks": blocks,
-               "grad_ok": bool(ok),
-               "all_losses_finite": all(math.isfinite(l) for l in losses),
-               # per step: largest |d loss / d triplanes| and the phase
-               "triplane_grad_max": torch.stack(tri_grad).tolist(),
-               "latent_phase": [trainer.latent_phase(s)
-                                for s in range(cfg.iters)],
-               "steps": cfg.iters, "device": str(device)}
+                f"({(done - start) / (now - t0):.2f} it/s avg, {rate:.2f} "
+                f"block)")
+            epoch = trainer.epoch(state)
+            if cfg.eval_interval > 0 and epoch % cfg.eval_interval == 0:
+                metric = timed("eval", trainer.evaluate, state)
+                timed("save", trainer.save_checkpoint, state, full=False,
+                      metric=metric)
+            if epoch % max(cfg.save_interval, 1) == 0 or done == cfg.iters:
+                timed("save", trainer.save_checkpoint, state)
+            # the block rates leave out evals and saves
+            t_blk, s_blk = time.time(), done
+    n_run = state.step - start
+    if blocks:
+        steady = blocks[1:] or blocks
+        summary["steady_its"] = sum(n for n, _ in steady) / \
+            sum(t for _, t in steady)
+        log(f"[train] steady {summary['steady_its']:.3f} it/s over "
+            f"{sum(n for n, _ in steady)} steps after the first block")
+    gm = torch.stack(grad_max).tolist() if grad_max else []
+    summary.update(
+        losses=losses, blocks=blocks, grad_ok=bool(ok),
+        all_losses_finite=all(math.isfinite(l) for l in losses),
+        latent_phase=[trainer.latent_phase(s) for s in range(start,
+                                                             cfg.iters)],
+        steps_run=n_run,
+        **{f"{g}_grad_max": [row[k] for row in gm]
+           for k, g in enumerate(groups)})
+    if cfg.dmtet and extra:
+        ex = torch.stack(extra).tolist()
+        summary.update(n_faces=[int(r[0]) for r in ex],
+                       normal_loss=[r[1] for r in ex],
+                       lap_loss=[r[2] for r in ex],
+                       max_tris=trainer.dmtet_renderer.max_tris)
     if oracle:
         psnr1 = trainer.oracle_eval_metric(state)
-        log(f"[eval] step {cfg.iters} oracle PSNR {psnr1:.4f} dB")
-        summary.update(psnr_init=psnr0, psnr_final=psnr1)
-    return summary
+        log(f"[eval] step {state.step} oracle PSNR {psnr1:.4f} dB")
+        summary["psnr_final"] = psnr1
+    return finish()
 
 
 if __name__ == "__main__":

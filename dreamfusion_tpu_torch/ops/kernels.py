@@ -44,6 +44,12 @@ LAUNCHES: Dict[str, int] = {
     "attention_fwd": 0, "attention_bwd": 0,     # K10, CUDA C++
     "groupnorm_fwd": 0, "groupnorm_bwd": 0,     # K11, Triton
     "conv_fwd": 0, "conv_dgrad": 0,             # K12, CUDA C++
+    "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
+    "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
+    "marching_tets_fwd": 0, "marching_tets_bwd": 0,          # K8, CUDA C++
+    "vertex_normals_fwd": 0, "vertex_normals_bwd": 0,        # K8
+    "laplacian_fwd": 0, "laplacian_bwd": 0,                  # K8
+    "normal_consistency_fwd": 0, "normal_consistency_bwd": 0,  # K8
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -61,6 +67,18 @@ _SIGNATURES = {
     "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
     "attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "raster_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 7 + [_P],
+    "raster_bwd": [_P] * 10 + [_I] * 2 + [_F] + [_P] * 3 + [_P],
+    "interpolate_fwd": [_P] * 4 + [_I] * 2 + [_P, _P],
+    "interpolate_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_P],
+    "marching_tets_fwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
+    "marching_tets_bwd": [_P] * 3 + [_I] + [_P] * 3 + [_P],
+    "vertex_normals_fwd": [_P] * 3 + [_I] * 2 + [_P] * 2 + [_P],
+    "vertex_normals_bwd": [_P] * 6 + [_I] * 2 + [_P] * 2 + [_P],
+    "laplacian_fwd": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_P],
+    "laplacian_bwd": [_P] * 6 + [_I] * 2 + [_P] * 2 + [_P],
+    "normal_consistency_fwd": [_P] * 3 + [_I] * 2 + [_P] * 8 + [_P],
+    "normal_consistency_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_P],
 }
 
 _lock = threading.Lock()

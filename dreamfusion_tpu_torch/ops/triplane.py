@@ -8,9 +8,13 @@ scale; x is ``[N, 3]`` in [0, 1].
 
 On a CUDA tensor each scale is one launch of the CUDA kernel in
 ``csrc/triplane.cu`` forward and one backward; on a CPU tensor the plain
-version below runs.  Positions carry no gradient; the planes do, through
-both the features and the jacobian, so normals built from the jacobian
-differentiate into the planes with first-order autograd only.
+version below runs.  The planes carry gradients through both the
+features and the jacobian, so normals built from the jacobian
+differentiate into the planes with first-order autograd only.  Positions
+carry the features' gradient when they ask for one (the DMTet stage
+queries albedo at rasterized surface points): dL/dx = Σ g·∂feat/∂x, the
+jacobian from one more forward launch; the jacobian's own gradient into
+the positions (a second derivative) is on no path and raises.
 """
 
 from __future__ import annotations
@@ -165,13 +169,22 @@ def triplane_bwd_cuda(x: torch.Tensor, planes_shape: Sequence[int],
     return dplanes
 
 
+def _x_grad(x, planes, g_feat):
+    """dL/dx [N,3] = Σ_c g_feat · ∂feat/∂x (in [0,1] units)."""
+    fwd = triplane_fwd_cuda if x.is_cuda else \
+        (lambda *a: triplane_fwd_plain(*a[:3]))
+    _, *jac = fwd(x, planes, True, torch.float32)
+    g = g_feat.float()
+    return torch.stack([(g * j).sum(-1) for j in jac], -1)
+
+
 class _TriplaneScale(torch.autograd.Function):
-    """One scale of the encoder; gradient into the planes only."""
+    """One scale of the encoder."""
 
     @staticmethod
     def forward(ctx, x, planes, need_jacobian: bool, out_dtype):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, planes if ctx.needs_input_grad[0] else None)
         ctx.planes_shape = tuple(planes.shape)
         if x.is_cuda:
             outs = triplane_fwd_cuda(x, planes, need_jacobian, out_dtype)
@@ -184,12 +197,20 @@ class _TriplaneScale(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_feat, *g_j):
-        (x,) = ctx.saved_tensors
+        x, planes = ctx.saved_tensors
         g_j = tuple(g_j) + (None,) * (3 - len(g_j))
         if g_feat is None and all(g is None for g in g_j):
             return None, None, None, None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            if any(g is not None for g in g_j):
+                raise NotImplementedError(
+                    "the jacobian's gradient into the positions is not "
+                    "implemented")
+            if g_feat is not None:
+                dx = _x_grad(x, planes.detach(), g_feat)
         bwd = triplane_bwd_cuda if x.is_cuda else triplane_bwd_plain
-        return None, bwd(x, ctx.planes_shape, g_feat, g_j), None, None
+        return dx, bwd(x, ctx.planes_shape, g_feat, g_j), None, None
 
 
 def triplane_encode(x: torch.Tensor, planes: Sequence[torch.Tensor],

@@ -5,12 +5,13 @@
         --iters 40 --profile_steps 4
 
 Takes every flag of ``dreamfusion_tpu_torch.main``.  For each phase of the
-run (the SD warm-up, then the main phase; the oracle has only the main
-phase) it runs ``--warmup_steps`` steps unprofiled, then ``--profile_steps``
-steps under ``torch.profiler`` and prints, per step: the host wall time
-(synchronised), the device's kernel time and busy share (the union of the
-kernels' intervals over the wall time), and the kernel time by group (the
-port's kernels K1-K12, matrix products, everything else) and by name.
+run (the SD warm-up, then the main phase; the oracle and the DMTet stage
+have only the main phase) it runs ``--warmup_steps`` steps unprofiled,
+then ``--profile_steps`` steps under ``torch.profiler`` and prints, per
+step: the host wall time (synchronised), the device's kernel time and busy
+share (the union of the kernels' intervals over the wall time), and the
+kernel time by group (the port's kernels K1-K12, matrix products,
+everything else) and by name.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ from collections import defaultdict
 
 import torch
 
-from .main import (build_parser, build_run, config_from_args, resolve_device,
-                   run_step)
+from .main import build_parser, build_run, config_from_args, resolve_device
 from .training.trainer import check_slice
 
 GROUPS = [  # (group, kernel-name pattern), first match wins
+    ("K7 raster", r"\b(raster|interpolate)_\w+_kernel"),
+    ("K8 marching tets", r"\b(mt|vn|lap|nc)_\w+_kernel"),
     ("K12 conv", r"conv_mma_kernel|conv_simple_kernel"),
     ("K10 attention", r"attn_"),
     ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"),
@@ -62,7 +64,7 @@ def profile_phase(trainer, state, gen, n_steps: int, label: str) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            run_step(trainer, state, gen)
+            trainer.run_step(state, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -110,9 +112,9 @@ def main(argv=None) -> None:
         phases.insert(0, "warm-up (render as latent)")
     for label in phases:
         while label == "main phase" and trainer.latent_phase(state.step):
-            run_step(trainer, state, gen)
+            trainer.run_step(state, gen)
         for _ in range(args.warmup_steps):
-            run_step(trainer, state, gen)
+            trainer.run_step(state, gen)
         torch.cuda.reset_peak_memory_stats()
         profile_phase(trainer, state, gen, args.profile_steps, label)
         print(f"[profile] {label}: peak device memory "

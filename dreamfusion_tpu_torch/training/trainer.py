@@ -1,7 +1,10 @@
 """The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
 ported paths): state init, the step (render → SDS from the pixel oracle or
 Stable Diffusion → entropy and orient regularizers → backward → guarded
-Adan → EMA), the density-grid update and the analytic-scene PSNR.
+Adan → EMA), the density-grid update, and the run's end: eval renders with
+the analytic-scene PSNR, the turntable video and the checkpoints
+(``torch.save``; the rolling ``df_ep*`` ones and the EMA-only ``df`` kept
+best by the eval metric).
 
 Under SD the first ``latent_iter_ratio`` of the run is the warm-up phase:
 normal shading at ambient 1, no background MLP, and the rgb + alpha render
@@ -18,17 +21,20 @@ to keep one copy of each.
 
 from __future__ import annotations
 
+import copy
+import glob
+import json
 import math
+import os
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
 from ..config import Config
 from ..core.math import safe_normalize
-from ..core.poses import PoseDraws, circle_poses
-from ..core.rays import get_rays, intrinsics_from_fov
+from ..core.poses import PoseDraws
 from ..core.sampling import stratified_u
 from ..evaluation.analytic import scene_views
 from ..guidance.oracle import PixelOracleGuidance
@@ -37,8 +43,11 @@ from ..guidance.perpneg import (adjust_text_embeddings,
 from ..models.nerf import SHADING_ALBEDO, SHADING_NORMAL
 from ..models.renderer import NeRFRenderer, RenderFlags
 from ..ops.occupancy import update_density_grid
+from ..utils.device import resolve_device
+from ..utils.image import colorize_depth, save_image, save_video
 from . import schedules
-from .data import sample_train_batch
+from .data import (CameraBatch, circle_view_batch, sample_train_batch,
+                   six_view_batch)
 from .optimizer import Adan, AdanState
 
 
@@ -53,9 +62,14 @@ def check_slice(cfg: Config) -> None:
             "queue 1, item 7"),
         "--sd_version 1.x (head dim 40)": (
             not cfg.sd_version.startswith("2"), "queue 1, item 4"),
-        "--test": (cfg.test, "queue 1, item 3"),
-        "--save_mesh": (cfg.save_mesh, "queue 1, item 3"),
-        "--dmtet": (cfg.dmtet, "queue 1, item 6"),
+        "--init_with a mesh file (K9)": (
+            cfg.init_with.lower().endswith((".obj", ".ply")),
+            "queue 2, K9"),
+        "--dmtet with guidance other than the pixel oracle": (
+            cfg.dmtet and tuple(cfg.guidance) != ("oracle",),
+            "queue 1, item 6"),
+        "--dmtet with --image (the known-view step)": (
+            cfg.dmtet and cfg.image is not None, "queue 1, item 7"),
         "--image": (cfg.image is not None, "queue 1, item 7"),
         "--optim other than adan": (cfg.optim != "adan", "queue 1, item 3"),
         "--grad_clip": (cfg.grad_clip >= 0, "queue 1, item 3"),
@@ -107,12 +121,7 @@ class StepDraws(NamedTuple):
     posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
 
 
-def draw_step(gen: torch.Generator, cfg: Config, device,
-              latent_size: Optional[int] = None) -> StepDraws:
-    """One step's draws; ``latent_size`` set means SD guidance (latent
-    noise and the VAE posterior draw instead of pixel noise)."""
-    B = cfg.batch_size
-
+def _samplers(gen: torch.Generator, device):
     def U(*shape, lo=0.0, hi=1.0):
         u = torch.rand(shape, generator=gen, device=device)
         return u if (lo, hi) == (0.0, 1.0) else lo + (hi - lo) * u
@@ -120,6 +129,13 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
     def N(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
+    return U, N
+
+
+def draw_view(gen: torch.Generator, cfg: Config, device):
+    """A step's camera and shading draws → (pose, fov, choice)."""
+    B = cfg.batch_size
+    U, N = _samplers(gen, device)
     th = [math.radians(a) for a in cfg.theta_range]
     ph = [math.radians(a) for a in cfg.phi_range]
     pose = PoseDraws(radius=U(B, lo=cfg.radius_range[0],
@@ -131,9 +147,25 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
                      jitter_up=N(B, 3))
     fov = U(lo=cfg.fovy_range[0], hi=cfg.fovy_range[1])
     choice = schedules.ChoiceDraws(U(), U(), U(), U(3), N(3))
-    march_u = stratified_u(U(B * cfg.h * cfg.w, cfg.grid_fine_steps))
+    return pose, fov, choice
+
+
+def draw_t(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
+    """[B] int64 diffusion timesteps in the t_range."""
     lo, hi = (int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1]))
-    t = torch.randint(lo, hi + 1, (B,), generator=gen, device=device)
+    return torch.randint(lo, hi + 1, (cfg.batch_size,), generator=gen,
+                         device=device)
+
+
+def draw_step(gen: torch.Generator, cfg: Config, device,
+              latent_size: Optional[int] = None) -> StepDraws:
+    """One step's draws; ``latent_size`` set means SD guidance (latent
+    noise and the VAE posterior draw instead of pixel noise)."""
+    B = cfg.batch_size
+    U, N = _samplers(gen, device)
+    pose, fov, choice = draw_view(gen, cfg, device)
+    march_u = stratified_u(U(B * cfg.h * cfg.w, cfg.grid_fine_steps))
+    t = draw_t(gen, cfg, device)
     if latent_size is None:
         return StepDraws(pose, fov, choice, march_u, t,
                          N(B, cfg.h, cfg.w, 3))
@@ -163,53 +195,104 @@ class TrainState:
     step: int
 
 
-def apply_updates_guarded(optimizer: Adan, cfg: Config, state: TrainState,
-                          grads: List[torch.Tensor]) -> torch.Tensor:
+def guarded_update(optimizer: Adan, cfg: Config, module: torch.nn.Module,
+                   opt_state: AdanState, ema_params: Dict[str, torch.Tensor],
+                   grads: List[torch.Tensor]) -> torch.Tensor:
     """Adan + EMA that skip non-finite gradients (the amp GradScaler's
-    behaviour); updates ``state`` in place and returns grad_ok []."""
-    params = list(state.renderer.parameters())
+    behaviour), in place on the module's parameters, the optimizer state
+    and the EMA → grad_ok []."""
+    params = list(module.parameters())
     gn = torch.sqrt(sum((g * g).sum() for g in grads))
     ok = torch.isfinite(gn)
     safe = [torch.nan_to_num(g) for g in grads]
     with torch.no_grad():
-        new_params, new_opt = optimizer.step(params, safe, state.opt_state)
-        old = state.opt_state
+        new_params, new_opt = optimizer.step(params, safe, opt_state)
         for name in ("m", "diff", "n", "prev_grad"):
-            for o, nw in zip(getattr(old, name), getattr(new_opt, name)):
+            for o, nw in zip(getattr(opt_state, name),
+                             getattr(new_opt, name)):
                 o.copy_(torch.where(ok, nw, o))
-        old.count.copy_(torch.where(ok, new_opt.count, old.count))
+        opt_state.count.copy_(torch.where(ok, new_opt.count, opt_state.count))
         d = cfg.ema_decay
-        for (name, p), nw in zip(state.renderer.named_parameters(),
-                                 new_params):
+        for (name, p), nw in zip(module.named_parameters(), new_params):
             p.copy_(torch.where(ok, nw, p))
-            e = state.ema_params[name]
+            e = ema_params[name]
             e.copy_(torch.where(ok, d * e + (1 - d) * p, e))
+    return ok
+
+
+def apply_updates_guarded(optimizer: Adan, cfg: Config, state: TrainState,
+                          grads: List[torch.Tensor]) -> torch.Tensor:
+    """``guarded_update`` of the renderer; advances ``state.step``."""
+    ok = guarded_update(optimizer, cfg, state.renderer, state.opt_state,
+                        state.ema_params, grads)
     state.step += 1
     return ok
 
 
+def ema_copy(module: torch.nn.Module, ema: Dict[str, torch.Tensor]
+             ) -> torch.nn.Module:
+    """A copy of ``module`` holding the EMA parameters."""
+    out = copy.deepcopy(module)
+    with torch.no_grad():
+        for n, p in out.named_parameters():
+            p.copy_(ema[n])
+    return out
+
+
+def newest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The newest rolling ``df_ep*.pth`` in a directory, or None."""
+    cands = sorted(glob.glob(os.path.join(ckpt_dir, "df_ep*.pth")))
+    return cands[-1] if cands else None
+
+
+def adan_for(cfg: Config, module: torch.nn.Module) -> Adan:
+    """Adan at 5x lr, the triplanes' updates 10x."""
+    return Adan(5.0 * cfg.lr, [10.0 if "triplanes" in n else 1.0
+                               for n, _ in module.named_parameters()])
+
+
 class Trainer:
-    def __init__(self, cfg: Config, device="cpu", guidance=None,
+    # state fields saved beside the parameters, optimizer state and EMA
+    EXTRA_STATE = ("density_grid", "mean_density", "occ_grid")
+
+    def __init__(self, cfg: Config, device="cuda", guidance=None,
                  embeddings: Optional[Dict[str, torch.Tensor]] = None):
         """``guidance`` and ``embeddings`` (``guidance/embeddings.py``) are
-        the SD guidance's; the oracle builds its own."""
+        the SD guidance's; the oracle builds its own.  A ``--test`` run,
+        which trains nothing, needs neither.  The device is the card unless
+        the caller asks for the CPU."""
         check_slice(cfg)
         # fp32 products stay fp32 on the card: no TF32 in matmuls or
         # convolutions (PyTorch turns it on for cuDNN by default)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sd = cfg.guidance == ("SD",)
         if self.sd:
-            if guidance is None or embeddings is None:
+            if (guidance is None or embeddings is None) and not cfg.test:
                 raise ValueError("SD guidance needs its towers and prompt "
                                  "embeddings")
             self.guidance, self.embeddings = guidance, embeddings
         else:
             self.guidance = PixelOracleGuidance(cfg.oracle_scene,
                                                 cfg.t_range)
-        self.latent_size = guidance.cfg.latent_size if self.sd else None
+        self.latent_size = guidance.cfg.latent_size \
+            if self.sd and guidance is not None else None
+        self.workspace = cfg.workspace
+        for sub in ("checkpoints", "validation", "results"):
+            os.makedirs(os.path.join(self.workspace, sub), exist_ok=True)
+        self.log_path = os.path.join(self.workspace, "log_df.txt")
+        self.best_result: Optional[float] = None
+        self.checkpoints: List[str] = []        # rolling, oldest first
+
+    def log(self, msg: str) -> None:
+        print(msg, flush=True)
+        with open(self.log_path, "a") as f:
+            f.write(msg + "\n")
+
+    def epoch(self, state) -> int:
+        return state.step // self.cfg.dataset_size_train
 
     def flags(self, latent_phase: bool) -> RenderFlags:
         return RenderFlags(perturb=True, shading_static_albedo=False,
@@ -227,14 +310,19 @@ class Trainer:
     def draw_step(self, gen: torch.Generator) -> StepDraws:
         return draw_step(gen, self.cfg, self.device, self.latent_size)
 
+    def run_step(self, state: TrainState, gen: torch.Generator):
+        """One training step at state.step, with the density-grid refresh on
+        its cadence → (metrics, gradients)."""
+        if state.step % self.cfg.update_extra_interval == 0:
+            self.update_grid(state, draw_grid(gen, self.cfg, self.device))
+        return self.train_step(state, self.draw_step(gen))
+
     def init_state(self, seed: int) -> TrainState:
         cfg = self.cfg
         renderer = build_renderer(cfg)
         renderer.field.reset_parameters(torch.Generator().manual_seed(seed))
         renderer.to(self.device)
-        names = [n for n, _ in renderer.named_parameters()]
-        self.optimizer = Adan(5.0 * cfg.lr, [10.0 if "triplanes" in n
-                                             else 1.0 for n in names])
+        self.optimizer = adan_for(cfg, renderer)
         params = list(renderer.parameters())
         G = cfg.grid_size
         return TrainState(
@@ -354,24 +442,17 @@ class Trainer:
                 grid_size=cfg.grid_size)
 
     # ------------------------------------------------------------------
+    # eval and test renders
     @torch.no_grad()
-    def render_view(self, state: TrainState, phi: float):
-        """Deterministic albedo render of one orbit view at (h, w) with the
-        EMA parameters, in max_ray_batch chunks →
-        (image [h*w, 3], rays_o, rays_d)."""
+    def render_view(self, state: TrainState, batch: CameraBatch, H: int,
+                    W: int):
+        """Deterministic albedo render of a one-view batch at H×W with the
+        EMA parameters, in max_ray_batch chunks → (image [H*W, 3], depth
+        [H*W])."""
         cfg = self.cfg
-        dev = self.device
-        poses, _ = circle_poses(
-            torch.tensor([cfg.default_radius], device=dev),
-            torch.tensor([cfg.default_polar], device=dev),
-            torch.tensor([phi], dtype=torch.float32, device=dev),
-            angle_overhead=cfg.angle_overhead, angle_front=cfg.angle_front)
-        intr = intrinsics_from_fov(
-            torch.tensor(cfg.default_fovy, device=dev), cfg.h, cfg.w)
-        ro, rd = get_rays(poses, intr, cfg.h, cfg.w)
-        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+        ro, rd = batch.rays_o[0], batch.rays_d[0]
         flags = RenderFlags(perturb=False, shading_static_albedo=True)
-        chunks = []
+        images, depths = [], []
         for i in range(0, ro.shape[0], cfg.max_ray_batch):
             out = functional_call(
                 state.renderer, state.ema_params,
@@ -379,15 +460,164 @@ class Trainer:
                  rd[i:i + cfg.max_ray_batch], state.occ_grid),
                 {"ambient_ratio": 1.0, "shading": SHADING_ALBEDO},
                 strict=True)
-            chunks.append(out["image"])
-        return torch.cat(chunks), ro, rd
+            images.append(out["image"])
+            depths.append(out["depth"])
+        return torch.cat(images), torch.cat(depths)
 
-    def oracle_eval_metric(self, state: TrainState) -> float:
-        """PSNR of EMA renders of validation-circle views against the
-        analytic scene (white background on both sides)."""
+    def oracle_eval_metric(self, state) -> float:
+        """PSNR of EMA renders of validation-circle views at h×w against
+        the analytic scene (white background on both sides)."""
+        cfg = self.cfg
         mses = []
-        for i in range(min(self.cfg.dataset_size_valid, 4)):
-            img, ro, rd = self.render_view(state, (i / 4) * 360.0)
-            tgt, _ = scene_views(ro, rd, self.cfg.oracle_scene)
+        for i in range(min(cfg.dataset_size_valid, 4)):
+            b = circle_view_batch(cfg, i, 4, cfg.h, cfg.w, self.device)
+            img, _ = self.render_view(state, b, cfg.h, cfg.w)
+            tgt, _ = scene_views(b.rays_o[0], b.rays_d[0], cfg.oracle_scene)
             mses.append(float(((img - tgt) ** 2).mean()))
         return float(-10.0 * math.log10(max(sum(mses) / len(mses), 1e-10)))
+
+    def eval_metric(self, state) -> Optional[float]:
+        """The analytic PSNR under the oracle; None otherwise (text-only SDS
+        has no ground truth; the CLIP scorer is not ported)."""
+        return None if self.sd else self.oracle_eval_metric(state)
+
+    def _frame(self, state, batch: CameraBatch):
+        """One eval/test view at H×W → (rgb [H,W,3], depth [H,W]) numpy."""
+        H, W = self.cfg.H, self.cfg.W
+        img, depth = self.render_view(state, batch, H, W)
+        return (img.reshape(H, W, 3).cpu().numpy(),
+                depth.reshape(H, W).cpu().numpy())
+
+    def evaluate(self, state) -> Optional[float]:
+        """rgb and depth PNGs of min(dataset_size_valid, 4) views at H×W
+        (``validation/df_ep{epoch}_{i}_*.png``) → the eval metric."""
+        cfg = self.cfg
+        n = min(cfg.dataset_size_valid, 4)
+        vdir = os.path.join(self.workspace, "validation")
+        for i in range(n):
+            rgb, depth = self._frame(state, circle_view_batch(
+                cfg, i, n, cfg.H, cfg.W, self.device))
+            stem = os.path.join(vdir, f"df_ep{self.epoch(state):04d}_{i:04d}")
+            save_image(f"{stem}_rgb.png", rgb)
+            save_image(f"{stem}_depth.png", colorize_depth(depth))
+        return self.eval_metric(state)
+
+    def test(self, state, six_views: bool = False):
+        """Turntable of dataset_size_test frames at H×W → results/df_rgb.mp4
+        and df_depth.mp4; with ``six_views`` the six axis views as PNGs."""
+        cfg = self.cfg
+        n = 6 if six_views else cfg.dataset_size_test
+        frames, depths = [], []
+        for i in range(n):
+            b = six_view_batch(cfg, i, cfg.H, cfg.W, self.device) \
+                if six_views else \
+                circle_view_batch(cfg, i, n, cfg.H, cfg.W, self.device)
+            rgb, depth = self._frame(state, b)
+            frames.append(rgb)
+            depths.append(depth)
+        rdir = os.path.join(self.workspace, "results")
+        if not six_views:
+            save_video(os.path.join(rdir, "df_rgb.mp4"), frames, log=self.log)
+            save_video(os.path.join(rdir, "df_depth.mp4"),
+                       [colorize_depth(d) for d in depths], log=self.log)
+        else:
+            for i, f in enumerate(frames):
+                save_image(os.path.join(rdir, f"df_{i:04d}_rgb.png"), f)
+        return frames
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    def module(self, state) -> torch.nn.Module:
+        """The module holding the trainable parameters."""
+        return state.renderer
+
+    def field(self, state) -> NeRFRenderer:
+        """The field with the EMA weights (the mesh export's)."""
+        return ema_copy(state.renderer, state.ema_params)
+
+    def _ckpt_dir(self) -> str:
+        return os.path.join(self.workspace, "checkpoints")
+
+    def _payload(self, state) -> Dict[str, Any]:
+        o = state.opt_state
+        return {"module": self.module(state).state_dict(),
+                "opt": {"count": o.count, "m": o.m, "diff": o.diff,
+                        "n": o.n, "prev_grad": o.prev_grad},
+                "ema": state.ema_params, "step": state.step,
+                "extra": {k: getattr(state, k) for k in self.EXTRA_STATE}}
+
+    @torch.no_grad()
+    def _restore(self, state, payload: Dict[str, Any]) -> None:
+        self.module(state).load_state_dict(payload["module"])
+        o, po = state.opt_state, payload["opt"]
+        o.count.copy_(po["count"])
+        for name in ("m", "diff", "n", "prev_grad"):
+            for dst, src in zip(getattr(o, name), po[name]):
+                dst.copy_(src)
+        for k, v in payload["ema"].items():
+            state.ema_params[k].copy_(v)
+        for k, v in payload["extra"].items():
+            setattr(state, k, v.to(self.device))
+        state.step = int(payload["step"])
+
+    def save_checkpoint(self, state, full: bool = True,
+                        metric: Optional[float] = None) -> None:
+        """full: the rolling ``df_ep{epoch}.pth`` train state (the newest
+        ``max_keep_ckpt`` kept); else the EMA-only ``df.pth``, overwritten
+        only when ``metric`` (higher better) improves, or always when there
+        is none.  Each file has a ``.meta.json`` beside it.  Saves are
+        synchronous."""
+        d = self._ckpt_dir()
+        os.makedirs(d, exist_ok=True)
+        if not full:
+            if metric is not None:
+                if self.best_result is not None and metric <= self.best_result:
+                    self.log(f"[ckpt] eval metric {metric:.3f} <= best "
+                             f"{self.best_result:.3f}, keeping the previous "
+                             f"df snapshot")
+                    return
+                self.best_result = metric
+            torch.save({"ema_params": state.ema_params},
+                       os.path.join(d, "df.pth"))
+            with open(os.path.join(d, "df.meta.json"), "w") as f:
+                json.dump({"global_step": state.step,
+                           "best_result": self.best_result}, f)
+            return
+        stem = os.path.join(d, f"df_ep{self.epoch(state):04d}")
+        torch.save(self._payload(state), stem + ".pth")
+        with open(stem + ".meta.json", "w") as f:
+            json.dump({"global_step": state.step,
+                       "epoch": self.epoch(state)}, f)
+        if stem in self.checkpoints:
+            self.checkpoints.remove(stem)
+        self.checkpoints.append(stem)
+        while len(self.checkpoints) > self.cfg.max_keep_ckpt:
+            old = self.checkpoints.pop(0)
+            for ext in (".pth", ".meta.json"):
+                if os.path.exists(old + ext):
+                    os.remove(old + ext)
+
+    def load_checkpoint(self, state, ckpt: str = "latest") -> Tuple[Any, bool]:
+        """``latest`` (the newest ``df_ep*``), ``best`` / ``latest_model``
+        (the EMA-only ``df``: parameters and EMA both set to it) or a path
+        → (state, loaded)."""
+        d = self._ckpt_dir()
+        meta = os.path.join(d, "df.meta.json")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                self.best_result = json.load(f).get("best_result")
+        if ckpt in ("best", "latest_model"):
+            path = os.path.join(d, "df.pth")
+            if not os.path.exists(path):
+                return state, False
+            ema = torch.load(path, map_location=self.device)["ema_params"]
+            with torch.no_grad():
+                for n, p in self.module(state).named_parameters():
+                    p.copy_(ema[n])
+                    state.ema_params[n].copy_(ema[n])
+            return state, True
+        path = newest_checkpoint(d) if ckpt == "latest" else ckpt
+        if path is None:
+            return state, False
+        self._restore(state, torch.load(path, map_location=self.device))
+        return state, True

@@ -30,7 +30,20 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     (``NeRFRenderer``) → the renderer's ``state_dict``, triplanes in their
     [3, R, R, C] layout.  ``{'unet', 'vae', 'text'}`` (the guidance towers
     of ``StableDiffusionGuidance.init_params``) → ``{'unet': state_dict,
-    'vae': ..., 'text': ...}``."""
+    'vae': ..., 'text': ...}``.  The DMTet stage's ``{'nerf': ..., 'geo':
+    {'sdf', 'deform'}}`` → the ``DMTetModel`` state_dict (``nerf.*``,
+    ``geo.sdf``, ``geo.deform``); a ``'tet_scale'`` beside them (the JAX
+    state's, not a parameter) comes back under that key, for
+    ``DMTetState.tet_scale``."""
+    if "geo" in tree:
+        out = {f"nerf.{k}": v for k, v in params_from_jax(tree["nerf"]).items()}
+        for k in ("sdf", "deform"):
+            out[f"geo.{k}"] = torch.from_numpy(
+                np.array(tree["geo"][k], dtype=np.float32))
+        if "tet_scale" in tree:
+            out["tet_scale"] = torch.from_numpy(
+                np.array(tree["tet_scale"], dtype=np.float32))
+        return out
     if "field" not in tree:
         return _towers(tree)
     field = tree["field"]

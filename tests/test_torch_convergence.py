@@ -24,7 +24,8 @@ def test_port_oracle_trainer_convergence(tmp_path):
         "--grid_fine_steps", "24", "--update_extra_interval", "16",
         "--fp16", "false", "--seed", "0", "--lambda_3d_normal_smooth", "0",
         "--lambda_opacity", "0", "--guidance_scale", "1.0", "--lr", "0.01",
-        "--device", "cpu"])
+        "--device", "cpu", "--eval_interval", "0", "--H", "32", "--W", "32",
+        "--dataset_size_test", "2", "--ckpt", "scratch"])
     psnr0, psnr1 = out["psnr_init"], out["psnr_final"]
     assert out["grad_ok"] and out["all_losses_finite"]
     assert math.isfinite(psnr1)

@@ -260,3 +260,186 @@ def test_new_wrappers_count_their_launches(dev):
     for name in ("conv_fwd", "conv_dgrad", "groupnorm_fwd", "groupnorm_bwd",
                  "attention_fwd", "attention_bwd"):
         assert kernels.LAUNCHES[name] == 1, name
+
+
+# ---- K7: rasterize + interpolate --------------------------------------------
+
+def _raster_scene(dev, seed, crowd=0, ties=False, T=300):
+    """Screen-space triangles for a 100x130 image: random ones, ``crowd``
+    small ones piled into one tile (over its cap), with ``ties`` a pair of
+    overlapping triangles at one constant depth in front of the rest, and
+    empty tiles (no triangle reaches x >= 96)."""
+    g = _gen(dev, seed)
+    V = 3 * (T + crowd) + 6
+    sx = torch.rand(V, device=dev, generator=g) * 60
+    sy = torch.rand(V, device=dev, generator=g) * 90
+    sz = torch.rand(V, device=dev, generator=g) * 2 - 1
+    faces = torch.arange(3 * (T + crowd), device=dev,
+                         dtype=torch.int32).reshape(-1, 3)
+    # small triangles: jitter around a centre
+    c = torch.rand(T + crowd, 2, device=dev, generator=g) * \
+        torch.tensor([60.0, 90.0], device=dev)
+    c[T:] = torch.rand(crowd, 2, device=dev, generator=g) * 6 + 2
+    off = (torch.rand(T + crowd, 3, 2, device=dev, generator=g) - 0.5) * 24
+    p = (c[:, None] + off).reshape(-1, 2)
+    sx[:3 * (T + crowd)], sy[:3 * (T + crowd)] = p[:, 0], p[:, 1]
+    if ties:   # two triangles in the plane z = 0.25, overlapping
+        b = 3 * (T + crowd)
+        sx[b:b + 6] = torch.tensor([10., 40., 10., 12., 42., 12.])
+        sy[b:b + 6] = torch.tensor([10., 10., 40., 11., 11., 41.])
+        sz[b:b + 6] = -2.0
+        faces = torch.cat([faces, torch.arange(b, b + 6, device=dev,
+                                               dtype=torch.int32
+                                               ).reshape(2, 3)])
+    valid = torch.rand(faces.shape[0], device=dev, generator=g) > 0.05
+    if ties:
+        valid[-2:] = True
+    return sx, sy, sz, faces, valid
+
+
+@pytest.mark.parametrize("soft,cap,crowd,ties", [
+    (1.0, 512, 0, False), (1.0, 32, 60, False), (0.0, 64, 60, False),
+    (0.0, 1024, 0, True), (1.0, 1024, 0, True)])
+def test_raster_kernel(dev, soft, cap, crowd, ties):
+    from dreamfusion_tpu_torch.ops.raster import raster_cuda, raster_plain
+    sx, sy, sz, faces, valid = _raster_scene(dev, 7, crowd, ties)
+    H, W = 100, 130
+    ins = [t.clone().requires_grad_() for t in (sx, sy, sz)]
+    ok = raster_cuda(*ins, faces, valid, H, W, 32, cap, soft)
+    torch.cuda.synchronize()
+    ref_in = [t.clone().requires_grad_() for t in (sx, sy, sz)]
+    op = raster_plain(*ref_in, faces, valid, H, W, 32, cap, soft)
+    assert torch.equal(ok.tri_id, op.tri_id)
+    assert bool((ok.tri_id[:, 96:] == -1).all())          # empty tiles
+    assert bool((ok.alpha[:, 96:] == 0).all())
+    if ties:
+        assert int(ok.tri_id[20, 20]) == faces.shape[0] - 2
+    hit = op.tri_id >= 0
+    torch.testing.assert_close(ok.bary[hit], op.bary[hit], atol=1e-6,
+                               rtol=0)
+    torch.testing.assert_close(ok.depth, op.depth, atol=1e-6, rtol=0)
+    torch.testing.assert_close(ok.alpha, op.alpha, atol=1e-5, rtol=0)
+    g = _gen(dev, 8)
+    cots = [torch.randn(o.shape, device=dev, generator=g)
+            for o in (ok.bary, ok.depth, ok.alpha)]
+    lk = sum((o * c).sum() for o, c in zip((ok.bary, ok.depth, ok.alpha),
+                                           cots))
+    lp = sum((o * c).sum() for o, c in zip((op.bary, op.depth, op.alpha),
+                                           cots))
+    gk = torch.autograd.grad(lk, ins)
+    gp = torch.autograd.grad(lp, ref_in)
+    for a, b in zip(gk, gp):
+        _close_to(a, b, 1e-4)
+
+
+def test_interpolate_kernel(dev):
+    from dreamfusion_tpu_torch.ops.raster import (interpolate,
+                                                  interpolate_plain,
+                                                  raster_cuda)
+    sx, sy, sz, faces, valid = _raster_scene(dev, 9)
+    out = raster_cuda(sx, sy, sz, faces, valid, 64, 64, 32, 512, 1.0)
+    g = _gen(dev, 10)
+    attrs = torch.randn(sx.shape[0], 3, device=dev, generator=g)
+    a1, b1 = attrs.clone().requires_grad_(), out.bary.clone().requires_grad_()
+    a2, b2 = attrs.clone().requires_grad_(), out.bary.clone().requires_grad_()
+    yk = interpolate(a1, out._replace(bary=b1), faces)
+    yp = interpolate_plain(a2, b2, out.tri_id, faces)
+    torch.testing.assert_close(yk, yp, atol=1e-6, rtol=1e-6)
+    c = torch.randn(yk.shape, device=dev, generator=g)
+    gk = torch.autograd.grad((yk * c).sum(), [a1, b1])
+    gp = torch.autograd.grad((yp * c).sum(), [a2, b2])
+    for a, b in zip(gk, gp):
+        _close_to(a, b, 1e-5)
+
+
+# ---- K8: marching tets + mesh regularizers ------------------------------------
+
+def _tet_inputs(dev, n=16, open_surface=False):
+    from dreamfusion_tpu_torch.mesh.tets import generate_tet_grid
+    grid = generate_tet_grid(n)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    v = t(grid.vertices)
+    g = _gen(dev, 11)
+    c = torch.tensor([0.6, 0.0, 0.0] if open_surface else [0.05, 0, 0],
+                     device=dev)
+    sdf = (0.62 - torch.linalg.norm(v - c, dim=-1)) * 4 + \
+        0.05 * torch.sin(7 * v[:, 1])
+    sdf = torch.where(sdf.abs() < 1e-4, 1e-3, sdf).clamp(-1, 1)
+    pos = v + torch.randn(v.shape, device=dev, generator=g) * 0.01
+    return grid, pos, sdf, t(grid.indices), t(grid.tet_edges), \
+        t(grid.unique_edges)
+
+
+@pytest.mark.parametrize("max_tris", [40000, 900])       # 900: overflow
+def test_marching_tets_kernel(dev, max_tris):
+    from dreamfusion_tpu_torch.ops.marching_tets import (marching_tets,
+                                                         marching_tets_plain)
+    grid, pos, sdf, tets, te, ue = _tet_inputs(dev)
+    p1, s1 = pos.clone().requires_grad_(), sdf.clone().requires_grad_()
+    p2, s2 = pos.clone().requires_grad_(), sdf.clone().requires_grad_()
+    mk = marching_tets(p1, s1, tets, te, ue, max_tris)
+    mp = marching_tets_plain(p2, s2, tets, te, ue, max_tris)
+    torch.cuda.synchronize()
+    assert torch.equal(mk.faces, mp.faces)
+    assert torch.equal(mk.face_mask, mp.face_mask)
+    assert torch.equal(mk.vert_valid, mp.vert_valid)
+    n = int(mk.face_mask.sum())
+    assert n == max_tris if max_tris == 900 else 900 < n < max_tris
+    torch.testing.assert_close(mk.verts, mp.verts, atol=1e-6, rtol=0)
+    c = torch.randn(mk.verts.shape, device=dev, generator=_gen(dev, 12))
+    gk = torch.autograd.grad((mk.verts * c).sum(), [p1, s1])
+    gp = torch.autograd.grad((mp.verts * c).sum(), [p2, s2])
+    for a, b in zip(gk, gp):
+        _close_to(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("which", ["normals", "laplacian",
+                                   "normal_consistency"])
+@pytest.mark.parametrize("open_surface", [False, True])
+def test_mesh_regularizer_kernels(dev, which, open_surface):
+    from dreamfusion_tpu_torch.ops import marching_tets as K8
+    grid, pos, sdf, tets, te, ue = _tet_inputs(dev, open_surface=open_surface)
+    mesh = K8.marching_tets_plain(pos, sdf, tets, te, ue, 40000)
+    c = torch.randn(mesh.verts.shape, device=dev, generator=_gen(dev, 13))
+    kern = {"normals": lambda m: (K8.vertex_normals(m) * c).sum(),
+            "laplacian": K8.laplacian_smooth_loss,
+            "normal_consistency": K8.normal_consistency_loss}[which]
+    plain = {"normals": lambda m: (K8.vertex_normals_plain(
+        m.verts, m.faces, m.face_mask) * c).sum(),
+        "laplacian": lambda m: K8.laplacian_plain(m.verts, m.faces,
+                                                  m.face_mask),
+        "normal_consistency": lambda m: K8.normal_consistency_plain(
+            m.verts, m.faces, m.face_mask)}[which]
+    v1 = mesh.verts.detach().clone().requires_grad_()
+    v2 = mesh.verts.detach().clone().requires_grad_()
+    yk = kern(mesh._replace(verts=v1))
+    yp = plain(mesh._replace(verts=v2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-6)
+    (gk,) = torch.autograd.grad(yk, v1)
+    (gp,) = torch.autograd.grad(yp, v2)
+    _close_to(gk, gp, 1e-4)
+
+
+def test_k7_k8_wrappers_count_their_launches(dev):
+    from dreamfusion_tpu_torch.models.dmtet import DMTetRenderer
+    from dreamfusion_tpu_torch.mesh.tets import generate_tet_grid
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+    from dreamfusion_tpu_torch.config import Config
+    r = DMTetRenderer(generate_tet_grid(8), max_tris=4096, device=dev)
+    p = r.init_params_sphere(0.45)
+    p = p._replace(sdf=p.sdf.requires_grad_(), deform=p.deform.requires_grad_())
+    b = circle_view_batch(Config(), 0, 1, 64, 64, dev)
+    kernels.reset_launch_counts()
+    out = r.render(p, lambda x: torch.sigmoid(x), b.mvp[0], 64, 64,
+                   b.rays_o[0], b.rays_d[0], shading="lambertian",
+                   ambient_ratio=0.5, need_regularizers=True)
+    loss = out["image"].sum() + out["normal_loss"] + out["lap_loss"]
+    loss.backward()
+    for name in ("raster_fwd", "raster_bwd", "interpolate_fwd",
+                 "interpolate_bwd", "marching_tets_fwd", "marching_tets_bwd",
+                 "vertex_normals_fwd", "vertex_normals_bwd", "laplacian_fwd",
+                 "laplacian_bwd", "normal_consistency_fwd",
+                 "normal_consistency_bwd"):
+        assert kernels.LAUNCHES[name] >= 1, name
+    assert float(p.sdf.grad.abs().max()) > 0

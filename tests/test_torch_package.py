@@ -1,13 +1,15 @@
 """The port stands alone: importing all of it (and chip_smoke.py) pulls in
-neither jax nor the JAX package, its Config agrees field by field with the
-JAX package's, its CLI refuses what it does not port, and it runs on the
-GPU unless the caller asks for the CPU."""
+neither jax nor the JAX package, it builds its host mesh library from its
+own copy of the source, its Config agrees field by field with the JAX
+package's, its CLI refuses what it does not port, and it runs on the GPU
+unless the caller asks for the CPU."""
 
 import dataclasses
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from dreamfusion_tpu.config import Config as JConfig
@@ -29,6 +31,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "assert len(names) >= 30, names\n"
         "assert 'dreamfusion_tpu_torch.guidance.sd' in names\n"
+        "for m in ('native.meshops', 'ops.raster', 'ops.marching_tets',\n"
+        "          'mesh.export', 'mesh.tets', 'models.dmtet',\n"
+        "          'training.dmtet_trainer', 'utils.image'):\n"
+        "    assert 'dreamfusion_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dreamfusion_tpu' or m.startswith('dreamfusion_tpu.')]\n"
         "assert not bad, bad\n"
@@ -63,9 +69,12 @@ def test_finalize_fixups_match(overrides):
 @pytest.mark.parametrize("flags", [
     ["--text", "a hamburger", "--sd_version", "1.5"],       # head dim 40
     ["--guidance", "oracle", "--backbone", "grid"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--save_mesh"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--test"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
+     "--init_with", "mesh.obj"],                            # K9
+    ["--text", "a hamburger", "--backbone", "triplane", "--dmtet"],
     ["--guidance", "oracle", "--backbone", "triplane", "-O"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
+     "--image", "x.png"],
 ])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -77,3 +86,32 @@ def test_cli_needs_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--guidance", "oracle", "--backbone", "triplane",
               "--workspace", str(tmp_path), "--iters", "1"])
+
+
+def test_trainers_need_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    from dreamfusion_tpu_torch.guidance.sd import (SDConfig,
+                                                   StableDiffusionGuidance)
+    from dreamfusion_tpu_torch.training.dmtet_trainer import DMTetTrainer
+    from dreamfusion_tpu_torch.training.trainer import Trainer
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    cfg = finalize(Config(guidance=("oracle",), backbone="triplane",
+                          workspace=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="device"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="device"):
+        DMTetTrainer(cfg)
+    with pytest.raises(RuntimeError, match="device"):
+        StableDiffusionGuidance(SDConfig(tiny=True))
+    assert Trainer(cfg, "cpu").device.type == "cpu"
+
+
+def test_meshops_builds_from_the_ports_own_source():
+    from dreamfusion_tpu_torch.native import meshops
+    src = meshops.SRC_DIR
+    assert str(src) == os.path.join(ROOT, "dreamfusion_tpu_torch", "native",
+                                    "src")
+    assert (src / "meshops.cpp").exists() and (src / "mc_tables.h").exists()
+    lib = meshops.build()
+    assert str(lib).startswith(os.path.join(ROOT, "build", "meshops"))
+    v, t = meshops.marching_cubes(np.ones((4, 4, 4), np.float32), 0.5)
+    assert len(t) == 0            # no surface in a constant field

@@ -40,7 +40,7 @@ def towers():
     """The JAX tiny towers and the port's, holding the same weights."""
     jg = JSD(JSDConfig(**TINY))
     jp = jax.jit(jg.init_params)(jax.random.PRNGKey(0))
-    pg = StableDiffusionGuidance(SDConfig(**TINY))
+    pg = StableDiffusionGuidance(SDConfig(**TINY), "cpu")
     pg.load_state_dicts(params_from_jax(jax.tree.map(np.asarray, jp)))
     return jg, jp, pg
 
@@ -222,6 +222,8 @@ def test_cli_runs_the_tiny_sd_path_on_the_cpu(tmp_path):
                 "--triplane_resolution", "32", "--triplane_channels", "8",
                 "--grid_size", "32", "--hidden_dim", "32",
                 "--dataset_size_train", "1", "--workspace",
-                str(tmp_path / "ws"), "--device", "cpu", "--tiny_guidance"])
+                str(tmp_path / "ws"), "--device", "cpu", "--tiny_guidance",
+                "--eval_interval", "0", "--H", "16", "--W", "16",
+                "--dataset_size_test", "2", "--ckpt", "scratch"])
     assert out["grad_ok"] and out["all_losses_finite"]
     assert len(out["losses"]) == 5 and "psnr_final" not in out

@@ -48,7 +48,7 @@ def test_one_step_and_grid_update_match_jax(tmp_path, monkeypatch):
     js = jt.init_state(jax.random.PRNGKey(0))
     js = js.replace(step=jnp.asarray(STEP, jnp.int32))
 
-    pt = Trainer(port_cfg(cfg))
+    pt = Trainer(port_cfg(cfg), "cpu")
     ps = pt.init_state(0)
     sd = params_from_jax(jax.tree.map(np.asarray, js.params))
     ps.renderer.load_state_dict(sd)

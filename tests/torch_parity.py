@@ -14,6 +14,7 @@ import torch
 from dreamfusion_tpu_torch.config import Config as PConfig
 from dreamfusion_tpu_torch.core.poses import PoseDraws
 from dreamfusion_tpu_torch.training import schedules as pschedules
+from dreamfusion_tpu_torch.training.dmtet_trainer import DMTetDraws
 from dreamfusion_tpu_torch.training.trainer import StepDraws
 
 GRID_SALT = 0x9e3779b9
@@ -92,6 +93,23 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
                          tt(noise))
     t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
     return StepDraws(pose, fov, choice, tt(march_u), t, noise, post)
+
+
+def jax_dmtet_step_draws(cfg, base_key, step: int) -> DMTetDraws:
+    """The draws of DMTetTrainer._make_train_step at state.step=step:
+    fold_in(base, step) → split 3 (batch, choice, guide); the guide key
+    feeds the pixel oracle (split 1, then t and noise)."""
+    key = jax.random.fold_in(base_key, step)
+    k_batch, k_choice, k_guide = jax.random.split(key, 3)
+    pose, fov = jax_batch_draws(k_batch, cfg)
+    (k_prior,) = jax.random.split(k_guide, 1)
+    k_t, k_noise = jax.random.split(k_prior)
+    lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
+    B = cfg.batch_size
+    t = jax.random.randint(k_t, (B,), lo, hi + 1)
+    noise = jax.random.normal(k_noise, (B, cfg.h, cfg.w, 3))
+    return DMTetDraws(pose, fov, jax_choice_draws(k_choice), tt(t).long(),
+                      tt(noise))
 
 
 def jax_sd_draws(key, B: int, latent_size: int, t_range):
