@@ -15,6 +15,12 @@
    (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32).
+   K6 (hash encode forward with the jacobian and backward, the position
+   gradient, tv and wd, forward and backward) runs at the flagship spec
+   (L4C8 affine smoothstep, 2^19 rows per hashed level) at the step's
+   98,304 sample positions, the grid refresh's 262,144-position chunk and
+   the DMTet stage's 262,144 albedo queries, and again in the tcnn layout
+   (L16C2 xor).
    K7 (rasterize + interpolate, forward and backward) and K8 (marching
    tets and the three mesh regularizers, forward and backward) run at the
    DMTet stage's shapes: tet_grid_size 128 (274,625 grid vertices,
@@ -41,10 +47,20 @@
    and of K1 and K4, non-zero sdf and deform gradients, a face count in
    (0, max_tris) and a written mesh.obj; logs s/step, peak memory and the
    analytic PSNR of the albedo render at the first and last step.
-7. Prints one JSON line with every kernel's route, source, the TPU function
+7. The hash-grid backbone (-O's), each run with the counters reset just
+   before it: stage 1 with the flagship oracle flags on --backbone grid
+   and small tv and weight-decay weights (300 steps, the same run's end and
+   checks as step 4, a launch of every K6 kernel and of K2-K4, a non-zero
+   grid_table gradient at every step); SD 2.1 through -O (25 steps, every
+   K6 encode and K10-K12 kernel launched, a non-zero grid_table gradient in
+   both phases; s/step and peak memory); and 20 DMTet steps at tet grid
+   128 from the grid stage 1 (K6 launched by the albedo query, non-zero
+   sdf, deform and table gradients).
+8. Prints one JSON line with every kernel's route, source, the TPU function
    it replaces, launches on its path (K1-K4 and K10-K12: the SD run; K7
-   and K8: the DMTet run), error, times and bound; the last line is the
-   result object.  Any failure exits non-zero and prints no result.
+   and K8: the DMTet run; K6's encode: the SD -O run, its tv and wd: the
+   grid stage 1), error, times and bound; the last line is the result
+   object.  Any failure exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -70,6 +86,13 @@ SD_FLAGS = ["--text", "a hamburger", "--backbone", "triplane", "--seed", "0",
             "--lambda_3d_normal_smooth", "0", "--dataset_size_train", "5",
             "--eval_interval", "0", "--H", "64", "--W", "64",
             "--dataset_size_test", "2", "--ckpt", "scratch"]
+# the hash-grid backbone (-O's): stage 1 with its tv and weight-decay terms
+# on (small weights; both default to 0), SD through -O, and a DMTet stage
+# from the grid stage 1
+GRID_FLAGSHIP = [("grid" if f == "triplane" else f) for f in FLAGSHIP] + [
+    "--lambda_tv", "1e-4", "--lambda_wd", "1e-5"]
+SD_GRID_FLAGS = ["-O"] + [f for f in SD_FLAGS
+                          if f not in ("--backbone", "triplane")]
 DMTET_STEPS = 100
 DMTET_FLAGS = ["--guidance", "oracle", "--backbone", "triplane",
                "--oracle_scene", "two_sphere", "--seed", "0",
@@ -78,6 +101,9 @@ DMTET_FLAGS = ["--guidance", "oracle", "--backbone", "triplane",
                "--save_mesh", "--ckpt", "scratch",
                # 10-step blocks: the rate leaves out the first; one eval
                "--dataset_size_train", "10", "--eval_interval", "10"]
+DMTET_GRID_STEPS = 20           # one eval, at step 20
+GRID_DMTET_FLAGS = [("grid" if f == "triplane" else f) for f in DMTET_FLAGS] \
+    + ["--eval_interval", "2"]
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK = {"bf16": 989e12, "fp32": 67e12}    # dense tensor-core bf16, fp32
@@ -122,9 +148,24 @@ for _n, _line in (("marching_tets", 59), ("vertex_normals", 103),
         KERNELS[f"{_n}_{_d}"] = (
             "cuda", "dreamfusion_tpu_torch/csrc/marching_tets.cu",
             f"dreamfusion_tpu/ops/marching_tets.py:{_line}")
+for _n, _line in (("hashgrid", 201), ("hashgrid_tv", 322),
+                  ("hashgrid_wd", 358)):
+    for _d in ("fwd", "bwd"):
+        KERNELS[f"{_n}_{_d}"] = (
+            "cuda", "dreamfusion_tpu_torch/csrc/hashgrid.cu",
+            f"dreamfusion_tpu/ops/hashgrid.py:{_line}")
+GRID_KERNELS = ("hashgrid_fwd", "hashgrid_bwd", "march_rays",
+                "composite_fwd", "composite_bwd", "field_head_fwd",
+                "field_head_bwd")
+GRID_REG_KERNELS = ("hashgrid_tv_fwd", "hashgrid_tv_bwd", "hashgrid_wd_fwd",
+                    "hashgrid_wd_bwd")
 ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
                   "field_head_bwd")
+SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
+              "field_head_fwd", "field_head_bwd", "attention_fwd",
+              "attention_bwd", "groupnorm_fwd", "groupnorm_bwd", "conv_fwd",
+              "conv_dgrad")
 DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
                        "laplacian", "normal")) + (
@@ -352,6 +393,168 @@ def kernel_phases(torch, results):
                                                     cp.weights, *cc, 1e-4)),
            "1e-4 rel (sums in another order)",
            nbytes(sigma, rgb, z, dl, m, cp.weights, *cc, *gk), R * S * 30)
+    return x01
+
+
+def hashgrid_kernel_phases(torch, results, x01):
+    """K6 against its plain version at the flagship spec (L4C8 affine
+    smoothstep, 2^19 rows, desired resolution 2048: 1,576,960 x 8 fp32),
+    at the shapes of the grid step (the step's 98,304 sample positions,
+    forward with the jacobian in bf16, backward), of the density-grid
+    refresh (262,144 positions, forward only), of the DMTet albedo query
+    (262,144 positions with the position gradient) and of the tv (4096
+    cells per level) and wd terms; then the tcnn layout (L16C2 xor)."""
+    from dreamfusion_tpu_torch.config import Config
+    from dreamfusion_tpu_torch.ops import hashgrid as K6
+    from dreamfusion_tpu_torch.training.trainer import grid_spec_of
+
+    dev = x01.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+
+    def rows_touched(x, spec):
+        """Distinct table rows the corners of x read (the gather's bytes
+        depend on the data: count what this run's positions need)."""
+        ids = [K6._corners(x, spec, l)[0].reshape(-1)
+               for l in range(spec.num_levels)]
+        return int(torch.unique(torch.cat(ids)).numel())
+
+    def encode_phase(spec, x, where, jac=True, dtype=bf):
+        C, L = spec.level_dim, spec.num_levels
+        table = (torch.rand(spec.table_size, C, device=dev, generator=g)
+                 - 0.5) * 0.2
+        ok = K6.hash_fwd_cuda(x, table, spec, L, jac, dtype)
+        torch.cuda.synchronize()
+        op = [o.to(dtype) for o in K6.hash_fwd_plain(x, table, spec, L, jac)]
+        # both round fp32 sums to bf16: one bf16 ulp, plus 1e-6 of each
+        # output's largest, since the jacobian sums 8 terms of up to ~500
+        # that can cancel (fp32 sums in two orders differ by ~1e-4 there)
+        err = max(assert_close("hashgrid_fwd", [a], [b], 1e-6 + 1e-6 * float(
+            b.float().abs().max()), 2 ** -7) for a, b in zip(ok, op))
+        N = x.shape[0]
+        row_bytes = rows_touched(x, spec) * C * 4
+        record_kernel(results, "hashgrid_fwd", err, median_ms(
+            lambda: K6.hash_fwd_cuda(x, table, spec, L, jac, dtype)),
+            median_ms(lambda: K6.hash_fwd_plain(x, table, spec, L, jac), 5),
+            "1 bf16 ulp + 1e-6 of max", nbytes(x, *ok) + row_bytes,
+            N * L * (8 * C * 2 * (4 if jac else 1) + 120), "fp32", None,
+            where)
+        return table
+
+    # ---- the flagship spec at the step's positions ------------------------
+    spec = grid_spec_of(Config())
+    N, L, C = x01.shape[0], spec.num_levels, spec.level_dim
+    where = (f" [{N} samples, L{L}C{C} {spec.gridtype} "
+             f"{spec.interpolation}, {spec.table_size} rows]")
+    table = encode_phase(spec, x01, where + " + jacobian")
+    cots = [torch.randn(N, L * C, device=dev, generator=g).to(bf)
+            for _ in range(4)]
+    dk = K6.hash_bwd_cuda(x01, spec, L, cots[0], cots[1:])
+    torch.cuda.synchronize()
+    dp = K6.hash_bwd_plain(x01, spec, L, cots[0], cots[1:])
+    scale = float(dp.abs().max())
+    err = assert_close("hashgrid_bwd", [dk], [dp], 1e-5 * scale, 1e-5)
+    record_kernel(results, "hashgrid_bwd", err, median_ms(
+        lambda: K6.hash_bwd_cuda(x01, spec, L, cots[0], cots[1:])),
+        median_ms(lambda: K6.hash_bwd_plain(x01, spec, L, cots[0], cots[1:]),
+                  5), "1e-5 of max |dtable| (fp32 atomics in any order)",
+        nbytes(x01, *cots, dk), N * L * 8 * C * 8, "fp32", None, where)
+
+    # ---- the grid refresh's chunk: forward only ----------------------------
+    xr = torch.rand(262144, 3, device=dev, generator=g)
+    encode_phase(spec, xr, " [262,144 refresh positions, no jacobian]",
+                 jac=False)
+
+    # ---- the DMTet albedo query: the position gradient ---------------------
+    xq = torch.rand(262144, 3, device=dev, generator=g)
+    cq = torch.randn(262144, L * C, device=dev, generator=g).to(bf)
+
+    def x_grad(x):
+        xk = x.clone().requires_grad_()
+        feat = K6.hash_encode(xk, table, spec, out_dtype=bf)
+        return torch.autograd.grad(feat, [xk], cq)[0]
+
+    def x_grad_plain(x):
+        _, *jac = K6.hash_fwd_plain(x, table, spec, L, True)
+        return torch.stack([(cq.float() * j).sum(-1) for j in jac], -1)
+
+    gk = x_grad(xq)
+    torch.cuda.synchronize()
+    gp = x_grad_plain(xq)
+    scale = float(gp.abs().max())
+    err = assert_close("hashgrid_fwd", [gk], [gp], 1e-5 * scale, 1e-5)
+    record_kernel(results, "hashgrid_fwd", err, median_ms(
+        lambda: x_grad(xq)), median_ms(lambda: x_grad_plain(xq), 5),
+        "1e-5 of max |dx|", nbytes(xq, cq, gk) + rows_touched(xq, spec) * 32,
+        262144 * L * (8 * C * 8 + 120), "fp32", None,
+        " [262,144 DMTet queries: forward + position gradient]")
+
+    # ---- tv and wd over the flagship table ---------------------------------
+    cells = K6.draw_tv_cells(g, spec, dev)
+    tv_rows = sum(int(torch.unique(torch.cat([i0[None], i1])).numel())
+                  for l in range(L) for i0, i1 in
+                  [K6._tv_pairs(cells[l], spec, l)])
+    tk = K6.hash_tv_cuda(table, cells, spec)
+    torch.cuda.synchronize()
+    tp = K6.hash_tv_plain(table, cells, spec)
+    err = assert_close("hashgrid_tv_fwd", [tk], [tp], 0, 1e-5)
+    c32 = cells.to(torch.int32)
+    record_kernel(results, "hashgrid_tv_fwd", err, median_ms(
+        lambda: K6.hash_tv_cuda(table, cells, spec)),
+        median_ms(lambda: K6.hash_tv_plain(table, cells, spec)),
+        "1e-5 rel", nbytes(c32, tk) + tv_rows * C * 4,
+        L * cells.shape[1] * 3 * C * 3, "fp32", None,
+        f" [{L} x {cells.shape[1]} cells]")
+    gl = torch.tensor(0.7, device=dev)
+    tbk = K6.hash_tv_bwd_cuda(table, cells, spec, gl)
+    torch.cuda.synchronize()
+    tbp = K6.hash_tv_bwd_plain(table, cells, spec, gl)
+    scale = float(tbp.abs().max())
+    err = assert_close("hashgrid_tv_bwd", [tbk], [tbp], 1e-5 * scale, 1e-5)
+    record_kernel(results, "hashgrid_tv_bwd", err, median_ms(
+        lambda: K6.hash_tv_bwd_cuda(table, cells, spec, gl)),
+        median_ms(lambda: K6.hash_tv_bwd_plain(table, cells, spec, gl)),
+        "1e-5 of max (fp32 atomics in any order)",
+        nbytes(c32, gl, tbk) + tv_rows * C * 4,
+        L * cells.shape[1] * 3 * C * 6, "fp32", None,
+        f" [{L} x {cells.shape[1]} cells]")
+    wk = K6.hash_wd_cuda(table, spec)
+    torch.cuda.synchronize()
+    wp = K6.hash_wd_plain(table, spec)
+    err = assert_close("hashgrid_wd_fwd", [wk], [wp], 0, 1e-5)
+    record_kernel(results, "hashgrid_wd_fwd", err, median_ms(
+        lambda: K6.hash_wd_cuda(table, spec)),
+        median_ms(lambda: K6.hash_wd_plain(table, spec)), "1e-5 rel",
+        nbytes(table, wk), 2 * table.numel(), "fp32", None,
+        f" [{spec.table_size} x {C}]")
+    wbk = K6.hash_wd_bwd_cuda(table, spec, gl)
+    torch.cuda.synchronize()
+    wbp = K6.hash_wd_bwd_plain(table, spec, gl)
+    err = assert_close("hashgrid_wd_bwd", [wbk], [wbp], 0, 1e-6)
+    record_kernel(results, "hashgrid_wd_bwd", err, median_ms(
+        lambda: K6.hash_wd_bwd_cuda(table, spec, gl)),
+        median_ms(lambda: K6.hash_wd_bwd_plain(table, spec, gl)), "1e-6 rel",
+        nbytes(table, gl, wbk), table.numel(), "fp32", None,
+        f" [{spec.table_size} x {C}]")
+
+    # ---- the tcnn layout: L16C2 xor, 2^19 rows -----------------------------
+    tcnn = grid_spec_of(Config(grid_levels=16, grid_features_per_level=2,
+                               grid_hash="xor"))
+    where = (f" [{N} samples, L16C2 xor smoothstep, {tcnn.table_size} "
+             f"rows] + jacobian")
+    encode_phase(tcnn, x01, where)
+    cots = [torch.randn(N, 32, device=dev, generator=g).to(bf)
+            for _ in range(4)]
+    dk = K6.hash_bwd_cuda(x01, tcnn, 16, cots[0], cots[1:])
+    torch.cuda.synchronize()
+    dp = K6.hash_bwd_plain(x01, tcnn, 16, cots[0], cots[1:])
+    scale = float(dp.abs().max())
+    err = assert_close("hashgrid_bwd", [dk], [dp], 1e-5 * scale, 1e-5)
+    record_kernel(results, "hashgrid_bwd", err, median_ms(
+        lambda: K6.hash_bwd_cuda(x01, tcnn, 16, cots[0], cots[1:])),
+        median_ms(lambda: K6.hash_bwd_plain(x01, tcnn, 16, cots[0], cots[1:]),
+                  5), "1e-5 of max |dtable|", nbytes(x01, *cots, dk),
+        N * 16 * 8 * 2 * 8, "fp32", None, where)
 
 
 def sd_kernel_phases(torch, results):
@@ -811,6 +1014,108 @@ def _check_outputs(ws, summary, what) -> None:
     log(f"{what}: {path} with {len(tris)} faces and {os.path.basename(tex)}")
 
 
+def stage1_path(port_main, kernels, flags, ws, what, required, group,
+                smi_line):
+    """Stage 1 under the oracle with the run's end, the counters reset just
+    before it → (summary, launches)."""
+    kernels.reset_launch_counts()
+    summary = port_main.main(flags + STAGE1_END + [
+        "--iters", str(STEPS), "--workspace", ws])
+    launches = dict(kernels.LAUNCHES)
+    log(f"{what} path: {STEPS} steps, steady {summary['steady_its']:.3f} "
+        f"it/s, PSNR {summary['psnr_init']:.3f} -> "
+        f"{summary['psnr_final']:.3f} dB, launches {launches}")
+    log(f"{what} run's end (s): {_rounded(summary['phases'])}; export "
+        f"phases (s): {_rounded(summary['export_phases'])}; on {smi_line}")
+    check(summary["all_losses_finite"],
+          f"{what}: non-finite loss: {summary['losses']}")
+    check(summary["grad_ok"], f"{what}: a step had non-finite gradients")
+    for name in required:
+        check(launches[name] > 0, f"the {what} path never launched {name}")
+    check(all(g > 0 for g in summary[f"{group}_grad_max"]),
+          f"{what}: a step had a zero {group} gradient")
+    gain = summary["psnr_final"] - summary["psnr_init"]
+    check(gain >= 3.0, f"{what}: PSNR rose only {gain:.3f} dB (bar: 3 dB)")
+    _check_outputs(ws, summary, what)
+    ckpts = os.listdir(os.path.join(ws, "checkpoints"))
+    check("df_ep0003.pth" in ckpts and "df.pth" in ckpts,
+          f"{what}: stage-1 checkpoints missing: {sorted(ckpts)}")
+    return summary, launches
+
+
+def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
+    """SD 2.1 at full width (6 warm-up steps, 19 through the VAE), the
+    counters reset just before it → launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_sd = time.time()
+    sd = port_main.main(flags + ["--iters", str(SD_STEPS), "--workspace", ws])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    main_blocks = sd["blocks"][2:]        # steps 11-25: all after warm-up
+    s_step = sum(t for _, t in main_blocks) / sum(n for n, _ in main_blocks)
+    blocks_ms = [round(1e3 * t / n, 2) for n, t in main_blocks]
+    log(f"{what} path: {SD_STEPS} steps in {time.time() - t_sd:.1f} s "
+        f"(start-up included), losses {sd['losses']}, steady "
+        f"{s_step:.4f} s/step over steps 11-{SD_STEPS} (VAE phase; "
+        f"ms/step by 5-step block {blocks_ms}), peak "
+        f"device memory {peak_gib:.2f} GiB, on {smi_line}, launches "
+        f"{launches}")
+    check(sd["all_losses_finite"], f"{what}: non-finite loss: {sd['losses']}")
+    check(sd["grad_ok"], f"{what}: a step had non-finite gradients")
+    for name in SD_KERNELS + (("hashgrid_fwd", "hashgrid_bwd")
+                              if group == "grid" else
+                              ("triplane_fwd", "triplane_bwd")):
+        check(launches[name] > 0, f"the {what} path never launched {name}")
+    for latent in (True, False):
+        gm = [gr for gr, ph in zip(sd[f"{group}_grad_max"],
+                                   sd["latent_phase"]) if ph == latent]
+        phase = "warm-up" if latent else "VAE"
+        check(len(gm) > 0 and all(g > 0 for g in gm),
+              f"{what}: zero {group} gradient in the {phase} phase: {gm}")
+    return launches
+
+
+def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
+               group, smi_line):
+    """The DMTet stage from a stage-1 checkpoint, the counters reset just
+    before it → (summary, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_dm = time.time()
+    dm = port_main.main(flags + ["--iters", str(steps), "--workspace", ws])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = dm["blocks"][1:]
+    s_step = sum(t for _, t in steady) / sum(n for n, _ in steady)
+    log(f"{what} path: {steps} steps in {time.time() - t_dm:.1f} s "
+        f"(start-up and run's end included), losses {dm['losses']}, "
+        f"{s_step:.4f} s/step over steps 11-{steps} (ms/step by "
+        f"block {[round(1e3 * t / n, 2) for n, t in dm['blocks']]}), peak "
+        f"device memory {peak_gib:.2f} GiB, "
+        f"faces {dm['n_faces'][0]} -> {dm['n_faces'][-1]} of "
+        f"{dm['max_tris']}, albedo PSNR {dm['psnr_init']:.3f} -> "
+        f"{dm['psnr_final']:.3f} dB, run's end (s) "
+        f"{_rounded(dm['phases'])}, export (s) "
+        f"{_rounded(dm['export_phases'])}, on {smi_line}, launches "
+        f"{launches}")
+    check(dm["all_losses_finite"], f"{what}: non-finite loss: {dm['losses']}")
+    check(dm["grad_ok"], f"{what}: a step had non-finite gradients")
+    for name in required:
+        check(launches[name] > 0, f"the {what} path never launched {name}")
+    for gname in ("sdf", "deform", group):
+        gm = dm[f"{gname}_grad_max"]
+        check(all(g > 0 for g in gm), f"{what}: zero {gname} gradient: {gm}")
+    check(all(n > 0 for n in dm["n_faces"]),
+          f"{what}: an empty surface: {dm['n_faces']}")
+    _check_outputs(ws, dm, what)
+    return dm, launches
+
+
 def run() -> dict:
     try:
         import torch
@@ -846,111 +1151,59 @@ def run() -> dict:
         f"(build/meshops)")
 
     results = {}
-    kernel_phases(torch, results)
+    x01 = kernel_phases(torch, results)
+    t_k = time.time()
+    hashgrid_kernel_phases(torch, results, x01)
+    log(f"K6 phase in {time.time() - t_k:.1f} s")
     sd_kernel_phases(torch, results)
     t_k = time.time()
     dmtet_kernel_phases(torch, results)
     log(f"K7/K8 phases in {time.time() - t_k:.1f} s")
 
-    # ---- the oracle path, stage 1 with the run's end (slices 1, 3) --------
-    kernels.reset_launch_counts()
-    ws = os.path.join(ROOT, "build", "chip_smoke_ws")
-    summary = port_main.main(FLAGSHIP + STAGE1_END + [
-        "--iters", str(STEPS), "--workspace", ws])
-    launches = dict(kernels.LAUNCHES)
-    log(f"oracle path: {STEPS} steps, steady {summary['steady_its']:.3f} "
-        f"it/s, PSNR {summary['psnr_init']:.3f} -> "
-        f"{summary['psnr_final']:.3f} dB, launches {launches}")
-    log(f"oracle run's end (s): {_rounded(summary['phases'])}; export "
-        f"phases (s): {_rounded(summary['export_phases'])}; on {smi_line}")
-    check(summary["all_losses_finite"],
-          f"non-finite loss: {summary['losses']}")
-    check(summary["grad_ok"], "a step had non-finite gradients")
-    for name in ORACLE_KERNELS:
-        check(launches[name] > 0, f"the oracle path never launched {name}")
-    gain = summary["psnr_final"] - summary["psnr_init"]
-    check(gain >= 3.0, f"PSNR rose only {gain:.3f} dB (bar: 3 dB)")
-    _check_outputs(ws, summary, "oracle")
-    ckpts = os.listdir(os.path.join(ws, "checkpoints"))
-    check("df_ep0003.pth" in ckpts and "df.pth" in ckpts,
-          f"stage-1 checkpoints missing: {sorted(ckpts)}")
+    # ---- stage 1, SD 2.1 and DMTet on the triplane (slices 1-3) -------------
+    build = os.path.join(ROOT, "build")
+    ws = os.path.join(build, "chip_smoke_ws")
+    summary, _ = stage1_path(port_main, kernels, FLAGSHIP, ws, "oracle",
+                             ORACLE_KERNELS, "triplane", smi_line)
     bake_kernel_phase(torch, results, summary["mesh_path"])
+    sd_launches = sd_path(torch, port_main, kernels, SD_FLAGS,
+                          os.path.join(build, "chip_smoke_sd_ws"), "SD",
+                          "triplane", smi_line)
+    dm, dm_launches = dmtet_path(
+        torch, port_main, kernels, DMTET_FLAGS + [
+            "--init_with", os.path.join(ws, "checkpoints")], DMTET_STEPS,
+        os.path.join(build, "chip_smoke_dmtet_ws"), "DMTet", DMTET_KERNELS,
+        "triplane", smi_line)
+    check(all(n < dm["max_tris"] for n in dm["n_faces"]),
+          f"DMTet: face counts over max_tris: {dm['n_faces']}")
 
-    # ---- the SD 2.1 path (slice 2), full width ------------------------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t_sd = time.time()
-    sd = port_main.main(SD_FLAGS + ["--iters", str(SD_STEPS), "--workspace",
-                                    os.path.join(ROOT, "build",
-                                                 "chip_smoke_sd_ws")])
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    sd_launches = launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    main_blocks = sd["blocks"][2:]        # steps 11-25: all after warm-up
-    s_step = sum(t for _, t in main_blocks) / sum(n for n, _ in main_blocks)
-    blocks_ms = [round(1e3 * t / n, 2) for n, t in main_blocks]
-    log(f"SD path: {SD_STEPS} steps in {time.time() - t_sd:.1f} s "
-        f"(start-up included), losses {sd['losses']}, steady "
-        f"{s_step:.4f} s/step over steps 11-{SD_STEPS} (VAE phase; "
-        f"ms/step by 5-step block {blocks_ms}), peak "
-        f"device memory {peak_gib:.2f} GiB, on {smi_line}, launches "
-        f"{launches}")
-    check(sd["all_losses_finite"], f"non-finite SD loss: {sd['losses']}")
-    check(sd["grad_ok"], "an SD step had non-finite gradients")
-    for name in ORACLE_KERNELS + ("attention_fwd", "attention_bwd",
-                                  "groupnorm_fwd", "groupnorm_bwd",
-                                  "conv_fwd", "conv_dgrad"):
-        check(launches[name] > 0, f"the SD path never launched {name}")
-    for latent in (True, False):
-        gm = [gr for gr, ph in zip(sd["triplane_grad_max"],
-                                   sd["latent_phase"]) if ph == latent]
-        phase = "warm-up" if latent else "VAE"
-        check(len(gm) > 0 and all(g > 0 for g in gm),
-              f"zero triplane gradient in the {phase} phase: {gm}")
+    # ---- the same on the hash grid (slice 4) --------------------------------
+    ws = os.path.join(build, "chip_smoke_grid_ws")
+    _, grid_launches = stage1_path(port_main, kernels, GRID_FLAGSHIP, ws,
+                                   "grid oracle",
+                                   GRID_KERNELS + GRID_REG_KERNELS, "grid",
+                                   smi_line)
+    sd_grid_launches = sd_path(torch, port_main, kernels, SD_GRID_FLAGS,
+                               os.path.join(build, "chip_smoke_sd_grid_ws"),
+                               "SD -O", "grid", smi_line)
+    dmtet_path(torch, port_main, kernels, GRID_DMTET_FLAGS + [
+        "--init_with", os.path.join(ws, "checkpoints")], DMTET_GRID_STEPS,
+        os.path.join(build, "chip_smoke_dmtet_grid_ws"), "DMTet from grid",
+        ("hashgrid_fwd", "hashgrid_bwd", "raster_fwd", "marching_tets_fwd"),
+        "grid", smi_line)
 
-    # ---- the DMTet stage from the stage-1 checkpoint (slice 3) --------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t_dm = time.time()
-    ws2 = os.path.join(ROOT, "build", "chip_smoke_dmtet_ws")
-    dm = port_main.main(DMTET_FLAGS + [
-        "--iters", str(DMTET_STEPS), "--workspace", ws2, "--init_with",
-        os.path.join(ws, "checkpoints")])
-    torch.cuda.synchronize()
-    dm_launches = dict(kernels.LAUNCHES)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    steady = dm["blocks"][1:]
-    s_step = sum(t for _, t in steady) / sum(n for n, _ in steady)
-    log(f"DMTet path: {DMTET_STEPS} steps in {time.time() - t_dm:.1f} s "
-        f"(start-up and run's end included), losses {dm['losses']}, "
-        f"{s_step:.4f} s/step over steps 11-{DMTET_STEPS} (ms/step by "
-        f"block {[round(1e3 * t / n, 2) for n, t in dm['blocks']]}), peak "
-        f"device memory {peak_gib:.2f} GiB, "
-        f"faces {dm['n_faces'][0]} -> {dm['n_faces'][-1]} of "
-        f"{dm['max_tris']}, albedo PSNR {dm['psnr_init']:.3f} -> "
-        f"{dm['psnr_final']:.3f} dB, run's end (s) "
-        f"{_rounded(dm['phases'])}, export (s) "
-        f"{_rounded(dm['export_phases'])}, on {smi_line}, launches "
-        f"{dm_launches}")
-    check(dm["all_losses_finite"], f"non-finite DMTet loss: {dm['losses']}")
-    check(dm["grad_ok"], "a DMTet step had non-finite gradients")
-    for name in DMTET_KERNELS:
-        check(dm_launches[name] > 0, f"the DMTet path never launched {name}")
-    for gname in ("sdf", "deform"):
-        gm = dm[f"{gname}_grad_max"]
-        check(all(g > 0 for g in gm), f"zero {gname} gradient: {gm}")
-    check(all(0 < n < dm["max_tris"] for n in dm["n_faces"]),
-          f"face counts outside (0, max_tris): {dm['n_faces']}")
-    _check_outputs(ws2, dm, "DMTet")
+    def launches_of(name):
+        if name in GRID_REG_KERNELS:
+            return grid_launches[name]
+        if name.startswith("hashgrid"):
+            return sd_grid_launches[name]
+        if name in DMTET_KERNELS and name not in ORACLE_KERNELS:
+            return dm_launches[name]
+        return sd_launches[name]
 
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
-         "launches": (dm_launches if name in DMTET_KERNELS and
-                      name not in ORACLE_KERNELS else sd_launches)[name],
-         **results[name]}
+         "launches": launches_of(name), **results[name]}
         for name, (route, src, rep) in KERNELS.items()]}
     print(json.dumps(line), flush=True)
     return {"ok": True, "device": {"platform": "gpu",

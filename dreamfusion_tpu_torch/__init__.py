@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of the DreamFusion-class text-to-3D trainer.
 
 This package holds two text→3D training paths for one NVIDIA Hopper card,
-both on the triplane NeRF (occupancy marching, compositing, Adan + EMA):
-SD 2.1 guidance (CLIP text, VAE and UNet towers, SDS, Perp-Neg) and the
-pixel-space oracle.  Its kernels are hand-written: CUDA C++ under
-``csrc/`` (triplane encode, occupancy march, compositing, attention,
+on the hash-grid or the triplane NeRF (occupancy marching, compositing,
+Adan + EMA): SD 2.1 guidance (CLIP text, VAE and UNet towers, SDS,
+Perp-Neg) and the pixel-space oracle; the run's end (eval, turntable,
+checkpoints, textured mesh) and the DMTet stage.  Its kernels are
+hand-written: CUDA C++ under ``csrc/`` (hash-grid and triplane encode,
+occupancy march, compositing, rasterizer, marching tets, attention,
 convolution) and Triton (the field head, ``ops/activation.py``; GroupNorm,
 ``ops/groupnorm.py``).  Every kernel has a plain PyTorch twin in the same
 module; a CPU tensor takes the twin, a CUDA tensor takes the kernel.

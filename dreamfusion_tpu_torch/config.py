@@ -3,9 +3,11 @@
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
 only the fields the ported paths (the oracle and SD 2.1 guidance on the
-triplane backbone, the run's end and the DMTet stage) read are carried.
-``apply_dmtet`` is the ``--dmtet`` preset; ``finalize`` applies the fix-ups
-those paths need: the oracle preset and the resolved exposure range.
+hash-grid and triplane backbones, the run's end and the DMTet stage) read
+are carried.  ``apply_O`` and ``apply_dmtet`` are the ``-O`` and ``--dmtet``
+presets; ``finalize`` applies the fix-ups those paths need: the other
+grid backends' names mapped to ``grid``, the oracle preset and the resolved
+exposure range.
 """
 
 from __future__ import annotations
@@ -77,6 +79,15 @@ class Config:
     # ---- network arch ----
     hidden_dim: int = 64
     num_layers: int = 3
+    # the hash grid (``ops/hashgrid.py``); the field never reads
+    # grid_base_resolution, as in the JAX package (its base is always 16)
+    grid_levels: int = 4
+    grid_features_per_level: int = 8
+    grid_log2_hashmap_size: int = 19
+    grid_base_resolution: int = 16
+    grid_desired_resolution: int = 2048
+    grid_interpolation: str = "smoothstep"     # linear | smoothstep
+    grid_hash: str = "affine"                  # affine | xor
     triplane_resolution: int = 256
     triplane_channels: int = 16
     triplane_scales: int = 1
@@ -142,6 +153,11 @@ class Config:
         return 1 + max(0, int(math.ceil(math.log2(max(self.bound, 1.0)))))
 
 
+def apply_O(cfg: Config) -> Config:
+    """``-O``: fp16 and the hash-grid backbone."""
+    return replace(cfg, fp16=True, backbone="grid")
+
+
 def apply_dmtet(cfg: Config) -> Config:
     """The DMTet refinement stage's overrides (``--dmtet``): training
     renders ``dmtet_reso_scale`` times larger, the lower half of the
@@ -156,6 +172,9 @@ def apply_dmtet(cfg: Config) -> Config:
 def finalize(cfg: Config) -> Config:
     """Derived-value fix-ups applied once after all flags
     (``dreamfusion_tpu/config.py::finalize``)."""
+    if cfg.backbone in ("grid_taichi", "grid_tcnn"):
+        # the reference's other hash-grid backends are the one grid here
+        cfg = replace(cfg, backbone="grid")
     if "oracle" in cfg.guidance or "image_oracle" in cfg.guidance:
         # pixel-space oracle: rgb from the first step, white eval
         # background, albedo-only shading draws (the analytic target has

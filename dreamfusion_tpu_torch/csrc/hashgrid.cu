@@ -1,0 +1,507 @@
+// K6: multiresolution hash-grid encode, forward (features + spatial
+// jacobian) and backward (scatter-add into the table), and the table's
+// total-variation and weight-decay regularizers, forward and backward.
+//
+// Replaces dreamfusion_tpu/ops/hashgrid.py::hash_encode (:201, with
+// _level_index :114 and _level_geom :176), ::hashgrid_tv_loss (:322) and
+// ::hashgrid_wd_loss (:358).  The TPU version packs each cell's 8 corner rows
+// into one gathered row (_corner_pack, the affine rolls) because TPU gathers
+// are priced per row; on the card the 8 corners are read directly.
+//
+// Bound on the card: memory latency of the row gathers.  At the flagship
+// spec (L4C8, 2^19 rows per hashed level) the table is 1,576,960 x 8 fp32 =
+// 50.5 MB, about the H100's 50 MB L2, so most of a step's 8 x L random
+// 32-byte corner rows per sample come from L2, some from HBM.  The byte bound
+// (each input read once, each output written once) is far below what the
+// random reads cost.  Design: one thread per (sample, level) walks the 8
+// corners, reads each row as 16-byte loads (C = 8 fp32: two float4) and
+// accumulates the features and the three jacobian columns in fp32 registers;
+// consecutive threads hold consecutive levels of a sample, so the outputs
+// ([N, L*C], written as 16-byte stores where C*sizeof(T) allows) are written
+// contiguously.  The backward repeats the walk and issues one fp32 atomicAdd
+// per (corner, channel) of the folded coefficient
+// w*g_feat + sum_d dw/dx_d * g_j_d.
+//
+// Rules kept from hash_encode: pos = clip(x*res - 0.5, 0, res - 1) (x*res
+// and the subtraction rounded separately, as the plain version and XLA do);
+// d pos / d x = res strictly inside (0, res - 1), res/2 at its two ends (the
+// JAX clip's tie rule) and 0 outside; dense levels (res^3 <= size) index the
+// corner clamped to res - 1 per axis; hashed levels index (sum_d c_d P_d)
+// mod 2^32 mod size of the unclamped corner (affine) or (xor_d c_d P_d) mod
+// size of the clamped one (xor); a sample with a coordinate outside [0,1]
+// gives zeros on every output and no gradient; levels >= n_active are zero.
+//
+// tv: one thread per (sampled cell, level), a block reduction and one atomic
+// per block into the scalar loss; its backward scatters +-2 g diff / (S D L)
+// into both rows of every pair.  wd: per-level block reductions of the
+// squared table (one atomic per block), backward one elementwise pass; both
+// are bound by reading the 50 MB table once.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr unsigned kP1 = 2654435761u, kP2 = 805459861u;
+
+struct Level {
+  int res, size, offset, dense;
+};
+
+__device__ __forceinline__ Level load_level(const int* levels, int l) {
+  const int4 v = reinterpret_cast<const int4*>(levels)[l];
+  return {v.x, v.y, v.z, v.w};
+}
+
+// row of level lp for lattice coords c (already clamped where the rule says)
+__device__ __forceinline__ unsigned lattice_index(const unsigned c[3],
+                                                  const Level& lp,
+                                                  bool xor_hash) {
+  if (lp.dense) {
+    const unsigned r = (unsigned)lp.res;
+    return c[0] + c[1] * r + c[2] * (r * r);
+  }
+  const unsigned h = xor_hash ? (c[0] ^ (c[1] * kP1) ^ (c[2] * kP2))
+                              : (c[0] + c[1] * kP1 + c[2] * kP2);
+  return h % (unsigned)lp.size;
+}
+
+struct Geom {
+  unsigned base[3];
+  float t[3][2];      // per axis: the factor of corner bit 0 (1-s), bit 1 (s)
+  float dt[3];        // d s / d x_d, d pos / d x included
+};
+
+__device__ __forceinline__ void level_geom(const float xs[3], int res,
+                                           bool smooth, Geom& g) {
+  const float fres = (float)res, hi = (float)(res - 1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float raw = __fsub_rn(__fmul_rn(xs[d], fres), 0.5f);
+    const float pos = fminf(fmaxf(raw, 0.f), hi);
+    const float fl = floorf(pos);
+    const float f = __fsub_rn(pos, fl);
+    float s, ds;
+    if (smooth) {
+      s = __fmul_rn(__fmul_rn(f, f), __fsub_rn(3.f, __fmul_rn(2.f, f)));
+      ds = __fmul_rn(__fmul_rn(6.f, f), __fsub_rn(1.f, f));
+    } else {
+      s = f;
+      ds = 1.f;
+    }
+    const float dpos = (raw > 0.f && raw < hi) ? fres
+                       : (raw == 0.f || raw == hi) ? 0.5f * fres : 0.f;
+    g.base[d] = (unsigned)fl;
+    g.t[d][0] = __fsub_rn(1.f, s);
+    g.t[d][1] = s;
+    g.dt[d] = __fmul_rn(ds, dpos);
+  }
+}
+
+// corner k (bit d = axis d): weight, its x/y/z derivatives and its row
+struct Corner {
+  float w, dw[3];
+  unsigned row;
+};
+
+__device__ __forceinline__ Corner corner(const Geom& g, int k, const Level& lp,
+                                         bool xor_hash) {
+  const int b0 = k & 1, b1 = (k >> 1) & 1, b2 = (k >> 2) & 1;
+  const float t0 = g.t[0][b0], t1 = g.t[1][b1], t2 = g.t[2][b2];
+  Corner c;
+  c.w = __fmul_rn(__fmul_rn(t0, t1), t2);
+  c.dw[0] = __fmul_rn(__fmul_rn(t1, t2), b0 ? g.dt[0] : -g.dt[0]);
+  c.dw[1] = __fmul_rn(__fmul_rn(t0, t2), b1 ? g.dt[1] : -g.dt[1]);
+  c.dw[2] = __fmul_rn(__fmul_rn(t0, t1), b2 ? g.dt[2] : -g.dt[2]);
+  unsigned cc[3] = {g.base[0] + b0, g.base[1] + b1, g.base[2] + b2};
+  if (lp.dense || xor_hash) {
+    const unsigned top = (unsigned)(lp.res - 1);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) cc[d] = min(cc[d], top);
+  }
+  c.row = (unsigned)lp.offset + lattice_index(cc, lp, xor_hash);
+  return c;
+}
+
+// C fp32 values from a 4*C-byte aligned address, as 16- or 8-byte loads
+template <int C>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < C / 4; ++i) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else {
+    static_assert(C == 2, "C is 2, 4 or 8");
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+}
+
+__device__ __forceinline__ unsigned out_bits(float v, float) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ unsigned out_bits(float v, __nv_bfloat16) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// C values to a C*sizeof(T)-byte aligned address, in 16/8/4-byte stores
+template <typename T, int C>
+__device__ __forceinline__ void store_row(T* dst, const float (&v)[C]) {
+  constexpr int kWords = C * (int)sizeof(T) / 4;
+  unsigned w[kWords];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) w[c] = out_bits(v[c], T());
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i)   // little-endian: element 2i low
+      w[i] = out_bits(v[2 * i], T()) | (out_bits(v[2 * i + 1], T()) << 16);
+  }
+  if constexpr (kWords % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kWords / 4; ++i)
+      reinterpret_cast<uint4*>(dst)[i] =
+          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  } else if constexpr (kWords == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    static_assert(kWords == 1, "a row of 4, 8 or 16k bytes");
+    *reinterpret_cast<unsigned*>(dst) = w[0];
+  }
+}
+
+__device__ __forceinline__ bool load_x(const float* x, int64_t n,
+                                       float xs[3]) {
+  xs[0] = x[3 * n];
+  xs[1] = x[3 * n + 1];
+  xs[2] = x[3 * n + 2];
+  bool oob = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) oob |= xs[d] < 0.f || xs[d] > 1.f;
+  return oob;
+}
+
+template <typename T, int C>
+__global__ void hash_fwd_kernel(const float* __restrict__ x,
+                                const float* __restrict__ table,
+                                const int* __restrict__ levels, int N, int L,
+                                int n_active, int smooth, int xor_hash,
+                                T* __restrict__ feat, T* __restrict__ jx,
+                                T* __restrict__ jy, T* __restrict__ jz) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)N * L) return;
+  const int l = (int)(idx % L);
+  const int64_t n = idx / L;
+  const bool jac = jx != nullptr;
+  float f[C], j0[C], j1[C], j2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) f[c] = j0[c] = j1[c] = j2[c] = 0.f;
+  float xs[3];
+  const bool oob = load_x(x, n, xs);
+  if (!oob && l < n_active) {
+    const Level lp = load_level(levels, l);
+    Geom g;
+    level_geom(xs, lp.res, smooth != 0, g);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const Corner q = corner(g, k, lp, xor_hash != 0);
+      float row[C];
+      load_row<C>(table + (int64_t)q.row * C, row);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        f[c] += q.w * row[c];
+        if (jac) {
+          j0[c] += q.dw[0] * row[c];
+          j1[c] += q.dw[1] * row[c];
+          j2[c] += q.dw[2] * row[c];
+        }
+      }
+    }
+  }
+  const int64_t out = idx * C;      // = n * L * C + l * C
+  store_row<T, C>(feat + out, f);
+  if (jac) {
+    store_row<T, C>(jx + out, j0);
+    store_row<T, C>(jy + out, j1);
+    store_row<T, C>(jz + out, j2);
+  }
+}
+
+template <int C>
+__global__ void hash_bwd_kernel(const float* __restrict__ x,
+                                const int* __restrict__ levels, int N, int L,
+                                int n_active, int smooth, int xor_hash,
+                                const float* __restrict__ g_feat,
+                                const float* __restrict__ g_jx,
+                                const float* __restrict__ g_jy,
+                                const float* __restrict__ g_jz,
+                                float* __restrict__ dtable) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)N * L) return;
+  const int l = (int)(idx % L);
+  const int64_t n = idx / L;
+  if (l >= n_active) return;
+  float xs[3];
+  if (load_x(x, n, xs)) return;
+  const int64_t at = idx * C;
+  float gf[C], g0[C], g1[C], g2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) gf[c] = g0[c] = g1[c] = g2[c] = 0.f;
+  if (g_feat) load_row<C>(g_feat + at, gf);
+  if (g_jx) load_row<C>(g_jx + at, g0);
+  if (g_jy) load_row<C>(g_jy + at, g1);
+  if (g_jz) load_row<C>(g_jz + at, g2);
+  const Level lp = load_level(levels, l);
+  Geom g;
+  level_geom(xs, lp.res, smooth != 0, g);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const Corner q = corner(g, k, lp, xor_hash != 0);
+    float* dst = dtable + (int64_t)q.row * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      atomicAdd(dst + c, q.w * gf[c] + q.dw[0] * g0[c] + q.dw[1] * g1[c] +
+                             q.dw[2] * g2[c]);
+    }
+  }
+}
+
+// sum of v over the block, valid in thread 0; every thread must call it
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[w] = v;
+  __syncthreads();
+  v = threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0.f;
+  if (w == 0) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// rows of cell s of level l and of its +x, +y, +z neighbours
+__device__ __forceinline__ void tv_rows(const int* cells, int64_t S, int l,
+                                        int64_t s, const Level& lp,
+                                        bool xor_hash, unsigned& r0,
+                                        unsigned r1[3]) {
+  const int* p = cells + ((int64_t)l * S + s) * 3;
+  const unsigned c[3] = {(unsigned)p[0], (unsigned)p[1], (unsigned)p[2]};
+  r0 = (unsigned)lp.offset + lattice_index(c, lp, xor_hash);
+  const unsigned top = (unsigned)(lp.res - 1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    unsigned nb[3] = {c[0], c[1], c[2]};
+    nb[d] = min(nb[d] + 1, top);
+    r1[d] = (unsigned)lp.offset + lattice_index(nb, lp, xor_hash);
+  }
+}
+
+// grid (ceil(S / kThreads), L)
+__global__ void hash_tv_fwd_kernel(const float* __restrict__ table,
+                                   const int* __restrict__ levels,
+                                   const int* __restrict__ cells, int S, int C,
+                                   int xor_hash, float scale,
+                                   float* __restrict__ out) {
+  const int l = blockIdx.y;
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  float part = 0.f;
+  if (s < S) {
+    const Level lp = load_level(levels, l);
+    unsigned r0, r1[3];
+    tv_rows(cells, S, l, s, lp, xor_hash != 0, r0, r1);
+    for (int d = 0; d < 3; ++d) {
+      for (int c = 0; c < C; ++c) {
+        const float diff = table[(int64_t)r1[d] * C + c] -
+                           table[(int64_t)r0 * C + c];
+        part += diff * diff;
+      }
+    }
+  }
+  part = block_sum(part);
+  if (threadIdx.x == 0) atomicAdd(out, part * scale);
+}
+
+__global__ void hash_tv_bwd_kernel(const float* __restrict__ table,
+                                   const int* __restrict__ levels,
+                                   const int* __restrict__ cells, int S, int C,
+                                   int xor_hash, float scale,
+                                   const float* __restrict__ g,
+                                   float* __restrict__ dtable) {
+  const int l = blockIdx.y;
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const Level lp = load_level(levels, l);
+  unsigned r0, r1[3];
+  tv_rows(cells, S, l, s, lp, xor_hash != 0, r0, r1);
+  const float k = 2.f * g[0] * scale;
+  for (int d = 0; d < 3; ++d) {
+    for (int c = 0; c < C; ++c) {
+      const float v = k * (table[(int64_t)r1[d] * C + c] -
+                           table[(int64_t)r0 * C + c]);
+      atomicAdd(dtable + (int64_t)r1[d] * C + c, v);
+      atomicAdd(dtable + (int64_t)r0 * C + c, -v);
+    }
+  }
+}
+
+// grid (blocks, L): a grid-stride pass over level l's size * C values
+__global__ void hash_wd_fwd_kernel(const float* __restrict__ table,
+                                   const int* __restrict__ levels, int L,
+                                   int C, float* __restrict__ out) {
+  const int l = blockIdx.y;
+  const Level lp = load_level(levels, l);
+  const int64_t n = (int64_t)lp.size * C, base = (int64_t)lp.offset * C;
+  float part = 0.f;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float v = table[base + i];
+    part += v * v;
+  }
+  part = block_sum(part);
+  if (threadIdx.x == 0)
+    atomicAdd(out, part * (0.5f / ((float)lp.size * (float)L)));
+}
+
+__global__ void hash_wd_bwd_kernel(const float* __restrict__ table,
+                                   const int* __restrict__ levels, int L,
+                                   int C, const float* __restrict__ g,
+                                   float* __restrict__ dtable) {
+  const int l = blockIdx.y;
+  const Level lp = load_level(levels, l);
+  const int64_t n = (int64_t)lp.size * C, base = (int64_t)lp.offset * C;
+  const float k = g[0] / ((float)lp.size * (float)L);
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    dtable[base + i] = k * table[base + i];
+  }
+}
+
+inline unsigned blocks_for(int64_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+// blocks per level for the wd passes: enough to fill the card, each thread
+// looping over a few values
+inline unsigned wd_blocks(int max_size, int C) {
+  const int64_t b = ((int64_t)max_size * C + kThreads * 8 - 1) /
+                    ((int64_t)kThreads * 8);
+  return (unsigned)(b < 1 ? 1 : (b > 4096 ? 4096 : b));
+}
+
+template <typename T>
+cudaError_t fwd_dispatch(int C, unsigned blocks, cudaStream_t s,
+                         const float* x, const float* table, const int* levels,
+                         int N, int L, int n_active, int smooth, int xor_hash,
+                         void* feat, void* jx, void* jy, void* jz) {
+#define HG_FWD(CC)                                                            \
+  hash_fwd_kernel<T, CC><<<blocks, kThreads, 0, s>>>(                         \
+      x, table, levels, N, L, n_active, smooth, xor_hash, (T*)feat, (T*)jx,   \
+      (T*)jy, (T*)jz)
+  switch (C) {
+    case 2: HG_FWD(2); break;
+    case 4: HG_FWD(4); break;
+    case 8: HG_FWD(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef HG_FWD
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int hashgrid_fwd(const float* x, const float* table,
+                            const int* levels, int N, int L, int C,
+                            int n_active, int smooth, int xor_hash, void* feat,
+                            void* jx, void* jy, void* jz, int out_bf16,
+                            void* stream) {
+  const int64_t total = (int64_t)N * L;
+  if (total == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e =
+      out_bf16 ? fwd_dispatch<__nv_bfloat16>(C, blocks_for(total), s, x, table,
+                                             levels, N, L, n_active, smooth,
+                                             xor_hash, feat, jx, jy, jz)
+               : fwd_dispatch<float>(C, blocks_for(total), s, x, table, levels,
+                                     N, L, n_active, smooth, xor_hash, feat,
+                                     jx, jy, jz);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hashgrid_bwd(const float* x, const int* levels, int N, int L,
+                            int C, int n_active, int smooth, int xor_hash,
+                            const float* g_feat, const float* g_jx,
+                            const float* g_jy, const float* g_jz,
+                            float* dtable, void* stream) {
+  const int64_t total = (int64_t)N * L;
+  if (total == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = blocks_for(total);
+#define HG_BWD(CC)                                                            \
+  hash_bwd_kernel<CC><<<blocks, kThreads, 0, s>>>(                            \
+      x, levels, N, L, n_active, smooth, xor_hash, g_feat, g_jx, g_jy, g_jz,  \
+      dtable)
+  switch (C) {
+    case 2: HG_BWD(2); break;
+    case 4: HG_BWD(4); break;
+    case 8: HG_BWD(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef HG_BWD
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hashgrid_tv_fwd(const float* table, const int* levels,
+                               const int* cells, int S, int L, int C,
+                               int xor_hash, float scale, float* out,
+                               void* stream) {
+  if (S > 0 && L > 0) {
+    hash_tv_fwd_kernel<<<dim3(blocks_for(S), L), kThreads, 0,
+                         (cudaStream_t)stream>>>(table, levels, cells, S, C,
+                                                 xor_hash, scale, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hashgrid_tv_bwd(const float* table, const int* levels,
+                               const int* cells, int S, int L, int C,
+                               int xor_hash, float scale, const float* g,
+                               float* dtable, void* stream) {
+  if (S > 0 && L > 0) {
+    hash_tv_bwd_kernel<<<dim3(blocks_for(S), L), kThreads, 0,
+                         (cudaStream_t)stream>>>(table, levels, cells, S, C,
+                                                 xor_hash, scale, g, dtable);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hashgrid_wd_fwd(const float* table, const int* levels, int L,
+                               int C, int max_size, float* out, void* stream) {
+  if (L > 0) {
+    hash_wd_fwd_kernel<<<dim3(wd_blocks(max_size, C), L), kThreads, 0,
+                         (cudaStream_t)stream>>>(table, levels, L, C, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hashgrid_wd_bwd(const float* table, const int* levels, int L,
+                               int C, int max_size, const float* g,
+                               float* dtable, void* stream) {
+  if (L > 0) {
+    hash_wd_bwd_kernel<<<dim3(wd_blocks(max_size, C), L), kThreads, 0,
+                         (cudaStream_t)stream>>>(table, levels, L, C, g,
+                                                 dtable);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,19 +1,22 @@
 """CLI entry point of the port's training runs.
 
+    python -m dreamfusion_tpu_torch.main --text "a hamburger" -O \\
+        --workspace ws                 # SD 2.1 guidance, hash-grid backbone
     python -m dreamfusion_tpu_torch.main --text "a hamburger" \\
         --backbone triplane --seed 0 --lambda_3d_normal_smooth 0 \\
-        --iters 10000 --workspace ws                  # SD 2.1 guidance
+        --iters 10000 --workspace ws                  # triplane backbone
     python -m dreamfusion_tpu_torch.main --guidance oracle \\
-        --backbone triplane --oracle_scene two_sphere --iters 10000 \\
+        --backbone grid --oracle_scene two_sphere --iters 10000 \\
         --lr 0.01 --seed 0 --lambda_3d_normal_smooth 0 --save_mesh \\
         --ckpt scratch --workspace ws                 # stage 1
     python -m dreamfusion_tpu_torch.main --guidance oracle \\
-        --backbone triplane --dmtet --init_with ws/checkpoints --lr 0.002 \\
+        --backbone grid --dmtet --init_with ws/checkpoints --lr 0.002 \\
         --iters 5000 --save_mesh --workspace ws_dmtet  # stage 2 (DMTet)
 
-Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``--dmtet``
-applies the DMTet preset (``config.apply_dmtet``).  The run goes on the GPU;
-``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
+Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
+applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
+``--dmtet`` the DMTet preset (``config.apply_dmtet``).  The run goes on the
+GPU; ``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
 guidance runs its towers at full SD 2.1 width with random weights drawn
 from the seed (no pretrained weights ship with the repository);
 ``--tiny_guidance`` uses the test-size towers.
@@ -43,7 +46,7 @@ from typing import Any, Dict
 
 import torch
 
-from .config import Config, apply_dmtet, finalize
+from .config import Config, apply_dmtet, apply_O, finalize
 from .guidance.embeddings import prepare_text_embeddings
 from .guidance.sd import SDConfig, StableDiffusionGuidance
 from .mesh.export import export_mesh
@@ -55,7 +58,7 @@ TEX_RES = 1024        # the exported albedo texture's side
 
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "exp_start_iter": int, "exp_end_iter": int}
-_NOT_PORTED = {"-O": "queue 1, item 5", "-O2": "queue 1, item 5",
+_NOT_PORTED = {"-O2": "queue 1, item 5",
                "--IF": "queue 1, item 7", "--gui": "queue 1, item 8",
                "--profile": "queue 1, item 8"}
 
@@ -83,6 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain versions)")
     p.add_argument("--tiny_guidance", action="store_true",
                    help="test-size random guidance towers")
+    p.add_argument("-O", action="store_true",
+                   help="fp16 and the hash-grid backbone")
     for flag in _NOT_PORTED:
         p.add_argument(flag, action="store_true")
     return p
@@ -99,6 +104,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         if v is not None:
             overrides[f.name] = tuple(v) if isinstance(v, list) else v
     cfg = replace(Config(), **overrides)
+    if args.O:
+        cfg = apply_O(cfg)
     return finalize(apply_dmtet(cfg) if cfg.dmtet else cfg)
 
 
@@ -198,9 +205,12 @@ def main(argv=None) -> Dict[str, Any]:
     ok = torch.ones((), dtype=torch.bool, device=device)
     losses, blocks, grad_max, extra = [], [], [], []
     names = [n for n, _ in trainer.module(state).named_parameters()]
-    # per step, the largest |gradient| of each watched group
-    groups = {"triplane": [i for i, n in enumerate(names)
-                           if "triplanes" in n]}
+    # per step, the largest |gradient| of each watched group: the encoder
+    # (the hash table or the triplanes), and the DMTet geometry
+    grid = cfg.backbone == "grid"
+    groups = {"grid" if grid else "triplane": [
+        i for i, n in enumerate(names)
+        if ("grid_table" if grid else "triplanes") in n]}
     if cfg.dmtet:
         groups.update(sdf=[names.index("geo.sdf")],
                       deform=[names.index("geo.deform")])

@@ -3,8 +3,8 @@
 
 Trainable (sdf, deform) on a tetrahedral grid → marching tets (K8) →
 rasterization (K7) → the NeRF field queried as a texture field for albedo
-(K1 + K4) → shading → background compositing; the normal-consistency and
-Laplacian regularizers come from the same mesh (K8).
+(K6 or K1, + K4) → shading → background compositing; the
+normal-consistency and Laplacian regularizers come from the same mesh (K8).
 """
 
 from __future__ import annotations

@@ -1,17 +1,21 @@
-"""NeRF field, triplane backbone (``dreamfusion_tpu/models/nerf.py``).
+"""NeRF field, hash-grid and triplane backbones
+(``dreamfusion_tpu/models/nerf.py``).
 
-Triplane encode (K1) → ReLU MLP → field head (K4).  Parameters are fp32;
-with ``compute_dtype=torch.bfloat16`` the MLP runs in bf16 as the JAX
-package's ``Dense(dtype=bfloat16)`` does (inputs, weights and bias cast,
-output bf16), while sigma, normals and everything after stay fp32.
+Hash-grid (K6) or triplane (K1) encode → ReLU MLP → field head (K4).
+Parameters are fp32; with ``compute_dtype=torch.bfloat16`` the MLP runs in
+bf16 as the JAX package's ``Dense(dtype=bfloat16)`` does (inputs, weights
+and bias cast, output bf16), while sigma, normals and everything after stay
+fp32.
 
-Normals are -∇σ in closed form: K1 emits the features' spatial jacobian,
-three tangents go forward through the MLP (``t ← W t`` masked by the ReLU
-derivative), and the field head supplies dσ/dpre.  This equals the JAX
-main step's autograd normal (``common_with_normal`` is proved equal in
-``tests/test_triplane.py``) and needs only first-order autograd, so a loss
-on the normals differentiates into planes and weights through the kernels'
-ordinary backwards.
+Normals are -∇σ in closed form: the encoder (K6 or K1) emits the
+features' spatial jacobian, three tangents go forward through the MLP
+(``t ← W t`` masked by the ReLU derivative), and the field head supplies
+dσ/dpre.  This equals the JAX main step's autograd normal (for the
+triplane ``common_with_normal`` is proved equal in
+``tests/test_triplane.py``; for the grid ``tests/test_torch_nerf.py``
+holds it against ``jax.grad``) and needs only first-order autograd, so a
+loss on the normals differentiates into the table or planes and the
+weights through the kernels' ordinary backwards.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 from ..core.math import safe_normalize
 from ..ops.activation import field_head
 from ..ops.freq import freq_encode, freq_encode_dim
+from ..ops.hashgrid import HashGridSpec, hash_encode, init_hashgrid
 from ..ops.triplane import TriplaneSpec, init_triplane, triplane_encode
 
 # the background encoding's degree: the JAX field's own 6 (its Config's
@@ -36,6 +41,22 @@ SHADING_ALBEDO = 0
 SHADING_LAMBERTIAN = 1
 SHADING_TEXTURELESS = 2
 SHADING_NORMAL = 3
+
+
+def make_grid_spec(grid_levels: int, grid_features_per_level: int,
+                   grid_log2_hashmap_size: int, grid_desired_resolution: int,
+                   grid_interpolation: str, grid_hash: str,
+                   bound: float = 1.0) -> HashGridSpec:
+    """The field's hash-grid spec, built as the JAX field builds it: the
+    desired resolution scales with the bound, and the base resolution is
+    the spec's own 16 (the JAX field does not pass
+    ``grid_base_resolution``)."""
+    return HashGridSpec(
+        num_levels=grid_levels, level_dim=grid_features_per_level,
+        log2_hashmap_size=grid_log2_hashmap_size,
+        desired_resolution=int(grid_desired_resolution * bound),
+        interpolation=grid_interpolation,
+        gridtype="affine" if grid_hash == "affine" else "hash")
 
 
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -87,9 +108,15 @@ class BasicMLP(nn.Module):
 
 
 class NeRFField(nn.Module):
-    def __init__(self, bound: float = 1.0, hidden_dim: int = 64,
-                 num_layers: int = 3, density_act: str = "exp",
-                 blob_density: float = 5.0, blob_radius: float = 0.2,
+    def __init__(self, backbone: str = "grid", bound: float = 1.0,
+                 hidden_dim: int = 64, num_layers: int = 3,
+                 density_act: str = "exp", blob_density: float = 5.0,
+                 blob_radius: float = 0.2, grid_levels: int = 4,
+                 grid_features_per_level: int = 8,
+                 grid_log2_hashmap_size: int = 19,
+                 grid_desired_resolution: int = 2048,
+                 grid_interpolation: str = "smoothstep",
+                 grid_hash: str = "affine",
                  triplane_resolution: int = 256, triplane_channels: int = 16,
                  triplane_scales: int = 1, bg_radius: float = -1.0,
                  hidden_dim_bg: int = 32, num_layers_bg: int = 2,
@@ -99,16 +126,28 @@ class NeRFField(nn.Module):
             raise NotImplementedError(
                 "density_activation 'softplus' is not ported "
                 "(ROADMAP queue 1, item 2)")
+        if backbone not in ("grid", "triplane"):
+            raise NotImplementedError(
+                f"backbone {backbone!r} is not ported (ROADMAP queue 1, "
+                f"item 5)")
+        self.backbone = backbone
         self.bound = bound
         self.blob_density = blob_density
         self.blob_radius = blob_radius
         self.compute_dtype = compute_dtype
-        self.spec = TriplaneSpec(resolution=triplane_resolution,
-                                 channels=triplane_channels,
-                                 num_scales=triplane_scales)
-        self.triplanes = nn.ParameterList(
-            nn.Parameter(torch.zeros(3, r, r, triplane_channels))
-            for r in self.spec.resolutions)
+        if backbone == "grid":
+            self.spec = make_grid_spec(
+                grid_levels, grid_features_per_level, grid_log2_hashmap_size,
+                grid_desired_resolution, grid_interpolation, grid_hash, bound)
+            self.grid_table = nn.Parameter(
+                torch.zeros(self.spec.table_size, self.spec.level_dim))
+        else:
+            self.spec = TriplaneSpec(resolution=triplane_resolution,
+                                     channels=triplane_channels,
+                                     num_scales=triplane_scales)
+            self.triplanes = nn.ParameterList(
+                nn.Parameter(torch.zeros(3, r, r, triplane_channels))
+                for r in self.spec.resolutions)
         self.sigma_net = BasicMLP(self.spec.output_dim, 4, hidden_dim,
                                   num_layers)
         # background colour from the ray direction (bg_radius > 0)
@@ -118,9 +157,12 @@ class NeRFField(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            for p, init in zip(self.triplanes,
-                               init_triplane(self.spec, generator)):
-                p.copy_(init)
+            if self.backbone == "grid":
+                self.grid_table.copy_(init_hashgrid(self.spec, generator))
+            else:
+                for p, init in zip(self.triplanes,
+                                   init_triplane(self.spec, generator)):
+                    p.copy_(init)
         self.sigma_net.reset_parameters(generator)
         if self.bg_net is not None:
             self.bg_net.reset_parameters(generator)
@@ -133,12 +175,24 @@ class NeRFField(nn.Module):
     def _unit(self, x: torch.Tensor) -> torch.Tensor:
         return (x + self.bound) / (2 * self.bound)
 
+    def encode(self, x: torch.Tensor, max_level: Optional[float] = None,
+               need_jacobian: bool = False):
+        """The backbone's features of x [N,3] in [-bound, bound] (and, with
+        ``need_jacobian``, their jacobian in [0,1] units)."""
+        if self.backbone == "grid":
+            return hash_encode(self._unit(x), self.grid_table, self.spec,
+                               max_level=max_level,
+                               out_dtype=self.compute_dtype,
+                               need_jacobian=need_jacobian)
+        return triplane_encode(self._unit(x), list(self.triplanes), self.spec,
+                               max_level=max_level,
+                               out_dtype=self.compute_dtype,
+                               need_jacobian=need_jacobian)
+
     def common(self, x: torch.Tensor, max_level: Optional[float] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N,3] in [-bound, bound] → (sigma [N], albedo [N,3])."""
-        feat = triplane_encode(self._unit(x), list(self.triplanes), self.spec,
-                               max_level=max_level,
-                               out_dtype=self.compute_dtype)
+        feat = self.encode(x, max_level)
         h = self.sigma_net(feat, self.compute_dtype)
         sigma, albedo, _ = field_head(h, x, self.blob_density,
                                       self.blob_radius)
@@ -151,10 +205,7 @@ class NeRFField(nn.Module):
     def common_with_normal(self, x: torch.Tensor,
                            max_level: Optional[float] = None):
         """(sigma [N], albedo [N,3], normal [N,3]) from one encode."""
-        feat, jac = triplane_encode(self._unit(x), list(self.triplanes),
-                                    self.spec, max_level=max_level,
-                                    out_dtype=self.compute_dtype,
-                                    need_jacobian=True)
+        feat, jac = self.encode(x, max_level, need_jacobian=True)
         h, t = self.sigma_net(feat, self.compute_dtype,
                               tangents=torch.stack(jac))
         sigma, albedo, dsig = field_head(h, x, self.blob_density,

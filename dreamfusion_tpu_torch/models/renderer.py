@@ -1,8 +1,8 @@
 """Occupancy-grid volume renderer (``dreamfusion_tpu/models/renderer.py``,
 ``render_grid`` and ``_shade_and_composite``).
 
-march (K2) → field: triplane (K1) + MLP + head (K4) → composite (K3) →
-background, plus the orient regularizer on the normals.  The occupancy
+march (K2) → field: hash grid (K6) or triplane (K1) + MLP + head (K4) →
+composite (K3) → background, plus the orient regularizer on the normals.  The occupancy
 grid is explicit state passed in, not a module buffer.
 """
 

@@ -50,6 +50,9 @@ LAUNCHES: Dict[str, int] = {
     "vertex_normals_fwd": 0, "vertex_normals_bwd": 0,        # K8
     "laplacian_fwd": 0, "laplacian_bwd": 0,                  # K8
     "normal_consistency_fwd": 0, "normal_consistency_bwd": 0,  # K8
+    "hashgrid_fwd": 0, "hashgrid_bwd": 0,                    # K6, CUDA C++
+    "hashgrid_tv_fwd": 0, "hashgrid_tv_bwd": 0,              # K6
+    "hashgrid_wd_fwd": 0, "hashgrid_wd_bwd": 0,              # K6
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -79,6 +82,12 @@ _SIGNATURES = {
     "laplacian_bwd": [_P] * 6 + [_I] * 2 + [_P] * 2 + [_P],
     "normal_consistency_fwd": [_P] * 3 + [_I] * 2 + [_P] * 8 + [_P],
     "normal_consistency_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_P],
+    "hashgrid_fwd": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P],
+    "hashgrid_bwd": [_P] * 2 + [_I] * 6 + [_P] * 5 + [_P],
+    "hashgrid_tv_fwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P],
+    "hashgrid_tv_bwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P, _P],
+    "hashgrid_wd_fwd": [_P] * 2 + [_I] * 3 + [_P, _P],
+    "hashgrid_wd_bwd": [_P] * 2 + [_I] * 3 + [_P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -3,6 +3,9 @@
     python -m dreamfusion_tpu_torch.profile_step --text "a hamburger" \\
         --backbone triplane --seed 0 --lambda_3d_normal_smooth 0 \\
         --iters 40 --profile_steps 4
+    python -m dreamfusion_tpu_torch.profile_step --guidance oracle \\
+        --backbone grid --oracle_scene two_sphere --lr 0.01 --seed 0 \\
+        --iters 300 --warmup_steps 20 --profile_steps 20
 
 Takes every flag of ``dreamfusion_tpu_torch.main``.  For each phase of the
 run (the SD warm-up, then the main phase; the oracle and the DMTet stage
@@ -11,11 +14,14 @@ then ``--profile_steps`` steps under ``torch.profiler`` and prints, per
 step: the host wall time (synchronised), the device's kernel time and busy
 share (the union of the kernels' intervals over the wall time), and the
 kernel time by group (the port's kernels K1-K12, matrix products,
-everything else) and by name.
+everything else) and by name.  After the phases it profiles the guarded
+Adan + EMA update alone, on a copy of the trained parameters with random
+gradients: its aten kernels fall under "other" in the step's groups.
 """
 
 from __future__ import annotations
 
+import copy
 import re
 import time
 from collections import defaultdict
@@ -23,7 +29,7 @@ from collections import defaultdict
 import torch
 
 from .main import build_parser, build_run, config_from_args, resolve_device
-from .training.trainer import check_slice
+from .training.trainer import check_slice, guarded_update
 
 GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K7 raster", r"\b(raster|interpolate)_\w+_kernel"),
@@ -31,6 +37,7 @@ GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K12 conv", r"conv_mma_kernel|conv_simple_kernel"),
     ("K10 attention", r"attn_"),
     ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"),
+    ("K6 hashgrid", r"\bhash_\w+_kernel"),
     ("K1 triplane", r"triplane"),
     ("K2 march", r"march"),
     ("K3 composite", r"composite"),
@@ -94,6 +101,36 @@ def profile_phase(trainer, state, gen, n_steps: int, label: str) -> None:
               f"{n / n_steps:6.1f} launches/step  {name[:90]}", flush=True)
 
 
+def profile_update(trainer, state, n: int = 10) -> None:
+    """The guarded Adan + EMA update of every parameter, alone: wall and
+    kernel ms per update, on copies of the module, moments and EMA."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    module = copy.deepcopy(trainer.module(state))
+    opt, ema = copy.deepcopy(state.opt_state), copy.deepcopy(state.ema_params)
+    g = torch.Generator(device=trainer.device).manual_seed(0)
+    grads = [torch.randn(p.shape, device=p.device, generator=g) * 1e-3
+             for p in module.parameters()]
+    for _ in range(2):
+        guarded_update(trainer.optimizer, trainer.cfg, module, opt, ema, grads)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            guarded_update(trainer.optimizer, trainer.cfg, module, opt, ema,
+                           grads)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    numel = sum(p.numel() for p in module.parameters())
+    print(f"[profile] Adan + EMA alone ({numel} parameters): wall "
+          f"{wall_ms:.3f} ms/update, kernels {ms:.3f} ms/update, "
+          f"{len(kern) / n:.0f} launches/update", flush=True)
+
+
 def main(argv=None) -> None:
     p = build_parser()
     p.add_argument("--warmup_steps", type=int, default=3)
@@ -120,6 +157,7 @@ def main(argv=None) -> None:
         print(f"[profile] {label}: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
               f"{torch.cuda.get_device_name(0)}", flush=True)
+    profile_update(trainer, state)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ dmtet_trainer.py``).
 The second stage of a run (``--dmtet --init_with <stage-1 checkpoint>``):
 trainable (sdf, deform) on a tetrahedral grid beside the stage-1 NeRF
 field, reused as a texture field.  One step: marching tets (K8) →
-rasterization (K7) → albedo query (K1 + K4) → shading → oracle SDS +
+rasterization (K7) → albedo query (K6 or K1, + K4) → shading → oracle SDS +
 normal-consistency and Laplacian regularizers → backward → guarded Adan →
 EMA.  ``--lock_geo`` pins (sdf, deform) and their EMA; the field keeps
 training.  The stage bootstraps from the port's own stage-1 checkpoint: the

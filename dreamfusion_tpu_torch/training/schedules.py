@@ -28,6 +28,10 @@ def lambda_entropy_at(cfg: Config, step: int) -> float:
     return cfg.lambda_entropy * min(1.0, 2.0 * step / cfg.iters)
 
 
+def lambda_tv_at(cfg: Config, step: int) -> float:
+    return cfg.lambda_tv * min(1.0, step / (0.5 * cfg.iters))
+
+
 class ChoiceDraws(NamedTuple):
     """Random numbers of one step's shading choices."""
     ambient_u: torch.Tensor     # [] uniform [0, 1)

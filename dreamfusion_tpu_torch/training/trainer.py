@@ -1,10 +1,10 @@
 """The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
 ported paths): state init, the step (render → SDS from the pixel oracle or
-Stable Diffusion → entropy and orient regularizers → backward → guarded
-Adan → EMA), the density-grid update, and the run's end: eval renders with
-the analytic-scene PSNR, the turntable video and the checkpoints
-(``torch.save``; the rolling ``df_ep*`` ones and the EMA-only ``df`` kept
-best by the eval metric).
+Stable Diffusion → entropy and orient regularizers, and the hash grid's tv
+and weight decay → backward → guarded Adan → EMA), the density-grid update,
+and the run's end: eval renders with the analytic-scene PSNR, the turntable
+video and the checkpoints (``torch.save``; the rolling ``df_ep*`` ones and
+the EMA-only ``df`` kept best by the eval metric).
 
 Under SD the first ``latent_iter_ratio`` of the run is the warm-up phase:
 normal shading at ambient 1, no background MLP, and the rgb + alpha render
@@ -40,8 +40,10 @@ from ..evaluation.analytic import scene_views
 from ..guidance.oracle import PixelOracleGuidance
 from ..guidance.perpneg import (adjust_text_embeddings,
                                 interpolate_view_embedding)
-from ..models.nerf import SHADING_ALBEDO, SHADING_NORMAL
+from ..models.nerf import SHADING_ALBEDO, SHADING_NORMAL, make_grid_spec
 from ..models.renderer import NeRFRenderer, RenderFlags
+from ..ops.hashgrid import (HashGridSpec, draw_tv_cells, hashgrid_tv_loss,
+                            hashgrid_wd_loss)
 from ..ops.occupancy import update_density_grid
 from ..utils.device import resolve_device
 from ..utils.image import colorize_depth, save_image, save_video
@@ -55,8 +57,9 @@ def check_slice(cfg: Config) -> None:
     """Refuse configurations outside the ported slice, naming the ROADMAP
     item that ports them."""
     todo = {
-        "--backbone other than triplane": (cfg.backbone != "triplane",
-                                           "queue 1, item 5"),
+        "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
+                                                          "triplane"),
+                                     "queue 1, item 5"),
         "guidance other than the pixel oracle or SD alone": (
             tuple(cfg.guidance) not in (("oracle",), ("SD",)),
             "queue 1, item 7"),
@@ -75,8 +78,9 @@ def check_slice(cfg: Config) -> None:
         "--grad_clip": (cfg.grad_clip >= 0, "queue 1, item 3"),
         "--grad_clip_rgb (K5)": (cfg.grad_clip_rgb >= 0, "queue 2, K5"),
         "--progressive_view": (cfg.progressive_view, "queue 1, item 3"),
-        "--lambda_tv / --lambda_wd": (cfg.lambda_tv > 0 or cfg.lambda_wd > 0,
-                                      "queue 1, item 3"),
+        "--lambda_tv on the triplane (triplane_tv_loss)": (
+            cfg.lambda_tv > 0 and cfg.backbone == "triplane",
+            "queue 1, item 2"),
         "normal-smoothness losses": (
             cfg.lambda_3d_normal_smooth > 0 or cfg.lambda_2d_normal_smooth > 0
             or cfg.lambda_normal > 0, "queue 1, item 3"),
@@ -89,15 +93,28 @@ def check_slice(cfg: Config) -> None:
                 f"{what} is not ported yet (ROADMAP {item})")
 
 
+GRID_FIELDS = ("grid_levels", "grid_features_per_level",
+               "grid_log2_hashmap_size", "grid_desired_resolution",
+               "grid_interpolation", "grid_hash")
+
+
+def grid_spec_of(cfg: Config) -> HashGridSpec:
+    """The hash-grid spec of the field ``build_renderer(cfg)`` builds."""
+    return make_grid_spec(**{k: getattr(cfg, k) for k in GRID_FIELDS},
+                          bound=cfg.bound)
+
+
 def build_renderer(cfg: Config) -> NeRFRenderer:
     return NeRFRenderer(
         bound=cfg.bound, min_near=cfg.min_near,
         grid_probe_steps=cfg.grid_coarse_steps,
         grid_fine_steps=cfg.grid_fine_steps,
         occupancy_mode=cfg.occupancy_mode, dt_gamma=cfg.dt_gamma,
-        hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+        backbone=cfg.backbone, hidden_dim=cfg.hidden_dim,
+        num_layers=cfg.num_layers,
         density_act=cfg.density_activation, blob_density=cfg.blob_density,
         blob_radius=cfg.blob_radius,
+        **{k: getattr(cfg, k) for k in GRID_FIELDS},
         triplane_resolution=cfg.triplane_resolution,
         triplane_channels=cfg.triplane_channels,
         triplane_scales=cfg.triplane_scales, bg_radius=cfg.bg_radius,
@@ -119,6 +136,7 @@ class StepDraws(NamedTuple):
     noise: torch.Tensor                # [B, h, w, 3] pixels (oracle) or
     #                                    [B, ls, ls, 4] latents (SD)
     posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
+    tv_cells: Optional[torch.Tensor] = None   # [L, 4096, 3] (grid, tv > 0)
 
 
 def _samplers(gen: torch.Generator, device):
@@ -167,11 +185,16 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
     march_u = stratified_u(U(B * cfg.h * cfg.w, cfg.grid_fine_steps))
     t = draw_t(gen, cfg, device)
     if latent_size is None:
-        return StepDraws(pose, fov, choice, march_u, t,
-                         N(B, cfg.h, cfg.w, 3))
-    ls = latent_size
-    return StepDraws(pose, fov, choice, march_u, t, N(B, ls, ls, 4),
-                     N(B, ls, ls, 4))
+        draws = StepDraws(pose, fov, choice, march_u, t,
+                          N(B, cfg.h, cfg.w, 3))
+    else:
+        ls = latent_size
+        draws = StepDraws(pose, fov, choice, march_u, t, N(B, ls, ls, 4),
+                          N(B, ls, ls, 4))
+    if cfg.backbone == "grid" and cfg.lambda_tv > 0:
+        draws = draws._replace(tv_cells=draw_tv_cells(
+            gen, grid_spec_of(cfg), device))
+    return draws
 
 
 def draw_grid(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
@@ -246,9 +269,9 @@ def newest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 
 def adan_for(cfg: Config, module: torch.nn.Module) -> Adan:
-    """Adan at 5x lr, the triplanes' updates 10x."""
-    return Adan(5.0 * cfg.lr, [10.0 if "triplanes" in n else 1.0
-                               for n, _ in module.named_parameters()])
+    """Adan at 5x lr, the encoder's (hash table or triplanes) updates 10x."""
+    return Adan(5.0 * cfg.lr, [10.0 if "grid_table" in n or "triplanes" in n
+                               else 1.0 for n, _ in module.named_parameters()])
 
 
 class Trainer:
@@ -350,6 +373,23 @@ class Trainer:
             loss = loss + cfg.lambda_orient * out["loss_orient"]
         return loss
 
+    def _grid_reg_losses(self, state: TrainState, draws: StepDraws
+                         ) -> Optional[torch.Tensor]:
+        """The hash grid's tv (on the step's sampled cells) and weight-decay
+        terms, or None off the grid or with both weights 0."""
+        cfg, field = self.cfg, state.renderer.field
+        if cfg.backbone != "grid":
+            return None
+        loss = None
+        if cfg.lambda_tv > 0:
+            loss = schedules.lambda_tv_at(cfg, state.step) * \
+                hashgrid_tv_loss(draws.tv_cells, field.grid_table, field.spec)
+        if cfg.lambda_wd > 0:
+            wd = cfg.lambda_wd * hashgrid_wd_loss(field.grid_table,
+                                                  field.spec)
+            loss = wd if loss is None else loss + wd
+        return loss
+
     def render_part(self, state: TrainState, draws: StepDraws,
                     latent_phase: bool = False):
         """Render + every non-guidance loss term →
@@ -379,6 +419,9 @@ class Trainer:
         image = out["image"].reshape(B, H, W, 3)
         wsum = out["weights_sum"].reshape(B, H, W)
         reg = self._volume_reg_losses(out, wsum, state.step)
+        grid_reg = self._grid_reg_losses(state, draws)
+        if grid_reg is not None:
+            reg = reg + grid_reg
         if latent_phase:
             image = torch.cat([image, wsum[..., None]], dim=-1)
         return image, reg, batch, choices.bg_color

@@ -26,9 +26,10 @@ def _linear(kernel) -> torch.Tensor:
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """A JAX param pytree with numpy leaves → the port's state_dict(s).
 
-    ``{'field': {'triplanes': [...], 'sigma_net': {...}, 'bg_net': {...}}}``
-    (``NeRFRenderer``) → the renderer's ``state_dict``, triplanes in their
-    [3, R, R, C] layout.  ``{'unet', 'vae', 'text'}`` (the guidance towers
+    ``{'field': {'grid_table' or 'triplanes': ..., 'sigma_net': {...},
+    'bg_net': {...}}}`` (``NeRFRenderer``) → the renderer's ``state_dict``,
+    the hash table as it is ([T, C]), triplanes in their [3, R, R, C]
+    layout.  ``{'unet', 'vae', 'text'}`` (the guidance towers
     of ``StableDiffusionGuidance.init_params``) → ``{'unet': state_dict,
     'vae': ..., 'text': ...}``.  The DMTet stage's ``{'nerf': ..., 'geo':
     {'sdf', 'deform'}}`` → the ``DMTetModel`` state_dict (``nerf.*``,
@@ -48,7 +49,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
         return _towers(tree)
     field = tree["field"]
     out: Dict[str, torch.Tensor] = {}
-    for s, plane in enumerate(field["triplanes"]):
+    if "grid_table" in field:
+        out["field.grid_table"] = torch.from_numpy(
+            np.array(field["grid_table"], dtype=np.float32))
+    for s, plane in enumerate(field.get("triplanes", ())):
         out[f"field.triplanes.{s}"] = torch.from_numpy(
             np.array(plane, dtype=np.float32))
     for net in ("sigma_net", "bg_net"):

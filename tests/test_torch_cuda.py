@@ -443,3 +443,124 @@ def test_k7_k8_wrappers_count_their_launches(dev):
                  "normal_consistency_bwd"):
         assert kernels.LAUNCHES[name] >= 1, name
     assert float(p.sdf.grad.abs().max()) > 0
+
+
+# ---- K6 hash grid -----------------------------------------------------------
+
+def _hash_inputs(dev, spec, N, seed=5):
+    g = _gen(dev, seed)
+    x = torch.rand(N, 3, device=dev, generator=g)
+    x[0] = torch.tensor([1.5, 0.5, 0.5])            # outside the box
+    x[1] = torch.tensor([0.5, -1e-3, 0.5])
+    x[2:40, 0] = 0.0                                  # on the faces
+    x[40:80, 1] = 1.0
+    x[80:90] = torch.tensor([1.0, 1.0, 0.0])
+    table = (torch.rand(spec.table_size, spec.level_dim, device=dev,
+                        generator=g) - 0.5) * 0.2
+    return x, table, g
+
+
+@pytest.mark.parametrize("L,C,log2,res,interp,hash_,max_level,dtype", [
+    (4, 8, 19, 2048, "smoothstep", "affine", None, torch.bfloat16),  # flagship
+    (4, 8, 12, 256, "linear", "affine", 0.5, torch.float32),
+    (16, 2, 19, 2048, "linear", "xor", None, torch.float32),         # tcnn
+    (16, 2, 12, 512, "smoothstep", "xor", 0.3, torch.bfloat16),
+    (8, 4, 14, 512, "smoothstep", "affine", None, torch.float32),
+    (8, 4, 10, 128, "linear", "xor", None, torch.bfloat16),
+])
+def test_hashgrid_kernel(dev, L, C, log2, res, interp, hash_, max_level,
+                         dtype):
+    from dreamfusion_tpu_torch.models.nerf import make_grid_spec
+    from dreamfusion_tpu_torch.ops.hashgrid import (hash_bwd_plain,
+                                                    hash_encode,
+                                                    hash_fwd_plain,
+                                                    n_active_levels)
+    spec = make_grid_spec(L, C, log2, res, interp, hash_)
+    N = 5003
+    x, table, g = _hash_inputs(dev, spec, N)
+    n_act = n_active_levels(spec, max_level)
+    tab = table.clone().requires_grad_()
+    feat, jac = hash_encode(x, tab, spec, max_level=max_level,
+                            out_dtype=dtype, need_jacobian=True)
+    torch.cuda.synchronize()
+    ref = hash_fwd_plain(x, table, spec, n_act, True)
+    for a, b in zip((feat, *jac), ref):
+        if dtype == torch.float32:
+            _close_to(a, b, 1e-6)
+        else:       # one bf16 ulp, plus fp32 sums of terms that cancel
+            torch.testing.assert_close(
+                a.float(), b.to(dtype).float(), rtol=2 ** -7,
+                atol=1e-6 + 1e-6 * float(b.abs().max()))
+    for o in (feat, *jac):
+        assert not o[:2].any()                        # outside: zeros
+        assert not o[:, n_act * C:].any()             # masked levels
+    assert not jac[0][2:40].any()                     # the face band
+    cots = [torch.randn(N, L * C, device=dev, generator=g) for _ in range(4)]
+    loss = sum((o.float() * c).sum() for o, c in zip((feat, *jac), cots))
+    (dt,) = torch.autograd.grad(loss, [tab])
+    ref_dt = hash_bwd_plain(x, spec, n_act, cots[0].to(dtype),
+                            [c.to(dtype) for c in cots[1:]])
+    _close_to(dt, ref_dt, 1e-5)
+
+
+@pytest.mark.parametrize("hash_", ["affine", "xor"])
+def test_hashgrid_position_grad(dev, hash_):
+    from dreamfusion_tpu_torch.models.nerf import make_grid_spec
+    from dreamfusion_tpu_torch.ops.hashgrid import hash_encode
+    spec = make_grid_spec(4, 8, 14, 512, "smoothstep", hash_)
+    x, table, g = _hash_inputs(dev, spec, 4099)
+    cot = torch.randn(4099, spec.output_dim, device=dev, generator=g)
+    xk = x.clone().requires_grad_()
+    (dk,) = torch.autograd.grad(hash_encode(xk, table, spec), [xk], cot)
+    xp = x.cpu().requires_grad_()
+    (dp,) = torch.autograd.grad(hash_encode(xp, table.cpu(), spec), [xp],
+                                cot.cpu())
+    _close_to(dk.cpu(), dp, 1e-5)
+    assert not dk[:2].any()
+
+
+@pytest.mark.parametrize("L,C,log2,res,hash_", [
+    (4, 8, 19, 2048, "affine"), (16, 2, 19, 2048, "xor"),
+    (8, 4, 12, 256, "affine")])
+def test_hashgrid_tv_wd_kernels(dev, L, C, log2, res, hash_):
+    from dreamfusion_tpu_torch.models.nerf import make_grid_spec
+    from dreamfusion_tpu_torch.ops.hashgrid import (draw_tv_cells,
+                                                    hash_tv_bwd_plain,
+                                                    hash_tv_plain,
+                                                    hash_wd_bwd_plain,
+                                                    hash_wd_plain,
+                                                    hashgrid_tv_loss,
+                                                    hashgrid_wd_loss)
+    spec = make_grid_spec(L, C, log2, res, "smoothstep", hash_)
+    _, table, g = _hash_inputs(dev, spec, 8)
+    cells = draw_tv_cells(g, spec, dev)
+    tab = table.clone().requires_grad_()
+    tv = hashgrid_tv_loss(cells, tab, spec)
+    wd = hashgrid_wd_loss(tab, spec)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(tv, hash_tv_plain(table, cells, spec),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(wd, hash_wd_plain(table, spec), rtol=1e-5,
+                               atol=0)
+    (gt,) = torch.autograd.grad(2.5 * tv, [tab])
+    (gw,) = torch.autograd.grad(0.5 * wd, [tab])
+    two, half = (torch.tensor(v, device=dev) for v in (2.5, 0.5))
+    _close_to(gt, hash_tv_bwd_plain(table, cells, spec, two), 1e-5)
+    _close_to(gw, hash_wd_bwd_plain(table, spec, half), 1e-6)
+
+
+def test_k6_wrappers_count_their_launches(dev):
+    from dreamfusion_tpu_torch.config import Config, finalize
+    from dreamfusion_tpu_torch.training.trainer import build_renderer
+    cfg = finalize(Config(guidance=("oracle",), backbone="grid",
+                          grid_log2_hashmap_size=14, hidden_dim=16))
+    r = build_renderer(cfg)
+    r.field.reset_parameters(torch.Generator().manual_seed(0))
+    r.to(dev)
+    x = torch.rand(1000, 3, device=dev) * 2 - 1
+    kernels.reset_launch_counts()
+    s, a, n = r.field.common_with_normal(x)
+    (s.sum() + a.sum() + n.sum()).backward()
+    assert kernels.LAUNCHES["hashgrid_fwd"] == 1
+    assert kernels.LAUNCHES["hashgrid_bwd"] == 1
+    assert float(r.field.grid_table.grad.abs().max()) > 0

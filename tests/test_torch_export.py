@@ -182,8 +182,21 @@ def _outputs_of(ws):
 
 
 def test_two_stage_cli_run(tmp_path):
-    common = ["--guidance", "oracle", "--backbone", "triplane",
-              "--triplane_resolution", "32", "--triplane_channels", "8",
+    _two_stage(tmp_path, ["--backbone", "triplane", "--triplane_resolution",
+                          "32", "--triplane_channels", "8"])
+
+
+def test_two_stage_cli_run_grid_backbone(tmp_path):
+    """Stage 1 and the DMTet stage on the hash grid (K6's plain version)."""
+    s1, s2 = _two_stage(tmp_path, [
+        "--backbone", "grid", "--grid_log2_hashmap_size", "12",
+        "--grid_desired_resolution", "128"])
+    assert all(g > 0 for g in s1["grid_grad_max"])
+    assert all(g > 0 for g in s2["grid_grad_max"])
+
+
+def _two_stage(tmp_path, model_flags):
+    common = ["--guidance", "oracle", *model_flags,
               "--hidden_dim", "32", "--grid_size", "32", "--H", "24",
               "--W", "24", "--dataset_size_test", "3", "--device", "cpu",
               "--lambda_3d_normal_smooth", "0", "--ckpt", "scratch",
@@ -209,6 +222,7 @@ def test_two_stage_cli_run(tmp_path):
     assert all(g > 0 for g in s2["sdf_grad_max"] + s2["deform_grad_max"])
     assert "dmtet" in s2["export_phases"]
     _outputs_of(ws2)
+    return s1, s2
 
 
 def test_test_mode_renders_from_the_checkpoint(tmp_path):

@@ -1,7 +1,8 @@
-"""Port parity of the triplane field and of Adan.
+"""Port parity of the field (triplane and hash-grid backbones) and of Adan.
 
 * Field (sigma, albedo) against ``NeRFField.common``, and the closed-form
-  normals against ``_autograd_normal`` (-∇σ by JAX autodiff): 1e-4.
+  normals against ``_autograd_normal`` (-∇σ by JAX autodiff): 1e-4.  The
+  hash-grid cases scale the table to ±0.1 so that the field is not flat.
 * Parameter gradients of a loss on (sigma, albedo, normal) against the
   second-order autograd reference of ``tests/test_triplane.py``'s
   ``loss_old``: 2e-3 rel.
@@ -18,9 +19,14 @@ import torch
 
 from dreamfusion_tpu.core.math import safe_normalize as j_safe_normalize
 from dreamfusion_tpu.models.nerf import NeRFField as JField
-from dreamfusion_tpu.training.optimizer import build_optimizer
+import pytest
+
+from dreamfusion_tpu.training.optimizer import (build_optimizer,
+                                                encoder_label_fn)
+from dreamfusion_tpu_torch.config import Config, finalize
 from dreamfusion_tpu_torch.models.nerf import NeRFField
 from dreamfusion_tpu_torch.training.optimizer import Adan
+from dreamfusion_tpu_torch.training.trainer import adan_for, build_renderer
 from dreamfusion_tpu_torch.utils.convert import params_from_jax
 
 from torch_parity import tt
@@ -29,16 +35,33 @@ torch.set_num_threads(2)
 
 FIELD = dict(bound=1.0, hidden_dim=32, num_layers=3, triplane_resolution=32,
              triplane_channels=8, triplane_scales=2)
+GRIDS = {
+    "L4C8-affine-smooth": dict(grid_levels=4, grid_features_per_level=8,
+                               grid_log2_hashmap_size=12,
+                               grid_desired_resolution=128,
+                               grid_interpolation="smoothstep",
+                               grid_hash="affine"),
+    "L16C2-xor-linear": dict(grid_levels=16, grid_features_per_level=2,
+                             grid_log2_hashmap_size=12,
+                             grid_desired_resolution=256,
+                             grid_interpolation="linear", grid_hash="xor"),
+}
 
 
-def _fields(seed=3):
-    jf = JField(backbone="triplane", bg_radius=-1.0, normal_mode="autograd",
-                compute_dtype=jnp.float32, **FIELD)
+def _fields(seed=3, grid=None):
+    """(JAX field, its params, the port's field holding them, x); the
+    triplane backbone, or the hash grid with the ``grid`` kwargs."""
+    kw = dict(FIELD, backbone="triplane") if grid is None else \
+        dict(FIELD, backbone="grid", **grid)
+    jf = JField(bg_radius=-1.0, normal_mode="autograd",
+                compute_dtype=jnp.float32, **kw)
     x = np.random.default_rng(seed).uniform(-0.9, 0.9, (128, 3)) \
         .astype(np.float32)
     params = jf.init(jax.random.PRNGKey(seed), jnp.asarray(x),
                      method=jf.density)["params"]
-    pf = NeRFField(compute_dtype=torch.float32, **FIELD)
+    if grid is not None:
+        params = dict(params, grid_table=params["grid_table"] * 1e3)
+    pf = NeRFField(compute_dtype=torch.float32, **kw)
     sd = {k[len("field."):]: v for k, v in
           params_from_jax({"field": jax.tree.map(np.asarray, params)}).items()}
     pf.load_state_dict(sd)
@@ -46,7 +69,15 @@ def _fields(seed=3):
 
 
 def test_field_sigma_albedo_and_normals():
-    jf, params, pf, x = _fields()
+    _check_sigma_albedo_and_normals(*_fields())
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_grid_field_sigma_albedo_and_normals(grid):
+    _check_sigma_albedo_and_normals(*_fields(grid=GRIDS[grid]))
+
+
+def _check_sigma_albedo_and_normals(jf, params, pf, x):
     js, ja = jf.apply({"params": params}, jnp.asarray(x), method=jf.common)
     jn = jf.apply({"params": params}, jnp.asarray(x),
                   method=lambda m, xx: m._autograd_normal(xx, None))
@@ -62,7 +93,15 @@ def test_field_sigma_albedo_and_normals():
 
 
 def test_field_second_order_param_grads():
-    jf, params, pf, x = _fields(4)
+    _check_second_order_param_grads(*_fields(4))
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_grid_field_second_order_param_grads(grid):
+    _check_second_order_param_grads(*_fields(4, grid=GRIDS[grid]))
+
+
+def _check_second_order_param_grads(jf, params, pf, x):
     xj = jnp.asarray(x)
 
     def loss_old(p):
@@ -114,3 +153,18 @@ def test_adan_encoder_scale_matches_optax():
             # the 10x multiplies new_p - p, and with it one ulp of p
             np.testing.assert_allclose(p.numpy(), ref[n].numpy(),
                                        atol=1e-6 * scale, rtol=1e-6)
+
+
+def test_adan_gives_the_grid_table_the_encoder_scale():
+    """The hash table is the JAX optimizer's 'encoder' group (10x)."""
+    cfg = finalize(Config(guidance=("oracle",), backbone="grid",
+                          grid_log2_hashmap_size=12, hidden_dim=16))
+    renderer = build_renderer(cfg)
+    names = [n for n, _ in renderer.named_parameters()]
+    scales = dict(zip(names, adan_for(cfg, renderer).scales))
+    assert scales.pop("field.grid_table") == 10.0
+    assert set(scales.values()) == {1.0}
+    labels = encoder_label_fn({"field": {"grid_table": 0,
+                                         "sigma_net": {"dense_0": 0}}})
+    assert labels["field"] == {"grid_table": "encoder",
+                               "sigma_net": {"dense_0": "net"}}

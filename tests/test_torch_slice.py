@@ -1,7 +1,9 @@
 """The slice end to end against the JAX trainer: one density-grid update
 and one full main step (render → oracle SDS → entropy and orient
 regularizers → backward → guarded Adan → EMA), with identical weights and
-the JAX step's own random draws handed to the port.
+the JAX step's own random draws handed to the port; on the triplane and on
+the hash grid (with and without its tv and weight-decay terms, the tv
+cells rebuilt from the JAX step's own key).
 
 Tolerances: occupancy grid equal; density grid 1e-5 rel; loss 1e-5 rel;
 gradients 1e-4 rel (of each tensor's largest entry); updated parameters and
@@ -16,6 +18,7 @@ under jit with fused multiply-adds, the port eagerly.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import dreamfusion_tpu.training.trainer as jtrainer
@@ -32,14 +35,29 @@ STEP = 48      # a grid-update step with the entropy weight ramped to 0.96
 
 
 def test_one_step_and_grid_update_match_jax(tmp_path, monkeypatch):
-    cfg = finalize(Config(
+    _check_step(tmp_path, monkeypatch, backbone="triplane")
+
+
+GRID = dict(backbone="grid", grid_levels=4, grid_features_per_level=8,
+            grid_log2_hashmap_size=12, grid_desired_resolution=128)
+
+
+@pytest.mark.parametrize("lambdas", [dict(), dict(lambda_tv=1e-2,
+                                                  lambda_wd=1e-3)],
+                         ids=["plain", "tv-wd"])
+def test_grid_backbone_step_matches_jax(tmp_path, monkeypatch, lambdas):
+    _check_step(tmp_path, monkeypatch, **GRID, **lambdas)
+
+
+def _check_step(tmp_path, monkeypatch, **overrides):
+    cfg = finalize(Config(**{**dict(
         guidance=("oracle",), oracle_scene="two_sphere",
-        workspace=str(tmp_path / "ws"), backbone="triplane", w=16, h=16,
+        workspace=str(tmp_path / "ws"), w=16, h=16,
         iters=100, batch_size=1, triplane_resolution=32, triplane_channels=8,
         triplane_scales=2, hidden_dim=32, num_layers=3, grid_size=30,
         grid_coarse_steps=24, grid_fine_steps=24, fp16=False, seed=0,
         eval_interval=-1, lambda_3d_normal_smooth=0.0, use_tensorboard=False,
-        guidance_scale=1.0, lr=1e-2))
+        guidance_scale=1.0, lr=1e-2), **overrides}))
     g = JOracle(SDConfig(tiny=True), scene=cfg.oracle_scene)
     jt = jtrainer.Trainer(cfg, guidances={"oracle": g},
                           guidance_params={"oracle": {}},
@@ -47,6 +65,15 @@ def test_one_step_and_grid_update_match_jax(tmp_path, monkeypatch):
     base = jax.random.PRNGKey(0)
     js = jt.init_state(jax.random.PRNGKey(0))
     js = js.replace(step=jnp.asarray(STEP, jnp.int32))
+    if cfg.backbone == "grid":
+        # at the init table (±1e-4) the MLP's pre-activations lie within
+        # rounding of 0, where the two sides' ReLU masks may differ: ±0.1
+        def scale(tree):
+            f = tree["field"]
+            return {**tree,
+                    "field": {**f, "grid_table": f["grid_table"] * 1e3}}
+        js = js.replace(params=scale(js.params),
+                        ema_params=scale(js.ema_params))
 
     pt = Trainer(port_cfg(cfg), "cpu")
     ps = pt.init_state(0)

@@ -1,6 +1,7 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
-JAX package's random draws for one training step, rebuilt from its own
-key-split tree and handed to the port as tensors, and config mapping."""
+JAX package's random draws for one training step (the hash grid's tv cells
+included), rebuilt from its own key-split tree and handed to the port as
+tensors, and config mapping."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from dreamfusion_tpu_torch.config import Config as PConfig
 from dreamfusion_tpu_torch.core.poses import PoseDraws
 from dreamfusion_tpu_torch.training import schedules as pschedules
 from dreamfusion_tpu_torch.training.dmtet_trainer import DMTetDraws
-from dreamfusion_tpu_torch.training.trainer import StepDraws
+from dreamfusion_tpu_torch.training.trainer import StepDraws, grid_spec_of
 
 GRID_SALT = 0x9e3779b9
 
@@ -74,7 +75,7 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
     guide, tv).  With ``latent_size`` the guide key feeds SD's sds_loss
     (split 3: posterior, t, latent noise), else the pixel oracle's."""
     key = jax.random.fold_in(base_key, step)
-    k_batch, k_choice, k_render, k_guide, _ = jax.random.split(key, 5)
+    k_batch, k_choice, k_render, k_guide, k_tv = jax.random.split(key, 5)
     pose, fov = jax_batch_draws(k_batch, cfg)
     R = cfg.batch_size * cfg.h * cfg.w
     S = cfg.grid_fine_steps
@@ -89,10 +90,23 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
         k_t, k_noise = jax.random.split(k_prior)
         t = jax.random.randint(k_t, (B,), lo, hi + 1)
         noise = jax.random.normal(k_noise, (B, cfg.h, cfg.w, 3))
-        return StepDraws(pose, fov, choice, tt(march_u), tt(t).long(),
-                         tt(noise))
-    t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
-    return StepDraws(pose, fov, choice, tt(march_u), t, noise, post)
+        draws = StepDraws(pose, fov, choice, tt(march_u), tt(t).long(),
+                          tt(noise))
+    else:
+        t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
+        draws = StepDraws(pose, fov, choice, tt(march_u), t, noise, post)
+    if cfg.backbone == "grid" and cfg.lambda_tv > 0:
+        draws = draws._replace(tv_cells=jax_tv_cells(
+            k_tv, grid_spec_of(port_cfg(cfg)).resolutions))
+    return draws
+
+
+def jax_tv_cells(key, resolutions, n_samples: int = 4096) -> torch.Tensor:
+    """The cells hashgrid_tv_loss draws from its key: [L, n, 3]."""
+    keys = jax.random.split(key, len(resolutions))
+    return torch.stack([tt(jax.random.randint(k, (n_samples, 3), 0,
+                                              max(r - 1, 1))).long()
+                        for k, r in zip(keys, resolutions)])
 
 
 def jax_dmtet_step_draws(cfg, base_key, step: int) -> DMTetDraws:
