@@ -56,11 +56,31 @@
    both phases; s/step and peak memory); and 20 DMTet steps at tet grid
    128 from the grid stage 1 (K6 launched by the albedo query, non-zero
    sdf, deform and table gradients).
-8. Prints one JSON line with every kernel's route, source, the TPU function
+8. The image → 3D pipeline (``--image analytic:two_sphere --guidance
+   image_oracle``, run_flagship.py's image-oracle flags): K5 (the gradient
+   clamp, Triton) against its plain version and ``torch.clamp`` at the
+   SDS, known-view and DMTet image shapes, fp32 and bf16; the clip limit
+   chosen from a real SDS step's image gradient (its CLIP_QUANTILE, ~20%
+   clamped); then, the counters reset just before it, stage 1 with
+   ``--grad_clip_rgb`` for 300 steps with the same run's end as step 4,
+   requiring finite losses and gradients, launches of K1-K5, a known-view
+   step every 4th step, a known-view masked PSNR at least 3 dB above the
+   initial one and the mesh on disk; its SDS and known-view steps timed
+   apart from its checkpoint (each launching K5 once).  K9 (signed
+   distance, CUDA) on the DMTet init's real workload, the 274,625
+   tet-grid-128 points against that run's exported mesh (the plain version
+   on 16,384 of them), and on a UV sphere against its analytic distance.
+   Then, counters reset, the DMTet stage from that mesh.obj (``--dmtet
+   --init_with mesh.obj``, tet grid 128, 512², the image oracle, K5) for
+   20 steps: K9 launched once (the init), K5 once per SDS step, K7 and K8
+   every step, known-view DMTet steps, non-zero sdf and deform gradients,
+   the face count in (0, max_tris); the init's seconds logged.
+9. Prints one JSON line with every kernel's route, source, the TPU function
    it replaces, launches on its path (K1-K4 and K10-K12: the SD run; K7
    and K8: the DMTet run; K6's encode: the SD -O run, its tv and wd: the
-   grid stage 1), error, times and bound; the last line is the result
-   object.  Any failure exits non-zero and prints no result.
+   grid stage 1; K5: the image stage 1; K9: the DMTet stage from its
+   mesh), error, times and bound; the last line is the result object.  Any
+   failure exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -104,6 +124,27 @@ DMTET_FLAGS = ["--guidance", "oracle", "--backbone", "triplane",
 DMTET_GRID_STEPS = 20           # one eval, at step 20
 GRID_DMTET_FLAGS = [("grid" if f == "triplane" else f) for f in DMTET_FLAGS] \
     + ["--eval_interval", "2"]
+# the image → 3D run (scripts/run_flagship.py --mode image_oracle's flags,
+# --grad_clip_rgb added at a limit chosen from a real step), and the DMTet
+# stage from its exported mesh
+IMAGE_FLAGSHIP = ["--image", "analytic:two_sphere", "--guidance",
+                  "image_oracle", "--guidance_scale", "1.0", "--lr", "0.01",
+                  "--backbone", "triplane", "--seed", "0",
+                  "--lambda_3d_normal_smooth", "0"]
+IMAGE_DMTET_STEPS = 20           # 5 known-view steps; one eval, at step 20
+IMAGE_DMTET_FLAGS = ["--image", "analytic:two_sphere", "--guidance",
+                     "image_oracle", "--backbone", "triplane", "--seed", "0",
+                     "--dmtet", "--tet_grid_size", "128", "--lr", "0.002",
+                     "--dataset_size_test", "8", "--save_mesh", "--ckpt",
+                     "scratch", "--dataset_size_train", "10",
+                     "--eval_interval", "2"]
+CLIP_QUANTILE = 0.8              # the limit clamps ~20% of a step's gradient
+# K9's fp32 operations per (point, triangle) pair, counted from csrc/sdf.cu:
+# 15 differences, six 3-term dots (30), va/vb/vc (9), the region tests
+# (~27), the region's candidate (~15 on average), |p - q|² and the min (9),
+# the winding term's three norms (18), triple product (14), denominator
+# (23), atan2 (~20), scale and fp64 add (2)
+SDF_OPS_PER_PAIR = 180
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK = {"bf16": 989e12, "fp32": 67e12}    # dense tensor-core bf16, fp32
@@ -154,6 +195,10 @@ for _n, _line in (("hashgrid", 201), ("hashgrid_tv", 322),
         KERNELS[f"{_n}_{_d}"] = (
             "cuda", "dreamfusion_tpu_torch/csrc/hashgrid.cu",
             f"dreamfusion_tpu/ops/hashgrid.py:{_line}")
+KERNELS["clip_grad_bwd"] = ("triton", "dreamfusion_tpu_torch/ops/clip_grad.py",
+                            "dreamfusion_tpu/core/math.py:39")
+KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
+                              "dreamfusion_tpu/mesh/sdf.py:214")
 GRID_KERNELS = ("hashgrid_fwd", "hashgrid_bwd", "march_rays",
                 "composite_fwd", "composite_bwd", "field_head_fwd",
                 "field_head_bwd")
@@ -170,6 +215,8 @@ DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
                        "laplacian", "normal")) + (
     "triplane_fwd", "triplane_bwd", "field_head_fwd", "field_head_bwd")
+IMAGE_KERNELS = ORACLE_KERNELS + ("clip_grad_bwd",)
+IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
 
 
 class SmokeFailure(Exception):
@@ -255,14 +302,13 @@ def kernel_phases(torch, results):
     from dreamfusion_tpu_torch.ops import composite as K3
     from dreamfusion_tpu_torch.ops import occupancy as K2
     from dreamfusion_tpu_torch.ops import triplane as K1
-    from dreamfusion_tpu_torch.training.data import sample_train_batch
-    from dreamfusion_tpu_torch.training.trainer import draw_step
+    from dreamfusion_tpu_torch.training.trainer import draw_step, train_batch
 
     dev = torch.device("cuda")
     cfg = finalize(Config(guidance=("oracle",), backbone="triplane"))
     g = torch.Generator(device=dev).manual_seed(1)
     draws = draw_step(g, cfg, dev)
-    batch = sample_train_batch(draws.pose, draws.fov, cfg, cfg.h, cfg.w)
+    batch = train_batch(cfg, draws.pose, draws.fov, 0, cfg.h, cfg.w)
     ro = batch.rays_o.reshape(-1, 3).contiguous()
     rd = batch.rays_d.reshape(-1, 3).contiguous()
     R, S, P, G = ro.shape[0], cfg.grid_fine_steps, cfg.grid_coarse_steps, \
@@ -991,6 +1037,123 @@ def bake_kernel_phase(torch, results, obj_path):
                   0.0, " (texture bake)", False)
 
 
+def clip_grad_kernel_phase(torch, results):
+    """K5 against its plain version and ``torch.clamp`` at the three shapes
+    of the image path: the SDS step's [1,64,64,3], the known view's
+    [96,96,3] and the DMTet stage's [1,512,512,3], fp32 and bf16."""
+    from dreamfusion_tpu_torch.ops import clip_grad as K5
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    limit = 0.05
+    for shape in ((1, 64, 64, 3), (96, 96, 3), (1, 512, 512, 3)):
+        for dt in (torch.float32, torch.bfloat16):
+            cot = (torch.randn(shape, device=dev, generator=g) * 0.1).to(dt)
+            yk = K5.clip_grad_bwd_triton(cot, limit)
+            torch.cuda.synchronize()
+            yp = K5.clip_grad_plain(cot, limit)
+            check(torch.equal(yk, yp), f"clip_grad_bwd {shape} {dt}: "
+                  f"differs from the plain clamp")
+            share = float((cot.float().abs() > limit).float().mean())
+            record_kernel(
+                results, "clip_grad_bwd", max_err([yk], [yp]),
+                median_ms(lambda: K5.clip_grad_bwd_triton(cot, limit)),
+                median_ms(lambda: K5.clip_grad_plain(cot, limit)), "exact",
+                nbytes(cot, yk), 2 * cot.numel(), "fp32",
+                median_ms(lambda: torch.clamp(cot, -limit, limit)),
+                f" [{list(shape)} {str(dt)[6:]}, {share:.3f} clamped]")
+
+
+def _uv_sphere(np, radius, n_theta, n_phi):
+    """A watertight UV sphere → (verts [V,3] float32, tris [T,3] int32)."""
+    th = np.pi * np.arange(1, n_theta) / n_theta
+    ph = 2 * np.pi * np.arange(n_phi) / n_phi
+    ring = np.stack([np.outer(np.sin(th), np.cos(ph)),
+                     np.outer(np.sin(th), np.sin(ph)),
+                     np.outer(np.cos(th), np.ones_like(ph))], -1)
+    verts = np.concatenate([[[0, 0, 1]], ring.reshape(-1, 3),
+                            [[0, 0, -1]]]) * radius
+    r = lambda i, j: 1 + i * n_phi + j % n_phi
+    tris = [(0, r(0, j), r(0, j + 1)) for j in range(n_phi)]
+    for i in range(n_theta - 2):
+        for j in range(n_phi):
+            tris += [(r(i, j), r(i + 1, j), r(i + 1, j + 1)),
+                     (r(i, j), r(i + 1, j + 1), r(i, j + 1))]
+    bot = len(verts) - 1
+    tris += [(bot, r(n_theta - 2, j + 1), r(n_theta - 2, j))
+             for j in range(n_phi)]
+    return verts.astype(np.float32), np.asarray(tris, np.int32)
+
+
+def sdf_kernel_phase(torch, results, obj_path):
+    """K9 on the DMTet init's real workload: the 274,625 tet-grid-128
+    points scaled as the init scales them, against the mesh the image run
+    exported (normalised).  The kernel runs the whole set; the plain
+    version a 16,384-point subset with chunk 128 (its [chunk, T]
+    temporaries).  Distances within 1e-5 + 1e-5·|sd|, the signed values so
+    where the plain winding number is clear of 0.5, no NaN; then a UV
+    sphere's analytic signed distance away from its surface."""
+    import numpy as np
+    from dreamfusion_tpu_torch.mesh import sdf as K9
+    from dreamfusion_tpu_torch.mesh.tets import (CACHE_DIR,
+                                                 load_cached_tet_grid)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    mv, mt = K9.load_mesh(obj_path)
+    mv = K9.normalize_mesh(mv)
+    scale = float(np.abs(mv).max()) + 0.1
+    grid = load_cached_tet_grid(CACHE_DIR / "cube_64.npz", 64)
+    pts = torch.from_numpy(grid.vertices).to(dev) * scale
+    v, f = torch.from_numpy(mv).to(dev), torch.from_numpy(mt).to(dev)
+    P, T = pts.shape[0], f.shape[0]
+    sd, wn = K9.signed_distance(pts, v, f, return_winding=True)
+    torch.cuda.synchronize()
+    idx = torch.randperm(P, device=dev, generator=g)[:16384]
+    sub = pts[idx].contiguous()
+    t0 = time.time()
+    sdp, wnp = K9.signed_distance_plain(sub, v, f, chunk=128,
+                                        return_winding=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    check(not bool(sd.isnan().any() or wn.isnan().any()),
+          "signed_distance: NaN in the kernel's output")
+    tol = 1e-5 + 1e-5 * sdp.abs()
+    dist_err = (sd[idx].abs() - sdp.abs()).abs()
+    check(bool((dist_err <= tol).all()), f"signed_distance: "
+          f"{int((dist_err > tol).sum())} distances of 16,384 outside "
+          f"1e-5 + 1e-5|sd| (max err {float(dist_err.max()):.3e})")
+    clear = (wnp - 0.5).abs() > 1e-4
+    sgn_err = (sd[idx] - sdp).abs()[clear]
+    check(bool((sgn_err <= tol[clear]).all()),
+          f"signed_distance: {int((sgn_err > tol[clear]).sum())} signed "
+          f"values differ where the winding number is clear of 0.5")
+    inside = float((sd < 0).float().mean())
+    err = max(float(dist_err.max()), float(sgn_err.max()))
+    t_sub = median_ms(lambda: K9.signed_distance(sub, v, f), 5, 1)
+    record_kernel(results, "signed_distance", err,
+                  median_ms(lambda: K9.signed_distance(pts, v, f), 5, 1),
+                  plain_ms, "1e-5 + 1e-5|sd|; signs where |wn - 0.5| > 1e-4",
+                  nbytes(pts, sd) + T * 9 * 4, P * T * SDF_OPS_PER_PAIR,
+                  "fp32", None,
+                  f" [{P} points x {T} triangles; the plain version on "
+                  f"16,384 of them]")
+    log(f"signed_distance: {inside:.4f} of the points inside; the kernel "
+        f"on the 16,384-point subset {t_sub:.3f} ms against the plain "
+        f"version's {plain_ms:.1f} ms there")
+    # a UV sphere: the analytic signed distance away from the surface
+    sv, st = _uv_sphere(np, 0.4, 120, 160)
+    sd_s = K9.signed_distance(pts, torch.from_numpy(sv).to(dev),
+                              torch.from_numpy(st).to(dev))
+    want = torch.linalg.norm(pts, dim=-1) - 0.4
+    far = want.abs() > 0.02
+    check(bool((sd_s[far].sign() == want[far].sign()).all()),
+          "signed_distance: a sign differs from the sphere's away from it")
+    sag = float((sd_s - want).abs().max())
+    check(sag < 3e-4, f"signed_distance: {sag:.3e} from the sphere's "
+          f"distance (more than its facets' sag)")
+    log(f"signed_distance on a UV sphere ({len(st)} triangles): signs agree "
+        f"away from it, max |sd - (|x| - 0.4)| {sag:.3e}")
+
+
 def _rounded(d) -> dict:
     return {k: round(v, 3) for k, v in d.items()}
 
@@ -1116,6 +1279,134 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
     return dm, launches
 
 
+def choose_clip_limit(torch, port_main, ws):
+    """--grad_clip_rgb's limit for the image runs: the CLIP_QUANTILE of
+    |d loss / d rendered rgb| of a real SDS step (after 20 steps of the
+    image run without clamping), captured here by autograd on the image."""
+    args = port_main.build_parser().parse_args(
+        IMAGE_FLAGSHIP + ["--workspace", ws, "--iters", str(STEPS)])
+    cfg = port_main.config_from_args(args)
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False)
+    for _ in range(20):
+        trainer.run_step(state, gen)
+    while trainer.is_known_view_step(state.step):
+        trainer.run_step(state, gen)
+    draws = trainer.draw_step(gen)
+    pred, _, batch, bg = trainer.render_part(state, draws, False)
+    img = pred.detach().requires_grad_()
+    (cot,) = torch.autograd.grad(
+        trainer.guidance_loss(img, batch, draws, bg, False), [img])
+    mag = cot.abs().flatten()
+    limit = float(f"{float(torch.quantile(mag, CLIP_QUANTILE)):.3g}")
+    share = float((mag > limit).float().mean())
+    log(f"--grad_clip_rgb {limit}: clamps {share:.4f} of the image "
+        f"gradient of SDS step {state.step} (|grad| max "
+        f"{float(mag.max()):.4g}, median {float(mag.median()):.4g})")
+    check(0.01 <= share <= 0.5, f"the clip limit clamps {share} of a step")
+    return limit
+
+
+def step_timing(torch, port_main, kernels, flags, n=12):
+    """s/step of the image run's SDS and known-view steps apart, from its
+    last checkpoint, each step synchronised; K5 launches in both kinds."""
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags))
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False)
+    state, loaded = trainer.load_checkpoint(state, "latest")
+    check(loaded, "step timing: no checkpoint of the image run")
+    out = {}
+    for kind, draw, step in (
+            ("SDS", trainer.draw_step, trainer.train_step),
+            ("known-view", trainer.draw_known_view,
+             trainer.known_view_step)):
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(n):
+            draws = draw(gen)
+            torch.cuda.synchronize()
+            t = time.time()
+            step(state, draws)
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+        check(kernels.LAUNCHES["clip_grad_bwd"] == n,
+              f"{kind} steps launched K5 {kernels.LAUNCHES['clip_grad_bwd']}"
+              f" times in {n} steps")
+        out[kind] = statistics.median(times[2:])
+    return out
+
+
+def image_path(torch, port_main, kernels, ws, smi_line):
+    """The image → 3D stage 1 at flagship width with --grad_clip_rgb, the
+    counters reset just before it → (summary, launches, limit)."""
+    limit = choose_clip_limit(torch, port_main, ws + "_clip")
+    flags = IMAGE_FLAGSHIP + ["--grad_clip_rgb", str(limit)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    summary = port_main.main(flags + STAGE1_END + [
+        "--iters", str(STEPS), "--workspace", ws])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_known = summary["known_view_steps"]
+    kv0, kv1 = summary["kv_psnr_init"], summary["kv_psnr_final"]
+    log(f"image path: {STEPS} steps ({n_known} known-view), steady "
+        f"{summary['steady_its']:.3f} it/s, known-view masked PSNR "
+        f"{kv0:.3f} -> {kv1:.3f} dB, analytic PSNR "
+        f"{summary['psnr_init']:.3f} -> {summary['psnr_final']:.3f} dB, "
+        f"peak device memory {peak_gib:.2f} GiB, launches {launches}")
+    log(f"image run's end (s): {_rounded(summary['phases'])}; export "
+        f"phases (s): {_rounded(summary['export_phases'])}; on {smi_line}")
+    check(summary["all_losses_finite"],
+          f"image: non-finite loss: {summary['losses']}")
+    check(summary["grad_ok"], "image: a step had non-finite gradients")
+    for name in IMAGE_KERNELS:
+        check(launches[name] > 0, f"the image path never launched {name}")
+    check(n_known == -(-STEPS // 4), f"image: {n_known} known-view steps "
+          f"in {STEPS} (known_view_interval 4)")
+    check(all(g > 0 for g in summary["triplane_grad_max"]),
+          "image: a step had a zero triplane gradient")
+    check(kv1 - kv0 >= 3.0, f"image: the known-view PSNR rose only "
+          f"{kv1 - kv0:.3f} dB (bar: 3 dB)")
+    _check_outputs(ws, summary, "image")
+    timing = step_timing(torch, port_main, kernels, flags + [
+        "--iters", str(STEPS), "--workspace", ws])
+    log(f"image step times (synchronised, median of 10 after 2): SDS "
+        f"{1e3 * timing['SDS']:.2f} ms, known-view "
+        f"{1e3 * timing['known-view']:.2f} ms; K5 launched once in every "
+        f"step of both kinds; on {smi_line}")
+    return summary, launches, limit
+
+
+def image_dmtet_path(torch, port_main, kernels, flags, ws, smi_line):
+    """The DMTet stage from the image run's mesh.obj through K9 →
+    launches."""
+    dm, launches = dmtet_path(torch, port_main, kernels, flags,
+                              IMAGE_DMTET_STEPS, ws,
+                              "DMTet from the image mesh",
+                              IMAGE_DMTET_KERNELS, "triplane", smi_line)
+    n_known = dm["known_view_steps"]
+    log(f"DMTet from the image mesh: init (mesh load + K9) "
+        f"{dm['init_seconds']:.3f} s, {n_known} known-view steps")
+    check(launches["signed_distance"] == 1, f"K9 launched "
+          f"{launches['signed_distance']} times (once, at the init)")
+    check(n_known == -(-IMAGE_DMTET_STEPS // 4),
+          f"DMTet image: {n_known} known-view steps")
+    n_sds = IMAGE_DMTET_STEPS - n_known
+    check(launches["clip_grad_bwd"] == n_sds, f"K5 launched "
+          f"{launches['clip_grad_bwd']} times in {n_sds} SDS steps")
+    for name in ("raster_fwd", "marching_tets_fwd", "raster_bwd",
+                 "marching_tets_bwd"):
+        check(launches[name] >= IMAGE_DMTET_STEPS,
+              f"{name} launched {launches[name]} times in "
+              f"{IMAGE_DMTET_STEPS} steps")
+    check(all(n < dm["max_tris"] for n in dm["n_faces"]),
+          f"DMTet image: face counts over max_tris: {dm['n_faces']}")
+    return launches
+
+
 def run() -> dict:
     try:
         import torch
@@ -1156,6 +1447,7 @@ def run() -> dict:
     hashgrid_kernel_phases(torch, results, x01)
     log(f"K6 phase in {time.time() - t_k:.1f} s")
     sd_kernel_phases(torch, results)
+    clip_grad_kernel_phase(torch, results)
     t_k = time.time()
     dmtet_kernel_phases(torch, results)
     log(f"K7/K8 phases in {time.time() - t_k:.1f} s")
@@ -1192,7 +1484,23 @@ def run() -> dict:
         ("hashgrid_fwd", "hashgrid_bwd", "raster_fwd", "marching_tets_fwd"),
         "grid", smi_line)
 
+    # ---- image → 3D: stage 1 with K5, then DMTet from its mesh (slice 5) ---
+    ws = os.path.join(build, "chip_smoke_image_ws")
+    img, img_launches, limit = image_path(torch, port_main, kernels, ws,
+                                          smi_line)
+    t_k = time.time()
+    sdf_kernel_phase(torch, results, img["mesh_path"])
+    log(f"K9 phase in {time.time() - t_k:.1f} s")
+    img_dm_launches = image_dmtet_path(
+        torch, port_main, kernels, IMAGE_DMTET_FLAGS + [
+            "--grad_clip_rgb", str(limit), "--init_with", img["mesh_path"]],
+        os.path.join(build, "chip_smoke_image_dmtet_ws"), smi_line)
+
     def launches_of(name):
+        if name == "clip_grad_bwd":
+            return img_launches[name]
+        if name == "signed_distance":
+            return img_dm_launches[name]
         if name in GRID_REG_KERNELS:
             return grid_launches[name]
         if name.startswith("hashgrid"):

@@ -2,12 +2,13 @@
 
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
-only the fields the ported paths (the oracle and SD 2.1 guidance on the
-hash-grid and triplane backbones, the run's end and the DMTet stage) read
-are carried.  ``apply_O`` and ``apply_dmtet`` are the ``-O`` and ``--dmtet``
-presets; ``finalize`` applies the fix-ups those paths need: the other
-grid backends' names mapped to ``grid``, the oracle preset and the resolved
-exposure range.
+only the fields the ported paths (the oracle, image-oracle and SD 2.1
+guidance on the hash-grid and triplane backbones, the run's end and the
+DMTet stage) read are carried.  ``apply_O``, ``apply_image_mode`` and
+``apply_dmtet`` are the ``-O``, ``--image`` and ``--dmtet`` presets, applied
+in that order after the flags; ``finalize`` applies the fix-ups those paths
+need: the other grid backends' names mapped to ``grid``, the oracle preset
+and the resolved exposure range.
 """
 
 from __future__ import annotations
@@ -40,7 +41,13 @@ class Config:
     oracle_scene: str = "two_sphere"
     fp16: bool = True
     t_range: Tuple[float, float] = (0.02, 0.98)
+
+    # ---- image-conditioned mode ----
     image: Optional[str] = None
+    image_config: Optional[str] = None
+    known_view_interval: int = 4
+    known_view_scale: float = 1.5
+    known_view_noise_scale: float = 2e-3
     dmtet_reso_scale: float = 8.0
     bg_radius: float = 1.4
 
@@ -113,9 +120,11 @@ class Config:
     default_azimuth: float = 0.0
     default_fovy: float = 20.0
     progressive_view: bool = False
+    progressive_view_init_ratio: float = 0.2
     progressive_level: bool = False
     angle_overhead: float = 30.0
     angle_front: float = 60.0
+    dont_override_stuff: bool = False
 
     # ---- lambdas ----
     lambda_entropy: float = 1e-3
@@ -126,7 +135,10 @@ class Config:
     lambda_mesh_normal: float = 0.5
     lambda_mesh_laplacian: float = 0.5
     lambda_guidance: float = 1.0
+    lambda_rgb: float = 1000.0
+    lambda_mask: float = 500.0
     lambda_normal: float = 0.0
+    lambda_depth: float = 10.0
     lambda_2d_normal_smooth: float = 0.0
     lambda_3d_normal_smooth: float = 0.0
 
@@ -141,6 +153,9 @@ class Config:
     tet_grid_size: int = 128
     init_with: str = ""
     lock_geo: bool = False
+
+    # ---- zero123's pose weighting (the image oracle uses it) ----
+    zero123_grad_scale: str = "angle"     # angle | None
 
     # ---- misc ----
     ema_decay: float = 0.95
@@ -158,15 +173,40 @@ def apply_O(cfg: Config) -> Config:
     return replace(cfg, fp16=True, backbone="grid")
 
 
+def apply_image_mode(cfg: Config) -> Config:
+    """Image-only conditioning (``--image`` without ``--text``): zero123
+    guidance, unless an oracle guidance is named (``--guidance
+    image_oracle`` with ``--image analytic:<scene>``, kept), and, unless
+    ``--dont_override_stuff``, the image recipe: a fixed FOV, the 3-D
+    normal-smoothness, entropy and orient weights, no warm-up, progressive
+    view and level.  It overrides the command line's values."""
+    gd = cfg.guidance if any("oracle" in g for g in cfg.guidance) \
+        else ("zero123",)
+    if cfg.dont_override_stuff:
+        return replace(cfg, guidance=gd)
+    return replace(
+        cfg, guidance=gd, fovy_range=(cfg.default_fovy, cfg.default_fovy),
+        guidance_scale=5.0, lambda_3d_normal_smooth=10.0, lambda_entropy=1.0,
+        lambda_orient=1.0, latent_iter_ratio=0.0, progressive_view=True,
+        progressive_level=True)
+
+
 def apply_dmtet(cfg: Config) -> Config:
     """The DMTet refinement stage's overrides (``--dmtet``): training
-    renders ``dmtet_reso_scale`` times larger, the lower half of the
-    timestep range, no warm-up or albedo phase."""
+    renders ``dmtet_reso_scale`` times larger and, unless
+    ``--dont_override_stuff``, the lower half of the timestep range, no
+    warm-up, albedo phase or progressive view, and under ``--image`` the
+    known views at the render's own resolution."""
     h = int(cfg.h * cfg.dmtet_reso_scale)
     w = int(cfg.w * cfg.dmtet_reso_scale)
-    return replace(cfg, dmtet=True, h=h, w=w, t_range=(0.02, 0.5),
-                   latent_iter_ratio=0.0, albedo_iter_ratio=0.0,
-                   progressive_view=False)
+    out = replace(cfg, dmtet=True, h=h, w=w)
+    if cfg.dont_override_stuff:
+        return out
+    out = replace(out, t_range=(0.02, 0.5), latent_iter_ratio=0.0,
+                  albedo_iter_ratio=0.0, progressive_view=False)
+    if cfg.image is not None:
+        out = replace(out, known_view_scale=1.0)
+    return out
 
 
 def finalize(cfg: Config) -> Config:

@@ -13,6 +13,17 @@ SCENES = ("sphere", "two_sphere")
 def scene_views(ro: torch.Tensor, rd: torch.Tensor, scene: str = "sphere"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rays [N, 3] → (rgb [N, 3] in [0,1] on white, hit mask [N] bool)."""
+    img, hit, _, _ = scene_views_full(ro, rd, scene)
+    return img, hit
+
+
+def scene_views_full(ro: torch.Tensor, rd: torch.Tensor,
+                     scene: str = "sphere"
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """``scene_views`` plus the geometry: (rgb [N,3], hit [N], depth [N] —
+    the ray t along the unit direction, 0 where nothing is hit — and the
+    unit surface normal [N,3], 0 where nothing is hit)."""
     if scene not in SCENES:
         raise ValueError(f"unknown analytic scene {scene!r}; one of {SCENES}")
     rdn = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
@@ -45,4 +56,6 @@ def scene_views(ro: torch.Tensor, rd: torch.Tensor, scene: str = "sphere"
         tex = (torch.sin(9.0 * p_hit[:, 0]) * torch.sin(7.0 * p_hit[:, 1])
                * torch.sin(8.0 * p_hit[:, 2]))
         color = torch.clamp(0.35 + 0.3 * normal + 0.3 * tex[:, None], 0.0, 1.0)
-    return torch.where(hit[:, None], color, 1.0), hit
+    return (torch.where(hit[:, None], color, 1.0), hit,
+            torch.where(hit, best_t, 0.0),
+            torch.where(hit[:, None], normal, 0.0))

@@ -1,5 +1,6 @@
-"""Pixel-space oracle SDS prior (``dreamfusion_tpu/guidance/oracle.py``,
-``PixelOracleGuidance.sds_loss_rays``).
+"""Pixel-space oracle SDS priors (``dreamfusion_tpu/guidance/oracle.py``,
+``PixelOracleGuidance.sds_loss_rays`` and the image oracle's
+``ImageOracleGuidance.sds_loss_rays_pose``).
 
 The closed-form "denoiser" predicts the noise that maps the noised render
 back to the analytic target view of the same cameras,
@@ -10,12 +11,13 @@ arguments, drawn by ``training/trainer.py::draw_step``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from ..evaluation.analytic import SCENES, scene_views
 from .schedule import make_schedule
+from .zero123 import pose_angle_grad_scale
 
 
 class PixelOracleGuidance:
@@ -51,3 +53,45 @@ class PixelOracleGuidance:
         grad = torch.nan_to_num(grad_scale * w * (eps_hat - noise))
         targets = (x - grad).detach()
         return 0.5 * ((x - targets) ** 2).sum() / B
+
+
+class ImageOracleGuidance(PixelOracleGuidance):
+    """The weight-free prior of the image-conditioned pipeline
+    (``--guidance image_oracle`` with ``--image analytic:<scene>``): the
+    pixel oracle's SDS toward analytic novel views, each view's gradient
+    scaled by zero123's pose-angle weighting against the reference views
+    (``guidance/zero123.py::pose_angle_grad_scale``)."""
+
+    def __init__(self, scene: str = "two_sphere",
+                 t_range: Tuple[float, float] = (0.02, 0.98),
+                 grad_scale_mode: str = "angle",
+                 ref_polars: Sequence[float] = (90.0,),
+                 ref_azimuths: Sequence[float] = (0.0,),
+                 ref_radii: Sequence[float] = (3.2,)):
+        super().__init__(scene, t_range)
+        self.grad_scale_mode = grad_scale_mode
+        self.refs: Dict[str, Tuple[float, ...]] = {
+            "ref_polars": tuple(ref_polars),
+            "ref_azimuths": tuple(ref_azimuths),
+            "ref_radii": tuple(ref_radii)}
+        self._ref_on: Dict[torch.device, list] = {}
+
+    def sds_loss_rays_pose(self, t, noise, rays_o, rays_d, bg, pred_rgb,
+                           polar, azimuth, radius, grad_scale: float = 1.0
+                           ) -> torch.Tensor:
+        """``sds_loss_rays`` with each view's gradient scaled by its pose
+        angle; polar, azimuth, radius [B] are the views' deltas from the
+        default view (``CameraBatch.delta_*``)."""
+        B = pred_rgb.shape[0]
+        dev = polar.device
+        if dev not in self._ref_on:
+            # once per device: a host-to-device copy waits for the stream
+            self._ref_on[dev] = [
+                torch.tensor(self.refs[k], dtype=torch.float32, device=dev)
+                for k in ("ref_polars", "ref_azimuths", "ref_radii")]
+        gs, _ = pose_angle_grad_scale(
+            *self._ref_on[dev], polar, azimuth, radius,
+            self.grad_scale_mode, grad_scale, B)
+        return self.sds_loss_rays(
+            t, noise, rays_o, rays_d, bg, pred_rgb,
+            grad_scale=gs.reshape((-1,) + (1,) * (pred_rgb.ndim - 1)))

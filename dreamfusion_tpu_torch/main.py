@@ -12,10 +12,25 @@
     python -m dreamfusion_tpu_torch.main --guidance oracle \\
         --backbone grid --dmtet --init_with ws/checkpoints --lr 0.002 \\
         --iters 5000 --save_mesh --workspace ws_dmtet  # stage 2 (DMTet)
+    python -m dreamfusion_tpu_torch.main --image analytic:two_sphere \\
+        --guidance image_oracle --guidance_scale 1.0 --lr 0.01 \\
+        --backbone triplane --seed 0 --save_mesh --ckpt scratch \\
+        --workspace ws_img                            # image → 3D, stage 1
+    python -m dreamfusion_tpu_torch.main --image analytic:two_sphere \\
+        --guidance image_oracle --backbone triplane --dmtet \\
+        --init_with ws_img/mesh/mesh.obj --lr 0.002 --save_mesh \\
+        --workspace ws_img_dmtet          # stage 2 from the exported mesh
 
 Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
 applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
-``--dmtet`` the DMTet preset (``config.apply_dmtet``).  The run goes on the
+``--image`` without ``--text`` the image preset (``config.apply_image_mode``,
+which overrides the command line's lambdas unless ``--dont_override_stuff``),
+``--dmtet`` the DMTet preset (``config.apply_dmtet``), in that order.
+``--image analytic:<scene>`` with ``--guidance image_oracle`` is the
+weight-free image → 3D run: the reference image is the analytic scene's
+default view (``training/image_data.py``), the prior the image oracle
+(``guidance/oracle.py``), and every ``known_view_interval``-th step a
+known-view step.  The run goes on the
 GPU; ``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
 guidance runs its towers at full SD 2.1 width with random weights drawn
 from the seed (no pretrained weights ship with the repository);
@@ -29,8 +44,9 @@ checkpoint every ``save_interval`` epochs; the block rates leave out the
 time of evals and saves.  It ends with the turntable video (or PNG frames)
 and, with ``--save_mesh``, ``mesh/mesh.obj`` with its albedo texture.
 ``--test`` renders and exports from the checkpoint without training.
-Under ``--guidance oracle`` it also logs the analytic-scene PSNR of the EMA
-weights at the start and the end.  Flags of parts not ported yet raise
+Under the oracles it also logs the analytic-scene PSNR of the EMA weights at
+the start and the end, and under ``--image`` (stage 1) the known-view masked
+PSNR.  Flags of parts not ported yet raise
 NotImplementedError naming the ROADMAP item.
 """
 
@@ -46,18 +62,20 @@ from typing import Any, Dict
 
 import torch
 
-from .config import Config, apply_dmtet, apply_O, finalize
+from .config import Config, apply_dmtet, apply_image_mode, apply_O, finalize
 from .guidance.embeddings import prepare_text_embeddings
 from .guidance.sd import SDConfig, StableDiffusionGuidance
 from .mesh.export import export_mesh
 from .training.dmtet_trainer import DMTetTrainer
+from .training.image_data import analytic_ref_images
 from .training.trainer import Trainer, check_slice
 from .utils.device import resolve_device
 
 TEX_RES = 1024        # the exported albedo texture's side
 
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
-                       "exp_start_iter": int, "exp_end_iter": int}
+                       "image_config": str, "exp_start_iter": int,
+                       "exp_end_iter": int}
 _NOT_PORTED = {"-O2": "queue 1, item 5",
                "--IF": "queue 1, item 7", "--gui": "queue 1, item 8",
                "--profile": "queue 1, item 8"}
@@ -106,6 +124,14 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
+    if cfg.image_config is not None or (cfg.image is not None and
+                                        cfg.text is not None):
+        raise NotImplementedError(
+            "--image_config and --image with --text (zero123, CLIP guidance "
+            "and the PNG loader) are not ported yet (ROADMAP queue 1, item "
+            "7)")
+    if cfg.image is not None:
+        cfg = apply_image_mode(cfg)
     return finalize(apply_dmtet(cfg) if cfg.dmtet else cfg)
 
 
@@ -124,18 +150,28 @@ def build_sd_guidance(cfg: Config, tiny: bool, device, seed: int):
 def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     """The trainer, its state and the step generator of a run."""
     seed = cfg.seed or 0
+    ref = None
+    if cfg.image is not None and cfg.image.startswith("analytic:"):
+        # the weight-free image run: the analytic scene's default view
+        ref = analytic_ref_images(cfg, cfg.h, cfg.w,
+                                  cfg.image.split(":", 1)[1])
     if cfg.dmtet:
-        trainer = DMTetTrainer(cfg, device)
+        trainer = DMTetTrainer(cfg, device, ref_images=ref)
+        t_i = time.time()
         state = trainer.init_state(seed, cfg.init_with)
+        _sync(trainer.device)
+        trainer.init_seconds = time.time() - t_i
+        log(f"[startup] DMTet state from {cfg.init_with or 'a sphere'} in "
+            f"{trainer.init_seconds:.3f} s")
         return trainer, state, torch.Generator(device=device).manual_seed(seed)
     guidance = emb = None
-    if cfg.guidance != ("oracle",) and not cfg.test:
+    if cfg.guidance == ("SD",) and not cfg.test:
         t_g = time.time()
         guidance, emb = build_sd_guidance(cfg, tiny_guidance, device, seed)
         log(f"[startup] SD {cfg.sd_version} guidance "
             f"({'tiny' if tiny_guidance else 'full width'}, random "
             f"weights) and embeddings in {time.time() - t_g:.1f} s")
-    trainer = Trainer(cfg, device, guidance, emb)
+    trainer = Trainer(cfg, device, guidance, emb, ref_images=ref)
     state = trainer.init_state(seed)
     return trainer, state, torch.Generator(device=device).manual_seed(seed)
 
@@ -162,8 +198,9 @@ def main(argv=None) -> Dict[str, Any]:
         with open(log_path, "a") as f:
             f.write(msg + "\n")
 
-    oracle = cfg.guidance == ("oracle",)
+    oracle = cfg.guidance in (("oracle",), ("image_oracle",))
     trainer, state, gen = build_run(cfg, device, args.tiny_guidance, log)
+    known_view = trainer.ref_images is not None and not cfg.dmtet
     if cfg.ckpt != "scratch":
         state, loaded = trainer.load_checkpoint(state, cfg.ckpt)
         if loaded:
@@ -197,10 +234,16 @@ def main(argv=None) -> Dict[str, Any]:
     if cfg.test:
         return finish(cfg.six_views)
 
+    if cfg.dmtet:
+        summary["init_seconds"] = trainer.init_seconds
     if oracle:
         psnr0 = trainer.oracle_eval_metric(state)
         log(f"[eval] step {state.step} oracle PSNR {psnr0:.4f} dB")
         summary["psnr_init"] = psnr0
+    if known_view:
+        kv0 = trainer.known_view_psnr(state)
+        log(f"[eval] step {state.step} known-view masked PSNR {kv0:.4f} dB")
+        summary["kv_psnr_init"] = kv0
 
     ok = torch.ones((), dtype=torch.bool, device=device)
     losses, blocks, grad_max, extra = [], [], [], []
@@ -216,7 +259,9 @@ def main(argv=None) -> Dict[str, Any]:
                       deform=[names.index("geo.deform")])
     t0 = t_blk = time.time()
     s_blk = start = state.step
+    n_known = 0
     for _ in range(start, cfg.iters):
+        n_known += trainer.is_known_view_step(state.step)
         metrics, grads = trainer.run_step(state, gen)
         ok &= metrics["grad_ok"]
         grad_max.append(torch.stack([
@@ -258,7 +303,7 @@ def main(argv=None) -> Dict[str, Any]:
         all_losses_finite=all(math.isfinite(l) for l in losses),
         latent_phase=[trainer.latent_phase(s) for s in range(start,
                                                              cfg.iters)],
-        steps_run=n_run,
+        steps_run=n_run, known_view_steps=n_known,
         **{f"{g}_grad_max": [row[k] for row in gm]
            for k, g in enumerate(groups)})
     if cfg.dmtet and extra:
@@ -271,6 +316,10 @@ def main(argv=None) -> Dict[str, Any]:
         psnr1 = trainer.oracle_eval_metric(state)
         log(f"[eval] step {state.step} oracle PSNR {psnr1:.4f} dB")
         summary["psnr_final"] = psnr1
+    if known_view:
+        kv1 = trainer.known_view_psnr(state)
+        log(f"[eval] step {state.step} known-view masked PSNR {kv1:.4f} dB")
+        summary["kv_psnr_final"] = kv1
     return finish()
 
 

@@ -1,7 +1,8 @@
 """DMTet refinement stage: a mesh optimised through the rasterizer
 (``dreamfusion_tpu/models/dmtet.py``).
 
-Trainable (sdf, deform) on a tetrahedral grid → marching tets (K8) →
+Trainable (sdf, deform) on a tetrahedral grid, initialised from a density
+field, a mesh file's signed distance (K9) or a sphere → marching tets (K8) →
 rasterization (K7) → the NeRF field queried as a texture field for albedo
 (K6 or K1, + K4) → shading → background compositing; the
 normal-consistency and Laplacian regularizers come from the same mesh (K8).
@@ -12,9 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.math import safe_normalize
+from ..mesh.sdf import normalize_mesh, signed_distance
 from ..mesh.tets import TetGrid
 from ..ops.marching_tets import (TetMesh, laplacian_smooth_loss,
                                  marching_tets, normal_consistency_loss,
@@ -64,6 +67,25 @@ class DMTetRenderer:
         sdf = torch.clamp(sigma_at(v * tet_scale) - density_thresh, -1.0, 1.0)
         return DMTetParams(sdf=sdf, deform=torch.zeros_like(v),
                            tet_scale=tet_scale.float())
+
+    @torch.no_grad()
+    def init_params_from_mesh(self, mesh_verts: np.ndarray,
+                              mesh_tris: np.ndarray) -> DMTetParams:
+        """The geometry of a mesh file: the mesh normalised to a 0.8-extent
+        box, the grid scaled by max|v| + 0.1 on every axis, and
+        sdf = clamp(-10 · signed distance, -1, 1) at its vertices (inside
+        positive; K9, ``mesh/sdf.py``)."""
+        mv = normalize_mesh(np.asarray(mesh_verts, np.float32))
+        scale = float(np.abs(mv).max()) + 1e-1
+        tet_scale = torch.full((3,), scale, dtype=torch.float32,
+                               device=self.device)
+        sd = signed_distance(self.verts * tet_scale,
+                             torch.from_numpy(mv).to(self.device),
+                             torch.from_numpy(np.asarray(
+                                 mesh_tris, np.int32)).to(self.device))
+        return DMTetParams(sdf=torch.clamp(-10.0 * sd, -1.0, 1.0),
+                           deform=torch.zeros_like(self.verts),
+                           tet_scale=tet_scale)
 
     def init_params_sphere(self, radius: float = 0.5) -> DMTetParams:
         d = radius - torch.linalg.norm(self.verts, dim=-1)

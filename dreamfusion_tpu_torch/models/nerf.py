@@ -214,6 +214,12 @@ class NeRFField(nn.Module):
         normal = torch.nan_to_num(safe_normalize(-g))
         return sigma, albedo, normal
 
+    def normal(self, x: torch.Tensor, max_level: Optional[float] = None
+               ) -> torch.Tensor:
+        """Unit -∇σ at x [N,3] (the closed form of ``common_with_normal``),
+        differentiable into the encoder and the MLP."""
+        return self.common_with_normal(x, max_level)[2]
+
     def forward(self, x: torch.Tensor, light_d: torch.Tensor,
                 ratio, shading, max_level: Optional[float] = None):
         """x, light_d [N,3]; shading an int or a [] tensor of shading ids →

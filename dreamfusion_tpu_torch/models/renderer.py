@@ -2,8 +2,11 @@
 ``render_grid`` and ``_shade_and_composite``).
 
 march (K2) → field: hash grid (K6) or triplane (K1) + MLP + head (K4) →
-composite (K3) → background, plus the orient regularizer on the normals.  The occupancy
-grid is explicit state passed in, not a module buffer.
+composite (K3) → background, plus the regularizers on the normals: the
+orient loss, the 3-D normal smoothness (the normals against those of a
+second field query at positions offset by N(0, 1e-2)) and the weighted
+normal image of the 2-D smoothness loss.  The occupancy grid is explicit
+state passed in, not a module buffer.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ class RenderFlags:
     perturb: bool = False
     shading_static_albedo: bool = False
     need_loss_orient: bool = False
+    need_normal_perturb: bool = False
+    need_normal_image: bool = False
     binarize: bool = False
 
 
@@ -57,13 +62,16 @@ class NeRFRenderer(nn.Module):
                     ambient_ratio=1.0, shading=SHADING_ALBEDO,
                     bg_color=None, max_level: Optional[float] = None,
                     march_u: Optional[torch.Tensor] = None,
-                    use_bg_net: Optional[torch.Tensor] = None
+                    use_bg_net: Optional[torch.Tensor] = None,
+                    perturb_noise: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
         """rays [R,3] flat.  With ``flags.perturb`` the march takes the
         stratified draws ``march_u`` [R, grid_fine_steps]; without, the
         deterministic stratum centres.  bg_color None means white; a
         [] bool ``use_bg_net`` picks the background MLP's colour instead
-        (per step, as the JAX step's ``jnp.where``)."""
+        (per step, as the JAX step's ``jnp.where``).  ``perturb_noise``
+        [R·S, 3] standard normal draws offset the second normal query of
+        ``flags.need_normal_perturb``."""
         R = rays_o.shape[0]
         if light_d is None:
             light_d = safe_normalize(rays_o)
@@ -108,10 +116,22 @@ class NeRFRenderer(nn.Module):
             "weights": out.weights,
             "weights_sum": out.weights_sum,
         }
-        if normals is not None and flags.need_loss_orient:
+        if normals is None:
+            return results
+        n = normals.reshape(R, S, 3)
+        if flags.need_loss_orient:
             # punish normals facing away from the camera
             w = out.weights.detach()
-            n = normals.reshape(R, S, 3)
             loss = w * torch.clamp((n * dirs).sum(-1), min=0.0) ** 2
             results["loss_orient"] = loss.sum(-1).mean()
+        if flags.need_normal_perturb:
+            if perturb_noise is None:
+                raise ValueError("the normal-perturb loss needs its draws")
+            moved = xyzs + perturb_noise.reshape(xyzs.shape) * 1e-2
+            n2 = self.field.normal(moved.reshape(-1, 3), max_level)
+            results["loss_normal_perturb"] = (n - n2.reshape(R, S, 3)
+                                              ).abs().mean()
+        if flags.need_normal_image:
+            results["normal_image"] = (out.weights[..., None] *
+                                       (n + 1.0) / 2.0).sum(-2)
         return results

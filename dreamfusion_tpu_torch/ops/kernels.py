@@ -53,6 +53,8 @@ LAUNCHES: Dict[str, int] = {
     "hashgrid_fwd": 0, "hashgrid_bwd": 0,                    # K6, CUDA C++
     "hashgrid_tv_fwd": 0, "hashgrid_tv_bwd": 0,              # K6
     "hashgrid_wd_fwd": 0, "hashgrid_wd_bwd": 0,              # K6
+    "clip_grad_bwd": 0,                                      # K5, Triton
+    "signed_distance": 0,                                    # K9, CUDA C++
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -88,6 +90,7 @@ _SIGNATURES = {
     "hashgrid_tv_bwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P, _P],
     "hashgrid_wd_fwd": [_P] * 2 + [_I] * 3 + [_P, _P],
     "hashgrid_wd_bwd": [_P] * 2 + [_I] * 3 + [_P, _P, _P],
+    "signed_distance": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -6,8 +6,9 @@ dataloader.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -43,6 +44,28 @@ def _batch_from_poses(cfg: Config, poses, dirs, thetas, phis, radius, fov,
                        delta_radius)
 
 
+def scale_view_draws(pose: PoseDraws, fov: torch.Tensor, ranges
+                     ) -> Tuple[PoseDraws, torch.Tensor]:
+    """Unit draws in [0, 1) of the radius, polar and azimuth angles and FOV
+    → their values in the step's ``ranges`` ((radius, theta, phi, fovy)
+    (lo, hi) pairs, angles in degrees; ``schedules.view_ranges``), in fp32
+    as ``jax.random.uniform(minval, maxval)`` scales its bits.  The bounds
+    are fp32 values held as Python floats: a tensor made from them on the
+    card would be a host-to-device copy, which waits for the stream."""
+    rr, tr, pr, fr = ranges
+    rad = np.float32(np.pi / 180)
+
+    def scale(u, lo_hi, to_rad=False):
+        lo, hi = (np.float32(v) for v in lo_hi)
+        if to_rad:
+            lo, hi = lo * rad, hi * rad
+        return torch.clamp(u * float(hi - lo) + float(lo), min=float(lo))
+
+    return pose._replace(radius=scale(pose.radius, rr),
+                         thetas=scale(pose.thetas, tr, True),
+                         phis=scale(pose.phis, pr, True)), scale(fov, fr)
+
+
 def sample_train_batch(pose: PoseDraws, fov: torch.Tensor, cfg: Config,
                        H: int, W: int) -> CameraBatch:
     """Random training views from pose draws and a drawn vertical FOV
@@ -75,6 +98,22 @@ def circle_view_batch(cfg: Config, index: int, size: int, H: int, W: int,
     """Deterministic turntable view for eval and test."""
     return fixed_view_batch(cfg, cfg.default_polar, (index / size) * 360.0,
                             H, W, device)
+
+
+def default_view_batch(cfg: Config, ref_radii: Sequence[float],
+                       ref_polars: Sequence[float],
+                       ref_azimuths: Sequence[float], H: int, W: int,
+                       device=None) -> CameraBatch:
+    """The known views of image-conditioned training: one per reference,
+    at the default FOV and ``known_view_scale`` times the render size."""
+    Hs, Ws = int(cfg.known_view_scale * H), int(cfg.known_view_scale * W)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    radii, thetas, phis = t(ref_radii), t(ref_polars), t(ref_azimuths)
+    poses, dirs = circle_poses(radii, thetas, phis,
+                               angle_overhead=cfg.angle_overhead,
+                               angle_front=cfg.angle_front)
+    return _batch_from_poses(cfg, poses, dirs, thetas, phis, radii,
+                             t(cfg.default_fovy), Hs, Ws)
 
 
 SIX_VIEW_THETAS = (90.0, 90.0, 90.0, 90.0, 1e-3, 179.999)

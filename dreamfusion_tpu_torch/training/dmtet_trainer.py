@@ -1,17 +1,25 @@
 """DMTet refinement-stage trainer (``dreamfusion_tpu/training/
 dmtet_trainer.py``).
 
-The second stage of a run (``--dmtet --init_with <stage-1 checkpoint>``):
-trainable (sdf, deform) on a tetrahedral grid beside the stage-1 NeRF
-field, reused as a texture field.  One step: marching tets (K8) →
-rasterization (K7) → albedo query (K6 or K1, + K4) → shading → oracle SDS +
-normal-consistency and Laplacian regularizers → backward → guarded Adan →
-EMA.  ``--lock_geo`` pins (sdf, deform) and their EMA; the field keeps
-training.  The stage bootstraps from the port's own stage-1 checkpoint: the
-grid is scaled to the occupied region and sdf = clamp(σ − thresh, −1, 1).
-There is no density grid.  Every random number of a step is drawn up front
-(``draw_dmtet_step``), so the tests can hand the step the JAX package's
-draws.
+The second stage of a run (``--dmtet --init_with <stage-1 checkpoint or
+mesh file>``): trainable (sdf, deform) on a tetrahedral grid beside the
+NeRF field, reused as a texture field.  One step: marching tets (K8) →
+rasterization (K7) → albedo query (K6 or K1, + K4) → shading → the pixel
+oracle's or the image oracle's SDS (the gradient clamped by K5 under
+``--grad_clip_rgb``) + normal-consistency and Laplacian regularizers →
+backward → guarded Adan → EMA.  Under ``--image`` every
+``known_view_interval``-th step is a known-view step instead: the reference
+view rendered through K7 at the render's own size, with rgb, mask and the
+mesh regularizers.  ``--lock_geo`` pins (sdf, deform) and their EMA; the
+field keeps training.
+
+The stage bootstraps from the port's own stage-1 checkpoint (the grid
+scaled to the occupied region, sdf = clamp(σ − thresh, −1, 1)) or, from an
+.obj or .ply file, from the mesh's signed distance (K9,
+``DMTetRenderer.init_params_from_mesh``) with a fresh field drawn from the
+seed.  There is no density grid.  Every random number of a step is drawn up
+front (``draw_dmtet_step``, ``draw_known_view``), so the tests can hand the
+step the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -26,14 +34,17 @@ from torch import nn
 
 from ..config import Config
 from ..core.poses import PoseDraws
+from ..mesh.sdf import load_mesh
 from ..mesh.tets import CACHE_DIR, TetGrid, load_cached_tet_grid
 from ..models.dmtet import DMTetParams, DMTetRenderer
 from ..models.renderer import NeRFRenderer
 from ..training import schedules
-from .data import CameraBatch, sample_train_batch
+from .data import CameraBatch
+from .image_data import RefImages
 from .optimizer import AdanState
 from .trainer import (Trainer, _samplers, adan_for, build_renderer, draw_t,
-                      draw_view, ema_copy, guarded_update, newest_checkpoint)
+                      draw_view, ema_copy, guarded_update, newest_checkpoint,
+                      train_batch)
 
 
 class DMTetDraws(NamedTuple):
@@ -50,6 +61,12 @@ def draw_dmtet_step(gen: torch.Generator, cfg: Config, device) -> DMTetDraws:
     t = draw_t(gen, cfg, device)
     _, N = _samplers(gen, device)
     return DMTetDraws(pose, fov, choice, t, N(cfg.batch_size, cfg.h, cfg.w, 3))
+
+
+class DMTetKnownViewDraws(NamedTuple):
+    """Every random number of one known-view DMTet step."""
+    sel: torch.Tensor                  # [] int64 reference view
+    bg: torch.Tensor                   # [3] background colour
 
 
 class DMTetModel(nn.Module):
@@ -78,8 +95,9 @@ class DMTetTrainer(Trainer):
 
     def __init__(self, cfg: Config, device="cuda",
                  tet_grid: Optional[TetGrid] = None,
-                 max_tris: Optional[int] = None):
-        super().__init__(cfg, device)
+                 max_tris: Optional[int] = None,
+                 ref_images: Optional[RefImages] = None):
+        super().__init__(cfg, device, ref_images=ref_images)
         if tet_grid is None:
             # a cube lattice of n = size // 2 has the tet density of the
             # reference's quartet grid of that size
@@ -111,15 +129,21 @@ class DMTetTrainer(Trainer):
 
     def init_state(self, seed: int, nerf_ckpt: Optional[str] = None
                    ) -> DMTetState:
-        """Bootstrap from a stage-1 checkpoint or, with none, from a sphere
-        sdf of radius 0.5."""
+        """Bootstrap from a stage-1 checkpoint, from a mesh file (.obj or
+        .ply: the geometry from its signed distance, the field fresh from
+        the seed) or, with neither, from a sphere sdf of radius 0.5."""
         cfg = self.cfg
         renderer = build_renderer(cfg)
         renderer.field.reset_parameters(torch.Generator().manual_seed(seed))
         renderer.to(self.device)
         init_with = nerf_ckpt or cfg.init_with
         dmr = self.dmtet_renderer
-        if init_with:
+        if init_with.lower().endswith((".obj", ".ply")):
+            mv, mt = load_mesh(init_with)
+            self.log(f"[dmtet] mesh init from {init_with}: {len(mv)} verts, "
+                     f"{len(mt)} tris")
+            geo = dmr.init_params_from_mesh(mv, mt)
+        elif init_with:
             self.load_stage1_field(renderer, init_with)
             geo = dmr.init_params_from_density(
                 lambda x: renderer.density(x)["sigma"], cfg.density_thresh)
@@ -138,7 +162,15 @@ class DMTetTrainer(Trainer):
     def draw_step(self, gen: torch.Generator) -> DMTetDraws:
         return draw_dmtet_step(gen, self.cfg, self.device)
 
+    def draw_known_view(self, gen: torch.Generator) -> DMTetKnownViewDraws:
+        K = self.ref_images.rgb.shape[0]
+        sel = torch.randint(0, K, (), generator=gen, device=self.device)
+        return DMTetKnownViewDraws(sel, torch.rand(3, generator=gen,
+                                                   device=self.device))
+
     def run_step(self, state: DMTetState, gen: torch.Generator):
+        if self.is_known_view_step(state.step):
+            return self.known_view_step(state, self.draw_known_view(gen))
         return self.train_step(state, self.draw_step(gen))
 
     @staticmethod
@@ -150,7 +182,7 @@ class DMTetTrainer(Trainer):
         H, W = cfg.h, cfg.w
         r_exp = schedules.iter_ratio(state.step, cfg.exp_start_iter or 0,
                                      cfg.exp_end_iter or cfg.iters)
-        batch = sample_train_batch(draws.pose, draws.fov, cfg, H, W)
+        batch = train_batch(cfg, draws.pose, draws.fov, state.step, H, W)
         choices = schedules.sample_step_choices(cfg, draws.choice, r_exp)
         model = state.model
         geo = self.geo_params(model, state.tet_scale)
@@ -168,9 +200,8 @@ class DMTetTrainer(Trainer):
                 out0 = out
             images.append(out["image"])
         pred_rgb = torch.stack(images)                      # [B, H, W, 3]
-        loss = self.guidance.sds_loss_rays(
-            draws.t, draws.noise, batch.rays_o, batch.rays_d,
-            choices.bg_color, pred_rgb, grad_scale=cfg.lambda_guidance)
+        loss = self.guidance_loss(pred_rgb, batch, draws, choices.bg_color,
+                                  False)
         metrics = {"loss_sds": loss}
         # the regularizers are the same for every view: their batch mean
         if cfg.lambda_mesh_normal > 0:
@@ -182,13 +213,41 @@ class DMTetTrainer(Trainer):
                        n_faces=mesh.face_mask.sum())
         return loss, metrics
 
-    def train_step(self, state: DMTetState, draws: DMTetDraws):
-        """One step; updates ``state`` in place → (metrics, gradients in
-        ``state.model.parameters()`` order)."""
+    def known_view_loss(self, state: DMTetState,
+                        draws: DMTetKnownViewDraws):
+        """rgb and mask losses of a K7 render of reference view
+        ``draws.sel`` at the reference's size, plus the mesh
+        regularizers."""
+        cfg = self.cfg
+        gt, kv = self.known_view(draws.sel)
+        Hs, Ws = gt["rgb"].shape[:2]
+        model = state.model
+        geo = self.geo_params(model, state.tet_scale)
+        mesh = self.dmtet_renderer.extract_mesh(geo)
+        out = self.dmtet_renderer.render(
+            geo, lambda x: model.nerf.density(x)["albedo"], kv.mvp, Hs, Ws,
+            kv.rays_o, kv.rays_d, ambient_ratio=1.0,
+            shading="lambertian", bg_color=draws.bg, need_regularizers=True,
+            mesh=mesh)
+        m = gt["mask"].float()
+        target = gt["rgb"] * m[..., None] + draws.bg * (1 - m[..., None])
+        loss = cfg.lambda_rgb * ((out["image"] - target) ** 2).mean()
+        loss = loss + cfg.lambda_mask * ((out["weights_sum"] - m) ** 2).mean()
+        loss = loss + cfg.lambda_mesh_normal * out["normal_loss"] + \
+            cfg.lambda_mesh_laplacian * out["lap_loss"]
+        return loss, {"loss": loss,
+                      "loss_sds": torch.zeros((), device=loss.device),
+                      "normal_loss": out["normal_loss"],
+                      "lap_loss": out["lap_loss"],
+                      "n_faces": mesh.face_mask.sum()}
+
+    def apply_step(self, state: DMTetState, loss, metrics):
+        """Backward, the guarded update in place (``--lock_geo`` pins the
+        geometry) → (metrics, gradients in ``state.model.parameters()``
+        order)."""
         cfg = self.cfg
         model = state.model
         params = list(model.parameters())
-        loss, metrics = self.loss_fn(state, draws)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
@@ -213,19 +272,24 @@ class DMTetTrainer(Trainer):
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}, grads
 
+    def train_step(self, state: DMTetState, draws: DMTetDraws):
+        """One step; updates ``state`` in place → (metrics, gradients)."""
+        return self.apply_step(state, *self.loss_fn(state, draws))
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def render_view(self, state: DMTetState, batch: CameraBatch, H: int,
                     W: int):
         """Albedo render of a one-view batch through the rasterizer with the
-        EMA parameters → (image [H*W, 3], depth [H*W])."""
+        EMA parameters → (image [H*W, 3], depth [H*W], alpha [H*W])."""
         model = ema_copy(state.model, state.ema_params)
         out = self.dmtet_renderer.render(
             self.geo_params(model, state.tet_scale),
             lambda x: model.nerf.density(x)["albedo"], batch.mvp[0], H, W,
             batch.rays_o[0], batch.rays_d[0], ambient_ratio=1.0,
             shading="albedo", bg_color=1.0)
-        return out["image"].reshape(-1, 3), out["depth"].reshape(-1)
+        return (out["image"].reshape(-1, 3), out["depth"].reshape(-1),
+                out["weights_sum"].reshape(-1))
 
     def eval_metric(self, state) -> Optional[float]:
         """None, as the JAX stage: the df snapshot follows every eval."""

@@ -17,6 +17,30 @@ def iter_ratio(step: int, start: int, end: int) -> float:
     return (step - start) / max(end - start, 1)
 
 
+def progressive_view_ranges(cfg: Config, r_exp: float):
+    """The pose ranges under ``--progressive_view``: each widens linearly
+    from the default view to its full range, fully open from
+    r = min(1, init_ratio + 2·r_exp) = 1 on → (radius, theta, phi, fovy)
+    (lo, hi) pairs."""
+    r = min(1.0, cfg.progressive_view_init_ratio + 2.0 * r_exp)
+
+    def lerp_range(default, full):
+        return (default * (1 - r) + full[0] * r,
+                default * (1 - r) + full[1] * r)
+
+    return (lerp_range(cfg.default_radius, cfg.radius_range),
+            lerp_range(cfg.default_polar, cfg.theta_range),
+            lerp_range(cfg.default_azimuth, cfg.phi_range),
+            lerp_range(cfg.default_fovy, cfg.fovy_range))
+
+
+def view_ranges(cfg: Config, r_exp: float):
+    """The step's pose ranges: progressive, or the configured ones."""
+    if cfg.progressive_view:
+        return progressive_view_ranges(cfg, r_exp)
+    return cfg.radius_range, cfg.theta_range, cfg.phi_range, cfg.fovy_range
+
+
 def encoder_max_level(cfg: Config, r_exp: float) -> Optional[float]:
     """min(1, 0.25 + 2*ratio) under progressive level training."""
     if not cfg.progressive_level:
@@ -26,6 +50,14 @@ def encoder_max_level(cfg: Config, r_exp: float) -> Optional[float]:
 
 def lambda_entropy_at(cfg: Config, step: int) -> float:
     return cfg.lambda_entropy * min(1.0, 2.0 * step / cfg.iters)
+
+
+def lambda_normal_at(cfg: Config, step: int) -> float:
+    return cfg.lambda_normal * min(1.0, step / cfg.iters)
+
+
+def lambda_depth_at(cfg: Config, step: int) -> float:
+    return cfg.lambda_depth * min(1.0, step / cfg.iters)
 
 
 def lambda_tv_at(cfg: Config, step: int) -> float:

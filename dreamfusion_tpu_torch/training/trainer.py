@@ -1,22 +1,31 @@
 """The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
-ported paths): state init, the step (render → SDS from the pixel oracle or
-Stable Diffusion → entropy and orient regularizers, and the hash grid's tv
-and weight decay → backward → guarded Adan → EMA), the density-grid update,
-and the run's end: eval renders with the analytic-scene PSNR, the turntable
-video and the checkpoints (``torch.save``; the rolling ``df_ep*`` ones and
-the EMA-only ``df`` kept best by the eval metric).
+ported paths): state init, the step (render → SDS from the pixel oracle,
+the image oracle or Stable Diffusion → entropy, orient and normal-smoothness
+regularizers, and the hash grid's tv and weight decay → backward → guarded
+Adan → EMA), the density-grid update, and the run's end: eval renders with
+the analytic-scene PSNR (or, under ``--image``, the known-view masked
+PSNR), the turntable video and the checkpoints (``torch.save``; the rolling
+``df_ep*`` ones and the EMA-only ``df`` kept best by the eval metric).
 
 Under SD the first ``latent_iter_ratio`` of the run is the warm-up phase:
 normal shading at ambient 1, no background MLP, and the rgb + alpha render
 goes to the guidance as the latent itself; after it, random lambertian or
 textureless shading, the background MLP when drawn, and the VAE encode.
+Under ``--image`` every ``known_view_interval``-th step is a known-view
+step instead: the reference camera (jittered by a shared [3] noise), a
+per-pixel random background, lambertian shading at ambient 1, and rgb,
+mask, Pearson-depth (and normal) losses against the reference image.
+``--grad_clip_rgb`` clamps the gradient entering the rendered rgb of both
+kinds of step (K5, ``ops/clip_grad.py``).
 
 Every random number a step uses is drawn up front by ``draw_step`` (and
-``draw_grid`` for the grid update) from a ``torch.Generator``; the step
-itself is deterministic, so the tests can hand it the JAX package's draws
-instead.  The JAX step is a pure function; this one updates the
-parameters, optimizer moments and EMA in place (``apply_updates_guarded``)
-to keep one copy of each.
+``draw_grid`` for the grid update, ``draw_known_view`` for a known-view
+step) from a ``torch.Generator``; the step itself is deterministic, so the
+tests can hand it the JAX package's draws instead.  The pose and FOV draws
+are unit uniforms, scaled by the step's ranges (progressive under
+``--progressive_view``) in ``data.scale_view_draws``.  The JAX step is a
+pure function; this one updates the parameters, optimizer moments and EMA
+in place (``apply_updates_guarded``) to keep one copy of each.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -37,53 +47,55 @@ from ..core.math import safe_normalize
 from ..core.poses import PoseDraws
 from ..core.sampling import stratified_u
 from ..evaluation.analytic import scene_views
-from ..guidance.oracle import PixelOracleGuidance
+from ..guidance.oracle import ImageOracleGuidance, PixelOracleGuidance
 from ..guidance.perpneg import (adjust_text_embeddings,
                                 interpolate_view_embedding)
-from ..models.nerf import SHADING_ALBEDO, SHADING_NORMAL, make_grid_spec
+from ..models.nerf import (SHADING_ALBEDO, SHADING_LAMBERTIAN,
+                           SHADING_NORMAL, make_grid_spec)
 from ..models.renderer import NeRFRenderer, RenderFlags
+from ..ops.clip_grad import clip_grad
 from ..ops.hashgrid import (HashGridSpec, draw_tv_cells, hashgrid_tv_loss,
                             hashgrid_wd_loss)
 from ..ops.occupancy import update_density_grid
 from ..utils.device import resolve_device
 from ..utils.image import colorize_depth, save_image, save_video
 from . import schedules
-from .data import (CameraBatch, circle_view_batch, sample_train_batch,
-                   six_view_batch)
+from .data import (CameraBatch, circle_view_batch, default_view_batch,
+                   sample_train_batch, scale_view_draws, six_view_batch)
+from .image_data import RefImages, masked_pearson
 from .optimizer import Adan, AdanState
 
 
 def check_slice(cfg: Config) -> None:
     """Refuse configurations outside the ported slice, naming the ROADMAP
     item that ports them."""
+    image_oracle = tuple(cfg.guidance) == ("image_oracle",)
+    analytic = cfg.image is not None and cfg.image.startswith("analytic:")
     todo = {
         "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
                                                           "triplane"),
                                      "queue 1, item 5"),
-        "guidance other than the pixel oracle or SD alone": (
-            tuple(cfg.guidance) not in (("oracle",), ("SD",)),
-            "queue 1, item 7"),
+        "guidance other than the pixel oracle, the image oracle or SD "
+        "alone": (tuple(cfg.guidance) not in (("oracle",), ("SD",),
+                                              ("image_oracle",)),
+                  "queue 1, item 7"),
         "--sd_version 1.x (head dim 40)": (
             not cfg.sd_version.startswith("2"), "queue 1, item 4"),
-        "--init_with a mesh file (K9)": (
-            cfg.init_with.lower().endswith((".obj", ".ply")),
-            "queue 2, K9"),
-        "--dmtet with guidance other than the pixel oracle": (
-            cfg.dmtet and tuple(cfg.guidance) != ("oracle",),
-            "queue 1, item 6"),
-        "--dmtet with --image (the known-view step)": (
-            cfg.dmtet and cfg.image is not None, "queue 1, item 7"),
-        "--image": (cfg.image is not None, "queue 1, item 7"),
+        "--dmtet with SD guidance": (cfg.dmtet and cfg.guidance == ("SD",),
+                                     "queue 1, item 6"),
+        "--image from a file (zero123 and the PNG loader)": (
+            cfg.image is not None and not analytic, "queue 1, item 7"),
+        "--image_config (zero123 and the PNG loader)": (
+            cfg.image_config is not None, "queue 1, item 7"),
+        "--image analytic: without --guidance image_oracle": (
+            analytic and not image_oracle, "queue 1, item 7"),
+        "--guidance image_oracle without --image analytic:<scene>": (
+            image_oracle and not analytic, "queue 1, item 7"),
         "--optim other than adan": (cfg.optim != "adan", "queue 1, item 3"),
         "--grad_clip": (cfg.grad_clip >= 0, "queue 1, item 3"),
-        "--grad_clip_rgb (K5)": (cfg.grad_clip_rgb >= 0, "queue 2, K5"),
-        "--progressive_view": (cfg.progressive_view, "queue 1, item 3"),
         "--lambda_tv on the triplane (triplane_tv_loss)": (
             cfg.lambda_tv > 0 and cfg.backbone == "triplane",
             "queue 1, item 2"),
-        "normal-smoothness losses": (
-            cfg.lambda_3d_normal_smooth > 0 or cfg.lambda_2d_normal_smooth > 0
-            or cfg.lambda_normal > 0, "queue 1, item 3"),
         "--normal_mode finite_difference": (
             cfg.normal_mode == "finite_difference", "queue 1, item 2"),
     }
@@ -137,6 +149,18 @@ class StepDraws(NamedTuple):
     #                                    [B, ls, ls, 4] latents (SD)
     posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
     tv_cells: Optional[torch.Tensor] = None   # [L, 4096, 3] (grid, tv > 0)
+    perturb_noise: Optional[torch.Tensor] = None  # [B*h*w*S, 3] normal
+    #                                    (the 3-D normal-smoothness loss)
+
+
+class KnownViewDraws(NamedTuple):
+    """Every random number of one known-view step."""
+    sel: torch.Tensor                  # [] int64 reference view
+    ro_noise: torch.Tensor             # [3] standard normal camera shift
+    rd_noise: torch.Tensor             # [3]
+    bg: torch.Tensor                   # [Hs*Ws, 3] per-pixel background
+    march_u: torch.Tensor              # [Hs*Ws, grid_fine_steps]
+    perturb_noise: Optional[torch.Tensor] = None  # [Hs*Ws*S, 3]
 
 
 def _samplers(gen: torch.Generator, device):
@@ -151,21 +175,29 @@ def _samplers(gen: torch.Generator, device):
 
 
 def draw_view(gen: torch.Generator, cfg: Config, device):
-    """A step's camera and shading draws → (pose, fov, choice)."""
+    """A step's camera and shading draws → (pose, fov, choice); the
+    radius, angles and FOV are unit uniforms (``data.scale_view_draws``
+    puts them in the step's ranges)."""
     B = cfg.batch_size
     U, N = _samplers(gen, device)
-    th = [math.radians(a) for a in cfg.theta_range]
-    ph = [math.radians(a) for a in cfg.phi_range]
-    pose = PoseDraws(radius=U(B, lo=cfg.radius_range[0],
-                              hi=cfg.radius_range[1]),
-                     thetas=U(B, lo=th[0], hi=th[1]),
-                     phis=U(B, lo=ph[0], hi=ph[1]),
+    pose = PoseDraws(radius=U(B), thetas=U(B), phis=U(B),
                      sphere_normal=N(B, 3), sphere_u=U(),
                      jitter_center=U(B, 3), jitter_target=N(B, 3),
                      jitter_up=N(B, 3))
-    fov = U(lo=cfg.fovy_range[0], hi=cfg.fovy_range[1])
+    fov = U()
     choice = schedules.ChoiceDraws(U(), U(), U(), U(3), N(3))
     return pose, fov, choice
+
+
+def train_batch(cfg: Config, pose: PoseDraws, fov: torch.Tensor, step: int,
+                H: int, W: int) -> CameraBatch:
+    """The step's random views from unit pose draws, in the step's pose
+    ranges (progressive under ``--progressive_view``)."""
+    r_exp = schedules.iter_ratio(step, cfg.exp_start_iter or 0,
+                                 cfg.exp_end_iter or cfg.iters)
+    pose, fov = scale_view_draws(pose, fov,
+                                 schedules.view_ranges(cfg, r_exp))
+    return sample_train_batch(pose, fov, cfg, H, W)
 
 
 def draw_t(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
@@ -194,6 +226,9 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
     if cfg.backbone == "grid" and cfg.lambda_tv > 0:
         draws = draws._replace(tv_cells=draw_tv_cells(
             gen, grid_spec_of(cfg), device))
+    if cfg.lambda_3d_normal_smooth > 0:
+        draws = draws._replace(perturb_noise=N(
+            B * cfg.h * cfg.w * cfg.grid_fine_steps, 3))
     return draws
 
 
@@ -279,11 +314,13 @@ class Trainer:
     EXTRA_STATE = ("density_grid", "mean_density", "occ_grid")
 
     def __init__(self, cfg: Config, device="cuda", guidance=None,
-                 embeddings: Optional[Dict[str, torch.Tensor]] = None):
+                 embeddings: Optional[Dict[str, torch.Tensor]] = None,
+                 ref_images: Optional[RefImages] = None):
         """``guidance`` and ``embeddings`` (``guidance/embeddings.py``) are
-        the SD guidance's; the oracle builds its own.  A ``--test`` run,
-        which trains nothing, needs neither.  The device is the card unless
-        the caller asks for the CPU."""
+        the SD guidance's; the oracles build their own.  A ``--test`` run,
+        which trains nothing, needs neither.  ``ref_images`` are the known
+        views of ``--image`` (``image_data.analytic_ref_images``).  The
+        device is the card unless the caller asks for the CPU."""
         check_slice(cfg)
         # fp32 products stay fp32 on the card: no TF32 in matmuls or
         # convolutions (PyTorch turns it on for cuDNN by default)
@@ -297,9 +334,26 @@ class Trainer:
                 raise ValueError("SD guidance needs its towers and prompt "
                                  "embeddings")
             self.guidance, self.embeddings = guidance, embeddings
+        elif cfg.guidance == ("image_oracle",):
+            if ref_images is None:
+                raise ValueError("the image oracle needs the reference "
+                                 "images")
+            self.guidance = ImageOracleGuidance(
+                cfg.image.split(":", 1)[1], cfg.t_range,
+                cfg.zero123_grad_scale, ref_images.polars,
+                ref_images.azimuths, ref_images.radii)
         else:
             self.guidance = PixelOracleGuidance(cfg.oracle_scene,
                                                 cfg.t_range)
+        self.ref_images = ref_images
+        if ref_images is not None:
+            as_t = lambda a: None if a is None else \
+                torch.from_numpy(np.array(a)).to(self.device)
+            self.gt = {k: as_t(getattr(ref_images, k))
+                       for k in ("rgb", "mask", "depth", "normal")}
+            self.kv_batch = default_view_batch(
+                cfg, ref_images.radii, ref_images.polars,
+                ref_images.azimuths, cfg.h, cfg.w, self.device)
         self.latent_size = guidance.cfg.latent_size \
             if self.sd and guidance is not None else None
         self.workspace = cfg.workspace
@@ -318,9 +372,15 @@ class Trainer:
         return state.step // self.cfg.dataset_size_train
 
     def flags(self, latent_phase: bool) -> RenderFlags:
-        return RenderFlags(perturb=True, shading_static_albedo=False,
-                           need_loss_orient=(self.cfg.lambda_orient > 0
-                                             and not latent_phase))
+        cfg = self.cfg
+        return RenderFlags(
+            perturb=True, shading_static_albedo=False,
+            need_loss_orient=cfg.lambda_orient > 0 and not latent_phase,
+            need_normal_perturb=(cfg.lambda_3d_normal_smooth > 0
+                                 and not latent_phase),
+            need_normal_image=((cfg.lambda_2d_normal_smooth > 0 or
+                                cfg.lambda_normal > 0)
+                               and not latent_phase))
 
     def latent_phase(self, step: int) -> bool:
         """The warm-up steps, r <= latent_iter_ratio of the exposure range
@@ -333,11 +393,19 @@ class Trainer:
     def draw_step(self, gen: torch.Generator) -> StepDraws:
         return draw_step(gen, self.cfg, self.device, self.latent_size)
 
+    def is_known_view_step(self, step: int) -> bool:
+        """Under ``--image``, every ``known_view_interval``-th step."""
+        return self.ref_images is not None and \
+            step % self.cfg.known_view_interval == 0
+
     def run_step(self, state: TrainState, gen: torch.Generator):
-        """One training step at state.step, with the density-grid refresh on
-        its cadence → (metrics, gradients)."""
+        """One training step at state.step (a known-view step on its
+        cadence), with the density-grid refresh on its cadence →
+        (metrics, gradients)."""
         if state.step % self.cfg.update_extra_interval == 0:
             self.update_grid(state, draw_grid(gen, self.cfg, self.device))
+        if self.is_known_view_step(state.step):
+            return self.known_view_step(state, self.draw_known_view(gen))
         return self.train_step(state, self.draw_step(gen))
 
     def init_state(self, seed: int) -> TrainState:
@@ -360,8 +428,12 @@ class Trainer:
             step=0)
 
     # ------------------------------------------------------------------
-    def _volume_reg_losses(self, out, wsum, step: int) -> torch.Tensor:
+    def _volume_reg_losses(self, out, wsum, shape_bhw, step: int
+                           ) -> torch.Tensor:
+        """Opacity, ramped entropy, orient and the 3-D and 2-D
+        normal-smoothness terms, in every step (known-view steps too)."""
         cfg = self.cfg
+        B, H, W = shape_bhw
         loss = torch.zeros((), device=wsum.device)
         if cfg.lambda_opacity > 0:
             loss = loss + cfg.lambda_opacity * (wsum ** 2).mean()
@@ -371,6 +443,14 @@ class Trainer:
             loss = loss + schedules.lambda_entropy_at(cfg, step) * ent
         if "loss_orient" in out:
             loss = loss + cfg.lambda_orient * out["loss_orient"]
+        if "loss_normal_perturb" in out:
+            loss = loss + cfg.lambda_3d_normal_smooth * \
+                out["loss_normal_perturb"]
+        if cfg.lambda_2d_normal_smooth > 0 and "normal_image" in out:
+            ni = out["normal_image"].reshape(B, H, W, 3)
+            sm = ((ni[:, 1:] - ni[:, :-1]) ** 2).mean() + \
+                ((ni[:, :, 1:] - ni[:, :, :-1]) ** 2).mean()
+            loss = loss + cfg.lambda_2d_normal_smooth * sm
         return loss
 
     def _grid_reg_losses(self, state: TrainState, draws: StepDraws
@@ -399,7 +479,7 @@ class Trainer:
         H, W = cfg.h, cfg.w
         r_exp = schedules.iter_ratio(state.step, cfg.exp_start_iter or 0,
                                      cfg.exp_end_iter or cfg.iters)
-        batch = sample_train_batch(draws.pose, draws.fov, cfg, H, W)
+        batch = train_batch(cfg, draws.pose, draws.fov, state.step, H, W)
         choices = schedules.sample_step_choices(cfg, draws.choice, r_exp)
         max_level = schedules.encoder_max_level(cfg, r_exp)
         B = batch.rays_o.shape[0]
@@ -415,10 +495,11 @@ class Trainer:
             self.flags(latent_phase), ro, rd, state.occ_grid,
             light_d=light_d, ambient_ratio=ambient, shading=shading,
             bg_color=choices.bg_color.expand(ro.shape), max_level=max_level,
-            march_u=draws.march_u, use_bg_net=use_bg_net)
+            march_u=draws.march_u, use_bg_net=use_bg_net,
+            perturb_noise=draws.perturb_noise)
         image = out["image"].reshape(B, H, W, 3)
         wsum = out["weights_sum"].reshape(B, H, W)
-        reg = self._volume_reg_losses(out, wsum, state.step)
+        reg = self._volume_reg_losses(out, wsum, (B, H, W), state.step)
         grid_reg = self._grid_reg_losses(state, draws)
         if grid_reg is not None:
             reg = reg + grid_reg
@@ -448,31 +529,130 @@ class Trainer:
                                       draws.noise, draws.posterior_noise,
                                       **kw)
 
+    def guidance_loss(self, pred_rgb, batch: CameraBatch, draws, bg,
+                      as_latent: bool) -> torch.Tensor:
+        """The prior's SDS loss of the rendered views, their gradient
+        clamped first under ``--grad_clip_rgb`` (K5)."""
+        cfg = self.cfg
+        if cfg.grad_clip_rgb >= 0:
+            pred_rgb = clip_grad(pred_rgb, cfg.grad_clip_rgb)
+        if self.sd:
+            return self._sd_loss(pred_rgb, batch, draws, as_latent)
+        if as_latent:
+            raise ValueError("the oracles need latent_iter_ratio 0")
+        if isinstance(self.guidance, ImageOracleGuidance):
+            return self.guidance.sds_loss_rays_pose(
+                draws.t, draws.noise, batch.rays_o, batch.rays_d, bg,
+                pred_rgb, batch.delta_polar, batch.delta_azimuth,
+                batch.delta_radius, grad_scale=cfg.lambda_guidance)
+        return self.guidance.sds_loss_rays(
+            draws.t, draws.noise, batch.rays_o, batch.rays_d, bg, pred_rgb,
+            grad_scale=cfg.lambda_guidance)
+
     def loss_fn(self, state: TrainState, draws: StepDraws):
         latent_phase = self.latent_phase(state.step)
         pred_rgb, reg, batch, bg = self.render_part(state, draws,
                                                     latent_phase)
-        if self.sd:
-            sds = self._sd_loss(pred_rgb, batch, draws, latent_phase)
-        else:
-            sds = self.guidance.sds_loss_rays(
-                draws.t, draws.noise, batch.rays_o, batch.rays_d, bg,
-                pred_rgb, grad_scale=self.cfg.lambda_guidance)
+        sds = self.guidance_loss(pred_rgb, batch, draws, bg, latent_phase)
         loss = sds + reg
         return loss, {"loss_reg": reg, "loss_sds": sds, "loss": loss}
 
-    def train_step(self, state: TrainState, draws: StepDraws):
-        """One step (warm-up or main phase by ``state.step``); updates
-        ``state`` in place → (metrics, gradients)."""
-        params = list(state.renderer.parameters())
-        loss, metrics = self.loss_fn(state, draws)
+    def apply_step(self, state, loss, metrics):
+        """Backward of one step's loss, the guarded update in place →
+        (metrics, gradients in ``self.module(state).parameters()``
+        order)."""
+        params = list(self.module(state).parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
         metrics["grad_ok"] = apply_updates_guarded(self.optimizer, self.cfg,
                                                    state, grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return metrics, grads
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(self, state: TrainState, draws: StepDraws):
+        """One step (warm-up or main phase by ``state.step``); updates
+        ``state`` in place → (metrics, gradients)."""
+        return self.apply_step(state, *self.loss_fn(state, draws))
+
+    # ------------------------------------------------------------------
+    # the known-view step of --image
+    def draw_known_view(self, gen: torch.Generator) -> KnownViewDraws:
+        cfg = self.cfg
+        U, N = _samplers(gen, self.device)
+        K = self.ref_images.rgb.shape[0]
+        R = self.kv_batch.rays_o.shape[1]
+        sel = torch.randint(0, K, (), generator=gen, device=self.device)
+        draws = KnownViewDraws(sel, N(3), N(3), U(R, 3),
+                               stratified_u(U(R, cfg.grid_fine_steps)))
+        if cfg.lambda_3d_normal_smooth > 0:
+            draws = draws._replace(perturb_noise=N(R * cfg.grid_fine_steps,
+                                                   3))
+        return draws
+
+    def known_view(self, sel: torch.Tensor):
+        """Reference view ``sel`` ([] int64 on the device, not read on the
+        host, which would wait for the stream) → (its reference images,
+        its rays and mvp, each without the leading view axis)."""
+        pick = lambda t: None if t is None else \
+            torch.index_select(t, 0, sel.reshape(1))[0]
+        return ({k: pick(v) for k, v in self.gt.items()},
+                CameraBatch(*map(pick, self.kv_batch)))
+
+    def known_view_loss(self, state: TrainState, draws: KnownViewDraws):
+        """rgb, mask, Pearson-depth (and, with reference normals, normal)
+        losses of a render of reference view ``draws.sel``, plus the volume
+        regularizers."""
+        cfg = self.cfg
+        gt, kv = self.known_view(draws.sel)
+        Hs, Ws = gt["rgb"].shape[:2]
+        ro, rd = kv.rays_o, kv.rays_d
+        if cfg.known_view_noise_scale > 0:
+            # one camera shift for all rays, against grid artifacts
+            ro = ro + draws.ro_noise * cfg.known_view_noise_scale
+            rd = rd + draws.rd_noise * cfg.known_view_noise_scale
+        r_exp = schedules.iter_ratio(state.step, cfg.exp_start_iter or 0,
+                                     cfg.exp_end_iter or cfg.iters)
+        flags = RenderFlags(
+            perturb=True, need_loss_orient=cfg.lambda_orient > 0,
+            need_normal_perturb=cfg.lambda_3d_normal_smooth > 0,
+            need_normal_image=(cfg.lambda_normal > 0 and
+                               gt["normal"] is not None)
+            or cfg.lambda_2d_normal_smooth > 0)
+        out = state.renderer.render_grid(
+            flags, ro.contiguous(), rd.contiguous(), state.occ_grid,
+            light_d=safe_normalize(ro), ambient_ratio=1.0,
+            shading=SHADING_LAMBERTIAN, bg_color=draws.bg,
+            max_level=schedules.encoder_max_level(cfg, r_exp),
+            march_u=draws.march_u, perturb_noise=draws.perturb_noise)
+        pred = out["image"].reshape(Hs, Ws, 3)
+        if cfg.grad_clip_rgb >= 0:
+            pred = clip_grad(pred, cfg.grad_clip_rgb)
+        pred_mask = out["weights_sum"].reshape(Hs, Ws)
+        m = gt["mask"].float()
+        target = gt["rgb"] * m[..., None] + \
+            draws.bg.reshape(Hs, Ws, 3) * (1 - m[..., None])
+        loss = cfg.lambda_rgb * ((pred - target) ** 2).mean()
+        loss = loss + cfg.lambda_mask * ((pred_mask - m) ** 2).mean()
+        if gt["normal"] is not None and "normal_image" in out:
+            pn = 2.0 * out["normal_image"].reshape(Hs, Ws, 3) - 1.0
+            gn = 1.0 - 2.0 * gt["normal"]
+            cos = (safe_normalize(pn) * safe_normalize(gn)).sum(-1)
+            loss = loss + schedules.lambda_normal_at(cfg, state.step) * (
+                1.0 - (cos * m).sum() / torch.clamp(m.sum(), min=1.0))
+        if gt["depth"] is not None and cfg.lambda_depth > 0:
+            pear = masked_pearson(out["depth"].reshape(Hs, Ws), gt["depth"],
+                                  gt["mask"])
+            loss = loss + schedules.lambda_depth_at(cfg, state.step) * (
+                1.0 - pear)
+        loss = loss + self._volume_reg_losses(out, pred_mask, (1, Hs, Ws),
+                                              state.step)
+        return loss, {"loss": loss,
+                      "loss_sds": torch.zeros((), device=loss.device)}
+
+    def known_view_step(self, state: TrainState, draws: KnownViewDraws):
+        """One known-view step; updates ``state`` in place → (metrics,
+        gradients)."""
+        return self.apply_step(state, *self.known_view_loss(state, draws))
 
     def update_grid(self, state: TrainState, jitter_u: torch.Tensor) -> None:
         """Density-grid EMA-max refresh from the current parameters."""
@@ -491,11 +671,11 @@ class Trainer:
                     W: int):
         """Deterministic albedo render of a one-view batch at H×W with the
         EMA parameters, in max_ray_batch chunks → (image [H*W, 3], depth
-        [H*W])."""
+        [H*W], alpha [H*W])."""
         cfg = self.cfg
         ro, rd = batch.rays_o[0], batch.rays_d[0]
         flags = RenderFlags(perturb=False, shading_static_albedo=True)
-        images, depths = [], []
+        outs = []
         for i in range(0, ro.shape[0], cfg.max_ray_batch):
             out = functional_call(
                 state.renderer, state.ema_params,
@@ -503,9 +683,13 @@ class Trainer:
                  rd[i:i + cfg.max_ray_batch], state.occ_grid),
                 {"ambient_ratio": 1.0, "shading": SHADING_ALBEDO},
                 strict=True)
-            images.append(out["image"])
-            depths.append(out["depth"])
-        return torch.cat(images), torch.cat(depths)
+            outs.append((out["image"], out["depth"], out["weights_sum"]))
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    @property
+    def scene(self) -> str:
+        """The analytic scene of the oracle priors."""
+        return self.guidance.scene
 
     def oracle_eval_metric(self, state) -> float:
         """PSNR of EMA renders of validation-circle views at h×w against
@@ -514,20 +698,40 @@ class Trainer:
         mses = []
         for i in range(min(cfg.dataset_size_valid, 4)):
             b = circle_view_batch(cfg, i, 4, cfg.h, cfg.w, self.device)
-            img, _ = self.render_view(state, b, cfg.h, cfg.w)
-            tgt, _ = scene_views(b.rays_o[0], b.rays_d[0], cfg.oracle_scene)
+            img = self.render_view(state, b, cfg.h, cfg.w)[0]
+            tgt, _ = scene_views(b.rays_o[0], b.rays_d[0], self.scene)
             mses.append(float(((img - tgt) ** 2).mean()))
         return float(-10.0 * math.log10(max(sum(mses) / len(mses), 1e-10)))
 
+    def known_view_psnr(self, state) -> float:
+        """Masked PSNR of EMA renders of the reference views (their own
+        pose, the default FOV, ``known_view_scale`` times h×w) against the
+        reference images."""
+        ref, mses = self.ref_images, []
+        Hs, Ws = ref.rgb.shape[1:3]
+        for k in range(ref.rgb.shape[0]):
+            b = default_view_batch(self.cfg, ref.radii[k:k + 1],
+                                   ref.polars[k:k + 1],
+                                   ref.azimuths[k:k + 1], self.cfg.h,
+                                   self.cfg.w, self.device)
+            pred = self.render_view(state, b, Hs, Ws)[0].reshape(Hs, Ws, 3)
+            m = self.gt["mask"][k].float()[..., None]
+            se = ((pred - self.gt["rgb"][k]) ** 2) * m
+            mses.append(float(se.sum() / torch.clamp(m.sum() * 3, min=1.0)))
+        return float(-10.0 * math.log10(max(sum(mses) / len(mses), 1e-10)))
+
     def eval_metric(self, state) -> Optional[float]:
-        """The analytic PSNR under the oracle; None otherwise (text-only SDS
-        has no ground truth; the CLIP scorer is not ported)."""
+        """The known-view masked PSNR under ``--image``, the analytic PSNR
+        under the oracle; None otherwise (text-only SDS has no ground
+        truth; the CLIP scorer is not ported)."""
+        if self.ref_images is not None:
+            return self.known_view_psnr(state)
         return None if self.sd else self.oracle_eval_metric(state)
 
     def _frame(self, state, batch: CameraBatch):
         """One eval/test view at H×W → (rgb [H,W,3], depth [H,W]) numpy."""
         H, W = self.cfg.H, self.cfg.W
-        img, depth = self.render_view(state, batch, H, W)
+        img, depth, _ = self.render_view(state, batch, H, W)
         return (img.reshape(H, W, 3).cpu().numpy(),
                 depth.reshape(H, W).cpu().numpy())
 

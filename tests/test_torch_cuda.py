@@ -564,3 +564,96 @@ def test_k6_wrappers_count_their_launches(dev):
     assert kernels.LAUNCHES["hashgrid_fwd"] == 1
     assert kernels.LAUNCHES["hashgrid_bwd"] == 1
     assert float(r.field.grid_table.grad.abs().max()) > 0
+
+
+# ---- K5 gradient clamp and K9 signed distance ------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 64, 64, 3), (96, 96, 3),
+                                   (1, 512, 512, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("limit", [0.05, 0.0])
+def test_clip_grad_kernel(dev, shape, dtype, limit):
+    from dreamfusion_tpu_torch.ops.clip_grad import clip_grad, clip_grad_plain
+    g = _gen(dev, 7)
+    cot = (torch.randn(shape, device=dev, generator=g) * 0.1).to(dtype)
+    cot.view(-1)[:3] = float("nan")
+    x = torch.rand(shape, device=dev, generator=g).to(dtype).requires_grad_()
+    kernels.reset_launch_counts()
+    (gx,) = torch.autograd.grad(clip_grad(x, limit), [x], cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["clip_grad_bwd"] == 1
+    assert gx.dtype == dtype
+    want = clip_grad_plain(cot, limit)
+    # a clamp is exact: equal values, NaN where the cotangent is NaN
+    torch.testing.assert_close(gx, want, rtol=0, atol=0, equal_nan=True)
+    assert int(gx.isnan().sum()) == 3
+    if limit == 0:
+        assert not gx.nan_to_num().any()
+
+
+def _uv_sphere(n_theta=12, n_phi=18, radius=1.0):
+    """A watertight UV sphere → (verts [V,3] float32, tris [T,3] int32)."""
+    th = torch.pi * torch.arange(1, n_theta) / n_theta
+    ph = 2 * torch.pi * torch.arange(n_phi) / n_phi
+    ring = torch.stack([torch.outer(th.sin(), ph.cos()),
+                        torch.outer(th.sin(), ph.sin()),
+                        torch.outer(th.cos(), torch.ones_like(ph))], -1)
+    verts = torch.cat([torch.tensor([[0.0, 0, 1]]), ring.reshape(-1, 3),
+                       torch.tensor([[0.0, 0, -1]])]) * radius
+    r = lambda i, j: 1 + i * n_phi + j % n_phi             # 0-based
+    tris = [(0, r(0, j), r(0, j + 1)) for j in range(n_phi)]
+    for i in range(n_theta - 2):
+        for j in range(n_phi):
+            tris += [(r(i, j), r(i + 1, j), r(i + 1, j + 1)),
+                     (r(i, j), r(i + 1, j + 1), r(i, j + 1))]
+    bot = len(verts) - 1
+    tris += [(bot, r(n_theta - 2, j + 1), r(n_theta - 2, j))
+             for j in range(n_phi)]
+    return verts.float(), torch.tensor(tris, dtype=torch.int32)
+
+
+def _with_slivers(verts, tris):
+    """Add a degenerate (repeated vertex), a sliver (two vertices 1e-7
+    apart) and a collinear triangle, as a decimated export has."""
+    extra = torch.tensor([[0.1, 0.2, 0.3], [0.1 + 1e-7, 0.2, 0.3],
+                          [0.3, -0.2, 0.1], [0.0, 0.0, 0.0],
+                          [0.25, 0.25, 0.25], [0.5, 0.5, 0.5]])
+    V = len(verts)
+    more = torch.tensor([[V, V, V + 2], [V, V + 1, V + 2],
+                         [V + 3, V + 4, V + 5]], dtype=torch.int32)
+    return torch.cat([verts, extra]), torch.cat([tris, more])
+
+
+@pytest.mark.parametrize("slivers", [False, True])
+def test_signed_distance_kernel(dev, slivers):
+    from dreamfusion_tpu_torch.mesh.sdf import (signed_distance,
+                                                signed_distance_plain)
+    verts, tris = _uv_sphere(radius=0.4)
+    if slivers:
+        verts, tris = _with_slivers(verts, tris)
+    g = torch.Generator().manual_seed(3)
+    pts = torch.cat([torch.rand(5000, 3, generator=g) * 1.2 - 0.6,
+                     verts[:50], (verts[tris[:50, 0]] + verts[tris[:50, 1]])
+                     / 2])
+    kernels.reset_launch_counts()
+    sd, wn = signed_distance(pts.to(dev), verts.to(dev), tris.to(dev),
+                             return_winding=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["signed_distance"] == 1
+    sdp, wnp = signed_distance_plain(pts, verts, tris, chunk=256,
+                                     return_winding=True)
+    sd, wn = sd.cpu(), wn.cpu()
+    assert not sd.isnan().any() and not wn.isnan().any()
+    tol = 1e-5 + 1e-5 * sdp.abs()
+    assert bool(((sd.abs() - sdp.abs()).abs() <= tol).all())
+    # signs agree where the winding number is clear of 0.5: the signed
+    # values, as a point on the surface has sd = ±0 and a winding number
+    # that the sign of a zero determinant decides
+    clear = (wnp - 0.5).abs() > 1e-4
+    assert bool(((sd - sdp).abs()[clear] <= tol[clear]).all())
+    off = sdp.abs() > 1e-4
+    torch.testing.assert_close(wn[off], wnp[off], atol=1e-4, rtol=0)
+    # away from the surface, the sphere's own signed distance
+    far = (pts.norm(dim=-1) - 0.4).abs() > 0.05
+    want = pts.norm(dim=-1) - 0.4
+    assert bool((sd[far].sign() == want[far].sign()).all())

@@ -1,8 +1,10 @@
 """The port stands alone: importing all of it (and chip_smoke.py) pulls in
 neither jax nor the JAX package, it builds its host mesh library from its
-own copy of the source, its Config (and its -O preset) agrees field by
-field with the JAX package's, its CLI refuses what it does not port, and it
-runs on the GPU unless the caller asks for the CPU."""
+own copy of the source, its Config (and its -O, --image and --dmtet
+presets, in the JAX CLI's order) agrees field by field with the JAX
+package's, its CLI refuses what it does not port and builds the image
+run and the mesh-file DMTet run, and it runs on the GPU unless the caller
+asks for the CPU."""
 
 import dataclasses
 import os
@@ -13,10 +15,18 @@ import numpy as np
 import pytest
 
 from dreamfusion_tpu.config import Config as JConfig
+from dreamfusion_tpu.config import apply_dmtet as j_apply_dmtet
+from dreamfusion_tpu.config import apply_image_mode as j_apply_image_mode
 from dreamfusion_tpu.config import apply_O as j_apply_O
 from dreamfusion_tpu.config import finalize as j_finalize
-from dreamfusion_tpu_torch.config import Config, apply_O, finalize
-from dreamfusion_tpu_torch.main import build_parser, config_from_args, main
+from dreamfusion_tpu.main import build_parser as j_build_parser
+from dreamfusion_tpu.main import config_from_args as j_config_from_args
+from dreamfusion_tpu_torch.config import (Config, apply_dmtet,
+                                          apply_image_mode, apply_O, finalize)
+from dreamfusion_tpu_torch.main import (build_parser, build_run,
+                                        config_from_args, main)
+
+from test_torch_sdf import _uv_sphere, _write_obj
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,7 +44,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'dreamfusion_tpu_torch.guidance.sd' in names\n"
         "for m in ('native.meshops', 'ops.raster', 'ops.marching_tets',\n"
         "          'ops.hashgrid', 'mesh.export', 'mesh.tets',\n"
-        "          'models.dmtet',\n"
+        "          'models.dmtet', 'mesh.sdf', 'ops.clip_grad',\n"
+        "          'training.image_data', 'guidance.zero123',\n"
         "          'training.dmtet_trainer', 'utils.image'):\n"
         "    assert 'dreamfusion_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -79,6 +90,9 @@ def test_apply_O_matches(overrides):
     dict(guidance=("SD",)),
     dict(guidance=("oracle",), backbone="grid_tcnn"),
     dict(backbone="grid_taichi"),
+    dict(guidance=("image_oracle",), image="analytic:two_sphere"),
+    dict(guidance=("image_oracle",), image="analytic:sphere", dmtet=True,
+         iters=20),
 ])
 def test_finalize_fixups_match(overrides):
     p, j = finalize(Config(**overrides)), j_finalize(JConfig(**overrides))
@@ -86,11 +100,53 @@ def test_finalize_fixups_match(overrides):
         assert getattr(p, f.name) == getattr(j, f.name), f.name
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(guidance=("image_oracle",), image="analytic:two_sphere",
+         lambda_3d_normal_smooth=0.0, guidance_scale=1.0),
+    dict(guidance=("image_oracle",), image="analytic:two_sphere",
+         lambda_3d_normal_smooth=0.0, dont_override_stuff=True),
+    dict(guidance=("SD",), image="x.png", fovy_range=(15.0, 25.0)),
+])
+@pytest.mark.parametrize("dmtet", [False, True], ids=["stage1", "dmtet"])
+def test_image_and_dmtet_presets_match(overrides, dmtet):
+    """apply_image_mode, then apply_dmtet, then finalize, as the CLIs do:
+    the image preset overrides the given lambdas, the DMTet preset then
+    turns the progressive view off and renders the known view at 1x."""
+    p = apply_image_mode(Config(**overrides))
+    j = j_apply_image_mode(JConfig(**overrides))
+    if dmtet:
+        p, j = apply_dmtet(p), j_apply_dmtet(j)
+    p, j = finalize(p), j_finalize(j)
+    for f in dataclasses.fields(Config):
+        assert getattr(p, f.name) == getattr(j, f.name), f.name
+
+
+IMAGE_FLAGS = ["--image", "analytic:two_sphere", "--guidance",
+               "image_oracle", "--guidance_scale", "1.0", "--lr", "0.01",
+               "--backbone", "triplane", "--seed", "0",
+               "--lambda_3d_normal_smooth", "0", "--grad_clip_rgb", "0.05"]
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--dont_override_stuff"], ["--lambda_entropy", "0.5"],
+    ["--dmtet", "--init_with", "m.obj", "--tet_grid_size", "128"],
+    ["--dmtet", "--init_with", "m.obj", "--dont_override_stuff"],
+])
+def test_cli_image_config_matches_jax(extra):
+    """The finished Config of the image command lines, field by field."""
+    p = config_from_args(build_parser().parse_args(IMAGE_FLAGS + extra))
+    j = j_config_from_args(j_build_parser().parse_args(IMAGE_FLAGS + extra))
+    for f in dataclasses.fields(Config):
+        assert getattr(p, f.name) == getattr(j, f.name), f.name
+    if "--dont_override_stuff" not in extra:
+        assert p.lambda_3d_normal_smooth == 10.0 and p.lambda_entropy == 1.0
+        assert p.progressive_view == ("--dmtet" not in extra)
+
+
 @pytest.mark.parametrize("flags", [
     ["--text", "a hamburger", "--sd_version", "1.5"],       # head dim 40
     ["--guidance", "oracle", "--backbone", "vanilla"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
-     "--init_with", "mesh.obj"],                            # K9
+    ["--image", "x.png", "--text", "a hamburger"],        # SD + CLIP
     ["--text", "a hamburger", "--backbone", "triplane", "--dmtet"],
     ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
     ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
@@ -99,6 +155,34 @@ def test_finalize_fixups_match(overrides):
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(flags + ["--workspace", str(tmp_path), "--iters", "1"])
+
+
+TINY = ["--backbone", "triplane", "--w", "8", "--h", "8",
+        "--triplane_resolution", "16", "--triplane_channels", "4",
+        "--grid_size", "16", "--hidden_dim", "16"]
+
+
+@pytest.mark.parametrize("what", ["image", "mesh"])
+def test_cli_builds_the_image_run_and_the_mesh_init(what, tmp_path):
+    """``--image analytic:two_sphere --guidance image_oracle`` and a
+    mesh-file ``--init_with`` each build a run on the CPU."""
+    flags = IMAGE_FLAGS + TINY + ["--workspace", str(tmp_path / "ws")]
+    if what == "mesh":
+        _write_obj(tmp_path / "sphere.obj", *_uv_sphere(1.0, 8, 12))
+        flags += ["--dmtet", "--init_with", str(tmp_path / "sphere.obj"),
+                  "--tet_grid_size", "16", "--w", "2", "--h", "2"]
+    cfg = config_from_args(build_parser().parse_args(flags))
+    trainer, state, gen = build_run(cfg, "cpu", False)
+    assert trainer.ref_images is not None
+    assert trainer.is_known_view_step(0) and not trainer.is_known_view_step(1)
+    if what == "mesh":
+        assert state.tet_scale.tolist() == [0.5, 0.5, 0.5]
+        sdf = state.model.geo["sdf"]
+        assert bool((sdf > 0).any()) and bool((sdf < 0).any())
+    else:
+        assert trainer.kv_batch.rays_o.shape[1] == 12 * 12   # 1.5 x 8²
+    metrics, _ = trainer.run_step(state, gen)
+    assert bool(metrics["grad_ok"]) and state.step == 1
 
 
 def test_cli_refuses_tv_on_the_triplane(tmp_path):

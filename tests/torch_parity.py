@@ -1,7 +1,10 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
 JAX package's random draws for one training step (the hash grid's tv cells
-included), rebuilt from its own key-split tree and handed to the port as
-tensors, and config mapping."""
+and the normal-perturb offsets included) and for one known-view step,
+rebuilt from its own key-split tree and handed to the port as tensors, and
+config mapping.  A step's pose and FOV draws go to the port as the unit
+uniforms behind ``jax.random.uniform(minval, maxval)``; the port scales
+them by the step's ranges."""
 
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import torch
 from dreamfusion_tpu_torch.config import Config as PConfig
 from dreamfusion_tpu_torch.core.poses import PoseDraws
 from dreamfusion_tpu_torch.training import schedules as pschedules
-from dreamfusion_tpu_torch.training.dmtet_trainer import DMTetDraws
-from dreamfusion_tpu_torch.training.trainer import StepDraws, grid_spec_of
+from dreamfusion_tpu_torch.training.dmtet_trainer import (DMTetDraws,
+                                                          DMTetKnownViewDraws)
+from dreamfusion_tpu_torch.training.trainer import (KnownViewDraws,
+                                                    StepDraws, grid_spec_of)
 
 GRID_SALT = 0x9e3779b9
 
@@ -37,16 +42,23 @@ def _uniform(key, shape, lo, hi):
                               maxval=jnp.asarray(hi, jnp.float32))
 
 
-def jax_pose_draws(k_pose, cfg) -> PoseDraws:
-    """What dreamfusion_tpu.core.poses.rand_poses draws from its key."""
+def jax_pose_draws(k_pose, cfg, unit: bool = False) -> PoseDraws:
+    """What dreamfusion_tpu.core.poses.rand_poses draws from its key; with
+    ``unit`` the radius and angles as unit uniforms (the same bits)."""
     B = cfg.batch_size
     k_r, k_u, k_th, k_ph, k_sph, k_jc, k_jt, k_ju = jax.random.split(k_pose, 8)
     th = [jnp.deg2rad(jnp.asarray(a, jnp.float32)) for a in cfg.theta_range]
     ph = [jnp.deg2rad(jnp.asarray(a, jnp.float32)) for a in cfg.phi_range]
+    if unit:
+        radius, thetas, phis = (tt(jax.random.uniform(k, (B,)))
+                                for k in (k_r, k_th, k_ph))
+    else:
+        radius = tt(_uniform(k_r, (B,), *cfg.radius_range))
+        thetas = tt(jax.random.uniform(k_th, (B,), minval=th[0],
+                                       maxval=th[1]))
+        phis = tt(jax.random.uniform(k_ph, (B,), minval=ph[0], maxval=ph[1]))
     return PoseDraws(
-        radius=tt(_uniform(k_r, (B,), *cfg.radius_range)),
-        thetas=tt(jax.random.uniform(k_th, (B,), minval=th[0], maxval=th[1])),
-        phis=tt(jax.random.uniform(k_ph, (B,), minval=ph[0], maxval=ph[1])),
+        radius=radius, thetas=thetas, phis=phis,
         sphere_normal=tt(jax.random.normal(k_sph, (B, 3))),
         sphere_u=tt(jax.random.uniform(k_u, ())),
         jitter_center=tt(jax.random.uniform(k_jc, (B, 3))),
@@ -54,10 +66,18 @@ def jax_pose_draws(k_pose, cfg) -> PoseDraws:
         jitter_up=tt(jax.random.normal(k_ju, (B, 3))))
 
 
-def jax_batch_draws(k_batch, cfg):
+def jax_batch_draws(k_batch, cfg, unit: bool = False):
     k_pose, k_fov = jax.random.split(k_batch)
-    fov = tt(_uniform(k_fov, (), *cfg.fovy_range))
-    return jax_pose_draws(k_pose, cfg), fov
+    fov = tt(jax.random.uniform(k_fov, ())) if unit else \
+        tt(_uniform(k_fov, (), *cfg.fovy_range))
+    return jax_pose_draws(k_pose, cfg, unit), fov
+
+
+def jax_render_keys(renderer, k_render, n: int):
+    """The first n keys the renderer's ``make_rng("render")`` gives."""
+    return renderer.apply(
+        {}, method=lambda m: [m.make_rng("render") for _ in range(n)],
+        rngs={"render": k_render})
 
 
 def jax_choice_draws(k_choice) -> pschedules.ChoiceDraws:
@@ -72,15 +92,16 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
                    latent_size=None) -> StepDraws:
     """The draws of Trainer._make_train_step('main' or 'latent') at
     state.step=step: fold_in(base, step) → split 5 (batch, choice, render,
-    guide, tv).  With ``latent_size`` the guide key feeds SD's sds_loss
-    (split 3: posterior, t, latent noise), else the pixel oracle's."""
+    guide, tv); the render key's first draw is the march's, its second the
+    normal-perturb offsets'.  With ``latent_size`` the guide key feeds SD's
+    sds_loss (split 3: posterior, t, latent noise), else the pixel (or
+    image) oracle's."""
     key = jax.random.fold_in(base_key, step)
     k_batch, k_choice, k_render, k_guide, k_tv = jax.random.split(key, 5)
-    pose, fov = jax_batch_draws(k_batch, cfg)
+    pose, fov = jax_batch_draws(k_batch, cfg, unit=True)
     R = cfg.batch_size * cfg.h * cfg.w
     S = cfg.grid_fine_steps
-    k_march = renderer.apply({}, method=lambda m: m.make_rng("render"),
-                             rngs={"render": k_render})
+    k_march, k_perturb = jax_render_keys(renderer, k_render, 2)
     march_u = (jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S
     (k_prior,) = jax.random.split(k_guide, 1)
     lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
@@ -98,7 +119,40 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
     if cfg.backbone == "grid" and cfg.lambda_tv > 0:
         draws = draws._replace(tv_cells=jax_tv_cells(
             k_tv, grid_spec_of(port_cfg(cfg)).resolutions))
+    if cfg.lambda_3d_normal_smooth > 0:
+        draws = draws._replace(perturb_noise=tt(jax.random.normal(
+            k_perturb, (R, S, 3))).reshape(-1, 3))
     return draws
+
+
+def jax_known_view_draws(cfg, renderer, base_key, step: int, K: int,
+                         R: int) -> KnownViewDraws:
+    """The draws of Trainer._make_known_view_step at state.step=step for K
+    references of R rays: fold_in(base, step) → split 4 (sel, noise, bg,
+    render); the noise key splits into the ray origins' and directions'."""
+    key = jax.random.fold_in(base_key, step)
+    k_sel, k_noise, k_bg, k_render = jax.random.split(key, 4)
+    nro, nrd = jax.random.split(k_noise)
+    S = cfg.grid_fine_steps
+    k_march, k_perturb = jax_render_keys(renderer, k_render, 2)
+    draws = KnownViewDraws(
+        tt(jax.random.randint(k_sel, (), 0, K)).long(),
+        tt(jax.random.normal(nro, (3,))), tt(jax.random.normal(nrd, (3,))),
+        tt(jax.random.uniform(k_bg, (R, 3))),
+        tt((jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S))
+    if cfg.lambda_3d_normal_smooth > 0:
+        draws = draws._replace(perturb_noise=tt(jax.random.normal(
+            k_perturb, (R, S, 3))).reshape(-1, 3))
+    return draws
+
+
+def jax_dmtet_known_view_draws(base_key, step: int, K: int
+                               ) -> DMTetKnownViewDraws:
+    """The draws of DMTetTrainer._make_known_view_step: split 2 (sel, bg)."""
+    k_sel, k_bg = jax.random.split(jax.random.fold_in(base_key, step))
+    return DMTetKnownViewDraws(
+        tt(jax.random.randint(k_sel, (), 0, K)).long(),
+        tt(jax.random.uniform(k_bg, (3,))))
 
 
 def jax_tv_cells(key, resolutions, n_samples: int = 4096) -> torch.Tensor:
@@ -115,7 +169,7 @@ def jax_dmtet_step_draws(cfg, base_key, step: int) -> DMTetDraws:
     feeds the pixel oracle (split 1, then t and noise)."""
     key = jax.random.fold_in(base_key, step)
     k_batch, k_choice, k_guide = jax.random.split(key, 3)
-    pose, fov = jax_batch_draws(k_batch, cfg)
+    pose, fov = jax_batch_draws(k_batch, cfg, unit=True)
     (k_prior,) = jax.random.split(k_guide, 1)
     k_t, k_noise = jax.random.split(k_prior)
     lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
