@@ -11,7 +11,10 @@
    and of the SD 2.1 towers (K10-K12), compares the kernel with its plain
    PyTorch version on the same inputs and times both, and the one PyTorch
    call that computes the same function where there is one (CUDA events,
-   median after warm-up).  Each kernel's bound is the larger of its bytes
+   median after warm-up; fp32 convs against cuDNN with TF32 off).  K10's
+   and K12's forwards have routes chosen by shape (wgmma + TMA, mma.sync,
+   and K12's narrow fp32 one), each checked and timed under its own name
+   at the shapes that take it.  Each kernel's bound is the larger of its bytes
    (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32).
@@ -38,7 +41,8 @@
 5. Resets the counters and trains the SD 2.1 path (full SD 2.1 width,
    random weights from the seed) through dreamfusion_tpu_torch.main for 25
    steps: 6 warm-up steps (render as latent) and 19 through the VAE;
-   requires finite losses and gradients, a launch of every kernel and a
+   requires finite losses and gradients, a launch of every kernel (every
+   route of K10's and K12's forwards) and a
    non-zero triplane gradient in both phases; logs s/step and peak memory.
 6. Resets the counters and trains the DMTet stage from the stage-1
    checkpoint (--dmtet --init_with, oracle guidance, lr 0.002, tet grid
@@ -165,16 +169,22 @@ KERNELS = {
                        "dreamfusion_tpu/ops/activation.py:9"),
     "field_head_bwd": ("triton", "dreamfusion_tpu_torch/ops/activation.py",
                        "dreamfusion_tpu/ops/activation.py:9"),
-    "attention_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
-                      "dreamfusion_tpu/ops/attention.py:27"),
+    "attention_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
+                            "dreamfusion_tpu/ops/attention.py:27"),
+    "attention_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
+                          "dreamfusion_tpu/ops/attention.py:27"),
     "attention_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
                       "dreamfusion_tpu/ops/attention.py:72"),
     "groupnorm_fwd": ("triton", "dreamfusion_tpu_torch/ops/groupnorm.py",
                       "dreamfusion_tpu/models/unet.py:100"),
     "groupnorm_bwd": ("triton", "dreamfusion_tpu_torch/ops/groupnorm.py",
                       "dreamfusion_tpu/models/unet.py:143"),
-    "conv_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
-                 "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                       "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                     "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_fwd_fp32": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                      "dreamfusion_tpu/ops/conv.py:58"),
     "conv_dgrad": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                    "dreamfusion_tpu/ops/conv.py:95"),
 }
@@ -207,16 +217,48 @@ GRID_REG_KERNELS = ("hashgrid_tv_fwd", "hashgrid_tv_bwd", "hashgrid_wd_fwd",
 ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
                   "field_head_bwd")
+# K10's and K12's forwards count each route apart (ops/kernels.py): the SD
+# step must launch every one of them
 SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
-              "field_head_fwd", "field_head_bwd", "attention_fwd",
-              "attention_bwd", "groupnorm_fwd", "groupnorm_bwd", "conv_fwd",
-              "conv_dgrad")
+              "field_head_fwd", "field_head_bwd", "attention_fwd_wgmma",
+              "attention_fwd_mma", "attention_bwd", "groupnorm_fwd",
+              "groupnorm_bwd", "conv_fwd_wgmma", "conv_fwd_mma",
+              "conv_fwd_fp32", "conv_dgrad")
 DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
                        "laplacian", "normal")) + (
     "triplane_fwd", "triplane_bwd", "field_head_fwd", "field_head_bwd")
 IMAGE_KERNELS = ORACLE_KERNELS + ("clip_grad_bwd",)
 IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
+# The SD 2.1 step's K12 forwards (bf16 unless stated; the UNet at CFG batch
+# 2 on 64² latents, the VAE encoder at 512²): B, H, W, I, O, kernel size,
+# stride, padding, dtype, and whether the dgrad is checked too.  Every one is
+# held against its plain version here; bench_sd_kernels.py times the same
+# list for any checkout.
+SD_CONVS = [
+    (1, 512, 512, 128, 128, 3, 1, 1, "bf16", True),       # VAE level 0
+    (1, 256, 256, 256, 256, 3, 1, 1, "bf16", False),      # VAE level 1
+    (1, 128, 128, 512, 512, 3, 1, 1, "bf16", False),      # VAE level 2
+    (1, 64, 64, 512, 512, 3, 1, 1, "bf16", False),        # VAE level 3
+    (2, 64, 64, 320, 320, 3, 1, 1, "bf16", False),        # UNet level 0
+    (2, 32, 32, 640, 640, 3, 1, 1, "bf16", False),        # UNet level 1
+    (2, 16, 16, 1280, 1280, 3, 1, 1, "bf16", False),      # UNet level 2
+    (2, 8, 8, 1280, 1280, 3, 1, 1, "bf16", False),        # level 3: split-K
+    (2, 32, 32, 320, 640, 1, 1, 0, "bf16", False),        # a 1x1 skip conv
+    (2, 64, 64, 320, 320, 3, 2, 1, "bf16", False),        # UNet down
+    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16", True),  # VAE down
+    (2, 64, 64, 320, 4, 3, 1, 1, "fp32", False),          # UNet conv_out
+    (1, 64, 64, 512, 8, 3, 1, 1, "fp32", False),          # VAE conv_out
+]
+# K10: q [B, N, h, d], k and v [B, M, h, d]; whether the backward is checked
+SD_ATTNS = [
+    (2, 4096, 4096, 5, 64, False),    # UNet level-0 self-attention
+    (1, 4096, 4096, 1, 512, True),    # VAE mid-block
+    (2, 4096, 77, 5, 64, False),      # UNet level-0 cross-attention
+    (2, 1024, 1024, 10, 64, False),   # UNet level 1
+    (2, 256, 256, 20, 64, False),     # UNet level 2
+    (2, 64, 64, 20, 64, False),       # UNet level 3 and mid-block
+]
 
 
 class SmokeFailure(Exception):
@@ -613,6 +655,7 @@ def sd_kernel_phases(torch, results):
     from dreamfusion_tpu_torch.ops import attention as K10
     from dreamfusion_tpu_torch.ops import conv as K12
     from dreamfusion_tpu_torch.ops import groupnorm as K11
+    from dreamfusion_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -626,33 +669,37 @@ def sd_kernel_phases(torch, results):
         scale = float(want.float().abs().max())
         return assert_close(name, [got], [want], floor * scale, rel)
 
-    # ---- K12 conv: forward, then dgrad -----------------------------------
-    convs = [  # B, H, W, I, O, stride, padding, dtype, with dgrad
-        (1, 512, 512, 128, 128, 1, 1, bf, True),              # VAE level 0
-        (1, 512, 512, 128, 128, 2, ((0, 1), (0, 1)), bf, True),  # VAE down
-        (2, 64, 64, 320, 320, 1, 1, bf, False),               # UNet level 0
-        (2, 64, 64, 320, 320, 2, 1, bf, False),               # UNet down
-        (2, 64, 64, 320, 4, 1, 1, torch.float32, False),      # UNet conv_out
-    ]
-    for B, H, W, I, O, st, pad, dt, dgrad in convs:
+    # ---- K12 conv: forward (by route), then dgrad ------------------------
+    for B, H, W, I, O, k, st, pad, dt, dgrad in SD_CONVS:
+        dt = torch.float32 if dt == "fp32" else bf
         pads = K12.norm_padding(pad)
-        where = f" [{B},{H},{W},{I}->{O}] 3x3 s{st} pad {pads} {dt}"
+        route = K12.conv_route(dt, I, O, (st, st))
+        where = f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} {dt}"
         x = randn(B, H, W, I, dtype=dt)
-        w = randn(O, 3, 3, I, scale=(9 * I) ** -0.5, dtype=dt)
+        w = randn(O, k, k, I, scale=(k * k * I) ** -0.5, dtype=dt)
         bias = randn(O, dtype=torch.float32)
+        kernels.reset_launch_counts()
         yk = K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt)
         torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route] == 1, f"{where}: not on {route}")
         yp = K12.conv2d_plain(x, w, bias, (st, st), pads, dt)
         fp32 = dt == torch.float32
         # same bf16 products, fp32 sums in another order, one rounding
-        err = close("conv_fwd", yk, yp, 1e-5 if fp32 else 2 ** -7, 1e-4)
+        err = close(route, yk, yp, 1e-5 if fp32 else 2 ** -7, 1e-4)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
         lib = None
         if pads[0][0] == pads[0][1]:      # one F.conv2d call: symmetric pad
-            lib = median_ms(lambda: F.conv2d(xc, wc, bias.to(dt), st,
-                                             pads[0][0]), 10)
-        flops = 2 * yk.numel() * 9 * I
-        record_kernel(results, "conv_fwd", err, median_ms(
+            # fp32 in full fp32, as the kernel's FMAs (cuDNN's default TF32
+            # would be another function)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                lib = median_ms(lambda: F.conv2d(xc, wc, bias.to(dt), st,
+                                                 pads[0][0]), 10)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+        flops = 2 * yk.numel() * k * k * I
+        record_kernel(results, route, err, median_ms(
             lambda: K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt), 10),
             median_ms(lambda: K12.conv2d_plain(x, w, bias, (st, st), pads,
                                                dt), 5),
@@ -686,25 +733,23 @@ def sd_kernel_phases(torch, results):
             nbytes(dy, w, dk), flops, "bf16", lib, where)
 
     # ---- K10 attention ---------------------------------------------------
-    attns = [  # B, N, M, h, d, with backward
-        (2, 4096, 4096, 5, 64, False),    # UNet level-0 self-attention
-        (1, 4096, 4096, 1, 512, True),    # VAE mid-block
-        (2, 4096, 77, 5, 64, False),      # UNet level-0 cross-attention
-    ]
-    for B, N, M, h, d, bwd in attns:
+    for B, N, M, h, d, bwd in SD_ATTNS:
         where = f" q [{B},{N},{h},{d}] kv [{B},{M},{h},{d}]"
         q, k, v = randn(B, N, h, d), randn(B, M, h, d), randn(B, M, h, d)
         scale = d ** -0.5
+        route = K10.attention_route(d)
+        kernels.reset_launch_counts()
         ok_, lse = K10.attention_fwd_cuda(q, k, v, scale)
         torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route] == 1, f"{where}: not on {route}")
         op = K10.attention_plain(q, k, v, scale)
         # P rounded to bf16 before (plain) or after (kernel) normalising
-        err = close("attention_fwd", ok_, op, 2 ** -7, 1e-2)
+        err = close(route, ok_, op, 2 ** -7, 1e-2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                         10)
         flops = 4 * B * h * N * M * d
-        record_kernel(results, "attention_fwd", err, median_ms(
+        record_kernel(results, route, err, median_ms(
             lambda: K10.attention_fwd_cuda(q, k, v, scale), 10),
             median_ms(lambda: K10.attention_plain(q, k, v, scale), 5),
             "1 bf16 ulp + 1e-2 of max", nbytes(q, k, v, ok_, lse), flops,

@@ -1,0 +1,188 @@
+"""K10's and K12's forwards at the SD 2.1 step's shapes, on one GPU.
+
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --tag change
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
+        --tag parent
+
+The shapes are ``chip_smoke.py``'s ``SD_CONVS`` and ``SD_ATTNS`` (the
+``chip_smoke.py`` beside this package, whatever ``--root`` is), so that one
+list serves the check and the timing.  For the port found under ``--root``
+(so that two checkouts can be compared with one script) it times, per
+shape: the wrapper's time (``ms``: ``chip_smoke.median_ms``, CUDA events,
+which include the host's enqueue gap where that is longer than the
+kernel), the kernels' own device time (``kernel_ms``: the sum of the
+profiler's kernel durations over 10 calls, per call), its host time per
+call (one call on the host clock with the card idle before it, as a
+host-bound step pays it: Python, the tensor maps and the launch; timed
+before the profiler runs, over 200 calls: ``host_us_min``, the least,
+which other processes on the host's cores can only raise, and
+``host_us``, the median), and, timed both ways, the one PyTorch call
+that computes the same function (``F.conv2d`` with TF32 off for fp32, as
+the kernel's fp32 FMAs; ``scaled_dot_product_attention``; null for the
+VAE's asymmetric padding).  It prints one JSON line per shape with the
+launch counters the wrapper moved (its route) and the card's name and
+power limit.  Compare two checkouts within one call, in turns (parent,
+change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _chip_smoke():
+    """chip_smoke.py of this checkout, loaded by its path."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=".")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--only", choices=("conv", "attn"), default=None)
+    args = ap.parse_args(argv)
+    smoke = _chip_smoke()
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_sd_kernels measures the GPU: no CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    kernels.cuda_lib()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def kernel_ms(fn, n=10):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / n / 1e3
+
+    def host_us(fn, n=200):
+        """→ dict(host_us_min=least µs per call, host_us=median)."""
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return {"host_us_min": min(times) * 1e6,
+                "host_us": statistics.median(times) * 1e6}
+
+    def map_cost(n=2000):
+        """Host µs of a 1x1 conv [2,32,32,320->640] (the wgmma route) with
+        x at a new address each call (its tensor map encoded afresh: n
+        addresses, more than the map cache holds) and at one address (the
+        map found in the cache), the two calls interleaved, medians."""
+        shape = (2, 32, 32, 320)
+        numel = 2 * 32 * 32 * 320
+        buf = torch.randn(numel + 8 * n, device=dev).to(torch.bfloat16)
+        xs = [buf[8 * i:8 * i + numel].view(shape) for i in range(n)]
+        w = torch.randn(640, 1, 1, 320, device=dev).to(torch.bfloat16)
+        pads = K12.norm_padding(0)
+        fresh, same = [], []
+        for i in range(1, n):
+            for x, out in ((xs[i], fresh), (xs[0], same)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                K12.conv2d_fwd_cuda(x, w, None, (1, 1), pads, x.dtype)
+                out.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return {"kernel": "K12 conv_fwd, tensor map of x",
+                "shape": [2, 32, 32, 320, 640], "k": 1,
+                "host_us_new_address": statistics.median(fresh) * 1e6,
+                "host_us_same_address": statistics.median(same) * 1e6}
+
+    def route_of(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return sorted(k for k, v in kernels.LAUNCHES.items() if v)
+
+    # (row of the shape, the wrapper's call, the library's call or None)
+    cases = []
+    for B, H, W, I, O, k, st, pad, dt, _ in ([] if args.only == "attn"
+                                             else smoke.SD_CONVS):
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
+        w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+             (k * k * I) ** 0.5).to(dtype)
+        bias = torch.randn(O, device=dev, generator=g)
+        pads = K12.norm_padding(pad)
+        Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
+        fn = functools.partial(K12.conv2d_fwd_cuda, x, w, bias, (st, st),
+                               pads, dtype)
+        lib_fn = None
+        if pads[0][0] == pads[0][1]:
+            lib_fn = functools.partial(
+                F.conv2d, x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2),
+                bias.to(dtype), st, pads[0][0])
+        cases.append(({"kernel": "K12 conv_fwd", "shape": [B, H, W, I, O],
+                       "k": k, "stride": st, "pads": pads, "dtype": dt,
+                       "gflop": 2 * B * Ho * Wo * O * k * k * I / 1e9},
+                      fn, lib_fn))
+    for B, N, M, h, d, _ in [] if args.only == "conv" else smoke.SD_ATTNS:
+        q, k, v = (torch.randn(B, n, h, d, device=dev, generator=g).to(
+            torch.bfloat16) for n in (N, M, M))
+        cases.append(({"kernel": "K10 attention_fwd",
+                       "shape": [B, N, M, h, d],
+                       "gflop": 4 * B * h * N * M * d / 1e9},
+                      functools.partial(K10.attention_fwd_cuda, q, k, v,
+                                        d ** -0.5),
+                      functools.partial(F.scaled_dot_product_attention,
+                                        *(t.transpose(1, 2)
+                                          for t in (q, k, v)))))
+
+    # the host times first: the profiler leaves its hooks behind
+    hosts = [host_us(fn) for _, fn, _ in cases]
+    if args.only != "attn":
+        print(json.dumps({"tag": args.tag, **map_cost(), "card": card}),
+              flush=True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # fp32 convs in full fp32
+    try:
+        for (row, fn, lib_fn), host in zip(cases, hosts):
+            print(json.dumps({
+                "tag": args.tag, **row, "ms": smoke.median_ms(fn),
+                "kernel_ms": kernel_ms(fn), **host,
+                "library_ms": lib_fn and smoke.median_ms(lib_fn),
+                "library_kernel_ms": lib_fn and kernel_ms(lib_fn),
+                "routes": route_of(fn), "card": card}), flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+if __name__ == "__main__":
+    main()

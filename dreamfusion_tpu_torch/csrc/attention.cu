@@ -1,10 +1,10 @@
 // K10: softmax(q k^T * scale) v with fp32 statistics, forward and backward.
 //
-// Replaces dreamfusion_tpu/ops/attention.py (chunked_attention, an online-
-// softmax lax.scan over KV chunks, and dense_attention, einsums with an fp32
-// softmax; `attention` picks one by the logits' size).  Layout as in JAX:
-// q [B, N, h, d], k and v [B, M, h, d], bf16; out [B, N, h, d] bf16 and the
-// log-sum-exp [B, h, N] fp32 for the backward.
+// Replaces dreamfusion_tpu/ops/attention.py (chunked_attention :27, an
+// online-softmax lax.scan over KV chunks, and dense_attention :72, einsums
+// with an fp32 softmax; `attention` :88 picks one by the logits' size).
+// Layout as in JAX: q [B, N, h, d], k and v [B, M, h, d], bf16; out
+// [B, N, h, d] bf16 and the log-sum-exp [B, h, N] fp32 for the backward.
 //
 // Bound on the card: operations for the UNet's self-attention (N = M = 4096,
 // d = 64: 2*2*N*M*d*B*h = 43 GFLOP against 21 MB of q, k, v, o) and the VAE
@@ -14,9 +14,22 @@
 // with the running max, sum and correction in fp32 and P rounded to bf16
 // before P V as in the JAX versions; KV rows past M (M = 77) are zero-filled
 // and their logits set to -inf.  Two layouts:
-//  - d = 64 (the UNet): FlashAttention-2's.  Each warp owns 16 query rows
-//    and all of d; S = Q K^T, the softmax and P stay in registers, P V
-//    reads V by ldmatrix.trans; K and V tiles are double-buffered.
+//  - d = 64 (the UNet; attention_fwd_wgmma): FlashAttention-3's on Hopper.
+//    The FlashAttention-2 layout on mma.sync it replaces ran at ~150
+//    TFLOP/s, half of SDPA's, waiting on cp.async and __syncthreads before
+//    every KV tile.  Here Q, K and V come by TMA from 4-D maps over
+//    [B, tokens, h, 64] (d = 64 bf16 is one 128-byte swizzled row; rows
+//    past N or M are zero-filled), K and V through a 3-stage ring with
+//    full/empty mbarriers fed by one producer thread.  BR = BC = 128: two
+//    consumer warpgroups (setmaxnreg gives them the producer's registers)
+//    each own 64 query rows: S = Q K^T by wgmma m64n128k16 from shared
+//    memory, the online softmax on the accumulator fragments in fp32
+//    (base-2, the scale folded into one FFMA), P rounded to bf16 in
+//    registers as wgmma's register A operand for O += P V (m64n64k16, V
+//    read as a transposed, MN-major B operand).  At d = 64 the softmax's
+//    exponentials cost as much as the products, so they overlap: the two
+//    warpgroups take turns to issue products (pingpong), and each issues
+//    the next tile's S with this tile's P V before its next softmax.
 //  - d = 512 (the VAE mid-block): a warp's 16 rows x 512 fp32 accumulator
 //    would take 256 registers a thread, so the warps split instead: the BC
 //    columns for S (which goes through shared memory for the softmax, one
@@ -37,6 +50,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -281,157 +295,253 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return (int)cudaGetLastError();
 }
 
-// d = 64 (every UNet attention): the FlashAttention-2 layout instead.  Each
-// of 4 warps owns 16 query rows and all of d, so S, P and the running
-// statistics stay in registers (the C fragment of S is the A fragment of P
-// once rounded to bf16); K and V tiles are double-buffered by cp.async.
-constexpr int F_BR = 64, F_BC = 64, F_LD = 64 + 8;
+// d = 64 (every UNet attention): FlashAttention-3's layout on wgmma (see the
+// note above).
+namespace fa {
+constexpr int BR = 128, BC = 128, D = 64, STAGES = 3, kThreads = 384;
+constexpr int TILE = 128 * D * 2;              // Q, K or V tile: 16 KB
+constexpr size_t kSmem = 1024 + (size_t)(1 + 2 * STAGES) * TILE +
+                         (1 + 2 * STAGES) * sizeof(uint64_t);
+}  // namespace fa
 
-__global__ void __launch_bounds__(128)
-attn_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int B, int N, int M, int H,
-                    float scale) {
-  __shared__ __align__(16) bf16 sQ[F_BR * F_LD];
-  __shared__ __align__(16) bf16 sK[2][F_BC * F_LD];
-  __shared__ __align__(16) bf16 sV[2][F_BC * F_LD];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, qd = lane % 4;
-  const int z = blockIdx.y, b = z / H, hh = z % H;
-  const int i0 = blockIdx.x * F_BR;
-  const int64_t rs = (int64_t)H * 64;
-  const bf16* qb = q + ((int64_t)b * N * H + hh) * 64;
-  const bf16* kb = k + ((int64_t)b * M * H + hh) * 64;
-  const bf16* vb = v + ((int64_t)b * M * H + hh) * 64;
+__global__ void __launch_bounds__(fa::kThreads, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      bf16* __restrict__ o, float* __restrict__ lse, int N,
+                      int M, int H, float scale) {
+  using namespace fa;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  bf16* sQ = reinterpret_cast<bf16*>(base);
+  bf16* sK = sQ + BR * D;                  // [STAGES][BC][D]
+  bf16* sV = sK + STAGES * BC * D;         // [STAGES][BC][D]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + STAGES * BC * D);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
 
-  for (int e = tid; e < F_BR * 8; e += 128) {
-    const int r = e / 8, c = (e % 8) * 8;
-    const bool ok = i0 + r < N;
-    cp_async16(sQ + r * F_LD + c, ok ? qb + (i0 + r) * rs + c : qb, ok);
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    hop::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);   // every consumer thread arrives
+    }
+    hop::mbar_fence_init();
   }
-  auto load_kv = [&](int stage, int j0) {
-    for (int e = tid; e < F_BC * 8; e += 128) {
-      const int r = e / 8, c = (e % 8) * 8;
-      const bool ok = j0 + r < M;
-      cp_async16(sK[stage] + r * F_LD + c, ok ? kb + (j0 + r) * rs + c : kb,
-                 ok);
-      cp_async16(sV[stage] + r * F_LD + c, ok ? vb + (j0 + r) * rs + c : vb,
-                 ok);
-    }
-  };
-  load_kv(0, 0);
-  dft::cp_async_commit();
+  __syncthreads();
 
-  uint32_t qf[4][4];
-  float oacc[8][4];
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[c][e] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  const int z = blockIdx.y, b = z / H, hh = z % H;
+  const int i0 = blockIdx.x * BR;
+  const int n_tiles = (M + BC - 1) / BC;
 
-  const int n_tiles = (M + F_BC - 1) / F_BC;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    if (jt + 1 < n_tiles) load_kv((jt + 1) & 1, (jt + 1) * F_BC);
-    dft::cp_async_commit();
-    dft::cp_async_wait<1>();
-    __syncthreads();
-    if (jt == 0) {
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        dft::load_a_frag(qf[ks], sQ + warp * 16 * F_LD + ks * 16, F_LD, lane);
-    }
-    const bf16* tK = sK[jt & 1];
-    const bf16* tV = sV[jt & 1];
-
-    float s[8][4];
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[c][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        dft::load_b_frag_nk(bfr, tK + np * 16 * F_LD + ks * 16, F_LD, lane);
-        dft::mma_bf16(s[2 * np], qf[ks], bfr);
-        dft::mma_bf16(s[2 * np + 1], qf[ks], bfr + 2);
+  if (grp == 0) {
+    // ---- producer: Q once, then K and V tiles through the ring ----
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      hop::mbar_expect_tx(qbar, TILE);
+      hop::tma_load_4d(sQ, &qmap, qbar, 0, hh, i0, b);
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int s = jt % STAGES;
+        hop::mbar_wait(&empty[s], ((jt / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], 2 * TILE);
+        hop::tma_load_4d(sK + s * BC * D, &kmap, &full[s], 0, hh, jt * BC, b);
+        hop::tma_load_4d(sV + s * BC * D, &vmap, &full[s], 0, hh, jt * BC, b);
       }
+    }
+    return;
+  }
 
-    // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3); a row's
-    // 64 values are spread over the 4 lanes of a quad
-    const int j0 = jt * F_BC;
+  // ---- consumers: warpgroup cw owns query rows 64cw..64cw+63 ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lane = tid % 32, warp = (tid / 32) % 4;
+  const int qd = lane % 4, g = lane / 4;
+  // The two warpgroups take turns to issue their products (named barriers
+  // 1 and 2, FlashAttention-3's pingpong), so that one's softmax runs while
+  // the tensor cores work on the other's products; warpgroup 0 goes first.
+  auto my_turn = [&]() { hop::bar_sync(1 + cw, 256); };
+  auto pass_turn = [&]() { hop::bar_arrive(2 - cw, 256); };
+  if (cw == 1) pass_turn();
+  hop::mbar_wait(qbar, 0);
+  const uint64_t dq = hop::desc_sw128(sQ + cw * 64 * D);
+  // logits in log2 units: exp(s * scale - m) = 2^(s * sl2 - m * log2 e)
+  const float sl2 = scale * 1.4426950408889634f;
+
+  float oacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float sc[64];              // S of the tile being softmaxed
+  uint32_t pa[8][4], pb[8][4];   // P, double-buffered: one is in flight
+  uint64_t dqs[D / 16];      // Q's descriptor per k16 step
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) dqs[k] = dq + 2 * k;   // +32 bytes
+
+  // Every descriptor of a stage is formed before the stage opens, and the
+  // accumulators are zeroed and fenced there: nothing but wgmmas runs
+  // between a stage's wgmma.fence and its wait (ptxas would serialize).
+  // S of tile jt: Q K^T (64 x 128 per warpgroup) into sc.
+  auto s_descs = [&](int jt, uint64_t* d) {
+    const uint64_t dk = hop::desc_sw128(sK + (jt % STAGES) * BC * D);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) d[k] = dk + 2 * k;
+  };
+  auto mma_s = [&](const uint64_t* d) {
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      hop::wgmma_m64n128k16_ss(sc, dqs[k], d[k]);
+    hop::wgmma_commit();
+  };
+  // P V of tile jt into oacc: V [keys][d] is the transposed (MN-major) B
+  // operand, 16 keys (2048 bytes) per k16 step.
+  auto v_descs = [&](int jt, uint64_t* d) {
+    const bf16* tV = sV + (jt % STAGES) * BC * D;
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk)
+      d[kk] = hop::desc_sw128(tV + kk * 16 * D);
+  };
+  auto mma_pv = [&](const uint64_t* d, uint32_t (&p)[8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk)
+      hop::wgmma_m64n64k16_rs_tb(oacc, p[kk], d[kk]);
+    hop::wgmma_commit();
+  };
+  auto zero_s = [&](int jt) {
+    hop::mbar_wait(&full[jt % STAGES], (jt / STAGES) & 1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    hop::fence_regs<64>(sc);
+  };
+  // online softmax of tile jt's S on rows g (e = 0, 1) and g + 8 (e = 2, 3)
+  // of the warp's 16 (a row's 128 values over the 4 lanes of a quad):
+  // the new maxima, the correction of the old sums into corr, P into pn
+  auto softmax = [&](int jt, float* corr, uint32_t (*pn)[4]) {
+    const int j0 = jt * BC;
+    if (j0 + BC > M) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * j + 2 * qd + (e % 2) >= M) sc[4 * j + e] = -INFINITY;
+    }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j0 + c * 8 + 2 * qd + (e % 2);
-        s[c][e] = col < M ? s[c][e] * scale : -INFINITY;
-        mx[e / 2] = fmaxf(mx[e / 2], s[c][e]);
-      }
-    float corr[2], rsum[2] = {0.f, 0.f};
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+    float msc[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      corr[r] = __expf(m_r[r] - m_new);
+      const float m_new = fmaxf(m_r[r], mx[r] * sl2);   // scale > 0
+      corr[r] = hop::exp2_approx(m_r[r] - m_new);
       m_r[r] = m_new;
+      msc[r] = -m_new;
     }
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int j = 0; j < 16; ++j) {
+      float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[c][e] = __expf(s[c][e] - m_r[e / 2]);
-        rsum[e / 2] += s[c][e];
+        pv[e] = hop::exp2_approx(fmaf(sc[4 * j + e], sl2, msc[e / 2]));
+        rsum[e / 2] += pv[e];
       }
+      pn[j / 2][(j % 2) * 2] = dft::pack_bf16(pv[0], pv[1]);
+      pn[j / 2][(j % 2) * 2 + 1] = dft::pack_bf16(pv[2], pv[3]);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
       rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
       l_r[r] = l_r[r] * corr[r] + rsum[r];
     }
+  };
+  auto rescale = [&](const float* corr) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      oacc[c][0] *= corr[0];
-      oacc[c][1] *= corr[0];
-      oacc[c][2] *= corr[1];
-      oacc[c][3] *= corr[1];
+    for (int j = 0; j < 8; ++j) {
+      oacc[4 * j] *= corr[0];
+      oacc[4 * j + 1] *= corr[0];
+      oacc[4 * j + 2] *= corr[1];
+      oacc[4 * j + 3] *= corr[1];
     }
+  };
 
-    // O += P V, P rounded to bf16 straight from the S fragments
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          dft::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          dft::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          dft::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          dft::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t bfr[4];
-        dft::load_b_frag_kn(bfr, tV + kk * 16 * F_LD + dp * 16, F_LD, lane);
-        dft::mma_bf16(oacc[2 * dp], pa, bfr);
-        dft::mma_bf16(oacc[2 * dp + 1], pa, bfr + 2);
-      }
-    }
-    __syncthreads();
+  // Tile 0, then per tile: S of the next tile and P V of this one go to the
+  // tensor cores together, and the next softmax runs while they work.  P
+  // alternates between two buffers (the loop is unrolled by two) and the
+  // last tile is peeled off, so that neither a copy nor a branch makes the
+  // compiler touch the registers of a wgmma in flight.
+  float corr[2];
+  uint64_t ds[D / 16], dv[BC / 16];
+  s_descs(0, ds);
+  zero_s(0);
+  my_turn();
+  hop::wgmma_fence();
+  mma_s(ds);
+  pass_turn();
+  hop::wgmma_wait<0>();
+  hop::fence_regs<64>(sc);
+  softmax(0, corr, pa);
+  auto step = [&](int jt, uint32_t (&pc)[8][4], uint32_t (&pn)[8][4]) {
+    s_descs(jt + 1, ds);
+    v_descs(jt, dv);
+    zero_s(jt + 1);
+    hop::fence_regs<32>(oacc);
+    hop::fence_regs<32>(&pc[0][0]);
+    my_turn();
+    hop::wgmma_fence();
+    mma_s(ds);
+    mma_pv(dv, pc);
+    pass_turn();
+    hop::wgmma_wait<1>();            // S of tile jt + 1 (P V still running)
+    hop::fence_regs<64>(sc);
+    softmax(jt + 1, corr, pn);
+    hop::wgmma_wait<0>();            // P V of tile jt: its stage is free
+    hop::fence_regs<32>(oacc);
+    hop::fence_regs<32>(&pc[0][0]);
+    hop::mbar_arrive(&empty[jt % STAGES]);
+    rescale(corr);
+  };
+  auto last = [&](uint32_t (&pc)[8][4]) {
+    v_descs(n_tiles - 1, dv);
+    hop::fence_regs<32>(oacc);
+    hop::fence_regs<32>(&pc[0][0]);
+    my_turn();
+    hop::wgmma_fence();
+    mma_pv(dv, pc);
+    pass_turn();
+    hop::wgmma_wait<0>();
+    hop::fence_regs<32>(oacc);
+    hop::mbar_arrive(&empty[(n_tiles - 1) % STAGES]);
+  };
+  int jt = 0;
+  for (; jt + 2 < n_tiles; jt += 2) {
+    step(jt, pa, pb);
+    step(jt + 1, pb, pa);
+  }
+  if (jt + 1 < n_tiles) {
+    step(jt, pa, pb);
+    last(pb);
+  } else {
+    last(pa);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = i0 + warp * 16 + g + 8 * r;
+    const int row = i0 + cw * 64 + warp * 16 + g + 8 * r;
     if (row >= N) continue;
     const float inv = 1.f / l_r[r];
-    bf16* orow = o + (((int64_t)b * N + row) * H + hh) * 64;
+    bf16* orow = o + (((int64_t)b * N + row) * H + hh) * D;
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + 2 * qd) =
-          __floats2bfloat162_rn(oacc[c][2 * r] * inv,
-                                oacc[c][2 * r + 1] * inv);
-    if (qd == 0) lse[(int64_t)z * N + row] = m_r[r] + logf(l_r[r]);
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * qd) =
+          __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv,
+                                oacc[4 * j + 2 * r + 1] * inv);
+    if (qd == 0)
+      lse[(int64_t)z * N + row] = m_r[r] * 0.6931471805599453f + logf(l_r[r]);
   }
 }
 
@@ -675,25 +785,48 @@ attn_bwd_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 
 }  // namespace
 
-// o, lse = attention(q, k, v); d must be 64 or 512, all bf16 contiguous.
-// d = 64 runs the register-resident kernel, d = 512 the split-d one.
-extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             void* o, float* lse, int B, int N, int M, int H,
-                             int D, float scale, cudaStream_t stream) {
-  const bf16* Q = static_cast<const bf16*>(q);
-  const bf16* K = static_cast<const bf16*>(k);
-  const bf16* V = static_cast<const bf16*>(v);
-  bf16* O = static_cast<bf16*>(o);
-  if (D == 64) {
-    dim3 grid((N + F_BR - 1) / F_BR, B * H);
-    attn_fwd_d64_kernel<<<grid, 128, 0, stream>>>(Q, K, V, O, lse, B, N, M,
-                                                  H, scale);
-    return (int)cudaGetLastError();
+// o, lse = attention(q, k, v) at d = 512 (the split-d mma.sync kernel);
+// all bf16 contiguous.
+extern "C" int attention_fwd_mma(const void* q, const void* k, const void* v,
+                                 void* o, float* lse, int B, int N, int M,
+                                 int H, int D, float scale,
+                                 cudaStream_t stream) {
+  if (D != 512) return (int)cudaErrorInvalidValue;
+  return launch_fwd<512, 32, 64, 8>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, N, M, H,
+      scale, stream);
+}
+
+// The same at d = 64 on wgmma, q [B, N, h, 64], k and v [B, M, h, 64],
+// each read through a TMA map over [B, tokens, h, 64].
+extern "C" int attention_fwd_wgmma(const void* q, const void* k,
+                                   const void* v, void* o, float* lse, int B,
+                                   int N, int M, int H, float scale,
+                                   cudaStream_t stream) {
+  using namespace fa;
+  if (N == 0 || B * H == 0) return (int)cudaGetLastError();
+  if (M == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t tokens = i == 0 ? N : M;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, tokens,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                   tokens * H * D * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)D, 1, 128, 1};
+    if (!hop::encode_bf16_map(&maps[i], ptrs[i], 4, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
   }
-  if (D == 512)
-    return launch_fwd<512, 32, 64, 8>(Q, K, V, O, lse, B, N, M, H, scale,
-                                      stream);
-  return (int)cudaErrorInvalidValue;
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err =
+      hop::allow_smem(attn_fwd_wgmma_kernel, (int)kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BR - 1) / BR, B * H);
+  attn_fwd_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, N, M, H, scale);
+  return (int)cudaGetLastError();
 }
 
 // dq, dk, dv from q, k, v, o, do and lse; d % 8 == 0.  Scratch: dvec [B*H*N]

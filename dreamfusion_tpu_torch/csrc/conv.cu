@@ -1,21 +1,57 @@
 // K12: NHWC 2-D convolution, forward and input gradient (dgrad).
 //
-// Replaces dreamfusion_tpu/ops/conv.py::mm_conv (shifted einsums on the TPU
-// with a custom_vjp that transposes each einsum).  Here the convolution is an
-// implicit GEMM: M = B*Ho*Wo output pixels, N = O output channels,
-// K = kh*kw*I (tap, input channel); the A tile is gathered from the NHWC
-// input on the fly, so no im2col buffer exists.
+// Replaces dreamfusion_tpu/ops/conv.py::mm_conv (:58; shifted einsums on the
+// TPU with a custom_vjp that transposes each einsum, :95).  Here the
+// convolution is an implicit GEMM: M = B*Ho*Wo output pixels, N = O output
+// channels, K = kh*kw*I (tap, input channel); no im2col buffer exists.
 //
-// Bound on the card: operations at the UNet and VAE shapes (e.g. 512x512x128
-// -> 128 at 3x3 is 77 GFLOP over 134 MB of traffic), so the design feeds the
-// tensor cores: 128x128x32 tiles in shared memory, filled by 16-byte cp.async
-// copies (zero-filled outside the image and past K) in a two-stage ring,
-// fragments by ldmatrix, products by mma.sync m16n8k16 bf16 with fp32
-// accumulation, bias added in the fp32 epilogue, bf16 or fp32 written.
+// Bound on the card: operations at the UNet and VAE shapes (512x512x128 ->
+// 128 at 3x3 is 77 GFLOP over 134 MB of traffic), bytes only for the
+// narrow fp32 conv_outs.  Three forward routes, picked by shape alone
+// (ops/conv.py::conv_route):
 //
-// Weights are [O, kh, kw, I] (I contiguous), so a B tile row is one output
-// channel's contiguous K slice.  The MMA path needs I % 8 == 0 (the wrapper
-// pads narrower inputs with zero channels).
+// wgmma (conv_fwd_wgmma; bf16, stride 1, I % 64 == 0: every 3x3 and 1x1
+// conv of the UNet's and the VAE's levels).  Hopper's own machinery, since
+// mma.sync reached only ~15% of the tensor cores' peak:
+//  - a block owns 128 output pixels x 128 output channels.  The pixels are a
+//    box of the output grid, bw x bh x bb (x, y, batch; 128 x 1 at W = 512,
+//    64 x 2 at 64², 8 x 8 x 2 at 8² and B = 2), so one tap's A tile is one
+//    rectangle of the input;
+//  - the K loop walks taps x I/64: one K block is 64 input channels, one
+//    128-byte swizzled row.  A producer thread issues two TMA copies per
+//    block: the A tile from a 4-D map over x [B, H, W, C] at (c0, x0 + s -
+//    pl, y0 + r - pt, b0), whose out-of-bounds zero fill (negative
+//    coordinates included) is the padding; the B tile from a 2-D map over
+//    w [O, kh*kw*I].  A 5-stage ring of 32 KB stages with full/empty
+//    mbarriers keeps four K blocks in flight;
+//  - persistent blocks, one per SM, walk the tiles; their two consumer
+//    warpgroups (setmaxnreg moves the producer's registers to them) take
+//    the tiles in turns ("pingpong"), each running wgmma m64n128k16 on all
+//    128 pixels of its tile (128 fp32 accumulators a thread), so that one
+//    warpgroup's epilogue runs under the other's products;
+//  - epilogue: + bias in fp32, one rounding into a swizzled bf16 staging
+//    tile, then TMA stores through a map over y, which clip the ragged
+//    pixels and channels (fp32 output, split-K partials or O % 8 != 0:
+//    stores straight from the registers, masked);
+//  - split-K (the UNet's deep levels: 8x8x1280 at CFG batch 2 is 10 output
+//    tiles for 132 SMs): fp32 partials, summed in split order by
+//    conv_splitk_reduce (deterministic; no atomics).
+//
+// mma.sync (conv_fwd_mma; the rest of bf16: the padded 3- and 4-channel
+// conv_in, I % 64 != 0, stride 2; and every dgrad): 128x128x32 tiles in
+// shared memory, filled by 16-byte cp.async copies (zero-filled outside the
+// image and past K) in a two-stage ring, fragments by ldmatrix, products by
+// mma.sync m16n8k16 bf16 with fp32 accumulation.  The weights are [O, kh,
+// kw, I] (I contiguous), so a B tile row is one output channel's contiguous
+// K slice; the path needs I % 8 == 0 (the wrapper pads narrower inputs
+// with zero channels).  fp32 convs that the narrow route does not take run
+// one thread per output value.
+//
+// fp32 narrow (conv_fwd_fp32; fp32, O <= 8, I % 4 == 0: the UNet's and
+// the VAE encoder's conv_out, the quant convs): a few hundred MFLOP over a
+// few MB, bound by bytes and latency.  One warp per output pixel computes
+// all O outputs: lanes stride the K = kh*kw*I reduction with 16-byte
+// loads, fp32 FMAs, then a warp-shuffle sum per output.
 //
 // dgrad.  dx[b, y, x, c] = sum_{r, s, o} dy[b, oh, ow, o] * w[o, r, s, c] with
 // y = oh*sh - pt + r.  For stride s > 1 only the taps with
@@ -26,16 +62,7 @@
 // which scatters a strided (and asymmetrically padded) convolution exactly
 // without multiplying by the zeros of a dilated dy.  The weight comes
 // transposed to [I, kh, kw, O]; bottom and right padding only shape dy.
-//
-// Split-K.  The UNet's deep levels have few output tiles and a long K
-// (8x8x1280 at CFG batch 2: M = 128, N = 1280, K = 11,520 to 23,040, i.e.
-// 10 tiles for 132 SMs), so the wrapper may split K over `splits` blocks
-// per tile; each writes fp32 partial sums and a second kernel adds them in
-// a fixed order (deterministic), adds the bias and rounds.
-//
-// fp32 (the conv_out of the UNet and VAE, 4 or 8 channels, a few hundred
-// MFLOP each, and their dgrad): one thread per output value, fp32 FMA over
-// K.  Narrow bf16 outputs (the 3-channel dgrad of the VAE's conv_in) stay on
+// Narrow bf16 outputs (the 3-channel dgrad of the VAE's conv_in) stay on
 // the tensor cores: a 128-wide N tile with 3 live columns still beats CUDA
 // cores there.
 
@@ -43,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -319,6 +347,276 @@ __global__ void conv_simple_kernel(ConvParams p) {
     static_cast<bf16*>(p.y)[o] = __float2bfloat16(acc);
 }
 
+// ---------------------------------------------------------------------------
+// CUDA-core path for the narrow fp32 convs: one warp per output pixel
+// ---------------------------------------------------------------------------
+
+constexpr int kNarrowO = 8;
+
+__global__ void __launch_bounds__(256) conv_narrow_kernel(ConvParams p) {
+  const int64_t pix = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (pix >= (int64_t)p.B * p.OH * p.OW) return;
+  const int ox = pix % p.OW, oy = (pix / p.OW) % p.OH;
+  const int b = pix / ((int64_t)p.OW * p.OH);
+  const float* __restrict__ X = static_cast<const float*>(p.x);
+  const float* __restrict__ Wt = static_cast<const float*>(p.w);
+  const int64_t wrow = (int64_t)p.KH * p.KW * p.C;
+  float acc[kNarrowO];
+#pragma unroll
+  for (int o = 0; o < kNarrowO; ++o) acc[o] = 0.f;
+  for (int r = 0; r < p.KH; ++r) {
+    const int sy = oy * p.sh - p.pt + r;
+    if (sy < 0 || sy >= p.SH) continue;
+    for (int t = 0; t < p.KW; ++t) {
+      const int sx = ox * p.sw - p.pl + t;
+      if (sx < 0 || sx >= p.SW) continue;
+      const float* xp = X + (((int64_t)b * p.SH + sy) * p.SW + sx) * p.C;
+      const float* wp = Wt + (int64_t)(r * p.KW + t) * p.C;
+      for (int c = 4 * lane; c < p.C; c += 128) {
+        const float4 xv = *reinterpret_cast<const float4*>(xp + c);
+#pragma unroll
+        for (int o = 0; o < kNarrowO; ++o) {
+          if (o >= p.N) break;
+          const float4 wv =
+              __ldg(reinterpret_cast<const float4*>(wp + o * wrow + c));
+          acc[o] = fmaf(xv.x, wv.x, acc[o]);
+          acc[o] = fmaf(xv.y, wv.y, acc[o]);
+          acc[o] = fmaf(xv.z, wv.z, acc[o]);
+          acc[o] = fmaf(xv.w, wv.w, acc[o]);
+        }
+      }
+    }
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int o = 0; o < kNarrowO; ++o) {
+    float v = acc[o];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == o) mine = v;
+  }
+  if (lane >= p.N) return;
+  if (p.bias) mine += p.bias[lane];
+  const int64_t o = pix * p.N + lane;
+  if (p.out_f32)
+    static_cast<float*>(p.y)[o] = mine;
+  else
+    static_cast<bf16*>(p.y)[o] = __float2bfloat16(mine);
+}
+
+// ---------------------------------------------------------------------------
+// Hopper path: implicit GEMM on wgmma, operands by TMA (see the note above)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5, kThreads = 384;
+constexpr int TILE_A = BM * BK * 2, TILE_B = BN * BK * 2;   // 16 KB each
+constexpr int STAGE = TILE_A + TILE_B;
+constexpr int OUT = BM * BN * 2;        // a warpgroup's bf16 output staging
+constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE + 2 * OUT +
+                         2 * STAGES * sizeof(uint64_t);
+}  // namespace wg
+
+struct WgConv {
+  int B, Ho, Wo, O;       // output grid
+  int C, kw, pt, pl;      // input channels (% 64 == 0), taps along x, pads
+  int bw, bh, bb;         // the pixel box of one tile (bw * bh * bb = 128)
+  int tiles_x, tiles_y, tiles_pix, tiles_n, tiles;   // tiles over all splits
+  int kblocks;            // kh * kw * C / 64
+  int splits;
+  const float* bias;
+  void* y;
+  int out_f32;
+  int tma_store;          // bf16 out, O % 8 == 0, no split: TMA stores
+  float* ws;              // [splits, B*Ho*Wo*O] fp32 partials when splits > 1
+};
+
+// A tile's place in the problem: pixel box origin, N offset, K range.
+struct WgTile {
+  int x0, y0, b0, n0, split, kb0, kb1;
+};
+
+__device__ __forceinline__ WgTile wg_tile(const WgConv& p, int t) {
+  WgTile w;
+  w.n0 = (t % p.tiles_n) * wg::BN;
+  t /= p.tiles_n;
+  const int pix = t % p.tiles_pix;
+  w.split = t / p.tiles_pix;
+  w.x0 = (pix % p.tiles_x) * p.bw;
+  w.y0 = (pix / p.tiles_x % p.tiles_y) * p.bh;
+  w.b0 = pix / (p.tiles_x * p.tiles_y) * p.bb;
+  w.kb0 = (int)((int64_t)p.kblocks * w.split / p.splits);
+  w.kb1 = (int)((int64_t)p.kblocks * (w.split + 1) / p.splits);
+  return w;
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ...; its producer warp
+// streams their K blocks through one ring, and its two consumer warpgroups
+// take the tiles in turns ("pingpong"): while one runs its epilogue the
+// other's products keep the tensor cores busy.  Named barriers 1 and 2
+// pass the turn to issue a tile's products; 3 and 4 are each warpgroup's own.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap ymap, WgConv p) {
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  // the ring: stage s holds A [128 pixels][64] then B [128 channels][64];
+  // then each consumer's output staging, two [128][64] swizzled halves
+  unsigned char* ring = base;
+  bf16* stage_out = reinterpret_cast<bf16*>(base + wg::STAGES * wg::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + wg::STAGES * wg::STAGE +
+                                               2 * wg::OUT);
+  uint64_t* empty = full + wg::STAGES;
+
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < wg::STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 128);   // the consuming warpgroup's threads
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  const int cblocks = p.C / wg::BK;
+
+  if (grp == 0) {
+    // ---- producer: one thread streams every tile's K blocks ----
+    hop::regs_dec<40>();
+    if (tid != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const WgTile w = wg_tile(p, t);
+      for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+        const int s = it % wg::STAGES;
+        hop::mbar_wait(&empty[s], ((it / wg::STAGES) & 1) ^ 1);
+        const int tap = kb / cblocks, cb = kb - tap * cblocks;
+        const int r = tap / p.kw, u = tap - r * p.kw;
+        unsigned char* st = ring + s * wg::STAGE;
+        hop::mbar_expect_tx(&full[s], wg::STAGE);
+        hop::tma_load_4d(st, &xmap, &full[s], cb * wg::BK, w.x0 + u - p.pl,
+                         w.y0 + r - p.pt, w.b0);
+        hop::tma_load_2d(st + wg::TILE_A, &wmap, &full[s], kb * wg::BK, w.n0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw takes every other tile of the block ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lt = tid % 128, lane = lt % 32, warp = lt / 32;
+  const int g = lane / 4, q = lane % 4;
+  auto my_turn = [&]() { hop::bar_sync(1 + cw, 256); };
+  auto pass_turn = [&]() { hop::bar_arrive(2 - cw, 256); };
+  if (cw == 1) pass_turn();          // warpgroup 0 goes first
+  bf16* so = stage_out + cw * (wg::OUT / 2);
+  const int64_t total = (int64_t)p.B * p.Ho * p.Wo * p.O;
+  int it = 0;
+  for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {
+    const WgTile w = wg_tile(p, t);
+    if (i % 2 != cw) {               // the other warpgroup's tile
+      it += w.kb1 - w.kb0;
+      continue;
+    }
+    float acc[2][64];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[m][e] = 0.f;
+    my_turn();
+    int prev = -1;
+    for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+      const int s = it % wg::STAGES;
+      hop::mbar_wait(&full[s], (it / wg::STAGES) & 1);
+      const unsigned char* st = ring + s * wg::STAGE;
+      const uint64_t da = hop::desc_sw128(st);
+      const uint64_t db = hop::desc_sw128(st + wg::TILE_A);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < wg::BK / 16; ++k) {   // +32 bytes per k16 step
+        hop::wgmma_m64n128k16_ss(acc[0], da + 2 * k, db + 2 * k);
+        hop::wgmma_m64n128k16_ss(acc[1], da + 512 + 2 * k, db + 2 * k);
+      }                                          // (+8 KB: rows 64..127)
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();          // the previous stage's products are done
+      if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    pass_turn();
+    hop::wgmma_wait<0>();
+    if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+
+    // ---- epilogue: + bias in fp32, one rounding ----
+    if (p.tma_store) {
+      // bf16 into this warpgroup's staging (128-byte swizzle, as the map's),
+      // then two TMA stores that clip the ragged pixels and channels
+      if (lt == 0) hop::bulk_wait_read();
+      hop::bar_sync(3 + cw, 128);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = w.n0 + 8 * j + 2 * q;
+        const float b0 = p.bias && n < p.O ? p.bias[n] : 0.f;
+        const float b1 = p.bias && n + 1 < p.O ? p.bias[n + 1] : 0.f;
+        bf16* half = so + (j / 8) * (wg::BM * 64);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m * 64 + warp * 16 + g + 8 * h;
+            *reinterpret_cast<uint32_t*>(
+                half + row * 64 + (((j % 8) ^ (row % 8)) * 8) + 2 * q) =
+                dft::pack_bf16(acc[m][4 * j + 2 * h] + b0,
+                               acc[m][4 * j + 2 * h + 1] + b1);
+          }
+      }
+      hop::fence_proxy_async();
+      hop::bar_sync(3 + cw, 128);
+      if (lt == 0) {
+        hop::tma_store_4d(&ymap, so, w.n0, w.x0, w.y0, w.b0);
+        if (w.n0 + 64 < p.O)
+          hop::tma_store_4d(&ymap, so + wg::BM * 64, w.n0 + 64, w.x0, w.y0,
+                            w.b0);
+        hop::bulk_commit();
+      }
+      continue;
+    }
+    // fp32 output, split-K partials or O % 8 != 0: straight from registers
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m * 64 + warp * 16 + g + 8 * h;
+        const int x = w.x0 + row % p.bw, y = w.y0 + (row / p.bw) % p.bh;
+        const int b = w.b0 + row / (p.bw * p.bh);
+        if (x >= p.Wo || y >= p.Ho || b >= p.B) continue;
+        const int64_t o = (((int64_t)b * p.Ho + y) * p.Wo + x) * p.O;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int n = w.n0 + 8 * j + 2 * q;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (n + e >= p.O) continue;
+            float v = acc[m][4 * j + 2 * h + e];
+            if (p.splits > 1) {
+              p.ws[(int64_t)w.split * total + o + n + e] = v;
+              continue;
+            }
+            if (p.bias) v += p.bias[n + e];
+            if (p.out_f32)
+              static_cast<float*>(p.y)[o + n + e] = v;
+            else
+              static_cast<bf16*>(p.y)[o + n + e] = __float2bfloat16(v);
+          }
+        }
+      }
+  }
+  if (lt == 0) hop::bulk_wait();     // stores done before the block ends
+}
+
 template <bool DGRAD>
 int launch_conv(const ConvParams& p, int is_bf16, cudaStream_t stream) {
   const int classes = DGRAD ? p.sh * p.sw : 1;
@@ -355,18 +653,18 @@ int launch_conv(const ConvParams& p, int is_bf16, cudaStream_t stream) {
 // pt/pl (bottom/right padding only sets Ho/Wo).  is_bf16 selects bf16 x and
 // w (else fp32); out_f32 selects the output type.  splits > 1 (tensor-core
 // path only) needs ws, fp32 [splits * B*Ho*Wo*O].
-extern "C" int conv_fwd(const void* x, const void* w, const float* bias,
-                        void* y, int B, int H, int W, int I, int Ho, int Wo,
-                        int O, int kh, int kw, int sh, int sw, int pt, int pl,
-                        int is_bf16, int out_f32, int splits, float* ws,
-                        cudaStream_t stream) {
+extern "C" int conv_fwd_mma(const void* x, const void* w, const float* bias,
+                            void* y, int B, int H, int W, int I, int Ho,
+                            int Wo, int O, int kh, int kw, int sh, int sw,
+                            int pt, int pl, int is_bf16, int out_f32,
+                            int splits, float* ws, cudaStream_t stream) {
   ConvParams p{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl,
                out_f32, splits, ws};
   return launch_conv<false>(p, is_bf16, stream);
 }
 
 // dx[B,H,W,I] from dy[B,Ho,Wo,O] and the transposed weight wT[I,kh,kw,O];
-// splits and ws as for conv_fwd (ws [splits * B*H*W*I]).
+// splits and ws as for conv_fwd_mma (ws [splits * B*H*W*I]).
 extern "C" int conv_dgrad(const void* dy, const void* wT, void* dx, int B,
                           int H, int W, int I, int Ho, int Wo, int O, int kh,
                           int kw, int sh, int sw, int pt, int pl, int is_bf16,
@@ -375,4 +673,88 @@ extern "C" int conv_dgrad(const void* dy, const void* wT, void* dx, int B,
   ConvParams p{dy, wT, nullptr, dx, B, Ho, Wo, O, H, W, I, kh, kw, sh, sw,
                pt, pl, out_f32, splits, ws};
   return launch_conv<true>(p, is_bf16, stream);
+}
+
+// The Hopper route: y[B,Ho,Wo,O] = conv(x[B,H,W,I], w[O,kh,kw,I]) + bias at
+// stride 1, bf16 x and w, I % 64 == 0; the tile's pixel box is bw x bh x bb
+// (product 128); persistent blocks on at most `sms` multiprocessors.
+// splits > 1 needs ws, fp32 [splits * B*Ho*Wo*O].
+extern "C" int conv_fwd_wgmma(const void* x, const void* w, const float* bias,
+                              void* y, int B, int H, int W, int I, int Ho,
+                              int Wo, int O, int kh, int kw, int pt, int pl,
+                              int bw, int bh, int bb, int out_f32, int splits,
+                              int sms, float* ws, cudaStream_t stream) {
+  if (I % wg::BK || bw * bh * bb != wg::BM || splits < 1 || sms < 1 ||
+      (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Ho * Wo == 0 || O == 0) return (int)cudaGetLastError();
+  CUtensorMap xmap, wmap, ymap;
+  const cuuint64_t xd[4] = {(cuuint64_t)I, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {(cuuint64_t)I * 2, (cuuint64_t)W * I * 2,
+                            (cuuint64_t)H * W * I * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)wg::BK, (cuuint32_t)bw,
+                             (cuuint32_t)bh, (cuuint32_t)bb};
+  const cuuint64_t K = (cuuint64_t)kh * kw * I;
+  const cuuint64_t wd[2] = {K, (cuuint64_t)O};
+  const cuuint64_t wst[1] = {K * 2};
+  const cuuint32_t wb[2] = {(cuuint32_t)wg::BK, (cuuint32_t)wg::BN};
+  if (!hop::encode_bf16_map(&xmap, x, 4, xd, xs, box) ||
+      !hop::encode_bf16_map(&wmap, w, 2, wd, wst, wb))
+    return (int)cudaErrorInvalidValue;
+  const bool tma_store = !out_f32 && splits == 1 && O % 8 == 0;
+  if (tma_store) {   // y [B, Ho, Wo, O] in boxes of 64 channels x the pixels
+    const cuuint64_t yd[4] = {(cuuint64_t)O, (cuuint64_t)Wo, (cuuint64_t)Ho,
+                              (cuuint64_t)B};
+    const cuuint64_t ys[3] = {(cuuint64_t)O * 2, (cuuint64_t)Wo * O * 2,
+                              (cuuint64_t)Ho * Wo * O * 2};
+    if (!hop::encode_bf16_map(&ymap, y, 4, yd, ys, box))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    ymap = xmap;     // unused
+  }
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err =
+      hop::allow_smem(conv_wgmma_kernel, (int)wg::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  WgConv p;
+  p.B = B; p.Ho = Ho; p.Wo = Wo; p.O = O;
+  p.C = I; p.kw = kw; p.pt = pt; p.pl = pl;
+  p.bw = bw; p.bh = bh; p.bb = bb;
+  p.tiles_x = (Wo + bw - 1) / bw;
+  p.tiles_y = (Ho + bh - 1) / bh;
+  p.tiles_pix = p.tiles_x * p.tiles_y * ((B + bb - 1) / bb);
+  p.tiles_n = (O + wg::BN - 1) / wg::BN;
+  p.tiles = p.tiles_pix * p.tiles_n * splits;
+  p.kblocks = (int)(K / wg::BK);
+  p.splits = splits;
+  p.bias = bias; p.y = y; p.out_f32 = out_f32; p.tma_store = tma_store;
+  p.ws = ws;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  conv_wgmma_kernel<<<grid, wg::kThreads, wg::kSmem, stream>>>(xmap, wmap,
+                                                               ymap, p);
+  if (splits > 1) {
+    ConvParams r{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, 1, 1, pt, pl,
+                 out_f32, splits, ws};
+    const int64_t total = (int64_t)B * Ho * Wo * O;
+    conv_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        r);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The narrow fp32 route: fp32 x and w, O <= 8, I % 4 == 0, any stride and
+// padding (top/left pt/pl as for conv_fwd_mma).
+extern "C" int conv_fwd_fp32(const void* x, const void* w, const float* bias,
+                             void* y, int B, int H, int W, int I, int Ho,
+                             int Wo, int O, int kh, int kw, int sh, int sw,
+                             int pt, int pl, int out_f32,
+                             cudaStream_t stream) {
+  if (O > kNarrowO || O < 1 || I % 4) return (int)cudaErrorInvalidValue;
+  const int64_t M = (int64_t)B * Ho * Wo;
+  if (M == 0) return (int)cudaGetLastError();
+  ConvParams p{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl,
+               out_f32, 1, nullptr};
+  conv_narrow_kernel<<<(unsigned)((M + 7) / 8), 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }

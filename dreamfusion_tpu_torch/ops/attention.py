@@ -6,9 +6,11 @@ q ``[B, N, h, d]``, k and v ``[B, M, h, d]`` → ``[B, N, h, d]`` in q's
 dtype, scale 1/√d.  Both JAX versions take the logits' statistics in fp32
 and round P to the input dtype before P·V; this one does too.
 
-On a CUDA tensor the forward is one launch of
-``csrc/attention.cu::attention_fwd`` (flash-style, bf16, d = 64 or 512)
-and the backward one launch of ``attention_bwd``.  On a CPU tensor the
+On a CUDA tensor the forward is one launch of ``csrc/attention.cu``
+(flash-style, bf16): at d = 64 the Hopper kernel (wgmma, operands by TMA;
+counter ``attention_fwd_wgmma``), at d = 512 the mma.sync one
+(``attention_fwd_mma``); ``attention_route`` picks by d alone.  The
+backward is one launch of ``attention_bwd``.  On a CPU tensor the
 plain version runs (the dense form) and its backward is autograd of it.
 """
 
@@ -42,16 +44,29 @@ def _check(q, k, v):
     return B, N, k.shape[1], H, D
 
 
+_ROUTES = {64: "attention_fwd_wgmma", 512: "attention_fwd_mma"}
+
+
+def attention_route(d: int) -> str:
+    """The launch counter (and kernel) of the forward at head dim `d`."""
+    if d not in _ROUTES:
+        raise ValueError(f"attention kernel takes d = 64 or 512, got {d}")
+    return _ROUTES[d]
+
+
 def attention_fwd_cuda(q, k, v, scale: float):
     """→ (out [B, N, h, d] bf16, lse [B, h, N] fp32)."""
     B, N, M, H, D = _check(q, k, v)
-    if D not in (64, 512):
-        raise ValueError(f"attention kernel takes d = 64 or 512, got {D}")
+    route = attention_route(D)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
-    kernels.launch("attention_fwd", kernels.ptr(q), kernels.ptr(k),
-                   kernels.ptr(v), kernels.ptr(o), kernels.ptr(lse), B, N, M,
-                   H, D, float(scale))
+    args = [kernels.ptr(t) for t in (q, k, v, o, lse)] + [B, N, M, H]
+    if route == "attention_fwd_mma":
+        args.append(D)
+    elif any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the wgmma attention reads q, k and v by TMA: "
+                         "16-byte aligned tensors only")
+    kernels.launch(route, *args, float(scale))
     return o, lse
 
 

@@ -9,12 +9,15 @@ downsample is padding ((0, 1), (0, 1)) at stride 2, the same as JAX's
 added in fp32, as ``mm_conv`` + ``MMConv`` do; the output is x's dtype or
 fp32.
 
-On a CUDA tensor the forward is one launch of ``csrc/conv.cu::conv_fwd``
-(tensor-core implicit GEMM for bf16, split over K where the output tiles
-alone cannot fill the card; fp32 FMA for the fp32 convs) and the input
-gradient one launch of ``conv_dgrad``.  The weight gradient is on no
-path (every tower is frozen): backward gives none and raises if the weight
-asks for one.  On a CPU tensor the plain version runs: the JAX package's
+On a CUDA tensor the forward is one launch of one of three routes of
+``csrc/conv.cu``, chosen by ``conv_route`` on the shape alone: the Hopper
+implicit GEMM (wgmma, operands by TMA) for bf16 at stride 1 with I % 64 ==
+0, the warp-per-pixel fp32 kernel for the narrow fp32 convs (O <= 8), and
+the mma.sync implicit GEMM (or, for other fp32, one thread per output) for
+the rest; the tensor-core routes split over K where the output tiles alone
+cannot fill the card.  The input gradient is one launch of ``conv_dgrad``
+(mma.sync).  The weight gradient is on no path (every tower is frozen):
+backward gives none and raises if the weight asks for one.  On a CPU tensor the plain version runs: the JAX package's
 shifted-einsum form (``_einsum_conv``) with autograd for dx.
 """
 
@@ -76,11 +79,17 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE, _BK = 128, 32
+_TILE = 128                    # output tile of both tensor-core routes
+_BK_MMA, _BK_WGMMA = 32, 64    # their K steps
+_NARROW_O = 8                  # widest output of the fp32 route
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,14 +97,36 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_k(rows: int, n: int, k: int, sms: int, classes: int = 1) -> int:
-    """Split-K factor of the tensor-core path on a card with `sms`
-    multiprocessors: about two blocks per SM when the 128x128 output tiles
-    alone cannot fill the card, and at least 8 k-tiles of 32 per split."""
-    tiles = _cdiv(rows, _TILE) * _cdiv(n, _TILE) * classes
+def conv_route(dtype: torch.dtype, I: int, O: int,
+               stride: Tuple[int, int]) -> str:
+    """The launch counter (and kernel) of a forward conv, by shape alone:
+    "conv_fwd_wgmma" for bf16 at stride 1 with I % 64 == 0 (a K block is 64
+    input channels), "conv_fwd_fp32" for fp32 with O <= 8 and I % 4 == 0
+    (16-byte loads), else "conv_fwd_mma"."""
+    if dtype == torch.bfloat16 and tuple(stride) == (1, 1) and I % 64 == 0:
+        return "conv_fwd_wgmma"
+    if dtype == torch.float32 and O <= _NARROW_O and I % 4 == 0:
+        return "conv_fwd_fp32"
+    return "conv_fwd_mma"
+
+
+def pixel_box(B: int, Ho: int, Wo: int) -> Tuple[int, int, int]:
+    """The wgmma route's 128 output pixels per tile as a box (bw, bh, bb)
+    of the output grid: as wide as the row allows, then rows, then images
+    (128x1x1 at W = 512, 64x2x1 at 64², 8x8x2 at 8²)."""
+    bw = min(_TILE, _pow2_at_least(Wo))
+    bh = min(_TILE // bw, _pow2_at_least(Ho))
+    return bw, bh, _TILE // (bw * bh)
+
+
+def split_k(tiles: int, k_steps: int, sms: int, min_steps: int) -> int:
+    """Split-K factor of a tensor-core route on a card with `sms`
+    multiprocessors: about two blocks per SM when the `tiles` output tiles
+    alone cannot fill the card, at least `min_steps` K steps per split
+    (mma.sync: 8 of 32; wgmma: 4 of 64), at most 16 splits."""
     if tiles >= sms:
         return 1
-    return max(1, min(2 * sms // tiles, k // _BK // 8, 16))
+    return max(1, min(2 * sms // tiles, k_steps // min_steps, 16))
 
 
 def _workspace(splits: int, out_numel: int, device):
@@ -123,7 +154,10 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"dtype, got {x.dtype}, {w.dtype}")
     if out_dtype not in _DTYPES:
         raise ValueError(f"unsupported output dtype {out_dtype}")
-    x, w = _pad_channels(x.contiguous(), w.contiguous())
+    route = conv_route(x.dtype, x.shape[-1], w.shape[0], stride)
+    x, w = x.contiguous(), w.contiguous()
+    if route == "conv_fwd_mma":
+        x, w = _pad_channels(x, w)
     bias = None if bias is None else bias.float().contiguous()
     kernels.check_cuda(x, w, bias)
     B, H, W, I = x.shape
@@ -133,15 +167,36 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(x.shape)}")
     Ho, Wo = out_size(H, W, kh, kw, stride, pads)
     y = torch.empty(B, Ho, Wo, O, device=x.device, dtype=out_dtype)
+    f32 = int(out_dtype == torch.float32)
+    (pt, _), (pl, _) = pads
+    if route != "conv_fwd_mma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"{route} reads x and w in 16-byte units: 16-byte "
+                         "aligned tensors only")
+    if route == "conv_fwd_fp32":
+        kernels.launch(route, kernels.ptr(x), kernels.ptr(w),
+                       kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo,
+                       O, kh, kw, stride[0], stride[1], pt, pl, f32)
+        return y
+    sms = _sm_count(x.device)
+    if route == "conv_fwd_wgmma":
+        bw, bh, bb = pixel_box(B, Ho, Wo)
+        tiles = _cdiv(Wo, bw) * _cdiv(Ho, bh) * _cdiv(B, bb) * _cdiv(O, _TILE)
+        splits = split_k(tiles, kh * kw * I // _BK_WGMMA, sms, 4)
+        ws = _workspace(splits, y.numel(), x.device)
+        kernels.launch(route, kernels.ptr(x), kernels.ptr(w),
+                       kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo,
+                       O, kh, kw, pt, pl, bw, bh, bb, f32, splits, sms,
+                       kernels.ptr(ws))
+        return y
     bf16 = x.dtype == torch.bfloat16
-    splits = (split_k(B * Ho * Wo, O, kh * kw * I, _sm_count(x.device))
-              if bf16 else 1)
+    splits = 1
+    if bf16:
+        tiles = _cdiv(B * Ho * Wo, _TILE) * _cdiv(O, _TILE)
+        splits = split_k(tiles, kh * kw * I // _BK_MMA, sms, 8)
     ws = _workspace(splits, y.numel(), x.device)
-    kernels.launch("conv_fwd", kernels.ptr(x), kernels.ptr(w),
-                   kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo, O,
-                   kh, kw, stride[0], stride[1], pads[0][0], pads[1][0],
-                   int(bf16), int(out_dtype == torch.float32), splits,
-                   kernels.ptr(ws))
+    kernels.launch(route, kernels.ptr(x), kernels.ptr(w), kernels.ptr(bias),
+                   kernels.ptr(y), B, H, W, I, Ho, Wo, O, kh, kw, stride[0],
+                   stride[1], pt, pl, int(bf16), f32, splits, kernels.ptr(ws))
     return y
 
 
@@ -160,9 +215,10 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
     sh, sw = stride
     splits = 1
     if bf16 and O % 8 == 0:
-        splits = split_k(B * _cdiv(H, sh) * _cdiv(W, sw), I,
-                         _cdiv(kh, sh) * _cdiv(kw, sw) * O,
-                         _sm_count(dy.device), sh * sw)
+        tiles = (_cdiv(B * _cdiv(H, sh) * _cdiv(W, sw), _TILE) *
+                 _cdiv(I, _TILE) * sh * sw)
+        splits = split_k(tiles, _cdiv(kh, sh) * _cdiv(kw, sw) * O // _BK_MMA,
+                         _sm_count(dy.device), 8)
     ws = _workspace(splits, dx.numel(), dy.device)
     kernels.launch("conv_dgrad", kernels.ptr(dy), kernels.ptr(wT),
                    kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,

@@ -15,7 +15,13 @@ Each C entry point launches on the stream it is given and returns
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run
 resets it with ``reset_launch_counts()`` and reads it afterwards to show
 that a path went through the kernels.  It is process-wide state by design:
-the counters must see launches from every caller.
+the counters must see launches from every caller.  A kernel with several
+routes (K10's and K12's forwards, chosen by shape) counts each route under
+its own name, which is also its C entry point's.
+
+The Hopper routes encode TMA tensor maps, whose encoder is a driver API
+call: ``csrc/hopper.cuh`` fetches it through ``cudaGetDriverEntryPoint``,
+so the library links the CUDA runtime alone (no ``-lcuda``).
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ LAUNCHES: Dict[str, int] = {
     "march_rays": 0,                            # K2, CUDA C++
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
-    "attention_fwd": 0, "attention_bwd": 0,     # K10, CUDA C++
+    "attention_fwd_wgmma": 0,                   # K10 d = 64, CUDA C++
+    "attention_fwd_mma": 0, "attention_bwd": 0,  # K10 d = 512, CUDA C++
     "groupnorm_fwd": 0, "groupnorm_bwd": 0,     # K11, Triton
-    "conv_fwd": 0, "conv_dgrad": 0,             # K12, CUDA C++
+    "conv_fwd_wgmma": 0, "conv_fwd_mma": 0,     # K12, CUDA C++
+    "conv_fwd_fp32": 0, "conv_dgrad": 0,        # K12, CUDA C++
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
     "marching_tets_fwd": 0, "marching_tets_bwd": 0,          # K8, CUDA C++
@@ -68,9 +76,12 @@ _SIGNATURES = {
                       _P],
     "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
                       _P, _P, _P],
-    "conv_fwd": [_P] * 4 + [_I] * 16 + [_P, _P],
+    "conv_fwd_mma": [_P] * 4 + [_I] * 16 + [_P, _P],
+    "conv_fwd_wgmma": [_P] * 4 + [_I] * 17 + [_P, _P],
+    "conv_fwd_fp32": [_P] * 4 + [_I] * 14 + [_P],
     "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
-    "attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "attention_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "attention_fwd_wgmma": [_P] * 5 + [_I] * 4 + [_F, _P],
     "attention_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
     "raster_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 7 + [_P],
     "raster_bwd": [_P] * 10 + [_I] * 2 + [_F] + [_P] * 3 + [_P],

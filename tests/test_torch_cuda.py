@@ -20,8 +20,10 @@ from dreamfusion_tpu_torch.ops.composite import (composite_bwd_plain,
                                                  composite_rays)
 from dreamfusion_tpu_torch.ops.occupancy import (march_cuda, march_plain,
                                                  probe_edges)
-from dreamfusion_tpu_torch.ops.attention import attention, attention_plain
-from dreamfusion_tpu_torch.ops.conv import conv2d, conv2d_plain, norm_padding
+from dreamfusion_tpu_torch.ops.attention import (attention, attention_fwd_cuda,
+                                                 attention_plain)
+from dreamfusion_tpu_torch.ops.conv import (conv2d, conv2d_plain, conv_route,
+                                            norm_padding)
 from dreamfusion_tpu_torch.ops.groupnorm import (group_norm, group_norm_plain,
                                                  groups_for)
 from dreamfusion_tpu_torch.ops.triplane import (TriplaneSpec,
@@ -179,7 +181,8 @@ def test_conv_kernel(dev, B, H, W, I, O, k, stride, pad, dtype):
     stride 2 with symmetric and the VAE's (0, 1) padding, a 3-channel input
     (padded to 8 channels forward, a 3-column N tile in its dgrad), a bf16
     dgrad with 12 channels (CUDA cores), fp32, and split-K (few output
-    tiles, long K) forward and dgrad."""
+    tiles, long K) forward (256 channels: the wgmma route; 128 at stride 2:
+    mma.sync) and dgrad."""
     g = _gen(dev, 4)
     x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
     w = (torch.randn(O, k, k, I, device=dev, generator=g) /
@@ -197,6 +200,126 @@ def test_conv_kernel(dev, B, H, W, I, O, k, stride, pad, dtype):
                       torch.float32)
     (dxp,) = torch.autograd.grad(yp, xp, dy.float().cpu())
     _close_to(dx.cpu(), dxp, rel)
+
+
+def _within_ulp(got, want, floor=1e-4):
+    """One bf16 ulp (2^-7 relative) plus `floor` of the largest value."""
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=floor * scale,
+                               rtol=2 ** -7)
+
+
+def _border(y):
+    """The first and last rows and columns of an NHWC tensor."""
+    return torch.cat([y[:, 0].flatten(), y[:, -1].flatten(),
+                      y[:, :, 0].flatten(), y[:, :, -1].flatten()])
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,pad", [
+    (1, 9, 11, 128, 200, 3, 1),        # odd grid: ragged pixel boxes
+    (2, 7, 13, 320, 72, 3, 1),         # O below one N tile
+    (2, 8, 8, 1280, 1280, 3, 1),       # the UNet's 8x8x1280: split-K 16
+    (1, 5, 6, 1280, 136, 3, 1),        # split-K, ragged N
+    (2, 16, 16, 192, 64, 1, 0),        # 1x1
+    (1, 9, 10, 64, 100, 3, ((0, 1), (0, 1))),   # asymmetric padding
+])
+def test_conv_wgmma_kernel(dev, B, H, W, I, O, k, pad):
+    """K12's Hopper route against the plain version: the padding comes from
+    TMA's zero fill, so the border pixels are checked on their own; two
+    launches agree bit for bit (split-K sums in a fixed order)."""
+    assert conv_route(torch.bfloat16, I, O, (1, 1)) == "conv_fwd_wgmma"
+    g = _gen(dev, 7)
+    bf = torch.bfloat16
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(bf)
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(bf)
+    bias = torch.randn(O, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, 1, pad)
+    y2 = conv2d(x, w, bias, 1, pad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_fwd_wgmma"] == 2
+    assert kernels.LAUNCHES["conv_fwd_mma"] == 0
+    assert torch.equal(y, y2)
+    ref = conv2d_plain(x, w, bias, (1, 1), norm_padding(pad), bf)
+    assert y.shape == ref.shape
+    _within_ulp(y, ref)
+    _within_ulp(_border(y), _border(ref))
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride", [
+    (2, 9, 7, 320, 4, 3, 1),           # the UNet's conv_out
+    (1, 8, 10, 512, 8, 3, 1),          # the VAE encoder's conv_out
+    (1, 6, 6, 8, 8, 1, 1),             # quant_conv
+    (1, 9, 9, 12, 3, 3, 2),
+])
+def test_conv_fp32_narrow_kernel(dev, B, H, W, I, O, k, stride):
+    assert conv_route(torch.float32, I, O, (stride, stride)) == \
+        "conv_fwd_fp32"
+    g = _gen(dev, 8)
+    x = torch.randn(B, H, W, I, device=dev, generator=g)
+    w = torch.randn(O, k, k, I, device=dev, generator=g) / (k * k * I) ** 0.5
+    bias = torch.randn(O, device=dev, generator=g)
+    pad = k // 2
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, stride, pad)
+    y2 = conv2d(x, w, bias, stride, pad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_fwd_fp32"] == 2
+    assert torch.equal(y, y2)
+    ref = conv2d_plain(x, w, bias, (stride, stride), norm_padding(pad),
+                       torch.float32)
+    _close_to(y, ref, 1e-5)
+    _close_to(_border(y), _border(ref), 1e-5)
+
+
+@pytest.mark.parametrize("I,O,dtype", [(128, 128, torch.bfloat16),
+                                        (320, 4, torch.float32)])
+def test_conv_16_byte_routes_refuse_misaligned_views(dev, I, O, dtype):
+    """The wgmma and fp32 routes read x and w in 16-byte units: a contiguous
+    view at an odd offset raises instead of faulting on the card."""
+    route = conv_route(dtype, I, O, (1, 1))
+    assert route in ("conv_fwd_wgmma", "conv_fwd_fp32")
+    n = 2 * 6 * 6 * I
+    x = torch.randn(n + 1, device=dev).to(dtype)[1:].view(2, 6, 6, I)
+    w = (torch.randn(O, 3, 3, I, device=dev) / (9 * I) ** 0.5).to(dtype)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        conv2d(x, w, None, 1, 1)
+    wv = torch.randn(w.numel() + 1, device=dev).to(dtype)[1:].view(w.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv2d(x.clone(), wv, None, 1, 1)
+    assert kernels.LAUNCHES[route] == 0
+    _within_ulp(conv2d(x.clone(), w, None, 1, 1),
+                conv2d_plain(x, w, None, (1, 1), norm_padding(1), dtype))
+    assert kernels.LAUNCHES[route] == 1
+
+
+@pytest.mark.parametrize("B,N,M,H", [
+    (1, 100, 77, 2), (2, 100, 100, 3), (1, 4096 + 17, 77, 1),
+    (1, 4096 + 17, 100, 2)])
+def test_attention_wgmma_kernel(dev, B, N, M, H):
+    """K10's d = 64 Hopper route: ragged query and key tiles, the 77-token
+    cross-attention; out and lse against the plain version; two launches
+    agree bit for bit."""
+    g = _gen(dev, 9)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, n, H, 64, device=dev, generator=g).to(bf)
+               for n in (N, M, M))
+    kernels.reset_launch_counts()
+    o, lse = attention_fwd_cuda(q, k, v, 0.125)
+    o2, lse2 = attention_fwd_cuda(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_fwd_wgmma"] == 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ref = attention_plain(q, k, v, 0.125)
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2 * scale,
+                               rtol=2 ** -7)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * 0.125
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-3,
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("B,N,M,H,D", [
@@ -257,8 +380,8 @@ def test_new_wrappers_count_their_launches(dev):
     h = group_norm(conv2d(x, w, None, 1, 1), one, one * 0, 8, 1e-6, True)
     q = h.reshape(1, 64, 1, 16).repeat(1, 1, 1, 4)
     attention(q, q, q).float().sum().backward()
-    for name in ("conv_fwd", "conv_dgrad", "groupnorm_fwd", "groupnorm_bwd",
-                 "attention_fwd", "attention_bwd"):
+    for name in ("conv_fwd_mma", "conv_dgrad", "groupnorm_fwd",
+                 "groupnorm_bwd", "attention_fwd_wgmma", "attention_bwd"):
         assert kernels.LAUNCHES[name] == 1, name
 
 

@@ -227,3 +227,85 @@ def test_numeric_traps_match_jax(rng, pair):
     [O, kh, kw, I]; the latents are noised with SD's schedule at t."""
     got, want = pair(rng)
     _close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K10 / K12 routes on the card, chosen by shape alone (no device needed)
+# ---------------------------------------------------------------------------
+
+def test_sd_step_convs_and_attentions_take_their_routes():
+    """Every K12 conv of the SD 2.1 UNet and VAE encoder (built on the meta
+    device: shapes only) takes the route the kernels' rule gives it: the
+    wgmma route for bf16 3x3 stride-1 convs with I % 64 == 0, mma.sync for
+    the 4- and 3-channel conv_in and the stride-2 downsamplers, the fp32
+    route for the conv_outs; the UNet's attention (d = 64) the wgmma one,
+    the VAE mid-block's (d = 512) mma.sync; and the split-K factors and
+    pixel boxes of the UNet's levels at CFG batch 2."""
+    from dreamfusion_tpu_torch.models.unet import (Conv2d, UNet2DCondition,
+                                                   UNetConfig)
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from dreamfusion_tpu_torch.ops.attention import attention_route
+    from dreamfusion_tpu_torch.ops.conv import conv_route, pixel_box, split_k
+
+    with torch.device("meta"):
+        unet = UNet2DCondition(UNetConfig.sd21())
+        vae = AutoencoderKL(VAEConfig.sd())
+    routes = {}
+    for tower, mod in (("unet", unet), ("vae", vae.encoder)):
+        for name, m in mod.named_modules():
+            if isinstance(m, Conv2d):
+                O, _, _, I = m.weight.shape
+                routes[tower, name] = conv_route(m.compute_dtype, I, O,
+                                                 (m.stride, m.stride))
+    for (tower, name), route in routes.items():
+        if name == "conv_in" or ".downsamplers." in name:
+            assert route == "conv_fwd_mma", (tower, name)
+        elif name == "conv_out":
+            assert route == "conv_fwd_fp32", (tower, name)
+        else:
+            assert route == "conv_fwd_wgmma", (tower, name)
+    counts = {r: sum(v == r for v in routes.values())
+              for r in set(routes.values())}
+    assert counts == {"conv_fwd_wgmma": 47 + 20, "conv_fwd_mma": 4 + 4,
+                      "conv_fwd_fp32": 2}
+    assert attention_route(64) == "attention_fwd_wgmma"
+    assert attention_route(512) == "attention_fwd_mma"
+    with pytest.raises(ValueError):
+        attention_route(40)
+    # pixel boxes (bw, bh, bb) and split-K at the UNet's levels, B = 2
+    assert [pixel_box(2, s, s) for s in (64, 32, 16, 8)] == [
+        (64, 2, 1), (32, 4, 1), (16, 8, 1), (8, 8, 2)]
+    assert pixel_box(1, 512, 512) == (128, 1, 1)
+    assert pixel_box(1, 9, 11) == (16, 8, 1)
+    # (output tiles, 64-wide K blocks) on 132 SMs
+    assert split_k(64 * 3, 9 * 320 // 64, 132, 4) == 1       # 64², 320
+    assert split_k(16 * 5, 9 * 640 // 64, 132, 4) == 3       # 32², 640
+    assert split_k(4 * 10, 9 * 1280 // 64, 132, 4) == 6      # 16², 1280
+    assert split_k(1 * 10, 9 * 2560 // 64, 132, 4) == 16     # 8², 2560
+    assert split_k(2048, 9 * 128 // 64, 132, 4) == 1         # VAE 512²
+
+
+def test_profile_groups_name_the_new_kernels():
+    """profile_step files the Hopper kernels (as the profiler names them)
+    under K12 and K10, not under the library's matrix products."""
+    from dreamfusion_tpu_torch.profile_step import group_of
+
+    k12 = ["(anonymous namespace)::conv_wgmma_kernel(CUtensorMap_st, "
+           "CUtensorMap_st, (anonymous namespace)::WgConv)",
+           "(anonymous namespace)::conv_narrow_kernel((anonymous "
+           "namespace)::ConvParams)",
+           "(anonymous namespace)::conv_splitk_reduce((anonymous "
+           "namespace)::ConvParams)",
+           "void (anonymous namespace)::conv_mma_kernel<false>((anonymous "
+           "namespace)::ConvParams)",
+           "void (anonymous namespace)::conv_simple_kernel<float, true>("
+           "(anonymous namespace)::ConvParams)"]
+    k10 = ["(anonymous namespace)::attn_fwd_wgmma_kernel(CUtensorMap_st, "
+           "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, "
+           "int, int, float)",
+           "void (anonymous namespace)::attn_fwd_kernel<512, 32, 64, 8>("
+           "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
+           "const*, __nv_bfloat16*, float*, int, int, int, int, float)"]
+    assert [group_of(n) for n in k12] == ["K12 conv"] * len(k12)
+    assert [group_of(n) for n in k10] == ["K10 attention"] * len(k10)
+    assert group_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matrix products"
