@@ -12,10 +12,14 @@
    PyTorch version on the same inputs and times both, and the one PyTorch
    call that computes the same function where there is one (CUDA events,
    median after warm-up; fp32 convs against cuDNN with TF32 off).  K10's
-   and K12's forwards have routes chosen by shape (wgmma + TMA, mma.sync,
-   and K12's narrow fp32 one), each checked and timed under its own name
-   at the shapes that take it.  Each kernel's bound is the larger of its bytes
-   (each input read once, each output written once) at 3.35 TB/s and its
+   and K12's forwards have routes chosen by shape (wgmma + TMA at d = 64
+   and d = 512; K12's wgmma route at stride 1 and 2, its narrow-input
+   wgmma route for the conv_ins and its narrow fp32 one), each checked and
+   timed under its own name at the shapes that take it.  K12's mma.sync
+   forward serves no shape of any path: the SD run must not launch it, and
+   it is checked and timed at shapes of its own (``MMA_CONVS``), with 0
+   launches in the kernels line.  Each kernel's bound is the larger of its
+   bytes (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32).
    K6 (hash encode forward with the jacobian and backward, the position
@@ -171,8 +175,9 @@ KERNELS = {
                        "dreamfusion_tpu/ops/activation.py:9"),
     "attention_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
                             "dreamfusion_tpu/ops/attention.py:27"),
-    "attention_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
-                          "dreamfusion_tpu/ops/attention.py:27"),
+    "attention_fwd_wgmma_d512": ("cuda",
+                                 "dreamfusion_tpu_torch/csrc/attention.cu",
+                                 "dreamfusion_tpu/ops/attention.py:27"),
     "attention_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
                       "dreamfusion_tpu/ops/attention.py:72"),
     "groupnorm_fwd": ("triton", "dreamfusion_tpu_torch/ops/groupnorm.py",
@@ -181,10 +186,12 @@ KERNELS = {
                       "dreamfusion_tpu/models/unet.py:143"),
     "conv_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                        "dreamfusion_tpu/ops/conv.py:58"),
-    "conv_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
-                     "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_fwd_wgmma_i8": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                          "dreamfusion_tpu/ops/conv.py:58"),
     "conv_fwd_fp32": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                       "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                     "dreamfusion_tpu/ops/conv.py:58"),
     "conv_dgrad": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                    "dreamfusion_tpu/ops/conv.py:95"),
 }
@@ -218,11 +225,12 @@ ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
                   "field_head_bwd")
 # K10's and K12's forwards count each route apart (ops/kernels.py): the SD
-# step must launch every one of them
+# step must launch every one of them, and never K12's mma.sync forward
+# (conv_fwd_mma: shapes off every path, checked at MMA_CONVS)
 SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
               "field_head_fwd", "field_head_bwd", "attention_fwd_wgmma",
-              "attention_fwd_mma", "attention_bwd", "groupnorm_fwd",
-              "groupnorm_bwd", "conv_fwd_wgmma", "conv_fwd_mma",
+              "attention_fwd_wgmma_d512", "attention_bwd", "groupnorm_fwd",
+              "groupnorm_bwd", "conv_fwd_wgmma", "conv_fwd_wgmma_i8",
               "conv_fwd_fp32", "conv_dgrad")
 DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
@@ -245,10 +253,25 @@ SD_CONVS = [
     (2, 16, 16, 1280, 1280, 3, 1, 1, "bf16", False),      # UNet level 2
     (2, 8, 8, 1280, 1280, 3, 1, 1, "bf16", False),        # level 3: split-K
     (2, 32, 32, 320, 640, 1, 1, 0, "bf16", False),        # a 1x1 skip conv
-    (2, 64, 64, 320, 320, 3, 2, 1, "bf16", False),        # UNet down
-    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16", True),  # VAE down
+    (2, 64, 64, 320, 320, 3, 2, 1, "bf16", False),        # UNet downs
+    (2, 32, 32, 640, 640, 3, 2, 1, "bf16", False),
+    (2, 16, 16, 1280, 1280, 3, 2, 1, "bf16", False),      # split-K 16
+    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16", True),  # VAE downs
+    (1, 256, 256, 256, 256, 3, 2, ((0, 1), (0, 1)), "bf16", False),
+    (1, 128, 128, 512, 512, 3, 2, ((0, 1), (0, 1)), "bf16", False),
+    (1, 512, 512, 3, 128, 3, 1, 1, "bf16", True),         # VAE conv_in
+    (2, 64, 64, 4, 320, 3, 1, 1, "bf16", False),          # UNet conv_in
     (2, 64, 64, 320, 4, 3, 1, 1, "fp32", False),          # UNet conv_out
     (1, 64, 64, 512, 8, 3, 1, 1, "fp32", False),          # VAE conv_out
+]
+# Shapes of no path that K12's mma.sync forward (conv_fwd_mma) still takes,
+# in SD_CONVS's layout, at odd sizes: bf16 with 8 < I and I % 64 != 0 (at
+# stride 2 and 1) and fp32 with O > 8.  Held against the plain version as
+# SD_CONVS are; no path may launch it.
+MMA_CONVS = [
+    (1, 17, 15, 32, 48, 3, 2, 1, "bf16", False),
+    (2, 33, 31, 24, 40, 3, 1, 1, "bf16", False),
+    (1, 33, 31, 16, 16, 3, 1, 1, "fp32", False),
 ]
 # K10: q [B, N, h, d], k and v [B, M, h, d]; whether the backward is checked
 SD_ATTNS = [
@@ -670,10 +693,10 @@ def sd_kernel_phases(torch, results):
         return assert_close(name, [got], [want], floor * scale, rel)
 
     # ---- K12 conv: forward (by route), then dgrad ------------------------
-    for B, H, W, I, O, k, st, pad, dt, dgrad in SD_CONVS:
+    for B, H, W, I, O, k, st, pad, dt, dgrad in SD_CONVS + MMA_CONVS:
         dt = torch.float32 if dt == "fp32" else bf
         pads = K12.norm_padding(pad)
-        route = K12.conv_route(dt, I, O, (st, st))
+        route = K12.conv_route(dt, I, O, (st, st), k * k)
         where = f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} {dt}"
         x = randn(B, H, W, I, dtype=dt)
         w = randn(O, k, k, I, scale=(k * k * I) ** -0.5, dtype=dt)
@@ -1273,6 +1296,8 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
         f"{launches}")
     check(sd["all_losses_finite"], f"{what}: non-finite loss: {sd['losses']}")
     check(sd["grad_ok"], f"{what}: a step had non-finite gradients")
+    check(launches["conv_fwd_mma"] == 0,
+          f"{what}: {launches['conv_fwd_mma']} convs took conv_fwd_mma")
     for name in SD_KERNELS + (("hashgrid_fwd", "hashgrid_bwd")
                               if group == "grid" else
                               ("triplane_fwd", "triplane_bwd")):

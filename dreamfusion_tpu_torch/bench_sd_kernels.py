@@ -1,8 +1,12 @@
-"""K10's and K12's forwards at the SD 2.1 step's shapes, on one GPU.
+"""K10's and K12's forwards and K12's dgrad at the SD 2.1 step's shapes,
+on one GPU.
 
-    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --tag change
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --tag change \\
+        --outputs change.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
-        --tag parent
+        --tag parent --outputs parent.pt
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
+        change.pt
 
 The shapes are ``chip_smoke.py``'s ``SD_CONVS`` and ``SD_ATTNS`` (the
 ``chip_smoke.py`` beside this package, whatever ``--root`` is), so that one
@@ -16,19 +20,34 @@ call (one call on the host clock with the card idle before it, as a
 host-bound step pays it: Python, the tensor maps and the launch; timed
 before the profiler runs, over 200 calls: ``host_us_min``, the least,
 which other processes on the host's cores can only raise, and
-``host_us``, the median), and, timed both ways, the one PyTorch call
+``host_us``, the median), the device time of one call in a CUDA graph
+(``graph_ms``: 20 calls captured in one graph, the graph replayed between
+two CUDA events, the median of 10 replays per call; no host in the window
+and no profiler records to drop, the few µs between a graph's kernels
+included), and, timed all three ways, the one PyTorch call
 that computes the same function (``F.conv2d`` with TF32 off for fp32, as
 the kernel's fp32 FMAs; ``scaled_dot_product_attention``; null for the
-VAE's asymmetric padding).  It prints one JSON line per shape with the
-launch counters the wrapper moved (its route) and the card's name and
-power limit.  Compare two checkouts within one call, in turns (parent,
-change, change, parent).
+VAE's asymmetric padding).  The rows of ``SD_CONVS`` whose dgrad
+``chip_smoke.py`` checks are timed again as dgrads (``conv_dgrad``, the
+weight's transpose included, as the path pays it) beside cuDNN's input
+gradient alone (``aten.convolution_backward`` with output mask (True,
+False, False) on channels-last views of the same tensors: no layout copy
+of ours in the timed window); their ``kernel_names`` split the kernel
+time by kernel.  It prints one JSON line per shape with the launch
+counters the wrapper moved (its route) and the card's name and power
+limit, after a line with the SHA-256 of the port's ``csrc/`` and ``ops/``
+under ``--root`` (which sources were timed).  Compare two checkouts
+within one call, in turns (parent, change, change, parent).  With
+``--outputs FILE`` it also saves every forward's output (the inputs come
+from one seed, so two checkouts see the same ones); ``--compare A B``
+prints, per shape, whether two such files agree bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import importlib.util
 import json
 import os
@@ -49,12 +68,54 @@ def _chip_smoke():
     return mod
 
 
+def sources_sha256(root: str) -> str:
+    """SHA-256 over the relative paths and bytes of the port's csrc/ and
+    ops/ files under `root` (caches left out)."""
+    h = hashlib.sha256()
+    for sub in ("csrc", "ops"):
+        top = os.path.join(root, "dreamfusion_tpu_torch", sub)
+        for dirpath, dirnames, files in sorted(os.walk(top)):
+            dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+            for f in sorted(files):
+                if f.endswith(".pyc"):
+                    continue
+                path = os.path.join(dirpath, f)
+                h.update(os.path.relpath(path, root).encode() + b"\0")
+                with open(path, "rb") as fh:
+                    h.update(fh.read())
+    return h.hexdigest()
+
+
+def compare(a_path: str, b_path: str) -> None:
+    """One JSON line per shape saved in both files: bit-for-bit equal or
+    not, and the largest difference."""
+    import torch
+    a, b = torch.load(a_path), torch.load(b_path)
+    for key in a:
+        if key not in b:
+            continue
+        x, y = a[key], b[key]
+        same = x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        diff = (float((x.float() - y.float()).abs().max())
+                if x.shape == y.shape else None)
+        print(json.dumps({"compare": [a_path, b_path], "row": key,
+                          "bitwise_equal": same, "max_abs_diff": diff}),
+              flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("conv", "attn"), default=None)
+    ap.add_argument("--outputs", default=None,
+                    help="save every forward's output to this file")
+    ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
+                    help="compare two --outputs files and exit")
     args = ap.parse_args(argv)
+    if args.compare:
+        compare(*args.compare)
+        return
     smoke = _chip_smoke()
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]
     sys.path.insert(0, os.path.abspath(args.root))
@@ -75,7 +136,9 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def kernel_ms(fn, n=10):
+    def kernel_ms(fn, n=10, by_name=False):
+        """Device ms per call (the profiler's kernels); with `by_name`,
+        also the ms per call of each kernel name (cut to 60 characters)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -84,8 +147,40 @@ def main(argv=None) -> None:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / n / 1e3
+        names = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = e.name[:60]
+                names[key] = names.get(key, 0.0) + \
+                    e.time_range.elapsed_us() / n / 1e3
+        total = sum(names.values())
+        return (total, names) if by_name else total
+
+    def graph_ms(fn, calls=20, reps=10):
+        """Device ms per call: `calls` calls captured in one CUDA graph,
+        replayed between two events; the median of `reps` replays."""
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / calls)
+        del graph
+        return statistics.median(times)
 
     def host_us(fn, n=200):
         """→ dict(host_us_min=least µs per call, host_us=median)."""
@@ -133,8 +228,9 @@ def main(argv=None) -> None:
 
     # (row of the shape, the wrapper's call, the library's call or None)
     cases = []
-    for B, H, W, I, O, k, st, pad, dt, _ in ([] if args.only == "attn"
-                                             else smoke.SD_CONVS):
+    dgrads = []
+    for B, H, W, I, O, k, st, pad, dt, dgrad in ([] if args.only == "attn"
+                                                 else smoke.SD_CONVS):
         dtype = torch.float32 if dt == "fp32" else torch.bfloat16
         x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
         w = (torch.randn(O, k, k, I, device=dev, generator=g) /
@@ -149,10 +245,25 @@ def main(argv=None) -> None:
             lib_fn = functools.partial(
                 F.conv2d, x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2),
                 bias.to(dtype), st, pads[0][0])
-        cases.append(({"kernel": "K12 conv_fwd", "shape": [B, H, W, I, O],
-                       "k": k, "stride": st, "pads": pads, "dtype": dt,
-                       "gflop": 2 * B * Ho * Wo * O * k * k * I / 1e9},
-                      fn, lib_fn))
+        row = {"kernel": "K12 conv_fwd", "shape": [B, H, W, I, O], "k": k,
+               "stride": st, "pads": pads, "dtype": dt,
+               "gflop": 2 * B * Ho * Wo * O * k * k * I / 1e9}
+        cases.append((row, fn, lib_fn))
+        if not dgrad:
+            continue
+        dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
+        lib_fn = None
+        if pads[0][0] == pads[0][1]:
+            lib_fn = functools.partial(
+                torch.ops.aten.convolution_backward, dy.permute(0, 3, 1, 2),
+                x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), None,
+                [st, st], [pads[0][0]] * 2, [1, 1], False, [0, 0], 1,
+                [True, False, False])
+        dgrads.append(({**row, "kernel": "K12 conv_dgrad"},
+                       functools.partial(K12.conv2d_dgrad_cuda, dy, w,
+                                         x.shape, (st, st), pads, dtype),
+                       lib_fn))
+    cases += dgrads
     for B, N, M, h, d, _ in [] if args.only == "conv" else smoke.SD_ATTNS:
         q, k, v = (torch.randn(B, n, h, d, device=dev, generator=g).to(
             torch.bfloat16) for n in (N, M, M))
@@ -165,6 +276,20 @@ def main(argv=None) -> None:
                                         *(t.transpose(1, 2)
                                           for t in (q, k, v)))))
 
+    print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
+                      "sources_sha256": sources_sha256(args.root),
+                      "card": card}), flush=True)
+    if args.outputs:
+        outs = {}
+        for row, fn, _ in cases:
+            if row["kernel"] == "K12 conv_dgrad":
+                continue
+            y = fn()
+            y = y[0] if isinstance(y, tuple) else y
+            outs[json.dumps({k: row[k] for k in row if k != "gflop"})] = \
+                y.cpu()
+        torch.save(outs, args.outputs)
+        del outs
     # the host times first: the profiler leaves its hooks behind
     hosts = [host_us(fn) for _, fn, _ in cases]
     if args.only != "attn":
@@ -174,11 +299,21 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False   # fp32 convs in full fp32
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
+            dgrad = row["kernel"] == "K12 conv_dgrad"
+            k_ms = kernel_ms(fn, by_name=dgrad)
+            lib_ms = lib_fn and kernel_ms(lib_fn, by_name=dgrad)
+            extra = {}
+            if dgrad:
+                k_ms, extra["kernel_names"] = k_ms
+                extra["library_kernel_names"] = None
+                if lib_ms:
+                    lib_ms, extra["library_kernel_names"] = lib_ms
             print(json.dumps({
                 "tag": args.tag, **row, "ms": smoke.median_ms(fn),
-                "kernel_ms": kernel_ms(fn), **host,
+                "kernel_ms": k_ms, "graph_ms": graph_ms(fn), **host,
                 "library_ms": lib_fn and smoke.median_ms(lib_fn),
-                "library_kernel_ms": lib_fn and kernel_ms(lib_fn),
+                "library_kernel_ms": lib_ms,
+                "library_graph_ms": lib_fn and graph_ms(lib_fn), **extra,
                 "routes": route_of(fn), "card": card}), flush=True)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32

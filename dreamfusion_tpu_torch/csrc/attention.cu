@@ -2,7 +2,9 @@
 //
 // Replaces dreamfusion_tpu/ops/attention.py (chunked_attention :27, an
 // online-softmax lax.scan over KV chunks, and dense_attention :72, einsums
-// with an fp32 softmax; `attention` :88 picks one by the logits' size).
+// with an fp32 softmax; `attention` :88 picks one by the logits' size),
+// as the UNet's transformers and the VAE mid-block (models/vae.py:78) call
+// it.
 // Layout as in JAX: q [B, N, h, d], k and v [B, M, h, d], bf16; out
 // [B, N, h, d] bf16 and the log-sum-exp [B, h, N] fp32 for the backward.
 //
@@ -30,11 +32,25 @@
 //    exponentials cost as much as the products, so they overlap: the two
 //    warpgroups take turns to issue products (pingpong), and each issues
 //    the next tile's S with this tile's P V before its next softmax.
-//  - d = 512 (the VAE mid-block): a warp's 16 rows x 512 fp32 accumulator
-//    would take 256 registers a thread, so the warps split instead: the BC
-//    columns for S (which goes through shared memory for the softmax, one
-//    group of threads per row) and d for P V, keeping the accumulator at
-//    64 registers (BR = 32, 8 warps, ~176 KB of dynamic shared memory).
+//  - d = 512 (the VAE mid-block; attention_fwd_wgmma_d512).  The mma.sync
+//    layout it replaces ran at ~82 TFLOP/s (8% of peak): 32-row blocks, S
+//    through shared memory.  Here a block owns BR = 64 query rows; its
+//    O (64 x 512 fp32 = 128 KB) is split by columns over two consumer
+//    warpgroups, 128 registers a thread each.  Both compute the same S =
+//    Q K^T (64 x 64 keys, wgmma m64n64k16 over K = 512: the duplicate S
+//    costs half again the products but no exchange of P or of row
+//    statistics between warpgroups), run the online softmax in registers
+//    as at d = 64, and each issues O[:, its 256] += P V with P as the
+//    register A operand (m64n256k16, V MN-major: its 64-column chunks 8 KB
+//    apart, the descriptor's leading byte offset).  Q (64 KB) stays; K
+//    streams in 8 KB chunks (64 keys x 64 columns, one 128-byte swizzled
+//    row each) through a 12-chunk ring, V a whole 64-key tile (64 KB) at a
+//    time, both by TMA from the d = 64 maps' shape.  4096 queries are only
+//    64 blocks for 132 SMs, so the KV range is split (kv_splits: 2 at the
+//    VAE's shape) and attn_fwd_combine_kernel merges the splits' fp32
+//    partial O and log-sum-exp in split order (deterministic, no atomics)
+//    into o and lse.  Bound by the tiles' traffic out of L2 (64 query rows
+//    per 128 KB of K and V) more than by the products.
 //
 // Backward (the VAE mid-block, d = 512, N = M = 4096): D = rowsum(dO o O);
 // a scores kernel recomputes S and dP = dO V^T tile by tile on mma.sync,
@@ -61,239 +77,6 @@ using dft::cp_async16;
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-
-template <int D, int BR, int BC, int NW>
-struct FwdCfg {
-  static constexpr int kThreads = NW * 32;
-  static constexpr int LDH = D + 8;    // Q, K, V row stride (bf16)
-  static constexpr int LDS = BC + 4;   // S row stride (fp32)
-  static constexpr int LDP = BC + 8;   // P row stride (bf16)
-  static constexpr int CW = BC / NW;   // S columns per warp
-  static constexpr int DW = D / NW;    // output columns per warp
-  static constexpr int TPR = kThreads / BR;   // softmax threads per row
-  static constexpr size_t kSmem =
-      sizeof(bf16) * ((size_t)BR * LDH + 2 * (size_t)BC * LDH +
-                      (size_t)BR * LDP) +
-      sizeof(float) * ((size_t)BR * LDS + 3 * BR);
-  static_assert(CW % 8 == 0 && (CW == 8 || CW % 16 == 0), "S split");
-  static_assert(DW % 16 == 0, "d split");
-  static_assert(BR % 16 == 0 && BC % 16 == 0, "tiles");
-  static_assert(TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "rows");
-};
-
-template <int D, int BR, int BC, int NW>
-__global__ void __launch_bounds__(NW * 32)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o,
-                float* __restrict__ lse, int B, int N, int M, int H,
-                float scale) {
-  using C = FwdCfg<D, BR, BC, NW>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BR * C::LDH;
-  bf16* sV = sK + BC * C::LDH;
-  bf16* sP = sV + BC * C::LDH;
-  float* sS = reinterpret_cast<float*>(sP + BR * C::LDP);
-  float* sM = sS + BR * C::LDS;
-  float* sL = sM + BR;
-  float* sCorr = sL + BR;
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, qd = lane % 4;
-  const int z = blockIdx.y, b = z / H, hh = z % H;
-  const int i0 = blockIdx.x * BR;
-  const int64_t rs = (int64_t)H * D;   // token stride
-  const bf16* qb = q + ((int64_t)b * N * H + hh) * D;
-  const bf16* kb = k + ((int64_t)b * M * H + hh) * D;
-  const bf16* vb = v + ((int64_t)b * M * H + hh) * D;
-
-  constexpr int VPR = D / 8;   // 16-byte vectors per row
-  for (int e = tid; e < BR * VPR; e += C::kThreads) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    const bool ok = i0 + r < N;
-    cp_async16(sQ + r * C::LDH + c, ok ? qb + (i0 + r) * rs + c : qb, ok);
-  }
-  for (int r = tid; r < BR; r += C::kThreads) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.f;
-  }
-
-  constexpr int MT = BR / 16;        // m16 tiles (all rows, every warp)
-  constexpr int NT_S = C::CW / 8;    // n8 tiles of S per warp
-  constexpr int NT_O = C::DW / 8;    // n8 tiles of O per warp
-  float oacc[MT][NT_O][4];
-#pragma unroll
-  for (int a = 0; a < MT; ++a)
-#pragma unroll
-    for (int c = 0; c < NT_O; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[a][c][e] = 0.f;
-
-  const int n_tiles = (M + BC - 1) / BC;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int j0 = jt * BC;
-    for (int e = tid; e < BC * VPR; e += C::kThreads) {
-      const int r = e / VPR, c = (e % VPR) * 8;
-      const bool ok = j0 + r < M;
-      cp_async16(sK + r * C::LDH + c, ok ? kb + (j0 + r) * rs + c : kb, ok);
-      cp_async16(sV + r * C::LDH + c, ok ? vb + (j0 + r) * rs + c : vb, ok);
-    }
-    dft::cp_async_commit();
-    dft::cp_async_wait<0>();
-    __syncthreads();
-
-    // ---- S = Q K^T for this warp's CW columns ----
-    float sacc[MT][NT_S][4];
-#pragma unroll
-    for (int a = 0; a < MT; ++a)
-#pragma unroll
-      for (int c = 0; c < NT_S; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[a][c][e] = 0.f;
-    const int col0 = warp * C::CW;
-#pragma unroll 4
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int a = 0; a < MT; ++a)
-        dft::load_a_frag(af[a], sQ + a * 16 * C::LDH + ks * 16, C::LDH, lane);
-      if constexpr (NT_S == 1) {
-        uint32_t bfr[2];
-        dft::load_b_frag_nk_x2(bfr, sK + col0 * C::LDH + ks * 16, C::LDH,
-                               lane);
-#pragma unroll
-        for (int a = 0; a < MT; ++a) dft::mma_bf16(sacc[a][0], af[a], bfr);
-      } else {
-#pragma unroll
-        for (int c = 0; c < NT_S; c += 2) {
-          uint32_t bfr[4];
-          dft::load_b_frag_nk(bfr, sK + (col0 + c * 8) * C::LDH + ks * 16,
-                              C::LDH, lane);
-#pragma unroll
-          for (int a = 0; a < MT; ++a) {
-            dft::mma_bf16(sacc[a][c], af[a], bfr);
-            dft::mma_bf16(sacc[a][c + 1], af[a], bfr + 2);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < MT; ++a)
-#pragma unroll
-      for (int c = 0; c < NT_S; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = a * 16 + g + 8 * (e / 2);
-          const int col = col0 + c * 8 + 2 * qd + (e % 2);
-          sS[r * C::LDS + col] =
-              j0 + col < M ? sacc[a][c][e] * scale : -INFINITY;
-        }
-    __syncthreads();
-
-    // ---- online softmax, TPR threads per row ----
-    {
-      const int r = tid / C::TPR, part = tid % C::TPR;
-      constexpr int CPT = BC / C::TPR;
-      const float* srow = sS + r * C::LDS + part * CPT;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) mx = fmaxf(mx, srow[c]);
-#pragma unroll
-      for (int off = C::TPR / 2; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      bf16* prow = sP + r * C::LDP + part * CPT;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float p = __expf(srow[c] - m_new);
-        sum += p;
-        prow[c] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = C::TPR / 2; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (part == 0) {
-        const float corr = __expf(m_old - m_new);
-        sCorr[r] = corr;
-        sL[r] = sL[r] * corr + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- O = O * corr + P V for this warp's DW columns ----
-#pragma unroll
-    for (int a = 0; a < MT; ++a) {
-      const float c0 = sCorr[a * 16 + g], c1 = sCorr[a * 16 + g + 8];
-#pragma unroll
-      for (int c = 0; c < NT_O; ++c) {
-        oacc[a][c][0] *= c0;
-        oacc[a][c][1] *= c0;
-        oacc[a][c][2] *= c1;
-        oacc[a][c][3] *= c1;
-      }
-    }
-    const int d0 = warp * C::DW;
-#pragma unroll
-    for (int ks = 0; ks < BC / 16; ++ks) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int a = 0; a < MT; ++a)
-        dft::load_a_frag(af[a], sP + a * 16 * C::LDP + ks * 16, C::LDP, lane);
-#pragma unroll
-      for (int c = 0; c < NT_O; c += 2) {
-        uint32_t bfr[4];
-        dft::load_b_frag_kn(bfr, sV + ks * 16 * C::LDH + d0 + c * 8, C::LDH,
-                            lane);
-#pragma unroll
-        for (int a = 0; a < MT; ++a) {
-          dft::mma_bf16(oacc[a][c], af[a], bfr);
-          dft::mma_bf16(oacc[a][c + 1], af[a], bfr + 2);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- epilogue: O / l, log-sum-exp ----
-  const int d0 = warp * C::DW;
-#pragma unroll
-  for (int a = 0; a < MT; ++a) {
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int r = a * 16 + g + 8 * h2;
-      if (i0 + r >= N) continue;
-      const float inv = 1.f / sL[r];
-      bf16* orow = o + (((int64_t)b * N + i0 + r) * H + hh) * D + d0;
-#pragma unroll
-      for (int c = 0; c < NT_O; ++c) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + 2 * qd) =
-            __floats2bfloat162_rn(oacc[a][c][2 * h2] * inv,
-                                  oacc[a][c][2 * h2 + 1] * inv);
-      }
-    }
-  }
-  for (int r = tid; r < BR; r += C::kThreads)
-    if (i0 + r < N) lse[(int64_t)z * N + i0 + r] = sM[r] + logf(sL[r]);
-}
-
-template <int D, int BR, int BC, int NW>
-int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-               float* lse, int B, int N, int M, int H, float scale,
-               cudaStream_t stream) {
-  using C = FwdCfg<D, BR, BC, NW>;
-  auto kern = attn_fwd_kernel<D, BR, BC, NW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BR - 1) / BR, B * H);
-  kern<<<grid, C::kThreads, C::kSmem, stream>>>(q, k, v, o, lse, B, N, M, H,
-                                                scale);
-  return (int)cudaGetLastError();
-}
 
 // d = 64 (every UNet attention): FlashAttention-3's layout on wgmma (see the
 // note above).
@@ -545,6 +328,260 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// d = 512 (the VAE mid-block; see the note above).  Q, K and V come by TMA
+// in chunks of 64 rows x 64 columns (8 KB, one 128-byte swizzled row a
+// row) from the same 4-D maps as d = 64's.
+namespace f5 {
+constexpr int D = 512, BR = 64, BC = 64, CH = D / 64, kThreads = 384;
+constexpr int CHUNK = 64 * 64 * 2;     // 64 rows x 64 columns
+constexpr int KSLOTS = 12;             // the K ring, in chunks
+constexpr size_t kSmem = 1024 + (size_t)(2 * CH + KSLOTS) * CHUNK +
+                         (3 + 2 * KSLOTS) * sizeof(uint64_t);
+}  // namespace f5
+
+// Block (query tile, KV split) of (b, h): rows i0..i0+63, KV tiles
+// [jt0, jt1).  With one split it writes o and lse; with more, the split's
+// normalised O in fp32 and its log-sum-exp into ows / lws (row r of (b, h)
+// = z at (split * Z + z) * N + r), which attn_fwd_combine_kernel merges.
+__global__ void __launch_bounds__(f5::kThreads, 1)
+attn_fwd_d512_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     bf16* __restrict__ o, float* __restrict__ lse,
+                     float* __restrict__ ows, float* __restrict__ lws,
+                     int N, int M, int H, int Z, int splits, float scale) {
+  using namespace f5;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = base;                 // [CH][64 rows][64]
+  unsigned char* sK = sQ + CH * CHUNK;      // [KSLOTS][64 keys][64]
+  unsigned char* sV = sK + KSLOTS * CHUNK;  // [CH][64 keys][64]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + CH * CHUNK);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* kempty = kfull + KSLOTS;
+  uint64_t* vfull = kempty + KSLOTS;
+  uint64_t* vempty = vfull + 1;
+
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    hop::mbar_init(qbar, 1);
+    for (int s = 0; s < KSLOTS; ++s) {
+      hop::mbar_init(&kfull[s], 1);
+      hop::mbar_init(&kempty[s], 256);   // both warpgroups read every K chunk
+    }
+    hop::mbar_init(vfull, 1);
+    hop::mbar_init(vempty, 256);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int z = blockIdx.y, b = z / H, hh = z % H;
+  const int split = blockIdx.x % splits;
+  const int i0 = blockIdx.x / splits * BR;
+  const int n_tiles = (M + BC - 1) / BC;
+  const int jt0 = n_tiles * split / splits;
+  const int jt1 = n_tiles * (split + 1) / splits;
+
+  if (grp == 0) {
+    // ---- producer: Q once, then per KV tile its 8 K chunks, then V ----
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      hop::mbar_expect_tx(qbar, CH * CHUNK);
+      for (int c = 0; c < CH; ++c)
+        hop::tma_load_4d(sQ + c * CHUNK, &qmap, qbar, 64 * c, hh, i0, b);
+      int kit = 0;
+      for (int jt = jt0, vt = 0; jt < jt1; ++jt, ++vt) {
+        for (int c = 0; c < CH; ++c, ++kit) {
+          const int s = kit % KSLOTS;
+          hop::mbar_wait(&kempty[s], ((kit / KSLOTS) & 1) ^ 1);
+          hop::mbar_expect_tx(&kfull[s], CHUNK);
+          hop::tma_load_4d(sK + s * CHUNK, &kmap, &kfull[s], 64 * c, hh,
+                           jt * BC, b);
+        }
+        hop::mbar_wait(vempty, (vt & 1) ^ 1);
+        hop::mbar_expect_tx(vfull, CH * CHUNK);
+        for (int c = 0; c < CH; ++c)
+          hop::tma_load_4d(sV + c * CHUNK, &vmap, vfull, 64 * c, hh, jt * BC,
+                           b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns output columns 256cw..256cw+255 ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lane = tid % 32, warp = (tid / 32) % 4;
+  const int qd = lane % 4, g = lane / 4;
+  // logits in log2 units: exp(s * scale - m) = 2^(s * sl2 - m * log2 e)
+  const float sl2 = scale * 1.4426950408889634f;
+  float oacc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) oacc[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float sc[32];             // S of the tile: 64 rows x 64 keys
+  uint32_t pf[4][4];        // P in bf16, wgmma's register A per k16 step
+  // this warpgroup's half of V: chunks 4cw..4cw+3, 8 KB apart (LBO)
+  const uint64_t dv = hop::desc_sw128(sV + 4 * cw * CHUNK, CHUNK);
+  hop::mbar_wait(qbar, 0);
+
+  int kit = 0;
+  for (int jt = jt0, vt = 0; jt < jt1; ++jt, ++vt) {
+    // ---- S = Q K^T (both warpgroups: all 64 rows), 8 chunks of K ----
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hop::fence_regs<32>(sc);
+    int prev = -1;
+#pragma unroll 1
+    for (int c = 0; c < CH; ++c, ++kit) {
+      const int s = kit % KSLOTS;
+      const uint64_t dq = hop::desc_sw128(sQ + c * CHUNK);
+      const uint64_t dk = hop::desc_sw128(sK + s * CHUNK);
+      hop::mbar_wait(&kfull[s], (kit / KSLOTS) & 1);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)      // +32 bytes per k16 step
+        hop::wgmma_m64n64k16_ss(sc, dq + 2 * k, dk + 2 * k);
+      hop::wgmma_commit();
+      hop::wgmma_wait<1>();            // the previous chunk's products
+      if (prev >= 0) hop::mbar_arrive(&kempty[prev]);
+      prev = s;
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_regs<32>(sc);
+    hop::mbar_arrive(&kempty[prev]);
+
+    // ---- online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3) ----
+    const int j0 = jt * BC;
+    if (j0 + BC > M) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * j + 2 * qd + (e % 2) >= M) sc[4 * j + e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, corr[2], msc[2];
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r] * sl2);   // scale > 0
+      corr[r] = hop::exp2_approx(m_r[r] - m_new);
+      m_r[r] = m_new;
+      msc[r] = -m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pv[e] = hop::exp2_approx(fmaf(sc[4 * j + e], sl2, msc[e / 2]));
+        rsum[e / 2] += pv[e];
+      }
+      pf[j / 2][(j % 2) * 2] = dft::pack_bf16(pv[0], pv[1]);
+      pf[j / 2][(j % 2) * 2 + 1] = dft::pack_bf16(pv[2], pv[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l_r[r] = l_r[r] * corr[r] + rsum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      oacc[4 * j] *= corr[0];
+      oacc[4 * j + 1] *= corr[0];
+      oacc[4 * j + 2] *= corr[1];
+      oacc[4 * j + 3] *= corr[1];
+    }
+
+    // ---- O += P V on this warpgroup's 256 columns (V MN-major) ----
+    hop::mbar_wait(vfull, vt & 1);
+    hop::fence_regs<128>(oacc);
+    hop::fence_regs<16>(&pf[0][0]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)     // +16 keys = +2048 bytes
+      hop::wgmma_m64n256k16_rs_tb(oacc, pf[kk], dv + 128 * kk);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs<128>(oacc);
+    hop::fence_regs<16>(&pf[0][0]);
+    hop::mbar_arrive(vempty);
+  }
+
+  // ---- epilogue: O / l and the log-sum-exp, or the split's partials ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + warp * 16 + g + 8 * r;
+    if (row >= N) continue;
+    const float inv = 1.f / l_r[r];
+    const float lv = m_r[r] * 0.6931471805599453f + logf(l_r[r]);
+    if (splits == 1) {
+      bf16* orow = o + (((int64_t)b * N + row) * H + hh) * D + 256 * cw;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * qd) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv,
+                                  oacc[4 * j + 2 * r + 1] * inv);
+      if (cw == 0 && qd == 0) lse[(int64_t)z * N + row] = lv;
+    } else {
+      const int64_t prow = ((int64_t)split * Z + z) * N + row;
+      float* orow = ows + prow * D + 256 * cw;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * qd) =
+            make_float2(oacc[4 * j + 2 * r] * inv,
+                        oacc[4 * j + 2 * r + 1] * inv);
+      if (cw == 0 && qd == 0) lws[prow] = lv;
+    }
+  }
+}
+
+// Merges the KV splits of d = 512 in split order (no atomics): per row,
+// lse = log sum_s exp(lse_s) and o = sum_s exp(lse_s - lse) o_s; one
+// thread per 4 columns of a row.
+__global__ void attn_fwd_combine_kernel(const float* __restrict__ ows,
+                                        const float* __restrict__ lws,
+                                        bf16* __restrict__ o,
+                                        float* __restrict__ lse, int Z,
+                                        int N, int H, int splits) {
+  constexpr int D = f5::D;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t rows = (int64_t)Z * N;
+  const int64_t R = idx / (D / 4);
+  const int d0 = (int)(idx % (D / 4)) * 4;
+  if (R >= rows) return;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, lws[s * rows + R]);
+  float wsum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float w = expf(lws[s * rows + R] - m);
+    const float4 v =
+        *reinterpret_cast<const float4*>(ows + (s * rows + R) * D + d0);
+    wsum += w;
+    acc.x = fmaf(w, v.x, acc.x);
+    acc.y = fmaf(w, v.y, acc.y);
+    acc.z = fmaf(w, v.z, acc.z);
+    acc.w = fmaf(w, v.w, acc.w);
+  }
+  const float inv = 1.f / wsum;
+  const int z = (int)(R / N), i = (int)(R % N), b = z / H, hh = z % H;
+  bf16* out = o + (((int64_t)b * N + i) * H + hh) * D + d0;
+  *reinterpret_cast<__nv_bfloat162*>(out) =
+      __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+  *reinterpret_cast<__nv_bfloat162*>(out + 2) =
+      __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
+  if (d0 == 0) lse[R] = m + logf(wsum);
+}
+
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
@@ -785,19 +822,6 @@ attn_bwd_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
 
 }  // namespace
 
-// o, lse = attention(q, k, v) at d = 512 (the split-d mma.sync kernel);
-// all bf16 contiguous.
-extern "C" int attention_fwd_mma(const void* q, const void* k, const void* v,
-                                 void* o, float* lse, int B, int N, int M,
-                                 int H, int D, float scale,
-                                 cudaStream_t stream) {
-  if (D != 512) return (int)cudaErrorInvalidValue;
-  return launch_fwd<512, 32, 64, 8>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, B, N, M, H,
-      scale, stream);
-}
-
 // The same at d = 64 on wgmma, q [B, N, h, 64], k and v [B, M, h, 64],
 // each read through a TMA map over [B, tokens, h, 64].
 extern "C" int attention_fwd_wgmma(const void* q, const void* k,
@@ -826,6 +850,50 @@ extern "C" int attention_fwd_wgmma(const void* q, const void* k,
   dim3 grid((N + BR - 1) / BR, B * H);
   attn_fwd_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, N, M, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// The same at d = 512 on wgmma (the VAE mid-block), the KV range cut into
+// `splits` (1 <= splits <= the KV tiles of 64): with splits > 1, ows fp32
+// [splits * B*h*N * 512] and lws fp32 [splits * B*h*N] hold the partials.
+extern "C" int attention_fwd_wgmma_d512(const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
+                                        int B, int N, int M, int H,
+                                        int splits, float* ows, float* lws,
+                                        float scale, cudaStream_t stream) {
+  using namespace f5;
+  if (N == 0 || B * H == 0) return (int)cudaGetLastError();
+  const int n_tiles = (M + BC - 1) / BC;
+  if (M == 0 || splits < 1 || splits > n_tiles ||
+      (splits > 1 && (ows == nullptr || lws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t tokens = i == 0 ? N : M;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, tokens,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                   tokens * H * D * 2};
+    const cuuint32_t box[4] = {64, 1, 64, 1};
+    if (!hop::encode_bf16_map(&maps[i], ptrs[i], 4, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err =
+      hop::allow_smem(attn_fwd_d512_kernel, (int)kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int Z = B * H;
+  dim3 grid((N + BR - 1) / BR * splits, Z);
+  attn_fwd_d512_kernel<<<grid, kThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, ows, lws, N, M,
+      H, Z, splits, scale);
+  if (splits > 1) {
+    const int64_t threads = (int64_t)Z * N * (D / 4);
+    attn_fwd_combine_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
+                              stream>>>(ows, lws, static_cast<bf16*>(o), lse,
+                                        Z, N, H, splits);
+  }
   return (int)cudaGetLastError();
 }
 

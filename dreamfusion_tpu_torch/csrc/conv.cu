@@ -1,51 +1,76 @@
 // K12: NHWC 2-D convolution, forward and input gradient (dgrad).
 //
 // Replaces dreamfusion_tpu/ops/conv.py::mm_conv (:58; shifted einsums on the
-// TPU with a custom_vjp that transposes each einsum, :95).  Here the
+// TPU with a custom_vjp that transposes each einsum, :95), as MMConv calls
+// it in every tower: among them the conv_ins and the stride-2 downsamplers
+// of dreamfusion_tpu/models/unet.py (:324, :340) and models/vae.py (:89,
+// :96-98, after the (0, 1) jnp.pad).  Here the
 // convolution is an implicit GEMM: M = B*Ho*Wo output pixels, N = O output
 // channels, K = kh*kw*I (tap, input channel); no im2col buffer exists.
 //
 // Bound on the card: operations at the UNet and VAE shapes (512x512x128 ->
-// 128 at 3x3 is 77 GFLOP over 134 MB of traffic), bytes only for the
-// narrow fp32 conv_outs.  Three forward routes, picked by shape alone
-// (ops/conv.py::conv_route):
+// 128 at 3x3 is 77 GFLOP over 134 MB of traffic), bytes for the narrow
+// fp32 conv_outs and the VAE's conv_in (a 64 MB output from 3 channels).
+// Four forward routes, picked by shape alone (ops/conv.py::conv_route):
 //
-// wgmma (conv_fwd_wgmma; bf16, stride 1, I % 64 == 0: every 3x3 and 1x1
-// conv of the UNet's and the VAE's levels).  Hopper's own machinery, since
-// mma.sync reached only ~15% of the tensor cores' peak:
-//  - a block owns 128 output pixels x 128 output channels.  The pixels are a
-//    box of the output grid, bw x bh x bb (x, y, batch; 128 x 1 at W = 512,
-//    64 x 2 at 64², 8 x 8 x 2 at 8² and B = 2), so one tap's A tile is one
-//    rectangle of the input;
+// wgmma (conv_fwd_wgmma; bf16, stride 1 or 2, I % 64 == 0: every 3x3 and
+// 1x1 conv of the UNet's and the VAE's levels, and their downsamplers).
+// Hopper's own machinery, since mma.sync reached only ~15% of the tensor
+// cores' peak:
+//  - a block owns 128 output pixels x BN output channels (BN 128, or 64
+//    where 128-wide tiles would fill under half the SMs: the UNet's
+//    downsamplers).  The pixels are a box of the output grid, bw x bh x bb
+//    (x, y, batch; 128 x 1 at W = 512, 64 x 2 at 64², 8 x 8 x 2 at 8² and
+//    B = 2), so one tap's A tile is one rectangle of the input;
 //  - the K loop walks taps x I/64: one K block is 64 input channels, one
 //    128-byte swizzled row.  A producer thread issues two TMA copies per
-//    block: the A tile from a 4-D map over x [B, H, W, C] at (c0, x0 + s -
-//    pl, y0 + r - pt, b0), whose out-of-bounds zero fill (negative
-//    coordinates included) is the padding; the B tile from a 2-D map over
-//    w [O, kh*kw*I].  A 5-stage ring of 32 KB stages with full/empty
-//    mbarriers keeps four K blocks in flight;
+//    block: the A tile from a 4-D map over x [B, H, W, C] at (c0, x0*sw +
+//    s - pl, y0*sh + r - pt, b0), whose out-of-bounds zero fill (negative
+//    coordinates and past the end: the VAE's (0, 1) pad) is the padding;
+//    the B tile from a 2-D map over w [O, kh*kw*I].  At stride 2 the map's
+//    traversal strides (elementStrides 2 along W and H, a box of 2bw x 2bh)
+//    load every other pixel, bw x bh of them: a strided tap is still one
+//    copy, and the kernel is the stride-1 one.  A ring of 5 (BN 64: 8)
+//    stages with full/empty mbarriers keeps the K blocks in flight;
 //  - persistent blocks, one per SM, walk the tiles; their two consumer
 //    warpgroups (setmaxnreg moves the producer's registers to them) take
-//    the tiles in turns ("pingpong"), each running wgmma m64n128k16 on all
-//    128 pixels of its tile (128 fp32 accumulators a thread), so that one
-//    warpgroup's epilogue runs under the other's products;
+//    the tiles in turns ("pingpong"), each running wgmma m64nBNk16 on all
+//    128 pixels of its tile, so that one warpgroup's epilogue runs under
+//    the other's products;
 //  - epilogue: + bias in fp32, one rounding into a swizzled bf16 staging
 //    tile, then TMA stores through a map over y, which clip the ragged
 //    pixels and channels (fp32 output, split-K partials or O % 8 != 0:
 //    stores straight from the registers, masked);
 //  - split-K (the UNet's deep levels: 8x8x1280 at CFG batch 2 is 10 output
 //    tiles for 132 SMs): fp32 partials, summed in split order by
-//    conv_splitk_reduce (deterministic; no atomics).
+//    conv_splitk_reduce (deterministic; no atomics).  Stride 1 splits for
+//    two blocks per SM; stride 2 for one: the strided convs are bound by
+//    their tiles' traffic out of L2, which a split does not cut.
 //
-// mma.sync (conv_fwd_mma; the rest of bf16: the padded 3- and 4-channel
-// conv_in, I % 64 != 0, stride 2; and every dgrad): 128x128x32 tiles in
-// shared memory, filled by 16-byte cp.async copies (zero-filled outside the
-// image and past K) in a two-stage ring, fragments by ldmatrix, products by
-// mma.sync m16n8k16 bf16 with fp32 accumulation.  The weights are [O, kh,
-// kw, I] (I contiguous), so a B tile row is one output channel's contiguous
-// K slice; the path needs I % 8 == 0 (the wrapper pads narrower inputs
-// with zero channels).  fp32 convs that the narrow route does not take run
-// one thread per output value.
+// Narrow-input wgmma (conv_fwd_wgmma_i8; bf16, stride 1, I <= 8, at most
+// 10 taps: the VAE's 3-channel and the UNet's 4-channel conv_in).  One tap
+// of 8 channels is one 16-byte core-matrix column, and a wgmma k16 step
+// takes two taps (K = 9 taps x 8 rounded to 80, the tenth chunk zero), from
+// tiles without swizzle.  A first design loaded each tap's [128 pixels][8]
+// box by TMA: ~2,400 box rows of 16 bytes per tile, 4.7x the VAE conv_in's
+// byte bound.  So x is first copied by pad_channels8_kernel (in the same
+// launch) to [B, Ho+kh-1, Wo+kw-1, 8], zero-padded in channels and space:
+// then a tap's A rows for one row of the pixel box are contiguous, one 1-D
+// bulk copy (bh x bb of them per tap), and the borders need no fill.  The
+// weight is packed once per weight as [O/BN][10][BN][8] (ops/conv.py
+// caches it by the weight's version): an N tile's B is one bulk copy.  A
+// tile's whole K is one stage; the epilogue is the wgmma route's, TMA
+// stores at full width (the VAE's 64 MB output).
+//
+// mma.sync (conv_fwd_mma; the rest: fp32 with O > 8 or I % 4 != 0, bf16
+// with 8 < I, I % 64 != 0 or a stride above 2 -- no conv of the SD step --
+// and every dgrad): 128x128x32 tiles in shared memory, filled by 16-byte
+// cp.async copies (zero-filled outside the image and past K) in a two-stage
+// ring, fragments by ldmatrix, products by mma.sync m16n8k16 bf16 with fp32
+// accumulation.  The weights are [O, kh, kw, I] (I contiguous), so a B tile
+// row is one output channel's contiguous K slice; the path needs I % 8 == 0
+// (the wrapper pads narrower inputs with zero channels).  fp32 convs that
+// the narrow route does not take run one thread per output value.
 //
 // fp32 narrow (conv_fwd_fp32; fp32, O <= 8, I % 4 == 0: the UNet's and
 // the VAE encoder's conv_out, the quant convs): a few hundred MFLOP over a
@@ -411,20 +436,38 @@ __global__ void __launch_bounds__(256) conv_narrow_kernel(ConvParams p) {
 // ---------------------------------------------------------------------------
 
 namespace wg {
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 5, kThreads = 384;
-constexpr int TILE_A = BM * BK * 2, TILE_B = BN * BK * 2;   // 16 KB each
-constexpr int STAGE = TILE_A + TILE_B;
-constexpr int OUT = BM * BN * 2;        // a warpgroup's bf16 output staging
-constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE + 2 * OUT +
-                         2 * STAGES * sizeof(uint64_t);
+constexpr int BM = 128, BK = 64, kThreads = 384;
+constexpr int CORE = BM * 16;           // one 8-channel tap of 128 rows: 2 KB
+constexpr int NARROW_K = 10;            // the narrow route's 8-channel K chunks
+// A tile is 128 pixels x BN output channels (128, or 64 for the strided
+// and narrow convs whose 128-wide tiles would fill under half the SMs).
+template <bool NARROW, int BN>
+struct Cfg {
+  // wide: A [128 pixels][64] and B [BN channels][64]; narrow: A as
+  // NARROW_K chunks of [128][8], B as NARROW_K chunks of [BN][8]
+  static constexpr int TILE_A = NARROW ? NARROW_K * CORE : BM * BK * 2;
+  static constexpr int TILE_B = NARROW ? NARROW_K * BN * 16 : BN * BK * 2;
+  static constexpr int STAGE = TILE_A + TILE_B;
+  static constexpr int STAGES = NARROW ? (BN == 128 ? 4 : 5)
+                                       : (BN == 128 ? 5 : 8);
+  static constexpr int OUT = BM * BN * 2;   // a warpgroup's bf16 staging
+  static constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE + 2 * OUT +
+                                  2 * STAGES * sizeof(uint64_t);
+  static_assert(kSmem <= 232448, "shared memory");
+};
 }  // namespace wg
 
 struct WgConv {
   int B, Ho, Wo, O;       // output grid
-  int C, kw, pt, pl;      // input channels (% 64 == 0), taps along x, pads
+  int C, kw, pt, pl;      // input channels (% 64 == 0; narrow: 8), pads
+  int sh, sw;             // strides (1 or 2)
+  int taps;               // kh * kw (the narrow route's A chunks)
   int bw, bh, bb;         // the pixel box of one tile (bw * bh * bb = 128)
+  const unsigned char* xp;  // narrow: x padded [B, Hp, Wp, 8] and the
+  const unsigned char* wp;  // packed weight [O/BN][10][BN][8]
+  int Hp, Wp;
   int tiles_x, tiles_y, tiles_pix, tiles_n, tiles;   // tiles over all splits
-  int kblocks;            // kh * kw * C / 64
+  int kblocks;            // kh * kw * C / 64 (narrow: 1)
   int splits;
   const float* bias;
   void* y;
@@ -438,9 +481,10 @@ struct WgTile {
   int x0, y0, b0, n0, split, kb0, kb1;
 };
 
+template <int BN>
 __device__ __forceinline__ WgTile wg_tile(const WgConv& p, int t) {
   WgTile w;
-  w.n0 = (t % p.tiles_n) * wg::BN;
+  w.n0 = (t % p.tiles_n) * BN;
   t /= p.tiles_n;
   const int pix = t % p.tiles_pix;
   w.split = t / p.tiles_pix;
@@ -452,36 +496,60 @@ __device__ __forceinline__ WgTile wg_tile(const WgConv& p, int t) {
   return w;
 }
 
+// d[64 x BN] += A[64 x 16] B[16 x BN], both from shared memory
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 128)
+    hop::wgmma_m64n128k16_ss(d, da, db);
+  else
+    hop::wgmma_m64n64k16_ss(d, da, db);
+}
+
 // Persistent: block i takes tiles i, i + gridDim.x, ...; its producer warp
 // streams their K blocks through one ring, and its two consumer warpgroups
 // take the tiles in turns ("pingpong"): while one runs its epilogue the
 // other's products keep the tensor cores busy.  Named barriers 1 and 2
 // pass the turn to issue a tile's products; 3 and 4 are each warpgroup's own.
+// NARROW: the 8-channel route; a tile's whole K (its taps x 8 channels) is
+// one stage of plain bulk copies (no tensor maps for x and w).
+template <bool NARROW, int BN>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap ymap, WgConv p) {
+  using C = wg::Cfg<NARROW, BN>;
   extern __shared__ unsigned char smem_buf[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
-  // the ring: stage s holds A [128 pixels][64] then B [128 channels][64];
-  // then each consumer's output staging, two [128][64] swizzled halves
+  // the ring: stage s holds A then B; then each consumer's output staging,
+  // BN / 64 swizzled [128][64] halves
   unsigned char* ring = base;
-  bf16* stage_out = reinterpret_cast<bf16*>(base + wg::STAGES * wg::STAGE);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + wg::STAGES * wg::STAGE +
-                                               2 * wg::OUT);
-  uint64_t* empty = full + wg::STAGES;
+  bf16* stage_out = reinterpret_cast<bf16*>(base + C::STAGES * C::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::STAGES * C::STAGE +
+                                               2 * C::OUT);
+  uint64_t* empty = full + C::STAGES;
 
   const int tid = threadIdx.x, grp = tid / 128;
   if (tid == 0) {
-    for (int s = 0; s < wg::STAGES; ++s) {
+    for (int s = 0; s < C::STAGES; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], 128);   // the consuming warpgroup's threads
     }
     hop::mbar_fence_init();
   }
+  if (NARROW) {
+    // A's chunks past the taps are never loaded: zero them once (their
+    // weight rows are zero too, but 0 x stale bits may be NaN)
+    for (int s = 0; s < C::STAGES; ++s) {
+      uint4* a = reinterpret_cast<uint4*>(ring + s * C::STAGE);
+      for (int i = p.taps * wg::CORE / 16 + tid; i < C::TILE_A / 16;
+           i += wg::kThreads)
+        a[i] = make_uint4(0, 0, 0, 0);
+    }
+    hop::fence_proxy_async();
+  }
   __syncthreads();
-  const int cblocks = p.C / wg::BK;
 
   if (grp == 0) {
     // ---- producer: one thread streams every tile's K blocks ----
@@ -489,17 +557,48 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     if (tid != 0) return;
     int it = 0;
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-      const WgTile w = wg_tile(p, t);
+      const WgTile w = wg_tile<BN>(p, t);
       for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
-        const int s = it % wg::STAGES;
-        hop::mbar_wait(&empty[s], ((it / wg::STAGES) & 1) ^ 1);
-        const int tap = kb / cblocks, cb = kb - tap * cblocks;
-        const int r = tap / p.kw, u = tap - r * p.kw;
-        unsigned char* st = ring + s * wg::STAGE;
-        hop::mbar_expect_tx(&full[s], wg::STAGE);
-        hop::tma_load_4d(st, &xmap, &full[s], cb * wg::BK, w.x0 + u - p.pl,
-                         w.y0 + r - p.pt, w.b0);
-        hop::tma_load_2d(st + wg::TILE_A, &wmap, &full[s], kb * wg::BK, w.n0);
+        const int s = it % C::STAGES;
+        hop::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * C::STAGE;
+        if (NARROW) {
+          // per tap, one copy per row of the pixel box: pixels x0 + u ..
+          // x0 + u + bw - 1 of padded row y + r (a row past the output or
+          // an image past B reads row 0: its pixels are clipped at the
+          // store, as are those past Wo, read from the next row or the
+          // buffer's slack); then the N tile's weight, one copy
+          const int seg = p.bw * 16;
+          hop::mbar_expect_tx(&full[s],
+                              p.taps * p.bh * p.bb * seg + C::TILE_B);
+          for (int tap = 0; tap < p.taps; ++tap) {
+            const int r = tap / p.kw, u = tap - r * p.kw;
+            for (int row = 0; row < p.bh * p.bb; ++row) {
+              const int y = w.y0 + row % p.bh, b = w.b0 + row / p.bh;
+              const int64_t px =
+                  y < p.Ho && b < p.B
+                      ? ((int64_t)b * p.Hp + y + r) * p.Wp + w.x0 + u
+                      : 0;
+              hop::bulk_load(st + tap * wg::CORE + row * seg, p.xp + px * 16,
+                             seg, &full[s]);
+            }
+          }
+          hop::bulk_load(st + C::TILE_A,
+                         p.wp + (int64_t)(w.n0 / BN) * C::TILE_B, C::TILE_B,
+                         &full[s]);
+        } else {
+          const int cblocks = p.C / wg::BK;
+          const int tap = kb / cblocks, cb = kb - tap * cblocks;
+          const int r = tap / p.kw, u = tap - r * p.kw;
+          // at stride 2 the map walks every other pixel (its traversal
+          // strides): the box starts at the tap's first source pixel
+          hop::mbar_expect_tx(&full[s], C::STAGE);
+          hop::tma_load_4d(st, &xmap, &full[s], cb * wg::BK,
+                           w.x0 * p.sw + u - p.pl, w.y0 * p.sh + r - p.pt,
+                           w.b0);
+          hop::tma_load_2d(st + C::TILE_A, &wmap, &full[s], kb * wg::BK,
+                           w.n0);
+        }
       }
     }
     return;
@@ -513,34 +612,48 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   auto my_turn = [&]() { hop::bar_sync(1 + cw, 256); };
   auto pass_turn = [&]() { hop::bar_arrive(2 - cw, 256); };
   if (cw == 1) pass_turn();          // warpgroup 0 goes first
-  bf16* so = stage_out + cw * (wg::OUT / 2);
+  bf16* so = stage_out + cw * (C::OUT / 2);
   const int64_t total = (int64_t)p.B * p.Ho * p.Wo * p.O;
   int it = 0;
   for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {
-    const WgTile w = wg_tile(p, t);
+    const WgTile w = wg_tile<BN>(p, t);
     if (i % 2 != cw) {               // the other warpgroup's tile
       it += w.kb1 - w.kb0;
       continue;
     }
-    float acc[2][64];
+    float acc[2][BN / 2];
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc[m][e] = 0.f;
+      for (int e = 0; e < BN / 2; ++e) acc[m][e] = 0.f;
     my_turn();
     int prev = -1;
     for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
-      const int s = it % wg::STAGES;
-      hop::mbar_wait(&full[s], (it / wg::STAGES) & 1);
-      const unsigned char* st = ring + s * wg::STAGE;
-      const uint64_t da = hop::desc_sw128(st);
-      const uint64_t db = hop::desc_sw128(st + wg::TILE_A);
-      hop::wgmma_fence();
+      const int s = it % C::STAGES;
+      hop::mbar_wait(&full[s], (it / C::STAGES) & 1);
+      const unsigned char* st = ring + s * C::STAGE;
+      // (descriptor + n moves its start by 16n bytes)
+      if (NARROW) {
+        // k16 step k: taps 2k and 2k + 1 (A +4 KB, B +2 BN * 16 bytes);
+        // rows 64..127 at +1 KB
+        const uint64_t da = hop::desc_plain(st, wg::CORE, 128);
+        const uint64_t db = hop::desc_plain(st + C::TILE_A, BN * 16, 128);
+        hop::wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < wg::BK / 16; ++k) {   // +32 bytes per k16 step
-        hop::wgmma_m64n128k16_ss(acc[0], da + 2 * k, db + 2 * k);
-        hop::wgmma_m64n128k16_ss(acc[1], da + 512 + 2 * k, db + 2 * k);
-      }                                          // (+8 KB: rows 64..127)
+        for (int k = 0; k < wg::NARROW_K / 2; ++k) {
+          wgmma_tile<BN>(acc[0], da + 256 * k, db + 2 * BN * k);
+          wgmma_tile<BN>(acc[1], da + 64 + 256 * k, db + 2 * BN * k);
+        }
+      } else {
+        const uint64_t da = hop::desc_sw128(st);
+        const uint64_t db = hop::desc_sw128(st + C::TILE_A);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < wg::BK / 16; ++k) {   // +32 bytes per k16 step
+          wgmma_tile<BN>(acc[0], da + 2 * k, db + 2 * k);
+          wgmma_tile<BN>(acc[1], da + 512 + 2 * k, db + 2 * k);
+        }                                          // (+8 KB: rows 64..127)
+      }
       hop::wgmma_commit();
       hop::wgmma_wait<1>();          // the previous stage's products are done
       if (prev >= 0) hop::mbar_arrive(&empty[prev]);
@@ -557,7 +670,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       if (lt == 0) hop::bulk_wait_read();
       hop::bar_sync(3 + cw, 128);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         const int n = w.n0 + 8 * j + 2 * q;
         const float b0 = p.bias && n < p.O ? p.bias[n] : 0.f;
         const float b1 = p.bias && n + 1 < p.O ? p.bias[n + 1] : 0.f;
@@ -577,7 +690,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       hop::bar_sync(3 + cw, 128);
       if (lt == 0) {
         hop::tma_store_4d(&ymap, so, w.n0, w.x0, w.y0, w.b0);
-        if (w.n0 + 64 < p.O)
+        if (BN == 128 && w.n0 + 64 < p.O)
           hop::tma_store_4d(&ymap, so + wg::BM * 64, w.n0 + 64, w.x0, w.y0,
                             w.b0);
         hop::bulk_commit();
@@ -595,7 +708,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         if (x >= p.Wo || y >= p.Ho || b >= p.B) continue;
         const int64_t o = (((int64_t)b * p.Ho + y) * p.Wo + x) * p.O;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BN / 8; ++j) {
           const int n = w.n0 + 8 * j + 2 * q;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -615,6 +728,66 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       }
   }
   if (lt == 0) hop::bulk_wait();     // stores done before the block ends
+}
+
+// xp[b, y, x] = x[b, y - pt, x - pl, 0..I) then zero channels, zero outside
+// x: [B, Hp, Wp, 8], one 16-byte row a pixel
+__global__ void pad_channels8_kernel(const bf16* __restrict__ x,
+                                     uint4* __restrict__ xp, int B, int H,
+                                     int W, int I, int Hp, int Wp, int pt,
+                                     int pl) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)B * Hp * Wp) return;
+  const int xx = (int)(i % Wp) - pl, yy = (int)(i / Wp % Hp) - pt;
+  const int64_t b = i / ((int64_t)Wp * Hp);
+  const bool in = xx >= 0 && xx < W && yy >= 0 && yy < H;
+  const bf16* src = x + ((b * H + (in ? yy : 0)) * W + (in ? xx : 0)) * I;
+  __align__(16) bf16 v[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    v[c] = in && c < I ? src[c] : __float2bfloat16(0.f);
+  xp[i] = *reinterpret_cast<const uint4*>(v);
+}
+
+// Fills the tiling of `p` (output grid, box, O, splits, K blocks), encodes
+// y's store map when the epilogue stores by TMA, and launches the kernel
+// (and the split-K reduction) on at most `sms` persistent blocks.
+template <bool NARROW, int BN>
+int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                 WgConv& p, int sms, cudaStream_t stream) {
+  using C = wg::Cfg<NARROW, BN>;
+  CUtensorMap ymap = xmap;           // unused without TMA stores
+  p.tma_store = !p.out_f32 && p.splits == 1 && p.O % 8 == 0;
+  if (p.tma_store) {   // y [B, Ho, Wo, O] in boxes of 64 channels x the pixels
+    const cuuint64_t yd[4] = {(cuuint64_t)p.O, (cuuint64_t)p.Wo,
+                              (cuuint64_t)p.Ho, (cuuint64_t)p.B};
+    const cuuint64_t ys[3] = {(cuuint64_t)p.O * 2, (cuuint64_t)p.Wo * p.O * 2,
+                              (cuuint64_t)p.Ho * p.Wo * p.O * 2};
+    const cuuint32_t yb[4] = {(cuuint32_t)wg::BK, (cuuint32_t)p.bw,
+                              (cuuint32_t)p.bh, (cuuint32_t)p.bb};
+    if (!hop::encode_bf16_map(&ymap, p.y, 4, yd, ys, yb))
+      return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err =
+      hop::allow_smem(conv_wgmma_kernel<NARROW, BN>, (int)C::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  p.tiles_x = (p.Wo + p.bw - 1) / p.bw;
+  p.tiles_y = (p.Ho + p.bh - 1) / p.bh;
+  p.tiles_pix = p.tiles_x * p.tiles_y * ((p.B + p.bb - 1) / p.bb);
+  p.tiles_n = (p.O + BN - 1) / BN;
+  p.tiles = p.tiles_pix * p.tiles_n * p.splits;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  conv_wgmma_kernel<NARROW, BN><<<grid, wg::kThreads, C::kSmem, stream>>>(
+      xmap, wmap, ymap, p);
+  if (p.splits > 1) {
+    ConvParams r{nullptr, nullptr, p.bias, p.y, p.B, 0, 0, 0, p.Ho, p.Wo,
+                 p.O, 0, 0, 1, 1, 0, 0, p.out_f32, p.splits, p.ws};
+    const int64_t total = (int64_t)p.B * p.Ho * p.Wo * p.O;
+    conv_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        r);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <bool DGRAD>
@@ -676,71 +849,89 @@ extern "C" int conv_dgrad(const void* dy, const void* wT, void* dx, int B,
 }
 
 // The Hopper route: y[B,Ho,Wo,O] = conv(x[B,H,W,I], w[O,kh,kw,I]) + bias at
-// stride 1, bf16 x and w, I % 64 == 0; the tile's pixel box is bw x bh x bb
-// (product 128); persistent blocks on at most `sms` multiprocessors.
-// splits > 1 needs ws, fp32 [splits * B*Ho*Wo*O].
+// stride sh, sw (1 or 2), bf16 x and w, I % 64 == 0; the tile is a box of
+// bw x bh x bb output pixels (product 128; bw * sw and bh * sh at most
+// 256, TMA's box limit) by bn (128 or 64) output channels; persistent
+// blocks on at most `sms` multiprocessors.  splits > 1 needs ws, fp32
+// [splits * B*Ho*Wo*O].
 extern "C" int conv_fwd_wgmma(const void* x, const void* w, const float* bias,
                               void* y, int B, int H, int W, int I, int Ho,
-                              int Wo, int O, int kh, int kw, int pt, int pl,
-                              int bw, int bh, int bb, int out_f32, int splits,
-                              int sms, float* ws, cudaStream_t stream) {
-  if (I % wg::BK || bw * bh * bb != wg::BM || splits < 1 || sms < 1 ||
-      (splits > 1 && ws == nullptr))
+                              int Wo, int O, int kh, int kw, int sh, int sw,
+                              int pt, int pl, int bw, int bh, int bb, int bn,
+                              int out_f32, int splits, int sms, float* ws,
+                              cudaStream_t stream) {
+  if (I % wg::BK || bw * bh * bb != wg::BM || (bn != 128 && bn != 64) ||
+      splits < 1 || sms < 1 || sh < 1 || sh > 2 || sw < 1 || sw > 2 ||
+      bw * sw > 256 || bh * sh > 256 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((int64_t)B * Ho * Wo == 0 || O == 0) return (int)cudaGetLastError();
-  CUtensorMap xmap, wmap, ymap;
+  CUtensorMap xmap, wmap;
+  // x [B, H, W, C]: one tap's A tile is a box of bw x bh x bb pixels,
+  // every sw-th along W and sh-th along H (the map's traversal strides)
   const cuuint64_t xd[4] = {(cuuint64_t)I, (cuuint64_t)W, (cuuint64_t)H,
                             (cuuint64_t)B};
   const cuuint64_t xs[3] = {(cuuint64_t)I * 2, (cuuint64_t)W * I * 2,
                             (cuuint64_t)H * W * I * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)wg::BK, (cuuint32_t)bw,
-                             (cuuint32_t)bh, (cuuint32_t)bb};
+  const cuuint32_t box[4] = {(cuuint32_t)wg::BK, (cuuint32_t)(bw * sw),
+                             (cuuint32_t)(bh * sh), (cuuint32_t)bb};
+  const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
   const cuuint64_t K = (cuuint64_t)kh * kw * I;
   const cuuint64_t wd[2] = {K, (cuuint64_t)O};
   const cuuint64_t wst[1] = {K * 2};
-  const cuuint32_t wb[2] = {(cuuint32_t)wg::BK, (cuuint32_t)wg::BN};
-  if (!hop::encode_bf16_map(&xmap, x, 4, xd, xs, box) ||
+  const cuuint32_t wb[2] = {(cuuint32_t)wg::BK, (cuuint32_t)bn};
+  if (!hop::encode_bf16_map(&xmap, x, 4, xd, xs, box, elem) ||
       !hop::encode_bf16_map(&wmap, w, 2, wd, wst, wb))
     return (int)cudaErrorInvalidValue;
-  const bool tma_store = !out_f32 && splits == 1 && O % 8 == 0;
-  if (tma_store) {   // y [B, Ho, Wo, O] in boxes of 64 channels x the pixels
-    const cuuint64_t yd[4] = {(cuuint64_t)O, (cuuint64_t)Wo, (cuuint64_t)Ho,
-                              (cuuint64_t)B};
-    const cuuint64_t ys[3] = {(cuuint64_t)O * 2, (cuuint64_t)Wo * O * 2,
-                              (cuuint64_t)Ho * Wo * O * 2};
-    if (!hop::encode_bf16_map(&ymap, y, 4, yd, ys, box))
-      return (int)cudaErrorInvalidValue;
-  } else {
-    ymap = xmap;     // unused
-  }
-  static bool smem_set[hop::kMaxDevices] = {};
-  const cudaError_t err =
-      hop::allow_smem(conv_wgmma_kernel, (int)wg::kSmem, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  WgConv p;
+  WgConv p{};
   p.B = B; p.Ho = Ho; p.Wo = Wo; p.O = O;
   p.C = I; p.kw = kw; p.pt = pt; p.pl = pl;
+  p.sh = sh; p.sw = sw; p.taps = kh * kw;
   p.bw = bw; p.bh = bh; p.bb = bb;
-  p.tiles_x = (Wo + bw - 1) / bw;
-  p.tiles_y = (Ho + bh - 1) / bh;
-  p.tiles_pix = p.tiles_x * p.tiles_y * ((B + bb - 1) / bb);
-  p.tiles_n = (O + wg::BN - 1) / wg::BN;
-  p.tiles = p.tiles_pix * p.tiles_n * splits;
   p.kblocks = (int)(K / wg::BK);
   p.splits = splits;
-  p.bias = bias; p.y = y; p.out_f32 = out_f32; p.tma_store = tma_store;
+  p.bias = bias; p.y = y; p.out_f32 = out_f32;
   p.ws = ws;
-  const int grid = p.tiles < sms ? p.tiles : sms;
-  conv_wgmma_kernel<<<grid, wg::kThreads, wg::kSmem, stream>>>(xmap, wmap,
-                                                               ymap, p);
-  if (splits > 1) {
-    ConvParams r{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, 1, 1, pt, pl,
-                 out_f32, splits, ws};
-    const int64_t total = (int64_t)B * Ho * Wo * O;
-    conv_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        r);
-  }
-  return (int)cudaGetLastError();
+  return bn == 128 ? launch_wgmma<false, 128>(xmap, wmap, p, sms, stream)
+                   : launch_wgmma<false, 64>(xmap, wmap, p, sms, stream);
+}
+
+// The narrow-input Hopper route (the 3- and 4-channel conv_ins): the same
+// at stride 1 for x [B,H,W,I], I <= 8, kh*kw <= 10 taps, bn 128 or 64, and
+// the weight packed as [ceil(O/bn)][10][bn][8] (chunk t = tap t's channels,
+// zero past the taps, past I and past O).  xp is scratch of at least
+// B*Hp*Wp + 256 rows of 16 bytes (Hp = Ho+kh-1, Wp = Wo+kw-1): x padded,
+// and slack for the ragged box's reads past the last row.
+extern "C" int conv_fwd_wgmma_i8(const void* x, void* xp, const void* w,
+                                 const float* bias, void* y, int B, int H,
+                                 int W, int I, int Ho, int Wo, int O, int kh,
+                                 int kw, int pt, int pl, int bw, int bh,
+                                 int bb, int bn, int out_f32, int sms,
+                                 cudaStream_t stream) {
+  if (kh * kw > wg::NARROW_K || bw * bh * bb != wg::BM || I < 1 || I > 8 ||
+      (bn != 128 && bn != 64) || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Ho * Wo == 0 || O == 0) return (int)cudaGetLastError();
+  WgConv p{};
+  p.B = B; p.Ho = Ho; p.Wo = Wo; p.O = O;
+  p.C = 8; p.kw = kw; p.pt = 0; p.pl = 0;
+  p.sh = 1; p.sw = 1; p.taps = kh * kw;
+  p.bw = bw; p.bh = bh; p.bb = bb;
+  p.xp = static_cast<const unsigned char*>(xp);
+  p.wp = static_cast<const unsigned char*>(w);
+  p.Hp = Ho + kh - 1;
+  p.Wp = Wo + kw - 1;
+  p.kblocks = 1;
+  p.splits = 1;
+  p.bias = bias; p.y = y; p.out_f32 = out_f32;
+  p.ws = nullptr;
+  const int64_t padded = (int64_t)B * p.Hp * p.Wp;
+  pad_channels8_kernel<<<(unsigned)((padded + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<uint4*>(xp), B, H, W, I, p.Hp,
+      p.Wp, pt, pl);
+  CUtensorMap none;                  // x and w go by plain bulk copies
+  memset(&none, 0, sizeof none);
+  return bn == 128 ? launch_wgmma<true, 128>(none, none, p, sms, stream)
+                   : launch_wgmma<true, 64>(none, none, p, sms, stream);
 }
 
 // The narrow fp32 route: fp32 x and w, O <= 8, I % 4 == 0, any stride and

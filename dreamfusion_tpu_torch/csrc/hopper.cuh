@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by conv.cu (K12) and attention.cu
-// (K10): TMA tensor maps and bulk tensor copies, mbarriers, wgmma on
-// 128-byte-swizzled shared-memory tiles, and setmaxnreg.
+// (K10): TMA tensor maps, bulk tensor and plain bulk copies, mbarriers,
+// wgmma on shared-memory tiles (128-byte-swizzled or not), and setmaxnreg.
 //
-// Shared-memory operands.  Every tile here is rows of 64 bf16 (one
+// Shared-memory operands.  Most tiles here are rows of 64 bf16 (one
 // 128-byte row) written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte
 // chunk c of row r sits at chunk c ^ (r % 8), so a group of 8 rows is one
 // 1024-byte swizzle atom and every tile starts on a 1024-byte boundary.
@@ -11,7 +11,12 @@
 //    apart (SBO); a k16 step moves the start address by 32 bytes.
 //  - MN-major operand (N contiguous: attention's V as the B of P V, rows
 //    are keys = K): one atom holds 64 N x 8 K, atoms along K 1024 bytes
-//    apart (SBO); a k16 step moves the start by 2048 bytes.
+//    apart (SBO), along N LBO apart (d = 512's V: 64-column chunks 8 KB
+//    apart); a k16 step moves the start by 2048 bytes.
+//  - K-major without swizzle (the conv's narrow inputs, 8 channels = 16
+//    bytes a pixel): a core matrix is 8 rows x 16 bytes, 128 contiguous
+//    bytes; core matrices along M or N are SBO apart, the two along K of a
+//    k16 step LBO apart (desc_plain).
 //
 // wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup owns rows
 // 16w..16w+15; with g = lane / 4, q = lane % 4, registers 4j..4j+3 hold
@@ -101,6 +106,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// global -> shared, `bytes` contiguous (a multiple of 16, both ends
+// 16-byte aligned), completing on `bar` as TMA's tensor copies do
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // shared -> global through a tensor map (bulk group of the issuing thread)
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
@@ -163,10 +179,23 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // ---- wgmma ----------------------------------------------------------------
 
 // descriptor of a 128-byte-swizzled tile at `p` (1024-byte-aligned atoms):
-// start >> 4, LBO 1 (unused by these layouts), SBO 1024 >> 4, swizzle 128B
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// start >> 4, LBO (only MN-major operands wider than 64 use it; 16 bytes
+// otherwise), SBO 1024 >> 4, swizzle 128B
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo = 16) {
   const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// descriptor of a K-major tile without swizzle (core matrices of 8 rows x
+// 16 bytes): LBO between the two core matrices along K, SBO between
+// those along M or N
+__device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -255,6 +284,83 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64x64] += A[64x16] B[16x64]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64x256] += A[64x16] B[16x256]; A in registers (a[4], mma.sync's A
+// layout per warp), B MN-major in shared memory (transposed)
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float* d,
+                                                       const uint32_t* a,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---- host: tensor maps ----------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -281,7 +387,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 struct MapKey {
   const void* base;
   cuuint64_t dims[5], strides[4];
-  cuuint32_t box[5];
+  cuuint32_t box[5], elem[5];
   int rank;
 };
 
@@ -295,15 +401,18 @@ constexpr int kMapCache = 1024;
 
 // A bf16 tiled map of `rank` (<= 5) dims (dims[0] contiguous; strides in
 // bytes of dims 1..rank-1), 128-byte swizzle, zero fill out of bounds
-// (negative coordinates included).  Returns false when the driver refuses
-// it.  The maps are cached by their arguments, per host thread and direct-
-// mapped: a step runs the same convs on the same weights and, through
-// PyTorch's caching allocator, mostly on the same activation blocks, so
-// most encodes repeat one already made.  A map is a function of its key,
-// so a hit is exact.
+// (negative coordinates included).  `elem` (null: all 1) are the traversal
+// strides: with elem[i] = 2 a box of 2n along dim i loads every other
+// element, n of them (the stride-2 conv's taps).  Returns false when
+// cuTensorMapEncodeTiled refuses the arguments.  The maps are
+// cached by their arguments, per host thread and direct-mapped: a step
+// runs the same convs on the same weights and, through PyTorch's caching
+// allocator, mostly on the same activation blocks, so most encodes repeat
+// one already made.  A map is a function of its key, so a hit is exact.
 inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+                            const cuuint32_t* box,
+                            const cuuint32_t* elem = nullptr) {
   if (rank < 1 || rank > 5) return false;
   MapKey key;
   memset(&key, 0, sizeof key);     // the padding too: keys compare as bytes
@@ -312,6 +421,7 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
+    key.elem[i] = elem ? elem[i] : 1;
     if (i + 1 < rank) key.strides[i] = strides[i];
   }
   uint64_t h = 1469598103934665603ull;     // FNV-1a over the key's bytes
@@ -325,9 +435,8 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   }
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-         const_cast<void*>(base), dims, strides, box, elem,
+         const_cast<void*>(base), dims, strides, box, key.elem,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)

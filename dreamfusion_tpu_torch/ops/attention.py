@@ -7,11 +7,13 @@ dtype, scale 1/√d.  Both JAX versions take the logits' statistics in fp32
 and round P to the input dtype before P·V; this one does too.
 
 On a CUDA tensor the forward is one launch of ``csrc/attention.cu``
-(flash-style, bf16): at d = 64 the Hopper kernel (wgmma, operands by TMA;
-counter ``attention_fwd_wgmma``), at d = 512 the mma.sync one
-(``attention_fwd_mma``); ``attention_route`` picks by d alone.  The
-backward is one launch of ``attention_bwd``.  On a CPU tensor the
-plain version runs (the dense form) and its backward is autograd of it.
+(flash-style, bf16, wgmma with operands by TMA): at d = 64 the UNet's
+kernel (counter ``attention_fwd_wgmma``), at d = 512 the VAE mid-block's
+(``attention_fwd_wgmma_d512``: its KV range split over ``kv_splits``
+blocks, merged by a second kernel of the same launch);
+``attention_route`` picks by d alone.  The backward is one launch of
+``attention_bwd``.  On a CPU tensor the plain version runs (the dense
+form) and its backward is autograd of it.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ def _check(q, k, v):
     return B, N, k.shape[1], H, D
 
 
-_ROUTES = {64: "attention_fwd_wgmma", 512: "attention_fwd_mma"}
+_ROUTES = {64: "attention_fwd_wgmma", 512: "attention_fwd_wgmma_d512"}
+_TILE_512 = 64          # d = 512: query rows per block, keys per KV tile
+_MAX_SPLITS = 4
 
 
 def attention_route(d: int) -> str:
@@ -54,18 +58,33 @@ def attention_route(d: int) -> str:
     return _ROUTES[d]
 
 
+def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
+    """d = 512's KV splits on a card with `sms` multiprocessors: as many
+    as the `blocks` query tiles leave SMs for (4096 tokens: 64 tiles, 2
+    splits on 132 SMs), at most 4 and at most one per KV tile."""
+    return max(1, min(sms // max(blocks, 1), _MAX_SPLITS, kv_tiles))
+
+
 def attention_fwd_cuda(q, k, v, scale: float):
     """→ (out [B, N, h, d] bf16, lse [B, h, N] fp32)."""
     B, N, M, H, D = _check(q, k, v)
     route = attention_route(D)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the attention kernels read q, k and v by TMA: "
+                         "16-byte aligned tensors only")
     o = torch.empty_like(q)
     lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
     args = [kernels.ptr(t) for t in (q, k, v, o, lse)] + [B, N, M, H]
-    if route == "attention_fwd_mma":
-        args.append(D)
-    elif any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the wgmma attention reads q, k and v by TMA: "
-                         "16-byte aligned tensors only")
+    if route == "attention_fwd_wgmma_d512":
+        splits = kv_splits(-(-N // _TILE_512) * B * H, -(-M // _TILE_512),
+                           kernels.sm_count(q.device))
+        ows = lws = None
+        if splits > 1:
+            ows = torch.empty(splits, B * H * N, D, device=q.device,
+                              dtype=torch.float32)
+            lws = torch.empty(splits, B * H * N, device=q.device,
+                              dtype=torch.float32)
+        args += [splits, kernels.ptr(ows), kernels.ptr(lws)]
     kernels.launch(route, *args, float(scale))
     return o, lse
 

@@ -9,25 +9,31 @@ downsample is padding ((0, 1), (0, 1)) at stride 2, the same as JAX's
 added in fp32, as ``mm_conv`` + ``MMConv`` do; the output is x's dtype or
 fp32.
 
-On a CUDA tensor the forward is one launch of one of three routes of
+On a CUDA tensor the forward is one launch of one of four routes of
 ``csrc/conv.cu``, chosen by ``conv_route`` on the shape alone: the Hopper
-implicit GEMM (wgmma, operands by TMA) for bf16 at stride 1 with I % 64 ==
-0, the warp-per-pixel fp32 kernel for the narrow fp32 convs (O <= 8), and
-the mma.sync implicit GEMM (or, for other fp32, one thread per output) for
-the rest; the tensor-core routes split over K where the output tiles alone
-cannot fill the card.  The input gradient is one launch of ``conv_dgrad``
-(mma.sync).  The weight gradient is on no path (every tower is frozen):
-backward gives none and raises if the weight asks for one.  On a CPU tensor the plain version runs: the JAX package's
-shifted-einsum form (``_einsum_conv``) with autograd for dx.
+implicit GEMM (wgmma, operands by TMA; ``conv_fwd_wgmma``) for bf16 at
+stride 1 or 2 with I % 64 == 0 (every conv of the UNet's and the VAE's
+levels and their downsamplers), its narrow-input form
+(``conv_fwd_wgmma_i8``) for bf16 stride-1 convs with I <= 8 (the 3- and
+4-channel conv_ins: x zero-padded to 8 channels first, one more launch
+where I < 8, the weight packed once and cached), the warp-per-pixel fp32
+kernel for the narrow fp32 convs (O <= 8), and the mma.sync implicit GEMM
+(or, for other fp32, one thread per output) for the rest, which no SD-step
+shape reaches; the tensor-core routes split over K where the output tiles
+alone cannot fill the card.  The input gradient is one launch of
+``conv_dgrad`` (mma.sync).  The weight gradient is on no path (every tower
+is frozen): backward gives none and raises if the weight asks for one.  On
+a CPU tensor the plain version runs: the JAX package's shifted-einsum form
+(``_einsum_conv``) with autograd for dx.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import kernels
 
@@ -82,6 +88,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _TILE = 128                    # output tile of both tensor-core routes
 _BK_MMA, _BK_WGMMA = 32, 64    # their K steps
 _NARROW_O = 8                  # widest output of the fp32 route
+_NARROW_I, _NARROW_K = 8, 10   # the narrow-input route: 8 channels a tap,
+                               # at most 10 taps (K chunks of 8)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -92,26 +100,29 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def conv_route(dtype: torch.dtype, I: int, O: int,
-               stride: Tuple[int, int]) -> str:
-    """The launch counter (and kernel) of a forward conv, by shape alone:
-    "conv_fwd_wgmma" for bf16 at stride 1 with I % 64 == 0 (a K block is 64
-    input channels), "conv_fwd_fp32" for fp32 with O <= 8 and I % 4 == 0
-    (16-byte loads), else "conv_fwd_mma"."""
-    if dtype == torch.bfloat16 and tuple(stride) == (1, 1) and I % 64 == 0:
-        return "conv_fwd_wgmma"
+               stride: Tuple[int, int], taps: int) -> str:
+    """The launch counter (and kernel) of a forward conv with `taps` =
+    kh * kw, by shape alone:
+    "conv_fwd_wgmma" for bf16 at strides of 1 or 2 with I % 64 == 0 (a K
+    block is 64 input channels; at stride 2 TMA walks every other pixel),
+    "conv_fwd_wgmma_i8" for bf16 at stride 1 with I <= 8 and at most 10
+    taps (the conv_ins), "conv_fwd_fp32" for fp32 with O <= 8 and I % 4 ==
+    0 (16-byte loads), else "conv_fwd_mma": fp32 with O > 8 or I % 4 != 0,
+    and bf16 with 8 < I, I % 64 != 0 or a stride above 2.  No conv of the
+    SD step takes "conv_fwd_mma" (the towers' test widths do)."""
+    if dtype == torch.bfloat16:
+        if I % 64 == 0 and max(stride) <= 2:
+            return "conv_fwd_wgmma"
+        if I <= _NARROW_I and tuple(stride) == (1, 1) and taps <= _NARROW_K:
+            return "conv_fwd_wgmma_i8"
     if dtype == torch.float32 and O <= _NARROW_O and I % 4 == 0:
         return "conv_fwd_fp32"
     return "conv_fwd_mma"
 
 
 def pixel_box(B: int, Ho: int, Wo: int) -> Tuple[int, int, int]:
-    """The wgmma route's 128 output pixels per tile as a box (bw, bh, bb)
+    """The wgmma routes' 128 output pixels per tile as a box (bw, bh, bb)
     of the output grid: as wide as the row allows, then rows, then images
     (128x1x1 at W = 512, 64x2x1 at 64², 8x8x2 at 8²)."""
     bw = min(_TILE, _pow2_at_least(Wo))
@@ -119,14 +130,34 @@ def pixel_box(B: int, Ho: int, Wo: int) -> Tuple[int, int, int]:
     return bw, bh, _TILE // (bw * bh)
 
 
-def split_k(tiles: int, k_steps: int, sms: int, min_steps: int) -> int:
+def split_k(tiles: int, k_steps: int, sms: int, min_steps: int,
+            blocks_per_sm: float = 2.0) -> int:
     """Split-K factor of a tensor-core route on a card with `sms`
-    multiprocessors: about two blocks per SM when the `tiles` output tiles
-    alone cannot fill the card, at least `min_steps` K steps per split
-    (mma.sync: 8 of 32; wgmma: 4 of 64), at most 16 splits."""
+    multiprocessors: about `blocks_per_sm` blocks per SM when the `tiles`
+    output tiles alone cannot fill the card, at least `min_steps` K steps
+    per split (mma.sync: 8 of 32; wgmma: 4 of 64), at most 16 splits."""
     if tiles >= sms:
         return 1
-    return max(1, min(2 * sms // tiles, k_steps // min_steps, 16))
+    return max(1, min(int(blocks_per_sm * sms) // tiles,
+                      k_steps // min_steps, 16))
+
+
+def wgmma_tiling(B: int, Ho: int, Wo: int, O: int, k_steps: int, sms: int,
+                 small_output: bool):
+    """(pixel box, N tile, split-K factor) of the wgmma routes for an
+    output [B, Ho, Wo, O] and `k_steps` 64-wide K blocks.  The stride-1
+    convs take 128-wide N tiles and two blocks per SM of splits.  A
+    `small_output` (stride 2: a quarter of the input's pixels; the
+    narrow-input conv_ins) takes N tiles 64 wide where 128-wide ones would
+    fill under half the SMs, and splits for one block per SM: these convs
+    are bound by the tiles' traffic out of L2, which splits do not cut,
+    while their partials and reduce pass add to it."""
+    box = pixel_box(B, Ho, Wo)
+    pix = _cdiv(Wo, box[0]) * _cdiv(Ho, box[1]) * _cdiv(B, box[2])
+    if not small_output:
+        return box, _TILE, split_k(pix * _cdiv(O, _TILE), k_steps, sms, 4)
+    bn = 64 if 2 * pix * _cdiv(O, _TILE) < sms else _TILE
+    return box, bn, split_k(pix * _cdiv(O, bn), k_steps, sms, 4, 1.0)
 
 
 def _workspace(splits: int, out_numel: int, device):
@@ -137,13 +168,41 @@ def _workspace(splits: int, out_numel: int, device):
 
 
 def _pad_channels(x: torch.Tensor, w: torch.Tensor):
-    """The tensor-core path reads 8 input channels at a time: pad narrow
-    inputs (the 3- and 4-channel conv_in) with zero channels."""
+    """The mma.sync path reads 8 input channels at a time: pad narrower
+    inputs with zero channels."""
     I = x.shape[-1]
     if x.dtype != torch.bfloat16 or I % 8 == 0:
         return x, w
     pad = 8 - I % 8
     return F.pad(x, (0, pad)), F.pad(w, (0, pad))
+
+
+def pack_narrow_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """[O, kh, kw, I] (I <= 8, kh*kw <= 10) → the narrow-input route's
+    [ceil(O / bn), 10, bn, 8]: per N tile of bn output channels, chunk t
+    holds tap t's channels (one N tile's B is one contiguous copy), zero
+    past the taps, past I (x's zero channels) and past O."""
+    O, kh, kw, I = w.shape
+    tiles = _cdiv(O, bn)
+    pk = w.new_zeros(tiles * bn, _NARROW_K, _NARROW_I)
+    pk[:O, :kh * kw, :I] = w.reshape(O, kh * kw, I)
+    return pk.reshape(tiles, bn, _NARROW_K, _NARROW_I).transpose(1, 2) \
+        .contiguous()
+
+
+_PACKED = WeakIdKeyDictionary()   # weight → (data_ptr, version, bn, packed)
+
+
+def _packed_narrow_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """``pack_narrow_weight`` once per weight: cached on the tensor and
+    made afresh when its storage or version (an in-place update) moves."""
+    key = (w.data_ptr(), w._version, bn)
+    hit = _PACKED.get(w)
+    if hit is not None and hit[:3] == key:
+        return hit[3]
+    pk = pack_narrow_weight(w, bn)
+    _PACKED[w] = (*key, pk)
+    return pk
 
 
 def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -154,22 +213,25 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"dtype, got {x.dtype}, {w.dtype}")
     if out_dtype not in _DTYPES:
         raise ValueError(f"unsupported output dtype {out_dtype}")
-    route = conv_route(x.dtype, x.shape[-1], w.shape[0], stride)
+    if w.shape[-1] != x.shape[-1]:
+        raise ValueError(f"weight {tuple(w.shape)} does not fit x "
+                         f"{tuple(x.shape)}")
+    O, kh, kw, _ = w.shape
+    route = conv_route(x.dtype, x.shape[-1], O, stride, kh * kw)
     x, w = x.contiguous(), w.contiguous()
     if route == "conv_fwd_mma":
         x, w = _pad_channels(x, w)
     bias = None if bias is None else bias.float().contiguous()
     kernels.check_cuda(x, w, bias)
     B, H, W, I = x.shape
-    O, kh, kw, I2 = w.shape
-    if I2 != I:
-        raise ValueError(f"weight {tuple(w.shape)} does not fit x "
-                         f"{tuple(x.shape)}")
     Ho, Wo = out_size(H, W, kh, kw, stride, pads)
     y = torch.empty(B, Ho, Wo, O, device=x.device, dtype=out_dtype)
     f32 = int(out_dtype == torch.float32)
     (pt, _), (pl, _) = pads
-    if route != "conv_fwd_mma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+    # what the route reads in 16-byte units (the narrow-input route reads
+    # x elementwise, into its padded copy, and packs w)
+    direct = () if route == "conv_fwd_wgmma_i8" else (x, w)
+    if route != "conv_fwd_mma" and any(t.data_ptr() % 16 for t in direct):
         raise ValueError(f"{route} reads x and w in 16-byte units: 16-byte "
                          "aligned tensors only")
     if route == "conv_fwd_fp32":
@@ -177,16 +239,27 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                        kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo,
                        O, kh, kw, stride[0], stride[1], pt, pl, f32)
         return y
-    sms = _sm_count(x.device)
+    sms = kernels.sm_count(x.device)
+    if route == "conv_fwd_wgmma_i8":
+        (bw, bh, bb), bn, _ = wgmma_tiling(B, Ho, Wo, O, 1, sms, True)
+        # x padded to 8 channels and by the taps' reach, in the launch, with
+        # slack for the ragged pixel box's reads past its last row
+        xp = torch.empty(B * (Ho + kh - 1) * (Wo + kw - 1) + 256, _NARROW_I,
+                         device=x.device, dtype=x.dtype)
+        kernels.launch(route, kernels.ptr(x), kernels.ptr(xp),
+                       kernels.ptr(_packed_narrow_weight(w, bn)),
+                       kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo,
+                       O, kh, kw, pt, pl, bw, bh, bb, bn, f32, sms)
+        return y
     if route == "conv_fwd_wgmma":
-        bw, bh, bb = pixel_box(B, Ho, Wo)
-        tiles = _cdiv(Wo, bw) * _cdiv(Ho, bh) * _cdiv(B, bb) * _cdiv(O, _TILE)
-        splits = split_k(tiles, kh * kw * I // _BK_WGMMA, sms, 4)
+        (bw, bh, bb), bn, splits = wgmma_tiling(
+            B, Ho, Wo, O, kh * kw * I // _BK_WGMMA, sms,
+            tuple(stride) != (1, 1))
         ws = _workspace(splits, y.numel(), x.device)
         kernels.launch(route, kernels.ptr(x), kernels.ptr(w),
                        kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo,
-                       O, kh, kw, pt, pl, bw, bh, bb, f32, splits, sms,
-                       kernels.ptr(ws))
+                       O, kh, kw, stride[0], stride[1], pt, pl, bw, bh, bb, bn,
+                       f32, splits, sms, kernels.ptr(ws))
         return y
     bf16 = x.dtype == torch.bfloat16
     splits = 1
@@ -218,7 +291,7 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
         tiles = (_cdiv(B * _cdiv(H, sh) * _cdiv(W, sw), _TILE) *
                  _cdiv(I, _TILE) * sh * sw)
         splits = split_k(tiles, _cdiv(kh, sh) * _cdiv(kw, sw) * O // _BK_MMA,
-                         _sm_count(dy.device), 8)
+                         kernels.sm_count(dy.device), 8)
     ws = _workspace(splits, dx.numel(), dy.device)
     kernels.launch("conv_dgrad", kernels.ptr(dy), kernels.ptr(wT),
                    kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,

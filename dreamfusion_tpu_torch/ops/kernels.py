@@ -27,6 +27,7 @@ so the library links the CUDA runtime alone (no ``-lcuda``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -48,9 +49,11 @@ LAUNCHES: Dict[str, int] = {
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
     "attention_fwd_wgmma": 0,                   # K10 d = 64, CUDA C++
-    "attention_fwd_mma": 0, "attention_bwd": 0,  # K10 d = 512, CUDA C++
+    "attention_fwd_wgmma_d512": 0,              # K10 d = 512, CUDA C++
+    "attention_bwd": 0,                         # K10, CUDA C++
     "groupnorm_fwd": 0, "groupnorm_bwd": 0,     # K11, Triton
-    "conv_fwd_wgmma": 0, "conv_fwd_mma": 0,     # K12, CUDA C++
+    "conv_fwd_wgmma": 0, "conv_fwd_wgmma_i8": 0,  # K12, CUDA C++
+    "conv_fwd_mma": 0,                          # K12, CUDA C++
     "conv_fwd_fp32": 0, "conv_dgrad": 0,        # K12, CUDA C++
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
@@ -77,11 +80,12 @@ _SIGNATURES = {
     "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
                       _P, _P, _P],
     "conv_fwd_mma": [_P] * 4 + [_I] * 16 + [_P, _P],
-    "conv_fwd_wgmma": [_P] * 4 + [_I] * 17 + [_P, _P],
+    "conv_fwd_wgmma": [_P] * 4 + [_I] * 20 + [_P, _P],
+    "conv_fwd_wgmma_i8": [_P] * 5 + [_I] * 17 + [_P],
     "conv_fwd_fp32": [_P] * 4 + [_I] * 14 + [_P],
     "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
-    "attention_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
     "attention_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
     "raster_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 7 + [_P],
     "raster_bwd": [_P] * 10 + [_I] * 2 + [_F] + [_P] * 3 + [_P],
@@ -156,6 +160,12 @@ def cuda_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Multiprocessors of `device` (the persistent and split routes' grid)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t) -> int | None:

@@ -34,7 +34,8 @@ from .training.trainer import check_slice, guarded_update
 GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K7 raster", r"\b(raster|interpolate)_\w+_kernel"),
     ("K8 marching tets", r"\b(mt|vn|lap|nc)_\w+_kernel"),
-    ("K12 conv", r"conv_(wgmma|mma|simple|narrow)_kernel|conv_splitk_reduce"),
+    ("K12 conv", r"conv_(wgmma|mma|simple|narrow)_kernel|conv_splitk_reduce"
+                 r"|pad_channels8_kernel"),
     ("K10 attention", r"attn_"),
     ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"),
     ("K6 hashgrid", r"\bhash_\w+_kernel"),

@@ -179,10 +179,10 @@ def _close_to(got, want, rel):
 def test_conv_kernel(dev, B, H, W, I, O, k, stride, pad, dtype):
     """K12 forward and dgrad: odd sizes, a partial N tile (48, 136, 160),
     stride 2 with symmetric and the VAE's (0, 1) padding, a 3-channel input
-    (padded to 8 channels forward, a 3-column N tile in its dgrad), a bf16
-    dgrad with 12 channels (CUDA cores), fp32, and split-K (few output
-    tiles, long K) forward (256 channels: the wgmma route; 128 at stride 2:
-    mma.sync) and dgrad."""
+    (the narrow-input wgmma route forward, a 3-column N tile in its dgrad),
+    a bf16 dgrad with 12 channels (CUDA cores), fp32, and split-K (few
+    output tiles, long K) forward (256 channels at stride 1 and 128 at
+    stride 2: the wgmma route) and dgrad."""
     g = _gen(dev, 4)
     x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
     w = (torch.randn(O, k, k, I, device=dev, generator=g) /
@@ -227,7 +227,8 @@ def test_conv_wgmma_kernel(dev, B, H, W, I, O, k, pad):
     """K12's Hopper route against the plain version: the padding comes from
     TMA's zero fill, so the border pixels are checked on their own; two
     launches agree bit for bit (split-K sums in a fixed order)."""
-    assert conv_route(torch.bfloat16, I, O, (1, 1)) == "conv_fwd_wgmma"
+    assert conv_route(torch.bfloat16, I, O, (1, 1), k * k) == \
+        "conv_fwd_wgmma"
     g = _gen(dev, 7)
     bf = torch.bfloat16
     x = torch.randn(B, H, W, I, device=dev, generator=g).to(bf)
@@ -247,6 +248,85 @@ def test_conv_wgmma_kernel(dev, B, H, W, I, O, k, pad):
     _within_ulp(_border(y), _border(ref))
 
 
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad", [
+    (2, 64, 64, 320, 320, 3, 2, 1),         # the UNet's downsamplers
+    (2, 32, 32, 640, 640, 3, 2, 1),
+    (2, 16, 16, 1280, 1280, 3, 2, 1),       # split-K 16
+    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1))),   # the VAE's
+    (1, 256, 256, 256, 256, 3, 2, ((0, 1), (0, 1))),
+    (1, 128, 128, 512, 512, 3, 2, ((0, 1), (0, 1))),   # split-K 2
+    (1, 512, 512, 3, 128, 3, 1, 1),         # the VAE's conv_in
+    (2, 64, 64, 4, 320, 3, 1, 1),           # the UNet's conv_in
+    (1, 9, 11, 64, 72, 3, 2, 1),            # odd grids: ragged boxes
+    (1, 9, 11, 64, 72, 3, 2, ((0, 1), (0, 1))),
+    (2, 17, 15, 128, 136, 3, 2, 1),
+    (1, 7, 13, 192, 64, 3, 2, ((0, 1), (0, 1))),
+    (2, 7, 9, 3, 128, 3, 1, 1),
+    (1, 9, 11, 8, 72, 3, 1, 1),             # 8 channels: x as it is
+    (1, 12, 12, 3, 16, 1, 1, 0),            # 1x1: one tap
+])
+def test_conv_wgmma_strided_and_narrow(dev, B, H, W, I, O, k, stride, pad):
+    """K12's wgmma routes at stride 2 (TMA's traversal strides walk every
+    other pixel; the padding, both forms, is its zero fill) and at 3, 4
+    and 8 input channels (the narrow-input route) against the plain
+    version at the SD step's downsamplers and conv_ins and at odd grids;
+    border pixels checked on their own; two launches agree bit for bit."""
+    route = "conv_fwd_wgmma" if I % 64 == 0 else "conv_fwd_wgmma_i8"
+    assert conv_route(torch.bfloat16, I, O, (stride, stride), k * k) == route
+    g = _gen(dev, 11)
+    bf = torch.bfloat16
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(bf)
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(bf)
+    bias = torch.randn(O, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, stride, pad)
+    y2 = conv2d(x, w, bias, stride, pad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 2
+    assert kernels.LAUNCHES["conv_fwd_mma"] == 0
+    assert torch.equal(y, y2)
+    ref = conv2d_plain(x, w, bias, (stride, stride), norm_padding(pad), bf)
+    assert y.shape == ref.shape
+    _within_ulp(y, ref)
+    _within_ulp(_border(y), _border(ref))
+
+
+@pytest.mark.parametrize("I", [3, 4, 8])
+def test_conv_in_is_one_launch_once_its_weight_is_packed(dev, I):
+    """A conv_in on the narrow-input route is one launch of two kernels
+    (x's padded copy, the conv): the weight is packed on the first call
+    only (and again after an in-place update)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels_per_call = 2
+    bf = torch.bfloat16
+    x = torch.randn(1, 64, 64, I, device=dev).to(bf)
+    w = (torch.randn(128, 3, 3, I, device=dev) / (9 * I) ** 0.5).to(bf)
+
+    def device_kernels():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = conv2d(x, w, None, 1, 1)
+            torch.cuda.synchronize()
+        return y, sum(e.device_type == DeviceType.CUDA
+                      for e in prof.events())
+
+    _, first = device_kernels()
+    assert first > kernels_per_call           # the packing ran once
+    # the profiler may drop a kernel's record, never add one: the most
+    # that three calls show is a call's kernel count
+    runs = [device_kernels() for _ in range(3)]
+    y = runs[0][0]
+    assert max(n for _, n in runs) == kernels_per_call
+    with torch.no_grad():
+        w.neg_()
+    y2, again = device_kernels()
+    assert again > kernels_per_call           # packed again, not stale
+    assert torch.equal(y2, -y)
+
+
 @pytest.mark.parametrize("B,H,W,I,O,k,stride", [
     (2, 9, 7, 320, 4, 3, 1),           # the UNet's conv_out
     (1, 8, 10, 512, 8, 3, 1),          # the VAE encoder's conv_out
@@ -254,7 +334,7 @@ def test_conv_wgmma_kernel(dev, B, H, W, I, O, k, pad):
     (1, 9, 9, 12, 3, 3, 2),
 ])
 def test_conv_fp32_narrow_kernel(dev, B, H, W, I, O, k, stride):
-    assert conv_route(torch.float32, I, O, (stride, stride)) == \
+    assert conv_route(torch.float32, I, O, (stride, stride), k * k) == \
         "conv_fwd_fp32"
     g = _gen(dev, 8)
     x = torch.randn(B, H, W, I, device=dev, generator=g)
@@ -273,12 +353,15 @@ def test_conv_fp32_narrow_kernel(dev, B, H, W, I, O, k, stride):
     _close_to(_border(y), _border(ref), 1e-5)
 
 
-@pytest.mark.parametrize("I,O,dtype", [(128, 128, torch.bfloat16),
-                                        (320, 4, torch.float32)])
-def test_conv_16_byte_routes_refuse_misaligned_views(dev, I, O, dtype):
-    """The wgmma and fp32 routes read x and w in 16-byte units: a contiguous
-    view at an odd offset raises instead of faulting on the card."""
-    route = conv_route(dtype, I, O, (1, 1))
+@pytest.mark.parametrize("I,O,dtype,stride", [
+    (128, 128, torch.bfloat16, 1), (320, 4, torch.float32, 1),
+    (128, 64, torch.bfloat16, 2)])
+def test_conv_16_byte_routes_refuse_misaligned_views(dev, I, O, dtype,
+                                                     stride):
+    """The wgmma routes (stride 1 and 2) and the fp32 route read x and w in
+    16-byte units: a contiguous view at an odd offset raises instead of
+    faulting on the card."""
+    route = conv_route(dtype, I, O, (stride, stride), 9)
     assert route in ("conv_fwd_wgmma", "conv_fwd_fp32")
     n = 2 * 6 * 6 * I
     x = torch.randn(n + 1, device=dev).to(dtype)[1:].view(2, 6, 6, I)
@@ -286,13 +369,14 @@ def test_conv_16_byte_routes_refuse_misaligned_views(dev, I, O, dtype):
     assert x.is_contiguous() and x.data_ptr() % 16
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
-        conv2d(x, w, None, 1, 1)
+        conv2d(x, w, None, stride, 1)
     wv = torch.randn(w.numel() + 1, device=dev).to(dtype)[1:].view(w.shape)
     with pytest.raises(ValueError, match="16-byte"):
-        conv2d(x.clone(), wv, None, 1, 1)
+        conv2d(x.clone(), wv, None, stride, 1)
     assert kernels.LAUNCHES[route] == 0
-    _within_ulp(conv2d(x.clone(), w, None, 1, 1),
-                conv2d_plain(x, w, None, (1, 1), norm_padding(1), dtype))
+    _within_ulp(conv2d(x.clone(), w, None, stride, 1),
+                conv2d_plain(x, w, None, (stride, stride), norm_padding(1),
+                             dtype))
     assert kernels.LAUNCHES[route] == 1
 
 
@@ -322,11 +406,43 @@ def test_attention_wgmma_kernel(dev, B, N, M, H):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("B,N,M,H", [
+    (1, 4096, 4096, 1),      # the VAE mid-block: 2 KV splits
+    (1, 1000, 77, 1),        # ragged query and key tiles, 2 splits
+    (2, 300, 200, 2),        # several (b, h), 4 KV tiles
+    (1, 64, 40, 1),          # one KV tile: no split
+])
+def test_attention_d512_kernel(dev, B, N, M, H):
+    """K10's d = 512 Hopper route: out against the plain version, lse
+    against a float64 log-sum-exp (across the KV splits' merge), two
+    launches bit for bit."""
+    g = _gen(dev, 12)
+    bf = torch.bfloat16
+    q = torch.randn(B, N, H, 512, device=dev, generator=g).to(bf)
+    k, v = (torch.randn(B, M, H, 512, device=dev, generator=g).to(bf)
+            for _ in range(2))
+    scale = 512 ** -0.5
+    kernels.reset_launch_counts()
+    o, lse = attention_fwd_cuda(q, k, v, scale)
+    o2, lse2 = attention_fwd_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_fwd_wgmma_d512"] == 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ref = attention_plain(q, k, v, scale)
+    amax = float(ref.float().abs().max())
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2 * amax,
+                               rtol=2 ** -7)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.double(), k.double()) * scale
+    torch.testing.assert_close(lse.double(), torch.logsumexp(s, -1),
+                               atol=1e-3, rtol=1e-4)
+
+
 @pytest.mark.parametrize("B,N,M,H,D", [
     (2, 100, 100, 2, 64),     # ragged query and key tiles
     (2, 130, 77, 3, 64),      # 77-token cross-attention tail
     (1, 70, 70, 1, 512),      # the VAE mid-block's width
     (1, 64, 40, 2, 512),
+    (1, 1000, 77, 1, 512),    # lse merged over 2 KV splits
 ])
 def test_attention_kernel(dev, B, N, M, H, D):
     g = _gen(dev, 5)

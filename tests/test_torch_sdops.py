@@ -54,6 +54,9 @@ def _rand(rng, *shape, scale=1.0):
     (9, 8, 4, 6, 3, 2, ((0, 1), (0, 1))),       # VAE (0, 1) pad + VALID
     (6, 6, 5, 3, 1, 1, 0),                      # 1x1
     (7, 7, 3, 8, 3, 1, 1),                      # 3-channel conv_in
+    (7, 7, 4, 8, 3, 1, 1),                      # 4-channel conv_in
+    (9, 11, 6, 5, 3, 2, 1),                     # odd stride-2 input
+    (9, 11, 6, 5, 3, 2, ((0, 1), (0, 1))),      # the same, the VAE's pad
 ])
 def test_conv_matches_mm_conv_and_its_vjp(rng, H, W, I, O, k, stride, pad):
     x = _rand(rng, 2, H, W, I)
@@ -128,7 +131,8 @@ def test_group_norm_matches_groupnorm32(rng, C, eps):
 
 @pytest.mark.parametrize("ref,N,M,h,d", [
     ("dense", 12, 12, 2, 8), ("dense", 10, 7, 3, 16),
-    ("chunked", 16, 24, 2, 8), ("chunked", 9, 32, 1, 32)])
+    ("chunked", 16, 24, 2, 8), ("chunked", 9, 32, 1, 32),
+    ("dense", 6, 9, 1, 512)])                   # the VAE mid-block's width
 def test_attention_matches_jax_and_its_vjp(rng, ref, N, M, h, d):
     q, k, v = _rand(rng, 2, N, h, d), _rand(rng, 2, M, h, d), \
         _rand(rng, 2, M, h, d)
@@ -236,16 +240,19 @@ def test_numeric_traps_match_jax(rng, pair):
 def test_sd_step_convs_and_attentions_take_their_routes():
     """Every K12 conv of the SD 2.1 UNet and VAE encoder (built on the meta
     device: shapes only) takes the route the kernels' rule gives it: the
-    wgmma route for bf16 3x3 stride-1 convs with I % 64 == 0, mma.sync for
-    the 4- and 3-channel conv_in and the stride-2 downsamplers, the fp32
-    route for the conv_outs; the UNet's attention (d = 64) the wgmma one,
-    the VAE mid-block's (d = 512) mma.sync; and the split-K factors and
-    pixel boxes of the UNet's levels at CFG batch 2."""
+    wgmma route for bf16 3x3 convs with I % 64 == 0 at stride 1 and the
+    stride-2 downsamplers, its narrow-input form for the 4- and 3-channel
+    conv_in, the fp32 route for the conv_outs, mma.sync for none; the
+    UNet's attention (d = 64) and the VAE mid-block's (d = 512) their wgmma
+    kernels; and the split-K factors, N tiles and pixel boxes of the
+    UNet's levels at CFG batch 2 and of the VAE's."""
     from dreamfusion_tpu_torch.models.unet import (Conv2d, UNet2DCondition,
                                                    UNetConfig)
     from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-    from dreamfusion_tpu_torch.ops.attention import attention_route
-    from dreamfusion_tpu_torch.ops.conv import conv_route, pixel_box, split_k
+    from dreamfusion_tpu_torch.ops.attention import (attention_route,
+                                                     kv_splits)
+    from dreamfusion_tpu_torch.ops.conv import (conv_route, pixel_box, split_k,
+                                                wgmma_tiling)
 
     with torch.device("meta"):
         unet = UNet2DCondition(UNetConfig.sd21())
@@ -254,24 +261,36 @@ def test_sd_step_convs_and_attentions_take_their_routes():
     for tower, mod in (("unet", unet), ("vae", vae.encoder)):
         for name, m in mod.named_modules():
             if isinstance(m, Conv2d):
-                O, _, _, I = m.weight.shape
+                O, kh, kw, I = m.weight.shape
                 routes[tower, name] = conv_route(m.compute_dtype, I, O,
-                                                 (m.stride, m.stride))
+                                                 (m.stride, m.stride),
+                                                 kh * kw)
     for (tower, name), route in routes.items():
-        if name == "conv_in" or ".downsamplers." in name:
-            assert route == "conv_fwd_mma", (tower, name)
+        if name == "conv_in":
+            assert route == "conv_fwd_wgmma_i8", (tower, name)
         elif name == "conv_out":
             assert route == "conv_fwd_fp32", (tower, name)
         else:
             assert route == "conv_fwd_wgmma", (tower, name)
     counts = {r: sum(v == r for v in routes.values())
               for r in set(routes.values())}
-    assert counts == {"conv_fwd_wgmma": 47 + 20, "conv_fwd_mma": 4 + 4,
-                      "conv_fwd_fp32": 2}
+    assert counts == {"conv_fwd_wgmma": 47 + 20 + 3 + 3,
+                      "conv_fwd_wgmma_i8": 1 + 1, "conv_fwd_fp32": 2}
+    # what still reaches mma.sync: the towers' test widths, wide strides
+    assert conv_route(torch.bfloat16, 16, 16, (1, 1), 9) == "conv_fwd_mma"
+    assert conv_route(torch.bfloat16, 3, 16, (2, 2), 9) == "conv_fwd_mma"
+    assert conv_route(torch.bfloat16, 64, 64, (3, 3), 9) == "conv_fwd_mma"
+    assert conv_route(torch.bfloat16, 4, 8, (1, 1), 25) == "conv_fwd_mma"
+    assert conv_route(torch.float32, 64, 64, (1, 1), 9) == "conv_fwd_mma"
     assert attention_route(64) == "attention_fwd_wgmma"
-    assert attention_route(512) == "attention_fwd_mma"
+    assert attention_route(512) == "attention_fwd_wgmma_d512"
     with pytest.raises(ValueError):
         attention_route(40)
+    # d = 512's KV splits: (query tiles, KV tiles of 64) on 132 SMs
+    assert kv_splits(4096 // 64, 4096 // 64, 132) == 2     # VAE mid-block
+    assert kv_splits(16, 2, 132) == 2                      # N 1000, M 77
+    assert kv_splits(1, 64, 132) == 4
+    assert kv_splits(200, 64, 132) == 1
     # pixel boxes (bw, bh, bb) and split-K at the UNet's levels, B = 2
     assert [pixel_box(2, s, s) for s in (64, 32, 16, 8)] == [
         (64, 2, 1), (32, 4, 1), (16, 8, 1), (8, 8, 2)]
@@ -283,6 +302,122 @@ def test_sd_step_convs_and_attentions_take_their_routes():
     assert split_k(4 * 10, 9 * 1280 // 64, 132, 4) == 6      # 16², 1280
     assert split_k(1 * 10, 9 * 2560 // 64, 132, 4) == 16     # 8², 2560
     assert split_k(2048, 9 * 128 // 64, 132, 4) == 1         # VAE 512²
+    # (pixel box, N tile, splits) as the wgmma routes call it: stride 1 as
+    # above; the downsamplers' outputs (UNet 32², 16², 8²; VAE 256², 128²,
+    # 64²) and the conv_ins take 64-wide N tiles below 66 tiles of 128
+    assert wgmma_tiling(2, 64, 64, 320, 45, 132, False) == ((64, 2, 1),
+                                                            128, 1)
+    assert wgmma_tiling(2, 8, 8, 1280, 180, 132, False) == ((8, 8, 2),
+                                                            128, 16)
+    assert [wgmma_tiling(2, s, s, c, 9 * c // 64, 132, True)
+            for s, c in ((32, 320), (16, 640), (8, 1280))] == [
+        ((32, 4, 1), 64, 1), ((16, 8, 1), 64, 3), ((8, 8, 2), 64, 6)]
+    assert [wgmma_tiling(1, s, s, c, 9 * c // 64, 132, True)
+            for s, c in ((256, 128), (128, 256), (64, 512))] == [
+        ((128, 1, 1), 128, 1), ((128, 1, 1), 128, 1), ((64, 2, 1), 128, 1)]
+    assert wgmma_tiling(1, 512, 512, 128, 1, 132, True) == ((128, 1, 1),
+                                                            128, 1)
+    assert wgmma_tiling(2, 64, 64, 320, 1, 132, True) == ((64, 2, 1),
+                                                          128, 1)
+
+
+def _load_root_script(name):
+    """A script at the root of the repo, loaded by its path."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_conv_rows_take_their_routes():
+    """chip_smoke.py holds every forward route of K12 against its plain
+    version: its SD rows never reach the mma.sync forward, its MMA_CONVS
+    rows all do, and the kernels line lists that kernel."""
+    from dreamfusion_tpu_torch.ops.conv import conv_route
+
+    smoke = _load_root_script("chip_smoke")
+
+    def route(row):
+        B, H, W, I, O, k, st, pad, dt, dgrad = row
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        return conv_route(dtype, I, O, (st, st), k * k)
+
+    sd = {route(r) for r in smoke.SD_CONVS}
+    assert sd == {"conv_fwd_wgmma", "conv_fwd_wgmma_i8", "conv_fwd_fp32"}
+    assert [route(r) for r in smoke.MMA_CONVS] == \
+        ["conv_fwd_mma"] * len(smoke.MMA_CONVS)
+    assert {r[8] for r in smoke.MMA_CONVS} == {"bf16", "fp32"}
+    assert {r[6] for r in smoke.MMA_CONVS} == {1, 2}
+    assert sd | {"conv_fwd_mma"} <= set(smoke.KERNELS)
+    assert "conv_fwd_mma" not in smoke.SD_KERNELS
+
+
+def test_bench_hashes_sources_and_compares_outputs(tmp_path, capsys):
+    """bench_sd_kernels.py's provenance and parity tools: the sources'
+    hash moves with any byte of csrc/ or ops/ and ignores caches; the
+    comparison of two --outputs files reports each shape bit for bit."""
+    import json
+
+    from dreamfusion_tpu_torch import bench_sd_kernels as bench
+
+    root = tmp_path / "tree"
+    for sub, name in (("csrc", "conv.cu"), ("ops", "conv.py")):
+        d = root / "dreamfusion_tpu_torch" / sub
+        d.mkdir(parents=True)
+        (d / name).write_text(f"// {name}\n")
+    first = bench.sources_sha256(str(root))
+    cache = root / "dreamfusion_tpu_torch" / "ops" / "__pycache__"
+    cache.mkdir()
+    (cache / "conv.cpython-312.pyc").write_bytes(b"\0")
+    assert bench.sources_sha256(str(root)) == first
+    (root / "dreamfusion_tpu_torch" / "csrc" / "conv.cu").write_text("//\n")
+    assert bench.sources_sha256(str(root)) != first
+
+    y = torch.randn(2, 3, 4).to(torch.bfloat16)
+    bumped = y.clone()
+    bumped[0, 0, 0] += 1.0
+    torch.save({"a": y, "b": y, "c": y}, tmp_path / "p.pt")
+    torch.save({"a": y.clone(), "b": bumped}, tmp_path / "c.pt")
+    capsys.readouterr()
+    bench.main(["--compare", str(tmp_path / "p.pt"), str(tmp_path / "c.pt")])
+    rows = [json.loads(line) for line in capsys.readouterr().out.split("\n")
+            if line]
+    assert [(r["row"], r["bitwise_equal"]) for r in rows] == [
+        ("a", True), ("b", False)]
+    assert rows[0]["max_abs_diff"] == 0.0 and rows[1]["max_abs_diff"] > 0.5
+
+
+def test_narrow_weight_is_packed_once_per_version(rng):
+    """The conv_ins' weight [O, 3, 3, I] in the narrow-input route's layout
+    [O / bn, 10, bn, 8] (per N tile, tap-major; zero past the taps, the
+    channels and O), packed once per weight and N tile and made afresh
+    after an in-place update."""
+    from dreamfusion_tpu_torch.ops.conv import (_packed_narrow_weight,
+                                                pack_narrow_weight)
+
+    w = torch.from_numpy(_rand(rng, 5, 3, 3, 3))
+    pk = pack_narrow_weight(w, 4)
+    assert pk.shape == (2, 10, 4, 8)
+    for n in range(5):
+        for r in range(3):
+            for s in range(3):
+                torch.testing.assert_close(pk[n // 4, 3 * r + s, n % 4, :3],
+                                           w[n, r, s])
+    assert not pk[:, 9].any() and not pk[:, :, :, 3:].any()
+    assert not pk[1, :, 1:].any()
+    first = _packed_narrow_weight(w, 64)
+    assert first.shape == (1, 10, 64, 8)
+    assert _packed_narrow_weight(w, 64) is first
+    assert _packed_narrow_weight(w, 128).shape == (1, 10, 128, 8)
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = _packed_narrow_weight(w, 64)
+    assert again is not first
+    torch.testing.assert_close(again, 2 * first)
 
 
 def test_profile_groups_name_the_new_kernels():
@@ -290,12 +425,18 @@ def test_profile_groups_name_the_new_kernels():
     under K12 and K10, not under the library's matrix products."""
     from dreamfusion_tpu_torch.profile_step import group_of
 
-    k12 = ["(anonymous namespace)::conv_wgmma_kernel(CUtensorMap_st, "
-           "CUtensorMap_st, (anonymous namespace)::WgConv)",
+    k12 = ["void (anonymous namespace)::conv_wgmma_kernel<false, 128>("
+           "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
+           "namespace)::WgConv)",
+           "void (anonymous namespace)::conv_wgmma_kernel<true, 64>("
+           "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
+           "namespace)::WgConv)",
            "(anonymous namespace)::conv_narrow_kernel((anonymous "
            "namespace)::ConvParams)",
            "(anonymous namespace)::conv_splitk_reduce((anonymous "
            "namespace)::ConvParams)",
+           "(anonymous namespace)::pad_channels8_kernel(__nv_bfloat16 "
+           "const*, uint4*, long, int)",
            "void (anonymous namespace)::conv_mma_kernel<false>((anonymous "
            "namespace)::ConvParams)",
            "void (anonymous namespace)::conv_simple_kernel<float, true>("
@@ -303,9 +444,11 @@ def test_profile_groups_name_the_new_kernels():
     k10 = ["(anonymous namespace)::attn_fwd_wgmma_kernel(CUtensorMap_st, "
            "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, "
            "int, int, float)",
-           "void (anonymous namespace)::attn_fwd_kernel<512, 32, 64, 8>("
-           "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
-           "const*, __nv_bfloat16*, float*, int, int, int, int, float)"]
+           "(anonymous namespace)::attn_fwd_d512_kernel(CUtensorMap_st, "
+           "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, float*, "
+           "float*, int, int, int, int, int, float)",
+           "(anonymous namespace)::attn_fwd_combine_kernel(float const*, "
+           "float const*, __nv_bfloat16*, float*, int, int, int, int)"]
     assert [group_of(n) for n in k12] == ["K12 conv"] * len(k12)
     assert [group_of(n) for n in k10] == ["K10 attention"] * len(k10)
     assert group_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matrix products"
