@@ -18,7 +18,13 @@
    timed under its own name at the shapes that take it.  K12's mma.sync
    forward serves no shape of any path: the SD run must not launch it, and
    it is checked and timed at shapes of its own (``MMA_CONVS``), with 0
-   launches in the kernels line.  Each kernel's bound is the larger of its
+   launches in the kernels line.  K12's input gradient, likewise, at every
+   dgrad shape of the SD step (the VAE encoder's backward): its wgmma
+   route (stride 1, and stride 2 as four parity classes in one launch),
+   its narrow route (the conv_in's 3-channel dx) and its fp32 route (the
+   conv_out's) each under its own name, beside cuDNN's input gradient; the
+   mma.sync dgrad (``conv_dgrad``) at ``MMA_CONVS``' shapes only, with 0
+   SD launches.  Each kernel's bound is the larger of its
    bytes (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32).
@@ -46,8 +52,10 @@
    random weights from the seed) through dreamfusion_tpu_torch.main for 25
    steps: 6 warm-up steps (render as latent) and 19 through the VAE;
    requires finite losses and gradients, a launch of every kernel (every
-   route of K10's and K12's forwards) and a
-   non-zero triplane gradient in both phases; logs s/step and peak memory.
+   route of K10's and K12's forwards and of K12's dgrad: per VAE step 23
+   wgmma, 1 narrow and 1 fp32 dgrads, ``SD_DGRADS``, and none on mma.sync)
+   and a non-zero triplane gradient in both phases; logs s/step and peak
+   memory.
 6. Resets the counters and trains the DMTet stage from the stage-1
    checkpoint (--dmtet --init_with, oracle guidance, lr 0.002, tet grid
    128, 512² renders) for 100 steps (cut from thousands) with --save_mesh;
@@ -66,7 +74,7 @@
    sdf, deform and table gradients).
 8. The image → 3D pipeline (``--image analytic:two_sphere --guidance
    image_oracle``, run_flagship.py's image-oracle flags): K5 (the gradient
-   clamp, Triton) against its plain version and ``torch.clamp`` at the
+   clamp, CUDA) against its plain version and ``torch.clamp`` at the
    SDS, known-view and DMTet image shapes, fp32 and bf16; the clip limit
    chosen from a real SDS step's image gradient (its CLIP_QUANTILE, ~20%
    clamped); then, the counters reset just before it, stage 1 with
@@ -192,6 +200,12 @@ KERNELS = {
                       "dreamfusion_tpu/ops/conv.py:58"),
     "conv_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                      "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_dgrad_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                         "dreamfusion_tpu/ops/conv.py:95"),
+    "conv_dgrad_narrow": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                          "dreamfusion_tpu/ops/conv.py:95"),
+    "conv_dgrad_fp32": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                        "dreamfusion_tpu/ops/conv.py:95"),
     "conv_dgrad": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                    "dreamfusion_tpu/ops/conv.py:95"),
 }
@@ -212,7 +226,7 @@ for _n, _line in (("hashgrid", 201), ("hashgrid_tv", 322),
         KERNELS[f"{_n}_{_d}"] = (
             "cuda", "dreamfusion_tpu_torch/csrc/hashgrid.cu",
             f"dreamfusion_tpu/ops/hashgrid.py:{_line}")
-KERNELS["clip_grad_bwd"] = ("triton", "dreamfusion_tpu_torch/ops/clip_grad.py",
+KERNELS["clip_grad_bwd"] = ("cuda", "dreamfusion_tpu_torch/csrc/clip_grad.cu",
                             "dreamfusion_tpu/core/math.py:39")
 KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
                               "dreamfusion_tpu/mesh/sdf.py:214")
@@ -224,14 +238,21 @@ GRID_REG_KERNELS = ("hashgrid_tv_fwd", "hashgrid_tv_bwd", "hashgrid_wd_fwd",
 ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
                   "field_head_bwd")
-# K10's and K12's forwards count each route apart (ops/kernels.py): the SD
-# step must launch every one of them, and never K12's mma.sync forward
-# (conv_fwd_mma: shapes off every path, checked at MMA_CONVS)
+# K10's and K12's forwards and K12's dgrad count each route apart
+# (ops/kernels.py): the SD step must launch every one of them, and never
+# K12's mma.sync forward or dgrad (conv_fwd_mma, conv_dgrad: shapes off
+# every path, checked at MMA_CONVS)
 SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
               "field_head_fwd", "field_head_bwd", "attention_fwd_wgmma",
               "attention_fwd_wgmma_d512", "attention_bwd", "groupnorm_fwd",
               "groupnorm_bwd", "conv_fwd_wgmma", "conv_fwd_wgmma_i8",
-              "conv_fwd_fp32", "conv_dgrad")
+              "conv_fwd_fp32", "conv_dgrad_wgmma", "conv_dgrad_narrow",
+              "conv_dgrad_fp32")
+# dgrads per SD step through the VAE (the encoder's backward): 20 stride-1
+# and 3 stride-2 on the wgmma route, the conv_in's on the narrow one, the
+# fp32 conv_out's
+SD_DGRADS = {"conv_dgrad_wgmma": 23, "conv_dgrad_narrow": 1,
+             "conv_dgrad_fp32": 1}
 DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
                        "laplacian", "normal")) + (
@@ -245,9 +266,11 @@ IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
 # list for any checkout.
 SD_CONVS = [
     (1, 512, 512, 128, 128, 3, 1, 1, "bf16", True),       # VAE level 0
-    (1, 256, 256, 256, 256, 3, 1, 1, "bf16", False),      # VAE level 1
-    (1, 128, 128, 512, 512, 3, 1, 1, "bf16", False),      # VAE level 2
-    (1, 64, 64, 512, 512, 3, 1, 1, "bf16", False),        # VAE level 3
+    (1, 256, 256, 128, 256, 3, 1, 1, "bf16", True),       # level 1's entry
+    (1, 256, 256, 256, 256, 3, 1, 1, "bf16", True),       # VAE level 1
+    (1, 128, 128, 256, 512, 3, 1, 1, "bf16", True),       # level 2's entry
+    (1, 128, 128, 512, 512, 3, 1, 1, "bf16", True),       # VAE level 2
+    (1, 64, 64, 512, 512, 3, 1, 1, "bf16", True),         # VAE level 3, mid
     (2, 64, 64, 320, 320, 3, 1, 1, "bf16", False),        # UNet level 0
     (2, 32, 32, 640, 640, 3, 1, 1, "bf16", False),        # UNet level 1
     (2, 16, 16, 1280, 1280, 3, 1, 1, "bf16", False),      # UNet level 2
@@ -257,21 +280,21 @@ SD_CONVS = [
     (2, 32, 32, 640, 640, 3, 2, 1, "bf16", False),
     (2, 16, 16, 1280, 1280, 3, 2, 1, "bf16", False),      # split-K 16
     (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16", True),  # VAE downs
-    (1, 256, 256, 256, 256, 3, 2, ((0, 1), (0, 1)), "bf16", False),
-    (1, 128, 128, 512, 512, 3, 2, ((0, 1), (0, 1)), "bf16", False),
+    (1, 256, 256, 256, 256, 3, 2, ((0, 1), (0, 1)), "bf16", True),
+    (1, 128, 128, 512, 512, 3, 2, ((0, 1), (0, 1)), "bf16", True),
     (1, 512, 512, 3, 128, 3, 1, 1, "bf16", True),         # VAE conv_in
     (2, 64, 64, 4, 320, 3, 1, 1, "bf16", False),          # UNet conv_in
     (2, 64, 64, 320, 4, 3, 1, 1, "fp32", False),          # UNet conv_out
-    (1, 64, 64, 512, 8, 3, 1, 1, "fp32", False),          # VAE conv_out
+    (1, 64, 64, 512, 8, 3, 1, 1, "fp32", True),           # VAE conv_out
 ]
 # Shapes of no path that K12's mma.sync forward (conv_fwd_mma) still takes,
 # in SD_CONVS's layout, at odd sizes: bf16 with 8 < I and I % 64 != 0 (at
 # stride 2 and 1) and fp32 with O > 8.  Held against the plain version as
 # SD_CONVS are; no path may launch it.
 MMA_CONVS = [
-    (1, 17, 15, 32, 48, 3, 2, 1, "bf16", False),
-    (2, 33, 31, 24, 40, 3, 1, 1, "bf16", False),
-    (1, 33, 31, 16, 16, 3, 1, 1, "fp32", False),
+    (1, 17, 15, 32, 48, 3, 2, 1, "bf16", True),
+    (2, 33, 31, 24, 40, 3, 1, 1, "bf16", True),
+    (1, 33, 31, 16, 16, 3, 1, 1, "fp32", True),
 ]
 # K10: q [B, N, h, d], k and v [B, M, h, d]; whether the backward is checked
 SD_ATTNS = [
@@ -323,6 +346,24 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, n: int = 200) -> dict:
+    """Host µs of one call, the card idle before each (what a host-bound
+    step pays: Python, the launch): {"host_us_min": the least of `n`, which
+    other processes on the host's cores can only raise, "host_us": the
+    median}."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return {"host_us_min": min(times) * 1e6,
+            "host_us": statistics.median(times) * 1e6}
 
 
 def max_err(a, b) -> float:
@@ -731,29 +772,39 @@ def sd_kernel_phases(torch, results):
             where)
         if not dgrad:
             continue
-        dy = randn(*yk.shape)
+        route = K12.dgrad_route(dt, I, O, (st, st), (k, k))
+        dy = randn(*yk.shape, dtype=dt)
+        kernels.reset_launch_counts()
         dk = K12.conv2d_dgrad_cuda(dy, w, x.shape, (st, st), pads, dt)
         torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route] == 1, f"{where} dgrad: not on {route}")
         xr = torch.zeros(x.shape, device=dev, requires_grad=True)
         (dp,) = torch.autograd.grad(K12.conv2d_plain(
             xr, w, None, (st, st), pads, torch.float32), xr, dy.float())
-        err = close("conv_dgrad", dk, dp, 2 ** -7, 1e-4)
+        err = close(route, dk, dp, 1e-5 if fp32 else 2 ** -7, 1e-4)
         dyc = dy.permute(0, 3, 1, 2)
         lib = None
         if pads[0][0] == pads[0][1]:
-            lib = median_ms(lambda: conv2d_input(xc.shape, wc, dyc, st,
-                                                 pads[0][0]), 10)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                lib = median_ms(lambda: conv2d_input(xc.shape, wc, dyc, st,
+                                                     pads[0][0]), 10)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
 
         def plain_dgrad():
             xr = torch.zeros(x.shape, device=dev, requires_grad=True)
             torch.autograd.grad(K12.conv2d_plain(
                 xr, w, None, (st, st), pads, torch.float32), xr, dy.float())
 
-        record_kernel(results, "conv_dgrad", err, median_ms(
+        record_kernel(results, route, err, median_ms(
             lambda: K12.conv2d_dgrad_cuda(dy, w, x.shape, (st, st), pads,
                                           dt), 10),
-            median_ms(plain_dgrad, 3), "1 bf16 ulp + 1e-4 of max",
-            nbytes(dy, w, dk), flops, "bf16", lib, where)
+            median_ms(plain_dgrad, 3),
+            "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
+            nbytes(dy, w, dk), flops, "fp32" if fp32 else "bf16", lib,
+            where + " dgrad")
 
     # ---- K10 attention ---------------------------------------------------
     for B, N, M, h, d, bwd in SD_ATTNS:
@@ -1108,7 +1159,8 @@ def bake_kernel_phase(torch, results, obj_path):
 def clip_grad_kernel_phase(torch, results):
     """K5 against its plain version and ``torch.clamp`` at the three shapes
     of the image path: the SDS step's [1,64,64,3], the known view's
-    [96,96,3] and the DMTet stage's [1,512,512,3], fp32 and bf16."""
+    [96,96,3] and the DMTet stage's [1,512,512,3], fp32 and bf16; each
+    timed by events and by the host's µs per call (least of 200)."""
     from dreamfusion_tpu_torch.ops import clip_grad as K5
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
@@ -1116,19 +1168,23 @@ def clip_grad_kernel_phase(torch, results):
     for shape in ((1, 64, 64, 3), (96, 96, 3), (1, 512, 512, 3)):
         for dt in (torch.float32, torch.bfloat16):
             cot = (torch.randn(shape, device=dev, generator=g) * 0.1).to(dt)
-            yk = K5.clip_grad_bwd_triton(cot, limit)
+            yk = K5.clip_grad_bwd_cuda(cot, limit)
             torch.cuda.synchronize()
             yp = K5.clip_grad_plain(cot, limit)
             check(torch.equal(yk, yp), f"clip_grad_bwd {shape} {dt}: "
                   f"differs from the plain clamp")
             share = float((cot.float().abs() > limit).float().mean())
+            kernel = lambda: K5.clip_grad_bwd_cuda(cot, limit)
+            clamp = lambda: torch.clamp(cot, -limit, limit)
+            where = f" [{list(shape)} {str(dt)[6:]}, {share:.3f} clamped]"
+            log(f"clip_grad_bwd{where}: host µs per call (least of 200) "
+                f"{host_us(kernel)['host_us_min']:.2f}, torch.clamp "
+                f"{host_us(clamp)['host_us_min']:.2f}")
             record_kernel(
                 results, "clip_grad_bwd", max_err([yk], [yp]),
-                median_ms(lambda: K5.clip_grad_bwd_triton(cot, limit)),
-                median_ms(lambda: K5.clip_grad_plain(cot, limit)), "exact",
-                nbytes(cot, yk), 2 * cot.numel(), "fp32",
-                median_ms(lambda: torch.clamp(cot, -limit, limit)),
-                f" [{list(shape)} {str(dt)[6:]}, {share:.3f} clamped]")
+                median_ms(kernel), median_ms(lambda: K5.clip_grad_plain(
+                    cot, limit)), "exact", nbytes(cot, yk), 2 * cot.numel(),
+                "fp32", median_ms(clamp), where)
 
 
 def _uv_sphere(np, radius, n_theta, n_phi):
@@ -1296,8 +1352,14 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
         f"{launches}")
     check(sd["all_losses_finite"], f"{what}: non-finite loss: {sd['losses']}")
     check(sd["grad_ok"], f"{what}: a step had non-finite gradients")
-    check(launches["conv_fwd_mma"] == 0,
-          f"{what}: {launches['conv_fwd_mma']} convs took conv_fwd_mma")
+    for name in ("conv_fwd_mma", "conv_dgrad"):
+        check(launches[name] == 0,
+              f"{what}: {launches[name]} convs took {name}")
+    n_vae = sum(not ph for ph in sd["latent_phase"])
+    for name, per_step in SD_DGRADS.items():
+        check(launches[name] == per_step * n_vae,
+              f"{what}: {launches[name]} launches of {name} in {n_vae} VAE "
+              f"steps, not {per_step} a step")
     for name in SD_KERNELS + (("hashgrid_fwd", "hashgrid_bwd")
                               if group == "grid" else
                               ("triplane_fwd", "triplane_bwd")):

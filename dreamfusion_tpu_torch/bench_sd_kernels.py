@@ -3,6 +3,7 @@ on one GPU.
 
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --tag change \\
         --outputs change.pt
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dgrad
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -20,7 +21,8 @@ call (one call on the host clock with the card idle before it, as a
 host-bound step pays it: Python, the tensor maps and the launch; timed
 before the profiler runs, over 200 calls: ``host_us_min``, the least,
 which other processes on the host's cores can only raise, and
-``host_us``, the median), the device time of one call in a CUDA graph
+``host_us``, the median; the library call's as ``library_host_us_min``
+and ``library_host_us``), the device time of one call in a CUDA graph
 (``graph_ms``: 20 calls captured in one graph, the graph replayed between
 two CUDA events, the median of 10 replays per call; no host in the window
 and no profiler records to drop, the few µs between a graph's kernels
@@ -28,18 +30,19 @@ included), and, timed all three ways, the one PyTorch call
 that computes the same function (``F.conv2d`` with TF32 off for fp32, as
 the kernel's fp32 FMAs; ``scaled_dot_product_attention``; null for the
 VAE's asymmetric padding).  The rows of ``SD_CONVS`` whose dgrad
-``chip_smoke.py`` checks are timed again as dgrads (``conv_dgrad``, the
-weight's transpose included, as the path pays it) beside cuDNN's input
-gradient alone (``aten.convolution_backward`` with output mask (True,
-False, False) on channels-last views of the same tensors: no layout copy
-of ours in the timed window); their ``kernel_names`` split the kernel
-time by kernel.  It prints one JSON line per shape with the launch
-counters the wrapper moved (its route) and the card's name and power
-limit, after a line with the SHA-256 of the port's ``csrc/`` and ``ops/``
-under ``--root`` (which sources were timed).  Compare two checkouts
-within one call, in turns (parent, change, change, parent).  With
-``--outputs FILE`` it also saves every forward's output (the inputs come
-from one seed, so two checkouts see the same ones); ``--compare A B``
+``chip_smoke.py`` checks are timed again as dgrads (the route
+``conv2d_dgrad_cuda`` takes: the wgmma route's packed weight comes from
+its cache, as on the path; the mma.sync route's transpose is included)
+beside cuDNN's input gradient alone (``aten.convolution_backward`` with
+output mask (True, False, False) on channels-last views of the same
+tensors: no layout copy of ours in the timed window); their
+``kernel_names`` split the kernel time by kernel. It prints one JSON line
+per shape with the launch counters the wrapper moved (its route) and the
+card's name and power limit, after a line with the SHA-256 of the port's
+``csrc/`` and ``ops/`` under ``--root`` (which sources were timed). Compare
+two checkouts within one call, in turns (parent, change, change, parent).
+With ``--outputs FILE`` it also saves every forward's output (the inputs
+come from one seed, so two checkouts see the same ones); ``--compare A B``
 prints, per shape, whether two such files agree bit for bit.
 """
 
@@ -107,7 +110,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("conv", "attn"), default=None)
+    ap.add_argument("--only", choices=("conv", "dgrad", "attn"),
+                    default=None, help="time only K12 (forwards and "
+                    "dgrads), only K12's dgrads or only K10")
     ap.add_argument("--outputs", default=None,
                     help="save every forward's output to this file")
     ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
@@ -182,19 +187,6 @@ def main(argv=None) -> None:
         del graph
         return statistics.median(times)
 
-    def host_us(fn, n=200):
-        """→ dict(host_us_min=least µs per call, host_us=median)."""
-        fn()
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t)
-        torch.cuda.synchronize()
-        return {"host_us_min": min(times) * 1e6,
-                "host_us": statistics.median(times) * 1e6}
-
     def map_cost(n=2000):
         """Host µs of a 1x1 conv [2,32,32,320->640] (the wgmma route) with
         x at a new address each call (its tensor map encoded afresh: n
@@ -231,6 +223,8 @@ def main(argv=None) -> None:
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in ([] if args.only == "attn"
                                                  else smoke.SD_CONVS):
+        if args.only == "dgrad" and not dgrad:
+            continue
         dtype = torch.float32 if dt == "fp32" else torch.bfloat16
         x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
         w = (torch.randn(O, k, k, I, device=dev, generator=g) /
@@ -248,7 +242,8 @@ def main(argv=None) -> None:
         row = {"kernel": "K12 conv_fwd", "shape": [B, H, W, I, O], "k": k,
                "stride": st, "pads": pads, "dtype": dt,
                "gflop": 2 * B * Ho * Wo * O * k * k * I / 1e9}
-        cases.append((row, fn, lib_fn))
+        if args.only != "dgrad":
+            cases.append((row, fn, lib_fn))
         if not dgrad:
             continue
         dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
@@ -264,7 +259,8 @@ def main(argv=None) -> None:
                                          x.shape, (st, st), pads, dtype),
                        lib_fn))
     cases += dgrads
-    for B, N, M, h, d, _ in [] if args.only == "conv" else smoke.SD_ATTNS:
+    for B, N, M, h, d, _ in ([] if args.only in ("conv", "dgrad")
+                             else smoke.SD_ATTNS):
         q, k, v = (torch.randn(B, n, h, d, device=dev, generator=g).to(
             torch.bfloat16) for n in (N, M, M))
         cases.append(({"kernel": "K10 attention_fwd",
@@ -291,8 +287,10 @@ def main(argv=None) -> None:
         torch.save(outs, args.outputs)
         del outs
     # the host times first: the profiler leaves its hooks behind
-    hosts = [host_us(fn) for _, fn, _ in cases]
-    if args.only != "attn":
+    hosts = [{**smoke.host_us(fn),
+              **({f"library_{k}": v for k, v in smoke.host_us(lib_fn).items()}
+                 if lib_fn else {})} for _, fn, lib_fn in cases]
+    if args.only in (None, "conv"):
         print(json.dumps({"tag": args.tag, **map_cost(), "card": card}),
               flush=True)
     tf32 = torch.backends.cudnn.allow_tf32

@@ -64,13 +64,14 @@
 //
 // mma.sync (conv_fwd_mma; the rest: fp32 with O > 8 or I % 4 != 0, bf16
 // with 8 < I, I % 64 != 0 or a stride above 2 -- no conv of the SD step --
-// and every dgrad): 128x128x32 tiles in shared memory, filled by 16-byte
-// cp.async copies (zero-filled outside the image and past K) in a two-stage
-// ring, fragments by ldmatrix, products by mma.sync m16n8k16 bf16 with fp32
-// accumulation.  The weights are [O, kh, kw, I] (I contiguous), so a B tile
-// row is one output channel's contiguous K slice; the path needs I % 8 == 0
-// (the wrapper pads narrower inputs with zero channels).  fp32 convs that
-// the narrow route does not take run one thread per output value.
+// and conv_dgrad, the dgrads no route below takes): 128x128x32 tiles in
+// shared memory, filled by 16-byte cp.async copies (zero-filled outside the
+// image and past K) in a two-stage ring, fragments by ldmatrix, products by
+// mma.sync m16n8k16 bf16 with fp32 accumulation.  The weights are [O, kh,
+// kw, I] (I contiguous), so a B tile row is one output channel's contiguous
+// K slice; the path needs I % 8 == 0 (the wrapper pads narrower inputs with
+// zero channels).  fp32 convs that the narrow route does not take run one
+// thread per output value.
 //
 // fp32 narrow (conv_fwd_fp32; fp32, O <= 8, I % 4 == 0: the UNet's and
 // the VAE encoder's conv_out, the quant convs): a few hundred MFLOP over a
@@ -80,16 +81,32 @@
 //
 // dgrad.  dx[b, y, x, c] = sum_{r, s, o} dy[b, oh, ow, o] * w[o, r, s, c] with
 // y = oh*sh - pt + r.  For stride s > 1 only the taps with
-// r = (y + pt) mod sh contribute to a given y, so the dx pixels are split
-// into sh*sw parity classes (grid z); in each class the pixel (i, j) at
-// y = py + sh*i reads dy at oh = i + (py + pt - r0)/sh - t for tap
-// r = r0 + sh*t.  Each class is then an implicit GEMM over only its own taps,
-// which scatters a strided (and asymmetrically padded) convolution exactly
-// without multiplying by the zeros of a dilated dy.  The weight comes
-// transposed to [I, kh, kw, O]; bottom and right padding only shape dy.
-// Narrow bf16 outputs (the 3-channel dgrad of the VAE's conv_in) stay on
-// the tensor cores: a 128-wide N tile with 3 live columns still beats CUDA
-// cores there.
+// r = (y + pt) mod sh contribute to a given y, so the dx pixels split into
+// sh*sw parity classes; in each class the pixel (i, j) at y = py + sh*i
+// reads dy at oh = i + (py + pt - r0)/sh - t for tap r = r0 + sh*t.  Each
+// class is then a stride-1 conv of dy with its sub-kernel, flipped (tap
+// t' = nt-1-t) and transposed: a forward conv with source offset nt - 1 -
+// (py + pt - r0)/sh, written to dx[:, py::sh, px::sw].  This scatters a
+// strided (and asymmetrically padded) convolution exactly without
+// multiplying by the zeros of a dilated dy; at stride 1 it is the one
+// class, padding k - 1 - p.  Bottom and right padding only shape dy.
+// Routes (ops/conv.py::dgrad_route):
+//  - conv_dgrad_wgmma (bf16, O % 64 == 0, stride 1 or 2: every level and
+//    downsampler of the VAE encoder): the wgmma kernel above, instantiated
+//    with DGRAD so that a tile's class picks its taps, source offset, weight
+//    rows and store map.  The weight comes packed once per weight as
+//    [classes*I, taps*O] (ops/conv.py::pack_dgrad_weight, cached by the
+//    weight's version): B tiles by TMA as the forward's.  A's map is dy's;
+//    the stores go through one map per class over dx's strided view (base
+//    (py*W + px)*I, strides sh*W*I and sw*I: any 16-byte multiples do), so
+//    the ragged class grids clip there; all classes walk in one launch.
+//  - conv_dgrad_narrow (bf16, stride 1, I <= 8: the VAE conv_in's 3-channel
+//    dx, byte-bound): mma.sync with A fragments loaded straight from dy (see
+//    its kernel); a wgmma tile would waste 125 of its 128 columns.
+//  - conv_dgrad_fp32 (fp32, O <= 8: the conv_outs' dx): CUDA cores, fp32
+//    FMAs, a thread per 4 channels x 8 pixels.
+//  - conv_dgrad: mma.sync as above over the classes (grid z), the weight
+//    transposed to [I, kh, kw, O] per call; fp32 one thread per value.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -432,6 +449,173 @@ __global__ void __launch_bounds__(256) conv_narrow_kernel(ConvParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// CUDA-core dgrads: the 3-channel dx of the VAE's conv_in (bf16) and the
+// fp32 conv_out's (see the dgrad note above)
+// ---------------------------------------------------------------------------
+
+constexpr int kDxNarrowI = 8;    // widest dx of conv_dgrad_narrow: one n8 tile
+constexpr int kDxNarrowO = 256;  // widest dy
+constexpr int kDxNarrowK = 3;    // largest kh, kw
+constexpr int kDxNarrowWarps = 4;
+
+// Tensor cores without shared memory: a warp takes 16 dx pixels along x,
+// and per tap and 32 of dy's channels runs two mma.sync m16n8k16 whose A
+// fragments (rows: the tap's 16 dy pixels) each lane loads from device
+// memory itself, zero outside dy: 16 bytes of its row (8 channels) that
+// fill its registers of both products, so that a row's 64 bytes are one
+// load of 4 lanes.  The K order inside a product is free as long as A and
+// B agree: lane q's slots (2q, 2q+1, 8+2q, 9+2q) take channels 32p + 8q
+// + (0..3) in the first product and + (4..7) in the second.  The B
+// fragments (those channels x the <= 8 dx channels of w's tap, zero past
+// I) come packed per lane (ops/conv.py::pack_dgrad_narrow_weight,
+// [kh*kw][O/32][32 lanes] x 16 bytes: one 16-byte load from L1, where the
+// whole packed weight stays).  A load of a warp touches 8 dy pixels, 64
+// bytes each, so every tap's pass over dy costs 8 L1 wavefronts per 512
+// bytes.  dx[y, x] = sum_{r, s, o} dy[y + pt - r, x + pl - s, o]
+// w[o, r, s, :].
+__global__ void __launch_bounds__(kDxNarrowWarps * 32)
+conv_dgrad_narrow_kernel(
+    const bf16* __restrict__ dy, const uint4* __restrict__ bfrag, void* dx,
+    int B, int H, int W, int I, int Ho, int Wo, int O, int kh, int kw,
+    int pt, int pl, int out_f32) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int ps = O / 32;
+  const int xt = (W + 15) / 16;
+  const int64_t tasks = (int64_t)B * H * xt;
+  const int64_t nwarps = (int64_t)gridDim.x * kDxNarrowWarps;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t task = (int64_t)blockIdx.x * kDxNarrowWarps + threadIdx.x / 32;
+       task < tasks; task += nwarps) {
+    const int x0 = (int)(task % xt) * 16;
+    const int y = (int)(task / xt % H);
+    const int64_t b = task / ((int64_t)xt * H);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < kh; ++r) {
+      const int oh = y + pt - r;
+      if (oh < 0 || oh >= Ho) continue;               // the whole warp
+      const bf16* row = dy + (b * Ho + oh) * Wo * O + 8 * q;
+      for (int s = 0; s < kw; ++s) {
+        // rows g and g + 8 of A: dx pixels x0 + g and x0 + g + 8
+        const int ow0 = x0 + g + pl - s, ow1 = ow0 + 8;
+        const bool ok0 = x0 + g < W && ow0 >= 0 && ow0 < Wo;
+        const bool ok1 = x0 + g + 8 < W && ow1 >= 0 && ow1 < Wo;
+        const uint4* p0 = reinterpret_cast<const uint4*>(
+            row + (int64_t)(ok0 ? ow0 : 0) * O);
+        const uint4* p1 = reinterpret_cast<const uint4*>(
+            row + (int64_t)(ok1 ? ow1 : 0) * O);
+        const uint4* bf = bfrag + (int64_t)(r * kw + s) * ps * 32 + lane;
+#pragma unroll 4
+        for (int p = 0; p < ps; ++p) {
+          const uint4 v0 = ok0 ? __ldg(p0 + 4 * p) : zero;
+          const uint4 v1 = ok1 ? __ldg(p1 + 4 * p) : zero;
+          const uint4 bb = __ldg(bf + 32 * p);
+          const uint32_t a0[4] = {v0.x, v1.x, v0.y, v1.y};
+          const uint32_t b0[2] = {bb.x, bb.y};
+          dft::mma_bf16(acc, a0, b0);
+          const uint32_t a1[4] = {v0.z, v1.z, v0.w, v1.w};
+          const uint32_t b1[2] = {bb.z, bb.w};
+          dft::mma_bf16(acc, a1, b1);
+        }
+      }
+    }
+    // acc: (row g, cols 2q, 2q + 1) then (row g + 8, the same cols)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = x0 + g + 8 * h;
+      if (x >= W) continue;
+      const int64_t o = ((b * H + y) * W + x) * I;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 2 * q + e;
+        if (n >= I) continue;
+        if (out_f32)
+          static_cast<float*>(dx)[o + n] = acc[2 * h + e];
+        else
+          static_cast<bf16*>(dx)[o + n] = __float2bfloat16(acc[2 * h + e]);
+      }
+    }
+  }
+}
+
+constexpr int kDxFp32O = 8;      // widest dy of conv_dgrad_fp32
+constexpr int kDxFp32Pix = 8;    // dx pixels along x a thread
+
+// One thread per 4 dx channels x 8 pixels along x: per tap, the weights of
+// its channels for every dy channel (16-byte loads of the untransposed w,
+// neighbouring threads on neighbouring channels) serve all 8 pixels; dy's
+// values are the same for the 32 threads of a warp (broadcast loads, 16
+// bytes where O % 4 == 0).  S1: stride 1 (no divisions in the tap walk).
+template <bool S1, bool VEC>
+__global__ void __launch_bounds__(256) conv_dgrad_fp32_kernel(
+    const float* __restrict__ dy, const float* __restrict__ w,
+    float* __restrict__ dx, int B, int H, int W, int I, int Ho, int Wo, int O,
+    int kh, int kw, int sh, int sw, int pt, int pl) {
+  const int groups = I / 4;
+  const int xg = (W + kDxFp32Pix - 1) / kDxFp32Pix;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)B * H * xg * groups) return;
+  const int c = (int)(idx % groups) * 4;
+  int64_t t = idx / groups;
+  const int x0 = (int)(t % xg) * kDxFp32Pix;
+  t /= xg;
+  const int y = (int)(t % H);
+  const int64_t b = t / H;
+  float4 acc[kDxFp32Pix];
+#pragma unroll
+  for (int q = 0; q < kDxFp32Pix; ++q)
+    acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < kh; ++r) {
+    const int ohs = y + pt - r;
+    if (ohs < 0 || (!S1 && ohs % sh)) continue;
+    const int oh = S1 ? ohs : ohs / sh;
+    if (oh >= Ho) continue;
+    for (int s = 0; s < kw; ++s) {
+      float4 wv[kDxFp32O];
+#pragma unroll
+      for (int o = 0; o < kDxFp32O; ++o)
+        wv[o] = o < O ? __ldg(reinterpret_cast<const float4*>(
+                            w + (((int64_t)o * kh + r) * kw + s) * I + c))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < kDxFp32Pix; ++q) {
+        const int ows = x0 + q + pl - s;
+        if (x0 + q >= W || ows < 0 || (!S1 && ows % sw)) continue;
+        const int ow = S1 ? ows : ows / sw;
+        if (ow >= Wo) continue;
+        const float* d = dy + ((b * Ho + oh) * Wo + ow) * O;
+        float dv[kDxFp32O];
+        if (VEC) {
+#pragma unroll
+          for (int o = 0; o < kDxFp32O; o += 4) {
+            const float4 v = o < O ? __ldg(reinterpret_cast<const float4*>(
+                                         d + o))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+            dv[o] = v.x; dv[o + 1] = v.y; dv[o + 2] = v.z; dv[o + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int o = 0; o < kDxFp32O; ++o)
+            dv[o] = o < O ? __ldg(d + o) : 0.f;
+        }
+#pragma unroll
+        for (int o = 0; o < kDxFp32O; ++o) {
+          if (o >= O) break;
+          acc[q].x = fmaf(dv[o], wv[o].x, acc[q].x);
+          acc[q].y = fmaf(dv[o], wv[o].y, acc[q].y);
+          acc[q].z = fmaf(dv[o], wv[o].z, acc[q].z);
+          acc[q].w = fmaf(dv[o], wv[o].w, acc[q].w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kDxFp32Pix; ++q)
+    if (x0 + q < W)
+      *reinterpret_cast<float4*>(dx + ((b * H + y) * W + x0 + q) * I + c) =
+          acc[q];
+}
+
+// ---------------------------------------------------------------------------
 // Hopper path: implicit GEMM on wgmma, operands by TMA (see the note above)
 // ---------------------------------------------------------------------------
 
@@ -457,17 +641,36 @@ struct Cfg {
 };
 }  // namespace wg
 
+// One problem of a launch, as a conv of the source grid: the forward conv,
+// or one parity class of a dgrad (conv_dgrad_wgmma, see the note there).
+// Its output pixel (cy, cx) reads source pixel (cy*sh - pt + t, cx*sw - pl +
+// u) at tap (t, u) and is written at (py + ystep*cy, px + xstep*cx).
+struct WgClass {
+  int Hc, Wc;             // its output grid
+  int py, px;             // where that grid starts in the written tensor
+  int pt, pl;             // source offset (may be negative)
+  int nu;                 // taps along x: tap index = t * nu + u
+  int kblocks;            // taps * C / 64 (0: no tap, its pixels get zeros)
+  int wrow;               // its first row in the weight map
+  int tiles_x, tiles_y, tiles_pix;
+  int tile0;              // its first tile in the launch
+};
+
+constexpr int kMaxClasses = 4;          // a stride-2 dgrad's parity classes
+
 struct WgConv {
-  int B, Ho, Wo, O;       // output grid
-  int C, kw, pt, pl;      // input channels (% 64 == 0; narrow: 8), pads
-  int sh, sw;             // strides (1 or 2)
+  int B, Ho, Wo, O;       // the written tensor [B, Ho, Wo, O]
+  int C;                  // source channels (% 64 == 0; narrow: 8)
+  int sh, sw;             // source strides of the tap walk (1 or 2)
+  int ystep, xstep;       // output strides (dgrad classes: the conv's)
   int taps;               // kh * kw (the narrow route's A chunks)
   int bw, bh, bb;         // the pixel box of one tile (bw * bh * bb = 128)
   const unsigned char* xp;  // narrow: x padded [B, Hp, Wp, 8] and the
   const unsigned char* wp;  // packed weight [O/BN][10][BN][8]
   int Hp, Wp;
-  int tiles_x, tiles_y, tiles_pix, tiles_n, tiles;   // tiles over all splits
-  int kblocks;            // kh * kw * C / 64 (narrow: 1)
+  int tiles_n, tiles;     // N tiles; tiles over all classes and splits
+  int classes;
+  WgClass cls[kMaxClasses];
   int splits;
   const float* bias;
   void* y;
@@ -476,23 +679,43 @@ struct WgConv {
   float* ws;              // [splits, B*Ho*Wo*O] fp32 partials when splits > 1
 };
 
-// A tile's place in the problem: pixel box origin, N offset, K range.
-struct WgTile {
-  int x0, y0, b0, n0, split, kb0, kb1;
+// The store maps of a launch's classes: a dgrad's N <= kMaxClasses, the
+// forward's one (its kernel's parameters stay as small as before).
+template <int N>
+struct WgStoreMaps {
+  CUtensorMap m[N];
 };
 
-template <int BN>
+// A tile's place in the problem: its class, pixel box origin, N offset,
+// K range.
+struct WgTile {
+  int cls, x0, y0, b0, n0, split, kb0, kb1;
+  WgClass c;
+};
+
+template <int BN, bool DGRAD>
 __device__ __forceinline__ WgTile wg_tile(const WgConv& p, int t) {
   WgTile w;
+  // the class (a forward has one): static indices only, so p stays in the
+  // parameter bank
+  w.cls = 0;
+  w.c = p.cls[0];
+#pragma unroll
+  for (int i = 1; i < kMaxClasses; ++i)
+    if (DGRAD && i < p.classes && t >= p.cls[i].tile0) {
+      w.cls = i;
+      w.c = p.cls[i];
+    }
+  t -= w.c.tile0;
   w.n0 = (t % p.tiles_n) * BN;
   t /= p.tiles_n;
-  const int pix = t % p.tiles_pix;
-  w.split = t / p.tiles_pix;
-  w.x0 = (pix % p.tiles_x) * p.bw;
-  w.y0 = (pix / p.tiles_x % p.tiles_y) * p.bh;
-  w.b0 = pix / (p.tiles_x * p.tiles_y) * p.bb;
-  w.kb0 = (int)((int64_t)p.kblocks * w.split / p.splits);
-  w.kb1 = (int)((int64_t)p.kblocks * (w.split + 1) / p.splits);
+  const int pix = t % w.c.tiles_pix;
+  w.split = t / w.c.tiles_pix;
+  w.x0 = (pix % w.c.tiles_x) * p.bw;
+  w.y0 = (pix / w.c.tiles_x % w.c.tiles_y) * p.bh;
+  w.b0 = pix / (w.c.tiles_x * w.c.tiles_y) * p.bb;
+  w.kb0 = (int)((int64_t)w.c.kblocks * w.split / p.splits);
+  w.kb1 = (int)((int64_t)w.c.kblocks * (w.split + 1) / p.splits);
   return w;
 }
 
@@ -513,11 +736,13 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
 // pass the turn to issue a tile's products; 3 and 4 are each warpgroup's own.
 // NARROW: the 8-channel route; a tile's whole K (its taps x 8 channels) is
 // one stage of plain bulk copies (no tensor maps for x and w).
-template <bool NARROW, int BN>
+template <bool NARROW, int BN, bool DGRAD>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap wmap,
-                  const __grid_constant__ CUtensorMap ymap, WgConv p) {
+                  const __grid_constant__ WgStoreMaps<DGRAD ? kMaxClasses : 1>
+                      ymaps,
+                  WgConv p) {
   using C = wg::Cfg<NARROW, BN>;
   extern __shared__ unsigned char smem_buf[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -557,7 +782,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     if (tid != 0) return;
     int it = 0;
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-      const WgTile w = wg_tile<BN>(p, t);
+      const WgTile w = wg_tile<BN, DGRAD>(p, t);
       for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
         const int s = it % C::STAGES;
         hop::mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
@@ -572,7 +797,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           hop::mbar_expect_tx(&full[s],
                               p.taps * p.bh * p.bb * seg + C::TILE_B);
           for (int tap = 0; tap < p.taps; ++tap) {
-            const int r = tap / p.kw, u = tap - r * p.kw;
+            const int r = tap / w.c.nu, u = tap - r * w.c.nu;
             for (int row = 0; row < p.bh * p.bb; ++row) {
               const int y = w.y0 + row % p.bh, b = w.b0 + row / p.bh;
               const int64_t px =
@@ -589,15 +814,15 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         } else {
           const int cblocks = p.C / wg::BK;
           const int tap = kb / cblocks, cb = kb - tap * cblocks;
-          const int r = tap / p.kw, u = tap - r * p.kw;
+          const int r = tap / w.c.nu, u = tap - r * w.c.nu;
           // at stride 2 the map walks every other pixel (its traversal
           // strides): the box starts at the tap's first source pixel
           hop::mbar_expect_tx(&full[s], C::STAGE);
           hop::tma_load_4d(st, &xmap, &full[s], cb * wg::BK,
-                           w.x0 * p.sw + u - p.pl, w.y0 * p.sh + r - p.pt,
-                           w.b0);
+                           w.x0 * p.sw + u - w.c.pl,
+                           w.y0 * p.sh + r - w.c.pt, w.b0);
           hop::tma_load_2d(st + C::TILE_A, &wmap, &full[s], kb * wg::BK,
-                           w.n0);
+                           w.c.wrow + w.n0);
         }
       }
     }
@@ -616,7 +841,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int64_t total = (int64_t)p.B * p.Ho * p.Wo * p.O;
   int it = 0;
   for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {
-    const WgTile w = wg_tile<BN>(p, t);
+    const WgTile w = wg_tile<BN, DGRAD>(p, t);
     if (i % 2 != cw) {               // the other warpgroup's tile
       it += w.kb1 - w.kb0;
       continue;
@@ -689,9 +914,16 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       hop::fence_proxy_async();
       hop::bar_sync(3 + cw, 128);
       if (lt == 0) {
-        hop::tma_store_4d(&ymap, so, w.n0, w.x0, w.y0, w.b0);
+        // the class's map (static indices: the maps stay parameters)
+        const CUtensorMap* ym = &ymaps.m[0];
+        if constexpr (DGRAD) {
+#pragma unroll
+          for (int i = 1; i < kMaxClasses; ++i)
+            if (w.cls == i) ym = &ymaps.m[i];
+        }
+        hop::tma_store_4d(ym, so, w.n0, w.x0, w.y0, w.b0);
         if (BN == 128 && w.n0 + 64 < p.O)
-          hop::tma_store_4d(&ymap, so + wg::BM * 64, w.n0 + 64, w.x0, w.y0,
+          hop::tma_store_4d(ym, so + wg::BM * 64, w.n0 + 64, w.x0, w.y0,
                             w.b0);
         hop::bulk_commit();
       }
@@ -705,8 +937,11 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int row = m * 64 + warp * 16 + g + 8 * h;
         const int x = w.x0 + row % p.bw, y = w.y0 + (row / p.bw) % p.bh;
         const int b = w.b0 + row / (p.bw * p.bh);
-        if (x >= p.Wo || y >= p.Ho || b >= p.B) continue;
-        const int64_t o = (((int64_t)b * p.Ho + y) * p.Wo + x) * p.O;
+        if (x >= w.c.Wc || y >= w.c.Hc || b >= p.B) continue;
+        // a dgrad class's pixel (x, y) is dx's (px + xstep*x, py + ystep*y)
+        const int oy = DGRAD ? w.c.py + p.ystep * y : y;
+        const int ox = DGRAD ? w.c.px + p.xstep * x : x;
+        const int64_t o = (((int64_t)b * p.Ho + oy) * p.Wo + ox) * p.O;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int n = w.n0 + 8 * j + 2 * q;
@@ -749,37 +984,50 @@ __global__ void pad_channels8_kernel(const bf16* __restrict__ x,
   xp[i] = *reinterpret_cast<const uint4*>(v);
 }
 
-// Fills the tiling of `p` (output grid, box, O, splits, K blocks), encodes
-// y's store map when the epilogue stores by TMA, and launches the kernel
-// (and the split-K reduction) on at most `sms` persistent blocks.
-template <bool NARROW, int BN>
+// Fills the tiling of `p` (each class's tiles over the box, O and the
+// splits; the caller set the classes' grids, offsets and K blocks), encodes
+// each class's store map when the epilogue stores by TMA (y's strided view
+// [B, Hc, Wc, O] from pixel (py, px), steps ystep and xstep), and launches
+// the kernel (and the split-K reduction) on at most `sms` persistent blocks.
+template <bool NARROW, int BN, bool DGRAD = false>
 int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap,
                  WgConv& p, int sms, cudaStream_t stream) {
   using C = wg::Cfg<NARROW, BN>;
-  CUtensorMap ymap = xmap;           // unused without TMA stores
+  WgStoreMaps<DGRAD ? kMaxClasses : 1> ymaps;
+  memset(&ymaps, 0, sizeof ymaps);   // unused without TMA stores
   p.tma_store = !p.out_f32 && p.splits == 1 && p.O % 8 == 0;
-  if (p.tma_store) {   // y [B, Ho, Wo, O] in boxes of 64 channels x the pixels
-    const cuuint64_t yd[4] = {(cuuint64_t)p.O, (cuuint64_t)p.Wo,
-                              (cuuint64_t)p.Ho, (cuuint64_t)p.B};
-    const cuuint64_t ys[3] = {(cuuint64_t)p.O * 2, (cuuint64_t)p.Wo * p.O * 2,
+  p.tiles_n = (p.O + BN - 1) / BN;
+  p.tiles = 0;
+  for (int i = 0; i < p.classes; ++i) {
+    WgClass& c = p.cls[i];
+    c.tiles_x = (c.Wc + p.bw - 1) / p.bw;
+    c.tiles_y = (c.Hc + p.bh - 1) / p.bh;
+    c.tiles_pix = c.tiles_x * c.tiles_y * ((p.B + p.bb - 1) / p.bb);
+    c.tile0 = p.tiles;
+    p.tiles += c.tiles_pix * p.tiles_n * p.splits;
+    if (!p.tma_store || c.tiles_pix == 0) continue;
+    // boxes of 64 channels x the pixel box
+    const cuuint64_t yd[4] = {(cuuint64_t)p.O, (cuuint64_t)c.Wc,
+                              (cuuint64_t)c.Hc, (cuuint64_t)p.B};
+    const cuuint64_t ys[3] = {(cuuint64_t)p.xstep * p.O * 2,
+                              (cuuint64_t)p.ystep * p.Wo * p.O * 2,
                               (cuuint64_t)p.Ho * p.Wo * p.O * 2};
     const cuuint32_t yb[4] = {(cuuint32_t)wg::BK, (cuuint32_t)p.bw,
                               (cuuint32_t)p.bh, (cuuint32_t)p.bb};
-    if (!hop::encode_bf16_map(&ymap, p.y, 4, yd, ys, yb))
+    const bf16* base = static_cast<const bf16*>(p.y) +
+                       ((int64_t)c.py * p.Wo + c.px) * p.O;
+    if (!hop::encode_bf16_map(&ymaps.m[i], base, 4, yd, ys, yb))
       return (int)cudaErrorInvalidValue;
   }
+  if (p.tiles == 0) return (int)cudaGetLastError();
   static bool smem_set[hop::kMaxDevices] = {};
   const cudaError_t err =
-      hop::allow_smem(conv_wgmma_kernel<NARROW, BN>, (int)C::kSmem, smem_set);
+      hop::allow_smem(conv_wgmma_kernel<NARROW, BN, DGRAD>, (int)C::kSmem,
+                      smem_set);
   if (err != cudaSuccess) return (int)err;
-  p.tiles_x = (p.Wo + p.bw - 1) / p.bw;
-  p.tiles_y = (p.Ho + p.bh - 1) / p.bh;
-  p.tiles_pix = p.tiles_x * p.tiles_y * ((p.B + p.bb - 1) / p.bb);
-  p.tiles_n = (p.O + BN - 1) / BN;
-  p.tiles = p.tiles_pix * p.tiles_n * p.splits;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  conv_wgmma_kernel<NARROW, BN><<<grid, wg::kThreads, C::kSmem, stream>>>(
-      xmap, wmap, ymap, p);
+  conv_wgmma_kernel<NARROW, BN, DGRAD>
+      <<<grid, wg::kThreads, C::kSmem, stream>>>(xmap, wmap, ymaps, p);
   if (p.splits > 1) {
     ConvParams r{nullptr, nullptr, p.bias, p.y, p.B, 0, 0, 0, p.Ho, p.Wo,
                  p.O, 0, 0, 1, 1, 0, 0, p.out_f32, p.splits, p.ws};
@@ -788,6 +1036,16 @@ int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap,
         r);
   }
   return (int)cudaGetLastError();
+}
+
+// The forward as the one class of a launch: output grid Ho x Wo, source
+// offset (pt, pl), kw taps along x, K blocks from the weight's row 0.
+inline void forward_class(WgConv& p, int pt, int pl, int kw, int kblocks) {
+  p.classes = 1;
+  p.ystep = p.xstep = 1;
+  WgClass& c = p.cls[0];
+  c.Hc = p.Ho; c.Wc = p.Wo; c.py = 0; c.px = 0;
+  c.pt = pt; c.pl = pl; c.nu = kw; c.kblocks = kblocks; c.wrow = 0;
 }
 
 template <bool DGRAD>
@@ -884,10 +1142,9 @@ extern "C" int conv_fwd_wgmma(const void* x, const void* w, const float* bias,
     return (int)cudaErrorInvalidValue;
   WgConv p{};
   p.B = B; p.Ho = Ho; p.Wo = Wo; p.O = O;
-  p.C = I; p.kw = kw; p.pt = pt; p.pl = pl;
-  p.sh = sh; p.sw = sw; p.taps = kh * kw;
+  p.C = I; p.sh = sh; p.sw = sw; p.taps = kh * kw;
   p.bw = bw; p.bh = bh; p.bb = bb;
-  p.kblocks = (int)(K / wg::BK);
+  forward_class(p, pt, pl, kw, (int)(K / wg::BK));
   p.splits = splits;
   p.bias = bias; p.y = y; p.out_f32 = out_f32;
   p.ws = ws;
@@ -913,14 +1170,13 @@ extern "C" int conv_fwd_wgmma_i8(const void* x, void* xp, const void* w,
   if ((int64_t)B * Ho * Wo == 0 || O == 0) return (int)cudaGetLastError();
   WgConv p{};
   p.B = B; p.Ho = Ho; p.Wo = Wo; p.O = O;
-  p.C = 8; p.kw = kw; p.pt = 0; p.pl = 0;
-  p.sh = 1; p.sw = 1; p.taps = kh * kw;
+  p.C = 8; p.sh = 1; p.sw = 1; p.taps = kh * kw;
   p.bw = bw; p.bh = bh; p.bb = bb;
+  forward_class(p, 0, 0, kw, 1);
   p.xp = static_cast<const unsigned char*>(xp);
   p.wp = static_cast<const unsigned char*>(w);
   p.Hp = Ho + kh - 1;
   p.Wp = Wo + kw - 1;
-  p.kblocks = 1;
   p.splits = 1;
   p.bias = bias; p.y = y; p.out_f32 = out_f32;
   p.ws = nullptr;
@@ -947,5 +1203,127 @@ extern "C" int conv_fwd_fp32(const void* x, const void* w, const float* bias,
   ConvParams p{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl,
                out_f32, 1, nullptr};
   conv_narrow_kernel<<<(unsigned)((M + 7) / 8), 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The Hopper route of the input gradient: dx[B,H,W,I] from dy[B,Ho,Wo,O]
+// (bf16, O % 64 == 0) of a conv at strides sh, sw (1 or 2) with top/left
+// padding pt, pl, as its sh*sw parity classes in one launch (the dgrad note
+// above).  wp is the weight packed per class, [sh*sw*I, kmax] with kmax a
+// multiple of 64 (ops/conv.py::pack_dgrad_weight): row c*I + i, column
+// (t*nu + u)*O + o holds w[o, r0 + sh*(nt-1-t), s0 + sw*(nu-1-u), i], zero
+// past the class's nt x nu taps.  A tile is bw x bh x bb pixels of a class's
+// grid (product 128) by bn (128) channels of dx; persistent blocks on
+// at most `sms` multiprocessors; splits > 1 needs ws, fp32
+// [splits * B*H*W*I].
+extern "C" int conv_dgrad_wgmma(const void* dy, const void* wp, void* dx,
+                                int B, int H, int W, int I, int Ho, int Wo,
+                                int O, int kh, int kw, int sh, int sw, int pt,
+                                int pl, int kmax, int bw, int bh, int bb,
+                                int bn, int out_f32, int splits, int sms,
+                                float* ws, cudaStream_t stream) {
+  if (O % wg::BK || kmax % wg::BK || kmax < wg::BK ||
+      bw * bh * bb != wg::BM || bw > 256 || bh > 256 ||
+      bn != 128 || splits < 1 || sms < 1 || sh < 1 || sh > 2 || sw < 1 ||
+      sw > 2 || sh * sw > kMaxClasses ||
+      (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * H * W == 0 || I == 0) return (int)cudaGetLastError();
+  WgConv p{};
+  p.B = B; p.Ho = H; p.Wo = W; p.O = I;
+  p.C = O; p.sh = 1; p.sw = 1;       // each class walks dy at stride 1
+  p.ystep = sh; p.xstep = sw;
+  p.bw = bw; p.bh = bh; p.bb = bb;
+  p.classes = sh * sw;
+  for (int cls = 0; cls < p.classes; ++cls) {
+    const int py = cls / sw, px = cls % sw;
+    const int r0 = (py + pt) % sh, s0 = (px + pl) % sw;
+    const int nt = r0 < kh ? (kh - r0 + sh - 1) / sh : 0;
+    const int nu = s0 < kw ? (kw - s0 + sw - 1) / sw : 0;
+    if ((int64_t)nt * nu * O > kmax) return (int)cudaErrorInvalidValue;
+    WgClass& c = p.cls[cls];
+    c.Hc = H > py ? (H - py + sh - 1) / sh : 0;
+    c.Wc = W > px ? (W - px + sw - 1) / sw : 0;
+    c.py = py; c.px = px;
+    // dx pixel (cy, cx) reads dy (cy + oy - t, cx + ox - u) at tap (t, u) of
+    // the flipped sub-kernel: as a forward conv, source offset nt - 1 - oy
+    c.pt = nt - 1 - (py + pt - r0) / sh;
+    c.pl = nu - 1 - (px + pl - s0) / sw;
+    c.nu = nu > 0 ? nu : 1;
+    c.kblocks = nt * nu * O / wg::BK;
+    c.wrow = cls * I;
+  }
+  CUtensorMap xmap, wmap;
+  // dy [B, Ho, Wo, O]: one tap's A tile is a box of bw x bh x bb pixels
+  const cuuint64_t xd[4] = {(cuuint64_t)O, (cuuint64_t)Wo, (cuuint64_t)Ho,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {(cuuint64_t)O * 2, (cuuint64_t)Wo * O * 2,
+                            (cuuint64_t)Ho * Wo * O * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)wg::BK, (cuuint32_t)bw,
+                             (cuuint32_t)bh, (cuuint32_t)bb};
+  const cuuint64_t wd[2] = {(cuuint64_t)kmax, (cuuint64_t)p.classes * I};
+  const cuuint64_t wst[1] = {(cuuint64_t)kmax * 2};
+  const cuuint32_t wb[2] = {(cuuint32_t)wg::BK, (cuuint32_t)bn};
+  if (!hop::encode_bf16_map(&xmap, dy, 4, xd, xs, box) ||
+      !hop::encode_bf16_map(&wmap, wp, 2, wd, wst, wb))
+    return (int)cudaErrorInvalidValue;
+  p.splits = splits;
+  p.bias = nullptr; p.y = dx; p.out_f32 = out_f32;
+  p.ws = ws;
+  return launch_wgmma<false, 128, true>(xmap, wmap, p, sms, stream);
+}
+
+// The narrow input gradient (the VAE conv_in's): dx[B,H,W,I] from
+// dy[B,Ho,Wo,O] (bf16) at stride 1, top/left padding pt, pl; I <= 8, O <=
+// 256 with O % 32 == 0, kh, kw <= 3; wf is the weight as B fragments
+// (ops/conv.py::pack_dgrad_narrow_weight).  Grid: at most `sms` * 8 blocks
+// of 4 warps, a warp 16 pixels at a time.
+extern "C" int conv_dgrad_narrow(const void* dy, const void* wf, void* dx,
+                                 int B, int H, int W, int I, int Ho, int Wo,
+                                 int O, int kh, int kw, int pt, int pl,
+                                 int out_f32, int sms, cudaStream_t stream) {
+  if (I < 1 || I > kDxNarrowI || O < 32 || O > kDxNarrowO || O % 32 ||
+      kh < 1 || kh > kDxNarrowK || kw < 1 || kw > kDxNarrowK || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t tasks = (int64_t)B * H * ((W + 15) / 16);
+  if (tasks == 0) return (int)cudaGetLastError();
+  const int64_t want = (tasks + kDxNarrowWarps - 1) / kDxNarrowWarps;
+  const unsigned grid =
+      (unsigned)(want < (int64_t)sms * 8 ? want : (int64_t)sms * 8);
+  conv_dgrad_narrow_kernel<<<grid, kDxNarrowWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(dy), static_cast<const uint4*>(wf), dx, B, H,
+      W, I, Ho, Wo, O, kh, kw, pt, pl, out_f32);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 input gradient of the narrow convs (the conv_outs'): dx[B,H,W,I]
+// from dy[B,Ho,Wo,O] and w[O,kh,kw,I] (fp32, as the forward's), any stride
+// and top/left padding pt, pl; O <= 8, I % 4 == 0.
+extern "C" int conv_dgrad_fp32(const void* dy, const void* w, void* dx, int B,
+                               int H, int W, int I, int Ho, int Wo, int O,
+                               int kh, int kw, int sh, int sw, int pt, int pl,
+                               cudaStream_t stream) {
+  if (O < 1 || O > kDxFp32O || I % 4 || sh < 1 || sw < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t threads = (int64_t)B * H *
+                          ((W + kDxFp32Pix - 1) / kDxFp32Pix) * (I / 4);
+  if (threads == 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  const float* d = static_cast<const float*>(dy);
+  const float* wt = static_cast<const float*>(w);
+  float* x = static_cast<float*>(dx);
+  const bool s1 = sh == 1 && sw == 1, vec = O % 4 == 0;
+  if (s1 && vec)
+    conv_dgrad_fp32_kernel<true, true><<<blocks, 256, 0, stream>>>(
+        d, wt, x, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl);
+  else if (s1)
+    conv_dgrad_fp32_kernel<true, false><<<blocks, 256, 0, stream>>>(
+        d, wt, x, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl);
+  else if (vec)
+    conv_dgrad_fp32_kernel<false, true><<<blocks, 256, 0, stream>>>(
+        d, wt, x, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl);
+  else
+    conv_dgrad_fp32_kernel<false, false><<<blocks, 256, 0, stream>>>(
+        d, wt, x, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl);
   return (int)cudaGetLastError();
 }

@@ -6,59 +6,40 @@ rendered rgb elementwise to [-limit, limit] with ``jnp.clip``'s rules (NaN
 stays NaN, limit 0 gives zeros).
 
 The forward returns a view of its input and launches nothing.  On a CUDA
-tensor the backward is one launch of a Triton kernel.  Bound on the card:
-memory and launch cost, one pass that reads and writes each element once
-with no reuse, so shared memory, tensor cores and TMA have nothing to
-offer; masked block loads of 1024 elements, clamped in fp32 (exact for
-fp32 and bf16 alike) and stored in the cotangent's own type.  On a CPU
-tensor the plain version runs.
+tensor the backward is one launch of ``csrc/clip_grad.cu`` through ctypes
+(``kernels.launch``).  Bound on the card: bytes and, at the image path's
+48 KB to 3 MB, the launch itself: one pass with no reuse, 16-byte loads
+and stores, clamped in fp32 (exact for fp32 and bf16 alike) and stored in
+the cotangent's own type.  A C entry point keeps the host's cost per call
+to a ctypes call, where the Triton kernel it replaced paid Triton's Python
+launcher and lost to ``torch.clamp`` on that alone.  On a CPU tensor the
+plain version runs.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import kernels
-
-_BLOCK = 1024
 
 
 def clip_grad_plain(g: torch.Tensor, limit: float) -> torch.Tensor:
     return g.clamp(-limit, limit)
 
 
-@functools.cache
-def _triton_kernel():
-    """Compile-on-first-use Triton kernel (imported here: the CPU tests
-    import this module where Triton is absent)."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def clamp(g_ptr, out_ptr, N, limit, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        m = offs < N
-        g = tl.load(g_ptr + offs, mask=m, other=0.0)
-        x = g.to(tl.float32)
-        c = tl.minimum(tl.maximum(x, -limit), limit)
-        c = tl.where(x != x, x, c)            # NaN stays NaN
-        tl.store(out_ptr + offs, c.to(g.dtype), mask=m)
-
-    return clamp
-
-
-def clip_grad_bwd_triton(g: torch.Tensor, limit: float) -> torch.Tensor:
+def clip_grad_bwd_cuda(g: torch.Tensor, limit: float) -> torch.Tensor:
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"clip_grad takes fp32 or bf16, got {g.dtype}")
+    if not limit >= 0:
+        raise ValueError(f"clip_grad needs a limit >= 0, got {limit}")
+    if not g.is_cuda:
+        raise ValueError(f"expected a CUDA tensor, got {g.device}")
     g = g.contiguous()
-    kernels.check_cuda(g)
+    if g.data_ptr() % 16:         # the kernel reads 16 bytes at a time
+        g = g.clone()
     out = torch.empty_like(g)
-    N = g.numel()
-    _triton_kernel()[(max(1, -(-N // _BLOCK)),)](g, out, N, float(limit),
-                                                 BLOCK=_BLOCK)
-    kernels.LAUNCHES["clip_grad_bwd"] += 1
+    kernels.launch("clip_grad_bwd", g.data_ptr(), out.data_ptr(), g.numel(),
+                   float(limit), int(g.dtype == torch.bfloat16))
     return out
 
 
@@ -72,7 +53,7 @@ class _ClipGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if g.is_cuda:
-            return clip_grad_bwd_triton(g, ctx.limit), None
+            return clip_grad_bwd_cuda(g, ctx.limit), None
         if g.device.type == "cpu":
             return clip_grad_plain(g, ctx.limit), None
         raise ValueError(f"unsupported device {g.device}")

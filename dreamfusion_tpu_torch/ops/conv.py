@@ -20,11 +20,20 @@ where I < 8, the weight packed once and cached), the warp-per-pixel fp32
 kernel for the narrow fp32 convs (O <= 8), and the mma.sync implicit GEMM
 (or, for other fp32, one thread per output) for the rest, which no SD-step
 shape reaches; the tensor-core routes split over K where the output tiles
-alone cannot fill the card.  The input gradient is one launch of
-``conv_dgrad`` (mma.sync).  The weight gradient is on no path (every tower
-is frozen): backward gives none and raises if the weight asks for one.  On
-a CPU tensor the plain version runs: the JAX package's shifted-einsum form
-(``_einsum_conv``) with autograd for dx.
+alone cannot fill the card.  The input gradient is one launch of one of
+four routes, chosen by ``dgrad_route`` on the shape alone: the wgmma
+kernel over dx's parity classes (``conv_dgrad_wgmma``; bf16, O % 64 == 0,
+stride 1 or 2: at stride 1 a forward conv of dy with the flipped,
+transposed weight, packed once per weight version and cached: 70.6 MB for
+the SD VAE encoder, whose weights are 65.8 MB), mma.sync with A fragments
+from device memory for the narrow dx of the conv_ins
+(``conv_dgrad_narrow``), CUDA cores for the fp32 conv_outs
+(``conv_dgrad_fp32``), and mma.sync (``conv_dgrad``) for the rest, which
+no SD-step shape reaches.  The weight gradient is on no path (every
+tower is frozen): backward gives none and raises if the weight asks for
+one.  On a CPU tensor the plain versions run: the JAX package's
+shifted-einsum form (``_einsum_conv``), and for dx the kernels' own
+decomposition through it (``conv2d_dgrad_plain``).
 """
 
 from __future__ import annotations
@@ -90,6 +99,8 @@ _BK_MMA, _BK_WGMMA = 32, 64    # their K steps
 _NARROW_O = 8                  # widest output of the fp32 route
 _NARROW_I, _NARROW_K = 8, 10   # the narrow-input route: 8 channels a tap,
                                # at most 10 taps (K chunks of 8)
+_DX_NARROW_I, _DX_NARROW_O = 8, 256   # the narrow dgrad: dx <= 8 channels
+                                      # (one n8 tile), dy <= 256
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -143,10 +154,11 @@ def split_k(tiles: int, k_steps: int, sms: int, min_steps: int,
 
 
 def wgmma_tiling(B: int, Ho: int, Wo: int, O: int, k_steps: int, sms: int,
-                 small_output: bool):
+                 small_output: bool, classes: int = 1):
     """(pixel box, N tile, split-K factor) of the wgmma routes for an
-    output [B, Ho, Wo, O] and `k_steps` 64-wide K blocks.  The stride-1
-    convs take 128-wide N tiles and two blocks per SM of splits.  A
+    output [B, Ho, Wo, O] (per class: a dgrad's parity classes share a
+    launch) and `k_steps` 64-wide K blocks.  The stride-1 convs and the
+    dgrads take 128-wide N tiles and two blocks per SM of splits.  A
     `small_output` (stride 2: a quarter of the input's pixels; the
     narrow-input conv_ins) takes N tiles 64 wide where 128-wide ones would
     fill under half the SMs, and splits for one block per SM: these convs
@@ -155,7 +167,8 @@ def wgmma_tiling(B: int, Ho: int, Wo: int, O: int, k_steps: int, sms: int,
     box = pixel_box(B, Ho, Wo)
     pix = _cdiv(Wo, box[0]) * _cdiv(Ho, box[1]) * _cdiv(B, box[2])
     if not small_output:
-        return box, _TILE, split_k(pix * _cdiv(O, _TILE), k_steps, sms, 4)
+        return box, _TILE, split_k(pix * _cdiv(O, _TILE) * classes, k_steps,
+                                   sms, 4)
     bn = 64 if 2 * pix * _cdiv(O, _TILE) < sms else _TILE
     return box, bn, split_k(pix * _cdiv(O, bn), k_steps, sms, 4, 1.0)
 
@@ -190,19 +203,26 @@ def pack_narrow_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
         .contiguous()
 
 
-_PACKED = WeakIdKeyDictionary()   # weight → (data_ptr, version, bn, packed)
+# weight → {layout: (data_ptr, version, packed)}
+_PACKED = WeakIdKeyDictionary()
+
+
+def _cached_pack(w: torch.Tensor, layout, make) -> torch.Tensor:
+    """``make()``, w in another layout, once per weight and `layout`:
+    cached on the tensor and made afresh when its storage or version (an
+    in-place update) moves."""
+    packs = _PACKED.setdefault(w, {})
+    hit = packs.get(layout)
+    if hit is not None and hit[:2] == (w.data_ptr(), w._version):
+        return hit[2]
+    pk = make()
+    packs[layout] = (w.data_ptr(), w._version, pk)
+    return pk
 
 
 def _packed_narrow_weight(w: torch.Tensor, bn: int) -> torch.Tensor:
-    """``pack_narrow_weight`` once per weight: cached on the tensor and
-    made afresh when its storage or version (an in-place update) moves."""
-    key = (w.data_ptr(), w._version, bn)
-    hit = _PACKED.get(w)
-    if hit is not None and hit[:3] == key:
-        return hit[3]
-    pk = pack_narrow_weight(w, bn)
-    _PACKED[w] = (*key, pk)
-    return pk
+    """``pack_narrow_weight`` once per weight and N tile."""
+    return _cached_pack(w, ("narrow", bn), lambda: pack_narrow_weight(w, bn))
 
 
 def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -273,30 +293,194 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def dgrad_route(dtype: torch.dtype, I: int, O: int,
+                stride: Tuple[int, int], kernel: Tuple[int, int]) -> str:
+    """The launch counter (and kernel) of the input gradient dx [.., I] of
+    a conv with O output channels and a kernel of `kernel` = (kh, kw) taps,
+    by shape alone: "conv_dgrad_narrow" for bf16 at stride 1 with I <= 8,
+    O <= 256, O % 32 == 0 and kh, kw <= 3 (the VAE's 3-channel conv_in),
+    "conv_dgrad_wgmma" for other bf16 with O % 64 == 0 at strides of 1 or 2
+    (a K block is 64 of dy's channels: every level and downsampler of the
+    VAE encoder), "conv_dgrad_fp32" for fp32 with O <= 8 and I % 4 == 0 (the
+    conv_outs), else "conv_dgrad" (mma.sync; fp32 one thread per value),
+    which no dgrad of the SD step takes (the towers' test widths do)."""
+    kh, kw = kernel
+    if dtype == torch.bfloat16:
+        if (I <= _DX_NARROW_I and tuple(stride) == (1, 1) and O % 32 == 0
+                and O <= _DX_NARROW_O and kh <= 3 and kw <= 3):
+            return "conv_dgrad_narrow"
+        if O % 64 == 0 and max(stride) <= 2:
+            return "conv_dgrad_wgmma"
+    if dtype == torch.float32 and O <= _NARROW_O and I % 4 == 0:
+        return "conv_dgrad_fp32"
+    return "conv_dgrad"
+
+
+def _class_taps(k: int, s: int, p: int, q: int) -> Tuple[int, int, int]:
+    """Along one axis (kernel k, stride s, leading pad p), the taps of the
+    dx pixels at q mod s: (first tap r0, count n, dy offset o).  Pixel
+    q + s*i reads dy at i + o - t through tap r0 + s*t, t < n."""
+    r0 = (q + p) % s
+    n = -(-(k - r0) // s) if r0 < k else 0
+    return r0, n, (q + p - r0) // s
+
+
+def dgrad_classes(H: int, W: int, kh: int, kw: int, stride: Tuple[int, int],
+                  pads: Pads):
+    """The parity classes of a dgrad at `stride` (one at stride 1): per
+    class (py, px), its grid (Hc, Wc) = dx[:, py::sh, px::sw]'s, its taps
+    (r0, nt, s0, nu) and, as a forward stride-1 conv of dy with the flipped
+    sub-kernel, that conv's leading pads (nt - 1 - oy, nu - 1 - ox)."""
+    sh, sw = stride
+    (pt, _), (pl, _) = pads
+    out = []
+    for py in range(sh):
+        for px in range(sw):
+            r0, nt, oy = _class_taps(kh, sh, pt, py)
+            s0, nu, ox = _class_taps(kw, sw, pl, px)
+            out.append({"py": py, "px": px, "Hc": max(0, -(-(H - py) // sh)),
+                        "Wc": max(0, -(-(W - px) // sw)), "r0": r0, "nt": nt,
+                        "s0": s0, "nu": nu, "pt": nt - 1 - oy,
+                        "pl": nu - 1 - ox})
+    return out
+
+
+def pack_dgrad_weight(w: torch.Tensor, stride: Tuple[int, int],
+                      pads: Pads) -> torch.Tensor:
+    """[O, kh, kw, I] → the dgrad's [sh*sw*I, kmax] (kmax: the most taps of
+    a class x O, rounded up to 64): row c*I + i, column (t*nu + u)*O + o
+    holds w[o, r0 + sh*(nt-1-t), s0 + sw*(nu-1-u), i] for class c, zero
+    past its taps.  Per class, rows c*I.. are a forward weight [I, nt, nu,
+    O] of the port's layout: the flipped, transposed (sub-)kernel."""
+    O, kh, kw, I = w.shape
+    sh, sw = stride
+    classes = dgrad_classes(1, 1, kh, kw, stride, pads)
+    kmax = _cdiv(max(c["nt"] * c["nu"] for c in classes) * O, 64) * 64
+    pk = w.new_zeros(len(classes), I, kmax)
+    for i, c in enumerate(classes):
+        nt, nu = c["nt"], c["nu"]
+        if nt * nu == 0:
+            continue
+        rows = [c["r0"] + sh * (nt - 1 - t) for t in range(nt)]
+        cols = [c["s0"] + sw * (nu - 1 - u) for u in range(nu)]
+        sub = w[:, rows][:, :, cols]                   # [O, nt, nu, I]
+        pk[i, :, :nt * nu * O] = sub.permute(3, 1, 2, 0).reshape(I, -1)
+    return pk.reshape(len(classes) * I, kmax)
+
+
+def conv2d_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                       x_shape: Sequence[int], stride: Tuple[int, int],
+                       pads: Pads, out_dtype: torch.dtype) -> torch.Tensor:
+    """dx [B, H, W, I] from dy [B, Ho, Wo, O], the kernels' way: per parity
+    class, a stride-1 ``conv2d_plain`` of dy with the class's flipped,
+    transposed sub-kernel (``pack_dgrad_weight``), written to dx[:, py::sh,
+    px::sw]; a class without taps gets zeros.  fp32 sums."""
+    B, H, W, I = x_shape
+    O = w.shape[0]
+    _, Ho, Wo, _ = dy.shape
+    kh, kw = w.shape[1:3]
+    pk = pack_dgrad_weight(w.float(), stride, pads)
+    dx = torch.zeros(B, H, W, I, device=dy.device, dtype=torch.float32)
+    sh, sw = stride
+    for i, c in enumerate(dgrad_classes(H, W, kh, kw, stride, pads)):
+        nt, nu, Hc, Wc = c["nt"], c["nu"], c["Hc"], c["Wc"]
+        if nt * nu == 0 or Hc * Wc == 0:
+            continue
+        wc = pk[i * I:(i + 1) * I, :nt * nu * O].reshape(I, nt, nu, O)
+        # leading pads as given (negative: a crop), trailing ones so that
+        # the class's grid comes out Hc x Wc
+        cpads = ((c["pt"], Hc - Ho - c["pt"] + nt - 1),
+                 (c["pl"], Wc - Wo - c["pl"] + nu - 1))
+        dx[:, c["py"]::sh, c["px"]::sw] = conv2d_plain(
+            dy, wc, None, (1, 1), cpads, torch.float32)
+    return dx.to(out_dtype)
+
+
+def _packed_dgrad_weight(w: torch.Tensor, stride: Tuple[int, int],
+                         pads: Pads) -> torch.Tensor:
+    """``pack_dgrad_weight`` once per weight, stride and class layout (the
+    leading pads mod the stride)."""
+    (pt, _), (pl, _) = pads
+    layout = ("dgrad", tuple(stride), pt % stride[0], pl % stride[1])
+    return _cached_pack(w, layout, lambda: pack_dgrad_weight(w, stride, pads))
+
+
+def pack_dgrad_narrow_weight(w: torch.Tensor) -> torch.Tensor:
+    """[O, kh, kw, I] (I <= 8, O % 32 == 0) → the narrow dgrad's B
+    fragments [kh*kw, O/32, 32, 8]: for tap t, 32-channel group p and lane
+    l = 4n + q, w[32p + 8q + j, t, n] for j < 8 (dy's channels by dx's
+    channel n; the kernel's K order), zero past I."""
+    O, kh, kw, I = w.shape
+    wt = F.pad(w.reshape(O, kh * kw, I), (0, _DX_NARROW_I - I))
+    g = wt.reshape(O // 32, 4, 8, kh * kw, _DX_NARROW_I)   # [p, q, j, t, n]
+    return g.permute(3, 0, 4, 1, 2).reshape(kh * kw, O // 32, 32, 8) \
+        .contiguous()
+
+
 def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
                       x_shape: Sequence[int], stride: Tuple[int, int],
                       pads: Pads, out_dtype: torch.dtype) -> torch.Tensor:
-    """dx [B, H, W, I] from dy [B, Ho, Wo, O] (dy is cast to w's dtype)."""
+    """dx [B, H, W, I] from dy [B, Ho, Wo, O] (dy is cast to w's dtype),
+    one launch of the route ``dgrad_route`` names."""
+    if w.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"conv dgrad takes fp32 or bf16, got {w.dtype}, "
+                         f"{out_dtype}")
     dy = dy.to(w.dtype).contiguous()
-    wT = w.permute(3, 1, 2, 0).contiguous()          # [I, kh, kw, O]
-    kernels.check_cuda(dy, wT)
+    w = w.contiguous()
     B, H, W, I = x_shape
     O, kh, kw, _ = w.shape
     _, Ho, Wo, _ = dy.shape
-    dx = torch.empty(B, H, W, I, device=dy.device, dtype=out_dtype)
-    bf16 = w.dtype == torch.bfloat16
     sh, sw = stride
+    (pt, _), (pl, _) = pads
+    route = dgrad_route(w.dtype, I, O, stride, (kh, kw))
+    kernels.check_cuda(dy, w)
+    if route != "conv_dgrad" and any(t.data_ptr() % 16 for t in (dy, w)):
+        raise ValueError(f"{route} reads dy and w in 16-byte units: 16-byte "
+                         "aligned tensors only")
+    f32 = int(out_dtype == torch.float32)
+    if route == "conv_dgrad_fp32":
+        if out_dtype != torch.float32:
+            raise ValueError("conv_dgrad_fp32 writes an fp32 dx")
+        dx = torch.empty(B, H, W, I, device=dy.device, dtype=torch.float32)
+        kernels.launch(route, kernels.ptr(dy), kernels.ptr(w),
+                       kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                       pt, pl)
+        return dx
+    dx = torch.empty(B, H, W, I, device=dy.device, dtype=out_dtype)
+    sms = kernels.sm_count(dy.device)
+    if route == "conv_dgrad_narrow":
+        wf = _cached_pack(w, ("dgrad_narrow",),
+                          lambda: pack_dgrad_narrow_weight(w))
+        kernels.launch(route, kernels.ptr(dy), kernels.ptr(wf),
+                       kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, pt, pl,
+                       f32, sms)
+        return dx
+    if route == "conv_dgrad_wgmma":
+        pk = _packed_dgrad_weight(w, stride, pads)
+        classes = dgrad_classes(H, W, kh, kw, stride, pads)
+        taps = max(c["nt"] * c["nu"] for c in classes)
+        # class (0, 0) has the largest grid
+        (bw, bh, bb), bn, splits = wgmma_tiling(
+            B, classes[0]["Hc"], classes[0]["Wc"], I,
+            taps * O // _BK_WGMMA, sms, False, len(classes))
+        ws = _workspace(splits, dx.numel(), dy.device)
+        kernels.launch(route, kernels.ptr(dy), kernels.ptr(pk),
+                       kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                       pt, pl, pk.shape[1], bw, bh, bb, bn, f32, splits, sms,
+                       kernels.ptr(ws))
+        return dx
+    wT = w.permute(3, 1, 2, 0).contiguous()          # [I, kh, kw, O]
+    bf16 = w.dtype == torch.bfloat16
     splits = 1
     if bf16 and O % 8 == 0:
         tiles = (_cdiv(B * _cdiv(H, sh) * _cdiv(W, sw), _TILE) *
                  _cdiv(I, _TILE) * sh * sw)
         splits = split_k(tiles, _cdiv(kh, sh) * _cdiv(kw, sw) * O // _BK_MMA,
-                         kernels.sm_count(dy.device), 8)
+                         sms, 8)
     ws = _workspace(splits, dx.numel(), dy.device)
-    kernels.launch("conv_dgrad", kernels.ptr(dy), kernels.ptr(wT),
+    kernels.launch(route, kernels.ptr(dy), kernels.ptr(wT),
                    kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
-                   pads[0][0], pads[1][0], int(bf16),
-                   int(out_dtype == torch.float32), splits, kernels.ptr(ws))
+                   pt, pl, int(bf16), f32, splits, kernels.ptr(ws))
     return dx
 
 
@@ -323,12 +507,8 @@ class _Conv2d(torch.autograd.Function):
         if dy.is_cuda:
             dx = conv2d_dgrad_cuda(dy, w, x_shape, stride, pads, x_dtype)
         else:
-            with torch.enable_grad():
-                xr = torch.zeros(x_shape, dtype=torch.float32,
-                                 requires_grad=True)
-                y = conv2d_plain(xr, w, None, stride, pads, torch.float32)
-                (dx,) = torch.autograd.grad(y, xr, dy.float())
-            dx = dx.to(x_dtype)
+            dx = conv2d_dgrad_plain(dy.float(), w, x_shape, stride, pads,
+                                    x_dtype)
         return dx, None, None, None, None, None
 
 

@@ -54,7 +54,9 @@ LAUNCHES: Dict[str, int] = {
     "groupnorm_fwd": 0, "groupnorm_bwd": 0,     # K11, Triton
     "conv_fwd_wgmma": 0, "conv_fwd_wgmma_i8": 0,  # K12, CUDA C++
     "conv_fwd_mma": 0,                          # K12, CUDA C++
-    "conv_fwd_fp32": 0, "conv_dgrad": 0,        # K12, CUDA C++
+    "conv_fwd_fp32": 0,                         # K12, CUDA C++
+    "conv_dgrad_wgmma": 0, "conv_dgrad_narrow": 0,  # K12 dgrad, CUDA C++
+    "conv_dgrad_fp32": 0, "conv_dgrad": 0,      # K12 dgrad, CUDA C++
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
     "marching_tets_fwd": 0, "marching_tets_bwd": 0,          # K8, CUDA C++
@@ -64,11 +66,12 @@ LAUNCHES: Dict[str, int] = {
     "hashgrid_fwd": 0, "hashgrid_bwd": 0,                    # K6, CUDA C++
     "hashgrid_tv_fwd": 0, "hashgrid_tv_bwd": 0,              # K6
     "hashgrid_wd_fwd": 0, "hashgrid_wd_bwd": 0,              # K6
-    "clip_grad_bwd": 0,                                      # K5, Triton
+    "clip_grad_bwd": 0,                                      # K5, CUDA C++
     "signed_distance": 0,                                    # K9, CUDA C++
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 # C signature of every entry point (all return int = cudaError_t)
 _SIGNATURES = {
     "triplane_fwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
@@ -84,6 +87,10 @@ _SIGNATURES = {
     "conv_fwd_wgmma_i8": [_P] * 5 + [_I] * 17 + [_P],
     "conv_fwd_fp32": [_P] * 4 + [_I] * 14 + [_P],
     "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
+    "conv_dgrad_wgmma": [_P] * 3 + [_I] * 21 + [_P, _P],
+    "conv_dgrad_narrow": [_P] * 3 + [_I] * 13 + [_P],
+    "conv_dgrad_fp32": [_P] * 3 + [_I] * 13 + [_P],
+    "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
     "attention_fwd_wgmma": [_P] * 5 + [_I] * 4 + [_F, _P],
     "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
     "attention_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
@@ -110,6 +117,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_fns: Dict[str, object] = {}    # entry point → its ctypes function
 BUILD_LOG = ""
 
 
@@ -174,12 +182,17 @@ def ptr(t) -> int | None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream, as a raw handle (without the
+    ``torch.cuda.Stream`` object that ``current_stream()`` builds)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def launch(name: str, *args) -> None:
     """Call C entry point `name`, count the launch, raise on a CUDA error."""
-    err = getattr(cuda_lib(), name)(*args, stream())
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(cuda_lib(), name)
+    err = fn(*args, stream())
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")

@@ -34,8 +34,9 @@ from .training.trainer import check_slice, guarded_update
 GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K7 raster", r"\b(raster|interpolate)_\w+_kernel"),
     ("K8 marching tets", r"\b(mt|vn|lap|nc)_\w+_kernel"),
-    ("K12 conv", r"conv_(wgmma|mma|simple|narrow)_kernel|conv_splitk_reduce"
-                 r"|pad_channels8_kernel"),
+    ("K12 conv", r"conv_(dgrad_)?(wgmma|mma|simple|narrow|fp32)_kernel"
+                 r"|conv_splitk_reduce|pad_channels8_kernel"),
+    ("K5 clip_grad", r"\bclip_(f32|bf16)_kernel"),
     ("K10 attention", r"attn_"),
     ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"),
     ("K6 hashgrid", r"\bhash_\w+_kernel"),
@@ -45,6 +46,21 @@ GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K4 field head", r"^(fwd|bwd)$"),
     ("matrix products", r"gemm|cutlass|xmma|nvjet|cublas|s\d+gemm|sm90"),
 ]
+
+
+# a part of a group, printed under it: K12's input gradients (the wgmma
+# route's dgrad instantiation, the narrow and fp32 dgrads, and the mma.sync
+# and one-thread dgrads of any tree); the split-K reduces stay whole in K12
+PARTS = [("K12 conv", "of which input gradients",
+          r"conv_wgmma_kernel<false, 128, true>|conv_dgrad_\w+_kernel"
+          r"|conv_mma_kernel<true>|conv_simple_kernel<\w+, true>")]
+
+
+def part_of(name: str):
+    for group, part, pat in PARTS:
+        if re.search(pat, name):
+            return group, part
+    return None
 
 
 def group_of(name: str) -> str:
@@ -88,14 +104,24 @@ def profile_phase(trainer, state, gen, n_steps: int, label: str) -> None:
           f"{busy:.3f} ms/step = {100 * busy / wall_ms:.1f}% of the wall",
           flush=True)
     by_group, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
+    by_part = defaultdict(lambda: [0.0, 0])
     for e in kern:
         us = e.time_range.elapsed_us()
         by_group[group_of(e.name)] += us
         by_name[e.name][0] += us
         by_name[e.name][1] += 1
+        part = part_of(e.name)
+        if part is not None:
+            by_part[part][0] += us
+            by_part[part][1] += 1
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}:   {g:<40s} {us / 1e3 / n_steps:9.3f} "
               f"ms/step {100 * us / 1e3 / n_steps / total:5.1f}%", flush=True)
+        for (pg, part), (pus, n) in by_part.items():
+            if pg == g:
+                print(f"[profile] {label}:     {part:<38s} "
+                      f"{pus / 1e3 / n_steps:9.3f} ms/step "
+                      f"{n / n_steps:6.1f} launches/step", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"[profile] {label}:     {us / 1e3 / n_steps:8.3f} ms/step "

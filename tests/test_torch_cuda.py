@@ -177,12 +177,13 @@ def _close_to(got, want, rel):
     (1, 16, 16, 128, 256, 3, 2, 1, torch.bfloat16),    # dgrad split-K 4
 ])
 def test_conv_kernel(dev, B, H, W, I, O, k, stride, pad, dtype):
-    """K12 forward and dgrad: odd sizes, a partial N tile (48, 136, 160),
-    stride 2 with symmetric and the VAE's (0, 1) padding, a 3-channel input
-    (the narrow-input wgmma route forward, a 3-column N tile in its dgrad),
-    a bf16 dgrad with 12 channels (CUDA cores), fp32, and split-K (few
-    output tiles, long K) forward (256 channels at stride 1 and 128 at
-    stride 2: the wgmma route) and dgrad."""
+    """K12 forward and dgrad through autograd: odd sizes, a partial N tile
+    (48, 136, 160), stride 2 with symmetric and the VAE's (0, 1) padding, a
+    3-channel input (the narrow-input wgmma route forward, the narrow
+    dgrad), a bf16 dgrad with 12 channels (CUDA cores), fp32, and split-K
+    (few output tiles, long K) forward (256 channels at stride 1 and 128 at
+    stride 2: the wgmma route) and dgrad (the wgmma dgrad's four classes at
+    stride 2)."""
     g = _gen(dev, 4)
     x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
     w = (torch.randn(O, k, k, I, device=dev, generator=g) /
@@ -485,6 +486,153 @@ def test_groupnorm_kernel(dev, B, H, W, C, eps, silu, dtype):
     (dxp,) = torch.autograd.grad(group_norm_plain(x32, wt, bs, G, eps, silu),
                                  x32, dy.float())
     _close_to(dx, dxp, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def _dgrad_plain(dy, w, x_shape, stride, pad):
+    """dx by autograd of the plain forward, in fp32 on the card."""
+    xr = torch.zeros(x_shape, device=dy.device, requires_grad=True)
+    y = conv2d_plain(xr, w, None, (stride, stride), norm_padding(pad),
+                     torch.float32)
+    (dx,) = torch.autograd.grad(y, xr, dy.float())
+    return dx
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad", [
+    (1, 9, 11, 128, 128, 3, 1, 1),          # odd grid: ragged pixel boxes
+    (2, 7, 13, 72, 320, 3, 1, 1),           # dx below one N tile
+    (1, 5, 6, 136, 1280, 3, 1, 1),          # split-K, ragged N
+    (2, 8, 8, 200, 64, 3, 1, ((0, 2), (1, 0))),  # asymmetric padding
+    (2, 16, 16, 64, 192, 1, 1, 0),          # 1x1
+    (1, 17, 15, 128, 128, 3, 2, ((0, 1), (0, 1))),   # the VAE's downs
+    (1, 16, 16, 256, 256, 3, 2, ((0, 1), (0, 1))),
+    (2, 9, 10, 64, 128, 3, 2, 1),           # the other parity layout
+    (1, 12, 10, 36, 64, 3, 2, 0),           # dx channels % 8 != 0
+    (1, 7, 9, 40, 128, 1, 2, 0),            # three classes without taps
+    (1, 10, 10, 3, 64, 3, 2, 1),            # a 3-channel dx at stride 2
+])
+def test_conv_dgrad_wgmma_kernel(dev, B, H, W, I, O, k, stride, pad):
+    """K12's dgrad on the Hopper route against autograd of the plain
+    forward: at stride 1 a forward conv of dy with the flipped, transposed
+    weight, at stride 2 its four parity classes in one launch (their
+    strided TMA stores, or register stores where dx's channels are not a
+    multiple of 8 or the K range is split); borders on their own; two
+    launches agree bit for bit."""
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_cuda,
+                                                dgrad_route)
+    assert dgrad_route(torch.bfloat16, I, O, (stride, stride), (k, k)) == \
+        "conv_dgrad_wgmma"
+    g = _gen(dev, 12)
+    bf = torch.bfloat16
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(bf)
+    pads = norm_padding(pad)
+    Ho, Wo = ((H + sum(pads[0]) - k) // stride + 1,
+              (W + sum(pads[1]) - k) // stride + 1)
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(bf)
+    kernels.reset_launch_counts()
+    dx = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (stride, stride), pads, bf)
+    dx2 = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (stride, stride), pads, bf)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_dgrad_wgmma"] == 2
+    assert kernels.LAUNCHES["conv_dgrad"] == 0
+    assert torch.equal(dx, dx2)
+    ref = _dgrad_plain(dy, w, (B, H, W, I), stride, pad)
+    _within_ulp(dx, ref)
+    _within_ulp(_border(dx), _border(ref))
+
+
+@pytest.mark.parametrize("B,H,W,I,O,pad", [
+    (1, 64, 64, 3, 128, 1),                 # the VAE conv_in's
+    (2, 9, 11, 3, 128, 1),
+    (1, 7, 5, 1, 64, ((0, 2), (1, 1))),
+    (2, 6, 9, 4, 96, 1),
+    (1, 8, 8, 8, 32, 0),
+    (1, 5, 21, 3, 256, 1),                  # a ragged 16-pixel group
+])
+def test_conv_dgrad_narrow_kernel(dev, B, H, W, I, O, pad):
+    """The 3-channel dx of the VAE's conv_in (mma.sync with A fragments
+    loaded from device memory, 16 pixels a warp; odd sizes, a ragged
+    16-pixel group, 1-8 dx channels, 32-256 dy channels) against autograd
+    of the plain forward."""
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_cuda,
+                                                dgrad_route)
+    assert dgrad_route(torch.bfloat16, I, O, (1, 1), (3, 3)) == \
+        "conv_dgrad_narrow"
+    g = _gen(dev, 13)
+    bf = torch.bfloat16
+    w = (torch.randn(O, 3, 3, I, device=dev, generator=g) / 3.0).to(bf)
+    pads = norm_padding(pad)
+    Ho, Wo = H + sum(pads[0]) - 2, W + sum(pads[1]) - 2
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(bf)
+    kernels.reset_launch_counts()
+    dx = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (1, 1), pads, bf)
+    dx2 = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (1, 1), pads, bf)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_dgrad_narrow"] == 2
+    assert torch.equal(dx, dx2)
+    ref = _dgrad_plain(dy, w, (B, H, W, I), 1, pad)
+    _within_ulp(dx, ref)
+    _within_ulp(_border(dx), _border(ref))
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride", [
+    (1, 8, 10, 512, 8, 3, 1),               # the VAE encoder's conv_out
+    (2, 9, 7, 320, 4, 3, 1),                # the UNet's
+    (1, 9, 9, 12, 3, 3, 2),
+    (1, 6, 6, 8, 8, 1, 1),
+])
+def test_conv_dgrad_fp32_kernel(dev, B, H, W, I, O, k, stride):
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_cuda,
+                                                dgrad_route)
+    assert dgrad_route(torch.float32, I, O, (stride, stride), (k, k)) == \
+        "conv_dgrad_fp32"
+    g = _gen(dev, 14)
+    w = torch.randn(O, k, k, I, device=dev, generator=g) / (k * k * I) ** 0.5
+    pad = k // 2
+    pads = norm_padding(pad)
+    Ho, Wo = ((H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1)
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    dx = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (stride, stride), pads,
+                           torch.float32)
+    dx2 = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (stride, stride), pads,
+                            torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_dgrad_fp32"] == 2
+    assert torch.equal(dx, dx2)
+    ref = _dgrad_plain(dy, w, (B, H, W, I), stride, pad)
+    _close_to(dx, ref, 1e-5)
+    _close_to(_border(dx), _border(ref), 1e-5)
+
+
+@pytest.mark.parametrize("I,O,dtype,stride", [
+    (128, 128, torch.bfloat16, 1), (128, 64, torch.bfloat16, 2),
+    (3, 128, torch.bfloat16, 1), (512, 8, torch.float32, 1)])
+def test_conv_dgrad_routes_refuse_misaligned_views(dev, I, O, dtype, stride):
+    """The dgrad routes read dy and w in 16-byte units: a contiguous view
+    at an odd offset raises instead of faulting on the card."""
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_cuda,
+                                                dgrad_route)
+    route = dgrad_route(dtype, I, O, (stride, stride), (3, 3))
+    assert route != "conv_dgrad"
+    pads = norm_padding(1)
+    Ho = (8 + 2 - 3) // stride + 1
+    n = 2 * Ho * Ho * O
+    dy = torch.randn(n + 1, device=dev).to(dtype)[1:].view(2, Ho, Ho, O)
+    w = (torch.randn(O, 3, 3, I, device=dev) / (9 * I) ** 0.5).to(dtype)
+    assert dy.is_contiguous() and dy.data_ptr() % 16
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        conv2d_dgrad_cuda(dy, w, (2, 8, 8, I), (stride, stride), pads, dtype)
+    wv = torch.randn(w.numel() + 1, device=dev).to(dtype)[1:].view(w.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        conv2d_dgrad_cuda(dy.clone(), wv, (2, 8, 8, I), (stride, stride),
+                          pads, dtype)
+    assert kernels.LAUNCHES[route] == 0
+    dx = conv2d_dgrad_cuda(dy.clone(), w, (2, 8, 8, I), (stride, stride),
+                           pads, dtype)
+    assert kernels.LAUNCHES[route] == 1
+    _close_to(dx, _dgrad_plain(dy, w, (2, 8, 8, I), stride, 1), 1e-2)
 
 
 def test_new_wrappers_count_their_launches(dev):
@@ -808,10 +956,13 @@ def test_k6_wrappers_count_their_launches(dev):
 # ---- K5 gradient clamp and K9 signed distance ------------------------------
 
 @pytest.mark.parametrize("shape", [(1, 64, 64, 3), (96, 96, 3),
-                                   (1, 512, 512, 3)])
+                                   (1, 512, 512, 3), (5, 7, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("limit", [0.05, 0.0])
 def test_clip_grad_kernel(dev, shape, dtype, limit):
+    """K5's CUDA kernel through autograd: 16-byte vectors and a scalar tail
+    (105 values: 1 fp32 and 1 bf16 leftover), NaN kept, limit 0 gives
+    zeros."""
     from dreamfusion_tpu_torch.ops.clip_grad import clip_grad, clip_grad_plain
     g = _gen(dev, 7)
     cot = (torch.randn(shape, device=dev, generator=g) * 0.1).to(dtype)

@@ -81,6 +81,118 @@ def test_conv_matches_mm_conv_and_its_vjp(rng, H, W, I, O, k, stride, pad):
     _close(dx, dx_j)
 
 
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad", [
+    (2, 9, 11, 5, 7, 3, 1, 1),                  # odd sizes, stride 1
+    (1, 9, 8, 4, 6, 3, 2, ((0, 1), (0, 1))),    # the VAE's (0, 1) down
+    (2, 10, 9, 6, 6, 3, 2, ((0, 1), (0, 1))),   # the same, even H
+    (1, 9, 11, 6, 5, 3, 2, 1),                  # symmetric pad at stride 2
+    (2, 7, 7, 3, 8, 3, 1, 1),                   # the conv_in's 3-channel dx
+    (1, 6, 6, 5, 3, 1, 1, 0),                   # 1x1
+    (1, 7, 9, 4, 6, 1, 2, 0),                   # classes without taps
+    (1, 11, 10, 3, 5, 3, 1, ((0, 2), (2, 0))),  # asymmetric at stride 1
+])
+def test_dgrad_by_classes_matches_mm_conv_vjp(rng, B, H, W, I, O, k, stride,
+                                              pad):
+    """dx the kernels' way (``conv2d_dgrad_plain``: per parity class a
+    stride-1 conv of dy with the flipped, transposed sub-kernel, written
+    to dx[:, py::s, px::s]; at stride 1 one class, padding k - 1 - p)
+    against jax.vjp of mm_conv, fp32, within 1e-5 of the largest |dx|."""
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_plain,
+                                                norm_padding, out_size)
+
+    x = _rand(rng, B, H, W, I)
+    kern = _rand(rng, k, k, I, O, scale=0.3)
+    pads = norm_padding(pad)
+
+    def jconv(xx):
+        xp = jnp.pad(xx, ((0, 0), *pads, (0, 0)))
+        return mm_conv(xp, jnp.asarray(kern), (stride, stride), "VALID")
+
+    y_j, vjp = jax.vjp(jconv, jnp.asarray(x))
+    assert y_j.shape[1:3] == out_size(H, W, k, k, (stride, stride), pads)
+    gy = _rand(rng, *y_j.shape)
+    (dx_j,) = vjp(jnp.asarray(gy))
+    w = torch.from_numpy(np.ascontiguousarray(kern.transpose(3, 0, 1, 2)))
+    dx = conv2d_dgrad_plain(torch.from_numpy(gy), w, x.shape,
+                            (stride, stride), pads, torch.float32)
+    _close(dx, dx_j, rtol=1e-5)
+
+
+def test_dgrad_weight_packs_the_flipped_sub_kernels(rng):
+    """The dgrad weight [classes*I, kmax]: at stride 1 the flipped,
+    transposed weight; at the VAE's stride 2 with pad (0, 1), the four
+    classes' sub-kernels (2x2, 2x1, 1x2 and 1x1 taps), flipped, zero past
+    their taps, kmax rounded up to 64."""
+    from dreamfusion_tpu_torch.ops.conv import (dgrad_classes, norm_padding,
+                                                pack_dgrad_weight)
+
+    O, I = 6, 5
+    w = torch.from_numpy(_rand(rng, O, 3, 3, I))
+    pk = pack_dgrad_weight(w, (1, 1), norm_padding(1))
+    assert pk.shape == (I, 64)
+    want = w.flip(1, 2).permute(3, 1, 2, 0).reshape(I, 9 * O)
+    torch.testing.assert_close(pk[:, :9 * O], want, rtol=0, atol=0)
+    assert not pk[:, 9 * O:].any()
+    pads = norm_padding(((0, 1), (0, 1)))
+    cls = dgrad_classes(9, 8, 3, 3, (2, 2), pads)
+    assert [(c["nt"], c["nu"]) for c in cls] == [(2, 2), (2, 1), (1, 2),
+                                                 (1, 1)]
+    assert [(c["Hc"], c["Wc"]) for c in cls] == [(5, 4), (5, 4), (4, 4),
+                                                 (4, 4)]
+    assert [(c["pt"], c["pl"]) for c in cls] == [(1, 1), (1, 0), (0, 1),
+                                                 (0, 0)]
+    pk = pack_dgrad_weight(w, (2, 2), pads).reshape(4, I, 64)
+    taps = {0: [2, 0], 1: [1]}                # class parity → flipped taps
+    for c, (py, px) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)]):
+        rows, cols = taps[py], taps[px]
+        sub = w[:, rows][:, :, cols].permute(3, 1, 2, 0).reshape(I, -1)
+        n = sub.shape[1]
+        torch.testing.assert_close(pk[c, :, :n], sub, rtol=0, atol=0)
+        assert not pk[c, :, n:].any()
+
+
+def test_dgrad_narrow_weight_is_mma_b_fragments(rng):
+    """The narrow dgrad's weight as mma.sync m16n8k16 B fragments per tap,
+    group p of 32 dy channels and lane (n = lane / 4: a dx channel, zero
+    past I; q = lane % 4): the 8 channels 32p + 8q + j, j < 8, that lane q
+    loads from dy, in the kernel's K order."""
+    from dreamfusion_tpu_torch.ops.conv import pack_dgrad_narrow_weight
+
+    O, I = 64, 3
+    w = torch.from_numpy(_rand(rng, O, 3, 3, I))
+    pk = pack_dgrad_narrow_weight(w)
+    assert pk.shape == (9, 2, 32, 8)
+    for tap in range(9):
+        for p in range(2):
+            for lane in range(32):
+                n, q = lane // 4, lane % 4
+                want = [float(w[32 * p + 8 * q + j, tap // 3, tap % 3, n])
+                        if n < I else 0.0 for j in range(8)]
+                assert pk[tap, p, lane].tolist() == want
+
+
+def test_dgrad_weight_is_packed_once_per_version(rng):
+    """The wgmma dgrad's packed weight is made once per weight, stride and
+    class layout, and made afresh after an in-place update."""
+    from dreamfusion_tpu_torch.ops.conv import (_packed_dgrad_weight,
+                                                norm_padding,
+                                                pack_dgrad_weight)
+
+    w = torch.from_numpy(_rand(rng, 64, 3, 3, 8))
+    p1, p01 = norm_padding(1), norm_padding(((0, 1), (0, 1)))
+    first = _packed_dgrad_weight(w, (1, 1), p1)
+    assert _packed_dgrad_weight(w, (1, 1), p1) is first
+    strided = _packed_dgrad_weight(w, (2, 2), p01)
+    assert strided.shape == (4 * 8, 4 * 64)
+    torch.testing.assert_close(strided, pack_dgrad_weight(w, (2, 2), p01))
+    assert _packed_dgrad_weight(w, (2, 2), p01) is strided
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = _packed_dgrad_weight(w, (2, 2), p01)
+    assert again is not strided
+    torch.testing.assert_close(again, 2 * strided)
+
+
 # ---------------------------------------------------------------------------
 # K11 GroupNorm
 # ---------------------------------------------------------------------------
@@ -321,6 +433,49 @@ def test_sd_step_convs_and_attentions_take_their_routes():
                                                           128, 1)
 
 
+def test_vae_encoder_dgrads_take_their_routes():
+    """Every input gradient of the SD VAE encoder (built on the meta
+    device: shapes only) takes a Hopper route, none the mma.sync
+    ``conv_dgrad``: 23 on the wgmma route (20 at stride 1, the 3 downs),
+    the 3-channel conv_in's on the narrow one, the fp32 conv_out's on the
+    fp32 one, as chip_smoke.py's SD run counts them per step; and the
+    wgmma dgrad's tiling at the 64² level (split-K 2) and the 512² down
+    (4 classes of 256²)."""
+    from dreamfusion_tpu_torch.models.unet import Conv2d
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from dreamfusion_tpu_torch.ops.conv import (dgrad_classes, dgrad_route,
+                                                norm_padding, wgmma_tiling)
+
+    with torch.device("meta"):
+        vae = AutoencoderKL(VAEConfig.sd())
+    routes = {}
+    for name, m in vae.encoder.named_modules():
+        if isinstance(m, Conv2d):
+            O, kh, kw, I = m.weight.shape
+            routes[name] = dgrad_route(m.compute_dtype, I, O,
+                                       (m.stride, m.stride), (kh, kw))
+    assert routes.pop("conv_in") == "conv_dgrad_narrow"
+    assert routes.pop("conv_out") == "conv_dgrad_fp32"
+    assert set(routes.values()) == {"conv_dgrad_wgmma"}
+    assert len(routes) == 23
+    strided = [n for n, m in vae.encoder.named_modules()
+               if isinstance(m, Conv2d) and m.stride == 2]
+    assert len(strided) == 3
+    smoke = _load_root_script("chip_smoke")
+    assert smoke.SD_DGRADS == {"conv_dgrad_wgmma": 23,
+                               "conv_dgrad_narrow": 1, "conv_dgrad_fp32": 1}
+    assert "conv_dgrad" not in smoke.SD_KERNELS
+    assert set(smoke.SD_DGRADS) <= set(smoke.SD_KERNELS)
+    # stride 1 at 64²x512: 32 pixel tiles x 4 N tiles → split-K 2
+    assert wgmma_tiling(1, 64, 64, 512, 9 * 512 // 64, 132, False) == (
+        (64, 2, 1), 128, 2)
+    cls = dgrad_classes(512, 512, 3, 3, (2, 2), norm_padding(((0, 1),
+                                                              (0, 1))))
+    assert {(c["Hc"], c["Wc"]) for c in cls} == {(256, 256)}
+    assert wgmma_tiling(1, 256, 256, 128, 4 * 128 // 64, 132, False, 4) == (
+        (128, 1, 1), 128, 1)
+
+
 def _load_root_script(name):
     """A script at the root of the repo, loaded by its path."""
     import importlib.util
@@ -336,8 +491,9 @@ def _load_root_script(name):
 def test_chip_smoke_conv_rows_take_their_routes():
     """chip_smoke.py holds every forward route of K12 against its plain
     version: its SD rows never reach the mma.sync forward, its MMA_CONVS
-    rows all do, and the kernels line lists that kernel."""
-    from dreamfusion_tpu_torch.ops.conv import conv_route
+    rows all do, and the kernels line lists that kernel; the same for the
+    dgrad's routes."""
+    from dreamfusion_tpu_torch.ops.conv import conv_route, dgrad_route
 
     smoke = _load_root_script("chip_smoke")
 
@@ -346,10 +502,23 @@ def test_chip_smoke_conv_rows_take_their_routes():
         dtype = torch.float32 if dt == "fp32" else torch.bfloat16
         return conv_route(dtype, I, O, (st, st), k * k)
 
+    def dgrad(row):
+        B, H, W, I, O, k, st, pad, dt, dgrad = row
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        return dgrad_route(dtype, I, O, (st, st), (k, k))
+
     sd = {route(r) for r in smoke.SD_CONVS}
     assert sd == {"conv_fwd_wgmma", "conv_fwd_wgmma_i8", "conv_fwd_fp32"}
     assert [route(r) for r in smoke.MMA_CONVS] == \
         ["conv_fwd_mma"] * len(smoke.MMA_CONVS)
+    # every dgrad shape of the SD step is checked, each on a Hopper route;
+    # the mma.sync dgrad at the off-path rows
+    sd_dgrads = [r for r in smoke.SD_CONVS if r[9]]
+    assert len(sd_dgrads) == 11
+    assert {dgrad(r) for r in sd_dgrads} == set(smoke.SD_DGRADS)
+    assert all(r[9] for r in smoke.MMA_CONVS)
+    assert {dgrad(r) for r in smoke.MMA_CONVS} == {"conv_dgrad"}
+    assert set(smoke.SD_DGRADS) | {"conv_dgrad"} <= set(smoke.KERNELS)
     assert {r[8] for r in smoke.MMA_CONVS} == {"bf16", "fp32"}
     assert {r[6] for r in smoke.MMA_CONVS} == {1, 2}
     assert sd | {"conv_fwd_mma"} <= set(smoke.KERNELS)
@@ -423,7 +592,7 @@ def test_narrow_weight_is_packed_once_per_version(rng):
 def test_profile_groups_name_the_new_kernels():
     """profile_step files the Hopper kernels (as the profiler names them)
     under K12 and K10, not under the library's matrix products."""
-    from dreamfusion_tpu_torch.profile_step import group_of
+    from dreamfusion_tpu_torch.profile_step import group_of, part_of
 
     k12 = ["void (anonymous namespace)::conv_wgmma_kernel<false, 128>("
            "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, (anonymous "
@@ -440,7 +609,16 @@ def test_profile_groups_name_the_new_kernels():
            "void (anonymous namespace)::conv_mma_kernel<false>((anonymous "
            "namespace)::ConvParams)",
            "void (anonymous namespace)::conv_simple_kernel<float, true>("
-           "(anonymous namespace)::ConvParams)"]
+           "(anonymous namespace)::ConvParams)",
+           "void (anonymous namespace)::conv_wgmma_kernel<false, 128, true>"
+           "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::"
+           "WgStoreMaps<4>, (anonymous namespace)::WgConv)",
+           "void (anonymous namespace)::conv_dgrad_narrow_kernel<3>("
+           "__nv_bfloat16 const*, __nv_bfloat16 const*, void*, int, int, "
+           "int, int, int, int, int, int, int, int, int)",
+           "(anonymous namespace)::conv_dgrad_fp32_kernel(float const*, "
+           "float const*, float*, int, int, int, int, int, int, int, int, "
+           "int, int, int, int, int)"]
     k10 = ["(anonymous namespace)::attn_fwd_wgmma_kernel(CUtensorMap_st, "
            "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, "
            "int, int, float)",
@@ -450,5 +628,15 @@ def test_profile_groups_name_the_new_kernels():
            "(anonymous namespace)::attn_fwd_combine_kernel(float const*, "
            "float const*, __nv_bfloat16*, float*, int, int, int, int)"]
     assert [group_of(n) for n in k12] == ["K12 conv"] * len(k12)
+    # the input gradients apart within K12: the dgrad instantiation of the
+    # wgmma kernel, the narrow and fp32 dgrads, mma.sync's and the
+    # one-thread dgrads; not the forwards or the split-K reduces
+    dgrads = [part_of(n) is not None for n in k12]
+    assert dgrads == [False] * 5 + [False, True, True, True, True]
+    k5 = ["(anonymous namespace)::clip_f32_kernel(float const*, float*, "
+          "long, float)",
+          "(anonymous namespace)::clip_bf16_kernel(__nv_bfloat16 const*, "
+          "__nv_bfloat16*, long, float)"]
+    assert [group_of(n) for n in k5] == ["K5 clip_grad"] * 2
     assert [group_of(n) for n in k10] == ["K10 attention"] * len(k10)
     assert group_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matrix products"
