@@ -24,7 +24,12 @@
    its narrow route (the conv_in's 3-channel dx) and its fp32 route (the
    conv_out's) each under its own name, beside cuDNN's input gradient; the
    mma.sync dgrad (``conv_dgrad``) at ``MMA_CONVS``' shapes only, with 0
-   SD launches.  Each kernel's bound is the larger of its
+   SD launches.  K11 (GroupNorm + SiLU, CUDA) at every shape of the SD step
+   (``SD_GROUPNORMS``), forward and, for the VAE's, backward, each on the
+   route ``group_norm_route`` gives (resident in a cluster's shared
+   memory, or streaming), beside ``F.group_norm`` (+ ``F.silu``) and its
+   backward; K10's backward (wgmma + TMA) at the VAE mid-block's shape
+   beside SDPA's backward.  Each kernel's bound is the larger of its
    bytes (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32).
@@ -53,7 +58,9 @@
    steps: 6 warm-up steps (render as latent) and 19 through the VAE;
    requires finite losses and gradients, a launch of every kernel (every
    route of K10's and K12's forwards and of K12's dgrad: per VAE step 23
-   wgmma, 1 narrow and 1 fp32 dgrads, ``SD_DGRADS``, and none on mma.sync)
+   wgmma, 1 narrow and 1 fp32 dgrads, ``SD_DGRADS``, and none on mma.sync;
+   K11's routes exactly as ``SD_GROUPNORMS`` counts them, K10's backward
+   once per VAE step)
    and a non-zero triplane gradient in both phases; logs s/step and peak
    memory.
 6. Resets the counters and trains the DMTet stage from the stage-1
@@ -186,12 +193,8 @@ KERNELS = {
     "attention_fwd_wgmma_d512": ("cuda",
                                  "dreamfusion_tpu_torch/csrc/attention.cu",
                                  "dreamfusion_tpu/ops/attention.py:27"),
-    "attention_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
-                      "dreamfusion_tpu/ops/attention.py:72"),
-    "groupnorm_fwd": ("triton", "dreamfusion_tpu_torch/ops/groupnorm.py",
-                      "dreamfusion_tpu/models/unet.py:100"),
-    "groupnorm_bwd": ("triton", "dreamfusion_tpu_torch/ops/groupnorm.py",
-                      "dreamfusion_tpu/models/unet.py:143"),
+    "attention_bwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
+                            "dreamfusion_tpu/ops/attention.py:72"),
     "conv_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                        "dreamfusion_tpu/ops/conv.py:58"),
     "conv_fwd_wgmma_i8": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
@@ -209,6 +212,11 @@ KERNELS = {
     "conv_dgrad": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                    "dreamfusion_tpu/ops/conv.py:95"),
 }
+for _d, _line in (("fwd", 100), ("bwd", 143)):
+    for _r in ("resident", "stream"):
+        KERNELS[f"groupnorm_{_d}_{_r}"] = (
+            "cuda", "dreamfusion_tpu_torch/csrc/groupnorm.cu",
+            f"dreamfusion_tpu/models/unet.py:{_line}")
 for _n, _f in (("raster", "raster.cu"), ("interpolate", "raster.cu")):
     for _d in ("fwd", "bwd"):
         KERNELS[f"{_n}_{_d}"] = ("cuda", f"dreamfusion_tpu_torch/csrc/{_f}",
@@ -238,16 +246,17 @@ GRID_REG_KERNELS = ("hashgrid_tv_fwd", "hashgrid_tv_bwd", "hashgrid_wd_fwd",
 ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
                   "field_head_bwd")
-# K10's and K12's forwards and K12's dgrad count each route apart
+# K10's and K12's forwards, K12's dgrad and K11 count each route apart
 # (ops/kernels.py): the SD step must launch every one of them, and never
 # K12's mma.sync forward or dgrad (conv_fwd_mma, conv_dgrad: shapes off
 # every path, checked at MMA_CONVS)
 SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
               "field_head_fwd", "field_head_bwd", "attention_fwd_wgmma",
-              "attention_fwd_wgmma_d512", "attention_bwd", "groupnorm_fwd",
-              "groupnorm_bwd", "conv_fwd_wgmma", "conv_fwd_wgmma_i8",
-              "conv_fwd_fp32", "conv_dgrad_wgmma", "conv_dgrad_narrow",
-              "conv_dgrad_fp32")
+              "attention_fwd_wgmma_d512", "attention_bwd_wgmma",
+              "groupnorm_fwd_resident", "groupnorm_fwd_stream",
+              "groupnorm_bwd_resident", "groupnorm_bwd_stream",
+              "conv_fwd_wgmma", "conv_fwd_wgmma_i8", "conv_fwd_fp32",
+              "conv_dgrad_wgmma", "conv_dgrad_narrow", "conv_dgrad_fp32")
 # dgrads per SD step through the VAE (the encoder's backward): 20 stride-1
 # and 3 stride-2 on the wgmma route, the conv_in's on the narrow one, the
 # fp32 conv_out's
@@ -295,6 +304,40 @@ MMA_CONVS = [
     (1, 17, 15, 32, 48, 3, 2, 1, "bf16", True),
     (2, 33, 31, 24, 40, 3, 1, 1, "bf16", True),
     (1, 33, 31, 16, 16, 3, 1, 1, "fp32", True),
+]
+# K11 in one SD 2.1 step: B, H, W, C, eps, SiLU, calls per step, and
+# whether the backward runs (the VAE encoder's, at 512²; the UNet at CFG
+# batch 2 on 64² latents runs forward only).  The UNet's resnet norms take
+# eps 1e-5 and SiLU, its SpatialTransformer norms eps 1e-6 and no SiLU; the
+# VAE's all eps 1e-6, the mid-block attention's without SiLU.  61 UNet
+# calls (every step) and 22 VAE calls (each VAE step), counted from the
+# towers (tests/test_torch_sdops.py); the SD runs below check the counts.
+SD_GROUPNORMS = [
+    (2, 64, 64, 320, 1e-5, True, 8, False),
+    (2, 64, 64, 320, 1e-6, False, 5, False),
+    (2, 64, 64, 640, 1e-5, True, 2, False),
+    (2, 64, 64, 960, 1e-5, True, 1, False),
+    (2, 32, 32, 320, 1e-5, True, 1, False),
+    (2, 32, 32, 640, 1e-5, True, 6, False),
+    (2, 32, 32, 640, 1e-6, False, 5, False),
+    (2, 32, 32, 960, 1e-5, True, 1, False),
+    (2, 32, 32, 1280, 1e-5, True, 1, False),
+    (2, 32, 32, 1920, 1e-5, True, 1, False),
+    (2, 16, 16, 640, 1e-5, True, 1, False),
+    (2, 16, 16, 1280, 1e-5, True, 6, False),
+    (2, 16, 16, 1280, 1e-6, False, 5, False),
+    (2, 16, 16, 1920, 1e-5, True, 1, False),
+    (2, 16, 16, 2560, 1e-5, True, 2, False),
+    (2, 8, 8, 1280, 1e-5, True, 11, False),
+    (2, 8, 8, 1280, 1e-6, False, 1, False),
+    (2, 8, 8, 2560, 1e-5, True, 3, False),
+    (1, 512, 512, 128, 1e-6, True, 4, True),        # VAE level 0
+    (1, 256, 256, 128, 1e-6, True, 1, True),        # level 1's entry
+    (1, 256, 256, 256, 1e-6, True, 3, True),
+    (1, 128, 128, 256, 1e-6, True, 1, True),        # level 2's entry
+    (1, 128, 128, 512, 1e-6, True, 3, True),
+    (1, 64, 64, 512, 1e-6, True, 9, True),          # level 3, mid, norm_out
+    (1, 64, 64, 512, 1e-6, False, 1, True),         # mid-block attention
 ]
 # K10: q [B, N, h, d], k and v [B, M, h, d]; whether the backward is checked
 SD_ATTNS = [
@@ -831,13 +874,16 @@ def sd_kernel_phases(torch, results):
         if not bwd:
             continue
         do = randn(B, N, h, d)
+        kernels.reset_launch_counts()
         gk = K10.attention_bwd_cuda(q, k, v, ok_, lse, do, scale)
         torch.cuda.synchronize()
+        check(kernels.LAUNCHES["attention_bwd_wgmma"] == 1,
+              f"{where}: backward not on attention_bwd_wgmma")
         qkv = [t.float().requires_grad_() for t in (q, k, v)]
         gp = torch.autograd.grad(K10.attention_plain(*qkv, scale), qkv,
                                  do.float())
         # P and dS pass through bf16 between the kernel's products
-        err = max(close("attention_bwd", a, b, 2 ** -7, 3e-2)
+        err = max(close("attention_bwd_wgmma", a, b, 2 ** -7, 3e-2)
                   for a, b in zip(gk, gp))
 
         def plain_bwd():
@@ -850,56 +896,87 @@ def sd_kernel_phases(torch, results):
         ot, dot = F.scaled_dot_product_attention(*qkvt), do.transpose(1, 2)
         lib = median_ms(lambda: torch.autograd.grad(ot, qkvt, dot,
                                                     retain_graph=True), 10)
-        record_kernel(results, "attention_bwd", err, median_ms(
+        record_kernel(results, "attention_bwd_wgmma", err, median_ms(
             lambda: K10.attention_bwd_cuda(q, k, v, ok_, lse, do, scale), 10),
             median_ms(plain_bwd, 3), "1 bf16 ulp + 3e-2 of max",
             nbytes(q, k, v, ok_, lse, do, *gk), 10 * B * h * N * M * d,
             "bf16", lib, where)
 
-    # ---- K11 GroupNorm + SiLU --------------------------------------------
-    for B, H, W, C, eps, bwd in [(1, 512, 512, 128, 1e-6, True),
-                                 (2, 64, 64, 320, 1e-5, False)]:
-        where = f" [{B},{H},{W},{C}] + SiLU"
+    # ---- K11 GroupNorm (+ SiLU): every shape of the SD step, by route ----
+    sms = kernels.sm_count(dev)
+    for B, H, W, C, eps, silu, per_step, bwd in SD_GROUPNORMS:
         G = K11.groups_for(C)
         x = randn(B, H, W, C, scale=3.0)
-        wt, bs = randn(C, dtype=torch.float32), randn(C, dtype=torch.float32)
-        yk, stats = K11.group_norm_fwd_triton(x, wt, bs, G, eps, True)
+        wt, bs = randn(C), randn(C)          # the towers' bf16 weights
+        fwd = K11.group_norm_route((B, H, W, C), bf, False, G, sms)
+        where = (f" [{B},{H},{W},{C}] Cg {C // G}, slab {fwd.slab}, cluster "
+                 f"{fwd.cluster}{' + SiLU' if silu else ''}, {per_step}x a "
+                 f"step")
+        kernels.reset_launch_counts()
+        yk, stats = K11.group_norm_fwd_cuda(x, wt, bs, G, eps, silu)
         torch.cuda.synchronize()
-        yp = K11.group_norm_plain(x, wt, bs, G, eps, True)
-        err = close("groupnorm_fwd", yk, yp, 2 ** -7, 1e-3)
+        check(kernels.LAUNCHES[fwd.name] == 1, f"{where}: not on {fwd.name}")
+        yp = K11.group_norm_plain(x, wt, bs, G, eps, silu)
+        err = close(fwd.name, yk, yp, 2 ** -7, 1e-3)
         xc = x.permute(0, 3, 1, 2)
-        lib = median_ms(lambda: F.silu(F.group_norm(xc, G, wt.to(bf),
-                                                    bs.to(bf), eps)), 10)
-        record_kernel(results, "groupnorm_fwd", err, median_ms(
-            lambda: K11.group_norm_fwd_triton(x, wt, bs, G, eps, True), 10),
-            median_ms(lambda: K11.group_norm_plain(x, wt, bs, G, eps, True),
+
+        def lib_fwd():
+            y = F.group_norm(xc, G, wt, bs, eps)
+            return F.silu(y) if silu else y
+
+        record_kernel(results, fwd.name, err, median_ms(
+            lambda: K11.group_norm_fwd_cuda(x, wt, bs, G, eps, silu), 10),
+            median_ms(lambda: K11.group_norm_plain(x, wt, bs, G, eps, silu),
                       5), "1 bf16 ulp + 1e-3 of max", nbytes(x, wt, bs, yk),
-            10 * x.numel(), "fp32", lib, where)
+            10 * x.numel(), "fp32", median_ms(lib_fwd, 10), where)
         if not bwd:
             continue
+        route = K11.group_norm_route((B, H, W, C), bf, True, G, sms)
         dy = randn(B, H, W, C)
-        dk = K11.group_norm_bwd_triton(x, wt, bs, stats, dy, G, True)
+        kernels.reset_launch_counts()
+        dk = K11.group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu)
         torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route.name] == 1,
+              f"{where} backward: not on {route.name}")
         x32 = x.float().requires_grad_()
         (dp,) = torch.autograd.grad(K11.group_norm_plain(
-            x32, wt, bs, G, eps, True), x32, dy.float())
-        err = close("groupnorm_bwd", dk, dp, 2 ** -7, 2e-2)
+            x32, wt, bs, G, eps, silu), x32, dy.float())
+        err = close(route.name, dk, dp, 2 ** -7, 2e-2)
 
         def plain_gn_bwd():
             x32 = x.float().requires_grad_()
             torch.autograd.grad(K11.group_norm_plain(x32, wt, bs, G, eps,
-                                                     True), x32, dy.float())
+                                                     silu), x32, dy.float())
 
         # the library's backward alone: the graph is built once
         xl = xc.detach().requires_grad_()
-        yl = F.silu(F.group_norm(xl, G, wt.to(bf), bs.to(bf), eps))
+        yl = F.group_norm(xl, G, wt, bs, eps)
+        yl = F.silu(yl) if silu else yl
         dyc = dy.permute(0, 3, 1, 2)
         lib = median_ms(lambda: torch.autograd.grad(yl, xl, dyc,
                                                     retain_graph=True), 10)
-        record_kernel(results, "groupnorm_bwd", err, median_ms(
-            lambda: K11.group_norm_bwd_triton(x, wt, bs, stats, dy, G, True),
+        record_kernel(results, route.name, err, median_ms(
+            lambda: K11.group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu),
             10), median_ms(plain_gn_bwd, 3), "1 bf16 ulp + 2e-2 of max",
-            nbytes(x, dy, wt, bs, dk), 20 * x.numel(), "fp32", lib, where)
+            nbytes(x, dy, wt, bs, dk), 20 * x.numel(), "fp32", lib,
+            where.replace(f", slab {fwd.slab}, cluster {fwd.cluster}",
+                          f", slab {route.slab}, cluster {route.cluster}")
+            + " backward")
+
+
+def sd_groupnorm_launches(torch, K11, sms, n_steps, n_vae):
+    """K11's launches per route in an SD run of `n_steps` steps, `n_vae` of
+    them through the VAE (``SD_GROUPNORMS``: the UNet's rows every step,
+    the VAE's forward and backward each VAE step)."""
+    want = {}
+    for B, H, W, C, eps, silu, per_step, bwd in SD_GROUPNORMS:
+        G = K11.groups_for(C)
+        for back in ((False, True) if bwd else (False,)):
+            name = K11.group_norm_route((B, H, W, C), torch.bfloat16, back,
+                                        G, sms).name
+            want[name] = want.get(name, 0) + per_step * (
+                n_vae if bwd else n_steps)
+    return want
 
 
 def _geometry_tet128(torch, dev, g):
@@ -1360,6 +1437,17 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
         check(launches[name] == per_step * n_vae,
               f"{what}: {launches[name]} launches of {name} in {n_vae} VAE "
               f"steps, not {per_step} a step")
+    # K11 by route (SD_GROUPNORMS' counts) and K10's backward (the VAE
+    # mid-block's), exactly
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    n_steps = len(sd["latent_phase"])
+    want = sd_groupnorm_launches(torch, K11, kernels.sm_count(
+        torch.device("cuda")), n_steps, n_vae)
+    want["attention_bwd_wgmma"] = n_vae
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{what}: {launches[name]} launches of {name} in {n_steps} "
+              f"steps ({n_vae} through the VAE), not {n}")
     for name in SD_KERNELS + (("hashgrid_fwd", "hashgrid_bwd")
                               if group == "grid" else
                               ("triplane_fwd", "triplane_bwd")):

@@ -8,9 +8,9 @@ image oracle with known-view steps); the run's end (eval, turntable,
 checkpoints, textured mesh) and the DMTet stage, from a stage-1
 checkpoint or a mesh file.  Its kernels are hand-written: CUDA C++ under
 ``csrc/`` (hash-grid and triplane encode, occupancy march, compositing,
-rasterizer, marching tets, signed distance, attention, convolution) and
-Triton (the field head, ``ops/activation.py``; the gradient clamp,
-``ops/clip_grad.py``; GroupNorm, ``ops/groupnorm.py``).  Every kernel has a plain PyTorch twin in the same
+rasterizer, marching tets, signed distance, attention, GroupNorm,
+convolution, the gradient clamp) and Triton (the field head,
+``ops/activation.py``).  Every kernel has a plain PyTorch twin in the same
 module; a CPU tensor takes the twin, a CUDA tensor takes the kernel.
 
 The package imports ``torch`` and never ``jax``; it imports nothing from

@@ -1,15 +1,19 @@
-"""K10's and K12's forwards and K12's dgrad at the SD 2.1 step's shapes,
-on one GPU.
+"""K10's and K12's forwards, K12's dgrad, K10's backward and K11 (forward,
+and the VAE's backward) at the SD 2.1 step's shapes, on one GPU.
 
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --tag change \\
         --outputs change.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dgrad
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only gn
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only gn_routes
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
         change.pt
 
-The shapes are ``chip_smoke.py``'s ``SD_CONVS`` and ``SD_ATTNS`` (the
+The shapes are ``chip_smoke.py``'s ``SD_CONVS``, ``SD_ATTNS`` and
+``SD_GROUPNORMS`` (the
 ``chip_smoke.py`` beside this package, whatever ``--root`` is), so that one
 list serves the check and the timing.  For the port found under ``--root``
 (so that two checkouts can be compared with one script) it times, per
@@ -28,22 +32,30 @@ two CUDA events, the median of 10 replays per call; no host in the window
 and no profiler records to drop, the few µs between a graph's kernels
 included), and, timed all three ways, the one PyTorch call
 that computes the same function (``F.conv2d`` with TF32 off for fp32, as
-the kernel's fp32 FMAs; ``scaled_dot_product_attention``; null for the
-VAE's asymmetric padding).  The rows of ``SD_CONVS`` whose dgrad
-``chip_smoke.py`` checks are timed again as dgrads (the route
-``conv2d_dgrad_cuda`` takes: the wgmma route's packed weight comes from
-its cache, as on the path; the mma.sync route's transpose is included)
-beside cuDNN's input gradient alone (``aten.convolution_backward`` with
-output mask (True, False, False) on channels-last views of the same
-tensors: no layout copy of ours in the timed window); their
-``kernel_names`` split the kernel time by kernel. It prints one JSON line
-per shape with the launch counters the wrapper moved (its route) and the
-card's name and power limit, after a line with the SHA-256 of the port's
-``csrc/`` and ``ops/`` under ``--root`` (which sources were timed). Compare
-two checkouts within one call, in turns (parent, change, change, parent).
-With ``--outputs FILE`` it also saves every forward's output (the inputs
-come from one seed, so two checkouts see the same ones); ``--compare A B``
-prints, per shape, whether two such files agree bit for bit.
+the kernel's fp32 FMAs; ``scaled_dot_product_attention``; ``F.group_norm``
+and ``F.silu`` on the NCHW view of the same tensor; null for the VAE's
+asymmetric padding; the backwards of SDPA and of ``F.group_norm`` +
+``F.silu`` are autograd calls on a graph built once, timed by events and
+the profiler, with no graph ms).  K10's backward row is the VAE
+mid-block's (``SD_ATTNS``' row with the backward flag), under ``--only
+attn``; K11's rows take the wrappers of whichever checkout ``--root``
+names (the parent's Triton ones or the CUDA ones); ``--only gn_routes``
+times K11 through every route it could take (``sweep_gn_routes``).  The
+rows of ``SD_CONVS`` whose dgrad ``chip_smoke.py`` checks are timed again
+as dgrads (the route ``conv2d_dgrad_cuda`` takes: the wgmma route's
+packed weight comes from its cache, as on the path; the mma.sync route's
+transpose is included) beside cuDNN's input gradient alone
+(``aten.convolution_backward`` with output mask (True, False, False) on
+channels-last views of the same tensors: no layout copy of ours in the
+timed window); their and K10's backward's ``kernel_names`` split the
+kernel time by kernel.  It prints one JSON line per shape with the launch
+counters the wrapper moved (its route) and the card's name and power
+limit, after a line with the SHA-256 of the port's ``csrc/`` and ``ops/``
+under ``--root`` (which sources were timed).  Compare two checkouts within
+one call, in turns (parent, change, change, parent).  With ``--outputs
+FILE`` it also saves every forward's output (the inputs come from one
+seed, so two checkouts see the same ones); ``--compare A B`` prints, per
+shape, whether two such files agree bit for bit.
 """
 
 from __future__ import annotations
@@ -106,13 +118,67 @@ def compare(a_path: str, b_path: str) -> None:
               flush=True)
 
 
+def sweep_gn_routes(smoke, K11, kernels, graph_ms, dev, g, tag, card):
+    """K11 at every shape of ``SD_GROUPNORMS`` (+ SiLU), forward and, for
+    the VAE's, backward, through every route the kernels take: streaming,
+    and resident at slabs of 1, 2 and 4 times the fewest groups, each
+    cluster of 1-16 CTAs that holds the slab in ``SLAB_BUDGET`` bytes a CTA,
+    128, 256 and 512 threads.  One JSON line per shape and direction: each
+    route's graph ms (or the error it raised) and the route
+    ``group_norm_route`` chooses.  The rule's constants were set from
+    this sweep."""
+    import torch
+    sms = kernels.sm_count(dev)
+    for B, H, W, C in dict.fromkeys(r[:4] for r in smoke.SD_GROUPNORMS):
+        bwd = any(r[:4] == (B, H, W, C) and r[7] for r in smoke.SD_GROUPNORMS)
+        G, HW = K11.groups_for(C), H * W
+        Cg = C // G
+        x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3).to(
+            torch.bfloat16)
+        dy = torch.randn(B, H, W, C, device=dev, generator=g).to(x.dtype)
+        wt, bs = (torch.randn(C, device=dev, generator=g).to(x.dtype)
+                  for _ in range(2))
+        _, stats = K11.group_norm_fwd_cuda(x, wt, bs, G, 1e-6, True)
+        s0 = K11.min_slab_groups(Cg, 2)
+        for back in ((False, True) if bwd else (False,)):
+            way = "bwd" if back else "fwd"
+            routes = [K11.GNRoute(f"groupnorm_{way}_stream", C, 0, 512)]
+            for s in (s0, 2 * s0, 4 * s0):
+                V = s * Cg * 2 // 16
+                for n in (1, 2, 4, 8, 16):
+                    foot = -(-HW // n) * s * Cg * 2 * (2 if back else 1)
+                    if G % s or n > HW or foot > K11.SLAB_BUDGET:
+                        continue
+                    routes += [K11.GNRoute(f"groupnorm_{way}_resident",
+                                           s * Cg, n, t)
+                               for t in (128, 256, 512) if t >= V]
+            times = []
+            for r in routes:
+                fn = (functools.partial(K11.group_norm_bwd_cuda, x, wt, bs,
+                                        stats, dy, G, True, route=r)
+                      if back else
+                      functools.partial(K11.group_norm_fwd_cuda, x, wt, bs,
+                                        G, 1e-6, True, route=r))
+                try:
+                    times.append([*r, graph_ms(fn)])
+                except (RuntimeError, ValueError) as e:
+                    times.append([*r, str(e)[:80]])
+            chosen = K11.group_norm_route((B, H, W, C), x.dtype, back, G, sms)
+            print(json.dumps({"tag": tag, "shape": [B, H, W, C],
+                              "backward": back, "chosen": list(chosen),
+                              "routes": times, "card": card}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("conv", "dgrad", "attn"),
+    ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
+                                       "gn_routes"),
                     default=None, help="time only K12 (forwards and "
-                    "dgrads), only K12's dgrads or only K10")
+                    "dgrads), only K12's dgrads, only K10 (forwards and "
+                    "the backward), only K11, or K11 through every route "
+                    "it could take")
     ap.add_argument("--outputs", default=None,
                     help="save every forward's output to this file")
     ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
@@ -130,6 +196,7 @@ def main(argv=None) -> None:
 
     from dreamfusion_tpu_torch.ops import attention as K10
     from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
     from dreamfusion_tpu_torch.ops import kernels
 
     if not torch.cuda.is_available():
@@ -164,6 +231,8 @@ def main(argv=None) -> None:
     def graph_ms(fn, calls=20, reps=10):
         """Device ms per call: `calls` calls captured in one CUDA graph,
         replayed between two events; the median of `reps` replays."""
+        if fn is None:
+            return None
         fn()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -221,8 +290,9 @@ def main(argv=None) -> None:
     # (row of the shape, the wrapper's call, the library's call or None)
     cases = []
     dgrads = []
-    for B, H, W, I, O, k, st, pad, dt, dgrad in ([] if args.only == "attn"
-                                                 else smoke.SD_CONVS):
+    for B, H, W, I, O, k, st, pad, dt, dgrad in (
+            [] if args.only in ("attn", "gn", "gn_routes")
+            else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
         dtype = torch.float32 if dt == "fp32" else torch.bfloat16
@@ -259,8 +329,12 @@ def main(argv=None) -> None:
                                          x.shape, (st, st), pads, dtype),
                        lib_fn))
     cases += dgrads
-    for B, N, M, h, d, _ in ([] if args.only in ("conv", "dgrad")
-                             else smoke.SD_ATTNS):
+    # library backward calls run autograd: timed by events and the
+    # profiler, not captured in a graph
+    autograd_libs = set()
+    for B, N, M, h, d, bwd in (
+            [] if args.only in ("conv", "dgrad", "gn", "gn_routes")
+            else smoke.SD_ATTNS):
         q, k, v = (torch.randn(B, n, h, d, device=dev, generator=g).to(
             torch.bfloat16) for n in (N, M, M))
         cases.append(({"kernel": "K10 attention_fwd",
@@ -271,10 +345,68 @@ def main(argv=None) -> None:
                       functools.partial(F.scaled_dot_product_attention,
                                         *(t.transpose(1, 2)
                                           for t in (q, k, v)))))
+        if not bwd:
+            continue
+        o, lse = K10.attention_fwd_cuda(q, k, v, d ** -0.5)
+        do = torch.randn(B, N, h, d, device=dev, generator=g).to(
+            torch.bfloat16)
+        qkvt = [t.transpose(1, 2).detach().requires_grad_()
+                for t in (q, k, v)]
+        ot = F.scaled_dot_product_attention(*qkvt)
+        lib_fn = functools.partial(torch.autograd.grad, ot, qkvt,
+                                   do.transpose(1, 2), retain_graph=True)
+        autograd_libs.add(id(lib_fn))
+        cases.append(({"kernel": "K10 attention_bwd",
+                       "shape": [B, N, M, h, d],
+                       "gflop": 10 * B * h * N * M * d / 1e9},
+                      functools.partial(K10.attention_bwd_cuda, q, k, v, o,
+                                        lse, do, d ** -0.5), lib_fn))
+    # K11: the parent's Triton wrappers or the CUDA ones, by name
+    gn_fwd = getattr(K11, "group_norm_fwd_cuda", None) or getattr(
+        K11, "group_norm_fwd_triton", None)
+    gn_bwd = getattr(K11, "group_norm_bwd_cuda", None) or getattr(
+        K11, "group_norm_bwd_triton", None)
+    for B, H, W, C, eps, silu, per_step, bwd in (
+            smoke.SD_GROUPNORMS if args.only in (None, "gn") else []):
+        G = K11.groups_for(C)
+        x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3).to(
+            torch.bfloat16)
+        wt, bs = (torch.randn(C, device=dev, generator=g).to(torch.bfloat16)
+                  for _ in range(2))
+        xc = x.permute(0, 3, 1, 2)
+
+        def lib_fwd(xc=xc, G=G, wt=wt, bs=bs, eps=eps, silu=silu):
+            y = F.group_norm(xc, G, wt, bs, eps)
+            return F.silu(y) if silu else y
+
+        row = {"kernel": "K11 groupnorm_fwd", "shape": [B, H, W, C],
+               "eps": eps, "silu": silu, "per_step": per_step,
+               "gbytes": 2 * x.numel() * 2 / 1e9}
+        cases.append((row, functools.partial(gn_fwd, x, wt, bs, G, eps,
+                                             silu), lib_fwd))
+        if not bwd:
+            continue
+        _, stats = gn_fwd(x, wt, bs, G, eps, silu)
+        dy = torch.randn(B, H, W, C, device=dev, generator=g).to(
+            torch.bfloat16)
+        xl = xc.detach().requires_grad_()
+        yl = F.group_norm(xl, G, wt, bs, eps)
+        yl = F.silu(yl) if silu else yl
+        lib_fn = functools.partial(torch.autograd.grad, yl, xl,
+                                   dy.permute(0, 3, 1, 2), retain_graph=True)
+        autograd_libs.add(id(lib_fn))
+        cases.append(({**row, "kernel": "K11 groupnorm_bwd",
+                       "gbytes": 3 * x.numel() * 2 / 1e9},
+                      functools.partial(gn_bwd, x, wt, bs, stats, dy, G,
+                                        silu), lib_fn))
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
                       "card": card}), flush=True)
+    if args.only == "gn_routes":
+        sweep_gn_routes(smoke, K11, kernels, graph_ms, dev, g, args.tag,
+                        card)
+        return
     if args.outputs:
         outs = {}
         for row, fn, _ in cases:
@@ -297,7 +429,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False   # fp32 convs in full fp32
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
-            dgrad = row["kernel"] == "K12 conv_dgrad"
+            dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd")
             k_ms = kernel_ms(fn, by_name=dgrad)
             lib_ms = lib_fn and kernel_ms(lib_fn, by_name=dgrad)
             extra = {}
@@ -311,7 +443,8 @@ def main(argv=None) -> None:
                 "kernel_ms": k_ms, "graph_ms": graph_ms(fn), **host,
                 "library_ms": lib_fn and smoke.median_ms(lib_fn),
                 "library_kernel_ms": lib_ms,
-                "library_graph_ms": lib_fn and graph_ms(lib_fn), **extra,
+                "library_graph_ms": (None if id(lib_fn) in autograd_libs
+                                     else graph_ms(lib_fn)), **extra,
                 "routes": route_of(fn), "card": card}), flush=True)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32

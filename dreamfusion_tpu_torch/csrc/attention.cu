@@ -52,14 +52,20 @@
 //    into o and lse.  Bound by the tiles' traffic out of L2 (64 query rows
 //    per 128 KB of K and V) more than by the products.
 //
-// Backward (the VAE mid-block, d = 512, N = M = 4096): D = rowsum(dO o O);
-// a scores kernel recomputes S and dP = dO V^T tile by tile on mma.sync,
-// forms P = exp(S - lse) and dS = P o (dP - D) in fp32 and stores P^T and
-// dS^T in bf16 (2 x 33.5 MB at the VAE's shape); three GEMMs on mma.sync
-// then give dV = P^T dO, dK = scale * dS^T Q and dQ = scale * dS K, the last
-// reading dS^T through transposed fragment loads.  Materialising P and dS
-// costs ~0.13 GB of traffic (~40 us at 3.35 TB/s) against 86 GFLOP of
-// products, and keeps each kernel a plain tiled GEMM.
+// Backward (the VAE mid-block, d = 512, N = M = 4096; any d % 64 == 0):
+// D = rowsum(dO o O) (attn_bwd_dot_kernel); a scores pass recomputes S =
+// Q K^T and dP = dO V^T for each 128 x 128 (query, key) tile in wgmma
+// accumulators (two consumer warpgroups of 64 query rows, Q, dO, K and V
+// by TMA through a 3-stage ring over d in 64-wide steps), forms P =
+// exp(S - lse) and dS = P o (dP - D) in fp32 and stores both in bf16,
+// row-major [z][N][Mp] (2 x 33.5 MB at the VAE's shape), by TMA from
+// swizzled staging; one wgmma GEMM kernel then gives dV = P^T dO and dK =
+// scale * dS^T Q in one launch (A read MN-major through the descriptor's
+// transpose bit, B = dO or Q MN-major) and dQ = scale * dS K in a second
+// (A K-major), 128 x 128 tiles over a 4-stage ring.  Bound by operations
+// (86 GFLOP at the VAE's shape against ~0.2 GB of traffic); the mma.sync
+// backward it replaces (64 x 64 tiles, plain loads, 5 launches) ran 0.64
+// ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +78,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using dft::cp_async16;
 
 // ---------------------------------------------------------------------------
 // forward
@@ -608,216 +613,291 @@ __global__ void attn_bwd_dot_kernel(const bf16* __restrict__ dout,
   if (lane == 0) dv[row] = s;
 }
 
-constexpr int SB = 64, SBK = 32, SLD = SBK + 8;
+// ---- the scores pass --------------------------------------------------------
 
-// One 64 x 64 (query, key) tile: S and dP on mma.sync over d, then
-// P = exp(S*scale - lse) and dS = P (dP - Dv), stored as bf16 P^T and dS^T,
-// both [z][Mp][Np] (zero past N and M).
-__global__ void __launch_bounds__(128)
-attn_bwd_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dvec, bf16* __restrict__ pT,
-                       bf16* __restrict__ dsT, int B, int N, int M, int H,
-                       int D, int Np, int Mp, float scale) {
-  __shared__ __align__(16) bf16 sQ[SB * SLD], sK[SB * SLD], sO[SB * SLD],
-      sV[SB * SLD];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, qd = lane % 4;
-  const int z = blockIdx.z, b = z / H, hh = z % H;
-  const int i0 = blockIdx.x * SB, j0 = blockIdx.y * SB;
-  const int64_t rs = (int64_t)H * D;
-  const bf16* qb = q + ((int64_t)b * N * H + hh) * D;
-  const bf16* ob = dout + ((int64_t)b * N * H + hh) * D;
-  const bf16* kb = k + ((int64_t)b * M * H + hh) * D;
-  const bf16* vb = v + ((int64_t)b * M * H + hh) * D;
-  const int wm = warp / 2, wn = warp % 2;   // 2 x 2 warps, 32 x 32 each
+// One 128 x 128 (query, key) tile of (b, h) = z: S = Q K^T and dP = dO V^T
+// in wgmma accumulators over d, k steps of 64 columns, then P = exp(S scale
+// - lse) and dS = P (dP - Dv), both stored bf16 row-major [z][N][Mp] by TMA
+// (rows past N and columns past M clipped).
+namespace bs {
+constexpr int BR = 128, BC = 128, STAGES = 3, kThreads = 384;
+constexpr int TILE = 128 * 64 * 2;            // 128 rows x 64 columns: 16 KB
+constexpr int STAGE = 4 * TILE;               // Q, dO, K, V
+constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE +
+                         2 * STAGES * sizeof(uint64_t);
+}  // namespace bs
 
-  float sacc[2][4][4], pacc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[a][c][e] = pacc[a][c][e] = 0.f;
-
-  for (int kc = 0; kc < D; kc += SBK) {
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int e = tid + 128 * t;
-      const int r = e / 4, c = (e % 4) * 8;
-      const bool kok = kc + c < D;
-      const bool iok = kok && i0 + r < N, jok = kok && j0 + r < M;
-      cp_async16(sQ + r * SLD + c, iok ? qb + (i0 + r) * rs + kc + c : qb,
-                 iok);
-      cp_async16(sO + r * SLD + c, iok ? ob + (i0 + r) * rs + kc + c : ob,
-                 iok);
-      cp_async16(sK + r * SLD + c, jok ? kb + (j0 + r) * rs + kc + c : kb,
-                 jok);
-      cp_async16(sV + r * SLD + c, jok ? vb + (j0 + r) * rs + kc + c : vb,
-                 jok);
-    }
-    dft::cp_async_commit();
-    dft::cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < SBK / 16; ++ks) {
-      uint32_t aq[2][4], ao[2][4], bk[2][4], bv[2][4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        dft::load_a_frag(aq[a], sQ + (wm * 32 + a * 16) * SLD + ks * 16, SLD,
-                         lane);
-        dft::load_a_frag(ao[a], sO + (wm * 32 + a * 16) * SLD + ks * 16, SLD,
-                         lane);
-      }
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        dft::load_b_frag_nk(bk[c], sK + (wn * 32 + c * 16) * SLD + ks * 16,
-                            SLD, lane);
-        dft::load_b_frag_nk(bv[c], sV + (wn * 32 + c * 16) * SLD + ks * 16,
-                            SLD, lane);
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          dft::mma_bf16(sacc[a][c], aq[a], &bk[c / 2][(c % 2) * 2]);
-          dft::mma_bf16(pacc[a][c], ao[a], &bv[c / 2][(c % 2) * 2]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + wm * 32 + a * 16 + g + 8 * (e / 2);
-      if (i >= Np) continue;
-      const bool iok = i < N;
-      const float l = iok ? lse[(int64_t)z * N + i] : 0.f;
-      const float dd = iok ? dvec[(int64_t)z * N + i] : 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + wn * 32 + c * 8 + 2 * qd + (e % 2);
-        if (j >= Mp) continue;
-        float p = 0.f, dsv = 0.f;
-        if (iok && j < M) {
-          p = __expf(sacc[a][c][e] * scale - l);
-          dsv = p * (pacc[a][c][e] - dd);
-        }
-        const int64_t t_idx = ((int64_t)z * Mp + j) * Np + i;
-        pT[t_idx] = __float2bfloat16(p);
-        dsT[t_idx] = __float2bfloat16(dsv);
-      }
-    }
+// (row, col) of a [64 rows][64 columns] bf16 box written for a 128-byte
+// swizzled TMA store: chunk col / 8 of row r sits at chunk (col / 8) ^ (r % 8)
+__device__ __forceinline__ uint32_t* swz64(unsigned char* box, int r,
+                                           int col) {
+  return reinterpret_cast<uint32_t*>(box + r * 128 +
+                                     (((col >> 3) ^ (r & 7)) << 4) +
+                                     (col & 7) * 2);
 }
 
-constexpr int GB = 64, GK = 32, GLA = GK + 8, GLB = GB + 8, GLT = GB + 8;
+__global__ void __launch_bounds__(bs::kThreads, 1)
+attn_bwd_scores_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap omap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap pmap,
+                       const __grid_constant__ CUtensorMap smap,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dvec, int N, int M, int H,
+                       int D, float scale) {
+  using namespace bs;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
 
-// out[b, m, h, :] = alpha * sum_k A[z, m, k] * Bm[b, k, h, :] for m < Mrows;
-// A is [z][Arows][Kp] (zero past the true K), or with A_KM its transpose
-// [z][Kp][Arows] (zero past Mrows); Bm holds Krows tokens of width D.
-template <bool A_KM>
-__global__ void __launch_bounds__(128)
-attn_bwd_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
-                     bf16* __restrict__ out, int H, int D, int Mrows,
-                     int Arows, int Kp, int Krows, float alpha) {
-  // a stage holds 64 m x 32 k ([m][k]) or 32 k x 64 m ([k][m])
-  __shared__ __align__(16) bf16 sA[2][GB * GLA > GK * GLT ? GB * GLA
-                                                           : GK * GLT];
-  __shared__ __align__(16) bf16 sB[2][GK * GLB];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, qd = lane % 4;
   const int z = blockIdx.z, b = z / H, hh = z % H;
-  const int m0 = blockIdx.x * GB, n0 = blockIdx.y * GB;
-  const int64_t rs = (int64_t)H * D;
-  const bf16* ab = A + (int64_t)z * Arows * Kp;
-  const bf16* bb = Bm + ((int64_t)b * Krows * H + hh) * D;
-  const int wm = warp / 2, wn = warp % 2;
+  const int i0 = blockIdx.x * BR, j0 = blockIdx.y * BC;
+  const int nk = D / 64;
 
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * GK;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int e = tid + 128 * t;
-      if constexpr (A_KM) {
-        const int kr = e / 8, mc = (e % 8) * 8;   // A^T: 32 rows x 64
-        const bool aok = k0 + kr < Kp && m0 + mc < Arows;
-        cp_async16(&sA[stage][kr * GLT + mc],
-                   aok ? ab + (int64_t)(k0 + kr) * Arows + m0 + mc : ab, aok);
-      } else {
-        const int r = e / 4, c = (e % 4) * 8;     // A: 64 rows x 32
-        const bool aok = m0 + r < Mrows && k0 + c < Kp;
-        cp_async16(&sA[stage][r * GLA + c],
-                   aok ? ab + (int64_t)(m0 + r) * Kp + k0 + c : ab, aok);
+  if (grp == 0) {
+    // ---- producer: per k step, Q and dO rows i0.., K and V rows j0.. ----
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc % STAGES;
+        unsigned char* st = base + s * STAGE;
+        hop::mbar_wait(&empty[s], ((kc / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], STAGE);
+        hop::tma_load_4d(st, &qmap, &full[s], 64 * kc, hh, i0, b);
+        hop::tma_load_4d(st + TILE, &omap, &full[s], 64 * kc, hh, i0, b);
+        hop::tma_load_4d(st + 2 * TILE, &kmap, &full[s], 64 * kc, hh, j0, b);
+        hop::tma_load_4d(st + 3 * TILE, &vmap, &full[s], 64 * kc, hh, j0, b);
       }
-      const int kr = e / 8, nc = (e % 8) * 8;     // B: 32 rows x 64
-      const bool bok = k0 + kr < Krows && n0 + nc < D;
-      cp_async16(&sB[stage][kr * GLB + nc],
-                 bok ? bb + (k0 + kr) * rs + n0 + nc : bb, bok);
     }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.f;
-
-  const int KT = (Kp + GK - 1) / GK;
-  load(0, 0);
-  dft::cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) load((kt + 1) & 1, kt + 1);
-    dft::cp_async_commit();
-    dft::cp_async_wait<1>();
-    __syncthreads();
-    const bf16* tA = sA[kt & 1];
-    const bf16* tB = sB[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < GK / 16; ++ks) {
-      uint32_t af[2][4], bfr[2][4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        if constexpr (A_KM)
-          dft::load_a_frag_km(af[a], tA + ks * 16 * GLT + wm * 32 + a * 16,
-                              GLT, lane);
-        else
-          dft::load_a_frag(af[a], tA + (wm * 32 + a * 16) * GLA + ks * 16,
-                           GLA, lane);
-      }
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        dft::load_b_frag_kn(bfr[c], tB + ks * 16 * GLB + wn * 32 + c * 16,
-                            GLB, lane);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          dft::mma_bf16(acc[a][c], af[a], &bfr[c / 2][(c % 2) * 2]);
-    }
-    __syncthreads();
+    return;
   }
 
+  // ---- consumers: warpgroup cw owns query rows 64cw..64cw+63 ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lane = tid % 32, warp = (tid / 32) % 4;
+  const int qd = lane % 4, g = lane / 4;
+  float sacc[64], pacc[64];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int i = 0; i < 64; ++i) sacc[i] = pacc[i] = 0.f;
+  hop::fence_regs<64>(sacc);
+  hop::fence_regs<64>(pacc);
+  int prev = -1;
+#pragma unroll 1
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc % STAGES;
+    unsigned char* st = base + s * STAGE;
+    // K-major operands, +32 bytes per k16 step
+    const uint64_t dq = hop::desc_sw128(st + cw * 64 * 128);
+    const uint64_t ddo = hop::desc_sw128(st + TILE + cw * 64 * 128);
+    const uint64_t dk = hop::desc_sw128(st + 2 * TILE);
+    const uint64_t dv = hop::desc_sw128(st + 3 * TILE);
+    hop::mbar_wait(&full[s], (kc / STAGES) & 1);
+    hop::wgmma_fence();
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int m = m0 + wm * 32 + a * 16 + g + 8 * h2;
-      if (m >= Mrows) continue;
-      bf16* orow = out + (((int64_t)b * Mrows + m) * H + hh) * D;
+    for (int k = 0; k < 4; ++k)
+      hop::wgmma_m64n128k16_ss(sacc, dq + 2 * k, dk + 2 * k);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = n0 + wn * 32 + c * 8 + 2 * qd;
-        if (n >= D) continue;
-        *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(
-            alpha * acc[a][c][2 * h2], alpha * acc[a][c][2 * h2 + 1]);
+    for (int k = 0; k < 4; ++k)
+      hop::wgmma_m64n128k16_ss(pacc, ddo + 2 * k, dv + 2 * k);
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();              // the previous k step's products
+    if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_regs<64>(sacc);
+  hop::fence_regs<64>(pacc);
+  hop::mbar_arrive(&empty[prev]);
+
+  // ---- P and dS: rows g (e = 0, 1) and g + 8 (e = 2, 3) of the warp ----
+  const float sl2 = scale * 1.4426950408889634f;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + cw * 64 + warp * 16 + g + 8 * r;
+    const bool ok = row < N;
+    l2[r] = ok ? lse[(int64_t)z * N + row] * 1.4426950408889634f : 0.f;
+    dd[r] = ok ? dvec[(int64_t)z * N + row] : 0.f;
+  }
+  // both warpgroups are past their last products: the ring is free
+  hop::bar_sync(1, 256);
+  unsigned char* sP = base + cw * 4 * 8192;      // [2 boxes][64][64]
+  unsigned char* sS = sP + 2 * 8192;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = (j % 8) * 8 + 2 * qd;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = warp * 16 + g + 8 * r;
+      float pv[2], dsv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        pv[e] = hop::exp2_approx(fmaf(sacc[i], sl2, -l2[r]));
+        dsv[e] = pv[e] * (pacc[i] - dd[r]);
+      }
+      *swz64(sP + (j / 8) * 8192, rl, col) = dft::pack_bf16(pv[0], pv[1]);
+      *swz64(sS + (j / 8) * 8192, rl, col) = dft::pack_bf16(dsv[0], dsv[1]);
+    }
+  }
+  hop::fence_proxy_async();
+  hop::bar_sync(2 + cw, 128);
+  const int r0 = i0 + cw * 64;
+  if (tid % 128 == 0 && r0 < N) {       // boxes wholly past N or M: none
+    for (int h = 0; h < 2 && j0 + 64 * h < M; ++h) {
+      hop::tma_store_4d(&pmap, sP + h * 8192, j0 + 64 * h, r0, z, 0);
+      hop::tma_store_4d(&smap, sS + h * 8192, j0 + 64 * h, r0, z, 0);
+    }
+    hop::bulk_commit();
+    hop::bulk_wait();
+  }
+}
+
+// ---- the three products -------------------------------------------------------
+
+// out[b, m, h, n] = alpha * sum_k A[m, k] B[k, n] per (b, h) = z: A the
+// scores pass's P or dS ([z][N][Mp] row-major: MN-major for dV = P^T dO and
+// dK = scale dS^T Q, where m is a key; K-major for dQ = scale dS K), B the
+// token-major q, k or dO ([B, tokens, h, D], MN-major: n contiguous).  A
+// 128 x 128 tile per block, two consumer warpgroups of 64 rows, a 4-stage
+// TMA ring over K in 64-deep steps; blockIdx.z / Z picks one of two
+// products (dV and dK share A's layout and one launch).  Rows past the
+// output's tokens and columns past D are clipped by the TMA store.
+namespace bg {
+constexpr int BM = 128, BN = 128, STAGES = 4, kThreads = 384;
+constexpr int BOX = 64 * 64 * 2;                 // a 64 x 64 box: 8 KB
+constexpr int STAGE = 4 * BOX;                   // A: 2 boxes, B: 2 boxes
+constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE + 4 * BOX +
+                         2 * STAGES * sizeof(uint64_t);
+}  // namespace bg
+
+struct GemmMaps {
+  CUtensorMap a[2], b[2], o[2];
+};
+
+template <bool A_MN>
+__global__ void __launch_bounds__(bg::kThreads, 1)
+attn_bwd_gemm_kernel(const __grid_constant__ GemmMaps maps, int Mrows,
+                     int Kdim, int H, int D, int Z, float alpha0,
+                     float alpha1) {
+  using namespace bg;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  unsigned char* epi = base + STAGES * STAGE;      // [2 warpgroups][2][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 4 * BOX);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int prod = blockIdx.z / Z, z = blockIdx.z % Z, b = z / H, hh = z % H;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nks = (Kdim + 63) / 64;
+  // boxes wholly past the output's rows (A) or D (B) are not loaded: the
+  // rows and columns they would feed are not stored
+  const int na = m0 + 64 < Mrows ? 2 : 1, nb = n0 + 64 < D ? 2 : 1;
+  const CUtensorMap* am = &maps.a[prod];
+  const CUtensorMap* bm = &maps.b[prod];
+
+  if (grp == 0) {
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      for (int ks = 0; ks < nks; ++ks) {
+        const int s = ks % STAGES, k0 = 64 * ks;
+        unsigned char* st = base + s * STAGE;
+        hop::mbar_wait(&empty[s], ((ks / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], (na + nb) * BOX);
+        for (int h = 0; h < na; ++h) {
+          if (A_MN)        // [64 k rows][64 m]: keys m0 + 64h.. inner
+            hop::tma_load_4d(st + h * BOX, am, &full[s], m0 + 64 * h, k0, z,
+                             0);
+          else             // [64 m rows][64 k]
+            hop::tma_load_4d(st + h * BOX, am, &full[s], k0, m0 + 64 * h, z,
+                             0);
+        }
+        for (int h = 0; h < nb; ++h)   // [64 k tokens][64 n]
+          hop::tma_load_4d(st + (2 + h) * BOX, bm, &full[s], n0 + 64 * h, hh,
+                           k0, b);
       }
     }
+    return;
+  }
+
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lane = tid % 32, warp = (tid / 32) % 4;
+  const int qd = lane % 4, g = lane / 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  hop::fence_regs<64>(acc);
+  int prev = -1;
+#pragma unroll 1
+  for (int ks = 0; ks < nks; ++ks) {
+    const int s = ks % STAGES;
+    unsigned char* st = base + s * STAGE;
+    uint64_t da[4], db[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A: MN-major, 16 k rows (2048 bytes) per k16 step; or K-major, +32
+      // bytes.  B: MN-major, its two 64-column boxes BOX apart (LBO).
+      da[kk] = A_MN ? hop::desc_sw128(st + cw * BOX + kk * 2048)
+                    : hop::desc_sw128(st + cw * BOX) + 2 * kk;
+      db[kk] = hop::desc_sw128(st + 2 * BOX + kk * 2048, BOX);
+    }
+    hop::mbar_wait(&full[s], (ks / STAGES) & 1);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_m64n128k16_ss_t<A_MN ? 1 : 0, 1>(acc, da[kk], db[kk]);
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();
+    if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_regs<64>(acc);
+  hop::mbar_arrive(&empty[prev]);
+
+  // ---- epilogue: alpha * acc in bf16, by TMA ----
+  const float alpha = prod ? alpha1 : alpha0;
+  unsigned char* sO = epi + cw * 2 * BOX;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *swz64(sO + (j / 8) * BOX, warp * 16 + g + 8 * r, (j % 8) * 8 + 2 * qd) =
+          dft::pack_bf16(alpha * acc[4 * j + 2 * r],
+                         alpha * acc[4 * j + 2 * r + 1]);
+  hop::fence_proxy_async();
+  hop::bar_sync(1 + cw, 128);
+  if (tid % 128 == 0 && cw < na) {
+    for (int h = 0; h < nb; ++h)
+      hop::tma_store_4d(&maps.o[prod], sO + h * BOX, n0 + 64 * h, hh,
+                        m0 + 64 * cw, b);
+    hop::bulk_commit();
+    hop::bulk_wait();
+  }
 }
 
 }  // namespace
@@ -897,39 +977,80 @@ extern "C" int attention_fwd_wgmma_d512(const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-// dq, dk, dv from q, k, v, o, do and lse; d % 8 == 0.  Scratch: dvec [B*H*N]
-// fp32, pT and dsT [B*H][Mp][Np] bf16 (Np, Mp = N, M rounded up to 8).
-extern "C" int attention_bwd(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout,
-                             const float* lse, void* dq, void* dk, void* dv,
-                             float* dvec, void* pT, void* dsT, int B, int N,
-                             int M, int H, int D, float scale,
-                             cudaStream_t stream) {
-  if (D % 8) return (int)cudaErrorInvalidValue;
-  const int Np = (N + 7) / 8 * 8, Mp = (M + 7) / 8 * 8;
-  const int Z = B * H;
-  const bf16* Q = static_cast<const bf16*>(q);
-  const bf16* K = static_cast<const bf16*>(k);
-  const bf16* V = static_cast<const bf16*>(v);
-  const bf16* dO = static_cast<const bf16*>(dout);
-  bf16* PT = static_cast<bf16*>(pT);
-  bf16* DST = static_cast<bf16*>(dsT);
+// A [B, tokens, h, D] bf16 map with boxes of `rows` tokens x 64 columns.
+static bool token_map(CUtensorMap* map, const void* p, int B, int tokens,
+                      int H, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)tokens, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)tokens * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return hop::encode_bf16_map(map, p, 4, dims, strides, box);
+}
+
+// dq, dk, dv from q, k, v, o, do and lse, d % 64 == 0 (64 and 512 on the
+// paths); all of them 16-byte aligned.  Scratch: dvec [B*H*N] fp32, p and
+// ds [B*H][N][Mp] bf16 (Mp = M rounded up to 8).  Four launches: the row
+// dots D, the scores pass, dV and dK, dQ.
+extern "C" int attention_bwd_wgmma(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   void* dq, void* dk, void* dv, float* dvec,
+                                   void* p, void* ds, int B, int N, int M,
+                                   int H, int D, float scale,
+                                   cudaStream_t stream) {
+  if (D % 64 || N < 1 || M < 1 || B * H < 1) return (int)cudaErrorInvalidValue;
+  const int Mp = (M + 7) / 8 * 8, Z = B * H;
+  // scores pass: Q, dO, K, V in 128-row boxes; P and dS [z][N][Mp]
+  CUtensorMap qm, om, km, vm, pm, sm;
+  bool ok = token_map(&qm, q, B, N, H, D, 128) &&
+            token_map(&om, dout, B, N, H, D, 128) &&
+            token_map(&km, k, B, M, H, D, 128) &&
+            token_map(&vm, v, B, M, H, D, 128);
+  const cuuint64_t sdims[4] = {(cuuint64_t)M, (cuuint64_t)N, (cuuint64_t)Z,
+                               1};
+  const cuuint64_t sstr[3] = {(cuuint64_t)Mp * 2, (cuuint64_t)N * Mp * 2,
+                              (cuuint64_t)Z * N * Mp * 2};
+  const cuuint32_t sbox[4] = {64, 64, 1, 1};
+  ok = ok && hop::encode_bf16_map(&pm, p, 4, sdims, sstr, sbox) &&
+       hop::encode_bf16_map(&sm, ds, 4, sdims, sstr, sbox);
+  // products: dV = P^T dO, dK = scale dS^T Q (A MN-major); dQ = scale dS K
+  GemmMaps kv, qq;
+  kv.a[0] = pm;
+  kv.a[1] = sm;
+  qq.a[0] = qq.a[1] = sm;
+  ok = ok && token_map(&kv.b[0], dout, B, N, H, D, 64) &&
+       token_map(&kv.b[1], q, B, N, H, D, 64) &&
+       token_map(&kv.o[0], dv, B, M, H, D, 64) &&
+       token_map(&kv.o[1], dk, B, M, H, D, 64) &&
+       token_map(&qq.b[0], k, B, M, H, D, 64) &&
+       token_map(&qq.o[0], dq, B, N, H, D, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  qq.b[1] = qq.b[0];
+  qq.o[1] = qq.o[0];
+  static bool set_s[hop::kMaxDevices] = {}, set_kv[hop::kMaxDevices] = {},
+              set_q[hop::kMaxDevices] = {};
+  cudaError_t err =
+      hop::allow_smem(attn_bwd_scores_kernel, (int)bs::kSmem, set_s);
+  if (err == cudaSuccess)
+    err = hop::allow_smem(attn_bwd_gemm_kernel<true>, (int)bg::kSmem, set_kv);
+  if (err == cudaSuccess)
+    err = hop::allow_smem(attn_bwd_gemm_kernel<false>, (int)bg::kSmem, set_q);
+  if (err != cudaSuccess) return (int)err;
 
   const int64_t rows = (int64_t)Z * N;
   attn_bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      dO, static_cast<const bf16*>(o), dvec, B, N, H, D);
-  dim3 sgrid((Np + SB - 1) / SB, (Mp + SB - 1) / SB, Z);
-  attn_bwd_scores_kernel<<<sgrid, 128, 0, stream>>>(
-      Q, K, V, dO, lse, dvec, PT, DST, B, N, M, H, D, Np, Mp, scale);
-  dim3 gk((M + GB - 1) / GB, (D + GB - 1) / GB, Z);
-  // dV = P^T dO and dK = scale * dS^T Q: [M, Np] x [N tokens, D]
-  attn_bwd_gemm_kernel<false><<<gk, 128, 0, stream>>>(
-      PT, dO, static_cast<bf16*>(dv), H, D, M, Mp, Np, N, 1.f);
-  attn_bwd_gemm_kernel<false><<<gk, 128, 0, stream>>>(
-      DST, Q, static_cast<bf16*>(dk), H, D, M, Mp, Np, N, scale);
-  // dQ = scale * dS K: [N, Mp] x [M tokens, D], dS read from dS^T
-  dim3 gq((N + GB - 1) / GB, (D + GB - 1) / GB, Z);
-  attn_bwd_gemm_kernel<true><<<gq, 128, 0, stream>>>(
-      DST, K, static_cast<bf16*>(dq), H, D, N, Np, Mp, M, scale);
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(o), dvec, B,
+      N, H, D);
+  dim3 sgrid((N + bs::BR - 1) / bs::BR, (M + bs::BC - 1) / bs::BC, Z);
+  attn_bwd_scores_kernel<<<sgrid, bs::kThreads, bs::kSmem, stream>>>(
+      qm, om, km, vm, pm, sm, lse, dvec, N, M, H, D, scale);
+  const int nt = (D + bg::BN - 1) / bg::BN;
+  dim3 gkv((M + bg::BM - 1) / bg::BM, nt, 2 * Z);
+  attn_bwd_gemm_kernel<true><<<gkv, bg::kThreads, bg::kSmem, stream>>>(
+      kv, M, N, H, D, Z, 1.f, scale);
+  dim3 gq((N + bg::BM - 1) / bg::BM, nt, Z);
+  attn_bwd_gemm_kernel<false><<<gq, bg::kThreads, bg::kSmem, stream>>>(
+      qq, N, M, H, D, Z, scale, scale);
   return (int)cudaGetLastError();
 }

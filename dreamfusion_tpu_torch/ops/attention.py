@@ -11,8 +11,9 @@ On a CUDA tensor the forward is one launch of ``csrc/attention.cu``
 kernel (counter ``attention_fwd_wgmma``), at d = 512 the VAE mid-block's
 (``attention_fwd_wgmma_d512``: its KV range split over ``kv_splits``
 blocks, merged by a second kernel of the same launch);
-``attention_route`` picks by d alone.  The backward is one launch of
-``attention_bwd``.  On a CPU tensor the plain version runs (the dense
+``attention_route`` picks by d alone.  The backward is one call of
+``attention_bwd_wgmma`` (four kernels: the row dots, a scores pass storing
+P and dS, dV and dK in one wgmma GEMM launch, dQ in another).  On a CPU tensor the plain version runs (the dense
 form) and its backward is autograd of it.
 """
 
@@ -90,22 +91,28 @@ def attention_fwd_cuda(q, k, v, scale: float):
 
 
 def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
-    """→ (dq, dk, dv), bf16."""
+    """→ (dq, dk, dv), bf16: one call of ``attention_bwd_wgmma`` (the row
+    dots, the scores pass and the three products on wgmma + TMA)."""
     B, N, M, H, D = _check(q, k, v)
     do = do.to(torch.bfloat16).contiguous()
     kernels.check_cuda(o, lse, do)
-    Np, Mp = -(-N // 8) * 8, -(-M // 8) * 8
+    if D % 64:
+        raise ValueError(f"attention backward takes d % 64 == 0, got {D}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("the attention kernels read q, k, v, o and do by "
+                         "TMA: 16-byte aligned tensors only")
+    Mp = -(-M // 8) * 8
     Z = B * H
     dev = q.device
     dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
-    pT = torch.empty(Z, Mp, Np, device=dev, dtype=torch.bfloat16)
-    dsT = torch.empty_like(pT)
+    p = torch.empty(Z, N, Mp, device=dev, dtype=torch.bfloat16)
+    ds = torch.empty_like(p)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    kernels.launch("attention_bwd", kernels.ptr(q), kernels.ptr(k),
+    kernels.launch("attention_bwd_wgmma", kernels.ptr(q), kernels.ptr(k),
                    kernels.ptr(v), kernels.ptr(o), kernels.ptr(do),
                    kernels.ptr(lse), kernels.ptr(dq), kernels.ptr(dk),
-                   kernels.ptr(dv), kernels.ptr(dvec), kernels.ptr(pT),
-                   kernels.ptr(dsT), B, N, M, H, D, float(scale))
+                   kernels.ptr(dv), kernels.ptr(dvec), kernels.ptr(p),
+                   kernels.ptr(ds), B, N, M, H, D, float(scale))
     return dq, dk, dv
 
 

@@ -10,22 +10,28 @@ per (batch, group):
     dx = rstd * (dxh - mean_g(dxh) - xh * mean_g(dxh * xh)),
          dxh = dy * silu'(u) * scale,   xh = (x - mean) * rstd
 
-On a CUDA tensor the forward and the backward are each two launches of
-Triton kernels, counted once per call.  Bound on the card: memory (one read
-of x and one write of y forward; x and dy in, dx out backward; a few
-operations per element).  The statistics parallelise badly: at the VAE's
-first level B*G = 32 groups each hold 512*512*4 ≈ 1M values, so one program
-per group would fill 32 of 132 SMs.  Each group is therefore cut into
-chunks of pixels: pass 1 writes per-chunk (mean, M2) (sums for the
-backward), pass 2 merges the chunks of its group with Chan's formula
-(numerically safe in fp32, unlike E[x²] − E[x]²) and normalises its own
-chunk.  The weights are frozen on every path: the backward gives no
-gradient for scale and bias and refuses tensors that ask for one.
+On a CUDA tensor the forward and the backward are each one launch of a
+CUDA C++ kernel (``csrc/groupnorm.cu``), by the route
+``group_norm_route`` picks from the shape: resident (a thread-block
+cluster keeps a slab of whole groups in shared memory, merges the groups'
+statistics through distributed shared memory, and writes the output from
+shared memory: x, and dy, read once) or streaming (a cooperative launch of
+one CTA per SM: statistics, a grid barrier, one merge per group, a second
+barrier, the output).  Each route is its own C entry point and launch
+counter; a shape neither takes, or a cluster the card refuses, raises.
+Bound on the card: memory (one read of x and one write of y forward; x and
+dy in, dx out backward; a few operations per element).  Statistics are
+Welford means and M2 per thread, merged with Chan's formula (numerically
+safe in fp32, unlike E[x²] − E[x]²).  The weights are frozen on every
+path: the backward gives no gradient for scale and bias and refuses
+tensors that ask for one.
 """
 
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -62,203 +68,169 @@ def group_norm_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Triton kernels
+# CUDA kernels (csrc/groupnorm.cu)
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _triton_kernels():
-    """Compile-on-first-use kernels (Triton is imported here: the CPU tests
-    import this module where Triton is absent)."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _tile(base, p0, HW, C, c0, Cg, BLOCK_P: tl.constexpr,
-              BLOCK_C: tl.constexpr):
-        rows = p0 + tl.arange(0, BLOCK_P)
-        cols = tl.arange(0, BLOCK_C)
-        mask = (rows[:, None] < HW) & (cols[None, :] < Cg)
-        offs = base + rows[:, None] * C + c0 + cols[None, :]
-        return offs, mask, cols
-
-    @triton.jit
-    def fwd_stats(x_ptr, part_ptr, HW, C, G, Cg, n_chunks,
-                  BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-        bg = tl.program_id(0)
-        ch = tl.program_id(1)
-        b = bg // G
-        grp = bg % G
-        offs, mask, _ = _tile(b * HW * C, ch * BLOCK_P, HW, C, grp * Cg, Cg,
-                              BLOCK_P, BLOCK_C)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        cnt = tl.sum(tl.sum(mask.to(tl.float32), axis=1), axis=0)
-        mean = tl.sum(tl.sum(x, axis=1), axis=0) / tl.maximum(cnt, 1.0)
-        d = tl.where(mask, x - mean, 0.0)
-        m2 = tl.sum(tl.sum(d * d, axis=1), axis=0)
-        pbase = (bg * n_chunks + ch) * 3
-        tl.store(part_ptr + pbase, cnt)
-        tl.store(part_ptr + pbase + 1, mean)
-        tl.store(part_ptr + pbase + 2, m2)
-
-    @triton.jit
-    def _merge(part_ptr, bg, n_chunks, eps, NCH: tl.constexpr):
-        """Chan's merge of a group's chunk statistics → (mean, rstd)."""
-        idx = tl.arange(0, NCH)
-        m = idx < n_chunks
-        base = (bg * n_chunks + idx) * 3
-        cnt = tl.load(part_ptr + base, mask=m, other=0.0)
-        mu = tl.load(part_ptr + base + 1, mask=m, other=0.0)
-        m2 = tl.load(part_ptr + base + 2, mask=m, other=0.0)
-        n = tl.sum(cnt, axis=0)
-        mean = tl.sum(cnt * mu, axis=0) / n
-        dm = mu - mean
-        var = (tl.sum(m2, axis=0) + tl.sum(cnt * dm * dm, axis=0)) / n
-        return mean, 1.0 / tl.sqrt(var + eps)
-
-    @triton.jit
-    def fwd_apply(x_ptr, w_ptr, b_ptr, y_ptr, part_ptr, stat_ptr, HW, C, G,
-                  Cg, n_chunks, eps, SILU: tl.constexpr,
-                  BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr,
-                  NCH: tl.constexpr):
-        bg = tl.program_id(0)
-        ch = tl.program_id(1)
-        b = bg // G
-        grp = bg % G
-        mean, rstd = _merge(part_ptr, bg, n_chunks, eps, NCH)
-        if ch == 0:
-            tl.store(stat_ptr + bg * 2, mean)
-            tl.store(stat_ptr + bg * 2 + 1, rstd)
-        offs, mask, cols = _tile(b * HW * C, ch * BLOCK_P, HW, C, grp * Cg,
-                                 Cg, BLOCK_P, BLOCK_C)
-        cm = cols < Cg
-        w = tl.load(w_ptr + grp * Cg + cols, mask=cm, other=0.0).to(tl.float32)
-        bb = tl.load(b_ptr + grp * Cg + cols, mask=cm, other=0.0).to(
-            tl.float32)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        u = (x - mean) * rstd * w[None, :] + bb[None, :]
-        if SILU:
-            u = u / (1.0 + tl.exp(-u))
-        tl.store(y_ptr + offs, u.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def _dxh(x_ptr, dy_ptr, w_ptr, b_ptr, stat_ptr, bg, b, grp, p0, HW, C,
-             Cg, SILU: tl.constexpr, BLOCK_P: tl.constexpr,
-             BLOCK_C: tl.constexpr):
-        offs, mask, cols = _tile(b * HW * C, p0, HW, C, grp * Cg, Cg,
-                                 BLOCK_P, BLOCK_C)
-        cm = cols < Cg
-        mean = tl.load(stat_ptr + bg * 2)
-        rstd = tl.load(stat_ptr + bg * 2 + 1)
-        w = tl.load(w_ptr + grp * Cg + cols, mask=cm, other=0.0).to(tl.float32)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        xh = (x - mean) * rstd
-        if SILU:
-            bb = tl.load(b_ptr + grp * Cg + cols, mask=cm, other=0.0).to(
-                tl.float32)
-            u = xh * w[None, :] + bb[None, :]
-            s = 1.0 / (1.0 + tl.exp(-u))
-            dy = dy * s * (1.0 + u * (1.0 - s))
-        dxh = tl.where(mask, dy * w[None, :], 0.0)
-        xh = tl.where(mask, xh, 0.0)
-        return offs, mask, dxh, xh, rstd
-
-    @triton.jit
-    def bwd_sums(x_ptr, dy_ptr, w_ptr, b_ptr, stat_ptr, part_ptr, HW, C, G,
-                 Cg, n_chunks, SILU: tl.constexpr, BLOCK_P: tl.constexpr,
-                 BLOCK_C: tl.constexpr):
-        bg = tl.program_id(0)
-        ch = tl.program_id(1)
-        _, _, dxh, xh, _ = _dxh(x_ptr, dy_ptr, w_ptr, b_ptr, stat_ptr, bg,
-                                bg // G, bg % G, ch * BLOCK_P, HW, C, Cg,
-                                SILU, BLOCK_P, BLOCK_C)
-        pbase = (bg * n_chunks + ch) * 2
-        tl.store(part_ptr + pbase, tl.sum(tl.sum(dxh, axis=1), axis=0))
-        tl.store(part_ptr + pbase + 1,
-                 tl.sum(tl.sum(dxh * xh, axis=1), axis=0))
-
-    @triton.jit
-    def bwd_apply(x_ptr, dy_ptr, w_ptr, b_ptr, stat_ptr, part_ptr, dx_ptr,
-                  HW, C, G, Cg, n_chunks, inv_n, SILU: tl.constexpr,
-                  BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr,
-                  NCH: tl.constexpr):
-        bg = tl.program_id(0)
-        ch = tl.program_id(1)
-        idx = tl.arange(0, NCH)
-        m = idx < n_chunks
-        pb = (bg * n_chunks + idx) * 2
-        m1 = tl.sum(tl.load(part_ptr + pb, mask=m, other=0.0), axis=0) * inv_n
-        m2 = tl.sum(tl.load(part_ptr + pb + 1, mask=m, other=0.0),
-                    axis=0) * inv_n
-        offs, mask, dxh, xh, rstd = _dxh(
-            x_ptr, dy_ptr, w_ptr, b_ptr, stat_ptr, bg, bg // G, bg % G,
-            ch * BLOCK_P, HW, C, Cg, SILU, BLOCK_P, BLOCK_C)
-        dx = rstd * (dxh - m1 - xh * m2)
-        tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-
-    return fwd_stats, fwd_apply, bwd_sums, bwd_apply
+_ELT = {torch.bfloat16: 2, torch.float32: 4}
+# Bytes of x above which the streaming route beat the resident one on the
+# H100 (every shape of the SD step, forward and backward, each route at
+# each slab, cluster and block size; PERF.md): a slab's rows are
+# strided pieces of 16-80 bytes, which read and write worse than whole
+# rows, and the backward holds twice the bytes.  At and below it the
+# resident route won or tied.
+RESIDENT_MAX_BYTES = {False: 15 << 20, True: 4 << 20}    # forward, backward
+SLAB_BUDGET = 192 * 1024    # bytes of x (and dy) a resident CTA may hold
+MAX_CLUSTER = 16            # CTAs of a cluster (above 8: non-portable)
+MIN_PIXELS = 64             # pixels a CTA keeps at least when it grows
+RESIDENT_THREADS = 128      # more, smaller CTAs ran faster than fewer
 
 
-def _next_pow2(n: int) -> int:
+class GNRoute(NamedTuple):
+    name: str       # C entry point and launch counter
+    slab: int       # channels a cluster owns (resident), or C (streaming)
+    cluster: int    # CTAs per cluster (resident), 0 (streaming)
+    threads: int    # threads per CTA
+
+
+def _pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _blocks(HW: int, Cg: int):
-    """(BLOCK_P, BLOCK_C, n_chunks, NCH): ~4096 values a program."""
-    block_c = _next_pow2(Cg)
-    block_p = max(16, 4096 // block_c)
-    block_p = min(block_p, max(16, _next_pow2(HW)))
-    n_chunks = -(-HW // block_p)
-    return block_p, block_c, n_chunks, _next_pow2(n_chunks)
+def min_slab_groups(Cg: int, elt: int) -> int:
+    """The fewest groups of `Cg` channels of `elt` bytes (a power of two)
+    whose width is a multiple of 16 bytes."""
+    s = 1
+    while (s * Cg * elt) % 16:
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_route(shape, dtype, bwd: bool, groups: int | None = None,
+                     sms: int = 132) -> GNRoute:
+    """The K11 kernel, slab, cluster and threads for x of `shape` [B, ...,
+    C] (a pure function of the shape; `sms`: the card's multiprocessors).
+
+    Resident route for at most ``RESIDENT_MAX_BYTES`` of x where a
+    cluster of at most 16 CTAs can hold the slab in shared memory, at most
+    ``SLAB_BUDGET`` bytes a CTA.  The slab is the fewest whole groups whose
+    width is a multiple of 16 bytes, doubled once towards a full 32-byte
+    sector where the cluster stays within 8; the cluster is the fewest
+    CTAs that hold it, doubled (up to 16, at least ``MIN_PIXELS`` pixels a
+    CTA) while B x slabs x CTAs stay within two an SM.  Streaming route
+    otherwise, one CTA an SM.  Raises for a dtype or a channel count the
+    kernels do not take."""
+    B, C = shape[0], shape[-1]
+    HW = math.prod(shape[1:-1])
+    G = groups or groups_for(C)
+    if dtype not in _ELT:
+        raise ValueError(f"groupnorm kernel takes fp32 or bf16, got {dtype}")
+    if C % G:
+        raise ValueError(f"{C} channels do not split into {G} groups")
+    elt, Cg, tensors = _ELT[dtype], C // G, 2 if bwd else 1
+    way = "bwd" if bwd else "fwd"
+    s = min_slab_groups(Cg, elt)        # groups per slab
+    if s > G:
+        raise ValueError(f"groupnorm kernel: no whole groups of {Cg} "
+                         f"channels make 16 bytes within {C} channels")
+
+    def cluster_for(s):
+        """The fewest CTAs (a power of two) that hold a slab, or None."""
+        n = 1
+        while -(-HW // n) * s * Cg * elt * tensors > SLAB_BUDGET:
+            n *= 2
+            if n > MAX_CLUSTER:
+                return None
+        return n
+
+    n = cluster_for(s)
+    if n is None or B * HW * C * elt > RESIDENT_MAX_BYTES[bwd]:
+        V = C * elt // 16
+        if _pow2(V) > 512:
+            raise ValueError(f"groupnorm kernel: {C} channels are too wide "
+                             f"to stream")
+        return GNRoute(f"groupnorm_{way}_stream", C, 0, 512)
+    if s * Cg * elt < 32 and G % (2 * s) == 0:
+        n2 = cluster_for(2 * s)
+        if n2 is not None and n2 <= 8:
+            s, n = 2 * s, n2
+    slabs = B * G // s
+    while (n < MAX_CLUSTER and slabs * n * 2 <= 2 * sms
+           and HW // (2 * n) >= MIN_PIXELS):
+        n *= 2
+    return GNRoute(f"groupnorm_{way}_resident", s * Cg, n,
+                   max(RESIDENT_THREADS, _pow2(s * Cg * elt // 16)))
 
 
 def _check(x, weight, bias, groups):
     kernels.check_cuda(x, weight, bias)
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _ELT:
         raise ValueError(f"groupnorm kernel takes fp32 or bf16, got {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError("the groupnorm kernels read 16-byte vectors: "
+                         "16-byte aligned tensors only")
     C = x.shape[-1]
     if C % groups:
         raise ValueError(f"{C} channels do not split into {groups} groups")
-    return x.shape[0], x.numel() // (x.shape[0] * C), C, C // groups
+    if weight.dtype != bias.dtype or weight.dtype not in _ELT:
+        weight, bias = weight.float(), bias.float()
+    return (x.shape[0], x.numel() // (x.shape[0] * C), C, weight, bias,
+            int(x.dtype == torch.float32),
+            int(weight.dtype == torch.bfloat16))
 
 
-def group_norm_fwd_triton(x, weight, bias, groups: int, eps: float,
-                          silu: bool):
-    """→ (y like x, stats [B*G, 2] fp32 mean and rstd)."""
-    B, HW, C, Cg = _check(x, weight, bias, groups)
-    fwd_stats, fwd_apply, _, _ = _triton_kernels()
-    BP, BC, nch, NCH = _blocks(HW, Cg)
-    part = torch.empty(B * groups * nch * 3, device=x.device,
-                       dtype=torch.float32)
-    stats = torch.empty(B * groups, 2, device=x.device, dtype=torch.float32)
+def group_norm_fwd_cuda(x, weight, bias, groups: int, eps: float,
+                        silu: bool, route: GNRoute | None = None):
+    """→ (y like x, stats [B*G, 2] fp32 mean and rstd): one launch of the
+    route ``group_norm_route`` gives (or `route`, as the benchmark's sweep
+    of the routes asks)."""
+    B, HW, C, w, b, fp32, w_bf16 = _check(x, weight, bias, groups)
+    sms = kernels.sm_count(x.device)
+    route = route or group_norm_route(tuple(x.shape), x.dtype, False,
+                                      groups, sms)
     y = torch.empty_like(x)
-    grid = (B * groups, nch)
-    fwd_stats[grid](x, part, HW, C, groups, Cg, nch, BLOCK_P=BP, BLOCK_C=BC)
-    fwd_apply[grid](x, weight, bias, y, part, stats, HW, C, groups, Cg, nch,
-                    float(eps), SILU=bool(silu), BLOCK_P=BP, BLOCK_C=BC,
-                    NCH=NCH)
-    kernels.LAUNCHES["groupnorm_fwd"] += 1
+    stats = torch.empty(B * groups, 2, device=x.device, dtype=torch.float32)
+    P = kernels.ptr
+    if route.cluster:
+        kernels.launch(route.name, P(x), P(w), P(b), P(y), P(stats), B, HW,
+                       C, groups, route.slab, route.cluster, route.threads,
+                       float(eps), int(silu), fp32, w_bf16)
+    else:
+        ctas = max(1, sms // B)
+        part = torch.empty(B * ctas * groups * 3, device=x.device,
+                           dtype=torch.float32)
+        kernels.launch(route.name, P(x), P(w), P(b), P(y), P(stats), P(part),
+                       B, HW, C, groups, ctas, route.threads, float(eps),
+                       int(silu), fp32, w_bf16)
     return y, stats
 
 
-def group_norm_bwd_triton(x, weight, bias, stats, dy, groups: int,
-                          silu: bool):
-    """dx like x."""
-    dy = dy.contiguous()
-    B, HW, C, Cg = _check(x, weight, bias, groups)
+def group_norm_bwd_cuda(x, weight, bias, stats, dy, groups: int,
+                        silu: bool, route: GNRoute | None = None):
+    """dx like x, from the forward's stats (`route` as the forward's)."""
+    dy = dy.to(x.dtype).contiguous()
+    B, HW, C, w, b, fp32, w_bf16 = _check(x, weight, bias, groups)
     kernels.check_cuda(stats, dy)
-    _, _, bwd_sums, bwd_apply = _triton_kernels()
-    BP, BC, nch, NCH = _blocks(HW, Cg)
-    part = torch.empty(B * groups * nch * 2, device=x.device,
-                       dtype=torch.float32)
+    if dy.data_ptr() % 16:
+        raise ValueError("the groupnorm kernels read 16-byte vectors: "
+                         "16-byte aligned tensors only")
+    sms = kernels.sm_count(x.device)
+    route = route or group_norm_route(tuple(x.shape), x.dtype, True,
+                                      groups, sms)
     dx = torch.empty_like(x)
-    grid = (B * groups, nch)
-    bwd_sums[grid](x, dy, weight, bias, stats, part, HW, C, groups, Cg, nch,
-                   SILU=bool(silu), BLOCK_P=BP, BLOCK_C=BC)
-    bwd_apply[grid](x, dy, weight, bias, stats, part, dx, HW, C, groups, Cg,
-                    nch, 1.0 / (HW * Cg), SILU=bool(silu), BLOCK_P=BP,
-                    BLOCK_C=BC, NCH=NCH)
-    kernels.LAUNCHES["groupnorm_bwd"] += 1
+    P = kernels.ptr
+    if route.cluster:
+        kernels.launch(route.name, P(x), P(dy), P(w), P(b), P(stats), P(dx),
+                       B, HW, C, groups, route.slab, route.cluster,
+                       route.threads, int(silu), fp32, w_bf16)
+    else:
+        ctas = max(1, sms // B)
+        part = torch.empty(B * ctas * groups * 3 + B * groups * 2,
+                           device=x.device, dtype=torch.float32)
+        fin = part[B * ctas * groups * 3:]
+        kernels.launch(route.name, P(x), P(dy), P(w), P(b), P(stats),
+                       P(part), P(fin), P(dx), B, HW, C, groups, ctas,
+                       route.threads, int(silu), fp32, w_bf16)
     return dx
 
 
@@ -268,8 +240,8 @@ class _GroupNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, groups, eps, silu):
         ctx.cfg = (groups, eps, silu)
         if x.is_cuda:
-            y, stats = group_norm_fwd_triton(x, weight, bias, groups, eps,
-                                             silu)
+            y, stats = group_norm_fwd_cuda(x, weight, bias, groups, eps,
+                                           silu)
             ctx.save_for_backward(x, weight, bias, stats)
             return y
         if x.device.type != "cpu":
@@ -286,8 +258,8 @@ class _GroupNorm(torch.autograd.Function):
         groups, eps, silu = ctx.cfg
         if dy.is_cuda:
             x, weight, bias, stats = ctx.saved_tensors
-            dx = group_norm_bwd_triton(x, weight, bias, stats, dy, groups,
-                                       silu)
+            dx = group_norm_bwd_cuda(x, weight, bias, stats, dy, groups,
+                                     silu)
         else:
             x, weight, bias = ctx.saved_tensors
             with torch.enable_grad():

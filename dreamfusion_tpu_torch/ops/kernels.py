@@ -17,7 +17,8 @@ resets it with ``reset_launch_counts()`` and reads it afterwards to show
 that a path went through the kernels.  It is process-wide state by design:
 the counters must see launches from every caller.  A kernel with several
 routes (K10's and K12's forwards, chosen by shape) counts each route under
-its own name, which is also its C entry point's.
+its own name, which is also its C entry point's; so do K10's backward and
+K11's resident and streaming routes.
 
 The Hopper routes encode TMA tensor maps, whose encoder is a driver API
 call: ``csrc/hopper.cuh`` fetches it through ``cudaGetDriverEntryPoint``,
@@ -50,8 +51,9 @@ LAUNCHES: Dict[str, int] = {
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
     "attention_fwd_wgmma": 0,                   # K10 d = 64, CUDA C++
     "attention_fwd_wgmma_d512": 0,              # K10 d = 512, CUDA C++
-    "attention_bwd": 0,                         # K10, CUDA C++
-    "groupnorm_fwd": 0, "groupnorm_bwd": 0,     # K11, Triton
+    "attention_bwd_wgmma": 0,                   # K10 backward, CUDA C++
+    "groupnorm_fwd_resident": 0, "groupnorm_fwd_stream": 0,  # K11, CUDA C++
+    "groupnorm_bwd_resident": 0, "groupnorm_bwd_stream": 0,  # K11, CUDA C++
     "conv_fwd_wgmma": 0, "conv_fwd_wgmma_i8": 0,  # K12, CUDA C++
     "conv_fwd_mma": 0,                          # K12, CUDA C++
     "conv_fwd_fp32": 0,                         # K12, CUDA C++
@@ -93,7 +95,11 @@ _SIGNATURES = {
     "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
     "attention_fwd_wgmma": [_P] * 5 + [_I] * 4 + [_F, _P],
     "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
-    "attention_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "attention_bwd_wgmma": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "groupnorm_fwd_resident": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    "groupnorm_bwd_resident": [_P] * 6 + [_I] * 10 + [_P],
+    "groupnorm_fwd_stream": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    "groupnorm_bwd_stream": [_P] * 8 + [_I] * 9 + [_P],
     "raster_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 7 + [_P],
     "raster_bwd": [_P] * 10 + [_I] * 2 + [_F] + [_P] * 3 + [_P],
     "interpolate_fwd": [_P] * 4 + [_I] * 2 + [_P, _P],

@@ -38,7 +38,8 @@ GROUPS = [  # (group, kernel-name pattern), first match wins
                  r"|conv_splitk_reduce|pad_channels8_kernel"),
     ("K5 clip_grad", r"\bclip_(f32|bf16)_kernel"),
     ("K10 attention", r"attn_"),
-    ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"),
+    ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"
+                      r"|\bgn_(resident|stream)_kernel"),
     ("K6 hashgrid", r"\bhash_\w+_kernel"),
     ("K1 triplane", r"triplane"),
     ("K2 march", r"march"),

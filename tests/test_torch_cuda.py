@@ -25,7 +25,7 @@ from dreamfusion_tpu_torch.ops.attention import (attention, attention_fwd_cuda,
 from dreamfusion_tpu_torch.ops.conv import (conv2d, conv2d_plain, conv_route,
                                             norm_padding)
 from dreamfusion_tpu_torch.ops.groupnorm import (group_norm, group_norm_plain,
-                                                 groups_for)
+                                                 group_norm_route, groups_for)
 from dreamfusion_tpu_torch.ops.triplane import (TriplaneSpec,
                                                 triplane_bwd_plain,
                                                 triplane_encode,
@@ -442,10 +442,14 @@ def test_attention_d512_kernel(dev, B, N, M, H):
     (2, 100, 100, 2, 64),     # ragged query and key tiles
     (2, 130, 77, 3, 64),      # 77-token cross-attention tail
     (1, 70, 70, 1, 512),      # the VAE mid-block's width
-    (1, 64, 40, 2, 512),
+    (1, 64, 40, 2, 512),      # a warpgroup's rows and a key box past N, M
     (1, 1000, 77, 1, 512),    # lse merged over 2 KV splits
+    (1, 300, 260, 2, 512),    # several (b, h), tiles of 128 on both sides
 ])
 def test_attention_kernel(dev, B, N, M, H, D):
+    """Forward and backward through the autograd wrapper: the backward is
+    attention_bwd_wgmma (wgmma + TMA scores pass and products), one launch
+    per call, at ragged tiles of both sides and several (b, h)."""
     g = _gen(dev, 5)
     bf = torch.bfloat16
     q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
@@ -455,7 +459,10 @@ def test_attention_kernel(dev, B, N, M, H, D):
     ref = attention_plain(q, k, v, D ** -0.5)
     _close_to(o, ref, 2e-2)
     do = torch.randn(o.shape, device=dev, generator=g).to(bf)
+    kernels.reset_launch_counts()
     grads = torch.autograd.grad(o, qkv, do)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_bwd_wgmma"] == 1
     qkv32 = [t.float().requires_grad_() for t in (q, k, v)]
     grads_ref = torch.autograd.grad(attention_plain(*qkv32, D ** -0.5), qkv32,
                                     do.float())
@@ -468,24 +475,63 @@ def test_attention_kernel(dev, B, N, M, H, D):
     (1, 33, 17, 128, 1e-6, True, torch.bfloat16),
     (2, 5, 7, 40, 1e-6, False, torch.float32),
     (1, 64, 64, 32, 1e-5, False, torch.bfloat16),
+    (2, 16, 16, 320, 1e-5, True, torch.bfloat16),     # Cg = 10: 4-group slab
+    (2, 8, 8, 960, 1e-6, False, torch.bfloat16),      # Cg = 30, no SiLU
+    (2, 32, 32, 1920, 1e-5, True, torch.bfloat16),    # Cg = 60; bwd streams
+    (1, 320, 320, 16, 1e-6, True, torch.bfloat16),    # cluster 16; streaming
+    (1, 200, 190, 24, 1e-6, True, torch.float32),     # fp32 Cg = 3: the same
+    (1, 513, 511, 32, 1e-6, True, torch.bfloat16),    # streaming, both ways
+    (1, 400, 400, 32, 1e-6, False, torch.float32),    # fp32 streaming
 ])
 def test_groupnorm_kernel(dev, B, H, W, C, eps, silu, dtype):
+    """Every K11 route (resident at cluster sizes 1-16, slabs of 1-8 groups
+    with Cg = 1, 2, 3, 4, 5, 10, 30; streaming at a reduced 512²-like
+    slab with ragged rows per CTA, at Cg = 60, at fp32) against the plain
+    version, forward and backward, each call one launch of the route
+    group_norm_route names."""
     g = _gen(dev, 6)
     G = groups_for(C)
     x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3 + 1).to(dtype)
     wt = torch.randn(C, device=dev, generator=g)
     bs = torch.randn(C, device=dev, generator=g)
+    sms = kernels.sm_count(dev)
+    fwd = group_norm_route(tuple(x.shape), dtype, False, G, sms)
+    bwd = group_norm_route(tuple(x.shape), dtype, True, G, sms)
     xr = x.clone().requires_grad_()
+    kernels.reset_launch_counts()
     y = group_norm(xr, wt, bs, G, eps, silu)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[fwd.name] == 1
     ref = group_norm_plain(x, wt, bs, G, eps, silu)
     rel = 1e-5 if dtype == torch.float32 else 1e-2
     _close_to(y, ref, rel)
     dy = torch.randn(y.shape, device=dev, generator=g).to(dtype)
     (dx,) = torch.autograd.grad(y, xr, dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[bwd.name] == 1
+    assert sum(kernels.LAUNCHES.values()) == 2
     x32 = x.float().requires_grad_()
     (dxp,) = torch.autograd.grad(group_norm_plain(x32, wt, bs, G, eps, silu),
                                  x32, dy.float())
     _close_to(dx, dxp, 1e-4 if dtype == torch.float32 else 2e-2)
+    # bf16 weights (the towers' own dtype) take the same kernels
+    y2 = group_norm(x, wt.to(torch.bfloat16), bs.to(torch.bfloat16), G, eps,
+                    silu)
+    ref2 = group_norm_plain(x, wt.to(torch.bfloat16).float(),
+                            bs.to(torch.bfloat16).float(), G, eps, silu)
+    _close_to(y2, ref2, rel)
+
+
+def test_groupnorm_routes_refuse(dev):
+    """A misaligned view and a group width no 16-byte slab fits raise."""
+    buf = torch.randn(8 * 8 * 128 + 1, device=dev).to(torch.bfloat16)
+    one = torch.ones(128, device=dev)
+    with pytest.raises(ValueError):
+        group_norm(buf[1:].view(1, 8, 8, 128), one, one, 32, 1e-6, True)
+    x = torch.randn(1, 8, 8, 12, device=dev).to(torch.bfloat16)
+    one = torch.ones(12, device=dev)
+    with pytest.raises(ValueError):
+        group_norm(x, one, one, groups_for(12), 1e-6, True)
 
 
 def _dgrad_plain(dy, w, x_shape, stride, pad):
@@ -644,8 +690,9 @@ def test_new_wrappers_count_their_launches(dev):
     h = group_norm(conv2d(x, w, None, 1, 1), one, one * 0, 8, 1e-6, True)
     q = h.reshape(1, 64, 1, 16).repeat(1, 1, 1, 4)
     attention(q, q, q).float().sum().backward()
-    for name in ("conv_fwd_mma", "conv_dgrad", "groupnorm_fwd",
-                 "groupnorm_bwd", "attention_fwd_wgmma", "attention_bwd"):
+    for name in ("conv_fwd_mma", "conv_dgrad", "groupnorm_fwd_resident",
+                 "groupnorm_bwd_resident", "attention_fwd_wgmma",
+                 "attention_bwd_wgmma"):
         assert kernels.LAUNCHES[name] == 1, name
 
 

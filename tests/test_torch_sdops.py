@@ -198,7 +198,9 @@ def test_dgrad_weight_is_packed_once_per_version(rng):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("C,eps,silu", [(64, 1e-5, True), (32, 1e-6, False),
-                                        (40, 1e-6, True)])
+                                        (40, 1e-6, True),
+                                        (320, 1e-5, True),    # Cg = 10
+                                        (96, 1e-6, False)])   # Cg = 3
 def test_group_norm_matches_group_norm_fused_and_its_vjp(rng, C, eps, silu):
     G = groups_for(C)
     x = _rand(rng, 2, 5, 6, C, scale=2.0) + 0.5
@@ -433,6 +435,118 @@ def test_sd_step_convs_and_attentions_take_their_routes():
                                                           128, 1)
 
 
+# K11's route, slab (channels; streaming: C) and cluster (CTAs; streaming:
+# 0) at each shape of chip_smoke.SD_GROUPNORMS on 132 SMs: forward, and
+# backward for the VAE's
+_GN_ROUTES = {
+    (2, 64, 64, 320): ("resident", 40, 16),
+    (2, 64, 64, 640): ("resident", 40, 8),
+    (2, 64, 64, 960): ("resident", 120, 16),
+    (2, 32, 32, 320): ("resident", 40, 16),
+    (2, 32, 32, 640): ("resident", 40, 8),
+    (2, 32, 32, 960): ("resident", 120, 16),
+    (2, 32, 32, 1280): ("resident", 40, 4),
+    (2, 32, 32, 1920): ("resident", 120, 8),
+    (2, 16, 16, 640): ("resident", 40, 4),
+    (2, 16, 16, 1280): ("resident", 40, 4),
+    (2, 16, 16, 1920): ("resident", 120, 4),
+    (2, 16, 16, 2560): ("resident", 80, 4),
+    (2, 8, 8, 1280): ("resident", 40, 1),
+    (2, 8, 8, 2560): ("resident", 80, 1),
+    (1, 512, 512, 128): ("stream", 128, 0, "stream", 128, 0),
+    (1, 256, 256, 128): ("stream", 128, 0, "stream", 128, 0),
+    (1, 256, 256, 256): ("stream", 256, 0, "stream", 256, 0),
+    (1, 128, 128, 256): ("resident", 16, 16, "stream", 256, 0),
+    (1, 128, 128, 512): ("stream", 512, 0, "stream", 512, 0),
+    (1, 64, 64, 512): ("resident", 16, 8, "resident", 16, 8),
+}
+
+
+def test_sd_step_groupnorms_take_their_routes():
+    """Every K11 call of one SD 2.1 step: chip_smoke.SD_GROUPNORMS holds
+    the UNet's 61 calls and the VAE encoder's 22 (the towers built on the
+    meta device have exactly those GroupNorm32 modules, channels and
+    epsilons), and each shape takes the route, slab and cluster of
+    _GN_ROUTES: every UNet norm is resident (clusters of 1-16 CTAs, slabs
+    of 4 groups at Cg = 10 and 30, 2 at Cg = 20 and 60, 1 at Cg = 40 and
+    80), the VAE's forward up to 8 MB too, its larger forwards and every
+    backward above 4 MiB stream; the routes' counts per run are what the
+    SD runs of chip_smoke.py check."""
+    from dreamfusion_tpu_torch.models.unet import (GroupNorm32,
+                                                   UNet2DCondition,
+                                                   UNetConfig)
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+
+    smoke = _load_root_script("chip_smoke")
+    with torch.device("meta"):
+        unet = UNet2DCondition(UNetConfig.sd21())
+        vae = AutoencoderKL(VAEConfig.sd())
+
+    def norms(mod):
+        return sorted((m.weight.shape[0], m.eps) for m in mod.modules()
+                      if isinstance(m, GroupNorm32))
+
+    def calls(rows):
+        return sorted((r[3], r[4]) for r in rows for _ in range(r[6]))
+
+    rows = smoke.SD_GROUPNORMS
+    unet_rows = [r for r in rows if not r[7]]
+    vae_rows = [r for r in rows if r[7]]
+    assert {r[0] for r in unet_rows} == {2} and {r[0] for r in vae_rows} \
+        == {1}
+    assert calls(unet_rows) == norms(unet) and len(norms(unet)) == 61
+    assert calls(vae_rows) == norms(vae.encoder) and len(vae_rows) == 7
+    assert sum(r[6] for r in vae_rows) == 22
+    assert {(r[0], r[1], r[2], r[3]) for r in rows} == set(_GN_ROUTES)
+    for B, H, W, C, eps, silu, per_step, bwd in rows:
+        want = _GN_ROUTES[B, H, W, C]
+        for back in ((False, True) if bwd else (False,)):
+            r = K11.group_norm_route((B, H, W, C), torch.bfloat16, back,
+                                     K11.groups_for(C), 132)
+            kind, slab, cluster = want[3:] if back else want[:3]
+            way = "bwd" if back else "fwd"
+            assert (r.name, r.slab, r.cluster) == (
+                f"groupnorm_{way}_{kind}", slab, cluster), (B, H, W, C, back)
+    assert smoke.sd_groupnorm_launches(torch, K11, 132, 25, 19) == {
+        "groupnorm_fwd_resident": 61 * 25 + 11 * 19,
+        "groupnorm_fwd_stream": 11 * 19, "groupnorm_bwd_resident": 10 * 19,
+        "groupnorm_bwd_stream": 12 * 19}
+    # shapes no kernel takes: no 16-byte run of whole groups, a dtype
+    with pytest.raises(ValueError):
+        K11.group_norm_route((1, 8, 8, 12), torch.bfloat16, False, 4)
+    with pytest.raises(ValueError):
+        K11.group_norm_route((1, 8, 8, 64), torch.float16, False, 32)
+
+
+def test_chip_smoke_groupnorm_rows_cover_every_route():
+    """chip_smoke.py holds every K11 route against its plain version: its
+    SD rows reach all four (resident and streaming, forward and backward),
+    with and without SiLU, at Cg = 10 and 30, and its kernels line lists
+    each of them, as the SD runs' required kernels."""
+    from dreamfusion_tpu_torch.ops.groupnorm import (group_norm_route,
+                                                     groups_for)
+
+    smoke = _load_root_script("chip_smoke")
+    routes = set()
+    for B, H, W, C, eps, silu, per_step, bwd in smoke.SD_GROUPNORMS:
+        for back in ((False, True) if bwd else (False,)):
+            routes.add(group_norm_route((B, H, W, C), torch.bfloat16, back,
+                                        groups_for(C)).name)
+    assert routes == {"groupnorm_fwd_resident", "groupnorm_fwd_stream",
+                      "groupnorm_bwd_resident", "groupnorm_bwd_stream"}
+    assert routes <= set(smoke.KERNELS) and routes <= set(smoke.SD_KERNELS)
+    assert all(smoke.KERNELS[r][:2] == (
+        "cuda", "dreamfusion_tpu_torch/csrc/groupnorm.cu") for r in routes)
+    assert {r[5] for r in smoke.SD_GROUPNORMS} == {True, False}
+    assert {r[5] for r in smoke.SD_GROUPNORMS if r[7]} == {True, False}
+    assert {10, 30} <= {r[3] // groups_for(r[3]) for r in smoke.SD_GROUPNORMS}
+    assert "attention_bwd_wgmma" in smoke.SD_KERNELS
+    assert not any(k in smoke.KERNELS for k in ("groupnorm_fwd",
+                                                "groupnorm_bwd",
+                                                "attention_bwd"))
+
+
 def test_vae_encoder_dgrads_take_their_routes():
     """Every input gradient of the SD VAE encoder (built on the meta
     device: shapes only) takes a Hopper route, none the mma.sync
@@ -639,4 +753,23 @@ def test_profile_groups_name_the_new_kernels():
           "__nv_bfloat16*, long, float)"]
     assert [group_of(n) for n in k5] == ["K5 clip_grad"] * 2
     assert [group_of(n) for n in k10] == ["K10 attention"] * len(k10)
+    k10_bwd = ["(anonymous namespace)::attn_bwd_dot_kernel(__nv_bfloat16 "
+               "const*, __nv_bfloat16 const*, float*, int, int, int, int)",
+               "(anonymous namespace)::attn_bwd_scores_kernel(CUtensorMap_st, "
+               "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+               "CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+               "int, int, int, int, float)",
+               "void (anonymous namespace)::attn_bwd_gemm_kernel<true>("
+               "(anonymous namespace)::GemmMaps, int, int, int, int, int, "
+               "float, float)"]
+    assert [group_of(n) for n in k10_bwd] == ["K10 attention"] * 3
+    # K11: the parent's Triton kernels and the CUDA routes group alike
+    k11 = ["fwd_stats", "fwd_apply", "bwd_sums", "bwd_apply",
+           "void (anonymous namespace)::gn_resident_kernel<__nv_bfloat16, "
+           "false>((anonymous namespace)::GnParams)",
+           "void (anonymous namespace)::gn_stream_kernel<__nv_bfloat16, "
+           "true>((anonymous namespace)::GnParams)",
+           "void (anonymous namespace)::gn_resident_kernel<float, true>("
+           "(anonymous namespace)::GnParams)"]
+    assert [group_of(n) for n in k11] == ["K11 groupnorm"] * len(k11)
     assert group_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matrix products"
