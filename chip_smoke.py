@@ -8,14 +8,17 @@
 2. Builds the port's CUDA kernels from dreamfusion_tpu_torch/csrc into
    build/torch_kernels (set-up time; one nvcc call, sm_90a).
 3. For each kernel, at the shapes of the flagship training step (K1-K4)
-   and of the SD 2.1 towers (K10-K12), compares the kernel with its plain
-   PyTorch version on the same inputs and times both, and the one PyTorch
-   call that computes the same function where there is one (CUDA events,
-   median after warm-up; fp32 convs against cuDNN with TF32 off).  K10's
-   and K12's forwards have routes chosen by shape (wgmma + TMA at d = 64
-   and d = 512; K12's wgmma route at stride 1 and 2, its narrow-input
-   wgmma route for the conv_ins and its narrow fp32 one), each checked and
-   timed under its own name at the shapes that take it.  K12's mma.sync
+   and of the SD 2.1 and SD 1.5 towers (K10-K12), compares the kernel with
+   its plain PyTorch version on the same inputs and times both, and the
+   one PyTorch call that computes the same function where there is one
+   (CUDA events, median after warm-up; fp32 convs against cuDNN with TF32
+   off).  K10's and K12's forwards have routes chosen by shape (wgmma +
+   TMA at the UNet's head dims, d = 64 for SD 2.1 and 40, 80, 160 for SD
+   1.5, each its own route, and at d = 512; K12's wgmma route at stride 1
+   and 2, its narrow-input wgmma route for the conv_ins and its narrow
+   fp32 one), each checked and timed under its own name at the shapes
+   that take it; K10 on JAX's branch (q·scale rounded to bf16 first on the
+   chunked one, as the plain version does) beside SDPA.  K12's mma.sync
    forward serves no shape of any path: the SD run must not launch it, and
    it is checked and timed at shapes of its own (``MMA_CONVS``), with 0
    launches in the kernels line.  K12's input gradient, likewise, at every
@@ -32,7 +35,8 @@
    beside SDPA's backward.  Each kernel's bound is the larger of its
    bytes (each input read once, each output written once) at 3.35 TB/s and its
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
-   core, 67 TFLOP/s fp32).
+   core, 67 TFLOP/s fp32; K10's softmax exponentials, one a logit, at
+   3.9e12/s, whichever of the two operation times is longer).
    K6 (hash encode forward with the jacobian and backward, the position
    gradient, tv and wd, forward and backward) runs at the flagship spec
    (L4C8 affine smoothstep, 2^19 rows per hashed level) at the step's
@@ -59,10 +63,15 @@
    requires finite losses and gradients, a launch of every kernel (every
    route of K10's and K12's forwards and of K12's dgrad: per VAE step 23
    wgmma, 1 narrow and 1 fp32 dgrads, ``SD_DGRADS``, and none on mma.sync;
-   K11's routes exactly as ``SD_GROUPNORMS`` counts them, K10's backward
-   once per VAE step)
+   K11's routes exactly as ``SD_GROUPNORMS`` counts them, K10's d = 64
+   route 32 times a step, its d = 512 forward and its backward once per
+   VAE step)
    and a non-zero triplane gradient in both phases; logs s/step and peak
-   memory.
+   memory.  Then, counters reset, the same run through SD 1.5 (``--sd_version
+   1.5``: CLIP-L, the 8-head UNet), with the same checks but K10's UNet
+   routes at d = 40, 80 and 160 (10, 10 and 12 a step, ``SD15_UNET_ATTNS``;
+   d = 64 never), and every K11 and K12 route launched exactly as often as
+   in the SD 2.1 run (the same shapes).
 6. Resets the counters and trains the DMTet stage from the stage-1
    checkpoint (--dmtet --init_with, oracle guidance, lr 0.002, tet grid
    128, 512² renders) for 100 steps (cut from thousands) with --save_mesh;
@@ -99,7 +108,8 @@
    every step, known-view DMTet steps, non-zero sdf and deform gradients,
    the face count in (0, max_tris); the init's seconds logged.
 9. Prints one JSON line with every kernel's route, source, the TPU function
-   it replaces, launches on its path (K1-K4 and K10-K12: the SD run; K7
+   it replaces, launches on its path (K1-K4 and K10-K12: the SD run, K10's
+   d = 40, 80 and 160 routes: the SD 1.5 run; K7
    and K8: the DMTet run; K6's encode: the SD -O run, its tv and wd: the
    grid stage 1; K5: the image stage 1; K9: the DMTet stage from its
    mesh), error, times and bound; the last line is the result object.  Any
@@ -136,6 +146,8 @@ GRID_FLAGSHIP = [("grid" if f == "triplane" else f) for f in FLAGSHIP] + [
     "--lambda_tv", "1e-4", "--lambda_wd", "1e-5"]
 SD_GRID_FLAGS = ["-O"] + [f for f in SD_FLAGS
                           if f not in ("--backbone", "triplane")]
+# SD 1.5 (CLIP-L, the 8-head UNet: head dims 40, 80, 160) on the triplane
+SD15_FLAGS = SD_FLAGS + ["--sd_version", "1.5"]
 DMTET_STEPS = 100
 DMTET_FLAGS = ["--guidance", "oracle", "--backbone", "triplane",
                "--oracle_scene", "two_sphere", "--seed", "0",
@@ -171,6 +183,9 @@ SDF_OPS_PER_PAIR = 180
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK = {"bf16": 989e12, "fp32": 67e12}    # dense tensor-core bf16, fp32
+# exponentials (MUFU ex2): 16 per SM per clock, ~3.9e12/s on the H100 SXM
+# (the FlashAttention-3 paper's figure); K10's softmax takes one a logit
+EXP_PER_S = 3.9e12
 
 # kernel → (route, source, the TPU function it replaces)
 KERNELS = {
@@ -190,6 +205,15 @@ KERNELS = {
                        "dreamfusion_tpu/ops/activation.py:9"),
     "attention_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
                             "dreamfusion_tpu/ops/attention.py:27"),
+    "attention_fwd_wgmma_d40": ("cuda",
+                                "dreamfusion_tpu_torch/csrc/attention.cu",
+                                "dreamfusion_tpu/ops/attention.py:27"),
+    "attention_fwd_wgmma_d80": ("cuda",
+                                "dreamfusion_tpu_torch/csrc/attention.cu",
+                                "dreamfusion_tpu/ops/attention.py:72"),
+    "attention_fwd_wgmma_d160": ("cuda",
+                                 "dreamfusion_tpu_torch/csrc/attention.cu",
+                                 "dreamfusion_tpu/ops/attention.py:72"),
     "attention_fwd_wgmma_d512": ("cuda",
                                  "dreamfusion_tpu_torch/csrc/attention.cu",
                                  "dreamfusion_tpu/ops/attention.py:27"),
@@ -339,7 +363,10 @@ SD_GROUPNORMS = [
     (1, 64, 64, 512, 1e-6, True, 9, True),          # level 3, mid, norm_out
     (1, 64, 64, 512, 1e-6, False, 1, True),         # mid-block attention
 ]
-# K10: q [B, N, h, d], k and v [B, M, h, d]; whether the backward is checked
+# K10: q [B, N, h, d], k and v [B, M, h, d]; whether the backward is
+# checked.  SD 2.1's UNet (d = 64) and the VAE mid-block (d = 512), then SD
+# 1.5's UNet (8 heads: d = 40, 80, 160); the 8² cross-attention (once a
+# step) has no row of its own.
 SD_ATTNS = [
     (2, 4096, 4096, 5, 64, False),    # UNet level-0 self-attention
     (1, 4096, 4096, 1, 512, True),    # VAE mid-block
@@ -347,7 +374,21 @@ SD_ATTNS = [
     (2, 1024, 1024, 10, 64, False),   # UNet level 1
     (2, 256, 256, 20, 64, False),     # UNet level 2
     (2, 64, 64, 20, 64, False),       # UNet level 3 and mid-block
+    (2, 4096, 4096, 8, 40, False),    # SD 1.5 64² self (JAX's chunked)
+    (2, 4096, 77, 8, 40, False),      # SD 1.5 64² cross
+    (2, 1024, 1024, 8, 80, False),    # SD 1.5 32²
+    (2, 1024, 77, 8, 80, False),
+    (2, 256, 256, 8, 160, False),     # SD 1.5 16²
+    (2, 256, 77, 8, 160, False),
+    (2, 64, 64, 8, 160, False),       # SD 1.5 8² mid-block self
 ]
+SD15_HEAD_DIMS = (40, 80, 160)
+# K10's UNet launches per SD step (one self- and one cross-attention per
+# transformer: 16 transformers), by route
+SD21_UNET_ATTNS = {"attention_fwd_wgmma": 32}
+SD15_UNET_ATTNS = {"attention_fwd_wgmma_d40": 10,    # 64²: 5 + 5
+                   "attention_fwd_wgmma_d80": 10,    # 32²: 5 + 5
+                   "attention_fwd_wgmma_d160": 12}   # 16²: 5 + 5, 8²: 1 + 1
 
 
 class SmokeFailure(Exception):
@@ -368,10 +409,12 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def bound(n_bytes: float, flops: float, kind: str):
-    """(least ms, "bytes" or "operations") for the card's peaks."""
+def bound(n_bytes: float, flops: float, kind: str, exps: float = 0.0):
+    """(least ms, "bytes" or "operations") for the card's peaks: the larger
+    of the bytes' time and the operations' (the products at the peak of
+    their type, the exponentials at EXP_PER_S, whichever is longer)."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / PEAK[kind] * 1e3
+    tf = max(flops / PEAK[kind], exps / EXP_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -426,15 +469,17 @@ def assert_close(name, got, want, atol, rtol) -> float:
 
 
 def record_kernel(results, name, err, ms, plain_ms, tol, n_bytes, flops,
-                  kind, library_ms, where=""):
+                  kind, library_ms, where="", exps=0.0):
     """Log one comparison; the first one of a kernel fills its JSON entry
     (the representative shape of the main path)."""
-    b_ms, b_by = bound(n_bytes, flops, kind)
+    b_ms, b_by = bound(n_bytes, flops, kind, exps)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+    by_exp = b_by == "operations" and exps / EXP_PER_S > flops / PEAK[kind]
     log(f"{name}{where}: max_abs_err {err:.3e} (tolerance {tol}); kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
-        f"{b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP)")
+        f"{b_ms:.4f} ms ({b_by}{' (exponentials)' if by_exp else ''}; "
+        f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP"
+        f"{f', {exps / 1e6:.0f}M exp' if exps else ''})")
     results.setdefault(name, {"max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "library_ms": library_ms})
@@ -851,15 +896,18 @@ def sd_kernel_phases(torch, results):
 
     # ---- K10 attention ---------------------------------------------------
     for B, N, M, h, d, bwd in SD_ATTNS:
-        where = f" q [{B},{N},{h},{d}] kv [{B},{M},{h},{d}]"
+        # JAX's branch: the chunked one rounds q·scale to bf16 first
+        rq = K10.chunked_branch(B, N, M, h)
+        where = (f" q [{B},{N},{h},{d}] kv [{B},{M},{h},{d}]"
+                 f"{' (chunked branch: bf16(q·scale))' if rq else ''}")
         q, k, v = randn(B, N, h, d), randn(B, M, h, d), randn(B, M, h, d)
         scale = d ** -0.5
         route = K10.attention_route(d)
         kernels.reset_launch_counts()
-        ok_, lse = K10.attention_fwd_cuda(q, k, v, scale)
+        ok_, lse = K10.attention_fwd_cuda(q, k, v, scale, rq)
         torch.cuda.synchronize()
         check(kernels.LAUNCHES[route] == 1, f"{where}: not on {route}")
-        op = K10.attention_plain(q, k, v, scale)
+        op = K10.attention_plain(q, k, v, scale, rq)
         # P rounded to bf16 before (plain) or after (kernel) normalising
         err = close(route, ok_, op, 2 ** -7, 1e-2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -867,10 +915,10 @@ def sd_kernel_phases(torch, results):
                         10)
         flops = 4 * B * h * N * M * d
         record_kernel(results, route, err, median_ms(
-            lambda: K10.attention_fwd_cuda(q, k, v, scale), 10),
-            median_ms(lambda: K10.attention_plain(q, k, v, scale), 5),
+            lambda: K10.attention_fwd_cuda(q, k, v, scale, rq), 10),
+            median_ms(lambda: K10.attention_plain(q, k, v, scale, rq), 5),
             "1 bf16 ulp + 1e-2 of max", nbytes(q, k, v, ok_, lse), flops,
-            "bf16", lib, where)
+            "bf16", lib, where, exps=B * h * N * M)
         if not bwd:
             continue
         do = randn(B, N, h, d)
@@ -900,7 +948,7 @@ def sd_kernel_phases(torch, results):
             lambda: K10.attention_bwd_cuda(q, k, v, ok_, lse, do, scale), 10),
             median_ms(plain_bwd, 3), "1 bf16 ulp + 3e-2 of max",
             nbytes(q, k, v, ok_, lse, do, *gk), 10 * B * h * N * M * d,
-            "bf16", lib, where)
+            "bf16", lib, where, exps=B * h * N * M)
 
     # ---- K11 GroupNorm (+ SiLU): every shape of the SD step, by route ----
     sms = kernels.sm_count(dev)
@@ -1407,9 +1455,12 @@ def stage1_path(port_main, kernels, flags, ws, what, required, group,
     return summary, launches
 
 
-def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
-    """SD 2.1 at full width (6 warm-up steps, 19 through the VAE), the
-    counters reset just before it → launches."""
+def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
+            unet_attns=SD21_UNET_ATTNS):
+    """SD at full width (6 warm-up steps, 19 through the VAE), the
+    counters reset just before it → launches.  `unet_attns`: the UNet's
+    K10 launches per step by route (SD 2.1's or SD 1.5's head dims); the
+    other UNet routes must not launch."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1444,13 +1495,17 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
     want = sd_groupnorm_launches(torch, K11, kernels.sm_count(
         torch.device("cuda")), n_steps, n_vae)
     want["attention_bwd_wgmma"] = n_vae
+    want["attention_fwd_wgmma_d512"] = n_vae      # the VAE mid-block
+    unet_routes = {**SD21_UNET_ATTNS, **SD15_UNET_ATTNS}
+    for name in unet_routes:
+        want[name] = unet_attns.get(name, 0) * n_steps
     for name, n in want.items():
         check(launches[name] == n,
               f"{what}: {launches[name]} launches of {name} in {n_steps} "
               f"steps ({n_vae} through the VAE), not {n}")
-    for name in SD_KERNELS + (("hashgrid_fwd", "hashgrid_bwd")
-                              if group == "grid" else
-                              ("triplane_fwd", "triplane_bwd")):
+    for name in tuple(k for k in SD_KERNELS if k not in unet_routes) + (
+            ("hashgrid_fwd", "hashgrid_bwd") if group == "grid" else
+            ("triplane_fwd", "triplane_bwd")):
         check(launches[name] > 0, f"the {what} path never launched {name}")
     for latent in (True, False):
         gm = [gr for gr, ph in zip(sd[f"{group}_grad_max"],
@@ -1458,6 +1513,25 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line):
         phase = "warm-up" if latent else "VAE"
         check(len(gm) > 0 and all(g > 0 for g in gm),
               f"{what}: zero {group} gradient in the {phase} phase: {gm}")
+    return launches
+
+
+def sd15_path(torch, port_main, kernels, ws, smi_line, sd21_launches):
+    """SD 1.5 at full width through the triplane, the counters reset just
+    before it → launches: K10 at d = 40, 80 and 160 exactly
+    (``SD15_UNET_ATTNS`` a step), and K11's and K12's routes launched
+    exactly as often as in the SD 2.1 run of the same flags (the same
+    shapes: only the attention's head dims and the text tower differ)."""
+    launches = sd_path(torch, port_main, kernels, SD15_FLAGS, ws, "SD 1.5",
+                       "triplane", smi_line, SD15_UNET_ATTNS)
+    same = [k for k in launches if k.startswith(("conv_", "groupnorm_"))]
+    diff = {k: (launches[k], sd21_launches[k]) for k in same
+            if launches[k] != sd21_launches[k]}
+    check(not diff, f"SD 1.5: K11/K12 launches differ from SD 2.1's "
+          f"(SD 1.5, SD 2.1): {diff}")
+    log(f"SD 1.5: K11 and K12 launched exactly as in SD 2.1 "
+        f"({sum(launches[k] for k in same)} launches over {len(same)} "
+        f"routes)")
     return launches
 
 
@@ -1628,6 +1702,7 @@ def image_dmtet_path(torch, port_main, kernels, flags, ws, smi_line):
 
 
 def run() -> dict:
+    t_run = time.time()
     try:
         import torch
     except ImportError as e:
@@ -1652,9 +1727,14 @@ def run() -> dict:
     kernels.cuda_lib()
     log(f"CUDA kernels built and loaded in {time.time() - t0:.1f} s "
         f"(build/torch_kernels)")
+    fn = spill = None               # ptxas -v: one line per kernel
     for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            log(f"ptxas: {fn}: {spill}; {line.split(':', 1)[-1].strip()}")
     from dreamfusion_tpu_torch.native import meshops
     t0 = time.time()
     meshops.build()
@@ -1681,6 +1761,9 @@ def run() -> dict:
     sd_launches = sd_path(torch, port_main, kernels, SD_FLAGS,
                           os.path.join(build, "chip_smoke_sd_ws"), "SD",
                           "triplane", smi_line)
+    sd15_launches = sd15_path(torch, port_main, kernels,
+                              os.path.join(build, "chip_smoke_sd15_ws"),
+                              smi_line, sd_launches)
     dm, dm_launches = dmtet_path(
         torch, port_main, kernels, DMTET_FLAGS + [
             "--init_with", os.path.join(ws, "checkpoints")], DMTET_STEPS,
@@ -1717,6 +1800,8 @@ def run() -> dict:
         os.path.join(build, "chip_smoke_image_dmtet_ws"), smi_line)
 
     def launches_of(name):
+        if name in SD15_UNET_ATTNS:
+            return sd15_launches[name]
         if name == "clip_grad_bwd":
             return img_launches[name]
         if name == "signed_distance":
@@ -1729,6 +1814,8 @@ def run() -> dict:
             return dm_launches[name]
         return sd_launches[name]
 
+    log(f"every phase passed in {time.time() - t_run:.1f} s (the build "
+        f"included)")
     line = {"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches_of(name), **results[name]}

@@ -1,8 +1,11 @@
 """K10's and K12's forwards, K12's dgrad, K10's backward and K11 (forward,
-and the VAE's backward) at the SD 2.1 step's shapes, on one GPU.
+and the VAE's backward) at the SD 2.1 (or SD 1.5) step's shapes, on one
+GPU.
 
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --tag change \\
         --outputs change.pt
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only attn \\
+        --sd_version 1.5
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dgrad
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only gn
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
@@ -15,8 +18,13 @@ and the VAE's backward) at the SD 2.1 step's shapes, on one GPU.
 The shapes are ``chip_smoke.py``'s ``SD_CONVS``, ``SD_ATTNS`` and
 ``SD_GROUPNORMS`` (the
 ``chip_smoke.py`` beside this package, whatever ``--root`` is), so that one
-list serves the check and the timing.  For the port found under ``--root``
-(so that two checkouts can be compared with one script) it times, per
+list serves the check and the timing; ``--sd_version 1.5`` takes SD 1.5's
+attention rows (d = 40, 80, 160, and the VAE's d = 512) in place of SD
+2.1's (d = 64 and 512), its convs and norms being SD 2.1's.  Each K10
+forward rounds q·scale first where JAX's dispatch takes its chunked
+branch (``ops/attention.py::chunked_branch``, in a checkout that has it).
+For the port found under ``--root`` (so that two checkouts can be
+compared with one script) it times, per
 shape: the wrapper's time (``ms``: ``chip_smoke.median_ms``, CUDA events,
 which include the host's enqueue gap where that is longer than the
 kernel), the kernels' own device time (``kernel_ms``: the sum of the
@@ -179,6 +187,9 @@ def main(argv=None) -> None:
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, or K11 through every route "
                     "it could take")
+    ap.add_argument("--sd_version", default="2.1",
+                    help="whose attention rows: 2.x (d = 64) or 1.x "
+                    "(d = 40, 80, 160); the VAE's d = 512 in both")
     ap.add_argument("--outputs", default=None,
                     help="save every forward's output to this file")
     ap.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"),
@@ -332,16 +343,22 @@ def main(argv=None) -> None:
     # library backward calls run autograd: timed by events and the
     # profiler, not captured in a graph
     autograd_libs = set()
+    unet_dims = ((64,) if args.sd_version.startswith("2")
+                 else smoke.SD15_HEAD_DIMS)
+    branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes")
             else smoke.SD_ATTNS):
+        if d not in unet_dims + (512,):
+            continue
         q, k, v = (torch.randn(B, n, h, d, device=dev, generator=g).to(
             torch.bfloat16) for n in (N, M, M))
+        rq = (branch(B, N, M, h),) if branch else ()
         cases.append(({"kernel": "K10 attention_fwd",
                        "shape": [B, N, M, h, d],
                        "gflop": 4 * B * h * N * M * d / 1e9},
                       functools.partial(K10.attention_fwd_cuda, q, k, v,
-                                        d ** -0.5),
+                                        d ** -0.5, *rq),
                       functools.partial(F.scaled_dot_product_attention,
                                         *(t.transpose(1, 2)
                                           for t in (q, k, v)))))

@@ -10,28 +10,40 @@
 //
 // Bound on the card: operations for the UNet's self-attention (N = M = 4096,
 // d = 64: 2*2*N*M*d*B*h = 43 GFLOP against 21 MB of q, k, v, o) and the VAE
-// mid-block (d = 512); memory only for the 77-token cross-attention.  So the
+// mid-block (d = 512); the softmax's exponentials (B*h*N*M of them, 16 per
+// SM per clock) for SD 1.5's d = 40 (268M: >= 0.069 ms against the
+// products' 0.043); memory only for the 77-token cross-attention.  So the
 // forward is flash-style: nothing of size N x M touches device memory.  A
 // block takes BR query rows of one (b, h) and walks the KV tiles of BC rows,
 // with the running max, sum and correction in fp32 and P rounded to bf16
 // before P V as in the JAX versions; KV rows past M (M = 77) are zero-filled
 // and their logits set to -inf.  Two layouts:
-//  - d = 64 (the UNet; attention_fwd_wgmma): FlashAttention-3's on Hopper.
-//    The FlashAttention-2 layout on mma.sync it replaces ran at ~150
-//    TFLOP/s, half of SDPA's, waiting on cp.async and __syncthreads before
-//    every KV tile.  Here Q, K and V come by TMA from 4-D maps over
-//    [B, tokens, h, 64] (d = 64 bf16 is one 128-byte swizzled row; rows
-//    past N or M are zero-filled), K and V through a 3-stage ring with
-//    full/empty mbarriers fed by one producer thread.  BR = BC = 128: two
-//    consumer warpgroups (setmaxnreg gives them the producer's registers)
-//    each own 64 query rows: S = Q K^T by wgmma m64n128k16 from shared
-//    memory, the online softmax on the accumulator fragments in fp32
-//    (base-2, the scale folded into one FFMA), P rounded to bf16 in
-//    registers as wgmma's register A operand for O += P V (m64n64k16, V
-//    read as a transposed, MN-major B operand).  At d = 64 the softmax's
-//    exponentials cost as much as the products, so they overlap: the two
-//    warpgroups take turns to issue products (pingpong), and each issues
-//    the next tile's S with this tile's P V before its next softmax.
+//  - the UNet's head dims, d = 64 (SD 2.x; attention_fwd_wgmma) and 40, 80,
+//    160 (SD 1.x's 8 heads over 320, 640 and 1280 channels;
+//    attention_fwd_wgmma_d40, _d80, _d160): FlashAttention-3's layout on
+//    Hopper, one kernel parametrised on d.  The FlashAttention-2 layout on
+//    mma.sync it replaces ran at ~150 TFLOP/s, half of SDPA's, waiting on
+//    cp.async and __syncthreads before every KV tile.  Here Q, K and V come
+//    by TMA from 4-D maps over [B, tokens, h, d] in 64-column chunks (one
+//    128-byte swizzled row each; columns past d and rows past N or M are
+//    zero-filled), K and V through a 3-stage ring with full/empty mbarriers
+//    fed by one producer thread.  BR = 128: two consumer warpgroups
+//    (setmaxnreg gives them the producer's registers) each own 64 query
+//    rows: S = Q K^T by wgmma m64nBCk16 from shared memory over ceil(d / 16)
+//    k-steps (48 columns at d = 40, the last 8 zero), the online softmax on
+//    the accumulator fragments in fp32 (base-2, the scale folded into one
+//    FFMA), P rounded to bf16 in registers as wgmma's register A operand
+//    for O += P V (m64ndk16, V read as a transposed, MN-major B operand
+//    whose 64-column chunks are the descriptor's LBO apart).  BC = 128 keys
+//    a tile at d <= 64, 64 above (O is d / 2 fp32 registers a thread).  The
+//    softmax's exponentials cost as much as the products at d = 64, more at
+//    d = 40, so they overlap: the two warpgroups take turns to issue
+//    products (pingpong), and each issues the next tile's S with this
+//    tile's P V before its next softmax.  Where JAX takes its chunked
+//    branch with a scale that is not a power of two (d = 40's 64²
+//    self-attention), the logits are bf16(q * scale) k^T as in
+//    chunked_attention :42: the consumers round the resident Q tile once in
+//    shared memory before the first S.
 //  - d = 512 (the VAE mid-block; attention_fwd_wgmma_d512).  The mma.sync
 //    layout it replaces ran at ~82 TFLOP/s (8% of peak): 32-row blocks, S
 //    through shared memory.  Here a block owns BR = 64 query rows; its
@@ -83,29 +95,52 @@ using bf16 = __nv_bfloat16;
 // forward
 // ---------------------------------------------------------------------------
 
-// d = 64 (every UNet attention): FlashAttention-3's layout on wgmma (see the
-// note above).
+// The UNet's head dims (64 in SD 2.x; 40, 80 and 160 in SD 1.x):
+// FlashAttention-3's layout on wgmma (see the note above), one kernel
+// parametrised on D.  A row of Q, K or V is ceil(D / 64) chunks of 64
+// columns (one 128-byte swizzled row each, TMA's zero fill past D), so
+// every operand has the d = 64 kernel's descriptor form: S = Q K^T takes
+// ceil(D / 16) k16 steps (the zero columns add nothing), and O += P V has
+// N = D, V's chunks BC * 128 bytes apart (the descriptor's LBO).
 namespace fa {
-constexpr int BR = 128, BC = 128, D = 64, STAGES = 3, kThreads = 384;
-constexpr int TILE = 128 * D * 2;              // Q, K or V tile: 16 KB
-constexpr size_t kSmem = 1024 + (size_t)(1 + 2 * STAGES) * TILE +
-                         (1 + 2 * STAGES) * sizeof(uint64_t);
+template <int D_>
+struct Cfg {
+  static constexpr int D = D_;
+  static constexpr int CH = (D + 63) / 64;     // 64-column chunks of a row
+  static constexpr int KS = (D + 15) / 16;     // k16 steps of S = Q K^T
+  // keys per KV tile: 128 at D <= 64; 64 above, which keeps O (D / 2
+  // registers a thread), S and the two P buffers within the consumers'
+  // registers
+  static constexpr int BR = 128, BC = D <= 64 ? 128 : 64, STAGES = 3;
+  static constexpr int kThreads = 384;
+  static constexpr int QCH = BR * 128, KCH = BC * 128;   // bytes of a chunk
+  static constexpr size_t kSmem =
+      1024 + (size_t)CH * (QCH + 2 * STAGES * KCH) +
+      (1 + 2 * STAGES) * sizeof(uint64_t);
+};
 }  // namespace fa
 
-__global__ void __launch_bounds__(fa::kThreads, 1)
+// With `prescale` (JAX's chunked branch, chunked_attention :42), each
+// consumer warpgroup first rounds its rows of the resident Q to
+// bf16(q * scale) in shared memory, and the logits take no further scale.
+template <int D>
+__global__ void __launch_bounds__(fa::Cfg<D>::kThreads, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       bf16* __restrict__ o, float* __restrict__ lse, int N,
-                      int M, int H, float scale) {
-  using namespace fa;
+                      int M, int H, float scale, int prescale) {
+  using C = fa::Cfg<D>;
+  constexpr int BR = C::BR, BC = C::BC, CH = C::CH, KS = C::KS;
+  constexpr int STAGES = C::STAGES, QCH = C::QCH, KCH = C::KCH;
+  constexpr int NS = BC / 2, NP = BC / 16, NO = D / 2;   // S, P, O registers
   extern __shared__ unsigned char smem_buf[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
-  bf16* sQ = reinterpret_cast<bf16*>(base);
-  bf16* sK = sQ + BR * D;                  // [STAGES][BC][D]
-  bf16* sV = sK + STAGES * BC * D;         // [STAGES][BC][D]
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + STAGES * BC * D);
+  unsigned char* sQ = base;                      // [CH][BR rows][64]
+  unsigned char* sK = sQ + CH * QCH;             // [STAGES][CH][BC keys][64]
+  unsigned char* sV = sK + STAGES * CH * KCH;    // [STAGES][CH][BC keys][64]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + STAGES * CH * KCH);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + STAGES;
 
@@ -128,14 +163,19 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: Q once, then K and V tiles through the ring ----
     hop::regs_dec<40>();
     if (tid == 0) {
-      hop::mbar_expect_tx(qbar, TILE);
-      hop::tma_load_4d(sQ, &qmap, qbar, 0, hh, i0, b);
+      hop::mbar_expect_tx(qbar, CH * QCH);
+      for (int c = 0; c < CH; ++c)
+        hop::tma_load_4d(sQ + c * QCH, &qmap, qbar, 64 * c, hh, i0, b);
       for (int jt = 0; jt < n_tiles; ++jt) {
         const int s = jt % STAGES;
         hop::mbar_wait(&empty[s], ((jt / STAGES) & 1) ^ 1);
-        hop::mbar_expect_tx(&full[s], 2 * TILE);
-        hop::tma_load_4d(sK + s * BC * D, &kmap, &full[s], 0, hh, jt * BC, b);
-        hop::tma_load_4d(sV + s * BC * D, &vmap, &full[s], 0, hh, jt * BC, b);
+        hop::mbar_expect_tx(&full[s], 2 * CH * KCH);
+        for (int c = 0; c < CH; ++c) {
+          hop::tma_load_4d(sK + (s * CH + c) * KCH, &kmap, &full[s], 64 * c,
+                           hh, jt * BC, b);
+          hop::tma_load_4d(sV + (s * CH + c) * KCH, &vmap, &full[s], 64 * c,
+                           hh, jt * BC, b);
+        }
       }
     }
     return;
@@ -153,70 +193,90 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto pass_turn = [&]() { hop::bar_arrive(2 - cw, 256); };
   if (cw == 1) pass_turn();
   hop::mbar_wait(qbar, 0);
-  const uint64_t dq = hop::desc_sw128(sQ + cw * 64 * D);
+  if (prescale) {
+    // q * scale in fp32, rounded to bf16 (zero-filled columns stay 0);
+    // the generic proxy's writes, fenced, before wgmma reads them
+    for (int c = 0; c < CH; ++c) {
+      uint4* rows = reinterpret_cast<uint4*>(sQ + c * QCH + cw * 64 * 128);
+      for (int i = tid % 128; i < 64 * 128 / 16; i += 128) {
+        uint4 u = rows[i];
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          h2[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
+        rows[i] = u;
+      }
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(3 + cw, 128);
+  }
   // logits in log2 units: exp(s * scale - m) = 2^(s * sl2 - m * log2 e)
-  const float sl2 = scale * 1.4426950408889634f;
+  const float sl2 = (prescale ? 1.f : scale) * 1.4426950408889634f;
 
-  float oacc[32];
+  float oacc[NO];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
-  float sc[64];              // S of the tile being softmaxed
-  uint32_t pa[8][4], pb[8][4];   // P, double-buffered: one is in flight
-  uint64_t dqs[D / 16];      // Q's descriptor per k16 step
+  float sc[NS];               // S of the tile being softmaxed
+  uint32_t pa[NP][4], pb[NP][4];   // P, double-buffered: one is in flight
+  uint64_t dqs[KS];           // Q's descriptor per k16 step: +32 bytes
 #pragma unroll
-  for (int k = 0; k < D / 16; ++k) dqs[k] = dq + 2 * k;   // +32 bytes
+  for (int k = 0; k < KS; ++k)
+    dqs[k] = hop::desc_sw128(sQ + (k / 4) * QCH + cw * 64 * 128) +
+             2 * (k % 4);
 
   // Every descriptor of a stage is formed before the stage opens, and the
   // accumulators are zeroed and fenced there: nothing but wgmmas runs
   // between a stage's wgmma.fence and its wait (ptxas would serialize).
-  // S of tile jt: Q K^T (64 x 128 per warpgroup) into sc.
+  // S of tile jt: Q K^T (64 x BC per warpgroup) into sc.
   auto s_descs = [&](int jt, uint64_t* d) {
-    const uint64_t dk = hop::desc_sw128(sK + (jt % STAGES) * BC * D);
+    const unsigned char* tK = sK + (jt % STAGES) * CH * KCH;
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k) d[k] = dk + 2 * k;
+    for (int k = 0; k < KS; ++k)
+      d[k] = hop::desc_sw128(tK + (k / 4) * KCH) + 2 * (k % 4);
   };
   auto mma_s = [&](const uint64_t* d) {
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      hop::wgmma_m64n128k16_ss(sc, dqs[k], d[k]);
+    for (int k = 0; k < KS; ++k) hop::wgmma_ss<BC>(sc, dqs[k], d[k]);
     hop::wgmma_commit();
   };
   // P V of tile jt into oacc: V [keys][d] is the transposed (MN-major) B
-  // operand, 16 keys (2048 bytes) per k16 step.
+  // operand, 16 keys (2048 bytes) per k16 step, its 64-column chunks KCH
+  // bytes apart.
   auto v_descs = [&](int jt, uint64_t* d) {
-    const bf16* tV = sV + (jt % STAGES) * BC * D;
+    const unsigned char* tV = sV + (jt % STAGES) * CH * KCH;
 #pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk)
-      d[kk] = hop::desc_sw128(tV + kk * 16 * D);
+    for (int kk = 0; kk < NP; ++kk)
+      d[kk] = hop::desc_sw128(tV + kk * 2048, CH > 1 ? KCH : 16);
   };
-  auto mma_pv = [&](const uint64_t* d, uint32_t (&p)[8][4]) {
+  auto mma_pv = [&](const uint64_t* d, uint32_t (&p)[NP][4]) {
 #pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk)
-      hop::wgmma_m64n64k16_rs_tb(oacc, p[kk], d[kk]);
+    for (int kk = 0; kk < NP; ++kk) hop::wgmma_rs_tb<D>(oacc, p[kk], d[kk]);
     hop::wgmma_commit();
   };
   auto zero_s = [&](int jt) {
     hop::mbar_wait(&full[jt % STAGES], (jt / STAGES) & 1);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-    hop::fence_regs<64>(sc);
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+    hop::fence_regs<NS>(sc);
   };
   // online softmax of tile jt's S on rows g (e = 0, 1) and g + 8 (e = 2, 3)
-  // of the warp's 16 (a row's 128 values over the 4 lanes of a quad):
+  // of the warp's 16 (a row's BC values over the 4 lanes of a quad):
   // the new maxima, the correction of the old sums into corr, P into pn
   auto softmax = [&](int jt, float* corr, uint32_t (*pn)[4]) {
     const int j0 = jt * BC;
     if (j0 + BC > M) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BC / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (j0 + 8 * j + 2 * qd + (e % 2) >= M) sc[4 * j + e] = -INFINITY;
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BC / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
     float msc[2], rsum[2] = {0.f, 0.f};
@@ -230,7 +290,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       msc[r] = -m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BC / 8; ++j) {
       float pv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -249,7 +309,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   auto rescale = [&](const float* corr) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       oacc[4 * j] *= corr[0];
       oacc[4 * j + 1] *= corr[0];
       oacc[4 * j + 2] *= corr[1];
@@ -263,7 +323,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // last tile is peeled off, so that neither a copy nor a branch makes the
   // compiler touch the registers of a wgmma in flight.
   float corr[2];
-  uint64_t ds[D / 16], dv[BC / 16];
+  uint64_t ds[KS], dv[NP];
   s_descs(0, ds);
   zero_s(0);
   my_turn();
@@ -271,38 +331,38 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   mma_s(ds);
   pass_turn();
   hop::wgmma_wait<0>();
-  hop::fence_regs<64>(sc);
+  hop::fence_regs<NS>(sc);
   softmax(0, corr, pa);
-  auto step = [&](int jt, uint32_t (&pc)[8][4], uint32_t (&pn)[8][4]) {
+  auto step = [&](int jt, uint32_t (&pc)[NP][4], uint32_t (&pn)[NP][4]) {
     s_descs(jt + 1, ds);
     v_descs(jt, dv);
     zero_s(jt + 1);
-    hop::fence_regs<32>(oacc);
-    hop::fence_regs<32>(&pc[0][0]);
+    hop::fence_regs<NO>(oacc);
+    hop::fence_regs<4 * NP>(&pc[0][0]);
     my_turn();
     hop::wgmma_fence();
     mma_s(ds);
     mma_pv(dv, pc);
     pass_turn();
     hop::wgmma_wait<1>();            // S of tile jt + 1 (P V still running)
-    hop::fence_regs<64>(sc);
+    hop::fence_regs<NS>(sc);
     softmax(jt + 1, corr, pn);
     hop::wgmma_wait<0>();            // P V of tile jt: its stage is free
-    hop::fence_regs<32>(oacc);
-    hop::fence_regs<32>(&pc[0][0]);
+    hop::fence_regs<NO>(oacc);
+    hop::fence_regs<4 * NP>(&pc[0][0]);
     hop::mbar_arrive(&empty[jt % STAGES]);
     rescale(corr);
   };
-  auto last = [&](uint32_t (&pc)[8][4]) {
+  auto last = [&](uint32_t (&pc)[NP][4]) {
     v_descs(n_tiles - 1, dv);
-    hop::fence_regs<32>(oacc);
-    hop::fence_regs<32>(&pc[0][0]);
+    hop::fence_regs<NO>(oacc);
+    hop::fence_regs<4 * NP>(&pc[0][0]);
     my_turn();
     hop::wgmma_fence();
     mma_pv(dv, pc);
     pass_turn();
     hop::wgmma_wait<0>();
-    hop::fence_regs<32>(oacc);
+    hop::fence_regs<NO>(oacc);
     hop::mbar_arrive(&empty[(n_tiles - 1) % STAGES]);
   };
   int jt = 0;
@@ -324,7 +384,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float inv = 1.f / l_r[r];
     bf16* orow = o + (((int64_t)b * N + row) * H + hh) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * qd) =
           __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv,
                                 oacc[4 * j + 2 * r + 1] * inv);
@@ -902,13 +962,15 @@ attn_bwd_gemm_kernel(const __grid_constant__ GemmMaps maps, int Mrows,
 
 }  // namespace
 
-// The same at d = 64 on wgmma, q [B, N, h, 64], k and v [B, M, h, 64],
-// each read through a TMA map over [B, tokens, h, 64].
-extern "C" int attention_fwd_wgmma(const void* q, const void* k,
-                                   const void* v, void* o, float* lse, int B,
-                                   int N, int M, int H, float scale,
-                                   cudaStream_t stream) {
-  using namespace fa;
+// The UNet's forward at head dim D on wgmma, q [B, N, h, D], k and v
+// [B, M, h, D], each read through a TMA map over [B, tokens, h, D] in
+// boxes of 64 columns (D * 2 bytes is a multiple of 16: every D here).
+template <int D>
+static int attn_fwd_wgmma_launch(const void* q, const void* k, const void* v,
+                                 void* o, float* lse, int B, int N, int M,
+                                 int H, int prescale, float scale,
+                                 cudaStream_t stream) {
+  using C = fa::Cfg<D>;
   if (N == 0 || B * H == 0) return (int)cudaGetLastError();
   if (M == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
@@ -919,19 +981,36 @@ extern "C" int attention_fwd_wgmma(const void* q, const void* k,
                                 (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                    tokens * H * D * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)D, 1, 128, 1};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)(i == 0 ? C::BR : C::BC),
+                               1};
     if (!hop::encode_bf16_map(&maps[i], ptrs[i], 4, dims, strides, box))
       return (int)cudaErrorInvalidValue;
   }
   static bool smem_set[hop::kMaxDevices] = {};
   const cudaError_t err =
-      hop::allow_smem(attn_fwd_wgmma_kernel, (int)kSmem, smem_set);
+      hop::allow_smem(attn_fwd_wgmma_kernel<D>, (int)C::kSmem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + BR - 1) / BR, B * H);
-  attn_fwd_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, N, M, H, scale);
+  dim3 grid((N + C::BR - 1) / C::BR, B * H);
+  attn_fwd_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, N, M, H, scale,
+      prescale);
   return (int)cudaGetLastError();
 }
+
+// One entry point per head dim (each its own launch counter); prescale:
+// logits of bf16(q * scale) (JAX's chunked branch) rather than scale * q k.
+#define ATTN_FWD_WGMMA(name, D)                                             \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o, \
+                      float* lse, int B, int N, int M, int H, int prescale, \
+                      float scale, cudaStream_t stream) {                   \
+    return attn_fwd_wgmma_launch<D>(q, k, v, o, lse, B, N, M, H, prescale,  \
+                                    scale, stream);                         \
+  }
+ATTN_FWD_WGMMA(attention_fwd_wgmma, 64)
+ATTN_FWD_WGMMA(attention_fwd_wgmma_d40, 40)
+ATTN_FWD_WGMMA(attention_fwd_wgmma_d80, 80)
+ATTN_FWD_WGMMA(attention_fwd_wgmma_d160, 160)
+#undef ATTN_FWD_WGMMA
 
 // The same at d = 512 on wgmma (the VAE mid-block), the KV range cut into
 // `splits` (1 <= splits <= the KV tiles of 64): with splits > 1, ows fp32

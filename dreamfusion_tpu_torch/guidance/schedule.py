@@ -39,4 +39,4 @@ def make_schedule(name: str, T: int = 1000) -> NoiseSchedule:
     if name in ("scaled_linear", "sd", "zero123"):
         return NoiseSchedule.scaled_linear(T=T)
     raise NotImplementedError(
-        f"schedule {name!r} is not ported (ROADMAP queue 1, item 4)")
+        f"schedule {name!r} is not ported (ROADMAP queue 1: DeepFloyd-IF)")

@@ -1,4 +1,7 @@
-"""Stable Diffusion SDS guidance (``dreamfusion_tpu/guidance/sd.py``).
+"""Stable Diffusion SDS guidance (``dreamfusion_tpu/guidance/sd.py``), SD
+2.x (OpenCLIP-H text tower, 1024-wide context, head dim 64) or SD 1.x
+(CLIP-L, 768-wide context, 8 heads: head dims 40, 80 and 160), chosen by
+``SDConfig.sd_version`` as in JAX.
 
 The frozen UNet, VAE and CLIP text towers are ``nn.Module``s holding their
 own weights (bf16 at SD width).  Every random number is an argument: the
@@ -39,17 +42,17 @@ class SDConfig:
     def unet_config(self) -> UNetConfig:
         if self.tiny:
             return UNetConfig.tiny()
-        if not self.sd_version.startswith("2"):
-            raise NotImplementedError(
-                "SD 1.x (head dim 40) is not ported (ROADMAP queue 1, "
-                "item 4)")
-        return UNetConfig.sd21()
+        return (UNetConfig.sd21() if self.sd_version.startswith("2")
+                else UNetConfig.sd15())
 
     def vae_config(self) -> VAEConfig:
         return VAEConfig.tiny() if self.tiny else VAEConfig.sd()
 
     def text_config(self) -> CLIPTextConfig:
-        return CLIPTextConfig.tiny() if self.tiny else CLIPTextConfig.sd21()
+        if self.tiny:
+            return CLIPTextConfig.tiny()
+        return (CLIPTextConfig.sd21() if self.sd_version.startswith("2")
+                else CLIPTextConfig.sd15())
 
     @property
     def min_step(self) -> int:

@@ -2,7 +2,7 @@
 :66-105): the angle between a novel view and the reference views, and the
 SDS gradient scale it sets.  The image oracle (``guidance/oracle.py``)
 weights its SDS with it; the zero123 tower itself is not ported yet
-(ROADMAP queue 1, item 7)."""
+(ROADMAP queue 1: Zero-1-to-3 and the file-based image mode)."""
 
 from __future__ import annotations
 

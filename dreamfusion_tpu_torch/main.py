@@ -3,6 +3,9 @@
     python -m dreamfusion_tpu_torch.main --text "a hamburger" -O \\
         --workspace ws                 # SD 2.1 guidance, hash-grid backbone
     python -m dreamfusion_tpu_torch.main --text "a hamburger" \\
+        --sd_version 1.5 --backbone triplane --seed 0 \\
+        --lambda_3d_normal_smooth 0 --workspace ws    # SD 1.5 guidance
+    python -m dreamfusion_tpu_torch.main --text "a hamburger" \\
         --backbone triplane --seed 0 --lambda_3d_normal_smooth 0 \\
         --iters 10000 --workspace ws                  # triplane backbone
     python -m dreamfusion_tpu_torch.main --guidance oracle \\
@@ -32,8 +35,9 @@ default view (``training/image_data.py``), the prior the image oracle
 (``guidance/oracle.py``), and every ``known_view_interval``-th step a
 known-view step.  The run goes on the
 GPU; ``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
-guidance runs its towers at full SD 2.1 width with random weights drawn
-from the seed (no pretrained weights ship with the repository);
+guidance runs its towers at the full width of ``--sd_version`` (2.1 by
+default; 1.5: CLIP-L and the 8-head UNet) with random weights drawn from
+the seed (no pretrained weights ship with the repository);
 ``--tiny_guidance`` uses the test-size towers.
 
 A run resumes from ``--ckpt`` (default ``latest``; ``scratch`` starts
@@ -47,7 +51,8 @@ and, with ``--save_mesh``, ``mesh/mesh.obj`` with its albedo texture.
 Under the oracles it also logs the analytic-scene PSNR of the EMA weights at
 the start and the end, and under ``--image`` (stage 1) the known-view masked
 PSNR.  Flags of parts not ported yet raise
-NotImplementedError naming the ROADMAP item.
+NotImplementedError naming the ROADMAP queue 1 item (by its title) that
+ports them.
 """
 
 from __future__ import annotations
@@ -76,9 +81,10 @@ TEX_RES = 1024        # the exported albedo texture's side
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "image_config": str, "exp_start_iter": int,
                        "exp_end_iter": int}
-_NOT_PORTED = {"-O2": "queue 1, item 5",
-               "--IF": "queue 1, item 7", "--gui": "queue 1, item 8",
-               "--profile": "queue 1, item 8"}
+# flag → the title of its ROADMAP queue 1 item
+_NOT_PORTED = {"-O2": "The vanilla backbone and the small field options",
+               "--IF": "DeepFloyd-IF", "--gui": "Tooling",
+               "--profile": "Tooling"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,7 +121,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag.lstrip("-")):
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
+                f"{flag} is not ported yet (ROADMAP queue 1: {item})")
     overrides: Dict[str, Any] = {}
     for f in dataclasses.fields(Config):
         v = getattr(args, f.name, None)
@@ -124,20 +130,23 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
-    if cfg.image_config is not None or (cfg.image is not None and
-                                        cfg.text is not None):
+    if cfg.image_config is not None:
         raise NotImplementedError(
-            "--image_config and --image with --text (zero123, CLIP guidance "
-            "and the PNG loader) are not ported yet (ROADMAP queue 1, item "
-            "7)")
+            "--image_config (zero123 and the PNG loader) is not ported yet "
+            "(ROADMAP queue 1: Zero-1-to-3 and the file-based image mode)")
+    if cfg.image is not None and cfg.text is not None:
+        raise NotImplementedError(
+            "--image with --text (SD + CLIP guidance) is not ported yet "
+            "(ROADMAP queue 1: CLIP guidance and image + text)")
     if cfg.image is not None:
         cfg = apply_image_mode(cfg)
     return finalize(apply_dmtet(cfg) if cfg.dmtet else cfg)
 
 
 def build_sd_guidance(cfg: Config, tiny: bool, device, seed: int):
-    """SD 2.1 towers with random weights drawn on the device from the
-    seed, and the prompt embeddings (computed once)."""
+    """The SD towers of ``cfg.sd_version`` (2.x or 1.x) with random weights
+    drawn on the device from the seed, and the prompt embeddings (computed
+    once)."""
     sdc = SDConfig(sd_version=cfg.sd_version, t_range=cfg.t_range, tiny=tiny,
                    image_size=16 if tiny else 512,
                    latent_size=8 if tiny else 64)
@@ -168,9 +177,13 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     if cfg.guidance == ("SD",) and not cfg.test:
         t_g = time.time()
         guidance, emb = build_sd_guidance(cfg, tiny_guidance, device, seed)
+        n = {k: sum(p.numel() for p in t.parameters()) / 1e6
+             for k, t in guidance.towers().items()}
         log(f"[startup] SD {cfg.sd_version} guidance "
             f"({'tiny' if tiny_guidance else 'full width'}, random "
-            f"weights) and embeddings in {time.time() - t_g:.1f} s")
+            f"weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
+            f"{n['text']:.2f}M parameters) and embeddings in "
+            f"{time.time() - t_g:.1f} s")
     trainer = Trainer(cfg, device, guidance, emb, ref_images=ref)
     state = trainer.init_state(seed)
     return trainer, state, torch.Generator(device=device).manual_seed(seed)

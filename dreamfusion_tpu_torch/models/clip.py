@@ -31,6 +31,11 @@ class CLIPTextConfig:
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
+    def sd15() -> "CLIPTextConfig":
+        """CLIP ViT-L/14's text tower (the dataclass defaults)."""
+        return CLIPTextConfig()
+
+    @staticmethod
     def sd21() -> "CLIPTextConfig":
         return CLIPTextConfig(hidden_size=1024, num_layers=23, num_heads=16,
                               use_quick_gelu=False)

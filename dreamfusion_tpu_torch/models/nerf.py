@@ -124,12 +124,12 @@ class NeRFField(nn.Module):
         super().__init__()
         if density_act != "exp":
             raise NotImplementedError(
-                "density_activation 'softplus' is not ported "
-                "(ROADMAP queue 1, item 2)")
+                "density_activation 'softplus' is not ported (ROADMAP "
+                "queue 1: The vanilla backbone and the small field options)")
         if backbone not in ("grid", "triplane"):
             raise NotImplementedError(
-                f"backbone {backbone!r} is not ported (ROADMAP queue 1, "
-                f"item 5)")
+                f"backbone {backbone!r} is not ported (ROADMAP queue 1: "
+                f"The vanilla backbone and the small field options)")
         self.backbone = backbone
         self.bound = bound
         self.blob_density = blob_density

@@ -46,6 +46,12 @@ class UNetConfig:
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
+    def sd15() -> "UNetConfig":
+        """CLIP-L's 768-wide context, 8 heads at every level: head dims
+        40, 80 and 160 over 320, 640 and 1280 channels."""
+        return UNetConfig()
+
+    @staticmethod
     def sd21() -> "UNetConfig":
         return UNetConfig(context_dim=1024, head_dim=64)
 

@@ -6,15 +6,25 @@ q ``[B, N, h, d]``, k and v ``[B, M, h, d]`` → ``[B, N, h, d]`` in q's
 dtype, scale 1/√d.  Both JAX versions take the logits' statistics in fp32
 and round P to the input dtype before P·V; this one does too.
 
+``attention`` follows JAX's dispatch (``chunked_branch``): where JAX takes
+``chunked_attention`` (logits of B·h·N·M > 64·2²⁰ elements, M % 512 == 0),
+the logits are bf16(q·scale)·kᵀ, q scaled in fp32 and rounded to its dtype
+first (``chunked_attention`` :42), else q·kᵀ·scale in fp32.  The two agree
+where the scale is a power of two (d = 64: 1/8); SD 1.5's d = 40
+self-attention at 64² is the path's one call where they differ.
+
 On a CUDA tensor the forward is one launch of ``csrc/attention.cu``
-(flash-style, bf16, wgmma with operands by TMA): at d = 64 the UNet's
-kernel (counter ``attention_fwd_wgmma``), at d = 512 the VAE mid-block's
+(flash-style, bf16, wgmma with operands by TMA): at the UNet's head dims
+one kernel parametrised on d, with a counter per d
+(``attention_fwd_wgmma`` at d = 64, ``attention_fwd_wgmma_d40``, ``_d80``
+and ``_d160`` at SD 1.5's), at d = 512 the VAE mid-block's
 (``attention_fwd_wgmma_d512``: its KV range split over ``kv_splits``
 blocks, merged by a second kernel of the same launch);
-``attention_route`` picks by d alone.  The backward is one call of
-``attention_bwd_wgmma`` (four kernels: the row dots, a scores pass storing
-P and dS, dV and dK in one wgmma GEMM launch, dQ in another).  On a CPU tensor the plain version runs (the dense
-form) and its backward is autograd of it.
+``attention_route`` picks by d alone.  The backward (d % 64 == 0) is one
+call of ``attention_bwd_wgmma`` (four kernels: the row dots, a scores pass
+storing P and dS, dV and dK in one wgmma GEMM launch, dQ in another); it
+recomputes the logits as q·kᵀ·scale.  On a CPU tensor the plain version
+runs and its backward is autograd of it.
 """
 
 from __future__ import annotations
@@ -26,9 +36,22 @@ import torch
 from . import kernels
 
 
+LOGITS_THRESHOLD = 64 * 2 ** 20     # JAX ``attention``'s dispatch
+CHUNK = 512
+
+
+def chunked_branch(B: int, N: int, M: int, h: int) -> bool:
+    """Whether JAX's ``attention`` takes ``chunked_attention`` here."""
+    return B * h * N * M > LOGITS_THRESHOLD and M % CHUNK == 0
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """``dense_attention``: fp32 logits and softmax, P cast to q's dtype."""
+                    scale: float, round_q: bool = False) -> torch.Tensor:
+    """``dense_attention``: fp32 logits and softmax, P cast to q's dtype;
+    with `round_q`, the logits of q·scale rounded to q's dtype first, as
+    ``chunked_attention`` forms them."""
+    if round_q:
+        q, scale = (q.float() * scale).to(q.dtype), 1.0
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float())
@@ -47,7 +70,9 @@ def _check(q, k, v):
     return B, N, k.shape[1], H, D
 
 
-_ROUTES = {64: "attention_fwd_wgmma", 512: "attention_fwd_wgmma_d512"}
+_ROUTES = {40: "attention_fwd_wgmma_d40", 64: "attention_fwd_wgmma",
+           80: "attention_fwd_wgmma_d80", 160: "attention_fwd_wgmma_d160",
+           512: "attention_fwd_wgmma_d512"}
 _TILE_512 = 64          # d = 512: query rows per block, keys per KV tile
 _MAX_SPLITS = 4
 
@@ -55,7 +80,8 @@ _MAX_SPLITS = 4
 def attention_route(d: int) -> str:
     """The launch counter (and kernel) of the forward at head dim `d`."""
     if d not in _ROUTES:
-        raise ValueError(f"attention kernel takes d = 64 or 512, got {d}")
+        raise ValueError(f"attention kernel takes d = {sorted(_ROUTES)}, "
+                         f"got {d}")
     return _ROUTES[d]
 
 
@@ -66,17 +92,24 @@ def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
     return max(1, min(sms // max(blocks, 1), _MAX_SPLITS, kv_tiles))
 
 
-def attention_fwd_cuda(q, k, v, scale: float):
-    """→ (out [B, N, h, d] bf16, lse [B, h, N] fp32)."""
+def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
+    """→ (out [B, N, h, d] bf16, lse [B, h, N] fp32, the log-sum-exp of
+    the logits as formed); `round_q` as in ``attention_plain``."""
     B, N, M, H, D = _check(q, k, v)
     route = attention_route(D)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the attention kernels read q, k and v by TMA: "
                          "16-byte aligned tensors only")
+    # rounding q·scale changes the logits only where scale is not 2^k
+    prescale = round_q and math.frexp(scale)[0] != 0.5
     o = torch.empty_like(q)
     lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
     args = [kernels.ptr(t) for t in (q, k, v, o, lse)] + [B, N, M, H]
-    if route == "attention_fwd_wgmma_d512":
+    if route != "attention_fwd_wgmma_d512":
+        args.append(int(prescale))
+    elif prescale:
+        raise ValueError("the d = 512 kernel does not round q·scale")
+    else:
         splits = kv_splits(-(-N // _TILE_512) * B * H, -(-M // _TILE_512),
                            kernels.sm_count(q.device))
         ows = lws = None
@@ -119,33 +152,36 @@ def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
 class _Attention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.scale = scale
+    def forward(ctx, q, k, v, scale, round_q):
+        ctx.scale, ctx.round_q = scale, round_q
         if q.is_cuda:
-            o, lse = attention_fwd_cuda(q, k, v, scale)
+            o, lse = attention_fwd_cuda(q, k, v, scale, round_q)
             ctx.save_for_backward(q, k, v, o, lse)
             return o
         if q.device.type != "cpu":
             raise ValueError(f"unsupported device {q.device}")
         ctx.save_for_backward(q, k, v)
-        return attention_plain(q, k, v, scale)
+        return attention_plain(q, k, v, scale, round_q)
 
     @staticmethod
     def backward(ctx, do):
         if do.is_cuda:
             q, k, v, o, lse = ctx.saved_tensors
             return (*attention_bwd_cuda(q, k, v, o, lse, do, ctx.scale),
-                    None)
+                    None, None)
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = attention_plain(*qkv, ctx.scale)
+            o = attention_plain(*qkv, ctx.scale, ctx.round_q)
             grads = torch.autograd.grad(o, qkv, do)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
               ) -> torch.Tensor:
-    """q [B, N, h, d], k/v [B, M, h, d] → [B, N, h, d], scale 1/√d."""
+    """q [B, N, h, d], k/v [B, M, h, d] → [B, N, h, d], scale 1/√d, on
+    JAX's branch (``chunked_branch``)."""
+    B, N, h, d = q.shape
     return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                            1.0 / math.sqrt(q.shape[-1]))
+                            1.0 / math.sqrt(d),
+                            chunked_branch(B, N, k.shape[1], h))

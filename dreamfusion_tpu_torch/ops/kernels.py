@@ -50,6 +50,9 @@ LAUNCHES: Dict[str, int] = {
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
     "attention_fwd_wgmma": 0,                   # K10 d = 64, CUDA C++
+    "attention_fwd_wgmma_d40": 0,               # K10 d = 40, CUDA C++
+    "attention_fwd_wgmma_d80": 0,               # K10 d = 80, CUDA C++
+    "attention_fwd_wgmma_d160": 0,              # K10 d = 160, CUDA C++
     "attention_fwd_wgmma_d512": 0,              # K10 d = 512, CUDA C++
     "attention_bwd_wgmma": 0,                   # K10 backward, CUDA C++
     "groupnorm_fwd_resident": 0, "groupnorm_fwd_stream": 0,  # K11, CUDA C++
@@ -93,7 +96,10 @@ _SIGNATURES = {
     "conv_dgrad_narrow": [_P] * 3 + [_I] * 13 + [_P],
     "conv_dgrad_fp32": [_P] * 3 + [_I] * 13 + [_P],
     "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
-    "attention_fwd_wgmma": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "attention_fwd_wgmma": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "attention_fwd_wgmma_d40": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "attention_fwd_wgmma_d80": [_P] * 5 + [_I] * 5 + [_F, _P],
+    "attention_fwd_wgmma_d160": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
     "attention_bwd_wgmma": [_P] * 12 + [_I] * 5 + [_F, _P],
     "groupnorm_fwd_resident": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],

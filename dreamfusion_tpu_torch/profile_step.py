@@ -3,6 +3,9 @@
     python -m dreamfusion_tpu_torch.profile_step --text "a hamburger" \\
         --backbone triplane --seed 0 --lambda_3d_normal_smooth 0 \\
         --iters 40 --profile_steps 4
+    python -m dreamfusion_tpu_torch.profile_step --text "a hamburger" \\
+        --sd_version 1.5 --backbone triplane --seed 0 \\
+        --lambda_3d_normal_smooth 0 --iters 40 --profile_steps 4
     python -m dreamfusion_tpu_torch.profile_step --guidance oracle \\
         --backbone grid --oracle_scene two_sphere --lr 0.01 --seed 0 \\
         --iters 300 --warmup_steps 20 --profile_steps 20
@@ -51,10 +54,14 @@ GROUPS = [  # (group, kernel-name pattern), first match wins
 
 # a part of a group, printed under it: K12's input gradients (the wgmma
 # route's dgrad instantiation, the narrow and fp32 dgrads, and the mma.sync
-# and one-thread dgrads of any tree); the split-K reduces stay whole in K12
+# and one-thread dgrads of any tree); the split-K reduces stay whole in K12;
+# K10's forwards at SD 1.5's head dims (the kernel's d = 40, 80, 160
+# instantiations)
 PARTS = [("K12 conv", "of which input gradients",
           r"conv_wgmma_kernel<false, 128, true>|conv_dgrad_\w+_kernel"
-          r"|conv_mma_kernel<true>|conv_simple_kernel<\w+, true>")]
+          r"|conv_mma_kernel<true>|conv_simple_kernel<\w+, true>"),
+         ("K10 attention", "of which d = 40, 80, 160 forwards",
+          r"attn_fwd_wgmma_kernel<(40|80|160)>")]
 
 
 def part_of(name: str):

@@ -2,7 +2,8 @@
 (``dreamfusion_tpu/training/image_data.py``): the analytic reference of
 ``--image analytic:<scene>`` and the masked Pearson correlation of the
 known-view depth loss.  The PNG loader (``--image file.png``,
-``--image_config``) is not ported yet (ROADMAP queue 1, item 7)."""
+``--image_config``) is not ported yet (ROADMAP queue 1: Zero-1-to-3 and
+the file-based image mode)."""
 
 from __future__ import annotations
 

@@ -66,43 +66,48 @@ from .image_data import RefImages, masked_pearson
 from .optimizer import Adan, AdanState
 
 
+# titles of ROADMAP.md's queue 1 items, as the refusals name them
+_VANILLA = "The vanilla backbone and the small field options"
+_IMAGE = "Zero-1-to-3 and the file-based image mode"
+_GUIDANCE = {"IF": "DeepFloyd-IF", "zero123": _IMAGE,
+             "clip": "CLIP guidance and image + text"}
+
+
 def check_slice(cfg: Config) -> None:
     """Refuse configurations outside the ported slice, naming the ROADMAP
-    item that ports them."""
+    queue 1 item (by its title) that ports them."""
     image_oracle = tuple(cfg.guidance) == ("image_oracle",)
     analytic = cfg.image is not None and cfg.image.startswith("analytic:")
+    other = [g for g in cfg.guidance if g in _GUIDANCE]
     todo = {
         "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
                                                           "triplane"),
-                                     "queue 1, item 5"),
+                                     _VANILLA),
         "guidance other than the pixel oracle, the image oracle or SD "
         "alone": (tuple(cfg.guidance) not in (("oracle",), ("SD",),
                                               ("image_oracle",)),
-                  "queue 1, item 7"),
-        "--sd_version 1.x (head dim 40)": (
-            not cfg.sd_version.startswith("2"), "queue 1, item 4"),
+                  _GUIDANCE[other[0]] if other else _GUIDANCE["clip"]),
         "--dmtet with SD guidance": (cfg.dmtet and cfg.guidance == ("SD",),
-                                     "queue 1, item 6"),
+                                     "DMTet under SD guidance"),
         "--image from a file (zero123 and the PNG loader)": (
-            cfg.image is not None and not analytic, "queue 1, item 7"),
+            cfg.image is not None and not analytic, _IMAGE),
         "--image_config (zero123 and the PNG loader)": (
-            cfg.image_config is not None, "queue 1, item 7"),
+            cfg.image_config is not None, _IMAGE),
         "--image analytic: without --guidance image_oracle": (
-            analytic and not image_oracle, "queue 1, item 7"),
+            analytic and not image_oracle, _IMAGE),
         "--guidance image_oracle without --image analytic:<scene>": (
-            image_oracle and not analytic, "queue 1, item 7"),
-        "--optim other than adan": (cfg.optim != "adan", "queue 1, item 3"),
-        "--grad_clip": (cfg.grad_clip >= 0, "queue 1, item 3"),
+            image_oracle and not analytic, _IMAGE),
+        "--optim other than adan": (cfg.optim != "adan", _VANILLA),
+        "--grad_clip": (cfg.grad_clip >= 0, _VANILLA),
         "--lambda_tv on the triplane (triplane_tv_loss)": (
-            cfg.lambda_tv > 0 and cfg.backbone == "triplane",
-            "queue 1, item 2"),
+            cfg.lambda_tv > 0 and cfg.backbone == "triplane", _VANILLA),
         "--normal_mode finite_difference": (
-            cfg.normal_mode == "finite_difference", "queue 1, item 2"),
+            cfg.normal_mode == "finite_difference", _VANILLA),
     }
     for what, (hit, item) in todo.items():
         if hit:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
+                f"{what} is not ported yet (ROADMAP queue 1: {item})")
 
 
 GRID_FIELDS = ("grid_levels", "grid_features_per_level",

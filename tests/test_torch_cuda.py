@@ -438,6 +438,82 @@ def test_attention_d512_kernel(dev, B, N, M, H):
                                atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("B,N,M,H,D,rq", [
+    (1, 100, 77, 2, 40, False),      # a 77-token cross-attention
+    (2, 200, 130, 3, 40, False),     # B·h > 1, M past a 128-key tile
+    (2, 4096 + 17, 77, 1, 40, False),
+    (1, 300, 1024, 2, 40, True),     # q·scale rounded (chunked branch)
+    (1, 100, 77, 2, 80, False),
+    (2, 200, 130, 3, 80, False),     # M past two 64-key tiles
+    (1, 300, 512, 2, 80, True),
+    (1, 100, 77, 2, 160, False),
+    (2, 200, 130, 3, 160, False),
+    (2, 64, 64, 8, 160, True),       # the 8² mid-block: one query tile
+])
+def test_attention_sd15_head_dims_kernel(dev, B, N, M, H, D, rq):
+    """K10's d = 40, 80 and 160 routes (SD 1.5's UNet): ragged query and
+    key tiles, several (b, h); with rq the logits of bf16(q·scale), as
+    JAX's chunked branch forms them.  Out against the plain version on the
+    same branch, lse against a float64 log-sum-exp of the same logits
+    (and, with rq, measurably off the unrounded ones), two launches bit for
+    bit."""
+    g = _gen(dev, D + N)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
+               for n in (N, M, M))
+    q = (q.float() * 3).to(bf)          # logits of a few units: q's rounding
+    scale = D ** -0.5
+    route = f"attention_fwd_wgmma_d{D}"
+    kernels.reset_launch_counts()
+    o, lse = attention_fwd_cuda(q, k, v, scale, rq)
+    o2, lse2 = attention_fwd_cuda(q, k, v, scale, rq)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ref = attention_plain(q, k, v, scale, rq)
+    amax = float(ref.float().abs().max())
+    torch.testing.assert_close(o.float(), ref.float(), atol=1e-2 * amax,
+                               rtol=2 ** -7)
+
+    def lse_of(q_, s_):
+        s = torch.einsum("bnhd,bmhd->bhnm", q_.double(), k.double()) * s_
+        return torch.logsumexp(s, -1)
+
+    want = lse_of((q.float() * scale).to(bf), 1.0) if rq else \
+        lse_of(q, scale)
+    torch.testing.assert_close(lse.double(), want, atol=1e-3, rtol=1e-4)
+    if rq:
+        err = (lse.double() - want).abs().max()
+        other = (lse.double() - lse_of(q, scale)).abs().max()
+        assert err * 4 < other, (float(err), float(other))
+
+
+def test_attention_sd15_head_dims_through_the_wrapper(dev):
+    """``attention`` at d = 40, 80, 160 is one launch of its route, on
+    JAX's branch (the [2, 4096, 8, 40] self-attention rounds q·scale: the
+    plain version's chunked form); its backward is not ported at these
+    dims and raises."""
+    g = _gen(dev, 3)
+    bf = torch.bfloat16
+    for B, N, M, H, D in ((2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80),
+                          (2, 256, 256, 8, 160)):
+        q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
+                   for n in (N, M, M))
+        kernels.reset_launch_counts()
+        o = attention(q, k, v)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[f"attention_fwd_wgmma_d{D}"] == 1
+        assert sum(kernels.LAUNCHES.values()) == 1
+        rq = D == 40
+        ref = attention_plain(q, k, v, D ** -0.5, rq)
+        amax = float(ref.float().abs().max())
+        torch.testing.assert_close(o.float(), ref.float(), atol=1e-2 * amax,
+                                   rtol=2 ** -7)
+    qkv = [t[:, :64].clone().requires_grad_() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="d % 64"):
+        attention(*qkv).float().sum().backward()
+
+
 @pytest.mark.parametrize("B,N,M,H,D", [
     (2, 100, 100, 2, 64),     # ragged query and key tiles
     (2, 130, 77, 3, 64),      # 77-token cross-attention tail

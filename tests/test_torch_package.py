@@ -8,8 +8,10 @@ asks for the CPU."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -144,7 +146,7 @@ def test_cli_image_config_matches_jax(extra):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--text", "a hamburger", "--sd_version", "1.5"],       # head dim 40
+    ["--text", "a hamburger", "--IF"],                      # DeepFloyd-IF
     ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--image", "x.png", "--text", "a hamburger"],        # SD + CLIP
     ["--text", "a hamburger", "--backbone", "triplane", "--dmtet"],
@@ -183,6 +185,69 @@ def test_cli_builds_the_image_run_and_the_mesh_init(what, tmp_path):
         assert trainer.kv_batch.rays_o.shape[1] == 12 * 12   # 1.5 x 8²
     metrics, _ = trainer.run_step(state, gen)
     assert bool(metrics["grad_ok"]) and state.step == 1
+
+
+def _queue1_titles():
+    """The titles of ROADMAP.md's queue 1 items (bold, after the number),
+    backquotes dropped."""
+    text = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    queue = text.split("### Queue 1")[1].split("### Queue 2")[0]
+    return [t.replace("`", "").rstrip(".") for t in
+            re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
+    ["--text", "a hamburger", "--IF"],
+    ["--text", "a hamburger", "--gui"],
+    ["--text", "a hamburger", "--profile"],
+    ["--image_config", "x.json"],
+    ["--image", "x.png", "--text", "a hamburger"],
+    ["--guidance", "oracle", "--backbone", "vanilla"],
+    ["--guidance", "IF"],
+    ["--guidance", "zero123"],
+    ["--guidance", "SD", "clip", "--text", "a hamburger"],
+    ["--text", "a hamburger", "--backbone", "triplane", "--dmtet"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--image", "x.png"],
+    ["--image", "analytic:two_sphere", "--guidance", "oracle",
+     "--backbone", "triplane"],
+    ["--guidance", "image_oracle", "--backbone", "triplane"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--optim", "adam"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--grad_clip", "1"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--lambda_tv", "1"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--normal_mode",
+     "finite_difference"],
+])
+def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
+    """Every refusal of the CLI and ``check_slice`` names the ROADMAP
+    queue 1 item that ports it by a title that the queue holds (numbers
+    change when the queue is renumbered; titles do not)."""
+    with pytest.raises(NotImplementedError) as e:
+        main(flags + ["--workspace", str(tmp_path), "--iters", "1",
+                      "--device", "cpu"])
+    m = re.search(r"\(ROADMAP queue 1: (.+)\)$", str(e.value))
+    assert m, str(e.value)
+    assert m.group(1) in _queue1_titles(), m.group(1)
+
+
+def test_module_refusals_name_a_roadmap_queue1_title():
+    """The same for the refusals below the CLI: the IF noise schedule and
+    the vanilla backbone's field options; no message of the port names a
+    queue 1 item by its number."""
+    from dreamfusion_tpu_torch.guidance.schedule import make_schedule
+    from dreamfusion_tpu_torch.models.nerf import NeRFField
+
+    titles = _queue1_titles()
+    for fn in (lambda: make_schedule("squaredcos_cap_v2"),
+               lambda: NeRFField(backbone="vanilla"),
+               lambda: NeRFField(backbone="grid", density_act="softplus")):
+        with pytest.raises(NotImplementedError) as e:
+            fn()
+        m = re.search(r"\(ROADMAP queue 1: (.+)\)$", str(e.value))
+        assert m and m.group(1) in titles, str(e.value)
+    port = Path(__file__).resolve().parents[1] / "dreamfusion_tpu_torch"
+    for path in port.rglob("*.py"):
+        assert not re.search(r"queue 1, item", path.read_text()), path
 
 
 def test_cli_refuses_tv_on_the_triplane(tmp_path):

@@ -399,7 +399,7 @@ def test_sd_step_convs_and_attentions_take_their_routes():
     assert attention_route(64) == "attention_fwd_wgmma"
     assert attention_route(512) == "attention_fwd_wgmma_d512"
     with pytest.raises(ValueError):
-        attention_route(40)
+        attention_route(32)
     # d = 512's KV splits: (query tiles, KV tiles of 64) on 132 SMs
     assert kv_splits(4096 // 64, 4096 // 64, 132) == 2     # VAE mid-block
     assert kv_splits(16, 2, 132) == 2                      # N 1000, M 77
@@ -763,6 +763,14 @@ def test_profile_groups_name_the_new_kernels():
                "(anonymous namespace)::GemmMaps, int, int, int, int, int, "
                "float, float)"]
     assert [group_of(n) for n in k10_bwd] == ["K10 attention"] * 3
+    # the forward's template at each head dim; SD 1.5's apart within K10
+    k10_dims = [f"void (anonymous namespace)::attn_fwd_wgmma_kernel<{d}>("
+                "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                "__nv_bfloat16*, float*, int, int, int, float, int)"
+                for d in (40, 64, 80, 160)]
+    assert [group_of(n) for n in k10_dims] == ["K10 attention"] * 4
+    assert [part_of(n) is not None for n in k10_dims] == [True, False, True,
+                                                           True]
     # K11: the parent's Triton kernels and the CUDA routes group alike
     k11 = ["fwd_stats", "fwd_apply", "bwd_sums", "bwd_apply",
            "void (anonymous namespace)::gn_resident_kernel<__nv_bfloat16, "
