@@ -37,12 +37,19 @@
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32; K10's softmax exponentials, one a logit, at
    3.9e12/s, whichever of the two operation times is longer).
-   K6 (hash encode forward with the jacobian and backward, the position
-   gradient, tv and wd, forward and backward) runs at the flagship spec
-   (L4C8 affine smoothstep, 2^19 rows per hashed level) at the step's
-   98,304 sample positions, the grid refresh's 262,144-position chunk and
-   the DMTet stage's 262,144 albedo queries, and again in the tcnn layout
-   (L16C2 xor).
+   K1 beside ``F.grid_sample`` (bilinear, align_corners=True, the three
+   planes as a batch: the features) and its backward (their VJP into the
+   planes and the positions).  K6 (hash encode forward with the jacobian
+   and backward, tv and wd, forward and backward) runs at the flagship
+   spec (L4C8 affine smoothstep, 2^19 rows per hashed level) at the step's
+   98,304 sample positions and the grid refresh's 262,144-position chunk,
+   and again in the tcnn layout (L16C2 xor).  K1 and K6 again at the DMTet
+   stage's albedo query with the step's own inputs: the 262,144 positions
+   K7 interpolates on the 512² view below (the missed pixels at x01 = 0.5),
+   cotangents zero where no triangle covers the pixel; each encoder's
+   forward, table-only backward and backward with the position gradient
+   (``triplane_bwd_dx``, ``hashgrid_bwd_dx``: one launch for both
+   gradients).
    K7 (rasterize + interpolate, forward and backward) and K8 (marching
    tets and the three mesh regularizers, forward and backward) run at the
    DMTet stage's shapes: tet_grid_size 128 (274,625 grid vertices,
@@ -76,9 +83,13 @@
    checkpoint (--dmtet --init_with, oracle guidance, lr 0.002, tet grid
    128, 512² renders) for 100 steps (cut from thousands) with --save_mesh;
    requires finite losses and gradients, a launch of every K7/K8 kernel
-   and of K1 and K4, non-zero sdf and deform gradients, a face count in
-   (0, max_tris) and a written mesh.obj; logs s/step, peak memory and the
-   analytic PSNR of the albedo render at the first and last step.
+   and of K1 and K4 (K1's backward with the position gradient exactly once
+   a step, its table-only backward never), non-zero sdf and deform
+   gradients, a face count in (0, max_tris) and a written mesh.obj; logs
+   s/step, peak memory and the analytic PSNR of the albedo render at the
+   first and last step.  Then one more step of the same run, built as main
+   builds it, the counters reset just before it: K1's forward and its
+   ``_dx`` backward once each (one view), the table-only backward never.
 7. The hash-grid backbone (-O's), each run with the counters reset just
    before it: stage 1 with the flagship oracle flags on --backbone grid
    and small tv and weight-decay weights (300 steps, the same run's end and
@@ -86,8 +97,9 @@
    grid_table gradient at every step); SD 2.1 through -O (25 steps, every
    K6 encode and K10-K12 kernel launched, a non-zero grid_table gradient in
    both phases; s/step and peak memory); and 20 DMTet steps at tet grid
-   128 from the grid stage 1 (K6 launched by the albedo query, non-zero
-   sdf, deform and table gradients).
+   128 from the grid stage 1 (K6's forward and its ``_dx`` backward
+   launched by the albedo query, the latter once a step; non-zero sdf,
+   deform and table gradients), and its one-step launch check.
 8. The image → 3D pipeline (``--image analytic:two_sphere --guidance
    image_oracle``, run_flagship.py's image-oracle flags): K5 (the gradient
    clamp, CUDA) against its plain version and ``torch.clamp`` at the
@@ -109,10 +121,11 @@
    the face count in (0, max_tris); the init's seconds logged.
 9. Prints one JSON line with every kernel's route, source, the TPU function
    it replaces, launches on its path (K1-K4 and K10-K12: the SD run, K10's
-   d = 40, 80 and 160 routes: the SD 1.5 run; K7
-   and K8: the DMTet run; K6's encode: the SD -O run, its tv and wd: the
-   grid stage 1; K5: the image stage 1; K9: the DMTet stage from its
-   mesh), error, times and bound; the last line is the result object.  Any
+   d = 40, 80 and 160 routes: the SD 1.5 run; K7, K8 and K1's ``_dx``
+   route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
+   the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
+   image stage 1; K9: the DMTet stage from its mesh), error, times and
+   bound; the last line is the result object.  Any
    failure exits non-zero and prints no result.
 """
 
@@ -193,6 +206,8 @@ KERNELS = {
                      "dreamfusion_tpu/ops/triplane.py:178"),
     "triplane_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/triplane.cu",
                      "dreamfusion_tpu/ops/triplane.py:178"),
+    "triplane_bwd_dx": ("cuda", "dreamfusion_tpu_torch/csrc/triplane.cu",
+                        "dreamfusion_tpu/ops/triplane.py:96"),
     "march_rays": ("cuda", "dreamfusion_tpu_torch/csrc/occupancy.cu",
                    "dreamfusion_tpu/ops/occupancy.py:71"),
     "composite_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/composite.cu",
@@ -258,6 +273,8 @@ for _n, _line in (("hashgrid", 201), ("hashgrid_tv", 322),
         KERNELS[f"{_n}_{_d}"] = (
             "cuda", "dreamfusion_tpu_torch/csrc/hashgrid.cu",
             f"dreamfusion_tpu/ops/hashgrid.py:{_line}")
+KERNELS["hashgrid_bwd_dx"] = ("cuda", "dreamfusion_tpu_torch/csrc/hashgrid.cu",
+                              "dreamfusion_tpu/ops/hashgrid.py:201")
 KERNELS["clip_grad_bwd"] = ("cuda", "dreamfusion_tpu_torch/csrc/clip_grad.cu",
                             "dreamfusion_tpu/core/math.py:39")
 KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
@@ -286,10 +303,13 @@ SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
 # fp32 conv_out's
 SD_DGRADS = {"conv_dgrad_wgmma": 23, "conv_dgrad_narrow": 1,
              "conv_dgrad_fp32": 1}
+# the DMTet albedo query's positions take a gradient: K1's (or K6's) forward
+# and its backward with the position gradient once a view, the table-only
+# backward never (``dmtet_path`` and ``dmtet_view_launches`` check it)
 DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
                        "laplacian", "normal")) + (
-    "triplane_fwd", "triplane_bwd", "field_head_fwd", "field_head_bwd")
+    "triplane_fwd", "triplane_bwd_dx", "field_head_fwd", "field_head_bwd")
 IMAGE_KERNELS = ORACLE_KERNELS + ("clip_grad_bwd",)
 IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
 # The SD 2.1 step's K12 forwards (bf16 unless stated; the UNet at CFG batch
@@ -485,17 +505,107 @@ def record_kernel(results, name, err, ms, plain_ms, tol, n_bytes, flops,
                               "bound_by": b_by, "library_ms": library_ms})
 
 
-def kernel_phases(torch, results):
-    """Each kernel against its plain version at the flagship step's shapes:
-    4096 rays x 24 samples (N = 98,304 field samples), a 3x256²x16 triplane,
-    a 128³ occupancy grid, 32 probes."""
+def grid_sample_calls(torch, x01, planes, g_feat):
+    """K1's yardstick: ``F.grid_sample`` (bilinear, align_corners=True,
+    zero padding) over the three planes as a batch computes K1's features
+    in one call, and ``aten.grid_sampler_2d_backward`` their VJP into the
+    planes and the grid (the positions) in one more.  Layouts are made here,
+    outside the timed calls → (forward, backward, the features [N, 3C])."""
+    import torch.nn.functional as F
+    N, C = x01.shape[0], planes.shape[-1]
+    inp = planes.permute(0, 3, 1, 2).contiguous()             # [3, C, R, R]
+    uv = torch.stack([x01[:, [a, b]] for a, b in ((0, 1), (0, 2), (1, 2))])
+    grid = (uv.flip(-1) * 2 - 1)[:, None].contiguous()        # [3, 1, N, 2]
+    gout = g_feat.float().reshape(N, 3, C).permute(1, 2, 0)[:, :, None] \
+        .contiguous()                                         # [3, C, 1, N]
+
+    def fwd():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    def bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            gout, inp, grid, 0, 0, True, [True, True])
+
+    feat = fwd()[:, :, 0].permute(2, 0, 1).reshape(N, 3 * C)
+    return fwd, bwd, feat
+
+
+def triplane_rows(torch, results, x, planes, cots, jac, where):
+    """K1 against its plain version at positions `x` [N, 3] in [0, 1]:
+    the forward (bf16 outputs; with `jac` the jacobian too) and the
+    table-only backward from cotangents `cots` (on feat, and with `jac` on
+    jx, jy, jz: 4 of them; else 1); without `jac`, also the backward with
+    the position gradient (``triplane_bwd_dx``).  Beside each, the library
+    yardstick (``grid_sample_calls``: the features alone, and their VJP).
+    The bytes count the plane rows the positions touch (data-dependent:
+    what this run reads)."""
+    from dreamfusion_tpu_torch.ops import triplane as K1
+    bf = torch.bfloat16
+    N, C, R = x.shape[0], planes.shape[-1], planes.shape[1]
+    rows = int(torch.unique(K1._corners(x, R)[0]).numel()) * C * 4
+    lib_fwd, lib_bwd, lib_feat = grid_sample_calls(torch, x, planes, cots[0])
+    # the yardstick computes the same features (fp32 rounding of the
+    # coordinates: 1e-5)
+    assert_close("grid_sample", [lib_feat],
+                 [K1.triplane_fwd_plain(x, planes, False)[0]], 1e-5, 1e-5)
+    lib_ms = (median_ms(lib_fwd), median_ms(lib_bwd))
+    out_k = K1.triplane_fwd_cuda(x, planes, jac, bf)
+    torch.cuda.synchronize()
+    out_p = [o.to(bf) for o in K1.triplane_fwd_plain(x, planes, jac)]
+    # both round the same fp32 sums to bf16: one bf16 ulp at most
+    err = assert_close("triplane_fwd", out_k, out_p, 1e-6, 2 ** -7)
+    record_kernel(results, "triplane_fwd", err,
+                  median_ms(lambda: K1.triplane_fwd_cuda(x, planes, jac, bf)),
+                  median_ms(lambda: K1.triplane_fwd_plain(x, planes, jac)),
+                  "1 bf16 ulp", nbytes(x, *out_k) + rows,
+                  N * 3 * 4 * C * 2 * (3 if jac else 1), "fp32", lib_ms[0],
+                  where + (" (library: the features only)" if jac else ""))
+    g_j = cots[1:] if jac else (None,) * 3
+    dk = K1.triplane_bwd_cuda(x, planes.shape, cots[0], g_j)
+    torch.cuda.synchronize()
+    dp = K1.triplane_bwd_plain(x, planes.shape, cots[0], g_j)
+    scale = float(dp.abs().max())
+    err = assert_close("triplane_bwd", [dk], [dp], 1e-5 * scale, 1e-5)
+    record_kernel(results, "triplane_bwd", err,
+                  median_ms(lambda: K1.triplane_bwd_cuda(x, planes.shape,
+                                                         cots[0], g_j)),
+                  median_ms(lambda: K1.triplane_bwd_plain(x, planes.shape,
+                                                          cots[0], g_j), 5),
+                  "1e-5 of max |dplanes| (fp32 reductions in any order)",
+                  nbytes(x, cots[0], *g_j, dk),
+                  N * 3 * 4 * C * 2 * (3 if jac else 1), "fp32", lib_ms[1],
+                  where + " (library: the features' VJP, planes and grid)")
+    if jac:
+        return
+    (pk, xk) = K1.triplane_bwd_dx_cuda(x, planes, cots[0])
+    torch.cuda.synchronize()
+    (pp, xp) = K1.triplane_bwd_dx_plain(x, planes, cots[0])
+    err = max(assert_close("triplane_bwd_dx", [pk], [pp],
+                           1e-5 * float(pp.abs().max()), 1e-5),
+              assert_close("triplane_bwd_dx", [xk], [xp],
+                           1e-5 * float(xp.abs().max()), 1e-5))
+    record_kernel(results, "triplane_bwd_dx", err,
+                  median_ms(lambda: K1.triplane_bwd_dx_cuda(x, planes,
+                                                            cots[0])),
+                  median_ms(lambda: K1.triplane_bwd_dx_plain(x, planes,
+                                                             cots[0]), 5),
+                  "1e-5 of max |dplanes|, of max |dx| (fp32 reductions in "
+                  "any order)", nbytes(x, cots[0], pk, xk) + rows,
+                  N * 3 * 4 * C * 4, "fp32", lib_ms[1],
+                  where + " (library: the features' VJP, planes and grid)")
+
+
+def flagship_march(torch) -> dict:
+    """The flagship step's 4096 rays (seed 1) and their march through a
+    sphere-shaped 128³ occupancy grid with 32 probes (K2's kernel): the
+    march's inputs, its output ``mk``, the generator ``g`` after its draws,
+    and the step's 98,304 sample positions, ``xyz`` and ``x01`` (the
+    encoder's [0, 1] coordinates)."""
     from dreamfusion_tpu_torch.config import Config, finalize
     from dreamfusion_tpu_torch.core.sampling import (near_far_from_bound,
                                                      stratified_u)
-    from dreamfusion_tpu_torch.ops import activation as K4
-    from dreamfusion_tpu_torch.ops import composite as K3
     from dreamfusion_tpu_torch.ops import occupancy as K2
-    from dreamfusion_tpu_torch.ops import triplane as K1
     from dreamfusion_tpu_torch.training.trainer import draw_step, train_batch
 
     dev = torch.device("cuda")
@@ -505,8 +615,36 @@ def kernel_phases(torch, results):
     batch = train_batch(cfg, draws.pose, draws.fov, 0, cfg.h, cfg.w)
     ro = batch.rays_o.reshape(-1, 3).contiguous()
     rd = batch.rays_d.reshape(-1, 3).contiguous()
-    R, S, P, G = ro.shape[0], cfg.grid_fine_steps, cfg.grid_coarse_steps, \
-        cfg.grid_size
+    G = cfg.grid_size
+    ax = (torch.arange(G, device=dev) + 0.5) / G * 2 - 1
+    X, Y, Z = torch.meshgrid(ax, ax, ax, indexing="ij")
+    occ = ((X - 0.2) ** 2 + Y ** 2 + Z ** 2 < 0.25)[None].contiguous()
+    near, far = near_far_from_bound(ro, rd, cfg.bound, "cube", cfg.min_near)
+    edges = K2.probe_edges(cfg.grid_coarse_steps, device=dev)
+    u = stratified_u(torch.rand(ro.shape[0], cfg.grid_fine_steps, device=dev,
+                                generator=g)).contiguous()
+    mk = K2.march_cuda(ro, rd, near, far, occ, cfg.bound, edges, u)
+    xyz = torch.clamp(ro[:, None] + rd[:, None] * mk.z_vals[..., None],
+                      -cfg.bound, cfg.bound).reshape(-1, 3).contiguous()
+    x01 = ((xyz + cfg.bound) / (2 * cfg.bound)).contiguous()
+    return dict(cfg=cfg, g=g, ro=ro, rd=rd, near=near, far=far, occ=occ,
+                edges=edges, u=u, mk=mk, xyz=xyz, x01=x01)
+
+
+def kernel_phases(torch, results):
+    """Each kernel against its plain version at the flagship step's shapes:
+    4096 rays x 24 samples (N = 98,304 field samples), a 3x256²x16 triplane,
+    a 128³ occupancy grid, 32 probes."""
+    from dreamfusion_tpu_torch.ops import activation as K4
+    from dreamfusion_tpu_torch.ops import composite as K3
+    from dreamfusion_tpu_torch.ops import occupancy as K2
+
+    m = flagship_march(torch)
+    cfg, g, ro, rd, near, far, occ, edges, u, mk = (
+        m[k] for k in ("cfg", "g", "ro", "rd", "near", "far", "occ", "edges",
+                       "u", "mk"))
+    dev = ro.device
+    R, S, P = ro.shape[0], cfg.grid_fine_steps, cfg.grid_coarse_steps
 
     def record(name, err, ms, plain_ms, tol, n_bytes, flops):
         # fp32 CUDA-core arithmetic, a few operations per byte
@@ -514,13 +652,6 @@ def kernel_phases(torch, results):
                       "fp32", None)
 
     # ---- K2 march: a sphere-shaped occupancy grid ----------------------
-    ax = (torch.arange(G, device=dev) + 0.5) / G * 2 - 1
-    X, Y, Z = torch.meshgrid(ax, ax, ax, indexing="ij")
-    occ = ((X - 0.2) ** 2 + Y ** 2 + Z ** 2 < 0.25)[None].contiguous()
-    near, far = near_far_from_bound(ro, rd, cfg.bound, "cube", cfg.min_near)
-    edges = K2.probe_edges(P, device=dev)
-    u = stratified_u(torch.rand(R, S, device=dev, generator=g)).contiguous()
-    mk = K2.march_cuda(ro, rd, near, far, occ, cfg.bound, edges, u)
     torch.cuda.synchronize()
     mp = K2.march_plain(ro, rd, near, far, occ, cfg.bound, edges, u)
     same = (mk.mask == mp.mask).all(-1)
@@ -538,43 +669,21 @@ def kernel_phases(torch, results):
            nbytes(ro, rd, near, far, occ, edges, u, *mk),
            R * (P * 20 + S * 30))
 
-    # sample positions of the step, in the encoder's [0, 1] coordinates
-    xyz = torch.clamp(ro[:, None] + rd[:, None] * mk.z_vals[..., None],
-                      -cfg.bound, cfg.bound).reshape(-1, 3).contiguous()
+    xyz, x01 = m["xyz"], m["x01"]
     N = xyz.shape[0]
-    x01 = ((xyz + cfg.bound) / (2 * cfg.bound)).contiguous()
 
     # ---- K1 triplane, bf16 outputs as in the fp16 step ------------------
     planes = torch.randn(3, cfg.triplane_resolution, cfg.triplane_resolution,
                          cfg.triplane_channels, device=dev, generator=g) * 0.1
-    bf = torch.bfloat16
-    out_k = K1.triplane_fwd_cuda(x01, planes, True, bf)
-    torch.cuda.synchronize()
-    out_p = [o.to(bf) for o in K1.triplane_fwd_plain(x01, planes, True)]
-    # both round the same fp32 sums to bf16: one bf16 ulp at most
-    err = assert_close("triplane_fwd", out_k, out_p, 1e-6, 2 ** -7)
-    record("triplane_fwd", err,
-           median_ms(lambda: K1.triplane_fwd_cuda(x01, planes, True, bf)),
-           median_ms(lambda: K1.triplane_fwd_plain(x01, planes, True)),
-           "1 bf16 ulp", nbytes(x01, planes, *out_k),
-           N * 3 * 4 * cfg.triplane_channels * 3 * 2)
     D = 3 * cfg.triplane_channels
-    cots = [torch.randn(N, D, device=dev, generator=g).to(bf)
+    cots = [torch.randn(N, D, device=dev, generator=g).to(torch.bfloat16)
             for _ in range(4)]
-    dk = K1.triplane_bwd_cuda(x01, planes.shape, cots[0], cots[1:])
-    torch.cuda.synchronize()
-    dp = K1.triplane_bwd_plain(x01, planes.shape, cots[0], cots[1:])
-    scale = float(dp.abs().max())
-    err = assert_close("triplane_bwd", [dk], [dp], 1e-5 * scale, 1e-5)
-    record("triplane_bwd", err,
-           median_ms(lambda: K1.triplane_bwd_cuda(x01, planes.shape, cots[0],
-                                                  cots[1:])),
-           median_ms(lambda: K1.triplane_bwd_plain(x01, planes.shape,
-                                                   cots[0], cots[1:])),
-           "1e-5 of max |dplanes| (fp32 atomics in any order)",
-           nbytes(x01, *cots, dk), N * 3 * 4 * cfg.triplane_channels * 3 * 2)
+    triplane_rows(torch, results, x01, planes, cots, True,
+                  f" [{N} step samples, {cfg.triplane_resolution}²x"
+                  f"{cfg.triplane_channels}] + jacobian")
 
     # ---- K4 field head, bf16 MLP output ---------------------------------
+    bf = torch.bfloat16
     h = (torch.randn(N, 4, device=dev, generator=g) * 2).to(bf)
     bd, br = cfg.blob_density, cfg.blob_radius
     fk = K4.field_head_fwd_triton(h, xyz, bd, br)
@@ -641,9 +750,9 @@ def hashgrid_kernel_phases(torch, results, x01):
     smoothstep, 2^19 rows, desired resolution 2048: 1,576,960 x 8 fp32),
     at the shapes of the grid step (the step's 98,304 sample positions,
     forward with the jacobian in bf16, backward), of the density-grid
-    refresh (262,144 positions, forward only), of the DMTet albedo query
-    (262,144 positions with the position gradient) and of the tv (4096
-    cells per level) and wd terms; then the tcnn layout (L16C2 xor)."""
+    refresh (262,144 positions, forward only) and of the tv (4096 cells
+    per level) and wd terms; then the tcnn layout (L16C2 xor).  The DMTet
+    albedo query's rows are ``field_query_phase``'s."""
     from dreamfusion_tpu_torch.config import Config
     from dreamfusion_tpu_torch.ops import hashgrid as K6
     from dreamfusion_tpu_torch.training.trainer import grid_spec_of
@@ -704,30 +813,6 @@ def hashgrid_kernel_phases(torch, results, x01):
     xr = torch.rand(262144, 3, device=dev, generator=g)
     encode_phase(spec, xr, " [262,144 refresh positions, no jacobian]",
                  jac=False)
-
-    # ---- the DMTet albedo query: the position gradient ---------------------
-    xq = torch.rand(262144, 3, device=dev, generator=g)
-    cq = torch.randn(262144, L * C, device=dev, generator=g).to(bf)
-
-    def x_grad(x):
-        xk = x.clone().requires_grad_()
-        feat = K6.hash_encode(xk, table, spec, out_dtype=bf)
-        return torch.autograd.grad(feat, [xk], cq)[0]
-
-    def x_grad_plain(x):
-        _, *jac = K6.hash_fwd_plain(x, table, spec, L, True)
-        return torch.stack([(cq.float() * j).sum(-1) for j in jac], -1)
-
-    gk = x_grad(xq)
-    torch.cuda.synchronize()
-    gp = x_grad_plain(xq)
-    scale = float(gp.abs().max())
-    err = assert_close("hashgrid_fwd", [gk], [gp], 1e-5 * scale, 1e-5)
-    record_kernel(results, "hashgrid_fwd", err, median_ms(
-        lambda: x_grad(xq)), median_ms(lambda: x_grad_plain(xq), 5),
-        "1e-5 of max |dx|", nbytes(xq, cq, gk) + rows_touched(xq, spec) * 32,
-        262144 * L * (8 * C * 8 + 120), "fp32", None,
-        " [262,144 DMTet queries: forward + position gradient]")
 
     # ---- tv and wd over the flagship table ---------------------------------
     cells = K6.draw_tv_cells(g, spec, dev)
@@ -1154,7 +1239,8 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
 
 def dmtet_kernel_phases(torch, results):
     """K8 and K7 against their plain versions at the DMTet stage's shapes:
-    tet_grid_size 128, max_tris 131,072, a 512² view of the surface."""
+    tet_grid_size 128, max_tris 131,072, a 512² view of the surface; then
+    K1 and K6 at that view's albedo query (``field_query_phase``)."""
     from dreamfusion_tpu_torch.config import Config, apply_dmtet, finalize
     from dreamfusion_tpu_torch.ops import marching_tets as K8
     from dreamfusion_tpu_torch.ops.raster import project_verts, screen_coords
@@ -1259,6 +1345,90 @@ def dmtet_kernel_phases(torch, results):
     record_raster(torch, results, sx.contiguous(), sy.contiguous(),
                   sz.contiguous(), mesh.faces, valid, cfg.h, cfg.w, 512, 1.0,
                   " (DMTet view)", True)
+    field_query_phase(torch, results, *dmtet_query(torch, mesh, b.mvp[0],
+                                                   cfg.h, cfg.w, cfg.bound))
+
+
+def dmtet_query(torch, mesh, mvp, H, W, bound):
+    """The DMTet albedo query of one view: K7's raster of the surface and
+    ``interpolate`` of its vertices, as ``DMTetRenderer.render`` queries
+    the field → (positions in the encoder's [0, 1] coordinates [H·W, 3],
+    the covered pixels [H·W]); a missed pixel's position is 0, x01 = 0.5."""
+    from dreamfusion_tpu_torch.ops.raster import (interpolate, project_verts,
+                                                  rasterize)
+    with torch.no_grad():
+        out = rasterize(project_verts(mesh.verts, mvp), mesh.faces,
+                        mesh.face_mask, H, W)
+        xyz = interpolate(mesh.verts, out, mesh.faces).reshape(-1, 3)
+    x01 = ((xyz + bound) / (2 * bound)).contiguous()
+    return x01, (out.tri_id >= 0).reshape(-1)
+
+
+def field_query_phase(torch, results, x01, covered):
+    """K1 and K6 at the DMTet albedo query's shape with the step's own
+    inputs: the positions of a 512² view (``dmtet_query``; its missed
+    pixels all at x01 = 0.5), cotangents random where a triangle covers the
+    pixel and 0 elsewhere (alpha is 0 there), bf16 as in the fp16 step.
+    Each encoder's forward (bf16, no jacobian), its table-only backward and
+    its backward with the position gradient, against the plain versions, at
+    the flagship's 3x256²x16 planes and L4C8 table."""
+    from dreamfusion_tpu_torch.config import Config
+    from dreamfusion_tpu_torch.ops import hashgrid as K6
+    from dreamfusion_tpu_torch.training.trainer import grid_spec_of
+    dev = x01.device
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    N = x01.shape[0]
+    keep = covered[:, None].to(torch.float32)
+    cfg = Config()
+    R, C = cfg.triplane_resolution, cfg.triplane_channels
+    planes = torch.randn(3, R, R, C, device=dev, generator=g) * 0.1
+    gq = (torch.randn(N, 3 * C, device=dev, generator=g) * keep).to(bf)
+    where = (f" [{N} DMTet queries, {float(covered.float().mean()):.3f} "
+             f"covered]")
+    triplane_rows(torch, results, x01, planes, [gq], False, where)
+
+    spec = grid_spec_of(cfg)
+    L, Cg = spec.num_levels, spec.level_dim
+    table = (torch.rand(spec.table_size, Cg, device=dev, generator=g)
+             - 0.5) * 0.2
+    ids = [K6._corners(x01, spec, l)[0].reshape(-1) for l in range(L)]
+    rows = int(torch.unique(torch.cat(ids)).numel()) * Cg * 4
+    where += f" [L{L}C{Cg}, {spec.table_size} rows]"
+    ok = K6.hash_fwd_cuda(x01, table, spec, L, False, bf)
+    torch.cuda.synchronize()
+    op = K6.hash_fwd_plain(x01, table, spec, L, False)[0].to(bf)
+    err = assert_close("hashgrid_fwd", ok, [op], 1e-6, 2 ** -7)
+    record_kernel(results, "hashgrid_fwd", err, median_ms(
+        lambda: K6.hash_fwd_cuda(x01, table, spec, L, False, bf)),
+        median_ms(lambda: K6.hash_fwd_plain(x01, table, spec, L, False), 5),
+        "1 bf16 ulp", nbytes(x01, *ok) + rows, N * L * (8 * Cg * 2 + 120),
+        "fp32", None, where)
+    gh = (torch.randn(N, L * Cg, device=dev, generator=g) * keep).to(bf)
+    none = (None,) * 3
+    dk = K6.hash_bwd_cuda(x01, spec, L, gh, none)
+    torch.cuda.synchronize()
+    dp = K6.hash_bwd_plain(x01, spec, L, gh, none)
+    err = assert_close("hashgrid_bwd", [dk], [dp],
+                       1e-5 * float(dp.abs().max()), 1e-5)
+    record_kernel(results, "hashgrid_bwd", err, median_ms(
+        lambda: K6.hash_bwd_cuda(x01, spec, L, gh, none)),
+        median_ms(lambda: K6.hash_bwd_plain(x01, spec, L, gh, none), 5),
+        "1e-5 of max |dtable| (fp32 reductions in any order)",
+        nbytes(x01, gh, dk), N * L * 8 * Cg * 2, "fp32", None, where)
+    tk, xk = K6.hash_bwd_dx_cuda(x01, table, spec, L, gh)
+    torch.cuda.synchronize()
+    tp, xp = K6.hash_bwd_dx_plain(x01, table, spec, L, gh)
+    err = max(assert_close("hashgrid_bwd_dx", [tk], [tp],
+                           1e-5 * float(tp.abs().max()), 1e-5),
+              assert_close("hashgrid_bwd_dx", [xk], [xp],
+                           1e-5 * float(xp.abs().max()), 1e-5))
+    record_kernel(results, "hashgrid_bwd_dx", err, median_ms(
+        lambda: K6.hash_bwd_dx_cuda(x01, table, spec, L, gh)),
+        median_ms(lambda: K6.hash_bwd_dx_plain(x01, table, spec, L, gh), 5),
+        "1e-5 of max |dtable|, of max |dx| (fp32 reductions in any order)",
+        nbytes(x01, gh, tk, xk) + rows, N * L * 8 * Cg * 4, "fp32", None,
+        where)
 
 
 def bake_kernel_phase(torch, results, obj_path):
@@ -1564,6 +1734,15 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
     check(dm["grad_ok"], f"{what}: a step had non-finite gradients")
     for name in required:
         check(launches[name] > 0, f"the {what} path never launched {name}")
+    # one view a step (--batch_size 1): its albedo query's backward gives the
+    # table's and the positions' gradients in one launch, and nothing takes
+    # the table-only route or a second forward for the positions
+    enc = "triplane" if group == "triplane" else "hashgrid"
+    check(launches[f"{enc}_bwd_dx"] == steps and launches[f"{enc}_bwd"] == 0
+          and launches[f"{enc}_fwd"] >= steps,
+          f"{what}: {enc} launched fwd {launches[f'{enc}_fwd']}, bwd "
+          f"{launches[f'{enc}_bwd']}, bwd_dx {launches[f'{enc}_bwd_dx']} "
+          f"times in {steps} steps (bwd_dx once a step, bwd never)")
     for gname in ("sdf", "deform", group):
         gm = dm[f"{gname}_grad_max"]
         check(all(g > 0 for g in gm), f"{what}: zero {gname} gradient: {gm}")
@@ -1571,6 +1750,27 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
           f"{what}: an empty surface: {dm['n_faces']}")
     _check_outputs(ws, dm, what)
     return dm, launches
+
+
+def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc):
+    """One DMTet step of the run `flags` describes (built as main builds
+    it), the counters reset just before it: its one view's albedo query
+    launches the encoder `enc`'s forward once and its backward with the
+    position gradient once, and the table-only backward never."""
+    args = port_main.build_parser().parse_args(
+        flags + ["--workspace", ws, "--iters", "2"])
+    cfg = port_main.config_from_args(args)
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    trainer.run_step(state, gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    trainer.run_step(state, gen)
+    torch.cuda.synchronize()
+    got = {k: kernels.LAUNCHES[f"{enc}_{k}"] for k in ("fwd", "bwd", "bwd_dx")}
+    want = {"fwd": cfg.batch_size, "bwd": 0, "bwd_dx": cfg.batch_size}
+    check(got == want, f"{what}: one step launched {enc} {got}, not {want}")
+    log(f"{what}: one step ({cfg.batch_size} view) launched {enc} {got}")
 
 
 def choose_clip_limit(torch, port_main, ws):
@@ -1771,6 +1971,9 @@ def run() -> dict:
         "triplane", smi_line)
     check(all(n < dm["max_tris"] for n in dm["n_faces"]),
           f"DMTet: face counts over max_tris: {dm['n_faces']}")
+    dmtet_view_launches(torch, port_main, kernels, DMTET_FLAGS + [
+        "--init_with", os.path.join(ws, "checkpoints")],
+        os.path.join(build, "chip_smoke_dmtet_view_ws"), "DMTet", "triplane")
 
     # ---- the same on the hash grid (slice 4) --------------------------------
     ws = os.path.join(build, "chip_smoke_grid_ws")
@@ -1781,11 +1984,16 @@ def run() -> dict:
     sd_grid_launches = sd_path(torch, port_main, kernels, SD_GRID_FLAGS,
                                os.path.join(build, "chip_smoke_sd_grid_ws"),
                                "SD -O", "grid", smi_line)
-    dmtet_path(torch, port_main, kernels, GRID_DMTET_FLAGS + [
-        "--init_with", os.path.join(ws, "checkpoints")], DMTET_GRID_STEPS,
+    _, dm_grid_launches = dmtet_path(
+        torch, port_main, kernels, GRID_DMTET_FLAGS + [
+            "--init_with", os.path.join(ws, "checkpoints")], DMTET_GRID_STEPS,
         os.path.join(build, "chip_smoke_dmtet_grid_ws"), "DMTet from grid",
-        ("hashgrid_fwd", "hashgrid_bwd", "raster_fwd", "marching_tets_fwd"),
-        "grid", smi_line)
+        ("hashgrid_fwd", "hashgrid_bwd_dx", "raster_fwd",
+         "marching_tets_fwd"), "grid", smi_line)
+    dmtet_view_launches(torch, port_main, kernels, GRID_DMTET_FLAGS + [
+        "--init_with", os.path.join(ws, "checkpoints")],
+        os.path.join(build, "chip_smoke_dmtet_grid_view_ws"),
+        "DMTet from grid", "hashgrid")
 
     # ---- image → 3D: stage 1 with K5, then DMTet from its mesh (slice 5) ---
     ws = os.path.join(build, "chip_smoke_image_ws")
@@ -1808,6 +2016,8 @@ def run() -> dict:
             return img_dm_launches[name]
         if name in GRID_REG_KERNELS:
             return grid_launches[name]
+        if name == "hashgrid_bwd_dx":
+            return dm_grid_launches[name]
         if name.startswith("hashgrid"):
             return sd_grid_launches[name]
         if name in DMTET_KERNELS and name not in ORACLE_KERNELS:

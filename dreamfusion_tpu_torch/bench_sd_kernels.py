@@ -10,6 +10,7 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only gn
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
         --only gn_routes
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only field
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -64,6 +65,23 @@ one call, in turns (parent, change, change, parent).  With ``--outputs
 FILE`` it also saves every forward's output (the inputs come from one
 seed, so two checkouts see the same ones); ``--compare A B`` prints, per
 shape, whether two such files agree bit for bit.
+
+``--only field`` times the field encoders, K1 (triplane, 3x256²x16) and K6
+(hash grid, the flagship L4C8 table), at the shapes of the flagship step
+(the 98,304 sample positions of ``chip_smoke.flagship_march``: forward
+with the jacobian and the table-only backward from four bf16 cotangents)
+and of the DMTet albedo query (the 262,144 positions of
+``chip_smoke.dmtet_query`` on the DMTet view of ``chip_smoke``'s tet-grid
+128 surface, bf16 cotangents zero on the missed pixels: the forward, and
+the backward that gives the table's and the positions' gradients, by
+whatever route the checkout has: ``triplane_bwd_dx_cuda`` /
+``hash_bwd_dx_cuda``, or the table-only backward plus ``_x_grad``'s
+jacobian forward and reductions).  K1's rows have ``F.grid_sample``
+(bilinear, align_corners=True, the planes as a batch of three) and
+``aten.grid_sampler_2d_backward`` beside them; K6's none.  Each row's
+``kernel_names`` splits its device time by kernel, and ``--outputs`` keeps
+every output of a row (features and jacobians; the table's and the
+positions' gradients).
 """
 
 from __future__ import annotations
@@ -177,16 +195,102 @@ def sweep_gn_routes(smoke, K11, kernels, graph_ms, dev, g, tag, card):
                               "routes": times, "card": card}), flush=True)
 
 
+def field_cases(smoke, dev):
+    """(row, the checkout's call, the library's call or None) for K1 and K6
+    at the flagship step's and the DMTet albedo query's shapes (see the
+    module docstring); inputs from fixed seeds, so every checkout sees the
+    same ones."""
+    import torch
+
+    from dreamfusion_tpu_torch.config import Config, apply_dmtet, finalize
+    from dreamfusion_tpu_torch.ops import hashgrid as K6
+    from dreamfusion_tpu_torch.ops import marching_tets as K8
+    from dreamfusion_tpu_torch.ops import triplane as K1
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+    from dreamfusion_tpu_torch.training.trainer import grid_spec_of
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(11)
+    x1 = smoke.flagship_march(torch)["x01"]
+    _, pos, sdf, tets, te, ue = smoke._geometry_tet128(
+        torch, dev, torch.Generator(device=dev).manual_seed(4))
+    mk = K8.marching_tets(pos, sdf, tets, te, ue, 8 * 128 ** 2)
+    mesh = K8.TetMesh(mk.verts.detach(), mk.vert_valid, mk.faces,
+                      mk.face_mask)
+    cfg = finalize(apply_dmtet(Config(guidance=("oracle",),
+                                      backbone="triplane")))
+    view = circle_view_batch(cfg, 1, 4, cfg.h, cfg.w, dev)
+    xq, covered = smoke.dmtet_query(torch, mesh, view.mvp[0], cfg.h, cfg.w,
+                                    cfg.bound)
+    keep = covered[:, None].float()
+    print(json.dumps({"dmtet_query": list(xq.shape), "covered": float(
+        covered.float().mean())}), flush=True)
+    base = Config()
+    R, C = base.triplane_resolution, base.triplane_channels
+    planes = torch.randn(3, R, R, C, device=dev, generator=g) * 0.1
+    spec = grid_spec_of(base)
+    L, Cg = spec.num_levels, spec.level_dim
+    table = (torch.rand(spec.table_size, Cg, device=dev, generator=g)
+             - 0.5) * 0.2
+    c1 = [torch.randn(x1.shape[0], 3 * C, device=dev, generator=g).to(bf)
+          for _ in range(4)]
+    h1 = [torch.randn(x1.shape[0], L * Cg, device=dev, generator=g).to(bf)
+          for _ in range(4)]
+    cq = (torch.randn(xq.shape[0], 3 * C, device=dev, generator=g)
+          * keep).to(bf)
+    hq = (torch.randn(xq.shape[0], L * Cg, device=dev, generator=g)
+          * keep).to(bf)
+    none = (None,) * 3
+    if hasattr(K1, "triplane_bwd_dx_cuda"):
+        k1_dx = functools.partial(K1.triplane_bwd_dx_cuda, xq, planes, cq)
+        k6_dx = functools.partial(K6.hash_bwd_dx_cuda, xq, table, spec, L,
+                                  hq)
+    else:           # a checkout from before the one-launch routes
+        def k1_dx():
+            return (K1.triplane_bwd_cuda(xq, planes.shape, cq, none),
+                    K1._x_grad(xq, planes, cq))
+
+        def k6_dx():
+            return (K6.hash_bwd_cuda(xq, spec, L, hq, none),
+                    K6._x_grad(xq, table, spec, L, hq))
+    cases = []
+    for where, x, cots, jac in (("step", x1, c1, True),
+                                ("dmtet_query", xq, [cq], False)):
+        lib_fwd, lib_bwd, _ = smoke.grid_sample_calls(torch, x, planes,
+                                                      cots[0])
+        row = {"shape": [x.shape[0], R, C], "at": where, "jacobian": jac}
+        cases.append(({**row, "kernel": "K1 triplane_fwd"}, functools.partial(
+            K1.triplane_fwd_cuda, x, planes, jac, bf), lib_fwd))
+        cases.append(({**row, "kernel": "K1 triplane_bwd" if jac else
+                       "K1 triplane_bwd + dx"},
+                      functools.partial(K1.triplane_bwd_cuda, x,
+                                        planes.shape, cots[0], cots[1:])
+                      if jac else k1_dx, lib_bwd))
+    for where, x, cots, jac in (("step", x1, h1, True),
+                                ("dmtet_query", xq, [hq], False)):
+        row = {"shape": [x.shape[0], spec.table_size, L, Cg], "at": where,
+               "jacobian": jac}
+        cases.append(({**row, "kernel": "K6 hashgrid_fwd"}, functools.partial(
+            K6.hash_fwd_cuda, x, table, spec, L, jac, bf), None))
+        cases.append(({**row, "kernel": "K6 hashgrid_bwd" if jac else
+                       "K6 hashgrid_bwd + dx"},
+                      functools.partial(K6.hash_bwd_cuda, x, spec, L,
+                                        cots[0], cots[1:])
+                      if jac else k6_dx, None))
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
-                                       "gn_routes"),
+                                       "gn_routes", "field"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
-                    "the backward), only K11, or K11 through every route "
-                    "it could take")
+                    "the backward), only K11, K11 through every route "
+                    "it could take, or only K1 and K6 (not in the default "
+                    "set)")
     ap.add_argument("--sd_version", default="2.1",
                     help="whose attention rows: 2.x (d = 64) or 1.x "
                     "(d = 40, 80, 160); the VAE's d = 512 in both")
@@ -302,7 +406,7 @@ def main(argv=None) -> None:
     cases = []
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
-            [] if args.only in ("attn", "gn", "gn_routes")
+            [] if args.only in ("attn", "gn", "gn_routes", "field")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -347,7 +451,7 @@ def main(argv=None) -> None:
                  else smoke.SD15_HEAD_DIMS)
     branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
-            [] if args.only in ("conv", "dgrad", "gn", "gn_routes")
+            [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -417,6 +521,9 @@ def main(argv=None) -> None:
                       functools.partial(gn_bwd, x, wt, bs, stats, dy, G,
                                         silu), lib_fn))
 
+    if args.only == "field":
+        cases += field_cases(smoke, dev)
+
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
                       "card": card}), flush=True)
@@ -430,9 +537,14 @@ def main(argv=None) -> None:
             if row["kernel"] == "K12 conv_dgrad":
                 continue
             y = fn()
+            key = json.dumps({k: row[k] for k in row if k != "gflop"})
+            if row["kernel"].startswith(("K1 ", "K6 ")):
+                for i, t in enumerate(y if isinstance(y, (tuple, list))
+                                      else (y,)):
+                    outs[f"{key}[{i}]"] = t.cpu()
+                continue
             y = y[0] if isinstance(y, tuple) else y
-            outs[json.dumps({k: row[k] for k in row if k != "gflop"})] = \
-                y.cpu()
+            outs[key] = y.cpu()
         torch.save(outs, args.outputs)
         del outs
     # the host times first: the profiler leaves its hooks behind
@@ -446,7 +558,8 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False   # fp32 convs in full fp32
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
-            dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd")
+            dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd") \
+                or row["kernel"].startswith(("K1 ", "K6 "))
             k_ms = kernel_ms(fn, by_name=dgrad)
             lib_ms = lib_fn and kernel_ms(lib_fn, by_name=dgrad)
             extra = {}

@@ -18,9 +18,15 @@
 // accumulates the features and the three jacobian columns in fp32 registers;
 // consecutive threads hold consecutive levels of a sample, so the outputs
 // ([N, L*C], written as 16-byte stores where C*sizeof(T) allows) are written
-// contiguously.  The backward repeats the walk and issues one fp32 atomicAdd
-// per (corner, channel) of the folded coefficient
-// w*g_feat + sum_d dw/dx_d * g_j_d.
+// contiguously.  The backward repeats the walk with a warp per (level, 32
+// consecutive samples), reads the cotangents in their own dtype (bf16 or
+// fp32), skips lanes whose cotangents are all zero, merges the folded
+// coefficients w*g_feat + sum_d dw/dx_d * g_j_d of neighbouring lanes in the
+// same cell (the coarse levels, where a ray's samples or a row's pixels
+// meet; csrc/field.cuh) and adds each corner row with float4 (C = 2:
+// float2) reductions.  hashgrid_bwd_dx gives, in the same walk, dL/dx =
+// sum g_feat * dfeat/dx from the corner rows it reads (the DMTet albedo
+// query's positions); the levels' partials are summed in shared memory.
 //
 // Rules kept from hash_encode: pos = clip(x*res - 0.5, 0, res - 1) (x*res
 // and the subtraction rounded separately, as the plain version and XLA do);
@@ -37,13 +43,12 @@
 // squared table (one atomic per block), backward one elementwise pass; both
 // are bound by reading the 50 MB table once.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "field.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBwdThreads = 512;   // 32 x L x groups, L <= 16
 constexpr unsigned kP1 = 2654435761u, kP2 = 805459861u;
 
 struct Level {
@@ -125,59 +130,6 @@ __device__ __forceinline__ Corner corner(const Geom& g, int k, const Level& lp,
   return c;
 }
 
-// C fp32 values from a 4*C-byte aligned address, as 16- or 8-byte loads
-template <int C>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[C]) {
-  if constexpr (C % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < C / 4; ++i) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
-      v[4 * i] = q.x;
-      v[4 * i + 1] = q.y;
-      v[4 * i + 2] = q.z;
-      v[4 * i + 3] = q.w;
-    }
-  } else {
-    static_assert(C == 2, "C is 2, 4 or 8");
-    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-  }
-}
-
-__device__ __forceinline__ unsigned out_bits(float v, float) {
-  return __float_as_uint(v);
-}
-__device__ __forceinline__ unsigned out_bits(float v, __nv_bfloat16) {
-  return __bfloat16_as_ushort(__float2bfloat16(v));
-}
-
-// C values to a C*sizeof(T)-byte aligned address, in 16/8/4-byte stores
-template <typename T, int C>
-__device__ __forceinline__ void store_row(T* dst, const float (&v)[C]) {
-  constexpr int kWords = C * (int)sizeof(T) / 4;
-  unsigned w[kWords];
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) w[c] = out_bits(v[c], T());
-  } else {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i)   // little-endian: element 2i low
-      w[i] = out_bits(v[2 * i], T()) | (out_bits(v[2 * i + 1], T()) << 16);
-  }
-  if constexpr (kWords % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < kWords / 4; ++i)
-      reinterpret_cast<uint4*>(dst)[i] =
-          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-  } else if constexpr (kWords == 2) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-  } else {
-    static_assert(kWords == 1, "a row of 4, 8 or 16k bytes");
-    *reinterpret_cast<unsigned*>(dst) = w[0];
-  }
-}
-
 __device__ __forceinline__ bool load_x(const float* x, int64_t n,
                                        float xs[3]) {
   xs[0] = x[3 * n];
@@ -214,7 +166,7 @@ __global__ void hash_fwd_kernel(const float* __restrict__ x,
     for (int k = 0; k < 8; ++k) {
       const Corner q = corner(g, k, lp, xor_hash != 0);
       float row[C];
-      load_row<C>(table + (int64_t)q.row * C, row);
+      field::load_f32<C>(table + (int64_t)q.row * C, row);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         f[c] += q.w * row[c];
@@ -227,49 +179,91 @@ __global__ void hash_fwd_kernel(const float* __restrict__ x,
     }
   }
   const int64_t out = idx * C;      // = n * L * C + l * C
-  store_row<T, C>(feat + out, f);
+  field::store_row<T, C>(feat + out, f);
   if (jac) {
-    store_row<T, C>(jx + out, j0);
-    store_row<T, C>(jy + out, j1);
-    store_row<T, C>(jz + out, j2);
+    field::store_row<T, C>(jx + out, j0);
+    field::store_row<T, C>(jy + out, j1);
+    field::store_row<T, C>(jz + out, j2);
   }
 }
 
-template <int C>
-__global__ void hash_bwd_kernel(const float* __restrict__ x,
-                                const int* __restrict__ levels, int N, int L,
-                                int n_active, int smooth, int xor_hash,
-                                const float* __restrict__ g_feat,
-                                const float* __restrict__ g_jx,
-                                const float* __restrict__ g_jy,
-                                const float* __restrict__ g_jz,
-                                float* __restrict__ dtable) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)N * L) return;
-  const int l = (int)(idx % L);
-  const int64_t n = idx / L;
-  if (l >= n_active) return;
-  float xs[3];
-  if (load_x(x, n, xs)) return;
-  const int64_t at = idx * C;
+// The table's gradient for cotangents on feat and on jx, jy, jz (any may be
+// null), and with DX the positions' gradient dx [N, 3] from g_feat (the
+// jacobians' cotangents are null there).  A warp per (level, 32 consecutive
+// samples); a block holds the L levels of G such groups (blockDim.x =
+// 32 L G), and sums their dx partials in shared memory.  Lanes whose
+// cotangents are all zero, or whose sample is outside or level inactive,
+// take no part.
+template <typename G, int C, bool DX>
+__global__ void __launch_bounds__(kBwdThreads)
+    hash_bwd_kernel(const float* __restrict__ x,
+                    const float* __restrict__ table,
+                    const int* __restrict__ levels, int N, int L, int n_active,
+                    int smooth, int xor_hash, const G* __restrict__ g_feat,
+                    const G* __restrict__ g_jx, const G* __restrict__ g_jy,
+                    const G* __restrict__ g_jz, float* __restrict__ dtable,
+                    float* __restrict__ dx) {
+  extern __shared__ float part[];          // DX: [group][level][lane][3]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = warp % L, grp = warp / L;
+  const int groups = blockDim.x / (32 * L);
+  const int64_t n = ((int64_t)blockIdx.x * groups + grp) * 32 + lane;
+  float xs[3] = {0.f, 0.f, 0.f};
+  bool active = n < N && l < n_active && !load_x(x, n, xs);
+  const int64_t at = (n * L + l) * C;
   float gf[C], g0[C], g1[C], g2[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) gf[c] = g0[c] = g1[c] = g2[c] = 0.f;
-  if (g_feat) load_row<C>(g_feat + at, gf);
-  if (g_jx) load_row<C>(g_jx + at, g0);
-  if (g_jy) load_row<C>(g_jy + at, g1);
-  if (g_jz) load_row<C>(g_jz + at, g2);
-  const Level lp = load_level(levels, l);
-  Geom g;
-  level_geom(xs, lp.res, smooth != 0, g);
+  if (active) {
+    if (g_feat) field::load_cot<C>(g_feat + at, gf);
+    if (g_jx) field::load_cot<C>(g_jx + at, g0);
+    if (g_jy) field::load_cot<C>(g_jy + at, g1);
+    if (g_jz) field::load_cot<C>(g_jz + at, g2);
+    active = field::any_nonzero(gf) || field::any_nonzero(g0) ||
+             field::any_nonzero(g1) || field::any_nonzero(g2);
+  }
+  float d[3] = {0.f, 0.f, 0.f};            // this level's share of dx
+  if (__any_sync(field::kFull, active)) {
+    const Level lp = load_level(levels, l);
+    Geom g;
+    level_geom(xs, lp.res, smooth != 0, g);
+    const field::Run run = field::lane_runs(g.base, active);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const Corner q = corner(g, k, lp, xor_hash != 0);
-    float* dst = dtable + (int64_t)q.row * C;
+    for (int k = 0; k < 8; ++k) {
+      const Corner q = corner(g, k, lp, xor_hash != 0);
+      if (DX && active) {
+        float row[C];
+        field::load_f32<C>(table + (int64_t)q.row * C, row);
+        float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      atomicAdd(dst + c, q.w * gf[c] + q.dw[0] * g0[c] + q.dw[1] * g1[c] +
-                             q.dw[2] * g2[c]);
+        for (int c = 0; c < C; ++c) s += gf[c] * row[c];
+#pragma unroll
+        for (int e = 0; e < 3; ++e) d[e] += q.dw[e] * s;
+      }
+      float coef[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        coef[c] = active ? q.w * gf[c] + q.dw[0] * g0[c] + q.dw[1] * g1[c] +
+                               q.dw[2] * g2[c]
+                         : 0.f;
+      field::merge_runs<C>(coef, run);
+      if (active && run.head)
+        field::red_add<C>(dtable + (int64_t)q.row * C, coef);
+    }
+  }
+  if constexpr (DX) {
+    float* mine = part + ((grp * L + l) * 32 + lane) * 3;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) mine[e] = d[e];
+    __syncthreads();
+    if (l == 0 && n < N) {
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        float sum = 0.f;
+        for (int ll = 0; ll < L; ++ll)
+          sum += part[((grp * L + ll) * 32 + lane) * 3 + e];
+        dx[3 * n + e] = sum;
+      }
     }
   }
 }
@@ -418,6 +412,33 @@ cudaError_t fwd_dispatch(int C, unsigned blocks, cudaStream_t s,
   return cudaSuccess;
 }
 
+// a block of G groups of 32 samples x L levels (G = 8 / L, at least 1)
+template <typename G, bool DX>
+cudaError_t bwd_dispatch(int C, cudaStream_t s, const float* x,
+                         const float* table, const int* levels, int N, int L,
+                         int n_active, int smooth, int xor_hash,
+                         const void* g_feat, const void* g_jx,
+                         const void* g_jy, const void* g_jz, float* dtable,
+                         float* dx) {
+  if (N == 0) return cudaSuccess;
+  if (L < 1 || 32 * L > kBwdThreads) return cudaErrorInvalidValue;
+  const int groups = L >= 8 ? 1 : 8 / L;
+  const unsigned blocks = (unsigned)((N + 32 * groups - 1) / (32 * groups));
+  const size_t smem = DX ? (size_t)groups * L * 32 * 3 * sizeof(float) : 0;
+#define HG_BWD(CC)                                                            \
+  hash_bwd_kernel<G, CC, DX><<<blocks, 32 * L * groups, smem, s>>>(           \
+      x, table, levels, N, L, n_active, smooth, xor_hash, (const G*)g_feat,   \
+      (const G*)g_jx, (const G*)g_jy, (const G*)g_jz, dtable, dx)
+  switch (C) {
+    case 2: HG_BWD(2); break;
+    case 4: HG_BWD(4); break;
+    case 8: HG_BWD(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef HG_BWD
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int hashgrid_fwd(const float* x, const float* table,
@@ -441,24 +462,37 @@ extern "C" int hashgrid_fwd(const float* x, const float* table,
 
 extern "C" int hashgrid_bwd(const float* x, const int* levels, int N, int L,
                             int C, int n_active, int smooth, int xor_hash,
-                            const float* g_feat, const float* g_jx,
-                            const float* g_jy, const float* g_jz,
+                            const void* g_feat, const void* g_jx,
+                            const void* g_jy, const void* g_jz, int g_bf16,
                             float* dtable, void* stream) {
-  const int64_t total = (int64_t)N * L;
-  if (total == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned blocks = blocks_for(total);
-#define HG_BWD(CC)                                                            \
-  hash_bwd_kernel<CC><<<blocks, kThreads, 0, s>>>(                            \
-      x, levels, N, L, n_active, smooth, xor_hash, g_feat, g_jx, g_jy, g_jz,  \
-      dtable)
-  switch (C) {
-    case 2: HG_BWD(2); break;
-    case 4: HG_BWD(4); break;
-    case 8: HG_BWD(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef HG_BWD
+  const cudaError_t e =
+      g_bf16 ? bwd_dispatch<__nv_bfloat16, false>(
+                   C, (cudaStream_t)stream, x, nullptr, levels, N, L,
+                   n_active, smooth, xor_hash, g_feat, g_jx, g_jy, g_jz,
+                   dtable, nullptr)
+             : bwd_dispatch<float, false>(
+                   C, (cudaStream_t)stream, x, nullptr, levels, N, L,
+                   n_active, smooth, xor_hash, g_feat, g_jx, g_jy, g_jz,
+                   dtable, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hashgrid_bwd_dx(const float* x, const float* table,
+                               const int* levels, int N, int L, int C,
+                               int n_active, int smooth, int xor_hash,
+                               const void* g_feat, int g_bf16, float* dtable,
+                               float* dx, void* stream) {
+  const cudaError_t e =
+      g_bf16 ? bwd_dispatch<__nv_bfloat16, true>(
+                   C, (cudaStream_t)stream, x, table, levels, N, L, n_active,
+                   smooth, xor_hash, g_feat, nullptr, nullptr, nullptr,
+                   dtable, dx)
+             : bwd_dispatch<float, true>(
+                   C, (cudaStream_t)stream, x, table, levels, N, L, n_active,
+                   smooth, xor_hash, g_feat, nullptr, nullptr, nullptr,
+                   dtable, dx);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -13,12 +13,13 @@ in uint32 arithmetic.  A sample with a coordinate outside [0,1] gives zeros
 and no gradient; levels at or above ``ceil(max_level·L)`` give zeros.
 
 On a CUDA tensor the forward is one launch of ``csrc/hashgrid.cu`` and the
-backward one more (atomics into the table's gradient); on a CPU tensor the
-plain versions below run.  The table receives gradients through both the
-features and the jacobian, so normals built from the jacobian differentiate
-into it with first-order autograd.  The positions receive the features'
-gradient when they ask for one (dL/dx = Σ g·∂feat/∂x, from one more forward
-launch); the jacobian's own gradient into the positions raises.
+backward one more (vector reductions into the table's gradient); on a CPU
+tensor the plain versions below run.  The table receives gradients through
+both the features and the jacobian, so normals built from the jacobian
+differentiate into it with first-order autograd.  The positions receive the
+features' gradient when they ask for one (dL/dx = Σ g·∂feat/∂x), from the
+same backward launch as the table's (``hashgrid_bwd_dx``); the jacobian's
+own gradient into the positions raises.
 
 ``hashgrid_tv_loss`` (squared differences between sampled lattice cells and
 their +x, +y, +z neighbours) and ``hashgrid_wd_loss`` (level-meaned weight
@@ -226,6 +227,26 @@ def hash_bwd_plain(x: torch.Tensor, spec: HashGridSpec, n_active: int,
     return dtable
 
 
+def hash_bwd_dx_plain(x: torch.Tensor, table: torch.Tensor,
+                      spec: HashGridSpec, n_active: int,
+                      g_feat: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dtable [T, C], dx [N, 3]) for a cotangent on feat [N, L·C]:
+    dx = Σ_l Σ_c g·∂feat/∂x, the weights' derivatives under the clip's tie
+    rule (``_corners``)."""
+    N, C, L = x.shape[0], spec.level_dim, spec.num_levels
+    dtable = hash_bwd_plain(x, spec, n_active, g_feat, (None,) * 3)
+    g = g_feat.float().reshape(N, L, C) * (~_oob(x)).to(torch.float32)[
+        :, None, None]
+    dx = torch.zeros(N, 3, device=x.device)
+    for l in range(n_active):
+        ids, _, dw = _corners(x, spec, l)
+        vals = table[ids.reshape(-1)].reshape(N, 8, C)
+        s = (vals * g[:, l, None]).sum(-1)                   # [N, 8]
+        dx = dx + (dw * s[..., None]).sum(1)
+    return dtable, dx
+
+
 def _tv_pairs(cells: torch.Tensor, spec: HashGridSpec, l: int):
     """Rows of the sampled cells [S] and of their +x, +y, +z neighbours
     (clamped to the lattice) [3, S] on level l."""
@@ -314,6 +335,7 @@ def _modes(spec: HashGridSpec) -> Tuple[int, int]:
 
 
 def _check_table(table: torch.Tensor, spec: HashGridSpec) -> None:
+    kernels.check_aligned(table)          # rows are read as 16-byte vectors
     if table.dtype != torch.float32 or \
             tuple(table.shape) != (spec.table_size, spec.level_dim):
         raise ValueError(f"expected an fp32 table [{spec.table_size}, "
@@ -345,22 +367,47 @@ def hash_fwd_cuda(x: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     return outs
 
 
-def hash_bwd_cuda(x: torch.Tensor, spec: HashGridSpec, n_active: int,
-                  g_feat: Optional[torch.Tensor],
-                  g_j: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
-    g_feat, *g_j = [None if g is None else g.float().contiguous()
-                    for g in (g_feat, *g_j)]
-    kernels.check_cuda(x, g_feat, *g_j)
+def _check_bwd(spec: HashGridSpec) -> None:
     if spec.level_dim not in (2, 4, 8):
         raise ValueError(f"the kernel takes 2, 4 or 8 features per level, "
                          f"not {spec.level_dim}")
+    if spec.num_levels > 16:
+        raise ValueError(f"the backward kernel takes up to 16 levels, not "
+                         f"{spec.num_levels}")
+
+
+def hash_bwd_cuda(x: torch.Tensor, spec: HashGridSpec, n_active: int,
+                  g_feat: Optional[torch.Tensor],
+                  g_j: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    """dtable; the cotangents are read in their own dtype (bf16 or fp32)."""
+    (g_feat, *g_j), bf16 = kernels.cotangents(g_feat, *g_j)
+    kernels.check_cuda(x, g_feat, *g_j)
+    _check_bwd(spec)
     dtable = torch.zeros(spec.table_size, spec.level_dim, device=x.device)
     kernels.launch("hashgrid_bwd", kernels.ptr(x),
                    kernels.ptr(_levels(spec, x.device)), x.shape[0],
                    spec.num_levels, spec.level_dim, n_active, *_modes(spec),
-                   kernels.ptr(g_feat), *(kernels.ptr(g) for g in g_j),
+                   kernels.ptr(g_feat), *(kernels.ptr(g) for g in g_j), bf16,
                    kernels.ptr(dtable))
     return dtable
+
+
+def hash_bwd_dx_cuda(x: torch.Tensor, table: torch.Tensor,
+                     spec: HashGridSpec, n_active: int, g_feat: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dtable, dx) in one launch: ``hash_bwd_dx_plain``'s function."""
+    (g_feat,), bf16 = kernels.cotangents(g_feat)
+    kernels.check_cuda(x, table, g_feat)
+    _check_table(table, spec)
+    _check_bwd(spec)
+    dtable = torch.zeros(spec.table_size, spec.level_dim, device=x.device)
+    dx = torch.empty(x.shape[0], 3, device=x.device)
+    kernels.launch("hashgrid_bwd_dx", kernels.ptr(x), kernels.ptr(table),
+                   kernels.ptr(_levels(spec, x.device)), x.shape[0],
+                   spec.num_levels, spec.level_dim, n_active, *_modes(spec),
+                   kernels.ptr(g_feat), bf16, kernels.ptr(dtable),
+                   kernels.ptr(dx))
+    return dtable, dx
 
 
 def _check_cells(cells: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
@@ -436,16 +483,6 @@ def _device_route(t: torch.Tensor) -> bool:
     return False
 
 
-def _x_grad(x, table, spec, n_active, g_feat):
-    """dL/dx [N,3] = Σ_c g_feat · ∂feat/∂x (in [0,1] units)."""
-    if x.is_cuda:
-        _, *jac = hash_fwd_cuda(x, table, spec, n_active, True, torch.float32)
-    else:
-        _, *jac = hash_fwd_plain(x, table, spec, n_active, True)
-    g = g_feat.float()
-    return torch.stack([(g * j).sum(-1) for j in jac], -1)
-
-
 class _HashEncode(torch.autograd.Function):
 
     @staticmethod
@@ -474,9 +511,11 @@ class _HashEncode(torch.autograd.Function):
                 raise NotImplementedError(
                     "the jacobian's gradient into the positions is not "
                     "implemented")
-            if g_feat is not None:
-                dx = _x_grad(x, table.detach(), spec, n_active, g_feat)
-        if ctx.needs_input_grad[1]:
+            bwd = hash_bwd_dx_cuda if x.is_cuda else hash_bwd_dx_plain
+            dtable, dx = bwd(x, table.detach(), spec, n_active, g_feat)
+            if not ctx.needs_input_grad[1]:
+                dtable = None
+        elif ctx.needs_input_grad[1]:
             bwd = hash_bwd_cuda if x.is_cuda else hash_bwd_plain
             dtable = bwd(x, spec, n_active, g_feat, g_j)
         return dx, dtable, None, None, None, None

@@ -17,8 +17,10 @@ resets it with ``reset_launch_counts()`` and reads it afterwards to show
 that a path went through the kernels.  It is process-wide state by design:
 the counters must see launches from every caller.  A kernel with several
 routes (K10's and K12's forwards, chosen by shape) counts each route under
-its own name, which is also its C entry point's; so do K10's backward and
-K11's resident and streaming routes.
+its own name, which is also its C entry point's; so do K10's backward,
+K11's resident and streaming routes, and K1's and K6's backwards (the
+table-only route and the ``_dx`` route that also gives the positions'
+gradient).
 
 The Hopper routes encode TMA tensor maps, whose encoder is a driver API
 call: ``csrc/hopper.cuh`` fetches it through ``cudaGetDriverEntryPoint``,
@@ -46,6 +48,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name → launches by its wrapper (see module docstring)
 LAUNCHES: Dict[str, int] = {
     "triplane_fwd": 0, "triplane_bwd": 0,       # K1, CUDA C++
+    "triplane_bwd_dx": 0,                       # K1 + the positions' grad
     "march_rays": 0,                            # K2, CUDA C++
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
@@ -69,6 +72,7 @@ LAUNCHES: Dict[str, int] = {
     "laplacian_fwd": 0, "laplacian_bwd": 0,                  # K8
     "normal_consistency_fwd": 0, "normal_consistency_bwd": 0,  # K8
     "hashgrid_fwd": 0, "hashgrid_bwd": 0,                    # K6, CUDA C++
+    "hashgrid_bwd_dx": 0,                       # K6 + the positions' grad
     "hashgrid_tv_fwd": 0, "hashgrid_tv_bwd": 0,              # K6
     "hashgrid_wd_fwd": 0, "hashgrid_wd_bwd": 0,              # K6
     "clip_grad_bwd": 0,                                      # K5, CUDA C++
@@ -80,7 +84,8 @@ _L = ctypes.c_int64
 # C signature of every entry point (all return int = cudaError_t)
 _SIGNATURES = {
     "triplane_fwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "triplane_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "triplane_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "triplane_bwd_dx": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "march_rays": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _I, _I, _I,
                    _P, _P, _P, _P],
     "composite_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
@@ -119,7 +124,8 @@ _SIGNATURES = {
     "normal_consistency_fwd": [_P] * 3 + [_I] * 2 + [_P] * 8 + [_P],
     "normal_consistency_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_P],
     "hashgrid_fwd": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P],
-    "hashgrid_bwd": [_P] * 2 + [_I] * 6 + [_P] * 5 + [_P],
+    "hashgrid_bwd": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_I, _P, _P],
+    "hashgrid_bwd_dx": [_P] * 3 + [_I] * 6 + [_P, _I, _P, _P, _P],
     "hashgrid_tv_fwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P],
     "hashgrid_tv_bwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P, _P],
     "hashgrid_wd_fwd": [_P] * 2 + [_I] * 3 + [_P, _P],
@@ -220,3 +226,29 @@ def check_cuda(*tensors) -> None:
             raise ValueError(f"expected CUDA tensors on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")
+
+
+def check_aligned(*tensors) -> None:
+    """Tables read (or reduced into) as 16-byte vectors start on a 16-byte
+    boundary."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("expected a 16-byte aligned tensor")
+
+
+def cotangents(*gs):
+    """Cotangents as the field backwards read them → (list, bf16 flag): one
+    dtype, bf16 where every given one is bf16 and fp32 otherwise (a cast
+    only then), contiguous and 16-byte aligned (a copy only where a view
+    is not); None stays None."""
+    live = [g for g in gs if g is not None]
+    bf16 = bool(live) and all(g.dtype == torch.bfloat16 for g in live)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    out = []
+    for g in gs:
+        if g is not None:
+            g = g.to(dtype).contiguous()
+            if g.data_ptr() % 16:
+                g = g.clone()
+        out.append(g)
+    return out, int(bf16)

@@ -12,9 +12,12 @@ version below runs.  The planes carry gradients through both the
 features and the jacobian, so normals built from the jacobian
 differentiate into the planes with first-order autograd only.  Positions
 carry the features' gradient when they ask for one (the DMTet stage
-queries albedo at rasterized surface points): dL/dx = Σ g·∂feat/∂x, the
-jacobian from one more forward launch; the jacobian's own gradient into
-the positions (a second derivative) is on no path and raises.
+queries albedo at rasterized surface points): dL/dx = Σ g·∂feat/∂x comes
+from the same backward launch as the planes' gradient (``triplane_bwd_dx``),
+with JAX's autodiff rule at the box's faces (a quarter of the slope at a
+coordinate exactly 0: ``triplane_encode`` clips twice, and each clip
+passes half at its tie).  The jacobian's own gradient into the positions
+(a second derivative) is on no path and raises.
 """
 
 from __future__ import annotations
@@ -50,13 +53,17 @@ class TriplaneSpec:
 # plain version
 # ---------------------------------------------------------------------------
 
-def _corners(x: torch.Tensor, R: int):
+def _corners(x: torch.Tensor, R: int, autodiff: bool = False):
     """Per (sample, plane): flat corner row ids [N,3,4], weights and their
     (u, v) derivatives [N,3,4] (derivatives scaled by R-1 and masked to
-    0 < coord < 1), and the out-of-bounds sample mask [N]."""
+    0 < coord < 1, the jacobian's rule; with ``autodiff``, JAX's autodiff
+    rule for the position gradient instead: a quarter at a coordinate
+    exactly 0), and the out-of-bounds sample mask [N]."""
     N = x.shape[0]
     uv = torch.stack([x[:, list(ax)] for ax in _PLANE_AXES], dim=1)  # [N,3,2]
     inside = ((uv > 0.0) & (uv < 1.0)).to(x.dtype)
+    if autodiff:
+        inside = inside + 0.25 * (uv == 0.0).to(x.dtype)
     pos = torch.clamp(uv, 0.0, 1.0) * (R - 1)
     p0 = torch.floor(pos)
     frac = pos - p0
@@ -130,6 +137,26 @@ def triplane_bwd_plain(x: torch.Tensor, planes_shape: Sequence[int],
     return dplanes.reshape(3, R, R, C)
 
 
+def triplane_bwd_dx_plain(x: torch.Tensor, planes: torch.Tensor,
+                          g_feat: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dplanes [3,R,R,C], dx [N,3]) for a cotangent on feat [N, 3C]:
+    dx = Σ_c g·∂feat/∂x under JAX's autodiff rule at the faces."""
+    _, R, _, C = planes.shape
+    N = x.shape[0]
+    dplanes = triplane_bwd_plain(x, planes.shape, g_feat, (None,) * 3)
+    ids, _, du, dv, oob = _corners(x, R, autodiff=True)
+    vals = planes.reshape(-1, C)[ids.reshape(-1)].reshape(N, 3, 4, C)
+    g = g_feat.float().reshape(N, 3, C) * (~oob).to(torch.float32)[:, None,
+                                                                    None]
+    s = (vals * g[:, :, None]).sum(-1)                        # [N, 3, 4]
+    su, sv = (du * s).sum(-1), (dv * s).sum(-1)               # [N, 3]
+    # planes xy, xz, yz: u is x, x, y and v is y, z, z
+    dx = torch.stack([su[:, 0] + su[:, 1], sv[:, 0] + su[:, 2],
+                      sv[:, 1] + sv[:, 2]], -1)
+    return dplanes, dx
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
@@ -138,6 +165,7 @@ def triplane_fwd_cuda(x: torch.Tensor, planes: torch.Tensor,
                       need_jacobian: bool, out_dtype: torch.dtype
                       ) -> List[torch.Tensor]:
     kernels.check_cuda(x, planes)
+    kernels.check_aligned(planes)
     if x.dtype != torch.float32 or planes.dtype != torch.float32:
         raise ValueError("triplane kernel takes fp32 x and planes")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -156,26 +184,35 @@ def triplane_fwd_cuda(x: torch.Tensor, planes: torch.Tensor,
 def triplane_bwd_cuda(x: torch.Tensor, planes_shape: Sequence[int],
                       g_feat: Optional[torch.Tensor],
                       g_j: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    """dplanes; the cotangents are read in their own dtype (bf16 or fp32)."""
     _, R, _, C = planes_shape
     N = x.shape[0]
-    g_feat, *g_j = [None if g is None else g.float().contiguous()
-                    for g in (g_feat, *g_j)]
+    (g_feat, *g_j), bf16 = kernels.cotangents(g_feat, *g_j)
     kernels.check_cuda(x, g_feat, *g_j)
     dplanes = torch.zeros(tuple(planes_shape), device=x.device,
                           dtype=torch.float32)
     kernels.launch("triplane_bwd", kernels.ptr(x), N, R, C,
-                   kernels.ptr(g_feat), *(kernels.ptr(g) for g in g_j),
+                   kernels.ptr(g_feat), *(kernels.ptr(g) for g in g_j), bf16,
                    kernels.ptr(dplanes))
     return dplanes
 
 
-def _x_grad(x, planes, g_feat):
-    """dL/dx [N,3] = Σ_c g_feat · ∂feat/∂x (in [0,1] units)."""
-    fwd = triplane_fwd_cuda if x.is_cuda else \
-        (lambda *a: triplane_fwd_plain(*a[:3]))
-    _, *jac = fwd(x, planes, True, torch.float32)
-    g = g_feat.float()
-    return torch.stack([(g * j).sum(-1) for j in jac], -1)
+def triplane_bwd_dx_cuda(x: torch.Tensor, planes: torch.Tensor,
+                         g_feat: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dplanes, dx) in one launch: ``triplane_bwd_dx_plain``'s function."""
+    _, R, _, C = planes.shape
+    N = x.shape[0]
+    (g_feat,), bf16 = kernels.cotangents(g_feat)
+    kernels.check_cuda(x, planes, g_feat)
+    kernels.check_aligned(planes)
+    dplanes = torch.zeros(tuple(planes.shape), device=x.device,
+                          dtype=torch.float32)
+    dx = torch.empty(N, 3, device=x.device, dtype=torch.float32)
+    kernels.launch("triplane_bwd_dx", kernels.ptr(x), kernels.ptr(planes), N,
+                   R, C, kernels.ptr(g_feat), bf16, kernels.ptr(dplanes),
+                   kernels.ptr(dx))
+    return dplanes, dx
 
 
 class _TriplaneScale(torch.autograd.Function):
@@ -201,16 +238,16 @@ class _TriplaneScale(torch.autograd.Function):
         g_j = tuple(g_j) + (None,) * (3 - len(g_j))
         if g_feat is None and all(g is None for g in g_j):
             return None, None, None, None
-        dx = None
         if ctx.needs_input_grad[0]:
             if any(g is not None for g in g_j):
                 raise NotImplementedError(
                     "the jacobian's gradient into the positions is not "
                     "implemented")
-            if g_feat is not None:
-                dx = _x_grad(x, planes.detach(), g_feat)
+            bwd = triplane_bwd_dx_cuda if x.is_cuda else triplane_bwd_dx_plain
+            dplanes, dx = bwd(x, planes.detach(), g_feat)
+            return dx, dplanes, None, None
         bwd = triplane_bwd_cuda if x.is_cuda else triplane_bwd_plain
-        return dx, bwd(x, ctx.planes_shape, g_feat, g_j), None, None
+        return None, bwd(x, ctx.planes_shape, g_feat, g_j), None, None
 
 
 def triplane_encode(x: torch.Tensor, planes: Sequence[torch.Tensor],

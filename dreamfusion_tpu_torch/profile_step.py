@@ -109,8 +109,9 @@ def profile_phase(trainer, state, gen, n_steps: int, label: str) -> None:
     busy = _busy_us([(e.time_range.start, e.time_range.end)
                      for e in kern]) / 1e3 / n_steps
     print(f"[profile] {label}: kernels {total:.3f} ms/step, device busy "
-          f"{busy:.3f} ms/step = {100 * busy / wall_ms:.1f}% of the wall",
-          flush=True)
+          f"{busy:.3f} ms/step = {100 * busy / wall_ms:.1f}% of the wall, "
+          f"{len(kern) / n_steps:.1f} device operations/step (kernels, "
+          f"copies, fills)", flush=True)
     by_group, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     by_part = defaultdict(lambda: [0.0, 0])
     for e in kern:

@@ -27,6 +27,9 @@ from dreamfusion_tpu_torch.ops.conv import (conv2d, conv2d_plain, conv_route,
 from dreamfusion_tpu_torch.ops.groupnorm import (group_norm, group_norm_plain,
                                                  group_norm_route, groups_for)
 from dreamfusion_tpu_torch.ops.triplane import (TriplaneSpec,
+                                                triplane_bwd_cuda,
+                                                triplane_bwd_dx_cuda,
+                                                triplane_bwd_dx_plain,
                                                 triplane_bwd_plain,
                                                 triplane_encode,
                                                 triplane_fwd_plain)
@@ -48,7 +51,9 @@ def _gen(dev, seed=0):
 
 @pytest.mark.parametrize("R,C,N,dtype", [(32, 8, 1000, torch.float32),
                                          (64, 16, 4099, torch.bfloat16),
-                                         (17, 6, 33, torch.float32)])
+                                         (17, 6, 33, torch.float32),
+                                         (13, 3, 257, torch.bfloat16),
+                                         (20, 4, 515, torch.float32)])
 def test_triplane_kernel(dev, R, C, N, dtype):
     g = _gen(dev)
     planes = torch.randn(3, R, R, C, device=dev, generator=g) * 0.1
@@ -146,6 +151,111 @@ def test_field_head_kernel(dev, N, dtype):
     ref_g = field_head_bwd_plain(h, x, 5.0, 0.2, *cots).to(dtype)
     torch.testing.assert_close(gh.float(), ref_g.float(), atol=1e-4,
                                rtol=1e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+def _field_positions(dev, g, N, case):
+    """Positions for the backward routes: uniform with ties (coordinates
+    exactly 0 and 1) and samples outside the box, or every sample at the
+    box's centre (the DMTet query's missed pixels)."""
+    if case.startswith("one_point"):
+        return torch.full((N, 3), 0.5, device=dev)
+    x = torch.rand(N, 3, device=dev, generator=g)
+    x[0] = torch.tensor([1.5, 0.5, 0.5])              # outside
+    x[1] = torch.tensor([0.5, -1e-3, 0.5])
+    x[2:20, 0] = 0.0                                  # the coordinate-0 tie
+    x[20:30, 1] = 1.0
+    x[30] = torch.tensor([0.0, 0.0, 0.0])
+    return x
+
+
+def _field_cots(dev, g, x, D, case, dtype):
+    """Cotangents [N, D] in `dtype`: random, with a band of all-zero rows;
+    all zero but for every 7th row in the "one_point_sparse" case."""
+    c = torch.randn(x.shape[0], D, device=dev, generator=g)
+    if case == "one_point_sparse":
+        c[torch.arange(x.shape[0], device=dev) % 7 != 0] = 0.0
+    else:
+        c[40:90] = 0.0
+    return c.to(dtype)
+
+
+def _term_magnitudes(monkeypatch, module, plain, *args):
+    """Σ |term| for each value `plain(*args)` sums: the same plain backward
+    with the corner weights and their derivatives (``module._corners``)
+    and every cotangent (the tensors in `args` past the positions) taken by
+    magnitude: the scale of an fp32 sum's rounding."""
+    corners = module._corners
+
+    def abs_corners(*a, **k):
+        return tuple(t.abs() if t.is_floating_point() else t
+                     for t in corners(*a, **k))
+
+    def mag(t):
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            return t.abs()
+        if isinstance(t, (list, tuple)):
+            return type(t)(mag(u) for u in t)
+        return t
+
+    with monkeypatch.context() as m:
+        m.setattr(module, "_corners", abs_corners)
+        return plain(args[0], *(mag(a) for a in args[1:]))
+
+
+def _close_to_terms(got, want, mag, rel):
+    """Each value within `rel` of its terms' magnitude (`mag`:
+    ``_term_magnitudes``) plus 1e-6 of the largest: fp32 sums of up to 200k
+    terms in another order, by reductions in any order (sqrt(n)·2^-24 is
+    2.7e-5 at 200k terms)."""
+    bad = (got.float() - want.float()).abs() > \
+        rel * mag + 1e-6 * float(mag.max())
+    assert not bool(bad.any()), f"{int(bad.sum())} of {bad.numel()} values"
+
+
+# N, case: ragged sizes, 200k samples at one point (all cotangents zero but
+# every 7th row's, or all random), positions with ties and outside samples
+FIELD_CASES = [(33, "ties"), (4099, "ties"), (200_000, "one_point_sparse"),
+               (200_000, "one_point")]
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,case", FIELD_CASES)
+@pytest.mark.parametrize("R,C", [(64, 16), (17, 6)])
+def test_triplane_bwd_routes(dev, R, C, N, case, gdtype, monkeypatch):
+    """triplane_bwd (4 cotangents) and triplane_bwd_dx (the features') in
+    one launch each, against their plain versions."""
+    from dreamfusion_tpu_torch.ops import triplane as K1
+    g = _gen(dev, 3)
+    planes = torch.randn(3, R, R, C, device=dev, generator=g) * 0.1
+    x = _field_positions(dev, g, N, case)
+    cots = [_field_cots(dev, g, x, 3 * C, case, gdtype) for _ in range(4)]
+    kernels.reset_launch_counts()
+    dk = triplane_bwd_cuda(x, planes.shape, cots[0], cots[1:])
+    dpk, dxk = triplane_bwd_dx_cuda(x, planes, cots[0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["triplane_bwd"] == 1
+    assert kernels.LAUNCHES["triplane_bwd_dx"] == 1
+    dp = triplane_bwd_plain(x, planes.shape, cots[0], cots[1:])
+    mag = _term_magnitudes(monkeypatch, K1, triplane_bwd_plain, x,
+                           planes.shape, cots[0], cots[1:])
+    _close_to_terms(dk, dp, mag, 1e-4)
+    dpp, dxp = triplane_bwd_dx_plain(x, planes, cots[0])
+    mag = _term_magnitudes(monkeypatch, K1, triplane_bwd_plain, x,
+                           planes.shape, cots[0], (None,) * 3)
+    _close_to_terms(dpk, dpp, mag, 1e-4)
+    # dx: a sum of 3 planes x C channels x 4 corners a sample
+    _close_to(dxk, dxp, 1e-5)
+    if case == "ties":
+        assert not dxk[:2].any() and not dxk[40:90].any()
+        assert bool((dxk[2:20, 0] != 0).all())        # a quarter slope
+
+
+def test_triplane_bwd_refuses_a_misaligned_table(dev):
+    buf = torch.zeros(3 * 16 * 16 * 4 + 1, device=dev)
+    planes = buf[1:].view(3, 16, 16, 4)
+    x = torch.rand(8, 3, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        triplane_bwd_dx_cuda(x, planes, torch.ones(8, 12, device=dev))
 
 
 def test_wrappers_count_their_launches(dev):
@@ -1027,6 +1137,94 @@ def test_hashgrid_position_grad(dev, hash_):
                                 cot.cpu())
     _close_to(dk.cpu(), dp, 1e-5)
     assert not dk[:2].any()
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,case", FIELD_CASES)
+@pytest.mark.parametrize("L,C,log2,res,hash_,max_level", [
+    (4, 8, 19, 2048, "affine", None), (16, 2, 19, 2048, "xor", None),
+    (8, 4, 12, 256, "affine", 0.6)])
+def test_hashgrid_bwd_routes(dev, L, C, log2, res, hash_, max_level, N, case,
+                             gdtype, monkeypatch):
+    """hashgrid_bwd (4 cotangents) and hashgrid_bwd_dx (the features') in
+    one launch each, against their plain versions."""
+    from dreamfusion_tpu_torch.models.nerf import make_grid_spec
+    from dreamfusion_tpu_torch.ops import hashgrid as K6
+    from dreamfusion_tpu_torch.ops.hashgrid import (hash_bwd_cuda,
+                                                    hash_bwd_dx_cuda,
+                                                    hash_bwd_dx_plain,
+                                                    hash_bwd_plain,
+                                                    n_active_levels)
+    spec = make_grid_spec(L, C, log2, res, "smoothstep", hash_)
+    n_act = n_active_levels(spec, max_level)
+    g = _gen(dev, 4)
+    table = (torch.rand(spec.table_size, C, device=dev, generator=g)
+             - 0.5) * 0.2
+    x = _field_positions(dev, g, N, case)
+    cots = [_field_cots(dev, g, x, L * C, case, gdtype) for _ in range(4)]
+    kernels.reset_launch_counts()
+    dk = hash_bwd_cuda(x, spec, n_act, cots[0], cots[1:])
+    dtk, dxk = hash_bwd_dx_cuda(x, table, spec, n_act, cots[0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hashgrid_bwd"] == 1
+    assert kernels.LAUNCHES["hashgrid_bwd_dx"] == 1
+    dp = hash_bwd_plain(x, spec, n_act, cots[0], cots[1:])
+    mag = _term_magnitudes(monkeypatch, K6, hash_bwd_plain, x, spec, n_act,
+                           cots[0], cots[1:])
+    _close_to_terms(dk, dp, mag, 1e-4)
+    dtp, dxp = hash_bwd_dx_plain(x, table, spec, n_act, cots[0])
+    mag = _term_magnitudes(monkeypatch, K6, hash_bwd_plain, x, spec, n_act,
+                           cots[0], (None,) * 3)
+    _close_to_terms(dtk, dtp, mag, 1e-4)
+    # dx: a sum over L levels x 8 corners x C channels a sample
+    _close_to(dxk, dxp, 1e-5)
+    if case == "ties":
+        assert not dxk[:2].any() and not dxk[40:90].any()
+
+
+def _dmtet_view_launches(dev, backbone):
+    """Launch counts of one DMTet view's albedo query and its backward: a
+    small tet grid, the field's albedo at the rasterized surface points."""
+    from dreamfusion_tpu_torch.config import Config, finalize
+    from dreamfusion_tpu_torch.mesh.tets import generate_tet_grid
+    from dreamfusion_tpu_torch.models.dmtet import DMTetRenderer
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+    from dreamfusion_tpu_torch.training.trainer import build_renderer
+    cfg = finalize(Config(guidance=("oracle",), backbone=backbone,
+                          grid_log2_hashmap_size=14, triplane_resolution=32,
+                          triplane_channels=8, hidden_dim=16))
+    nerf = build_renderer(cfg)
+    nerf.field.reset_parameters(torch.Generator().manual_seed(0))
+    nerf.to(dev)
+    r = DMTetRenderer(generate_tet_grid(8), max_tris=4096, device=dev)
+    p = r.init_params_sphere(0.45)
+    p = p._replace(sdf=p.sdf.requires_grad_(),
+                   deform=p.deform.requires_grad_())
+    b = circle_view_batch(Config(), 0, 1, 64, 64, dev)
+    kernels.reset_launch_counts()
+    out = r.render(p, lambda x: nerf.field.density(x)["albedo"], b.mvp[0],
+                   64, 64, b.rays_o[0], b.rays_d[0], shading="lambertian",
+                   ambient_ratio=0.5)
+    out["image"].sum().backward()
+    torch.cuda.synchronize()
+    assert float(p.deform.grad.abs().max()) > 0
+    table = nerf.field.grid_table if backbone == "grid" else \
+        nerf.field.triplanes[0]
+    assert float(table.grad.abs().max()) > 0
+    return dict(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("backbone,enc", [("triplane", "triplane"),
+                                          ("grid", "hashgrid")])
+def test_a_dmtet_view_launches_one_forward_and_one_dx_backward(dev, backbone,
+                                                               enc):
+    """The albedo query's positions take a gradient: one encoder forward
+    and one backward that gives the table's and the positions' gradients
+    (no second, jacobian forward)."""
+    n = _dmtet_view_launches(dev, backbone)
+    assert n[f"{enc}_fwd"] == 1
+    assert n[f"{enc}_bwd_dx"] == 1
+    assert n[f"{enc}_bwd"] == 0
 
 
 @pytest.mark.parametrize("L,C,log2,res,hash_", [
