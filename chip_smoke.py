@@ -55,7 +55,13 @@
    DMTet stage's shapes: tet_grid_size 128 (274,625 grid vertices,
    1,572,864 tets, ~1.9M edge slots, 131,072 triangle slots) and 512²
    renders; K7's forward also at the texture bake's 1024² (after step 4,
-   on the mesh it exported).
+   on the mesh it exported).  K7's tile lists must equal ``tile_lists``'
+   (each tile's first cap triangles by index); K8's faces, mask and slots
+   must equal the plain version's bit for bit, and normal consistency's
+   pairs (from the static tet adjacency) the plain version's sorted-key
+   pairs.  K7's bound counts the function's work, not an implementation's:
+   each triangle set up and binned once into the tiles its box touches,
+   then ~20 fp32 operations per (pixel, listed triangle).
 4. Resets the launch counters and trains the flagship-width oracle path
    (stage 1) through dreamfusion_tpu_torch.main for 300 steps, with one
    eval (validation PNGs at 800²), rolling checkpoints, an 8-frame 800²
@@ -87,9 +93,12 @@
    a step, its table-only backward never), non-zero sdf and deform
    gradients, a face count in (0, max_tris) and a written mesh.obj; logs
    s/step, peak memory and the analytic PSNR of the albedo render at the
-   first and last step.  Then one more step of the same run, built as main
-   builds it, the counters reset just before it: K1's forward and its
-   ``_dx`` backward once each (one view), the table-only backward never.
+   first and last step; every K7/K8 backward exactly once a step
+   (``DMTET_STEP_LAUNCHES``: the interpolate's twice).  Then one more
+   step of the same run, built as main builds it, the counters reset just
+   before it: K1's forward and its ``_dx`` backward once each (one view),
+   the table-only backward never, and every K7/K8 entry point exactly as
+   ``DMTET_STEP_LAUNCHES`` counts.
 7. The hash-grid backbone (-O's), each run with the counters reset just
    before it: stage 1 with the flagship oracle flags on --backbone grid
    and small tv and weight-decay weights (300 steps, the same run's end and
@@ -118,7 +127,8 @@
    --init_with mesh.obj``, tet grid 128, 512², the image oracle, K5) for
    20 steps: K9 launched once (the init), K5 once per SDS step, K7 and K8
    every step, known-view DMTet steps, non-zero sdf and deform gradients,
-   the face count in (0, max_tris); the init's seconds logged.
+   the face count in (0, max_tris); the init's seconds logged; and its
+   one-step launch check as step 6's.
 9. Prints one JSON line with every kernel's route, source, the TPU function
    it replaces, launches on its path (K1-K4 and K10-K12: the SD run, K10's
    d = 40, 80 and 160 routes: the SD 1.5 run; K7, K8 and K1's ``_dx``
@@ -310,6 +320,15 @@ DMTET_KERNELS = tuple(k for k in KERNELS if k.split("_")[0] in
                       ("raster", "interpolate", "marching", "vertex",
                        "laplacian", "normal")) + (
     "triplane_fwd", "triplane_bwd_dx", "field_head_fwd", "field_head_bwd")
+# K7's and K8's launches in one DMTet step of one view (--batch_size 1): the
+# mesh, the view's raster and two interpolates (positions and normals), the
+# vertex normals and the two regularizers, each forward and backward
+DMTET_STEP_LAUNCHES = {
+    "marching_tets_fwd": 1, "marching_tets_bwd": 1, "raster_fwd": 1,
+    "raster_bwd": 1, "interpolate_fwd": 2, "interpolate_bwd": 2,
+    "vertex_normals_fwd": 1, "vertex_normals_bwd": 1, "laplacian_fwd": 1,
+    "laplacian_bwd": 1, "normal_consistency_fwd": 1,
+    "normal_consistency_bwd": 1}
 IMAGE_KERNELS = ORACLE_KERNELS + ("clip_grad_bwd",)
 IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
 # The SD 2.1 step's K12 forwards (bf16 unless stated; the UNet at CFG batch
@@ -1130,11 +1149,22 @@ def _geometry_tet128(torch, dev, g):
         t(grid.tet_edges), t(grid.unique_edges)
 
 
-def _raster_ops(ids_listed, T, P):
-    """Operations of the tile sweep for this run's data: ~20 fp32 per
-    (pixel, listed triangle) plus 4 per (tile, scanned triangle)."""
-    counts = ids_listed.sum(1)
-    return float(counts.sum()) * P * 20 + ids_listed.shape[0] * T * 4
+def _raster_ops(listed, bmin, bmax, valid, H, W, tile, soft):
+    """Operations of the function for this run's data, whatever the
+    implementation: each triangle set up once (~40 fp32) and binned once
+    into the tiles its padded box touches (~4 per (triangle, tile)), then
+    ~20 fp32 per (pixel, listed triangle)."""
+    import torch
+    pad = soft + 1.0
+    ntx, nty = -(-W // tile), -(-H // tile)
+    x0 = torch.floor((bmin[:, 0] - pad) / tile).clamp(min=0)
+    x1 = torch.floor((bmax[:, 0] + pad) / tile).clamp(max=ntx - 1)
+    y0 = torch.floor((bmin[:, 1] - pad) / tile).clamp(min=0)
+    y1 = torch.floor((bmax[:, 1] + pad) / tile).clamp(max=nty - 1)
+    touched = ((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)
+               * valid).sum()
+    return (float(listed.sum()) * tile * tile * 20 + float(touched) * 4
+            + valid.shape[0] * 40)
 
 
 def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
@@ -1162,21 +1192,31 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
     T = faces.shape[0]
     with torch.no_grad():
         _, _, _, _, bmin, bmax = K7._face_coeffs(sx, sy, sz, faces.long())
-        _, listed = K7.tile_lists(bmin, bmax, valid, H, W, 32, cap, soft)
-    P = 32 * 32
+        ids, listed = K7.tile_lists(bmin, bmax, valid, H, W, 32, cap, soft)
+    # the kernel's lists: the first cap triangles by index of every tile
+    b = ok.bins
+    cap = b.lists.shape[1]
+    n = b.counts.clamp(max=cap)
+    check(bool(torch.equal(n, listed.sum(1).to(n.dtype))),
+          f"raster_fwd{where}: tile counts differ from tile_lists")
+    keep = torch.arange(cap, device=dev)[None] < n[:, None]
+    check(bool(torch.equal(b.lists[keep], ids[:, :cap][keep].to(
+        torch.int32))), f"raster_fwd{where}: tile lists differ from "
+        "tile_lists")
     det = [x.detach() for x in (sx, sy, sz)]
-    outs = nbytes(*ok) + nbytes(ok.tri_id)        # + the margin winner ids
+    outs = nbytes(*ok[:4], b.slots)       # + the winners' slots
     record_kernel(results, "raster_fwd", err, median_ms(
         lambda: K7.raster_cuda(*det, faces, valid, H, W, 32, cap, soft)),
         median_ms(lambda: K7.raster_plain(*det, faces, valid, H, W, 32, cap,
                                           soft), 5, 1),
-        "tri_id on >= 99.99% of pixels; bary, depth, alpha 1e-5",
-        nbytes(sx, sy, sz, faces, valid) + outs,
-        _raster_ops(listed, T, P), "fp32", None,
-        f" [{H}x{W}, {T} faces, cap {cap}, soft {soft}]")
+        "tri_id on >= 99.99% of pixels; bary, depth, alpha 1e-5; lists "
+        "equal", nbytes(sx, sy, sz, faces, valid) + outs,
+        _raster_ops(listed, bmin, bmax, valid, H, W, 32, soft), "fp32",
+        None, f" [{H}x{W}, {T} faces, cap {cap}, soft {soft}]")
     log(f"raster{where}: {float((op.tri_id >= 0).float().mean()):.3f} of "
         f"pixels covered, {float(listed.sum(1).float().mean()):.1f} "
-        f"triangles listed per tile (max {int(listed.sum(1).max())})")
+        f"triangles listed per tile (max {int(listed.sum(1).max())}; "
+        f"{int((b.counts > cap).sum())} tiles over the cap)")
 
     # interpolate the surface positions through the kernel's bary
     V = sx.shape[0]
@@ -1254,24 +1294,34 @@ def dmtet_kernel_phases(torch, results):
     where = f" [V {V}, F {F}, E {E}, max_tris {max_tris}]"
 
     # ---- marching tets --------------------------------------------------
+    t0 = time.time()
+    topo = K8.tet_topology(tets, te, V, E)
+    torch.cuda.synchronize()
+    log(f"tet topology (once per grid){where}: {time.time() - t0:.3f} s")
     p1, s1 = pos.clone().requires_grad_(), sdf.clone().requires_grad_()
     p2, s2 = pos.clone().requires_grad_(), sdf.clone().requires_grad_()
-    mk = K8.marching_tets(p1, s1, tets, te, ue, max_tris)
+    mk = K8.marching_tets(p1, s1, tets, te, ue, max_tris, topo)
     torch.cuda.synchronize()
     mp = K8.marching_tets_plain(p2, s2, tets, te, ue, max_tris)
     check(bool(torch.equal(mk.faces, mp.faces)) and
           bool(torch.equal(mk.face_mask, mp.face_mask)),
           "marching_tets_fwd: faces or mask differ from the plain version")
+    ts, fi = K8.mesh_slots_plain(sdf, tets, max_tris)
+    has = (ts.reshape(-1, 2) >= 0).any(1).repeat_interleave(2)
+    check(bool(torch.equal(mk.slots.tri_slot[has], ts[has])) and
+          bool(torch.equal(mk.slots.face_info, fi)),
+          "marching_tets_fwd: tri_slot or face_info differ from the plain "
+          "version")
     n_faces = int(mk.face_mask.sum())
     check(0 < n_faces < max_tris, f"marching_tets_fwd: {n_faces} faces")
     err = assert_close("marching_tets_fwd", [mk.verts], [mp.verts], 1e-6, 0)
     mt_bytes = nbytes(pos, sdf, tets, te, ue, mk.verts, mk.vert_valid,
                       mk.faces, mk.face_mask)
     record_kernel(results, "marching_tets_fwd", err, median_ms(
-        lambda: K8.marching_tets(pos, sdf, tets, te, ue, max_tris)),
+        lambda: K8.marching_tets(pos, sdf, tets, te, ue, max_tris, topo)),
         median_ms(lambda: K8.marching_tets_plain(pos, sdf, tets, te, ue,
                                                  max_tris), 5),
-        "faces and mask equal, verts 1e-6", mt_bytes, E * 12 + F * 12,
+        "faces, mask and slots equal, verts 1e-6", mt_bytes, E * 12 + F * 12,
         "fp32", None, f"{where}, {n_faces} faces")
     c = torch.randn(mk.verts.shape, device=dev, generator=g)
     gk = torch.autograd.grad(mk.verts, [p1, s1], c, retain_graph=True)
@@ -1288,8 +1338,20 @@ def dmtet_kernel_phases(torch, results):
         E * 20, "fp32", None, where)
 
     # ---- the three regularizers on that surface ---------------------------
-    mesh = K8.TetMesh(mk.verts.detach(), mk.vert_valid, mk.faces,
-                      mk.face_mask)
+    mesh = mk._replace(verts=mk.verts.detach())
+    # normal consistency's pairs: the kernel's (from the static topology)
+    # against the plain version's sort of the edge keys
+    _, partner = K8.normal_consistency_cuda(mesh)
+    sl = torch.arange(max_tris, device=dev)[:, None].expand_as(partner)
+    live = partner >= 0
+    a, b = sl[live], partner[live].long()
+    got = torch.unique(torch.stack([torch.minimum(a, b), torch.maximum(a, b)],
+                                   -1), dim=0)
+    want = K8.nc_pairs_plain(mesh.faces, mesh.face_mask, E)
+    check(bool(torch.equal(got, want)), f"normal_consistency_fwd: "
+          f"{got.shape[0]} pairs, the plain version {want.shape[0]}")
+    log(f"normal consistency{where}: {got.shape[0]} pairs, the plain "
+        f"version's set")
     T = max_tris
     cn = torch.randn(mesh.verts.shape, device=dev, generator=g)
     regs = {
@@ -1743,6 +1805,12 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
           f"{what}: {enc} launched fwd {launches[f'{enc}_fwd']}, bwd "
           f"{launches[f'{enc}_bwd']}, bwd_dx {launches[f'{enc}_bwd_dx']} "
           f"times in {steps} steps (bwd_dx once a step, bwd never)")
+    # the backwards run once a step (evals and the export add forwards)
+    for name, n in DMTET_STEP_LAUNCHES.items():
+        check(launches[name] == n * steps if name.endswith("_bwd")
+              else launches[name] >= n * steps,
+              f"{what}: {name} launched {launches[name]} times in {steps} "
+              f"steps ({n} a step)")
     for gname in ("sdf", "deform", group):
         gm = dm[f"{gname}_grad_max"]
         check(all(g > 0 for g in gm), f"{what}: zero {gname} gradient: {gm}")
@@ -1756,7 +1824,8 @@ def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc):
     """One DMTet step of the run `flags` describes (built as main builds
     it), the counters reset just before it: its one view's albedo query
     launches the encoder `enc`'s forward once and its backward with the
-    position gradient once, and the table-only backward never."""
+    position gradient once, and the table-only backward never; K7 and K8
+    launch exactly ``DMTET_STEP_LAUNCHES``."""
     args = port_main.build_parser().parse_args(
         flags + ["--workspace", ws, "--iters", "2"])
     cfg = port_main.config_from_args(args)
@@ -1770,7 +1839,12 @@ def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc):
     got = {k: kernels.LAUNCHES[f"{enc}_{k}"] for k in ("fwd", "bwd", "bwd_dx")}
     want = {"fwd": cfg.batch_size, "bwd": 0, "bwd_dx": cfg.batch_size}
     check(got == want, f"{what}: one step launched {enc} {got}, not {want}")
-    log(f"{what}: one step ({cfg.batch_size} view) launched {enc} {got}")
+    k78 = {k: kernels.LAUNCHES[k] for k in DMTET_STEP_LAUNCHES}
+    check(cfg.batch_size == 1 and k78 == DMTET_STEP_LAUNCHES,
+          f"{what}: one step launched K7/K8 {k78}, not "
+          f"{DMTET_STEP_LAUNCHES}")
+    log(f"{what}: one step ({cfg.batch_size} view) launched {enc} {got}, "
+        f"K7/K8 {k78}")
 
 
 def choose_clip_limit(torch, port_main, ws):
@@ -2002,10 +2076,14 @@ def run() -> dict:
     t_k = time.time()
     sdf_kernel_phase(torch, results, img["mesh_path"])
     log(f"K9 phase in {time.time() - t_k:.1f} s")
+    img_dm_flags = IMAGE_DMTET_FLAGS + [
+        "--grad_clip_rgb", str(limit), "--init_with", img["mesh_path"]]
     img_dm_launches = image_dmtet_path(
-        torch, port_main, kernels, IMAGE_DMTET_FLAGS + [
-            "--grad_clip_rgb", str(limit), "--init_with", img["mesh_path"]],
+        torch, port_main, kernels, img_dm_flags,
         os.path.join(build, "chip_smoke_image_dmtet_ws"), smi_line)
+    dmtet_view_launches(torch, port_main, kernels, img_dm_flags,
+                        os.path.join(build, "chip_smoke_image_dmtet_view_ws"),
+                        "DMTet from the image mesh", "triplane")
 
     def launches_of(name):
         if name in SD15_UNET_ATTNS:

@@ -11,6 +11,8 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
         --only gn_routes
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only field
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dmtet \
+        --bake_mesh ws/mesh/mesh.obj
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -82,6 +84,15 @@ jacobian forward and reductions).  K1's rows have ``F.grid_sample``
 ``kernel_names`` splits its device time by kernel, and ``--outputs`` keeps
 every output of a row (features and jacobians; the table's and the
 positions' gradients).
+
+``--only dmtet`` times every K7 and K8 entry point, forward and backward,
+at the DMTet stage's shapes (``dmtet_cases``: tet grid 128, max_tris
+131,072, the 512² view, cap 512, soft edge 1; ``--bake_mesh`` adds K7's
+forward at the bake's 1024²); each backward is its op's autograd backward
+called directly (``backward_call``), so a parent checkout is timed by the
+same calls.
+``--outputs`` keeps every tensor a row returns (forwards: ``--compare``
+bit for bit; backwards: within fp32 reduction order).
 """
 
 from __future__ import annotations
@@ -90,12 +101,14 @@ import argparse
 import functools
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -280,17 +293,141 @@ def field_cases(smoke, dev):
     return cases
 
 
+def backward_call(out, cots):
+    """The backward of the autograd Function that made `out`, called on this
+    thread and stream (the autograd engine's worker thread cannot be
+    captured in a CUDA graph) with a context holding what its forward saved
+    (taken now): `cots` are the cotangents of its first outputs, None for
+    the rest, as the path gives them."""
+    node = out.grad_fn
+    ctx = types.SimpleNamespace(**vars(node),
+                                saved_tensors=tuple(node.saved_tensors))
+    backward = node._forward_cls.backward
+    params = list(inspect.signature(backward).parameters.values())[1:]
+    return functools.partial(backward, ctx, *cots,
+                             *[None] * (len(params) - len(cots)))
+
+
+def dmtet_cases(smoke, dev, bake_mesh=None):
+    """(row, the checkout's call, None) for every K7 and K8 entry point at
+    ``chip_smoke.dmtet_kernel_phases``' inputs (tet grid 128, max_tris
+    131,072, the 512² DMTet view, cap 512, soft edge 1) and K7's forward
+    at the texture bake's 1024² (cap min(1024, T), soft edge 0) of
+    ``bake_mesh`` when given.  Inputs ask for gradients as on the DMTet
+    path, and each backward is its op's autograd backward
+    (``backward_call``) with cotangents shaped as the path's: zero on
+    missed pixels
+    (bary, the interpolated attributes) and on the edge slots no face
+    uses (the surface vertices); the depth's is None.  Calls are found by
+    name, so a checkout from before the static topology (no
+    ``tet_topology``) is timed the same way."""
+    import torch
+
+    from dreamfusion_tpu_torch.config import Config, apply_dmtet, finalize
+    from dreamfusion_tpu_torch.ops import marching_tets as K8
+    from dreamfusion_tpu_torch.ops import raster as K7
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    _, pos, sdf, tets, te, ue = smoke._geometry_tet128(
+        torch, dev, torch.Generator(device=dev).manual_seed(4))
+    max_tris = 8 * 128 ** 2
+    topo = ((K8.tet_topology(tets, te, pos.shape[0], ue.shape[0]),)
+            if hasattr(K8, "tet_topology") else ())
+    pos, sdf = pos.requires_grad_(), sdf.requires_grad_()
+    mk = K8.marching_tets(pos, sdf, tets, te, ue, max_tris, *topo)
+    live = mk.vert_valid[:, None].float()
+    c_mt = torch.randn(mk.verts.shape, device=dev, generator=g) * live
+    mesh = mk._replace(verts=mk.verts.detach().requires_grad_())
+    v = mesh.verts
+    cases = [({"kernel": "K8 marching_tets_fwd"}, functools.partial(
+        K8.marching_tets, pos, sdf, tets, te, ue, max_tris, *topo)),
+        ({"kernel": "K8 marching_tets_bwd"}, backward_call(mk.verts,
+                                                          [c_mt]))]
+    c_vn = torch.randn(v.shape, device=dev, generator=g) * live
+    for name, fn, cot in (("vertex_normals", K8.vertex_normals, c_vn),
+                          ("laplacian", K8.laplacian_smooth_loss, None),
+                          ("normal_consistency", K8.normal_consistency_loss,
+                           None)):
+        y = fn(mesh)
+        cases.append(({"kernel": f"K8 {name}_fwd"},
+                      functools.partial(fn, mesh)))
+        cases.append(({"kernel": f"K8 {name}_bwd"}, backward_call(
+            y, [torch.ones_like(y) if cot is None else cot])))
+
+    cfg = finalize(apply_dmtet(Config(guidance=("oracle",),
+                                      backbone="triplane")))
+    view = circle_view_batch(cfg, 1, 4, cfg.h, cfg.w, dev)
+    H, W = cfg.h, cfg.w
+    clip = K7.project_verts(v, view.mvp[0])
+    sx, sy, sz, valid = K7.screen_coords(clip, mesh.faces, mesh.face_mask, H,
+                                         W)
+    ins = [t.detach().contiguous().requires_grad_() for t in (sx, sy, sz)]
+    ro = K7.raster_cuda(*ins, mesh.faces, valid, H, W, 32, 512, 1.0)
+    hit = (ro.tri_id >= 0).float()
+    with torch.no_grad():
+        *_, bmin, bmax = K7._face_coeffs(sx, sy, sz, mesh.faces.long())
+        ids, listed = K7.tile_lists(bmin, bmax, valid, H, W, 32,
+                                    mesh.faces.shape[0], 1.0)
+    per_tile = listed.sum(1)
+    print(json.dumps({"dmtet_view": [H, W], "faces": int(
+        mesh.face_mask.sum()), "covered": float(hit.mean()),
+        "overlapping_per_tile": {"mean": float(per_tile.float().mean()),
+                                 "max": int(per_tile.max()),
+                                 "over_512": int((per_tile > 512).sum())}}),
+          flush=True)
+    del ids, listed
+    c_bary = torch.randn(ro.bary.shape, device=dev, generator=g) * \
+        hit[..., None]
+    c_alpha = torch.randn(ro.alpha.shape, device=dev, generator=g)
+    where = {"shape": [H, W, mesh.faces.shape[0]], "cap": 512}
+    cases.append(({"kernel": "K7 raster_fwd", **where}, functools.partial(
+        K7.raster_cuda, *ins, mesh.faces, valid, H, W, 32, 512, 1.0)))
+    cases.append(({"kernel": "K7 raster_bwd", **where}, backward_call(
+        ro.bary, [c_bary, None, None, c_alpha])))
+    attrs = v.detach().clone().requires_grad_()
+    bary = ro.bary.detach().clone().requires_grad_()
+    rb = ro._replace(bary=bary)
+    yi = K7.interpolate(attrs, rb, mesh.faces)
+    c_i = torch.randn(yi.shape, device=dev, generator=g) * hit[..., None]
+    cases.append(({"kernel": "K7 interpolate_fwd", **where},
+                  functools.partial(K7.interpolate, attrs, rb, mesh.faces)))
+    cases.append(({"kernel": "K7 interpolate_bwd", **where},
+                  backward_call(yi, [c_i])))
+    if bake_mesh:
+        from dreamfusion_tpu_torch.mesh.export import read_obj
+        _, tris, uv, _ = read_obj(bake_mesh)
+        u = torch.from_numpy(uv).to(dev)
+        bclip = torch.stack([u[:, 0] * 2 - 1, -(u[:, 1] * 2 - 1),
+                             torch.zeros_like(u[:, 0]),
+                             torch.ones_like(u[:, 0])], -1)
+        bf = torch.from_numpy(tris).to(dev)
+        T = bf.shape[0]
+        bx, by, bz, bvalid = K7.screen_coords(
+            bclip, bf, torch.ones(T, dtype=torch.bool, device=dev), 1024,
+            1024)
+        bx, by, bz = (t.contiguous() for t in (bx, by, bz))
+        cases.append(({"kernel": "K7 raster_fwd", "shape": [1024, 1024, T],
+                       "cap": min(1024, T), "at": "bake"}, functools.partial(
+            K7.raster_cuda, bx, by, bz, bf, bvalid, 1024, 1024, 32,
+            min(1024, T), 0.0)))
+    return [(row, fn, None) for row, fn in cases]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
-                                       "gn_routes", "field"),
+                                       "gn_routes", "field", "dmtet"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
-                    "it could take, or only K1 and K6 (not in the default "
-                    "set)")
+                    "it could take, only K1 and K6, or only K7 and K8 (the "
+                    "last three not in the default set)")
+    ap.add_argument("--bake_mesh", default=None,
+                    help="with --only dmtet: an OBJ with UVs whose atlas "
+                    "K7's forward is timed at the bake's 1024²")
     ap.add_argument("--sd_version", default="2.1",
                     help="whose attention rows: 2.x (d = 64) or 1.x "
                     "(d = 40, 80, 160); the VAE's d = 512 in both")
@@ -406,7 +543,7 @@ def main(argv=None) -> None:
     cases = []
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
-            [] if args.only in ("attn", "gn", "gn_routes", "field")
+            [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -451,7 +588,8 @@ def main(argv=None) -> None:
                  else smoke.SD15_HEAD_DIMS)
     branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
-            [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field")
+            [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
+                                "dmtet")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -523,6 +661,8 @@ def main(argv=None) -> None:
 
     if args.only == "field":
         cases += field_cases(smoke, dev)
+    if args.only == "dmtet":
+        cases += dmtet_cases(smoke, dev, args.bake_mesh)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -538,10 +678,11 @@ def main(argv=None) -> None:
                 continue
             y = fn()
             key = json.dumps({k: row[k] for k in row if k != "gflop"})
-            if row["kernel"].startswith(("K1 ", "K6 ")):
+            if row["kernel"].startswith(("K1 ", "K6 ", "K7 ", "K8 ")):
                 for i, t in enumerate(y if isinstance(y, (tuple, list))
                                       else (y,)):
-                    outs[f"{key}[{i}]"] = t.cpu()
+                    if isinstance(t, torch.Tensor):
+                        outs[f"{key}[{i}]"] = t.detach().cpu()
                 continue
             y = y[0] if isinstance(y, tuple) else y
             outs[key] = y.cpu()
@@ -559,7 +700,7 @@ def main(argv=None) -> None:
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
             dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd") \
-                or row["kernel"].startswith(("K1 ", "K6 "))
+                or row["kernel"].startswith(("K1 ", "K6 ", "K7 ", "K8 "))
             k_ms = kernel_ms(fn, by_name=dgrad)
             lib_ms = lib_fn and kernel_ms(lib_fn, by_name=dgrad)
             extra = {}

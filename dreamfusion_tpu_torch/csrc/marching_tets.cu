@@ -6,30 +6,55 @@
 // ::vertex_normals, ::laplacian_smooth_loss and ::normal_consistency_loss.
 // On the TPU the valid triangles are compacted with top_k over a [2F] mask,
 // the scatters are segment sums and shared edges are found by a
-// lexicographic sort of (lo, hi) edge keys.  Here:
-//   * marching tets: a per-edge kernel (crossing test, interpolated
-//     vertex), a per-tet kernel that counts each block's triangles, a
-//     one-block scan of the block counts and a per-tet kernel that scans
-//     inside its block and writes the triangles at their compacted slots:
-//     the order is the TPU top_k's (valid slots first, in slot order);
-//     the backward atomically adds d verts into d vert_pos and d sdf;
-//   * vertex normals and the Laplacian: atomic scatters over faces, then
-//     a per-vertex pass; backward, a per-vertex pass and a per-face pass
-//     that gathers the per-vertex cotangents and scatters into the verts;
-//   * normal consistency: faces that share an undirected edge meet in an
-//     open-addressing hash table on the 64-bit key (lo << 32 | hi), claimed
-//     with atomicCAS; every later face on an edge pairs with the edge's
-//     first (with two faces per edge, the only case the mesh makes, that is
-//     the one pair); the loss terms are 1 - cos per pair.
-// The regularizers' final sums and divisions are torch.
+// lexicographic sort of (lo, hi) edge keys.  Here every entry point is one
+// launch call (one kernel; two for the regularizers' backwards), with no
+// zero fill, and only the marching-tets backward scatters with atomics:
+//   * marching tets forward: one launch whose blocks are, in order, the
+//     tets' (count, a block scan, a decoupled look-back over the earlier
+//     tet blocks for the block's offset, then the triangles written at
+//     their compacted slots: the TPU top_k's order, valid slots first in
+//     slot order), the edges' (crossing test, interpolated vertex) and a
+//     few tail blocks that wait for the last tet block's total and zero the
+//     slots past it (faces, mask, face_info).  Beside the faces it records
+//     each tet triangle's slot (tri_slot, -1 when a tet has one triangle or
+//     the slot fell past max_tris) and each slot's (tet, triangle, tet
+//     index) (face_info), which the regularizers use.  The look-back flags
+//     and the block counter reset themselves (the last block to finish
+//     clears them), so the launch needs no zero fill and replays in a CUDA
+//     graph;
+//   * marching tets backward: one cooperative launch zeroes d vert_pos and
+//     d sdf, then (after a grid barrier) every edge with a non-zero
+//     cotangent adds into its two grid vertices;
+//   * vertex normals and the Laplacian: a thread per edge slot (surface
+//     vertex) walks the static ring of tets around its edge, takes those
+//     tets' triangles that hold the vertex (tri_slot) and gathers the face
+//     terms, writing its row whole (zero off the surface); the backwards
+//     (normal consistency's too) first compute each face's three vertex
+//     terms once (*_face_kernel), then gather them the same way
+//     (mt_gather_kernel);
+//   * normal consistency: a thread per face slot finds the partner of each
+//     of its edges from the static tet adjacency: an edge between two
+//     opposite tet edges is the diagonal of the tet's quad (partner: the
+//     tet's other triangle); any other edge lies on the tet face holding
+//     both tet edges, and its partner is the triangle of the tet across
+//     that face that holds both (none at the grid's boundary, or when that
+//     triangle fell past max_tris): exactly the pairs of equal keys of the
+//     TPU's sort;
+//   * each loss's mean is finished on the card: every block writes its
+//     partial sums, and the last block to finish adds them in block order
+//     and writes the loss and its denominator (deterministic).
 //
 // Bound on the card: memory.  At tet_grid_size 128 the forward reads the
 // 1.57M tets' occupancy through the sdf and their edge ids (38 MB), the
 // 1.9M unique edges (15 MB) and writes the surface vertices (23 MB); the
-// regularizers move a few MB.  Every kernel is one thread per element.
+// regularizers read and write the E edge slots' rows (23 MB each), of which
+// only the ~1-5% on the surface do any work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -41,9 +66,21 @@ __constant__ int kTriTable[16][6] = {
     {4, 1, 2, 4, 3, 1},       {3, 0, 4, -1, -1, -1}, {2, 0, 1, -1, -1, -1},
     {-1, -1, -1, -1, -1, -1}};
 __constant__ int kNumTri[16] = {0, 1, 1, 2, 1, 2, 2, 1, 1, 2, 2, 1, 2, 1, 1, 0};
+// tet edges (01, 02, 03, 12, 13, 23): for two edges that share a vertex, the
+// tet vertex on neither (the one opposite the face holding both); -1 for
+// opposite edges (local ids summing to 5) and on the diagonal
+__constant__ int kOppVert[6][6] = {
+    {-1, 3, 2, 3, 2, -1}, {3, -1, 1, 3, -1, 1}, {2, 1, -1, -1, 2, 1},
+    {3, 3, -1, -1, 0, 0}, {2, -1, 2, 0, -1, 0}, {-1, 1, 1, 0, 0, -1}};
 
-constexpr int kBlock = 1024;      // tets per compaction block
+constexpr int kBlock = 1024;      // tets or edges per marching-tets block
+constexpr int kTail = 16;         // blocks zeroing the slots past the total
 constexpr int kThreads = 256;
+constexpr int kLossBlocks = 1024;  // a loss kernel's grid-stride blocks (of
+                                   // kThreads): at most this many partials
+constexpr unsigned long long kAgg = 1ull << 62;   // look-back: aggregate
+constexpr unsigned long long kIncl = 2ull << 62;  // look-back: prefix
+constexpr unsigned long long kValue = (1ull << 62) - 1;
 
 struct F3 {
   float x, y, z;
@@ -51,11 +88,19 @@ struct F3 {
 __device__ __forceinline__ F3 ld3(const float* p, int64_t i) {
   return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
 }
+__device__ __forceinline__ void st3(float* p, int64_t i, F3 v) {
+  p[3 * i] = v.x;
+  p[3 * i + 1] = v.y;
+  p[3 * i + 2] = v.z;
+}
 __device__ __forceinline__ F3 sub(F3 a, F3 b) {
   return {a.x - b.x, a.y - b.y, a.z - b.z};
 }
 __device__ __forceinline__ F3 add(F3 a, F3 b) {
   return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ F3 scale(F3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
 }
 __device__ __forceinline__ F3 cross(F3 a, F3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
@@ -70,25 +115,6 @@ __device__ __forceinline__ void atomic3(float* p, int64_t i, F3 v) {
 }
 
 // ---- marching tets ---------------------------------------------------------
-
-__global__ void mt_edge_kernel(const float* __restrict__ pos,
-                               const float* __restrict__ sdf,
-                               const int* __restrict__ ue, int E,
-                               float* __restrict__ verts,
-                               uint8_t* __restrict__ crossing) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const int a = ue[2 * e], b = ue[2 * e + 1];
-  const float sa = sdf[a], sb = sdf[b];
-  crossing[e] = (sa > 0.f) != (sb > 0.f);
-  float d = sa - sb;
-  if (fabsf(d) < 1e-10f) d = d < 0.f ? -1e-10f : 1e-10f;
-  const float t = fminf(fmaxf(sa / d, 0.f), 1.f);
-  const F3 pa = ld3(pos, a), pb = ld3(pos, b);
-  verts[3 * (int64_t)e] = pa.x + (pb.x - pa.x) * t;
-  verts[3 * (int64_t)e + 1] = pa.y + (pb.y - pa.y) * t;
-  verts[3 * (int64_t)e + 2] = pa.z + (pb.z - pa.z) * t;
-}
 
 __device__ __forceinline__ int tet_index(const float* sdf, const int* tets,
                                          int f) {
@@ -121,490 +147,684 @@ __device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
   return s_warp[warp] + incl - v;
 }
 
-__global__ void __launch_bounds__(kBlock)
-mt_count_kernel(const float* __restrict__ sdf, const int* __restrict__ tets,
-                int F, int* __restrict__ block_sums) {
-  __shared__ int s_warp[32];
-  __shared__ int s_total;
-  const int f = blockIdx.x * kBlock + threadIdx.x;
-  const int n = f < F ? kNumTri[tet_index(sdf, tets, f)] : 0;
-  block_exclusive_scan(n, s_warp, &s_total);
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = s_total;
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// exclusive scan of nb block sums in place (one block); block_sums[nb] =
-// the total
-__global__ void __launch_bounds__(kBlock)
-mt_scan_kernel(int* __restrict__ block_sums, int nb) {
+// The block's look-back is over (or it never needed one): count it, and the
+// last of the tet and tail blocks clears the flags and the counter for the
+// next launch.  Every thread of the block calls it.
+__device__ void finish_lookback(unsigned long long* status, unsigned* done,
+                                int n_flags, unsigned n_blocks, int* s_last) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *s_last = atomicAdd(done, 1u) == n_blocks - 1;
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  for (int i = threadIdx.x; i < n_flags; i += blockDim.x) status[i] = 0ull;
+  if (threadIdx.x == 0) *done = 0u;
+}
+
+// The exclusive prefix of tet block b's triangle count (warp 0 of the block,
+// CUB's decoupled look-back): publish the block's total, then read the
+// flags of the 32 blocks before it at once, adding aggregates until the
+// nearest inclusive prefix; publish the block's own prefix.
+__device__ int lookback(unsigned long long* status, int b, int total) {
+  const int lane = threadIdx.x & 31;
+  if (b == 0) {
+    if (lane == 0) atomicExch(status, kIncl | (unsigned long long)total);
+    return 0;
+  }
+  if (lane == 0) atomicExch(status + b, kAgg | (unsigned long long)total);
+  int prefix = 0;
+  for (int j = b - 1;; j -= 32) {
+    const int i = j - lane;                  // lane 0: the nearest block
+    unsigned long long w;
+    do {
+      w = i >= 0 ? peek(status + i) : kIncl;  // before block 0: prefix 0
+    } while (__any_sync(0xffffffffu, w == 0ull));
+    const unsigned incl = __ballot_sync(0xffffffffu, (w & kIncl) != 0ull);
+    const int last = incl ? __ffs(incl) - 1 : 31;
+    int v = lane <= last ? (int)(w & kValue) : 0;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+    prefix += v;
+    if (incl) break;
+  }
+  if (lane == 0)
+    atomicExch(status + b, kIncl | (unsigned long long)(prefix + total));
+  return prefix;
+}
+
+__global__ void __launch_bounds__(kBlock) mt_fwd_kernel(
+    const float* __restrict__ pos, const float* __restrict__ sdf,
+    const int* __restrict__ tets, const int* __restrict__ tet_edges,
+    const int* __restrict__ ue, int F, int E, int max_tris, int nbT,
+    int nbE, unsigned long long* status, unsigned* done,
+    float* __restrict__ verts, uint8_t* __restrict__ crossing,
+    int* __restrict__ faces, uint8_t* __restrict__ mask,
+    int* __restrict__ tri_slot, int* __restrict__ face_info) {
   __shared__ int s_warp[32];
-  __shared__ int s_total;
-  int carry = 0;
-  for (int base = 0; base < nb; base += kBlock) {
-    const int i = base + threadIdx.x;
-    const int v = i < nb ? block_sums[i] : 0;
-    const int ex = block_exclusive_scan(v, s_warp, &s_total);
-    if (i < nb) block_sums[i] = carry + ex;
-    carry += s_total;
+  __shared__ int s_total, s_prefix, s_last;
+  const int tid = threadIdx.x;
+  const unsigned n_sync = (unsigned)(nbT + kTail);
+  // blocks alternate tet, edge, tet, ... (the look-back's waits overlap the
+  // edges' memory traffic), then the rest of either, then the tail; tet
+  // blocks keep their order
+  const int b = blockIdx.x, n2 = 2 * min(nbT, nbE);
+  int tb = -1, eb = -1;
+  if (b < n2) {
+    (b & 1 ? eb : tb) = b >> 1;
+  } else if (b < nbT + nbE) {
+    (nbT > nbE ? tb : eb) = (n2 >> 1) + b - n2;
+  }
+  if (tb >= 0) {                                   // ---- tets
+    const int f = tb * kBlock + tid;
+    const int idx = f < F ? tet_index(sdf, tets, f) : 0;
+    const int n = kNumTri[idx];
+    const int excl = block_exclusive_scan(n, s_warp, &s_total);
+    if (tid < 32) {
+      const int prefix = lookback(status, tb, s_total);
+      if (tid == 0) s_prefix = prefix;
+    }
     __syncthreads();
+    if (f < F) {
+      const int off = s_prefix + excl;
+      for (int k = 0; k < n; ++k) {
+        const int slot = off + k;
+        int keep = -1;
+        if (slot < max_tris) {
+          for (int j = 0; j < 3; ++j)
+            faces[3 * slot + j] = tet_edges[6 * f + kTriTable[idx][3 * k + j]];
+          mask[slot] = 1;
+          face_info[slot] = (f << 5) | (k << 4) | idx;
+          keep = slot;
+        }
+        tri_slot[2 * (int64_t)f + k] = keep;
+      }
+      if (n == 1) tri_slot[2 * (int64_t)f + 1] = -1;
+    }
+    finish_lookback(status, done, nbT, n_sync, &s_last);
+  } else if (eb >= 0) {                            // ---- edges
+    const int e = eb * kBlock + tid;
+    if (e >= E) return;
+    const int a = ue[2 * e], c = ue[2 * e + 1];
+    const float sa = sdf[a], sb = sdf[c];
+    crossing[e] = (sa > 0.f) != (sb > 0.f);
+    float d = sa - sb;
+    if (fabsf(d) < 1e-10f) d = d < 0.f ? -1e-10f : 1e-10f;
+    const float t = fminf(fmaxf(sa / d, 0.f), 1.f);
+    const F3 pa = ld3(pos, a), pb = ld3(pos, c);
+    st3(verts, e, {pa.x + (pb.x - pa.x) * t, pa.y + (pb.y - pa.y) * t,
+                   pa.z + (pb.z - pa.z) * t});
+  } else {                                         // ---- tail: zero slots
+    if (tid == 0) {
+      unsigned long long w = kIncl;
+      if (nbT > 0) {
+        do {
+          w = peek(status + nbT - 1);
+        } while (!(w & kIncl));
+      }
+      const unsigned long long total = w & kValue;
+      s_total = total < (unsigned long long)max_tris ? (int)total : max_tris;
+    }
+    __syncthreads();
+    const int z = b - nbT - nbE;
+    for (int slot = s_total + z * kBlock + tid; slot < max_tris;
+         slot += kTail * kBlock) {
+      faces[3 * slot] = faces[3 * slot + 1] = faces[3 * slot + 2] = 0;
+      mask[slot] = 0;
+      face_info[slot] = 0;
+    }
+    finish_lookback(status, done, nbT, n_sync, &s_last);
   }
-  if (threadIdx.x == 0) block_sums[nb] = carry;
 }
 
-__global__ void __launch_bounds__(kBlock)
-mt_emit_kernel(const float* __restrict__ sdf, const int* __restrict__ tets,
-               const int* __restrict__ tet_edges, int F, int max_tris,
-               const int* __restrict__ block_offsets, int* __restrict__ faces,
-               uint8_t* __restrict__ mask) {
-  __shared__ int s_warp[32];
-  __shared__ int s_total;
-  const int f = blockIdx.x * kBlock + threadIdx.x;
-  const int idx = f < F ? tet_index(sdf, tets, f) : 0;
-  const int n = f < F ? kNumTri[idx] : 0;
-  const int off = block_offsets[blockIdx.x] +
-                  block_exclusive_scan(n, s_warp, &s_total);
-  for (int k = 0; k < n; ++k) {
-    const int slot = off + k;
-    if (slot >= max_tris) break;
-    for (int j = 0; j < 3; ++j)
-      faces[3 * slot + j] = tet_edges[6 * f + kTriTable[idx][3 * k + j]];
-    mask[slot] = 1;
+// One cooperative launch: the grid zeroes d vert_pos and d sdf, waits at a
+// grid barrier, then each edge with a non-zero cotangent adds its
+// interpolated vertex's gradient into its two grid vertices (the DMTet
+// path's cotangents are zero off the surface: ~2% of the edges).
+__global__ void __launch_bounds__(kThreads) mt_bwd_kernel(
+    const float* __restrict__ pos, const float* __restrict__ sdf,
+    const int* __restrict__ ue, int V, int E,
+    const float* __restrict__ g_verts, float* __restrict__ g_pos,
+    float* __restrict__ g_sdf) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = i0; i < 3 * (int64_t)V; i += stride) g_pos[i] = 0.f;
+  for (int64_t i = i0; i < V; i += stride) g_sdf[i] = 0.f;
+  grid.sync();
+  for (int64_t e = i0; e < E; e += stride) {
+    const F3 g = ld3(g_verts, e);
+    if (g.x == 0.f && g.y == 0.f && g.z == 0.f) continue;
+    const int a = ue[2 * e], b = ue[2 * e + 1];
+    const float sa = sdf[a], sb = sdf[b];
+    const float d0 = sa - sb;
+    const bool guarded = fabsf(d0) < 1e-10f;
+    const float d = guarded ? (d0 < 0.f ? -1e-10f : 1e-10f) : d0;
+    const float x = sa / d;
+    const float t = fminf(fmaxf(x, 0.f), 1.f);
+    atomic3(g_pos, a, scale(g, 1.f - t));
+    atomic3(g_pos, b, scale(g, t));
+    // t = min(max(x, 0), 1): a tie with a bound passes half the gradient
+    const float y = fmaxf(x, 0.f);
+    const float pass = (x > 0.f ? 1.f : x == 0.f ? 0.5f : 0.f) *
+                       (y < 1.f ? 1.f : y == 1.f ? 0.5f : 0.f);
+    if (pass > 0.f) {
+      const float gt = pass * dot(g, sub(ld3(pos, b), ld3(pos, a)));
+      // x = sa / d with d = sa - sb (a constant when guarded)
+      const float dxa = guarded ? 1.f / d : -sb / (d * d);
+      const float dxb = guarded ? 0.f : sa / (d * d);
+      atomicAdd(g_sdf + a, gt * dxa);
+      atomicAdd(g_sdf + b, gt * dxb);
+    }
   }
 }
 
-__global__ void mt_bwd_kernel(const float* __restrict__ pos,
-                              const float* __restrict__ sdf,
-                              const int* __restrict__ ue, int E,
-                              const float* __restrict__ g_verts,
-                              float* __restrict__ g_pos,
-                              float* __restrict__ g_sdf) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const F3 g = ld3(g_verts, e);
-  if (g.x == 0.f && g.y == 0.f && g.z == 0.f) return;
-  const int a = ue[2 * e], b = ue[2 * e + 1];
-  const float sa = sdf[a], sb = sdf[b];
-  const float d0 = sa - sb;
-  const bool guarded = fabsf(d0) < 1e-10f;
-  const float d = guarded ? (d0 < 0.f ? -1e-10f : 1e-10f) : d0;
-  const float x = sa / d;
-  const float t = fminf(fmaxf(x, 0.f), 1.f);
-  atomic3(g_pos, a, {g.x * (1.f - t), g.y * (1.f - t), g.z * (1.f - t)});
-  atomic3(g_pos, b, {g.x * t, g.y * t, g.z * t});
-  // t = min(max(x, 0), 1): a tie with a bound passes half the gradient
-  const float y = fmaxf(x, 0.f);
-  const float pass = (x > 0.f ? 1.f : x == 0.f ? 0.5f : 0.f) *
-                     (y < 1.f ? 1.f : y == 1.f ? 0.5f : 0.f);
-  if (pass > 0.f) {
-    const float gt = pass * dot(g, sub(ld3(pos, b), ld3(pos, a)));
-    // x = sa / d with d = sa - sb (a constant when guarded)
-    const float dxa = guarded ? 1.f / d : -sb / (d * d);
-    const float dxb = guarded ? 0.f : sa / (d * d);
-    atomicAdd(g_sdf + a, gt * dxa);
-    atomicAdd(g_sdf + b, gt * dxb);
+// ---- the ring of faces around a surface vertex ------------------------------
+
+// Calls fn(slot, k) for every face that holds edge slot e, k its position in
+// the face: the triangles of the tets around edge e (e's ring) whose
+// vertices include e.  The ring's triangle slots, kRing tets at a time, are
+// loaded together into the thread's row of shared memory (blocks of
+// kThreads), so the walk waits on one load for them, not one per tet; the
+// faces are visited four at a time for the same reason.
+constexpr int kRing = 8;
+
+template <typename Fn>
+__device__ __forceinline__ void for_ring_faces(int e,
+                                               const int* __restrict__ et_off,
+                                               const int* __restrict__ et,
+                                               const int* __restrict__ tri_slot,
+                                               const int* __restrict__ faces,
+                                               Fn fn) {
+  __shared__ int s_ring[2 * kRing][kThreads];
+  int* ring = &s_ring[0][threadIdx.x];       // stride kThreads: no conflicts
+  const int r1 = et_off[e + 1];
+  for (int r0 = et_off[e]; r0 < r1; r0 += kRing) {
+#pragma unroll
+    for (int q = 0; q < kRing; ++q) {
+      const int64_t g = r0 + q < r1 ? et[r0 + q] : -1;
+      ring[2 * q * kThreads] = g >= 0 ? tri_slot[2 * g] : -1;
+      ring[(2 * q + 1) * kThreads] = g >= 0 ? tri_slot[2 * g + 1] : -1;
+    }
+#pragma unroll 4
+    for (int q = 0; q < 2 * kRing; ++q) {
+      const int s = ring[q * kThreads];
+      if (s < 0) continue;
+      const int* f = faces + 3 * s;
+      const int k = f[0] == e ? 0 : f[1] == e ? 1 : f[2] == e ? 2 : -1;
+      if (k >= 0) fn(s, k);
+    }
+  }
+}
+
+__device__ __forceinline__ F3 face_cross(const float* verts, const int* f) {
+  const F3 v0 = ld3(verts, f[0]);
+  return cross(sub(ld3(verts, f[1]), v0), sub(ld3(verts, f[2]), v0));
+}
+
+// the gradients of vertices 0, 1, 2 of fn = (v1 - v0) x (v2 - v0) for the
+// cotangent g of fn → out[0..2] (x, y, z, 0)
+__device__ __forceinline__ void cross_bwd3(const float* verts, const int* f,
+                                           F3 g, float4* out) {
+  const F3 v0 = ld3(verts, f[0]);
+  const F3 a = sub(ld3(verts, f[1]), v0), b = sub(ld3(verts, f[2]), v0);
+  const F3 da = cross(b, g), db = cross(g, a);
+  const F3 d0 = scale(add(da, db), -1.f);
+  out[0] = make_float4(d0.x, d0.y, d0.z, 0.f);
+  out[1] = make_float4(da.x, da.y, da.z, 0.f);
+  out[2] = make_float4(db.x, db.y, db.z, 0.f);
+}
+
+// ---- last-block reduction of a loss -----------------------------------------
+
+// Sums (a, b) over the grid: every block writes its partial, and the last
+// block to finish adds the partials in block order and writes
+// loss = A / max(B, 1) and den = max(B, 1).  Every thread calls it.
+__device__ void mean_of_grid(float a, float b, float2* __restrict__ partials,
+                             unsigned* done, float* __restrict__ loss,
+                             float* __restrict__ den) {
+  __shared__ float s_a[32], s_b[32];
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int d = 16; d > 0; d >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, d);
+    b += __shfl_down_sync(0xffffffffu, b, d);
+  }
+  if (lane == 0) {
+    s_a[warp] = a;
+    s_b[warp] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float A = 0.f, B = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      A += s_a[w];
+      B += s_b[w];
+    }
+    partials[blockIdx.x] = make_float2(A, B);
+    __threadfence();
+    s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  a = b = 0.f;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x) {
+    const float2 p = __ldcg(partials + i);     // past L1: other blocks
+    a += p.x;
+    b += p.y;
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, d);
+    b += __shfl_down_sync(0xffffffffu, b, d);
+  }
+  __syncthreads();
+  if (lane == 0) {
+    s_a[warp] = a;
+    s_b[warp] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float A = 0.f, B = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      A += s_a[w];
+      B += s_b[w];
+    }
+    const float d = fmaxf(B, 1.f);
+    *loss = A / d;
+    *den = d;
+    *done = 0u;
   }
 }
 
 // ---- vertex normals ----------------------------------------------------------
 
-__device__ __forceinline__ void face_verts(const float* verts, const int* faces,
-                                           int t, int f[3], F3 v[3]) {
-  for (int k = 0; k < 3; ++k) {
-    f[k] = faces[3 * t + k];
-    v[k] = ld3(verts, f[k]);
+__global__ void vn_fwd_kernel(const float* __restrict__ verts,
+                              const int* __restrict__ faces,
+                              const uint8_t* __restrict__ crossing,
+                              const int* __restrict__ tri_slot,
+                              const int* __restrict__ et_off,
+                              const int* __restrict__ et, int E,
+                              float* __restrict__ out,
+                              float* __restrict__ rs) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  F3 acc = {0.f, 0.f, 0.f};
+  if (crossing[e]) {
+    for_ring_faces(e, et_off, et, tri_slot, faces, [&](int s, int) {
+      acc = add(acc, face_cross(verts, faces + 3 * s));
+    });
   }
-}
-
-__global__ void vn_scatter_kernel(const float* __restrict__ verts,
-                                  const int* __restrict__ faces,
-                                  const uint8_t* __restrict__ mask, int T,
-                                  float* __restrict__ acc) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !mask[t]) return;
-  int f[3];
-  F3 v[3];
-  face_verts(verts, faces, t, f, v);
-  const F3 fn = cross(sub(v[1], v[0]), sub(v[2], v[0]));
-  for (int k = 0; k < 3; ++k) atomic3(acc, f[k], fn);
-}
-
-__global__ void vn_normalize_kernel(const float* __restrict__ acc, int E,
-                                    float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  const F3 a = ld3(acc, i);
-  const float n2 = dot(a, a);
+  const float n2 = dot(acc, acc);
   F3 n = {0.f, 1.f, 0.f};
+  float r = 0.f;
   if (n2 > 1e-20f) {
-    const float r = rsqrtf(n2);
-    n = {a.x * r, a.y * r, a.z * r};
+    r = rsqrtf(n2);
+    n = scale(acc, r);
   }
-  out[3 * (int64_t)i] = n.x;
-  out[3 * (int64_t)i + 1] = n.y;
-  out[3 * (int64_t)i + 2] = n.z;
+  st3(out, e, n);
+  if (crossing[e]) rs[e] = r;
 }
 
-__global__ void vn_bwd_vertex_kernel(const float* __restrict__ acc,
-                                     const float* __restrict__ n,
-                                     const float* __restrict__ g_n, int E,
-                                     float* __restrict__ g_acc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  const F3 a = ld3(acc, i), nn = ld3(n, i), g = ld3(g_n, i);
-  const float n2 = dot(a, a);
-  F3 r = {0.f, 0.f, 0.f};
-  if (n2 > 1e-20f) {
-    const float s = rsqrtf(n2), p = dot(nn, g);
-    r = {(g.x - nn.x * p) * s, (g.y - nn.y * p) * s, (g.z - nn.z * p) * s};
-  }
-  g_acc[3 * (int64_t)i] = r.x;
-  g_acc[3 * (int64_t)i + 1] = r.y;
-  g_acc[3 * (int64_t)i + 2] = r.z;
+// g_acc of vertex u: d normalize(acc) for the cotangent g_n (0 when acc ~ 0)
+__device__ __forceinline__ F3 vn_gacc(const float* n, const float* rs,
+                                      const float* g_n, int u) {
+  const float r = rs[u];
+  if (r == 0.f) return {0.f, 0.f, 0.f};
+  const F3 nn = ld3(n, u), g = ld3(g_n, u);
+  const float p = dot(nn, g);
+  return scale(sub(g, scale(nn, p)), r);
 }
 
-// d verts of fn = (v1 - v0) x (v2 - v0) for the cotangent g of fn
-__device__ __forceinline__ void cross_bwd(float* g_verts, const int f[3],
-                                          const F3 v[3], F3 g) {
-  const F3 a = sub(v[1], v[0]), b = sub(v[2], v[0]);
-  const F3 da = cross(b, g), db = cross(g, a);
-  atomic3(g_verts, f[1], da);
-  atomic3(g_verts, f[2], db);
-  const F3 s = add(da, db);
-  atomic3(g_verts, f[0], {-s.x, -s.y, -s.z});
-}
-
-__global__ void vn_bwd_face_kernel(const float* __restrict__ verts,
-                                   const int* __restrict__ faces,
-                                   const uint8_t* __restrict__ mask, int T,
-                                   const float* __restrict__ g_acc,
-                                   float* __restrict__ g_verts) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !mask[t]) return;
-  int f[3];
-  F3 v[3];
-  face_verts(verts, faces, t, f, v);
-  const F3 g = add(add(ld3(g_acc, f[0]), ld3(g_acc, f[1])), ld3(g_acc, f[2]));
-  cross_bwd(g_verts, f, v, g);
+__global__ void vn_face_kernel(const float* __restrict__ verts,
+                               const int* __restrict__ faces,
+                               const uint8_t* __restrict__ mask,
+                               const float* __restrict__ n,
+                               const float* __restrict__ rs,
+                               const float* __restrict__ g_n, int T,
+                               float4* __restrict__ term) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= T || !mask[s]) return;
+  const int* f = faces + 3 * s;
+  const F3 g = add(add(vn_gacc(n, rs, g_n, f[0]), vn_gacc(n, rs, g_n, f[1])),
+                   vn_gacc(n, rs, g_n, f[2]));
+  cross_bwd3(verts, f, g, term + 3 * (int64_t)s);
 }
 
 // ---- Laplacian ---------------------------------------------------------------
 
-__global__ void lap_scatter_kernel(const float* __restrict__ verts,
-                                   const int* __restrict__ faces,
-                                   const uint8_t* __restrict__ mask, int T,
-                                   float* __restrict__ nb_sum,
-                                   float* __restrict__ nb_cnt) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !mask[t]) return;
-  int f[3];
-  F3 v[3];
-  face_verts(verts, faces, t, f, v);
-  // each vertex receives both others: the 6 directed edges of the face
+// aux[e] = (mean of the neighbours - v, count of directed face edges) for a
+// vertex on a face
+__global__ void lap_fwd_kernel(const float* __restrict__ verts,
+                               const int* __restrict__ faces,
+                               const uint8_t* __restrict__ crossing,
+                               const int* __restrict__ tri_slot,
+                               const int* __restrict__ et_off,
+                               const int* __restrict__ et, int E,
+                               float4* __restrict__ aux,
+                               float2* __restrict__ partials, unsigned* done,
+                               float* __restrict__ loss,
+                               float* __restrict__ den) {
+  float d2 = 0.f, active = 0.f;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += gridDim.x * blockDim.x) {
+    if (!crossing[e]) continue;
+    F3 s = {0.f, 0.f, 0.f};
+    float c = 0.f;
+    // each vertex receives both others: the face's 6 directed edges
+    for_ring_faces(e, et_off, et, tri_slot, faces, [&](int sl, int k) {
+      const int* f = faces + 3 * sl;
+      s = add(s, add(ld3(verts, f[(k + 1) % 3]), ld3(verts, f[(k + 2) % 3])));
+      c += 2.f;
+    });
+    if (c > 0.f) {
+      const F3 v = ld3(verts, e);
+      const F3 dm = {s.x / c - v.x, s.y / c - v.y, s.z / c - v.z};
+      d2 += dot(dm, dm);
+      active += 1.f;
+      aux[e] = make_float4(dm.x, dm.y, dm.z, c);
+    }
+  }
+  mean_of_grid(d2, active, partials, done, loss, den);
+}
+
+// face s's term of vertex k: v_k fed the neighbour sums of both others
+__global__ void lap_face_kernel(const int* __restrict__ faces,
+                                const uint8_t* __restrict__ mask,
+                                const float4* __restrict__ aux,
+                                const float* __restrict__ g,
+                                const float* __restrict__ den, int T,
+                                float4* __restrict__ term) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= T || !mask[s]) return;
+  const float kk = 2.f * (g[0] / den[0]);
+  const int* f = faces + 3 * s;
+  float4 q[3];
+  for (int k = 0; k < 3; ++k) q[k] = aux[f[k]];
   for (int k = 0; k < 3; ++k) {
-    atomic3(nb_sum, f[k], add(v[(k + 1) % 3], v[(k + 2) % 3]));
-    atomicAdd(nb_cnt + f[k], 2.f);
+    const float4 a = q[(k + 1) % 3], b = q[(k + 2) % 3];
+    term[3 * (int64_t)s + k] = make_float4(
+        kk * a.x / a.w + kk * b.x / b.w, kk * a.y / a.w + kk * b.y / b.w,
+        kk * a.z / a.w + kk * b.z / b.w, 0.f);
   }
-}
-
-__global__ void lap_vertex_kernel(const float* __restrict__ verts,
-                                  const float* __restrict__ nb_sum,
-                                  const float* __restrict__ nb_cnt, int E,
-                                  float* __restrict__ d2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  const float c = nb_cnt[i];
-  float r = 0.f;
-  if (c > 0.f) {
-    const F3 s = ld3(nb_sum, i), v = ld3(verts, i);
-    const F3 dm = {s.x / c - v.x, s.y / c - v.y, s.z / c - v.z};
-    r = dot(dm, dm);
-  }
-  d2[i] = r;
-}
-
-__global__ void lap_bwd_vertex_kernel(const float* __restrict__ verts,
-                                      const float* __restrict__ nb_sum,
-                                      const float* __restrict__ nb_cnt,
-                                      const float* __restrict__ gs, int E,
-                                      float* __restrict__ g_sum,
-                                      float* __restrict__ g_verts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  const float c = nb_cnt[i];
-  F3 gm = {0.f, 0.f, 0.f}, gv = {0.f, 0.f, 0.f};
-  if (c > 0.f) {
-    const F3 s = ld3(nb_sum, i), v = ld3(verts, i);
-    const float k = 2.f * gs[0];
-    const F3 dm = {s.x / c - v.x, s.y / c - v.y, s.z / c - v.z};
-    gm = {k * dm.x / c, k * dm.y / c, k * dm.z / c};
-    gv = {-k * dm.x, -k * dm.y, -k * dm.z};
-  }
-  g_sum[3 * (int64_t)i] = gm.x;
-  g_sum[3 * (int64_t)i + 1] = gm.y;
-  g_sum[3 * (int64_t)i + 2] = gm.z;
-  g_verts[3 * (int64_t)i] = gv.x;
-  g_verts[3 * (int64_t)i + 1] = gv.y;
-  g_verts[3 * (int64_t)i + 2] = gv.z;
-}
-
-__global__ void lap_bwd_face_kernel(const int* __restrict__ faces,
-                                    const uint8_t* __restrict__ mask, int T,
-                                    const float* __restrict__ g_sum,
-                                    float* __restrict__ g_verts) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !mask[t]) return;
-  const int f[3] = {faces[3 * t], faces[3 * t + 1], faces[3 * t + 2]};
-  // v_k fed the neighbour sums of both other vertices
-  for (int k = 0; k < 3; ++k)
-    atomic3(g_verts, f[k],
-            add(ld3(g_sum, f[(k + 1) % 3]), ld3(g_sum, f[(k + 2) % 3])));
 }
 
 // ---- normal consistency ------------------------------------------------------
 
-constexpr unsigned long long kEmpty = ~0ull;
-
-__device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
-  x ^= x >> 33;
-  x *= 0xff51afd7ed558ccdull;
-  x ^= x >> 33;
-  x *= 0xc4ceb9fe1a85ec53ull;
-  x ^= x >> 33;
-  return x;
+__device__ __forceinline__ bool holds(const int* f, int a, int b) {
+  const bool ha = f[0] == a || f[1] == a || f[2] == a;
+  const bool hb = f[0] == b || f[1] == b || f[2] == b;
+  return ha && hb;
 }
 
-__global__ void nc_normals_kernel(const float* __restrict__ verts,
-                                  const int* __restrict__ faces, int T,
-                                  float* __restrict__ nrm) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  int f[3];
-  F3 v[3];
-  face_verts(verts, faces, t, f, v);
-  const F3 fn = cross(sub(v[1], v[0]), sub(v[2], v[0]));
-  const float r = rsqrtf(fmaxf(dot(fn, fn), 1e-20f));
-  nrm[3 * (int64_t)t] = fn.x * r;
-  nrm[3 * (int64_t)t + 1] = fn.y * r;
-  nrm[3 * (int64_t)t + 2] = fn.z * r;
+// unit normal fn * rsqrt(max(|fn|², 1e-20)) and |fn|²
+__device__ __forceinline__ F3 unit_normal(const float* verts, const int* f,
+                                          float* n2) {
+  const F3 fn = face_cross(verts, f);
+  *n2 = dot(fn, fn);
+  return scale(fn, rsqrtf(fmaxf(*n2, 1e-20f)));
 }
 
-__global__ void nc_insert_kernel(const int* __restrict__ faces,
-                                 const uint8_t* __restrict__ mask, int T,
-                                 unsigned long long size,
-                                 unsigned long long* __restrict__ keys,
-                                 int* __restrict__ cnt, int* __restrict__ slot,
-                                 int* __restrict__ pos) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;     // e = k * T + t
-  if (e >= 3 * T) return;
-  const int t = e % T, k = e / T;
-  if (!mask[t]) {
-    slot[e] = -1;
-    return;
+__global__ void nc_fwd_kernel(const float* __restrict__ verts,
+                              const int* __restrict__ faces,
+                              const uint8_t* __restrict__ mask,
+                              const int* __restrict__ face_info,
+                              const int* __restrict__ tri_slot,
+                              const int* __restrict__ tet_nbr, int T,
+                              float4* __restrict__ nrm,
+                              int* __restrict__ partner,
+                              float2* __restrict__ partials, unsigned* done,
+                              float* __restrict__ loss,
+                              float* __restrict__ den) {
+  float term = 0.f, pairs = 0.f;
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < T;
+       s += gridDim.x * blockDim.x) {
+    int p3[3] = {-1, -1, -1};
+    if (mask[s]) {
+      const int info = face_info[s];
+      const int64_t f = info >> 5;
+      const int j = (info >> 4) & 1, idx = info & 15;
+      const int* fv = faces + 3 * s;
+      float n2;
+      const F3 ns = unit_normal(verts, fv, &n2);
+      nrm[s] = make_float4(ns.x, ns.y, ns.z, n2);
+      for (int k = 0; k < 3; ++k) {
+        const int la = kTriTable[idx][3 * j + k];
+        const int lb = kTriTable[idx][3 * j + (k + 1) % 3];
+        int p = -1;
+        if (la + lb == 5) {          // the quad's diagonal
+          p = tri_slot[2 * f + 1 - j];
+        } else {                     // across the tet face holding both
+          const int g = tet_nbr[4 * f + kOppVert[la][lb]];
+          if (g >= 0) {
+            for (int jj = 0; jj < 2; ++jj) {
+              const int s2 = tri_slot[2 * (int64_t)g + jj];
+              if (s2 >= 0 && holds(faces + 3 * s2, fv[k], fv[(k + 1) % 3]))
+                p = s2;
+            }
+          }
+        }
+        p3[k] = p;
+        if (p > s) {                 // each pair once
+          float m2;
+          term += 1.f - dot(ns, unit_normal(verts, faces + 3 * p, &m2));
+          pairs += 1.f;
+        }
+      }
+    }
+    for (int k = 0; k < 3; ++k) partner[3 * s + k] = p3[k];
   }
-  const int a = faces[3 * t + k], b = faces[3 * t + (k + 1) % 3];
-  const unsigned long long key =
-      ((unsigned long long)(unsigned)min(a, b) << 32) | (unsigned)max(a, b);
-  unsigned long long h = mix64(key) & (size - 1);
-  while (true) {
-    const unsigned long long old = atomicCAS(keys + h, kEmpty, key);
-    if (old == kEmpty || old == key) break;
-    h = (h + 1) & (size - 1);
+  mean_of_grid(term, pairs, partials, done, loss, den);
+}
+
+__global__ void nc_face_kernel(const float* __restrict__ verts,
+                               const int* __restrict__ faces,
+                               const uint8_t* __restrict__ mask,
+                               const float4* __restrict__ nrm,
+                               const int* __restrict__ partner,
+                               const float* __restrict__ g,
+                               const float* __restrict__ den, int T,
+                               float4* __restrict__ term) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= T || !mask[s]) return;
+  // d(1 - n_s . n_p) / d n_s over the face's pairs
+  F3 gn = {0.f, 0.f, 0.f};
+  for (int q = 0; q < 3; ++q) {
+    const int p = partner[3 * s + q];
+    if (p >= 0) {
+      const float4 m = nrm[p];
+      gn = add(gn, {m.x, m.y, m.z});
+    }
   }
-  slot[e] = (int)h;
-  pos[e] = atomicAdd(cnt + h, 1);
-}
-
-__global__ void nc_first_kernel(const int* __restrict__ slot,
-                                const int* __restrict__ pos, int T,
-                                int* __restrict__ first) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 3 * T) return;
-  if (slot[e] >= 0 && pos[e] == 0) first[slot[e]] = e % T;
-}
-
-__global__ void nc_pair_kernel(const int* __restrict__ slot,
-                               const int* __restrict__ pos,
-                               const int* __restrict__ first,
-                               const float* __restrict__ nrm, int T,
-                               int* __restrict__ partner,
-                               float* __restrict__ terms) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 3 * T) return;
-  int p = -1;
-  float term = 0.f;
-  if (slot[e] >= 0 && pos[e] >= 1) {
-    p = first[slot[e]];
-    term = 1.f - dot(ld3(nrm, e % T), ld3(nrm, p));
-  }
-  partner[e] = p;
-  terms[e] = term;
-}
-
-__global__ void nc_bwd_pair_kernel(const int* __restrict__ partner,
-                                   const float* __restrict__ nrm,
-                                   const float* __restrict__ gs, int T,
-                                   float* __restrict__ g_nrm) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 3 * T) return;
-  const int p = partner[e];
-  if (p < 0) return;
-  const int t = e % T;
-  const float g = -gs[0];
-  const F3 a = ld3(nrm, t), b = ld3(nrm, p);
-  atomic3(g_nrm, t, {g * b.x, g * b.y, g * b.z});
-  atomic3(g_nrm, p, {g * a.x, g * a.y, g * a.z});
-}
-
-__global__ void nc_bwd_face_kernel(const float* __restrict__ verts,
-                                   const int* __restrict__ faces,
-                                   const uint8_t* __restrict__ mask,
-                                   const float* __restrict__ nrm, int T,
-                                   const float* __restrict__ g_nrm,
-                                   float* __restrict__ g_verts) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !mask[t]) return;
-  const F3 g = ld3(g_nrm, t);
-  if (g.x == 0.f && g.y == 0.f && g.z == 0.f) return;
-  int f[3];
-  F3 v[3];
-  face_verts(verts, faces, t, f, v);
-  const F3 fn = cross(sub(v[1], v[0]), sub(v[2], v[0]));
-  const float n2 = dot(fn, fn);
+  gn = scale(gn, -(g[0] / den[0]));
+  const float4 m = nrm[s];
   F3 gf;
-  if (n2 > 1e-20f) {     // d(fn / |fn|)
-    const float r = rsqrtf(n2);
-    const F3 n = ld3(nrm, t);
-    const float p = dot(n, g);
-    gf = {(g.x - n.x * p) * r, (g.y - n.y * p) * r, (g.z - n.z * p) * r};
-  } else {               // fn · rsqrt(1e-20): linear
-    gf = {g.x * 1e10f, g.y * 1e10f, g.z * 1e10f};
+  if (m.w > 1e-20f) {            // d(fn / |fn|)
+    const F3 ns = {m.x, m.y, m.z};
+    gf = scale(sub(gn, scale(ns, dot(ns, gn))), rsqrtf(m.w));
+  } else {                       // fn · rsqrt(1e-20): linear
+    gf = scale(gn, 1e10f);
   }
-  cross_bwd(g_verts, f, v, gf);
+  cross_bwd3(verts, faces + 3 * s, gf, term + 3 * (int64_t)s);
+}
+
+// ---- per-face terms gathered per vertex ---------------------------------------
+
+// A thread per edge slot: the sum of the terms (term [T][3], by the vertex's
+// position in the face) of the faces that hold it, plus, for the Laplacian,
+// the vertex's own -kk (mean - v); rows off the surface are 0.  The faces'
+// terms are computed once each by the *_face kernels before it.
+template <bool kLapOwn>
+__global__ void mt_gather_kernel(const int* __restrict__ faces,
+                                    const uint8_t* __restrict__ crossing,
+                                    const int* __restrict__ tri_slot,
+                                    const int* __restrict__ et_off,
+                                    const int* __restrict__ et,
+                                    const float4* __restrict__ term,
+                                    const float4* __restrict__ aux,
+                                    const float* __restrict__ g,
+                                    const float* __restrict__ den, int E,
+                                    float* __restrict__ g_verts) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  F3 gv = {0.f, 0.f, 0.f};
+  if (crossing[e]) {
+    bool on_face = false;
+    for_ring_faces(e, et_off, et, tri_slot, faces, [&](int s, int k) {
+      const float4 t = term[3 * (int64_t)s + k];
+      gv = add(gv, {t.x, t.y, t.z});
+      on_face = true;
+    });
+    if (kLapOwn && on_face) {
+      const float kk = 2.f * (g[0] / den[0]);
+      const float4 a = aux[e];
+      gv = add(gv, {-kk * a.x, -kk * a.y, -kk * a.z});
+    }
+  }
+  st3(g_verts, e, gv);
 }
 
 inline unsigned blocks(int64_t n, int per) {
   return (unsigned)((n + per - 1) / per);
 }
 
+// a loss kernel's grid over n threads' work (at least one block)
+inline unsigned loss_blocks(int64_t n) {
+  const unsigned b = blocks(n > 0 ? n : 1, kThreads);
+  return b < (unsigned)kLossBlocks ? b : (unsigned)kLossBlocks;
+}
+
 }  // namespace
 
+// status [>= nbT] uint64 and done [1]: zero before the first launch; the
+// kernel leaves them zero
 extern "C" int marching_tets_fwd(const float* pos, const float* sdf,
                                  const int* tets, const int* tet_edges,
-                                 const int* unique_edges, int V, int F, int E,
-                                 int max_tris, int* block_sums, float* verts,
+                                 const int* unique_edges, int F, int E,
+                                 int max_tris, unsigned long long* status,
+                                 unsigned* done, float* verts,
                                  uint8_t* crossing, int* faces, uint8_t* mask,
-                                 void* stream) {
-  (void)V;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (E > 0)
-    mt_edge_kernel<<<blocks(E, kThreads), kThreads, 0, s>>>(
-        pos, sdf, unique_edges, E, verts, crossing);
-  const int nb = (int)blocks(F, kBlock);
-  if (nb > 0) {
-    mt_count_kernel<<<nb, kBlock, 0, s>>>(sdf, tets, F, block_sums);
-    mt_scan_kernel<<<1, kBlock, 0, s>>>(block_sums, nb);
-    mt_emit_kernel<<<nb, kBlock, 0, s>>>(sdf, tets, tet_edges, F, max_tris,
-                                         block_sums, faces, mask);
-  }
+                                 int* tri_slot, int* face_info, void* stream) {
+  const int nbT = (int)blocks(F, kBlock), nbE = (int)blocks(E, kBlock);
+  mt_fwd_kernel<<<nbT + nbE + kTail, kBlock, 0, (cudaStream_t)stream>>>(
+      pos, sdf, tets, tet_edges, unique_edges, F, E, max_tris, nbT, nbE,
+      status, done, verts, crossing, faces, mask, tri_slot, face_info);
   return (int)cudaGetLastError();
 }
 
+// a cooperative launch of `ctas` blocks (at most those the card holds at
+// once: 2 a multiprocessor)
 extern "C" int marching_tets_bwd(const float* pos, const float* sdf,
-                                 const int* unique_edges, int E,
+                                 const int* unique_edges, int V, int E,
                                  const float* g_verts, float* g_pos,
-                                 float* g_sdf, void* stream) {
-  if (E > 0)
-    mt_bwd_kernel<<<blocks(E, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        pos, sdf, unique_edges, E, g_verts, g_pos, g_sdf);
+                                 float* g_sdf, int ctas, void* stream) {
+  void* args[] = {(void*)&pos,     (void*)&sdf,   (void*)&unique_edges,
+                  (void*)&V,       (void*)&E,     (void*)&g_verts,
+                  (void*)&g_pos,   (void*)&g_sdf};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)mt_bwd_kernel, dim3((unsigned)ctas), dim3(kThreads), args,
+      0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 extern "C" int vertex_normals_fwd(const float* verts, const int* faces,
-                                  const uint8_t* mask, int E, int T,
-                                  float* acc, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T > 0)
-    vn_scatter_kernel<<<blocks(T, kThreads), kThreads, 0, s>>>(verts, faces,
-                                                               mask, T, acc);
-  if (E > 0)
-    vn_normalize_kernel<<<blocks(E, kThreads), kThreads, 0, s>>>(acc, E, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int vertex_normals_bwd(const float* verts, const int* faces,
-                                  const uint8_t* mask, const float* acc,
-                                  const float* n, const float* g_n, int E,
-                                  int T, float* g_acc, float* g_verts,
+                                  const uint8_t* crossing,
+                                  const int* tri_slot, const int* et_off,
+                                  const int* et, int E, float* out, float* rs,
                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (E > 0)
-    vn_bwd_vertex_kernel<<<blocks(E, kThreads), kThreads, 0, s>>>(acc, n, g_n,
-                                                                  E, g_acc);
-  if (T > 0)
-    vn_bwd_face_kernel<<<blocks(T, kThreads), kThreads, 0, s>>>(
-        verts, faces, mask, T, g_acc, g_verts);
+    vn_fwd_kernel<<<blocks(E, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        verts, faces, crossing, tri_slot, et_off, et, E, out, rs);
   return (int)cudaGetLastError();
 }
 
+// term [T][3] float4: scratch (the faces' terms, then the gather)
+extern "C" int vertex_normals_bwd(const float* verts, const int* faces,
+                                  const uint8_t* mask, const uint8_t* crossing,
+                                  const int* tri_slot, const int* et_off,
+                                  const int* et, const float* n,
+                                  const float* rs, const float* g_n, int E,
+                                  int T, float* term, float* g_verts,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (T > 0)
+    vn_face_kernel<<<blocks(T, kThreads), kThreads, 0, st>>>(
+        verts, faces, mask, n, rs, g_n, T, (float4*)term);
+  if (E > 0)
+    mt_gather_kernel<false><<<blocks(E, kThreads), kThreads, 0, st>>>(
+        faces, crossing, tri_slot, et_off, et, (const float4*)term, nullptr,
+        nullptr, nullptr, E, g_verts);
+  return (int)cudaGetLastError();
+}
+
+// partials [1024] float2, done [1] zero before the first launch
 extern "C" int laplacian_fwd(const float* verts, const int* faces,
-                             const uint8_t* mask, int E, int T, float* nb_sum,
-                             float* nb_cnt, float* d2, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T > 0)
-    lap_scatter_kernel<<<blocks(T, kThreads), kThreads, 0, s>>>(
-        verts, faces, mask, T, nb_sum, nb_cnt);
-  if (E > 0)
-    lap_vertex_kernel<<<blocks(E, kThreads), kThreads, 0, s>>>(
-        verts, nb_sum, nb_cnt, E, d2);
+                             const uint8_t* crossing, const int* tri_slot,
+                             const int* et_off, const int* et, int E,
+                             float* aux, float* partials, unsigned* done,
+                             float* loss, float* den, void* stream) {
+  lap_fwd_kernel<<<loss_blocks(E), kThreads, 0, (cudaStream_t)stream>>>(
+      verts, faces, crossing, tri_slot, et_off, et, E, (float4*)aux,
+      (float2*)partials, done, loss, den);
   return (int)cudaGetLastError();
 }
 
-extern "C" int laplacian_bwd(const float* verts, const int* faces,
-                             const uint8_t* mask, const float* nb_sum,
-                             const float* nb_cnt, const float* gs, int E,
-                             int T, float* g_sum, float* g_verts,
-                             void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (E > 0)
-    lap_bwd_vertex_kernel<<<blocks(E, kThreads), kThreads, 0, s>>>(
-        verts, nb_sum, nb_cnt, gs, E, g_sum, g_verts);
+extern "C" int laplacian_bwd(const int* faces, const uint8_t* mask,
+                             const uint8_t* crossing, const int* tri_slot,
+                             const int* et_off, const int* et,
+                             const float* aux, const float* g,
+                             const float* den, int E, int T, float* term,
+                             float* g_verts, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   if (T > 0)
-    lap_bwd_face_kernel<<<blocks(T, kThreads), kThreads, 0, s>>>(
-        faces, mask, T, g_sum, g_verts);
+    lap_face_kernel<<<blocks(T, kThreads), kThreads, 0, st>>>(
+        faces, mask, (const float4*)aux, g, den, T, (float4*)term);
+  if (E > 0)
+    mt_gather_kernel<true><<<blocks(E, kThreads), kThreads, 0, st>>>(
+        faces, crossing, tri_slot, et_off, et, (const float4*)term,
+        (const float4*)aux, g, den, E, g_verts);
   return (int)cudaGetLastError();
 }
 
+// partials [1024] float2, done [1] zero before the first launch
 extern "C" int normal_consistency_fwd(const float* verts, const int* faces,
-                                      const uint8_t* mask, int T, int size,
-                                      unsigned long long* keys, int* cnt,
-                                      int* first, int* slot, int* pos,
-                                      float* nrm, int* partner, float* terms,
-                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T > 0) {
-    nc_normals_kernel<<<blocks(T, kThreads), kThreads, 0, s>>>(verts, faces,
-                                                               T, nrm);
-    const unsigned nb = blocks(3 * (int64_t)T, kThreads);
-    nc_insert_kernel<<<nb, kThreads, 0, s>>>(faces, mask, T,
-                                             (unsigned long long)size, keys,
-                                             cnt, slot, pos);
-    nc_first_kernel<<<nb, kThreads, 0, s>>>(slot, pos, T, first);
-    nc_pair_kernel<<<nb, kThreads, 0, s>>>(slot, pos, first, nrm, T, partner,
-                                           terms);
-  }
+                                      const uint8_t* mask,
+                                      const int* face_info,
+                                      const int* tri_slot, const int* tet_nbr,
+                                      int T, float* nrm, int* partner,
+                                      float* partials, unsigned* done,
+                                      float* loss, float* den, void* stream) {
+  nc_fwd_kernel<<<loss_blocks(T), kThreads, 0, (cudaStream_t)stream>>>(
+      verts, faces, mask, face_info, tri_slot, tet_nbr, T, (float4*)nrm,
+      partner, (float2*)partials, done, loss, den);
   return (int)cudaGetLastError();
 }
 
 extern "C" int normal_consistency_bwd(const float* verts, const int* faces,
-                                      const uint8_t* mask, const float* nrm,
-                                      const int* partner, const float* gs,
-                                      int T, float* g_nrm, float* g_verts,
+                                      const uint8_t* mask,
+                                      const uint8_t* crossing,
+                                      const int* tri_slot, const int* et_off,
+                                      const int* et, const float* nrm,
+                                      const int* partner, const float* g,
+                                      const float* den, int E, int T,
+                                      float* term, float* g_verts,
                                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T > 0) {
-    nc_bwd_pair_kernel<<<blocks(3 * (int64_t)T, kThreads), kThreads, 0, s>>>(
-        partner, nrm, gs, T, g_nrm);
-    nc_bwd_face_kernel<<<blocks(T, kThreads), kThreads, 0, s>>>(
-        verts, faces, mask, nrm, T, g_nrm, g_verts);
-  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (T > 0)
+    nc_face_kernel<<<blocks(T, kThreads), kThreads, 0, st>>>(
+        verts, faces, mask, (const float4*)nrm, partner, g, den, T,
+        (float4*)term);
+  if (E > 0)
+    mt_gather_kernel<false><<<blocks(E, kThreads), kThreads, 0, st>>>(
+        faces, crossing, tri_slot, et_off, et, (const float4*)term, nullptr,
+        nullptr, nullptr, E, g_verts);
   return (int)cudaGetLastError();
 }

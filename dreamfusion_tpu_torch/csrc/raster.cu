@@ -4,29 +4,40 @@
 // Replaces dreamfusion_tpu/ops/raster.py::rasterize and ::interpolate.  On
 // the TPU the triangles are binned per 32x32 tile with top_k over a
 // [tiles, T] score and every (pixel, listed triangle) pair is one einsum
-// per tile, with gradients from autodiff.  Here:
-//   * raster_setup_kernel, one thread per triangle: the coefficient rows of
-//     bu, bv and z as a*px + b*py + c, sqrt|den| and the padded tile range
-//     (empty for a dropped triangle);
-//   * raster_tile_kernel, one block per tile and one thread per pixel: the
-//     block scans the triangles' tile ranges in index order, compacts the
-//     overlapping ones into a shared list with ballot / popc prefixes and
-//     stops at tile_cap (the "first tile_cap by index" of the TPU top_k);
-//     then each thread walks the list (staged through shared memory) and
-//     keeps the nearest covering triangle (strict <, so ties go to the
-//     lowest index) and the largest soft-edge margin.  Both winners' ids
-//     are stored for the backward;
-//   * raster_bwd_kernel, one thread per pixel: recomputes the closed-form
-//     derivatives of (bu, bv, z) of the winner and of the margin of the
-//     margin winner and atomically adds them into per-vertex screen-space
-//     gradients (the clip -> NDC -> screen map stays in torch autograd).
-//   * interpolate: a per-pixel gather and 3-term weighted sum; backward
-//     atomically adds into the attributes and writes d bary.
+// per tile, with gradients from autodiff.  Here the forward is four kernels
+// in one launch call:
+//   * raster_setup_kernel, a thread per triangle and 256 triangles a block:
+//     the coefficient rows of bu, bv and z as a*px + b*py + c, sqrt|den|,
+//     the padded tile range (empty for a dropped triangle) and the block's
+//     histogram of tiles touched, counted in shared memory;
+//   * raster_scan_kernel, a warp per tile: the histograms' exclusive prefix
+//     over the blocks (in place) and the tile's count;
+//   * raster_bin_kernel: each triangle written once into the lists of the
+//     tiles its box touches, at its rank among the tile's triangles by
+//     index (the block's prefix + earlier warps' counts + the earlier lanes
+//     of its warp whose boxes hold the tile), so each list is in index
+//     order and only the first tile_cap are kept: the TPU top_k's "first
+//     tile_cap by index";
+//   * raster_tile_kernel, four blocks per tile (a quarter of its pixel rows
+//     each, so that the crowded tiles, cap triangles x 1024 pixels, spread
+//     over four SMs) and a thread per pixel: the
+//     listed coefficient rows staged through shared memory by cp.async,
+//     double-buffered; each pixel keeps the nearest covering triangle
+//     (strict <: ties to the lowest index) and the largest soft-edge
+//     margin, and stores both winners' slots in the list for the backward.
+// The backward (raster_bwd_kernel) takes the same tile parts: each pixel's
+// closed-form derivatives of (bu, bv, z) of its winner and of the margin of
+// its margin winner are summed in shared memory per listed triangle ((x, y,
+// z, -) for each of its vertices), and each triangle with a non-zero sum
+// adds them to its vertices' rows with one float4 reduction each; pixels whose
+// cotangents are zero take no part.  interpolate_bwd does the same for the
+// attributes' gradient and writes d bary per pixel.  A null cotangent
+// reads as zero (no zero-filled plane).
 //
 // Bound on the card: operations.  The sweep does ~20 fp32 operations per
-// pixel and listed triangle (512 per tile at the DMTet shape); the bytes are
-// the per-vertex screen coordinates, the faces and 4 output planes.
-// Arithmetic that decides a selection uses explicit round-to-nearest
+// (pixel, listed triangle); binning touches each (triangle, tile) pair once;
+// the bytes are the per-vertex screen coordinates, the faces and the output
+// planes.  Arithmetic that decides a selection uses explicit round-to-nearest
 // intrinsics in the plain version's order (no FMA contraction), so the
 // kernel selects the same triangles as ops/raster.py::raster_plain on the
 // same inputs.
@@ -35,11 +46,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kMaxCap = 1024;
-constexpr int kStage = 256;     // listed triangles staged per pass
-constexpr int kCoef = 12;       // cu[3] cv[3] cz[3] scale pad pad
+constexpr int kMaxTiles = 4096;
+constexpr int kStage = 256;      // listed triangles staged per pass
+constexpr int kCoef = 12;        // cu[3] cv[3] cz[3] scale pad pad
+constexpr int kBinThreads = 256;  // triangles a binning block
+constexpr int kBinWarps = kBinThreads / 32;
+constexpr int kTileParts = 4;      // blocks per tile: rows of its pixels
+constexpr unsigned kNoSlot = 0xffffu;
 
 __device__ __forceinline__ float fmul(float a, float b) {
   return __fmul_rn(a, b);
@@ -50,135 +68,201 @@ __device__ __forceinline__ float fadd(float a, float b) {
 __device__ __forceinline__ float fsub(float a, float b) {
   return __fsub_rn(a, b);
 }
-// a*px + b*py + c, as ops/raster.py::_eval
-__device__ __forceinline__ float lin(const float* c, float px, float py) {
-  return fadd(fadd(fmul(c[0], px), fmul(c[1], py)), c[2]);
+
+// the tile rectangle clamped to the grid (x0 > x1 when empty)
+__device__ __forceinline__ int4 clamp_rect(int4 r, int ntx, int nty) {
+  return make_int4(max(r.x, 0), min(r.y, ntx - 1), max(r.z, 0),
+                   min(r.w, nty - 1));
 }
 
-__global__ void raster_setup_kernel(
+__global__ void __launch_bounds__(kBinThreads) raster_setup_kernel(
     const float* __restrict__ sx, const float* __restrict__ sy,
     const float* __restrict__ sz, const int* __restrict__ faces,
-    const uint8_t* __restrict__ valid, int T, int tile, float pad,
-    float* __restrict__ coef, int4* __restrict__ range) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const int a = faces[3 * t], b = faces[3 * t + 1], c = faces[3 * t + 2];
-  const float x0 = sx[a], y0 = sy[a], x1 = sx[b], y1 = sy[b], x2 = sx[c],
-              y2 = sy[c];
-  const float z0 = sz[a], z1 = sz[b], z2 = sz[c];
-  const float e0x = fsub(x1, x0), e0y = fsub(y1, y0);
-  const float e1x = fsub(x2, x0), e1y = fsub(y2, y0);
-  float den = fsub(fmul(e0x, e1y), fmul(e0y, e1x));
-  if (fabsf(den) < 1e-9f) den = 1e-9f;
-  const float inv = __fdiv_rn(1.f, den);
-  float* o = coef + (int64_t)t * kCoef;
-  const float cu[3] = {fmul(e1y, inv), fmul(-e1x, inv),
-                       fmul(fsub(fmul(y0, e1x), fmul(x0, e1y)), inv)};
-  const float cv[3] = {fmul(-e0y, inv), fmul(e0x, inv),
-                       fmul(fsub(fmul(x0, e0y), fmul(y0, e0x)), inv)};
-  const float dz1 = fsub(z1, z0), dz2 = fsub(z2, z0);
-  for (int k = 0; k < 3; ++k) {
-    o[k] = cu[k];
-    o[3 + k] = cv[k];
-    o[6 + k] = fadd(fmul(cu[k], dz1), fmul(cv[k], dz2));
+    const uint8_t* __restrict__ valid, int T, int tile, float pad, int ntx,
+    int nty, int nb, float* __restrict__ coef, int4* __restrict__ range,
+    int* __restrict__ hist) {
+  extern __shared__ int s_hist[];
+  const int G = ntx * nty;
+  for (int i = threadIdx.x; i < G; i += blockDim.x) s_hist[i] = 0;
+  __syncthreads();
+  const int t = blockIdx.x * kBinThreads + threadIdx.x;
+  if (t < T) {
+    const int a = faces[3 * t], b = faces[3 * t + 1], c = faces[3 * t + 2];
+    const float x0 = sx[a], y0 = sy[a], x1 = sx[b], y1 = sy[b], x2 = sx[c],
+                y2 = sy[c];
+    const float z0 = sz[a], z1 = sz[b], z2 = sz[c];
+    const float e0x = fsub(x1, x0), e0y = fsub(y1, y0);
+    const float e1x = fsub(x2, x0), e1y = fsub(y2, y0);
+    float den = fsub(fmul(e0x, e1y), fmul(e0y, e1x));
+    if (fabsf(den) < 1e-9f) den = 1e-9f;
+    const float inv = __fdiv_rn(1.f, den);
+    const float cu[3] = {fmul(e1y, inv), fmul(-e1x, inv),
+                         fmul(fsub(fmul(y0, e1x), fmul(x0, e1y)), inv)};
+    const float cv[3] = {fmul(-e0y, inv), fmul(e0x, inv),
+                         fmul(fsub(fmul(x0, e0y), fmul(y0, e0x)), inv)};
+    const float dz1 = fsub(z1, z0), dz2 = fsub(z2, z0);
+    float o[kCoef];
+    for (int k = 0; k < 3; ++k) {
+      o[k] = cu[k];
+      o[3 + k] = cv[k];
+      o[6 + k] = fadd(fmul(cu[k], dz1), fmul(cv[k], dz2));
+    }
+    o[8] = fadd(o[8], z0);
+    o[9] = __fsqrt_rn(fabsf(den));
+    o[10] = 0.f;
+    o[11] = 0.f;
+    float4* row = reinterpret_cast<float4*>(coef + (int64_t)t * kCoef);
+    row[0] = make_float4(o[0], o[1], o[2], o[3]);
+    row[1] = make_float4(o[4], o[5], o[6], o[7]);
+    row[2] = make_float4(o[8], o[9], o[10], o[11]);
+    int4 r = make_int4(1, 0, 1, 0);             // empty: dropped triangle
+    if (valid[t]) {
+      const float bx0 = fminf(fminf(x0, x1), x2),
+                  bx1 = fmaxf(fmaxf(x0, x1), x2);
+      const float by0 = fminf(fminf(y0, y1), y2),
+                  by1 = fmaxf(fmaxf(y0, y1), y2);
+      const float ft = (float)tile;
+      r = make_int4((int)floorf(__fdiv_rn(fsub(bx0, pad), ft)),
+                    (int)floorf(__fdiv_rn(fadd(bx1, pad), ft)),
+                    (int)floorf(__fdiv_rn(fsub(by0, pad), ft)),
+                    (int)floorf(__fdiv_rn(fadd(by1, pad), ft)));
+    }
+    range[t] = r;
+    const int4 q = clamp_rect(r, ntx, nty);
+    for (int ty = q.z; ty <= q.w; ++ty)
+      for (int tx = q.x; tx <= q.y; ++tx) atomicAdd(&s_hist[ty * ntx + tx], 1);
   }
-  o[8] = fadd(o[8], z0);
-  o[9] = __fsqrt_rn(fabsf(den));
-  o[10] = 0.f;
-  o[11] = 0.f;
-  int4 r = make_int4(1, 0, 1, 0);             // empty: dropped triangle
-  if (valid[t]) {
-    const float bx0 = fminf(fminf(x0, x1), x2), bx1 = fmaxf(fmaxf(x0, x1), x2);
-    const float by0 = fminf(fminf(y0, y1), y2), by1 = fmaxf(fmaxf(y0, y1), y2);
-    const float ft = (float)tile;
-    r = make_int4((int)floorf(__fdiv_rn(fsub(bx0, pad), ft)),
-                  (int)floorf(__fdiv_rn(fadd(bx1, pad), ft)),
-                  (int)floorf(__fdiv_rn(fsub(by0, pad), ft)),
-                  (int)floorf(__fdiv_rn(fadd(by1, pad), ft)));
-  }
-  range[t] = r;
+  __syncthreads();
+  for (int i = threadIdx.x; i < G; i += blockDim.x)
+    hist[(int64_t)i * nb + blockIdx.x] = s_hist[i];
 }
 
-__global__ void __launch_bounds__(1024) raster_tile_kernel(
-    const float* __restrict__ coef, const int4* __restrict__ range, int T,
-    int H, int W, int tile, int cap, float soft, float* __restrict__ bary,
-    int* __restrict__ tri_id, float* __restrict__ depth,
-    float* __restrict__ alpha, int* __restrict__ marg_id) {
-  __shared__ int s_list[kMaxCap];
-  __shared__ int s_warp[32];
-  __shared__ int s_total;
-  __shared__ float s_coef[kStage * 10];
-  __shared__ int s_id[kStage];
-
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const int tx = blockIdx.x, ty = blockIdx.y;
-
-  // ---- list the first `cap` overlapping triangles in index order -------
-  int count = 0;
-  for (int base = 0; base < T && count < cap; base += nthreads) {
-    const int i = base + tid;
-    bool ov = false;
-    if (i < T) {
-      const int4 r = range[i];
-      ov = r.x <= tx && r.y >= tx && r.z <= ty && r.w >= ty;
+// a warp per tile: exclusive prefix of its row of block counts, in place
+__global__ void raster_scan_kernel(int* __restrict__ hist, int G, int nb,
+                                   int* __restrict__ counts) {
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (g >= G) return;
+  int* h = hist + (int64_t)g * nb;
+  int carry = 0;
+  for (int b0 = 0; b0 < nb; b0 += 32) {
+    const int b = b0 + lane;
+    const int v = b < nb ? h[b] : 0;
+    int incl = v;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += u;
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, ov);
-    const int before = __popc(ballot & ((1u << lane) - 1u));
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      const int v = lane < nwarps ? s_warp[lane] : 0;
-      int incl = v;
-      for (int d = 1; d < 32; d <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += u;
-      }
-      if (lane < nwarps) s_warp[lane] = incl - v;
-      if (lane == 31) s_total = incl;
-    }
-    __syncthreads();
-    const int pos = count + s_warp[warp] + before;
-    if (ov && pos < cap) s_list[pos] = i;
-    count += s_total;
-    __syncthreads();
+    if (b < nb) h[b] = carry + incl - v;
+    carry += __shfl_sync(0xffffffffu, incl, 31);
   }
-  const int n = count < cap ? count : cap;
+  if (lane == 0) counts[g] = carry;
+}
 
-  // ---- per pixel: nearest covering triangle, largest margin -------------
-  const int lx = tid % tile, ly = tid / tile;
+__global__ void __launch_bounds__(kBinThreads) raster_bin_kernel(
+    const int4* __restrict__ range, const int* __restrict__ hist, int T,
+    int ntx, int nty, int nb, int cap, int* __restrict__ lists) {
+  extern __shared__ int smem[];
+  __shared__ int4 s_rect[kBinThreads];
+  const int G = ntx * nty;
+  int* s_base = smem;              // [G] listed before this round
+  int* s_warp = smem + G;          // [kBinWarps][G] this round, per warp
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < G; i += kBinThreads) {
+    s_base[i] = hist[(int64_t)i * nb + blockIdx.x];
+    for (int w = 0; w < kBinWarps; ++w) s_warp[w * G + i] = 0;
+  }
+  const int t = blockIdx.x * kBinThreads + tid;
+  const int4 q = t < T ? clamp_rect(range[t], ntx, nty)
+                       : make_int4(1, 0, 1, 0);
+  s_rect[tid] = q;
+  __syncthreads();
+  for (int ty = q.z; ty <= q.w; ++ty)
+    for (int tx = q.x; tx <= q.y; ++tx)
+      atomicAdd(&s_warp[warp * G + ty * ntx + tx], 1);
+  __syncthreads();
+  const int4* wr = s_rect + warp * 32;
+  for (int ty = q.z; ty <= q.w; ++ty) {
+    for (int tx = q.x; tx <= q.y; ++tx) {
+      const int g = ty * ntx + tx;
+      int rank = s_base[g];
+      for (int w = 0; w < warp; ++w) rank += s_warp[w * G + g];
+      for (int j = 0; j < lane; ++j) {
+        const int4 o = wr[j];
+        rank += o.x <= tx && tx <= o.y && o.z <= ty && ty <= o.w;
+      }
+      if (rank < cap) lists[(int64_t)g * cap + rank] = t;
+    }
+  }
+}
+
+// stage the coefficient rows of list[s0 : s0 + m) into `dst` (cp.async)
+__device__ __forceinline__ void stage_rows(float* dst, const float* coef,
+                                           const int* list, int s0, int m) {
+  for (int j = threadIdx.x; j < 3 * m; j += blockDim.x) {
+    const int k = j / 3, q = j - 3 * k;
+    dft::cp_async16(dst + 4 * j, coef + (int64_t)list[s0 + k] * kCoef + 4 * q,
+                    true);
+  }
+  dft::cp_async_commit();
+}
+
+__global__ void __launch_bounds__(256, 4) raster_tile_kernel(
+    const float* __restrict__ coef, const int* __restrict__ lists,
+    const int* __restrict__ counts, int H, int W, int tile, int cap,
+    float soft, float* __restrict__ bary, int* __restrict__ tri_id,
+    float* __restrict__ depth, float* __restrict__ alpha,
+    unsigned* __restrict__ slots) {
+  __shared__ __align__(16) float s_coef[2][kStage * kCoef];
+
+  const int tid = threadIdx.x;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int g = ty * gridDim.x + tx;
+  const int count = counts[g];
+  const int n = count < cap ? count : cap;
+  const int* list = lists + (int64_t)g * cap;
+
+  const int pix = blockIdx.z * blockDim.x + tid;   // this part's pixels
+  const int lx = pix % tile, ly = pix / tile;
   const float px = fadd((float)lx + 0.5f, (float)(tx * tile));
   const float py = fadd((float)ly + 0.5f, (float)(ty * tile));
   float best_z = INFINITY, bu_b = 0.f, bv_b = 0.f;
   int best = -1;
   float best_m = count < cap ? -1e9f : -INFINITY;  // an unlisted slot: -1e9
   int marg = -1;
-  for (int s0 = 0; s0 < n; s0 += kStage) {
+  if (n > 0) stage_rows(s_coef[0], coef, list, 0, n < kStage ? n : kStage);
+  for (int s0 = 0, it = 0; s0 < n; s0 += kStage, ++it) {
     const int m = n - s0 < kStage ? n - s0 : kStage;
-    for (int j = tid; j < m * 10; j += nthreads) {
-      const int f = s_list[s0 + j / 10];
-      s_coef[j] = coef[(int64_t)f * kCoef + j % 10];
+    if (s0 + kStage < n) {
+      const int m2 = n - s0 - kStage < kStage ? n - s0 - kStage : kStage;
+      stage_rows(s_coef[(it + 1) & 1], coef, list, s0 + kStage, m2);
+      dft::cp_async_wait<1>();
+    } else {
+      dft::cp_async_wait<0>();
     }
-    for (int j = tid; j < m; j += nthreads) s_id[j] = s_list[s0 + j];
     __syncthreads();
+    const float4* c4 = reinterpret_cast<const float4*>(s_coef[it & 1]);
     for (int j = 0; j < m; ++j) {
-      const float* c = s_coef + j * 10;
-      const float bu = lin(c, px, py), bv = lin(c + 3, px, py);
+      const float4 a = c4[3 * j], b = c4[3 * j + 1], c = c4[3 * j + 2];
+      // cu = (a.x, a.y, a.z), cv = (a.w, b.x, b.y), cz = (b.z, b.w, c.x),
+      // scale = c.y; each a*px + b*py + c as ops/raster.py::_eval
+      const float bu = fadd(fadd(fmul(a.x, px), fmul(a.y, py)), a.z);
+      const float bv = fadd(fadd(fmul(a.w, px), fmul(b.x, py)), b.y);
       const float bw = fsub(fsub(1.f, bu), bv);
       if (bu >= 0.f && bv >= 0.f && bw >= 0.f) {
-        const float z = lin(c + 6, px, py);
+        const float z = fadd(fadd(fmul(b.z, px), fmul(b.w, py)), c.x);
         if (z < best_z) {
           best_z = z;
-          best = s_id[j];
+          best = s0 + j;
           bu_b = bu;
           bv_b = bv;
         }
       }
       if (soft > 0.f) {
-        const float mg = fmul(fminf(fminf(bu, bv), bw), c[9]);
+        const float mg = fmul(fminf(fminf(bu, bv), bw), c.y);
         if (mg > best_m) {
           best_m = mg;
-          marg = s_id[j];
+          marg = s0 + j;
         }
       }
     }
@@ -187,8 +271,9 @@ __global__ void __launch_bounds__(1024) raster_tile_kernel(
   const int x = tx * tile + lx, y = ty * tile + ly;
   if (x >= W || y >= H) return;
   const int64_t p = (int64_t)y * W + x;
-  tri_id[p] = best;
-  marg_id[p] = marg;
+  tri_id[p] = best >= 0 ? list[best] : -1;
+  slots[p] = (best >= 0 ? (unsigned)best : kNoSlot) |
+             ((marg >= 0 ? (unsigned)marg : kNoSlot) << 16);
   if (best >= 0) {
     bary[3 * p] = fsub(fsub(1.f, bu_b), bv_b);
     bary[3 * p + 1] = bu_b;
@@ -250,68 +335,118 @@ __device__ void bary_grads(const Tri& t, float px, float py, float dbu[6],
   }
 }
 
-__global__ void raster_bwd_kernel(
-    const float* __restrict__ sx, const float* __restrict__ sy,
-    const float* __restrict__ sz, const int* __restrict__ faces,
-    const int* __restrict__ tri_id, const int* __restrict__ marg_id,
-    const float* __restrict__ alpha, const float* __restrict__ g_bary,
-    const float* __restrict__ g_depth, const float* __restrict__ g_alpha,
-    int H, int W, float soft, float* __restrict__ gx, float* __restrict__ gy,
-    float* __restrict__ gz) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (int64_t)H * W) return;
-  const float px = (float)(p % W) + 0.5f, py = (float)(p / W) + 0.5f;
-  const int t = tri_id[p];
-  if (t >= 0) {
-    const int* f = faces + 3 * t;
-    const Tri tr = load_tri(sx, sy, f, px, py);
-    const float z0 = sz[f[0]], z1 = sz[f[1]], z2 = sz[f[2]];
-    const float gw = g_bary[3 * p], gu = g_bary[3 * p + 1],
-                gv = g_bary[3 * p + 2], gd = g_depth[p];
-    const float Gu = gu - gw + gd * (z1 - z0);
-    const float Gv = gv - gw + gd * (z2 - z0);
-    if (Gu != 0.f || Gv != 0.f) {
-      float dbu[6], dbv[6];
-      bary_grads(tr, px, py, dbu, dbv);
-      for (int k = 0; k < 3; ++k) {
-        atomicAdd(gx + f[k], Gu * dbu[2 * k] + Gv * dbv[2 * k]);
-        atomicAdd(gy + f[k], Gu * dbu[2 * k + 1] + Gv * dbv[2 * k + 1]);
+// the per-slot sums of a tile → one float4 reduction per vertex of each
+// listed triangle with a non-zero sum; rows are (x, y, z, -) or C channels
+// padded to CP
+__device__ __forceinline__ void flush_slots(const float* s_acc, int n,
+                                            int per_vertex,
+                                            const int* __restrict__ list,
+                                            const int* __restrict__ faces,
+                                            float* __restrict__ out) {
+  const int per = 3 * per_vertex;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float* a = s_acc + j * per;
+    bool nz = false;
+    for (int i = 0; i < per; ++i) nz |= a[i] != 0.f;
+    if (!nz) continue;
+    const int* f = faces + 3 * list[j];
+    for (int k = 0; k < 3; ++k) {
+      float4* dst = reinterpret_cast<float4*>(out + (int64_t)f[k] *
+                                              per_vertex);
+      for (int q = 0; q < per_vertex / 4; ++q) {
+        const float* v = a + k * per_vertex + 4 * q;
+        if (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f || v[3] != 0.f)
+          atomicAdd(dst + q, make_float4(v[0], v[1], v[2], v[3]));
       }
     }
-    if (gd != 0.f) {
-      atomicAdd(gz + f[0], gd * (1.f - tr.bu - tr.bv));
-      atomicAdd(gz + f[1], gd * tr.bu);
-      atomicAdd(gz + f[2], gd * tr.bv);
+  }
+}
+
+__global__ void __launch_bounds__(256, 4) raster_bwd_kernel(
+    const float* __restrict__ sx, const float* __restrict__ sy,
+    const float* __restrict__ sz, const int* __restrict__ faces,
+    const int* __restrict__ tri_id, const unsigned* __restrict__ slots,
+    const int* __restrict__ lists, const int* __restrict__ counts,
+    const float* __restrict__ alpha, const float* __restrict__ g_bary,
+    const float* __restrict__ g_depth, const float* __restrict__ g_alpha,
+    int H, int W, int tile, int cap, float soft, float* __restrict__ gs) {
+  extern __shared__ float s_acc[];        // [n][3 vertices][x, y, z, -]
+  const int tid = threadIdx.x;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int g = ty * gridDim.x + tx;
+  const int count = counts[g];
+  const int n = count < cap ? count : cap;
+  const int* list = lists + (int64_t)g * cap;
+  for (int i = tid; i < 12 * n; i += blockDim.x) s_acc[i] = 0.f;
+  __syncthreads();
+
+  const int pix = blockIdx.z * blockDim.x + tid;   // this part's pixels
+  const int x = tx * tile + pix % tile, y = ty * tile + pix / tile;
+  if (x < W && y < H) {
+    const int64_t p = (int64_t)y * W + x;
+    const float px = (float)x + 0.5f, py = (float)y + 0.5f;
+    const int t = tri_id[p];
+    const unsigned sl = slots[p];
+    if (t >= 0) {
+      const float gw = g_bary ? g_bary[3 * p] : 0.f;
+      const float gu = g_bary ? g_bary[3 * p + 1] : 0.f;
+      const float gv = g_bary ? g_bary[3 * p + 2] : 0.f;
+      const float gd = g_depth ? g_depth[p] : 0.f;
+      if (gw != 0.f || gu != 0.f || gv != 0.f || gd != 0.f) {
+        const int* f = faces + 3 * t;
+        const Tri tr = load_tri(sx, sy, f, px, py);
+        const float z0 = sz[f[0]], z1 = sz[f[1]], z2 = sz[f[2]];
+        const float Gu = gu - gw + gd * (z1 - z0);
+        const float Gv = gv - gw + gd * (z2 - z0);
+        float* a = s_acc + 12 * (sl & kNoSlot);
+        if (Gu != 0.f || Gv != 0.f) {
+          float dbu[6], dbv[6];
+          bary_grads(tr, px, py, dbu, dbv);
+          for (int k = 0; k < 3; ++k) {
+            atomicAdd(a + 4 * k, Gu * dbu[2 * k] + Gv * dbv[2 * k]);
+            atomicAdd(a + 4 * k + 1, Gu * dbu[2 * k + 1] + Gv * dbv[2 * k + 1]);
+          }
+        }
+        if (gd != 0.f) {
+          atomicAdd(a + 2, gd * (1.f - tr.bu - tr.bv));
+          atomicAdd(a + 6, gd * tr.bu);
+          atomicAdd(a + 10, gd * tr.bv);
+        }
+      }
+    }
+    const unsigned ms = sl >> 16;
+    if (soft > 0.f && ms != kNoSlot && g_alpha) {
+      const float al = alpha[p];
+      const float Gm = g_alpha[p] * al * (1.f - al) * 4.f / soft;
+      if (Gm != 0.f) {
+        const int* f = faces + 3 * list[ms];
+        const Tri tr = load_tri(sx, sy, f, px, py);
+        const float bw = 1.f - tr.bu - tr.bv;
+        // min(min(bu, bv), bw): the first of a tie, as fminf picks
+        int k = 0;
+        float bmin = tr.bu;
+        if (tr.bv < bmin) { bmin = tr.bv; k = 1; }
+        if (bw < bmin) { bmin = bw; k = 2; }
+        float dbu[6], dbv[6];
+        bary_grads(tr, px, py, dbu, dbv);
+        const float scale = sqrtf(fabsf(tr.den));
+        // d scale / d den = sign(den) / (2 scale), none when guarded
+        const float ds = tr.guarded ? 0.f
+                                    : (tr.den > 0.f ? 0.5f : -0.5f) / scale;
+        const float e0x = tr.x[1] - tr.x[0], e0y = tr.y[1] - tr.y[0];
+        const float e1x = tr.x[2] - tr.x[0], e1y = tr.y[2] - tr.y[0];
+        const float dden[6] = {e0y - e1y, e1x - e0x, e1y, -e1x, -e0y, e0x};
+        float* a = s_acc + 12 * ms;
+        for (int i = 0; i < 6; ++i) {
+          const float db = k == 0 ? dbu[i] : k == 1 ? dbv[i] : -dbu[i] - dbv[i];
+          atomicAdd(a + 4 * (i >> 1) + (i & 1),
+                    Gm * (scale * db + bmin * ds * dden[i]));
+        }
+      }
     }
   }
-  const int m = marg_id[p];
-  if (soft > 0.f && m >= 0) {
-    const float a = alpha[p];
-    const float Gm = g_alpha[p] * a * (1.f - a) * 4.f / soft;
-    if (Gm == 0.f) return;
-    const int* f = faces + 3 * m;
-    const Tri tr = load_tri(sx, sy, f, px, py);
-    const float bw = 1.f - tr.bu - tr.bv;
-    // min(min(bu, bv), bw): the first of a tie, as fminf picks
-    int k = 0;
-    float bmin = tr.bu;
-    if (tr.bv < bmin) { bmin = tr.bv; k = 1; }
-    if (bw < bmin) { bmin = bw; k = 2; }
-    float dbu[6], dbv[6];
-    bary_grads(tr, px, py, dbu, dbv);
-    const float scale = sqrtf(fabsf(tr.den));
-    // d scale / d den = sign(den) / (2 scale), none when guarded
-    const float ds = tr.guarded ? 0.f
-                                : (tr.den > 0.f ? 0.5f : -0.5f) / scale;
-    const float e0x = tr.x[1] - tr.x[0], e0y = tr.y[1] - tr.y[0];
-    const float e1x = tr.x[2] - tr.x[0], e1y = tr.y[2] - tr.y[0];
-    const float dden[6] = {e0y - e1y, e1x - e0x, e1y, -e1x, -e0y, e0x};
-    for (int i = 0; i < 6; ++i) {
-      const float db = k == 0 ? dbu[i] : k == 1 ? dbv[i] : -dbu[i] - dbv[i];
-      const float d = Gm * (scale * db + bmin * ds * dden[i]);
-      atomicAdd((i & 1 ? gy : gx) + f[i >> 1], d);
-    }
-  }
+  __syncthreads();
+  flush_slots(s_acc, n, 4, list, faces, gs);
 }
 
 __global__ void interpolate_fwd_kernel(
@@ -333,63 +468,114 @@ __global__ void interpolate_fwd_kernel(
   out[i] = v;
 }
 
-__global__ void interpolate_bwd_kernel(
+__global__ void __launch_bounds__(256, 4) interpolate_bwd_kernel(
     const float* __restrict__ attrs, const float* __restrict__ bary,
-    const int* __restrict__ tri_id, const int* __restrict__ faces,
-    const float* __restrict__ g_out, int P, int C,
-    float* __restrict__ g_attrs, float* __restrict__ g_bary) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const int t = tri_id[p];
-  float gb[3] = {0.f, 0.f, 0.f};
-  if (t >= 0) {
-    const int* f = faces + 3 * t;
-    for (int c = 0; c < C; ++c) {
-      const float g = g_out[p * C + c];
-      for (int k = 0; k < 3; ++k) {
-        gb[k] += g * attrs[(int64_t)f[k] * C + c];
-        atomicAdd(g_attrs + (int64_t)f[k] * C + c, g * bary[3 * p + k]);
+    const int* __restrict__ tri_id, const unsigned* __restrict__ slots,
+    const int* __restrict__ lists, const int* __restrict__ counts,
+    const int* __restrict__ faces, const float* __restrict__ g_out, int H,
+    int W, int tile, int cap, int C, int CP, float* __restrict__ g_attrs,
+    float* __restrict__ g_bary) {
+  extern __shared__ float s_acc[];        // [n][3 vertices][CP]
+  const int tid = threadIdx.x;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int g = ty * gridDim.x + tx;
+  const int count = counts[g];
+  const int n = count < cap ? count : cap;
+  const int* list = lists + (int64_t)g * cap;
+  for (int i = tid; i < 3 * CP * n; i += blockDim.x) s_acc[i] = 0.f;
+  __syncthreads();
+  const int pix = blockIdx.z * blockDim.x + tid;   // this part's pixels
+  const int x = tx * tile + pix % tile, y = ty * tile + pix / tile;
+  if (x < W && y < H) {
+    const int64_t p = (int64_t)y * W + x;
+    const int t = tri_id[p];
+    float gb[3] = {0.f, 0.f, 0.f};
+    if (t >= 0) {
+      const int* f = faces + 3 * t;
+      const float b[3] = {bary[3 * p], bary[3 * p + 1], bary[3 * p + 2]};
+      float* a = s_acc + 3 * CP * (slots[p] & kNoSlot);
+      for (int c = 0; c < C; ++c) {
+        const float gc = g_out[p * C + c];
+        for (int k = 0; k < 3; ++k) gb[k] += gc * attrs[(int64_t)f[k] * C + c];
+        if (gc != 0.f) {
+          for (int k = 0; k < 3; ++k) atomicAdd(a + k * CP + c, gc * b[k]);
+        }
       }
     }
+    for (int k = 0; k < 3; ++k) g_bary[3 * p + k] = gb[k];
   }
-  for (int k = 0; k < 3; ++k) g_bary[3 * p + k] = gb[k];
+  __syncthreads();
+  flush_slots(s_acc, n, CP, list, faces, g_attrs);
+}
+
+inline unsigned blocks(int64_t n, int per) {
+  return (unsigned)((n + per - 1) / per);
+}
+
+// dynamic shared memory above the default 48 KB needs the kernel's opt-in
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace
 
+// coef [T, 12], range [T, 4] int, hist [G, nb] int, counts [G], lists
+// [G, cap]: the forward's scratch (lists, counts and slots are kept for the
+// backwards)
 extern "C" int raster_fwd(const float* sx, const float* sy, const float* sz,
-                          const int* faces, const uint8_t* valid, int V, int T,
+                          const int* faces, const uint8_t* valid, int T,
                           int H, int W, int tile, int cap, float soft,
-                          float* coef, int* range, float* bary, int* tri_id,
-                          float* depth, float* alpha, int* marg_id,
-                          void* stream) {
-  (void)V;
-  if (cap > kMaxCap || tile > 32 || (tile * tile) % 32 != 0) return -1;
+                          float* coef, int* range, int* hist, int* counts,
+                          int* lists, float* bary, int* tri_id, float* depth,
+                          float* alpha, unsigned* slots, void* stream) {
+  const int ntx = (W + tile - 1) / tile, nty = (H + tile - 1) / tile;
+  const int G = ntx * nty;
+  if (cap > kMaxCap || tile > 32 || (tile * tile) % (32 * kTileParts) != 0 ||
+      G > kMaxTiles)
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (T > 0) {
-    raster_setup_kernel<<<(T + 255) / 256, 256, 0, s>>>(
-        sx, sy, sz, faces, valid, T, tile, soft + 1.f, coef, (int4*)range);
-  }
-  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile);
-  raster_tile_kernel<<<grid, tile * tile, 0, s>>>(
-      coef, (const int4*)range, T, H, W, tile, cap, soft, bary, tri_id, depth,
-      alpha, marg_id);
+  const int nb = T > 0 ? (int)blocks(T, kBinThreads) : 1;
+  const size_t bin_smem = (size_t)(1 + kBinWarps) * G * sizeof(int);
+  cudaError_t e = allow_smem(raster_bin_kernel, bin_smem);
+  if (e != cudaSuccess) return (int)e;
+  raster_setup_kernel<<<nb, kBinThreads, G * sizeof(int), s>>>(
+      sx, sy, sz, faces, valid, T, tile, soft + 1.f, ntx, nty, nb, coef,
+      (int4*)range, hist);
+  raster_scan_kernel<<<blocks((int64_t)G * 32, 256), 256, 0, s>>>(hist, G, nb,
+                                                                   counts);
+  if (T > 0)
+    raster_bin_kernel<<<nb, kBinThreads, bin_smem, s>>>(
+        (const int4*)range, hist, T, ntx, nty, nb, cap, lists);
+  // a tile's pixels in kTileParts blocks, so that the most crowded tiles
+  // (cap triangles each) spread over as many SMs
+  raster_tile_kernel<<<dim3(ntx, nty, kTileParts), tile * tile / kTileParts,
+                       0, s>>>(
+      coef, lists, counts, H, W, tile, cap, soft, bary, tri_id, depth, alpha,
+      slots);
   return (int)cudaGetLastError();
 }
 
+// gs [V, 4] (x, y, z, -), zero on entry; null cotangents read as 0
 extern "C" int raster_bwd(const float* sx, const float* sy, const float* sz,
                           const int* faces, const int* tri_id,
-                          const int* marg_id, const float* alpha,
+                          const unsigned* slots, const int* lists,
+                          const int* counts, const float* alpha,
                           const float* g_bary, const float* g_depth,
-                          const float* g_alpha, int H, int W, float soft,
-                          float* gx, float* gy, float* gz, void* stream) {
-  const int64_t P = (int64_t)H * W;
-  if (P > 0) {
-    raster_bwd_kernel<<<(unsigned)((P + 255) / 256), 256, 0,
-                        (cudaStream_t)stream>>>(
-        sx, sy, sz, faces, tri_id, marg_id, alpha, g_bary, g_depth, g_alpha,
-        H, W, soft, gx, gy, gz);
-  }
+                          const float* g_alpha, int H, int W, int tile,
+                          int cap, float soft, float* gs, void* stream) {
+  const int ntx = (W + tile - 1) / tile, nty = (H + tile - 1) / tile;
+  const size_t smem = (size_t)12 * cap * sizeof(float);
+  cudaError_t e = allow_smem(raster_bwd_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (ntx > 0 && nty > 0)
+    raster_bwd_kernel<<<dim3(ntx, nty, kTileParts), tile * tile / kTileParts,
+                        smem, (cudaStream_t)stream>>>(
+        sx, sy, sz, faces, tri_id, slots, lists, counts, alpha, g_bary,
+        g_depth, g_alpha, H, W, tile, cap, soft, gs);
   return (int)cudaGetLastError();
 }
 
@@ -397,21 +583,29 @@ extern "C" int interpolate_fwd(const float* attrs, const float* bary,
                                const int* tri_id, const int* faces, int P,
                                int C, float* out, void* stream) {
   const int64_t n = (int64_t)P * C;
-  if (n > 0) {
-    interpolate_fwd_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                             (cudaStream_t)stream>>>(attrs, bary, tri_id,
-                                                     faces, P, C, out);
-  }
+  if (n > 0)
+    interpolate_fwd_kernel<<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
+        attrs, bary, tri_id, faces, P, C, out);
   return (int)cudaGetLastError();
 }
 
+// g_attrs [V, CP] (C channels padded to CP, a multiple of 4), zero on entry
 extern "C" int interpolate_bwd(const float* attrs, const float* bary,
-                               const int* tri_id, const int* faces,
-                               const float* g_out, int P, int C,
+                               const int* tri_id, const unsigned* slots,
+                               const int* lists, const int* counts,
+                               const int* faces, const float* g_out, int H,
+                               int W, int tile, int cap, int C, int CP,
                                float* g_attrs, float* g_bary, void* stream) {
-  if (P > 0) {
-    interpolate_bwd_kernel<<<(P + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        attrs, bary, tri_id, faces, g_out, P, C, g_attrs, g_bary);
-  }
+  const int ntx = (W + tile - 1) / tile, nty = (H + tile - 1) / tile;
+  if (CP % 4 != 0 || CP < C) return -1;
+  const size_t smem = (size_t)3 * CP * cap * sizeof(float);
+  cudaError_t e = allow_smem(interpolate_bwd_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (ntx > 0 && nty > 0)
+    interpolate_bwd_kernel<<<dim3(ntx, nty, kTileParts),
+                             tile * tile / kTileParts, smem,
+                             (cudaStream_t)stream>>>(
+        attrs, bary, tri_id, slots, lists, counts, faces, g_out, H, W, tile,
+        cap, C, CP, g_attrs, g_bary);
   return (int)cudaGetLastError();
 }

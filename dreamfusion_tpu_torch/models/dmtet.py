@@ -21,7 +21,7 @@ from ..mesh.sdf import normalize_mesh, signed_distance
 from ..mesh.tets import TetGrid
 from ..ops.marching_tets import (TetMesh, laplacian_smooth_loss,
                                  marching_tets, normal_consistency_loss,
-                                 vertex_normals)
+                                 tet_topology, vertex_normals)
 from ..ops.raster import interpolate, project_verts, rasterize
 
 
@@ -46,6 +46,11 @@ class DMTetRenderer:
         self.tets = as_t(self.grid.indices)
         self.tet_edges = as_t(self.grid.tet_edges)
         self.unique_edges = as_t(self.grid.unique_edges)
+        # the adjacency the card's K8 kernels gather by, once per grid
+        self.topo = (tet_topology(self.tets, self.tet_edges,
+                                  self.verts.shape[0],
+                                  self.unique_edges.shape[0])
+                     if self.verts.is_cuda else None)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -100,7 +105,7 @@ class DMTetRenderer:
         v = self.verts * params.tet_scale + \
             torch.tanh(params.deform) / (2 * res)
         return marching_tets(v, params.sdf, self.tets, self.tet_edges,
-                             self.unique_edges, self.max_tris)
+                             self.unique_edges, self.max_tris, self.topo)
 
     # ------------------------------------------------------------------
     def render(self, params: DMTetParams, albedo_fn: Callable,

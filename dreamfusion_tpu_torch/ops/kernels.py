@@ -111,18 +111,18 @@ _SIGNATURES = {
     "groupnorm_bwd_resident": [_P] * 6 + [_I] * 10 + [_P],
     "groupnorm_fwd_stream": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     "groupnorm_bwd_stream": [_P] * 8 + [_I] * 9 + [_P],
-    "raster_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 7 + [_P],
-    "raster_bwd": [_P] * 10 + [_I] * 2 + [_F] + [_P] * 3 + [_P],
+    "raster_fwd": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 10 + [_P],
+    "raster_bwd": [_P] * 12 + [_I] * 4 + [_F] + [_P] + [_P],
     "interpolate_fwd": [_P] * 4 + [_I] * 2 + [_P, _P],
-    "interpolate_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_P],
-    "marching_tets_fwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
-    "marching_tets_bwd": [_P] * 3 + [_I] + [_P] * 3 + [_P],
-    "vertex_normals_fwd": [_P] * 3 + [_I] * 2 + [_P] * 2 + [_P],
-    "vertex_normals_bwd": [_P] * 6 + [_I] * 2 + [_P] * 2 + [_P],
-    "laplacian_fwd": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_P],
-    "laplacian_bwd": [_P] * 6 + [_I] * 2 + [_P] * 2 + [_P],
-    "normal_consistency_fwd": [_P] * 3 + [_I] * 2 + [_P] * 8 + [_P],
-    "normal_consistency_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_P],
+    "interpolate_bwd": [_P] * 8 + [_I] * 6 + [_P] * 2 + [_P],
+    "marching_tets_fwd": [_P] * 5 + [_I] * 3 + [_P] * 8 + [_P],
+    "marching_tets_bwd": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I, _P],
+    "vertex_normals_fwd": [_P] * 6 + [_I] + [_P] * 2 + [_P],
+    "vertex_normals_bwd": [_P] * 10 + [_I] * 2 + [_P] * 2 + [_P],
+    "laplacian_fwd": [_P] * 6 + [_I] + [_P] * 5 + [_P],
+    "laplacian_bwd": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_P],
+    "normal_consistency_fwd": [_P] * 6 + [_I] + [_P] * 6 + [_P],
+    "normal_consistency_bwd": [_P] * 11 + [_I] * 2 + [_P] * 2 + [_P],
     "hashgrid_fwd": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P],
     "hashgrid_bwd": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_I, _P, _P],
     "hashgrid_bwd_dx": [_P] * 3 + [_I] * 6 + [_P, _I, _P, _P, _P],

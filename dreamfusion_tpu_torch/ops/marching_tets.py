@@ -6,10 +6,16 @@
 The tet grid's unique-edge topology is static (``mesh/tets.py``), so each
 surface vertex lives at its edge's slot; every tet emits up to 2 triangles
 and the valid ones are compacted, in slot order, into a ``max_tris``
-buffer with a mask.  On CUDA tensors each function is a kernel sequence of
-``csrc/marching_tets.cu`` with a backward kernel; on CPU tensors the plain
-version runs (it may sort and scatter as it likes: it is the yardstick,
-not the port).  The regularizers' final sum and division stay in torch.
+buffer with a mask.  On CUDA tensors each function, forward and backward,
+is one launch of ``csrc/marching_tets.cu``: the forward also records each
+tet triangle's slot (``MeshSlots``), and with the grid's static adjacency
+(``tet_topology``, built once per grid) the backward and the regularizers
+gather per vertex over the tets around its edge, with no atomics and no
+zero fills; normal consistency takes each edge's partner from the tet
+adjacency, and each loss's mean is finished on the card.  On CPU tensors
+the plain version runs (it may sort and scatter as it likes: it is the
+yardstick, not the port); ``mesh_slots_plain`` and ``nc_partners_plain``
+are the plain versions of the kernels' slots and pairs.
 
 Semantics kept from the JAX version: occ = sdf > 0; the crossing
 denominator keeps its sign under the guard (|d| < 1e-10 → ±1e-10, d = 0 →
@@ -24,15 +30,15 @@ area-weighted with rsqrt(max(n², 1e-20)) and a degenerate vertex gets
 (0, 1, 0); the Laplacian counts directed face edges (a neighbour reached
 through two faces counts twice); normal consistency pairs faces that share
 an undirected edge, never an invalid face, and takes the mean over pairs
-with a floor of 1.  With more than two faces on one edge the pairing is
-undefined in both packages (JAX pairs neighbours of an unstable sort, the
-kernel pairs each face with the edge's first arrival; the plain version
-pairs neighbours of a stable sort).
+with a floor of 1.  A tet grid's surface has at most two faces on an edge
+(an edge between two tet edges lies on one tet face, or is a quad's
+diagonal inside one tet), so the sort's pairs and the adjacency's are the
+same set, open surfaces and triangles dropped at max_tris included.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -67,6 +73,9 @@ class TetMesh(NamedTuple):
     vert_valid: torch.Tensor  # [E] bool — edge actually crossed
     faces: torch.Tensor       # [max_tris, 3] int32 into verts
     face_mask: torch.Tensor   # [max_tris] bool
+    # the kernel's slots (``MeshSlots``), which the card's regularizers
+    # gather by; None from the plain version
+    slots: Optional["MeshSlots"] = None
 
 
 # ---------------------------------------------------------------------------
@@ -143,20 +152,38 @@ def _unit_face_normals(verts, faces):
     return fn * torch.rsqrt(torch.clamp(fn2, min=1e-20))
 
 
-def normal_consistency_plain(verts, faces, face_mask) -> torch.Tensor:
-    fn = _unit_face_normals(verts, faces)
-    E, T = verts.shape[0], faces.shape[0]
+def _sorted_edge_keys(faces, face_mask, E: int):
+    """The faces' undirected edge keys (face edge k of slot t at k·T + t)
+    sorted stably → (keys, order); invalid faces get unique sentinel keys
+    and never pair."""
+    T = faces.shape[0]
     f = faces.long()
-    ar = torch.arange(T, device=verts.device)
+    ar = torch.arange(T, device=faces.device)
     keys = []
     for k, (i, j) in enumerate(((0, 1), (1, 2), (2, 0))):
         lo = torch.minimum(f[:, i], f[:, j])
         hi = torch.maximum(f[:, i], f[:, j])
-        # invalid faces get unique sentinel keys: they never pair
         lo = torch.where(face_mask, lo, E + k * T + ar)
         keys.append(lo * E + hi)
     order = torch.sort(torch.cat(keys), stable=True)[1]
-    ks = torch.cat(keys)[order]
+    return torch.cat(keys)[order], order
+
+
+def nc_pairs_plain(faces, face_mask, E: int) -> torch.Tensor:
+    """The face-slot pairs the plain normal consistency sums over (equal
+    neighbours of the sorted keys) → [P, 2] int64, each row (lower slot,
+    higher slot), rows sorted."""
+    T = faces.shape[0]
+    ks, order = _sorted_edge_keys(faces, face_mask, E)
+    same = ks[1:] == ks[:-1]
+    a, b = order[:-1][same] % T, order[1:][same] % T
+    pairs = torch.stack([torch.minimum(a, b), torch.maximum(a, b)], -1)
+    return torch.unique(pairs, dim=0)
+
+
+def normal_consistency_plain(verts, faces, face_mask) -> torch.Tensor:
+    fn = _unit_face_normals(verts, faces)
+    ks, order = _sorted_edge_keys(faces, face_mask, verts.shape[0])
     ns = fn.repeat(3, 1)[order]
     pair = ks[1:] == ks[:-1]
     cos = (ns[1:] * ns[:-1]).sum(-1)
@@ -165,10 +192,141 @@ def normal_consistency_plain(verts, faces, face_mask) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the static topology and the slots the card's kernels gather by
+# ---------------------------------------------------------------------------
+
+# tet edges (01, 02, 03, 12, 13, 23): for two edges that share a vertex, the
+# tet vertex on neither (opposite the tet face holding both); -1 for two
+# opposite edges (local ids summing to 5), a quad's diagonal
+OPP_VERT = np.array([[-1, 3, 2, 3, 2, -1], [3, -1, 1, 3, -1, 1],
+                     [2, 1, -1, -1, 2, 1], [3, 3, -1, -1, 0, 0],
+                     [2, -1, 2, 0, -1, 0], [-1, 1, 1, 0, 0, -1]],
+                    dtype=np.int32)
+
+
+class TetTopology(NamedTuple):
+    """A tet grid's static adjacency (``tet_topology``), int32."""
+    edge_tets_off: torch.Tensor   # [E+1]
+    edge_tets: torch.Tensor       # [6F] each edge's ring of tets, by tet id
+    tet_nbr: torch.Tensor         # [F, 4] the tet across the face opposite
+    #                               vertex i (-1 on the grid's boundary)
+
+
+class MeshSlots(NamedTuple):
+    """What the card's regularizers gather by, beside a TetMesh."""
+    tri_slot: torch.Tensor    # [2F] int32: slot of tet f's k-th triangle at
+    #                           2f + k (-1: no second triangle, or a slot past
+    #                           max_tris); a tet with none: -1 in the plain
+    #                           version, not written by the kernel
+    face_info: torch.Tensor   # [max_tris] int32: f << 5 | k << 4 | tet index
+    #                           (0 where masked)
+    topo: TetTopology
+
+
+def tet_topology(tets, tet_edges, V: int, E: int) -> TetTopology:
+    """The adjacency the card's K8 regularizers gather by, computed once
+    per grid (torch sorts, on the grid's device): each edge's ring of tets
+    (the per-vertex gathers) and each tet's neighbour across each face
+    (normal consistency's pairs)."""
+    dev = tets.device
+    F = tets.shape[0]
+    keys = tet_edges.long().reshape(-1)
+    order = torch.sort(keys, stable=True)[1]          # ring tets by tet id
+    et_off = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+    et_off[1:] = torch.cumsum(torch.bincount(keys, minlength=E), 0)
+    et = (order // 6).to(torch.int32)
+    # the face opposite vertex i holds the other three: a key of the sorted
+    # triple (V < 2**21, so V**3 fits in int64); equal keys are neighbours
+    others = torch.tensor([[1, 2, 3], [0, 2, 3], [0, 1, 3], [0, 1, 2]],
+                          device=dev)
+    tri = torch.sort(tets.long()[:, others], dim=-1)[0]        # [F, 4, 3]
+    key = ((tri[..., 0] * V + tri[..., 1]) * V + tri[..., 2]).reshape(-1)
+    order = torch.sort(key)[1]
+    same = key[order][1:] == key[order][:-1]
+    a, b = order[:-1][same], order[1:][same]
+    nbr = torch.full((4 * F,), -1, dtype=torch.int64, device=dev)
+    nbr[a], nbr[b] = b // 4, a // 4
+    return TetTopology(et_off.to(torch.int32), et,
+                       nbr.reshape(F, 4).to(torch.int32))
+
+
+def mesh_slots_plain(sdf, tets, max_tris: int):
+    """The plain version of the slots the marching-tets kernel records beside
+    the faces → (tri_slot [2F], face_info [max_tris]) (``MeshSlots``)."""
+    dev = sdf.device
+    max_tris = min(max_tris, 2 * tets.shape[0])     # as marching_tets_plain
+    occ4 = (sdf > 0)[tets.long()].to(torch.int64)               # [F, 4]
+    idx = (occ4 * torch.tensor([1, 2, 4, 8], device=dev)).sum(-1)
+    ntri = torch.from_numpy(NUM_TRIANGLES).to(dev)[idx]
+    valid = torch.stack([ntri >= 1, ntri == 2], -1).reshape(-1)  # [2F]
+    slot = torch.cumsum(valid.to(torch.int64), 0) - 1
+    keep = valid & (slot < max_tris)
+    tri_slot = torch.where(keep, slot, -1).to(torch.int32)
+    F = tets.shape[0]
+    f = torch.arange(F, device=dev).repeat_interleave(2)
+    k = torch.arange(2, device=dev).repeat(F)
+    info = (f << 5) | (k << 4) | idx.repeat_interleave(2)
+    face_info = torch.zeros(max_tris, dtype=torch.int64, device=dev)
+    face_info[slot[keep]] = info[keep]
+    return tri_slot, face_info.to(torch.int32)
+
+
+def _holds(faces, s, a, b):
+    """Whether face slots s (clamped to the slots) hold both vertices a and
+    b."""
+    f = faces.long()[s.clamp(0, faces.shape[0] - 1)]
+    return (f == a[:, None]).any(-1) & (f == b[:, None]).any(-1)
+
+
+def nc_partners_plain(faces, face_mask, slots: MeshSlots) -> torch.Tensor:
+    """The plain version of the normal-consistency kernel's pairing: for
+    face slot s and its edge k (vertices k, k+1), the slot of the other
+    face on that edge, from the static topology → [T, 3] int32 (-1: none).
+    A quad's diagonal pairs the tet's two triangles; any other edge lies on
+    the tet face holding both of its tet edges and pairs with the triangle
+    of the tet across that face that holds both."""
+    dev = faces.device
+    tri_slot = slots.tri_slot.long()
+    info = slots.face_info.long()
+    f, j, idx = info >> 5, (info >> 4) & 1, info & 15
+    tab = torch.from_numpy(TRIANGLE_TABLE).to(dev).long()[idx]    # [T, 6]
+    loc = torch.gather(tab, 1, 3 * j[:, None] + torch.arange(3, device=dev))
+    opp = torch.from_numpy(OPP_VERT).to(dev).long()
+    nbr = slots.topo.tet_nbr.long()
+    fv = faces.long()
+    out = []
+    for k in range(3):
+        la, lb = loc[:, k].clamp(min=0), loc[:, (k + 1) % 3].clamp(min=0)
+        a, b = fv[:, k], fv[:, (k + 1) % 3]
+        # (a masked slot reads tet 0's entries; its result is dropped)
+        diag = tri_slot[2 * f + 1 - j]
+        g = nbr[f, opp[la, lb].clamp(min=0)]
+        across = torch.full_like(g, -1)
+        for jj in range(2):
+            s2 = tri_slot[2 * g.clamp(min=0) + jj]
+            ok = (g >= 0) & (s2 >= 0) & _holds(faces, s2, a, b)
+            across = torch.where(ok, s2, across)
+        p = torch.where(la + lb == 5, diag, across)
+        out.append(torch.where(face_mask, p, -1))
+    return torch.stack(out, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/marching_tets.cu)
 # ---------------------------------------------------------------------------
 
 P = kernels.ptr
+_FLAGS: dict = {}
+
+
+def _flags(dev, name: str, n: int, dtype=torch.int32) -> torch.Tensor:
+    """A zeroed device buffer kept across calls: the look-back flags and the
+    last-block counters, which the kernels leave zero when they finish."""
+    key = (dev, name)
+    buf = _FLAGS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _FLAGS[key] = torch.zeros(max(n, 1), dtype=dtype, device=dev)
+    return buf
 
 
 class _MarchingTetsCuda(torch.autograd.Function):
@@ -176,126 +334,147 @@ class _MarchingTetsCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vert_pos, sdf, tets, tet_edges, unique_edges, max_tris):
         kernels.check_cuda(vert_pos, sdf, tets, tet_edges, unique_edges)
-        V, F, E = vert_pos.shape[0], tets.shape[0], unique_edges.shape[0]
+        F, E = tets.shape[0], unique_edges.shape[0]
+        if F >= 1 << 26:
+            raise ValueError("the marching-tets kernel packs tet ids in 26 "
+                             "bits")
         dev = sdf.device
+        i32 = dict(device=dev, dtype=torch.int32)
         verts = torch.empty(E, 3, device=dev)
         crossing = torch.empty(E, device=dev, dtype=torch.uint8)
-        faces = torch.zeros(max_tris, 3, device=dev, dtype=torch.int32)
-        mask = torch.zeros(max_tris, device=dev, dtype=torch.uint8)
-        block_sums = torch.empty((F + 1023) // 1024 + 1, device=dev,
-                                 dtype=torch.int32)
+        faces = torch.empty(max_tris, 3, **i32)
+        mask = torch.empty(max_tris, device=dev, dtype=torch.uint8)
+        tri_slot = torch.empty(2 * F, **i32)
+        face_info = torch.empty(max_tris, **i32)
+        status = _flags(dev, "mt_status", -(-F // 1024), torch.int64)
+        done = _flags(dev, "mt_done", 1)
         kernels.launch("marching_tets_fwd", P(vert_pos), P(sdf), P(tets),
-                       P(tet_edges), P(unique_edges), V, F, E, max_tris,
-                       P(block_sums), P(verts), P(crossing), P(faces),
-                       P(mask))
+                       P(tet_edges), P(unique_edges), F, E, max_tris,
+                       P(status), P(done), P(verts), P(crossing), P(faces),
+                       P(mask), P(tri_slot), P(face_info))
         ctx.save_for_backward(vert_pos, sdf, unique_edges)
         crossing, mask = crossing.view(torch.bool), mask.view(torch.bool)
-        ctx.mark_non_differentiable(crossing, faces, mask)
-        return verts, crossing, faces, mask
+        ctx.mark_non_differentiable(crossing, faces, mask, tri_slot,
+                                    face_info)
+        ctx.set_materialize_grads(False)
+        return verts, crossing, faces, mask, tri_slot, face_info
 
     @staticmethod
-    def backward(ctx, g_verts, _gc, _gf, _gm):
+    def backward(ctx, g_verts, g_crossing, g_faces, g_mask, g_slot, g_info):
         vert_pos, sdf, unique_edges = ctx.saved_tensors
-        g_pos = torch.zeros_like(vert_pos)
-        g_sdf = torch.zeros_like(sdf)
-        if g_verts is not None:
-            g_verts = g_verts.contiguous()
-            kernels.launch("marching_tets_bwd", P(vert_pos), P(sdf),
-                           P(unique_edges), unique_edges.shape[0],
-                           P(g_verts), P(g_pos), P(g_sdf))
+        if g_verts is None:
+            return (None,) * 6
+        g_verts = g_verts.contiguous()
+        g_pos = torch.empty_like(vert_pos)          # zeroed in the launch
+        g_sdf = torch.empty_like(sdf)
+        kernels.launch("marching_tets_bwd", P(vert_pos), P(sdf),
+                       P(unique_edges), vert_pos.shape[0],
+                       unique_edges.shape[0], P(g_verts), P(g_pos), P(g_sdf),
+                       2 * kernels.sm_count(sdf.device))
         return g_pos, g_sdf, None, None, None, None
 
 
 class _VertexNormalsCuda(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, verts, faces, mask):
-        kernels.check_cuda(verts, faces, mask)
-        E, T = verts.shape[0], faces.shape[0]
-        acc = torch.zeros_like(verts)
+    def forward(ctx, verts, faces, mask, crossing, tri_slot, et_off, et):
+        E = verts.shape[0]
         out = torch.empty_like(verts)
-        kernels.launch("vertex_normals_fwd", P(verts), P(faces), P(mask), E,
-                       T, P(acc), P(out))
-        ctx.save_for_backward(verts, faces, mask, acc, out)
+        rs = torch.empty(E, device=verts.device)    # 1 / |acc| on the surface
+        kernels.launch("vertex_normals_fwd", P(verts), P(faces), P(crossing),
+                       P(tri_slot), P(et_off), P(et), E, P(out), P(rs))
+        ctx.save_for_backward(verts, faces, mask, crossing, tri_slot, et_off,
+                              et, out, rs)
         return out
 
     @staticmethod
     def backward(ctx, g_n):
-        verts, faces, mask, acc, out = ctx.saved_tensors
-        g_acc = torch.empty_like(verts)
-        g_verts = torch.zeros_like(verts)
+        verts, faces, mask, crossing, tri_slot, et_off, et, out, rs = \
+            ctx.saved_tensors
+        T = faces.shape[0]
+        term = _face_terms(verts.device, T)
+        g_verts = torch.empty_like(verts)
         kernels.launch("vertex_normals_bwd", P(verts), P(faces), P(mask),
-                       P(acc), P(out), P(g_n.contiguous()), verts.shape[0],
-                       faces.shape[0], P(g_acc), P(g_verts))
-        return g_verts, None, None
+                       P(crossing), P(tri_slot), P(et_off), P(et), P(out),
+                       P(rs), P(g_n.contiguous()), verts.shape[0], T,
+                       P(term), P(g_verts))
+        return g_verts, None, None, None, None, None, None
+
+
+def _face_terms(dev, T: int) -> torch.Tensor:
+    """Scratch of a regularizer's backward: each face's terms of its three
+    vertices [T, 3, 4] (x, y, z, -), gathered per vertex after."""
+    return torch.empty(T, 3, 4, device=dev)
+
+
+def _loss_outputs(dev, name: str):
+    """(partial sums [1024 blocks, 2], counter, loss [], denominator [1])
+    of a loss kernel's last-block mean."""
+    return (torch.empty(1024, 2, device=dev), _flags(dev, name, 1),
+            torch.empty((), device=dev), torch.empty(1, device=dev))
 
 
 class _LaplacianCuda(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, verts, faces, mask):
-        kernels.check_cuda(verts, faces, mask)
-        E, T = verts.shape[0], faces.shape[0]
-        nb_sum = torch.zeros_like(verts)
-        nb_cnt = torch.zeros(E, device=verts.device)
-        d2 = torch.empty(E, device=verts.device)
-        kernels.launch("laplacian_fwd", P(verts), P(faces), P(mask), E, T,
-                       P(nb_sum), P(nb_cnt), P(d2))
-        # the final mean over the active vertices (torch)
-        n_active = torch.clamp((nb_cnt > 0).sum(), min=1).float()
-        ctx.save_for_backward(verts, faces, mask, nb_sum, nb_cnt, n_active)
-        return d2.sum() / n_active
+    def forward(ctx, verts, faces, mask, crossing, tri_slot, et_off, et):
+        E = verts.shape[0]
+        aux = torch.empty(E, 4, device=verts.device)  # mean - v, count
+        partials, done, loss, den = _loss_outputs(verts.device,
+                                                  "lap_done")
+        kernels.launch("laplacian_fwd", P(verts), P(faces), P(crossing),
+                       P(tri_slot), P(et_off), P(et), E, P(aux),
+                       P(partials), P(done), P(loss), P(den))
+        ctx.save_for_backward(faces, mask, crossing, tri_slot, et_off, et,
+                              aux, den)
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        verts, faces, mask, nb_sum, nb_cnt, n_active = ctx.saved_tensors
-        gs = (g / n_active).reshape(1).contiguous()
-        g_sum = torch.empty_like(verts)
-        g_verts = torch.empty_like(verts)
-        kernels.launch("laplacian_bwd", P(verts), P(faces), P(mask),
-                       P(nb_sum), P(nb_cnt), P(gs), verts.shape[0],
-                       faces.shape[0], P(g_sum), P(g_verts))
-        return g_verts, None, None
-
-
-def _pow2_at_least(n: int) -> int:
-    return 1 << max(10, (n - 1).bit_length())
+        faces, mask, crossing, tri_slot, et_off, et, aux, den = \
+            ctx.saved_tensors
+        E, T = aux.shape[0], faces.shape[0]
+        term = _face_terms(aux.device, T)
+        g_verts = torch.empty(E, 3, device=aux.device)
+        kernels.launch("laplacian_bwd", P(faces), P(mask), P(crossing),
+                       P(tri_slot), P(et_off), P(et), P(aux),
+                       P(g.contiguous()), P(den), E, T, P(term), P(g_verts))
+        return g_verts, None, None, None, None, None, None
 
 
 class _NormalConsistencyCuda(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, verts, faces, mask):
-        kernels.check_cuda(verts, faces, mask)
-        E, T = verts.shape[0], faces.shape[0]
+    def forward(ctx, verts, faces, mask, crossing, face_info, tri_slot,
+                tet_nbr, et_off, et):
+        T = faces.shape[0]
         dev = verts.device
-        size = _pow2_at_least(6 * T)        # load factor <= 1/2
-        keys = torch.full((size,), -1, device=dev, dtype=torch.int64)
-        cnt = torch.zeros(size, device=dev, dtype=torch.int32)
-        first = torch.empty(size, device=dev, dtype=torch.int32)
-        slot = torch.empty(3 * T, device=dev, dtype=torch.int32)
-        pos = torch.empty(3 * T, device=dev, dtype=torch.int32)
-        nrm = torch.empty(T, 3, device=dev)
-        partner = torch.empty(3 * T, device=dev, dtype=torch.int32)
-        terms = torch.empty(3 * T, device=dev)
+        nrm = torch.empty(T, 4, device=dev)         # unit normal, |fn|²
+        partner = torch.empty(T, 3, device=dev, dtype=torch.int32)
+        partials, done, loss, den = _loss_outputs(dev, "nc_done")
         kernels.launch("normal_consistency_fwd", P(verts), P(faces), P(mask),
-                       T, size, P(keys), P(cnt), P(first), P(slot), P(pos),
-                       P(nrm), P(partner), P(terms))
-        # the final mean over the pairs (torch)
-        n_pairs = torch.clamp((partner >= 0).sum(), min=1).float()
-        ctx.save_for_backward(verts, faces, mask, nrm, partner, n_pairs)
-        return terms.sum() / n_pairs
+                       P(face_info), P(tri_slot), P(tet_nbr), T, P(nrm),
+                       P(partner), P(partials), P(done), P(loss), P(den))
+        ctx.save_for_backward(verts, faces, mask, crossing, tri_slot, et_off,
+                              et, nrm, partner, den)
+        ctx.mark_non_differentiable(partner)
+        ctx.set_materialize_grads(False)
+        return loss, partner
 
     @staticmethod
-    def backward(ctx, g):
-        verts, faces, mask, nrm, partner, n_pairs = ctx.saved_tensors
-        gs = (g / n_pairs).reshape(1).contiguous()
-        g_nrm = torch.zeros_like(nrm)
-        g_verts = torch.zeros_like(verts)
+    def backward(ctx, g, g_partner):
+        if g is None:
+            return (None,) * 9
+        (verts, faces, mask, crossing, tri_slot, et_off, et, nrm, partner,
+         den) = ctx.saved_tensors
+        T = faces.shape[0]
+        term = _face_terms(verts.device, T)
+        g_verts = torch.empty_like(verts)
         kernels.launch("normal_consistency_bwd", P(verts), P(faces), P(mask),
-                       P(nrm), P(partner), P(gs), faces.shape[0], P(g_nrm),
-                       P(g_verts))
-        return g_verts, None, None
+                       P(crossing), P(tri_slot), P(et_off), P(et), P(nrm),
+                       P(partner), P(g.contiguous()), P(den), verts.shape[0],
+                       T, P(term), P(g_verts))
+        return g_verts, None, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -312,36 +491,67 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def marching_tets(vert_pos: torch.Tensor, sdf: torch.Tensor,
                   tets: torch.Tensor, tet_edges: torch.Tensor,
-                  unique_edges: torch.Tensor, max_tris: int) -> TetMesh:
+                  unique_edges: torch.Tensor, max_tris: int,
+                  topo: Optional[TetTopology] = None) -> TetMesh:
     """vert_pos [V,3] deformed grid vertices, sdf [V], tets [F,4],
     tet_edges [F,6], unique_edges [E,2] (int32) → TetMesh; differentiable
-    in vert_pos and sdf through the surface vertices."""
+    in vert_pos and sdf through the surface vertices.  On the card the mesh
+    carries the slots and the grid's ``tet_topology`` (built here when not
+    given: pass it to build it once per grid) that the regularizers'
+    kernels gather by."""
     if _on_cpu(sdf):
         return marching_tets_plain(vert_pos, sdf, tets, tet_edges,
                                    unique_edges, max_tris)
     i32 = lambda t: t.to(torch.int32).contiguous()
-    return TetMesh(*_MarchingTetsCuda.apply(
-        vert_pos.float().contiguous(), sdf.float().contiguous(), i32(tets),
-        i32(tet_edges), i32(unique_edges), max_tris))
+    tets, tet_edges, unique_edges = map(i32, (tets, tet_edges, unique_edges))
+    if topo is None:
+        topo = tet_topology(tets, tet_edges, vert_pos.shape[0],
+                            unique_edges.shape[0])
+    verts, crossing, faces, mask, tri_slot, face_info = \
+        _MarchingTetsCuda.apply(vert_pos.float().contiguous(),
+                                sdf.float().contiguous(), tets, tet_edges,
+                                unique_edges, max_tris)
+    return TetMesh(verts, crossing, faces, mask,
+                   MeshSlots(tri_slot, face_info, topo))
 
 
-def _mesh_args(mesh: TetMesh):
+def _card_args(mesh: TetMesh):
+    """verts, faces, the face and crossing masks (uint8) and the slots of a
+    mesh from the card's marching tets."""
+    if mesh.slots is None:
+        raise ValueError("the card's mesh regularizers take the TetMesh of "
+                         "the marching-tets kernel (its slots)")
+    u8 = lambda t: t.contiguous().view(torch.uint8)
     return (mesh.verts.contiguous(), mesh.faces.to(torch.int32).contiguous(),
-            mesh.face_mask.contiguous().view(torch.uint8))
+            u8(mesh.face_mask), u8(mesh.vert_valid), mesh.slots)
 
 
 def vertex_normals(mesh: TetMesh) -> torch.Tensor:
     """Area-weighted unit vertex normals [E, 3]."""
     if _on_cpu(mesh.verts):
         return vertex_normals_plain(mesh.verts, mesh.faces, mesh.face_mask)
-    return _VertexNormalsCuda.apply(*_mesh_args(mesh))
+    v, f, m, c, sl = _card_args(mesh)
+    return _VertexNormalsCuda.apply(v, f, m, c, sl.tri_slot,
+                                    sl.topo.edge_tets_off, sl.topo.edge_tets)
 
 
 def laplacian_smooth_loss(mesh: TetMesh) -> torch.Tensor:
     """||mean(neighbours) − v||² averaged over the active vertices."""
     if _on_cpu(mesh.verts):
         return laplacian_plain(mesh.verts, mesh.faces, mesh.face_mask)
-    return _LaplacianCuda.apply(*_mesh_args(mesh))
+    v, f, m, c, sl = _card_args(mesh)
+    return _LaplacianCuda.apply(v, f, m, c, sl.tri_slot,
+                                sl.topo.edge_tets_off, sl.topo.edge_tets)
+
+
+def normal_consistency_cuda(mesh: TetMesh):
+    """The card's normal consistency → (loss, each face edge's partner slot
+    [T, 3] int32, -1 for none: ``nc_partners_plain``'s pairs)."""
+    v, f, m, c, sl = _card_args(mesh)
+    return _NormalConsistencyCuda.apply(v, f, m, c, sl.face_info, sl.tri_slot,
+                                        sl.topo.tet_nbr,
+                                        sl.topo.edge_tets_off,
+                                        sl.topo.edge_tets)
 
 
 def normal_consistency_loss(mesh: TetMesh) -> torch.Tensor:
@@ -349,4 +559,4 @@ def normal_consistency_loss(mesh: TetMesh) -> torch.Tensor:
     if _on_cpu(mesh.verts):
         return normal_consistency_plain(mesh.verts, mesh.faces,
                                         mesh.face_mask)
-    return _NormalConsistencyCuda.apply(*_mesh_args(mesh))
+    return normal_consistency_cuda(mesh)[0]

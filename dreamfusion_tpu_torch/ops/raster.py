@@ -8,9 +8,13 @@ x, y and NDC z per vertex to the kernel part: per 32×32 tile, the first
 ``tile_cap`` triangles (by index) whose padded bounding box overlaps the
 tile; per pixel, the nearest covering triangle among them (ties to the
 lowest index) and the largest soft-edge margin over all of them.  On a CUDA
-tensor the kernel part is ``csrc/raster.cu`` (forward and a closed-form
-backward into the per-vertex screen coordinates); on a CPU tensor the
-plain version runs, selecting under ``no_grad`` and recomputing the
+tensor the kernel part is ``csrc/raster.cu``: the forward bins each
+triangle once into the lists of the tiles its box touches (in index order,
+so each list's first ``tile_cap`` are the TPU's) and keeps them
+(``TileBins``, on ``RasterOut.bins``) for the closed-form backward and
+``interpolate``'s backward, which sum each listed triangle's gradient over
+the tile in shared memory before one vector reduction per vertex; on a CPU
+tensor the plain version runs, selecting under ``no_grad`` and recomputing the
 winners' barycentrics, depth and margin with autograd (their values in the
 kernel's coefficient form, their gradient in the better-conditioned edge
 form, ``_edge_form``).
@@ -30,7 +34,7 @@ goes to the first, where JAX splits it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,6 +46,9 @@ class RasterOut(NamedTuple):
     tri_id: torch.Tensor   # [H, W] int32 (-1 = background)
     depth: torch.Tensor    # [H, W] NDC depth of the hit (1.0 on a miss)
     alpha: torch.Tensor    # [H, W] coverage (soft if soft_edge_px > 0)
+    # the kernel's tile lists (``TileBins``), which ``interpolate``'s
+    # backward reduces by; None from the plain version
+    bins: Optional["TileBins"] = None
 
 
 def project_verts(verts: torch.Tensor, mvp: torch.Tensor) -> torch.Tensor:
@@ -239,66 +246,92 @@ def raster_plain(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
 # CUDA kernels (csrc/raster.cu)
 # ---------------------------------------------------------------------------
 
+MAX_TILES = 4096        # the binning kernels' shared histograms (2048² at 32)
+
+
+class TileBins(NamedTuple):
+    """The forward's tile lists, kept for the backwards (CUDA only)."""
+    lists: torch.Tensor    # [G, cap] int32: each tile's first cap triangles
+    counts: torch.Tensor   # [G] int32: triangles whose box touches the tile
+    slots: torch.Tensor    # [H, W] int32: winner | margin winner << 16 (list
+    #                        slots, 0xffff for none)
+    tile: int
+
+
 def _raster_fwd_cuda(sx, sy, sz, faces, valid, H, W, tile, tile_cap, soft):
     valid8 = valid.contiguous().view(torch.uint8)
     kernels.check_cuda(sx, sy, sz, faces, valid8)
-    if tile * tile % 32 or tile > 32 or tile_cap > 1024:
+    G = -(-H // tile) * -(-W // tile)
+    if tile * tile % 128 or tile > 32 or tile_cap > 1024 or G > MAX_TILES:
         raise ValueError("the raster kernel takes tile <= 32 (a multiple of "
-                         "32 pixels) and tile_cap <= 1024")
-    V, T = sx.shape[0], faces.shape[0]
+                         f"128 pixels), tile_cap <= 1024 and <= {MAX_TILES} "
+                         "tiles")
+    T = faces.shape[0]
     dev = sx.device
+    cap = min(tile_cap, T)
+    nb = max(1, -(-T // 256))                   # triangles per binning block
+    i32 = dict(device=dev, dtype=torch.int32)
     coef = torch.empty(T, 12, device=dev)       # cu, cv, cz, scale, pad
-    rng = torch.empty(T, 4, device=dev, dtype=torch.int32)
+    rng = torch.empty(T, 4, **i32)
+    hist = torch.empty(G, nb, **i32)
+    counts = torch.empty(G, **i32)
+    lists = torch.empty(G, cap, **i32)
     bary = torch.empty(H, W, 3, device=dev)
-    tri = torch.empty(H, W, device=dev, dtype=torch.int32)
-    marg = torch.empty_like(tri)
+    tri = torch.empty(H, W, **i32)
+    slots = torch.empty(H, W, **i32)
     depth = torch.empty(H, W, device=dev)
     alpha = torch.empty_like(depth)
     p = kernels.ptr
-    kernels.launch("raster_fwd", p(sx), p(sy), p(sz), p(faces), p(valid8), V,
-                   T, H, W, tile, min(tile_cap, T), float(soft), p(coef),
-                   p(rng), p(bary), p(tri), p(depth), p(alpha), p(marg))
-    return RasterOut(bary, tri, depth, alpha), marg
+    kernels.launch("raster_fwd", p(sx), p(sy), p(sz), p(faces), p(valid8), T,
+                   H, W, tile, cap, float(soft), p(coef), p(rng), p(hist),
+                   p(counts), p(lists), p(bary), p(tri), p(depth), p(alpha),
+                   p(slots))
+    return RasterOut(bary, tri, depth, alpha,
+                     TileBins(lists, counts, slots, tile))
 
 
 class _RasterCuda(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sx, sy, sz, faces, valid, H, W, tile, tile_cap, soft):
-        out, marg = _raster_fwd_cuda(sx, sy, sz, faces, valid, H, W, tile,
-                                     tile_cap, soft)
-        ctx.save_for_backward(sx, sy, sz, faces, out.tri_id, marg, out.alpha)
-        ctx.soft = soft
-        ctx.mark_non_differentiable(out.tri_id)
-        return tuple(out)
+        out = _raster_fwd_cuda(sx, sy, sz, faces, valid, H, W, tile,
+                               tile_cap, soft)
+        b = out.bins
+        ctx.save_for_backward(sx, sy, sz, faces, out.tri_id, out.alpha,
+                              b.lists, b.counts, b.slots)
+        ctx.soft, ctx.tile = soft, tile
+        ctx.mark_non_differentiable(out.tri_id, b.lists, b.counts, b.slots)
+        ctx.set_materialize_grads(False)      # a missing cotangent reads 0
+        return out.bary, out.tri_id, out.depth, out.alpha, b.lists, \
+            b.counts, b.slots
 
     @staticmethod
-    def backward(ctx, g_bary, _g_tri, g_depth, g_alpha):
-        sx, sy, sz, faces, tri, marg, alpha = ctx.saved_tensors
+    def backward(ctx, g_bary, g_tri, g_depth, g_alpha, g_lists, g_counts,
+                 g_slots):
+        sx, sy, sz, faces, tri, alpha, lists, counts, slots = \
+            ctx.saved_tensors
         H, W = tri.shape
-        gs = torch.zeros(3, sx.shape[0], device=sx.device)
-        g_bary = torch.zeros(H, W, 3, device=sx.device) if g_bary is None \
-            else g_bary.contiguous()
-        g_depth = torch.zeros(H, W, device=sx.device) if g_depth is None \
-            else g_depth.contiguous()
-        g_alpha = torch.zeros(H, W, device=sx.device) if g_alpha is None \
-            else g_alpha.contiguous()
-        kernels.check_cuda(sx, sy, sz, faces, tri, marg, alpha, g_bary,
-                           g_depth, g_alpha, gs)
+        gs = torch.zeros(sx.shape[0], 4, device=sx.device)  # x, y, z, -
+        g_bary, g_depth, g_alpha = (None if g is None else g.contiguous()
+                                    for g in (g_bary, g_depth, g_alpha))
+        kernels.check_cuda(sx, sy, sz, faces, tri, alpha, g_bary, g_depth,
+                           g_alpha, gs)
         p = kernels.ptr
         kernels.launch("raster_bwd", p(sx), p(sy), p(sz), p(faces), p(tri),
-                       p(marg), p(alpha), p(g_bary), p(g_depth), p(g_alpha),
-                       H, W, float(ctx.soft), p(gs[0]), p(gs[1]), p(gs[2]))
-        return gs[0], gs[1], gs[2], None, None, None, None, None, None, None
+                       p(slots), p(lists), p(counts), p(alpha), p(g_bary),
+                       p(g_depth), p(g_alpha), H, W, ctx.tile, lists.shape[1],
+                       float(ctx.soft), p(gs))
+        return gs[:, 0], gs[:, 1], gs[:, 2], None, None, None, None, None, \
+            None, None
 
 
 def raster_cuda(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
                 tile_cap: int = 512, soft_edge_px: float = 1.0) -> RasterOut:
     """The kernel part on the card; same contract as ``raster_plain``."""
-    out = _RasterCuda.apply(sx.contiguous(), sy.contiguous(),
-                            sz.contiguous(), faces.contiguous(), valid, H, W,
-                            tile, tile_cap, float(soft_edge_px))
-    return RasterOut(*out)
+    *out, lists, counts, slots = _RasterCuda.apply(
+        sx.contiguous(), sy.contiguous(), sz.contiguous(), faces.contiguous(),
+        valid, H, W, tile, tile_cap, float(soft_edge_px))
+    return RasterOut(*out, TileBins(lists, counts, slots, tile))
 
 
 def rasterize(clip_verts: torch.Tensor, faces: torch.Tensor,
@@ -330,7 +363,7 @@ def interpolate_plain(attrs, bary, tri_id, faces) -> torch.Tensor:
 class _InterpolateCuda(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, attrs, bary, tri_id, faces):
+    def forward(ctx, attrs, bary, tri_id, faces, lists, counts, slots, tile):
         kernels.check_cuda(attrs, bary, tri_id, faces)
         H, W = tri_id.shape
         V, C = attrs.shape
@@ -338,20 +371,27 @@ class _InterpolateCuda(torch.autograd.Function):
         p = kernels.ptr
         kernels.launch("interpolate_fwd", p(attrs), p(bary), p(tri_id),
                        p(faces), H * W, C, p(out))
-        ctx.save_for_backward(attrs, bary, tri_id, faces)
+        ctx.save_for_backward(attrs, bary, tri_id, faces, lists, counts,
+                              slots)
+        ctx.tile = tile
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        attrs, bary, tri_id, faces = ctx.saved_tensors
+        attrs, bary, tri_id, faces, lists, counts, slots = ctx.saved_tensors
+        H, W = tri_id.shape
+        V, C = attrs.shape
+        CP = -(-C // 4) * 4                     # rows of whole float4s
         g_out = g_out.contiguous()
-        g_attrs = torch.zeros_like(attrs)
+        g_attrs = torch.zeros(V, CP, device=attrs.device)
         g_bary = torch.empty_like(bary)
+        kernels.check_cuda(g_out, lists, counts, slots)
         p = kernels.ptr
         kernels.launch("interpolate_bwd", p(attrs), p(bary), p(tri_id),
-                       p(faces), p(g_out), tri_id.numel(), attrs.shape[1],
-                       p(g_attrs), p(g_bary))
-        return g_attrs, g_bary, None, None
+                       p(slots), p(lists), p(counts), p(faces), p(g_out), H,
+                       W, ctx.tile, lists.shape[1], C, CP, p(g_attrs),
+                       p(g_bary))
+        return (g_attrs[:, :C], g_bary, None, None, None, None, None, None)
 
 
 def interpolate(attrs: torch.Tensor, out: RasterOut,
@@ -360,9 +400,14 @@ def interpolate(attrs: torch.Tensor, out: RasterOut,
     barycentrics; 0 where nothing hits.  Differentiable in attrs and
     bary."""
     if attrs.is_cuda:
+        b = out.bins
+        if b is None:
+            raise ValueError("interpolate on the card takes the RasterOut of "
+                             "the raster kernel (its tile lists)")
         return _InterpolateCuda.apply(attrs.float().contiguous(),
                                       out.bary.contiguous(), out.tri_id,
-                                      faces.to(torch.int32).contiguous())
+                                      faces.to(torch.int32).contiguous(),
+                                      b.lists, b.counts, b.slots, b.tile)
     if attrs.device.type != "cpu":
         raise ValueError(f"unsupported device {attrs.device}")
     return interpolate_plain(attrs, out.bary, out.tri_id, faces)

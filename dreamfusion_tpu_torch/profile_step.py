@@ -64,6 +64,16 @@ PARTS = [("K12 conv", "of which input gradients",
           r"attn_fwd_wgmma_kernel<(40|80|160)>")]
 
 
+# groups whose kernels are printed one by one under them
+BY_KERNEL = ("K7 raster", "K8 marching tets")
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(", 1)[0].split("::")[-1].split()[-1]
+
+
 def part_of(name: str):
     for group, part, pat in PARTS:
         if re.search(pat, name):
@@ -131,6 +141,13 @@ def profile_phase(trainer, state, gen, n_steps: int, label: str) -> None:
                 print(f"[profile] {label}:     {part:<38s} "
                       f"{pus / 1e3 / n_steps:9.3f} ms/step "
                       f"{n / n_steps:6.1f} launches/step", flush=True)
+        if g in BY_KERNEL:
+            for name, (kus, n) in sorted(by_name.items(),
+                                         key=lambda kv: -kv[1][0]):
+                if group_of(name) == g:
+                    print(f"[profile] {label}:     {_kernel_name(name):<38s} "
+                          f"{kus / 1e3 / n_steps:9.3f} ms/step "
+                          f"{n / n_steps:6.1f} launches/step", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"[profile] {label}:     {us / 1e3 / n_steps:8.3f} ms/step "

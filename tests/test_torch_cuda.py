@@ -884,11 +884,13 @@ def test_new_wrappers_count_their_launches(dev):
 
 # ---- K7: rasterize + interpolate --------------------------------------------
 
-def _raster_scene(dev, seed, crowd=0, ties=False, T=300):
+def _raster_scene(dev, seed, crowd=0, ties=False, T=300, slivers=False):
     """Screen-space triangles for a 100x130 image: random ones, ``crowd``
     small ones piled into one tile (over its cap), with ``ties`` a pair of
-    overlapping triangles at one constant depth in front of the rest, and
-    empty tiles (no triangle reaches x >= 96)."""
+    overlapping triangles at one constant depth in front of the rest, with
+    ``slivers`` every 7th triangle collapsed (two vertices on one point:
+    den = 0, the guarded ones), and empty tiles (no triangle reaches
+    x >= 96)."""
     g = _gen(dev, seed)
     V = 3 * (T + crowd) + 6
     sx = torch.rand(V, device=dev, generator=g) * 60
@@ -911,22 +913,47 @@ def _raster_scene(dev, seed, crowd=0, ties=False, T=300):
         faces = torch.cat([faces, torch.arange(b, b + 6, device=dev,
                                                dtype=torch.int32
                                                ).reshape(2, 3)])
+    if slivers:   # vertex 2 on vertex 0: den = 0, guarded to 1e-9
+        i = torch.arange(0, T, 7, device=dev)
+        for q in (sx, sy):
+            q[3 * i + 2] = q[3 * i]
     valid = torch.rand(faces.shape[0], device=dev, generator=g) > 0.05
     if ties:
         valid[-2:] = True
     return sx, sy, sz, faces, valid
 
 
-@pytest.mark.parametrize("soft,cap,crowd,ties", [
-    (1.0, 512, 0, False), (1.0, 32, 60, False), (0.0, 64, 60, False),
-    (0.0, 1024, 0, True), (1.0, 1024, 0, True)])
-def test_raster_kernel(dev, soft, cap, crowd, ties):
+def _check_bins(out, sx, sy, sz, faces, valid, H, W, cap, soft):
+    """The kernel's tile lists are tile_lists': every tile's first cap
+    triangles by index, and its count of overlapping ones."""
+    from dreamfusion_tpu_torch.ops.raster import _face_coeffs, tile_lists
+    *_, bmin, bmax = _face_coeffs(sx, sy, sz, faces.long())
+    T = faces.shape[0]
+    ids, listed = tile_lists(bmin, bmax, valid, H, W, 32, T, soft)
+    b = out.bins
+    cap = b.lists.shape[1]
+    assert torch.equal(b.counts, listed.sum(1).to(torch.int32))
+    n = b.counts.clamp(max=cap)
+    keep = torch.arange(cap, device=sx.device)[None] < n[:, None]
+    assert torch.equal(b.lists[keep], ids[:, :cap][keep].to(torch.int32))
+    return int((b.counts > cap).sum())
+
+
+@pytest.mark.parametrize("soft,cap,crowd,ties,slivers", [
+    (1.0, 512, 0, False, False), (1.0, 32, 60, False, False),
+    (0.0, 64, 60, False, False), (0.0, 1024, 0, True, False),
+    (1.0, 1024, 0, True, False), (1.0, 512, 0, False, True),
+    (1.0, 32, 60, False, True)])
+def test_raster_kernel(dev, soft, cap, crowd, ties, slivers):
     from dreamfusion_tpu_torch.ops.raster import raster_cuda, raster_plain
-    sx, sy, sz, faces, valid = _raster_scene(dev, 7, crowd, ties)
+    sx, sy, sz, faces, valid = _raster_scene(dev, 7, crowd, ties,
+                                             slivers=slivers)
     H, W = 100, 130
     ins = [t.clone().requires_grad_() for t in (sx, sy, sz)]
     ok = raster_cuda(*ins, faces, valid, H, W, 32, cap, soft)
     torch.cuda.synchronize()
+    over = _check_bins(ok, sx, sy, sz, faces, valid, H, W, cap, soft)
+    assert over > 0 or crowd < cap        # the crowded tile overflows
     ref_in = [t.clone().requires_grad_() for t in (sx, sy, sz)]
     op = raster_plain(*ref_in, faces, valid, H, W, 32, cap, soft)
     assert torch.equal(ok.tri_id, op.tri_id)
@@ -950,6 +977,32 @@ def test_raster_kernel(dev, soft, cap, crowd, ties):
     gp = torch.autograd.grad(lp, ref_in)
     for a, b in zip(gk, gp):
         _close_to(a, b, 1e-4)
+
+
+def test_raster_kernel_at_the_bake(dev):
+    """K7's forward at the texture bake's 1024² (1024 tiles, cap 1024, no
+    soft edge) on a UV atlas of small triangles, some pairs sharing an
+    edge, and one triangle across the whole image."""
+    from dreamfusion_tpu_torch.ops.raster import raster_cuda, raster_plain
+    g = _gen(dev, 21)
+    T = 6000
+    c = torch.rand(T, 2, device=dev, generator=g) * 1000 + 12
+    off = (torch.rand(T, 3, 2, device=dev, generator=g) - 0.5) * 20
+    p = (c[:, None] + off).reshape(-1, 2)
+    p[:3] = torch.tensor([[-5.0, -5.0], [2100.0, -5.0], [-5.0, 2100.0]])
+    sx, sy = p[:, 0].contiguous(), p[:, 1].contiguous()
+    sz = torch.zeros_like(sx)
+    faces = torch.arange(3 * T, device=dev, dtype=torch.int32).reshape(-1, 3)
+    valid = torch.ones(T, dtype=torch.bool, device=dev)
+    ok = raster_cuda(sx, sy, sz, faces, valid, 1024, 1024, 32, 1024, 0.0)
+    torch.cuda.synchronize()
+    _check_bins(ok, sx, sy, sz, faces, valid, 1024, 1024, 1024, 0.0)
+    op = raster_plain(sx, sy, sz, faces, valid, 1024, 1024, 32, 1024, 0.0)
+    assert torch.equal(ok.tri_id, op.tri_id)
+    hit = op.tri_id >= 0
+    assert float(hit.float().mean()) > 0.99
+    torch.testing.assert_close(ok.bary[hit], op.bary[hit], atol=1e-6, rtol=0)
+    torch.testing.assert_close(ok.alpha, op.alpha, atol=0, rtol=0)
 
 
 def test_interpolate_kernel(dev):
@@ -1019,7 +1072,8 @@ def test_marching_tets_kernel(dev, max_tris):
 def test_mesh_regularizer_kernels(dev, which, open_surface):
     from dreamfusion_tpu_torch.ops import marching_tets as K8
     grid, pos, sdf, tets, te, ue = _tet_inputs(dev, open_surface=open_surface)
-    mesh = K8.marching_tets_plain(pos, sdf, tets, te, ue, 40000)
+    # the card's regularizers gather by the marching-tets kernel's slots
+    mesh = K8.marching_tets(pos, sdf, tets, te, ue, 40000)
     c = torch.randn(mesh.verts.shape, device=dev, generator=_gen(dev, 13))
     kern = {"normals": lambda m: (K8.vertex_normals(m) * c).sum(),
             "laplacian": K8.laplacian_smooth_loss,
@@ -1041,6 +1095,53 @@ def test_mesh_regularizer_kernels(dev, which, open_surface):
     _close_to(gk, gp, 1e-4)
 
 
+@pytest.mark.parametrize("max_tris,open_surface", [(40000, False),
+                                                   (40000, True),
+                                                   (900, False)])
+def test_marching_tets_slots_and_pairs(dev, max_tris, open_surface):
+    """The forward's slots equal the plain version's, and normal
+    consistency's pairs from the static topology are the plain version's
+    sorted-key pairs: closed and open (the grid's boundary) surfaces and a
+    max_tris overflow (triangles dropped)."""
+    from dreamfusion_tpu_torch.ops import marching_tets as K8
+    grid, pos, sdf, tets, te, ue = _tet_inputs(dev, open_surface=open_surface)
+    mk = K8.marching_tets(pos, sdf, tets, te, ue, max_tris)
+    ts, fi = K8.mesh_slots_plain(sdf, tets, max_tris)
+    has = (ts.reshape(-1, 2) >= 0).any(1).repeat_interleave(2)
+    assert torch.equal(mk.slots.tri_slot[has], ts[has])
+    assert torch.equal(mk.slots.face_info, fi)
+    loss, partner = K8.normal_consistency_cuda(mk)
+    torch.cuda.synchronize()
+    assert torch.equal(partner, K8.nc_partners_plain(mk.faces, mk.face_mask,
+                                                     mk.slots))
+    s = torch.arange(partner.shape[0], device=dev)[:, None].expand_as(partner)
+    live = partner >= 0
+    a, b = s[live], partner[live].long()
+    got = torch.unique(torch.stack([torch.minimum(a, b), torch.maximum(a, b)],
+                                   -1), dim=0)
+    assert torch.equal(got, K8.nc_pairs_plain(mk.faces, mk.face_mask,
+                                              ue.shape[0]))
+    ref = K8.normal_consistency_plain(mk.verts, mk.faces, mk.face_mask)
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_kernels_repeat_and_are_deterministic(dev):
+    """The look-back flags and the last-block counters reset themselves:
+    three calls in a row give the same bits."""
+    from dreamfusion_tpu_torch.ops import marching_tets as K8
+    grid, pos, sdf, tets, te, ue = _tet_inputs(dev)
+    outs = []
+    for _ in range(3):
+        m = K8.marching_tets(pos, sdf, tets, te, ue, 40000)
+        outs.append((m.faces, m.face_mask, m.slots.face_info,
+                     K8.laplacian_smooth_loss(m),
+                     K8.normal_consistency_loss(m)))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        for x, y in zip(o, outs[0]):
+            assert torch.equal(x, y)
+
+
 def test_k7_k8_wrappers_count_their_launches(dev):
     from dreamfusion_tpu_torch.models.dmtet import DMTetRenderer
     from dreamfusion_tpu_torch.mesh.tets import generate_tet_grid
@@ -1056,12 +1157,14 @@ def test_k7_k8_wrappers_count_their_launches(dev):
                    ambient_ratio=0.5, need_regularizers=True)
     loss = out["image"].sum() + out["normal_loss"] + out["lap_loss"]
     loss.backward()
-    for name in ("raster_fwd", "raster_bwd", "interpolate_fwd",
-                 "interpolate_bwd", "marching_tets_fwd", "marching_tets_bwd",
-                 "vertex_normals_fwd", "vertex_normals_bwd", "laplacian_fwd",
-                 "laplacian_bwd", "normal_consistency_fwd",
-                 "normal_consistency_bwd"):
-        assert kernels.LAUNCHES[name] >= 1, name
+    # one view: the mesh, the raster and two interpolates (positions and
+    # normals), the normals and the two regularizers, each one launch
+    want = {"raster_fwd": 1, "raster_bwd": 1, "interpolate_fwd": 2,
+            "interpolate_bwd": 2, "marching_tets_fwd": 1,
+            "marching_tets_bwd": 1, "vertex_normals_fwd": 1,
+            "vertex_normals_bwd": 1, "laplacian_fwd": 1, "laplacian_bwd": 1,
+            "normal_consistency_fwd": 1, "normal_consistency_bwd": 1}
+    assert {k: kernels.LAUNCHES[k] for k in want} == want
     assert float(p.sdf.grad.abs().max()) > 0
 
 
