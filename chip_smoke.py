@@ -39,7 +39,13 @@
    3.9e12/s, whichever of the two operation times is longer).
    K1 beside ``F.grid_sample`` (bilinear, align_corners=True, the three
    planes as a batch: the features) and its backward (their VJP into the
-   planes and the positions).  K6 (hash encode forward with the jacobian
+   planes and the positions).  K4 (CUDA: the head alone, and the head with
+   the normals and the shading folded in, at every shading id) and K3
+   (with every background form: a [3] colour or the background MLP's
+   chosen on the device, one a ray, white, none; and the orient loss) at
+   the flagship step's shapes, h and tangents from the flagship MLP, and
+   at an eval chunk (4096 rays of an 800² view: the head alone, K3 with the
+   white background), each with its graph ms (``graph_ms``).  K6 (hash encode forward with the jacobian
    and backward, tv and wd, forward and backward) runs at the flagship
    spec (L4C8 affine smoothstep, 2^19 rows per hashed level) at the step's
    98,304 sample positions and the grid refresh's 262,144-position chunk,
@@ -67,9 +73,14 @@
    eval (validation PNGs at 800²), rolling checkpoints, an 8-frame 800²
    turntable (cut from 100 frames) and the textured mesh export; requires
    a finite loss at every logged step, finite gradients, a launch of
-   K1-K4, an analytic-scene PSNR at least 3 dB above the initial one, and
-   the PNGs, checkpoint, mesh.obj (> 0 faces) and albedo PNG on disk; logs
-   each phase's time.
+   K1-K4, K3's backward and K4's shade pair exactly once a step and the
+   head's backward never (``run_render_launches``), an analytic-scene PSNR
+   at least 3 dB above the initial one, and the PNGs, checkpoint, mesh.obj
+   (> 0 faces) and albedo PNG on disk; logs each phase's time.  Then two
+   steps built as main builds them, the counters reset before each
+   (``stage1_step_launches``): K3 and K4 exactly as
+   ``step_render_launches`` counts, and the head 8 times more in the step
+   that refreshes the 128³ grid.
 5. Resets the counters and trains the SD 2.1 path (full SD 2.1 width,
    random weights from the seed) through dreamfusion_tpu_torch.main for 25
    steps: 6 warm-up steps (render as latent) and 19 through the VAE;
@@ -78,9 +89,10 @@
    wgmma, 1 narrow and 1 fp32 dgrads, ``SD_DGRADS``, and none on mma.sync;
    K11's routes exactly as ``SD_GROUPNORMS`` counts them, K10's d = 64
    route 32 times a step, its d = 512 forward and its backward once per
-   VAE step)
-   and a non-zero triplane gradient in both phases; logs s/step and peak
-   memory.  Then, counters reset, the same run through SD 1.5 (``--sd_version
+   VAE step), K3 and K4 exactly (the shade pair and K3's backward once a
+   step, K3's forward once more and the head once for each test frame, the
+   head 8 times a refresh) and a non-zero triplane gradient in both phases;
+   logs s/step and peak memory.  Then, counters reset, the same run through SD 1.5 (``--sd_version
    1.5``: CLIP-L, the 8-head UNet), with the same checks but K10's UNet
    routes at d = 40, 80 and 160 (10, 10 and 12 a step, ``SD15_UNET_ATTNS``;
    d = 64 never), and every K11 and K12 route launched exactly as often as
@@ -116,8 +128,10 @@
    chosen from a real SDS step's image gradient (its CLIP_QUANTILE, ~20%
    clamped); then, the counters reset just before it, stage 1 with
    ``--grad_clip_rgb`` for 300 steps with the same run's end as step 4,
-   requiring finite losses and gradients, launches of K1-K5, a known-view
-   step every 4th step, a known-view masked PSNR at least 3 dB above the
+   requiring finite losses and gradients, launches of K1-K5 (K3 and K4 as
+   in step 4, the shade pair twice a step: the 3-D normal smoothness's
+   second query; the two-step check too), a known-view step every 4th
+   step, a known-view masked PSNR at least 3 dB above the
    initial one and the mesh on disk; its SDS and known-view steps timed
    apart from its checkpoint (each launching K5 once).  K9 (signed
    distance, CUDA) on the DMTet init's real workload, the 274,625
@@ -224,10 +238,14 @@ KERNELS = {
                       "dreamfusion_tpu/ops/composite.py:39"),
     "composite_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/composite.cu",
                       "dreamfusion_tpu/ops/composite.py:39"),
-    "field_head_fwd": ("triton", "dreamfusion_tpu_torch/ops/activation.py",
+    "field_head_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
                        "dreamfusion_tpu/ops/activation.py:9"),
-    "field_head_bwd": ("triton", "dreamfusion_tpu_torch/ops/activation.py",
+    "field_head_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
                        "dreamfusion_tpu/ops/activation.py:9"),
+    "field_shade_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
+                        "dreamfusion_tpu/models/nerf.py:211"),
+    "field_shade_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
+                        "dreamfusion_tpu/models/nerf.py:211"),
     "attention_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
                             "dreamfusion_tpu/ops/attention.py:27"),
     "attention_fwd_wgmma_d40": ("cuda",
@@ -289,20 +307,23 @@ KERNELS["clip_grad_bwd"] = ("cuda", "dreamfusion_tpu_torch/csrc/clip_grad.cu",
                             "dreamfusion_tpu/core/math.py:39")
 KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
                               "dreamfusion_tpu/mesh/sdf.py:214")
+# the stage-1 step: K4's head with the normals and the shading (and the head
+# alone in the density refresh)
 GRID_KERNELS = ("hashgrid_fwd", "hashgrid_bwd", "march_rays",
                 "composite_fwd", "composite_bwd", "field_head_fwd",
-                "field_head_bwd")
+                "field_shade_fwd", "field_shade_bwd")
 GRID_REG_KERNELS = ("hashgrid_tv_fwd", "hashgrid_tv_bwd", "hashgrid_wd_fwd",
                     "hashgrid_wd_bwd")
 ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
                   "composite_fwd", "composite_bwd", "field_head_fwd",
-                  "field_head_bwd")
+                  "field_shade_fwd", "field_shade_bwd")
 # K10's and K12's forwards, K12's dgrad and K11 count each route apart
 # (ops/kernels.py): the SD step must launch every one of them, and never
 # K12's mma.sync forward or dgrad (conv_fwd_mma, conv_dgrad: shapes off
 # every path, checked at MMA_CONVS)
 SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
-              "field_head_fwd", "field_head_bwd", "attention_fwd_wgmma",
+              "field_head_fwd", "field_shade_fwd", "field_shade_bwd",
+              "attention_fwd_wgmma",
               "attention_fwd_wgmma_d512", "attention_bwd_wgmma",
               "groupnorm_fwd_resident", "groupnorm_fwd_stream",
               "groupnorm_bwd_resident", "groupnorm_bwd_stream",
@@ -329,6 +350,9 @@ DMTET_STEP_LAUNCHES = {
     "vertex_normals_fwd": 1, "vertex_normals_bwd": 1, "laplacian_fwd": 1,
     "laplacian_bwd": 1, "normal_consistency_fwd": 1,
     "normal_consistency_bwd": 1}
+# K3's and K4's entry points, whose launches a step's checks count
+RENDER_KERNELS = ("composite_fwd", "composite_bwd", "field_shade_fwd",
+                  "field_shade_bwd", "field_head_fwd", "field_head_bwd")
 IMAGE_KERNELS = ORACLE_KERNELS + ("clip_grad_bwd",)
 IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
 # The SD 2.1 step's K12 forwards (bf16 unless stated; the UNet at CFG batch
@@ -473,6 +497,37 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10):
+    """Device ms of one call: `calls` calls captured in one CUDA graph,
+    replayed between two CUDA events; the median of `reps` replays (no host
+    in the window).  None for no call."""
+    import torch
+    if fn is None:
+        return None
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def host_us(fn, n: int = 200) -> dict:
     """Host µs of one call, the card idle before each (what a host-bound
     step pays: Python, the launch): {"host_us_min": the least of `n`, which
@@ -491,14 +546,23 @@ def host_us(fn, n: int = 200) -> dict:
             "host_us": statistics.median(times) * 1e6}
 
 
+def _pairs(a, b):
+    """The (got, want) pairs of two output lists, outputs that are None in
+    both (an optional output not asked for) left out."""
+    for x, y in zip(a, b):
+        check((x is None) == (y is None), "an output is None on one side")
+        if x is not None:
+            yield x, y
+
+
 def max_err(a, b) -> float:
     return max(float((x.detach().float() - y.detach().float()).abs().max())
-               for x, y in zip(a, b))
+               for x, y in _pairs(a, b))
 
 
 def assert_close(name, got, want, atol, rtol) -> float:
     """Every pair within atol + rtol·|want|; returns the max abs error."""
-    for x, y in zip(got, want):
+    for x, y in _pairs(got, want):
         x, y = x.detach().float(), y.detach().float()
         bad = (x - y).abs() > atol + rtol * y.abs()
         check(not bool(bad.any()),
@@ -650,12 +714,11 @@ def flagship_march(torch) -> dict:
                 edges=edges, u=u, mk=mk, xyz=xyz, x01=x01)
 
 
-def kernel_phases(torch, results):
+def kernel_phases(torch, results, smi_line):
     """Each kernel against its plain version at the flagship step's shapes:
     4096 rays x 24 samples (N = 98,304 field samples), a 3x256²x16 triplane,
-    a 128³ occupancy grid, 32 probes."""
-    from dreamfusion_tpu_torch.ops import activation as K4
-    from dreamfusion_tpu_torch.ops import composite as K3
+    a 128³ occupancy grid, 32 probes (K3 and K4: ``render_kernel_phases``).
+    """
     from dreamfusion_tpu_torch.ops import occupancy as K2
 
     m = flagship_march(torch)
@@ -701,67 +764,216 @@ def kernel_phases(torch, results):
                   f" [{N} step samples, {cfg.triplane_resolution}²x"
                   f"{cfg.triplane_channels}] + jacobian")
 
-    # ---- K4 field head, bf16 MLP output ---------------------------------
-    bf = torch.bfloat16
-    h = (torch.randn(N, 4, device=dev, generator=g) * 2).to(bf)
-    bd, br = cfg.blob_density, cfg.blob_radius
-    fk = K4.field_head_fwd_triton(h, xyz, bd, br)
+    render_kernel_phases(torch, results, m, smi_line)
+    return x01
+
+
+def flagship_field_inputs(torch, m) -> dict:
+    """What the field head sees in the flagship step: h and the tangents
+    from the flagship's 3x64 MLP (bf16) on a 256²x16 triplane (seeded,
+    ±0.1) at the march ``m``'s 98,304 sample positions; one light direction
+    a ray; the ratio as a device scalar."""
+    from dreamfusion_tpu_torch.core.math import safe_normalize
+    from dreamfusion_tpu_torch.models.nerf import NeRFField
+    cfg, dev = m["cfg"], m["ro"].device
+    g = torch.Generator(device=dev).manual_seed(13)
+    field = NeRFField(backbone="triplane", bound=cfg.bound,
+                      hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+                      triplane_resolution=cfg.triplane_resolution,
+                      triplane_channels=cfg.triplane_channels,
+                      compute_dtype=torch.bfloat16)
+    field.reset_parameters(torch.Generator().manual_seed(0))
+    field.to(dev)
+    with torch.no_grad():
+        for p in field.triplanes:
+            p.copy_(torch.randn(p.shape, device=dev, generator=g) * 0.1)
+        feat, jac = field.encode(m["xyz"], need_jacobian=True)
+        h, t = field.sigma_net(feat, torch.bfloat16,
+                               tangents=torch.stack(jac))
+    light = safe_normalize(m["ro"] + torch.randn(
+        m["ro"].shape, device=dev, generator=g))
+    return dict(field=field, h=h, t=t, light=light, g=g,
+                ratio=torch.tensor(0.3, device=dev))
+
+
+def _bf16_close(name, got, want, floor):
+    """Each value within one bf16 ulp (2^-7 of it) plus `floor` of the
+    largest: both round an fp32 result once → the max abs error."""
+    for x, y in _pairs(got, want):
+        x, y = x.float(), y.float()
+        bad = (x - y).abs() > 2 ** -7 * y.abs() + floor * float(
+            y.abs().max())
+        check(not bool(bad.any()), f"{name}: {int(bad.sum())} of "
+              f"{y.numel()} values outside 1 bf16 ulp + {floor} of the "
+              f"largest (max err {max_err([x], [y]):.3e})")
+    return max_err(got, want)
+
+
+def render_kernel_phases(torch, results, m, smi_line):
+    """K4 (the head alone, and with the normals and the shading) and K3
+    (with every background form and the orient loss) against their plain
+    twins at the flagship step's shapes (4096 rays x 24, bf16 h and
+    tangents from the flagship MLP, the march's masks, one light a ray)
+    and at an eval chunk (4096 rays of an 800² circle view: the head alone,
+    K3 with the white background); event ms and graph ms (20 calls in a
+    CUDA graph) of each, beside the card's name and power limit."""
+    from dreamfusion_tpu_torch.ops import activation as K4
+    from dreamfusion_tpu_torch.ops import composite as K3
+    fi = flagship_field_inputs(torch, m)
+    h, t, light, ratio, g = (fi[k] for k in ("h", "t", "light", "ratio",
+                                             "g"))
+    cfg, xyz, mk = m["cfg"], m["xyz"], m["mk"]
+    R, S = mk.z_vals.shape
+    N, dev = R * S, xyz.device
+    bd, br, bound = cfg.blob_density, cfg.blob_radius, cfg.bound
+
+    def record(name, err, fn, plain, tol, n_bytes, flops, where):
+        ms, gms = median_ms(fn), graph_ms(fn)
+        log(f"{name}{where}: graph {gms:.4f} ms on {smi_line}")
+        record_kernel(results, name, err, ms, median_ms(plain), tol,
+                      n_bytes, flops, "fp32", None, where)
+
+    # ---- K4: the head alone (the refresh, the DMTet albedo query) --------
+    fk = K4.field_head_fwd_cuda(h, xyz, bd, br)
     torch.cuda.synchronize()
     fp = K4.field_head_fwd_plain(h, xyz, bd, br)
     err = assert_close("field_head_fwd", fk, fp, 1e-6, 1e-5)
     record("field_head_fwd", err,
-           median_ms(lambda: K4.field_head_fwd_triton(h, xyz, bd, br)),
-           median_ms(lambda: K4.field_head_fwd_plain(h, xyz, bd, br)),
-           "1e-5 rel", nbytes(h, xyz, *fk), N * 20)
-    gc = [torch.randn_like(o) for o in fp]
-    bk = K4.field_head_bwd_triton(h, xyz, bd, br, *gc)
+           lambda: K4.field_head_fwd_cuda(h, xyz, bd, br),
+           lambda: K4.field_head_fwd_plain(h, xyz, bd, br), "1e-5 rel",
+           nbytes(h, xyz, *fk), N * 20, f" [{N} step samples, bf16 h]")
+    gc = [torch.randn(o.shape, device=dev, generator=g) for o in fp]
+    bk = K4.field_head_bwd_cuda(h, xyz, bd, br, *gc)
     torch.cuda.synchronize()
-    bp = K4.field_head_bwd_plain(h, xyz, bd, br, *gc)
-    # dh0 = g_sigma·e + g_dsig·e' sums two terms up to e^15 that can cancel:
-    # hold each value to 1e-5 of the sum of its terms' magnitudes
-    mag = K4.field_head_bwd_plain(h, xyz, bd, br, *(c.abs() for c in gc))
-    bad = (bk - bp).abs() > 1e-5 * mag + 1e-6
-    check(not bool(bad.any()), f"field_head_bwd: {int(bad.sum())} values "
-          f"outside 1e-5 of their terms' magnitude")
-    err = max_err([bk], [bp])
+    bp = K4.field_head_bwd_plain(h, xyz, bd, br, *gc).to(h.dtype)
+    err = _bf16_close("field_head_bwd", [bk], [bp], 1e-6)
     record("field_head_bwd", err,
-           median_ms(lambda: K4.field_head_bwd_triton(h, xyz, bd, br, *gc)),
-           median_ms(lambda: K4.field_head_bwd_plain(h, xyz, bd, br, *gc)),
-           "1e-5 of the terms' magnitude", nbytes(h, xyz, *gc, bk), N * 25)
+           lambda: K4.field_head_bwd_cuda(h, xyz, bd, br, *gc),
+           lambda: K4.field_head_bwd_plain(h, xyz, bd, br, *gc),
+           "1 bf16 ulp + 1e-6 of the largest", nbytes(h, xyz, *gc, bk),
+           N * 15, f" [{N} step samples, bf16 h]")
 
-    # ---- K3 composite ----------------------------------------------------
-    sigma = fp[0].reshape(R, S).contiguous()
-    rgb = fp[1].reshape(R, S, 3).contiguous()
-    z, dl, m = mk.z_vals, mk.deltas, mk.mask
-    ck = K3._composite_fwd_cuda(sigma, rgb, z, dl, m, 1e-4, False)
+    # ---- K4 with the normals and the shading (every shading id) ---------
+    for sid in (1, 3, 0, 2):         # lambertian and normal first: the path
+        ids = torch.tensor(sid, device=dev)
+        args = (h, t, xyz, light, ratio, ids, bd, br, bound)
+        sk = K4.field_shade_fwd_cuda(*args)
+        torch.cuda.synchronize()
+        sp = K4.field_shade_fwd_plain(*args)
+        err = assert_close("field_shade_fwd", sk, sp, 1e-5, 2e-5)
+        where = f" [{N} step samples, bf16 h and tangents, shading {sid}]"
+        record("field_shade_fwd", err,
+               lambda: K4.field_shade_fwd_cuda(*args),
+               lambda: K4.field_shade_fwd_plain(*args), "1e-5 + 2e-5 rel",
+               nbytes(h, t, xyz, light, *sk), N * 60, where)
+        gs = [torch.randn(o.shape, device=dev, generator=g) for o in sp]
+        dk = K4.field_shade_bwd_cuda(*args, *gs)
+        torch.cuda.synchronize()
+        check(not bool(dk[1][..., 1:].any()),
+              "field_shade_bwd: tangent columns 1-3 not zero")
+        dp = K4.field_shade_bwd_plain(*args, *gs)
+        err = _bf16_close("field_shade_bwd", dk, dp, 1e-5)
+        record("field_shade_bwd", err,
+               lambda: K4.field_shade_bwd_cuda(*args, *gs),
+               lambda: K4.field_shade_bwd_plain(*args, *gs),
+               "1 bf16 ulp + 1e-5 of the largest",
+               nbytes(h, t, xyz, light, *gs, *dk), N * 90, where)
+
+    # ---- K3 with every background form and the orient loss ---------------
+    ids = torch.tensor(1, device=dev)
+    sigma, rgb, normal = K4.field_shade_fwd_cuda(h, t, xyz, light, ratio,
+                                                 ids, bd, br, bound)
+    sigma, rgb = sigma.reshape(R, S), rgb.reshape(R, S, 3)
+    normals = normal.reshape(R, S, 3)
+    z, dl, mask, rd = mk.z_vals, mk.deltas, mk.mask, m["rd"]
+    rgb3 = torch.rand(3, device=dev, generator=g)
+    net = torch.rand(R, 3, device=dev, generator=g)
+    forms = [   # the step's first: a drawn colour or the net's, chosen
+        ("[3] colour or the net's (drawn: net), orient",
+         dict(bg_color=rgb3.expand(R, 3), bg_net=net,
+              use_bg_net=torch.tensor(True, device=dev)), True),
+        ("[3] colour or the net's (drawn: colour), orient",
+         dict(bg_color=rgb3.expand(R, 3), bg_net=net,
+              use_bg_net=torch.tensor(False, device=dev)), True),
+        ("[R, 3] colour (known view), orient",
+         dict(bg_color=torch.rand(R, 3, device=dev, generator=g)), True),
+        ("white, no orient", dict(bg_color=1.0), False),
+        ("none, no orient", {}, False)]
+    for what, bg, orient in forms:
+        extra = dict(bg, normals=normals if orient else None,
+                     rays_d=rd if orient else None)
+        fargs = (sigma, rgb, z, dl, mask, 1e-4, False)
+        ck = K3._composite_fwd_cuda(*fargs, **extra)
+        torch.cuda.synchronize()
+        cp = K3.composite_fwd_plain(*fargs, **extra)
+        err = assert_close("composite_fwd", ck, cp, 1e-5, 1e-5)
+        where = f" [{R}x{S} step rays, background {what}]"
+        store = [v for v in (bg.get("bg_color"), bg.get("bg_net"),
+                             bg.get("use_bg_net")) if torch.is_tensor(v)]
+        store = [v[0] if v.dim() == 2 and v.stride(0) == 0 else v
+                 for v in store]             # a broadcast colour: 3 floats
+        record("composite_fwd", err,
+               lambda: K3._composite_fwd_cuda(*fargs, **extra),
+               lambda: K3.composite_fwd_plain(*fargs, **extra),
+               "1e-5", nbytes(sigma, rgb, z, dl, mask, *store, *(
+                   (normals, rd) if orient else ()), *ck), R * S * 30, where)
+        cc = [torch.randn(o.shape, device=dev, generator=g) for o in cp
+              if o is not None]
+        bargs = (sigma, rgb, z, dl, mask, cp.weights, *cc[:4], 1e-4)
+        gl = cc[4] if orient else None
+        gk = K3._composite_bwd_cuda(*bargs, **extra, g_loss=gl,
+                                    wsum=ck.weights_sum)
+        torch.cuda.synchronize()
+        gp = K3.composite_bwd_plain(*bargs, **extra, g_loss=gl)
+        gk = [x for x in gk if x is not None]
+        gp = [x for x in gp if x is not None]
+        check(len(gk) == len(gp), "composite_bwd: gradients differ in kind")
+        scale = max(float(x.abs().max()) for x in gp)
+        err = assert_close("composite_bwd", gk, gp, 1e-5 * scale, 1e-4)
+        record("composite_bwd", err,
+               lambda: K3._composite_bwd_cuda(*bargs, **extra, g_loss=gl,
+                                              wsum=ck.weights_sum),
+               lambda: K3.composite_bwd_plain(*bargs, **extra, g_loss=gl),
+               "1e-4 rel, 1e-5 of the largest (sums in another order)",
+               nbytes(sigma, rgb, z, dl, mask, cp.weights, *store, *cc,
+                      *gk), R * S * 40, where)
+
+    # ---- an eval chunk: 4096 rays of an 800² view, albedo, white ---------
+    from dreamfusion_tpu_torch.core.sampling import (det_u,
+                                                     near_far_from_bound)
+    from dreamfusion_tpu_torch.ops import occupancy as K2
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+    view = circle_view_batch(cfg, 0, 8, cfg.H, cfg.W, dev)
+    ro = view.rays_o[0][:cfg.max_ray_batch].contiguous()
+    rde = view.rays_d[0][:cfg.max_ray_batch].contiguous()
+    near, far = near_far_from_bound(ro, rde, bound, "cube", cfg.min_near)
+    me = K2.march_cuda(ro, rde, near, far, m["occ"], bound, m["edges"],
+                       det_u(ro.shape[0], S, device=dev).contiguous())
+    xe = torch.clamp(ro[:, None] + rde[:, None] * me.z_vals[..., None],
+                     -bound, bound).reshape(-1, 3).contiguous()
+    with torch.no_grad():
+        he = fi["field"].sigma_net(fi["field"].encode(xe), torch.bfloat16)
+    where = (f" [eval chunk: {ro.shape[0]} rays x {S} of an {cfg.H}x"
+             f"{cfg.W} view, albedo")
+    ek = K4.field_head_fwd_cuda(he, xe, bd, br)
     torch.cuda.synchronize()
-    cp = K3.composite_fwd_plain(sigma, rgb, z, dl, m, 1e-4, False)
+    ep = K4.field_head_fwd_plain(he, xe, bd, br)
+    err = assert_close("field_head_fwd", ek, ep, 1e-6, 1e-5)
+    record("field_head_fwd", err,
+           lambda: K4.field_head_fwd_cuda(he, xe, bd, br),
+           lambda: K4.field_head_fwd_plain(he, xe, bd, br), "1e-5 rel",
+           nbytes(he, xe, *ek), xe.shape[0] * 20, where + "]")
+    se = ek[0].reshape(-1, S)
+    ae = ek[1].reshape(-1, S, 3)
+    fargs = (se, ae, me.z_vals, me.deltas, me.mask, 1e-4, False, 1.0)
+    ck = K3._composite_fwd_cuda(*fargs)
+    torch.cuda.synchronize()
+    cp = K3.composite_fwd_plain(*fargs)
     err = assert_close("composite_fwd", ck, cp, 1e-5, 1e-5)
-    record("composite_fwd", err,
-           median_ms(lambda: K3._composite_fwd_cuda(sigma, rgb, z, dl, m,
-                                                    1e-4, False)),
-           median_ms(lambda: K3.composite_fwd_plain(sigma, rgb, z, dl, m,
-                                                    1e-4, False)),
-           "1e-5", nbytes(sigma, rgb, z, dl, m, *ck), R * S * 20)
-    cc = [torch.randn(R, 3, device=dev, generator=g),
-          torch.randn(R, device=dev, generator=g),
-          torch.randn(R, S, device=dev, generator=g),
-          torch.randn(R, device=dev, generator=g)]
-    gk = K3._composite_bwd_cuda(sigma, rgb, z, dl, m, cp.weights, *cc, 1e-4,
-                                False)
-    torch.cuda.synchronize()
-    gp = K3.composite_bwd_plain(sigma, rgb, z, dl, m, cp.weights, *cc, 1e-4)
-    scale = max(float(x.abs().max()) for x in gp)
-    err = assert_close("composite_bwd", gk, gp, 1e-5 * scale, 1e-4)
-    record("composite_bwd", err,
-           median_ms(lambda: K3._composite_bwd_cuda(sigma, rgb, z, dl, m,
-                                                    cp.weights, *cc, 1e-4,
-                                                    False)),
-           median_ms(lambda: K3.composite_bwd_plain(sigma, rgb, z, dl, m,
-                                                    cp.weights, *cc, 1e-4)),
-           "1e-4 rel (sums in another order)",
-           nbytes(sigma, rgb, z, dl, m, cp.weights, *cc, *gk), R * S * 30)
-    return x01
+    record("composite_fwd", err, lambda: K3._composite_fwd_cuda(*fargs),
+           lambda: K3.composite_fwd_plain(*fargs), "1e-5",
+           nbytes(se, ae, *me, *ck),
+           se.numel() * 25, where + ", white background]")
 
 
 def hashgrid_kernel_phases(torch, results, x01):
@@ -1658,6 +1870,77 @@ def _check_outputs(ws, summary, what) -> None:
     log(f"{what}: {path} with {len(tris)} faces and {os.path.basename(tex)}")
 
 
+def step_render_launches(cfg) -> dict:
+    """K3's and K4's launches in one stage-1 step of one view (after the
+    warm-up): its shaded render, composited, and their backwards; the
+    3-D normal smoothness (on under ``--image``) shades the perturbed
+    positions once more.  The eval renders take the head alone, and a step
+    that refreshes the density grid adds the head ``refresh_launches``
+    times."""
+    shade = 1 + int(cfg.lambda_3d_normal_smooth > 0)
+    return {"composite_fwd": 1, "composite_bwd": 1, "field_shade_fwd": shade,
+            "field_shade_bwd": shade, "field_head_fwd": 0,
+            "field_head_bwd": 0}
+
+
+def refresh_launches(cfg) -> int:
+    """K4 head launches of one density-grid refresh: the grid's cells a
+    chunk at a time, per cascade (8 at the flagship's 128³)."""
+    from dreamfusion_tpu_torch.ops.occupancy import _CHUNK
+    return cfg.cascade * -(-cfg.grid_size ** 3 // _CHUNK)
+
+
+def run_render_launches(launches, cfg, n_steps, what, renders=None) -> None:
+    """K3's and K4's launches over a whole run of `n_steps` steps: the
+    shaded renders and the backwards as ``step_render_launches`` says each
+    step, the head's backward never, the head at least once a chunk of
+    each refresh; with `renders` (the run's eval and test renders, each one
+    composite with the head alone) the forwards exactly."""
+    n_refresh = -(-n_steps // cfg.update_extra_interval)
+    per_step = step_render_launches(cfg)
+    for name in ("composite_bwd", "field_shade_fwd", "field_shade_bwd"):
+        check(launches[name] == per_step[name] * n_steps,
+              f"{what}: {name} launched {launches[name]} times in "
+              f"{n_steps} steps ({per_step[name]} a step)")
+    check(launches["field_head_bwd"] == 0,
+          f"{what}: field_head_bwd launched {launches['field_head_bwd']} "
+          f"times (never in stage 1)")
+    head = n_refresh * refresh_launches(cfg)
+    if renders is None:
+        check(launches["field_head_fwd"] >= head, f"{what}: field_head_fwd "
+              f"launched {launches['field_head_fwd']} times, under {head}")
+        return
+    want = {"composite_fwd": n_steps + renders,
+            "field_head_fwd": head + renders}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}: K3/K4 forwards {got}, not {want} ({n_steps}"
+          f" steps, {n_refresh} refreshes, {renders} test renders)")
+
+
+def stage1_step_launches(torch, port_main, kernels, flags, ws, what):
+    """Two stage-1 steps of the run `flags` describes (built as main builds
+    it), the counters reset just before each: K3 and K4 launch exactly
+    ``step_render_launches``, and the first step's refresh adds the head
+    ``refresh_launches`` times."""
+    args = port_main.build_parser().parse_args(
+        flags + ["--workspace", ws, "--iters", "2"])
+    cfg = port_main.config_from_args(args)
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    for _ in range(2):
+        want = step_render_launches(cfg)
+        if state.step % cfg.update_extra_interval == 0:
+            want["field_head_fwd"] = refresh_launches(cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        trainer.run_step(state, gen)
+        torch.cuda.synchronize()
+        got = {k: kernels.LAUNCHES[k] for k in want}
+        check(got == want, f"{what}: step {state.step - 1} launched K3/K4 "
+              f"{got}, not {want}")
+        log(f"{what}: step {state.step - 1} launched K3/K4 {got}")
+
+
 def stage1_path(port_main, kernels, flags, ws, what, required, group,
                 smi_line):
     """Stage 1 under the oracle with the run's end, the counters reset just
@@ -1676,6 +1959,8 @@ def stage1_path(port_main, kernels, flags, ws, what, required, group,
     check(summary["grad_ok"], f"{what}: a step had non-finite gradients")
     for name in required:
         check(launches[name] > 0, f"the {what} path never launched {name}")
+    run_render_launches(launches, port_main.config_from_args(
+        port_main.build_parser().parse_args(flags)), STEPS, what)
     check(all(g > 0 for g in summary[f"{group}_grad_max"]),
           f"{what}: a step had a zero {group} gradient")
     gain = summary["psnr_final"] - summary["psnr_init"]
@@ -1739,6 +2024,12 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
             ("hashgrid_fwd", "hashgrid_bwd") if group == "grid" else
             ("triplane_fwd", "triplane_bwd")):
         check(launches[name] > 0, f"the {what} path never launched {name}")
+    # K3 and K4 exactly: no evals, the test's frames at H x W in
+    # max_ray_batch chunks
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags))
+    renders = cfg.dataset_size_test * -(-cfg.H * cfg.W // cfg.max_ray_batch)
+    run_render_launches(launches, cfg, n_steps, what, renders)
     for latent in (True, False):
         gm = [gr for gr, ph in zip(sd[f"{group}_grad_max"],
                                    sd["latent_phase"]) if ph == latent]
@@ -1843,8 +2134,12 @@ def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc):
     check(cfg.batch_size == 1 and k78 == DMTET_STEP_LAUNCHES,
           f"{what}: one step launched K7/K8 {k78}, not "
           f"{DMTET_STEP_LAUNCHES}")
+    # the albedo query: K4's head alone, once each way
+    k4 = {k: kernels.LAUNCHES[k] for k in RENDER_KERNELS}
+    want4 = {k: int(k.startswith("field_head")) for k in k4}
+    check(k4 == want4, f"{what}: one step launched K3/K4 {k4}, not {want4}")
     log(f"{what}: one step ({cfg.batch_size} view) launched {enc} {got}, "
-        f"K7/K8 {k78}")
+        f"K7/K8 {k78}, K3/K4 {k4}")
 
 
 def choose_clip_limit(torch, port_main, ws):
@@ -1932,6 +2227,8 @@ def image_path(torch, port_main, kernels, ws, smi_line):
     check(summary["grad_ok"], "image: a step had non-finite gradients")
     for name in IMAGE_KERNELS:
         check(launches[name] > 0, f"the image path never launched {name}")
+    run_render_launches(launches, port_main.config_from_args(
+        port_main.build_parser().parse_args(flags)), STEPS, "image")
     check(n_known == -(-STEPS // 4), f"image: {n_known} known-view steps "
           f"in {STEPS} (known_view_interval 4)")
     check(all(g > 0 for g in summary["triplane_grad_max"]),
@@ -1939,6 +2236,8 @@ def image_path(torch, port_main, kernels, ws, smi_line):
     check(kv1 - kv0 >= 3.0, f"image: the known-view PSNR rose only "
           f"{kv1 - kv0:.3f} dB (bar: 3 dB)")
     _check_outputs(ws, summary, "image")
+    stage1_step_launches(torch, port_main, kernels, flags, ws + "_step",
+                         "image")
     timing = step_timing(torch, port_main, kernels, flags + [
         "--iters", str(STEPS), "--workspace", ws])
     log(f"image step times (synchronised, median of 10 after 2): SDS "
@@ -2016,7 +2315,7 @@ def run() -> dict:
         f"(build/meshops)")
 
     results = {}
-    x01 = kernel_phases(torch, results)
+    x01 = kernel_phases(torch, results, smi_line)
     t_k = time.time()
     hashgrid_kernel_phases(torch, results, x01)
     log(f"K6 phase in {time.time() - t_k:.1f} s")
@@ -2031,6 +2330,8 @@ def run() -> dict:
     ws = os.path.join(build, "chip_smoke_ws")
     summary, _ = stage1_path(port_main, kernels, FLAGSHIP, ws, "oracle",
                              ORACLE_KERNELS, "triplane", smi_line)
+    stage1_step_launches(torch, port_main, kernels, FLAGSHIP, ws + "_step",
+                         "oracle")
     bake_kernel_phase(torch, results, summary["mesh_path"])
     sd_launches = sd_path(torch, port_main, kernels, SD_FLAGS,
                           os.path.join(build, "chip_smoke_sd_ws"), "SD",
@@ -2055,6 +2356,8 @@ def run() -> dict:
                                    "grid oracle",
                                    GRID_KERNELS + GRID_REG_KERNELS, "grid",
                                    smi_line)
+    stage1_step_launches(torch, port_main, kernels, GRID_FLAGSHIP,
+                         ws + "_step", "grid oracle")
     sd_grid_launches = sd_path(torch, port_main, kernels, SD_GRID_FLAGS,
                                os.path.join(build, "chip_smoke_sd_grid_ws"),
                                "SD -O", "grid", smi_line)

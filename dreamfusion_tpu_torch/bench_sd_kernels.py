@@ -13,6 +13,7 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only field
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dmtet \
         --bake_mesh ws/mesh/mesh.obj
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only render
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -93,6 +94,15 @@ called directly (``backward_call``), so a parent checkout is timed by the
 same calls.
 ``--outputs`` keeps every tensor a row returns (forwards: ``--compare``
 bit for bit; backwards: within fp32 reduction order).
+
+``--only render`` times K2's march, K3 (composite) and K4 (the field head)
+at the flagship stage-1 step's shapes and at an 800² eval render in one
+call (``render_cases``): each kernel alone, and each forward and backward
+together with the torch epilogue that the fused kernels took in (the
+normals and the shading select; the background and the orient loss),
+timed as one region; a parent checkout's regions are its own kernel plus
+those torch ops, as its field and renderer ran them.  The backward
+regions run through autograd (events and the profiler, no graph ms).
 """
 
 from __future__ import annotations
@@ -414,17 +424,216 @@ def dmtet_cases(smoke, dev, bake_mesh=None):
     return [(row, fn, None) for row, fn in cases]
 
 
+def render_cases(smoke, dev):
+    """(row, the checkout's call, None) for K2's march and K3's and K4's
+    forwards and backwards at the flagship stage-1 step's shapes (4096 rays
+    x 24 samples of ``chip_smoke.flagship_march``: its masks; h and the
+    tangents from a 3x64 MLP on a 256²x16 triplane, bf16; one light a ray,
+    the ratio and the shading id as device scalars, lambertian (1) and
+    normal (3)) and at an 800² eval render in one call (640,000 rays x 24:
+    the march, K3 with a white background, the head alone).  Calls are
+    found by name: on a checkout from before the fused tail (the Triton
+    head, K3 without its epilogue) each "+ epilogue" row times the kernel
+    and the torch ops the fused kernel replaces, as that checkout's
+    renderer and field ran them, as one region.  Rows marked
+    ``autograd`` run a backward through autograd (a graph built once;
+    no graph ms)."""
+    import torch
+
+    from dreamfusion_tpu_torch.core.math import safe_normalize
+    from dreamfusion_tpu_torch.core.sampling import (det_u,
+                                                     near_far_from_bound)
+    from dreamfusion_tpu_torch.ops import activation as K4
+    from dreamfusion_tpu_torch.ops import composite as K3
+    from dreamfusion_tpu_torch.ops import occupancy as K2
+
+    fused = hasattr(K4, "field_shade_fwd_cuda")
+    bf = torch.bfloat16
+    m = smoke.flagship_march(torch)
+    cfg = m["cfg"]
+    bd, br, bound = cfg.blob_density, cfg.blob_radius, cfg.bound
+    fi = smoke.flagship_field_inputs(torch, m)
+    field, h, t, light, ratio, g = (fi[k] for k in (
+        "field", "h", "t", "light", "ratio", "g"))
+    xyz, mk = m["xyz"], m["mk"]
+    R, S = mk.z_vals.shape
+    N = R * S
+    z, dl, mask, rd = mk.z_vals, mk.deltas, mk.mask, m["rd"]
+    step = {"at": "step", "shape": [R, S]}
+    cases = [({"kernel": "K2 march_rays", **step}, functools.partial(
+        K2.march_cuda, m["ro"], rd, m["near"], m["far"], m["occ"], bound,
+        m["edges"], m["u"]))]
+
+    # ---- K4: the head alone, and with the normals and the shading --------
+    def parent_shade(hh, tt, ids):
+        """The field's tail before the fused head: the Triton head, then
+        the normals and the select in torch (with the renderer's copy of
+        the expanded light directions)."""
+        ld = light[:, None, :].expand(R, S, 3).reshape(-1, 3)
+        sigma, albedo, dsig = K4.field_head(hh, xyz, bd, br)
+        gg = tt[..., 0].float().T * dsig[:, None] / (2 * bound)
+        normal = torch.nan_to_num(safe_normalize(-gg))
+        lam = ratio + (1 - ratio) * torch.clamp((normal * ld).sum(-1),
+                                                min=0.0)
+        color = torch.where(
+            ids == 0, albedo,
+            torch.where(ids == 2, lam[..., None].expand_as(albedo),
+                        torch.where(ids == 3, (normal + 1.0) / 2.0,
+                                    albedo * lam[..., None])))
+        return sigma, color, normal
+
+    def shade(hh, tt, ids):
+        if fused:
+            return K4.field_shade(hh, tt, xyz, light, ratio, ids, bd, br,
+                                  bound)
+        return parent_shade(hh, tt, ids)
+
+    if fused:
+        head_fwd = functools.partial(K4.field_head_fwd_cuda, h, xyz, bd, br)
+    else:
+        head_fwd = functools.partial(K4.field_head_fwd_triton, h, xyz, bd,
+                                     br)
+    g_sig = torch.randn(N, device=dev, generator=g)
+    g_alb = torch.randn(N, 3, device=dev, generator=g)
+    head_bwd = functools.partial(K4.field_head_bwd_cuda, h, xyz, bd, br,
+                                 g_sig, g_alb) if fused else \
+        functools.partial(K4.field_head_bwd_triton, h, xyz, bd, br, g_sig,
+                          g_alb, torch.zeros_like(g_sig))
+    cases += [({"kernel": "K4 field_head_fwd", **step}, head_fwd),
+              ({"kernel": "K4 field_head_bwd", **step}, head_bwd)]
+    for sid in (1, 3):
+        ids = torch.tensor(sid, device=dev)
+        row = {**step, "shading": sid}
+        cases.append(({"kernel": "K4 shade_fwd + epilogue", **row},
+                      functools.partial(torch.no_grad()(shade), h, t, ids)))
+        cots = [torch.randn(N, device=dev, generator=g),
+                torch.randn(N, 3, device=dev, generator=g),
+                torch.randn(N, 3, device=dev, generator=g)]
+        if fused:
+            cases.append(({"kernel": "K4 shade_bwd", **row},
+                          functools.partial(
+                              K4.field_shade_bwd_cuda, h, t, xyz, light,
+                              ratio, ids, bd, br, bound, *cots)))
+        hg, tg = h.detach().requires_grad_(), t.detach().requires_grad_()
+        outs = shade(hg, tg, ids)
+        cases.append(({"kernel": "K4 shade_bwd + epilogue", **row,
+                       "autograd": True},
+                      functools.partial(torch.autograd.grad, outs, (hg, tg),
+                                        cots, retain_graph=True)))
+
+    # ---- K3: the kernel alone, and with the background and the orient loss
+    with torch.no_grad():
+        sigma, color, normal = shade(h, t, torch.tensor(1, device=dev))
+    sigma = sigma.reshape(R, S).contiguous()
+    rgb = color.reshape(R, S, 3).contiguous()
+    normals = normal.reshape(R, S, 3).contiguous()
+    bg = torch.rand(3, device=dev, generator=g).expand(R, 3)
+    bg_net = torch.rand(R, 3, device=dev, generator=g)
+    use = torch.tensor(True, device=dev)
+
+    def parent_composite(sg, cl, nm, net):
+        """K3, then the renderer's background and orient loss in torch."""
+        dirs = safe_normalize(rd[:, None, :].expand(R, S, 3))
+        out = K3.composite_rays(sg, cl, z, dl, mask=mask, t_thresh=1e-4)
+        bgc = torch.where(use, net, bg)
+        image = out.image + (1.0 - out.weights_sum)[..., None] * bgc
+        w = out.weights.detach()
+        loss = w * torch.clamp((nm * dirs).sum(-1), min=0.0) ** 2
+        return (image, out.depth, out.weights, out.weights_sum,
+                loss.sum(-1).mean())
+
+    def composite(sg, cl, nm, net):
+        if fused:
+            return tuple(K3.composite_rays(
+                sg, cl, z, dl, mask, 1e-4, False, bg_color=bg, bg_net=net,
+                use_bg_net=use, normals=nm, rays_d=rd))
+        return parent_composite(sg, cl, nm, net)
+
+    cases.append(({"kernel": "K3 composite_fwd", **step}, functools.partial(
+        K3._composite_fwd_cuda, sigma, rgb, z, dl, mask, 1e-4, False)))
+    cases.append(({"kernel": "K3 composite_fwd + epilogue", **step},
+                  functools.partial(torch.no_grad()(composite), sigma, rgb,
+                                    normals, bg_net)))
+    w = K3._composite_fwd_cuda(sigma, rgb, z, dl, mask, 1e-4, False).weights
+    cc = [torch.randn(R, 3, device=dev, generator=g),
+          torch.randn(R, device=dev, generator=g),
+          torch.randn(R, S, device=dev, generator=g),
+          torch.randn(R, device=dev, generator=g)]
+    g_loss = torch.randn((), device=dev, generator=g)
+    bwd_args = (sigma, rgb, z, dl, mask, w, *cc, 1e-4)
+    if "binarize" in inspect.signature(K3._composite_bwd_cuda).parameters:
+        kernel_bwd = functools.partial(K3._composite_bwd_cuda, *bwd_args,
+                                       False)
+    else:
+        kernel_bwd = functools.partial(K3._composite_bwd_cuda, *bwd_args)
+        wsum = w.sum(-1)
+        cases.append(({"kernel": "K3 composite_bwd + epilogue (kernel)",
+                       **step}, functools.partial(
+            K3._composite_bwd_cuda, *bwd_args, bg_color=bg, bg_net=bg_net,
+            use_bg_net=use, normals=normals, rays_d=rd, g_loss=g_loss,
+            wsum=wsum)))
+    cases.append(({"kernel": "K3 composite_bwd", **step}, kernel_bwd))
+    ins = [v.detach().requires_grad_() for v in (sigma, rgb, normals,
+                                                 bg_net)]
+    outs = composite(*ins)
+    cases.append(({"kernel": "K3 composite_bwd + epilogue", **step,
+                   "autograd": True},
+                  functools.partial(torch.autograd.grad, outs, ins,
+                                    cc + [g_loss], retain_graph=True)))
+
+    # ---- an 800² eval render in one call: albedo, white background -------
+    n_eval = cfg.H * cfg.W
+    gen = torch.Generator(device=dev).manual_seed(14)
+    idx = torch.randint(0, R, (n_eval,), device=dev, generator=gen)
+    ro_e = (m["ro"][idx] + torch.randn(n_eval, 3, device=dev, generator=gen)
+            * 0.05).contiguous()
+    rd_e = safe_normalize(rd[idx] + torch.randn(
+        n_eval, 3, device=dev, generator=gen) * 0.05).contiguous()
+    near, far = near_far_from_bound(ro_e, rd_e, bound, "cube", cfg.min_near)
+    u = det_u(n_eval, S, device=dev).contiguous()
+    me = K2.march_cuda(ro_e, rd_e, near, far, m["occ"], bound, m["edges"], u)
+    ev = {"at": "eval", "shape": [n_eval, S]}
+    cases.append(({"kernel": "K2 march_rays", **ev}, functools.partial(
+        K2.march_cuda, ro_e, rd_e, near, far, m["occ"], bound, m["edges"],
+        u)))
+    xe = torch.clamp(ro_e[:, None] + rd_e[:, None] * me.z_vals[..., None],
+                     -bound, bound).reshape(-1, 3).contiguous()
+    with torch.no_grad():
+        he = field.sigma_net(field.encode(xe), bf)
+    head_e = K4.field_head_fwd_cuda if fused else K4.field_head_fwd_triton
+    cases.append(({"kernel": "K4 field_head_fwd", **ev},
+                  functools.partial(head_e, he, xe, bd, br)))
+    se, ae = head_e(he, xe, bd, br)[:2]
+    se = se.reshape(n_eval, S).contiguous()
+    ae = ae.reshape(n_eval, S, 3).contiguous()
+
+    def eval_composite():
+        if fused:
+            return K3._composite_fwd_cuda(se, ae, me.z_vals, me.deltas,
+                                          me.mask, 1e-4, False, 1.0)
+        out = K3._composite_fwd_cuda(se, ae, me.z_vals, me.deltas, me.mask,
+                                     1e-4, False)
+        one = torch.ones((), device=dev)
+        return out.image + (1.0 - out.weights_sum)[..., None] * one
+
+    cases.append(({"kernel": "K3 composite_fwd + epilogue", **ev},
+                  eval_composite))
+    return [(row, fn, None) for row, fn in cases]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
-                                       "gn_routes", "field", "dmtet"),
+                                       "gn_routes", "field", "dmtet",
+                                       "render"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
-                    "it could take, only K1 and K6, or only K7 and K8 (the "
-                    "last three not in the default set)")
+                    "it could take, only K1 and K6, only K7 and K8, or "
+                    "only K2, K3 and K4 (the last four not in the default "
+                    "set)")
     ap.add_argument("--bake_mesh", default=None,
                     help="with --only dmtet: an OBJ with UVs whose atlas "
                     "K7's forward is timed at the bake's 1024²")
@@ -480,33 +689,7 @@ def main(argv=None) -> None:
         total = sum(names.values())
         return (total, names) if by_name else total
 
-    def graph_ms(fn, calls=20, reps=10):
-        """Device ms per call: `calls` calls captured in one CUDA graph,
-        replayed between two events; the median of `reps` replays."""
-        if fn is None:
-            return None
-        fn()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
-        graph.replay()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            graph.replay()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / calls)
-        del graph
-        return statistics.median(times)
+    graph_ms = smoke.graph_ms
 
     def map_cost(n=2000):
         """Host µs of a 1x1 conv [2,32,32,320->640] (the wgmma route) with
@@ -543,7 +726,8 @@ def main(argv=None) -> None:
     cases = []
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
-            [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet")
+            [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet",
+                                "render")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -589,7 +773,7 @@ def main(argv=None) -> None:
     branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
-                                "dmtet")
+                                "dmtet", "render")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -663,6 +847,8 @@ def main(argv=None) -> None:
         cases += field_cases(smoke, dev)
     if args.only == "dmtet":
         cases += dmtet_cases(smoke, dev, args.bake_mesh)
+    if args.only == "render":
+        cases += render_cases(smoke, dev)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -678,7 +864,8 @@ def main(argv=None) -> None:
                 continue
             y = fn()
             key = json.dumps({k: row[k] for k in row if k != "gflop"})
-            if row["kernel"].startswith(("K1 ", "K6 ", "K7 ", "K8 ")):
+            if row["kernel"].startswith(("K1 ", "K2 ", "K3 ", "K4 ", "K6 ",
+                                         "K7 ", "K8 ")):
                 for i, t in enumerate(y if isinstance(y, (tuple, list))
                                       else (y,)):
                     if isinstance(t, torch.Tensor):
@@ -700,7 +887,8 @@ def main(argv=None) -> None:
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
             dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd") \
-                or row["kernel"].startswith(("K1 ", "K6 ", "K7 ", "K8 "))
+                or row["kernel"].startswith(("K1 ", "K2 ", "K3 ", "K4 ",
+                                             "K6 ", "K7 ", "K8 "))
             k_ms = kernel_ms(fn, by_name=dgrad)
             lib_ms = lib_fn and kernel_ms(lib_fn, by_name=dgrad)
             extra = {}
@@ -711,7 +899,9 @@ def main(argv=None) -> None:
                     lib_ms, extra["library_kernel_names"] = lib_ms
             print(json.dumps({
                 "tag": args.tag, **row, "ms": smoke.median_ms(fn),
-                "kernel_ms": k_ms, "graph_ms": graph_ms(fn), **host,
+                "kernel_ms": k_ms,
+                "graph_ms": None if row.get("autograd") else graph_ms(fn),
+                **host,
                 "library_ms": lib_fn and smoke.median_ms(lib_fn),
                 "library_kernel_ms": lib_ms,
                 "library_graph_ms": (None if id(lib_fn) in autograd_libs

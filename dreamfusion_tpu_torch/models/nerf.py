@@ -1,7 +1,8 @@
 """NeRF field, hash-grid and triplane backbones
 (``dreamfusion_tpu/models/nerf.py``).
 
-Hash-grid (K6) or triplane (K1) encode → ReLU MLP → field head (K4).
+Hash-grid (K6) or triplane (K1) encode → ReLU MLP → field head (K4: the
+head alone, or with the normals and the shading, ``field_shade``).
 Parameters are fp32; with ``compute_dtype=torch.bfloat16`` the MLP runs in
 bf16 as the JAX package's ``Dense(dtype=bfloat16)`` does (inputs, weights
 and bias cast, output bf16), while sigma, normals and everything after stay
@@ -9,8 +10,8 @@ fp32.
 
 Normals are -∇σ in closed form: the encoder (K6 or K1) emits the
 features' spatial jacobian, three tangents go forward through the MLP
-(``t ← W t`` masked by the ReLU derivative), and the field head supplies
-dσ/dpre.  This equals the JAX main step's autograd normal (for the
+(``t ← W t`` masked by the ReLU derivative), and the field head turns
+them into the normals with dσ/dpre, then shades.  This equals the JAX main step's autograd normal (for the
 triplane ``common_with_normal`` is proved equal in
 ``tests/test_triplane.py``; for the grid ``tests/test_torch_nerf.py``
 holds it against ``jax.grad``) and needs only first-order autograd, so a
@@ -27,8 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.math import safe_normalize
-from ..ops.activation import field_head
+from ..ops.activation import (SHADING_ALBEDO, SHADING_LAMBERTIAN,  # noqa
+                              SHADING_NORMAL, SHADING_TEXTURELESS,
+                              field_head, field_shade)
 from ..ops.freq import freq_encode, freq_encode_dim
 from ..ops.hashgrid import HashGridSpec, hash_encode, init_hashgrid
 from ..ops.triplane import TriplaneSpec, init_triplane, triplane_encode
@@ -36,11 +38,6 @@ from ..ops.triplane import TriplaneSpec, init_triplane, triplane_encode
 # the background encoding's degree: the JAX field's own 6 (its Config's
 # freq_multires_bg is not read there)
 BG_FREQ_DEGREE = 6
-
-SHADING_ALBEDO = 0
-SHADING_LAMBERTIAN = 1
-SHADING_TEXTURELESS = 2
-SHADING_NORMAL = 3
 
 
 def make_grid_spec(grid_levels: int, grid_features_per_level: int,
@@ -194,25 +191,23 @@ class NeRFField(nn.Module):
         """x [N,3] in [-bound, bound] → (sigma [N], albedo [N,3])."""
         feat = self.encode(x, max_level)
         h = self.sigma_net(feat, self.compute_dtype)
-        sigma, albedo, _ = field_head(h, x, self.blob_density,
-                                      self.blob_radius)
-        return sigma, albedo
+        return field_head(h, x, self.blob_density, self.blob_radius)
 
     def density(self, x: torch.Tensor, max_level: Optional[float] = None):
         sigma, albedo = self.common(x, max_level)
         return {"sigma": sigma, "albedo": albedo}
 
-    def common_with_normal(self, x: torch.Tensor,
-                           max_level: Optional[float] = None):
-        """(sigma [N], albedo [N,3], normal [N,3]) from one encode."""
+    def _shade(self, x, max_level, light_d, ratio, shading):
         feat, jac = self.encode(x, max_level, need_jacobian=True)
         h, t = self.sigma_net(feat, self.compute_dtype,
                               tangents=torch.stack(jac))
-        sigma, albedo, dsig = field_head(h, x, self.blob_density,
-                                         self.blob_radius)
-        g = t[..., 0].float().T * dsig[:, None] / (2 * self.bound)   # [N,3]
-        normal = torch.nan_to_num(safe_normalize(-g))
-        return sigma, albedo, normal
+        return field_shade(h, t, x, light_d, ratio, shading,
+                           self.blob_density, self.blob_radius, self.bound)
+
+    def common_with_normal(self, x: torch.Tensor,
+                           max_level: Optional[float] = None):
+        """(sigma [N], albedo [N,3], normal [N,3]) from one encode."""
+        return self._shade(x, max_level, None, 1.0, SHADING_ALBEDO)
 
     def normal(self, x: torch.Tensor, max_level: Optional[float] = None
                ) -> torch.Tensor:
@@ -222,23 +217,13 @@ class NeRFField(nn.Module):
 
     def forward(self, x: torch.Tensor, light_d: torch.Tensor,
                 ratio, shading, max_level: Optional[float] = None):
-        """x, light_d [N,3]; shading an int or a [] tensor of shading ids →
-        (sigma [N], color [N,3], normal [N,3] or None).  A Python-int albedo
-        shading skips the normals; any other value computes them and
-        selects the colour per id, as the JAX step does under jit."""
+        """x [N,3], light_d [3] or one a ray [R,3] (N = R·S samples in ray
+        order); ratio a number or [] tensor; shading an int or a [] tensor
+        of shading ids → (sigma [N], color [N,3], normal [N,3] or None).  A
+        Python-int albedo shading skips the normals; any other value
+        computes them and selects the colour per id on the device (K4's
+        ``field_shade``), as the JAX step does under jit."""
         if isinstance(shading, int) and shading == SHADING_ALBEDO:
             sigma, albedo = self.common(x, max_level)
             return sigma, albedo, None
-        sigma, albedo, normal = self.common_with_normal(x, max_level)
-        lam = ratio + (1 - ratio) * torch.clamp(
-            (normal * light_d).sum(-1), min=0.0)
-        color_lamb = albedo * lam[..., None]
-        color_tex = lam[..., None].expand_as(albedo)
-        color_norm = (normal + 1.0) / 2.0
-        shading = torch.as_tensor(shading, device=x.device)
-        color = torch.where(
-            shading == SHADING_ALBEDO, albedo,
-            torch.where(shading == SHADING_TEXTURELESS, color_tex,
-                        torch.where(shading == SHADING_NORMAL, color_norm,
-                                    color_lamb)))
-        return sigma, color, normal
+        return self._shade(x, max_level, light_d, ratio, shading)

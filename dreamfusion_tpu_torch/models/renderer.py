@@ -1,12 +1,14 @@
 """Occupancy-grid volume renderer (``dreamfusion_tpu/models/renderer.py``,
 ``render_grid`` and ``_shade_and_composite``).
 
-march (K2) → field: hash grid (K6) or triplane (K1) + MLP + head (K4) →
-composite (K3) → background, plus the regularizers on the normals: the
-orient loss, the 3-D normal smoothness (the normals against those of a
-second field query at positions offset by N(0, 1e-2)) and the weighted
-normal image of the 2-D smoothness loss.  The occupancy grid is explicit
-state passed in, not a module buffer.
+march (K2) → field: hash grid (K6) or triplane (K1) + MLP + head with the
+normals and the shading (K4) → composite with the background and the orient
+loss (K3), plus the other regularizers on the normals: the 3-D normal
+smoothness (the normals against those of a second field query at positions
+offset by N(0, 1e-2)) and the weighted normal image of the 2-D smoothness
+loss.  The light and the view directions go to the kernels one a ray, not
+expanded per sample.  The occupancy grid is explicit state passed in, not a
+module buffer.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 
 from ..core.math import safe_normalize
 from ..core.sampling import det_u, near_far_from_bound
-from ..ops.composite import apply_background, composite_rays
+from ..ops.composite import composite_rays
 from ..ops.occupancy import march_rays_occupancy, probe_edges
 from .nerf import SHADING_ALBEDO, NeRFField
 
@@ -73,8 +75,6 @@ class NeRFRenderer(nn.Module):
         [R·S, 3] standard normal draws offset the second normal query of
         ``flags.need_normal_perturb``."""
         R = rays_o.shape[0]
-        if light_d is None:
-            light_d = safe_normalize(rays_o)
         near, far = near_far_from_bound(rays_o, rays_d, self.bound,
                                         kind="cube", min_near=self.min_near)
         if flags.perturb:
@@ -89,41 +89,52 @@ class NeRFRenderer(nn.Module):
                                      self.bound, edges, u.contiguous(),
                                      mode=self.occupancy_mode)
         z_vals, deltas, mask = march
-        S = z_vals.shape[1]
+        return self._shade_and_composite(
+            flags, rays_o, rays_d, z_vals, deltas, mask, light_d,
+            ambient_ratio, shading, max_level, bg_color, use_bg_net,
+            perturb_noise)
+
+    def _shade_and_composite(self, flags: RenderFlags, rays_o, rays_d,
+                             z_vals, deltas, mask, light_d, ambient_ratio,
+                             shading, max_level, bg_color, use_bg_net=None,
+                             perturb_noise=None) -> Dict[str, torch.Tensor]:
+        """The field at the march's samples, composited (JAX's method of the
+        same name): K4 shades, K3 composites, adds the background and the
+        orient loss."""
+        R, S = z_vals.shape
         xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         xyzs = torch.clamp(xyzs, -self.bound, self.bound)
-        dirs = safe_normalize(rays_d[:, None, :].expand(xyzs.shape))
-        ld = light_d[:, None, :].expand(xyzs.shape) if light_d.ndim == 2 \
-            else light_d.expand(xyzs.shape)
 
-        shading_arg = SHADING_ALBEDO if flags.shading_static_albedo \
-            else shading
+        static = flags.shading_static_albedo or (
+            isinstance(shading, int) and shading == SHADING_ALBEDO)
+        shading_arg = SHADING_ALBEDO if static else shading
+        if light_d is None and not static:
+            light_d = safe_normalize(rays_o)
         sigmas, rgbs, normals = self.field(
-            xyzs.reshape(-1, 3), ld.reshape(-1, 3), ambient_ratio,
-            shading_arg, max_level)
+            xyzs.reshape(-1, 3), light_d, ambient_ratio, shading_arg,
+            max_level)
+        bg_net = None
+        if use_bg_net is not None and self.field.bg_net is not None:
+            bg_net = self.field.background(safe_normalize(rays_d))
+        n = None if normals is None else normals.reshape(R, S, 3)
+        orient = n is not None and flags.need_loss_orient
         out = composite_rays(sigmas.reshape(R, S), rgbs.reshape(R, S, 3),
                              z_vals, deltas, mask=mask,
-                             t_thresh=self.t_thresh, binarize=flags.binarize)
-        bg = torch.ones((), device=rays_o.device) if bg_color is None \
-            else bg_color
-        if use_bg_net is not None and self.field.bg_net is not None:
-            bg = torch.where(use_bg_net,
-                             self.field.background(safe_normalize(rays_d)),
-                             bg)
+                             t_thresh=self.t_thresh, binarize=flags.binarize,
+                             bg_color=1.0 if bg_color is None else bg_color,
+                             bg_net=bg_net, use_bg_net=use_bg_net,
+                             normals=n if orient else None, rays_d=rays_d)
         results = {
-            "image": apply_background(out.image, out.weights_sum, bg),
+            "image": out.image,
             "depth": out.depth,
             "weights": out.weights,
             "weights_sum": out.weights_sum,
         }
-        if normals is None:
+        if n is None:
             return results
-        n = normals.reshape(R, S, 3)
-        if flags.need_loss_orient:
-            # punish normals facing away from the camera
-            w = out.weights.detach()
-            loss = w * torch.clamp((n * dirs).sum(-1), min=0.0) ** 2
-            results["loss_orient"] = loss.sum(-1).mean()
+        if orient:
+            # normals facing away from the camera, punished in K3
+            results["loss_orient"] = out.loss_orient
         if flags.need_normal_perturb:
             if perturb_noise is None:
                 raise ValueError("the normal-perturb loss needs its draws")

@@ -18,9 +18,10 @@ that a path went through the kernels.  It is process-wide state by design:
 the counters must see launches from every caller.  A kernel with several
 routes (K10's and K12's forwards, chosen by shape) counts each route under
 its own name, which is also its C entry point's; so do K10's backward,
-K11's resident and streaming routes, and K1's and K6's backwards (the
+K11's resident and streaming routes, K1's and K6's backwards (the
 table-only route and the ``_dx`` route that also gives the positions'
-gradient).
+gradient) and K4's two entry point pairs (the head alone, and the head
+with the normals and the shading).
 
 The Hopper routes encode TMA tensor maps, whose encoder is a driver API
 call: ``csrc/hopper.cuh`` fetches it through ``cudaGetDriverEntryPoint``,
@@ -51,7 +52,8 @@ LAUNCHES: Dict[str, int] = {
     "triplane_bwd_dx": 0,                       # K1 + the positions' grad
     "march_rays": 0,                            # K2, CUDA C++
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
-    "field_head_fwd": 0, "field_head_bwd": 0,   # K4, Triton
+    "field_head_fwd": 0, "field_head_bwd": 0,   # K4, CUDA C++
+    "field_shade_fwd": 0, "field_shade_bwd": 0,  # K4 + normals and shading
     "attention_fwd_wgmma": 0,                   # K10 d = 64, CUDA C++
     "attention_fwd_wgmma_d40": 0,               # K10 d = 40, CUDA C++
     "attention_fwd_wgmma_d80": 0,               # K10 d = 80, CUDA C++
@@ -88,10 +90,16 @@ _SIGNATURES = {
     "triplane_bwd_dx": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     "march_rays": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _I, _I, _I,
                    _P, _P, _P, _P],
-    "composite_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
-                      _P],
-    "composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
-                      _P, _P, _P],
+    "composite_fwd": [_P] * 5 + [_I, _I, _F, _I, _P, _F, _I, _I] +
+    [_P] * 12,
+    "composite_bwd": [_P] * 7 + [_I, _I, _F] + [_P] * 5 + [_F, _I, _I] +
+    [_P] * 10,
+    "field_head_fwd": [_P, _P, _I, _I, _F, _F, _P, _P, _P],
+    "field_head_bwd": [_P, _P, _I, _I, _F, _F, _P, _P, _P, _P],
+    "field_shade_fwd": [_P] * 3 + [_I, _I, _P, _I, _P, _F, _P, _I] +
+    [_F] * 3 + [_P] * 4,
+    "field_shade_bwd": [_P] * 3 + [_I, _I, _P, _I, _P, _F, _P, _I] +
+    [_F] * 3 + [_P] * 6,
     "conv_fwd_mma": [_P] * 4 + [_I] * 16 + [_P, _P],
     "conv_fwd_wgmma": [_P] * 4 + [_I] * 20 + [_P, _P],
     "conv_fwd_wgmma_i8": [_P] * 5 + [_I] * 17 + [_P],
@@ -214,6 +222,20 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+_ZEROED: Dict[tuple, torch.Tensor] = {}
+
+
+def zeroed(dev, name: str, n: int, dtype=torch.int32) -> torch.Tensor:
+    """A zeroed device buffer kept across calls: look-back flags and
+    last-block counters, which the kernels leave zero when they finish (so
+    a launch replays in a CUDA graph)."""
+    key = (dev, name)
+    buf = _ZEROED.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ZEROED[key] = torch.zeros(max(n, 1), dtype=dtype, device=dev)
+    return buf
 
 
 def check_cuda(*tensors) -> None:

@@ -316,17 +316,6 @@ def nc_partners_plain(faces, face_mask, slots: MeshSlots) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 P = kernels.ptr
-_FLAGS: dict = {}
-
-
-def _flags(dev, name: str, n: int, dtype=torch.int32) -> torch.Tensor:
-    """A zeroed device buffer kept across calls: the look-back flags and the
-    last-block counters, which the kernels leave zero when they finish."""
-    key = (dev, name)
-    buf = _FLAGS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _FLAGS[key] = torch.zeros(max(n, 1), dtype=dtype, device=dev)
-    return buf
 
 
 class _MarchingTetsCuda(torch.autograd.Function):
@@ -346,8 +335,9 @@ class _MarchingTetsCuda(torch.autograd.Function):
         mask = torch.empty(max_tris, device=dev, dtype=torch.uint8)
         tri_slot = torch.empty(2 * F, **i32)
         face_info = torch.empty(max_tris, **i32)
-        status = _flags(dev, "mt_status", -(-F // 1024), torch.int64)
-        done = _flags(dev, "mt_done", 1)
+        status = kernels.zeroed(dev, "mt_status", -(-F // 1024),
+                                torch.int64)
+        done = kernels.zeroed(dev, "mt_done", 1)
         kernels.launch("marching_tets_fwd", P(vert_pos), P(sdf), P(tets),
                        P(tet_edges), P(unique_edges), F, E, max_tris,
                        P(status), P(done), P(verts), P(crossing), P(faces),
@@ -410,7 +400,7 @@ def _face_terms(dev, T: int) -> torch.Tensor:
 def _loss_outputs(dev, name: str):
     """(partial sums [1024 blocks, 2], counter, loss [], denominator [1])
     of a loss kernel's last-block mean."""
-    return (torch.empty(1024, 2, device=dev), _flags(dev, name, 1),
+    return (torch.empty(1024, 2, device=dev), kernels.zeroed(dev, name, 1),
             torch.empty((), device=dev), torch.empty(1, device=dev))
 
 

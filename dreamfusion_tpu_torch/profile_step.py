@@ -47,7 +47,7 @@ GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K1 triplane", r"triplane"),
     ("K2 march", r"march"),
     ("K3 composite", r"composite"),
-    ("K4 field head", r"^(fwd|bwd)$"),
+    ("K4 field head", r"^(fwd|bwd)$|\bfield_(head|shade)_\w+_kernel"),
     ("matrix products", r"gemm|cutlass|xmma|nvjet|cublas|s\d+gemm|sm90"),
 ]
 
@@ -65,7 +65,8 @@ PARTS = [("K12 conv", "of which input gradients",
 
 
 # groups whose kernels are printed one by one under them
-BY_KERNEL = ("K7 raster", "K8 marching tets")
+BY_KERNEL = ("K3 composite", "K4 field head", "K7 raster",
+             "K8 marching tets")
 
 
 def _kernel_name(name: str) -> str:

@@ -12,10 +12,15 @@ import torch
 from dreamfusion_tpu_torch.core.sampling import (det_u, near_far_from_bound,
                                                  stratified_u)
 from dreamfusion_tpu_torch.ops import kernels
+from dreamfusion_tpu_torch.core.math import safe_normalize
 from dreamfusion_tpu_torch.ops.activation import (field_head,
                                                   field_head_bwd_plain,
-                                                  field_head_fwd_plain)
-from dreamfusion_tpu_torch.ops.composite import (composite_bwd_plain,
+                                                  field_head_fwd_plain,
+                                                  field_shade,
+                                                  field_shade_bwd_plain,
+                                                  field_shade_fwd_plain)
+from dreamfusion_tpu_torch.ops.composite import (_composite_fwd_cuda,
+                                                 composite_bwd_plain,
                                                  composite_fwd_plain,
                                                  composite_rays)
 from dreamfusion_tpu_torch.ops.occupancy import (march_cuda, march_plain,
@@ -151,6 +156,216 @@ def test_field_head_kernel(dev, N, dtype):
     ref_g = field_head_bwd_plain(h, x, 5.0, 0.2, *cots).to(dtype)
     torch.testing.assert_close(gh.float(), ref_g.float(), atol=1e-4,
                                rtol=1e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+# ---- K3 with the renderer's epilogue, K4 with the normals and shading ------
+
+def _composite_inputs(dev, R, S, seed):
+    """Densities, colours, sorted depths, a mask with every 7th ray fully
+    masked and padded tails, unit normals and ray directions."""
+    g = _gen(dev, seed)
+    sigma = torch.exp(torch.randn(R, S, device=dev, generator=g) * 1.5)
+    rgb = torch.rand(R, S, 3, device=dev, generator=g)
+    z = torch.sort(torch.rand(R, S, device=dev, generator=g) * 2 + 2)[0]
+    deltas = torch.cat([z.diff(dim=-1), torch.full((R, 1), 0.05,
+                                                   device=dev)], -1)
+    mask = torch.rand(R, S, device=dev, generator=g) < 0.8
+    mask[::7] = False
+    mask[1::2, -5:] = False
+    normals = safe_normalize(torch.randn(R, S, 3, device=dev, generator=g))
+    rays_d = torch.randn(R, 3, device=dev, generator=g) * 2
+    return g, sigma, rgb, z, deltas, mask, normals, rays_d
+
+
+def _background(form, R, dev, g):
+    """composite_rays' background arguments in one of its forms."""
+    if form == "none":
+        return {}
+    if form == "white":
+        return {"bg_color": 1.0}
+    rgb = torch.rand(3, device=dev, generator=g)
+    if form == "rgb":
+        return {"bg_color": rgb}
+    if form == "per_ray":
+        return {"bg_color": torch.rand(R, 3, device=dev, generator=g)}
+    return {"bg_color": rgb, "bg_net": torch.rand(R, 3, device=dev,
+                                                 generator=g),
+            "use_bg_net": torch.tensor(form == "net_on", device=dev)}
+
+
+@pytest.mark.parametrize("S,t_thresh,binarize", [
+    (24, 1e-4, False), (32, 0.05, True), (56, 1e-4, False),
+    (56, 0.0, True)])
+@pytest.mark.parametrize("form", ["none", "white", "rgb", "per_ray",
+                                  "net_on", "net_off"])
+def test_composite_fused_kernel(dev, S, t_thresh, binarize, form):
+    """K3 with the background and the orient loss against its plain twin:
+    S = 56 takes two chunks with the scan's carry; R odd; rows with every
+    sample masked; each background form."""
+    R = 1001
+    g, sigma, rgb, z, deltas, mask, normals, rays_d = _composite_inputs(
+        dev, R, S, 4)
+    bg = _background(form, R, dev, g)
+    s, c, n = (t.clone().requires_grad_() for t in (sigma, rgb, normals))
+    bgk = dict(bg)
+    if "bg_net" in bg:
+        bgk["bg_net"] = bg["bg_net"].clone().requires_grad_()
+    kernels.reset_launch_counts()
+    out = composite_rays(s, c, z, deltas, mask, t_thresh, binarize, **bgk,
+                         normals=n, rays_d=rays_d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["composite_fwd"] == 1
+    ref = composite_fwd_plain(sigma, rgb, z, deltas, mask, t_thresh,
+                              binarize, **bg, normals=normals, rays_d=rays_d)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    cots = [torch.randn(o.shape, device=dev, generator=g) for o in ref]
+    wrt = [s, c, n] + ([bgk["bg_net"]] if "bg_net" in bgk else [])
+    gk = torch.autograd.grad(sum((o * ct).sum() for o, ct in zip(out, cots)),
+                             wrt)
+    assert kernels.LAUNCHES["composite_bwd"] == 1
+    gp = composite_bwd_plain(sigma, rgb, z, deltas, mask, ref.weights,
+                             *cots[:4], t_thresh, **bg, normals=normals,
+                             rays_d=rays_d, g_loss=cots[4])
+    for a, b in zip(gk, [x for x in gp if x is not None]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_composite_orient_mean_replays_in_a_cuda_graph(dev):
+    """The orient mean's last-block counter resets itself: three replays of
+    a captured forward give the eager loss bit for bit, and leave the
+    counter at 0."""
+    R, S = 4096, 24
+    _, sigma, rgb, z, deltas, mask, normals, rays_d = _composite_inputs(
+        dev, R, S, 5)
+
+    def fwd():
+        return _composite_fwd_cuda(sigma, rgb, z, deltas, mask, 1e-4, False,
+                                   normals=normals, rays_d=rays_d)
+
+    eager = fwd().loss_orient.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fwd()
+    for _ in range(3):
+        out.loss_orient.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.loss_orient, eager)
+    assert int(kernels.zeroed(dev, "composite_done", 1)[0]) == 0
+    ref = composite_fwd_plain(sigma, rgb, z, deltas, mask, 1e-4, False,
+                              normals=normals, rays_d=rays_d)
+    torch.testing.assert_close(eager, ref.loss_orient, atol=1e-6, rtol=1e-5)
+
+
+def _shade_inputs(dev, R, S, dtype, seed):
+    """h and tangents with rows where g = 0, where |g|² < 1e-20 and where
+    pre crosses trunc_exp's clamp; x in the box; one light a ray."""
+    g = _gen(dev, seed)
+    N = R * S
+    h = torch.randn(N, 4, device=dev, generator=g) * 2
+    h[100:200, 0] = torch.rand(100, device=dev, generator=g) * 4 + 14
+    t = torch.randn(3, N, 4, device=dev, generator=g)
+    t[:, :100] = 0.0
+    t[:, 200:300] *= 1e-18
+    x = torch.rand(N, 3, device=dev, generator=g) * 2 - 1
+    light = safe_normalize(torch.randn(R, 3, device=dev, generator=g))
+    return g, h.to(dtype), t.to(dtype), x, light
+
+
+def _rows_close(got, want, rows, rel):
+    """Within rel of each row group's largest magnitude, elementwise."""
+    for r in rows:
+        a, b = got[..., r, :].float(), want[..., r, :].float()
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=rel * scale + 1e-30, rtol=rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shading", [0, 1, 2, 3])
+@pytest.mark.parametrize("light", ["per_ray", "one", "none"])
+def test_field_shade_kernel(dev, dtype, shading, light):
+    """K4 with the normals and the shading against its plain twin, forward
+    and backward, for each shading id, light form and dtype; ratio and the
+    id as device tensors (per ray) or numbers; the ties: g = 0, |g|² below
+    eps, pre across the clamp."""
+    R, S = 333, 24
+    g, h, t, x, light_d = _shade_inputs(dev, R, S, dtype, 6)
+    light_d = {"per_ray": light_d, "one": light_d[0],
+               "none": None}[light]
+    as_tensor = light == "per_ray"
+    ratio = torch.tensor(0.3, device=dev) if as_tensor else 0.3
+    shade = torch.tensor(shading, device=dev) if as_tensor else shading
+    hh, th = h.clone().requires_grad_(), t.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    out = field_shade(hh, th, x, light_d, ratio, shade, 5.0, 0.2, 1.0)
+    torch.cuda.synchronize()
+    ref = field_shade_fwd_plain(h, t, x, light_d, ratio, shade, 5.0, 0.2,
+                                1.0)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=2e-5)
+    cots = [torch.randn(o.shape, device=dev, generator=g) for o in ref]
+    gh, gt = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(out, cots)), (hh, th))
+    assert kernels.LAUNCHES["field_shade_fwd"] == 1
+    assert kernels.LAUNCHES["field_shade_bwd"] == 1
+    assert gh.dtype == dtype and gt.dtype == dtype
+    assert not gt[..., 1:].any()
+    ph, pt = field_shade_bwd_plain(h, t, x, light_d, ratio, shade, 5.0, 0.2,
+                                   1.0, *cots)
+    rel = 2e-5 if dtype == torch.float32 else 2 ** -7
+    rows = (slice(0, 100), slice(100, 200), slice(200, 300),
+            slice(300, None))
+    _rows_close(gh, ph, rows, rel)
+    _rows_close(gt, pt, rows, rel)
+
+
+def test_render_tail_counts_its_launches(dev):
+    """One shaded render tail (orient on, the background MLP drawn): K4's
+    shade pair and K3 once each way, the head alone never; the density
+    query (the refresh's and the DMTet albedo's) takes the head alone."""
+    import dataclasses
+
+    from dreamfusion_tpu_torch.config import Config, finalize
+    from dreamfusion_tpu_torch.models.renderer import RenderFlags
+    from dreamfusion_tpu_torch.training.trainer import build_renderer
+    # the oracle's finalize turns the background MLP off: back on
+    cfg = dataclasses.replace(finalize(Config(
+        guidance=("oracle",), backbone="triplane", triplane_resolution=32,
+        triplane_channels=8, hidden_dim=16)), bg_radius=1.4)
+    r = build_renderer(cfg)
+    r.field.reset_parameters(torch.Generator().manual_seed(0))
+    r.to(dev)
+    R, S = 64, 24
+    _, _, _, z, deltas, mask, _, rd = _composite_inputs(dev, R, S, 7)
+    ro = -rd * 1.5
+    kernels.reset_launch_counts()
+    out = r._shade_and_composite(
+        RenderFlags(need_loss_orient=True), ro, rd, z, deltas, mask,
+        safe_normalize(ro), torch.tensor(0.2, device=dev),
+        torch.tensor(1, device=dev), None,
+        torch.rand(3, device=dev).expand(R, 3), torch.tensor(True,
+                                                             device=dev))
+    (out["image"].sum() + out["loss_orient"]).backward()
+    torch.cuda.synchronize()
+    got = {k: kernels.LAUNCHES[k] for k in (
+        "field_shade_fwd", "field_shade_bwd", "composite_fwd",
+        "composite_bwd", "field_head_fwd", "field_head_bwd")}
+    assert got == {"field_shade_fwd": 1, "field_shade_bwd": 1,
+                   "composite_fwd": 1, "composite_bwd": 1,
+                   "field_head_fwd": 0, "field_head_bwd": 0}
+    assert float(r.field.bg_net.layers[0].weight.grad.abs().max()) > 0
+    kernels.reset_launch_counts()
+    x = (torch.rand(1000, 3, device=dev) * 2 - 1).requires_grad_()
+    r.field.density(x)["albedo"].sum().backward()
+    assert kernels.LAUNCHES["field_head_fwd"] == 1
+    assert kernels.LAUNCHES["field_head_bwd"] == 1
+    assert kernels.LAUNCHES["field_shade_fwd"] == 0
 
 
 def _field_positions(dev, g, N, case):

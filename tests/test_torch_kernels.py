@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dreamfusion_tpu.core.math import safe_normalize as j_safe_normalize
 from dreamfusion_tpu.core.sampling import near_far_from_bound
 from dreamfusion_tpu.ops.activation import trunc_exp
 from dreamfusion_tpu.ops.composite import composite_rays as j_composite
@@ -22,7 +23,7 @@ from dreamfusion_tpu.ops.triplane import (triplane_encode as j_encode,
                                           triplane_encode_with_xgrad)
 from dreamfusion_tpu_torch.core.sampling import det_u
 from dreamfusion_tpu_torch.ops import kernels
-from dreamfusion_tpu_torch.ops.activation import field_head
+from dreamfusion_tpu_torch.ops.activation import field_head, field_shade
 from dreamfusion_tpu_torch.ops.composite import composite_rays
 from dreamfusion_tpu_torch.ops.occupancy import (march_rays_occupancy,
                                                  probe_edges)
@@ -211,32 +212,41 @@ def test_k3_composite_forward_and_grads(t_thresh, binarize, use_mask):
 # ---- K4 --------------------------------------------------------------------
 
 def test_k4_field_head_forward_grad_and_dsig_grad():
+    """field_head's sigma and albedo and their gradient against JAX; dsig's
+    own gradient (exp(pre)·[pre < 15], across the clamp) through
+    field_shade's normal, at tangents so small that |g|² < 1e-20: there the
+    normal is -g·1e10, proportional to dsig."""
     rng = np.random.default_rng(7)
     N = 512
     h = rng.normal(0, 2, (N, 4)).astype(np.float32)
     h[:16, 0] = rng.uniform(14, 18, 16)          # across the clamp at 15
     x = rng.uniform(-1, 1, (N, 3)).astype(np.float32)
+    t = (rng.normal(size=(3, N, 4)) * 1e-18).astype(np.float32)
     a, b, c = (rng.normal(size=s).astype(np.float32)
-               for s in ((N,), (N, 3), (N,)))
-    bd, br = 5.0, 0.2
+               for s in ((N,), (N, 3), (N, 3)))
+    bd, br, bound = 5.0, 0.2, 1.0
 
     def j_head(hh):
         d = jnp.sum(jnp.asarray(x) ** 2, -1)
         pre = hh[:, 0] + bd * jnp.exp(-d / (2 * br ** 2))
         _, act_vjp = jax.vjp(trunc_exp, pre)
         (dsig,) = act_vjp(jnp.ones_like(pre))
-        return trunc_exp(pre), jax.nn.sigmoid(hh[:, 1:]), dsig
+        g = jnp.asarray(t)[..., 0].T * dsig[:, None] / (2 * bound)
+        normal = jnp.nan_to_num(j_safe_normalize(-g))
+        return trunc_exp(pre), jax.nn.sigmoid(hh[:, 1:]), normal
 
     def j_loss(hh):
-        s, al, ds = j_head(hh)
-        return jnp.sum(s * a) + jnp.sum(al * b) + jnp.sum(ds * c)
+        s, al, n = j_head(hh)
+        return jnp.sum(s * a) + jnp.sum(al * b) + jnp.sum(n * c)
 
     ph = tt(h).requires_grad_()
-    out = field_head(ph, tt(x), bd, br)
-    for o, r in zip(out, j_head(jnp.asarray(h))):
+    sigma, albedo = field_head(ph, tt(x), bd, br)
+    normal = field_shade(ph, tt(t), tt(x), None, 1.0, 0, bd, br, bound)[2]
+    for o, r in zip((sigma, albedo, normal), j_head(jnp.asarray(h))):
         close(o.detach(), r, atol=1e-6, rtol=1e-6)
-    loss = (out[0] * tt(a)).sum() + (out[1] * tt(b)).sum() + \
-        (out[2] * tt(c)).sum()
+    assert float(normal.detach().abs().max()) > 1e-3
+    loss = (sigma * tt(a)).sum() + (albedo * tt(b)).sum() + \
+        (normal * tt(c)).sum()
     (g,) = torch.autograd.grad(loss, ph)
     close(g, jax.grad(j_loss)(jnp.asarray(h)), atol=1e-6, rtol=1e-6)
 

@@ -61,6 +61,43 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.stdout.startswith("ok")
 
 
+def test_port_imports_no_triton():
+    """Every kernel of the port is CUDA C++ under csrc/: no module of the
+    port, nor chip_smoke.py, imports triton (at the top or inside a
+    function, where the Triton wrappers used to)."""
+    port = Path(ROOT) / "dreamfusion_tpu_torch"
+    files = sorted(port.rglob("*.py")) + [Path(ROOT) / "chip_smoke.py"]
+    assert len(files) >= 30
+    bad = [str(f) for f in files
+           if re.search(r"^\s*(import|from)\s+triton\b", f.read_text(),
+                        re.M)]
+    assert not bad, bad
+
+
+def test_every_entry_point_has_its_c_signature():
+    """ctypes passes each argument by the type ``kernels._SIGNATURES``
+    gives it: every C entry point the wrappers launch has as many types
+    as its definition in csrc/ has parameters (the stream included), and
+    each signature names an entry point of the sources."""
+    from dreamfusion_tpu_torch.ops import kernels
+    src = "".join(p.read_text() for p in sorted(kernels.CSRC.glob("*.cu")))
+    defs = {m.group(1): m.group(2) for m in re.finditer(
+        r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)', src)}
+    checked = 0
+    for name, types in kernels._SIGNATURES.items():
+        assert name in kernels.LAUNCHES, name
+        if name not in defs:         # instantiated by a macro
+            assert re.search(rf"\b{name}\b", src), name
+            continue
+        params = [a for a in defs[name].split(",") if a.strip()]
+        assert len(params) == len(types), name
+        checked += 1
+    assert checked >= 40
+    for name in ("composite_fwd", "composite_bwd", "field_head_fwd",
+                 "field_head_bwd", "field_shade_fwd", "field_shade_bwd"):
+        assert name in defs
+
+
 def test_config_fields_and_defaults_match_the_jax_package():
     jdefaults = JConfig()
     for f in dataclasses.fields(Config):

@@ -781,3 +781,18 @@ def test_profile_groups_name_the_new_kernels():
            "(anonymous namespace)::GnParams)"]
     assert [group_of(n) for n in k11] == ["K11 groupnorm"] * len(k11)
     assert group_of("sm90_xmma_gemm_bf16bf16_bf16f32") == "matrix products"
+    # K3, and K4: the parent's Triton head and the CUDA head and shade
+    k34 = ["(anonymous namespace)::composite_fwd_kernel(float const*, "
+           "float const*, float const*, float const*, unsigned char const*,"
+           " int, int, float, int, (anonymous namespace)::Background, float "
+           "const*, float const*, float*, float*, float*, float*, float*, "
+           "unsigned int*, float*)", "fwd", "bwd",
+           "void (anonymous namespace)::field_head_fwd_kernel<__nv_bfloat16>"
+           "(__nv_bfloat16 const*, float const*, long, (anonymous "
+           "namespace)::Blob, float*, float*)",
+           "void (anonymous namespace)::field_shade_bwd_kernel<float>(float "
+           "const*, float const*, float const*, long, (anonymous namespace)"
+           "::Shading, (anonymous namespace)::Blob, float, float const*, "
+           "float const*, float const*, float*, float*)"]
+    assert [group_of(n) for n in k34] == ["K3 composite"] + \
+        ["K4 field head"] * 4
