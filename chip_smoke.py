@@ -37,6 +37,10 @@
    operations at the H100's peak for their type (989 TFLOP/s bf16 tensor
    core, 67 TFLOP/s fp32; K10's softmax exponentials, one a logit, at
    3.9e12/s, whichever of the two operation times is longer).
+   K2 as the render's march region (the cube's near/far, the march and
+   the clamped sample positions in one launch) and as the kernel from
+   torch's near/far, each against its plain twin, with the region's
+   samples held to the other's.
    K1 beside ``F.grid_sample`` (bilinear, align_corners=True, the three
    planes as a batch: the features) and its backward (their VJP into the
    planes and the positions).  K4 (CUDA: the head alone, and the head with
@@ -78,7 +82,7 @@
    at least 3 dB above the initial one, and the PNGs, checkpoint, mesh.obj
    (> 0 faces) and albedo PNG on disk; logs each phase's time.  Then two
    steps built as main builds them, the counters reset before each
-   (``stage1_step_launches``): K3 and K4 exactly as
+   (``stage1_step_launches``): K2, K3 and K4 exactly as
    ``step_render_launches`` counts, and the head 8 times more in the step
    that refreshes the 128³ grid.
 5. Resets the counters and trains the SD 2.1 path (full SD 2.1 width,
@@ -89,7 +93,7 @@
    wgmma, 1 narrow and 1 fp32 dgrads, ``SD_DGRADS``, and none on mma.sync;
    K11's routes exactly as ``SD_GROUPNORMS`` counts them, K10's d = 64
    route 32 times a step, its d = 512 forward and its backward once per
-   VAE step), K3 and K4 exactly (the shade pair and K3's backward once a
+   VAE step), K2, K3 and K4 exactly (the shade pair and K3's backward once a
    step, K3's forward once more and the head once for each test frame, the
    head 8 times a refresh) and a non-zero triplane gradient in both phases;
    logs s/step and peak memory.  Then, counters reset, the same run through SD 1.5 (``--sd_version
@@ -136,7 +140,9 @@
    apart from its checkpoint (each launching K5 once).  K9 (signed
    distance, CUDA) on the DMTet init's real workload, the 274,625
    tet-grid-128 points against that run's exported mesh (the plain version
-   on 16,384 of them), and on a UV sphere against its analytic distance.
+   on 16,384 of them; the kernel with its distance culling off, bit for
+   bit, and the pairs whose distance part ran, counted on the card), and
+   on a UV sphere against its analytic distance.
    Then, counters reset, the DMTet stage from that mesh.obj (``--dmtet
    --init_with mesh.obj``, tet grid 128, 512², the image oracle, K5) for
    20 steps: K9 launched once (the init), K5 once per SDS step, K7 and K8
@@ -211,12 +217,21 @@ IMAGE_DMTET_FLAGS = ["--image", "analytic:two_sphere", "--guidance",
                      "scratch", "--dataset_size_train", "10",
                      "--eval_interval", "2"]
 CLIP_QUANTILE = 0.8              # the limit clamps ~20% of a step's gradient
-# K9's fp32 operations per (point, triangle) pair, counted from csrc/sdf.cu:
-# 15 differences, six 3-term dots (30), va/vb/vc (9), the region tests
+# K9's fp32 operations per (point, triangle) pair with no culling (the
+# unculled kernel's, logged as a reference beside the bound's count): 15
+# differences, six 3-term dots (30), va/vb/vc (9), the region tests
 # (~27), the region's candidate (~15 on average), |p - q|² and the min (9),
 # the winding term's three norms (18), triple product (14), denominator
 # (23), atan2 (~20), scale and fp64 add (2)
 SDF_OPS_PER_PAIR = 180
+# What the function needs a pair, K9's bound: the point's 9 differences and
+# the winding term, always (86); the distance part's dots, region tests,
+# candidate, |p - q|² and min (90) where the triangle's sphere is within
+# reach, counted on the card in that run; the culling test (12).  The
+# triangle's own 6 differences are formed once a triangle, in its record.
+SDF_WINDING_OPS = 86
+SDF_DIST_OPS = 90
+SDF_CULL_OPS = 12
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK = {"bf16": 989e12, "fp32": 67e12}    # dense tensor-core bf16, fp32
@@ -681,10 +696,12 @@ def triplane_rows(torch, results, x, planes, cots, jac, where):
 
 def flagship_march(torch) -> dict:
     """The flagship step's 4096 rays (seed 1) and their march through a
-    sphere-shaped 128³ occupancy grid with 32 probes (K2's kernel): the
-    march's inputs, its output ``mk``, the generator ``g`` after its draws,
-    and the step's 98,304 sample positions, ``xyz`` and ``x01`` (the
-    encoder's [0, 1] coordinates)."""
+    sphere-shaped 128³ occupancy grid with 32 probes: the march's inputs,
+    its output ``mk``, the generator ``g`` after its draws, and the step's
+    98,304 sample positions, ``xyz`` and ``x01`` (the encoder's [0, 1]
+    coordinates).  The plain march places them (from torch's near/far, as
+    in every checkout ``bench_sd_kernels.py`` compares), so the later
+    kernels' inputs do not depend on K2's kernel."""
     from dreamfusion_tpu_torch.config import Config, finalize
     from dreamfusion_tpu_torch.core.sampling import (near_far_from_bound,
                                                      stratified_u)
@@ -706,12 +723,28 @@ def flagship_march(torch) -> dict:
     edges = K2.probe_edges(cfg.grid_coarse_steps, device=dev)
     u = stratified_u(torch.rand(ro.shape[0], cfg.grid_fine_steps, device=dev,
                                 generator=g)).contiguous()
-    mk = K2.march_cuda(ro, rd, near, far, occ, cfg.bound, edges, u)
+    mk = K2.march_plain(ro, rd, near, far, occ, cfg.bound, edges, u)
     xyz = torch.clamp(ro[:, None] + rd[:, None] * mk.z_vals[..., None],
                       -cfg.bound, cfg.bound).reshape(-1, 3).contiguous()
     x01 = ((xyz + cfg.bound) / (2 * cfg.bound)).contiguous()
     return dict(cfg=cfg, g=g, ro=ro, rd=rd, near=near, far=far, occ=occ,
                 edges=edges, u=u, mk=mk, xyz=xyz, x01=x01)
+
+
+def probe_cells(torch, ro, rd, near, far, occ, bound, edges) -> int:
+    """Distinct occupancy-grid cells the march's probes read (bytes: the
+    grid is one byte a cell), as ``march_plain`` places the probes."""
+    from dreamfusion_tpu_torch.ops import occupancy as K2
+    z_edges = near + (far - near) * edges[None, :]
+    z_mid = 0.5 * (z_edges[:, 1:] + z_edges[:, :-1])
+    pts = ro[:, None, :] + rd[:, None, :] * z_mid[..., None]
+    cascade, G = occ.shape[0], occ.shape[1]
+    mip = K2.mip_from_pos(pts, cascade)
+    mb = torch.clamp(torch.exp2(mip.float()), max=bound)[..., None]
+    cell = torch.clamp(torch.floor((pts / mb * 0.5 + 0.5) * G).long(), 0,
+                       G - 1)
+    flat = ((mip * G + cell[..., 0]) * G + cell[..., 1]) * G + cell[..., 2]
+    return int(torch.unique(flat).numel())
 
 
 def kernel_phases(torch, results, smi_line):
@@ -722,34 +755,48 @@ def kernel_phases(torch, results, smi_line):
     from dreamfusion_tpu_torch.ops import occupancy as K2
 
     m = flagship_march(torch)
-    cfg, g, ro, rd, near, far, occ, edges, u, mk = (
+    cfg, g, ro, rd, near, far, occ, edges, u = (
         m[k] for k in ("cfg", "g", "ro", "rd", "near", "far", "occ", "edges",
-                       "u", "mk"))
+                       "u"))
     dev = ro.device
     R, S, P = ro.shape[0], cfg.grid_fine_steps, cfg.grid_coarse_steps
 
-    def record(name, err, ms, plain_ms, tol, n_bytes, flops):
+    def record(name, err, ms, plain_ms, tol, n_bytes, flops, where=""):
         # fp32 CUDA-core arithmetic, a few operations per byte
         record_kernel(results, name, err, ms, plain_ms, tol, n_bytes, flops,
-                      "fp32", None)
+                      "fp32", None, where)
 
-    # ---- K2 march: a sphere-shaped occupancy grid ----------------------
+    # ---- K2: the march region (near/far, march, positions), one launch --
+    rk, xk = K2.march_region_cuda(ro, rd, occ, cfg.bound, cfg.min_near,
+                                  edges, u)
     torch.cuda.synchronize()
-    mp = K2.march_plain(ro, rd, near, far, occ, cfg.bound, edges, u)
-    same = (mk.mask == mp.mask).all(-1)
+    rp, xp = K2.march_region_plain(ro, rd, occ, cfg.bound, cfg.min_near,
+                                   edges, u)
+    same = (rk.mask == rp.mask).all(-1)
     check(float(same.float().mean()) >= 0.999,
           f"march_rays: masks differ on {int((~same).sum())} of {R} rays")
-    check(bool(mp.mask.any()), "march_rays: no occupied sample")
-    err = assert_close("march_rays", [mk.z_vals[same], mk.deltas[same]],
-                       [mp.z_vals[same], mp.deltas[same]], 1e-5, 1e-6)
-    record("march_rays", err,
-           median_ms(lambda: K2.march_cuda(ro, rd, near, far, occ, cfg.bound,
-                                           edges, u)),
-           median_ms(lambda: K2.march_plain(ro, rd, near, far, occ,
-                                            cfg.bound, edges, u)),
-           "z, deltas 1e-5 on rays whose masks agree (>= 99.9%)",
-           nbytes(ro, rd, near, far, occ, edges, u, *mk),
-           R * (P * 20 + S * 30))
+    check(bool(rp.mask.any()), "march_rays: no occupied sample")
+    check(rk.mask.dtype == torch.bool, "march_rays: the mask is not bool")
+    tol = "z, deltas, positions 1e-5 on rays whose masks agree (>= 99.9%)"
+    err = assert_close("march_rays", [rk.z_vals[same], rk.deltas[same],
+                                      xk[same]],
+                       [rp.z_vals[same], rp.deltas[same], xp[same]], 1e-5,
+                       1e-6)
+    # the twin takes torch's near/far: the rays whose samples it places
+    # bit for bit as the kernel does
+    diff = (rp.z_vals != rk.z_vals).any(-1) | (rp.mask != rk.mask).any(-1)
+    log(f"march_rays: the kernel's samples against the twin's (torch's "
+        f"near/far): {int(diff.sum())} of {R} rays differ in a bit")
+    cells = probe_cells(torch, ro, rd, near, far, occ, cfg.bound, edges)
+    region = lambda: K2.march_region_cuda(ro, rd, occ, cfg.bound,
+                                          cfg.min_near, edges, u)
+    what = " [the region: near/far, march, positions]"
+    log(f"march_rays{what}: graph {graph_ms(region):.4f} ms on {smi_line}")
+    record("march_rays", err, median_ms(region),
+           median_ms(lambda: K2.march_region_plain(
+               ro, rd, occ, cfg.bound, cfg.min_near, edges, u)), tol,
+           nbytes(ro, rd, u, edges, *rk, xk) + cells,
+           R * (P * 20 + S * 30), what)
 
     xyz, x01 = m["xyz"], m["x01"]
     N = xyz.shape[0]
@@ -939,18 +986,15 @@ def render_kernel_phases(torch, results, m, smi_line):
                       *gk), R * S * 40, where)
 
     # ---- an eval chunk: 4096 rays of an 800² view, albedo, white ---------
-    from dreamfusion_tpu_torch.core.sampling import (det_u,
-                                                     near_far_from_bound)
+    from dreamfusion_tpu_torch.core.sampling import det_u
     from dreamfusion_tpu_torch.ops import occupancy as K2
     from dreamfusion_tpu_torch.training.data import circle_view_batch
     view = circle_view_batch(cfg, 0, 8, cfg.H, cfg.W, dev)
-    ro = view.rays_o[0][:cfg.max_ray_batch].contiguous()
-    rde = view.rays_d[0][:cfg.max_ray_batch].contiguous()
-    near, far = near_far_from_bound(ro, rde, bound, "cube", cfg.min_near)
-    me = K2.march_cuda(ro, rde, near, far, m["occ"], bound, m["edges"],
-                       det_u(ro.shape[0], S, device=dev).contiguous())
-    xe = torch.clamp(ro[:, None] + rde[:, None] * me.z_vals[..., None],
-                     -bound, bound).reshape(-1, 3).contiguous()
+    ro = view.rays_o[0][:cfg.max_ray_batch]
+    rde = view.rays_d[0][:cfg.max_ray_batch]
+    me, xe = K2.march_region_cuda(ro, rde, m["occ"], bound, cfg.min_near,
+                                  m["edges"], det_u(1, S, device=dev)[0])
+    xe = xe.reshape(-1, 3)
     with torch.no_grad():
         he = fi["field"].sigma_net(fi["field"].encode(xe), torch.bfloat16)
     where = (f" [eval chunk: {ro.shape[0]} rays x {S} of an {cfg.H}x"
@@ -1777,7 +1821,7 @@ def _uv_sphere(np, radius, n_theta, n_phi):
     return verts.astype(np.float32), np.asarray(tris, np.int32)
 
 
-def sdf_kernel_phase(torch, results, obj_path):
+def sdf_kernel_phase(torch, results, obj_path, smi_line):
     """K9 on the DMTet init's real workload: the 274,625 tet-grid-128
     points scaled as the init scales them, against the mesh the image run
     exported (normalised).  The kernel runs the whole set; the plain
@@ -1821,12 +1865,33 @@ def sdf_kernel_phase(torch, results, obj_path):
           f"values differ where the winding number is clear of 0.5")
     inside = float((sd < 0).float().mean())
     err = max(float(dist_err.max()), float(sgn_err.max()))
+    # the culling is exact: sd and the winding number bit for bit with the
+    # distance part run for every pair; the pairs whose distance part ran,
+    # counted on the card
+    routes = {}
+    for cull in (True, False):
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = K9.signed_distance_cuda(pts, v, f, True, cull, count)
+        check(torch.equal(out[0], sd) and torch.equal(out[1], wn),
+              f"signed_distance: cull {cull}: not the default route's "
+              f"result bit for bit")
+        routes[cull] = (median_ms(lambda: K9.signed_distance_cuda(
+            pts, v, f, False, cull), 5, 1), int(count))
+    n_dist = routes[True][1]
+    done = P * T * (SDF_WINDING_OPS + SDF_CULL_OPS) + n_dist * SDF_DIST_OPS
+    log(f"signed_distance, culled and not (event ms; pairs whose distance "
+        f"part ran): " + "; ".join(
+            f"cull {cull}: {ms:.3f} ms, {n:,} of {P * T:,}"
+            for cull, (ms, n) in routes.items())
+        + f"; operations done by the culled kernel {done / 1e9:.1f} G "
+        f"({done / (P * T):.1f} a pair: the bound's) against "
+        f"{P * T * SDF_OPS_PER_PAIR / 1e9:.1f} G with no culling "
+        f"({SDF_OPS_PER_PAIR} a pair); on {smi_line}")
     t_sub = median_ms(lambda: K9.signed_distance(sub, v, f), 5, 1)
     record_kernel(results, "signed_distance", err,
                   median_ms(lambda: K9.signed_distance(pts, v, f), 5, 1),
                   plain_ms, "1e-5 + 1e-5|sd|; signs where |wn - 0.5| > 1e-4",
-                  nbytes(pts, sd) + T * 9 * 4, P * T * SDF_OPS_PER_PAIR,
-                  "fp32", None,
+                  nbytes(pts, sd, v, f), done, "fp32", None,
                   f" [{P} points x {T} triangles; the plain version on "
                   f"16,384 of them]")
     log(f"signed_distance: {inside:.4f} of the points inside; the kernel "
@@ -1871,16 +1936,16 @@ def _check_outputs(ws, summary, what) -> None:
 
 
 def step_render_launches(cfg) -> dict:
-    """K3's and K4's launches in one stage-1 step of one view (after the
-    warm-up): its shaded render, composited, and their backwards; the
-    3-D normal smoothness (on under ``--image``) shades the perturbed
-    positions once more.  The eval renders take the head alone, and a step
-    that refreshes the density grid adds the head ``refresh_launches``
-    times."""
+    """K2's, K3's and K4's launches in one stage-1 step of one view (after
+    the warm-up): its march region (one launch), its shaded render,
+    composited, and their backwards; the 3-D normal smoothness (on under
+    ``--image``) shades the perturbed positions once more.  The eval
+    renders take the head alone, and a step that refreshes the density
+    grid adds the head ``refresh_launches`` times."""
     shade = 1 + int(cfg.lambda_3d_normal_smooth > 0)
-    return {"composite_fwd": 1, "composite_bwd": 1, "field_shade_fwd": shade,
-            "field_shade_bwd": shade, "field_head_fwd": 0,
-            "field_head_bwd": 0}
+    return {"march_rays": 1, "composite_fwd": 1, "composite_bwd": 1,
+            "field_shade_fwd": shade, "field_shade_bwd": shade,
+            "field_head_fwd": 0, "field_head_bwd": 0}
 
 
 def refresh_launches(cfg) -> int:
@@ -1891,11 +1956,12 @@ def refresh_launches(cfg) -> int:
 
 
 def run_render_launches(launches, cfg, n_steps, what, renders=None) -> None:
-    """K3's and K4's launches over a whole run of `n_steps` steps: the
-    shaded renders and the backwards as ``step_render_launches`` says each
-    step, the head's backward never, the head at least once a chunk of
-    each refresh; with `renders` (the run's eval and test renders, each one
-    composite with the head alone) the forwards exactly."""
+    """K2's, K3's and K4's launches over a whole run of `n_steps` steps:
+    the shaded renders and the backwards as ``step_render_launches`` says
+    each step, the head's backward never, the head at least once a chunk of
+    each refresh, the march at least once a step; with `renders` (the run's
+    eval and test renders, each one march and one composite with the head
+    alone) the forwards and the marches exactly."""
     n_refresh = -(-n_steps // cfg.update_extra_interval)
     per_step = step_render_launches(cfg)
     for name in ("composite_bwd", "field_shade_fwd", "field_shade_bwd"):
@@ -1909,17 +1975,21 @@ def run_render_launches(launches, cfg, n_steps, what, renders=None) -> None:
     if renders is None:
         check(launches["field_head_fwd"] >= head, f"{what}: field_head_fwd "
               f"launched {launches['field_head_fwd']} times, under {head}")
+        check(launches["march_rays"] >= n_steps, f"{what}: march_rays "
+              f"launched {launches['march_rays']} times in {n_steps} steps")
         return
-    want = {"composite_fwd": n_steps + renders,
+    want = {"march_rays": n_steps + renders,
+            "composite_fwd": n_steps + renders,
             "field_head_fwd": head + renders}
     got = {k: launches[k] for k in want}
-    check(got == want, f"{what}: K3/K4 forwards {got}, not {want} ({n_steps}"
-          f" steps, {n_refresh} refreshes, {renders} test renders)")
+    check(got == want, f"{what}: K2 and the K3/K4 forwards {got}, not {want}"
+          f" ({n_steps} steps, {n_refresh} refreshes, {renders} test "
+          f"renders)")
 
 
 def stage1_step_launches(torch, port_main, kernels, flags, ws, what):
     """Two stage-1 steps of the run `flags` describes (built as main builds
-    it), the counters reset just before each: K3 and K4 launch exactly
+    it), the counters reset just before each: K2, K3 and K4 launch exactly
     ``step_render_launches``, and the first step's refresh adds the head
     ``refresh_launches`` times."""
     args = port_main.build_parser().parse_args(
@@ -1936,9 +2006,9 @@ def stage1_step_launches(torch, port_main, kernels, flags, ws, what):
         trainer.run_step(state, gen)
         torch.cuda.synchronize()
         got = {k: kernels.LAUNCHES[k] for k in want}
-        check(got == want, f"{what}: step {state.step - 1} launched K3/K4 "
+        check(got == want, f"{what}: step {state.step - 1} launched K2-K4 "
               f"{got}, not {want}")
-        log(f"{what}: step {state.step - 1} launched K3/K4 {got}")
+        log(f"{what}: step {state.step - 1} launched K2-K4 {got}")
 
 
 def stage1_path(port_main, kernels, flags, ws, what, required, group,
@@ -2024,7 +2094,7 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
             ("hashgrid_fwd", "hashgrid_bwd") if group == "grid" else
             ("triplane_fwd", "triplane_bwd")):
         check(launches[name] > 0, f"the {what} path never launched {name}")
-    # K3 and K4 exactly: no evals, the test's frames at H x W in
+    # K2, K3 and K4 exactly: no evals, the test's frames at H x W in
     # max_ray_batch chunks
     cfg = port_main.config_from_args(port_main.build_parser().parse_args(
         flags))
@@ -2377,7 +2447,7 @@ def run() -> dict:
     img, img_launches, limit = image_path(torch, port_main, kernels, ws,
                                           smi_line)
     t_k = time.time()
-    sdf_kernel_phase(torch, results, img["mesh_path"])
+    sdf_kernel_phase(torch, results, img["mesh_path"], smi_line)
     log(f"K9 phase in {time.time() - t_k:.1f} s")
     img_dm_flags = IMAGE_DMTET_FLAGS + [
         "--grad_clip_rgb", str(limit), "--init_with", img["mesh_path"]]

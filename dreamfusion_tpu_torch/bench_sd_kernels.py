@@ -14,6 +14,8 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dmtet \
         --bake_mesh ws/mesh/mesh.obj
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only render
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only sdf \
+        --sdf_mesh ws/mesh/mesh.obj
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -97,12 +99,20 @@ bit for bit; backwards: within fp32 reduction order).
 
 ``--only render`` times K2's march, K3 (composite) and K4 (the field head)
 at the flagship stage-1 step's shapes and at an 800² eval render in one
-call (``render_cases``): each kernel alone, and each forward and backward
+call (``render_cases``): K3 and K4 alone, and each forward and backward
 together with the torch epilogue that the fused kernels took in (the
-normals and the shading select; the background and the orient loss),
-timed as one region; a parent checkout's regions are its own kernel plus
-those torch ops, as its field and renderer ran them.  The backward
-regions run through autograd (events and the profiler, no graph ms).
+normals and the shading select; the background and the orient loss), and
+K2's whole march region (near/far, probe edges, draws, bool mask and
+clamped positions: ``march_region_call``), each timed as one region; a
+parent checkout's regions are its own kernel plus those torch ops, as its
+field and renderer ran them.  The backward regions run through autograd (events and the
+profiler, no graph ms).
+
+``--only sdf`` times K9 at the DMTet mesh init's shape (``sdf_cases``:
+the 274,625 tet-grid-128 points against ``--sdf_mesh`` or a UV sphere of
+50,000 triangles), the default route of any checkout and the culled
+kernel with its culling off; ``--outputs`` keeps sd and the winding
+number.
 """
 
 from __future__ import annotations
@@ -424,6 +434,76 @@ def dmtet_cases(smoke, dev, bake_mesh=None):
     return [(row, fn, None) for row, fn in cases]
 
 
+def march_region_call(K2, cfg, ro, rd, occ, draws, dev):
+    """The render's march region as one call → (z, deltas, mask, xyzs):
+    the checkout's ``march_region_cuda`` with the edges and stratum centres
+    built once, or, on a checkout from before it, what its renderer ran
+    each render: ``near_far_from_bound``, ``probe_edges``, the draws
+    (``draws()``, or ``det_u`` made contiguous), the march kernel with its
+    bool copy of the mask, and the clamped positions."""
+    import torch
+
+    from dreamfusion_tpu_torch.core.sampling import (det_u,
+                                                     near_far_from_bound)
+    R, P, S = ro.shape[0], cfg.grid_coarse_steps, cfg.grid_fine_steps
+    bound = cfg.bound
+    if hasattr(K2, "march_region_cuda"):
+        edges = K2.probe_edges(P, cfg.dt_gamma, device=dev)
+        centres = det_u(1, S, device=dev)[0].contiguous()
+
+        def call():
+            out, xyzs = K2.march_region_cuda(
+                ro, rd, occ, bound, cfg.min_near, edges,
+                centres if draws is None else draws())
+            return (*out, xyzs)
+        return call
+
+    def call():
+        near, far = near_far_from_bound(ro, rd, bound, "cube", cfg.min_near)
+        u = det_u(R, S, device=dev) if draws is None else draws()
+        edges = K2.probe_edges(P, cfg.dt_gamma, device=dev)
+        out = K2.march_cuda(ro, rd, near, far, occ, bound, edges,
+                            u.contiguous())
+        xyzs = torch.clamp(ro[:, None, :] + rd[:, None, :] *
+                           out.z_vals[..., None], -bound, bound)
+        return (*out, xyzs)
+    return call
+
+
+def sdf_cases(smoke, dev, mesh_path=None):
+    """(row, the checkout's call, None) for K9 at the DMTet mesh init's
+    shape: the 274,625 tet-grid-128 points scaled as the init scales them,
+    against ``mesh_path`` (an OBJ, normalised as the init does) or a UV
+    sphere of 50,000 triangles.  The default route of any checkout and, on
+    one with the culled kernel, that kernel with the culling off (the same
+    result bit for bit)."""
+    import numpy as np
+    import torch
+
+    from dreamfusion_tpu_torch.mesh import sdf as K9
+    from dreamfusion_tpu_torch.mesh.tets import (CACHE_DIR,
+                                                 load_cached_tet_grid)
+    if mesh_path:
+        mv, mt = K9.load_mesh(mesh_path)
+        mv = K9.normalize_mesh(mv)
+    else:
+        mv, mt = smoke._uv_sphere(np, 0.4, 126, 200)
+    scale = float(np.abs(mv).max()) + 0.1
+    grid = load_cached_tet_grid(CACHE_DIR / "cube_64.npz", 64)
+    pts = torch.from_numpy(grid.vertices).to(dev) * scale
+    v, f = torch.from_numpy(mv).to(dev), torch.from_numpy(mt).to(dev)
+    row = {"kernel": "K9 signed_distance", "shape": [pts.shape[0],
+                                                     f.shape[0]],
+           "mesh": os.path.basename(mesh_path) if mesh_path else "uv_sphere",
+           "slow": True}
+    cases = [({**row, "route": "default"}, functools.partial(
+        K9.signed_distance_cuda, pts, v, f, True))]
+    if "cull" in inspect.signature(K9.signed_distance_cuda).parameters:
+        cases.append(({**row, "route": "no culling"}, functools.partial(
+            K9.signed_distance_cuda, pts, v, f, True, False)))
+    return [(r, fn, None) for r, fn in cases]
+
+
 def render_cases(smoke, dev):
     """(row, the checkout's call, None) for K2's march and K3's and K4's
     forwards and backwards at the flagship stage-1 step's shapes (4096 rays
@@ -441,8 +521,6 @@ def render_cases(smoke, dev):
     import torch
 
     from dreamfusion_tpu_torch.core.math import safe_normalize
-    from dreamfusion_tpu_torch.core.sampling import (det_u,
-                                                     near_far_from_bound)
     from dreamfusion_tpu_torch.ops import activation as K4
     from dreamfusion_tpu_torch.ops import composite as K3
     from dreamfusion_tpu_torch.ops import occupancy as K2
@@ -460,9 +538,9 @@ def render_cases(smoke, dev):
     N = R * S
     z, dl, mask, rd = mk.z_vals, mk.deltas, mk.mask, m["rd"]
     step = {"at": "step", "shape": [R, S]}
-    cases = [({"kernel": "K2 march_rays", **step}, functools.partial(
-        K2.march_cuda, m["ro"], rd, m["near"], m["far"], m["occ"], bound,
-        m["edges"], m["u"]))]
+    cases = [({"kernel": "K2 march region", **step}, march_region_call(
+        K2, cfg, m["ro"][:1].expand(R, 3), rd, m["occ"], lambda: m["u"],
+        dev))]
 
     # ---- K4: the head alone, and with the normals and the shading --------
     def parent_shade(hh, tt, ids):
@@ -589,15 +667,11 @@ def render_cases(smoke, dev):
             * 0.05).contiguous()
     rd_e = safe_normalize(rd[idx] + torch.randn(
         n_eval, 3, device=dev, generator=gen) * 0.05).contiguous()
-    near, far = near_far_from_bound(ro_e, rd_e, bound, "cube", cfg.min_near)
-    u = det_u(n_eval, S, device=dev).contiguous()
-    me = K2.march_cuda(ro_e, rd_e, near, far, m["occ"], bound, m["edges"], u)
     ev = {"at": "eval", "shape": [n_eval, S]}
-    cases.append(({"kernel": "K2 march_rays", **ev}, functools.partial(
-        K2.march_cuda, ro_e, rd_e, near, far, m["occ"], bound, m["edges"],
-        u)))
-    xe = torch.clamp(ro_e[:, None] + rd_e[:, None] * me.z_vals[..., None],
-                     -bound, bound).reshape(-1, 3).contiguous()
+    region_e = march_region_call(K2, cfg, ro_e, rd_e, m["occ"], None, dev)
+    cases.append(({"kernel": "K2 march region", **ev}, region_e))
+    *me, xe = region_e()
+    me, xe = K2.MarchOut(*me), xe.reshape(-1, 3)
     with torch.no_grad():
         he = field.sigma_net(field.encode(xe), bf)
     head_e = K4.field_head_fwd_cuda if fused else K4.field_head_fwd_triton
@@ -627,13 +701,16 @@ def main(argv=None) -> None:
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
                                        "gn_routes", "field", "dmtet",
-                                       "render"),
+                                       "render", "sdf"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
-                    "it could take, only K1 and K6, only K7 and K8, or "
-                    "only K2, K3 and K4 (the last four not in the default "
-                    "set)")
+                    "it could take, only K1 and K6, only K7 and K8, "
+                    "only K2, K3 and K4, or only K9 (the last five not in "
+                    "the default set)")
+    ap.add_argument("--sdf_mesh", default=None,
+                    help="with --only sdf: the OBJ whose signed distance "
+                    "K9 measures (default: a 50,000-triangle UV sphere)")
     ap.add_argument("--bake_mesh", default=None,
                     help="with --only dmtet: an OBJ with UVs whose atlas "
                     "K7's forward is timed at the bake's 1024²")
@@ -727,7 +804,7 @@ def main(argv=None) -> None:
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
             [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet",
-                                "render")
+                                "render", "sdf")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -773,7 +850,7 @@ def main(argv=None) -> None:
     branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
-                                "dmtet", "render")
+                                "dmtet", "render", "sdf")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -849,6 +926,8 @@ def main(argv=None) -> None:
         cases += dmtet_cases(smoke, dev, args.bake_mesh)
     if args.only == "render":
         cases += render_cases(smoke, dev)
+    if args.only == "sdf":
+        cases += sdf_cases(smoke, dev, args.sdf_mesh)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -865,7 +944,7 @@ def main(argv=None) -> None:
             y = fn()
             key = json.dumps({k: row[k] for k in row if k != "gflop"})
             if row["kernel"].startswith(("K1 ", "K2 ", "K3 ", "K4 ", "K6 ",
-                                         "K7 ", "K8 ")):
+                                         "K7 ", "K8 ", "K9 ")):
                 for i, t in enumerate(y if isinstance(y, (tuple, list))
                                       else (y,)):
                     if isinstance(t, torch.Tensor):
@@ -876,9 +955,11 @@ def main(argv=None) -> None:
         torch.save(outs, args.outputs)
         del outs
     # the host times first: the profiler leaves its hooks behind
-    hosts = [{**smoke.host_us(fn),
+    # a row marked "slow" (K9: ~0.1 s a call) is timed over fewer calls
+    n_of = lambda row, n, few: few if row.get("slow") else n
+    hosts = [{**smoke.host_us(fn, n_of(row, 200, 5)),
               **({f"library_{k}": v for k, v in smoke.host_us(lib_fn).items()}
-                 if lib_fn else {})} for _, fn, lib_fn in cases]
+                 if lib_fn else {})} for row, fn, lib_fn in cases]
     if args.only in (None, "conv"):
         print(json.dumps({"tag": args.tag, **map_cost(), "card": card}),
               flush=True)
@@ -888,8 +969,8 @@ def main(argv=None) -> None:
         for (row, fn, lib_fn), host in zip(cases, hosts):
             dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd") \
                 or row["kernel"].startswith(("K1 ", "K2 ", "K3 ", "K4 ",
-                                             "K6 ", "K7 ", "K8 "))
-            k_ms = kernel_ms(fn, by_name=dgrad)
+                                             "K6 ", "K7 ", "K8 ", "K9 "))
+            k_ms = kernel_ms(fn, n_of(row, 10, 3), by_name=dgrad)
             lib_ms = lib_fn and kernel_ms(lib_fn, by_name=dgrad)
             extra = {}
             if dgrad:
@@ -898,9 +979,11 @@ def main(argv=None) -> None:
                 if lib_ms:
                     lib_ms, extra["library_kernel_names"] = lib_ms
             print(json.dumps({
-                "tag": args.tag, **row, "ms": smoke.median_ms(fn),
+                "tag": args.tag, **row,
+                "ms": smoke.median_ms(fn, n_of(row, 20, 5)),
                 "kernel_ms": k_ms,
-                "graph_ms": None if row.get("autograd") else graph_ms(fn),
+                "graph_ms": None if row.get("autograd") else graph_ms(
+                    fn, n_of(row, 20, 2), n_of(row, 10, 3)),
                 **host,
                 "library_ms": lib_fn and smoke.median_ms(lib_fn),
                 "library_kernel_ms": lib_ms,

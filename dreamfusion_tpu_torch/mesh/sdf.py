@@ -10,9 +10,11 @@ vertex properties, face lists fan-triangulated).
 K9, ``signed_distance``: for each point the distance to the nearest
 triangle (Ericson's closest point, JAX's region logic and guards), negative
 inside, where the generalized winding number (van Oosterom–Strackee solid
-angles) exceeds 0.5.  On a CUDA tensor it is one launch of
-``csrc/sdf.cu``; on a CPU tensor the plain version runs, chunked over the
-points as JAX's ``lax.map`` is.  Nothing is differentiated.
+angles) exceeds 0.5.  On a CUDA tensor it is one launch call of
+``csrc/sdf.cu`` (a record per triangle, then the points, the distance part
+culled exactly by the records' bounding spheres); on a CPU tensor the
+plain version runs, chunked over the points as JAX's ``lax.map`` is.
+Nothing is differentiated.
 """
 
 from __future__ import annotations
@@ -222,17 +224,29 @@ def signed_distance_plain(points: torch.Tensor, verts: torch.Tensor,
 
 
 def signed_distance_cuda(points: torch.Tensor, verts: torch.Tensor,
-                         tris: torch.Tensor, return_winding: bool = False):
-    """One launch of the K9 kernel over every point."""
-    a, b, c = _corners(verts.float(), tris)
-    tri9 = torch.cat([a, b, c], -1).contiguous()          # [T, 9]
+                         tris: torch.Tensor, return_winding: bool = False,
+                         cull: bool = True, count: torch.Tensor = None):
+    """One launch call of the K9 kernels over every point: the triangle
+    records, then the points (the triangles' indices must lie in the
+    vertices' range: the kernel gathers without a check, and
+    ``signed_distance`` checks them).  ``cull=False`` runs the distance part
+    for every pair (the same result); ``count``, a CUDA int64 [1] tensor,
+    gets the number of pairs whose distance part ran added to it."""
     pts = points.float().contiguous()
-    kernels.check_cuda(pts, tri9)
-    P, T = pts.shape[0], tri9.shape[0]
+    v = verts.float().contiguous()
+    f = tris.to(torch.int32).contiguous()
+    kernels.check_cuda(pts, v, f, count)
+    if count is not None and (count.dtype != torch.int64 or
+                              count.numel() < 1):
+        raise ValueError("count must be an int64 tensor of at least one "
+                         "element")
+    P, T = pts.shape[0], f.shape[0]
+    rec = torch.empty(T, 24, device=pts.device)
     sd = torch.empty(P, device=pts.device)
     wn = torch.empty(P, device=pts.device) if return_winding else None
-    kernels.launch("signed_distance", kernels.ptr(pts), kernels.ptr(tri9), P,
-                   T, kernels.ptr(sd), kernels.ptr(wn))
+    kernels.launch("signed_distance", kernels.ptr(pts), kernels.ptr(v),
+                   kernels.ptr(f), P, T, kernels.ptr(rec), int(cull),
+                   kernels.ptr(sd), kernels.ptr(wn), kernels.ptr(count))
     return (sd, wn) if return_winding else sd
 
 
@@ -240,9 +254,13 @@ def signed_distance_cuda(points: torch.Tensor, verts: torch.Tensor,
 def signed_distance(points: torch.Tensor, verts: torch.Tensor,
                     tris: torch.Tensor, return_winding: bool = False):
     """points [P, 3], mesh verts [V, 3] and tris [T, 3] → sd [P] (positive
-    outside), and the winding number [P] with ``return_winding``."""
+    outside), and the winding number [P] with ``return_winding``.  The
+    triangles' indices are checked against the vertices (a mesh file's
+    bad index raises on every device)."""
     if tris.shape[0] == 0:
         raise ValueError("signed_distance needs at least one triangle")
+    if int(tris.min()) < 0 or int(tris.max()) >= verts.shape[0]:
+        raise ValueError("the mesh has a triangle index out of range")
     if points.is_cuda:
         return signed_distance_cuda(points, verts, tris, return_winding)
     if points.device.type == "cpu":

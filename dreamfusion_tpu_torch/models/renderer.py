@@ -1,7 +1,8 @@
 """Occupancy-grid volume renderer (``dreamfusion_tpu/models/renderer.py``,
 ``render_grid`` and ``_shade_and_composite``).
 
-march (K2) → field: hash grid (K6) or triplane (K1) + MLP + head with the
+march (K2: near/far, probes, resampling and the clamped sample positions in
+one launch) → field: hash grid (K6) or triplane (K1) + MLP + head with the
 normals and the shading (K4) → composite with the background and the orient
 loss (K3), plus the other regularizers on the normals: the 3-D normal
 smoothness (the normals against those of a second field query at positions
@@ -20,9 +21,9 @@ import torch
 from torch import nn
 
 from ..core.math import safe_normalize
-from ..core.sampling import det_u, near_far_from_bound
+from ..core.sampling import det_u
 from ..ops.composite import composite_rays
-from ..ops.occupancy import march_rays_occupancy, probe_edges
+from ..ops.occupancy import march_region, probe_edges
 from .nerf import SHADING_ALBEDO, NeRFField
 
 
@@ -51,6 +52,18 @@ class NeRFRenderer(nn.Module):
         self.dt_gamma = dt_gamma
         self.t_thresh = t_thresh
         self.field = NeRFField(bound=bound, **field_kwargs)
+        self._march_consts = {}
+
+    def march_consts(self, device):
+        """The march's probe edges [P+1] and deterministic stratum centres
+        [S], built once per device and kept (no per-render ops)."""
+        consts = self._march_consts.get(device)
+        if consts is None:
+            consts = self._march_consts[device] = (
+                probe_edges(self.grid_probe_steps, self.dt_gamma,
+                            device=device),
+                det_u(1, self.grid_fine_steps, device=device)[0].contiguous())
+        return consts
 
     def density(self, x: torch.Tensor, max_level: Optional[float] = None):
         return self.field.density(x, max_level)
@@ -74,36 +87,32 @@ class NeRFRenderer(nn.Module):
         (per step, as the JAX step's ``jnp.where``).  ``perturb_noise``
         [R·S, 3] standard normal draws offset the second normal query of
         ``flags.need_normal_perturb``."""
-        R = rays_o.shape[0]
-        near, far = near_far_from_bound(rays_o, rays_d, self.bound,
-                                        kind="cube", min_near=self.min_near)
+        edges, centres = self.march_consts(rays_o.device)
         if flags.perturb:
             if march_u is None:
                 raise ValueError("a perturbed render needs march_u draws")
             u = march_u
         else:
-            u = det_u(R, self.grid_fine_steps, device=rays_o.device)
-        edges = probe_edges(self.grid_probe_steps, self.dt_gamma,
-                            device=rays_o.device)
-        march = march_rays_occupancy(rays_o, rays_d, near, far, occ_grid,
-                                     self.bound, edges, u.contiguous(),
-                                     mode=self.occupancy_mode)
+            u = centres
+        march, xyzs = march_region(rays_o, rays_d, occ_grid, self.bound,
+                                   self.min_near, edges, u,
+                                   mode=self.occupancy_mode)
         z_vals, deltas, mask = march
         return self._shade_and_composite(
             flags, rays_o, rays_d, z_vals, deltas, mask, light_d,
             ambient_ratio, shading, max_level, bg_color, use_bg_net,
-            perturb_noise)
+            perturb_noise, xyzs=xyzs)
 
     def _shade_and_composite(self, flags: RenderFlags, rays_o, rays_d,
                              z_vals, deltas, mask, light_d, ambient_ratio,
                              shading, max_level, bg_color, use_bg_net=None,
-                             perturb_noise=None) -> Dict[str, torch.Tensor]:
+                             perturb_noise=None, *, xyzs
+                             ) -> Dict[str, torch.Tensor]:
         """The field at the march's samples, composited (JAX's method of the
         same name): K4 shades, K3 composites, adds the background and the
-        orient loss."""
+        orient loss.  ``xyzs`` [R, S, 3] are the march's clamped sample
+        positions (``march_region``'s)."""
         R, S = z_vals.shape
-        xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-        xyzs = torch.clamp(xyzs, -self.bound, self.bound)
 
         static = flags.shading_static_albedo or (
             isinstance(shading, int) and shading == SHADING_ALBEDO)

@@ -88,8 +88,8 @@ _SIGNATURES = {
     "triplane_fwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "triplane_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "triplane_bwd_dx": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
-    "march_rays": [_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P, _I, _I, _I,
-                   _P, _P, _P, _P],
+    "march_rays": [_P, _L, _L, _P, _L, _L, _F, _P, _I, _I, _F, _P, _I, _P,
+                   _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "composite_fwd": [_P] * 5 + [_I, _I, _F, _I, _P, _F, _I, _I] +
     [_P] * 12,
     "composite_bwd": [_P] * 7 + [_I, _I, _F] + [_P] * 5 + [_F, _I, _I] +
@@ -138,7 +138,7 @@ _SIGNATURES = {
     "hashgrid_tv_bwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P, _P],
     "hashgrid_wd_fwd": [_P] * 2 + [_I] * 3 + [_P, _P],
     "hashgrid_wd_bwd": [_P] * 2 + [_I] * 3 + [_P, _P, _P],
-    "signed_distance": [_P, _P, _I, _I, _P, _P, _P],
+    "signed_distance": [_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

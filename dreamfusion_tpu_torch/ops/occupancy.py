@@ -1,13 +1,17 @@
 """K2: occupancy grid query, ray march and grid update
 (``dreamfusion_tpu/ops/occupancy.py``).
 
-``march_rays_occupancy`` probes the bool occupancy grid at ``n_probe``
-interval midpoints per ray, turns the probe profile into a piecewise-
-constant PDF and places ``n_fine`` samples by inverse CDF
-(``mode="resample"``), or returns the probes themselves with their
-occupancy as the mask (``mode="mask"``).  On a CUDA tensor it is one launch
-of the kernel in ``csrc/occupancy.cu``; on a CPU tensor the plain version
-runs.  It has no gradient.
+``march_region`` is the render's whole march: the cube's near/far
+(``core/sampling.py::near_far_from_bound``), the probes of the bool
+occupancy grid at the probe-interval midpoints, the piecewise-constant PDF
+of the probe profile, ``n_fine`` samples placed by inverse CDF
+(``mode="resample"``) or the probes themselves with their occupancy as the
+mask (``mode="mask"``), and the sample positions clamped to the box.  On a
+CUDA tensor it is one launch of the kernel in ``csrc/occupancy.cu``; on a
+CPU tensor the plain version runs (``march_region_plain``).
+``march_rays_occupancy`` is the same march from a caller's near/far (JAX's
+interface), without the positions, on the CPU only.  Neither has a
+gradient.
 
 ``update_density_grid`` is plain torch: a no-grad density query at
 jittered cell centres in 64³ chunks, then the EMA-max and threshold.
@@ -19,7 +23,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from ..core.sampling import linspace, sample_pdf
+from ..core.sampling import linspace, near_far_from_bound, sample_pdf
 from . import kernels
 
 
@@ -83,34 +87,88 @@ def march_plain(rays_o, rays_d, near, far, occ_grid, bound, edges, u,
     return MarchOut(z, deltas, sample_occ & any_occ)
 
 
-def march_cuda(rays_o, rays_d, near, far, occ_grid, bound, edges, u,
-               mode: str = "resample") -> MarchOut:
-    """One launch of the CUDA march kernel (u non-decreasing per row)."""
+def march_region_plain(rays_o, rays_d, occ_grid, bound, min_near, edges,
+                       u, mode: str = "resample"):
+    """Plain version of the region: ``near_far_from_bound``, ``march_plain``
+    and the clamped positions, as the renderer ran them → (MarchOut, xyzs
+    [R, S, 3])."""
+    near, far = near_far_from_bound(rays_o, rays_d, bound, kind="cube",
+                                    min_near=min_near)
+    if u is not None and u.dim() == 1:
+        u = u.expand(rays_o.shape[0], -1)
+    out = march_plain(rays_o, rays_d, near, far, occ_grid, bound, edges, u,
+                      mode)
+    xyzs = rays_o[:, None, :] + rays_d[:, None, :] * out.z_vals[..., None]
+    return out, torch.clamp(xyzs, -bound, bound)
+
+
+def march_region_cuda(rays_o, rays_d, occ_grid, bound, min_near, edges, u,
+                      mode: str = "resample"):
+    """The region in one launch of the CUDA march kernel: near/far, the
+    march and the clamped positions → (MarchOut, xyzs [R, S, 3])."""
     R = rays_o.shape[0]
     P = edges.shape[0] - 1
-    if P > 64:
-        raise ValueError(f"march kernel holds at most 64 probes, got {P}")
+    if not 1 <= P <= 64:
+        raise ValueError(f"march kernel holds 1 to 64 probes, got {P}")
+    if rays_o.dim() != 2 or rays_o.shape[-1] != 3 or \
+            rays_d.shape != rays_o.shape:
+        raise ValueError("march kernel takes rays [R, 3]")
     grid = occ_grid.contiguous().view(torch.uint8)
-    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
-    near, far = near.reshape(-1).contiguous(), far.reshape(-1).contiguous()
-    S = P if mode == "mask" else u.shape[-1]
-    args = (rays_o, rays_d, near, far, grid, edges)
-    if mode != "mask":
-        args += (u,)
-    kernels.check_cuda(*args)
-    if any(t.dtype != torch.float32 for t in args if t is not grid):
-        raise ValueError("march kernel takes fp32 rays, bounds, edges and u")
-    z = torch.empty(R, S, device=rays_o.device, dtype=torch.float32)
+    mask_mode = mode == "mask"
+    if mask_mode:
+        S, u_sr, u = P, 0, None
+    else:
+        if u.stride(-1) != 1:
+            u = u.contiguous()
+        S = u.shape[-1]
+        u_sr = 0 if u.dim() == 1 else u.stride(0)
+    # the rays and u are read through their strides; the rest contiguous
+    kernels.check_cuda(grid, edges)
+    for t in (rays_o, rays_d, u):
+        if t is not None and t.device != grid.device:
+            raise ValueError(f"expected CUDA tensors on {grid.device}, got "
+                             f"{t.device}")
+    if any(t.dtype != torch.float32
+           for t in (rays_o, rays_d, edges, u) if t is not None):
+        raise ValueError("march kernel takes fp32 rays, edges and u")
+    dev = rays_o.device
+    z = torch.empty(R, S, device=dev, dtype=torch.float32)
     deltas = torch.empty_like(z)
-    mask = torch.empty(R, S, device=rays_o.device, dtype=torch.uint8)
-    kernels.launch("march_rays", kernels.ptr(rays_o), kernels.ptr(rays_d),
-                   kernels.ptr(near), kernels.ptr(far), kernels.ptr(grid),
+    mask = torch.empty(R, S, device=dev, dtype=torch.bool)
+    xyzs = torch.empty(R, S, 3, device=dev, dtype=torch.float32)
+    kernels.launch("march_rays", kernels.ptr(rays_o), rays_o.stride(0),
+                   rays_o.stride(1), kernels.ptr(rays_d), rays_d.stride(0),
+                   rays_d.stride(1), float(min_near), kernels.ptr(grid),
                    occ_grid.shape[0], occ_grid.shape[1], float(bound),
-                   kernels.ptr(edges), P,
-                   kernels.ptr(u) if mode != "mask" else None, S, R,
-                   int(mode == "mask"), kernels.ptr(z), kernels.ptr(deltas),
-                   kernels.ptr(mask))
-    return MarchOut(z, deltas, mask.bool())
+                   kernels.ptr(edges), P, kernels.ptr(u), u_sr, S, R,
+                   int(mask_mode), kernels.ptr(z), kernels.ptr(deltas),
+                   kernels.ptr(mask), kernels.ptr(xyzs))
+    return MarchOut(z, deltas, mask), xyzs
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ("resample", "mask"):
+        raise ValueError(f"unknown occupancy mode {mode!r}")
+
+
+def march_region(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                 occ_grid: torch.Tensor, bound: float, min_near: float,
+                 edges: torch.Tensor, u: torch.Tensor | None,
+                 mode: str = "resample"):
+    """The render's march: rays [R, 3] (any strides), occ_grid [cascade, G,
+    G, G] bool, edges [P+1] from ``probe_edges`` (built once and kept by the
+    caller), u [R, S] non-decreasing draws in [0, 1) or one [S] row for
+    every ray (the deterministic stratum centres, ``det_u``; unused in mask
+    mode) → (MarchOut, xyzs [R, S, 3] = clamp(o + d z, ±bound))."""
+    _check_mode(mode)
+    with torch.no_grad():
+        if rays_o.is_cuda:
+            return march_region_cuda(rays_o, rays_d, occ_grid, bound,
+                                     min_near, edges, u, mode)
+        if rays_o.device.type == "cpu":
+            return march_region_plain(rays_o, rays_d, occ_grid, bound,
+                                      min_near, edges, u, mode)
+        raise ValueError(f"unsupported device {rays_o.device}")
 
 
 def march_rays_occupancy(rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -120,17 +178,16 @@ def march_rays_occupancy(rays_o: torch.Tensor, rays_d: torch.Tensor,
                          mode: str = "resample") -> MarchOut:
     """rays [R,3], near/far [R,1], occ_grid [cascade,G,G,G] bool, edges
     [P+1] from ``probe_edges``, u [R, S] non-decreasing draws in [0, 1)
-    (``core.sampling.stratified_u`` / ``det_u``; unused in mask mode)."""
-    if mode not in ("resample", "mask"):
-        raise ValueError(f"unknown occupancy mode {mode!r}")
+    (``core.sampling.stratified_u`` / ``det_u``; unused in mask mode).  The
+    plain version only: the card runs the march as ``march_region``, which
+    forms the near/far itself."""
+    _check_mode(mode)
+    if rays_o.device.type != "cpu":
+        raise ValueError(f"march_rays_occupancy runs on the CPU; on "
+                         f"{rays_o.device} call march_region")
     with torch.no_grad():
-        if rays_o.is_cuda:
-            return march_cuda(rays_o, rays_d, near, far, occ_grid, bound,
-                              edges, u, mode)
-        if rays_o.device.type == "cpu":
-            return march_plain(rays_o, rays_d, near, far, occ_grid, bound,
-                               edges, u, mode)
-        raise ValueError(f"unsupported device {rays_o.device}")
+        return march_plain(rays_o, rays_d, near, far, occ_grid, bound, edges,
+                           u, mode)
 
 
 # ---------------------------------------------------------------------------

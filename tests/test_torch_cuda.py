@@ -23,7 +23,9 @@ from dreamfusion_tpu_torch.ops.composite import (_composite_fwd_cuda,
                                                  composite_bwd_plain,
                                                  composite_fwd_plain,
                                                  composite_rays)
-from dreamfusion_tpu_torch.ops.occupancy import (march_cuda, march_plain,
+from dreamfusion_tpu_torch.ops.occupancy import (march_plain, march_region,
+                                                 march_region_cuda,
+                                                 march_region_plain,
                                                  probe_edges)
 from dreamfusion_tpu_torch.ops.attention import (attention, attention_fwd_cuda,
                                                  attention_plain)
@@ -97,9 +99,9 @@ def test_march_kernel(dev, mode, perturb, dt_gamma):
     edges = probe_edges(P, dt_gamma, device=dev)
     u = stratified_u(torch.rand(R, S, device=dev, generator=g)) if perturb \
         else det_u(R, S, device=dev).contiguous()
-    k = march_cuda(ro, rd, near, far, occ, 1.0, edges, u, mode)
+    k, xk = march_region_cuda(ro, rd, occ, 1.0, 0.01, edges, u, mode)
     torch.cuda.synchronize()
-    p = march_plain(ro, rd, near, far, occ, 1.0, edges, u, mode)
+    p, xp = march_region_plain(ro, rd, occ, 1.0, 0.01, edges, u, mode)
     same = (k.mask == p.mask).all(-1)
     assert same.float().mean() >= 0.999
     hit = (far[:, 0] < 1e8) & same
@@ -108,6 +110,165 @@ def test_march_kernel(dev, mode, perturb, dt_gamma):
                                rtol=1e-6)
     torch.testing.assert_close(k.deltas[hit], p.deltas[hit], atol=1e-5,
                                rtol=1e-6)
+    torch.testing.assert_close(xk[hit], xp[hit], atol=1e-5, rtol=1e-6)
+
+
+def _region_inputs(dev, R, S, seed, tail=False):
+    """Rays around the box (the first 7 miss it), a 48³ grid a third
+    occupied, stratified draws [R, S]; with ``tail`` each ray's last draw
+    at the top of [0, 1)."""
+    g = _gen(dev, seed)
+    ro = torch.randn(R, 3, device=dev, generator=g)
+    ro = 3.0 * ro / ro.norm(dim=-1, keepdim=True)
+    rd = torch.rand(R, 3, device=dev, generator=g) - 0.5 - ro / 3.0
+    ro[:7] = 5.0                              # misses: near = far = 1e9
+    occ = torch.rand(1, 48, 48, 48, device=dev, generator=g) < 0.3
+    unit = torch.rand(R, S, device=dev, generator=g)
+    if tail:
+        unit[:, -1] = 1.0 - 2.0 ** -24
+    return ro, rd, occ, stratified_u(unit)
+
+
+def _same_region(k, p, xk, xp):
+    """The kernel's region against the plain twin's: masks equal on 99.9%
+    of the rays; z, deltas and positions within 1e-5 where they are (the
+    same CDF order; the last delta's division may round apart)."""
+    same = (k.mask == p.mask).all(-1)
+    assert same.float().mean() >= 0.999
+    assert k.mask.dtype == torch.bool
+    for a, b in ((k.z_vals, p.z_vals), (k.deltas, p.deltas), (xk, xp)):
+        torch.testing.assert_close(a[same], b[same], atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("P", [32, 48, 64])
+@pytest.mark.parametrize("S", [24, 56])
+@pytest.mark.parametrize("mode,perturb", [("resample", True),
+                                          ("resample", False),
+                                          ("mask", False)])
+def test_march_region_kernel(dev, P, S, mode, perturb):
+    """K2's region (near/far, march, positions) in one launch against its
+    plain twin, with misses and, perturbed, a draw above cdf[P] on every
+    ray."""
+    R = 3001
+    ro, rd, occ, u = _region_inputs(dev, R, S, 11, tail=perturb)
+    edges = probe_edges(P, device=dev)
+    if mode == "mask":
+        u = None
+    elif not perturb:
+        u = det_u(1, S, device=dev)[0].contiguous()
+    kernels.reset_launch_counts()
+    k, xk = march_region(ro, rd, occ, 1.0, 0.01, edges, u, mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["march_rays"] == 1
+    p, xp = march_region_plain(ro, rd, occ, 1.0, 0.01, edges, u, mode)
+    _same_region(k, p, xk, xp)
+    assert bool((k.z_vals[:7] == 1e9).all())
+    if perturb:
+        # the tail rule: where the last draw passes cdf[P] (summed in the
+        # plain version's order), z is the last edge
+        near, far = near_far_from_bound(ro, rd, 1.0, "cube", 0.01)
+        probes = march_plain(ro, rd, near, far, occ, 1.0, edges, None,
+                             "mask").mask
+        w = probes.float() + 1e-3 + 1e-5
+        total = w[:, 0]
+        for i in range(1, P):
+            total = total + w[:, i]
+        c = torch.zeros_like(total)
+        for i in range(P):
+            c = c + w[:, i] / total
+        tail = (u[:, -1] >= c) & (far[:, 0] < 1e8)
+        assert int(tail.sum()) >= 10
+        last = (near + (far - near) * edges[-1])[:, 0]
+        assert torch.equal(k.z_vals[tail, -1], last[tail])
+
+
+@pytest.mark.parametrize("P", [32, 48])
+def test_march_region_counts_descending_edges(dev, P):
+    """Rays from inside the box with min_near past their exit: near is
+    clamped beyond far, the edges descend and the kernel counts a sample's
+    interval by ballots; the region equals its twin's."""
+    R, S = 999, 24
+    g = _gen(dev, 15)
+    ro = torch.rand(R, 3, device=dev, generator=g) * 1.8 - 0.9
+    rd = torch.randn(R, 3, device=dev, generator=g)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    occ = torch.rand(1, 40, 40, 40, device=dev, generator=g) < 0.4
+    u = stratified_u(torch.rand(R, S, device=dev, generator=g))
+    edges = probe_edges(P, device=dev)
+    near, far = near_far_from_bound(ro, rd, 1.0, "cube", 0.6)
+    assert int((near > far).sum()) > 50
+    k, xk = march_region_cuda(ro, rd, occ, 1.0, 0.6, edges, u)
+    torch.cuda.synchronize()
+    p, xp = march_region_plain(ro, rd, occ, 1.0, 0.6, edges, u)
+    _same_region(k, p, xk, xp)
+
+
+def test_march_region_takes_strided_rays_and_draws(dev):
+    """A view's origins as a broadcast row with a column stride (what
+    ``get_rays`` gives) and draws with a row stride: one launch, the same
+    outputs as contiguous copies, bit for bit."""
+    R, S = 1000, 24
+    g = _gen(dev, 12)
+    pose = torch.randn(1, 4, 4, device=dev, generator=g)
+    ro = pose[:, None, :3, 3].expand(1, R, 3).reshape(-1, 3)
+    assert ro.stride() == (0, 4)
+    rd = torch.randn(R, 3, device=dev, generator=g) - ro / 3
+    occ = torch.rand(1, 32, 32, 32, device=dev, generator=g) < 0.3
+    big = stratified_u(torch.rand(R, 2 * S, device=dev, generator=g))
+    u = big[:, :S]
+    edges = probe_edges(32, device=dev)
+    a = march_region_cuda(ro, rd, occ, 1.0, 0.01, edges, u)
+    b = march_region_cuda(ro.contiguous(), rd, occ, 1.0, 0.01, edges,
+                          u.contiguous())
+    for x, y in zip((*a[0], a[1]), (*b[0], b[1])):
+        assert torch.equal(x, y)
+
+
+def test_march_region_replays_in_a_cuda_graph(dev):
+    """The region's launch captured in a CUDA graph and replayed three
+    times: the same outputs as an eager call, bit for bit."""
+    R, S = 2048, 24
+    ro, rd, occ, u = _region_inputs(dev, R, S, 13)
+    edges = probe_edges(32, device=dev)
+    want = march_region_cuda(ro, rd, occ, 1.0, 0.01, edges, u)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        march_region_cuda(ro, rd, occ, 1.0, 0.01, edges, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = march_region_cuda(ro, rd, occ, 1.0, 0.01, edges, u)
+    for _ in range(3):
+        for t in (*got[0], got[1]):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip((*got[0], got[1]), (*want[0], want[1])):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("perturb", [True, False])
+def test_a_render_launches_the_march_once(dev, perturb):
+    """One render (perturbed or at the stratum centres): one launch of
+    ``march_rays``, the positions the shading reads its own."""
+    from dreamfusion_tpu_torch.models.renderer import (NeRFRenderer,
+                                                       RenderFlags)
+    r = NeRFRenderer(bound=1.0, min_near=0.01, grid_probe_steps=32,
+                     grid_fine_steps=24, backbone="triplane",
+                     triplane_resolution=32, triplane_channels=8,
+                     hidden_dim=16, num_layers=2).to(dev)
+    R = 512
+    ro, rd, occ, u = _region_inputs(dev, R, 24, 14)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = r.render_grid(RenderFlags(perturb=perturb,
+                                        shading_static_albedo=True),
+                            ro, rd, occ, march_u=u if perturb else None)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["march_rays"] == 1
+    assert out["image"].shape == (R, 3)
+    assert bool(out["image"].isfinite().all())
 
 
 @pytest.mark.parametrize("t_thresh,binarize,masked", [
@@ -344,13 +505,16 @@ def test_render_tail_counts_its_launches(dev):
     R, S = 64, 24
     _, _, _, z, deltas, mask, _, rd = _composite_inputs(dev, R, S, 7)
     ro = -rd * 1.5
+    xyzs = torch.clamp(ro[:, None] + rd[:, None] * z[..., None], -r.bound,
+                       r.bound)
     kernels.reset_launch_counts()
     out = r._shade_and_composite(
         RenderFlags(need_loss_orient=True), ro, rd, z, deltas, mask,
         safe_normalize(ro), torch.tensor(0.2, device=dev),
         torch.tensor(1, device=dev), None,
         torch.rand(3, device=dev).expand(R, 3), torch.tensor(True,
-                                                             device=dev))
+                                                             device=dev),
+        xyzs=xyzs)
     (out["image"].sum() + out["loss_orient"]).backward()
     torch.cuda.synchronize()
     got = {k: kernels.LAUNCHES[k] for k in (
@@ -1686,3 +1850,87 @@ def test_signed_distance_kernel(dev, slivers):
     far = (pts.norm(dim=-1) - 0.4).abs() > 0.05
     want = pts.norm(dim=-1) - 0.4
     assert bool((sd[far].sign() == want[far].sign()).all())
+
+
+def _sd_route(dev, pts, verts, tris, **kw):
+    from dreamfusion_tpu_torch.mesh.sdf import signed_distance_cuda
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    sd, wn = signed_distance_cuda(pts.to(dev), verts.to(dev), tris.to(dev),
+                                  True, count=count, **kw)
+    torch.cuda.synchronize()
+    return sd, wn, int(count)
+
+
+@pytest.mark.parametrize("slivers", [False, True])
+def test_signed_distance_culling_is_exact(dev, slivers):
+    """K9 with the distance part culled by the triangle records' spheres
+    against the kernel that runs the distance part for every pair (the
+    per-pair arithmetic of the kernel before the records): sd and the
+    winding number bit for bit, on a mesh of more than two 256-triangle
+    tiles (with slivers, a degenerate and a collinear triangle) and a point
+    count that is no multiple of a block; the culled kernel runs the
+    distance part for fewer pairs.  The plain twin at its tolerances."""
+    from dreamfusion_tpu_torch.mesh.sdf import signed_distance_plain
+    verts, tris = _uv_sphere(n_theta=24, n_phi=24, radius=0.4)
+    if slivers:
+        verts, tris = _with_slivers(verts, tris)
+    assert tris.shape[0] > 512
+    g = torch.Generator().manual_seed(4)
+    pts = torch.cat([torch.rand(3001, 3, generator=g) * 1.2 - 0.6,
+                     verts[:40], (verts[tris[-3:, 0]] + verts[tris[-3:, 1]])
+                     / 2])
+    P, T = pts.shape[0], tris.shape[0]
+    assert P % 128
+    full = _sd_route(dev, pts, verts, tris, cull=False)
+    assert full[2] == P * T
+    got = _sd_route(dev, pts, verts, tris)
+    assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    assert got[2] < P * T
+    sdp, wnp = signed_distance_plain(pts, verts, tris, chunk=256,
+                                     return_winding=True)
+    sd, wn = full[0].cpu(), full[1].cpu()
+    tol = 1e-5 + 1e-5 * sdp.abs()
+    assert bool(((sd.abs() - sdp.abs()).abs() <= tol).all())
+    clear = (wnp - 0.5).abs() > 1e-4
+    assert bool(((sd - sdp).abs()[clear] <= tol[clear]).all())
+
+
+def test_signed_distance_culls_all_but_the_nearest_triangle(dev):
+    """Points near the first triangle and 1000 triangles far from them:
+    after the first pair sets each point's minimum, every other triangle's
+    sphere lies beyond it, so the distance part runs once a point; the
+    result is the unculled kernel's, bit for bit, and the plain twin's."""
+    from dreamfusion_tpu_torch.mesh.sdf import signed_distance_plain
+    g = torch.Generator().manual_seed(5)
+    near_tri = torch.tensor([[0.0, 0.0, 0.0], [0.1, 0.0, 0.0],
+                             [0.0, 0.1, 0.0]])
+    far_v = torch.rand(3000, 3, generator=g) * 0.05 + 3.0
+    verts = torch.cat([near_tri, far_v])
+    tris = torch.arange(3003, dtype=torch.int32).reshape(-1, 3)
+    pts = torch.rand(777, 3, generator=g) * 0.04 + 0.01
+    P = pts.shape[0]
+    got = _sd_route(dev, pts, verts, tris)
+    full = _sd_route(dev, pts, verts, tris, cull=False)
+    assert got[2] == P
+    assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    sdp = signed_distance_plain(pts, verts, tris, chunk=256)
+    torch.testing.assert_close(got[0].cpu(), sdp, atol=1e-5, rtol=1e-5)
+
+
+
+def test_signed_distance_refuses_bad_indices_and_counts(dev):
+    """The dispatcher checks the triangles' indices before the kernel
+    gathers their corners, and the route with a launch count takes only an
+    int64 counter."""
+    from dreamfusion_tpu_torch.mesh.sdf import (signed_distance,
+                                                signed_distance_cuda)
+    verts = torch.tensor([[0.0, 0, 0], [1, 0, 0], [0, 1, 0]], device=dev)
+    pts = torch.zeros(5, 3, device=dev)
+    for bad in ([[0, 1, 3]], [[0, -1, 2]]):
+        with pytest.raises(ValueError, match="out of range"):
+            signed_distance(pts, verts, torch.tensor(bad, device=dev))
+    tris = torch.tensor([[0, 1, 2]], dtype=torch.int32, device=dev)
+    for count in (torch.zeros(1, dtype=torch.int32, device=dev),
+                  torch.zeros(0, dtype=torch.int64, device=dev)):
+        with pytest.raises(ValueError, match="int64"):
+            signed_distance_cuda(pts, verts, tris, count=count)

@@ -28,6 +28,7 @@ from dreamfusion_tpu.ops import marching_tets as jmt
 from dreamfusion_tpu.training import data as jdata
 from dreamfusion_tpu.training.dmtet_trainer import DMTetTrainer as JTrainer
 from dreamfusion_tpu_torch.mesh import tets as ptets
+from dreamfusion_tpu_torch.mesh.sdf import signed_distance
 from dreamfusion_tpu_torch.models.dmtet import DMTetRenderer
 from dreamfusion_tpu_torch.ops import marching_tets as pmt
 from dreamfusion_tpu_torch.training import data as pdata
@@ -288,3 +289,19 @@ def test_lock_geo_pins_the_geometry(tmp_path, grid):
     tri = "nerf.field.triplanes.0"
     assert not torch.equal(after[tri].detach(), before[tri])
     assert ps.step == 2
+
+
+def test_mesh_init_refuses_an_index_out_of_range():
+    """K9's kernel gathers the triangles' corners without a check, so
+    ``signed_distance`` checks the indices first, on every device (the CPU
+    twin would wrap a negative one); the mesh-file init goes through it."""
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    r = DMTetRenderer(ptets.generate_tet_grid(4), max_tris=64)
+    for bad in ([[0, 1, 3]], [[0, -1, 2]]):
+        with pytest.raises(ValueError, match="out of range"):
+            signed_distance(torch.zeros(2, 3), torch.from_numpy(verts),
+                            torch.tensor(bad, dtype=torch.int32))
+        with pytest.raises(ValueError, match="out of range"):
+            r.init_params_from_mesh(verts, np.array(bad, np.int32))
+    assert r.init_params_from_mesh(verts, np.array([[0, 1, 2]])).sdf.shape \
+        == r.verts.shape[:1]

@@ -200,6 +200,13 @@ def _renderer_pair(t_thresh, seed=4):
     return jr, params, pr
 
 
+def _positions(pr, ro, rd, z):
+    """The samples' clamped positions [R, S, 3], as JAX's method forms
+    them and the march region hands them to the port's."""
+    xyzs = tt(ro)[:, None, :] + tt(rd)[:, None, :] * tt(z)[..., None]
+    return torch.clamp(xyzs, -pr.bound, pr.bound)
+
+
 @pytest.mark.parametrize("use_net,binarize,t_thresh", [
     (True, False, 1e-4), (False, False, 0.05), (True, True, 0.05)])
 def test_composite_with_background_and_orient_matches_jax(use_net, binarize,
@@ -234,7 +241,8 @@ def test_composite_with_background_and_orient_matches_jax(use_net, binarize,
     out = pr._shade_and_composite(
         RenderFlags(need_loss_orient=True, binarize=binarize), tt(ro),
         tt(rd), tt(z), tt(deltas), tt(mask), tt(light), torch.tensor(0.3),
-        torch.tensor(shading), None, tt(bg), torch.tensor(use_net))
+        torch.tensor(shading), None, tt(bg), torch.tensor(use_net),
+        xyzs=_positions(pr, ro, rd, z))
     po = (out["image"], out["weights"], out["loss_orient"])
     assert float(po[2].detach()) > 0
     for a, b in zip(po, jo):
@@ -261,6 +269,6 @@ def test_the_fused_tail_runs_no_kernel_on_the_cpu():
     out = pr._shade_and_composite(
         RenderFlags(need_loss_orient=True), tt(ro), tt(rd), tt(z),
         tt(deltas), None, tt(light), 0.5, 1, None, None,
-        torch.tensor(True))
+        torch.tensor(True), xyzs=_positions(pr, ro, rd, z))
     (out["image"].sum() + out["loss_orient"]).backward()
     assert all(v == 0 for v in kernels.LAUNCHES.values())
