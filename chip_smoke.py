@@ -6,7 +6,8 @@
 1. Fails at once without a CUDA device; prints the card's name and power
    limit (nvidia-smi).
 2. Builds the port's CUDA kernels from dreamfusion_tpu_torch/csrc into
-   build/torch_kernels (set-up time; one nvcc call, sm_90a).
+   build/torch_kernels (set-up time; one nvcc per source, all started
+   together, then one link; sm_90a).
 3. For each kernel, at the shapes of the flagship training step (K1-K4)
    and of the SD 2.1 and SD 1.5 towers (K10-K12), compares the kernel with
    its plain PyTorch version on the same inputs and times both, and the
@@ -69,7 +70,9 @@
    (each tile's first cap triangles by index); K8's faces, mask and slots
    must equal the plain version's bit for bit, and normal consistency's
    pairs (from the static tet adjacency) the plain version's sorted-key
-   pairs.  K7's bound counts the function's work, not an implementation's:
+   pairs, and its true face count (the slots past max_tris included) the
+   plain version's; K7's per-tile counts (before its tile_cap cut) the
+   plain version's.  K7's bound counts the function's work, not an implementation's:
    each triangle set up and binned once into the tiles its box touches,
    then ~20 fp32 operations per (pixel, listed triangle).
 4. Resets the launch counters and trains the flagship-width oracle path
@@ -84,7 +87,12 @@
    steps built as main builds them, the counters reset before each
    (``stage1_step_launches``): K2, K3 and K4 exactly as
    ``step_render_launches`` counts, and the head 8 times more in the step
-   that refreshes the 128³ grid.
+   that refreshes the 128³ grid.  Then K7 again at the DMTet path's own
+   shape (``dmtet_surface_raster_phase``): the surface that step 6 starts
+   from, at the renderer's tile_cap, in the far training view whose
+   fullest tile lists the most (thousands of triangles: several 1024-slot
+   windows of the backwards), forward and both backwards against the plain
+   versions; its rows are K7's in the JSON line.
 5. Resets the counters and trains the SD 2.1 path (full SD 2.1 width,
    random weights from the seed) through dreamfusion_tpu_torch.main for 25
    steps: 6 warm-up steps (render as latent) and 19 through the VAE;
@@ -107,14 +115,26 @@
    requires finite losses and gradients, a launch of every K7/K8 kernel
    and of K1 and K4 (K1's backward with the position gradient exactly once
    a step, its table-only backward never), non-zero sdf and deform
-   gradients, a face count in (0, max_tris) and a written mesh.obj; logs
-   s/step, peak memory and the analytic PSNR of the albedo render at the
-   first and last step; every K7/K8 backward exactly once a step
+   gradients, a non-empty surface whose true face count is within the
+   marching tets' cap at every step, K7's fullest tile within its tile_cap
+   at every step (``surface_checks``; max_tris sized from the init
+   surface, tile_cap the kernel's most), and a written mesh.obj; logs s/step, peak memory, the face
+   counts, the fullest tile and the analytic PSNR of the albedo render at
+   the first and last step; every K7/K8 backward exactly once a step
    (``DMTET_STEP_LAUNCHES``: the interpolate's twice).  Then one more
    step of the same run, built as main builds it, the counters reset just
    before it: K1's forward and its ``_dx`` backward once each (one view),
    the table-only backward never, and every K7/K8 entry point exactly as
    ``DMTET_STEP_LAUNCHES`` counts.
+   Then, counters reset, the DMTet stage under SD 2.1 at full width
+   (random weights) from the same stage-1 checkpoint (``--text "a
+   hamburger"``, tet grid 128, the VAE encoding the 512² render with
+   gradient) for 20 steps in 10-step blocks, with the same checks, every
+   K10/K11/K12 route exactly as one SD VAE step counts it each step
+   (``SD_DGRADS``, ``SD_GROUPNORMS``, K10's d = 64 route 32 times, its d =
+   512 forward and backward once) and no mma.sync conv; logs s/step, peak
+   memory and the face counts; and its one-step launch check, the SD
+   routes included.
 7. The hash-grid backbone (-O's), each run with the counters reset just
    before it: stage 1 with the flagship oracle flags on --backbone grid
    and small tv and weight-decay weights (300 steps, the same run's end and
@@ -147,7 +167,7 @@
    --init_with mesh.obj``, tet grid 128, 512², the image oracle, K5) for
    20 steps: K9 launched once (the init), K5 once per SDS step, K7 and K8
    every step, known-view DMTet steps, non-zero sdf and deform gradients,
-   the face count in (0, max_tris); the init's seconds logged; and its
+   the surface checks of step 6; the init's seconds logged; and its
    one-step launch check as step 6's.
 9. Prints one JSON line with every kernel's route, source, the TPU function
    it replaces, launches on its path (K1-K4 and K10-K12: the SD run, K10's
@@ -199,6 +219,12 @@ DMTET_FLAGS = ["--guidance", "oracle", "--backbone", "triplane",
                "--save_mesh", "--ckpt", "scratch",
                # 10-step blocks: the rate leaves out the first; one eval
                "--dataset_size_train", "10", "--eval_interval", "10"]
+# the DMTet stage under SD 2.1 (full width, random weights) from the oracle
+# stage 1's checkpoint: random-weight SD gives no usable stage-1 surface
+DMTET_SD_STEPS = 20             # one eval, at step 20
+DMTET_SD_FLAGS = [f for f in DMTET_FLAGS if f not in (
+    "--guidance", "oracle", "--oracle_scene", "two_sphere")] + [
+    "--text", "a hamburger", "--eval_interval", "2"]
 DMTET_GRID_STEPS = 20           # one eval, at step 20
 GRID_DMTET_FLAGS = [("grid" if f == "triplane" else f) for f in DMTET_FLAGS] \
     + ["--eval_interval", "2"]
@@ -336,14 +362,15 @@ ORACLE_KERNELS = ("triplane_fwd", "triplane_bwd", "march_rays",
 # (ops/kernels.py): the SD step must launch every one of them, and never
 # K12's mma.sync forward or dgrad (conv_fwd_mma, conv_dgrad: shapes off
 # every path, checked at MMA_CONVS)
+SD_TOWER_KERNELS = ("attention_fwd_wgmma", "attention_fwd_wgmma_d512",
+                    "attention_bwd_wgmma", "groupnorm_fwd_resident",
+                    "groupnorm_fwd_stream", "groupnorm_bwd_resident",
+                    "groupnorm_bwd_stream", "conv_fwd_wgmma",
+                    "conv_fwd_wgmma_i8", "conv_fwd_fp32", "conv_dgrad_wgmma",
+                    "conv_dgrad_narrow", "conv_dgrad_fp32")
 SD_KERNELS = ("march_rays", "composite_fwd", "composite_bwd",
-              "field_head_fwd", "field_shade_fwd", "field_shade_bwd",
-              "attention_fwd_wgmma",
-              "attention_fwd_wgmma_d512", "attention_bwd_wgmma",
-              "groupnorm_fwd_resident", "groupnorm_fwd_stream",
-              "groupnorm_bwd_resident", "groupnorm_bwd_stream",
-              "conv_fwd_wgmma", "conv_fwd_wgmma_i8", "conv_fwd_fp32",
-              "conv_dgrad_wgmma", "conv_dgrad_narrow", "conv_dgrad_fp32")
+              "field_head_fwd", "field_shade_fwd",
+              "field_shade_bwd") + SD_TOWER_KERNELS
 # dgrads per SD step through the VAE (the encoder's backward): 20 stride-1
 # and 3 stride-2 on the wgmma route, the conv_in's on the narrow one, the
 # fp32 conv_out's
@@ -587,9 +614,10 @@ def assert_close(name, got, want, atol, rtol) -> float:
 
 
 def record_kernel(results, name, err, ms, plain_ms, tol, n_bytes, flops,
-                  kind, library_ms, where="", exps=0.0):
+                  kind, library_ms, where="", exps=0.0, main=False):
     """Log one comparison; the first one of a kernel fills its JSON entry
-    (the representative shape of the main path)."""
+    (the representative shape of the main path), unless a later one is
+    the main path's own (``main``)."""
     b_ms, b_by = bound(n_bytes, flops, kind, exps)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
     by_exp = b_by == "operations" and exps / EXP_PER_S > flops / PEAK[kind]
@@ -598,9 +626,12 @@ def record_kernel(results, name, err, ms, plain_ms, tol, n_bytes, flops,
         f"{b_ms:.4f} ms ({b_by}{' (exponentials)' if by_exp else ''}; "
         f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP"
         f"{f', {exps / 1e6:.0f}M exp' if exps else ''})")
-    results.setdefault(name, {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "library_ms": library_ms})
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    if main:
+        results[name] = row
+    else:
+        results.setdefault(name, row)
 
 
 def grid_sample_calls(torch, x01, planes, g_feat):
@@ -1424,9 +1455,10 @@ def _raster_ops(listed, bmin, bmax, valid, H, W, tile, soft):
 
 
 def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
-                  where, backward):
+                  where, backward, main=False):
     """K7 rasterize (and interpolate of the positions) against the plain
-    version; forward, and backward when asked."""
+    version; forward, and backward when asked; ``main``: the rows of the
+    JSON line (``record_kernel``)."""
     from dreamfusion_tpu_torch.ops import raster as K7
     dev = sx.device
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1459,6 +1491,13 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
     check(bool(torch.equal(b.lists[keep], ids[:, :cap][keep].to(
         torch.int32))), f"raster_fwd{where}: tile lists differ from "
         "tile_lists")
+    check(bool(torch.equal(ok.tile_counts, op.tile_counts)),
+          f"raster_fwd{where}: the per-tile counts differ from the plain "
+          f"version's")
+    fullest = int(ok.tile_counts.max())
+    log(f"raster_fwd{where}: fullest tile {fullest} triangles (cap {cap}; "
+        f"the backwards sum its list in {-(-min(fullest, cap) // 1024)} "
+        f"windows of 1024)")
     det = [x.detach() for x in (sx, sy, sz)]
     outs = nbytes(*ok[:4], b.slots)       # + the winners' slots
     record_kernel(results, "raster_fwd", err, median_ms(
@@ -1468,7 +1507,7 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
         "tri_id on >= 99.99% of pixels; bary, depth, alpha 1e-5; lists "
         "equal", nbytes(sx, sy, sz, faces, valid) + outs,
         _raster_ops(listed, bmin, bmax, valid, H, W, 32, soft), "fp32",
-        None, f" [{H}x{W}, {T} faces, cap {cap}, soft {soft}]")
+        None, f" [{H}x{W}, {T} faces, cap {cap}, soft {soft}]", main=main)
     log(f"raster{where}: {float((op.tri_id >= 0).float().mean()):.3f} of "
         f"pixels covered, {float(listed.sum(1).float().mean()):.1f} "
         f"triangles listed per tile (max {int(listed.sum(1).max())}; "
@@ -1487,7 +1526,7 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
         lambda: K7.interpolate(attrs, ok._replace(bary=bk), faces)),
         median_ms(lambda: K7.interpolate_plain(attrs, bk, ok.tri_id, faces)),
         "1e-5 rel", nbytes(attrs, bk, ok.tri_id, faces, ik), Pn * 3 * 6,
-        "fp32", None, where)
+        "fp32", None, where, main=main)
     if not backward:
         return
     cots = [torch.randn(o.shape, device=dev, generator=g)
@@ -1511,7 +1550,7 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
                                               retain_graph=True), 5, 1),
         "1e-4 of max |grad| + 1e-4 rel (atomics)",
         nbytes(sx, sy, sz, faces, *saved, ok.tri_id, *cots, *gk),
-        hits * 100 + Pn * 120, "fp32", None, where)
+        hits * 100 + Pn * 120, "fp32", None, where, main=main)
     a1 = attrs.clone().requires_grad_()
     b1 = bk.clone().requires_grad_()
     a2 = attrs.clone().requires_grad_()
@@ -1530,7 +1569,7 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
                                               retain_graph=True)),
         "1e-5 of max + 1e-5 rel (atomics)",
         nbytes(attrs, bk, ok.tri_id, faces, c, *gk), Pn * 3 * 8, "fp32",
-        None, where)
+        None, where, main=main)
 
 
 def dmtet_kernel_phases(torch, results):
@@ -1570,6 +1609,9 @@ def dmtet_kernel_phases(torch, results):
           "version")
     n_faces = int(mk.face_mask.sum())
     check(0 < n_faces < max_tris, f"marching_tets_fwd: {n_faces} faces")
+    check(int(mk.n_faces) == int(mp.n_faces) == n_faces,
+          f"marching_tets_fwd: true face count {int(mk.n_faces)}, the plain "
+          f"version's {int(mp.n_faces)}, {n_faces} kept")
     err = assert_close("marching_tets_fwd", [mk.verts], [mp.verts], 1e-6, 0)
     mt_bytes = nbytes(pos, sdf, tets, te, ue, mk.verts, mk.vert_valid,
                       mk.faces, mk.face_mask)
@@ -1751,9 +1793,10 @@ def field_query_phase(torch, results, x01, covered):
 
 def bake_kernel_phase(torch, results, obj_path):
     """K7 forward at the texture bake's shape: the UV atlas of the mesh the
-    oracle run exported, 1024², soft edge 0, cap min(1024, T)."""
+    oracle run exported, 1024², soft edge 0, the bake's cap (the kernel's
+    most)."""
     from dreamfusion_tpu_torch.mesh.export import read_obj
-    from dreamfusion_tpu_torch.ops.raster import screen_coords
+    from dreamfusion_tpu_torch.ops.raster import MAX_TILE_CAP, screen_coords
     dev = torch.device("cuda")
     _, tris, uv, _ = read_obj(obj_path)
     u = torch.from_numpy(uv).to(dev)
@@ -1765,8 +1808,58 @@ def bake_kernel_phase(torch, results, obj_path):
     sx, sy, sz, valid = screen_coords(
         clip, faces, torch.ones(T, dtype=torch.bool, device=dev), 1024, 1024)
     record_raster(torch, results, sx.contiguous(), sy.contiguous(),
-                  sz.contiguous(), faces, valid, 1024, 1024, min(1024, T),
+                  sz.contiguous(), faces, valid, 1024, 1024, MAX_TILE_CAP,
                   0.0, " (texture bake)", False)
+
+
+def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws):
+    """K7 at the DMTet stage's own shape, whose rows the JSON line reports:
+    the surface the DMTet path starts from (``init_with``, built as main
+    builds the run), at the renderer's tile_cap, in the view at the far end
+    of the training ranges (unit draws 1 for the radius and the field of
+    view; 3 polar angles x 8 azimuths) whose fullest tile lists the most,
+    so that the backwards sum the crowded tiles' lists in several 1024-slot
+    windows; forward and both backwards against the plain versions."""
+    from dreamfusion_tpu_torch.core.poses import PoseDraws
+    from dreamfusion_tpu_torch.ops.raster import (project_verts, rasterize,
+                                                  screen_coords)
+    from dreamfusion_tpu_torch.training.trainer import train_batch
+    args = port_main.build_parser().parse_args(DMTET_FLAGS + [
+        "--init_with", init_with, "--workspace", ws, "--iters", "1"])
+    cfg = port_main.config_from_args(args)
+    trainer, state, _ = port_main.build_run(cfg, torch.device("cuda"), False,
+                                            log=lambda *a: None)
+    dmr = trainer.dmtet_renderer
+    with torch.no_grad():
+        mesh = dmr.extract_mesh(trainer.geo_params(state.model,
+                                                   state.tet_scale))
+        verts, dev = mesh.verts.detach(), mesh.verts.device
+        th, ph = torch.meshgrid(torch.tensor([0.0, 0.5, 1.0]),
+                                torch.arange(8) / 8.0, indexing="ij")
+        n = th.numel()
+        ones = lambda *sh: torch.ones(*sh, device=dev)
+        zeros = lambda *sh: torch.zeros(*sh, device=dev)
+        pose = PoseDraws(radius=ones(n), thetas=th.reshape(-1).to(dev),
+                         phis=ph.reshape(-1).to(dev),
+                         sphere_normal=zeros(n, 3), sphere_u=ones(()),
+                         jitter_center=zeros(n, 3),
+                         jitter_target=zeros(n, 3), jitter_up=zeros(n, 3))
+        mvp = train_batch(cfg, pose, ones(()), 0, cfg.h, cfg.w).mvp
+        fullest = [int(rasterize(project_verts(verts, m), mesh.faces,
+                                 mesh.face_mask, cfg.h, cfg.w, dmr.tile,
+                                 dmr.tile_cap).tile_counts.max())
+                   for m in mvp]
+    i = max(range(n), key=fullest.__getitem__)
+    log(f"DMTet surface: {int(mesh.n_faces)} faces (max_tris "
+        f"{dmr.max_tris}), fullest tile over the {n} far views "
+        f"{min(fullest)}-{fullest[i]} (view {i}), tile_cap {dmr.tile_cap}")
+    sx, sy, sz, valid = screen_coords(project_verts(verts, mvp[i]),
+                                      mesh.faces, mesh.face_mask, cfg.h,
+                                      cfg.w)
+    record_raster(torch, results, sx.contiguous(), sy.contiguous(),
+                  sz.contiguous(), mesh.faces, valid, cfg.h, cfg.w,
+                  dmr.tile_cap, dmr.soft_edge_px,
+                  f" (DMTet surface, far view {i})", True, main=True)
 
 
 def clip_grad_kernel_phase(torch, results):
@@ -2142,14 +2235,14 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = dm["blocks"][1:]
     s_step = sum(t for _, t in steady) / sum(n for n, _ in steady)
+    psnr = (f", albedo PSNR {dm['psnr_init']:.3f} -> "
+            f"{dm['psnr_final']:.3f} dB" if "psnr_init" in dm else "")
     log(f"{what} path: {steps} steps in {time.time() - t_dm:.1f} s "
         f"(start-up and run's end included), losses {dm['losses']}, "
         f"{s_step:.4f} s/step over steps 11-{steps} (ms/step by "
         f"block {[round(1e3 * t / n, 2) for n, t in dm['blocks']]}), peak "
         f"device memory {peak_gib:.2f} GiB, "
-        f"faces {dm['n_faces'][0]} -> {dm['n_faces'][-1]} of "
-        f"{dm['max_tris']}, albedo PSNR {dm['psnr_init']:.3f} -> "
-        f"{dm['psnr_final']:.3f} dB, run's end (s) "
+        f"{surface_line(dm)}{psnr}, run's end (s) "
         f"{_rounded(dm['phases'])}, export (s) "
         f"{_rounded(dm['export_phases'])}, on {smi_line}, launches "
         f"{launches}")
@@ -2175,18 +2268,59 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
     for gname in ("sdf", "deform", group):
         gm = dm[f"{gname}_grad_max"]
         check(all(g > 0 for g in gm), f"{what}: zero {gname} gradient: {gm}")
-    check(all(n > 0 for n in dm["n_faces"]),
-          f"{what}: an empty surface: {dm['n_faces']}")
+    surface_checks(dm, what)
     _check_outputs(ws, dm, what)
     return dm, launches
 
 
-def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc):
+def surface_line(dm) -> str:
+    """The run's face counts and fullest tiles against their caps."""
+    return (f"faces {dm['n_faces_true'][0]} -> {dm['n_faces_true'][-1]} "
+            f"(most {max(dm['n_faces_true'])}) of max_tris "
+            f"{dm['max_tris_at'][0]} -> {dm['max_tris']}, fullest tile "
+            f"{dm['tile_max'][0]} -> {dm['tile_max'][-1]} (most "
+            f"{max(dm['tile_max'])}) of tile_cap {dm['tile_cap']}")
+
+
+def surface_checks(dm, what) -> None:
+    """A non-empty surface; at every step its true face count within the
+    marching tets' cap and K7's fullest tile within the tile cap (no face
+    dropped, no tile's list cut)."""
+    check(all(n > 0 for n in dm["n_faces"]),
+          f"{what}: an empty surface: {dm['n_faces']}")
+    over = [(s, n, c) for s, (n, c) in enumerate(zip(dm["n_faces_true"],
+                                                     dm["max_tris_at"]))
+            if n > c]
+    check(not over and not dm["faces_dropped_steps"], f"{what}: faces "
+          f"dropped (step, true count, max_tris): {over[:10]}")
+    cut = [(s, n, dm["tile_cap"]) for s, n in enumerate(dm["tile_max"])
+           if n > dm["tile_cap"]]
+    check(not cut and not dm["tile_cut_steps"], f"{what}: tile lists cut "
+          f"(step, fullest tile, tile_cap): {cut[:10]}")
+
+
+def sd_step_launches(torch, kernels, n_steps) -> dict:
+    """K10's, K11's and K12's launches in `n_steps` SD main-phase steps
+    (each through the VAE): every route exactly, the mma.sync convs
+    never."""
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    want = sd_groupnorm_launches(torch, K11, kernels.sm_count(
+        torch.device("cuda")), n_steps, n_steps)
+    want.update({k: n * n_steps for k, n in SD_DGRADS.items()})
+    want.update({k: n * n_steps for k, n in SD21_UNET_ATTNS.items()})
+    want.update(attention_fwd_wgmma_d512=n_steps,
+                attention_bwd_wgmma=n_steps, conv_fwd_mma=0, conv_dgrad=0)
+    return want
+
+
+def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc,
+                        sd=False):
     """One DMTet step of the run `flags` describes (built as main builds
     it), the counters reset just before it: its one view's albedo query
     launches the encoder `enc`'s forward once and its backward with the
     position gradient once, and the table-only backward never; K7 and K8
-    launch exactly ``DMTET_STEP_LAUNCHES``."""
+    launch exactly ``DMTET_STEP_LAUNCHES``; with `sd`, K10-K12 exactly as
+    one SD VAE step launches them (``sd_step_launches``)."""
     args = port_main.build_parser().parse_args(
         flags + ["--workspace", ws, "--iters", "2"])
     cfg = port_main.config_from_args(args)
@@ -2208,8 +2342,34 @@ def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc):
     k4 = {k: kernels.LAUNCHES[k] for k in RENDER_KERNELS}
     want4 = {k: int(k.startswith("field_head")) for k in k4}
     check(k4 == want4, f"{what}: one step launched K3/K4 {k4}, not {want4}")
+    if sd:
+        want_sd = sd_step_launches(torch, kernels, 1)
+        got_sd = {k: kernels.LAUNCHES[k] for k in want_sd}
+        check(got_sd == want_sd, f"{what}: one step launched K10-K12 "
+              f"{got_sd}, not {want_sd}")
+        k4 = {**k4, "K10-K12": sum(got_sd.values())}
     log(f"{what}: one step ({cfg.batch_size} view) launched {enc} {got}, "
         f"K7/K8 {k78}, K3/K4 {k4}")
+
+
+def dmtet_sd_path(torch, port_main, kernels, ws, init_with, smi_line):
+    """The DMTet stage under SD 2.1 at full width from a stage-1
+    checkpoint, the counters reset just before it: ``dmtet_path``'s checks
+    and every K10-K12 route exactly as ``sd_step_launches`` counts."""
+    flags = DMTET_SD_FLAGS + ["--init_with", init_with]
+    dm, launches = dmtet_path(torch, port_main, kernels, flags,
+                              DMTET_SD_STEPS, ws, "DMTet SD",
+                              DMTET_KERNELS + SD_TOWER_KERNELS, "triplane",
+                              smi_line)
+    want = sd_step_launches(torch, kernels, DMTET_SD_STEPS)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"DMTet SD: K10-K12 launched {got} in "
+          f"{DMTET_SD_STEPS} steps, not {want}")
+    log(f"DMTet SD: K10-K12 launched exactly as {DMTET_SD_STEPS} SD VAE "
+        f"steps ({sum(got.values())} launches over {len(got)} routes); "
+        f"init {dm['init_seconds']:.3f} s")
+    dmtet_view_launches(torch, port_main, kernels, flags, ws + "_view",
+                        "DMTet SD", "triplane", sd=True)
 
 
 def choose_clip_limit(torch, port_main, ws):
@@ -2339,8 +2499,6 @@ def image_dmtet_path(torch, port_main, kernels, flags, ws, smi_line):
         check(launches[name] >= IMAGE_DMTET_STEPS,
               f"{name} launched {launches[name]} times in "
               f"{IMAGE_DMTET_STEPS} steps")
-    check(all(n < dm["max_tris"] for n in dm["n_faces"]),
-          f"DMTet image: face counts over max_tris: {dm['n_faces']}")
     return launches
 
 
@@ -2403,6 +2561,11 @@ def run() -> dict:
     stage1_step_launches(torch, port_main, kernels, FLAGSHIP, ws + "_step",
                          "oracle")
     bake_kernel_phase(torch, results, summary["mesh_path"])
+    t_k = time.time()
+    dmtet_surface_raster_phase(torch, results, port_main,
+                               os.path.join(ws, "checkpoints"),
+                               os.path.join(build, "chip_smoke_k7_ws"))
+    log(f"K7 phase at the DMTet surface in {time.time() - t_k:.1f} s")
     sd_launches = sd_path(torch, port_main, kernels, SD_FLAGS,
                           os.path.join(build, "chip_smoke_sd_ws"), "SD",
                           "triplane", smi_line)
@@ -2414,11 +2577,12 @@ def run() -> dict:
             "--init_with", os.path.join(ws, "checkpoints")], DMTET_STEPS,
         os.path.join(build, "chip_smoke_dmtet_ws"), "DMTet", DMTET_KERNELS,
         "triplane", smi_line)
-    check(all(n < dm["max_tris"] for n in dm["n_faces"]),
-          f"DMTet: face counts over max_tris: {dm['n_faces']}")
     dmtet_view_launches(torch, port_main, kernels, DMTET_FLAGS + [
         "--init_with", os.path.join(ws, "checkpoints")],
         os.path.join(build, "chip_smoke_dmtet_view_ws"), "DMTet", "triplane")
+    dmtet_sd_path(torch, port_main, kernels,
+                  os.path.join(build, "chip_smoke_dmtet_sd_ws"),
+                  os.path.join(ws, "checkpoints"), smi_line)
 
     # ---- the same on the hash grid (slice 4) --------------------------------
     ws = os.path.join(build, "chip_smoke_grid_ws")

@@ -15,7 +15,8 @@
 //     their compacted slots: the TPU top_k's order, valid slots first in
 //     slot order), the edges' (crossing test, interpolated vertex) and a
 //     few tail blocks that wait for the last tet block's total and zero the
-//     slots past it (faces, mask, face_info).  Beside the faces it records
+//     slots past it (faces, mask, face_info); the first of them writes the
+//     total, the surface's true face count before the max_tris cut.  Beside the faces it records
 //     each tet triangle's slot (tri_slot, -1 when a tet has one triangle or
 //     the slot fell past max_tris) and each slot's (tet, triangle, tet
 //     index) (face_info), which the regularizers use.  The look-back flags
@@ -205,7 +206,8 @@ __global__ void __launch_bounds__(kBlock) mt_fwd_kernel(
     int nbE, unsigned long long* status, unsigned* done,
     float* __restrict__ verts, uint8_t* __restrict__ crossing,
     int* __restrict__ faces, uint8_t* __restrict__ mask,
-    int* __restrict__ tri_slot, int* __restrict__ face_info) {
+    int* __restrict__ tri_slot, int* __restrict__ face_info,
+    int* __restrict__ n_faces) {
   __shared__ int s_warp[32];
   __shared__ int s_total, s_prefix, s_last;
   const int tid = threadIdx.x;
@@ -269,6 +271,7 @@ __global__ void __launch_bounds__(kBlock) mt_fwd_kernel(
       }
       const unsigned long long total = w & kValue;
       s_total = total < (unsigned long long)max_tris ? (int)total : max_tris;
+      if (b == nbT + nbE) *n_faces = (int)total;
     }
     __syncthreads();
     const int z = b - nbT - nbE;
@@ -704,18 +707,21 @@ inline unsigned loss_blocks(int64_t n) {
 }  // namespace
 
 // status [>= nbT] uint64 and done [1]: zero before the first launch; the
-// kernel leaves them zero
+// kernel leaves them zero.  n_faces [1]: the surface's face count, the
+// slots past max_tris included
 extern "C" int marching_tets_fwd(const float* pos, const float* sdf,
                                  const int* tets, const int* tet_edges,
                                  const int* unique_edges, int F, int E,
                                  int max_tris, unsigned long long* status,
                                  unsigned* done, float* verts,
                                  uint8_t* crossing, int* faces, uint8_t* mask,
-                                 int* tri_slot, int* face_info, void* stream) {
+                                 int* tri_slot, int* face_info, int* n_faces,
+                                 void* stream) {
   const int nbT = (int)blocks(F, kBlock), nbE = (int)blocks(E, kBlock);
   mt_fwd_kernel<<<nbT + nbE + kTail, kBlock, 0, (cudaStream_t)stream>>>(
       pos, sdf, tets, tet_edges, unique_edges, F, E, max_tris, nbT, nbE,
-      status, done, verts, crossing, faces, mask, tri_slot, face_info);
+      status, done, verts, crossing, faces, mask, tri_slot, face_info,
+      n_faces);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,9 @@
 // its margin winner are summed in shared memory per listed triangle ((x, y,
 // z, -) for each of its vertices), and each triangle with a non-zero sum
 // adds them to its vertices' rows with one float4 reduction each; pixels whose
-// cotangents are zero take no part.  interpolate_bwd does the same for the
+// cotangents are zero take no part.  A list longer than kWindow is summed in
+// windows of kWindow slots (the pixel's terms kept in registers), so the
+// shared memory does not grow with tile_cap.  interpolate_bwd does the same for the
 // attributes' gradient and writes d bary per pixel.  A null cotangent
 // reads as zero (no zero-filled plane).
 //
@@ -50,7 +52,11 @@
 
 namespace {
 
-constexpr int kMaxCap = 1024;
+// slots are 16 bits, 0xffff for none
+constexpr int kMaxCap = 65535;
+// listed triangles whose gradient sums a backward pass holds in shared
+// memory: a longer list is reduced in windows
+constexpr int kWindow = 1024;
 constexpr int kMaxTiles = 4096;
 constexpr int kStage = 256;      // listed triangles staged per pass
 constexpr int kCoef = 12;        // cu[3] cv[3] cz[3] scale pad pad
@@ -370,16 +376,18 @@ __global__ void __launch_bounds__(256, 4) raster_bwd_kernel(
     const float* __restrict__ alpha, const float* __restrict__ g_bary,
     const float* __restrict__ g_depth, const float* __restrict__ g_alpha,
     int H, int W, int tile, int cap, float soft, float* __restrict__ gs) {
-  extern __shared__ float s_acc[];        // [n][3 vertices][x, y, z, -]
+  extern __shared__ float s_acc[];  // [kWindow][3 vertices][x, y, z, -]
   const int tid = threadIdx.x;
   const int tx = blockIdx.x, ty = blockIdx.y;
   const int g = ty * gridDim.x + tx;
   const int count = counts[g];
   const int n = count < cap ? count : cap;
   const int* list = lists + (int64_t)g * cap;
-  for (int i = tid; i < 12 * n; i += blockDim.x) s_acc[i] = 0.f;
-  __syncthreads();
 
+  // this pixel's terms: its winner's (x, y, z of each vertex, at list slot
+  // ws) and its margin winner's (x, y of each vertex, at slot ms)
+  float tw[9], tm[6];
+  int ws = -1, ms = -1;
   const int pix = blockIdx.z * blockDim.x + tid;   // this part's pixels
   const int x = tx * tile + pix % tile, y = ty * tile + pix / tile;
   if (x < W && y < H) {
@@ -398,28 +406,29 @@ __global__ void __launch_bounds__(256, 4) raster_bwd_kernel(
         const float z0 = sz[f[0]], z1 = sz[f[1]], z2 = sz[f[2]];
         const float Gu = gu - gw + gd * (z1 - z0);
         const float Gv = gv - gw + gd * (z2 - z0);
-        float* a = s_acc + 12 * (sl & kNoSlot);
+        for (int i = 0; i < 9; ++i) tw[i] = 0.f;
         if (Gu != 0.f || Gv != 0.f) {
           float dbu[6], dbv[6];
           bary_grads(tr, px, py, dbu, dbv);
           for (int k = 0; k < 3; ++k) {
-            atomicAdd(a + 4 * k, Gu * dbu[2 * k] + Gv * dbv[2 * k]);
-            atomicAdd(a + 4 * k + 1, Gu * dbu[2 * k + 1] + Gv * dbv[2 * k + 1]);
+            tw[3 * k] = Gu * dbu[2 * k] + Gv * dbv[2 * k];
+            tw[3 * k + 1] = Gu * dbu[2 * k + 1] + Gv * dbv[2 * k + 1];
           }
         }
         if (gd != 0.f) {
-          atomicAdd(a + 2, gd * (1.f - tr.bu - tr.bv));
-          atomicAdd(a + 6, gd * tr.bu);
-          atomicAdd(a + 10, gd * tr.bv);
+          tw[2] = gd * (1.f - tr.bu - tr.bv);
+          tw[5] = gd * tr.bu;
+          tw[8] = gd * tr.bv;
         }
+        ws = (int)(sl & kNoSlot);
       }
     }
-    const unsigned ms = sl >> 16;
-    if (soft > 0.f && ms != kNoSlot && g_alpha) {
+    const unsigned msl = sl >> 16;
+    if (soft > 0.f && msl != kNoSlot && g_alpha) {
       const float al = alpha[p];
       const float Gm = g_alpha[p] * al * (1.f - al) * 4.f / soft;
       if (Gm != 0.f) {
-        const int* f = faces + 3 * list[ms];
+        const int* f = faces + 3 * list[msl];
         const Tri tr = load_tri(sx, sy, f, px, py);
         const float bw = 1.f - tr.bu - tr.bv;
         // min(min(bu, bv), bw): the first of a tie, as fminf picks
@@ -436,17 +445,32 @@ __global__ void __launch_bounds__(256, 4) raster_bwd_kernel(
         const float e0x = tr.x[1] - tr.x[0], e0y = tr.y[1] - tr.y[0];
         const float e1x = tr.x[2] - tr.x[0], e1y = tr.y[2] - tr.y[0];
         const float dden[6] = {e0y - e1y, e1x - e0x, e1y, -e1x, -e0y, e0x};
-        float* a = s_acc + 12 * ms;
         for (int i = 0; i < 6; ++i) {
           const float db = k == 0 ? dbu[i] : k == 1 ? dbv[i] : -dbu[i] - dbv[i];
-          atomicAdd(a + 4 * (i >> 1) + (i & 1),
-                    Gm * (scale * db + bmin * ds * dden[i]));
+          tm[i] = Gm * (scale * db + bmin * ds * dden[i]);
         }
+        ms = (int)msl;
       }
     }
   }
-  __syncthreads();
-  flush_slots(s_acc, n, 4, list, faces, gs);
+  // the list's sums, kWindow slots at a time
+  for (int w0 = 0; w0 < n; w0 += kWindow) {
+    const int m = n - w0 < kWindow ? n - w0 : kWindow;
+    for (int i = tid; i < 12 * m; i += blockDim.x) s_acc[i] = 0.f;
+    __syncthreads();
+    if (ws >= w0 && ws < w0 + m) {
+      float* a = s_acc + 12 * (ws - w0);
+      for (int k = 0; k < 3; ++k)
+        for (int c = 0; c < 3; ++c) atomicAdd(a + 4 * k + c, tw[3 * k + c]);
+    }
+    if (ms >= w0 && ms < w0 + m) {
+      float* a = s_acc + 12 * (ms - w0);
+      for (int i = 0; i < 6; ++i) atomicAdd(a + 4 * (i >> 1) + (i & 1), tm[i]);
+    }
+    __syncthreads();
+    flush_slots(s_acc, m, 4, list + w0, faces, gs);
+    __syncthreads();
+  }
 }
 
 __global__ void interpolate_fwd_kernel(
@@ -475,37 +499,51 @@ __global__ void __launch_bounds__(256, 4) interpolate_bwd_kernel(
     const int* __restrict__ faces, const float* __restrict__ g_out, int H,
     int W, int tile, int cap, int C, int CP, float* __restrict__ g_attrs,
     float* __restrict__ g_bary) {
-  extern __shared__ float s_acc[];        // [n][3 vertices][CP]
+  extern __shared__ float s_acc[];        // [kWindow][3 vertices][CP]
   const int tid = threadIdx.x;
   const int tx = blockIdx.x, ty = blockIdx.y;
   const int g = ty * gridDim.x + tx;
   const int count = counts[g];
   const int n = count < cap ? count : cap;
   const int* list = lists + (int64_t)g * cap;
-  for (int i = tid; i < 3 * CP * n; i += blockDim.x) s_acc[i] = 0.f;
-  __syncthreads();
   const int pix = blockIdx.z * blockDim.x + tid;   // this part's pixels
   const int x = tx * tile + pix % tile, y = ty * tile + pix / tile;
+  int64_t p = 0;
+  int ws = -1;                             // the winner's list slot
+  float b[3] = {0.f, 0.f, 0.f};
   if (x < W && y < H) {
-    const int64_t p = (int64_t)y * W + x;
+    p = (int64_t)y * W + x;
     const int t = tri_id[p];
     float gb[3] = {0.f, 0.f, 0.f};
     if (t >= 0) {
       const int* f = faces + 3 * t;
-      const float b[3] = {bary[3 * p], bary[3 * p + 1], bary[3 * p + 2]};
-      float* a = s_acc + 3 * CP * (slots[p] & kNoSlot);
+      for (int k = 0; k < 3; ++k) b[k] = bary[3 * p + k];
       for (int c = 0; c < C; ++c) {
         const float gc = g_out[p * C + c];
         for (int k = 0; k < 3; ++k) gb[k] += gc * attrs[(int64_t)f[k] * C + c];
+      }
+      ws = (int)(slots[p] & kNoSlot);
+    }
+    for (int k = 0; k < 3; ++k) g_bary[3 * p + k] = gb[k];
+  }
+  // the list's sums, kWindow slots at a time
+  for (int w0 = 0; w0 < n; w0 += kWindow) {
+    const int m = n - w0 < kWindow ? n - w0 : kWindow;
+    for (int i = tid; i < 3 * CP * m; i += blockDim.x) s_acc[i] = 0.f;
+    __syncthreads();
+    if (ws >= w0 && ws < w0 + m) {
+      float* a = s_acc + 3 * CP * (ws - w0);
+      for (int c = 0; c < C; ++c) {
+        const float gc = g_out[p * C + c];
         if (gc != 0.f) {
           for (int k = 0; k < 3; ++k) atomicAdd(a + k * CP + c, gc * b[k]);
         }
       }
     }
-    for (int k = 0; k < 3; ++k) g_bary[3 * p + k] = gb[k];
+    __syncthreads();
+    flush_slots(s_acc, m, CP, list + w0, faces, g_attrs);
+    __syncthreads();
   }
-  __syncthreads();
-  flush_slots(s_acc, n, CP, list, faces, g_attrs);
 }
 
 inline unsigned blocks(int64_t n, int per) {
@@ -568,7 +606,8 @@ extern "C" int raster_bwd(const float* sx, const float* sy, const float* sz,
                           const float* g_alpha, int H, int W, int tile,
                           int cap, float soft, float* gs, void* stream) {
   const int ntx = (W + tile - 1) / tile, nty = (H + tile - 1) / tile;
-  const size_t smem = (size_t)12 * cap * sizeof(float);
+  const int win = cap < kWindow ? cap : kWindow;
+  const size_t smem = (size_t)12 * win * sizeof(float);
   cudaError_t e = allow_smem(raster_bwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (ntx > 0 && nty > 0)
@@ -598,7 +637,8 @@ extern "C" int interpolate_bwd(const float* attrs, const float* bary,
                                float* g_attrs, float* g_bary, void* stream) {
   const int ntx = (W + tile - 1) / tile, nty = (H + tile - 1) / tile;
   if (CP % 4 != 0 || CP < C) return -1;
-  const size_t smem = (size_t)3 * CP * cap * sizeof(float);
+  const int win = cap < kWindow ? cap : kWindow;
+  const size_t smem = (size_t)3 * CP * win * sizeof(float);
   cudaError_t e = allow_smem(interpolate_bwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (ntx > 0 && nty > 0)

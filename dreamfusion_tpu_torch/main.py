@@ -15,6 +15,10 @@
     python -m dreamfusion_tpu_torch.main --guidance oracle \\
         --backbone grid --dmtet --init_with ws/checkpoints --lr 0.002 \\
         --iters 5000 --save_mesh --workspace ws_dmtet  # stage 2 (DMTet)
+    python -m dreamfusion_tpu_torch.main --text "a hamburger" \\
+        --backbone triplane --seed 0 --lambda_3d_normal_smooth 0 --dmtet \\
+        --init_with ws/checkpoints --lr 0.002 --save_mesh \\
+        --workspace ws_dmtet_sd        # stage 2 under SD (512² VAE encode)
     python -m dreamfusion_tpu_torch.main --image analytic:two_sphere \\
         --guidance image_oracle --guidance_scale 1.0 --lr 0.01 \\
         --backbone triplane --seed 0 --save_mesh --ckpt scratch \\
@@ -50,7 +54,9 @@ and, with ``--save_mesh``, ``mesh/mesh.obj`` with its albedo texture.
 ``--test`` renders and exports from the checkpoint without training.
 Under the oracles it also logs the analytic-scene PSNR of the EMA weights at
 the start and the end, and under ``--image`` (stage 1) the known-view masked
-PSNR.  Flags of parts not ported yet raise
+PSNR.  A DMTet run logs when its surface outgrew the marching tets' face
+cap (the cap then grows) or K7's tile cap, and reports the steps that
+dropped faces or cut a tile's list.  Flags of parts not ported yet raise
 NotImplementedError naming the ROADMAP queue 1 item (by its title) that
 ports them.
 """
@@ -164,15 +170,6 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
         # the weight-free image run: the analytic scene's default view
         ref = analytic_ref_images(cfg, cfg.h, cfg.w,
                                   cfg.image.split(":", 1)[1])
-    if cfg.dmtet:
-        trainer = DMTetTrainer(cfg, device, ref_images=ref)
-        t_i = time.time()
-        state = trainer.init_state(seed, cfg.init_with)
-        _sync(trainer.device)
-        trainer.init_seconds = time.time() - t_i
-        log(f"[startup] DMTet state from {cfg.init_with or 'a sphere'} in "
-            f"{trainer.init_seconds:.3f} s")
-        return trainer, state, torch.Generator(device=device).manual_seed(seed)
     guidance = emb = None
     if cfg.guidance == ("SD",) and not cfg.test:
         t_g = time.time()
@@ -184,6 +181,15 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
             f"weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
             f"{n['text']:.2f}M parameters) and embeddings in "
             f"{time.time() - t_g:.1f} s")
+    if cfg.dmtet:
+        trainer = DMTetTrainer(cfg, device, guidance, emb, ref_images=ref)
+        t_i = time.time()
+        state = trainer.init_state(seed, cfg.init_with)
+        _sync(trainer.device)
+        trainer.init_seconds = time.time() - t_i
+        log(f"[startup] DMTet state from {cfg.init_with or 'a sphere'} in "
+            f"{trainer.init_seconds:.3f} s")
+        return trainer, state, torch.Generator(device=device).manual_seed(seed)
     trainer = Trainer(cfg, device, guidance, emb, ref_images=ref)
     state = trainer.init_state(seed)
     return trainer, state, torch.Generator(device=device).manual_seed(seed)
@@ -218,6 +224,9 @@ def main(argv=None) -> Dict[str, Any]:
         state, loaded = trainer.load_checkpoint(state, cfg.ckpt)
         if loaded:
             log(f"[ckpt] resumed from step {state.step}")
+            if cfg.dmtet:
+                trainer.fit_caps(trainer.geo_params(state.model,
+                                                    state.tet_scale))
     summary: Dict[str, Any] = {"device": str(device), "steps": cfg.iters,
                                "phases": {}}
     phases = summary["phases"]
@@ -260,6 +269,7 @@ def main(argv=None) -> Dict[str, Any]:
 
     ok = torch.ones((), dtype=torch.bool, device=device)
     losses, blocks, grad_max, extra = [], [], [], []
+    caps = []           # DMTet: max_tris at each step
     names = [n for n, _ in trainer.module(state).named_parameters()]
     # per step, the largest |gradient| of each watched group: the encoder
     # (the hash table or the triplanes), and the DMTet geometry
@@ -275,6 +285,8 @@ def main(argv=None) -> Dict[str, Any]:
     n_known = 0
     for _ in range(start, cfg.iters):
         n_known += trainer.is_known_view_step(state.step)
+        if cfg.dmtet:
+            caps.append(trainer.dmtet_renderer.max_tris)
         metrics, grads = trainer.run_step(state, gen)
         ok &= metrics["grad_ok"]
         grad_max.append(torch.stack([
@@ -282,12 +294,18 @@ def main(argv=None) -> Dict[str, Any]:
             for idx in groups.values()]))
         if cfg.dmtet:
             extra.append(torch.stack([metrics["n_faces"].float(),
+                                      metrics["n_faces_true"].float(),
+                                      metrics["tile_max"].float(),
                                       metrics["normal_loss"],
                                       metrics["lap_loss"]]))
         done = state.step
         if done % cfg.dataset_size_train == 0 or done == cfg.iters:
             loss = float(metrics["loss"])          # waits for the device
             now = time.time()
+            if cfg.dmtet:
+                # the block's largest counts: the device is done
+                peak = torch.stack(extra[s_blk - start:])[:, 1:3].amax(0)
+                trainer.check_caps(*map(int, peak.tolist()), done)
             rate = (done - s_blk) / (now - t_blk)
             losses.append(loss)
             blocks.append((done - s_blk, now - t_blk))
@@ -321,10 +339,27 @@ def main(argv=None) -> Dict[str, Any]:
            for k, g in enumerate(groups)})
     if cfg.dmtet and extra:
         ex = torch.stack(extra).tolist()
-        summary.update(n_faces=[int(r[0]) for r in ex],
-                       normal_loss=[r[1] for r in ex],
-                       lap_loss=[r[2] for r in ex],
-                       max_tris=trainer.dmtet_renderer.max_tris)
+        true = [int(r[1]) for r in ex]
+        tiles = [int(r[2]) for r in ex]
+        dmr = trainer.dmtet_renderer
+        dropped = [(start + i, n - c) for i, (n, c) in
+                   enumerate(zip(true, caps)) if n > c]
+        cut = [start + i for i, n in enumerate(tiles) if n > dmr.tile_cap]
+        summary.update(n_faces=[int(r[0]) for r in ex], n_faces_true=true,
+                       tile_max=tiles, normal_loss=[r[3] for r in ex],
+                       lap_loss=[r[4] for r in ex],
+                       max_tris_at=caps,
+                       max_tris=dmr.max_tris, tile_cap=dmr.tile_cap,
+                       faces_dropped_steps=[s for s, _ in dropped],
+                       faces_dropped=sum(n for _, n in dropped),
+                       tile_cut_steps=cut)
+        if dropped:
+            log(f"[dmtet] {len(dropped)} steps dropped "
+                f"{summary['faces_dropped']} faces in all, from step "
+                f"{dropped[0][0]} to {dropped[-1][0]}")
+        if cut:
+            log(f"[dmtet] {len(cut)} steps cut a tile's list, from step "
+                f"{cut[0]} to {cut[-1]}")
     if oracle:
         psnr1 = trainer.oracle_eval_metric(state)
         log(f"[eval] step {state.step} oracle PSNR {psnr1:.4f} dB")

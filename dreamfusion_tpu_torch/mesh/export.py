@@ -5,7 +5,8 @@ texture bake → OBJ + MTL + albedo PNG.  The surface comes from the field
 (stage 1) or from the DMTet geometry (stage 2).  Marching cubes, clean,
 decimate and unwrap are the host library ``native/meshops``; the bake
 rasterizes the UV atlas with K7 forward (``soft_edge_px`` 0, ``tile_cap``
-min(1024, T)), interpolates world positions per texel, queries the field's
+the kernel's most, where JAX's is min(1024, T): no texel loses a
+triangle), interpolates world positions per texel, queries the field's
 albedo there on the device and fills the gutters by nearest covered texel
 (an exact EDT, scipy).  The export runs on the trainer's device.
 """
@@ -21,7 +22,7 @@ import torch
 
 from ..core.sampling import linspace
 from ..native import meshops
-from ..ops.raster import interpolate, rasterize
+from ..ops.raster import MAX_TILE_CAP, interpolate, rasterize
 from ..utils.image import save_image
 
 
@@ -124,8 +125,14 @@ def bake_texture(trainer, state, verts: np.ndarray, tris: np.ndarray,
     faces = torch.from_numpy(np.ascontiguousarray(tris, np.int32)).to(dev)
     out = rasterize(torch.from_numpy(clip).to(dev), faces,
                     torch.ones(len(tris), dtype=torch.bool, device=dev),
-                    tex_res, tex_res, tile=32,
-                    tile_cap=min(1024, len(tris)), soft_edge_px=0.0)
+                    tex_res, tex_res, tile=32, tile_cap=MAX_TILE_CAP,
+                    soft_edge_px=0.0)
+    if len(tris) > MAX_TILE_CAP:
+        fullest = int(out.tile_counts.max())
+        if fullest > MAX_TILE_CAP:
+            trainer.log(f"[export_mesh] the bake's fullest tile lists "
+                        f"{fullest} triangles, over tile_cap {MAX_TILE_CAP}:"
+                        f" its texels see the first {MAX_TILE_CAP}")
     xyz = interpolate(torch.from_numpy(np.asarray(verts, np.float32)).to(dev),
                       out, faces).reshape(-1, 3)
     cols = torch.cat([torch.round(torch.clamp(

@@ -22,7 +22,8 @@ from ..mesh.tets import TetGrid
 from ..ops.marching_tets import (TetMesh, laplacian_smooth_loss,
                                  marching_tets, normal_consistency_loss,
                                  tet_topology, vertex_normals)
-from ..ops.raster import interpolate, project_verts, rasterize
+from ..ops.raster import (MAX_TILE_CAP, interpolate, project_verts,
+                          rasterize)
 
 
 class DMTetParams(NamedTuple):
@@ -36,7 +37,9 @@ class DMTetRenderer:
     grid: TetGrid
     max_tris: int = 1 << 17
     tile: int = 32
-    tile_cap: int = 512
+    # every triangle whose box touches a tile, as far as the kernel's 16-bit
+    # list slots reach (JAX keeps 512); no part of K7 slows with the cap
+    tile_cap: int = MAX_TILE_CAP
     soft_edge_px: float = 1.0
     device: torch.device = torch.device("cpu")
 
@@ -115,7 +118,8 @@ class DMTetRenderer:
                bg_color=1.0, need_regularizers: bool = False,
                mesh: Optional[TetMesh] = None) -> Dict[str, torch.Tensor]:
         """One view: mvp [4,4], rays [H*W, 3] → image [H,W,3], depth,
-        weights_sum (alpha), normal_image and, when asked, the normal and
+        weights_sum (alpha), normal_image, tile_counts (K7's triangles per
+        tile, before its tile_cap cut) and, when asked, the normal and
         Laplacian losses.  ``mesh`` reuses an extracted mesh (several views
         of one step)."""
         if mesh is None:
@@ -145,7 +149,8 @@ class DMTetRenderer:
             bg_color, dtype=torch.float32, device=color.device) * (1.0 - alpha)
         results = {"image": image, "depth": out.depth,
                    "weights_sum": out.alpha,
-                   "normal_image": (nrm + 1.0) / 2.0 * alpha}
+                   "normal_image": (nrm + 1.0) / 2.0 * alpha,
+                   "tile_counts": out.tile_counts}
         if need_regularizers:
             results["normal_loss"] = normal_consistency_loss(mesh)
             results["lap_loss"] = laplacian_smooth_loss(mesh)

@@ -1,9 +1,10 @@
 """Build, load and count the port's CUDA kernels.
 
 The CUDA C++ kernels under ``dreamfusion_tpu_torch/csrc/*.cu`` have a
-plain C interface.  At first use, ``cuda_lib()`` compiles all of them in
-ONE ``nvcc -shared`` call for ``sm_90a`` into ``build/torch_kernels/`` at
-the root of the checkout and loads the library with ``ctypes``.  No source
+plain C interface.  At first use, ``cuda_lib()`` compiles them for
+``sm_90a`` into ``build/torch_kernels/`` at the root of the checkout, one
+``nvcc -c`` per source, all started together, then links them into one
+shared library and loads it with ``ctypes``.  No source
 includes PyTorch's headers: a build takes seconds rather than the minutes a
 ``torch/extension.h`` translation unit costs, and a fresh checkout
 starts from an empty build directory.  The library's name carries a hash of
@@ -44,7 +45,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
 # kernel name → launches by its wrapper (see module docstring)
 LAUNCHES: Dict[str, int] = {
@@ -123,7 +124,7 @@ _SIGNATURES = {
     "raster_bwd": [_P] * 12 + [_I] * 4 + [_F] + [_P] + [_P],
     "interpolate_fwd": [_P] * 4 + [_I] * 2 + [_P, _P],
     "interpolate_bwd": [_P] * 8 + [_I] * 6 + [_P] * 2 + [_P],
-    "marching_tets_fwd": [_P] * 5 + [_I] * 3 + [_P] * 8 + [_P],
+    "marching_tets_fwd": [_P] * 5 + [_I] * 3 + [_P] * 9 + [_P],
     "marching_tets_bwd": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I, _P],
     "vertex_normals_fwd": [_P] * 6 + [_I] + [_P] * 2 + [_P],
     "vertex_normals_bwd": [_P] * 10 + [_I] * 2 + [_P] * 2 + [_P],
@@ -171,12 +172,30 @@ def _build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
+    # one compiler a source, all at once: the build takes the longest
+    # source's time, not the sum
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_LOG = "".join(logs)
+    failed = [s.name for s, p in zip(sources, procs) if p.returncode != 0]
     tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        BUILD_LOG += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["the link"]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           f"{BUILD_LOG}")
     (BUILD_DIR / (out.stem + ".log")).write_text(BUILD_LOG)
     os.replace(tmp, out)
     return out

@@ -6,7 +6,10 @@
 The tet grid's unique-edge topology is static (``mesh/tets.py``), so each
 surface vertex lives at its edge's slot; every tet emits up to 2 triangles
 and the valid ones are compacted, in slot order, into a ``max_tris``
-buffer with a mask.  On CUDA tensors each function, forward and backward,
+buffer with a mask; the mesh also carries the surface's true face count
+(``TetMesh.n_faces``, the slots past ``max_tris`` included, on the
+device), so that a caller can see the faces the cut dropped.  On CUDA
+tensors each function, forward and backward,
 is one launch of ``csrc/marching_tets.cu``: the forward also records each
 tet triangle's slot (``MeshSlots``), and with the grid's static adjacency
 (``tet_topology``, built once per grid) the backward and the regularizers
@@ -73,6 +76,9 @@ class TetMesh(NamedTuple):
     vert_valid: torch.Tensor  # [E] bool — edge actually crossed
     faces: torch.Tensor       # [max_tris, 3] int32 into verts
     face_mask: torch.Tensor   # [max_tris] bool
+    # [] int: the surface's faces before the max_tris cut (> the mask's sum
+    # when faces were dropped); None only where a caller built the mesh
+    n_faces: Optional[torch.Tensor] = None
     # the kernel's slots (``MeshSlots``), which the card's regularizers
     # gather by; None from the plain version
     slots: Optional["MeshSlots"] = None
@@ -108,7 +114,8 @@ def marching_tets_plain(vert_pos, sdf, tets, tet_edges, unique_edges,
     idx = torch.sort((~mask_all).to(torch.uint8), stable=True)[1][:max_tris]
     face_mask = mask_all[idx]
     faces = torch.where(face_mask[:, None], faces_all[idx], 0)
-    return TetMesh(verts, crossing, faces.to(torch.int32), face_mask)
+    return TetMesh(verts, crossing, faces.to(torch.int32), face_mask,
+                   mask_all.sum().to(torch.int32))
 
 
 def _face_cross(verts, faces):
@@ -335,22 +342,24 @@ class _MarchingTetsCuda(torch.autograd.Function):
         mask = torch.empty(max_tris, device=dev, dtype=torch.uint8)
         tri_slot = torch.empty(2 * F, **i32)
         face_info = torch.empty(max_tris, **i32)
+        n_faces = torch.empty((), **i32)
         status = kernels.zeroed(dev, "mt_status", -(-F // 1024),
                                 torch.int64)
         done = kernels.zeroed(dev, "mt_done", 1)
         kernels.launch("marching_tets_fwd", P(vert_pos), P(sdf), P(tets),
                        P(tet_edges), P(unique_edges), F, E, max_tris,
                        P(status), P(done), P(verts), P(crossing), P(faces),
-                       P(mask), P(tri_slot), P(face_info))
+                       P(mask), P(tri_slot), P(face_info), P(n_faces))
         ctx.save_for_backward(vert_pos, sdf, unique_edges)
         crossing, mask = crossing.view(torch.bool), mask.view(torch.bool)
         ctx.mark_non_differentiable(crossing, faces, mask, tri_slot,
-                                    face_info)
+                                    face_info, n_faces)
         ctx.set_materialize_grads(False)
-        return verts, crossing, faces, mask, tri_slot, face_info
+        return verts, crossing, faces, mask, tri_slot, face_info, n_faces
 
     @staticmethod
-    def backward(ctx, g_verts, g_crossing, g_faces, g_mask, g_slot, g_info):
+    def backward(ctx, g_verts, g_crossing, g_faces, g_mask, g_slot, g_info,
+                 g_n):
         vert_pos, sdf, unique_edges = ctx.saved_tensors
         if g_verts is None:
             return (None,) * 6
@@ -497,11 +506,11 @@ def marching_tets(vert_pos: torch.Tensor, sdf: torch.Tensor,
     if topo is None:
         topo = tet_topology(tets, tet_edges, vert_pos.shape[0],
                             unique_edges.shape[0])
-    verts, crossing, faces, mask, tri_slot, face_info = \
+    verts, crossing, faces, mask, tri_slot, face_info, n_faces = \
         _MarchingTetsCuda.apply(vert_pos.float().contiguous(),
                                 sdf.float().contiguous(), tets, tet_edges,
                                 unique_edges, max_tris)
-    return TetMesh(verts, crossing, faces, mask,
+    return TetMesh(verts, crossing, faces, mask, n_faces,
                    MeshSlots(tri_slot, face_info, topo))
 
 

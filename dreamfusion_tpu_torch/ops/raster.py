@@ -49,6 +49,9 @@ class RasterOut(NamedTuple):
     # the kernel's tile lists (``TileBins``), which ``interpolate``'s
     # backward reduces by; None from the plain version
     bins: Optional["TileBins"] = None
+    # [G] int32: per tile, the triangles whose box touches it, before the
+    # tile_cap cut (> tile_cap where the tile's list dropped some)
+    tile_counts: Optional[torch.Tensor] = None
 
 
 def project_verts(verts: torch.Tensor, mvp: torch.Tensor) -> torch.Tensor:
@@ -130,10 +133,10 @@ def _margin(bu, bv):
     return torch.minimum(torch.minimum(bu, bv), 1.0 - bu - bv)
 
 
-def tile_lists(bb_min, bb_max, valid, H: int, W: int, tile: int,
-               tile_cap: int, soft_edge_px: float):
-    """Per tile, the first ``tile_cap`` overlapping triangles by index →
-    (ids [G, C] with C = min(tile_cap, T), listed [G, C] bool)."""
+def tile_overlap(bb_min, bb_max, valid, H: int, W: int, tile: int,
+                 soft_edge_px: float) -> torch.Tensor:
+    """Whether each valid triangle's padded box touches each tile → [G, T]
+    bool."""
     T = valid.shape[0]
     nty, ntx = -(-H // tile), -(-W // tile)
     pad = soft_edge_px + 1.0
@@ -144,12 +147,23 @@ def tile_lists(bb_min, bb_max, valid, H: int, W: int, tile: int,
     dev = valid.device
     tyi = torch.arange(nty, device=dev)[:, None, None]
     txi = torch.arange(ntx, device=dev)[None, :, None]
-    overlap = (valid & (tx0 <= txi) & (tx1 >= txi) & (ty0 <= tyi)
-               & (ty1 >= tyi)).reshape(nty * ntx, T)
-    C = min(tile_cap, T)
+    return (valid & (tx0 <= txi) & (tx1 >= txi) & (ty0 <= tyi)
+            & (ty1 >= tyi)).reshape(nty * ntx, T)
+
+
+def _first_listed(overlap, tile_cap: int):
+    C = min(tile_cap, overlap.shape[1])
     order = torch.sort((~overlap).to(torch.uint8), dim=1, stable=True)[1]
     ids = order[:, :C]
     return ids, torch.gather(overlap, 1, ids)
+
+
+def tile_lists(bb_min, bb_max, valid, H: int, W: int, tile: int,
+               tile_cap: int, soft_edge_px: float):
+    """Per tile, the first ``tile_cap`` overlapping triangles by index →
+    (ids [G, C] with C = min(tile_cap, T), listed [G, C] bool)."""
+    return _first_listed(tile_overlap(bb_min, bb_max, valid, H, W, tile,
+                                      soft_edge_px), tile_cap)
 
 
 def raster_plain(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
@@ -166,13 +180,18 @@ def raster_plain(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
                          torch.full((H, W), -1, dtype=torch.int32,
                                     device=dev),
                          torch.ones(H, W, device=dev) + z,
-                         torch.zeros(H, W, device=dev) + z)
+                         torch.zeros(H, W, device=dev) + z,
+                         tile_counts=torch.zeros(
+                             -(-H // tile) * -(-W // tile),
+                             dtype=torch.int32, device=dev))
     cu, cv, cz, scale, bb_min, bb_max = _face_coeffs(sx, sy, sz, faces)
     nty, ntx = -(-H // tile), -(-W // tile)
     G, P = nty * ntx, tile * tile
     with torch.no_grad():
-        ids, listed = tile_lists(bb_min, bb_max, valid, H, W, tile, tile_cap,
-                                 soft_edge_px)
+        overlap = tile_overlap(bb_min, bb_max, valid, H, W, tile,
+                               soft_edge_px)
+        tile_counts = overlap.sum(1).to(torch.int32)
+        ids, listed = _first_listed(overlap, tile_cap)
         C = ids.shape[1]
         counts = listed.sum(1)                                 # [G]
         lp = torch.arange(tile, device=dev, dtype=torch.float32) + 0.5
@@ -239,7 +258,8 @@ def raster_plain(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
         alpha = torch.sigmoid(m / soft_edge_px * 4.0)
     else:
         alpha = hit.float()
-    return RasterOut(bary, win.to(torch.int32), depth, alpha)
+    return RasterOut(bary, win.to(torch.int32), depth, alpha,
+                     tile_counts=tile_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +267,7 @@ def raster_plain(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
 # ---------------------------------------------------------------------------
 
 MAX_TILES = 4096        # the binning kernels' shared histograms (2048² at 32)
+MAX_TILE_CAP = 65535    # a pixel's winners are 16-bit list slots
 
 
 class TileBins(NamedTuple):
@@ -262,10 +283,11 @@ def _raster_fwd_cuda(sx, sy, sz, faces, valid, H, W, tile, tile_cap, soft):
     valid8 = valid.contiguous().view(torch.uint8)
     kernels.check_cuda(sx, sy, sz, faces, valid8)
     G = -(-H // tile) * -(-W // tile)
-    if tile * tile % 128 or tile > 32 or tile_cap > 1024 or G > MAX_TILES:
+    if tile * tile % 128 or tile > 32 or tile_cap > MAX_TILE_CAP or \
+            G > MAX_TILES:
         raise ValueError("the raster kernel takes tile <= 32 (a multiple of "
-                         f"128 pixels), tile_cap <= 1024 and <= {MAX_TILES} "
-                         "tiles")
+                         f"128 pixels), tile_cap <= {MAX_TILE_CAP} and <= "
+                         f"{MAX_TILES} tiles")
     T = faces.shape[0]
     dev = sx.device
     cap = min(tile_cap, T)
@@ -331,7 +353,7 @@ def raster_cuda(sx, sy, sz, faces, valid, H: int, W: int, tile: int = 32,
     *out, lists, counts, slots = _RasterCuda.apply(
         sx.contiguous(), sy.contiguous(), sz.contiguous(), faces.contiguous(),
         valid, H, W, tile, tile_cap, float(soft_edge_px))
-    return RasterOut(*out, TileBins(lists, counts, slots, tile))
+    return RasterOut(*out, TileBins(lists, counts, slots, tile), counts)
 
 
 def rasterize(clip_verts: torch.Tensor, faces: torch.Tensor,

@@ -9,6 +9,10 @@
     python -m dreamfusion_tpu_torch.profile_step --guidance oracle \\
         --backbone grid --oracle_scene two_sphere --lr 0.01 --seed 0 \\
         --iters 300 --warmup_steps 20 --profile_steps 20
+    python -m dreamfusion_tpu_torch.profile_step --text "a hamburger" \\
+        --backbone triplane --seed 0 --lambda_3d_normal_smooth 0 --dmtet \\
+        --lr 0.002 --tet_grid_size 128 --init_with ws/checkpoints \\
+        --warmup_steps 5 --profile_steps 10     # the DMTet step under SD
 
 Takes every flag of ``dreamfusion_tpu_torch.main``.  For each phase of the
 run (the SD warm-up, then the main phase; the oracle and the DMTet stage

@@ -4,10 +4,11 @@ dmtet_trainer.py``).
 The second stage of a run (``--dmtet --init_with <stage-1 checkpoint or
 mesh file>``): trainable (sdf, deform) on a tetrahedral grid beside the
 NeRF field, reused as a texture field.  One step: marching tets (K8) →
-rasterization (K7) → albedo query (K6 or K1, + K4) → shading → the pixel
-oracle's or the image oracle's SDS (the gradient clamped by K5 under
-``--grad_clip_rgb``) + normal-consistency and Laplacian regularizers →
-backward → guarded Adan → EMA.  Under ``--image`` every
+rasterization (K7) → albedo query (K6 or K1, + K4) → shading → the SDS of
+the pixel oracle, the image oracle or Stable Diffusion (the VAE encodes the
+render at its own size, 512² at the DMTet preset; the gradient clamped by
+K5 under ``--grad_clip_rgb``) + normal-consistency and Laplacian
+regularizers → backward → guarded Adan → EMA.  Under ``--image`` every
 ``known_view_interval``-th step is a known-view step instead: the reference
 view rendered through K7 at the render's own size, with rgb, mask and the
 mesh regularizers.  ``--lock_geo`` pins (sdf, deform) and their EMA; the
@@ -20,6 +21,17 @@ scaled to the occupied region, sdf = clamp(σ − thresh, −1, 1)) or, from an
 seed.  There is no density grid.  Every random number of a step is drawn up
 front (``draw_dmtet_step``, ``draw_known_view``), so the tests can hand the
 step the JAX package's draws.
+
+Two caps can drop faces: the marching tets keep at most ``max_tris``
+faces, and K7 lists at most ``tile_cap`` triangles per 32² tile.  JAX fixes
+them at max(2^13, 8·size²) and 512.  Here ``init_state`` sizes
+``max_tris`` from the init surface (``fit_caps``: JAX's while the count
+stays under half of it, else the power of two at or above twice the
+count), K7 lists as many as its 16-bit slots reach (``MAX_TILE_CAP``),
+every step reports the true counts (``n_faces_true``, ``tile_max``), and
+``check_caps`` logs any step that dropped faces or cut a tile's list and
+grows ``max_tris`` past the surface, so that no face is dropped without a
+log line saying when and how many.
 """
 
 from __future__ import annotations
@@ -53,14 +65,34 @@ class DMTetDraws(NamedTuple):
     fov: torch.Tensor                  # [] degrees
     choice: schedules.ChoiceDraws
     t: torch.Tensor                    # [B] int64 diffusion timestep
-    noise: torch.Tensor                # [B, h, w, 3] pixel noise
+    noise: torch.Tensor                # [B, h, w, 3] pixel noise (oracles)
+    #                                    or [B, ls, ls, 4] latents (SD)
+    posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
 
 
-def draw_dmtet_step(gen: torch.Generator, cfg: Config, device) -> DMTetDraws:
+def draw_dmtet_step(gen: torch.Generator, cfg: Config, device,
+                    latent_size: Optional[int] = None) -> DMTetDraws:
+    """One step's draws; ``latent_size`` set means SD guidance (latent
+    noise and the VAE posterior draw instead of pixel noise)."""
     pose, fov, choice = draw_view(gen, cfg, device)
     t = draw_t(gen, cfg, device)
     _, N = _samplers(gen, device)
-    return DMTetDraws(pose, fov, choice, t, N(cfg.batch_size, cfg.h, cfg.w, 3))
+    B = cfg.batch_size
+    if latent_size is None:
+        return DMTetDraws(pose, fov, choice, t, N(B, cfg.h, cfg.w, 3))
+    ls = latent_size
+    return DMTetDraws(pose, fov, choice, t, N(B, ls, ls, 4), N(B, ls, ls, 4))
+
+
+def face_cap(n_faces: int, tet_grid_size: int, num_tets: int) -> int:
+    """The marching tets' max_tris for a surface of ``n_faces``: JAX's
+    max(2^13, 8·size²) while the surface fills at most half of it, else
+    the smallest power of two >= 2·n_faces; at most 2·num_tets, every
+    slot: nothing can drop."""
+    jax_cap = max(1 << 13, 8 * tet_grid_size ** 2)
+    cap = jax_cap if 2 * n_faces <= jax_cap else \
+        1 << (2 * n_faces - 1).bit_length()
+    return min(cap, 2 * num_tets)
 
 
 class DMTetKnownViewDraws(NamedTuple):
@@ -93,22 +125,24 @@ class DMTetState:
 class DMTetTrainer(Trainer):
     EXTRA_STATE = ("tet_scale",)
 
-    def __init__(self, cfg: Config, device="cuda",
+    def __init__(self, cfg: Config, device="cuda", guidance=None,
+                 embeddings: Optional[Dict[str, torch.Tensor]] = None,
                  tet_grid: Optional[TetGrid] = None,
-                 max_tris: Optional[int] = None,
                  ref_images: Optional[RefImages] = None):
-        super().__init__(cfg, device, ref_images=ref_images)
+        """``guidance`` and ``embeddings``: SD's towers and prompt
+        embeddings, as ``Trainer``'s."""
+        super().__init__(cfg, device, guidance, embeddings,
+                         ref_images=ref_images)
         if tet_grid is None:
             # a cube lattice of n = size // 2 has the tet density of the
             # reference's quartet grid of that size
             n = max(8, cfg.tet_grid_size // 2)
             tet_grid = load_cached_tet_grid(CACHE_DIR / f"cube_{n}.npz", n)
-        if max_tris is None:
-            # surface ∝ size²: 8·size² is ~4x a converged surface
-            max_tris = max(1 << 13, 8 * cfg.tet_grid_size ** 2)
-        max_tris = min(max_tris, 2 * tet_grid.num_tets)
-        self.dmtet_renderer = DMTetRenderer(tet_grid, max_tris=max_tris,
-                                            device=self.device)
+        # JAX's caps until init_state sizes them from the surface
+        self.dmtet_renderer = DMTetRenderer(
+            tet_grid, max_tris=face_cap(0, cfg.tet_grid_size,
+                                        tet_grid.num_tets),
+            device=self.device)
 
     def module(self, state: DMTetState) -> nn.Module:
         return state.model
@@ -116,7 +150,10 @@ class DMTetTrainer(Trainer):
     # ------------------------------------------------------------------
     def load_stage1_field(self, renderer: NeRFRenderer, path: str) -> None:
         """The stage-1 field's EMA weights from the port's checkpoint (a
-        rolling ``df_ep*.pth``, a ``checkpoints/`` directory or ``df.pth``)."""
+        rolling ``df_ep*.pth``, a ``checkpoints/`` directory or ``df.pth``).
+        A field checkpoint does not depend on the guidance: a run whose
+        stage 1 had no background MLP (the oracles') keeps this run's fresh
+        one, which no DMTet render reads (the background is a colour)."""
         if os.path.isdir(path):
             found = newest_checkpoint(path)
             if found is None:
@@ -124,7 +161,12 @@ class DMTetTrainer(Trainer):
             path = found
         raw = torch.load(path, map_location=self.device)
         src = raw.get("ema", raw.get("ema_params", raw.get("module")))
-        renderer.load_state_dict(src)
+        missing, unexpected = renderer.load_state_dict(src, strict=False)
+        missing = [k for k in missing if not k.startswith("field.bg_net.")]
+        if missing or unexpected:
+            raise RuntimeError(f"the stage-1 checkpoint {path} does not fit "
+                               f"this field: missing {missing}, unexpected "
+                               f"{unexpected}")
         self.log(f"[dmtet] loaded the stage-1 field from {path}")
 
     def init_state(self, seed: int, nerf_ckpt: Optional[str] = None
@@ -149,6 +191,7 @@ class DMTetTrainer(Trainer):
                 lambda x: renderer.density(x)["sigma"], cfg.density_thresh)
         else:
             geo = dmr.init_params_sphere(radius=0.5)
+        self.fit_caps(geo)
         model = DMTetModel(renderer, geo.sdf.float(), geo.deform.float())
         self.optimizer = adan_for(cfg, model)
         return DMTetState(
@@ -159,8 +202,42 @@ class DMTetTrainer(Trainer):
             tet_scale=geo.tet_scale, step=0)
 
     # ------------------------------------------------------------------
+    def _face_cap(self, n_faces: int) -> int:
+        return face_cap(n_faces, self.cfg.tet_grid_size,
+                        self.dmtet_renderer.grid.num_tets)
+
+    @torch.no_grad()
+    def fit_caps(self, geo: DMTetParams) -> None:
+        """Size max_tris from the surface of ``geo`` (counted once: a wait
+        for the device)."""
+        dmr = self.dmtet_renderer
+        n = int(dmr.extract_mesh(geo).n_faces)
+        dmr.max_tris = self._face_cap(n)
+        self.log(f"[dmtet] the surface has {n} faces: max_tris "
+                 f"{dmr.max_tris}")
+
+    def check_caps(self, n_faces: int, fullest: int, step: int) -> None:
+        """``n_faces`` and ``fullest``: the most faces the surface had and
+        the most triangles one tile listed in the steps before ``step``
+        (read where the loop waits for the device anyway).  Over a cap,
+        those steps dropped faces: log it, and grow max_tris (at least
+        double it) for the steps that follow; tile_cap is the kernel's
+        most already."""
+        dmr = self.dmtet_renderer
+        if n_faces > dmr.max_tris:
+            new = min(max(2 * dmr.max_tris, self._face_cap(n_faces)),
+                      2 * dmr.grid.num_tets)
+            self.log(f"[dmtet] faces dropped before step {step}: the "
+                     f"surface reached {n_faces} faces over max_tris "
+                     f"{dmr.max_tris}; max_tris {new} from step {step} on")
+            dmr.max_tris = new
+        if fullest > dmr.tile_cap:
+            self.log(f"[dmtet] tile lists cut before step {step}: a tile "
+                     f"reached {fullest} triangles over tile_cap "
+                     f"{dmr.tile_cap}")
+
     def draw_step(self, gen: torch.Generator) -> DMTetDraws:
-        return draw_dmtet_step(gen, self.cfg, self.device)
+        return draw_dmtet_step(gen, self.cfg, self.device, self.latent_size)
 
     def draw_known_view(self, gen: torch.Generator) -> DMTetKnownViewDraws:
         K = self.ref_images.rgb.shape[0]
@@ -188,7 +265,7 @@ class DMTetTrainer(Trainer):
         geo = self.geo_params(model, state.tet_scale)
         dmr = self.dmtet_renderer
         mesh = dmr.extract_mesh(geo)       # one mesh for all views
-        images, out0 = [], None
+        images, tiles, out0 = [], [], None
         for b in range(batch.mvp.shape[0]):
             out = dmr.render(
                 geo, lambda x: model.nerf.density(x)["albedo"], batch.mvp[b],
@@ -198,6 +275,7 @@ class DMTetTrainer(Trainer):
                 mesh=mesh)
             if b == 0:
                 out0 = out
+            tiles.append(out["tile_counts"])
             images.append(out["image"])
         pred_rgb = torch.stack(images)                      # [B, H, W, 3]
         loss = self.guidance_loss(pred_rgb, batch, draws, choices.bg_color,
@@ -210,8 +288,15 @@ class DMTetTrainer(Trainer):
             loss = loss + cfg.lambda_mesh_laplacian * out0["lap_loss"]
         metrics.update(loss=loss, normal_loss=out0["normal_loss"],
                        lap_loss=out0["lap_loss"],
-                       n_faces=mesh.face_mask.sum())
+                       **self.surface_metrics(mesh, torch.cat(tiles).max()))
         return loss, metrics
+
+    @staticmethod
+    def surface_metrics(mesh, tile_max) -> Dict[str, torch.Tensor]:
+        """The faces kept, the surface's true count and K7's fullest tile
+        (device scalars)."""
+        return {"n_faces": mesh.face_mask.sum(),
+                "n_faces_true": mesh.n_faces, "tile_max": tile_max}
 
     def known_view_loss(self, state: DMTetState,
                         draws: DMTetKnownViewDraws):
@@ -239,7 +324,7 @@ class DMTetTrainer(Trainer):
                       "loss_sds": torch.zeros((), device=loss.device),
                       "normal_loss": out["normal_loss"],
                       "lap_loss": out["lap_loss"],
-                      "n_faces": mesh.face_mask.sum()}
+                      **self.surface_metrics(mesh, out["tile_counts"].max())}
 
     def apply_step(self, state: DMTetState, loss, metrics):
         """Backward, the guarded update in place (``--lock_geo`` pins the

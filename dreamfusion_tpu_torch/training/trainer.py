@@ -87,8 +87,6 @@ def check_slice(cfg: Config) -> None:
         "alone": (tuple(cfg.guidance) not in (("oracle",), ("SD",),
                                               ("image_oracle",)),
                   _GUIDANCE[other[0]] if other else _GUIDANCE["clip"]),
-        "--dmtet with SD guidance": (cfg.dmtet and cfg.guidance == ("SD",),
-                                     "DMTet under SD guidance"),
         "--image from a file (zero123 and the PNG loader)": (
             cfg.image is not None and not analytic, _IMAGE),
         "--image_config (zero123 and the PNG loader)": (

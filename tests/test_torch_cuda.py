@@ -1312,6 +1312,7 @@ def _check_bins(out, sx, sy, sz, faces, valid, H, W, cap, soft):
     b = out.bins
     cap = b.lists.shape[1]
     assert torch.equal(b.counts, listed.sum(1).to(torch.int32))
+    assert torch.equal(out.tile_counts, b.counts)
     n = b.counts.clamp(max=cap)
     keep = torch.arange(cap, device=sx.device)[None] < n[:, None]
     assert torch.equal(b.lists[keep], ids[:, :cap][keep].to(torch.int32))
@@ -1322,7 +1323,9 @@ def _check_bins(out, sx, sy, sz, faces, valid, H, W, cap, soft):
     (1.0, 512, 0, False, False), (1.0, 32, 60, False, False),
     (0.0, 64, 60, False, False), (0.0, 1024, 0, True, False),
     (1.0, 1024, 0, True, False), (1.0, 512, 0, False, True),
-    (1.0, 32, 60, False, True)])
+    (1.0, 32, 60, False, True),
+    # lists longer than the backwards' 1024-slot window: kept whole, and cut
+    (1.0, 4096, 3000, False, False), (1.0, 2048, 3000, False, True)])
 def test_raster_kernel(dev, soft, cap, crowd, ties, slivers):
     from dreamfusion_tpu_torch.ops.raster import raster_cuda, raster_plain
     sx, sy, sz, faces, valid = _raster_scene(dev, 7, crowd, ties,
@@ -1384,12 +1387,16 @@ def test_raster_kernel_at_the_bake(dev):
     torch.testing.assert_close(ok.alpha, op.alpha, atol=0, rtol=0)
 
 
-def test_interpolate_kernel(dev):
+@pytest.mark.parametrize("crowd,cap", [(0, 512), (3000, 4096)])
+def test_interpolate_kernel(dev, crowd, cap):
+    """Against the plain version; with ``crowd`` a tile listing more
+    triangles than the backward's 1024-slot window."""
     from dreamfusion_tpu_torch.ops.raster import (interpolate,
                                                   interpolate_plain,
                                                   raster_cuda)
-    sx, sy, sz, faces, valid = _raster_scene(dev, 9)
-    out = raster_cuda(sx, sy, sz, faces, valid, 64, 64, 32, 512, 1.0)
+    sx, sy, sz, faces, valid = _raster_scene(dev, 9, crowd)
+    out = raster_cuda(sx, sy, sz, faces, valid, 64, 64, 32, cap, 1.0)
+    assert int(out.tile_counts.max()) > (1024 if crowd else 0)
     g = _gen(dev, 10)
     attrs = torch.randn(sx.shape[0], 3, device=dev, generator=g)
     a1, b1 = attrs.clone().requires_grad_(), out.bary.clone().requires_grad_()
@@ -1489,6 +1496,9 @@ def test_marching_tets_slots_and_pairs(dev, max_tris, open_surface):
     has = (ts.reshape(-1, 2) >= 0).any(1).repeat_interleave(2)
     assert torch.equal(mk.slots.tri_slot[has], ts[has])
     assert torch.equal(mk.slots.face_info, fi)
+    # the true face count, the slots past max_tris included
+    mp = K8.marching_tets_plain(pos, sdf, tets, te, ue, max_tris)
+    assert int(mk.n_faces) == int(mp.n_faces) >= int(mk.face_mask.sum())
     loss, partner = K8.normal_consistency_cuda(mk)
     torch.cuda.synchronize()
     assert torch.equal(partner, K8.nc_partners_plain(mk.faces, mk.face_mask,

@@ -35,7 +35,8 @@ from dreamfusion_tpu_torch.training import data as pdata
 from dreamfusion_tpu_torch.training.dmtet_trainer import DMTetTrainer
 from dreamfusion_tpu_torch.utils.convert import params_from_jax
 
-from torch_parity import jax_dmtet_step_draws, port_cfg, tt
+from torch_parity import (jax_dmtet_step_draws, port_cfg, tt,
+                          uncut_jax_tile_cap)
 
 torch.set_num_threads(2)
 
@@ -231,6 +232,9 @@ def test_one_dmtet_step_matches_jax(tmp_path, grid, monkeypatch):
     ps.step = STEP
     np.testing.assert_array_equal(ps.tet_scale.numpy(),
                                   np.asarray(js.tet_scale))
+    # the port lists every triangle of a tile, JAX its first 512, which the
+    # step's one tile exceeds: JAX lists every one too
+    uncut_jax_tile_cap(jt, pt, ps)
 
     captured = {}
     orig = jtrainer.apply_updates_guarded
@@ -250,6 +254,7 @@ def test_one_dmtet_step_matches_jax(tmp_path, grid, monkeypatch):
                                rtol=1e-5)
     assert bool(pm["grad_ok"]) and bool(jm["grad_ok"])
     assert 0 < int(pm["n_faces"]) < pt.dmtet_renderer.max_tris
+    assert 512 < int(pm["tile_max"]) <= jt.dmtet_renderer.tile_cap
     names = [n for n, _ in ps.model.named_parameters()]
     jg = params_from_jax(jax.tree.map(np.asarray, captured["grads"]))
     new_j = params_from_jax(jax.tree.map(np.asarray, js2.params))

@@ -63,7 +63,8 @@ from dreamfusion_tpu_torch.utils.convert import params_from_jax
 from test_torch_dmtet import _geometry
 from torch_parity import (jax_dmtet_known_view_draws, jax_dmtet_step_draws,
                           jax_grid_draws, jax_known_view_draws,
-                          jax_render_keys, jax_step_draws, port_cfg, tt)
+                          jax_render_keys, jax_step_draws, port_cfg, tt,
+                          uncut_jax_tile_cap)
 
 torch.set_num_threads(2)
 STEP = 48
@@ -427,10 +428,11 @@ def test_known_view_step_matches_jax(tmp_path, monkeypatch, case):
     _check_update(pm, jm, pgrads, captured, js2, ps.renderer, ps.ema_params)
 
 
-def _dmtet_pair(tmp_path, **kw):
+def _dmtet_pair(tmp_path, uncut=True, **kw):
     """The JAX and the port DMTet trainers of one image config at tet grid
     16 (a cube lattice of 8), with the same lumpy-sphere geometry and field
-    at step 7."""
+    at step 7; ``uncut``: every triangle of a tile listed on both sides,
+    else JAX's tile cap on both."""
     cfg = _image_cfg(tmp_path, dmtet=True, w=4, h=4, tet_grid_size=16,
                      lr=2e-3, **kw)
     assert cfg.h == 32 and cfg.known_view_scale == 1.0
@@ -463,6 +465,13 @@ def _dmtet_pair(tmp_path, **kw):
     for k, v in ps.ema_params.items():
         v.copy_(sd[k])
     ps.step = 7
+    if uncut:
+        # the port lists every triangle of a tile, JAX its first 512, which
+        # the step's one tile exceeds: JAX lists every one too
+        uncut_jax_tile_cap(jt, pt, ps)
+    else:
+        # both list a tile's first 512 triangles (JAX's cap)
+        pt.dmtet_renderer.tile_cap = jt.dmtet_renderer.tile_cap
     return cfg, jt, js, pt, ps
 
 
@@ -477,18 +486,25 @@ def test_known_view_dmtet_step_matches_jax(tmp_path, monkeypatch):
     pm, pgrads = pt.known_view_step(ps, jax_dmtet_known_view_draws(base, 7,
                                                                    1))
     assert 0 < int(pm["n_faces"]) < pt.dmtet_renderer.max_tris
+    assert 512 < int(pm["tile_max"]) <= jt.dmtet_renderer.tile_cap
     _check_update(pm, jm, pgrads, captured, js2, ps.model, ps.ema_params,
                   names=("geo.", "triplanes"))
 
 
 def test_image_oracle_dmtet_step_matches_jax(tmp_path, monkeypatch):
-    """The DMTet main step under the image oracle, K5 on its render."""
-    cfg, jt, js, pt, ps = _dmtet_pair(tmp_path, grad_clip_rgb=0.01)
+    """The DMTet main step under the image oracle, K5 on its render, at
+    JAX's tile cap on both sides: uncut, one sdf gradient of 729 lies
+    1.1e-4 of the largest from JAX's, where JAX's float32 lies 7.9e-5 and
+    the port's 3.1e-5 from the float64 step (ROADMAP's recorded
+    differences; ``tests/f64_witness_dmtet.py``)."""
+    cfg, jt, js, pt, ps = _dmtet_pair(tmp_path, uncut=False,
+                                      grad_clip_rgb=0.01)
     base = jax.random.PRNGKey(0)
     captured = _capture(monkeypatch)
     js2, jm = jt._make_train_step("main")(js, base)
     jax.block_until_ready(js2)
     pm, pgrads = pt.train_step(ps, jax_dmtet_step_draws(cfg, base, 7))
+    assert int(pm["tile_max"]) > pt.dmtet_renderer.tile_cap == 512
     np.testing.assert_allclose(float(pm["loss_sds"]), float(jm["loss_sds"]),
                                rtol=1e-5)
     _check_update(pm, jm, pgrads, captured, js2, ps.model, ps.ema_params,

@@ -186,7 +186,6 @@ def test_cli_image_config_matches_jax(extra):
     ["--text", "a hamburger", "--IF"],                      # DeepFloyd-IF
     ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--image", "x.png", "--text", "a hamburger"],        # SD + CLIP
-    ["--text", "a hamburger", "--backbone", "triplane", "--dmtet"],
     ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
     ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
      "--image", "x.png"],
@@ -244,7 +243,6 @@ def _queue1_titles():
     ["--guidance", "IF"],
     ["--guidance", "zero123"],
     ["--guidance", "SD", "clip", "--text", "a hamburger"],
-    ["--text", "a hamburger", "--backbone", "triplane", "--dmtet"],
     ["--guidance", "oracle", "--backbone", "triplane", "--image", "x.png"],
     ["--image", "analytic:two_sphere", "--guidance", "oracle",
      "--backbone", "triplane"],

@@ -42,7 +42,7 @@ from dreamfusion_tpu_torch.ops import attention as K10
 from dreamfusion_tpu_torch.training.trainer import Trainer
 from dreamfusion_tpu_torch.utils.convert import params_from_jax
 
-from torch_parity import jax_step_draws, port_cfg
+from torch_parity import jax_step_draws, port_cfg, random_flax_params
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,24 +61,6 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def _random_params(init, *args, seed):
-    """Flax params of ``init``'s shapes (``jax.eval_shape``: nothing is
-    compiled): kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), every
-    other leaf N(0, 0.05²); as good as the init for a parity test, and
-    seconds faster on the CPU."""
-    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)["params"]
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        name, shape = path[-1].key, leaf.shape
-        a = rng.standard_normal(shape).astype(np.float32)
-        if name == "kernel":
-            return a / np.sqrt(np.prod(shape[:-1]))
-        return 1 + 0.1 * a if name == "scale" else 0.05 * a
-
-    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def _close(got, want, rtol=1e-4):
@@ -170,8 +152,8 @@ def narrow_unet():
     JAX module, its params, and the port's UNet holding them."""
     jcfg = junet.UNetConfig(**NARROW, dtype=jnp.float32)
     jnet = junet.UNet2DCondition(jcfg)
-    jp = _random_params(jnet.init, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
-                        jnp.zeros((1, 77, 768)), seed=3)
+    jp = random_flax_params(jnet.init, jnp.zeros((1, 8, 8, 4)),
+                            jnp.zeros((1,)), jnp.zeros((1, 77, 768)), seed=3)
     pnet = punet.UNet2DCondition(punet.UNetConfig(**NARROW,
                                                   dtype=torch.float32))
     pnet.load_state_dict(params_from_jax({"unet": jp})["unet"], strict=True)
@@ -208,7 +190,7 @@ def test_quick_gelu_clip_matches_jax():
     jenc = jclip.CLIPTextEncoder(jclip.CLIPTextConfig(**kw,
                                                       dtype=jnp.float32))
     ids = np.random.default_rng(4).integers(0, 300, (2, 77)).astype(np.int32)
-    jp = _random_params(jenc.init, jnp.asarray(ids), seed=5)
+    jp = random_flax_params(jenc.init, jnp.asarray(ids), seed=5)
     penc = pclip.CLIPTextEncoder(pclip.CLIPTextConfig(**kw,
                                                       dtype=torch.float32))
     penc.load_state_dict(params_from_jax({"text": jp})["text"], strict=True)
@@ -241,12 +223,12 @@ def test_one_sd15_train_step_matches_jax(tmp_path, monkeypatch):
     tiny = dict(sd_version="1.5", tiny=True, image_size=16, latent_size=8)
     jg = JSD(_JSD15(**tiny))
     zeros = jnp.zeros
-    jp = {"unet": _random_params(jg.unet.init, zeros((1, 8, 8, 4)),
-                                 zeros((1,)), zeros((1, 16, 32)), seed=7),
-          "vae": _random_params(jg.vae.init, zeros((1, 16, 16, 3)),
-                                jax.random.PRNGKey(1), seed=8),
-          "text": _random_params(jg.text_encoder.init,
-                                 zeros((1, 16), jnp.int32), seed=9)}
+    jp = {"unet": random_flax_params(jg.unet.init, zeros((1, 8, 8, 4)),
+                                     zeros((1,)), zeros((1, 16, 32)), seed=7),
+          "vae": random_flax_params(jg.vae.init, zeros((1, 16, 16, 3)),
+                                    jax.random.PRNGKey(1), seed=8),
+          "text": random_flax_params(jg.text_encoder.init,
+                                     zeros((1, 16), jnp.int32), seed=9)}
     pg = StableDiffusionGuidance(_PSD15(**tiny), "cpu")
     pg.load_state_dicts(params_from_jax(jax.tree.map(np.asarray, jp)))
     assert pg.text_encoder.cfg.use_quick_gelu

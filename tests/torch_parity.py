@@ -163,21 +163,38 @@ def jax_tv_cells(key, resolutions, n_samples: int = 4096) -> torch.Tensor:
                         for k, r in zip(keys, resolutions)])
 
 
-def jax_dmtet_step_draws(cfg, base_key, step: int) -> DMTetDraws:
+def jax_dmtet_step_draws(cfg, base_key, step: int,
+                         latent_size=None) -> DMTetDraws:
     """The draws of DMTetTrainer._make_train_step at state.step=step:
     fold_in(base, step) → split 3 (batch, choice, guide); the guide key
-    feeds the pixel oracle (split 1, then t and noise)."""
+    feeds the pixel oracle (split 1, then t and noise) or, with
+    ``latent_size``, SD's sds_loss (split 1, then ``jax_sd_draws``)."""
     key = jax.random.fold_in(base_key, step)
     k_batch, k_choice, k_guide = jax.random.split(key, 3)
     pose, fov = jax_batch_draws(k_batch, cfg, unit=True)
     (k_prior,) = jax.random.split(k_guide, 1)
+    B = cfg.batch_size
+    choice = jax_choice_draws(k_choice)
+    if latent_size is not None:
+        t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
+        return DMTetDraws(pose, fov, choice, t, noise, post)
     k_t, k_noise = jax.random.split(k_prior)
     lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
-    B = cfg.batch_size
     t = jax.random.randint(k_t, (B,), lo, hi + 1)
     noise = jax.random.normal(k_noise, (B, cfg.h, cfg.w, 3))
-    return DMTetDraws(pose, fov, jax_choice_draws(k_choice), tt(t).long(),
-                      tt(noise))
+    return DMTetDraws(pose, fov, choice, tt(t).long(), tt(noise))
+
+
+def uncut_jax_tile_cap(jt, pt, ps) -> int:
+    """Raise the JAX DMTet renderer's K7 tile_cap (512) to the face count
+    of the port's surface in ``ps``, which no tile can list more of: the
+    port lists every triangle (``MAX_TILE_CAP``), so neither side cuts a
+    list.  A step that starts from ``ps`` renders this surface."""
+    dmr = pt.dmtet_renderer
+    n = int(dmr.extract_mesh(pt.geo_params(ps.model, ps.tet_scale)).n_faces)
+    assert 0 < n <= min(dmr.tile_cap, jt.dmtet_renderer.max_tris)
+    jt.dmtet_renderer.tile_cap = max(jt.dmtet_renderer.tile_cap, n)
+    return n
 
 
 def jax_sd_draws(key, B: int, latent_size: int, t_range):
@@ -197,3 +214,21 @@ def jax_grid_draws(cfg, base_key, step: int) -> torch.Tensor:
     keys = jax.random.split(key, cfg.cascade)
     return torch.stack([tt(jax.random.uniform(k, (cfg.grid_size ** 3, 3)))
                         for k in keys])
+
+
+def random_flax_params(init, *args, seed):
+    """Flax params of ``init``'s shapes (``jax.eval_shape``: nothing is
+    compiled): kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), every
+    other leaf N(0, 0.05²); as good as the init for a parity test, and
+    seconds faster on the CPU."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *args)["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        a = rng.standard_normal(shape).astype(np.float32)
+        if name == "kernel":
+            return a / np.sqrt(np.prod(shape[:-1]))
+        return 1 + 0.1 * a if name == "scale" else 0.05 * a
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
