@@ -20,9 +20,14 @@
    fp32 one), each checked and timed under its own name at the shapes
    that take it; K10 on JAX's branch (q·scale rounded to bf16 first on the
    chunked one, as the plain version does) beside SDPA.  K12's mma.sync
-   forward serves no shape of any path: the SD run must not launch it, and
-   it is checked and timed at shapes of its own (``MMA_CONVS``), with 0
-   launches in the kernels line.  K12's input gradient, likewise, at every
+   forward serves one path shape, zero123's ViT-L/14 patch embedding
+   (step 9): the SD runs must not launch it, and it is checked and timed
+   at shapes of its own too (``MMA_CONVS``).  Then K10-K12 again at
+   zero123's shapes (``ZERO123_CONVS``, ``ZERO123_ATTNS``,
+   ``zero123_groupnorms``: the UNet at 32² latents, its cross-attention
+   over one key, where the output must be v bit for bit, the VAE at 256²,
+   the patch conv), each with its graph ms too.  K12's input gradient,
+   likewise, at every
    dgrad shape of the SD step (the VAE encoder's backward): its wgmma
    route (stride 1, and stride 2 as four parity classes in one launch),
    its narrow route (the conv_in's 3-channel dx) and its fp32 route (the
@@ -121,7 +126,9 @@
    surface, tile_cap the kernel's most), and a written mesh.obj; logs s/step, peak memory, the face
    counts, the fullest tile and the analytic PSNR of the albedo render at
    the first and last step; every K7/K8 backward exactly once a step
-   (``DMTET_STEP_LAUNCHES``: the interpolate's twice).  Then one more
+   (``DMTET_STEP_LAUNCHES``: the interpolate's twice), and K7's fullest
+   tile within tile_cap in every eval and test view too (every DMTet run).
+   Then one more
    step of the same run, built as main builds it, the counters reset just
    before it: K1's forward and its ``_dx`` backward once each (one view),
    the table-only backward never, and every K7/K8 entry point exactly as
@@ -169,9 +176,30 @@
    every step, known-view DMTet steps, non-zero sdf and deform gradients,
    the surface checks of step 6; the init's seconds logged; and its
    one-step launch check as step 6's.
-9. Prints one JSON line with every kernel's route, source, the TPU function
-   it replaces, launches on its path (K1-K4 and K10-K12: the SD run, K10's
-   d = 40, 80 and 160 routes: the SD 1.5 run; K7, K8 and K1's ``_dx``
+9. Zero-1-to-3 from an image file, at full width on random weights from
+   seed 0 (SD 1.5's UNet on 8 channels, 859.5M parameters; the VAE at
+   256²; CLIP ViT-L/14): the reference is an RGBA PNG of the analytic
+   scene's default view and its mask, written here.  Stage 1 (``--image
+   ref_rgba.png``: the image preset) through main for 6 + 25 steps, a
+   known-view step every 4th, the counters reset just before it: finite
+   losses and gradients, K10-K12 launched exactly as the towers' topology
+   gives (``zero123_launches``: per SDS step one UNet call at CFG batch 2,
+   the VAE encoder forward and backward at 256²; at start-up the reference
+   embedding and the patch conv once), peak memory, the start-up seconds
+   of each tower and of the embedding; then the same run built as main
+   builds it, its SDS and known-view steps timed apart (synchronised)
+   after the 6 warm-up steps.  ``--image_config`` with K = 3 (a CSV of
+   config/example.csv's form, weights 1, 1, 0.5): one UNet call at batch 6
+   a step, the closeness weights equal to JAX's formula (float64 numpy
+   here), K10-K12 exactly.  The DMTet stage under zero123 (tet grid 128,
+   512² renders resized to 256²) from step 4's checkpoint for 20 steps
+   with step 6's checks (no face dropped, no tile cut, in the steps and in
+   the eval and test views) and K10-K12 exactly.  The novel-view CLI
+   (``guidance/zero123.py``) for 3 DDIM steps: a finite 256² PNG.
+10. Prints one JSON line with every kernel's route, source, the TPU
+   function it replaces, launches on its path (K1-K4 and K10-K12: the SD
+   run, K10's d = 40, 80 and 160 routes: the SD 1.5 run, ``conv_fwd_mma``:
+   the zero123 run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
    image stage 1; K9: the DMTet stage from its mesh), error, times and
@@ -242,6 +270,28 @@ IMAGE_DMTET_FLAGS = ["--image", "analytic:two_sphere", "--guidance",
                      "--dataset_size_test", "8", "--save_mesh", "--ckpt",
                      "scratch", "--dataset_size_train", "10",
                      "--eval_interval", "2"]
+# Zero-1-to-3 at full width (random weights from seed 0): SD 1.5's UNet on 8
+# channels at 32² latents (CFG batch 2·K over K references), the VAE at
+# 256², CLIP ViT-L/14 at 224²; the reference an RGBA PNG of the analytic
+# scene's default view that the smoke writes.  Stage 1 runs 6 warm-up and
+# 25 timed steps (every 4th a known-view step); the K = 3 run
+# (``--image_config``, config/example.csv's form) 5 steps; the DMTet stage
+# from the oracle stage 1's checkpoint 20 steps; the novel-view CLI 3 DDIM
+# steps.
+ZERO123_WARMUP, ZERO123_STEPS = 6, 25
+ZERO123_FLAGS = ["--backbone", "triplane", "--seed", "0",
+                 "--dataset_size_train", "31", "--eval_interval", "0",
+                 "--H", "64", "--W", "64", "--dataset_size_test", "2",
+                 "--ckpt", "scratch"]
+ZERO123_REFS = [(1.0, 3.2, 90.0, 0.0), (1.0, 3.2, 90.0, 180.0),
+                (0.5, 3.2, 90.0, 90.0)]   # zero123_weight, radius, polar, az
+ZERO123_K3_STEPS = 5                      # steps 0 and 4 known-view
+ZERO123_DMTET_STEPS = 20
+ZERO123_DMTET_FLAGS = ["--backbone", "triplane", "--seed", "0", "--dmtet",
+                       "--tet_grid_size", "128", "--lr", "0.002",
+                       "--dataset_size_test", "2", "--save_mesh", "--ckpt",
+                       "scratch", "--dataset_size_train", "10",
+                       "--eval_interval", "2"]
 CLIP_QUANTILE = 0.8              # the limit clamps ~20% of a step's gradient
 # K9's fp32 operations per (point, triangle) pair with no culling (the
 # unculled kernel's, logged as a reference beside the bound's count): 15
@@ -486,6 +536,36 @@ SD_ATTNS = [
     (2, 256, 256, 8, 160, False),     # SD 1.5 16²
     (2, 256, 77, 8, 160, False),
     (2, 64, 64, 8, 160, False),       # SD 1.5 8² mid-block self
+]
+# Zero-1-to-3's tower shapes: SD's with the latents at 32² and the VAE at
+# 256² (half of SD's sides; the same topology), the UNet's conv_in on 8
+# channels, and the ViT-L/14 patch embedding (k = s = 14, no bias, once at
+# start-up: conv_fwd_mma's first path shape).
+PATCH_CONV = (1, 224, 224, 3, 1024, 14, 14, 0, "bf16", False)
+ZERO123_CONVS = [(B, H // 2, W // 2, 8 if (I, O) == (4, 320) else I, O, k,
+                  st, pad, dt, dgrad)
+                 for B, H, W, I, O, k, st, pad, dt, dgrad in SD_CONVS] + [
+    PATCH_CONV]
+
+
+def zero123_groupnorms(K: int):
+    """K11 in one zero123 SDS step over K references: ``SD_GROUPNORMS`` at
+    half the sides, the UNet's rows at CFG batch 2K."""
+    return [(2 * K if not bwd else B, H // 2, W // 2, C, eps, silu, n, bwd)
+            for B, H, W, C, eps, silu, n, bwd in SD_GROUPNORMS]
+
+
+# K10 in zero123's UNet (SD 1.5's head dims): each level's self-attention
+# and its cross-attention over the one context token (M = 1: out = v); the
+# VAE mid-block at 256²; and a K = 5 self-attention at 32², JAX's chunked
+# branch (q·scale rounded at d = 40).
+ZERO123_ATTNS = [
+    (2, 1024, 1024, 8, 40, False), (2, 1024, 1, 8, 40, False),
+    (2, 256, 256, 8, 80, False), (2, 256, 1, 8, 80, False),
+    (2, 64, 64, 8, 160, False), (2, 64, 1, 8, 160, False),
+    (2, 16, 16, 8, 160, False), (2, 16, 1, 8, 160, False),
+    (1, 1024, 1024, 1, 512, True),
+    (10, 1024, 1024, 8, 40, False),
 ]
 SD15_HEAD_DIMS = (40, 80, 160)
 # K10's UNet launches per SD step (one self- and one cross-attention per
@@ -1188,39 +1268,47 @@ def hashgrid_kernel_phases(torch, results, x01):
         N * 16 * 8 * 2 * 8, "fp32", None, where)
 
 
-def sd_kernel_phases(torch, results):
-    """K10-K12 against their plain versions at the SD 2.1 towers' shapes
-    (bf16 unless stated): the UNet at CFG batch 2 on 64² latents, the VAE
-    encoder at 512², forward and backward where the path has one."""
+def _randn_on(torch, g):
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, device="cuda", generator=g) * scale).to(
+            dtype)
+    return randn
+
+
+def _close_to(name, got, want, rel, floor):
+    """|got - want| <= rel*|want| + floor*max|want| everywhere."""
+    scale = float(want.float().abs().max())
+    return assert_close(name, [got], [want], floor * scale, rel)
+
+
+def _graph_where(where, fn, graph):
+    """`where` with the call's graph ms appended (``graph_ms``) when
+    `graph` is set."""
+    return f"{where}, graph {graph_ms(fn):.4f} ms" if graph else where
+
+
+def conv_rows(torch, results, rows, randn, graph=False, no_bias=()):
+    """K12's forward (by route) and, where the row asks, its dgrad against
+    the plain versions and cuDNN at each row of ``SD_CONVS``' layout;
+    `graph`: log each call's graph ms too; `no_bias`: rows whose conv has
+    no bias (the patch embedding)."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input
 
-    from dreamfusion_tpu_torch.ops import attention as K10
     from dreamfusion_tpu_torch.ops import conv as K12
-    from dreamfusion_tpu_torch.ops import groupnorm as K11
     from dreamfusion_tpu_torch.ops import kernels
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
-
-    def randn(*shape, scale=1.0, dtype=bf):
-        return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
-
-    def close(name, got, want, rel, floor):
-        """|got - want| <= rel*|want| + floor*max|want| everywhere."""
-        scale = float(want.float().abs().max())
-        return assert_close(name, [got], [want], floor * scale, rel)
-
-    # ---- K12 conv: forward (by route), then dgrad ------------------------
-    for B, H, W, I, O, k, st, pad, dt, dgrad in SD_CONVS + MMA_CONVS:
+    dev = torch.device("cuda")
+    for row in rows:
+        B, H, W, I, O, k, st, pad, dt, dgrad = row
         dt = torch.float32 if dt == "fp32" else bf
         pads = K12.norm_padding(pad)
         route = K12.conv_route(dt, I, O, (st, st), k * k)
         where = f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} {dt}"
         x = randn(B, H, W, I, dtype=dt)
         w = randn(O, k, k, I, scale=(k * k * I) ** -0.5, dtype=dt)
-        bias = randn(O, dtype=torch.float32)
+        bias = None if row in no_bias else randn(O, dtype=torch.float32)
         kernels.reset_launch_counts()
         yk = K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt)
         torch.cuda.synchronize()
@@ -1228,7 +1316,7 @@ def sd_kernel_phases(torch, results):
         yp = K12.conv2d_plain(x, w, bias, (st, st), pads, dt)
         fp32 = dt == torch.float32
         # same bf16 products, fp32 sums in another order, one rounding
-        err = close(route, yk, yp, 1e-5 if fp32 else 2 ** -7, 1e-4)
+        err = _close_to(route, yk, yp, 1e-5 if fp32 else 2 ** -7, 1e-4)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
         lib = None
         if pads[0][0] == pads[0][1]:      # one F.conv2d call: symmetric pad
@@ -1237,18 +1325,21 @@ def sd_kernel_phases(torch, results):
             tf32 = torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = False
             try:
-                lib = median_ms(lambda: F.conv2d(xc, wc, bias.to(dt), st,
-                                                 pads[0][0]), 10)
+                lib = median_ms(lambda: F.conv2d(
+                    xc, wc, None if bias is None else bias.to(dt), st,
+                    pads[0][0]), 10)
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
         flops = 2 * yk.numel() * k * k * I
-        record_kernel(results, route, err, median_ms(
-            lambda: K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt), 10),
-            median_ms(lambda: K12.conv2d_plain(x, w, bias, (st, st), pads,
-                                               dt), 5),
-            "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
-            nbytes(x, w, bias, yk), flops, "fp32" if fp32 else "bf16", lib,
-            where)
+        call = lambda: K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt)
+        record_kernel(results, route, err, median_ms(call, 10),
+                      median_ms(lambda: K12.conv2d_plain(
+                          x, w, bias, (st, st), pads, dt), 5),
+                      "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
+                      nbytes(x, w, bias, yk), flops,
+                      "fp32" if fp32 else "bf16", lib,
+                      _graph_where(where, call, graph),
+                      main=row in no_bias)
         if not dgrad:
             continue
         route = K12.dgrad_route(dt, I, O, (st, st), (k, k))
@@ -1260,7 +1351,7 @@ def sd_kernel_phases(torch, results):
         xr = torch.zeros(x.shape, device=dev, requires_grad=True)
         (dp,) = torch.autograd.grad(K12.conv2d_plain(
             xr, w, None, (st, st), pads, torch.float32), xr, dy.float())
-        err = close(route, dk, dp, 1e-5 if fp32 else 2 ** -7, 1e-4)
+        err = _close_to(route, dk, dp, 1e-5 if fp32 else 2 ** -7, 1e-4)
         dyc = dy.permute(0, 3, 1, 2)
         lib = None
         if pads[0][0] == pads[0][1]:
@@ -1277,17 +1368,26 @@ def sd_kernel_phases(torch, results):
             torch.autograd.grad(K12.conv2d_plain(
                 xr, w, None, (st, st), pads, torch.float32), xr, dy.float())
 
-        record_kernel(results, route, err, median_ms(
-            lambda: K12.conv2d_dgrad_cuda(dy, w, x.shape, (st, st), pads,
-                                          dt), 10),
-            median_ms(plain_dgrad, 3),
-            "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
-            nbytes(dy, w, dk), flops, "fp32" if fp32 else "bf16", lib,
-            where + " dgrad")
+        call = lambda: K12.conv2d_dgrad_cuda(dy, w, x.shape, (st, st), pads,
+                                             dt)
+        record_kernel(results, route, err, median_ms(call, 10),
+                      median_ms(plain_dgrad, 3),
+                      "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
+                      nbytes(dy, w, dk), flops, "fp32" if fp32 else "bf16",
+                      lib, _graph_where(where + " dgrad", call, graph))
 
-    # ---- K10 attention ---------------------------------------------------
-    for B, N, M, h, d, bwd in SD_ATTNS:
-        # JAX's branch: the chunked one rounds q·scale to bf16 first
+
+def attention_rows(torch, results, rows, randn, graph=False):
+    """K10's forward (by head dim, on JAX's branch: q·scale rounded to bf16
+    first on the chunked one) and, where the row asks, its backward
+    against the plain versions and SDPA.  A row of one key (zero123's
+    cross-attention) must give v exactly (P = 1)."""
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import kernels
+
+    for B, N, M, h, d, bwd in rows:
         rq = K10.chunked_branch(B, N, M, h)
         where = (f" q [{B},{N},{h},{d}] kv [{B},{M},{h},{d}]"
                  f"{' (chunked branch: bf16(q·scale))' if rq else ''}")
@@ -1300,16 +1400,25 @@ def sd_kernel_phases(torch, results):
         check(kernels.LAUNCHES[route] == 1, f"{where}: not on {route}")
         op = K10.attention_plain(q, k, v, scale, rq)
         # P rounded to bf16 before (plain) or after (kernel) normalising
-        err = close(route, ok_, op, 2 ** -7, 1e-2)
+        err = _close_to(route, ok_, op, 2 ** -7, 1e-2)
+        if M == 1:
+            check(torch.equal(ok_, v.expand_as(ok_)),
+                  f"{where}: the output is not v bit for bit")
+            logit = torch.einsum("bnhd,bmhd->bhn", q.float(), k.float()) \
+                * scale
+            lse_err = _close_to(route + " lse", lse, logit, 1e-5, 1e-5)
+            where += f" (out = v exactly; lse - logit {lse_err:.2e})"
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                         10)
         flops = 4 * B * h * N * M * d
-        record_kernel(results, route, err, median_ms(
-            lambda: K10.attention_fwd_cuda(q, k, v, scale, rq), 10),
-            median_ms(lambda: K10.attention_plain(q, k, v, scale, rq), 5),
-            "1 bf16 ulp + 1e-2 of max", nbytes(q, k, v, ok_, lse), flops,
-            "bf16", lib, where, exps=B * h * N * M)
+        call = lambda: K10.attention_fwd_cuda(q, k, v, scale, rq)
+        record_kernel(results, route, err, median_ms(call, 10),
+                      median_ms(lambda: K10.attention_plain(q, k, v, scale,
+                                                            rq), 5),
+                      "1 bf16 ulp + 1e-2 of max", nbytes(q, k, v, ok_, lse),
+                      flops, "bf16", lib, _graph_where(where, call, graph),
+                      exps=B * h * N * M)
         if not bwd:
             continue
         do = randn(B, N, h, d)
@@ -1322,7 +1431,7 @@ def sd_kernel_phases(torch, results):
         gp = torch.autograd.grad(K10.attention_plain(*qkv, scale), qkv,
                                  do.float())
         # P and dS pass through bf16 between the kernel's products
-        err = max(close("attention_bwd_wgmma", a, b, 2 ** -7, 3e-2)
+        err = max(_close_to("attention_bwd_wgmma", a, b, 2 ** -7, 3e-2)
                   for a, b in zip(gk, gp))
 
         def plain_bwd():
@@ -1335,15 +1444,27 @@ def sd_kernel_phases(torch, results):
         ot, dot = F.scaled_dot_product_attention(*qkvt), do.transpose(1, 2)
         lib = median_ms(lambda: torch.autograd.grad(ot, qkvt, dot,
                                                     retain_graph=True), 10)
-        record_kernel(results, "attention_bwd_wgmma", err, median_ms(
-            lambda: K10.attention_bwd_cuda(q, k, v, ok_, lse, do, scale), 10),
-            median_ms(plain_bwd, 3), "1 bf16 ulp + 3e-2 of max",
-            nbytes(q, k, v, ok_, lse, do, *gk), 10 * B * h * N * M * d,
-            "bf16", lib, where, exps=B * h * N * M)
+        call = lambda: K10.attention_bwd_cuda(q, k, v, ok_, lse, do, scale)
+        record_kernel(results, "attention_bwd_wgmma", err,
+                      median_ms(call, 10), median_ms(plain_bwd, 3),
+                      "1 bf16 ulp + 3e-2 of max",
+                      nbytes(q, k, v, ok_, lse, do, *gk),
+                      10 * B * h * N * M * d, "bf16", lib,
+                      _graph_where(where, call, graph), exps=B * h * N * M)
 
-    # ---- K11 GroupNorm (+ SiLU): every shape of the SD step, by route ----
-    sms = kernels.sm_count(dev)
-    for B, H, W, C, eps, silu, per_step, bwd in SD_GROUPNORMS:
+
+def groupnorm_rows(torch, results, rows, randn, graph=False):
+    """K11 (+ SiLU) forward and, for the rows with a backward (the VAE's),
+    backward on the route ``group_norm_route`` gives, against the plain
+    versions and ``F.group_norm`` (+ ``F.silu``)."""
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    from dreamfusion_tpu_torch.ops import kernels
+
+    bf = torch.bfloat16
+    sms = kernels.sm_count(torch.device("cuda"))
+    for B, H, W, C, eps, silu, per_step, bwd in rows:
         G = K11.groups_for(C)
         x = randn(B, H, W, C, scale=3.0)
         wt, bs = randn(C), randn(C)          # the towers' bf16 weights
@@ -1356,18 +1477,20 @@ def sd_kernel_phases(torch, results):
         torch.cuda.synchronize()
         check(kernels.LAUNCHES[fwd.name] == 1, f"{where}: not on {fwd.name}")
         yp = K11.group_norm_plain(x, wt, bs, G, eps, silu)
-        err = close(fwd.name, yk, yp, 2 ** -7, 1e-3)
+        err = _close_to(fwd.name, yk, yp, 2 ** -7, 1e-3)
         xc = x.permute(0, 3, 1, 2)
 
         def lib_fwd():
             y = F.group_norm(xc, G, wt, bs, eps)
             return F.silu(y) if silu else y
 
-        record_kernel(results, fwd.name, err, median_ms(
-            lambda: K11.group_norm_fwd_cuda(x, wt, bs, G, eps, silu), 10),
-            median_ms(lambda: K11.group_norm_plain(x, wt, bs, G, eps, silu),
-                      5), "1 bf16 ulp + 1e-3 of max", nbytes(x, wt, bs, yk),
-            10 * x.numel(), "fp32", median_ms(lib_fwd, 10), where)
+        call = lambda: K11.group_norm_fwd_cuda(x, wt, bs, G, eps, silu)
+        record_kernel(results, fwd.name, err, median_ms(call, 10),
+                      median_ms(lambda: K11.group_norm_plain(
+                          x, wt, bs, G, eps, silu), 5),
+                      "1 bf16 ulp + 1e-3 of max", nbytes(x, wt, bs, yk),
+                      10 * x.numel(), "fp32", median_ms(lib_fwd, 10),
+                      _graph_where(where, call, graph))
         if not bwd:
             continue
         route = K11.group_norm_route((B, H, W, C), bf, True, G, sms)
@@ -1380,7 +1503,7 @@ def sd_kernel_phases(torch, results):
         x32 = x.float().requires_grad_()
         (dp,) = torch.autograd.grad(K11.group_norm_plain(
             x32, wt, bs, G, eps, silu), x32, dy.float())
-        err = close(route.name, dk, dp, 2 ** -7, 2e-2)
+        err = _close_to(route.name, dk, dp, 2 ** -7, 2e-2)
 
         def plain_gn_bwd():
             x32 = x.float().requires_grad_()
@@ -1394,13 +1517,24 @@ def sd_kernel_phases(torch, results):
         dyc = dy.permute(0, 3, 1, 2)
         lib = median_ms(lambda: torch.autograd.grad(yl, xl, dyc,
                                                     retain_graph=True), 10)
-        record_kernel(results, route.name, err, median_ms(
-            lambda: K11.group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu),
-            10), median_ms(plain_gn_bwd, 3), "1 bf16 ulp + 2e-2 of max",
-            nbytes(x, dy, wt, bs, dk), 20 * x.numel(), "fp32", lib,
-            where.replace(f", slab {fwd.slab}, cluster {fwd.cluster}",
+        call = lambda: K11.group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu)
+        record_kernel(results, route.name, err, median_ms(call, 10),
+                      median_ms(plain_gn_bwd, 3), "1 bf16 ulp + 2e-2 of max",
+                      nbytes(x, dy, wt, bs, dk), 20 * x.numel(), "fp32", lib,
+                      _graph_where(where.replace(
+                          f", slab {fwd.slab}, cluster {fwd.cluster}",
                           f", slab {route.slab}, cluster {route.cluster}")
-            + " backward")
+                          + " backward", call, graph))
+
+
+def sd_kernel_phases(torch, results):
+    """K10-K12 against their plain versions at the SD 2.1 towers' shapes
+    (bf16 unless stated): the UNet at CFG batch 2 on 64² latents, the VAE
+    encoder at 512², forward and backward where the path has one."""
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(2))
+    conv_rows(torch, results, SD_CONVS + MMA_CONVS, randn)
+    attention_rows(torch, results, SD_ATTNS, randn)
+    groupnorm_rows(torch, results, SD_GROUPNORMS, randn)
 
 
 def sd_groupnorm_launches(torch, K11, sms, n_steps, n_vae):
@@ -1452,6 +1586,52 @@ def _raster_ops(listed, bmin, bmax, valid, H, W, tile, soft):
                * valid).sum()
     return (float(listed.sum()) * tile * tile * 20 + float(touched) * 4
             + valid.shape[0] * 40)
+
+
+def explain_raster_bwd(torch, ok, op, sx, sy, sz, faces, gk, gp, bad):
+    """Log where K7's backward (``gk``, the kernel's; ``gp``, the plain
+    version's) lies outside the tolerance (``bad`` [V, 3]): for up to six
+    such vertices, the triangles on it that win a pixel or its margin, how
+    far (relative) an FMA of one product would move their den, how many of
+    their pixels' winners differ between the two sides, and how many of
+    their margin pixels tie in the margin's min."""
+    import numpy as np
+    from dreamfusion_tpu_torch.ops.raster import _edge_form
+    f = faces.long()
+    x, y = (t.detach().cpu().numpy()[f.cpu().numpy()] for t in (sx, sy))
+    e0x, e0y = x[:, 1] - x[:, 0], y[:, 1] - y[:, 0]
+    e1x, e1y = x[:, 2] - x[:, 0], y[:, 2] - y[:, 0]
+    den = (e0x * e1y) - (e0y * e1x)                  # float32, as the plain
+    fma = (e0x.astype(np.float64) * e1y - e0y * e1x).astype(np.float32)
+    gap = np.abs(fma - den) / np.maximum(np.abs(den), 1e-30)
+    b = ok.bins                 # the kernel's margin winners, from its slots
+    H, W = ok.tri_id.shape
+    ms = (b.slots >> 16) & 0xFFFF
+    yy, xx = torch.meshgrid(torch.arange(H, device=ms.device),
+                            torch.arange(W, device=ms.device), indexing="ij")
+    tile = (yy // b.tile) * -(-W // b.tile) + xx // b.tile
+    marg = torch.where(ms == 0xFFFF, -1, b.lists[tile, ms.long().clamp(
+        max=b.lists.shape[1] - 1)])
+    differ = ok.tri_id != op.tri_id
+    for v in torch.nonzero(bad.any(1))[:6, 0].tolist():
+        tris = torch.nonzero((f == v).any(1))[:, 0]
+        won, mwon = torch.isin(ok.tri_id, tris), torch.isin(marg, tris)
+        ties = 0
+        if bool(mwon.any()):
+            py, px = torch.nonzero(mwon, as_tuple=True)
+            bu, bv, _ = _edge_form(sx, sy, sz, f, marg[py, px].long(),
+                                   px.float() + 0.5, py.float() + 0.5)
+            bw = 1.0 - bu - bv
+            lo = torch.minimum(torch.minimum(bu, bv), bw)
+            ties = int(((bu == lo).int() + (bv == lo).int()
+                        + (bw == lo).int() > 1).sum())
+        t = tris.cpu().numpy()
+        log(f"raster_bwd: vertex {v} kernel {[float(g[v]) for g in gk]} "
+            f"plain {[float(g[v]) for g in gp]}; its triangles {t.tolist()}, "
+            f"den {den[t].tolist()}, an FMA's gap {gap[t].tolist()}; "
+            f"{int(won.sum())} pixels won ({int((won & differ).sum())} "
+            f"winners differ), {int(mwon.sum())} margin pixels, {ties} "
+            f"ties in the margin's min")
 
 
 def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
@@ -1541,7 +1721,12 @@ def record_raster(torch, results, sx, sy, sz, faces, valid, H, W, cap, soft,
     scale = max(float(x.abs().max()) for x in gp)
     # fp32 atomics in any order; pixels whose winner differs are excluded
     # above only for the forward, so hold the sums to 1e-4 of the largest
-    err = assert_close("raster_bwd", gk, gp, 1e-4 * scale, 1e-4)
+    bad = torch.stack([(a - b).abs() > 1e-4 * scale + 1e-4 * b.abs()
+                       for a, b in zip(gk, gp)], -1)
+    if bool(bad.any()):
+        explain_raster_bwd(torch, ok, op, sx, sy, sz, faces, gk, gp, bad)
+    err = assert_close(f"raster_bwd ({int((~same).sum())} pixels' winners "
+                       f"differ)", gk, gp, 1e-4 * scale, 1e-4)
     saved = [ok.tri_id, ok.alpha]
     hits = float((ok.tri_id >= 0).sum())
     record_kernel(results, "raster_bwd", err, median_ms(
@@ -1812,17 +1997,14 @@ def bake_kernel_phase(torch, results, obj_path):
                   0.0, " (texture bake)", False)
 
 
-def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws):
-    """K7 at the DMTet stage's own shape, whose rows the JSON line reports:
-    the surface the DMTet path starts from (``init_with``, built as main
-    builds the run), at the renderer's tile_cap, in the view at the far end
-    of the training ranges (unit draws 1 for the radius and the field of
-    view; 3 polar angles x 8 azimuths) whose fullest tile lists the most,
-    so that the backwards sum the crowded tiles' lists in several 1024-slot
-    windows; forward and both backwards against the plain versions."""
+def dmtet_far_views(torch, port_main, init_with, ws):
+    """The surface the DMTet path starts from (``init_with``, built as main
+    builds the run) and the 24 views at the far end of the training ranges
+    (unit draws 1 for the radius and the field of view; 3 polar angles x 8
+    azimuths) → (cfg, DMTet renderer, mesh, mvp [24, 4, 4], the fullest
+    tile's count in each view)."""
     from dreamfusion_tpu_torch.core.poses import PoseDraws
-    from dreamfusion_tpu_torch.ops.raster import (project_verts, rasterize,
-                                                  screen_coords)
+    from dreamfusion_tpu_torch.ops.raster import project_verts, rasterize
     from dreamfusion_tpu_torch.training.trainer import train_batch
     args = port_main.build_parser().parse_args(DMTET_FLAGS + [
         "--init_with", init_with, "--workspace", ws, "--iters", "1"])
@@ -1849,11 +2031,25 @@ def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws):
                                  mesh.face_mask, cfg.h, cfg.w, dmr.tile,
                                  dmr.tile_cap).tile_counts.max())
                    for m in mvp]
+    return cfg, dmr, mesh, mvp, fullest
+
+
+def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws):
+    """K7 at the DMTet stage's own shape, whose rows the JSON line reports:
+    the surface the DMTet path starts from, at the renderer's tile_cap, in
+    the far view (``dmtet_far_views``) whose fullest tile lists the most,
+    so that the backwards sum the crowded tiles' lists in several 1024-slot
+    windows; forward and both backwards against the plain versions."""
+    from dreamfusion_tpu_torch.ops.raster import project_verts, screen_coords
+    cfg, dmr, mesh, mvp, fullest = dmtet_far_views(torch, port_main,
+                                                   init_with, ws)
+    n = len(fullest)
     i = max(range(n), key=fullest.__getitem__)
     log(f"DMTet surface: {int(mesh.n_faces)} faces (max_tris "
         f"{dmr.max_tris}), fullest tile over the {n} far views "
         f"{min(fullest)}-{fullest[i]} (view {i}), tile_cap {dmr.tile_cap}")
-    sx, sy, sz, valid = screen_coords(project_verts(verts, mvp[i]),
+    sx, sy, sz, valid = screen_coords(project_verts(mesh.verts.detach(),
+                                                    mvp[i]),
                                       mesh.faces, mesh.face_mask, cfg.h,
                                       cfg.w)
     record_raster(torch, results, sx.contiguous(), sy.contiguous(),
@@ -2269,6 +2465,11 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
         gm = dm[f"{gname}_grad_max"]
         check(all(g > 0 for g in gm), f"{what}: zero {gname} gradient: {gm}")
     surface_checks(dm, what)
+    views = dm["view_tile_max"]
+    check(views and not dm["view_tile_cut"], f"{what}: eval/test views "
+          f"cut a tile's list: {dm['view_tile_cut']} (of {len(views)})")
+    log(f"{what}: {len(views)} eval/test views, fullest tile "
+        f"{max(n for _, n in views)} of tile_cap {dm['tile_cap']}")
     _check_outputs(ws, dm, what)
     return dm, launches
 
@@ -2370,6 +2571,313 @@ def dmtet_sd_path(torch, port_main, kernels, ws, init_with, smi_line):
         f"init {dm['init_seconds']:.3f} s")
     dmtet_view_launches(torch, port_main, kernels, flags, ws + "_view",
                         "DMTet SD", "triplane", sd=True)
+
+
+def zero123_kernel_phases(torch, results):
+    """K10-K12 against their plain versions at zero123's shapes, each with
+    its graph ms (``ZERO123_CONVS``, ``ZERO123_ATTNS``,
+    ``zero123_groupnorms(1)``)."""
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(3))
+    conv_rows(torch, results, ZERO123_CONVS, randn, graph=True,
+              no_bias=(PATCH_CONV,))
+    attention_rows(torch, results, ZERO123_ATTNS, randn, graph=True)
+    groupnorm_rows(torch, results, zero123_groupnorms(1), randn, graph=True)
+
+
+def zero123_towers(torch):
+    """Zero123's full-width UNet, VAE and vision tower on the meta device
+    (shapes only)."""
+    from dreamfusion_tpu_torch.guidance.zero123 import Zero123Config
+    from dreamfusion_tpu_torch.models.clip import CLIPVisionEncoder
+    from dreamfusion_tpu_torch.models.unet import UNet2DCondition
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL
+    zc = Zero123Config()
+    with torch.device("meta"):
+        return (UNet2DCondition(zc.unet_config()),
+                AutoencoderKL(zc.vae_config()),
+                CLIPVisionEncoder(zc.vision_config()))
+
+
+def zero123_launches(torch, kernels, K: int, n_sds: int, embed: bool
+                     ) -> dict:
+    """K10's, K11's and K12's launches by route in `n_sds` zero123 SDS
+    steps over K references (one UNet call at CFG batch 2K, the VAE
+    encoder forward and backward at 256²) and, with `embed`, the start-up's
+    reference embeddings (the VAE encoder's forward at batch K, the ViT's
+    patch conv), from the towers' topology: K10's route is each attention
+    module's head dim, K12's each conv's (its route does not depend on the
+    spatial size), K11's each norm's shape (``zero123_groupnorms``)."""
+    from dreamfusion_tpu_torch.models.unet import Conv2d, CrossAttention
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+
+    unet, vae, vision = zero123_towers(torch)
+    want = {}
+
+    def add(name, n):
+        want[name] = want.get(name, 0) + n
+
+    def route(m, dgrad=False):
+        O, kh, kw, I = m.weight.shape
+        st = (m.stride, m.stride)
+        return K12.dgrad_route(m.compute_dtype, I, O, st, (kh, kw)) if \
+            dgrad else K12.conv_route(m.compute_dtype, I, O, st, kh * kw)
+
+    for m in unet.modules():
+        if isinstance(m, CrossAttention):
+            add(K10.attention_route(m.head_dim), n_sds)
+        elif isinstance(m, Conv2d):
+            add(route(m), n_sds)
+    for m in vae.encoder.modules():
+        if isinstance(m, Conv2d):
+            add(route(m), n_sds + embed)
+            add(route(m, dgrad=True), n_sds)
+    add("attention_fwd_wgmma_d512", n_sds + embed)
+    add("attention_bwd_wgmma", n_sds)
+    sms = kernels.sm_count(torch.device("cuda"))
+    bf = torch.bfloat16
+    for B, H, W, C, eps, silu, n, bwd in zero123_groupnorms(K):
+        G = K11.groups_for(C)
+        name = lambda b, back: K11.group_norm_route((b, H, W, C), bf, back,
+                                                    G, sms).name
+        add(name(B, False), n * n_sds)
+        if bwd:
+            add(name(B, True), n * n_sds)
+            if embed:
+                add(name(K, False), n)
+    if embed:
+        add(route(vision.embeddings.patch_embedding), 1)
+    return want
+
+
+def write_reference_png(port_main, ws) -> str:
+    """The analytic scene's default view at the known-view size (96² at
+    64² renders), rgb premasked and the hit mask as alpha, as an RGBA PNG
+    under `ws`."""
+    import numpy as np
+
+    from dreamfusion_tpu_torch.training.image_data import \
+        analytic_ref_images
+    from dreamfusion_tpu_torch.utils.image import save_image
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        ["--image", "analytic:two_sphere", "--guidance", "image_oracle"]))
+    ref = analytic_ref_images(cfg, cfg.h, cfg.w)
+    os.makedirs(ws, exist_ok=True)
+    path = os.path.join(ws, "ref_rgba.png")
+    save_image(path, np.concatenate(
+        [ref.rgb[0], ref.mask[0][..., None].astype(np.float32)], axis=-1))
+    return path
+
+
+def check_tower_launches(launches, want, what) -> None:
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}: K10-K12 launched {got}, not {want}")
+    others = {k: v for k, v in launches.items() if v and k not in want and
+              k.startswith(("attention_", "conv_", "groupnorm_"))}
+    check(not others, f"{what}: K10-K12 routes off the topology: {others}")
+
+
+def zero123_path(torch, port_main, kernels, png, ws, smi_line):
+    """Zero123 stage 1 at full width through ``main`` (6 + 25 steps, a
+    known-view step every 4th), the counters reset just before it: finite
+    losses and gradients, K10-K12 exactly as ``zero123_launches`` derives
+    (one reference), K1-K4 on every step; then the same run built as main
+    builds it, its SDS and known-view steps timed apart (synchronised)
+    after the 6 warm-up steps → launches."""
+    n = ZERO123_WARMUP + ZERO123_STEPS
+    flags = ["--image", png] + ZERO123_FLAGS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    z = port_main.main(flags + ["--iters", str(n), "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_known = z["known_view_steps"]
+    n_sds = n - n_known
+    unet, vae, vision = zero123_towers(torch)
+    counts = {k: sum(p.numel() for p in m.parameters()) / 1e6 for k, m in
+              (("UNet", unet), ("VAE", vae), ("vision", vision))}
+    log(f"zero123 path: {n} steps ({n_known} known-view) in {wall:.1f} s "
+        f"(start-up and run's end included), losses {z['losses']}, "
+        f"known-view masked PSNR {z['kv_psnr_init']:.3f} -> "
+        f"{z['kv_psnr_final']:.3f} dB, peak device memory {peak_gib:.2f} "
+        f"GiB, parameters (M) {_rounded(counts)} + cc_projection "
+        f"{(768 + 4) * 768 + 768} (772 -> 768), "
+        f"start-up (s) {_rounded(z['startup'])}, on {smi_line}, launches "
+        f"{launches}")
+    check(z["all_losses_finite"], f"zero123: non-finite loss {z['losses']}")
+    check(z["grad_ok"], "zero123: a step had non-finite gradients")
+    check(n_known == -(-n // 4), f"zero123: {n_known} known-view steps")
+    check(round(counts["UNet"], 1) == 859.5,
+          f"zero123: UNet of {counts['UNet']}M parameters")
+    check_tower_launches(launches, zero123_launches(
+        torch, kernels, 1, n_sds, True), "zero123")
+    for name in ORACLE_KERNELS:
+        check(launches[name] > 0, f"the zero123 path never launched {name}")
+    run_render_launches(launches, port_main.config_from_args(
+        port_main.build_parser().parse_args(flags)), n, "zero123")
+    check(all(g > 0 for g in z["triplane_grad_max"]),
+          "zero123: a step had a zero triplane gradient")
+    # the step times, SDS and known-view apart
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags + ["--iters", str(n), "--workspace", ws + "_timing"]))
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    times = {"SDS": [], "known-view": []}
+    for i in range(n):
+        kind = "known-view" if trainer.is_known_view_step(state.step) \
+            else "SDS"
+        torch.cuda.synchronize()
+        t = time.time()
+        trainer.run_step(state, gen)
+        torch.cuda.synchronize()
+        if i >= ZERO123_WARMUP:
+            times[kind].append(time.time() - t)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"zero123 step times (synchronised, median over steps "
+        f"{ZERO123_WARMUP}-{n - 1}: {len(times['SDS'])} SDS, "
+        f"{len(times['known-view'])} known-view): SDS "
+        f"{1e3 * med['SDS']:.2f} ms (min {1e3 * min(times['SDS']):.2f}), "
+        f"known-view {1e3 * med['known-view']:.2f} ms (min "
+        f"{1e3 * min(times['known-view']):.2f}); start-up of this build (s) "
+        f"{_rounded(trainer.startup)}; on {smi_line}")
+    return launches
+
+
+def jax_closeness_weights(np, dp, da, dr, refs):
+    """JAX's zero123 ws (``guidance/zero123.py`` :255-279) in float64
+    numpy: the views' deltas [B] against the references (weight, radius,
+    polar, azimuth) → [B, K]."""
+    w, rr, rp, ra = (np.array(c, np.float64) for c in zip(*refs))
+
+    def cart(r, th, ph):
+        v = np.stack([r * np.sin(th) * np.cos(ph), r * np.sin(th) *
+                      np.sin(ph), r * np.cos(th)], -1)
+        return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-12)
+
+    a = cart(dr + rr[0], np.deg2rad(dp + rp[0]), np.deg2rad(da + ra[0]))
+    b = cart(rr, np.deg2rad(rp), np.deg2rad(ra))
+    ang = np.rad2deg(np.arccos(np.clip(a @ b.T, -1, 1)))
+    inv = np.minimum(1 / np.maximum(ang, 1e-6), 100.0)
+    inv = inv / inv.max(-1, keepdims=True)
+    inv = np.where(inv < 0.1, 0.0, inv)
+    ws = w[None] * inv
+    ws = ws / ws.max(-1, keepdims=True)
+    return np.where(ws < 0.1, 0.0, ws)
+
+
+def zero123_refs_phase(torch, port_main, kernels, png, ws):
+    """``--image_config`` with K = 3 (config/example.csv's form, weights 1,
+    1, 0.5; three PNGs), built as main builds it, 5 steps: each SDS step
+    runs the UNet once at batch 6, its ws equal JAX's formula (float64
+    numpy) within 1e-4, and K10-K12 launch exactly as
+    ``zero123_launches`` derives for K = 3."""
+    import numpy as np
+
+    from dreamfusion_tpu_torch.guidance.zero123 import (closeness_weights,
+                                                        pose_angle_grad_scale)
+    from dreamfusion_tpu_torch.training.trainer import train_batch
+    from dreamfusion_tpu_torch.utils.image import load_image, save_image
+
+    os.makedirs(ws, exist_ok=True)
+    img = load_image(png)
+    rows = ["zero123_weight, radius, polar, azimuth, image"]
+    for i, (w, r, p, a) in enumerate(ZERO123_REFS):
+        path = os.path.join(ws, f"ref{i}_rgba.png")
+        save_image(path, img if i == 0 else img[:, ::-1])
+        rows.append(f"{w:g}, {r:g}, {p:g}, {a:g}, {path}")
+    csv = os.path.join(ws, "refs.csv")
+    with open(csv, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        ["--image", png, "--image_config", csv] + ZERO123_FLAGS + [
+            "--iters", str(ZERO123_K3_STEPS), "--workspace", ws]))
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    emb = trainer.embeddings
+    check(tuple(emb["c_crossattn"].shape) == (3, 1, 768) and
+          tuple(emb["c_concat"].shape) == (3, 32, 32, 4),
+          f"K = 3: embeddings {emb['c_crossattn'].shape}, "
+          f"{emb['c_concat'].shape}")
+    batches = []
+    hook = trainer.guidance.unet.register_forward_pre_hook(
+        lambda mod, args: batches.append(args[0].shape[0]))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    n_sds, ws_err = 0, 0.0
+    try:
+        for _ in range(ZERO123_K3_STEPS):
+            if trainer.is_known_view_step(state.step):
+                trainer.run_step(state, gen)
+                continue
+            draws = trainer.draw_step(gen)
+            b = train_batch(cfg, draws.pose, draws.fov, state.step, cfg.h,
+                            cfg.w)
+            _, angles = pose_angle_grad_scale(
+                emb["ref_polars"], emb["ref_azimuths"], emb["ref_radii"],
+                b.delta_polar, b.delta_azimuth, b.delta_radius,
+                cfg.zero123_grad_scale, 1.0, 1)
+            got = closeness_weights(angles, emb["zero123_ws"]).cpu().numpy()
+            want = jax_closeness_weights(
+                np, *(t.double().cpu().numpy() for t in (
+                    b.delta_polar, b.delta_azimuth, b.delta_radius)),
+                ZERO123_REFS)
+            ws_err = max(ws_err, float(np.abs(got - want).max()))
+            check(np.allclose(got, want, atol=1e-4),
+                  f"K = 3: ws {got} against JAX's {want}")
+            trainer.train_step(state, draws)
+            n_sds += 1
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    check(batches == [6] * n_sds, f"K = 3: UNet batches {batches} in "
+          f"{n_sds} SDS steps (one call at 6 a step)")
+    check_tower_launches(dict(kernels.LAUNCHES), zero123_launches(
+        torch, kernels, 3, n_sds, False), "zero123 K = 3")
+    log(f"zero123 K = 3: {n_sds} SDS steps, one UNet call at batch 6 each, "
+        f"ws within {ws_err:.2e} of JAX's formula, K10-K12 exactly as the "
+        f"topology gives")
+
+
+def zero123_dmtet_path(torch, port_main, kernels, png, init_with, ws,
+                       smi_line):
+    """The DMTet stage under zero123 at full width (tet grid 128, 512²
+    renders resized to the VAE's 256²) from the oracle stage 1's
+    checkpoint: ``dmtet_path``'s checks (no face dropped, no tile cut in a
+    step, an eval or a test view) and K10-K12 exactly as
+    ``zero123_launches`` derives."""
+    flags = ["--image", png] + ZERO123_DMTET_FLAGS + ["--init_with",
+                                                      init_with]
+    dm, launches = dmtet_path(torch, port_main, kernels, flags,
+                              ZERO123_DMTET_STEPS, ws, "DMTet zero123",
+                              DMTET_KERNELS, "triplane", smi_line)
+    n_sds = ZERO123_DMTET_STEPS - dm["known_view_steps"]
+    check(dm["known_view_steps"] == -(-ZERO123_DMTET_STEPS // 4),
+          f"DMTet zero123: {dm['known_view_steps']} known-view steps")
+    check_tower_launches(launches, zero123_launches(
+        torch, kernels, 1, n_sds, True), "DMTet zero123")
+    log(f"DMTet zero123: {n_sds} SDS steps, K10-K12 exactly as the "
+        f"topology gives; start-up (s) {_rounded(dm['startup'])}")
+
+
+def novel_view_phase(torch, png, ws):
+    """The novel-view CLI at full width, 3 DDIM steps: a 256² PNG."""
+    from dreamfusion_tpu_torch.guidance import zero123
+    from dreamfusion_tpu_torch.utils.image import load_image
+    out = os.path.join(ws, "novel.png")
+    t0 = time.time()
+    zero123._main(["--image", png, "--steps", "3", "--polar", "-20",
+                   "--azimuth", "40", "--out", out])
+    torch.cuda.synchronize()
+    img = load_image(out)
+    check(img.shape == (256, 256, 3), f"novel view: {img.shape}")
+    log(f"novel-view CLI: 3 DDIM steps at full width in "
+        f"{time.time() - t0:.1f} s (towers and embedding included), "
+        f"{out} mean {img.mean():.3f}")
 
 
 def choose_clip_limit(torch, port_main, ws):
@@ -2548,6 +3056,9 @@ def run() -> dict:
     hashgrid_kernel_phases(torch, results, x01)
     log(f"K6 phase in {time.time() - t_k:.1f} s")
     sd_kernel_phases(torch, results)
+    t_k = time.time()
+    zero123_kernel_phases(torch, results)
+    log(f"zero123 K10-K12 rows in {time.time() - t_k:.1f} s")
     clip_grad_kernel_phase(torch, results)
     t_k = time.time()
     dmtet_kernel_phases(torch, results)
@@ -2622,7 +3133,21 @@ def run() -> dict:
                         os.path.join(build, "chip_smoke_image_dmtet_view_ws"),
                         "DMTet from the image mesh", "triplane")
 
+    # ---- Zero-1-to-3 from an image file (slice 6) ---------------------------
+    t_z = time.time()
+    zws = os.path.join(build, "chip_smoke_zero123_ws")
+    png = write_reference_png(port_main, zws + "_ref")
+    z_launches = zero123_path(torch, port_main, kernels, png, zws, smi_line)
+    zero123_refs_phase(torch, port_main, kernels, png, zws + "_k3")
+    zero123_dmtet_path(torch, port_main, kernels, png,
+                       os.path.join(build, "chip_smoke_ws", "checkpoints"),
+                       zws + "_dmtet", smi_line)
+    novel_view_phase(torch, png, zws + "_novel")
+    log(f"zero123 paths in {time.time() - t_z:.1f} s")
+
     def launches_of(name):
+        if name == "conv_fwd_mma":
+            return z_launches[name]
         if name in SD15_UNET_ATTNS:
             return sd15_launches[name]
         if name == "clip_grad_bwd":

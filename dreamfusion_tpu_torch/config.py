@@ -2,9 +2,9 @@
 
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
-only the fields the ported paths (the oracle, image-oracle and SD 2.1
-guidance on the hash-grid and triplane backbones, the run's end and the
-DMTet stage) read are carried.  ``apply_O``, ``apply_image_mode`` and
+only the fields the ported paths (the oracle, image-oracle, SD and
+Zero-1-to-3 guidance on the hash-grid and triplane backbones, the run's end
+and the DMTet stage) read are carried.  ``apply_O``, ``apply_image_mode`` and
 ``apply_dmtet`` are the ``-O``, ``--image`` and ``--dmtet`` presets, applied
 in that order after the flags; ``finalize`` applies the fix-ups those paths
 need: the other grid backends' names mapped to ``grid``, the oracle preset
@@ -38,6 +38,9 @@ class Config:
     guidance: Tuple[str, ...] = ("SD",)
     guidance_scale: float = 100.0
     sd_version: str = "2.1"
+    # converted weights (``root/<tower>.npz``, ``utils/params.py``) and the
+    # CLIP tokenizer's vocab.json + merges.txt; random weights without it
+    pretrained_root: Optional[str] = None
     oracle_scene: str = "two_sphere"
     fp16: bool = True
     t_range: Tuple[float, float] = (0.02, 0.98)
@@ -154,7 +157,7 @@ class Config:
     init_with: str = ""
     lock_geo: bool = False
 
-    # ---- zero123's pose weighting (the image oracle uses it) ----
+    # ---- zero123 (the image oracle uses its pose weighting) ----
     zero123_grad_scale: str = "angle"     # angle | None
 
     # ---- misc ----

@@ -42,7 +42,8 @@
 // planes.  Arithmetic that decides a selection uses explicit round-to-nearest
 // intrinsics in the plain version's order (no FMA contraction), so the
 // kernel selects the same triangles as ops/raster.py::raster_plain on the
-// same inputs.
+// same inputs; the backward's den, bu and bv (the margin's edge, and the
+// scale of a thin triangle's gradients) are the plain version's too.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -302,7 +303,12 @@ struct Tri {
   bool guarded;
 };
 
-// screen-space triangle at pixel (px, py): den, its guard, bu and bv
+// screen-space triangle at pixel (px, py): den, its guard, bu and bv in
+// ops/raster.py::_edge_form's operations, each rounded to nearest (no
+// contraction, bu and bv divided by den): a thin triangle's gradients grow
+// as 1/den, so a contracted den (an FMA keeps a product's low bits, which
+// the difference of two near-equal products is made of) moved them by far
+// more than the sums' rounding; and bu, bv and bw choose the margin's edge
 __device__ Tri load_tri(const float* sx, const float* sy, const int* f,
                         float px, float py) {
   Tri t;
@@ -310,16 +316,16 @@ __device__ Tri load_tri(const float* sx, const float* sy, const int* f,
     t.x[k] = sx[f[k]];
     t.y[k] = sy[f[k]];
   }
-  const float e0x = t.x[1] - t.x[0], e0y = t.y[1] - t.y[0];
-  const float e1x = t.x[2] - t.x[0], e1y = t.y[2] - t.y[0];
-  float den = e0x * e1y - e0y * e1x;
+  const float e0x = fsub(t.x[1], t.x[0]), e0y = fsub(t.y[1], t.y[0]);
+  const float e1x = fsub(t.x[2], t.x[0]), e1y = fsub(t.y[2], t.y[0]);
+  float den = fsub(fmul(e0x, e1y), fmul(e0y, e1x));
   t.guarded = fabsf(den) < 1e-9f;
   if (t.guarded) den = 1e-9f;
   t.den = den;
   t.inv = 1.f / den;
-  const float dx = px - t.x[0], dy = py - t.y[0];
-  t.bu = (dx * e1y - dy * e1x) * t.inv;
-  t.bv = (dy * e0x - dx * e0y) * t.inv;
+  const float dx = fsub(px, t.x[0]), dy = fsub(py, t.y[0]);
+  t.bu = __fdiv_rn(fsub(fmul(dx, e1y), fmul(dy, e1x)), den);
+  t.bv = __fdiv_rn(fsub(fmul(dy, e0x), fmul(dx, e0y)), den);
   return t;
 }
 
@@ -430,12 +436,14 @@ __global__ void __launch_bounds__(256, 4) raster_bwd_kernel(
       if (Gm != 0.f) {
         const int* f = faces + 3 * list[msl];
         const Tri tr = load_tri(sx, sy, f, px, py);
-        const float bw = 1.f - tr.bu - tr.bv;
-        // min(min(bu, bv), bw): the first of a tie, as fminf picks
-        int k = 0;
-        float bmin = tr.bu;
-        if (tr.bv < bmin) { bmin = tr.bv; k = 1; }
-        if (bw < bmin) { bmin = bw; k = 2; }
+        const float bw = fsub(fsub(1.f, tr.bu), tr.bv);
+        // min(min(bu, bv), bw) and the weights its gradient gives bu, bv
+        // and bw: torch.minimum's, which halves it at a tie
+        const float m1 = fminf(tr.bu, tr.bv), bmin = fminf(m1, bw);
+        const float au = tr.bu < tr.bv ? 1.f : tr.bu > tr.bv ? 0.f : 0.5f;
+        const float o1 = m1 < bw ? 1.f : m1 > bw ? 0.f : 0.5f;
+        const float ww = 1.f - o1;     // d bw = -d bu - d bv
+        const float wu = au * o1 - ww, wv = (1.f - au) * o1 - ww;
         float dbu[6], dbv[6];
         bary_grads(tr, px, py, dbu, dbv);
         const float scale = sqrtf(fabsf(tr.den));
@@ -446,7 +454,7 @@ __global__ void __launch_bounds__(256, 4) raster_bwd_kernel(
         const float e1x = tr.x[2] - tr.x[0], e1y = tr.y[2] - tr.y[0];
         const float dden[6] = {e0y - e1y, e1x - e0x, e1y, -e1x, -e0y, e0x};
         for (int i = 0; i < 6; ++i) {
-          const float db = k == 0 ? dbu[i] : k == 1 ? dbv[i] : -dbu[i] - dbv[i];
+          const float db = wu * dbu[i] + wv * dbv[i];
           tm[i] = Gm * (scale * db + bmin * ds * dden[i]);
         }
         ms = (int)msl;

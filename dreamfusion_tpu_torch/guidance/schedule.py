@@ -1,5 +1,6 @@
 """Diffusion noise schedule (``dreamfusion_tpu/guidance/schedule.py``):
-the precomputed ᾱ table and ``add_noise``."""
+the precomputed ᾱ table, ``add_noise``, ``predict_start_from_noise`` and
+the deterministic DDIM step (zero123's ``novel_view``)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,28 @@ class NoiseSchedule:
         shape = (-1,) + (1,) * (x0.ndim - 1)
         return torch.sqrt(ac).reshape(shape) * x0 + \
             torch.sqrt(1.0 - ac).reshape(shape) * noise
+
+    def predict_start_from_noise(self, x_t: torch.Tensor, t: torch.Tensor,
+                                 noise: torch.Tensor) -> torch.Tensor:
+        """x_0 = (x_t - sqrt(1 - ᾱ_t) ε) / sqrt(ᾱ_t)."""
+        ac = self.alphas_cumprod_at(t)
+        shape = (-1,) + (1,) * (x_t.ndim - 1)
+        return (x_t - torch.sqrt(1.0 - ac).reshape(shape) * noise) / \
+            torch.sqrt(ac).reshape(shape)
+
+    def ddim_step(self, x_t: torch.Tensor, eps: torch.Tensor,
+                  t: torch.Tensor, t_prev: torch.Tensor) -> torch.Tensor:
+        """One deterministic (eta = 0) DDIM update t → t_prev; ᾱ of a
+        negative t_prev is 1 (the last step lands on x_0)."""
+        a_t = self.alphas_cumprod_at(t)
+        a_prev = torch.where(t_prev >= 0,
+                             self.alphas_cumprod_at(t_prev.clamp(min=0)),
+                             torch.ones_like(a_t))
+        shape = (-1,) + (1,) * (x_t.ndim - 1)
+        a_t, a_prev = a_t.reshape(shape), a_prev.reshape(shape)
+        x0 = (x_t - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
+        dir_xt = torch.sqrt(torch.clamp(1 - a_prev, min=0.0)) * eps
+        return torch.sqrt(a_prev) * x0 + dir_xt
 
 
 def make_schedule(name: str, T: int = 1000) -> NoiseSchedule:

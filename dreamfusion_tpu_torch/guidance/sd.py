@@ -26,6 +26,7 @@ from ..models.unet import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.resize import resize_bilinear
 from ..utils.device import resolve_device
+from ..utils.params import load_pretrained_towers
 from .perpneg import weighted_perpendicular_aggregator
 from .schedule import NoiseSchedule, make_schedule
 
@@ -77,6 +78,10 @@ class StableDiffusionGuidance:
         self.schedule: NoiseSchedule = make_schedule(
             "scaled_linear", cfg.num_train_timesteps)
 
+    @property
+    def latent_size(self) -> int:
+        return self.cfg.latent_size
+
     def towers(self) -> Dict[str, nn.Module]:
         return {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
 
@@ -90,6 +95,13 @@ class StableDiffusionGuidance:
             for p in tower.parameters():
                 p.copy_(torch.randn(p.shape, generator=generator,
                                     device=p.device, dtype=p.dtype) * scale)
+
+    def load_pretrained(self, root: str, generator: torch.Generator) -> None:
+        """Converted weights from ``root/{unet,vae,text}.npz``
+        (``utils/params.py``) over the random init: a tower without its
+        file keeps the init."""
+        self.init_params(generator)
+        load_pretrained_towers(root, self.towers())
 
     def load_state_dicts(self, state: Dict[str, Dict[str, torch.Tensor]]
                          ) -> None:

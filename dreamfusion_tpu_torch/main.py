@@ -27,6 +27,14 @@
         --guidance image_oracle --backbone triplane --dmtet \\
         --init_with ws_img/mesh/mesh.obj --lr 0.002 --save_mesh \\
         --workspace ws_img_dmtet          # stage 2 from the exported mesh
+    python -m dreamfusion_tpu_torch.main --image ref_rgba.png \\
+        --backbone triplane --seed 0 --workspace ws_z123   # zero123
+    python -m dreamfusion_tpu_torch.main --image ref_rgba.png \\
+        --image_config refs.csv --backbone triplane \\
+        --workspace ws_z123k                # zero123 over K references
+    python -m dreamfusion_tpu_torch.main --image ref_rgba.png \\
+        --backbone triplane --dmtet --init_with ws_img/checkpoints \\
+        --lr 0.002 --workspace ws_z123_dmtet    # DMTet under zero123
 
 Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
 applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
@@ -37,11 +45,18 @@ which overrides the command line's lambdas unless ``--dont_override_stuff``),
 weight-free image → 3D run: the reference image is the analytic scene's
 default view (``training/image_data.py``), the prior the image oracle
 (``guidance/oracle.py``), and every ``known_view_interval``-th step a
-known-view step.  The run goes on the
-GPU; ``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
+known-view step.  ``--image file.png`` (an RGBA PNG) without ``--text``
+is Zero-1-to-3 guidance (``guidance/zero123.py``) toward that reference;
+``--image_config refs.csv`` gives K references with their poses and
+weights (``training/image_data.py``; with ``--image`` for the image
+preset, or with ``--guidance zero123``).  The run goes on the GPU;
+``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
 guidance runs its towers at the full width of ``--sd_version`` (2.1 by
-default; 1.5: CLIP-L and the 8-head UNet) with random weights drawn from
-the seed (no pretrained weights ship with the repository);
+default; 1.5: CLIP-L and the 8-head UNet), zero123 at its own (SD 1.5's
+UNet on 8 channels, the VAE at 256², CLIP ViT-L/14), with random weights
+drawn from the seed, or with ``--pretrained_root`` the converted weights
+in its ``<tower>.npz`` files (and CLIP's tokenizer from its
+``vocab.json`` and ``merges.txt``; no weights ship with the repository);
 ``--tiny_guidance`` uses the test-size towers.
 
 A run resumes from ``--ckpt`` (default ``latest``; ``scratch`` starts
@@ -56,7 +71,9 @@ Under the oracles it also logs the analytic-scene PSNR of the EMA weights at
 the start and the end, and under ``--image`` (stage 1) the known-view masked
 PSNR.  A DMTet run logs when its surface outgrew the marching tets' face
 cap (the cap then grows) or K7's tile cap, and reports the steps that
-dropped faces or cut a tile's list.  Flags of parts not ported yet raise
+dropped faces or cut a tile's list, and the eval and test views whose
+fullest tile passed K7's cap (``view_tile_cut``).  Flags of parts not
+ported yet raise
 NotImplementedError naming the ROADMAP queue 1 item (by its title) that
 ports them.
 """
@@ -76,21 +93,24 @@ import torch
 from .config import Config, apply_dmtet, apply_image_mode, apply_O, finalize
 from .guidance.embeddings import prepare_text_embeddings
 from .guidance.sd import SDConfig, StableDiffusionGuidance
+from .guidance.zero123 import Zero123Config, Zero123Guidance
 from .mesh.export import export_mesh
 from .training.dmtet_trainer import DMTetTrainer
-from .training.image_data import analytic_ref_images
+from .training.image_data import analytic_ref_images, load_ref_images
 from .training.trainer import Trainer, check_slice
 from .utils.device import resolve_device
+from .utils.params import RAW_CONVERSION
 
 TEX_RES = 1024        # the exported albedo texture's side
 
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "image_config": str, "exp_start_iter": int,
-                       "exp_end_iter": int}
+                       "exp_end_iter": int, "pretrained_root": str}
 # flag → the title of its ROADMAP queue 1 item
 _NOT_PORTED = {"-O2": "The vanilla backbone and the small field options",
                "--IF": "DeepFloyd-IF", "--gui": "Tooling",
-               "--profile": "Tooling"}
+               "--profile": "Tooling", "--zero123_config": RAW_CONVERSION,
+               "--zero123_ckpt": RAW_CONVERSION}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,8 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test-size random guidance towers")
     p.add_argument("-O", action="store_true",
                    help="fp16 and the hash-grid backbone")
-    for flag in _NOT_PORTED:
-        p.add_argument(flag, action="store_true")
+    for flag in _NOT_PORTED:        # a switch, or a flag with a value
+        p.add_argument(flag, nargs="?", const=True, default=None)
     return p
 
 
@@ -136,10 +156,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
-    if cfg.image_config is not None:
-        raise NotImplementedError(
-            "--image_config (zero123 and the PNG loader) is not ported yet "
-            "(ROADMAP queue 1: Zero-1-to-3 and the file-based image mode)")
     if cfg.image is not None and cfg.text is not None:
         raise NotImplementedError(
             "--image with --text (SD + CLIP guidance) is not ported yet "
@@ -149,17 +165,62 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return finalize(apply_dmtet(cfg) if cfg.dmtet else cfg)
 
 
+def _counts(towers) -> Dict[str, float]:
+    return {k: sum(p.numel() for p in t.parameters()) / 1e6
+            for k, t in towers.items()}
+
+
 def build_sd_guidance(cfg: Config, tiny: bool, device, seed: int):
-    """The SD towers of ``cfg.sd_version`` (2.x or 1.x) with random weights
-    drawn on the device from the seed, and the prompt embeddings (computed
-    once)."""
+    """The SD towers of ``cfg.sd_version`` (2.x or 1.x), with the
+    converted weights of ``--pretrained_root`` (full width) or random
+    weights drawn on the device from the seed, and the prompt embeddings
+    (computed once)."""
     sdc = SDConfig(sd_version=cfg.sd_version, t_range=cfg.t_range, tiny=tiny,
                    image_size=16 if tiny else 512,
                    latent_size=8 if tiny else 64)
     guidance = StableDiffusionGuidance(sdc, device)
-    guidance.init_params(torch.Generator(device=device).manual_seed(seed))
-    emb = prepare_text_embeddings(guidance, cfg.text or "", cfg.negative)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.pretrained_root and not tiny:
+        guidance.load_pretrained(cfg.pretrained_root, gen)
+    else:
+        guidance.init_params(gen)
+    emb = prepare_text_embeddings(guidance, cfg.text or "", cfg.negative,
+                                  cfg.pretrained_root)
     return guidance, emb
+
+
+def build_zero123_guidance(cfg: Config, tiny: bool, device, seed: int,
+                           ref, log=print):
+    """Zero123's towers (converted weights of ``--pretrained_root`` at full
+    width, else random from the seed) and the reference images'
+    embeddings (computed once) → (guidance, embeddings, the start-up
+    seconds: the towers' allocation, each tower's weights, the
+    embeddings)."""
+    t0 = time.time()
+    guidance = Zero123Guidance(Zero123Config(
+        t_range=cfg.t_range, tiny=tiny,
+        grad_scale_mode=cfg.zero123_grad_scale), device)
+    _sync(device)
+    startup = {"allocate": time.time() - t0}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    startup.update(guidance.load_pretrained(cfg.pretrained_root, gen)
+                   if cfg.pretrained_root and not tiny
+                   else guidance.init_params(gen))
+    t0 = time.time()
+    emb = guidance.prepare_image_embeddings(ref.rgb, ref.polars,
+                                            ref.azimuths, ref.radii,
+                                            ref.weights)
+    _sync(device)
+    startup["embeddings"] = time.time() - t0
+    n = _counts(guidance.towers())
+    log(f"[startup] zero123 guidance ({'tiny' if tiny else 'full width'}, "
+        f"{'converted' if cfg.pretrained_root and not tiny else 'random'} "
+        f"weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, vision "
+        f"{n['vision']:.2f}M, cc_projection {n['cc_projection']:.3f}M "
+        f"parameters); seconds: "
+        f"{ {k: round(v, 3) for k, v in startup.items()} } "
+        f"({len(ref.polars)} reference{'s' if len(ref.polars) > 1 else ''})")
+    return guidance, emb, startup
 
 
 def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
@@ -170,17 +231,24 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
         # the weight-free image run: the analytic scene's default view
         ref = analytic_ref_images(cfg, cfg.h, cfg.w,
                                   cfg.image.split(":", 1)[1])
+    elif cfg.image is not None or cfg.image_config is not None:
+        ref = load_ref_images(cfg, cfg.h, cfg.w)
     guidance = emb = None
+    startup: Dict[str, float] = {}
     if cfg.guidance == ("SD",) and not cfg.test:
         t_g = time.time()
         guidance, emb = build_sd_guidance(cfg, tiny_guidance, device, seed)
-        n = {k: sum(p.numel() for p in t.parameters()) / 1e6
-             for k, t in guidance.towers().items()}
+        startup["towers_and_embeddings"] = time.time() - t_g
+        n = _counts(guidance.towers())
         log(f"[startup] SD {cfg.sd_version} guidance "
-            f"({'tiny' if tiny_guidance else 'full width'}, random "
-            f"weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
+            f"({'tiny' if tiny_guidance else 'full width'}, "
+            f"{'converted' if cfg.pretrained_root and not tiny_guidance else 'random'}"
+            f" weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
             f"{n['text']:.2f}M parameters) and embeddings in "
             f"{time.time() - t_g:.1f} s")
+    elif cfg.guidance == ("zero123",) and not cfg.test:
+        guidance, emb, startup = build_zero123_guidance(
+            cfg, tiny_guidance, device, seed, ref, log)
     if cfg.dmtet:
         trainer = DMTetTrainer(cfg, device, guidance, emb, ref_images=ref)
         t_i = time.time()
@@ -189,9 +257,10 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
         trainer.init_seconds = time.time() - t_i
         log(f"[startup] DMTet state from {cfg.init_with or 'a sphere'} in "
             f"{trainer.init_seconds:.3f} s")
-        return trainer, state, torch.Generator(device=device).manual_seed(seed)
-    trainer = Trainer(cfg, device, guidance, emb, ref_images=ref)
-    state = trainer.init_state(seed)
+    else:
+        trainer = Trainer(cfg, device, guidance, emb, ref_images=ref)
+        state = trainer.init_state(seed)
+    trainer.startup = startup
     return trainer, state, torch.Generator(device=device).manual_seed(seed)
 
 
@@ -228,7 +297,7 @@ def main(argv=None) -> Dict[str, Any]:
                 trainer.fit_caps(trainer.geo_params(state.model,
                                                     state.tet_scale))
     summary: Dict[str, Any] = {"device": str(device), "steps": cfg.iters,
-                               "phases": {}}
+                               "phases": {}, "startup": trainer.startup}
     phases = summary["phases"]
 
     def timed(name: str, fn, *a, **kw):
@@ -249,6 +318,13 @@ def main(argv=None) -> Dict[str, Any]:
                 decimate_target=cfg.decimate_target, tex_res=TEX_RES,
                 phases=ex)
             summary["export_phases"] = ex
+        if cfg.dmtet:
+            summary.update(trainer.view_tile_report())
+            if summary["view_tile_cut"]:
+                log(f"[dmtet] {len(summary['view_tile_cut'])} eval/test "
+                    f"views cut a tile's list (over tile_cap "
+                    f"{trainer.dmtet_renderer.tile_cap}): "
+                    f"{summary['view_tile_cut']}")
         log(f"[end] phases (s): "
             f"{ {k: round(v, 3) for k, v in phases.items()} }")
         return summary

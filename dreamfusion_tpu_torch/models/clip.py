@@ -1,23 +1,33 @@
-"""CLIP text encoder (``dreamfusion_tpu/models/clip.py::CLIPTextEncoder``).
+"""CLIP text and vision encoders (``dreamfusion_tpu/models/clip.py``:
+``CLIPTextEncoder``, ``CLIPVisionEncoder``, ``clip_preprocess``).
 
-Runs once at start-up to embed the prompts, so it is plain torch: causal
-softmax attention written out, no kernel.  Module names follow the
-transformers ``CLIPTextModel`` keys below ``text_model.``
-(``embeddings.token_embedding``, ``encoder.layers.0.self_attn.q_proj``,
-``final_layer_norm``).  SD 2.x's OpenCLIP tower uses the exact gelu; SD 1.5's
-CLIP ViT-L the quick gelu.
+Both run once at start-up (the prompts; zero123's reference images), so
+their attention is plain torch, softmax written out as JAX's
+``jax.nn.dot_product_attention`` computes it (fp32 logits and softmax, P
+rounded to the value dtype): no kernel.  The vision tower's patch embedding
+is a K12 conv (``models/unet.py::Conv2d``, kernel = stride = the patch, no
+bias).  Module names follow the transformers keys: the text tower's
+``CLIPTextModel`` keys below ``text_model.`` (``embeddings.token_embedding``,
+``encoder.layers.0.self_attn.q_proj``, ``final_layer_norm``), the vision
+tower's ``CLIPVisionModelWithProjection`` keys below ``vision_model.``
+(``embeddings.patch_embedding``, ``pre_layrnorm``, ``post_layernorm``)
+and its ``visual_projection``.  SD 2.x's OpenCLIP tower uses the exact gelu;
+CLIP ViT-L's towers (SD 1.5's text, zero123's vision) the quick gelu.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet import Dense, LayerNorm
+from ..ops.resize import resize_bilinear
+from .unet import Conv2d, Dense, LayerNorm
 
 
 @dataclass(frozen=True)
@@ -46,20 +56,53 @@ class CLIPTextConfig:
                               num_heads=2, max_len=16, dtype=torch.float32)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                     ) -> torch.Tensor:
-    """[B, N, h, d] each → [B, N, h, d]; fp32 softmax, future masked."""
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    projection_dim: int = 768
+    use_quick_gelu: bool = True
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def vit_l14() -> "CLIPVisionConfig":
+        """CLIP ViT-L/14 (the dataclass defaults): zero123's image tower."""
+        return CLIPVisionConfig()
+
+    @staticmethod
+    def vit_b16() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(patch_size=16, hidden_size=768, num_layers=12,
+                                num_heads=12, projection_dim=512)
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(image_size=32, patch_size=8, hidden_size=32,
+                                num_layers=2, num_heads=2, projection_dim=16,
+                                dtype=torch.float32)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> torch.Tensor:
+    """[B, N, h, d] each → [B, N, h, d] in q's dtype: fp32 logits and
+    softmax (the future masked when `causal`), P rounded to v's dtype."""
     N, d = q.shape[1], q.shape[-1]
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / math.sqrt(d)
-    future = torch.ones(N, N, dtype=torch.bool, device=q.device).triu(1)
-    p = torch.softmax(s.masked_fill(future, float("-inf")), dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
+    if causal:
+        future = torch.ones(N, N, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(future, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, hidden: int, heads: int, dtype: torch.dtype):
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype,
+                 causal: bool = True):
         super().__init__()
         self.heads = heads
+        self.causal = causal
         self.q_proj = Dense(hidden, hidden, dtype=dtype)
         self.k_proj = Dense(hidden, hidden, dtype=dtype)
         self.v_proj = Dense(hidden, hidden, dtype=dtype)
@@ -69,7 +112,8 @@ class CLIPAttention(nn.Module):
         B, N, C = h.shape
         q, k, v = (f(h).reshape(B, N, self.heads, C // self.heads)
                    for f in (self.q_proj, self.k_proj, self.v_proj))
-        return self.out_proj(causal_attention(q, k, v).reshape(B, N, C))
+        o = attention_plain(q, k, v, self.causal)
+        return self.out_proj(o.reshape(B, N, C))
 
 
 class CLIPMLP(nn.Module):
@@ -86,12 +130,13 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg, causal: bool = True):
         super().__init__()
         dt = cfg.dtype
         self.dtype = dt
         self.layer_norm1 = LayerNorm(cfg.hidden_size, dtype=dt)
-        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, dt)
+        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, dt,
+                                       causal)
         self.layer_norm2 = LayerNorm(cfg.hidden_size, dtype=dt)
         self.mlp = CLIPMLP(cfg.hidden_size, cfg.use_quick_gelu, dt)
 
@@ -127,3 +172,59 @@ class CLIPTextEncoder(nn.Module):
         for layer in self.encoder.layers:
             x = layer(x)
         return self.final_layer_norm(x)
+
+
+class CLIPVisionEncoder(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt, C, P = cfg.dtype, cfg.hidden_size, cfg.patch_size
+        self.embeddings = nn.Module()
+        self.embeddings.class_embedding = nn.Parameter(
+            torch.empty(C, dtype=dt), requires_grad=False)
+        self.embeddings.patch_embedding = Conv2d(3, C, k=P, stride=P,
+                                                 padding=0, bias=False,
+                                                 dtype=dt)
+        self.embeddings.position_embedding = nn.Embedding(
+            (cfg.image_size // P) ** 2 + 1, C, dtype=dt)
+        self.pre_layrnorm = LayerNorm(C, dtype=dt)
+        self.encoder = nn.Module()
+        self.encoder.layers = nn.ModuleList(CLIPLayer(cfg, causal=False)
+                                            for _ in range(cfg.num_layers))
+        self.post_layernorm = LayerNorm(C, dtype=dt)
+        self.visual_projection = Dense(C, cfg.projection_dim, bias=False,
+                                       dtype=dt, compute_dtype=torch.float32)
+        for p in self.parameters():
+            p.requires_grad_(False)
+
+    def forward(self, pixels: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pixels [B, H, W, 3] normalised (``clip_preprocess``) →
+        (pooled projection [B, proj] fp32, last hidden [B, 1 + P, hidden]):
+        the patches, the class token, the position embedding, ``pre_ln``,
+        the non-causal layers, ``post_ln`` on the class token, the
+        projection in fp32."""
+        dt, C = self.cfg.dtype, self.cfg.hidden_size
+        emb = self.embeddings
+        B = pixels.shape[0]
+        x = emb.patch_embedding(pixels.to(dt)).reshape(B, -1, C)
+        x = torch.cat([emb.class_embedding.to(dt).expand(B, 1, C), x], dim=1)
+        x = x + emb.position_embedding.weight[None].to(dt)
+        x = self.pre_layrnorm(x).to(dt)
+        for layer in self.encoder.layers:
+            x = layer(x)
+        pooled = self.post_layernorm(x[:, 0])
+        return self.visual_projection(pooled), x
+
+
+CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def clip_preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
+    """[B, H, W, 3] in [0, 1] → resized to size² (bilinear, antialiased
+    when it shrinks) and normalised by CLIP's mean and std."""
+    x = resize_bilinear(images, (size, size))
+    mean = torch.from_numpy(CLIP_IMAGE_MEAN).to(x.device)
+    std = torch.from_numpy(CLIP_IMAGE_STD).to(x.device)
+    return (x - mean) / std

@@ -56,6 +56,12 @@ class UNetConfig:
         return UNetConfig(context_dim=1024, head_dim=64)
 
     @staticmethod
+    def zero123() -> "UNetConfig":
+        """SD 1.5's topology on 8 input channels: the noisy latent and the
+        reference's latent (``c_concat``)."""
+        return UNetConfig(in_channels=8)
+
+    @staticmethod
     def tiny(context_dim: int = 32, in_channels: int = 4,
              out_channels: int = 4) -> "UNetConfig":
         return UNetConfig(in_channels=in_channels, out_channels=out_channels,
@@ -106,14 +112,15 @@ class Conv2d(nn.Module):
     added in fp32, output in the layer's compute dtype."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 3, stride: int = 1,
-                 padding=1, dtype: torch.dtype = torch.float32,
+                 padding=1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, k, k, c_in,
                                                dtype=dtype),
                                    requires_grad=False)
         self.bias = nn.Parameter(torch.empty(c_out, dtype=dtype),
-                                 requires_grad=False)
+                                 requires_grad=False) if bias else None
         self.stride = stride
         self.padding = padding
         self.compute_dtype = compute_dtype or dtype

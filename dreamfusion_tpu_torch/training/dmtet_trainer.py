@@ -5,9 +5,10 @@ The second stage of a run (``--dmtet --init_with <stage-1 checkpoint or
 mesh file>``): trainable (sdf, deform) on a tetrahedral grid beside the
 NeRF field, reused as a texture field.  One step: marching tets (K8) →
 rasterization (K7) → albedo query (K6 or K1, + K4) → shading → the SDS of
-the pixel oracle, the image oracle or Stable Diffusion (the VAE encodes the
-render at its own size, 512² at the DMTet preset; the gradient clamped by
-K5 under ``--grad_clip_rgb``) + normal-consistency and Laplacian
+the pixel oracle, the image oracle, Stable Diffusion (the VAE encodes the
+render at its own size, 512² at the DMTet preset) or Zero-1-to-3 (the
+render resized to its VAE's 256²; the gradient clamped by K5 under
+``--grad_clip_rgb``) + normal-consistency and Laplacian
 regularizers → backward → guarded Adan → EMA.  Under ``--image`` every
 ``known_view_interval``-th step is a known-view step instead: the reference
 view rendered through K7 at the render's own size, with rgb, mask and the
@@ -72,8 +73,9 @@ class DMTetDraws(NamedTuple):
 
 def draw_dmtet_step(gen: torch.Generator, cfg: Config, device,
                     latent_size: Optional[int] = None) -> DMTetDraws:
-    """One step's draws; ``latent_size`` set means SD guidance (latent
-    noise and the VAE posterior draw instead of pixel noise)."""
+    """One step's draws; ``latent_size`` set means a latent prior, SD or
+    zero123 (latent noise and the VAE posterior draw instead of pixel
+    noise)."""
     pose, fov, choice = draw_view(gen, cfg, device)
     t = draw_t(gen, cfg, device)
     _, N = _samplers(gen, device)
@@ -129,7 +131,7 @@ class DMTetTrainer(Trainer):
                  embeddings: Optional[Dict[str, torch.Tensor]] = None,
                  tet_grid: Optional[TetGrid] = None,
                  ref_images: Optional[RefImages] = None):
-        """``guidance`` and ``embeddings``: SD's towers and prompt
+        """``guidance`` and ``embeddings``: SD's or zero123's towers and
         embeddings, as ``Trainer``'s."""
         super().__init__(cfg, device, guidance, embeddings,
                          ref_images=ref_images)
@@ -366,7 +368,8 @@ class DMTetTrainer(Trainer):
     def render_view(self, state: DMTetState, batch: CameraBatch, H: int,
                     W: int):
         """Albedo render of a one-view batch through the rasterizer with the
-        EMA parameters → (image [H*W, 3], depth [H*W], alpha [H*W])."""
+        EMA parameters → (image [H*W, 3], depth [H*W], alpha [H*W], K7's
+        fullest tile [] before its tile_cap cut, on the device)."""
         model = ema_copy(state.model, state.ema_params)
         out = self.dmtet_renderer.render(
             self.geo_params(model, state.tet_scale),
@@ -374,7 +377,19 @@ class DMTetTrainer(Trainer):
             batch.rays_o[0], batch.rays_d[0], ambient_ratio=1.0,
             shading="albedo", bg_color=1.0)
         return (out["image"].reshape(-1, 3), out["depth"].reshape(-1),
-                out["weights_sum"].reshape(-1))
+                out["weights_sum"].reshape(-1), out["tile_counts"].max())
+
+    def view_tile_report(self) -> Dict[str, list]:
+        """The eval and test views' fullest tiles (read once, at the end)
+        → {"view_tile_max": [[view, n], ...], "view_tile_cut": the views
+        whose fullest tile passed tile_cap: their lists were cut}."""
+        names = [n for n, _ in self.view_tiles]
+        counts = torch.stack([t for _, t in self.view_tiles]).tolist() \
+            if self.view_tiles else []
+        cap = self.dmtet_renderer.tile_cap
+        return {"view_tile_max": [[n, int(c)] for n, c in zip(names, counts)],
+                "view_tile_cut": [n for n, c in zip(names, counts)
+                                  if c > cap]}
 
     def eval_metric(self, state) -> Optional[float]:
         """None, as the JAX stage: the df snapshot follows every eval."""

@@ -1,21 +1,36 @@
 """Reference images of image-conditioned training
-(``dreamfusion_tpu/training/image_data.py``): the analytic reference of
-``--image analytic:<scene>`` and the masked Pearson correlation of the
-known-view depth loss.  The PNG loader (``--image file.png``,
-``--image_config``) is not ported yet (ROADMAP queue 1: Zero-1-to-3 and
-the file-based image mode)."""
+(``dreamfusion_tpu/training/image_data.py``): the PNG loader of ``--image
+file.png`` and ``--image_config refs.csv`` (``load_ref_images``), the
+analytic reference of ``--image analytic:<scene>`` and the masked Pearson
+correlation of the known-view depth loss.
+
+``load_ref_images`` reads ``*_rgba.png`` (alpha premultiplied, the mask
+alpha > 0.5) and its ``*_depth.png`` and ``*_normal.png`` sidecars where
+every reference has them, each resized to the known-view size by
+``pil_bilinear_resize``: Pillow's ``BILINEAR`` resize of the uint8 image
+(clipped and truncated to uint8 first, as JAX hands it to Pillow), which
+the GPU host lacks, written out in numpy: the triangle filter widened by
+the scale when it shrinks, fixed-point weights of 22 fractional bits, the
+rows resized before the columns with a uint8 rounding between.
+"""
 
 from __future__ import annotations
 
+import csv
+import functools
+import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..evaluation.analytic import scene_views_full
+from ..utils.image import load_image, to_rgba
 from .data import default_view_batch
+
+_PRECISION_BITS = 22        # Pillow's fixed-point weights for 8-bit images
 
 
 @dataclass
@@ -28,6 +43,115 @@ class RefImages:
     azimuths: Tuple[float, ...] = (0.0,)
     radii: Tuple[float, ...] = (3.2,)
     weights: Tuple[float, ...] = (1.0,)
+
+
+@functools.lru_cache(maxsize=32)
+def _pil_weights(n_in: int, n_out: int) -> np.ndarray:
+    """Pillow's fixed-point bilinear weights [n_out, n_in] (int64):
+    ``precompute_coeffs`` + ``normalize_coeffs_8bpc``, sums in its
+    order."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale                    # BILINEAR's support is 1
+    out = np.zeros((n_out, n_in), np.int64)
+    for o in range(n_out):
+        center = (o + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), n_in) - lo
+        w = [max(0.0, 1.0 - abs((x + lo - center + 0.5) / filterscale))
+             for x in range(n)]
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            v = v / total if total != 0.0 else v
+            out[o, lo + x] = int(v * (1 << _PRECISION_BITS) +
+                                 (0.5 if v >= 0 else -0.5))
+    return out
+
+
+def _pil_pass(x: np.ndarray, w: np.ndarray, axis: int) -> np.ndarray:
+    """One pass along `axis` of uint8 `x`, rounded and clipped to uint8."""
+    acc = np.tensordot(w, x.astype(np.int64), axes=([1], [axis]))
+    acc = np.moveaxis(acc, 0, axis) + (1 << (_PRECISION_BITS - 1))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_bilinear_resize(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Float [h, w] or [h, w, 3] → [H, W(, 3)] float32 in [0, 1], as
+    ``Image.fromarray((clip(img, 0, 1) * 255).astype(uint8)).resize((W,
+    H), BILINEAR)`` over 255 (JAX's ``_resize``).  Grey and RGB only:
+    Pillow resizes RGBA premultiplied, which no reference needs."""
+    if img.ndim == 3 and img.shape[-1] not in (1, 3):
+        raise ValueError(f"grey or RGB images only, got {img.shape}")
+    x = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    h, w = x.shape[:2]
+    if w != W:
+        x = _pil_pass(x, _pil_weights(w, W), 1)
+    if h != H:
+        x = _pil_pass(x, _pil_weights(h, H), 0)
+    return x.astype(np.float32) / 255.0
+
+
+def parse_image_config(path: str) -> List[dict]:
+    """A CSV with columns image, polar, azimuth, radius, zero123_weight (in
+    any order; spaces after the commas and in the header are stripped, as
+    in ``config/example.csv``) → one dict a row."""
+    rows = []
+    with open(path) as f:
+        for row in csv.DictReader(f, skipinitialspace=True):
+            rows.append({k.strip(): (v.strip() if isinstance(v, str) else v)
+                         for k, v in row.items() if k is not None})
+    return rows
+
+
+def load_ref_images(cfg: Config, H: int, W: int) -> RefImages:
+    """The reference images at the known-view size (``known_view_scale``
+    times H×W): ``--image_config``'s rows with their poses and zero123
+    weights, else ``--image`` at the default pose with weight 1; depth and
+    normals where every reference has its sidecar."""
+    Hs = int(cfg.known_view_scale * H)
+    Ws = int(cfg.known_view_scale * W)
+    if cfg.image_config:
+        rows = parse_image_config(cfg.image_config)
+        paths = [r["image"] for r in rows]
+        polars = tuple(float(r.get("polar", 90.0)) for r in rows)
+        azimuths = tuple(float(r.get("azimuth", 0.0)) for r in rows)
+        radii = tuple(float(r.get("radius", 3.2)) for r in rows)
+        weights = tuple(float(r.get("zero123_weight", 1.0)) for r in rows)
+    else:
+        if cfg.image is None:
+            raise ValueError("no reference image: --image or --image_config")
+        paths = [cfg.image]
+        polars, azimuths = (cfg.default_polar,), (cfg.default_azimuth,)
+        radii, weights = (cfg.default_radius,), (1.0,)
+    rgbs, masks, depths, normals = [], [], [], []
+    have_depth = have_normal = True
+    for p in paths:
+        rgba = to_rgba(load_image(p))   # grey, LA and RGB too: alpha 1
+        mask = rgba[..., 3] > 0.5
+        rgb = rgba[..., :3] * rgba[..., 3:4]
+        rgbs.append(pil_bilinear_resize(rgb, Hs, Ws))
+        masks.append(pil_bilinear_resize(mask.astype(np.float32), Hs, Ws)
+                     > 0.5)
+        dp = p.replace("_rgba", "_depth")
+        if dp != p and os.path.exists(dp):
+            d = load_image(dp)
+            depths.append(pil_bilinear_resize(d[..., 0] if d.ndim == 3
+                                              else d, Hs, Ws))
+        else:
+            have_depth = False
+        npth = p.replace("_rgba", "_normal")
+        if npth != p and os.path.exists(npth):
+            normals.append(pil_bilinear_resize(
+                to_rgba(load_image(npth))[..., :3], Hs, Ws))
+        else:
+            have_normal = False
+    return RefImages(
+        rgb=np.stack(rgbs), mask=np.stack(masks),
+        depth=np.stack(depths) if have_depth and depths else None,
+        normal=np.stack(normals) if have_normal and normals else None,
+        polars=polars, azimuths=azimuths, radii=radii, weights=weights)
 
 
 def masked_pearson(pred: torch.Tensor, gt: torch.Tensor,

@@ -76,25 +76,29 @@ _GUIDANCE = {"IF": "DeepFloyd-IF", "zero123": _IMAGE,
 def check_slice(cfg: Config) -> None:
     """Refuse configurations outside the ported slice, naming the ROADMAP
     queue 1 item (by its title) that ports them."""
-    image_oracle = tuple(cfg.guidance) == ("image_oracle",)
+    gd = tuple(cfg.guidance)
     analytic = cfg.image is not None and cfg.image.startswith("analytic:")
-    other = [g for g in cfg.guidance if g in _GUIDANCE]
+    refs = cfg.image is not None or cfg.image_config is not None
+    other = [g for g in gd if g in _GUIDANCE and g != "zero123"]
+    if gd == ("zero123",) and not refs:
+        raise ValueError("zero123 guidance needs a reference image: "
+                         "--image or --image_config")
     todo = {
         "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
                                                           "triplane"),
                                      _VANILLA),
-        "guidance other than the pixel oracle, the image oracle or SD "
-        "alone": (tuple(cfg.guidance) not in (("oracle",), ("SD",),
-                                              ("image_oracle",)),
-                  _GUIDANCE[other[0]] if other else _GUIDANCE["clip"]),
-        "--image from a file (zero123 and the PNG loader)": (
-            cfg.image is not None and not analytic, _IMAGE),
-        "--image_config (zero123 and the PNG loader)": (
-            cfg.image_config is not None, _IMAGE),
-        "--image analytic: without --guidance image_oracle": (
-            analytic and not image_oracle, _IMAGE),
+        "guidance other than the pixel oracle, the image oracle, SD or "
+        "zero123 alone": (gd not in (("oracle",), ("SD",),
+                                     ("image_oracle",), ("zero123",)),
+                          _GUIDANCE[other[0]] if other
+                          else _GUIDANCE["clip"]),
+        "SD guidance with reference images (--image_config without --image:"
+        " the image + text recipe)": (gd == ("SD",) and refs,
+                                      _GUIDANCE["clip"]),
+        "the pixel oracle with a reference image": (
+            gd == ("oracle",) and refs, _IMAGE),
         "--guidance image_oracle without --image analytic:<scene>": (
-            image_oracle and not analytic, _IMAGE),
+            gd == ("image_oracle",) and not analytic, _IMAGE),
         "--optim other than adan": (cfg.optim != "adan", _VANILLA),
         "--grad_clip": (cfg.grad_clip >= 0, _VANILLA),
         "--lambda_tv on the triplane (triplane_tv_loss)": (
@@ -212,8 +216,9 @@ def draw_t(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
 
 def draw_step(gen: torch.Generator, cfg: Config, device,
               latent_size: Optional[int] = None) -> StepDraws:
-    """One step's draws; ``latent_size`` set means SD guidance (latent
-    noise and the VAE posterior draw instead of pixel noise)."""
+    """One step's draws; ``latent_size`` set means a latent prior, SD or
+    zero123 (latent noise and the VAE posterior draw instead of pixel
+    noise)."""
     B = cfg.batch_size
     U, N = _samplers(gen, device)
     pose, fov, choice = draw_view(gen, cfg, device)
@@ -319,11 +324,14 @@ class Trainer:
     def __init__(self, cfg: Config, device="cuda", guidance=None,
                  embeddings: Optional[Dict[str, torch.Tensor]] = None,
                  ref_images: Optional[RefImages] = None):
-        """``guidance`` and ``embeddings`` (``guidance/embeddings.py``) are
-        the SD guidance's; the oracles build their own.  A ``--test`` run,
-        which trains nothing, needs neither.  ``ref_images`` are the known
-        views of ``--image`` (``image_data.analytic_ref_images``).  The
-        device is the card unless the caller asks for the CPU."""
+        """``guidance`` and ``embeddings`` are SD's (the prompt
+        embeddings, ``guidance/embeddings.py``) or zero123's (the reference
+        images', ``Zero123Guidance.prepare_image_embeddings``); the oracles
+        build their own.  A ``--test`` run, which trains nothing, needs
+        neither.  ``ref_images`` are the known views of ``--image`` or
+        ``--image_config`` (``image_data.load_ref_images``,
+        ``analytic_ref_images``).  The device is the card unless the caller
+        asks for the CPU."""
         check_slice(cfg)
         # fp32 products stay fp32 on the card: no TF32 in matmuls or
         # convolutions (PyTorch turns it on for cuDNN by default)
@@ -332,10 +340,11 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.sd = cfg.guidance == ("SD",)
-        if self.sd:
+        self.zero123 = cfg.guidance == ("zero123",)
+        if self.sd or self.zero123:
             if (guidance is None or embeddings is None) and not cfg.test:
-                raise ValueError("SD guidance needs its towers and prompt "
-                                 "embeddings")
+                raise ValueError(f"{cfg.guidance[0]} guidance needs its "
+                                 f"towers and embeddings")
             self.guidance, self.embeddings = guidance, embeddings
         elif cfg.guidance == ("image_oracle",):
             if ref_images is None:
@@ -357,14 +366,15 @@ class Trainer:
             self.kv_batch = default_view_batch(
                 cfg, ref_images.radii, ref_images.polars,
                 ref_images.azimuths, cfg.h, cfg.w, self.device)
-        self.latent_size = guidance.cfg.latent_size \
-            if self.sd and guidance is not None else None
+        self.latent_size = guidance.latent_size \
+            if (self.sd or self.zero123) and guidance is not None else None
         self.workspace = cfg.workspace
         for sub in ("checkpoints", "validation", "results"):
             os.makedirs(os.path.join(self.workspace, sub), exist_ok=True)
         self.log_path = os.path.join(self.workspace, "log_df.txt")
         self.best_result: Optional[float] = None
         self.checkpoints: List[str] = []        # rolling, oldest first
+        self.view_tiles: List[Tuple[str, torch.Tensor]] = []  # ``_frame``
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -541,6 +551,12 @@ class Trainer:
             pred_rgb = clip_grad(pred_rgb, cfg.grad_clip_rgb)
         if self.sd:
             return self._sd_loss(pred_rgb, batch, draws, as_latent)
+        if self.zero123:
+            return self.guidance.sds_loss(
+                self.embeddings, pred_rgb, batch.delta_polar,
+                batch.delta_azimuth, batch.delta_radius, draws.t, draws.noise,
+                draws.posterior_noise, guidance_scale=cfg.guidance_scale,
+                as_latent=as_latent, grad_scale=cfg.lambda_guidance)
         if as_latent:
             raise ValueError("the oracles need latent_iter_ratio 0")
         if isinstance(self.guidance, ImageOracleGuidance):
@@ -731,10 +747,14 @@ class Trainer:
             return self.known_view_psnr(state)
         return None if self.sd else self.oracle_eval_metric(state)
 
-    def _frame(self, state, batch: CameraBatch):
-        """One eval/test view at H×W → (rgb [H,W,3], depth [H,W]) numpy."""
+    def _frame(self, state, batch: CameraBatch, view: str):
+        """One eval/test view at H×W → (rgb [H,W,3], depth [H,W]) numpy.
+        A rasterized view (the DMTet stage's) also gives K7's fullest tile,
+        kept under the view's name in ``view_tiles``."""
         H, W = self.cfg.H, self.cfg.W
-        img, depth, _ = self.render_view(state, batch, H, W)
+        img, depth, _, *tile = self.render_view(state, batch, H, W)
+        if tile:
+            self.view_tiles.append((view, tile[0]))
         return (img.reshape(H, W, 3).cpu().numpy(),
                 depth.reshape(H, W).cpu().numpy())
 
@@ -746,7 +766,8 @@ class Trainer:
         vdir = os.path.join(self.workspace, "validation")
         for i in range(n):
             rgb, depth = self._frame(state, circle_view_batch(
-                cfg, i, n, cfg.H, cfg.W, self.device))
+                cfg, i, n, cfg.H, cfg.W, self.device),
+                f"eval step {state.step} view {i}")
             stem = os.path.join(vdir, f"df_ep{self.epoch(state):04d}_{i:04d}")
             save_image(f"{stem}_rgb.png", rgb)
             save_image(f"{stem}_depth.png", colorize_depth(depth))
@@ -762,7 +783,7 @@ class Trainer:
             b = six_view_batch(cfg, i, cfg.H, cfg.W, self.device) \
                 if six_views else \
                 circle_view_batch(cfg, i, n, cfg.H, cfg.W, self.device)
-            rgb, depth = self._frame(state, b)
+            rgb, depth = self._frame(state, b, f"test view {i}")
             frames.append(rgb)
             depths.append(depth)
         rdir = os.path.join(self.workspace, "results")

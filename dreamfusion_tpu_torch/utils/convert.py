@@ -6,14 +6,17 @@ K = kh·kw·I slice per row); a 1×1 conv, which the port computes as
 ``F.linear``, and an ``nn.Dense`` kernel ``[in, out]`` become an
 ``nn.Linear`` weight ``[out, in]``; GroupNorm and LayerNorm ``scale``
 becomes ``weight``.  The guidance towers' module names are the diffusers
-(UNet, VAE) and transformers (CLIP text) checkpoint keys, so the Flax paths
-map onto them as the JAX package's own converter maps those checkpoints.
+(UNet, VAE) and transformers (CLIP text and vision) checkpoint keys, so the
+Flax paths map onto them as the JAX package's own converter maps those
+checkpoints.  Zero-1-to-3's ``cc_projection`` (a Flax ``[772, 768]``
+kernel) becomes an ``nn.Linear`` ``[768, 772]`` weight.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, Mapping, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -29,9 +32,9 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     ``{'field': {'grid_table' or 'triplanes': ..., 'sigma_net': {...},
     'bg_net': {...}}}`` (``NeRFRenderer``) → the renderer's ``state_dict``,
     the hash table as it is ([T, C]), triplanes in their [3, R, R, C]
-    layout.  ``{'unet', 'vae', 'text'}`` (the guidance towers
-    of ``StableDiffusionGuidance.init_params``) → ``{'unet': state_dict,
-    'vae': ..., 'text': ...}``.  The DMTet stage's ``{'nerf': ..., 'geo':
+    layout.  The guidance towers ``{'unet', 'vae', 'text'}`` (SD's) or
+    ``{'unet', 'vae', 'vision', 'cc_projection'}`` (zero123's) → ``{'unet':
+    state_dict, 'vae': ..., ...}``.  The DMTet stage's ``{'nerf': ..., 'geo':
     {'sdf', 'deform'}}`` → the ``DMTetModel`` state_dict (``nerf.*``,
     ``geo.sdf``, ``geo.deform``); a ``'tet_scale'`` beside them (the JAX
     state's, not a parameter) comes back under that key, for
@@ -208,6 +211,32 @@ def clip_text_key(path: str) -> Optional[str]:
     return None
 
 
+def clip_vision_key(path: str) -> Optional[str]:
+    """Flax ``CLIPVisionEncoder`` path → the port's (transformers
+    ``CLIPVisionModelWithProjection``) key, the JAX package's
+    ``clip_vision_mapper`` without the ``vision_model.`` prefix."""
+    simple = {"class_embedding": "embeddings.class_embedding",
+              "position_embedding": "embeddings.position_embedding.weight"}
+    if path in simple:
+        return simple[path]
+    top = path.split("/")[0]
+    named = {"patch_embed": "embeddings.patch_embedding",
+             "pre_ln": "pre_layrnorm", "post_ln": "post_layernorm",
+             "visual_projection": "visual_projection"}
+    if top in named:
+        return f"{named[top]}.{_wb(path)}"
+    m = re.match(r"layer_(\d+)/(\w+)/", path)
+    if m:
+        return f"encoder.layers.{m.group(1)}.{_CLIP[m.group(2)]}." \
+            f"{_wb(path)}"
+    return None
+
+
+def cc_projection_key(path: str) -> Optional[str]:
+    """zero123's ``cc_projection`` {kernel, bias} → an ``nn.Linear``'s."""
+    return {"kernel": "weight", "bias": "bias"}.get(path)
+
+
 def _tower(tree, key: Callable[[str], Optional[str]]
            ) -> Dict[str, torch.Tensor]:
     out = {}
@@ -220,19 +249,37 @@ def _tower(tree, key: Callable[[str], Optional[str]]
 
 
 def _levels(tree) -> int:
-    """Resolution levels of a UNet or VAE encoder tree."""
+    """Resolution levels of a UNet or VAE encoder tree (its top-level
+    names, or its Flax paths)."""
     return 1 + max(int(m.group(1)) for k in tree
                    for m in [re.match(r"down_(\d+)_res_", k)] if m)
 
 
+def tower_levels(name: str, paths: Iterable[str]) -> int:
+    """Resolution levels of guidance tower `name` from its Flax paths: the
+    UNet's, or the VAE encoder's; 0 for the other towers."""
+    if name == "vae":
+        return _levels(p[len("encoder/"):] for p in paths
+                       if p.startswith("encoder/"))
+    return _levels(paths) if name == "unet" else 0
+
+
+def tower_key(name: str, levels: int) -> Callable[[str], Optional[str]]:
+    """The Flax path → port key map of guidance tower `name`; `levels`:
+    the UNet's or the VAE encoder's resolution levels (unused by the
+    others)."""
+    return {"unet": lambda p: unet_key(p, levels),
+            "vae": lambda p: vae_key(p, levels),
+            "text": clip_text_key, "vision": clip_vision_key,
+            "cc_projection": cc_projection_key}[name]
+
+
 def _towers(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     out = {}
-    if "unet" in params:
-        L = _levels(params["unet"])
-        out["unet"] = _tower(params["unet"], lambda p: unet_key(p, L))
-    if "vae" in params:
-        L = _levels(params["vae"]["encoder"])
-        out["vae"] = _tower(params["vae"], lambda p: vae_key(p, L))
-    if "text" in params:
-        out["text"] = _tower(params["text"], clip_text_key)
+    for name in ("unet", "vae", "text", "vision", "cc_projection"):
+        if name in params:
+            tree = params[name]
+            L = _levels(tree["encoder"] if name == "vae" else tree) \
+                if name in ("unet", "vae") else 0
+            out[name] = _tower(tree, tower_key(name, L))
     return out

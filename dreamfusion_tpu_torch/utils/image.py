@@ -1,7 +1,10 @@
 """Host-side image and video files (``dreamfusion_tpu/utils/image.py``).
 
-PNGs are written with the standard library (``zlib`` + ``struct``): the
-GPU host has no Pillow, imageio or OpenCV.  Videos go to mp4 through
+PNGs are written and read with the standard library (``zlib`` +
+``struct``): the GPU host has no Pillow, imageio or OpenCV.  The reader
+takes 8-bit grey, grey + alpha, RGB and RGBA PNGs, not interlaced, with any
+of the five row filters, and names anything else it finds;
+``load_image`` returns what Pillow's array of the file would be, over 255.  Videos go to mp4 through
 imageio or OpenCV when one of them imports, else to per-frame PNGs with a
 logged line, as the JAX package's writer does.  A choice of file format on
 the host, not a device fallback.
@@ -44,22 +47,99 @@ def encode_png(arr: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}       # PNG colour type → channels
+_COLOR_NAMES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha",
+                6: "RGBA"}
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo each row's filter (0 none, 1 sub, 2 up, 3 average, 4 paeth)
+    → uint8 [H, stride]."""
+    rows = np.frombuffer(raw, np.uint8).reshape(H, 1 + stride)
+    out = np.zeros((H, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(H):
+        f, line = int(rows[y, 0]), rows[y, 1:]
+        if f == 0:
+            cur = line.copy()
+        elif f == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif f == 2:
+            cur = line + prev
+        elif f in (3, 4):
+            cur = bytearray(line.tobytes())
+            up = prev.tolist()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                if f == 3:
+                    pred = (a + up[i]) >> 1
+                else:
+                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
+                cur[i] = (cur[i] + pred) & 255
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y} has filter type {f} (0-4 exist)")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """The inverse of ``encode_png`` for its own files (filter type 0)."""
-    pos, idat = 8, b""
+    """PNG bytes → uint8 [H, W] (grey) or [H, W, 2 | 3 | 4] (grey + alpha,
+    RGB, RGBA): 8 bits a sample, not interlaced, any row filters."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file (no PNG signature)")
+    pos, idat, head = 8, [], None
     while pos < len(data):
         n, = struct.unpack(">I", data[pos:pos + 4])
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
         if tag == b"IHDR":
-            W, H, _, color = struct.unpack(">IIBB", body[:10])
+            head = struct.unpack(">IIBBBBB", body[:13])
         elif tag == b"IDAT":
-            idat += body
+            idat.append(body)
+        elif tag == b"IEND":
+            break
         pos += 12 + n
-    C = {0: 1, 2: 3, 6: 4}[color]
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + W * C)
-    if raw[:, 0].any():
-        raise ValueError("only unfiltered PNG rows are read")
-    return raw[:, 1:].reshape(H, W, C)
+    if head is None:
+        raise ValueError("PNG without an IHDR chunk")
+    W, H, depth, color, _, _, interlace = head
+    if color not in _CHANNELS:
+        raise ValueError(f"PNG colour type {color} "
+                         f"({_COLOR_NAMES.get(color, 'unknown')}) is not "
+                         f"read: grey, grey + alpha, RGB or RGBA only")
+    if depth != 8:
+        raise ValueError(f"PNG of {depth}-bit samples is not read: 8-bit "
+                         f"only")
+    if interlace:
+        raise ValueError("interlaced (Adam7) PNG is not read")
+    C = _CHANNELS[color]
+    img = _unfilter(zlib.decompress(b"".join(idat)), H, W * C, C)
+    return img.reshape(H, W) if C == 1 else img.reshape(H, W, C)
+
+
+def load_image(path: str) -> np.ndarray:
+    """A PNG file → float32 in [0, 1], [H, W] (grey) or [H, W, C]."""
+    with open(path, "rb") as f:
+        return decode_png(f.read()).astype(np.float32) / 255.0
+
+
+def to_rgba(img: np.ndarray) -> np.ndarray:
+    """[H, W] or [H, W, 1-4] → [H, W, 4]: grey spread to RGB, an opaque
+    alpha where there is none (Pillow's ``convert("RGBA")``)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    C = img.shape[-1]
+    rgb = img[..., :3] if C >= 3 else np.repeat(img[..., :1], 3, axis=-1)
+    alpha = img[..., C - 1:] if C in (2, 4) else np.ones_like(img[..., :1])
+    return np.concatenate([rgb, alpha], axis=-1)
 
 
 def save_image(path: str, img) -> None:

@@ -1361,6 +1361,76 @@ def test_raster_kernel(dev, soft, cap, crowd, ties, slivers):
         _close_to(a, b, 1e-4)
 
 
+def _edge_scene(dev, kind, seed=9):
+    """Screen-space triangles in a 128² image whose backward turns on the
+    last bits of den, bu and bv.  ``thin``: a triangle 3-7 px long and
+    1e-4-1e-2 px wide in each 8x8 block, at a random angle through the
+    block's centre pixel (its gradients grow as 1/den, so den's rounding
+    shows in them: a product's low bits, which an FMA keeps, are most of
+    the difference of two near-equal products).  ``tie``: in each 16x16
+    block an isosceles triangle, its two base vertices mirrored about a
+    pixel column through its apex, so that on that column bu = bv exactly
+    and the margin's min is a tie (its gradient split in halves)."""
+    g = _gen(dev, seed)
+    if kind == "thin":
+        n, side = 16, 8
+    else:
+        n, side = 8, 16
+    by, bx = torch.meshgrid(torch.arange(n, device=dev),
+                            torch.arange(n, device=dev), indexing="ij")
+    bx, by = bx.reshape(-1).float(), by.reshape(-1).float()
+    T = n * n
+    if kind == "thin":
+        c = torch.stack([bx * side + side // 2 + 0.5,
+                         by * side + side // 2 + 0.5], -1)
+        a = torch.rand(T, device=dev, generator=g) * 6.2832
+        d = torch.stack([torch.cos(a), torch.sin(a)], -1)
+        nrm = torch.stack([-d[:, 1], d[:, 0]], -1)
+        L = 3 + 4 * torch.rand(T, 1, device=dev, generator=g)
+        w = 10 ** (-4 + 2 * torch.rand(T, 1, device=dev, generator=g))
+        q = torch.stack([c - 0.5 * L * d - w / 3 * nrm,
+                         c + 0.5 * L * d - w / 3 * nrm,
+                         c + 0.1 * L * d + 2 * w / 3 * nrm], 1)
+    else:
+        cx = bx * side + side // 2 + 0.5
+        y0 = by * side + 4
+        q = torch.stack([torch.stack([cx, y0], -1),
+                         torch.stack([cx - 3, y0 + 6], -1),
+                         torch.stack([cx + 3, y0 + 6], -1)], 1)
+    q = q.reshape(-1, 2).contiguous()
+    sz = torch.rand(3 * T, device=dev, generator=g) - 0.5
+    faces = torch.arange(3 * T, device=dev, dtype=torch.int32).reshape(-1, 3)
+    valid = torch.ones(T, dtype=torch.bool, device=dev)
+    return q[:, 0].contiguous(), q[:, 1].contiguous(), sz, faces, valid
+
+
+@pytest.mark.parametrize("kind", ["thin", "tie"])
+def test_raster_backward_at_thin_and_symmetric_triangles(dev, kind):
+    """K7's backward against the plain version's with a cotangent on every
+    output of every pixel, at the triangles whose gradients turn on the
+    last bits of den, bu and bv (``_edge_scene``): the kernel forms them
+    as the plain version does, and splits a tie of the margin's min as
+    torch.minimum does."""
+    from dreamfusion_tpu_torch.ops.raster import raster_cuda, raster_plain
+    sx, sy, sz, faces, valid = _edge_scene(dev, kind)
+    ins = [t.clone().requires_grad_() for t in (sx, sy, sz)]
+    ref_in = [t.clone().requires_grad_() for t in (sx, sy, sz)]
+    ok = raster_cuda(*ins, faces, valid, 128, 128, 32, 512, 1.0)
+    op = raster_plain(*ref_in, faces, valid, 128, 128, 32, 512, 1.0)
+    assert torch.equal(ok.tri_id, op.tri_id)
+    assert int((op.tri_id >= 0).sum()) >= faces.shape[0]   # every one hit
+    g = _gen(dev, 10)
+    cots = [torch.randn(o.shape, device=dev, generator=g)
+            for o in (ok.bary, ok.depth, ok.alpha)]
+    gk = torch.autograd.grad(sum((o * c).sum() for o, c in zip(
+        (ok.bary, ok.depth, ok.alpha), cots)), ins)
+    gp = torch.autograd.grad(sum((o * c).sum() for o, c in zip(
+        (op.bary, op.depth, op.alpha), cots)), ref_in)
+    scale = max(float(x.abs().max()) for x in gp)
+    for a, b in zip(gk, gp):     # chip_smoke.py's K7 backward tolerance
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-4)
+
+
 def test_raster_kernel_at_the_bake(dev):
     """K7's forward at the texture bake's 1024² (1024 tiles, cap 1024, no
     soft edge) on a UV atlas of small triangles, some pairs sharing an
@@ -1944,3 +2014,140 @@ def test_signed_distance_refuses_bad_indices_and_counts(dev):
                   torch.zeros(0, dtype=torch.int64, device=dev)):
         with pytest.raises(ValueError, match="int64"):
             signed_distance_cuda(pts, verts, tris, count=count)
+
+
+# ---------------------------------------------------------------------------
+# Zero-1-to-3's shapes: K10 over one key, the ViT's patch conv, K11 and K12
+# at the 32² UNet and the 256² VAE
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 1024, 8, 40), (6, 1024, 8, 40),
+                                     (2, 256, 8, 80), (2, 64, 8, 160),
+                                     (2, 16, 8, 160), (1, 77, 3, 64)])
+def test_attention_over_one_key_kernel(dev, B, N, H, D):
+    """zero123's cross-attention attends over one context token: the one
+    KV row by TMA, the rest of the tile zero-filled and masked; P = 1, so
+    the output is v bit for bit and lse the one logit (against float64),
+    through the wrapper too."""
+    g = _gen(dev, D + N)
+    bf = torch.bfloat16
+    q = (torch.randn(B, N, H, D, device=dev, generator=g) * 3).to(bf)
+    k, v = (torch.randn(B, 1, H, D, device=dev, generator=g).to(bf)
+            for _ in range(2))
+    scale = D ** -0.5
+    kernels.reset_launch_counts()
+    o, lse = attention_fwd_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"attention_fwd_wgmma{'' if D == 64 else f'_d{D}'}"
+                            ] == 1
+    assert torch.equal(o, v.expand_as(o))
+    logit = torch.einsum("bnhd,bmhd->bhn", q.double(), k.double()) * scale
+    torch.testing.assert_close(lse.double(), logit, atol=1e-4, rtol=1e-5)
+    assert torch.equal(attention(q, k, v), o)
+    assert torch.equal(attention_plain(q, k, v, scale), o)
+
+
+@pytest.mark.parametrize("patch,O", [(14, 1024), (16, 768)])
+def test_patch_conv_on_the_mma_route(dev, patch, O):
+    """The CLIP vision towers' patch embeddings (ViT-L/14, ViT-B/16): k =
+    s = the patch on 3 channels, no bias, at 224²: conv_fwd_mma, one
+    launch, within a bf16 ulp of the plain version."""
+    g = _gen(dev, patch)
+    bf = torch.bfloat16
+    x = torch.randn(1, 224, 224, 3, device=dev, generator=g).to(bf)
+    w = (torch.randn(O, patch, patch, 3, device=dev, generator=g) /
+         (3 * patch * patch) ** 0.5).to(bf)
+    assert conv_route(bf, 3, O, (patch, patch), patch * patch) == \
+        "conv_fwd_mma"
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, None, patch, 0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_fwd_mma"] == 1 and y.shape == (
+        1, 224 // patch, 224 // patch, O)
+    _within_ulp(y, conv2d_plain(x, w, None, (patch, patch), norm_padding(0),
+                                bf))
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad,dgrad", [
+    (2, 32, 32, 8, 320, 3, 1, 1, False),        # the UNet's 8-channel conv_in
+    (6, 32, 32, 320, 320, 3, 1, 1, False),      # K = 3 references
+    (2, 4, 4, 1280, 1280, 3, 1, 1, False),      # the 4² level: split-K
+    (2, 8, 8, 1280, 1280, 3, 2, 1, False),
+    (1, 256, 256, 3, 128, 3, 1, 1, True),       # the VAE at 256²
+    (1, 256, 256, 128, 128, 3, 1, 1, True),
+    (1, 256, 256, 128, 128, 3, 2, ((0, 1), (0, 1)), True),
+    (1, 32, 32, 512, 8, 3, 1, 1, True),         # its fp32 conv_out
+])
+def test_conv_at_zero123_shapes(dev, B, H, W, I, O, k, stride, pad, dgrad):
+    """K12's forward (and the VAE's dgrad) at zero123's shapes on the
+    routes ``conv_route`` and ``dgrad_route`` give, one launch each."""
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_cuda,
+                                                conv2d_fwd_cuda,
+                                                dgrad_route)
+    g = _gen(dev, H + I)
+    dt = torch.float32 if O == 8 else torch.bfloat16
+    pads = norm_padding(pad)
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(dt)
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(dt)
+    bias = torch.randn(O, device=dev, generator=g)
+    route = conv_route(dt, I, O, (stride, stride), k * k)
+    kernels.reset_launch_counts()
+    y = conv2d_fwd_cuda(x, w, bias, (stride, stride), pads, dt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 1 and route != "conv_fwd_mma"
+    ref = conv2d_plain(x, w, bias, (stride, stride), pads, dt)
+    if dt == torch.float32:
+        _close_to(y, ref, 1e-5)
+    else:
+        _within_ulp(y, ref)
+    if not dgrad:
+        return
+    route = dgrad_route(dt, I, O, (stride, stride), (k, k))
+    dy = torch.randn(y.shape, device=dev, generator=g).to(dt)
+    kernels.reset_launch_counts()
+    dx = conv2d_dgrad_cuda(dy, w, x.shape, (stride, stride), pads, dt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 1 and route != "conv_dgrad"
+    ref = _dgrad_plain(dy, w, x.shape, stride, pad)
+    if dt == torch.float32:
+        _close_to(dx, ref, 1e-5)
+    else:
+        _within_ulp(dx, ref)
+
+
+@pytest.mark.parametrize("B,H,W,C,silu,bwd", [
+    (2, 32, 32, 320, True, False), (6, 32, 32, 320, True, False),
+    (2, 16, 16, 1920, True, False), (2, 4, 4, 2560, True, False),
+    (1, 256, 256, 128, True, True), (1, 128, 128, 256, True, True),
+    (1, 32, 32, 512, False, True), (3, 256, 256, 128, True, False),
+])
+def test_groupnorm_at_zero123_shapes(dev, B, H, W, C, silu, bwd):
+    """K11 at zero123's UNet (CFG batch 2 and 6) and 256² VAE shapes
+    (forward and backward; batch 3: the embedding of three references),
+    each one launch of its route."""
+    g = _gen(dev, C + H)
+    bf = torch.bfloat16
+    G = groups_for(C)
+    x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3 + 1).to(bf)
+    wt, bs = (torch.randn(C, device=dev, generator=g).to(bf)
+              for _ in range(2))
+    sms = kernels.sm_count(dev)
+    fwd = group_norm_route(tuple(x.shape), bf, False, G, sms)
+    xr = x.clone().requires_grad_(bwd)
+    kernels.reset_launch_counts()
+    y = group_norm(xr, wt, bs, G, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[fwd.name] == 1
+    _close_to(y, group_norm_plain(x, wt, bs, G, 1e-6, silu), 1e-2)
+    if not bwd:
+        return
+    route = group_norm_route(tuple(x.shape), bf, True, G, sms)
+    dy = torch.randn(y.shape, device=dev, generator=g).to(bf)
+    (dx,) = torch.autograd.grad(y, xr, dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route.name] == 1
+    x32 = x.float().requires_grad_()
+    (dxp,) = torch.autograd.grad(group_norm_plain(x32, wt, bs, G, 1e-6,
+                                                  silu), x32, dy.float())
+    _close_to(dx, dxp, 2e-2)

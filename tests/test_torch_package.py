@@ -241,7 +241,7 @@ def _queue1_titles():
     ["--image", "x.png", "--text", "a hamburger"],
     ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--guidance", "IF"],
-    ["--guidance", "zero123"],
+    ["--guidance", "zero123", "clip", "--image_config", "x.csv"],
     ["--guidance", "SD", "clip", "--text", "a hamburger"],
     ["--guidance", "oracle", "--backbone", "triplane", "--image", "x.png"],
     ["--image", "analytic:two_sphere", "--guidance", "oracle",
@@ -252,6 +252,8 @@ def _queue1_titles():
     ["--guidance", "oracle", "--backbone", "triplane", "--lambda_tv", "1"],
     ["--guidance", "oracle", "--backbone", "triplane", "--normal_mode",
      "finite_difference"],
+    ["--image", "x.png", "--zero123_ckpt", "zero123-xl.ckpt"],
+    ["--image", "x.png", "--zero123_config", "sd-objaverse-finetune.yaml"],
 ])
 def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
     """Every refusal of the CLI and ``check_slice`` names the ROADMAP
