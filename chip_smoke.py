@@ -20,9 +20,10 @@
    fp32 one), each checked and timed under its own name at the shapes
    that take it; K10 on JAX's branch (q·scale rounded to bf16 first on the
    chunked one, as the plain version does) beside SDPA.  K12's mma.sync
-   forward serves one path shape, zero123's ViT-L/14 patch embedding
-   (step 9): the SD runs must not launch it, and it is checked and timed
-   at shapes of its own too (``MMA_CONVS``).  Then K10-K12 again at
+   forward and dgrad serve the CLIP towers' patch embeddings (zero123's
+   ViT-L/14 at start-up, step 9; CLIP guidance's ViT-B/16 every step,
+   step 10): the SD runs must not launch them, and they are checked and
+   timed at shapes of their own too (``MMA_CONVS``).  Then K10-K12 again at
    zero123's shapes (``ZERO123_CONVS``, ``ZERO123_ATTNS``,
    ``zero123_groupnorms``: the UNet at 32² latents, its cross-attention
    over one key, where the output must be v bit for bit, the VAE at 256²,
@@ -32,8 +33,9 @@
    route (stride 1, and stride 2 as four parity classes in one launch),
    its narrow route (the conv_in's 3-channel dx) and its fp32 route (the
    conv_out's) each under its own name, beside cuDNN's input gradient; the
-   mma.sync dgrad (``conv_dgrad``) at ``MMA_CONVS``' shapes only, with 0
-   SD launches.  K11 (GroupNorm + SiLU, CUDA) at every shape of the SD step
+   mma.sync dgrad (``conv_dgrad``) at ``MMA_CONVS``' shapes and the CLIP
+   patch conv's (step 10), with 0 SD launches.  K11 (GroupNorm + SiLU,
+   CUDA) at every shape of the SD step
    (``SD_GROUPNORMS``), forward and, for the VAE's, backward, each on the
    route ``group_norm_route`` gives (resident in a cluster's shared
    memory, or streaming), beside ``F.group_norm`` (+ ``F.silu``) and its
@@ -196,10 +198,30 @@
    with step 6's checks (no face dropped, no tile cut, in the steps and in
    the eval and test views) and K10-K12 exactly.  The novel-view CLI
    (``guidance/zero123.py``) for 3 DDIM steps: a finite 256² PNG.
-10. Prints one JSON line with every kernel's route, source, the TPU
+10. The image + text recipe (``--image ref_rgba.png --text "a
+   hamburger"``: SD 2.1 and CLIP guidance summed, ViT-B/16 with the
+   gradient through it into the render), at full width on random weights
+   from seed 0: K12's two mma.sync routes at its patch conv (k = s = 16 on
+   3 channels at 224², ``CLIP_PATCH_CONV``) against their plain versions
+   and cuDNN (their JSON rows), then stage 1 through main for 6 + 25 steps
+   (a known-view step every 2nd, the first 20% SD's warm-up), the counters
+   reset just before it: finite losses and gradients, K10-K12 exactly
+   (``sd_step_launches``: one ``conv_fwd_mma`` and one ``conv_dgrad`` a
+   CLIP loss, one forward more for the reference's embedding), K2-K4
+   exactly, peak memory; the same run rebuilt, its SDS and known-view
+   steps timed apart; the DMTet stage under SD + CLIP from step 4's
+   checkpoint for 14 steps with step 6's checks and K10-K12 exactly; one
+   CLIP eval metric at full width (one ``conv_fwd_mma``, no dgrad); and
+   raw checkpoints loaded by the card's torch through ``load_pretrained``
+   (a diffusers directory of ``.safetensors``, one of ``.bin`` files with
+   a shard index, SD 1.5's and zero123's ``.ckpt`` with the published key
+   names at narrow widths): every tensor bit for bit.  The oracle, SD and
+   zero123 runs launch no ``conv_dgrad``, and ``conv_fwd_mma`` only at
+   zero123's start-up (each checked exactly).
+11. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K1-K4 and K10-K12: the SD
-   run, K10's d = 40, 80 and 160 routes: the SD 1.5 run, ``conv_fwd_mma``:
-   the zero123 run; K7, K8 and K1's ``_dx``
+   run, K10's d = 40, 80 and 160 routes: the SD 1.5 run, ``conv_fwd_mma``
+   and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
    image stage 1; K9: the DMTet stage from its mesh), error, times and
@@ -210,6 +232,7 @@
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -292,6 +315,27 @@ ZERO123_DMTET_FLAGS = ["--backbone", "triplane", "--seed", "0", "--dmtet",
                        "--dataset_size_test", "2", "--save_mesh", "--ckpt",
                        "scratch", "--dataset_size_train", "10",
                        "--eval_interval", "2"]
+# The image + text recipe at full width (random weights from seed 0): SD
+# 2.1's towers and CLIP guidance's ViT-B/16 (and its 12-layer text tower),
+# the reference the zero123 run's PNG; a known-view step every 2nd step,
+# the first 20% of the run SD's warm-up.  Stage 1 runs 6 warm-up and 25
+# timed steps; the DMTet stage under SD + CLIP from the oracle stage 1's
+# checkpoint 14 steps.
+IMAGE_TEXT_WARMUP, IMAGE_TEXT_STEPS = 6, 25
+IMAGE_TEXT_FLAGS = ["--text", "a hamburger", "--backbone", "triplane",
+                    "--seed", "0", "--dataset_size_train", "31",
+                    "--eval_interval", "0", "--H", "64", "--W", "64",
+                    "--dataset_size_test", "2", "--ckpt", "scratch"]
+IMAGE_TEXT_DMTET_STEPS = 14
+IMAGE_TEXT_DMTET_FLAGS = ["--text", "a hamburger", "--backbone", "triplane",
+                          "--seed", "0", "--dmtet", "--tet_grid_size", "128",
+                          "--lr", "0.002", "--dataset_size_test", "2",
+                          "--save_mesh", "--ckpt", "scratch",
+                          "--dataset_size_train", "7", "--eval_interval", "2"]
+# CLIP guidance's ViT-B/16 patch embedding (k = s = 16 on 3 channels, no
+# bias): conv_fwd_mma forward and conv_dgrad input gradient, once each a
+# CLIP loss; its rows fill the two kernels' JSON entries
+CLIP_PATCH_CONV = (1, 224, 224, 3, 768, 16, 16, 0, "bf16", True)
 CLIP_QUANTILE = 0.8              # the limit clamps ~20% of a step's gradient
 # K9's fp32 operations per (point, triangle) pair with no culling (the
 # unculled kernel's, logged as a reference beside the bound's count): 15
@@ -1291,7 +1335,8 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=()):
     """K12's forward (by route) and, where the row asks, its dgrad against
     the plain versions and cuDNN at each row of ``SD_CONVS``' layout;
     `graph`: log each call's graph ms too; `no_bias`: rows whose conv has
-    no bias (the patch embedding)."""
+    no bias (the patch embeddings), whose forward and dgrad rows fill their
+    kernels' JSON entries (the path's own shapes)."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input
 
@@ -1374,7 +1419,8 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=()):
                       median_ms(plain_dgrad, 3),
                       "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
                       nbytes(dy, w, dk), flops, "fp32" if fp32 else "bf16",
-                      lib, _graph_where(where + " dgrad", call, graph))
+                      lib, _graph_where(where + " dgrad", call, graph),
+                      main=row in no_bias)
 
 
 def attention_rows(torch, results, rows, randn, graph=False):
@@ -2318,6 +2364,9 @@ def stage1_path(port_main, kernels, flags, ws, what, required, group,
     check(summary["grad_ok"], f"{what}: a step had non-finite gradients")
     for name in required:
         check(launches[name] > 0, f"the {what} path never launched {name}")
+    towers = {k: launches[k] for k in ("conv_fwd_mma", "conv_dgrad")}
+    check(towers == {"conv_fwd_mma": 0, "conv_dgrad": 0},
+          f"{what}: the oracle launched the patch conv's routes {towers}")
     run_render_launches(launches, port_main.config_from_args(
         port_main.build_parser().parse_args(flags)), STEPS, what)
     check(all(g > 0 for g in summary[f"{group}_grad_max"]),
@@ -2356,9 +2405,6 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
         f"{launches}")
     check(sd["all_losses_finite"], f"{what}: non-finite loss: {sd['losses']}")
     check(sd["grad_ok"], f"{what}: a step had non-finite gradients")
-    for name in ("conv_fwd_mma", "conv_dgrad"):
-        check(launches[name] == 0,
-              f"{what}: {launches[name]} convs took {name}")
     n_vae = sum(not ph for ph in sd["latent_phase"])
     for name, per_step in SD_DGRADS.items():
         check(launches[name] == per_step * n_vae,
@@ -2372,6 +2418,8 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
         torch.device("cuda")), n_steps, n_vae)
     want["attention_bwd_wgmma"] = n_vae
     want["attention_fwd_wgmma_d512"] = n_vae      # the VAE mid-block
+    # no CLIP guidance: no patch conv, either way
+    want["conv_fwd_mma"] = want["conv_dgrad"] = 0
     unet_routes = {**SD21_UNET_ATTNS, **SD15_UNET_ATTNS}
     for name in unet_routes:
         want[name] = unet_attns.get(name, 0) * n_steps
@@ -2500,17 +2548,22 @@ def surface_checks(dm, what) -> None:
           f"(step, fullest tile, tile_cap): {cut[:10]}")
 
 
-def sd_step_launches(torch, kernels, n_steps) -> dict:
-    """K10's, K11's and K12's launches in `n_steps` SD main-phase steps
-    (each through the VAE): every route exactly, the mma.sync convs
-    never."""
+def sd_step_launches(torch, kernels, n_steps, n_vae=None, n_clip=0,
+                     n_embed=0) -> dict:
+    """K10's, K11's and K12's launches in `n_steps` SD 2.1 SDS steps,
+    `n_vae` of them (default: all) through the VAE, with `n_clip` CLIP
+    losses (ViT-B/16's patch conv forward and input gradient each) and
+    `n_embed` image embeddings without gradient: every route of K10, K11
+    and K12's dgrad exactly, and the mma.sync routes exactly (the patch
+    conv's: no conv of SD's towers takes them)."""
     from dreamfusion_tpu_torch.ops import groupnorm as K11
+    n_vae = n_steps if n_vae is None else n_vae
     want = sd_groupnorm_launches(torch, K11, kernels.sm_count(
-        torch.device("cuda")), n_steps, n_steps)
-    want.update({k: n * n_steps for k, n in SD_DGRADS.items()})
+        torch.device("cuda")), n_steps, n_vae)
+    want.update({k: n * n_vae for k, n in SD_DGRADS.items()})
     want.update({k: n * n_steps for k, n in SD21_UNET_ATTNS.items()})
-    want.update(attention_fwd_wgmma_d512=n_steps,
-                attention_bwd_wgmma=n_steps, conv_fwd_mma=0, conv_dgrad=0)
+    want.update(attention_fwd_wgmma_d512=n_vae, attention_bwd_wgmma=n_vae,
+                conv_fwd_mma=n_clip + n_embed, conv_dgrad=n_clip)
     return want
 
 
@@ -3010,6 +3063,371 @@ def image_dmtet_path(torch, port_main, kernels, flags, ws, smi_line):
     return launches
 
 
+def clip_kernel_phase(torch, results):
+    """K12's two mma.sync routes at the patch conv CLIP guidance runs every
+    step (``CLIP_PATCH_CONV``: ViT-B/16 at 224²) against their plain
+    versions, with event, graph and cuDNN ms (``F.conv2d``, and
+    ``conv2d_input``, i.e. ``aten.convolution_backward``, for the dgrad)."""
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(4))
+    conv_rows(torch, results, [CLIP_PATCH_CONV], randn, graph=True,
+              no_bias=(CLIP_PATCH_CONV,))
+
+
+def image_text_counts(n, summary, interval=2):
+    """(SDS steps, those through the VAE, known-view steps) of a run of `n`
+    steps from step 0 with a known-view step every `interval`-th."""
+    known = [s % interval == 0 for s in range(n)]
+    latent = summary["latent_phase"]
+    n_sds = sum(not k for k in known)
+    n_vae = sum(not k and not lat for k, lat in zip(known, latent))
+    return n_sds, n_vae, sum(known)
+
+
+def image_text_path(torch, port_main, kernels, png, ws, smi_line):
+    """The image + text recipe at full width through ``main`` (6 + 25 steps:
+    SD 2.1 and CLIP ViT-B/16 summed, a known-view step every 2nd, the
+    warm-up's first 20%), the counters reset just before it: finite losses
+    and gradients; K10-K12 exactly (``sd_step_launches``: the UNet every
+    SDS step, the VAE after the warm-up, one ``conv_fwd_mma`` and one
+    ``conv_dgrad`` a CLIP loss, one ``conv_fwd_mma`` more for the
+    reference's embedding at start-up); K2-K4 exactly; then the same run
+    built as main builds it, its SDS and known-view steps timed apart
+    (synchronised) after the 6 warm-up steps → launches."""
+    n = IMAGE_TEXT_WARMUP + IMAGE_TEXT_STEPS
+    flags = ["--image", png] + IMAGE_TEXT_FLAGS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    it = port_main.main(flags + ["--iters", str(n), "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags + ["--iters", str(n)]))
+    check(cfg.guidance == ("SD", "clip") and cfg.known_view_interval == 2,
+          f"image + text: the recipe gave {cfg.guidance}, every "
+          f"{cfg.known_view_interval}th step known-view")
+    n_sds, n_vae, n_known = image_text_counts(n, it)
+    log(f"image + text path: {n} steps ({n_known} known-view, {n_sds} SDS, "
+        f"{n_vae} of them through the VAE) in {wall:.1f} s (start-up and "
+        f"run's end included), losses {it['losses']}, known-view masked "
+        f"PSNR {it['kv_psnr_init']:.3f} -> {it['kv_psnr_final']:.3f} dB, "
+        f"peak device memory {peak_gib:.2f} GiB, start-up (s) "
+        f"{_rounded(it['startup'])}, on {smi_line}, launches {launches}")
+    check(it["all_losses_finite"], f"image + text: non-finite loss "
+          f"{it['losses']}")
+    check(it["grad_ok"], "image + text: a step had non-finite gradients")
+    check(it["known_view_steps"] == n_known,
+          f"image + text: {it['known_view_steps']} known-view steps")
+    check(0 < n_vae < n_sds, f"image + text: {n_vae} of {n_sds} SDS steps "
+          f"through the VAE")
+    want = sd_step_launches(torch, kernels, n_sds, n_vae, n_clip=n_sds,
+                            n_embed=1)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"image + text: K10-K12 launched {got}, not {want}")
+    for name in ORACLE_KERNELS:
+        check(launches[name] > 0, f"the image + text path never launched "
+              f"{name}")
+    # K2-K4: the 3-D normal smoothness shades twice, but not in the
+    # warm-up's SDS steps (normal shading, rendered as the latent)
+    latent_sds = n_sds - n_vae
+    shade = 2 * n - latent_sds
+    k34 = {k: launches[k] for k in ("composite_bwd", "field_shade_fwd",
+                                    "field_shade_bwd", "field_head_bwd")}
+    check(k34 == {"composite_bwd": n, "field_shade_fwd": shade,
+                  "field_shade_bwd": shade, "field_head_bwd": 0},
+          f"image + text: K3/K4 launched {k34} in {n} steps")
+    check(all(g > 0 for g in it["triplane_grad_max"]),
+          "image + text: a step had a zero triplane gradient")
+    log(f"image + text: K10-K12 exactly ({sum(got.values())} launches over "
+        f"{len(got)} routes): conv_fwd_mma {got['conv_fwd_mma']} "
+        f"({n_sds} CLIP losses + the reference's embedding), conv_dgrad "
+        f"{got['conv_dgrad']}")
+    # the step times, SDS and known-view apart
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags + ["--iters", str(n), "--workspace", ws + "_timing"]))
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    times = {"SDS": [], "known-view": []}
+    for i in range(n):
+        kind = "known-view" if trainer.is_known_view_step(state.step) \
+            else "SDS"
+        torch.cuda.synchronize()
+        t = time.time()
+        trainer.run_step(state, gen)
+        torch.cuda.synchronize()
+        if i >= IMAGE_TEXT_WARMUP:
+            times[kind].append(time.time() - t)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"image + text step times (synchronised, median over steps "
+        f"{IMAGE_TEXT_WARMUP}-{n - 1}: {len(times['SDS'])} SDS, "
+        f"{len(times['known-view'])} known-view): SDS "
+        f"{1e3 * med['SDS']:.2f} ms (min {1e3 * min(times['SDS']):.2f}), "
+        f"known-view {1e3 * med['known-view']:.2f} ms (min "
+        f"{1e3 * min(times['known-view']):.2f}); start-up of this build (s) "
+        f"{_rounded(trainer.startup)}; on {smi_line}")
+    return launches
+
+
+def image_text_dmtet_path(torch, port_main, kernels, png, init_with, ws,
+                          smi_line):
+    """The DMTet stage of the image + text recipe (SD 2.1 + CLIP ViT-B/16,
+    tet grid 128, 512² renders) from the oracle stage 1's checkpoint:
+    ``dmtet_path``'s checks (no face dropped, no tile cut in a step, an
+    eval or a test view) and K10-K12 exactly (``sd_step_launches``: each
+    SDS step through the VAE with one CLIP loss)."""
+    flags = ["--image", png] + IMAGE_TEXT_DMTET_FLAGS + ["--init_with",
+                                                         init_with]
+    steps = IMAGE_TEXT_DMTET_STEPS
+    dm, launches = dmtet_path(torch, port_main, kernels, flags, steps, ws,
+                              "DMTet SD + CLIP", DMTET_KERNELS, "triplane",
+                              smi_line)
+    n_known = dm["known_view_steps"]
+    n_sds = steps - n_known
+    check(n_known == -(-steps // 2),
+          f"DMTet SD + CLIP: {n_known} known-view steps")
+    want = sd_step_launches(torch, kernels, n_sds, n_clip=n_sds, n_embed=1)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"DMTet SD + CLIP: K10-K12 launched {got}, not "
+          f"{want}")
+    log(f"DMTet SD + CLIP: {n_sds} SDS steps, K10-K12 exactly "
+        f"(conv_fwd_mma {got['conv_fwd_mma']}, conv_dgrad "
+        f"{got['conv_dgrad']}); start-up (s) {_rounded(dm['startup'])}")
+
+
+def clip_eval_phase(torch, port_main, kernels, smi_line):
+    """A text run's CLIP eval metric at full width (``--guidance clip``: the
+    run's ViT-B/16 scores min(dataset_size_valid, 4) EMA renders of the
+    validation circle at 64²): one ``conv_fwd_mma`` for the batch, no
+    dgrad, a finite score; its seconds."""
+    build = os.path.join(ROOT, "build", "chip_smoke_clip_eval_ws")
+    args = port_main.build_parser().parse_args(
+        ["--text", "a hamburger", "--guidance", "clip", "--backbone",
+         "triplane", "--seed", "0", "--workspace", build, "--iters", "1"])
+    cfg = port_main.config_from_args(args)
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    port_main.install_clip_scorer(trainer, cfg, False, log=lambda *a: None)
+    check(trainer.clip_scorer is not None, "no CLIP scorer was installed")
+    trainer.run_step(state, gen)
+    trainer.eval_metric(state)              # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    score = trainer.eval_metric(state)
+    torch.cuda.synchronize()
+    sec = time.time() - t0
+    got = {k: kernels.LAUNCHES[k] for k in ("conv_fwd_mma", "conv_dgrad")}
+    check(got == {"conv_fwd_mma": 1, "conv_dgrad": 0},
+          f"CLIP eval metric: the patch conv launched {got}")
+    check(math.isfinite(score) and abs(score) <= 100.0,
+          f"CLIP eval metric: {score}")
+    log(f"CLIP eval metric at full width: {score:.4f} (x100 cosine, "
+        f"{min(cfg.dataset_size_valid, 4)} views at {cfg.h}x{cfg.w}) in "
+        f"{1e3 * sec:.1f} ms (synchronised), patch conv {got}; on "
+        f"{smi_line}")
+
+
+def _write_safetensors(torch, path, tensors):
+    """A .safetensors file: the 8-byte little-endian header length, the
+    JSON header, then each tensor's bytes (F32, F16 or BF16)."""
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, blobs, off = {}, [], 0
+    for k, t in tensors.items():
+        raw = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + raw.numel()]}
+        blobs.append(raw.numpy().tobytes())
+        off += raw.numel()
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+
+
+def raw_weights_phase(torch, port_main, ws):
+    """Raw checkpoints read by the card's own torch through the loader
+    ``--pretrained_root`` runs (``load_pretrained``): a tiny diffusers
+    directory (fp16 and bf16 ``.safetensors``; ``.bin`` files with the
+    UNet sharded behind an index), an SD 1.5 CompVis ``.ckpt`` and a
+    zero123 ``.ckpt`` (EMA weights, the OpenAI ViT) with the published key
+    names (``tests/fixtures``) at narrow widths; the towers must hold the
+    written tensors bit for bit."""
+    from types import SimpleNamespace
+
+    from dreamfusion_tpu_torch.guidance.sd import (SDConfig,
+                                                   StableDiffusionGuidance)
+    from dreamfusion_tpu_torch.models.clip import (CLIPTextConfig,
+                                                   CLIPTextEncoder,
+                                                   CLIPVisionConfig,
+                                                   CLIPVisionEncoder)
+    from dreamfusion_tpu_torch.models.unet import (Dense, UNet2DCondition,
+                                                   UNetConfig)
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from dreamfusion_tpu_torch.utils import raw_weights as R
+    from dreamfusion_tpu_torch.utils.params import load_pretrained_towers
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    t0 = time.time()
+
+    def as_torch(p, ndim):
+        """The port parameter's shape in a torch checkpoint's layout."""
+        if p.dim() == 4:
+            return torch.randn(p.shape, generator=g).permute(0, 3, 1, 2)
+        t = torch.randn(p.shape, generator=g)
+        return t[..., None, None] if ndim == 4 else t
+
+    def same(tower, written, key=lambda k: k, what=""):
+        n = 0
+        for k, p in tower.named_parameters():
+            src = written[key(k)]
+            want = R.fit_layout(src, p.shape, k).to(p.dtype)
+            check(torch.equal(p.detach().cpu(), want), f"raw weights: "
+                  f"{what}{k} differs from the file")
+            n += 1
+        return n
+
+    # the diffusers directory: .safetensors, then .bin with a shard index
+    sdg = StableDiffusionGuidance(SDConfig(tiny=True, image_size=16,
+                                           latent_size=8), dev)
+    dtypes = {"unet": torch.float16, "vae": torch.bfloat16,
+              "text": torch.float32}
+    files = {}
+    for name, tower in sdg.towers().items():
+        pre = "text_model." if name == "text" else ""
+        files[name] = {pre + k: as_torch(p, 2).to(dtypes[name]).contiguous()
+                       for k, p in tower.named_parameters()}
+    sub = {"unet": ("unet", "diffusion_pytorch_model"),
+           "vae": ("vae", "diffusion_pytorch_model"),
+           "text": ("text_encoder", "model")}
+    counts = {}
+    for form in ("safetensors", "bin"):
+        root = os.path.join(ws, f"diffusers_{form}")
+        for name, (d, stem) in sub.items():
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+            if form == "safetensors":
+                _write_safetensors(torch, os.path.join(
+                    root, d, stem + ".safetensors"), files[name])
+            elif name == "unet":
+                keys = sorted(files[name])
+                shards = {f"{stem}-0000{i + 1}-of-00002.bin": keys[i::2]
+                          for i in range(2)}
+                for fname, ks in shards.items():
+                    torch.save({k: files[name][k] for k in ks},
+                               os.path.join(root, d, fname))
+                with open(os.path.join(root, d, stem + ".bin.index.json"),
+                          "w") as f:
+                    json.dump({"weight_map": {k: fn for fn, ks in
+                                              shards.items() for k in ks}}, f)
+            else:
+                torch.save(files[name], os.path.join(root, d, stem + ".bin"))
+        sdg.load_pretrained(root, torch.Generator(device=dev).manual_seed(0),
+                            log=lambda *a: None)
+        counts[form] = sum(
+            same(t, files[n], (lambda k: "text_model." + k) if n == "text"
+                 else (lambda k: k), f"diffusers {form} {n}.")
+            for n, t in sdg.towers().items())
+    # SD 1.5's and zero123's CompVis .ckpt, their published keys
+    narrow = dict(model_channels=32, context_dim=32, num_heads=2,
+                  dtype=torch.float32)
+    vae_cfg = VAEConfig(ch=32, dtype=torch.float32)
+    with torch.device(dev):
+        towers = {"sd15": SimpleNamespace(
+            unet=UNet2DCondition(UNetConfig(**narrow)),
+            vae=AutoencoderKL(vae_cfg),
+            text_encoder=CLIPTextEncoder(CLIPTextConfig.tiny())),
+            "zero123": SimpleNamespace(
+            unet=UNet2DCondition(UNetConfig(in_channels=8, **narrow)),
+            vae=AutoencoderKL(vae_cfg),
+            vision=CLIPVisionEncoder(CLIPVisionConfig(
+                image_size=28, hidden_size=32, num_heads=2,
+                projection_dim=16, dtype=torch.float32)),
+            cc_projection=Dense(36, 32))}
+    for kind, ns in towers.items():
+        with open(os.path.join(ROOT, "tests", "fixtures",
+                               f"{kind}_ldm_keys.json")) as f:
+            inv = json.load(f)
+        ukey = R.ldm_to_diffusers_unet_key(4, 2)
+        vkey = R.ldm_to_diffusers_vae_key(4)
+        unet_p = dict(ns.unet.named_parameters())
+        vae_p = dict(ns.vae.named_parameters())
+        sd, expect = {}, {}
+        for k, shape in inv.items():
+            if ukey(k) is not None:
+                sd[k] = as_torch(unet_p[ukey(k)], len(shape))
+            elif vkey(k) is not None:
+                sd[k] = as_torch(vae_p[vkey(k)], len(shape))
+        if kind == "zero123":
+            for k in list(sd):
+                if k.startswith("model.diffusion_model."):
+                    ek = "model_ema." + k[len("model."):].replace(".", "")
+                    sd[ek] = torch.randn(sd[k].shape, generator=g)
+            vis = dict(ns.vision.named_parameters())
+            hidden = ns.vision.cfg.hidden_size
+            pre = "cond_stage_model.model.visual."
+            top = {"class_embedding": "embeddings.class_embedding",
+                   "positional_embedding":
+                       "embeddings.position_embedding.weight",
+                   "conv1.weight": "embeddings.patch_embedding.weight",
+                   "ln_pre.weight": "pre_layrnorm.weight",
+                   "ln_pre.bias": "pre_layrnorm.bias",
+                   "ln_post.weight": "post_layernorm.weight",
+                   "ln_post.bias": "post_layernorm.bias"}
+            for k in inv:
+                r = k[len(pre):] if k.startswith(pre) else None
+                if r in top:
+                    sd[k] = as_torch(vis[top[r]], len(inv[k]))
+                elif r == "proj":
+                    sd[k] = torch.randn(hidden, ns.vision.cfg.projection_dim,
+                                        generator=g)
+                elif r is not None:
+                    i, rest = r[len("transformer.resblocks."):].split(".", 1)
+                    rows = 3 * hidden if "in_proj" in rest else None
+                    name = {"attn.out_proj": "self_attn.out_proj",
+                            "ln_1": "layer_norm1", "ln_2": "layer_norm2",
+                            "mlp.c_fc": "mlp.fc1", "mlp.c_proj": "mlp.fc2"}
+                    if rows:
+                        shape = (rows, hidden) if rest.endswith("weight") \
+                            else (rows,)
+                        sd[k] = torch.randn(shape, generator=g)
+                    else:
+                        base, wb = rest.rsplit(".", 1)
+                        sd[k] = as_torch(vis[f"encoder.layers.{i}."
+                                             f"{name[base]}.{wb}"], 2)
+            sd["cc_projection.weight"] = torch.randn(32, 36, generator=g)
+            sd["cc_projection.bias"] = torch.randn(32, generator=g)
+        path = os.path.join(ws, f"{kind}.ckpt")
+        torch.save({"state_dict": {k: v.contiguous() for k, v in sd.items()},
+                    "global_step": 1}, path)
+        convert = R.convert_zero123 if kind == "zero123" else R.convert_sd
+        logs = []
+        load_pretrained_towers(path, {"unet": ns.unet},
+                               lambda src: convert(src, ns, logs.append))
+        # the SD 1.5 inventory holds no text tower: it keeps its weights
+        check(any(("text tower: kept" if kind == "sd15" else "EMA") in m
+                  for m in logs), f"raw weights: {kind}: {logs}")
+        if kind == "zero123":
+            for k in list(sd):
+                if k.startswith("model.diffusion_model."):
+                    sd[k] = sd["model_ema." + k[len("model."):].replace(
+                        ".", "")]
+            written = R.openai_clip_visual_to_transformers(sd, pre)
+            counts[kind] = same(ns.vision, written, what="zero123 vision.") \
+                + same(ns.cc_projection, sd, lambda k: "cc_projection." + k,
+                       "zero123 cc_projection.")
+        unet_src = R.rename(sd, R.ldm_to_diffusers_unet_key(4, 2))
+        vae_src = R.rename(sd, R.ldm_to_diffusers_vae_key(4))
+        counts[kind] = counts.get(kind, 0) + same(
+            ns.unet, unet_src, what=f"{kind} unet.") + same(
+            ns.vae, vae_src, what=f"{kind} vae.")
+    log(f"raw weights: the diffusers directory (.safetensors; .bin with the "
+        f"UNet sharded), the SD 1.5 and zero123 .ckpt loaded on torch "
+        f"{torch.__version__}, every tensor bit for bit (tensors checked "
+        f"{counts}) in {time.time() - t0:.1f} s")
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -3059,6 +3477,7 @@ def run() -> dict:
     t_k = time.time()
     zero123_kernel_phases(torch, results)
     log(f"zero123 K10-K12 rows in {time.time() - t_k:.1f} s")
+    clip_kernel_phase(torch, results)
     clip_grad_kernel_phase(torch, results)
     t_k = time.time()
     dmtet_kernel_phases(torch, results)
@@ -3144,10 +3563,25 @@ def run() -> dict:
                        zws + "_dmtet", smi_line)
     novel_view_phase(torch, png, zws + "_novel")
     log(f"zero123 paths in {time.time() - t_z:.1f} s")
+    check(z_launches["conv_dgrad"] == 0, "zero123 launched conv_dgrad")
+
+    # ---- image + text: SD 2.1 + CLIP ViT-B/16, raw checkpoints (slice 7) --
+    t_c = time.time()
+    it_launches = image_text_path(
+        torch, port_main, kernels, png,
+        os.path.join(build, "chip_smoke_image_text_ws"), smi_line)
+    image_text_dmtet_path(
+        torch, port_main, kernels, png,
+        os.path.join(build, "chip_smoke_ws", "checkpoints"),
+        os.path.join(build, "chip_smoke_image_text_dmtet_ws"), smi_line)
+    clip_eval_phase(torch, port_main, kernels, smi_line)
+    raw_weights_phase(torch, port_main,
+                      os.path.join(build, "chip_smoke_raw_ws"))
+    log(f"image + text paths and raw weights in {time.time() - t_c:.1f} s")
 
     def launches_of(name):
-        if name == "conv_fwd_mma":
-            return z_launches[name]
+        if name in ("conv_fwd_mma", "conv_dgrad"):
+            return it_launches[name]
         if name in SD15_UNET_ATTNS:
             return sd15_launches[name]
         if name == "clip_grad_bwd":

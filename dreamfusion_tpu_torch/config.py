@@ -2,11 +2,12 @@
 
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
-only the fields the ported paths (the oracle, image-oracle, SD and
+only the fields the ported paths (the oracle, image-oracle, SD, CLIP and
 Zero-1-to-3 guidance on the hash-grid and triplane backbones, the run's end
-and the DMTet stage) read are carried.  ``apply_O``, ``apply_image_mode`` and
-``apply_dmtet`` are the ``-O``, ``--image`` and ``--dmtet`` presets, applied
-in that order after the flags; ``finalize`` applies the fix-ups those paths
+and the DMTet stage) read are carried.  ``apply_O``, ``apply_image_mode``
+(``--image`` alone), ``apply_image_text_mode`` (``--image`` with
+``--text``) and ``apply_dmtet`` are the presets, applied in that order
+after the flags; ``finalize`` applies the fix-ups those paths
 need: the other grid backends' names mapped to ``grid``, the oracle preset
 and the resolved exposure range.
 """
@@ -158,11 +159,18 @@ class Config:
     lock_geo: bool = False
 
     # ---- zero123 (the image oracle uses its pose weighting) ----
+    # the yaml and .ckpt of a raw zero123 checkpoint: stored, never read (as
+    # in JAX; --pretrained_root takes the .ckpt)
+    zero123_config: Optional[str] = None
+    zero123_ckpt: Optional[str] = None
     zero123_grad_scale: str = "angle"     # angle | None
 
     # ---- misc ----
     ema_decay: float = 0.95
     max_keep_ckpt: int = 2
+    # a text run's eval metric: the CLIP similarity of its eval renders
+    # (``Trainer.set_clip_scorer``), so --ckpt best keeps the best snapshot
+    clip_eval: bool = True
     exp_start_iter: Optional[int] = None
     exp_end_iter: Optional[int] = None
 
@@ -192,6 +200,18 @@ def apply_image_mode(cfg: Config) -> Config:
         guidance_scale=5.0, lambda_3d_normal_smooth=10.0, lambda_entropy=1.0,
         lambda_orient=1.0, latent_iter_ratio=0.0, progressive_view=True,
         progressive_level=True)
+
+
+def apply_image_text_mode(cfg: Config) -> Config:
+    """Image and text (``--image`` with ``--text``): SD + CLIP guidance and
+    no background MLP, and, unless ``--dont_override_stuff``, the recipe's
+    guidance scale, timestep range, known-view cadence and 3-D
+    normal-smoothness weight."""
+    out = replace(cfg, guidance=("SD", "clip"), bg_radius=-1.0)
+    if cfg.dont_override_stuff:
+        return out
+    return replace(out, guidance_scale=10.0, t_range=(0.2, 0.6),
+                   known_view_interval=2, lambda_3d_normal_smooth=20.0)
 
 
 def apply_dmtet(cfg: Config) -> Config:

@@ -27,6 +27,7 @@ from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.resize import resize_bilinear
 from ..utils.device import resolve_device
 from ..utils.params import load_pretrained_towers
+from ..utils.raw_weights import convert_sd
 from .perpneg import weighted_perpendicular_aggregator
 from .schedule import NoiseSchedule, make_schedule
 
@@ -96,12 +97,16 @@ class StableDiffusionGuidance:
                 p.copy_(torch.randn(p.shape, generator=generator,
                                     device=p.device, dtype=p.dtype) * scale)
 
-    def load_pretrained(self, root: str, generator: torch.Generator) -> None:
+    def load_pretrained(self, root: str, generator: torch.Generator,
+                        log=print) -> None:
         """Converted weights from ``root/{unet,vae,text}.npz``
         (``utils/params.py``) over the random init: a tower without its
-        file keeps the init."""
+        file keeps the init.  A root without them, a diffusers directory or
+        a CompVis ``.ckpt``, is converted on the fly
+        (``utils/raw_weights.py::convert_sd``)."""
         self.init_params(generator)
-        load_pretrained_towers(root, self.towers())
+        load_pretrained_towers(root, self.towers(),
+                               lambda src: convert_sd(src, self, log))
 
     def load_state_dicts(self, state: Dict[str, Dict[str, torch.Tensor]]
                          ) -> None:

@@ -44,6 +44,7 @@ from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.resize import resize_bilinear
 from ..utils.device import resolve_device
 from ..utils.params import load_pretrained_towers
+from ..utils.raw_weights import convert_zero123
 from .schedule import NoiseSchedule, make_schedule
 
 
@@ -213,14 +214,17 @@ class Zero123Guidance:
             seconds[name] = time.time() - t0
         return seconds
 
-    def load_pretrained(self, root: str, generator: torch.Generator
-                        ) -> Dict[str, float]:
+    def load_pretrained(self, root: str, generator: torch.Generator,
+                        log=print) -> Dict[str, float]:
         """Converted weights from ``root/{unet,vae,vision,cc_projection}.npz``
         (``utils/params.py``) over the init: a tower without its file keeps
-        the init → the seconds of the init and of the files."""
+        the init; any other root, a zero123(-xl) ``.ckpt``, is converted on
+        the fly (``utils/raw_weights.py::convert_zero123``) → the seconds of
+        the init and of the files."""
         seconds = self.init_params(generator)
         t0 = time.time()
-        load_pretrained_towers(root, self.towers())
+        load_pretrained_towers(root, self.towers(),
+                               lambda src: convert_zero123(src, self, log))
         _sync(self.unet)
         seconds["files"] = time.time() - t0
         return seconds

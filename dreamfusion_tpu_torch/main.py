@@ -35,12 +35,20 @@
     python -m dreamfusion_tpu_torch.main --image ref_rgba.png \\
         --backbone triplane --dmtet --init_with ws_img/checkpoints \\
         --lr 0.002 --workspace ws_z123_dmtet    # DMTet under zero123
+    python -m dreamfusion_tpu_torch.main --image ref_rgba.png \\
+        --text "a hamburger" --backbone triplane \\
+        --workspace ws_it                   # image + text: SD + CLIP
 
 Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
 applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
 ``--image`` without ``--text`` the image preset (``config.apply_image_mode``,
-which overrides the command line's lambdas unless ``--dont_override_stuff``),
-``--dmtet`` the DMTet preset (``config.apply_dmtet``), in that order.
+which overrides the command line's lambdas unless ``--dont_override_stuff``)
+and with ``--text`` the image + text preset (SD + CLIP guidance,
+``config.apply_image_text_mode``), ``--dmtet`` the DMTet preset
+(``config.apply_dmtet``), in that order.  ``--guidance clip`` (alone, or
+``SD clip``) adds CLIP guidance (``guidance/clip.py``: ViT-B/16 at full
+width, the render's gradient through it); a text run scores its evals
+with CLIP where a CLIP tower is at hand (``install_clip_scorer``).
 ``--image analytic:<scene>`` with ``--guidance image_oracle`` is the
 weight-free image → 3D run: the reference image is the analytic scene's
 default view (``training/image_data.py``), the prior the image oracle
@@ -55,8 +63,10 @@ guidance runs its towers at the full width of ``--sd_version`` (2.1 by
 default; 1.5: CLIP-L and the 8-head UNet), zero123 at its own (SD 1.5's
 UNet on 8 channels, the VAE at 256², CLIP ViT-L/14), with random weights
 drawn from the seed, or with ``--pretrained_root`` the converted weights
-in its ``<tower>.npz`` files (and CLIP's tokenizer from its
-``vocab.json`` and ``merges.txt``; no weights ship with the repository);
+in its ``<tower>.npz`` files (``clip.npz`` for CLIP), or a raw diffusers
+directory or CompVis / zero123 ``.ckpt`` converted on the fly
+(``utils/raw_weights.py``), and CLIP's tokenizer from its ``vocab.json``
+and ``merges.txt`` (no weights ship with the repository);
 ``--tiny_guidance`` uses the test-size towers.
 
 A run resumes from ``--ckpt`` (default ``latest``; ``scratch`` starts
@@ -90,7 +100,9 @@ from typing import Any, Dict
 
 import torch
 
-from .config import Config, apply_dmtet, apply_image_mode, apply_O, finalize
+from .config import (Config, apply_dmtet, apply_image_mode,
+                     apply_image_text_mode, apply_O, finalize)
+from .guidance.clip import CLIPConfig, CLIPGuidance
 from .guidance.embeddings import prepare_text_embeddings
 from .guidance.sd import SDConfig, StableDiffusionGuidance
 from .guidance.zero123 import Zero123Config, Zero123Guidance
@@ -99,18 +111,17 @@ from .training.dmtet_trainer import DMTetTrainer
 from .training.image_data import analytic_ref_images, load_ref_images
 from .training.trainer import Trainer, check_slice
 from .utils.device import resolve_device
-from .utils.params import RAW_CONVERSION
 
 TEX_RES = 1024        # the exported albedo texture's side
 
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "image_config": str, "exp_start_iter": int,
-                       "exp_end_iter": int, "pretrained_root": str}
+                       "exp_end_iter": int, "pretrained_root": str,
+                       "zero123_config": str, "zero123_ckpt": str}
 # flag → the title of its ROADMAP queue 1 item
 _NOT_PORTED = {"-O2": "The vanilla backbone and the small field options",
                "--IF": "DeepFloyd-IF", "--gui": "Tooling",
-               "--profile": "Tooling", "--zero123_config": RAW_CONVERSION,
-               "--zero123_ckpt": RAW_CONVERSION}
+               "--profile": "Tooling"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -156,12 +167,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
-    if cfg.image is not None and cfg.text is not None:
-        raise NotImplementedError(
-            "--image with --text (SD + CLIP guidance) is not ported yet "
-            "(ROADMAP queue 1: CLIP guidance and image + text)")
     if cfg.image is not None:
-        cfg = apply_image_mode(cfg)
+        cfg = apply_image_mode(cfg) if cfg.text is None else \
+            apply_image_text_mode(cfg)
     return finalize(apply_dmtet(cfg) if cfg.dmtet else cfg)
 
 
@@ -223,6 +231,30 @@ def build_zero123_guidance(cfg: Config, tiny: bool, device, seed: int,
     return guidance, emb, startup
 
 
+def build_clip_guidance(cfg: Config, tiny: bool, device, seed: int, ref,
+                        log=print):
+    """CLIP guidance's towers (ViT-B/16 and the 12-layer text tower at full
+    width; ``root/clip.npz`` of ``--pretrained_root``, else random from the
+    seed) and its targets: the prompt's embedding and, with reference
+    images, the first one's → (guidance, targets)."""
+    t0 = time.time()
+    clip = CLIPGuidance(CLIPConfig(tiny=tiny), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.pretrained_root and not tiny:
+        clip.load_pretrained(cfg.pretrained_root, gen)
+    else:
+        clip.init_params(gen)
+    clip_z = clip.prepare_embeddings(
+        cfg.text or None, None if ref is None else ref.rgb[0],
+        cfg.pretrained_root)
+    n = _counts({"vision": clip.vision, "text": clip.text})
+    log(f"[startup] CLIP guidance ({'tiny' if tiny else 'ViT-B/16'}, "
+        f"{'converted' if cfg.pretrained_root and not tiny else 'random'} "
+        f"weights: vision {n['vision']:.2f}M, text {n['text']:.2f}M "
+        f"parameters; targets {sorted(clip_z)}) in {time.time() - t0:.1f} s")
+    return clip, clip_z
+
+
 def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     """The trainer, its state and the step generator of a run."""
     seed = cfg.seed or 0
@@ -233,9 +265,9 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
                                   cfg.image.split(":", 1)[1])
     elif cfg.image is not None or cfg.image_config is not None:
         ref = load_ref_images(cfg, cfg.h, cfg.w)
-    guidance = emb = None
+    guidance = emb = clip = clip_z = None
     startup: Dict[str, float] = {}
-    if cfg.guidance == ("SD",) and not cfg.test:
+    if "SD" in cfg.guidance and not cfg.test:
         t_g = time.time()
         guidance, emb = build_sd_guidance(cfg, tiny_guidance, device, seed)
         startup["towers_and_embeddings"] = time.time() - t_g
@@ -249,8 +281,14 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     elif cfg.guidance == ("zero123",) and not cfg.test:
         guidance, emb, startup = build_zero123_guidance(
             cfg, tiny_guidance, device, seed, ref, log)
+    if "clip" in cfg.guidance and not cfg.test:
+        t_g = time.time()
+        clip, clip_z = build_clip_guidance(cfg, tiny_guidance, device, seed,
+                                           ref, log)
+        startup["clip"] = time.time() - t_g
+    kw = dict(ref_images=ref, clip=clip, clip_z=clip_z)
     if cfg.dmtet:
-        trainer = DMTetTrainer(cfg, device, guidance, emb, ref_images=ref)
+        trainer = DMTetTrainer(cfg, device, guidance, emb, **kw)
         t_i = time.time()
         state = trainer.init_state(seed, cfg.init_with)
         _sync(trainer.device)
@@ -258,10 +296,37 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
         log(f"[startup] DMTet state from {cfg.init_with or 'a sphere'} in "
             f"{trainer.init_seconds:.3f} s")
     else:
-        trainer = Trainer(cfg, device, guidance, emb, ref_images=ref)
+        trainer = Trainer(cfg, device, guidance, emb, **kw)
         state = trainer.init_state(seed)
     trainer.startup = startup
     return trainer, state, torch.Generator(device=device).manual_seed(seed)
+
+
+def install_clip_scorer(trainer, cfg: Config, tiny: bool, log=print) -> None:
+    """A text run's eval metric (JAX ``main.py``): the CLIP score of its
+    eval renders, by the run's CLIP guidance where it has one, else by a
+    scorer from ``root/clip.npz`` (or a tiny one under
+    ``--tiny_guidance``); none without weights."""
+    if cfg.test or not cfg.clip_eval or trainer.ref_images is not None or \
+            not cfg.text:
+        return
+    clip, clip_z = trainer.clip, trainer.clip_z
+    if clip is None:
+        root = cfg.pretrained_root
+        has_w = bool(root) and os.path.exists(os.path.join(root, "clip.npz"))
+        if not (has_w or tiny):
+            return
+        clip = CLIPGuidance(CLIPConfig(tiny=tiny), trainer.device)
+        gen = torch.Generator(device=trainer.device).manual_seed(0)
+        if has_w:
+            clip.load_pretrained(root, gen)
+        else:
+            clip.init_params(gen)
+        clip_z = clip.prepare_embeddings(cfg.text, None, root)
+    if clip_z:
+        trainer.set_clip_scorer(clip, clip_z)
+        log(f"[startup] eval metric: the CLIP score "
+            f"({'the guidance' if clip is trainer.clip else 'a scorer'})")
 
 
 def _sync(device) -> None:
@@ -288,6 +353,7 @@ def main(argv=None) -> Dict[str, Any]:
 
     oracle = cfg.guidance in (("oracle",), ("image_oracle",))
     trainer, state, gen = build_run(cfg, device, args.tiny_guidance, log)
+    install_clip_scorer(trainer, cfg, args.tiny_guidance, log)
     known_view = trainer.ref_images is not None and not cfg.dmtet
     if cfg.ckpt != "scratch":
         state, loaded = trainer.load_checkpoint(state, cfg.ckpt)

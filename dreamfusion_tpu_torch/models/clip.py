@@ -1,22 +1,27 @@
 """CLIP text and vision encoders (``dreamfusion_tpu/models/clip.py``:
 ``CLIPTextEncoder``, ``CLIPVisionEncoder``, ``clip_preprocess``).
 
-Both run once at start-up (the prompts; zero123's reference images), so
-their attention is plain torch, softmax written out as JAX's
+Their attention is plain torch, softmax written out as JAX's
 ``jax.nn.dot_product_attention`` computes it (fp32 logits and softmax, P
-rounded to the value dtype): no kernel.  The vision tower's patch embedding
-is a K12 conv (``models/unet.py::Conv2d``, kernel = stride = the patch, no
-bias).  Module names follow the transformers keys: the text tower's
-``CLIPTextModel`` keys below ``text_model.`` (``embeddings.token_embedding``,
+rounded to the value dtype): JAX's towers call no hand-written kernel
+there.  The text towers and zero123's image tower run once at start-up;
+CLIP guidance (``guidance/clip.py``) runs the ViT-B/16 every step, with
+the gradient through it into the render.  The vision tower's patch
+embedding is a K12 conv (``models/unet.py::Conv2d``, kernel = stride = the
+patch, no bias), whose input gradient is K12's dgrad.  Module names follow
+the transformers keys: the text tower's ``CLIPTextModel`` keys below
+``text_model.`` (``embeddings.token_embedding``,
 ``encoder.layers.0.self_attn.q_proj``, ``final_layer_norm``), the vision
 tower's ``CLIPVisionModelWithProjection`` keys below ``vision_model.``
 (``embeddings.patch_embedding``, ``pre_layrnorm``, ``post_layernorm``)
-and its ``visual_projection``.  SD 2.x's OpenCLIP tower uses the exact gelu;
-CLIP ViT-L's towers (SD 1.5's text, zero123's vision) the quick gelu.
+and its ``visual_projection``.  SD 2.x's OpenCLIP tower uses the exact
+gelu; CLIP ViT-L's towers (SD 1.5's text, zero123's vision) the quick
+gelu.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -173,6 +178,15 @@ class CLIPTextEncoder(nn.Module):
             x = layer(x)
         return self.final_layer_norm(x)
 
+    def pooled(self, input_ids: torch.Tensor,
+               eos_token_id: int = 49407) -> torch.Tensor:
+        """The last hidden state's row at each prompt's first EOS token
+        [B, hidden] fp32; row 0 where no id equals `eos_token_id` (the hash
+        tokenizer's EOS is 1: JAX's argmax over all-false picks 0)."""
+        h = self(input_ids)
+        eos = (input_ids == eos_token_id).int().argmax(dim=-1)
+        return h[torch.arange(h.shape[0], device=h.device), eos]
+
 
 class CLIPVisionEncoder(nn.Module):
     def __init__(self, cfg: CLIPVisionConfig):
@@ -221,10 +235,17 @@ CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device: torch.device):
+    """CLIP's mean and std on `device`, copied there once (a copy from the
+    host waits for the device's stream)."""
+    return (torch.from_numpy(CLIP_IMAGE_MEAN).to(device),
+            torch.from_numpy(CLIP_IMAGE_STD).to(device))
+
+
 def clip_preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     """[B, H, W, 3] in [0, 1] → resized to size² (bilinear, antialiased
     when it shrinks) and normalised by CLIP's mean and std."""
     x = resize_bilinear(images, (size, size))
-    mean = torch.from_numpy(CLIP_IMAGE_MEAN).to(x.device)
-    std = torch.from_numpy(CLIP_IMAGE_STD).to(x.device)
+    mean, std = _mean_std(x.device)
     return (x - mean) / std

@@ -82,9 +82,11 @@ class NeRFRenderer(nn.Module):
                     ) -> Dict[str, torch.Tensor]:
         """rays [R,3] flat.  With ``flags.perturb`` the march takes the
         stratified draws ``march_u`` [R, grid_fine_steps]; without, the
-        deterministic stratum centres.  bg_color None means white; a
-        [] bool ``use_bg_net`` picks the background MLP's colour instead
-        (per step, as the JAX step's ``jnp.where``).  ``perturb_noise``
+        deterministic stratum centres.  bg_color None means the background
+        MLP's colour where the field has one (the eval and test renders),
+        else white; a [] bool ``use_bg_net`` picks the background MLP's
+        colour over bg_color (per step, as the JAX step's ``jnp.where``).
+        ``perturb_noise``
         [R·S, 3] standard normal draws offset the second normal query of
         ``flags.need_normal_perturb``."""
         edges, centres = self.march_consts(rays_o.device)
@@ -125,6 +127,10 @@ class NeRFRenderer(nn.Module):
         bg_net = None
         if use_bg_net is not None and self.field.bg_net is not None:
             bg_net = self.field.background(safe_normalize(rays_d))
+        elif bg_color is None and self.field.bg_net is not None:
+            # no colour given (eval and test renders): the background
+            # MLP's, as JAX's
+            bg_color = self.field.background(safe_normalize(rays_d))
         n = None if normals is None else normals.reshape(R, S, 3)
         orient = n is not None and flags.need_loss_orient
         out = composite_rays(sigmas.reshape(R, S), rgbs.reshape(R, S, 3),

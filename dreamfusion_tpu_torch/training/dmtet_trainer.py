@@ -8,7 +8,8 @@ rasterization (K7) → albedo query (K6 or K1, + K4) → shading → the SDS of
 the pixel oracle, the image oracle, Stable Diffusion (the VAE encodes the
 render at its own size, 512² at the DMTet preset) or Zero-1-to-3 (the
 render resized to its VAE's 256²; the gradient clamped by K5 under
-``--grad_clip_rgb``) + normal-consistency and Laplacian
+``--grad_clip_rgb``), with CLIP's term beside SD under the image + text
+recipe + normal-consistency and Laplacian
 regularizers → backward → guarded Adan → EMA.  Under ``--image`` every
 ``known_view_interval``-th step is a known-view step instead: the reference
 view rendered through K7 at the render's own size, with rgb, mask and the
@@ -130,11 +131,12 @@ class DMTetTrainer(Trainer):
     def __init__(self, cfg: Config, device="cuda", guidance=None,
                  embeddings: Optional[Dict[str, torch.Tensor]] = None,
                  tet_grid: Optional[TetGrid] = None,
-                 ref_images: Optional[RefImages] = None):
+                 ref_images: Optional[RefImages] = None, clip=None,
+                 clip_z: Optional[Dict[str, torch.Tensor]] = None):
         """``guidance`` and ``embeddings``: SD's or zero123's towers and
-        embeddings, as ``Trainer``'s."""
+        embeddings, ``clip`` and ``clip_z`` CLIP's, as ``Trainer``'s."""
         super().__init__(cfg, device, guidance, embeddings,
-                         ref_images=ref_images)
+                         ref_images=ref_images, clip=clip, clip_z=clip_z)
         if tet_grid is None:
             # a cube lattice of n = size // 2 has the tet density of the
             # reference's quartet grid of that size

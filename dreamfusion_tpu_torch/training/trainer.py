@@ -1,11 +1,13 @@
 """The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
 ported paths): state init, the step (render → SDS from the pixel oracle,
-the image oracle or Stable Diffusion → entropy, orient and normal-smoothness
-regularizers, and the hash grid's tv and weight decay → backward → guarded
-Adan → EMA), the density-grid update, and the run's end: eval renders with
-the analytic-scene PSNR (or, under ``--image``, the known-view masked
-PSNR), the turntable video and the checkpoints (``torch.save``; the rolling
-``df_ep*`` ones and the EMA-only ``df`` kept best by the eval metric).
+the image oracle, Stable Diffusion or Zero-1-to-3, and/or CLIP's
+similarity term → entropy, orient and normal-smoothness regularizers, and
+the hash grid's tv and weight decay → backward → guarded Adan → EMA), the
+density-grid update, and the run's end: eval renders with the
+analytic-scene PSNR (under ``--image``, the known-view masked PSNR; for a
+text run with a CLIP scorer, its CLIP score), the turntable video and the
+checkpoints (``torch.save``; the rolling ``df_ep*`` ones and the EMA-only
+``df`` kept best by the eval metric).
 
 Under SD the first ``latent_iter_ratio`` of the run is the warm-up phase:
 normal shading at ambient 1, no background MLP, and the rgb + alpha render
@@ -69,8 +71,11 @@ from .optimizer import Adan, AdanState
 # titles of ROADMAP.md's queue 1 items, as the refusals name them
 _VANILLA = "The vanilla backbone and the small field options"
 _IMAGE = "Zero-1-to-3 and the file-based image mode"
-_GUIDANCE = {"IF": "DeepFloyd-IF", "zero123": _IMAGE,
-             "clip": "CLIP guidance and image + text"}
+_CLIP = "CLIP guidance and image + text"
+_GUIDANCE = {"IF": "DeepFloyd-IF", "zero123": _IMAGE, "clip": _CLIP}
+# the guidance sets of the ported slice: one prior, or SD and CLIP summed
+_PORTED_GUIDANCE = (("oracle",), ("image_oracle",), ("SD",), ("zero123",),
+                    ("clip",), ("SD", "clip"))
 
 
 def check_slice(cfg: Config) -> None:
@@ -79,7 +84,7 @@ def check_slice(cfg: Config) -> None:
     gd = tuple(cfg.guidance)
     analytic = cfg.image is not None and cfg.image.startswith("analytic:")
     refs = cfg.image is not None or cfg.image_config is not None
-    other = [g for g in gd if g in _GUIDANCE and g != "zero123"]
+    other = [g for g in gd if g in _GUIDANCE and g not in ("zero123", "clip")]
     if gd == ("zero123",) and not refs:
         raise ValueError("zero123 guidance needs a reference image: "
                          "--image or --image_config")
@@ -87,14 +92,14 @@ def check_slice(cfg: Config) -> None:
         "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
                                                           "triplane"),
                                      _VANILLA),
-        "guidance other than the pixel oracle, the image oracle, SD or "
-        "zero123 alone": (gd not in (("oracle",), ("SD",),
-                                     ("image_oracle",), ("zero123",)),
-                          _GUIDANCE[other[0]] if other
-                          else _GUIDANCE["clip"]),
-        "SD guidance with reference images (--image_config without --image:"
-        " the image + text recipe)": (gd == ("SD",) and refs,
-                                      _GUIDANCE["clip"]),
+        "guidance other than the pixel oracle, the image oracle, SD, "
+        "zero123 or CLIP alone, or SD with CLIP": (
+            tuple(sorted(gd)) not in _PORTED_GUIDANCE,
+            _GUIDANCE[other[0]] if other else _CLIP),
+        "SD guidance with reference images but no CLIP (--image_config "
+        "without --image)": (gd == ("SD",) and refs, _CLIP),
+        "CLIP guidance alone with reference images": (
+            gd == ("clip",) and refs, _CLIP),
         "the pixel oracle with a reference image": (
             gd == ("oracle",) and refs, _IMAGE),
         "--guidance image_oracle without --image analytic:<scene>": (
@@ -323,15 +328,19 @@ class Trainer:
 
     def __init__(self, cfg: Config, device="cuda", guidance=None,
                  embeddings: Optional[Dict[str, torch.Tensor]] = None,
-                 ref_images: Optional[RefImages] = None):
+                 ref_images: Optional[RefImages] = None, clip=None,
+                 clip_z: Optional[Dict[str, torch.Tensor]] = None):
         """``guidance`` and ``embeddings`` are SD's (the prompt
         embeddings, ``guidance/embeddings.py``) or zero123's (the reference
         images', ``Zero123Guidance.prepare_image_embeddings``); the oracles
-        build their own.  A ``--test`` run, which trains nothing, needs
-        neither.  ``ref_images`` are the known views of ``--image`` or
-        ``--image_config`` (``image_data.load_ref_images``,
-        ``analytic_ref_images``).  The device is the card unless the caller
-        asks for the CPU."""
+        build their own.  ``clip`` and ``clip_z`` are CLIP guidance's
+        towers and its targets (``CLIPGuidance.prepare_embeddings``), under
+        ``--guidance clip`` (alone, or beside SD: the terms are summed, SD's
+        first, as JAX sums its priors in sorted order).  A ``--test`` run,
+        which trains nothing, needs none of them.  ``ref_images`` are the
+        known views of ``--image`` or ``--image_config``
+        (``image_data.load_ref_images``, ``analytic_ref_images``).  The
+        device is the card unless the caller asks for the CPU."""
         check_slice(cfg)
         # fp32 products stay fp32 on the card: no TF32 in matmuls or
         # convolutions (PyTorch turns it on for cuDNN by default)
@@ -339,8 +348,15 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.sd = cfg.guidance == ("SD",)
+        self.sd = "SD" in cfg.guidance
         self.zero123 = cfg.guidance == ("zero123",)
+        self.clip = self.clip_z = None
+        if "clip" in cfg.guidance:
+            if (clip is None or clip_z is None) and not cfg.test:
+                raise ValueError("CLIP guidance needs its towers and "
+                                 "targets")
+            self.clip, self.clip_z = clip, clip_z
+        self.guidance = self.embeddings = None
         if self.sd or self.zero123:
             if (guidance is None or embeddings is None) and not cfg.test:
                 raise ValueError(f"{cfg.guidance[0]} guidance needs its "
@@ -354,9 +370,10 @@ class Trainer:
                 cfg.image.split(":", 1)[1], cfg.t_range,
                 cfg.zero123_grad_scale, ref_images.polars,
                 ref_images.azimuths, ref_images.radii)
-        else:
+        elif cfg.guidance == ("oracle",):
             self.guidance = PixelOracleGuidance(cfg.oracle_scene,
                                                 cfg.t_range)
+        self.clip_scorer = None          # ``set_clip_scorer``
         self.ref_images = ref_images
         if ref_images is not None:
             as_t = lambda a: None if a is None else \
@@ -544,11 +561,27 @@ class Trainer:
 
     def guidance_loss(self, pred_rgb, batch: CameraBatch, draws, bg,
                       as_latent: bool) -> torch.Tensor:
-        """The prior's SDS loss of the rendered views, their gradient
-        clamped first under ``--grad_clip_rgb`` (K5)."""
+        """The priors' loss of the rendered views, their gradient clamped
+        first under ``--grad_clip_rgb`` (K5): the diffusion prior's or an
+        oracle's SDS, and CLIP's term (after SD's, as JAX sums in sorted
+        order) weighted 10·(1 − |Δazimuth|/180)·lambda_guidance by the
+        first view's azimuth."""
         cfg = self.cfg
         if cfg.grad_clip_rgb >= 0:
             pred_rgb = clip_grad(pred_rgb, cfg.grad_clip_rgb)
+        loss = self._prior_loss(pred_rgb, batch, draws, bg, as_latent)
+        if self.clip is not None:
+            w = 10.0 * (1.0 - batch.delta_azimuth[0].abs() / 180.0) * \
+                cfg.lambda_guidance
+            term = self.clip.loss(self.clip_z, pred_rgb, w)
+            loss = term if loss is None else loss + term
+        return loss
+
+    def _prior_loss(self, pred_rgb, batch: CameraBatch, draws, bg,
+                    as_latent: bool) -> Optional[torch.Tensor]:
+        """The SDS loss of the guidance other than CLIP, None under CLIP
+        alone."""
+        cfg = self.cfg
         if self.sd:
             return self._sd_loss(pred_rgb, batch, draws, as_latent)
         if self.zero123:
@@ -557,6 +590,8 @@ class Trainer:
                 batch.delta_azimuth, batch.delta_radius, draws.t, draws.noise,
                 draws.posterior_noise, guidance_scale=cfg.guidance_scale,
                 as_latent=as_latent, grad_scale=cfg.lambda_guidance)
+        if self.guidance is None:
+            return None
         if as_latent:
             raise ValueError("the oracles need latent_iter_ratio 0")
         if isinstance(self.guidance, ImageOracleGuidance):
@@ -739,13 +774,37 @@ class Trainer:
             mses.append(float(se.sum() / torch.clamp(m.sum() * 3, min=1.0)))
         return float(-10.0 * math.log10(max(sum(mses) / len(mses), 1e-10)))
 
+    def set_clip_scorer(self, clip, clip_z: Dict[str, torch.Tensor]
+                        ) -> None:
+        """Score a text run's eval renders with CLIP (``clip_eval_metric``)
+        against ``clip_z``'s text target (else its image target)."""
+        self.clip_scorer = (clip, clip_z.get("text", clip_z.get("image")))
+
+    @torch.no_grad()
+    def clip_eval_metric(self, state) -> float:
+        """100 × the mean CLIP cosine similarity of EMA renders of
+        min(dataset_size_valid, 4) views of the validation circle at h×w
+        against the scorer's target."""
+        clip, target = self.clip_scorer
+        cfg = self.cfg
+        n = min(cfg.dataset_size_valid, 4)
+        imgs = [self.render_view(state, circle_view_batch(
+            cfg, i, n, cfg.h, cfg.w, self.device), cfg.h, cfg.w)[0]
+            .reshape(cfg.h, cfg.w, 3) for i in range(n)]
+        z = clip.get_img_embeds(torch.stack(imgs))
+        return float((z * target).sum(-1).mean()) * 100.0
+
     def eval_metric(self, state) -> Optional[float]:
         """The known-view masked PSNR under ``--image``, the analytic PSNR
-        under the oracle; None otherwise (text-only SDS has no ground
-        truth; the CLIP scorer is not ported)."""
+        under the oracle, the CLIP score of a text run with a scorer
+        (``set_clip_scorer``); None otherwise."""
         if self.ref_images is not None:
             return self.known_view_psnr(state)
-        return None if self.sd else self.oracle_eval_metric(state)
+        if self.cfg.guidance == ("oracle",):
+            return self.oracle_eval_metric(state)
+        if self.clip_scorer is not None:
+            return self.clip_eval_metric(state)
+        return None
 
     def _frame(self, state, batch: CameraBatch, view: str):
         """One eval/test view at H×W → (rgb [H,W,3], depth [H,W]) numpy.

@@ -32,10 +32,12 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     ``{'field': {'grid_table' or 'triplanes': ..., 'sigma_net': {...},
     'bg_net': {...}}}`` (``NeRFRenderer``) → the renderer's ``state_dict``,
     the hash table as it is ([T, C]), triplanes in their [3, R, R, C]
-    layout.  The guidance towers ``{'unet', 'vae', 'text'}`` (SD's) or
-    ``{'unet', 'vae', 'vision', 'cc_projection'}`` (zero123's) → ``{'unet':
-    state_dict, 'vae': ..., ...}``.  The DMTet stage's ``{'nerf': ..., 'geo':
-    {'sdf', 'deform'}}`` → the ``DMTetModel`` state_dict (``nerf.*``,
+    layout.  The guidance towers ``{'unet', 'vae', 'text'}`` (SD's),
+    ``{'unet', 'vae', 'vision', 'cc_projection'}`` (zero123's) or
+    ``{'vision', 'text', 'text_projection'}`` (CLIP guidance's) → ``{'unet':
+    state_dict, 'vae': ..., ...}`` (the raw ``text_projection`` [in, out]
+    as an ``nn.Linear`` weight [out, in]).  The DMTet stage's ``{'nerf':
+    ..., 'geo': {'sdf', 'deform'}}`` → the ``DMTetModel`` state_dict (``nerf.*``,
     ``geo.sdf``, ``geo.deform``); a ``'tet_scale'`` beside them (the JAX
     state's, not a parameter) comes back under that key, for
     ``DMTetState.tet_scale``."""
@@ -82,7 +84,7 @@ def _flat(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 def _leaf(path: str, leaf) -> torch.Tensor:
     a = np.array(leaf, dtype=np.float32)
-    if path.endswith("kernel"):
+    if path.endswith(("kernel", "text_projection")):
         if a.ndim == 4 and a.shape[:2] == (1, 1):
             a = a[0, 0].T                         # 1×1 conv → [O, I]
         elif a.ndim == 4:
@@ -232,6 +234,18 @@ def clip_vision_key(path: str) -> Optional[str]:
     return None
 
 
+def clip_key(path: str) -> Optional[str]:
+    """CLIP guidance's params (``vision``, ``text`` and the raw
+    ``text_projection`` [in, out], JAX's ``CLIPGuidance.init_params``) →
+    the port's ``guidance/clip.py::CLIPTowers`` key."""
+    if path == "text_projection":
+        return "text_projection.weight"
+    tower, _, rest = path.partition("/")
+    key = {"vision": clip_vision_key, "text": clip_text_key}.get(tower)
+    sub = key(rest) if key else None
+    return None if sub is None else f"{tower}.{sub}"
+
+
 def cc_projection_key(path: str) -> Optional[str]:
     """zero123's ``cc_projection`` {kernel, bias} → an ``nn.Linear``'s."""
     return {"kernel": "weight", "bias": "bias"}.get(path)
@@ -271,11 +285,14 @@ def tower_key(name: str, levels: int) -> Callable[[str], Optional[str]]:
     return {"unet": lambda p: unet_key(p, levels),
             "vae": lambda p: vae_key(p, levels),
             "text": clip_text_key, "vision": clip_vision_key,
-            "cc_projection": cc_projection_key}[name]
+            "cc_projection": cc_projection_key, "clip": clip_key}[name]
 
 
 def _towers(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     out = {}
+    if "text_projection" in params:
+        out["text_projection"] = {"weight": _leaf(
+            "text_projection", params["text_projection"])}
     for name in ("unet", "vae", "text", "vision", "cc_projection"):
         if name in params:
             tree = params[name]

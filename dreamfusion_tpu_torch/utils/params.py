@@ -6,13 +6,15 @@ flattened to ``/``-joined keys (``down_0_res_0/conv1/kernel``), in the Flax
 layouts.  It is read with numpy, the keys carried onto the port's module
 by ``utils/convert.py`` (the layouts too), and copied into the module's
 parameters in their dtype and on their device.  As in JAX, a key the file
-lacks keeps the module's value, and a shape that does not fit raises.
+lacks keeps the module's value, and a shape that does not fit raises.  A
+root without such files is a raw checkpoint, converted on the fly
+(``utils/raw_weights.py``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -47,20 +49,18 @@ def load_params_npz(path: str, module: nn.Module, tower: str) -> int:
     return n
 
 
-RAW_CONVERSION = "Raw checkpoint conversion"     # ROADMAP queue 1's title
-
-
-def load_pretrained_towers(root: str, towers: Dict[str, nn.Module]) -> None:
-    """``root/<tower>.npz`` into each of `towers` whose file is there (the
-    others keep their weights: JAX's ``maybe_load_params``).  A root with
-    no such file (a raw diffusers directory or a ``.ckpt``, which JAX
-    converts on the fly) raises."""
+def load_pretrained_towers(root: str, towers: Dict[str, nn.Module],
+                           convert: Callable[[str], None]) -> None:
+    """JAX's rule: a root holding any ``<tower>.npz`` reads each of
+    `towers` whose file is there (the others keep their weights: JAX's
+    ``maybe_load_params``); any other root, a raw diffusers directory or a
+    ``.ckpt`` file, is converted on the fly by ``convert(root)``
+    (``utils/raw_weights.py``)."""
     paths = {name: os.path.join(root, f"{name}.npz") for name in towers}
-    if not any(os.path.exists(p) for p in paths.values()):
-        raise NotImplementedError(
-            f"{root} holds none of {', '.join(f'{t}.npz' for t in towers)}:"
-            f" converting a raw diffusers directory or checkpoint on the fly"
-            f" is not ported yet (ROADMAP queue 1: {RAW_CONVERSION})")
+    if not (os.path.isdir(root) and
+            any(os.path.exists(p) for p in paths.values())):
+        convert(root)
+        return
     for name, module in towers.items():
         if os.path.exists(paths[name]):
             load_params_npz(paths[name], module, name)

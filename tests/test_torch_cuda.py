@@ -2068,6 +2068,37 @@ def test_patch_conv_on_the_mma_route(dev, patch, O):
                                 bf))
 
 
+@pytest.mark.parametrize("patch,O", [(16, 768), (14, 1024)])
+@pytest.mark.parametrize("B", [1, 2])
+def test_patch_conv_forward_and_dgrad_on_the_mma_routes(dev, patch, O, B):
+    """CLIP guidance's per-step patch conv (ViT-B/16; zero123's ViT-L/14
+    too): the forward on conv_fwd_mma and the input gradient through
+    autograd on conv_dgrad (stride = the patch: patch² parity classes of
+    one tap), one launch each, within a bf16 ulp of the plain versions;
+    twice with other inputs, so the 3 → 8 channel padding is zero on every
+    call, not only the first."""
+    g = _gen(dev, patch + B)
+    bf = torch.bfloat16
+    w = (torch.randn(O, patch, patch, 3, device=dev, generator=g) /
+         (3 * patch * patch) ** 0.5).to(bf)
+    n = 224 // patch
+    for _ in range(2):
+        x = torch.randn(B, 224, 224, 3, device=dev, generator=g).to(bf)
+        xr = x.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        y = conv2d(xr, w, None, patch, 0)
+        dy = torch.randn(y.shape, device=dev, generator=g).to(bf)
+        (dx,) = torch.autograd.grad(y, xr, dy)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["conv_fwd_mma"] == 1
+        assert kernels.LAUNCHES["conv_dgrad"] == 1
+        assert y.shape == (B, n, n, O) and dx.shape == x.shape
+        assert dx.dtype == bf
+        _within_ulp(y, conv2d_plain(x, w, None, (patch, patch),
+                                    norm_padding(0), bf))
+        _within_ulp(dx, _dgrad_plain(dy, w, x.shape, patch, 0))
+
+
 @pytest.mark.parametrize("B,H,W,I,O,k,stride,pad,dgrad", [
     (2, 32, 32, 8, 320, 3, 1, 1, False),        # the UNet's 8-channel conv_in
     (6, 32, 32, 320, 320, 3, 1, 1, False),      # K = 3 references

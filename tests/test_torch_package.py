@@ -185,7 +185,7 @@ def test_cli_image_config_matches_jax(extra):
 @pytest.mark.parametrize("flags", [
     ["--text", "a hamburger", "--IF"],                      # DeepFloyd-IF
     ["--guidance", "oracle", "--backbone", "vanilla"],
-    ["--image", "x.png", "--text", "a hamburger"],        # SD + CLIP
+    ["--guidance", "SD", "zero123", "--text", "a hamburger"],  # 2 priors
     ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
     ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
      "--image", "x.png"],
@@ -238,11 +238,11 @@ def _queue1_titles():
     ["--text", "a hamburger", "--gui"],
     ["--text", "a hamburger", "--profile"],
     ["--image_config", "x.json"],
-    ["--image", "x.png", "--text", "a hamburger"],
+    ["--image_config", "x.csv", "--guidance", "clip"],
     ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--guidance", "IF"],
     ["--guidance", "zero123", "clip", "--image_config", "x.csv"],
-    ["--guidance", "SD", "clip", "--text", "a hamburger"],
+    ["--guidance", "SD", "zero123", "--text", "a hamburger"],
     ["--guidance", "oracle", "--backbone", "triplane", "--image", "x.png"],
     ["--image", "analytic:two_sphere", "--guidance", "oracle",
      "--backbone", "triplane"],
@@ -252,8 +252,8 @@ def _queue1_titles():
     ["--guidance", "oracle", "--backbone", "triplane", "--lambda_tv", "1"],
     ["--guidance", "oracle", "--backbone", "triplane", "--normal_mode",
      "finite_difference"],
-    ["--image", "x.png", "--zero123_ckpt", "zero123-xl.ckpt"],
-    ["--image", "x.png", "--zero123_config", "sd-objaverse-finetune.yaml"],
+    ["--image", "x.png", "--text", "a hamburger", "-O2"],
+    ["--image_config", "x.csv", "--guidance", "SD", "--text", "a hamburger"],
 ])
 def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
     """Every refusal of the CLI and ``check_slice`` names the ROADMAP

@@ -6,11 +6,10 @@ into a temp dir are read by both packages' ``load_pretrained`` (JAX's init
 replaced by a template of random params: its eager Flax init takes a
 minute on the CPU); the port's towers then hold JAX's loaded params bit for
 bit.  A key the file lacks keeps the init, a shape that does not fit
-raises, and a root without npz files raises naming ROADMAP's **Raw
-checkpoint conversion**.  The port's plain-Python CLIP BPE against
-``transformers.CLIPTokenizer`` (JAX's ``load_tokenizer``) on a toy
-``vocab.json`` and ``merges.txt``, and the hash tokenizer where the files
-are missing.
+raises, and a root without npz files goes to the raw conversion.  The
+port's plain-Python CLIP BPE against ``transformers.CLIPTokenizer`` (JAX's
+``load_tokenizer``) on a toy ``vocab.json`` and ``merges.txt``, and the
+hash tokenizer where the files are missing.
 """
 
 import json
@@ -144,15 +143,18 @@ def _queue1_titles():
 @pytest.mark.parametrize("kind", ["SD", "zero123"])
 def test_a_root_without_npz_names_raw_checkpoint_conversion(tmp_path,
                                                             kind):
-    """A diffusers directory or a .ckpt (JAX converts them on the fly)."""
+    """A root without npz files is a raw checkpoint, converted on the fly
+    as JAX does (``utils/raw_weights.py``; tests/test_torch_convert_raw.py
+    holds the conversions): here a diffusers directory whose unet/ holds no
+    weights, which SD's conversion reports, and a directory, where
+    zero123's wants one .ckpt file."""
     (tmp_path / "unet").mkdir()
     (tmp_path / "model_index.json").write_text("{}")
     _, pg = _pair(kind)
-    with pytest.raises(NotImplementedError) as e:
+    with pytest.raises(FileNotFoundError) as e:
         pg.load_pretrained(str(tmp_path), torch.Generator().manual_seed(0))
-    m = re.search(r"\(ROADMAP queue 1: (.+)\)$", str(e.value))
-    assert m and m.group(1) == "Raw checkpoint conversion"
-    assert m.group(1) in _queue1_titles()
+    assert ("no weights under" if kind == "SD" else ".ckpt") in str(e.value)
+    assert "Raw checkpoint conversion" not in _queue1_titles()
 
 
 # ---------------------------------------------------------------------------
