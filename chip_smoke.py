@@ -218,7 +218,25 @@
    names at narrow widths): every tensor bit for bit.  The oracle, SD and
    zero123 runs launch no ``conv_dgrad``, and ``conv_fwd_mma`` only at
    zero123's start-up (each checked exactly).
-11. Prints one JSON line with every kernel's route, source, the TPU
+11. DeepFloyd-IF at full width on random weights from seed 0 (IF-I-XL:
+   4.23B parameters, bf16 under ``--fp16``): K12 at each of the 30
+   distinct conv shapes and K10 at the three attention shapes of one UNet
+   call (``if_unet_calls``: the tower's own forward on the meta device
+   with the two ops recorded; [77 text + N spatial] keys at CFG batch 2
+   and Perp-Neg's 4, lse checked too) against their plain versions, with
+   ``F.conv2d`` / SDPA and the call's summed K12 and K10 ms; stage 1
+   (``--IF --fp16 true``, triplane, 64² renders) through main for 6 + 25
+   steps, the counters reset just before it: finite losses and gradients,
+   the UNet's count (JAX's 4,225,193,478), K10/K12 exactly as the topology
+   gives (``if_step_launches``: 90 wgmma, 1 narrow-input and 1 fp32 conv
+   and 22 attentions a UNet call, no K11), K2-K4 exactly; the same run
+   rebuilt, its steps timed (synchronised, medians after 6) with the peak
+   memory; Perp-Neg under IF for 5 steps (the UNet at batch 4, the same
+   launches) and timed; T5-XXL (4.76B, fp32) built on the card beside the
+   UNet, the five prompts encoded, seconds and peak memory, then freed;
+   the DMTet stage under IF from step 4's checkpoint (tet grid 128, 512²
+   shrunk to 64²) for 14 steps with step 6's checks and K10/K12 exactly.
+12. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K1-K4 and K10-K12: the SD
    run, K10's d = 40, 80 and 160 routes: the SD 1.5 run, ``conv_fwd_mma``
    and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
@@ -332,6 +350,29 @@ IMAGE_TEXT_DMTET_FLAGS = ["--text", "a hamburger", "--backbone", "triplane",
                           "--lr", "0.002", "--dataset_size_test", "2",
                           "--save_mesh", "--ckpt", "scratch",
                           "--dataset_size_train", "7", "--eval_interval", "2"]
+# DeepFloyd-IF at full width (IF-I-XL, 4.23B parameters, on random weights
+# from seed 0, bf16 under --fp16): the pixel UNet at CFG batch 2 on 64²
+# (the 64² render as it is); stage 1 runs 6 warm-up and 25 timed steps,
+# Perp-Neg (UNet batch 4) 5 steps, the DMTet stage from the oracle stage
+# 1's checkpoint 14 steps (512² renders shrunk to 64²).  Its prompts come
+# from JAX's md5 stand-in (random weights: no T5); the T5-XXL phase encodes
+# the same five prompts through a full-width fp32 T5 on random weights.
+IF_WARMUP, IF_STEPS = 6, 25
+IF_FLAGS = ["--text", "a hamburger", "--IF", "--fp16", "true", "--backbone",
+            "triplane", "--seed", "0", "--lambda_3d_normal_smooth", "0",
+            "--dataset_size_train", "31", "--eval_interval", "0", "--H",
+            "64", "--W", "64", "--dataset_size_test", "2", "--ckpt",
+            "scratch"]
+IF_PERPNEG_STEPS = 5
+IF_DMTET_STEPS = 14
+IF_DMTET_FLAGS = ["--text", "a hamburger", "--IF", "--fp16", "true",
+                  "--backbone", "triplane", "--seed", "0",
+                  "--lambda_3d_normal_smooth", "0", "--dmtet",
+                  "--tet_grid_size", "128", "--lr", "0.002",
+                  "--dataset_size_test", "2", "--save_mesh", "--ckpt",
+                  "scratch", "--dataset_size_train", "7",
+                  "--eval_interval", "2"]
+IF_UNET_PARAMS = 4_225_193_478            # JAX's pinned count
 # CLIP guidance's ViT-B/16 patch embedding (k = s = 16 on 3 channels, no
 # bias): conv_fwd_mma forward and conv_dgrad input gradient, once each a
 # CLIP loss; its rows fill the two kernels' JSON entries
@@ -1331,12 +1372,14 @@ def _graph_where(where, fn, graph):
     return f"{where}, graph {graph_ms(fn):.4f} ms" if graph else where
 
 
-def conv_rows(torch, results, rows, randn, graph=False, no_bias=()):
+def conv_rows(torch, results, rows, randn, graph=False, no_bias=(),
+              times=None):
     """K12's forward (by route) and, where the row asks, its dgrad against
     the plain versions and cuDNN at each row of ``SD_CONVS``' layout;
     `graph`: log each call's graph ms too; `no_bias`: rows whose conv has
     no bias (the patch embeddings), whose forward and dgrad rows fill their
-    kernels' JSON entries (the path's own shapes)."""
+    kernels' JSON entries (the path's own shapes); `times`: a dict given
+    each row's forward (kernel ms, library ms)."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input
 
@@ -1377,7 +1420,10 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=()):
                 torch.backends.cudnn.allow_tf32 = tf32
         flops = 2 * yk.numel() * k * k * I
         call = lambda: K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt)
-        record_kernel(results, route, err, median_ms(call, 10),
+        ms = median_ms(call, 10)
+        if times is not None:
+            times[row] = (ms, lib)
+        record_kernel(results, route, err, ms,
                       median_ms(lambda: K12.conv2d_plain(
                           x, w, bias, (st, st), pads, dt), 5),
                       "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
@@ -1423,11 +1469,15 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=()):
                       main=row in no_bias)
 
 
-def attention_rows(torch, results, rows, randn, graph=False):
+def attention_rows(torch, results, rows, randn, graph=False,
+                   check_lse=False, times=None):
     """K10's forward (by head dim, on JAX's branch: q·scale rounded to bf16
     first on the chunked one) and, where the row asks, its backward
     against the plain versions and SDPA.  A row of one key (zero123's
-    cross-attention) must give v exactly (P = 1)."""
+    cross-attention) must give v exactly (P = 1); with `check_lse`, every
+    row's lse is held to the fp32 logits' logsumexp (IF's key counts: the
+    last KV tile part zero-filled and masked); `times`: a dict given each
+    row's forward (kernel ms, SDPA ms)."""
     import torch.nn.functional as F
 
     from dreamfusion_tpu_torch.ops import attention as K10
@@ -1454,12 +1504,21 @@ def attention_rows(torch, results, rows, randn, graph=False):
                 * scale
             lse_err = _close_to(route + " lse", lse, logit, 1e-5, 1e-5)
             where += f" (out = v exactly; lse - logit {lse_err:.2e})"
+        elif check_lse:
+            logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+            lse_err = _close_to(route + " lse", lse,
+                                torch.logsumexp(logits * scale, dim=-1),
+                                1e-5, 1e-5)
+            where += f" (lse err {lse_err:.2e})"
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                         10)
         flops = 4 * B * h * N * M * d
         call = lambda: K10.attention_fwd_cuda(q, k, v, scale, rq)
-        record_kernel(results, route, err, median_ms(call, 10),
+        ms = median_ms(call, 10)
+        if times is not None:
+            times[(B, N, M, h, d, bwd)] = (ms, lib)
+        record_kernel(results, route, err, ms,
                       median_ms(lambda: K10.attention_plain(q, k, v, scale,
                                                             rq), 5),
                       "1 bf16 ulp + 1e-2 of max", nbytes(q, k, v, ok_, lse),
@@ -3428,6 +3487,246 @@ def raw_weights_phase(torch, port_main, ws):
         f"{counts}) in {time.time() - t0:.1f} s")
 
 
+def if_unet_calls(torch, B: int):
+    """Every K12 and K10 call of one IF-I-XL UNet call at batch `B` on 64²,
+    in order, from the tower's own forward on the meta device with the two
+    ops recorded instead of run → (convs: (B, H, W, I, O, k, stride, pads,
+    dtype), attentions: (B, N, M, heads, d))."""
+    from unittest import mock
+
+    from dreamfusion_tpu_torch.models import if_unet, unet
+    from dreamfusion_tpu_torch.ops import conv as K12
+    convs, attns = [], []
+
+    def conv(x, w, bias, stride=1, padding=0, out_dtype=None):
+        st, pads = (stride, stride), K12.norm_padding(padding)
+        B_, H, W, I = x.shape
+        O, kh, kw, _ = w.shape
+        dt = out_dtype or x.dtype
+        convs.append((B_, H, W, I, O, kh, stride, pads, dt))
+        return torch.empty(B_, *K12.out_size(H, W, kh, kw, st, pads), O,
+                           dtype=dt, device=x.device)
+
+    def attention(q, k, v):
+        attns.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                      q.shape[3]))
+        return torch.empty_like(q)
+
+    with torch.device("meta"), mock.patch.object(unet, "conv2d", conv), \
+            mock.patch.object(if_unet, "attention", attention):
+        net = if_unet.IFUNet(if_unet.IFUNetConfig.xl(), torch.bfloat16)
+        net(torch.empty(B, 64, 64, 3), torch.zeros(B, dtype=torch.long),
+            torch.empty(B, 77, 4096))
+    return convs, attns
+
+
+def if_step_launches(torch, n_calls: int) -> dict:
+    """K10's and K12's launches by route in `n_calls` IF UNet calls (one an
+    SDS step, CFG or Perp-Neg): each conv's route by its shape, each
+    attention's by its head dim; no K11 (JAX's IF normalises with flax's
+    GroupNorm) and nothing else of K10-K12."""
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    convs, attns = if_unet_calls(torch, 2)
+    want = {}
+    for _, _, _, I, O, k, st, _, dt in convs:
+        r = K12.conv_route(dt, I, O, (st, st), k * k)
+        want[r] = want.get(r, 0) + n_calls
+    for *_, d in attns:
+        r = K10.attention_route(d)
+        want[r] = want.get(r, 0) + n_calls
+    return want
+
+
+def if_kernel_phases(torch, results):
+    """K12 at each distinct conv shape of one IF UNet call at CFG batch 2
+    (``if_unet_calls``: the narrow conv_in, the 3×3 convs, the 1×1
+    shortcuts, the fp32 conv_out) and K10 at its three attention shapes
+    (77 text + N spatial keys) at CFG batch 2 and Perp-Neg's 4, lse checked
+    too, each against its plain version with the library call beside it →
+    (distinct conv shapes, TFLOP of conv a CFG call)."""
+    convs, attns = if_unet_calls(torch, 2)
+    rows = sorted({(B, H, W, I, O, k, st, pads,
+                    "fp32" if dt == torch.float32 else "bf16", False)
+                   for B, H, W, I, O, k, st, pads, dt in convs},
+                  key=lambda r: (-r[1], r[3], r[4], r[5]))
+    tflop = sum(2 * B * H * W * O * k * k * I
+                for B, H, W, I, O, k, _, _, _ in convs) / 1e12
+    log(f"IF UNet (CFG batch 2, 64²): {len(convs)} convs a call, "
+        f"{len(rows)} distinct shapes, {tflop:.3f} TFLOP; {len(attns)} "
+        f"attentions over {sorted(set(a[1:] for a in attns))} (N, M, "
+        f"heads, d)")
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(4))
+    t0 = time.time()
+    ct, at = {}, {}
+    conv_rows(torch, results, rows, randn, times=ct)
+    shapes = sorted(set(attns), key=lambda a: -a[1])
+    attention_rows(torch, results, [(B * m, N, M, h, d, False)
+                                    for m in (1, 2)
+                                    for B, N, M, h, d in shapes],
+                   randn, check_lse=True, times=at)
+    # one UNet call's K12 and K10 time: each row's event ms times its calls
+    key = lambda B, H, W, I, O, k, st, pads, dt: (
+        B, H, W, I, O, k, st, pads,
+        "fp32" if dt == torch.float32 else "bf16", False)
+    k12 = [ct[key(*c)] for c in convs]
+    k10 = [at[(*a, False)] for a in attns]
+    log(f"IF UNet call (CFG batch 2), sums of the rows' event ms over its "
+        f"calls: K12 {sum(m for m, _ in k12):.3f} ms ({len(k12)} convs; "
+        f"F.conv2d {sum(l for _, l in k12):.3f}), K10 "
+        f"{sum(m for m, _ in k10):.3f} ms ({len(k10)} attentions; SDPA "
+        f"{sum(l for _, l in k10):.3f}); bound of the convs "
+        f"{tflop * 1e12 / PEAK['bf16'] * 1e3:.3f} ms (operations)")
+    log(f"IF K10/K12 rows in {time.time() - t0:.1f} s")
+    return len(rows), tflop
+
+
+def if_timed_steps(torch, port_main, flags, n, warmup, ws):
+    """The run `flags` describes built as main builds it, `n` steps each
+    synchronised → (median, min) seconds of the steps after `warmup`."""
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags + ["--iters", str(n), "--workspace", ws]))
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.time()
+        trainer.run_step(state, gen)
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+    return statistics.median(times[warmup:]), min(times[warmup:])
+
+
+def if_path(torch, port_main, kernels, ws, smi_line):
+    """DeepFloyd-IF stage 1 at full width through ``main`` (6 + 25 steps),
+    the counters reset just before it: finite losses and gradients, the
+    UNet's parameter count, K10/K12 exactly as ``if_step_launches`` counts
+    (one UNet call a step, nothing else of K10-K12), K2-K4 every step;
+    the same run built as main builds it, its steps timed (synchronised)
+    after the 6 warm-up steps; then Perp-Neg under IF for 5 steps with the
+    same launch checks → launches of the stage-1 run."""
+    from dreamfusion_tpu_torch.models.if_unet import IFUNet, IFUNetConfig
+    n = IF_WARMUP + IF_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = port_main.main(IF_FLAGS + ["--iters", str(n), "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.device("meta"):
+        n_unet = sum(p.numel() for p in IFUNet(IFUNetConfig.xl(),
+                                               torch.bfloat16).parameters())
+    log(f"IF path: {n} steps in {wall:.1f} s (start-up and run's end "
+        f"included), losses {out['losses']}, peak device memory "
+        f"{peak_gib:.2f} GiB, UNet {n_unet / 1e9:.4f}B parameters (bf16), "
+        f"start-up (s) {_rounded(out['startup'])}, on {smi_line}, launches "
+        f"{launches}")
+    check(out["all_losses_finite"], f"IF: non-finite loss {out['losses']}")
+    check(out["grad_ok"], "IF: a step had non-finite gradients")
+    check(n_unet == IF_UNET_PARAMS, f"IF: UNet of {n_unet} parameters")
+    check(not any(out["latent_phase"]), "IF: a warm-up (latent) step")
+    check_tower_launches(launches, if_step_launches(torch, n), "IF")
+    for name in ORACLE_KERNELS:
+        check(launches[name] > 0, f"the IF path never launched {name}")
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        IF_FLAGS))
+    run_render_launches(launches, cfg, n, "IF", cfg.dataset_size_test * -(
+        -cfg.H * cfg.W // cfg.max_ray_batch))
+    check(all(g > 0 for g in out["triplane_grad_max"]),
+          "IF: a step had a zero triplane gradient")
+    torch.cuda.reset_peak_memory_stats()
+    med, low = if_timed_steps(torch, port_main, IF_FLAGS, n, IF_WARMUP,
+                              ws + "_timing")
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"IF step (synchronised, median over steps {IF_WARMUP}-{n - 1}): "
+        f"{1e3 * med:.2f} ms (min {1e3 * low:.2f}), peak device memory "
+        f"{step_peak:.2f} GiB (UNet, the field, activations; no T5); on "
+        f"{smi_line}")
+    # Perp-Neg: the UNet at batch 4, the same launches a step
+    flags = IF_FLAGS + ["--perpneg"]
+    kernels.reset_launch_counts()
+    pn = port_main.main(flags + ["--iters", str(IF_PERPNEG_STEPS),
+                                 "--workspace", ws + "_perpneg"])
+    torch.cuda.synchronize()
+    pn_launches = dict(kernels.LAUNCHES)
+    check(pn["all_losses_finite"] and pn["grad_ok"],
+          f"IF Perp-Neg: losses {pn['losses']}, grad_ok {pn['grad_ok']}")
+    check_tower_launches(pn_launches, if_step_launches(
+        torch, IF_PERPNEG_STEPS), "IF Perp-Neg")
+    pmed, plow = if_timed_steps(torch, port_main, flags, 8, 3,
+                                ws + "_perpneg_timing")
+    log(f"IF Perp-Neg: {IF_PERPNEG_STEPS} steps, losses {pn['losses']}, "
+        f"K10/K12 exactly; step (synchronised, median of 5 after 3) "
+        f"{1e3 * pmed:.2f} ms (min {1e3 * plow:.2f}); on {smi_line}")
+    return launches
+
+
+def t5_phase(torch, smi_line):
+    """T5-XXL once, as a run with T5 weights starts: the full-width fp32
+    encoder on random weights (seed 0) built on the card beside the IF UNet,
+    the five prompts of ``prepare_embeddings`` encoded (their hash tokens),
+    finite [1, 77, 4096] states unlike the md5 stand-ins; seconds and
+    memory logged, then freed."""
+    from dreamfusion_tpu_torch.guidance.deepfloyd import IFConfig, IFGuidance
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = IFGuidance(IFConfig(), "cuda", torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init_s = g.init_t5(gen)
+    n_t5 = sum(p.numel() for p in g.t5.parameters())
+    t5_gib = sum(p.numel() * p.element_size()
+                 for p in g.t5.parameters()) / 2 ** 30
+    torch.cuda.synchronize()
+    t0 = time.time()
+    emb = g.prepare_embeddings("a hamburger", "")
+    torch.cuda.synchronize()
+    enc_s = time.time() - t0
+    t0 = time.time()
+    again = g.encode_text("a hamburger")
+    torch.cuda.synchronize()
+    one_s = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check(sorted(emb) == ["back", "default", "front", "side", "uncond"],
+          f"T5: embeddings {sorted(emb)}")
+    for k, v in emb.items():
+        check(tuple(v.shape) == (1, 77, 4096) and v.dtype == torch.float32
+              and bool(torch.isfinite(v).all()), f"T5: {k} {tuple(v.shape)}")
+    check(torch.equal(again, emb["default"]), "T5: a second encode differs")
+    check(not torch.equal(emb["default"], g.fallback_embedding(
+        "a hamburger")), "T5: the states are the md5 stand-in")
+    g.free_t5()
+    del g
+    torch.cuda.empty_cache()
+    log(f"T5-XXL: {n_t5 / 1e9:.4f}B parameters ({t5_gib:.2f} GiB fp32), "
+        f"built and drawn on the card in {init_s:.2f} s; five prompts "
+        f"encoded in {enc_s:.3f} s (one more {1e3 * one_s:.1f} ms); peak "
+        f"device memory {peak:.2f} GiB with the bf16 UNet resident; freed "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB left); on "
+        f"{smi_line}")
+    check(round(n_t5 / 1e9, 2) == 4.76, f"T5: {n_t5} parameters")
+
+
+def if_dmtet_path(torch, port_main, kernels, init_with, ws, smi_line):
+    """The DMTet stage under IF at full width (tet grid 128, 512² renders
+    shrunk to 64² with the antialiased resize) from the oracle stage 1's
+    checkpoint: ``dmtet_path``'s checks (no face dropped, no tile cut in a
+    step, an eval or a test view) and K10/K12 exactly as
+    ``if_step_launches`` counts."""
+    flags = IF_DMTET_FLAGS + ["--init_with", init_with]
+    dm, launches = dmtet_path(torch, port_main, kernels, flags,
+                              IF_DMTET_STEPS, ws, "DMTet IF", DMTET_KERNELS,
+                              "triplane", smi_line)
+    check_tower_launches(launches, if_step_launches(torch, IF_DMTET_STEPS),
+                         "DMTet IF")
+    log(f"DMTet IF: K10/K12 exactly ({IF_DMTET_STEPS} UNet calls); "
+        f"start-up (s) {_rounded(dm['startup'])}")
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -3578,6 +3877,18 @@ def run() -> dict:
     raw_weights_phase(torch, port_main,
                       os.path.join(build, "chip_smoke_raw_ws"))
     log(f"image + text paths and raw weights in {time.time() - t_c:.1f} s")
+
+    # ---- DeepFloyd-IF: IF-I-XL, T5-XXL, DMTet under IF (slice 8) ------------
+    t_f = time.time()
+    n_shapes, tflop = if_kernel_phases(torch, results)
+    if_path(torch, port_main, kernels,
+            os.path.join(build, "chip_smoke_if_ws"), smi_line)
+    t5_phase(torch, smi_line)
+    if_dmtet_path(torch, port_main, kernels,
+                  os.path.join(build, "chip_smoke_ws", "checkpoints"),
+                  os.path.join(build, "chip_smoke_if_dmtet_ws"), smi_line)
+    log(f"IF paths ({n_shapes} conv shapes, {tflop:.3f} TFLOP of conv a "
+        f"CFG call) in {time.time() - t_f:.1f} s")
 
     def launches_of(name):
         if name in ("conv_fwd_mma", "conv_dgrad"):

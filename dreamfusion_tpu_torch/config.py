@@ -2,12 +2,13 @@
 
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
-only the fields the ported paths (the oracle, image-oracle, SD, CLIP and
-Zero-1-to-3 guidance on the hash-grid and triplane backbones, the run's end
-and the DMTet stage) read are carried.  ``apply_O``, ``apply_image_mode``
-(``--image`` alone), ``apply_image_text_mode`` (``--image`` with
-``--text``) and ``apply_dmtet`` are the presets, applied in that order
-after the flags; ``finalize`` applies the fix-ups those paths
+only the fields the ported paths (the oracle, image-oracle, SD,
+DeepFloyd-IF, CLIP and Zero-1-to-3 guidance on the hash-grid and triplane
+backbones, the run's end and the DMTet stage) read are carried, and
+``t5_iters``, which JAX parses and never reads.  ``apply_O``,
+``apply_IF`` (``--IF``), ``apply_image_mode`` (``--image`` alone),
+``apply_image_text_mode`` (``--image`` with ``--text``) and
+``apply_dmtet`` are the presets, applied in that order after the flags; ``finalize`` applies the fix-ups those paths
 need: the other grid backends' names mapped to ``grid``, the oracle preset
 and the resolved exposure range.
 """
@@ -128,6 +129,7 @@ class Config:
     progressive_level: bool = False
     angle_overhead: float = 30.0
     angle_front: float = 60.0
+    t5_iters: int = -1                 # parsed, never read (as in JAX)
     dont_override_stuff: bool = False
 
     # ---- lambdas ----
@@ -182,6 +184,13 @@ class Config:
 def apply_O(cfg: Config) -> Config:
     """``-O``: fp16 and the hash-grid backbone."""
     return replace(cfg, fp16=True, backbone="grid")
+
+
+def apply_IF(cfg: Config) -> Config:
+    """``--IF``: DeepFloyd-IF guidance in SD's place, and no warm-up phase
+    (IF diffuses pixels: there is no latent to render as)."""
+    guidance = tuple("IF" if g == "SD" else g for g in cfg.guidance)
+    return replace(cfg, guidance=guidance, latent_iter_ratio=0.0)
 
 
 def apply_image_mode(cfg: Config) -> Config:

@@ -1,6 +1,10 @@
-"""Diffusion noise schedule (``dreamfusion_tpu/guidance/schedule.py``):
-the precomputed ᾱ table, ``add_noise``, ``predict_start_from_noise`` and
-the deterministic DDIM step (zero123's ``novel_view``)."""
+"""Diffusion noise schedules (``dreamfusion_tpu/guidance/schedule.py``):
+SD's "scaled_linear" and DeepFloyd-IF's cosine "squaredcos_cap_v2", each
+a precomputed ᾱ table (betas and their cumulative product in float64, cast
+to float32 once, as JAX does: a cumulative product of float32 betas
+drifts), ``add_noise``, ``predict_start_from_noise`` and the deterministic
+DDIM step (zero123's ``novel_view``).  The table is copied to a device
+once and kept there (``alphas_cumprod_at``)."""
 
 from __future__ import annotations
 
@@ -24,8 +28,27 @@ class NoiseSchedule:
         return NoiseSchedule(betas.astype(np.float32),
                              np.cumprod(1.0 - betas).astype(np.float32))
 
+    @staticmethod
+    def squaredcos_cap_v2(T: int = 1000) -> "NoiseSchedule":
+        """The cosine schedule (DeepFloyd-IF): ᾱ(t) = cos²((t/T + 0.008) /
+        1.008 · π/2), betas 1 - ᾱ(t+1)/ᾱ(t) clipped to [0, 0.999]."""
+        def f(t):
+            return np.cos((t / T + 0.008) / 1.008 * np.pi / 2) ** 2
+        t = np.arange(T, dtype=np.float64)
+        betas = np.clip(1 - f(t + 1) / f(t), 0, 0.999)
+        return NoiseSchedule(betas.astype(np.float32),
+                             np.cumprod(1.0 - betas).astype(np.float32))
+
+    def table(self, device) -> torch.Tensor:
+        """The ᾱ table on `device`, copied there once."""
+        cache = self.__dict__.setdefault("_tables", {})
+        dev = torch.device(device)
+        if dev not in cache:
+            cache[dev] = torch.as_tensor(self.alphas_cumprod, device=dev)
+        return cache[dev]
+
     def alphas_cumprod_at(self, t: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(self.alphas_cumprod, device=t.device)[t]
+        return self.table(t.device)[t]
 
     def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
                   t: torch.Tensor) -> torch.Tensor:
@@ -61,5 +84,6 @@ class NoiseSchedule:
 def make_schedule(name: str, T: int = 1000) -> NoiseSchedule:
     if name in ("scaled_linear", "sd", "zero123"):
         return NoiseSchedule.scaled_linear(T=T)
-    raise NotImplementedError(
-        f"schedule {name!r} is not ported (ROADMAP queue 1: DeepFloyd-IF)")
+    if name in ("squaredcos_cap_v2", "if"):
+        return NoiseSchedule.squaredcos_cap_v2(T=T)
+    raise ValueError(f"unknown schedule {name!r}")

@@ -66,6 +66,10 @@ class SDConfig:
 
 
 class StableDiffusionGuidance:
+    # the trainer's draws: 4-channel latent noise and the VAE posterior's
+    latent_channels = 4
+    posterior = True
+
     def __init__(self, cfg: SDConfig, device="cuda"):
         self.cfg = cfg
         with torch.device(resolve_device(device)):

@@ -164,6 +164,10 @@ def closeness_weights(angles: torch.Tensor, ws: torch.Tensor
 
 
 class Zero123Guidance:
+    # the trainer's draws: 4-channel latent noise and the VAE posterior's
+    latent_channels = 4
+    posterior = True
+
     def __init__(self, cfg: Zero123Config, device="cuda"):
         self.cfg = cfg
         with torch.device(resolve_device(device)):

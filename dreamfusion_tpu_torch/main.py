@@ -38,9 +38,14 @@
     python -m dreamfusion_tpu_torch.main --image ref_rgba.png \\
         --text "a hamburger" --backbone triplane \\
         --workspace ws_it                   # image + text: SD + CLIP
+    python -m dreamfusion_tpu_torch.main --text "a hamburger" --IF \\
+        --fp16 true --backbone triplane --workspace ws_if   # DeepFloyd-IF
 
 Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
 applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
+``--IF`` DeepFloyd-IF guidance in SD's place (``config.apply_IF``: IF-I-XL
+at full width, the prompts' T5 states from ``--pretrained_root``'s T5, or
+JAX's md5-seeded stand-ins without one; ``guidance/deepfloyd.py``),
 ``--image`` without ``--text`` the image preset (``config.apply_image_mode``,
 which overrides the command line's lambdas unless ``--dont_override_stuff``)
 and with ``--text`` the image + text preset (SD + CLIP guidance,
@@ -100,9 +105,10 @@ from typing import Any, Dict
 
 import torch
 
-from .config import (Config, apply_dmtet, apply_image_mode,
+from .config import (Config, apply_dmtet, apply_IF, apply_image_mode,
                      apply_image_text_mode, apply_O, finalize)
 from .guidance.clip import CLIPConfig, CLIPGuidance
+from .guidance.deepfloyd import IFConfig, IFGuidance
 from .guidance.embeddings import prepare_text_embeddings
 from .guidance.sd import SDConfig, StableDiffusionGuidance
 from .guidance.zero123 import Zero123Config, Zero123Guidance
@@ -120,8 +126,7 @@ _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "zero123_config": str, "zero123_ckpt": str}
 # flag → the title of its ROADMAP queue 1 item
 _NOT_PORTED = {"-O2": "The vanilla backbone and the small field options",
-               "--IF": "DeepFloyd-IF", "--gui": "Tooling",
-               "--profile": "Tooling"}
+               "--gui": "Tooling", "--profile": "Tooling"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -149,6 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test-size random guidance towers")
     p.add_argument("-O", action="store_true",
                    help="fp16 and the hash-grid backbone")
+    p.add_argument("--IF", action="store_true",
+                   help="DeepFloyd-IF guidance in SD's place")
     for flag in _NOT_PORTED:        # a switch, or a flag with a value
         p.add_argument(flag, nargs="?", const=True, default=None)
     return p
@@ -167,6 +174,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
+    if args.IF:
+        cfg = apply_IF(cfg)
     if cfg.image is not None:
         cfg = apply_image_mode(cfg) if cfg.text is None else \
             apply_image_text_mode(cfg)
@@ -195,6 +204,38 @@ def build_sd_guidance(cfg: Config, tiny: bool, device, seed: int):
     emb = prepare_text_embeddings(guidance, cfg.text or "", cfg.negative,
                                   cfg.pretrained_root)
     return guidance, emb
+
+
+def build_if_guidance(cfg: Config, tiny: bool, device, seed: int,
+                      log=print):
+    """DeepFloyd-IF's UNet (IF-I-XL at full width, bf16 under ``--fp16``;
+    converted weights of ``--pretrained_root``, else random from the seed)
+    and the prompt embeddings, computed once: through the T5 tower where
+    the root holds one, which is freed before the first step, else JAX's
+    md5-seeded stand-ins → (guidance, embeddings, the start-up seconds)."""
+    t0 = time.time()
+    pdt = torch.bfloat16 if cfg.fp16 and not tiny else torch.float32
+    guidance = IFGuidance(IFConfig(t_range=cfg.t_range, tiny=tiny), device,
+                          pdt)
+    _sync(device)
+    startup = {"allocate": time.time() - t0}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pretrained = bool(cfg.pretrained_root) and not tiny
+    startup.update(guidance.load_pretrained(cfg.pretrained_root, gen, log)
+                   if pretrained else guidance.init_params(gen))
+    n = _counts(guidance.towers())
+    t5 = f", T5 {n['t5']:.2f}M, freed" if "t5" in n else ""
+    t0 = time.time()
+    emb = guidance.prepare_embeddings(cfg.text or "", cfg.negative)
+    _sync(device)
+    startup["embeddings"] = time.time() - t0
+    guidance.free_t5()
+    log(f"[startup] DeepFloyd-IF guidance ({'tiny' if tiny else 'IF-I-XL'}, "
+        f"{'converted' if pretrained else 'random'} weights: UNet "
+        f"{n['unet']:.2f}M parameters{t5}); prompts "
+        f"{'by T5' if t5 else 'by the md5 stand-in (no T5)'}; "
+        f"seconds: { {k: round(v, 3) for k, v in startup.items()} }")
+    return guidance, emb, startup
 
 
 def build_zero123_guidance(cfg: Config, tiny: bool, device, seed: int,
@@ -278,6 +319,9 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
             f" weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
             f"{n['text']:.2f}M parameters) and embeddings in "
             f"{time.time() - t_g:.1f} s")
+    elif cfg.guidance == ("IF",) and not cfg.test:
+        guidance, emb, startup = build_if_guidance(cfg, tiny_guidance,
+                                                   device, seed, log)
     elif cfg.guidance == ("zero123",) and not cfg.test:
         guidance, emb, startup = build_zero123_guidance(
             cfg, tiny_guidance, device, seed, ref, log)

@@ -7,6 +7,7 @@
         --iters 2000 --init_with build/runs/oracle/checkpoints
     python -m dreamfusion_tpu_torch.run_flagship --mode dmtet_sd \\
         --iters 500 --init_with build/runs/oracle/checkpoints
+    python -m dreamfusion_tpu_torch.run_flagship --mode if --iters 500
     python -m dreamfusion_tpu_torch.run_flagship          # SD 2.1, 10k steps
 
 The modes and flags of the JAX package's ``scripts/run_flagship.py``:
@@ -14,9 +15,9 @@ The modes and flags of the JAX package's ``scripts/run_flagship.py``:
 Perp-Neg), ``--oracle`` (the weight-free pixel oracle against an analytic
 scene: the run that converges without weights), ``image_oracle`` (the
 weight-free image → 3D run), ``dmtet_oracle`` (the DMTet stage under the
-oracle from a stage-1 checkpoint) and ``if`` (DeepFloyd-IF, which ``main``
-refuses until it is ported); and ``dmtet_sd``, the DMTet stage under SD
-from a stage-1 checkpoint.  It runs ``dreamfusion_tpu_torch.main.main``
+oracle from a stage-1 checkpoint) and ``if`` (DeepFloyd-IF stage 1,
+``--IF --fp16 true``: IF-I-XL at full width); and ``dmtet_sd``, the DMTet
+stage under SD from a stage-1 checkpoint.  It runs ``dreamfusion_tpu_torch.main.main``
 in this process and writes its summary as a record: the steady it/s, the
 run's end by phase, the PSNRs, the DMTet face counts, the peak device
 memory, the artifacts, and the card's name and power limit.  Flags this

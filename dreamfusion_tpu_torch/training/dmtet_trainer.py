@@ -67,16 +67,19 @@ class DMTetDraws(NamedTuple):
     fov: torch.Tensor                  # [] degrees
     choice: schedules.ChoiceDraws
     t: torch.Tensor                    # [B] int64 diffusion timestep
-    noise: torch.Tensor                # [B, h, w, 3] pixel noise (oracles)
-    #                                    or [B, ls, ls, 4] latents (SD)
+    noise: torch.Tensor                # [B, h, w, 3] pixel noise (oracles),
+    #                                    [B, ls, ls, 4] latents (SD) or
+    #                                    [B, 64, 64, 3] pixels (IF)
     posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
 
 
 def draw_dmtet_step(gen: torch.Generator, cfg: Config, device,
-                    latent_size: Optional[int] = None) -> DMTetDraws:
-    """One step's draws; ``latent_size`` set means a latent prior, SD or
-    zero123 (latent noise and the VAE posterior draw instead of pixel
-    noise)."""
+                    latent_size: Optional[int] = None, channels: int = 4,
+                    posterior: bool = True) -> DMTetDraws:
+    """One step's draws; ``latent_size`` set means a diffusion prior's
+    noise at its own side and `channels` instead of the render's pixel
+    noise: SD's and zero123's latents with the VAE posterior draw
+    (`posterior`), DeepFloyd-IF's 64² pixels."""
     pose, fov, choice = draw_view(gen, cfg, device)
     t = draw_t(gen, cfg, device)
     _, N = _samplers(gen, device)
@@ -84,7 +87,8 @@ def draw_dmtet_step(gen: torch.Generator, cfg: Config, device,
     if latent_size is None:
         return DMTetDraws(pose, fov, choice, t, N(B, cfg.h, cfg.w, 3))
     ls = latent_size
-    return DMTetDraws(pose, fov, choice, t, N(B, ls, ls, 4), N(B, ls, ls, 4))
+    return DMTetDraws(pose, fov, choice, t, N(B, ls, ls, channels),
+                      N(B, ls, ls, channels) if posterior else None)
 
 
 def face_cap(n_faces: int, tet_grid_size: int, num_tets: int) -> int:
@@ -241,7 +245,8 @@ class DMTetTrainer(Trainer):
                      f"{dmr.tile_cap}")
 
     def draw_step(self, gen: torch.Generator) -> DMTetDraws:
-        return draw_dmtet_step(gen, self.cfg, self.device, self.latent_size)
+        return draw_dmtet_step(gen, self.cfg, self.device, self.latent_size,
+                               *self.noise_draw)
 
     def draw_known_view(self, gen: torch.Generator) -> DMTetKnownViewDraws:
         K = self.ref_images.rgb.shape[0]

@@ -1,6 +1,7 @@
 """The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
 ported paths): state init, the step (render → SDS from the pixel oracle,
-the image oracle, Stable Diffusion or Zero-1-to-3, and/or CLIP's
+the image oracle, Stable Diffusion, DeepFloyd-IF (pixel space: the render
+resized to 64²) or Zero-1-to-3, and/or CLIP's
 similarity term → entropy, orient and normal-smoothness regularizers, and
 the hash grid's tv and weight decay → backward → guarded Adan → EMA), the
 density-grid update, and the run's end: eval renders with the
@@ -72,10 +73,9 @@ from .optimizer import Adan, AdanState
 _VANILLA = "The vanilla backbone and the small field options"
 _IMAGE = "Zero-1-to-3 and the file-based image mode"
 _CLIP = "CLIP guidance and image + text"
-_GUIDANCE = {"IF": "DeepFloyd-IF", "zero123": _IMAGE, "clip": _CLIP}
 # the guidance sets of the ported slice: one prior, or SD and CLIP summed
-_PORTED_GUIDANCE = (("oracle",), ("image_oracle",), ("SD",), ("zero123",),
-                    ("clip",), ("SD", "clip"))
+_PORTED_GUIDANCE = (("oracle",), ("image_oracle",), ("SD",), ("IF",),
+                    ("zero123",), ("clip",), ("SD", "clip"))
 
 
 def check_slice(cfg: Config) -> None:
@@ -84,7 +84,6 @@ def check_slice(cfg: Config) -> None:
     gd = tuple(cfg.guidance)
     analytic = cfg.image is not None and cfg.image.startswith("analytic:")
     refs = cfg.image is not None or cfg.image_config is not None
-    other = [g for g in gd if g in _GUIDANCE and g not in ("zero123", "clip")]
     if gd == ("zero123",) and not refs:
         raise ValueError("zero123 guidance needs a reference image: "
                          "--image or --image_config")
@@ -92,12 +91,12 @@ def check_slice(cfg: Config) -> None:
         "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
                                                           "triplane"),
                                      _VANILLA),
-        "guidance other than the pixel oracle, the image oracle, SD, "
+        "guidance other than the pixel oracle, the image oracle, SD, IF, "
         "zero123 or CLIP alone, or SD with CLIP": (
-            tuple(sorted(gd)) not in _PORTED_GUIDANCE,
-            _GUIDANCE[other[0]] if other else _CLIP),
-        "SD guidance with reference images but no CLIP (--image_config "
-        "without --image)": (gd == ("SD",) and refs, _CLIP),
+            tuple(sorted(gd)) not in _PORTED_GUIDANCE, _CLIP),
+        "SD or IF guidance with reference images but no CLIP "
+        "(--image_config without --image)": (
+            gd in (("SD",), ("IF",)) and refs, _CLIP),
         "CLIP guidance alone with reference images": (
             gd == ("clip",) and refs, _CLIP),
         "the pixel oracle with a reference image": (
@@ -157,8 +156,9 @@ class StepDraws(NamedTuple):
     choice: schedules.ChoiceDraws
     march_u: torch.Tensor              # [B*h*w, grid_fine_steps] stratified
     t: torch.Tensor                    # [B] int64 diffusion timestep
-    noise: torch.Tensor                # [B, h, w, 3] pixels (oracle) or
-    #                                    [B, ls, ls, 4] latents (SD)
+    noise: torch.Tensor                # [B, h, w, 3] pixels (oracle),
+    #                                    [B, ls, ls, 4] latents (SD) or
+    #                                    [B, 64, 64, 3] pixels (IF)
     posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
     tv_cells: Optional[torch.Tensor] = None   # [L, 4096, 3] (grid, tv > 0)
     perturb_noise: Optional[torch.Tensor] = None  # [B*h*w*S, 3] normal
@@ -220,10 +220,12 @@ def draw_t(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
 
 
 def draw_step(gen: torch.Generator, cfg: Config, device,
-              latent_size: Optional[int] = None) -> StepDraws:
-    """One step's draws; ``latent_size`` set means a latent prior, SD or
-    zero123 (latent noise and the VAE posterior draw instead of pixel
-    noise)."""
+              latent_size: Optional[int] = None, channels: int = 4,
+              posterior: bool = True) -> StepDraws:
+    """One step's draws; ``latent_size`` set means a diffusion prior's
+    noise at its own side and `channels` instead of the render's pixel
+    noise: SD's and zero123's latents, with the VAE posterior draw
+    (`posterior`), or DeepFloyd-IF's 64² pixels (3 channels, none)."""
     B = cfg.batch_size
     U, N = _samplers(gen, device)
     pose, fov, choice = draw_view(gen, cfg, device)
@@ -234,8 +236,9 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
                           N(B, cfg.h, cfg.w, 3))
     else:
         ls = latent_size
-        draws = StepDraws(pose, fov, choice, march_u, t, N(B, ls, ls, 4),
-                          N(B, ls, ls, 4))
+        draws = StepDraws(pose, fov, choice, march_u, t,
+                          N(B, ls, ls, channels),
+                          N(B, ls, ls, channels) if posterior else None)
     if cfg.backbone == "grid" and cfg.lambda_tv > 0:
         draws = draws._replace(tv_cells=draw_tv_cells(
             gen, grid_spec_of(cfg), device))
@@ -331,7 +334,8 @@ class Trainer:
                  ref_images: Optional[RefImages] = None, clip=None,
                  clip_z: Optional[Dict[str, torch.Tensor]] = None):
         """``guidance`` and ``embeddings`` are SD's (the prompt
-        embeddings, ``guidance/embeddings.py``) or zero123's (the reference
+        embeddings, ``guidance/embeddings.py``), DeepFloyd-IF's
+        (``IFGuidance.prepare_embeddings``) or zero123's (the reference
         images', ``Zero123Guidance.prepare_image_embeddings``); the oracles
         build their own.  ``clip`` and ``clip_z`` are CLIP guidance's
         towers and its targets (``CLIPGuidance.prepare_embeddings``), under
@@ -348,7 +352,8 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.sd = "SD" in cfg.guidance
+        # a text-conditioned diffusion prior: SD (latents) or IF (pixels)
+        self.sd = "SD" in cfg.guidance or "IF" in cfg.guidance
         self.zero123 = cfg.guidance == ("zero123",)
         self.clip = self.clip_z = None
         if "clip" in cfg.guidance:
@@ -383,8 +388,12 @@ class Trainer:
             self.kv_batch = default_view_batch(
                 cfg, ref_images.radii, ref_images.polars,
                 ref_images.azimuths, cfg.h, cfg.w, self.device)
-        self.latent_size = guidance.latent_size \
-            if (self.sd or self.zero123) and guidance is not None else None
+        diffusion = (self.sd or self.zero123) and guidance is not None
+        self.latent_size = guidance.latent_size if diffusion else None
+        # the prior's noise draws: SD's and zero123's 4-channel latents with
+        # the VAE posterior's, IF's 3-channel pixels
+        self.noise_draw = (guidance.latent_channels, guidance.posterior) \
+            if diffusion else (4, True)
         self.workspace = cfg.workspace
         for sub in ("checkpoints", "validation", "results"):
             os.makedirs(os.path.join(self.workspace, sub), exist_ok=True)
@@ -421,7 +430,8 @@ class Trainer:
         return cfg.latent_iter_ratio > 0 and r <= cfg.latent_iter_ratio
 
     def draw_step(self, gen: torch.Generator) -> StepDraws:
-        return draw_step(gen, self.cfg, self.device, self.latent_size)
+        return draw_step(gen, self.cfg, self.device, self.latent_size,
+                         *self.noise_draw)
 
     def is_known_view_step(self, step: int) -> bool:
         """Under ``--image``, every ``known_view_interval``-th step."""
@@ -539,12 +549,14 @@ class Trainer:
 
     def _sd_loss(self, pred_rgb, batch, draws: StepDraws,
                  as_latent: bool) -> torch.Tensor:
-        """SD SDS with the uncond embedding tiled to the batch and the
-        view-interpolated (or Perp-Neg) cond embeddings."""
+        """SD's or IF's SDS with the uncond embedding tiled to the batch
+        and the view-interpolated (or Perp-Neg) cond embeddings; IF renders
+        no latent (``as_latent`` False, as JAX passes it)."""
         cfg, emb = self.cfg, self.embeddings
         B = pred_rgb.shape[0]
         uncond = emb["uncond"].expand(B, -1, -1)
-        kw = dict(guidance_scale=cfg.guidance_scale, as_latent=as_latent,
+        kw = dict(guidance_scale=cfg.guidance_scale,
+                  as_latent=as_latent and "SD" in cfg.guidance,
                   grad_scale=cfg.lambda_guidance)
         if cfg.perpneg:
             pn = adjust_text_embeddings(emb, batch.delta_azimuth,

@@ -9,7 +9,10 @@ becomes ``weight``.  The guidance towers' module names are the diffusers
 (UNet, VAE) and transformers (CLIP text and vision) checkpoint keys, so the
 Flax paths map onto them as the JAX package's own converter maps those
 checkpoints.  Zero-1-to-3's ``cc_projection`` (a Flax ``[772, 768]``
-kernel) becomes an ``nn.Linear`` ``[768, 772]`` weight.
+kernel) becomes an ``nn.Linear`` ``[768, 772]`` weight.  DeepFloyd-IF's
+UNet (``if_unet``: its 1×1 shortcuts stay convs on K12, ``[O, 1, 1, I]``)
+and T5 encoder (``t5``) follow the JAX package's ``if_unet_mapper`` and
+``t5_mapper``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     the hash table as it is ([T, C]), triplanes in their [3, R, R, C]
     layout.  The guidance towers ``{'unet', 'vae', 'text'}`` (SD's),
     ``{'unet', 'vae', 'vision', 'cc_projection'}`` (zero123's) or
-    ``{'vision', 'text', 'text_projection'}`` (CLIP guidance's) → ``{'unet':
+    ``{'vision', 'text', 'text_projection'}`` (CLIP guidance's) or
+    ``{'unet', 't5'}`` (DeepFloyd-IF's, its UNet told apart by its
+    ``add_embedding``) → ``{'unet':
     state_dict, 'vae': ..., ...}`` (the raw ``text_projection`` [in, out]
     as an ``nn.Linear`` weight [out, in]).  The DMTet stage's ``{'nerf':
     ..., 'geo': {'sdf', 'deform'}}`` → the ``DMTetModel`` state_dict (``nerf.*``,
@@ -82,10 +87,12 @@ def _flat(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
             yield path, v
 
 
-def _leaf(path: str, leaf) -> torch.Tensor:
+def _leaf(path: str, leaf, keep_1x1: bool = False) -> torch.Tensor:
+    """A Flax leaf in the port's layout; `keep_1x1`: a 1×1 conv stays a
+    conv ``[O, 1, 1, I]`` (IF's shortcuts) instead of a linear."""
     a = np.array(leaf, dtype=np.float32)
     if path.endswith(("kernel", "text_projection")):
-        if a.ndim == 4 and a.shape[:2] == (1, 1):
+        if a.ndim == 4 and a.shape[:2] == (1, 1) and not keep_1x1:
             a = a[0, 0].T                         # 1×1 conv → [O, I]
         elif a.ndim == 4:
             a = a.transpose(3, 0, 1, 2)           # [kh,kw,I,O] → [O,kh,kw,I]
@@ -246,19 +253,89 @@ def clip_key(path: str) -> Optional[str]:
     return None if sub is None else f"{tower}.{sub}"
 
 
+def if_unet_key(path: str, levels: int) -> Optional[str]:
+    """Flax ``IFUNet`` path → the port's (diffusers IF) key, JAX's
+    ``if_unet_mapper``."""
+    wb = _wb(path)
+    top, _, rest = path.partition("/")
+    simple = {"time_dense_0": "time_embedding.linear_1",
+              "time_dense_1": "time_embedding.linear_2",
+              "encoder_hid_proj": "encoder_hid_proj", "conv_in": "conv_in",
+              "conv_out": "conv_out", "norm_out": "conv_norm_out"}
+    if top in simple:
+        return f"{simple[top]}.{wb}"
+    if top == "add_embedding":
+        if rest == "pool/positional_embedding":
+            return "add_embedding.pool.positional_embedding"
+        sub = rest.split("/")
+        if sub[0] == "pool" and sub[1] in ("q_proj", "k_proj", "v_proj"):
+            return f"add_embedding.pool.{sub[1]}.{wb}"
+        if sub[0] in ("norm1", "norm2", "proj"):
+            return f"add_embedding.{sub[0]}.{wb}"
+        return None
+    # a block's layer: the Flax name, but the attention's to_out.0
+    sub = rest.split("/")[0]
+    sub = f"{sub}.0" if sub == "to_out" else sub
+    m = re.match(r"(down|up)_(\d+)_(res|attn)_(\d+)$", top)
+    if m:
+        d, lvl, kind, blk = m.groups()
+        i = int(lvl) if d == "down" else levels - 1 - int(lvl)
+        name = "resnets" if kind == "res" else "attentions"
+        return f"{d}_blocks.{i}.{name}.{blk}.{sub}.{wb}"
+    m = re.match(r"down_(\d+)_down$", top)
+    if m:
+        return f"down_blocks.{m.group(1)}.downsamplers.0.{sub}.{wb}"
+    m = re.match(r"up_(\d+)_up$", top)
+    if m:
+        return f"up_blocks.{levels - 1 - int(m.group(1))}.upsamplers.0." \
+            f"{sub}.{wb}"
+    m = re.match(r"mid_res_(\d)$", top)
+    if m:
+        return f"mid_block.resnets.{m.group(1)}.{sub}.{wb}"
+    if top == "mid_attn":
+        return f"mid_block.attentions.0.{sub}.{wb}"
+    return None
+
+
+def t5_key(path: str) -> Optional[str]:
+    """Flax ``T5Encoder`` path → the port's (transformers
+    ``T5EncoderModel``) key, JAX's ``t5_mapper``."""
+    if path == "shared/embedding":
+        return "shared.weight"
+    if path == "final_ln/weight":
+        return "encoder.final_layer_norm.weight"
+    m = re.match(r"block_(\d+)/(.*)", path)
+    if not m:
+        return None
+    pre, rest = f"encoder.block.{m.group(1)}.", m.group(2)
+    if rest == "attn/relative_attention_bias":
+        return pre + "layer.0.SelfAttention.relative_attention_bias.weight"
+    a = re.match(r"attn/(q|k|v|o)/kernel$", rest)
+    if a:
+        return pre + f"layer.0.SelfAttention.{a.group(1)}.weight"
+    if rest == "ln_attn/weight":
+        return pre + "layer.0.layer_norm.weight"
+    f = re.match(r"(wi_0|wi_1|wo)/kernel$", rest)
+    if f:
+        return pre + f"layer.1.DenseReluDense.{f.group(1)}.weight"
+    if rest == "ln_ff/weight":
+        return pre + "layer.1.layer_norm.weight"
+    return None
+
+
 def cc_projection_key(path: str) -> Optional[str]:
     """zero123's ``cc_projection`` {kernel, bias} → an ``nn.Linear``'s."""
     return {"kernel": "weight", "bias": "bias"}.get(path)
 
 
-def _tower(tree, key: Callable[[str], Optional[str]]
+def _tower(tree, key: Callable[[str], Optional[str]], keep_1x1: bool = False
            ) -> Dict[str, torch.Tensor]:
     out = {}
     for path, leaf in _flat(tree):
         k = key(path)
         if k is None:
             raise KeyError(f"no port key for Flax parameter {path}")
-        out[k] = _leaf(path, leaf)
+        out[k] = _leaf(path, leaf, keep_1x1)
     return out
 
 
@@ -275,7 +352,7 @@ def tower_levels(name: str, paths: Iterable[str]) -> int:
     if name == "vae":
         return _levels(p[len("encoder/"):] for p in paths
                        if p.startswith("encoder/"))
-    return _levels(paths) if name == "unet" else 0
+    return _levels(paths) if name in ("unet", "if_unet") else 0
 
 
 def tower_key(name: str, levels: int) -> Callable[[str], Optional[str]]:
@@ -283,6 +360,7 @@ def tower_key(name: str, levels: int) -> Callable[[str], Optional[str]]:
     the UNet's or the VAE encoder's resolution levels (unused by the
     others)."""
     return {"unet": lambda p: unet_key(p, levels),
+            "if_unet": lambda p: if_unet_key(p, levels), "t5": t5_key,
             "vae": lambda p: vae_key(p, levels),
             "text": clip_text_key, "vision": clip_vision_key,
             "cc_projection": cc_projection_key, "clip": clip_key}[name]
@@ -293,10 +371,13 @@ def _towers(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     if "text_projection" in params:
         out["text_projection"] = {"weight": _leaf(
             "text_projection", params["text_projection"])}
-    for name in ("unet", "vae", "text", "vision", "cc_projection"):
+    for name in ("unet", "vae", "text", "vision", "cc_projection", "t5"):
         if name in params:
             tree = params[name]
+            # DeepFloyd-IF's UNet: the one with the pooled text embedding
+            kind = "if_unet" if name == "unet" and "add_embedding" in tree \
+                else name
             L = _levels(tree["encoder"] if name == "vae" else tree) \
                 if name in ("unet", "vae") else 0
-            out[name] = _tower(tree, tower_key(name, L))
+            out[name] = _tower(tree, tower_key(kind, L), kind == "if_unet")
     return out

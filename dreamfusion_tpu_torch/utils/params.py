@@ -1,7 +1,8 @@
 """Converted weights on disk (``dreamfusion_tpu/utils/params.py``:
 ``save_params_npz``, ``load_params_npz``, ``maybe_load_params``).
 
-A tower's file ``root/<tower>.npz`` holds its Flax parameter pytree
+A tower's file ``root/<tower>.npz`` (DeepFloyd-IF's: ``unet.npz`` and
+``t5.npz``, ``guidance/deepfloyd.py``) holds its Flax parameter pytree
 flattened to ``/``-joined keys (``down_0_res_0/conv1/kernel``), in the Flax
 layouts.  It is read with numpy, the keys carried onto the port's module
 by ``utils/convert.py`` (the layouts too), and copied into the module's
@@ -25,8 +26,8 @@ from .convert import _leaf, tower_key, tower_levels
 
 def load_params_npz(path: str, module: nn.Module, tower: str) -> int:
     """Copy `path`'s arrays into `module`, the guidance tower `tower`
-    (``unet``, ``vae``, ``text``, ``vision`` or ``cc_projection``) → the
-    number of tensors read.  A key with no place in the module is left
+    (``unet``, ``vae``, ``text``, ``vision``, ``cc_projection``, or
+    DeepFloyd-IF's ``if_unet`` and ``t5``) → the number of tensors read.  A key with no place in the module is left
     unread, as JAX's reader looks up only the template's keys."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
@@ -37,7 +38,7 @@ def load_params_npz(path: str, module: nn.Module, tower: str) -> int:
         name = key(path_key)
         if name is None or name not in state:
             continue
-        value = _leaf(path_key, arr)
+        value = _leaf(path_key, arr, tower == "if_unet")
         dst = state[name]
         if tuple(value.shape) != tuple(dst.shape):
             raise ValueError(f"{path}: {path_key}: npz shape {arr.shape} "

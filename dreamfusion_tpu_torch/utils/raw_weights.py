@@ -1,10 +1,11 @@
 """Published checkpoints read as they ship, converted onto the port's towers
 (``dreamfusion_tpu/utils/convert.py``: ``load_torch_state_dict``,
 ``load_dir_state_dict``, the ldm → diffusers and OpenAI-CLIP → transformers
-key maps, ``convert_sd``, ``convert_zero123``).
+key maps, ``convert_sd``, ``convert_zero123``, ``convert_if``).
 
 Sources: a diffusers directory (``unet/``, ``vae/``, ``text_encoder/``, each
-a ``.safetensors``, ``.bin`` or ``.pt`` file or a shard index), a CompVis
+a ``.safetensors``, ``.bin`` or ``.pt`` file or a shard index; DeepFloyd-IF's
+``unet/`` and T5 ``text_encoder/``), a CompVis
 (ldm) ``.ckpt`` of SD, and a zero123(-xl) ``.ckpt`` (the ldm UNet and VAE,
 ``cc_projection`` and the OpenAI ViT-L/14 image tower).  The port's towers
 already carry the diffusers and transformers module names, so a
@@ -455,3 +456,32 @@ def convert_zero123(src: str, guidance, log=print) -> None:
         sd, "cond_stage_model.model.visual."), "vision")
     fill_tower(guidance.cc_projection, sd, "cc_projection", "cc_projection.")
 
+
+
+def convert_if(src: str, guidance, log=print) -> None:
+    """A diffusers DeepFloyd-IF directory into `guidance`'s towers
+    (``IFGuidance``): ``unet/`` (its ``config.json``, where there is one,
+    sets the UNet's dimensions) and, where there is one, the T5 encoder in
+    ``text_encoder/`` (built here; ``encoder.embed_tokens.weight`` stands
+    in for a missing ``shared.weight``).  Shard indexes are followed."""
+    from ..models.if_unet import IFUNetConfig
+
+    if not os.path.isdir(src):
+        raise FileNotFoundError(f"{src} holds no unet.npz or t5.npz, and a "
+                                f"DeepFloyd-IF checkpoint to convert is a "
+                                f"diffusers directory")
+    unet_dir = os.path.join(src, "unet")
+    cfg_path = os.path.join(unet_dir, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            guidance.rebuild_unet(IFUNetConfig.from_diffusers_config(
+                json.load(f)))
+    fill_tower(guidance.unet, load_dir_state_dict(unet_dir), "unet")
+    t5_dir = os.path.join(src, "text_encoder")
+    if os.path.isdir(t5_dir):
+        sd = load_dir_state_dict(t5_dir)
+        if "shared.weight" not in sd and "encoder.embed_tokens.weight" in sd:
+            sd["shared.weight"] = sd["encoder.embed_tokens.weight"]
+        guidance.t5 = guidance.build_t5()
+        fill_tower(guidance.t5, sd, "t5")
+        log(f"[weights] T5 encoder from {t5_dir}")

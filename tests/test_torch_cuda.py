@@ -2182,3 +2182,103 @@ def test_groupnorm_at_zero123_shapes(dev, B, H, W, C, silu, bwd):
     (dxp,) = torch.autograd.grad(group_norm_plain(x32, wt, bs, G, 1e-6,
                                                   silu), x32, dy.float())
     _close_to(dx, dxp, 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# DeepFloyd-IF's shapes: K10 over [77 text + N spatial] keys, K12 at the
+# IF-I-XL UNet's widths, and a narrow IF UNet on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,M,H", [(2, 1024, 1101, 20), (2, 256, 333, 40),
+                                     (2, 64, 141, 40), (4, 64, 141, 40),
+                                     (4, 256, 333, 40)])
+def test_attention_at_if_key_counts(dev, B, N, M, H):
+    """IF's attention: d = 64 over 77 text keys then N spatial ones (M
+    never a multiple of the KV tile: the last tile zero-filled by TMA and
+    masked; the first mixes text and spatial keys), at CFG batch 2 and
+    Perp-Neg's 4: o within a bf16 ulp-ish of the plain version and lse the
+    fp32 logits' logsumexp."""
+    g = _gen(dev, N + M)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, n, H, 64, device=dev, generator=g).to(bf)
+               for n in (N, M, M))
+    scale = 64 ** -0.5
+    kernels.reset_launch_counts()
+    o, lse = attention_fwd_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_fwd_wgmma"] == 1
+    _close_to(o, attention_plain(q, k, v, scale), 2e-2)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1),
+                               atol=1e-4, rtol=1e-5)
+    assert torch.equal(attention(q, k, v), o)
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k", [
+    (2, 64, 64, 3, 640, 3),         # conv_in: the narrow-input route
+    (2, 64, 64, 1920, 640, 3),      # the 64² up level's first skip concat
+    (2, 64, 64, 1280, 640, 1),      # a 1x1 shortcut
+    (2, 32, 32, 640, 1280, 1),
+    (2, 16, 16, 3840, 2560, 3),
+    (2, 8, 8, 5120, 2560, 3),       # a 236 MB weight; split-K
+    (2, 8, 8, 5120, 2560, 1),
+    (2, 64, 64, 640, 6, 3),         # conv_out: fp32
+])
+def test_conv_at_if_shapes(dev, B, H, W, I, O, k):
+    """K12's forward at IF-I-XL's widths, one launch of the route
+    ``conv_route`` gives (never mma.sync), within a bf16 ulp (fp32: 1e-5)
+    of the plain version."""
+    g = _gen(dev, I + O + k)
+    dt = torch.float32 if O == 6 else torch.bfloat16
+    pad = k // 2
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(dt)
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(dt)
+    bias = torch.randn(O, device=dev, generator=g)
+    route = conv_route(dt, I, O, (1, 1), k * k)
+    assert route == ("conv_fwd_fp32" if dt == torch.float32 else
+                     "conv_fwd_wgmma_i8" if I == 3 else "conv_fwd_wgmma")
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, 1, pad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 1 and y.shape == (B, H, W, O)
+    ref = conv2d_plain(x, w, bias, (1, 1), norm_padding(pad), dt)
+    if dt == torch.float32:
+        _close_to(y, ref, 1e-5)
+    else:
+        _within_ulp(y, ref)
+
+
+def test_narrow_if_unet_on_the_card(dev):
+    """A narrow IF UNet (64/128 channels, head dim 64) in bf16 on the card
+    against the same weights on the CPU's plain versions; every conv and
+    attention one launch of its route."""
+    from dreamfusion_tpu_torch.models.if_unet import IFUNet, IFUNetConfig
+    cfg = IFUNetConfig(block_out_channels=(64, 128), layers_per_block=1,
+                       attn_levels=(False, True), head_dim=64,
+                       cross_attention_dim=64, encoder_hid_dim=96,
+                       addition_num_heads=4)
+    torch.manual_seed(0)
+    cpu = IFUNet(cfg, torch.bfloat16)
+    for p in cpu.parameters():
+        p.copy_(torch.randn(p.shape) * 0.05)
+    card = IFUNet(cfg, torch.bfloat16).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 16, 3, generator=g)
+    t = torch.tensor([20, 731])
+    ctx = torch.randn(2, 77, 96, generator=g)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = card(x.to(dev), t.to(dev), ctx.to(dev))
+        torch.cuda.synchronize()
+        want = cpu(x, t, ctx)
+    # 2 resnets down and the downsampler, 2 mid, 4 up and the upsampler:
+    # 10 x 2 convs and 5 shortcuts, then conv_in, conv_out; the attentions
+    # at 8²: 1 down, 1 mid, 2 up
+    assert kernels.LAUNCHES["conv_fwd_wgmma"] == 25
+    assert kernels.LAUNCHES["conv_fwd_wgmma_i8"] == 1
+    assert kernels.LAUNCHES["conv_fwd_fp32"] == 1
+    assert kernels.LAUNCHES["attention_fwd_wgmma"] == 4
+    assert kernels.LAUNCHES["conv_fwd_mma"] == 0
+    _close_to(got.cpu(), want, 5e-2)

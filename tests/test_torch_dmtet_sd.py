@@ -32,7 +32,7 @@ from dreamfusion_tpu.training.dmtet_trainer import DMTetTrainer as JTrainer
 from dreamfusion_tpu_torch import run_flagship
 from dreamfusion_tpu_torch.guidance.embeddings import prepare_text_embeddings
 from dreamfusion_tpu_torch.guidance.sd import SDConfig, StableDiffusionGuidance
-from dreamfusion_tpu_torch.main import main
+from dreamfusion_tpu_torch.main import build_parser, config_from_args, main
 from dreamfusion_tpu_torch.mesh import tets as ptets
 from dreamfusion_tpu_torch.models.dmtet import DMTetParams
 from dreamfusion_tpu_torch.ops import marching_tets as pmt
@@ -331,7 +331,8 @@ def test_caps_grow_when_the_surface_outgrows_them(tmp_path, monkeypatch):
 ])
 def test_flagship_script_modes(mode, argv, want):
     """Each mode's ``main`` flags: the JAX script's common flags, then the
-    mode's (no run); ``if`` stays refused by ``main``."""
+    mode's (no run); ``if`` parses to IF guidance at fp16 with no warm-up
+    (its full-width run is the card's: chip_smoke.py)."""
     args, extra = run_flagship.build_parser().parse_known_args(
         argv + ["--iters", "7", "--device", "cpu"])
     assert run_flagship.run_name(args) == mode
@@ -342,8 +343,9 @@ def test_flagship_script_modes(mode, argv, want):
                                                               "cpu"]
     assert "--save_mesh" in flags and "--dataset_size_test" in flags
     if mode == "if":
-        with pytest.raises(NotImplementedError, match="DeepFloyd-IF"):
-            main(flags)
+        cfg = config_from_args(build_parser().parse_args(flags))
+        assert cfg.guidance == ("IF",) and cfg.fp16
+        assert cfg.latent_iter_ratio == 0.0
     if mode.startswith("dmtet"):
         args.init_with = ""
         with pytest.raises(ValueError, match="needs --init_with"):

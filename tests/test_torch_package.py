@@ -183,7 +183,7 @@ def test_cli_image_config_matches_jax(extra):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--text", "a hamburger", "--IF"],                      # DeepFloyd-IF
+    ["--text", "a hamburger", "--IF", "--guidance", "SD", "clip"],  # IF+CLIP
     ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--guidance", "SD", "zero123", "--text", "a hamburger"],  # 2 priors
     ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
@@ -234,13 +234,13 @@ def _queue1_titles():
 
 @pytest.mark.parametrize("flags", [
     ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
-    ["--text", "a hamburger", "--IF"],
+    ["--text", "a hamburger", "--IF", "--image_config", "x.csv"],
     ["--text", "a hamburger", "--gui"],
     ["--text", "a hamburger", "--profile"],
     ["--image_config", "x.json"],
     ["--image_config", "x.csv", "--guidance", "clip"],
     ["--guidance", "oracle", "--backbone", "vanilla"],
-    ["--guidance", "IF"],
+    ["--guidance", "IF", "clip", "--text", "a hamburger"],
     ["--guidance", "zero123", "clip", "--image_config", "x.csv"],
     ["--guidance", "SD", "zero123", "--text", "a hamburger"],
     ["--guidance", "oracle", "--backbone", "triplane", "--image", "x.png"],
@@ -267,16 +267,29 @@ def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
     assert m.group(1) in _queue1_titles(), m.group(1)
 
 
-def test_module_refusals_name_a_roadmap_queue1_title():
-    """The same for the refusals below the CLI: the IF noise schedule and
-    the vanilla backbone's field options; no message of the port names a
-    queue 1 item by its number."""
+@pytest.mark.parametrize("lifted", ["--IF", "squaredcos_cap_v2"])
+def test_lifted_refusals_now_build(lifted):
+    """DeepFloyd-IF is ported: ``--IF`` parses to IF guidance with no
+    warm-up phase, and the cosine schedule builds."""
     from dreamfusion_tpu_torch.guidance.schedule import make_schedule
+
+    if lifted == "--IF":
+        cfg = config_from_args(build_parser().parse_args(
+            ["--text", "a hamburger", "--IF"]))
+        assert cfg.guidance == ("IF",) and cfg.latent_iter_ratio == 0.0
+    else:
+        ac = make_schedule(lifted).alphas_cumprod
+        assert ac.shape == (1000,) and 0 < ac[-1] < ac[0] < 1
+
+
+def test_module_refusals_name_a_roadmap_queue1_title():
+    """The same for the refusals below the CLI: the vanilla backbone's
+    field options; no message of the port names a queue 1 item by its
+    number."""
     from dreamfusion_tpu_torch.models.nerf import NeRFField
 
     titles = _queue1_titles()
-    for fn in (lambda: make_schedule("squaredcos_cap_v2"),
-               lambda: NeRFField(backbone="vanilla"),
+    for fn in (lambda: NeRFField(backbone="vanilla"),
                lambda: NeRFField(backbone="grid", density_act="softplus")):
         with pytest.raises(NotImplementedError) as e:
             fn()

@@ -89,13 +89,14 @@ def jax_choice_draws(k_choice) -> pschedules.ChoiceDraws:
 
 
 def jax_step_draws(cfg, renderer, base_key, step: int,
-                   latent_size=None) -> StepDraws:
+                   latent_size=None, pixel_size=None) -> StepDraws:
     """The draws of Trainer._make_train_step('main' or 'latent') at
     state.step=step: fold_in(base, step) → split 5 (batch, choice, render,
     guide, tv); the render key's first draw is the march's, its second the
     normal-perturb offsets'.  With ``latent_size`` the guide key feeds SD's
     sds_loss (split 3: posterior, t, latent noise), else the pixel (or
-    image) oracle's."""
+    image) oracle's, or with ``pixel_size`` DeepFloyd-IF's (t, then the
+    noise at its side)."""
     key = jax.random.fold_in(base_key, step)
     k_batch, k_choice, k_render, k_guide, k_tv = jax.random.split(key, 5)
     pose, fov = jax_batch_draws(k_batch, cfg, unit=True)
@@ -104,15 +105,11 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
     k_march, k_perturb = jax_render_keys(renderer, k_render, 2)
     march_u = (jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S
     (k_prior,) = jax.random.split(k_guide, 1)
-    lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
     B = cfg.batch_size
     choice = jax_choice_draws(k_choice)
     if latent_size is None:
-        k_t, k_noise = jax.random.split(k_prior)
-        t = jax.random.randint(k_t, (B,), lo, hi + 1)
-        noise = jax.random.normal(k_noise, (B, cfg.h, cfg.w, 3))
-        draws = StepDraws(pose, fov, choice, tt(march_u), tt(t).long(),
-                          tt(noise))
+        t, noise = jax_pixel_draws(k_prior, cfg, pixel_size)
+        draws = StepDraws(pose, fov, choice, tt(march_u), t, noise)
     else:
         t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
         draws = StepDraws(pose, fov, choice, tt(march_u), t, noise, post)
@@ -163,12 +160,25 @@ def jax_tv_cells(key, resolutions, n_samples: int = 4096) -> torch.Tensor:
                         for k, r in zip(keys, resolutions)])
 
 
+def jax_pixel_draws(key, cfg, pixel_size=None):
+    """What the pixel oracle (or DeepFloyd-IF's sds_loss) draws from its
+    key: (t [B], noise [B, h, w, 3], or at IF's ``pixel_size``)."""
+    k_t, k_noise = jax.random.split(key)
+    lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
+    B = cfg.batch_size
+    t = jax.random.randint(k_t, (B,), lo, hi + 1)
+    shape = (B, cfg.h, cfg.w, 3) if pixel_size is None else \
+        (B, pixel_size, pixel_size, 3)
+    return tt(t).long(), tt(jax.random.normal(k_noise, shape))
+
+
 def jax_dmtet_step_draws(cfg, base_key, step: int,
-                         latent_size=None) -> DMTetDraws:
+                         latent_size=None, pixel_size=None) -> DMTetDraws:
     """The draws of DMTetTrainer._make_train_step at state.step=step:
     fold_in(base, step) → split 3 (batch, choice, guide); the guide key
-    feeds the pixel oracle (split 1, then t and noise) or, with
-    ``latent_size``, SD's sds_loss (split 1, then ``jax_sd_draws``)."""
+    feeds the pixel oracle (split 1, then t and noise; IF's at
+    ``pixel_size``) or, with ``latent_size``, SD's sds_loss (split 1, then
+    ``jax_sd_draws``)."""
     key = jax.random.fold_in(base_key, step)
     k_batch, k_choice, k_guide = jax.random.split(key, 3)
     pose, fov = jax_batch_draws(k_batch, cfg, unit=True)
@@ -178,11 +188,8 @@ def jax_dmtet_step_draws(cfg, base_key, step: int,
     if latent_size is not None:
         t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
         return DMTetDraws(pose, fov, choice, t, noise, post)
-    k_t, k_noise = jax.random.split(k_prior)
-    lo, hi = int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1])
-    t = jax.random.randint(k_t, (B,), lo, hi + 1)
-    noise = jax.random.normal(k_noise, (B, cfg.h, cfg.w, 3))
-    return DMTetDraws(pose, fov, choice, tt(t).long(), tt(noise))
+    return DMTetDraws(pose, fov, choice,
+                      *jax_pixel_draws(k_prior, cfg, pixel_size))
 
 
 def uncut_jax_tile_cap(jt, pt, ps) -> int:
