@@ -236,10 +236,37 @@
    UNet, the five prompts encoded, seconds and peak memory, then freed;
    the DMTet stage under IF from step 4's checkpoint (tet grid 128, 512²
    shrunk to 64²) for 14 steps with step 6's checks and K10/K12 exactly.
-12. Prints one JSON line with every kernel's route, source, the TPU
-   function it replaces, launches on its path (K1-K4 and K10-K12: the SD
-   run, K10's d = 40, 80 and 160 routes: the SD 1.5 run, ``conv_fwd_mma``
-   and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
+12. The vanilla backbone (``-O2``: fp16, the degree-12 frequency
+   encoding into the 5-layer ResMLP, progressive levels) and the small
+   field options.  K2's vanilla launches (the sphere's near/far, the
+   stratified coarse samples and positions; then from the coarse density
+   the weights, the inverse-CDF draws, the sorted merge, the deltas and
+   positions) against their plain twins bit for bit, at the -O2 step's
+   4096 rays and at a 4096-ray chunk of an 800² view; K4 at the step's
+   393,216 samples with each activation (trunc_exp, softplus) and its
+   normals-given route (``field_select``); K3 at [4096, 96] with no mask,
+   the background MLP's colour and the orient loss.  ``--text "a
+   hamburger" -O2`` at full SD 2.1 width through main for 6 + 25 steps,
+   the counters reset just before it: finite losses and gradients,
+   K10-K12 exactly (``sd_step_launches``), K2-K4 exactly (two K2 launches
+   a render, the head once for the coarse pass, the shade pair and K3 once
+   a step), no march or encoder kernel; two steps (warm-up and VAE)
+   counted exactly; the run rebuilt and its steps timed with the peak
+   memory.  ``--guidance oracle -O2`` for 300 steps with the run's end (2
+   eval views, a 2-frame 800² turntable: each view shades 61M samples),
+   the +3 dB gate and stage 1's checks; K7 again at the DMTet surface that
+   stage 1 gives (its rows in the log, not the JSON line); DMTet from it
+   for 14 steps with the surface checks and its one-step launch check (no
+   encoder kernel: the positions' gradient goes through plain torch).
+   The triplane under the oracle with ``--normal_mode finite_difference
+   --density_activation softplus --optim adam --grad_clip 1 --lambda_tv
+   1e-4`` for 20 steps: ``field_select`` once each way a step, the shade
+   pair never.
+13. Prints one JSON line with every kernel's route, source, the TPU
+   function it replaces, launches on its path (K2's vanilla launches: the
+   -O2 SD run; K4's ``field_select``: the field-options run; K1-K4 and
+   K10-K12: the SD run, K10's d = 40, 80 and 160 routes: the SD 1.5
+   run, ``conv_fwd_mma`` and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
    image stage 1; K9: the DMTet stage from its mesh), error, times and
@@ -373,6 +400,39 @@ IF_DMTET_FLAGS = ["--text", "a hamburger", "--IF", "--fp16", "true",
                   "scratch", "--dataset_size_train", "7",
                   "--eval_interval", "2"]
 IF_UNET_PARAMS = 4_225_193_478            # JAX's pinned count
+# The vanilla backbone (-O2: fp16, the frequency-encoded ResMLP field,
+# progressive levels; BASELINE.json's configs[0]): SD 2.1 at full width on
+# 64² renders, 6 warm-up and 25 timed steps (the first 20% SD's warm-up);
+# the weight-free twin, 300 oracle steps with the run's end (2 eval views
+# and a 2-frame 800² turntable, cut from 4 and 8 to keep the smoke's time:
+# each 800² view shades 61M samples, ~1.2 s); DMTet
+# from its checkpoint, 14 steps.  The small field options on the triplane
+# under the oracle: the finite-difference normals (K4's normals-given
+# route), softplus, Adam, the elementwise clip and the triplane's tv.
+O2_WARMUP, O2_STEPS = 6, 25
+O2_SD_FLAGS = ["--text", "a hamburger", "-O2", "--seed", "0",
+               "--dataset_size_train", "5", "--eval_interval", "0", "--H",
+               "64", "--W", "64", "--dataset_size_test", "2", "--ckpt",
+               "scratch"]
+# (the default lr, 1e-3, as the JAX CLI's: the triplane flagship's 0.01
+# is too large for the ResMLP, +2.98 dB in 300 steps against 1e-3's +12.45)
+O2_ORACLE_FLAGS = ["--guidance", "oracle", "-O2", "--oracle_scene",
+                   "two_sphere", "--seed", "0", "--lambda_3d_normal_smooth",
+                   "0"]
+O2_STAGE1_END = [f if f != "8" else "2" for f in STAGE1_END] + [
+    "--dataset_size_valid", "2"]
+O2_DMTET_STEPS = 14
+O2_DMTET_FLAGS = [f for f in DMTET_FLAGS if f not in (
+    "--backbone", "triplane")] + ["-O2", "--dataset_size_train", "7",
+                                  "--eval_interval", "2",
+                                  "--dataset_size_test", "2"]
+OPTION_STEPS = 20
+OPTION_FLAGS = FLAGSHIP + ["--normal_mode", "finite_difference",
+                           "--density_activation", "softplus", "--optim",
+                           "adam", "--grad_clip", "1", "--lambda_tv", "1e-4",
+                           "--dataset_size_train", "10", "--eval_interval",
+                           "0", "--H", "64", "--W", "64",
+                           "--dataset_size_test", "1", "--ckpt", "scratch"]
 # CLIP guidance's ViT-B/16 patch embedding (k = s = 16 on 3 channels, no
 # bias): conv_fwd_mma forward and conv_dgrad input gradient, once each a
 # CLIP loss; its rows fill the two kernels' JSON entries
@@ -410,6 +470,10 @@ KERNELS = {
                         "dreamfusion_tpu/ops/triplane.py:96"),
     "march_rays": ("cuda", "dreamfusion_tpu_torch/csrc/occupancy.cu",
                    "dreamfusion_tpu/ops/occupancy.py:71"),
+    "vanilla_coarse": ("cuda", "dreamfusion_tpu_torch/csrc/occupancy.cu",
+                       "dreamfusion_tpu/core/sampling.py:94"),
+    "vanilla_resample": ("cuda", "dreamfusion_tpu_torch/csrc/occupancy.cu",
+                         "dreamfusion_tpu/core/sampling.py:44"),
     "composite_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/composite.cu",
                       "dreamfusion_tpu/ops/composite.py:39"),
     "composite_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/composite.cu",
@@ -422,6 +486,10 @@ KERNELS = {
                         "dreamfusion_tpu/models/nerf.py:211"),
     "field_shade_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
                         "dreamfusion_tpu/models/nerf.py:211"),
+    "field_select_fwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
+                         "dreamfusion_tpu/models/nerf.py:332"),
+    "field_select_bwd": ("cuda", "dreamfusion_tpu_torch/csrc/field_head.cu",
+                         "dreamfusion_tpu/models/nerf.py:332"),
     "attention_fwd_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
                             "dreamfusion_tpu/ops/attention.py:27"),
     "attention_fwd_wgmma_d40": ("cuda",
@@ -531,6 +599,16 @@ DMTET_STEP_LAUNCHES = {
 RENDER_KERNELS = ("composite_fwd", "composite_bwd", "field_shade_fwd",
                   "field_shade_bwd", "field_head_fwd", "field_head_bwd")
 IMAGE_KERNELS = ORACLE_KERNELS + ("clip_grad_bwd",)
+# the -O2 step: K2's vanilla launches, K4's head (the coarse density pass)
+# and shade pair, K3; no occupancy march, no encoder kernel
+O2_KERNELS = ("vanilla_coarse", "vanilla_resample", "composite_fwd",
+              "composite_bwd", "field_head_fwd", "field_shade_fwd",
+              "field_shade_bwd")
+O2_DMTET_KERNELS = tuple(k for k in DMTET_KERNELS
+                         if not k.startswith("triplane"))
+ENCODER_KERNELS = ("triplane_fwd", "triplane_bwd", "triplane_bwd_dx",
+                   "hashgrid_fwd", "hashgrid_bwd", "hashgrid_bwd_dx",
+                   "march_rays")
 IMAGE_DMTET_KERNELS = DMTET_KERNELS + ("clip_grad_bwd", "signed_distance")
 # The SD 2.1 step's K12 forwards (bf16 unless stated; the UNet at CFG batch
 # 2 on 64² latents, the VAE encoder at 512²): B, H, W, I, O, kernel size,
@@ -1011,17 +1089,20 @@ def kernel_phases(torch, results, smi_line):
     return x01
 
 
-def flagship_field_inputs(torch, m) -> dict:
+def flagship_field_inputs(torch, m, act="exp") -> dict:
     """What the field head sees in the flagship step: h and the tangents
     from the flagship's 3x64 MLP (bf16) on a 256²x16 triplane (seeded,
     ±0.1) at the march ``m``'s 98,304 sample positions; one light direction
-    a ray; the ratio as a device scalar."""
+    a ray; the ratio as a device scalar.  `act`: the field's density
+    activation."""
     from dreamfusion_tpu_torch.core.math import safe_normalize
     from dreamfusion_tpu_torch.models.nerf import NeRFField
     cfg, dev = m["cfg"], m["ro"].device
     g = torch.Generator(device=dev).manual_seed(13)
     field = NeRFField(backbone="triplane", bound=cfg.bound,
                       hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+                      density_act=act, blob_density=cfg.blob_density,
+                      blob_radius=cfg.blob_radius,
                       triplane_resolution=cfg.triplane_resolution,
                       triplane_channels=cfg.triplane_channels,
                       compute_dtype=torch.bfloat16)
@@ -2102,7 +2183,7 @@ def bake_kernel_phase(torch, results, obj_path):
                   0.0, " (texture bake)", False)
 
 
-def dmtet_far_views(torch, port_main, init_with, ws):
+def dmtet_far_views(torch, port_main, init_with, ws, flags=DMTET_FLAGS):
     """The surface the DMTet path starts from (``init_with``, built as main
     builds the run) and the 24 views at the far end of the training ranges
     (unit draws 1 for the radius and the field of view; 3 polar angles x 8
@@ -2111,7 +2192,7 @@ def dmtet_far_views(torch, port_main, init_with, ws):
     from dreamfusion_tpu_torch.core.poses import PoseDraws
     from dreamfusion_tpu_torch.ops.raster import project_verts, rasterize
     from dreamfusion_tpu_torch.training.trainer import train_batch
-    args = port_main.build_parser().parse_args(DMTET_FLAGS + [
+    args = port_main.build_parser().parse_args(flags + [
         "--init_with", init_with, "--workspace", ws, "--iters", "1"])
     cfg = port_main.config_from_args(args)
     trainer, state, _ = port_main.build_run(cfg, torch.device("cuda"), False,
@@ -2139,18 +2220,20 @@ def dmtet_far_views(torch, port_main, init_with, ws):
     return cfg, dmr, mesh, mvp, fullest
 
 
-def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws):
-    """K7 at the DMTet stage's own shape, whose rows the JSON line reports:
-    the surface the DMTet path starts from, at the renderer's tile_cap, in
-    the far view (``dmtet_far_views``) whose fullest tile lists the most,
-    so that the backwards sum the crowded tiles' lists in several 1024-slot
-    windows; forward and both backwards against the plain versions."""
+def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws,
+                               flags=DMTET_FLAGS, main=True, what="DMTet"):
+    """K7 at the DMTet stage's own shape, whose rows the JSON line reports
+    (``main``): the surface the DMTet path `flags` starts from, at the
+    renderer's tile_cap, in the far view (``dmtet_far_views``) whose
+    fullest tile lists the most, so that the backwards sum the crowded
+    tiles' lists in several 1024-slot windows; forward and both backwards
+    against the plain versions."""
     from dreamfusion_tpu_torch.ops.raster import project_verts, screen_coords
     cfg, dmr, mesh, mvp, fullest = dmtet_far_views(torch, port_main,
-                                                   init_with, ws)
+                                                   init_with, ws, flags)
     n = len(fullest)
     i = max(range(n), key=fullest.__getitem__)
-    log(f"DMTet surface: {int(mesh.n_faces)} faces (max_tris "
+    log(f"{what} surface: {int(mesh.n_faces)} faces (max_tris "
         f"{dmr.max_tris}), fullest tile over the {n} far views "
         f"{min(fullest)}-{fullest[i]} (view {i}), tile_cap {dmr.tile_cap}")
     sx, sy, sz, valid = screen_coords(project_verts(mesh.verts.detach(),
@@ -2160,7 +2243,7 @@ def dmtet_surface_raster_phase(torch, results, port_main, init_with, ws):
     record_raster(torch, results, sx.contiguous(), sy.contiguous(),
                   sz.contiguous(), mesh.faces, valid, cfg.h, cfg.w,
                   dmr.tile_cap, dmr.soft_edge_px,
-                  f" (DMTet surface, far view {i})", True, main=True)
+                  f" ({what} surface, far view {i})", True, main=main)
 
 
 def clip_grad_kernel_phase(torch, results):
@@ -2335,17 +2418,26 @@ def step_render_launches(cfg) -> dict:
     composited, and their backwards; the 3-D normal smoothness (on under
     ``--image``) shades the perturbed positions once more.  The eval
     renders take the head alone, and a step that refreshes the density
-    grid adds the head ``refresh_launches`` times."""
+    grid adds the head ``refresh_launches`` times.  The vanilla render
+    (-O2) takes K2's coarse and resample launches instead of the march,
+    and the head once for its coarse density pass."""
     shade = 1 + int(cfg.lambda_3d_normal_smooth > 0)
-    return {"march_rays": 1, "composite_fwd": 1, "composite_bwd": 1,
-            "field_shade_fwd": shade, "field_shade_bwd": shade,
-            "field_head_fwd": 0, "field_head_bwd": 0}
+    out = {"march_rays": 1, "composite_fwd": 1, "composite_bwd": 1,
+           "field_shade_fwd": shade, "field_shade_bwd": shade,
+           "field_head_fwd": 0, "field_head_bwd": 0}
+    if cfg.backbone == "vanilla":
+        out.update(march_rays=0, vanilla_coarse=1, vanilla_resample=1,
+                   field_head_fwd=1)
+    return out
 
 
 def refresh_launches(cfg) -> int:
     """K4 head launches of one density-grid refresh: the grid's cells a
-    chunk at a time, per cascade (8 at the flagship's 128³)."""
+    chunk at a time, per cascade (8 at the flagship's 128³); none under
+    vanilla, which keeps no density grid."""
     from dreamfusion_tpu_torch.ops.occupancy import _CHUNK
+    if cfg.backbone == "vanilla":
+        return 0
     return cfg.cascade * -(-cfg.grid_size ** 3 // _CHUNK)
 
 
@@ -2355,9 +2447,13 @@ def run_render_launches(launches, cfg, n_steps, what, renders=None) -> None:
     each step, the head's backward never, the head at least once a chunk of
     each refresh, the march at least once a step; with `renders` (the run's
     eval and test renders, each one march and one composite with the head
-    alone) the forwards and the marches exactly."""
+    alone; under vanilla each render chunk's coarse and resample launches
+    and the head twice, the coarse pass and the albedo shading) the
+    forwards and the marches exactly."""
     n_refresh = -(-n_steps // cfg.update_extra_interval)
     per_step = step_render_launches(cfg)
+    vanilla = cfg.backbone == "vanilla"
+    march = "vanilla_coarse" if vanilla else "march_rays"
     for name in ("composite_bwd", "field_shade_fwd", "field_shade_bwd"):
         check(launches[name] == per_step[name] * n_steps,
               f"{what}: {name} launched {launches[name]} times in "
@@ -2365,16 +2461,23 @@ def run_render_launches(launches, cfg, n_steps, what, renders=None) -> None:
     check(launches["field_head_bwd"] == 0,
           f"{what}: field_head_bwd launched {launches['field_head_bwd']} "
           f"times (never in stage 1)")
-    head = n_refresh * refresh_launches(cfg)
+    head = n_refresh * refresh_launches(cfg) + \
+        per_step["field_head_fwd"] * n_steps
+    if vanilla:
+        check(launches["march_rays"] == 0 and launches["vanilla_resample"]
+              == launches["vanilla_coarse"], f"{what}: march_rays "
+              f"{launches['march_rays']}, vanilla coarse and resample "
+              f"{launches['vanilla_coarse']}, "
+              f"{launches['vanilla_resample']} launches")
     if renders is None:
         check(launches["field_head_fwd"] >= head, f"{what}: field_head_fwd "
               f"launched {launches['field_head_fwd']} times, under {head}")
-        check(launches["march_rays"] >= n_steps, f"{what}: march_rays "
-              f"launched {launches['march_rays']} times in {n_steps} steps")
+        check(launches[march] >= n_steps, f"{what}: {march} launched "
+              f"{launches[march]} times in {n_steps} steps")
         return
-    want = {"march_rays": n_steps + renders,
+    want = {march: n_steps + renders,
             "composite_fwd": n_steps + renders,
-            "field_head_fwd": head + renders}
+            "field_head_fwd": head + renders * (1 + vanilla)}
     got = {k: launches[k] for k in want}
     check(got == want, f"{what}: K2 and the K3/K4 forwards {got}, not {want}"
           f" ({n_steps} steps, {n_refresh} refreshes, {renders} test "
@@ -2394,7 +2497,7 @@ def stage1_step_launches(torch, port_main, kernels, flags, ws, what):
     for _ in range(2):
         want = step_render_launches(cfg)
         if state.step % cfg.update_extra_interval == 0:
-            want["field_head_fwd"] = refresh_launches(cfg)
+            want["field_head_fwd"] += refresh_launches(cfg)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         trainer.run_step(state, gen)
@@ -2406,11 +2509,11 @@ def stage1_step_launches(torch, port_main, kernels, flags, ws, what):
 
 
 def stage1_path(port_main, kernels, flags, ws, what, required, group,
-                smi_line):
+                smi_line, end=STAGE1_END):
     """Stage 1 under the oracle with the run's end, the counters reset just
     before it → (summary, launches)."""
     kernels.reset_launch_counts()
-    summary = port_main.main(flags + STAGE1_END + [
+    summary = port_main.main(flags + end + [
         "--iters", str(STEPS), "--workspace", ws])
     launches = dict(kernels.LAUNCHES)
     log(f"{what} path: {STEPS} steps, steady {summary['steady_its']:.3f} "
@@ -2440,25 +2543,31 @@ def stage1_path(port_main, kernels, flags, ws, what, required, group,
 
 
 def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
-            unet_attns=SD21_UNET_ATTNS):
-    """SD at full width (6 warm-up steps, 19 through the VAE), the
-    counters reset just before it → launches.  `unet_attns`: the UNet's
-    K10 launches per step by route (SD 2.1's or SD 1.5's head dims); the
-    other UNet routes must not launch."""
+            unet_attns=SD21_UNET_ATTNS, steps=SD_STEPS, timed_after=None):
+    """SD at full width (`steps` steps: the first 20% SD's warm-up, the rest
+    through the VAE), the counters reset just before it → launches.
+    `unet_attns`: the UNet's K10 launches per step by route (SD 2.1's or SD
+    1.5's head dims); the other UNet routes must not launch.  `group`: the
+    field's encoder, "triplane" or "grid", whose kernels must launch, or
+    "vanilla", under which no encoder and no march kernel may.  With
+    `timed_after` (the -O2 run): two steps built as main builds them, every
+    count exact (``sd_step_exact``), then the same run rebuilt, its steps
+    timed (synchronised, the median after `timed_after`) with the peak
+    memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t_sd = time.time()
-    sd = port_main.main(flags + ["--iters", str(SD_STEPS), "--workspace", ws])
+    sd = port_main.main(flags + ["--iters", str(steps), "--workspace", ws])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    main_blocks = sd["blocks"][2:]        # steps 11-25: all after warm-up
+    main_blocks = sd["blocks"][2:]        # steps 11 on: all after warm-up
     s_step = sum(t for _, t in main_blocks) / sum(n for n, _ in main_blocks)
     blocks_ms = [round(1e3 * t / n, 2) for n, t in main_blocks]
-    log(f"{what} path: {SD_STEPS} steps in {time.time() - t_sd:.1f} s "
+    log(f"{what} path: {steps} steps in {time.time() - t_sd:.1f} s "
         f"(start-up included), losses {sd['losses']}, steady "
-        f"{s_step:.4f} s/step over steps 11-{SD_STEPS} (VAE phase; "
+        f"{s_step:.4f} s/step over steps 11-{steps} (VAE phase; "
         f"ms/step by 5-step block {blocks_ms}), peak "
         f"device memory {peak_gib:.2f} GiB, on {smi_line}, launches "
         f"{launches}")
@@ -2486,14 +2595,22 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
         check(launches[name] == n,
               f"{what}: {launches[name]} launches of {name} in {n_steps} "
               f"steps ({n_vae} through the VAE), not {n}")
-    for name in tuple(k for k in SD_KERNELS if k not in unet_routes) + (
-            ("hashgrid_fwd", "hashgrid_bwd") if group == "grid" else
-            ("triplane_fwd", "triplane_bwd")):
+    required = {"grid": ("hashgrid_fwd", "hashgrid_bwd"),
+                "triplane": ("triplane_fwd", "triplane_bwd"),
+                "vanilla": ("vanilla_coarse", "vanilla_resample")}[group]
+    for name in tuple(k for k in SD_KERNELS if k not in unet_routes) + \
+            required:
+        if group == "vanilla" and name in ENCODER_KERNELS:
+            continue
         check(launches[name] > 0, f"the {what} path never launched {name}")
+    if group == "vanilla":
+        enc = {k: launches[k] for k in ENCODER_KERNELS if launches[k]}
+        check(not enc, f"{what}: encoder or march kernels launched {enc}")
     # K2, K3 and K4 exactly: no evals, the test's frames at H x W in
     # max_ray_batch chunks
     cfg = port_main.config_from_args(port_main.build_parser().parse_args(
         flags))
+    check(cfg.backbone == group, f"{what}: backbone {cfg.backbone}")
     renders = cfg.dataset_size_test * -(-cfg.H * cfg.W // cfg.max_ray_batch)
     run_render_launches(launches, cfg, n_steps, what, renders)
     for latent in (True, False):
@@ -2502,7 +2619,46 @@ def sd_path(torch, port_main, kernels, flags, ws, what, group, smi_line,
         phase = "warm-up" if latent else "VAE"
         check(len(gm) > 0 and all(g > 0 for g in gm),
               f"{what}: zero {group} gradient in the {phase} phase: {gm}")
+    if timed_after is not None:
+        sd_step_exact(torch, port_main, kernels, flags, ws + "_step", what)
+        torch.cuda.reset_peak_memory_stats()
+        med, low = if_timed_steps(torch, port_main, flags, steps, timed_after,
+                                  ws + "_timing")
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"{what} step (synchronised, median over steps {timed_after}-"
+            f"{steps - 1}): {1e3 * med:.2f} ms (min {1e3 * low:.2f}), peak "
+            f"device memory {step_peak:.2f} GiB; on {smi_line}")
     return launches
+
+
+def sd_step_exact(torch, port_main, kernels, flags, ws, what):
+    """Two SD steps of the run `flags` describes, built as main builds it
+    (one in SD's warm-up, one after it, through the VAE), the counters
+    reset just before each: K2-K4 as ``step_render_launches`` and K10-K12
+    as ``sd_step_launches`` count them, exactly."""
+    args = port_main.build_parser().parse_args(
+        flags + ["--workspace", ws, "--iters", "5"])
+    cfg = port_main.config_from_args(args)
+    trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
+                                              False, log=lambda *a: None)
+    render = step_render_launches(cfg)
+    for step in range(2):
+        if step == 1:
+            state.step = 4                 # past the warm-up's 20%
+        latent = trainer.latent_phase(state.step)
+        want = {**render, **sd_step_launches(torch, kernels, 1,
+                                             0 if latent else 1)}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        trainer.run_step(state, gen)
+        torch.cuda.synchronize()
+        got = {k: kernels.LAUNCHES[k] for k in want}
+        check(got == want, f"{what}: step {state.step - 1} (latent "
+              f"{latent}) launched {got}, not {want}")
+        log(f"{what}: step {state.step - 1} (latent {latent}) launched K2-K4 "
+            f"{({k: got[k] for k in render})} and "
+            f"{sum(got.values()) - sum(render.values())} K10-K12 launches, "
+            f"exactly")
 
 
 def sd15_path(torch, port_main, kernels, ws, smi_line, sd21_launches):
@@ -2556,12 +2712,19 @@ def dmtet_path(torch, port_main, kernels, flags, steps, ws, what, required,
     # one view a step (--batch_size 1): its albedo query's backward gives the
     # table's and the positions' gradients in one launch, and nothing takes
     # the table-only route or a second forward for the positions
-    enc = "triplane" if group == "triplane" else "hashgrid"
-    check(launches[f"{enc}_bwd_dx"] == steps and launches[f"{enc}_bwd"] == 0
-          and launches[f"{enc}_fwd"] >= steps,
-          f"{what}: {enc} launched fwd {launches[f'{enc}_fwd']}, bwd "
-          f"{launches[f'{enc}_bwd']}, bwd_dx {launches[f'{enc}_bwd_dx']} "
-          f"times in {steps} steps (bwd_dx once a step, bwd never)")
+    # (the vanilla field's positions take theirs through plain torch: no
+    # encoder kernel at all)
+    if group == "vanilla":
+        enc_l = {k: launches[k] for k in ENCODER_KERNELS if launches[k]}
+        check(not enc_l, f"{what}: encoder kernels launched {enc_l}")
+    else:
+        enc = "triplane" if group == "triplane" else "hashgrid"
+        check(launches[f"{enc}_bwd_dx"] == steps and
+              launches[f"{enc}_bwd"] == 0 and launches[f"{enc}_fwd"] >= steps,
+              f"{what}: {enc} launched fwd {launches[f'{enc}_fwd']}, bwd "
+              f"{launches[f'{enc}_bwd']}, bwd_dx "
+              f"{launches[f'{enc}_bwd_dx']} times in {steps} steps (bwd_dx "
+              f"once a step, bwd never)")
     # the backwards run once a step (evals and the export add forwards)
     for name, n in DMTET_STEP_LAUNCHES.items():
         check(launches[name] == n * steps if name.endswith("_bwd")
@@ -2644,8 +2807,13 @@ def dmtet_view_launches(torch, port_main, kernels, flags, ws, what, enc,
     kernels.reset_launch_counts()
     trainer.run_step(state, gen)
     torch.cuda.synchronize()
-    got = {k: kernels.LAUNCHES[f"{enc}_{k}"] for k in ("fwd", "bwd", "bwd_dx")}
-    want = {"fwd": cfg.batch_size, "bwd": 0, "bwd_dx": cfg.batch_size}
+    if enc is None:         # the vanilla field: no encoder kernel
+        got = {k: kernels.LAUNCHES[k] for k in ENCODER_KERNELS}
+        want = dict.fromkeys(ENCODER_KERNELS, 0)
+    else:
+        got = {k: kernels.LAUNCHES[f"{enc}_{k}"]
+               for k in ("fwd", "bwd", "bwd_dx")}
+        want = {"fwd": cfg.batch_size, "bwd": 0, "bwd_dx": cfg.batch_size}
     check(got == want, f"{what}: one step launched {enc} {got}, not {want}")
     k78 = {k: kernels.LAUNCHES[k] for k in DMTET_STEP_LAUNCHES}
     check(cfg.batch_size == 1 and k78 == DMTET_STEP_LAUNCHES,
@@ -3727,6 +3895,278 @@ def if_dmtet_path(torch, port_main, kernels, init_with, ws, smi_line):
         f"start-up (s) {_rounded(dm['startup'])}")
 
 
+def vanilla_kernel_phases(torch, results, smi_line):
+    """K2's vanilla launches, K4's routes and K3 at the -O2 SD step's
+    shapes, against their plain twins, with event and graph ms: the step's
+    4096 rays (perturbed draws) and one 4096-ray chunk of an 800² eval view
+    (deterministic), the coarse density from the full-width vanilla field
+    (random weights, bf16) on the kernel's own coarse positions; K2's z,
+    deltas and positions must equal the twin's bit for bit.  K4 at the
+    step's 393,216 shaded samples (h and the tangents from the ResMLP),
+    with each activation, and its normals-given route there for the log
+    only (no path runs it at this shape: ``options_select_rows`` fills its
+    entries); K3 at [4096, 96] with the background MLP's colour and the
+    orient loss."""
+    from dreamfusion_tpu_torch.config import Config, apply_O2, finalize
+    from dreamfusion_tpu_torch.core.math import safe_normalize
+    from dreamfusion_tpu_torch.ops import activation as K4
+    from dreamfusion_tpu_torch.ops import composite as K3
+    from dreamfusion_tpu_torch.ops import resample as KV
+    from dreamfusion_tpu_torch.training.data import circle_view_batch
+    from dreamfusion_tpu_torch.training.trainer import (build_renderer,
+                                                        draw_step,
+                                                        train_batch)
+    dev = torch.device("cuda")
+    cfg = finalize(apply_O2(Config(text="a hamburger")))
+    g = torch.Generator(device=dev).manual_seed(2)
+    renderer = build_renderer(cfg)
+    renderer.field.reset_parameters(torch.Generator().manual_seed(0))
+    renderer.to(dev)
+    field = renderer.field
+    draws = draw_step(g, cfg, dev)
+    batch = train_batch(cfg, draws.pose, draws.fov, 0, cfg.h, cfg.w)
+    view = circle_view_batch(cfg, 0, 8, cfg.H, cfg.W, dev)
+    lin, centres = renderer.vanilla_consts(dev)
+    S, n, b = cfg.num_steps, cfg.upsample_steps, cfg.bound
+    chunk = cfg.max_ray_batch
+
+    def record(name, err, fn, plain, tol, n_bytes, flops, where, main):
+        ms, gms = median_ms(fn), graph_ms(fn)
+        log(f"{name}{where}: graph {gms:.4f} ms on {smi_line}")
+        record_kernel(results, name, err, ms, median_ms(plain), tol,
+                      n_bytes, flops, "fp32", None, where, main=main)
+
+    cases = [("step: 4096 rays, perturbed", batch.rays_o.reshape(-1, 3),
+              batch.rays_d.reshape(-1, 3), draws.march_u, draws.pdf_u),
+             (f"eval chunk: {chunk} rays of an {cfg.H}x{cfg.W} view",
+              view.rays_o[0][:chunk], view.rays_d[0][:chunk], None,
+              centres)]
+    for i, (what, o, d, uc, up) in enumerate(cases):
+        R, where = o.shape[0], f" [{what}]"
+        ck = KV.vanilla_coarse_cuda(o, d, b, lin, uc)
+        torch.cuda.synchronize()
+        cp = KV.vanilla_coarse_plain(o, d, b, lin, uc)
+        diff = [int((x != y).sum()) for x, y in _pairs(ck, cp)]
+        check(sum(diff) == 0, f"vanilla_coarse{where}: {diff} values of "
+              f"z, positions differ from the twin's")
+        with torch.no_grad():
+            sigma = field.density(ck[2].reshape(-1, 3), 1.0)["sigma"] \
+                .reshape(R, S)
+        record("vanilla_coarse", 0.0,
+               lambda: KV.vanilla_coarse_cuda(o, d, b, lin, uc),
+               lambda: KV.vanilla_coarse_plain(o, d, b, lin, uc),
+               "bit for bit", nbytes(o, d, lin, uc, ck[0], ck[2]),
+               R * S * 12, where, i == 0)
+        rk = KV.vanilla_resample_cuda(o, d, b, ck[0], sigma, up)
+        torch.cuda.synchronize()
+        rp = KV.vanilla_resample_plain(o, d, b, ck[0], sigma, up)
+        diff = [int((x != y).sum()) for x, y in zip(rk, rp)]
+        check(sum(diff) == 0, f"vanilla_resample{where}: {diff} values of "
+              f"z, deltas, positions differ from the twin's (max "
+              f"{max_err(rk, rp):.3e})")
+        M = S + n
+        record("vanilla_resample", 0.0,
+               lambda: KV.vanilla_resample_cuda(o, d, b, ck[0], sigma, up),
+               lambda: KV.vanilla_resample_plain(o, d, b, ck[0], sigma, up),
+               "bit for bit", nbytes(o, d, ck[0], sigma, up, *rk),
+               R * (S * 16 + n * 30 + M * 8), where, i == 0)
+        if i == 0:
+            z96, deltas96, x96 = rk
+
+    # ---- K4 at the step's shaded samples, h and tangents from the ResMLP -
+    R, M = z96.shape
+    N = R * M
+    x = x96.reshape(-1, 3)
+    with torch.no_grad():
+        feat, jac = field.encode(x, 1.0, need_jacobian=True)
+        h, t = field.sigma_net(feat, torch.bfloat16,
+                               tangents=torch.stack(jac))
+    ro = cases[0][1]
+    light = safe_normalize(ro + torch.randn(ro.shape, device=dev,
+                                            generator=g))
+    ratio, ids = torch.tensor(0.3, device=dev), torch.tensor(1, device=dev)
+    bd, br = cfg.blob_density, cfg.blob_radius
+    for act in ("exp", "softplus"):
+        where = f" [-O2 step: {N} samples, bf16 h and tangents, {act}]"
+        args = (h, t, x, light, ratio, ids, bd, br, b)
+        sk = K4.field_shade_fwd_cuda(*args, act=act)
+        torch.cuda.synchronize()
+        sp = K4.field_shade_fwd_plain(*args, act=act)
+        err = assert_close("field_shade_fwd", sk, sp, 1e-5, 2e-5)
+        record("field_shade_fwd", err,
+               lambda: K4.field_shade_fwd_cuda(*args, act=act),
+               lambda: K4.field_shade_fwd_plain(*args, act=act),
+               "1e-5 + 2e-5 rel", nbytes(h, t, x, light, *sk), N * 60,
+               where, False)
+        gs = [torch.randn(o.shape, device=dev, generator=g) for o in sp]
+        dk = K4.field_shade_bwd_cuda(*args, *gs, act=act)
+        torch.cuda.synchronize()
+        dp = K4.field_shade_bwd_plain(*args, *gs, act=act)
+        err = _bf16_close("field_shade_bwd", dk, dp, 1e-5)
+        record("field_shade_bwd", err,
+               lambda: K4.field_shade_bwd_cuda(*args, *gs, act=act),
+               lambda: K4.field_shade_bwd_plain(*args, *gs, act=act),
+               "1 bf16 ulp + 1e-5 of the largest",
+               nbytes(h, t, x, light, *gs, *dk), N * 90, where, False)
+        hc = h[:R * S]
+        xc = x[:R * S]
+        where = f" [-O2 coarse pass: {R * S} samples, bf16 h, {act}]"
+        fk = K4.field_head_fwd_cuda(hc, xc, bd, br, act)
+        torch.cuda.synchronize()
+        fp = K4.field_head_fwd_plain(hc, xc, bd, br, act)
+        err = assert_close("field_head_fwd", fk, fp, 1e-6, 1e-5)
+        record("field_head_fwd", err,
+               lambda: K4.field_head_fwd_cuda(hc, xc, bd, br, act),
+               lambda: K4.field_head_fwd_plain(hc, xc, bd, br, act),
+               "1e-5 rel", nbytes(hc, xc, *fk), R * S * 20, where, False)
+        # the normals-given route: unit normals as the six probes give
+        normal = safe_normalize(torch.randn(N, 3, device=dev, generator=g))
+        sargs = (h, normal, x, light, ratio, ids, bd, br)
+        where = (f" [{N} samples, bf16 h, given fp32 normals, lambertian, "
+                 f"{act}]")
+        qk = K4.field_select_fwd_cuda(*sargs, act=act)
+        torch.cuda.synchronize()
+        qp = K4.field_select_fwd_plain(*sargs, act=act)
+        err = assert_close("field_select_fwd", qk, qp, 1e-5, 2e-5)
+        record("field_select_fwd", err,
+               lambda: K4.field_select_fwd_cuda(*sargs, act=act),
+               lambda: K4.field_select_fwd_plain(*sargs, act=act),
+               "1e-5 + 2e-5 rel", nbytes(h, normal, x, light, *qk), N * 40,
+               where, False)
+        gq = [torch.randn(o.shape, device=dev, generator=g) for o in qp]
+        bk = K4.field_select_bwd_cuda(*sargs, *gq, act=act)
+        torch.cuda.synchronize()
+        bp = K4.field_select_bwd_plain(*sargs, *gq, act=act)
+        err = max(_bf16_close("field_select_bwd", bk[:1], bp[:1], 1e-5),
+                  assert_close("field_select_bwd", bk[1:], bp[1:], 1e-5,
+                               2e-5))
+        record("field_select_bwd", err,
+               lambda: K4.field_select_bwd_cuda(*sargs, *gq, act=act),
+               lambda: K4.field_select_bwd_plain(*sargs, *gq, act=act),
+               "g_h 1 bf16 ulp + 1e-5 of the largest, g_normal 1e-5 + "
+               "2e-5 rel", nbytes(h, normal, x, light, *gq, *bk), N * 50,
+               where, False)
+
+    # ---- K3 at [4096, 96], no mask, the net's colour and the orient loss -
+    sigma, rgb, nrm = (v.reshape(R, M, -1).squeeze(-1)
+                       for v in K4.field_shade_fwd_cuda(h, t, x, light,
+                                                        ratio, ids, bd, br,
+                                                        b))
+    extra = dict(bg_color=torch.rand(3, device=dev, generator=g).expand(R, 3),
+                 bg_net=torch.rand(R, 3, device=dev, generator=g),
+                 use_bg_net=torch.tensor(True, device=dev), normals=nrm,
+                 rays_d=cases[0][2].contiguous())
+    fargs = (sigma, rgb, z96, deltas96, None, 1e-4, False)
+    where = f" [-O2 step: {R}x{M}, no mask, the net's colour, orient]"
+    ck = K3._composite_fwd_cuda(*fargs, **extra)
+    torch.cuda.synchronize()
+    cp = K3.composite_fwd_plain(*fargs, **extra)
+    err = assert_close("composite_fwd", ck, cp, 1e-5, 1e-5)
+    record("composite_fwd", err, lambda: K3._composite_fwd_cuda(
+        *fargs, **extra), lambda: K3.composite_fwd_plain(*fargs, **extra),
+        "1e-5", nbytes(sigma, rgb, z96, deltas96, extra["bg_net"], nrm,
+                       *ck), R * M * 30, where, False)
+    cc = [torch.randn(o.shape, device=dev, generator=g) for o in cp]
+    bargs = (sigma, rgb, z96, deltas96, None, cp.weights, *cc[:4], 1e-4)
+    gk = K3._composite_bwd_cuda(*bargs, **extra, g_loss=cc[4],
+                                wsum=ck.weights_sum)
+    torch.cuda.synchronize()
+    gp = K3.composite_bwd_plain(*bargs, **extra, g_loss=cc[4])
+    scale = max(float(v.abs().max()) for v in gp)
+    err = assert_close("composite_bwd", gk, gp, 1e-5 * scale, 1e-4)
+    record("composite_bwd", err, lambda: K3._composite_bwd_cuda(
+        *bargs, **extra, g_loss=cc[4], wsum=ck.weights_sum),
+        lambda: K3.composite_bwd_plain(*bargs, **extra, g_loss=cc[4]),
+        "1e-4 rel, 1e-5 of the largest (sums in another order)",
+        nbytes(sigma, rgb, z96, deltas96, cp.weights, nrm, *cc, *gk),
+        R * M * 40, where, False)
+
+
+def options_path(torch, port_main, kernels, ws, smi_line, results):
+    """The small field options on the triplane under the oracle, the
+    counters reset just before it: the finite-difference normals (K4's
+    normals-given route once each way a step, the shade pair never),
+    softplus, Adam, the elementwise clip and the triplane's tv for
+    ``OPTION_STEPS`` steps: finite losses and gradients, the triplane's
+    backward twice a step (the probes' query is a second one); then
+    ``options_select_rows`` → launches."""
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = port_main.main(OPTION_FLAGS + ["--iters", str(OPTION_STEPS),
+                                         "--workspace", ws])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"field options path (finite-difference normals, softplus, Adam, "
+        f"--grad_clip 1, triplane tv): {OPTION_STEPS} steps in "
+        f"{time.time() - t0:.1f} s, losses {out['losses']}, PSNR "
+        f"{out['psnr_init']:.3f} -> {out['psnr_final']:.3f} dB, on "
+        f"{smi_line}")
+    check(out["all_losses_finite"] and out["grad_ok"], f"field options: "
+          f"losses {out['losses']}, grad_ok {out['grad_ok']}")
+    # the triplane's backward twice a step: the shaded samples' query and
+    # the six probes' (one query of 6N positions)
+    want = {"field_select_fwd": OPTION_STEPS,
+            "field_select_bwd": OPTION_STEPS, "field_shade_fwd": 0,
+            "field_shade_bwd": 0, "triplane_bwd": 2 * OPTION_STEPS,
+            "composite_bwd": OPTION_STEPS}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"field options: launched {got}, not {want}")
+    check(all(v > 0 for v in out["triplane_grad_max"]),
+          "field options: a zero triplane gradient")
+    options_select_rows(torch, results, smi_line)
+    return launches
+
+
+def options_select_rows(torch, results, smi_line):
+    """K4's normals-given route at the options run's own shape against its
+    plain twin, each way: the flagship step's 98,304 samples
+    (``flagship_march``), h from the flagship's triplane MLP (bf16), the
+    six probes' normals of that field under softplus (one query of 589,824
+    positions), one light a ray, the lambertian id.  These rows fill the
+    route's entries in the JSON line."""
+    from dreamfusion_tpu_torch.ops import activation as K4
+    m = flagship_march(torch)
+    fi = flagship_field_inputs(torch, m, act="softplus")
+    field, h, g, x = fi["field"], fi["h"], fi["g"], m["xyz"]
+    with torch.no_grad():
+        normal = field._finite_difference_normal(x, None).contiguous()
+    check(bool(torch.isfinite(normal).all()) and
+          float(normal.norm(dim=-1).max()) > 0.5,
+          "field options: the probes' normals are not unit vectors")
+    N, act = x.shape[0], "softplus"
+    args = (h, normal, x, fi["light"], fi["ratio"],
+            torch.tensor(1, device=x.device), field.blob_density,
+            field.blob_radius)
+    where = (f" [the options run: {N} samples, bf16 h of the triplane MLP, "
+             f"the six probes' normals, lambertian, {act}]")
+
+    def record(name, err, fn, plain, tol, n_bytes, flops):
+        ms, gms = median_ms(fn), graph_ms(fn)
+        log(f"{name}{where}: graph {gms:.4f} ms on {smi_line}")
+        record_kernel(results, name, err, ms, median_ms(plain), tol,
+                      n_bytes, flops, "fp32", None, where, main=True)
+
+    qk = K4.field_select_fwd_cuda(*args, act=act)
+    torch.cuda.synchronize()
+    qp = K4.field_select_fwd_plain(*args, act=act)
+    err = assert_close("field_select_fwd", qk, qp, 1e-5, 2e-5)
+    record("field_select_fwd", err,
+           lambda: K4.field_select_fwd_cuda(*args, act=act),
+           lambda: K4.field_select_fwd_plain(*args, act=act),
+           "1e-5 + 2e-5 rel", nbytes(h, normal, x, fi["light"], *qk), N * 40)
+    gq = [torch.randn(o.shape, device=x.device, generator=g) for o in qp]
+    bk = K4.field_select_bwd_cuda(*args, *gq, act=act)
+    torch.cuda.synchronize()
+    bp = K4.field_select_bwd_plain(*args, *gq, act=act)
+    err = max(_bf16_close("field_select_bwd", bk[:1], bp[:1], 1e-5),
+              assert_close("field_select_bwd", bk[1:], bp[1:], 1e-5, 2e-5))
+    record("field_select_bwd", err,
+           lambda: K4.field_select_bwd_cuda(*args, *gq, act=act),
+           lambda: K4.field_select_bwd_plain(*args, *gq, act=act),
+           "g_h 1 bf16 ulp + 1e-5 of the largest, g_normal 1e-5 + 2e-5 rel",
+           nbytes(h, normal, x, fi["light"], *gq, *bk), N * 50)
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -3890,7 +4330,39 @@ def run() -> dict:
     log(f"IF paths ({n_shapes} conv shapes, {tflop:.3f} TFLOP of conv a "
         f"CFG call) in {time.time() - t_f:.1f} s")
 
+    # ---- the vanilla backbone (-O2) and the small field options (slice 9) --
+    t_v = time.time()
+    vanilla_kernel_phases(torch, results, smi_line)
+    o2_launches = sd_path(torch, port_main, kernels, O2_SD_FLAGS,
+                          os.path.join(build, "chip_smoke_o2_sd_ws"),
+                          "-O2 SD", "vanilla", smi_line,
+                          steps=O2_WARMUP + O2_STEPS, timed_after=O2_WARMUP)
+    ows = os.path.join(build, "chip_smoke_o2_ws")
+    stage1_path(port_main, kernels, O2_ORACLE_FLAGS, ows, "-O2 oracle",
+                O2_KERNELS, "vanilla", smi_line, O2_STAGE1_END)
+    stage1_step_launches(torch, port_main, kernels, O2_ORACLE_FLAGS,
+                         ows + "_step", "-O2 oracle")
+    o2_dm_flags = O2_DMTET_FLAGS + ["--init_with",
+                                    os.path.join(ows, "checkpoints")]
+    dmtet_surface_raster_phase(torch, results, port_main,
+                               os.path.join(ows, "checkpoints"),
+                               ows + "_k7", O2_DMTET_FLAGS, main=False,
+                               what="-O2 DMTet")
+    dmtet_path(torch, port_main, kernels, o2_dm_flags, O2_DMTET_STEPS,
+               ows + "_dmtet", "DMTet from -O2", O2_DMTET_KERNELS, "vanilla",
+               smi_line)
+    dmtet_view_launches(torch, port_main, kernels, o2_dm_flags,
+                        ows + "_dmtet_view", "DMTet from -O2", None)
+    opt_launches = options_path(torch, port_main, kernels,
+                                os.path.join(build, "chip_smoke_options_ws"),
+                                smi_line, results)
+    log(f"-O2 and field-option paths in {time.time() - t_v:.1f} s")
+
     def launches_of(name):
+        if name in ("vanilla_coarse", "vanilla_resample"):
+            return o2_launches[name]
+        if name.startswith("field_select"):
+            return opt_launches[name]
         if name in ("conv_fwd_mma", "conv_dgrad"):
             return it_launches[name]
         if name in SD15_UNET_ATTNS:

@@ -3,13 +3,13 @@
 A subset of ``dreamfusion_tpu/config.py``: every field here has the same
 name and default as there (tests/test_torch_package.py checks it), and
 only the fields the ported paths (the oracle, image-oracle, SD,
-DeepFloyd-IF, CLIP and Zero-1-to-3 guidance on the hash-grid and triplane
-backbones, the run's end and the DMTet stage) read are carried, and
-``t5_iters``, which JAX parses and never reads.  ``apply_O``,
-``apply_IF`` (``--IF``), ``apply_image_mode`` (``--image`` alone),
-``apply_image_text_mode`` (``--image`` with ``--text``) and
-``apply_dmtet`` are the presets, applied in that order after the flags; ``finalize`` applies the fix-ups those paths
-need: the other grid backends' names mapped to ``grid``, the oracle preset
+DeepFloyd-IF, CLIP and Zero-1-to-3 guidance on the hash-grid, triplane
+and vanilla backbones, the run's end and the DMTet stage) read are
+carried, and ``t5_iters``, which JAX parses and never reads.
+``apply_O``, ``apply_O2``, ``apply_IF`` (``--IF``), ``apply_image_mode``
+(``--image`` alone), ``apply_image_text_mode`` (``--image`` with
+``--text``) and ``apply_dmtet`` are the presets, applied in that order
+after the flags; ``finalize`` applies the fix-ups those paths need: the other grid backends' names mapped to ``grid``, the oracle preset
 and the resolved exposure range.
 """
 
@@ -60,6 +60,8 @@ class Config:
     iters: int = 10000
     lr: float = 1e-3
     update_extra_interval: int = 16
+    num_steps: int = 64            # vanilla: coarse samples
+    upsample_steps: int = 32       # vanilla: importance samples
     max_ray_batch: int = 4096
     latent_iter_ratio: float = 0.2
     albedo_iter_ratio: float = 0.0
@@ -184,6 +186,11 @@ class Config:
 def apply_O(cfg: Config) -> Config:
     """``-O``: fp16 and the hash-grid backbone."""
     return replace(cfg, fp16=True, backbone="grid")
+
+
+def apply_O2(cfg: Config) -> Config:
+    """``-O2``: fp16, the vanilla backbone and progressive level masking."""
+    return replace(cfg, fp16=True, backbone="vanilla", progressive_level=True)
 
 
 def apply_IF(cfg: Config) -> Config:

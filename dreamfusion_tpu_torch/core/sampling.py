@@ -2,12 +2,14 @@
 (``dreamfusion_tpu/core/sampling.py``).
 
 ``sample_pdf`` is the plain version of the sampling half of the occupancy
-march kernel (``ops/occupancy.py``); its uniform draws are an argument.
+march kernel (``ops/occupancy.py``) and, with ``stratified_zs``, of the
+vanilla render's resampling (``ops/resample.py``); their uniform draws are
+arguments.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,9 +19,13 @@ def near_far_from_bound(rays_o: torch.Tensor, rays_d: torch.Tensor,
                         min_near: float = 0.05
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ray/AABB (or sphere) entry and exit distances, [..., 1] each.
-    Rays that miss get near = far = 1e9."""
+    Rays that miss the box get near = far = 1e9; the sphere's are |o| ∓
+    bound, unclamped (near may be below min_near, or negative)."""
     if kind == "sphere":
-        radius = torch.linalg.norm(rays_o, dim=-1, keepdim=True)
+        o = rays_o
+        # |o| with the squares summed in order, as the kernels sum them
+        radius = torch.sqrt(o[..., :1] * o[..., :1] + o[..., 1:2] * o[..., 1:2]
+                            + o[..., 2:3] * o[..., 2:3])
         return radius - bound, radius + bound
     inv_d = 1.0 / (rays_d + 1e-15)
     tmin = (-bound - rays_o) * inv_d
@@ -45,6 +51,22 @@ def linspace(start: float, stop: float, num: int, device=None
         torch.tensor(stop, dtype=torch.float32) * s
     return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
                                       device=device)])
+
+
+def stratified_zs(near: torch.Tensor, far: torch.Tensor, lin: torch.Tensor,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """near + (far - near)·lin [R, S] for lin = ``linspace(0, 1, S)``,
+    jittered by (u - 1/2)·(far - near)/S with unit draws u [R, S] (the
+    samples may then leave [near, far] slightly)."""
+    z = near + (far - near) * lin[None, :]
+    if u is not None:
+        z = z + (u - 0.5) * ((far - near) / lin.shape[0])
+    return z
+
+
+def compute_deltas(z_vals: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """z's successive differences [R, S], the last one ``last`` [R, 1]."""
+    return torch.cat([z_vals[:, 1:] - z_vals[:, :-1], last], -1)
 
 
 def stratified_u(unit: torch.Tensor) -> torch.Tensor:

@@ -1,32 +1,39 @@
-// K4: the field head, alone or with the normals and the shading folded in,
-// forward and backward.
+// K4: the field head, alone, with the normals and the shading folded in,
+// or with given normals and the select, forward and backward.
 //
-// Replaces dreamfusion_tpu/ops/activation.py::trunc_exp (a custom_vjp) with
-// the epilogue of NeRFField.common and, for field_shade_*, the tail of
+// Replaces dreamfusion_tpu/ops/activation.py::trunc_exp (a custom_vjp) and
+// biased_softplus with the epilogue of NeRFField.common, density_blob and,
+// for field_shade_* and field_select_*, the tail of
 // NeRFField.common_with_normal and __call__'s shading select
-// (dreamfusion_tpu/models/nerf.py:244-252, :333-344).  Per sample n, for
-// h [N, 4] (the MLP's output, bf16 or fp32), x [N, 3] world positions and
-// the MLP's tangents t [3, N, 4] (column 0 read):
+// (dreamfusion_tpu/models/nerf.py:189-197, :244-252, :332-344).  Per sample
+// n, for h [N, 4] (the MLP's output, bf16 or fp32), x [N, 3] world
+// positions and the MLP's tangents t [3, N, 4] (column 0 read):
 //
-//   pre    = h0 + blob(x),  blob = density * exp(-|x|² / (2 r²))
-//   sigma  = exp(pre)              gradient clamped: exp(min(pre, 15))
+//   pre    = h0 + blob(x)                   (no gradient)
+//   sigma  = act(pre)
 //   albedo = sigmoid(h1:4)
-//   dsig   = exp(min(pre, 15))     its own gradient exp(pre)·[pre < 15]
-//   g      = t0 * dsig / (2 bound)                  (∇σ's closed form)
+//   dsig   = act'(pre)                      its own gradient act''(pre)
+//   g      = t0 * dsig / (2 bound)          (∇σ's closed form)
 //   normal = nan_to_num(-g * rsqrt(max(|g|², 1e-20)))
 //   lam    = ratio + (1 - ratio) * max(<normal, l>, 0)  (gradient 1/2 at 0,
 //            as JAX's maximum), l the light direction of n's ray (n / S)
 //   color  = albedo | lam | (normal + 1) / 2 | albedo * lam by the shading
 //            id (0 albedo, 2 textureless, 3 normal, else lambertian)
 //
+// act 0 is trunc_exp: exp(pre), gradient exp(min(pre, 15)), the blob
+// density * exp(-|x|² / (2 r²)); act 1 is softplus(pre + 1), gradient
+// sigmoid(pre + 1), the blob density * (1 - |x| / r).  field_select takes
+// the normals as given (the finite-difference ones) and returns sigma and
+// colour; its backward writes g_h and g_normal.
+//
 // ratio and the shading id are read on the device where they are tensors
 // (no host read), or taken as values.  The backward follows the plain
-// twin's autograd rules exactly: trunc_exp's clamp, dsig's own gradient,
-// clamp's zero gradient below eps (at or above it, the normalization's
-// gradient passes), nan_to_num's zero gradient at non-finite inputs, the
-// select.  It writes g_h [N, 4] and g_t [3, N, 4] (zeros in columns 1-3) in
-// the inputs' dtype, in the same launch: no fill, no slice backward, no
-// cast.  A null cotangent reads as 0.
+// twin's autograd rules exactly: the activation's gradient rule, dsig's own
+// gradient, clamp's zero gradient below eps (at or above it, the
+// normalization's gradient passes), nan_to_num's zero gradient at
+// non-finite inputs, the select.  It writes g_h [N, 4] and g_t [3, N, 4]
+// (zeros in columns 1-3) in the inputs' dtype, in the same launch: no fill,
+// no slice backward, no cast.  A null cotangent reads as 0.
 //
 // Bound on the card: memory.  A thread per sample, no reuse; h's and t's
 // rows are single 8-byte (bf16) or 16-byte (fp32) loads.  Forward ~72 bytes
@@ -81,18 +88,39 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ p,
 }
 
 struct Blob {
-  float density, denom;             // density, 2 r²
+  int act;                          // 0 trunc_exp, 1 softplus(x + 1)
+  float density, denom;             // density, 2 r² (act 0) or r (act 1)
 };
 
 __device__ __forceinline__ float pre_act(float h0, const float* __restrict__ x,
                                          int64_t n, Blob b) {
   const float x0 = x[3 * n], x1 = x[3 * n + 1], x2 = x[3 * n + 2];
   const float d = x0 * x0 + x1 * x1 + x2 * x2;
-  return h0 + b.density * expf(-d / b.denom);
+  return h0 + (b.act == 0 ? b.density * expf(-d / b.denom)
+                          : b.density * (1.f - sqrtf(d) / b.denom));
 }
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
+}
+
+// act(pre), as jax.nn.softplus forms softplus: max(v, 0) + log1p(exp(-|v|))
+__device__ __forceinline__ float act_of(float pre, int act) {
+  if (act == 0) return expf(pre);
+  const float v = pre + 1.f;
+  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
+}
+
+// act's gradient (trunc_exp's clamped rule): dsig
+__device__ __forceinline__ float dact_of(float pre, int act) {
+  return act == 0 ? expf(fminf(pre, kClamp)) : sigmoid(pre + 1.f);
+}
+
+// dsig's own gradient
+__device__ __forceinline__ float ddact_of(float pre, int act) {
+  if (act == 0) return pre < kClamp ? expf(pre) : 0.f;
+  const float s = sigmoid(pre + 1.f);
+  return s * (1.f - s);
 }
 
 // What the shading needs of its inputs: the light direction of sample n,
@@ -160,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) field_head_fwd_kernel(
   if (n >= N) return;
   float hv[4];
   load_row(h + 4 * n, hv);
-  sigma[n] = expf(pre_act(hv[0], x, n, b));
+  sigma[n] = act_of(pre_act(hv[0], x, n, b), b.act);
 #pragma unroll
   for (int c = 0; c < 3; ++c) albedo[3 * n + c] = sigmoid(hv[c + 1]);
 }
@@ -174,14 +202,65 @@ __global__ void __launch_bounds__(kThreads) field_head_bwd_kernel(
   if (n >= N) return;
   float hv[4], g[4];
   load_row(h + 4 * n, hv);
-  g[0] = g_sigma
-      ? g_sigma[n] * expf(fminf(pre_act(hv[0], x, n, b), kClamp)) : 0.f;
+  g[0] = g_sigma ? g_sigma[n] * dact_of(pre_act(hv[0], x, n, b), b.act)
+                 : 0.f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float s = sigmoid(hv[c + 1]);
     g[c + 1] = g_albedo ? g_albedo[3 * n + c] * (s * (1.f - s)) : 0.f;
   }
   store_row(g_h + 4 * n, g[0], g[1], g[2], g[3]);
+}
+
+// ---- the shading select ----------------------------------------------------
+
+struct Select {
+  float l[3], ratio, dot, lam;
+  int id;
+};
+
+__device__ __forceinline__ Select select_of(const Shading& sh, int64_t n,
+                                            const float nv[3]) {
+  Select s;
+  light_of(sh, n, s.l);
+  s.ratio = sh.ratio_p ? *sh.ratio_p : sh.ratio;
+  s.id = sh.id_p ? (int)*sh.id_p : sh.id;
+  s.dot = nv[0] * s.l[0] + nv[1] * s.l[1] + nv[2] * s.l[2];
+  s.lam = s.ratio + (1.f - s.ratio) * fmaxf(s.dot, 0.f);
+  return s;
+}
+
+__device__ __forceinline__ float color_of(const Select& s, float a,
+                                          float nv) {
+  return s.id == 0 ? a : s.id == 2 ? s.lam : s.id == 3 ? (nv + 1.f) / 2.f
+                                                        : a * s.lam;
+}
+
+// The select's backward: the colour's cotangent gc → the albedo's ga and
+// the normal's gn (added to gn).
+__device__ __forceinline__ void select_bwd(const Select& s, const float a[3],
+                                           const float gc[3], float ga[3],
+                                           float gn[3]) {
+  float glam = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ga[c] = 0.f;
+    if (s.id == 0) {
+      ga[c] = gc[c];
+    } else if (s.id == 2) {
+      glam += gc[c];
+    } else if (s.id == 3) {
+      gn[c] += gc[c] / 2.f;
+    } else {
+      ga[c] = gc[c] * s.lam;
+      glam += gc[c] * a[c];
+    }
+  }
+  // lam: max(dot, 0) passes 1 above 0 and 1/2 at it
+  const float gdot = glam * (1.f - s.ratio) *
+                     (s.dot > 0.f ? 1.f : (s.dot == 0.f ? 0.5f : 0.f));
+#pragma unroll
+  for (int c = 0; c < 3; ++c) gn[c] += gdot * s.l[c];
 }
 
 // ---- the head with the normals and the shading ------------------------------
@@ -194,25 +273,17 @@ __global__ void __launch_bounds__(kThreads) field_shade_fwd_kernel(
     float* __restrict__ normal) {
   const int64_t n = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
-  float hv[4], l[3];
+  float hv[4];
   load_row(h + 4 * n, hv);
   const float pre = pre_act(hv[0], x, n, b);
-  const float dsig = expf(fminf(pre, kClamp));
-  sigma[n] = expf(pre);
+  const float dsig = dact_of(pre, b.act);
+  sigma[n] = act_of(pre, b.act);
   const Normal nm = normal_of(t, N, n, dsig, two_b);
-  light_of(sh, n, l);
-  const float ratio = sh.ratio_p ? *sh.ratio_p : sh.ratio;
-  const int id = sh.id_p ? (int)*sh.id_p : sh.id;
-  const float dot = nm.n[0] * l[0] + nm.n[1] * l[1] + nm.n[2] * l[2];
-  const float lam = ratio + (1.f - ratio) * fmaxf(dot, 0.f);
+  const Select s = select_of(sh, n, nm.n);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float a = sigmoid(hv[c + 1]);
     normal[3 * n + c] = nm.n[c];
-    color[3 * n + c] = id == 0 ? a
-                     : id == 2 ? lam
-                     : id == 3 ? (nm.n[c] + 1.f) / 2.f
-                               : a * lam;
+    color[3 * n + c] = color_of(s, sigmoid(hv[c + 1]), nm.n[c]);
   }
 }
 
@@ -225,45 +296,22 @@ __global__ void __launch_bounds__(kThreads) field_shade_bwd_kernel(
     T* __restrict__ g_t) {
   const int64_t n = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
-  float hv[4], l[3], a[3], gc[3], gn[3], ga[3];
+  float hv[4], a[3], gc[3], gn[3], ga[3];
   load_row(h + 4 * n, hv);
   const float pre = pre_act(hv[0], x, n, b);
-  const float dsig = expf(fminf(pre, kClamp));
+  const float dsig = dact_of(pre, b.act);
   const Normal nm = normal_of(t, N, n, dsig, two_b);
-  light_of(sh, n, l);
-  const float ratio = sh.ratio_p ? *sh.ratio_p : sh.ratio;
-  const int id = sh.id_p ? (int)*sh.id_p : sh.id;
-  const float dot = nm.n[0] * l[0] + nm.n[1] * l[1] + nm.n[2] * l[2];
-  const float lam = ratio + (1.f - ratio) * fmaxf(dot, 0.f);
-  float glam = 0.f;
+  const Select s = select_of(sh, n, nm.n);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     a[c] = sigmoid(hv[c + 1]);
     gc[c] = g_color ? g_color[3 * n + c] : 0.f;
     gn[c] = g_normal ? g_normal[3 * n + c] : 0.f;
-    ga[c] = 0.f;
   }
-  // the select
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    if (id == 0) {
-      ga[c] = gc[c];
-    } else if (id == 2) {
-      glam += gc[c];
-    } else if (id == 3) {
-      gn[c] += gc[c] / 2.f;
-    } else {
-      ga[c] = gc[c] * lam;
-      glam += gc[c] * a[c];
-    }
-  }
-  // lam: max(dot, 0) passes 1 above 0 and 1/2 at it
-  const float gdot = glam * (1.f - ratio) *
-                     (dot > 0.f ? 1.f : (dot == 0.f ? 0.5f : 0.f));
+  select_bwd(s, a, gc, ga, gn);
   float g_inv = 0.f, gm[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    gn[c] += gdot * l[c];
     if (!nm.finite[c]) gn[c] = 0.f;             // nan_to_num
     g_inv += gn[c] * nm.m[c];
   }
@@ -278,12 +326,58 @@ __global__ void __launch_bounds__(kThreads) field_shade_bwd_kernel(
     g_dsig += gg * nm.t0[c] / two_b;
     store_row(g_t + 4 * (c * N + n), gg * dsig / two_b, 0.f, 0.f, 0.f);
   }
-  float g0 = g_dsig * (pre < kClamp ? expf(pre) : 0.f);
+  float g0 = g_dsig * ddact_of(pre, b.act);
   if (g_sigma) g0 += g_sigma[n] * dsig;
   float gh[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) gh[c] = ga[c] * (a[c] * (1.f - a[c]));
   store_row(g_h + 4 * n, g0, gh[0], gh[1], gh[2]);
+}
+
+// ---- the head with given normals and the select ----------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) field_select_fwd_kernel(
+    const T* __restrict__ h, const float* __restrict__ normal,
+    const float* __restrict__ x, int64_t N, Shading sh, Blob b,
+    float* __restrict__ sigma, float* __restrict__ color) {
+  const int64_t n = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (n >= N) return;
+  float hv[4], nv[3];
+  load_row(h + 4 * n, hv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) nv[c] = normal[3 * n + c];
+  sigma[n] = act_of(pre_act(hv[0], x, n, b), b.act);
+  const Select s = select_of(sh, n, nv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    color[3 * n + c] = color_of(s, sigmoid(hv[c + 1]), nv[c]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) field_select_bwd_kernel(
+    const T* __restrict__ h, const float* __restrict__ normal,
+    const float* __restrict__ x, int64_t N, Shading sh, Blob b,
+    const float* __restrict__ g_sigma, const float* __restrict__ g_color,
+    T* __restrict__ g_h, float* __restrict__ g_normal) {
+  const int64_t n = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (n >= N) return;
+  float hv[4], nv[3], a[3], gc[3], ga[3], gn[3] = {0.f, 0.f, 0.f};
+  load_row(h + 4 * n, hv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    nv[c] = normal[3 * n + c];
+    a[c] = sigmoid(hv[c + 1]);
+    gc[c] = g_color ? g_color[3 * n + c] : 0.f;
+  }
+  const Select s = select_of(sh, n, nv);
+  select_bwd(s, a, gc, ga, gn);
+  const float g0 =
+      g_sigma ? g_sigma[n] * dact_of(pre_act(hv[0], x, n, b), b.act) : 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) g_normal[3 * n + c] = gn[c];
+  store_row(g_h + 4 * n, g0, ga[0] * (a[0] * (1.f - a[0])),
+            ga[1] * (a[1] * (1.f - a[1])), ga[2] * (a[2] * (1.f - a[2])));
 }
 
 int blocks(int64_t N) { return (int)((N + kThreads - 1) / kThreads); }
@@ -302,10 +396,13 @@ Shading make_shading(const float* light, int per_ray, const float* ratio_p,
 
 }  // namespace
 
+// Every entry point: h [N, 4] bf16 (bf16 = 1) or fp32, act 0 (trunc_exp) or
+// 1 (softplus(x + 1)), the blob's density and scale (2 r² or r).
+
 extern "C" int field_head_fwd(const void* h, const float* x, int N, int bf16,
-                              float density, float denom, float* sigma,
-                              float* albedo, void* stream) {
-  const Blob b{density, denom};
+                              int act, float density, float denom,
+                              float* sigma, float* albedo, void* stream) {
+  const Blob b{act, density, denom};
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) {
     if (bf16)
@@ -319,10 +416,10 @@ extern "C" int field_head_fwd(const void* h, const float* x, int N, int bf16,
 }
 
 extern "C" int field_head_bwd(const void* h, const float* x, int N, int bf16,
-                              float density, float denom,
+                              int act, float density, float denom,
                               const float* g_sigma, const float* g_albedo,
                               void* g_h, void* stream) {
-  const Blob b{density, denom};
+  const Blob b{act, density, denom};
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) {
     if (bf16)
@@ -337,12 +434,12 @@ extern "C" int field_head_bwd(const void* h, const float* x, int N, int bf16,
 }
 
 extern "C" int field_shade_fwd(const void* h, const void* t, const float* x,
-                               int N, int bf16, const float* light,
+                               int N, int bf16, int act, const float* light,
                                int per_ray, const float* ratio_p, float ratio,
                                const int64_t* id_p, int id, float density,
                                float denom, float two_b, float* sigma,
                                float* color, float* normal, void* stream) {
-  const Blob b{density, denom};
+  const Blob b{act, density, denom};
   const Shading s = make_shading(light, per_ray, ratio_p, ratio, id_p, id);
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) {
@@ -359,13 +456,13 @@ extern "C" int field_shade_fwd(const void* h, const void* t, const float* x,
 }
 
 extern "C" int field_shade_bwd(const void* h, const void* t, const float* x,
-                               int N, int bf16, const float* light,
+                               int N, int bf16, int act, const float* light,
                                int per_ray, const float* ratio_p, float ratio,
                                const int64_t* id_p, int id, float density,
                                float denom, float two_b, const float* g_sigma,
                                const float* g_color, const float* g_normal,
                                void* g_h, void* g_t, void* stream) {
-  const Blob b{density, denom};
+  const Blob b{act, density, denom};
   const Shading s = make_shading(light, per_ray, ratio_p, ratio, id_p, id);
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) {
@@ -378,6 +475,51 @@ extern "C" int field_shade_bwd(const void* h, const void* t, const float* x,
       field_shade_bwd_kernel<<<blocks(N), kThreads, 0, st>>>(
           (const float*)h, (const float*)t, x, N, s, b, two_b, g_sigma,
           g_color, g_normal, (float*)g_h, (float*)g_t);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int field_select_fwd(const void* h, const float* normal,
+                                const float* x, int N, int bf16, int act,
+                                const float* light, int per_ray,
+                                const float* ratio_p, float ratio,
+                                const int64_t* id_p, int id, float density,
+                                float denom, float* sigma, float* color,
+                                void* stream) {
+  const Blob b{act, density, denom};
+  const Shading s = make_shading(light, per_ray, ratio_p, ratio, id_p, id);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0) {
+    if (bf16)
+      field_select_fwd_kernel<<<blocks(N), kThreads, 0, st>>>(
+          (const __nv_bfloat16*)h, normal, x, N, s, b, sigma, color);
+    else
+      field_select_fwd_kernel<<<blocks(N), kThreads, 0, st>>>(
+          (const float*)h, normal, x, N, s, b, sigma, color);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int field_select_bwd(const void* h, const float* normal,
+                                const float* x, int N, int bf16, int act,
+                                const float* light, int per_ray,
+                                const float* ratio_p, float ratio,
+                                const int64_t* id_p, int id, float density,
+                                float denom, const float* g_sigma,
+                                const float* g_color, void* g_h,
+                                float* g_normal, void* stream) {
+  const Blob b{act, density, denom};
+  const Shading s = make_shading(light, per_ray, ratio_p, ratio, id_p, id);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0) {
+    if (bf16)
+      field_select_bwd_kernel<<<blocks(N), kThreads, 0, st>>>(
+          (const __nv_bfloat16*)h, normal, x, N, s, b, g_sigma, g_color,
+          (__nv_bfloat16*)g_h, g_normal);
+    else
+      field_select_bwd_kernel<<<blocks(N), kThreads, 0, st>>>(
+          (const float*)h, normal, x, N, s, b, g_sigma, g_color, (float*)g_h,
+          g_normal);
   }
   return (int)cudaGetLastError();
 }

@@ -326,3 +326,255 @@ extern "C" int march_rays(const float* rays_o, int64_t o_sr, int64_t o_sc,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K2's vanilla region: render_vanilla's sampling in two launches.
+//
+// Replaces dreamfusion_tpu/models/renderer.py::render_vanilla's sampling
+// (:186-238): core/sampling.py::near_far_from_bound (kind "sphere"),
+// stratified_zs and sample_pdf, the coarse weights' cumprod, the merge's
+// jnp.sort, ops/composite.py::compute_deltas and _shade_and_composite's
+// clamped positions.  The TPU version ranks the draws against the CDF with a
+// dense [R, n, T] compare-and-sum and one-hot einsums, and sorts the merged
+// z with XLA's sort.
+//
+//   vanilla_coarse:   |o| -+ bound, z_i = near + (far - near) lin_i
+//                     (+ (u_i - 0.5) (far - near) / S when perturbed), the
+//                     coarse deltas (optional) and positions clamp(o + d z).
+//   vanilla_resample: from the coarse z and sigma [R, S]: alpha, the
+//                     cumprod weights, the CDF over the S - 2 interior
+//                     weights (+1e-5) on the S - 1 midpoints, n inverse-CDF
+//                     draws, the S + n merged z sorted, the deltas (the last
+//                     (far - near) / S) and the clamped positions.
+//
+// Bound on the card: memory at 4096 rays (every array read or written once;
+// the serial chains are ~3S dependent operations a ray).  Design: a warp a
+// ray, 8 rays a block, each warp on its own shared-memory rows (no block
+// barrier).  Lanes stride the samples; lane 0 runs the ray's serial chains
+// (the cumprod, the total and the CDF) in the plain version's order, as the
+// march kernel's CDF does; lane k places draw k by a binary search of the
+// CDF; the S + n merged values are placed by rank (the count of smaller
+// values, ties by index: NaN last, as torch.sort), which needs no sorted
+// input; the [S, 3] positions go out as the warp's contiguous floats.
+// Products and sums are rounded one by one (no fused multiply-add), and exp
+// is the library's expf, as torch's eager ops on the card compute them: z,
+// the deltas and the positions equal the plain version's bit for bit.
+
+namespace {
+
+constexpr int kMaxS = 66;                  // coarse samples a ray
+constexpr int kMaxN = 64;                  // importance draws a ray
+constexpr int kMaxM = kMaxS + kMaxN;
+
+__device__ __forceinline__ void sphere_near_far(const float o[3],
+                                                float bound, float* near,
+                                                float* far) {
+  const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(o[0], o[0]),
+                                       __fmul_rn(o[1], o[1])),
+                             __fmul_rn(o[2], o[2]));
+  const float radius = __fsqrt_rn(r2);
+  *near = __fsub_rn(radius, bound);
+  *far = __fadd_rn(radius, bound);
+}
+
+__device__ __forceinline__ void load_ray(const float* __restrict__ rays_o,
+                                         int64_t o_sr, int64_t o_sc,
+                                         const float* __restrict__ rays_d,
+                                         int64_t d_sr, int64_t d_sc, int r,
+                                         float o[3], float d[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    o[a] = rays_o[r * o_sr + a * o_sc];
+    d[a] = rays_d[r * d_sr + a * d_sc];
+  }
+}
+
+// The warp's clamped positions clamp(o + d z_i) of z_i = z[i], i < n.
+__device__ __forceinline__ void store_positions(float* __restrict__ xyzs,
+                                                const float* z, int n,
+                                                int lane, const float o[3],
+                                                const float d[3],
+                                                float bound) {
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const float zi = i < n ? z[i] : 0.f;
+    float p[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      p[a] = clamp_nan(__fadd_rn(o[a], __fmul_rn(d[a], zi)), -bound, bound);
+    store3(xyzs + 3 * base, 3 * min(32, n - base), lane, p);
+  }
+}
+
+// (far - near) / S as torch divides a tensor by a number on the card: by
+// the number's reciprocal (exact for S a power of two)
+__device__ __forceinline__ float per_step(float span, int S) {
+  return __fmul_rn(span, __fdiv_rn(1.f, (float)S));
+}
+
+// torch.sort's order: NaN after every number
+__device__ __forceinline__ bool before(float a, float b) {
+  return a < b || (a == a && b != b);
+}
+__device__ __forceinline__ bool same(float a, float b) {
+  return a == b || (a != a && b != b);
+}
+
+__global__ void __launch_bounds__(kThreads)
+vanilla_coarse_kernel(const float* __restrict__ rays_o, int64_t o_sr,
+                      int64_t o_sc, const float* __restrict__ rays_d,
+                      int64_t d_sr, int64_t d_sc, float bound,
+                      const float* __restrict__ lin,
+                      const float* __restrict__ u, int64_t u_sr, int S, int R,
+                      float* __restrict__ z_out, float* __restrict__ deltas,
+                      float* __restrict__ xyzs) {
+  __shared__ float s_z[kWarps][kMaxS];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarps + w;
+  if (r >= R) return;                       // the whole warp
+  const int64_t row = (int64_t)r * S;
+  float o[3], d[3], near, far;
+  load_ray(rays_o, o_sr, o_sc, rays_d, d_sr, d_sc, r, o, d);
+  sphere_near_far(o, bound, &near, &far);
+  const float span = __fsub_rn(far, near);
+  const float step = per_step(span, S);
+  float* z = s_z[w];
+  for (int i = lane; i < S; i += 32) {
+    float zi = __fadd_rn(near, __fmul_rn(span, lin[i]));
+    if (u != nullptr)
+      zi = __fadd_rn(zi, __fmul_rn(__fsub_rn(u[r * u_sr + i], 0.5f), step));
+    z[i] = zi;
+    z_out[row + i] = zi;
+  }
+  __syncwarp();
+  if (deltas != nullptr)
+    for (int i = lane; i < S; i += 32)
+      deltas[row + i] = i < S - 1 ? __fsub_rn(z[i + 1], z[i]) : step;
+  store_positions(xyzs + 3 * row, z, S, lane, o, d, bound);
+}
+
+__global__ void __launch_bounds__(kThreads)
+vanilla_resample_kernel(const float* __restrict__ rays_o, int64_t o_sr,
+                        int64_t o_sc, const float* __restrict__ rays_d,
+                        int64_t d_sr, int64_t d_sc, float bound,
+                        const float* __restrict__ z_c,
+                        const float* __restrict__ sigma,
+                        const float* __restrict__ u, int64_t u_sr, int S,
+                        int n, int R, float* __restrict__ z_out,
+                        float* __restrict__ deltas,
+                        float* __restrict__ xyzs) {
+  __shared__ float s_w[kWarps][kMaxS];      // alpha, then the weights
+  __shared__ float s_bin[kWarps][kMaxS];    // the midpoints: the bins
+  __shared__ float s_cdf[kWarps][kMaxS];
+  __shared__ float s_all[kWarps][kMaxM];    // coarse z, then the draws
+  __shared__ float s_out[kWarps][kMaxM];    // sorted
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarps + w;
+  if (r >= R) return;                       // the whole warp
+  const int M = S + n, T = S - 1;           // merged samples, bins
+  float o[3], d[3], near, far;
+  load_ray(rays_o, o_sr, o_sc, rays_d, d_sr, d_sc, r, o, d);
+  sphere_near_far(o, bound, &near, &far);
+  const float step = per_step(__fsub_rn(far, near), S);
+  float *wt = s_w[w], *bin = s_bin[w], *cdf = s_cdf[w], *all = s_all[w];
+  for (int i = lane; i < S; i += 32) all[i] = z_c[(int64_t)r * S + i];
+  __syncwarp();
+  // alpha = 1 - exp(-delta sigma), the midpoints z + delta / 2
+  for (int i = lane; i < S; i += 32) {
+    const float di = i < S - 1 ? __fsub_rn(all[i + 1], all[i]) : step;
+    const float sdt = __fmul_rn(di, sigma[(int64_t)r * S + i]);
+    wt[i] = __fsub_rn(1.f, expf(-sdt));
+    if (i < T) bin[i] = __fadd_rn(all[i], __fmul_rn(0.5f, di));
+  }
+  __syncwarp();
+  if (lane == 0) {
+    // weights = alpha * cumprod(1 - alpha + 1e-15), exclusive
+    float trans = 1.f;
+    for (int i = 0; i < S; ++i) {
+      const float a = wt[i];
+      wt[i] = __fmul_rn(a, trans);
+      trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a), 1e-15f));
+    }
+    // the PDF of the interior weights (+1e-5) and its CDF, serial sums
+    float total = 0.f;
+    for (int j = 0; j < T - 1; ++j)
+      total = __fadd_rn(total, __fadd_rn(wt[j + 1], 1e-5f));
+    float c = 0.f;
+    cdf[0] = 0.f;
+    for (int j = 0; j < T - 1; ++j) {
+      c = __fadd_rn(c, __fdiv_rn(__fadd_rn(wt[j + 1], 1e-5f), total));
+      cdf[j + 1] = c;
+    }
+  }
+  __syncwarp();
+  // draw k: below = #(cdf <= u) - 1, above = min(below + 1, T - 1)
+  for (int k = lane; k < n; k += 32) {
+    const float uk = u[r * u_sr + k];
+    const int below = max(count_le_sorted(cdf, T, uk) - 1, 0);
+    const int above = min(below + 1, T - 1);
+    float denom = __fsub_rn(cdf[above], cdf[below]);
+    if (denom < 1e-5f) denom = 1.f;
+    const float t = __fdiv_rn(__fsub_rn(uk, cdf[below]), denom);
+    const float lo = bin[below], hi = bin[above];
+    all[S + k] = __fadd_rn(lo, __fmul_rn(t, __fsub_rn(hi, lo)));
+  }
+  __syncwarp();
+  // the merge: each value to its rank
+  float* out = s_out[w];
+  for (int i = lane; i < M; i += 32) {
+    const float v = all[i];
+    int rank = 0;
+    for (int j = 0; j < M; ++j) {
+      const float a = all[j];
+      rank += before(a, v) || (same(a, v) && j < i);
+    }
+    out[rank] = v;
+  }
+  __syncwarp();
+  const int64_t row = (int64_t)r * M;
+  for (int i = lane; i < M; i += 32) {
+    z_out[row + i] = out[i];
+    deltas[row + i] = i < M - 1 ? __fsub_rn(out[i + 1], out[i]) : step;
+  }
+  store_positions(xyzs + 3 * row, out, M, lane, o, d, bound);
+}
+
+}  // namespace
+
+// rays_o, rays_d [R, 3] fp32 with element strides (row, column); lin [S]
+// the coarse fractions (jnp.linspace(0, 1, S)); u [R, S] fp32 unit jitter
+// draws with row stride u_sr, or null (no jitter).  Writes z [R, S], the
+// deltas [R, S] where deltas is not null, and the positions [R, S, 3].
+extern "C" int vanilla_coarse(const float* rays_o, int64_t o_sr, int64_t o_sc,
+                              const float* rays_d, int64_t d_sr, int64_t d_sc,
+                              float bound, const float* lin, const float* u,
+                              int64_t u_sr, int S, int R, float* z,
+                              float* deltas, float* xyzs, void* stream) {
+  if (S < 2 || S > kMaxS) return (int)cudaErrorInvalidValue;
+  if (R > 0)
+    vanilla_coarse_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0,
+                            (cudaStream_t)stream>>>(
+        rays_o, o_sr, o_sc, rays_d, d_sr, d_sc, bound, lin, u, u_sr, S, R, z,
+        deltas, xyzs);
+  return (int)cudaGetLastError();
+}
+
+// z_c, sigma [R, S] the coarse pass's; u [R, n] fp32 non-decreasing draws
+// in [0, 1) with row stride u_sr (0: one row for every ray).  Writes z and
+// deltas [R, S + n] and the positions [R, S + n, 3].
+extern "C" int vanilla_resample(const float* rays_o, int64_t o_sr,
+                                int64_t o_sc, const float* rays_d,
+                                int64_t d_sr, int64_t d_sc, float bound,
+                                const float* z_c, const float* sigma,
+                                const float* u, int64_t u_sr, int S, int n,
+                                int R, float* z, float* deltas, float* xyzs,
+                                void* stream) {
+  if (S < 3 || S > kMaxS || n < 1 || n > kMaxN)
+    return (int)cudaErrorInvalidValue;
+  if (R > 0)
+    vanilla_resample_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        rays_o, o_sr, o_sc, rays_d, d_sr, d_sc, bound, z_c, sigma, u, u_sr,
+        S, n, R, z, deltas, xyzs);
+  return (int)cudaGetLastError();
+}

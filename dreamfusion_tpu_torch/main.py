@@ -2,6 +2,8 @@
 
     python -m dreamfusion_tpu_torch.main --text "a hamburger" -O \\
         --workspace ws                 # SD 2.1 guidance, hash-grid backbone
+    python -m dreamfusion_tpu_torch.main --text "a hamburger" -O2 \\
+        --workspace ws                 # SD 2.1 guidance, vanilla backbone
     python -m dreamfusion_tpu_torch.main --text "a hamburger" \\
         --sd_version 1.5 --backbone triplane --seed 0 \\
         --lambda_3d_normal_smooth 0 --workspace ws    # SD 1.5 guidance
@@ -43,6 +45,9 @@
 
 Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
 applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
+``-O2`` the fp16 + vanilla-backbone + progressive-level preset
+(``config.apply_O2``: the frequency-encoded ResMLP field, rendered by the
+sphere-bounded coarse + importance-resampled march),
 ``--IF`` DeepFloyd-IF guidance in SD's place (``config.apply_IF``: IF-I-XL
 at full width, the prompts' T5 states from ``--pretrained_root``'s T5, or
 JAX's md5-seeded stand-ins without one; ``guidance/deepfloyd.py``),
@@ -106,7 +111,7 @@ from typing import Any, Dict
 import torch
 
 from .config import (Config, apply_dmtet, apply_IF, apply_image_mode,
-                     apply_image_text_mode, apply_O, finalize)
+                     apply_image_text_mode, apply_O, apply_O2, finalize)
 from .guidance.clip import CLIPConfig, CLIPGuidance
 from .guidance.deepfloyd import IFConfig, IFGuidance
 from .guidance.embeddings import prepare_text_embeddings
@@ -125,8 +130,7 @@ _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "exp_end_iter": int, "pretrained_root": str,
                        "zero123_config": str, "zero123_ckpt": str}
 # flag → the title of its ROADMAP queue 1 item
-_NOT_PORTED = {"-O2": "The vanilla backbone and the small field options",
-               "--gui": "Tooling", "--profile": "Tooling"}
+_NOT_PORTED = {"--gui": "Tooling", "--profile": "Tooling"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,6 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test-size random guidance towers")
     p.add_argument("-O", action="store_true",
                    help="fp16 and the hash-grid backbone")
+    p.add_argument("-O2", action="store_true",
+                   help="fp16, the vanilla backbone and progressive levels")
     p.add_argument("--IF", action="store_true",
                    help="DeepFloyd-IF guidance in SD's place")
     for flag in _NOT_PORTED:        # a switch, or a flag with a value
@@ -174,6 +180,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
+    if args.O2:
+        cfg = apply_O2(cfg)
     if args.IF:
         cfg = apply_IF(cfg)
     if cfg.image is not None:
@@ -458,11 +466,12 @@ def main(argv=None) -> Dict[str, Any]:
     caps = []           # DMTet: max_tris at each step
     names = [n for n, _ in trainer.module(state).named_parameters()]
     # per step, the largest |gradient| of each watched group: the encoder
-    # (the hash table or the triplanes), and the DMTet geometry
-    grid = cfg.backbone == "grid"
-    groups = {"grid" if grid else "triplane": [
-        i for i, n in enumerate(names)
-        if ("grid_table" if grid else "triplanes") in n]}
+    # (the hash table or the triplanes; the vanilla field's ResMLP), and the
+    # DMTet geometry
+    watched = {"grid": "grid_table", "triplane": "triplanes",
+               "vanilla": "sigma_net"}[cfg.backbone]
+    groups = {cfg.backbone: [i for i, n in enumerate(names)
+                             if watched in n]}
     if cfg.dmtet:
         groups.update(sdf=[names.index("geo.sdf")],
                       deform=[names.index("geo.deform")])

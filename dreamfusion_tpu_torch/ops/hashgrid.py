@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import kernels
+from .freq import active_count
 
 _PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
@@ -102,11 +103,10 @@ def init_hashgrid(spec: HashGridSpec,
 
 
 def n_active_levels(spec: HashGridSpec, max_level: Optional[float]) -> int:
-    """max(min(ceil(max_level·L), L), 1) levels, or all of them."""
+    """max(min(ceil(max_level·L), L), 1) levels (the product in float32),
+    or all of them."""
     L = spec.num_levels
-    if max_level is None:
-        return L
-    return min(max(math.ceil(max_level * L), 1), L)
+    return min(max(active_count(max_level, L), 1), L)
 
 
 def _check_spec(spec: HashGridSpec) -> None:

@@ -21,8 +21,10 @@ routes (K10's and K12's forwards, chosen by shape) counts each route under
 its own name, which is also its C entry point's; so do K10's backward,
 K11's resident and streaming routes, K1's and K6's backwards (the
 table-only route and the ``_dx`` route that also gives the positions'
-gradient) and K4's two entry point pairs (the head alone, and the head
-with the normals and the shading).
+gradient), K2's (the occupancy march, and the vanilla render's coarse
+and resample launches) and K4's three entry point pairs (the head alone,
+the head with the normals and the shading, and the head with given
+normals and the select).
 
 The Hopper routes encode TMA tensor maps, whose encoder is a driver API
 call: ``csrc/hopper.cuh`` fetches it through ``cudaGetDriverEntryPoint``,
@@ -52,9 +54,11 @@ LAUNCHES: Dict[str, int] = {
     "triplane_fwd": 0, "triplane_bwd": 0,       # K1, CUDA C++
     "triplane_bwd_dx": 0,                       # K1 + the positions' grad
     "march_rays": 0,                            # K2, CUDA C++
+    "vanilla_coarse": 0, "vanilla_resample": 0,  # K2's vanilla region
     "composite_fwd": 0, "composite_bwd": 0,     # K3, CUDA C++
     "field_head_fwd": 0, "field_head_bwd": 0,   # K4, CUDA C++
     "field_shade_fwd": 0, "field_shade_bwd": 0,  # K4 + normals and shading
+    "field_select_fwd": 0, "field_select_bwd": 0,  # K4 + given normals
     "attention_fwd_wgmma": 0,                   # K10 d = 64, CUDA C++
     "attention_fwd_wgmma_d40": 0,               # K10 d = 40, CUDA C++
     "attention_fwd_wgmma_d80": 0,               # K10 d = 80, CUDA C++
@@ -95,12 +99,20 @@ _SIGNATURES = {
     [_P] * 12,
     "composite_bwd": [_P] * 7 + [_I, _I, _F] + [_P] * 5 + [_F, _I, _I] +
     [_P] * 10,
-    "field_head_fwd": [_P, _P, _I, _I, _F, _F, _P, _P, _P],
-    "field_head_bwd": [_P, _P, _I, _I, _F, _F, _P, _P, _P, _P],
-    "field_shade_fwd": [_P] * 3 + [_I, _I, _P, _I, _P, _F, _P, _I] +
+    "vanilla_coarse": [_P, _L, _L, _P, _L, _L, _F, _P, _P, _L, _I, _I, _P,
+                       _P, _P, _P],
+    "vanilla_resample": [_P, _L, _L, _P, _L, _L, _F, _P, _P, _P, _L, _I, _I,
+                         _I, _P, _P, _P, _P],
+    "field_head_fwd": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
+    "field_head_bwd": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    "field_shade_fwd": [_P] * 3 + [_I, _I, _I, _P, _I, _P, _F, _P, _I] +
     [_F] * 3 + [_P] * 4,
-    "field_shade_bwd": [_P] * 3 + [_I, _I, _P, _I, _P, _F, _P, _I] +
+    "field_shade_bwd": [_P] * 3 + [_I, _I, _I, _P, _I, _P, _F, _P, _I] +
     [_F] * 3 + [_P] * 6,
+    "field_select_fwd": [_P] * 3 + [_I, _I, _I, _P, _I, _P, _F, _P, _I] +
+    [_F] * 2 + [_P] * 3,
+    "field_select_bwd": [_P] * 3 + [_I, _I, _I, _P, _I, _P, _F, _P, _I] +
+    [_F] * 2 + [_P] * 5,
     "conv_fwd_mma": [_P] * 4 + [_I] * 16 + [_P, _P],
     "conv_fwd_wgmma": [_P] * 4 + [_I] * 20 + [_P, _P],
     "conv_fwd_wgmma_i8": [_P] * 5 + [_I] * 17 + [_P],

@@ -22,13 +22,13 @@ passes half at its tie).  The jacobian's own gradient into the positions
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import kernels
+from .freq import active_count
 
 _PLANE_AXES = ((0, 1), (0, 2), (1, 2))
 
@@ -259,9 +259,7 @@ def triplane_encode(x: torch.Tensor, planes: Sequence[torch.Tensor],
     is the finest; ``max_level`` masks scales from the coarse end."""
     x = x.float().contiguous()
     S = spec.num_scales
-    n_active = S
-    if max_level is not None:
-        n_active = min(max(math.ceil(max_level * S), 1), S)
+    n_active = min(max(active_count(max_level, S), 1), S)
     n_out = 4 if need_jacobian else 1
     per_scale = []
     for s, p in enumerate(planes):
@@ -284,3 +282,15 @@ def init_triplane(spec: TriplaneSpec, generator: torch.Generator,
     """[3, R_s, R_s, C] fp32 per scale, N(0, scale²) (CPU generator)."""
     return [torch.randn(3, r, r, spec.channels, generator=generator) * scale
             for r in spec.resolutions]
+
+
+def triplane_tv_loss(planes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Total variation over the planes [3, R, R, C] of every scale
+    (``dreamfusion_tpu/ops/triplane.py::triplane_tv_loss``, plain XLA
+    there, plain torch here): the mean squared step along each in-plane
+    axis, summed, averaged over the scales."""
+    tv = planes[0].new_zeros(())
+    for p in planes:
+        tv = tv + ((p[:, 1:] - p[:, :-1]) ** 2).mean() + \
+            ((p[:, :, 1:] - p[:, :, :-1]) ** 2).mean()
+    return tv / len(planes)

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,10 +55,9 @@ from ..models.renderer import NeRFRenderer
 from ..training import schedules
 from .data import CameraBatch
 from .image_data import RefImages
-from .optimizer import AdanState
-from .trainer import (Trainer, _samplers, adan_for, build_renderer, draw_t,
+from .trainer import (Trainer, _samplers, build_renderer, draw_t,
                       draw_view, ema_copy, guarded_update, newest_checkpoint,
-                      train_batch)
+                      optimizer_for, train_batch)
 
 
 class DMTetDraws(NamedTuple):
@@ -123,7 +122,7 @@ class DMTetModel(nn.Module):
 @dataclass
 class DMTetState:
     model: DMTetModel
-    opt_state: AdanState
+    opt_state: Any                     # AdanState or AdamState
     ema_params: Dict[str, torch.Tensor]
     tet_scale: torch.Tensor            # [3], fixed after init
     step: int
@@ -201,7 +200,7 @@ class DMTetTrainer(Trainer):
             geo = dmr.init_params_sphere(radius=0.5)
         self.fit_caps(geo)
         model = DMTetModel(renderer, geo.sdf.float(), geo.deform.float())
-        self.optimizer = adan_for(cfg, model)
+        self.optimizer = optimizer_for(cfg, model)
         return DMTetState(
             model=model, opt_state=self.optimizer.init(
                 list(model.parameters())),

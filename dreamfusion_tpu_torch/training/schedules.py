@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -42,10 +43,15 @@ def view_ranges(cfg: Config, r_exp: float):
 
 
 def encoder_max_level(cfg: Config, r_exp: float) -> Optional[float]:
-    """min(1, 0.25 + 2*ratio) under progressive level training."""
+    """min(1, 0.25 + 2·r_exp) under progressive level training, in float32
+    as the JAX step computes it from its float32 ratio: the encoders' band
+    counts ceil(max_level·n) then agree with JAX's where the product lands
+    on an integer."""
     if not cfg.progressive_level:
         return None
-    return min(1.0, 0.25 + 2.0 * r_exp)
+    r = np.float32(r_exp)
+    return float(np.minimum(np.float32(1.0),
+                            np.float32(0.25) + np.float32(2.0) * r))
 
 
 def lambda_entropy_at(cfg: Config, step: int) -> float:

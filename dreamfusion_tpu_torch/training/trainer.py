@@ -2,11 +2,12 @@
 ported paths): state init, the step (render → SDS from the pixel oracle,
 the image oracle, Stable Diffusion, DeepFloyd-IF (pixel space: the render
 resized to 64²) or Zero-1-to-3, and/or CLIP's
-similarity term → entropy, orient and normal-smoothness regularizers, and
-the hash grid's tv and weight decay → backward → guarded Adan → EMA), the
-density-grid update, and the run's end: eval renders with the
-analytic-scene PSNR (under ``--image``, the known-view masked PSNR; for a
-text run with a CLIP scorer, its CLIP score), the turntable video and the
+similarity term → entropy, orient and normal-smoothness regularizers, the
+hash grid's tv and weight decay and the triplane's tv → backward → guarded
+Adan or Adam → EMA), the density-grid update (the grid and the triplane;
+the vanilla field renders without one and keeps JAX's zeros), and the
+run's end: eval renders with the analytic-scene PSNR (under ``--image``,
+the known-view masked PSNR; for a text run with a CLIP scorer, its CLIP score), the turntable video and the
 checkpoints (``torch.save``; the rolling ``df_ep*`` ones and the EMA-only
 ``df`` kept best by the eval metric).
 
@@ -60,17 +61,17 @@ from ..ops.clip_grad import clip_grad
 from ..ops.hashgrid import (HashGridSpec, draw_tv_cells, hashgrid_tv_loss,
                             hashgrid_wd_loss)
 from ..ops.occupancy import update_density_grid
+from ..ops.triplane import triplane_tv_loss
 from ..utils.device import resolve_device
 from ..utils.image import colorize_depth, save_image, save_video
 from . import schedules
 from .data import (CameraBatch, circle_view_batch, default_view_batch,
                    sample_train_batch, scale_view_draws, six_view_batch)
 from .image_data import RefImages, masked_pearson
-from .optimizer import Adan, AdanState
+from .optimizer import build_optimizer, state_tensors
 
 
 # titles of ROADMAP.md's queue 1 items, as the refusals name them
-_VANILLA = "The vanilla backbone and the small field options"
 _IMAGE = "Zero-1-to-3 and the file-based image mode"
 _CLIP = "CLIP guidance and image + text"
 # the guidance sets of the ported slice: one prior, or SD and CLIP summed
@@ -87,10 +88,9 @@ def check_slice(cfg: Config) -> None:
     if gd == ("zero123",) and not refs:
         raise ValueError("zero123 guidance needs a reference image: "
                          "--image or --image_config")
+    if cfg.backbone not in ("grid", "triplane", "vanilla"):
+        raise ValueError(f"unknown backbone {cfg.backbone!r}")
     todo = {
-        "--backbone vanilla (-O2)": (cfg.backbone not in ("grid",
-                                                          "triplane"),
-                                     _VANILLA),
         "guidance other than the pixel oracle, the image oracle, SD, IF, "
         "zero123 or CLIP alone, or SD with CLIP": (
             tuple(sorted(gd)) not in _PORTED_GUIDANCE, _CLIP),
@@ -103,12 +103,6 @@ def check_slice(cfg: Config) -> None:
             gd == ("oracle",) and refs, _IMAGE),
         "--guidance image_oracle without --image analytic:<scene>": (
             gd == ("image_oracle",) and not analytic, _IMAGE),
-        "--optim other than adan": (cfg.optim != "adan", _VANILLA),
-        "--grad_clip": (cfg.grad_clip >= 0, _VANILLA),
-        "--lambda_tv on the triplane (triplane_tv_loss)": (
-            cfg.lambda_tv > 0 and cfg.backbone == "triplane", _VANILLA),
-        "--normal_mode finite_difference": (
-            cfg.normal_mode == "finite_difference", _VANILLA),
     }
     for what, (hit, item) in todo.items():
         if hit:
@@ -133,6 +127,7 @@ def build_renderer(cfg: Config) -> NeRFRenderer:
         grid_probe_steps=cfg.grid_coarse_steps,
         grid_fine_steps=cfg.grid_fine_steps,
         occupancy_mode=cfg.occupancy_mode, dt_gamma=cfg.dt_gamma,
+        num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps,
         backbone=cfg.backbone, hidden_dim=cfg.hidden_dim,
         num_layers=cfg.num_layers,
         density_act=cfg.density_activation, blob_density=cfg.blob_density,
@@ -142,7 +137,25 @@ def build_renderer(cfg: Config) -> NeRFRenderer:
         triplane_channels=cfg.triplane_channels,
         triplane_scales=cfg.triplane_scales, bg_radius=cfg.bg_radius,
         hidden_dim_bg=cfg.hidden_dim_bg, num_layers_bg=cfg.num_layers_bg,
+        normal_mode=cfg.normal_mode,
         compute_dtype=torch.bfloat16 if cfg.fp16 else torch.float32)
+
+
+def samples_per_ray(cfg: Config) -> int:
+    """The samples a training render shades on each ray."""
+    if cfg.backbone == "vanilla":
+        return cfg.num_steps + cfg.upsample_steps
+    return cfg.grid_fine_steps
+
+
+def draw_march(U, cfg: Config, R: int):
+    """A render's sampling draws → (march_u, pdf_u): the grid's stratified
+    fine draws [R, grid_fine_steps] and None, or the vanilla render's unit
+    coarse jitter [R, num_steps] and stratified importance draws [R,
+    upsample_steps]."""
+    if cfg.backbone != "vanilla":
+        return stratified_u(U(R, cfg.grid_fine_steps)), None
+    return U(R, cfg.num_steps), stratified_u(U(R, cfg.upsample_steps))
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +168,7 @@ class StepDraws(NamedTuple):
     fov: torch.Tensor                  # [] degrees
     choice: schedules.ChoiceDraws
     march_u: torch.Tensor              # [B*h*w, grid_fine_steps] stratified
+    #                                    (vanilla: [B*h*w, num_steps] unit)
     t: torch.Tensor                    # [B] int64 diffusion timestep
     noise: torch.Tensor                # [B, h, w, 3] pixels (oracle),
     #                                    [B, ls, ls, 4] latents (SD) or
@@ -163,6 +177,8 @@ class StepDraws(NamedTuple):
     tv_cells: Optional[torch.Tensor] = None   # [L, 4096, 3] (grid, tv > 0)
     perturb_noise: Optional[torch.Tensor] = None  # [B*h*w*S, 3] normal
     #                                    (the 3-D normal-smoothness loss)
+    pdf_u: Optional[torch.Tensor] = None  # [B*h*w, upsample_steps]
+    #                                    stratified (vanilla)
 
 
 class KnownViewDraws(NamedTuple):
@@ -173,6 +189,7 @@ class KnownViewDraws(NamedTuple):
     bg: torch.Tensor                   # [Hs*Ws, 3] per-pixel background
     march_u: torch.Tensor              # [Hs*Ws, grid_fine_steps]
     perturb_noise: Optional[torch.Tensor] = None  # [Hs*Ws*S, 3]
+    pdf_u: Optional[torch.Tensor] = None  # [Hs*Ws, upsample_steps]
 
 
 def _samplers(gen: torch.Generator, device):
@@ -229,7 +246,7 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
     B = cfg.batch_size
     U, N = _samplers(gen, device)
     pose, fov, choice = draw_view(gen, cfg, device)
-    march_u = stratified_u(U(B * cfg.h * cfg.w, cfg.grid_fine_steps))
+    march_u, pdf_u = draw_march(U, cfg, B * cfg.h * cfg.w)
     t = draw_t(gen, cfg, device)
     if latent_size is None:
         draws = StepDraws(pose, fov, choice, march_u, t,
@@ -239,12 +256,13 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
         draws = StepDraws(pose, fov, choice, march_u, t,
                           N(B, ls, ls, channels),
                           N(B, ls, ls, channels) if posterior else None)
+    draws = draws._replace(pdf_u=pdf_u)
     if cfg.backbone == "grid" and cfg.lambda_tv > 0:
         draws = draws._replace(tv_cells=draw_tv_cells(
             gen, grid_spec_of(cfg), device))
     if cfg.lambda_3d_normal_smooth > 0:
         draws = draws._replace(perturb_noise=N(
-            B * cfg.h * cfg.w * cfg.grid_fine_steps, 3))
+            B * cfg.h * cfg.w * samples_per_ray(cfg), 3))
     return draws
 
 
@@ -261,7 +279,7 @@ def draw_grid(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
 @dataclass
 class TrainState:
     renderer: NeRFRenderer             # holds the trainable parameters
-    opt_state: AdanState
+    opt_state: Any                     # AdanState or AdamState
     ema_params: Dict[str, torch.Tensor]
     density_grid: torch.Tensor         # [cascade, G³]
     mean_density: torch.Tensor         # []
@@ -269,23 +287,23 @@ class TrainState:
     step: int
 
 
-def guarded_update(optimizer: Adan, cfg: Config, module: torch.nn.Module,
-                   opt_state: AdanState, ema_params: Dict[str, torch.Tensor],
+def guarded_update(optimizer, cfg: Config, module: torch.nn.Module,
+                   opt_state, ema_params: Dict[str, torch.Tensor],
                    grads: List[torch.Tensor]) -> torch.Tensor:
-    """Adan + EMA that skip non-finite gradients (the amp GradScaler's
-    behaviour), in place on the module's parameters, the optimizer state
-    and the EMA → grad_ok []."""
+    """The optimizer (Adan or Adam) + EMA that skip non-finite gradients
+    (the amp GradScaler's behaviour), in place on the module's parameters,
+    the optimizer state and the EMA → grad_ok []."""
     params = list(module.parameters())
     gn = torch.sqrt(sum((g * g).sum() for g in grads))
     ok = torch.isfinite(gn)
     safe = [torch.nan_to_num(g) for g in grads]
     with torch.no_grad():
         new_params, new_opt = optimizer.step(params, safe, opt_state)
-        for name in ("m", "diff", "n", "prev_grad"):
-            for o, nw in zip(getattr(opt_state, name),
-                             getattr(new_opt, name)):
+        new = state_tensors(new_opt)
+        for name, old in state_tensors(opt_state).items():
+            for o, nw in zip(*((old, new[name]) if isinstance(old, list)
+                               else ([old], [new[name]]))):
                 o.copy_(torch.where(ok, nw, o))
-        opt_state.count.copy_(torch.where(ok, new_opt.count, opt_state.count))
         d = cfg.ema_decay
         for (name, p), nw in zip(module.named_parameters(), new_params):
             p.copy_(torch.where(ok, nw, p))
@@ -294,7 +312,7 @@ def guarded_update(optimizer: Adan, cfg: Config, module: torch.nn.Module,
     return ok
 
 
-def apply_updates_guarded(optimizer: Adan, cfg: Config, state: TrainState,
+def apply_updates_guarded(optimizer, cfg: Config, state: TrainState,
                           grads: List[torch.Tensor]) -> torch.Tensor:
     """``guarded_update`` of the renderer; advances ``state.step``."""
     ok = guarded_update(optimizer, cfg, state.renderer, state.opt_state,
@@ -319,10 +337,15 @@ def newest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return cands[-1] if cands else None
 
 
-def adan_for(cfg: Config, module: torch.nn.Module) -> Adan:
-    """Adan at 5x lr, the encoder's (hash table or triplanes) updates 10x."""
-    return Adan(5.0 * cfg.lr, [10.0 if "grid_table" in n or "triplanes" in n
-                               else 1.0 for n, _ in module.named_parameters()])
+def optimizer_for(cfg: Config, module: torch.nn.Module):
+    """``build_optimizer`` of the run: Adan at 5x lr, or Adam
+    (``--optim``), decayed under the vanilla backbone, clipped under
+    ``--grad_clip``; the encoder's (hash table or triplanes) updates 10x."""
+    return build_optimizer(
+        cfg.optim, cfg.lr, cfg.iters,
+        [10.0 if "grid_table" in n or "triplanes" in n else 1.0
+         for n, _ in module.named_parameters()],
+        vanilla=cfg.backbone == "vanilla", grad_clip=cfg.grad_clip)
 
 
 class Trainer:
@@ -442,7 +465,8 @@ class Trainer:
         """One training step at state.step (a known-view step on its
         cadence), with the density-grid refresh on its cadence →
         (metrics, gradients)."""
-        if state.step % self.cfg.update_extra_interval == 0:
+        if self.needs_density_grid and \
+                state.step % self.cfg.update_extra_interval == 0:
             self.update_grid(state, draw_grid(gen, self.cfg, self.device))
         if self.is_known_view_step(state.step):
             return self.known_view_step(state, self.draw_known_view(gen))
@@ -453,7 +477,7 @@ class Trainer:
         renderer = build_renderer(cfg)
         renderer.field.reset_parameters(torch.Generator().manual_seed(seed))
         renderer.to(self.device)
-        self.optimizer = adan_for(cfg, renderer)
+        self.optimizer = optimizer_for(cfg, renderer)
         params = list(renderer.parameters())
         G = cfg.grid_size
         return TrainState(
@@ -496,8 +520,11 @@ class Trainer:
     def _grid_reg_losses(self, state: TrainState, draws: StepDraws
                          ) -> Optional[torch.Tensor]:
         """The hash grid's tv (on the step's sampled cells) and weight-decay
-        terms, or None off the grid or with both weights 0."""
+        terms, or the triplane's tv, or None without them."""
         cfg, field = self.cfg, state.renderer.field
+        if cfg.backbone == "triplane" and cfg.lambda_tv > 0:
+            return schedules.lambda_tv_at(cfg, state.step) * \
+                triplane_tv_loss(list(field.triplanes))
         if cfg.backbone != "grid":
             return None
         loss = None
@@ -531,12 +558,12 @@ class Trainer:
         else:
             ambient, shading = choices.ambient_ratio, choices.shading
             use_bg_net = choices.use_bg_net
-        out = state.renderer.render_grid(
-            self.flags(latent_phase), ro, rd, state.occ_grid,
+        out = state.renderer.render(
+            self.flags(latent_phase), ro, rd, self.occ_grid(state),
             light_d=light_d, ambient_ratio=ambient, shading=shading,
             bg_color=choices.bg_color.expand(ro.shape), max_level=max_level,
             march_u=draws.march_u, use_bg_net=use_bg_net,
-            perturb_noise=draws.perturb_noise)
+            perturb_noise=draws.perturb_noise, pdf_u=draws.pdf_u)
         image = out["image"].reshape(B, H, W, 3)
         wsum = out["weights_sum"].reshape(B, H, W)
         reg = self._volume_reg_losses(out, wsum, (B, H, W), state.step)
@@ -648,10 +675,11 @@ class Trainer:
         K = self.ref_images.rgb.shape[0]
         R = self.kv_batch.rays_o.shape[1]
         sel = torch.randint(0, K, (), generator=gen, device=self.device)
-        draws = KnownViewDraws(sel, N(3), N(3), U(R, 3),
-                               stratified_u(U(R, cfg.grid_fine_steps)))
+        march_u, pdf_u = draw_march(U, cfg, R)
+        draws = KnownViewDraws(sel, N(3), N(3), U(R, 3), march_u,
+                               pdf_u=pdf_u)
         if cfg.lambda_3d_normal_smooth > 0:
-            draws = draws._replace(perturb_noise=N(R * cfg.grid_fine_steps,
+            draws = draws._replace(perturb_noise=N(R * samples_per_ray(cfg),
                                                    3))
         return draws
 
@@ -684,12 +712,13 @@ class Trainer:
             need_normal_image=(cfg.lambda_normal > 0 and
                                gt["normal"] is not None)
             or cfg.lambda_2d_normal_smooth > 0)
-        out = state.renderer.render_grid(
-            flags, ro.contiguous(), rd.contiguous(), state.occ_grid,
+        out = state.renderer.render(
+            flags, ro.contiguous(), rd.contiguous(), self.occ_grid(state),
             light_d=safe_normalize(ro), ambient_ratio=1.0,
             shading=SHADING_LAMBERTIAN, bg_color=draws.bg,
             max_level=schedules.encoder_max_level(cfg, r_exp),
-            march_u=draws.march_u, perturb_noise=draws.perturb_noise)
+            march_u=draws.march_u, perturb_noise=draws.perturb_noise,
+            pdf_u=draws.pdf_u)
         pred = out["image"].reshape(Hs, Ws, 3)
         if cfg.grad_clip_rgb >= 0:
             pred = clip_grad(pred, cfg.grad_clip_rgb)
@@ -720,6 +749,16 @@ class Trainer:
         gradients)."""
         return self.apply_step(state, *self.known_view_loss(state, draws))
 
+    @property
+    def needs_density_grid(self) -> bool:
+        """The grid and the triplane march an occupancy grid; the vanilla
+        field samples the bounding sphere (JAX's ``needs_density_grid``)."""
+        return self.cfg.backbone in ("grid", "triplane")
+
+    def occ_grid(self, state) -> Optional[torch.Tensor]:
+        """The occupancy grid a render marches, None under vanilla."""
+        return state.occ_grid if self.needs_density_grid else None
+
     def update_grid(self, state: TrainState, jitter_u: torch.Tensor) -> None:
         """Density-grid EMA-max refresh from the current parameters."""
         cfg = self.cfg
@@ -746,7 +785,7 @@ class Trainer:
             out = functional_call(
                 state.renderer, state.ema_params,
                 (flags, ro[i:i + cfg.max_ray_batch],
-                 rd[i:i + cfg.max_ray_batch], state.occ_grid),
+                 rd[i:i + cfg.max_ray_batch], self.occ_grid(state)),
                 {"ambient_ratio": 1.0, "shading": SHADING_ALBEDO},
                 strict=True)
             outs.append((out["image"], out["depth"], out["weights_sum"]))
@@ -881,20 +920,20 @@ class Trainer:
         return os.path.join(self.workspace, "checkpoints")
 
     def _payload(self, state) -> Dict[str, Any]:
-        o = state.opt_state
         return {"module": self.module(state).state_dict(),
-                "opt": {"count": o.count, "m": o.m, "diff": o.diff,
-                        "n": o.n, "prev_grad": o.prev_grad},
+                "opt": state_tensors(state.opt_state),
                 "ema": state.ema_params, "step": state.step,
                 "extra": {k: getattr(state, k) for k in self.EXTRA_STATE}}
 
     @torch.no_grad()
     def _restore(self, state, payload: Dict[str, Any]) -> None:
         self.module(state).load_state_dict(payload["module"])
-        o, po = state.opt_state, payload["opt"]
-        o.count.copy_(po["count"])
-        for name in ("m", "diff", "n", "prev_grad"):
-            for dst, src in zip(getattr(o, name), po[name]):
+        for name, dst in state_tensors(state.opt_state).items():
+            src = payload["opt"][name]
+            if isinstance(dst, list):
+                for d, v in zip(dst, src):
+                    d.copy_(v)
+            else:
                 dst.copy_(src)
         for k, v in payload["ema"].items():
             state.ema_params[k].copy_(v)

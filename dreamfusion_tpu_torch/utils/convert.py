@@ -35,7 +35,9 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
     ``{'field': {'grid_table' or 'triplanes': ..., 'sigma_net': {...},
     'bg_net': {...}}}`` (``NeRFRenderer``) → the renderer's ``state_dict``,
     the hash table as it is ([T, C]), triplanes in their [3, R, R, C]
-    layout.  The guidance towers ``{'unet', 'vae', 'text'}`` (SD's),
+    layout, the vanilla field's ResMLP (``dense_0``, ``res_l``,
+    ``dense_{L-1}``) by ``_res_mlp``.  The guidance towers ``{'unet',
+    'vae', 'text'}`` (SD's),
     ``{'unet', 'vae', 'vision', 'cc_projection'}`` (zero123's) or
     ``{'vision', 'text', 'text_projection'}`` (CLIP guidance's) or
     ``{'unet', 't5'}`` (DeepFloyd-IF's, its UNet told apart by its
@@ -66,11 +68,42 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
         out[f"field.triplanes.{s}"] = torch.from_numpy(
             np.array(plane, dtype=np.float32))
     for net in ("sigma_net", "bg_net"):
-        for l in range(len(field.get(net, {}))):
-            dense = field[net][f"dense_{l}"]
-            out[f"field.{net}.layers.{l}.weight"] = _linear(dense["kernel"])
-            out[f"field.{net}.layers.{l}.bias"] = torch.from_numpy(
-                np.array(dense["bias"], dtype=np.float32))
+        mlp = field.get(net, {})
+        if any(k.startswith("res_") for k in mlp):
+            out.update(_res_mlp(mlp, f"field.{net}"))
+            continue
+        for l in range(len(mlp)):
+            out.update(_dense(mlp[f"dense_{l}"], f"field.{net}.layers.{l}"))
+    return out
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(dense: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """An ``nn.Dense``'s kernel (and bias, where it has one)."""
+    out = {f"{prefix}.weight": _linear(dense["kernel"])}
+    if "bias" in dense:
+        out[f"{prefix}.bias"] = _f32(dense["bias"])
+    return out
+
+
+def _res_mlp(mlp: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """The vanilla field's ``ResMLP``: ``dense_0`` → ``first``, ``res_l``
+    → ``blocks.{l-1}`` (``dense``, ``norm.scale``/``bias``, the bias-free
+    ``skip`` where the widths differ), the last ``dense_{L-1}`` →
+    ``last``."""
+    L = len(mlp)
+    out = _dense(mlp["dense_0"], f"{prefix}.first")
+    out.update(_dense(mlp[f"dense_{L - 1}"], f"{prefix}.last"))
+    for l in range(1, L - 1):
+        res, p = mlp[f"res_{l}"], f"{prefix}.blocks.{l - 1}"
+        out.update(_dense(res["dense"], f"{p}.dense"))
+        out[f"{p}.norm.scale"] = _f32(res["norm"]["scale"])
+        out[f"{p}.norm.bias"] = _f32(res["norm"]["bias"])
+        if "skip" in res:
+            out.update(_dense(res["skip"], f"{p}.skip"))
     return out
 
 

@@ -532,6 +532,219 @@ def test_render_tail_counts_its_launches(dev):
     assert kernels.LAUNCHES["field_shade_fwd"] == 0
 
 
+# ---- the vanilla render: K2's vanilla region, K4's options, K3 at S = 96 ---
+
+def _vanilla_rays(dev, R, seed, strided=False):
+    """Camera rays toward the unit sphere and, every 5th, rays from inside
+    it (near < 0); with ``strided`` the origins are one broadcast row."""
+    g = _gen(dev, seed)
+    o = safe_normalize(torch.randn(R, 3, device=dev, generator=g)) * \
+        (torch.rand(R, 1, device=dev, generator=g) * 0.5 + 3.0)
+    o[::5] *= 0.1
+    if strided:
+        o = o[:1].expand(R, 3)
+    d = safe_normalize(-o + 0.3 * torch.randn(R, 3, device=dev,
+                                              generator=g))
+    return g, o, d
+
+
+@pytest.mark.parametrize("R,S,n", [(4096, 64, 32), (1001, 66, 64),
+                                   (33, 3, 1)])
+@pytest.mark.parametrize("perturb", [False, True])
+@pytest.mark.parametrize("strided", [False, True])
+def test_vanilla_sampling_kernels(dev, R, S, n, perturb, strided):
+    """K2's vanilla launches equal their plain twins bit for bit: z, the
+    deltas and the positions; the sigma rows hold zeros, large values and
+    (every 7th ray) all zeros."""
+    from dreamfusion_tpu_torch.core.sampling import linspace
+    from dreamfusion_tpu_torch.ops.resample import (vanilla_coarse,
+                                                    vanilla_coarse_plain,
+                                                    vanilla_resample,
+                                                    vanilla_resample_plain)
+    g, o, d = _vanilla_rays(dev, R, 8, strided)
+    lin = linspace(0.0, 1.0, S, device=dev)
+    u_c = torch.rand(R, S, device=dev, generator=g) if perturb else None
+    u_p = stratified_u(torch.rand(R, n, device=dev, generator=g)) \
+        if perturb else det_u(1, n, device=dev)[0]
+    kernels.reset_launch_counts()
+    zk, dk, xk = vanilla_coarse(o, d, 1.0, lin, u_c, need_deltas=True)
+    zp, dp, xp = vanilla_coarse_plain(o, d, 1.0, lin, u_c, True)
+    for a, b in ((zk, zp), (dk, dp), (xk, xp)):
+        assert torch.equal(a, b)
+    sigma = torch.exp(torch.randn(R, S, device=dev, generator=g) * 3)
+    sigma[:, ::4] = 0.0
+    sigma[::7] = 0.0
+    out_k = vanilla_resample(o, d, 1.0, zk, sigma, u_p)
+    out_p = vanilla_resample_plain(o, d, 1.0, zp, sigma, u_p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["vanilla_coarse"] == 1
+    assert kernels.LAUNCHES["vanilla_resample"] == 1
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    assert out_k[0].shape == (R, S + n)
+
+
+def test_vanilla_sampling_refuses_what_it_cannot_hold(dev):
+    from dreamfusion_tpu_torch.core.sampling import linspace
+    from dreamfusion_tpu_torch.ops.resample import (vanilla_coarse,
+                                                    vanilla_resample)
+    _, o, d = _vanilla_rays(dev, 8, 9)
+    with pytest.raises(ValueError, match="num_steps 67"):
+        vanilla_coarse(o, d, 1.0, linspace(0.0, 1.0, 67, device=dev))
+    z = torch.rand(8, 64, device=dev).sort(-1)[0]
+    with pytest.raises(ValueError, match="draws a ray"):
+        vanilla_resample(o, d, 1.0, z, torch.ones_like(z),
+                         det_u(1, 65, device=dev)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_field_head_softplus_kernel(dev, dtype):
+    """K4's softplus route (softplus(x + 1) with the linear blob) alone and
+    with the normals and the shading, against the plain twins."""
+    g = _gen(dev, 10)
+    N = 98305
+    h = (torch.randn(N, 4, device=dev, generator=g) * 4).to(dtype)
+    x = torch.rand(N, 3, device=dev, generator=g) * 2 - 1
+    hh = h.clone().requires_grad_()
+    out = field_head(hh, x, 10.0, 0.5, "softplus")
+    ref = field_head_fwd_plain(h, x, 10.0, 0.5, "softplus")
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=2e-5)
+    cots = [torch.randn_like(o) for o in out]
+    (gh,) = torch.autograd.grad(sum((o * c).sum() for o, c in
+                                    zip(out, cots)), [hh])
+    ref_g = field_head_bwd_plain(h, x, 10.0, 0.5, *cots,
+                                 act="softplus").to(dtype)
+    torch.testing.assert_close(gh.float(), ref_g.float(), atol=1e-4,
+                               rtol=1e-2 if dtype == torch.bfloat16 else 2e-5)
+    R, S = 333, 24
+    g, h, t, x, light_d = _shade_inputs(dev, R, S, dtype, 11)
+    hh, th = h.clone().requires_grad_(), t.clone().requires_grad_()
+    out = field_shade(hh, th, x, light_d, 0.3, 1, 10.0, 0.5, 1.0,
+                      "softplus")
+    ref = field_shade_fwd_plain(h, t, x, light_d, 0.3, 1, 10.0, 0.5, 1.0,
+                                "softplus")
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=2e-5)
+    cots = [torch.randn(o.shape, device=dev, generator=g) for o in ref]
+    gh, gt = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(out, cots)), (hh, th))
+    ph, pt = field_shade_bwd_plain(h, t, x, light_d, 0.3, 1, 10.0, 0.5, 1.0,
+                                   *cots, act="softplus")
+    rel = 2e-5 if dtype == torch.float32 else 2 ** -7
+    rows = (slice(0, 100), slice(100, 200), slice(200, 300),
+            slice(300, None))
+    _rows_close(gh, ph, rows, rel)
+    _rows_close(gt, pt, rows, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shading", [0, 1, 2, 3])
+@pytest.mark.parametrize("act", ["exp", "softplus"])
+def test_field_select_kernel(dev, dtype, shading, act):
+    """K4's route with given normals (the finite-difference mode) against
+    its plain twin, forward and backward into h and the normals; the
+    normals hold zeros and a dot of exactly 0 with the light."""
+    from dreamfusion_tpu_torch.ops.activation import (field_select,
+                                                      field_select_bwd_plain,
+                                                      field_select_fwd_plain)
+    R, S = 333, 24
+    g, h, _, x, light_d = _shade_inputs(dev, R, S, dtype, 12)
+    normal = safe_normalize(torch.randn(R * S, 3, device=dev, generator=g))
+    normal[:50] = 0.0
+    shade = torch.tensor(shading, device=dev)
+    ratio = torch.tensor(0.3, device=dev)
+    hh, nn_ = h.clone().requires_grad_(), normal.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    out = field_select(hh, nn_, x, light_d, ratio, shade, 5.0, 0.2, act)
+    ref = field_select_fwd_plain(h, normal, x, light_d, ratio, shade, 5.0,
+                                 0.2, act)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=2e-5)
+    cots = [torch.randn(o.shape, device=dev, generator=g) for o in ref]
+    gh, gn = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(out, cots)), (hh, nn_))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["field_select_fwd"] == 1
+    assert kernels.LAUNCHES["field_select_bwd"] == 1
+    ph, pn = field_select_bwd_plain(h, normal, x, light_d, ratio, shade,
+                                    5.0, 0.2, *cots, act=act)
+    rel = 2e-5 if dtype == torch.float32 else 2 ** -7
+    rows = (slice(0, 100), slice(100, 200), slice(200, None))
+    _rows_close(gh, ph, rows, rel)
+    torch.testing.assert_close(gn, pn, atol=1e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("form", ["white", "net_on", "per_ray"])
+def test_composite_at_96_samples_without_a_mask(dev, form):
+    """K3 at the vanilla render's [4096, 96] (three 32-sample chunks, no
+    mask) with the background and the orient loss."""
+    R, S = 4096, 96
+    g, sigma, rgb, z, deltas, _, normals, rays_d = _composite_inputs(
+        dev, R, S, 13)
+    bg = _background(form, R, dev, g)
+    s, c, n = (t.clone().requires_grad_() for t in (sigma, rgb, normals))
+    out = composite_rays(s, c, z, deltas, None, 1e-4, False, **bg,
+                         normals=n, rays_d=rays_d)
+    ref = composite_fwd_plain(sigma, rgb, z, deltas, None, 1e-4, False, **bg,
+                              normals=normals, rays_d=rays_d)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    cots = [torch.randn(o.shape, device=dev, generator=g) for o in ref]
+    gk = torch.autograd.grad(sum((o * ct).sum() for o, ct in zip(out, cots)),
+                             [s, c, n])
+    gp = composite_bwd_plain(sigma, rgb, z, deltas, None, ref.weights,
+                             *cots[:4], 1e-4, **bg, normals=normals,
+                             rays_d=rays_d, g_loss=cots[4])
+    for a, b in zip(gk, gp[:3]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("perturb", [False, True])
+def test_a_vanilla_render_launches_its_kernels(dev, perturb):
+    """One vanilla render: K2's coarse and resample launches once each, the
+    coarse density through K4's head, the shading through K4's shade pair,
+    K3 once each way; no occupancy march.  It runs as the plain twins do
+    (image within 1e-4)."""
+    import dataclasses
+
+    from dreamfusion_tpu_torch.config import Config, finalize
+    from dreamfusion_tpu_torch.models.renderer import RenderFlags
+    from dreamfusion_tpu_torch.training.trainer import build_renderer
+    cfg = dataclasses.replace(finalize(Config(
+        guidance=("oracle",), backbone="vanilla", hidden_dim=32,
+        fp16=False)), bg_radius=1.4)
+    r = build_renderer(cfg)
+    r.field.reset_parameters(torch.Generator().manual_seed(0))
+    R = 512
+    g, o, d = _vanilla_rays(dev, R, 14)
+    draws = dict(march_u=torch.rand(R, 64, device=dev, generator=g),
+                 pdf_u=stratified_u(torch.rand(R, 32, device=dev,
+                                               generator=g))) \
+        if perturb else {}
+    kw = dict(light_d=safe_normalize(o), ambient_ratio=0.3,
+              shading=torch.tensor(1, device=dev), max_level=0.5,
+              bg_color=torch.rand(3, device=dev).expand(R, 3),
+              use_bg_net=torch.tensor(True, device=dev), **draws)
+    flags = RenderFlags(perturb=perturb, need_loss_orient=True)
+    r.to(dev)
+    kernels.reset_launch_counts()
+    out = r.render(flags, o, d, None, **kw)
+    (out["image"].sum() + out["loss_orient"]).backward()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    assert got == {"vanilla_coarse": 1, "vanilla_resample": 1,
+                   "field_head_fwd": 1, "field_shade_fwd": 1,
+                   "field_shade_bwd": 1, "composite_fwd": 1,
+                   "composite_bwd": 1}, got
+    r.cpu()
+    ref = r.render(flags, o.cpu(), d.cpu(), None,
+                   **{k: v.cpu() if torch.is_tensor(v) else v
+                      for k, v in kw.items()})
+    torch.testing.assert_close(out["image"].cpu(), ref["image"], atol=1e-4,
+                               rtol=1e-4)
+
+
 def _field_positions(dev, g, N, case):
     """Positions for the backward routes: uniform with ties (coordinates
     exactly 0 and 1) and samples outside the box, or every sample at the

@@ -26,7 +26,8 @@ from dreamfusion_tpu.training.optimizer import (build_optimizer,
 from dreamfusion_tpu_torch.config import Config, finalize
 from dreamfusion_tpu_torch.models.nerf import NeRFField
 from dreamfusion_tpu_torch.training.optimizer import Adan
-from dreamfusion_tpu_torch.training.trainer import adan_for, build_renderer
+from dreamfusion_tpu_torch.training.trainer import (build_renderer,
+                                                   optimizer_for)
 from dreamfusion_tpu_torch.utils.convert import params_from_jax
 
 from torch_parity import tt
@@ -161,7 +162,7 @@ def test_adan_gives_the_grid_table_the_encoder_scale():
                           grid_log2_hashmap_size=12, hidden_dim=16))
     renderer = build_renderer(cfg)
     names = [n for n, _ in renderer.named_parameters()]
-    scales = dict(zip(names, adan_for(cfg, renderer).scales))
+    scales = dict(zip(names, optimizer_for(cfg, renderer).scales))
     assert scales.pop("field.grid_table") == 10.0
     assert set(scales.values()) == {1.0}
     labels = encoder_label_fn({"field": {"grid_table": 0,

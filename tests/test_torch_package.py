@@ -184,9 +184,7 @@ def test_cli_image_config_matches_jax(extra):
 
 @pytest.mark.parametrize("flags", [
     ["--text", "a hamburger", "--IF", "--guidance", "SD", "clip"],  # IF+CLIP
-    ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--guidance", "SD", "zero123", "--text", "a hamburger"],  # 2 priors
-    ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
     ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
      "--image", "x.png"],
 ])
@@ -233,13 +231,11 @@ def _queue1_titles():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--guidance", "oracle", "--backbone", "triplane", "-O2"],
     ["--text", "a hamburger", "--IF", "--image_config", "x.csv"],
     ["--text", "a hamburger", "--gui"],
     ["--text", "a hamburger", "--profile"],
     ["--image_config", "x.json"],
     ["--image_config", "x.csv", "--guidance", "clip"],
-    ["--guidance", "oracle", "--backbone", "vanilla"],
     ["--guidance", "IF", "clip", "--text", "a hamburger"],
     ["--guidance", "zero123", "clip", "--image_config", "x.csv"],
     ["--guidance", "SD", "zero123", "--text", "a hamburger"],
@@ -247,12 +243,6 @@ def _queue1_titles():
     ["--image", "analytic:two_sphere", "--guidance", "oracle",
      "--backbone", "triplane"],
     ["--guidance", "image_oracle", "--backbone", "triplane"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--optim", "adam"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--grad_clip", "1"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--lambda_tv", "1"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--normal_mode",
-     "finite_difference"],
-    ["--image", "x.png", "--text", "a hamburger", "-O2"],
     ["--image_config", "x.csv", "--guidance", "SD", "--text", "a hamburger"],
 ])
 def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
@@ -267,44 +257,105 @@ def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
     assert m.group(1) in _queue1_titles(), m.group(1)
 
 
-@pytest.mark.parametrize("lifted", ["--IF", "squaredcos_cap_v2"])
-def test_lifted_refusals_now_build(lifted):
-    """DeepFloyd-IF is ported: ``--IF`` parses to IF guidance with no
-    warm-up phase, and the cosine schedule builds."""
-    from dreamfusion_tpu_torch.guidance.schedule import make_schedule
+O2_TINY = ["--iters", "4", "--w", "8", "--h", "8", "--H", "8", "--W", "8",
+           "--hidden_dim", "16", "--num_steps", "8", "--upsample_steps", "4",
+           "--dataset_size_train", "2", "--dataset_size_test", "1",
+           "--device", "cpu", "--ckpt", "scratch"]
+OPTION_FLAGS = ["--guidance", "oracle", "--backbone", "triplane"]
 
+
+@pytest.mark.parametrize("lifted", [
+    "--IF", "squaredcos_cap_v2", "-O2", "-O2 after -O, before --IF",
+    "-O2 oracle run", "-O2 SD run", "--backbone vanilla", "--optim adam",
+    "--grad_clip", "--lambda_tv on the triplane",
+    "--normal_mode finite_difference", "softplus and vanilla fields"])
+def test_lifted_refusals_now_build(lifted, tmp_path):
+    """DeepFloyd-IF is ported: ``--IF`` parses to IF guidance with no
+    warm-up phase, and the cosine schedule builds.  So are ``-O2`` (fp16,
+    the vanilla backbone, progressive levels; applied after ``-O`` and
+    before ``--IF``, as JAX's CLI) and the small field options: each
+    configuration that raised builds, and the -O2 runs train on the CPU."""
+    import torch
+
+    from dreamfusion_tpu_torch.guidance.schedule import make_schedule
+    from dreamfusion_tpu_torch.models.nerf import NeRFField
+    from dreamfusion_tpu_torch.training.optimizer import Adam
+    from dreamfusion_tpu_torch.training.trainer import Trainer, check_slice
+
+    def parse(*flags):
+        cfg = config_from_args(build_parser().parse_args(list(flags)))
+        check_slice(cfg)
+        return cfg
+
+    ws = ["--workspace", str(tmp_path / "ws")]
     if lifted == "--IF":
-        cfg = config_from_args(build_parser().parse_args(
-            ["--text", "a hamburger", "--IF"]))
+        cfg = parse("--text", "a hamburger", "--IF")
         assert cfg.guidance == ("IF",) and cfg.latent_iter_ratio == 0.0
-    else:
+    elif lifted == "squaredcos_cap_v2":
         ac = make_schedule(lifted).alphas_cumprod
         assert ac.shape == (1000,) and 0 < ac[-1] < ac[0] < 1
+    elif lifted == "-O2":
+        flags = ["--guidance", "oracle", "--backbone", "triplane", "--fp16",
+                 "false", "-O2"]
+        cfg = parse(*flags)
+        assert cfg.backbone == "vanilla" and cfg.fp16 and \
+            cfg.progressive_level
+        j = j_config_from_args(j_build_parser().parse_args(flags))
+        assert (j.backbone, j.fp16, j.progressive_level, j.num_steps,
+                j.upsample_steps) == (cfg.backbone, cfg.fp16,
+                                      cfg.progressive_level, cfg.num_steps,
+                                      cfg.upsample_steps)
+    elif lifted == "-O2 after -O, before --IF":
+        cfg = parse("--text", "a hamburger", "-O", "-O2", "--IF")
+        assert cfg.backbone == "vanilla" and cfg.guidance == ("IF",)
+    elif lifted == "-O2 oracle run":
+        out = main(["--guidance", "oracle", "-O2"] + O2_TINY + ws)
+        assert out["grad_ok"] and out["all_losses_finite"]
+        assert all(g > 0 for g in out["vanilla_grad_max"])
+        assert out["psnr_final"] > 0
+    elif lifted == "-O2 SD run":
+        out = main(["--text", "a hamburger", "-O2", "--tiny_guidance"] +
+                   O2_TINY + ws)
+        assert out["grad_ok"] and out["all_losses_finite"]
+    elif lifted == "--backbone vanilla":
+        cfg = parse("--guidance", "oracle", "--backbone", "vanilla", *ws)
+        t = Trainer(cfg, "cpu")
+        state = t.init_state(0)
+        assert not t.needs_density_grid and t.occ_grid(state) is None
+    elif lifted == "--optim adam":
+        cfg = parse(*OPTION_FLAGS, "--optim", "adam", *ws)
+        t = Trainer(cfg, "cpu")
+        t.init_state(0)
+        assert isinstance(t.optimizer, Adam)
+    elif lifted == "--grad_clip":
+        cfg = parse(*OPTION_FLAGS, "--grad_clip", "1", *ws)
+        t = Trainer(cfg, "cpu")
+        t.init_state(0)
+        assert t.optimizer.grad_clip == 1.0
+    elif lifted == "--lambda_tv on the triplane":
+        out = main(OPTION_FLAGS + ["--lambda_tv", "1e-3",
+                                   "--triplane_resolution", "16",
+                                   "--triplane_channels", "4",
+                                   "--grid_size", "16"] + O2_TINY + ws)
+        assert out["grad_ok"] and out["all_losses_finite"]
+    elif lifted == "--normal_mode finite_difference":
+        cfg = parse(*OPTION_FLAGS, "--normal_mode", "finite_difference",
+                    *ws)
+        t = Trainer(cfg, "cpu")
+        assert t.init_state(0).renderer.field.finite_difference
+    else:
+        for field in (NeRFField(backbone="vanilla"),
+                      NeRFField(backbone="grid", density_act="softplus")):
+            field.reset_parameters(torch.Generator().manual_seed(0))
+            sigma = field.density(torch.zeros(4, 3))["sigma"]
+            assert bool(torch.isfinite(sigma).all())
 
 
 def test_module_refusals_name_a_roadmap_queue1_title():
-    """The same for the refusals below the CLI: the vanilla backbone's
-    field options; no message of the port names a queue 1 item by its
-    number."""
-    from dreamfusion_tpu_torch.models.nerf import NeRFField
-
-    titles = _queue1_titles()
-    for fn in (lambda: NeRFField(backbone="vanilla"),
-               lambda: NeRFField(backbone="grid", density_act="softplus")):
-        with pytest.raises(NotImplementedError) as e:
-            fn()
-        m = re.search(r"\(ROADMAP queue 1: (.+)\)$", str(e.value))
-        assert m and m.group(1) in titles, str(e.value)
+    """No message of the port names a queue 1 item by its number."""
     port = Path(__file__).resolve().parents[1] / "dreamfusion_tpu_torch"
     for path in port.rglob("*.py"):
         assert not re.search(r"queue 1, item", path.read_text()), path
-
-
-def test_cli_refuses_tv_on_the_triplane(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--guidance", "oracle", "--backbone", "triplane", "--lambda_tv",
-              "1e-3", "--workspace", str(tmp_path), "--iters", "1",
-              "--device", "cpu"])
 
 
 def test_cli_O_selects_the_grid_and_runs(tmp_path):

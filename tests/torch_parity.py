@@ -101,9 +101,8 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
     k_batch, k_choice, k_render, k_guide, k_tv = jax.random.split(key, 5)
     pose, fov = jax_batch_draws(k_batch, cfg, unit=True)
     R = cfg.batch_size * cfg.h * cfg.w
-    S = cfg.grid_fine_steps
     k_march, k_perturb = jax_render_keys(renderer, k_render, 2)
-    march_u = (jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S
+    march_u, pdf_u, S = jax_march_draws(cfg, k_march, R)
     (k_prior,) = jax.random.split(k_guide, 1)
     B = cfg.batch_size
     choice = jax_choice_draws(k_choice)
@@ -113,6 +112,7 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
     else:
         t, noise, post = jax_sd_draws(k_prior, B, latent_size, cfg.t_range)
         draws = StepDraws(pose, fov, choice, tt(march_u), t, noise, post)
+    draws = draws._replace(pdf_u=pdf_u)
     if cfg.backbone == "grid" and cfg.lambda_tv > 0:
         draws = draws._replace(tv_cells=jax_tv_cells(
             k_tv, grid_spec_of(port_cfg(cfg)).resolutions))
@@ -120,6 +120,23 @@ def jax_step_draws(cfg, renderer, base_key, step: int,
         draws = draws._replace(perturb_noise=tt(jax.random.normal(
             k_perturb, (R, S, 3))).reshape(-1, 3))
     return draws
+
+
+def jax_march_draws(cfg, k_march, R: int):
+    """A render's sampling draws from the renderer's first render key →
+    (march_u, pdf_u or None, samples a ray): the grid march's stratified
+    draws, or the vanilla render's (``stratified_zs``' unit jitter from
+    the key's first split, ``sample_pdf``'s stratified draws from its
+    second)."""
+    if cfg.backbone != "vanilla":
+        S = cfg.grid_fine_steps
+        return ((jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S,
+                None, S)
+    k_strat, k_pdf = jax.random.split(k_march)
+    n = cfg.upsample_steps
+    pdf_u = (jnp.arange(n) + jax.random.uniform(k_pdf, (R, n))) / n
+    return (jax.random.uniform(k_strat, (R, cfg.num_steps)), tt(pdf_u),
+            cfg.num_steps + n)
 
 
 def jax_known_view_draws(cfg, renderer, base_key, step: int, K: int,
@@ -130,13 +147,12 @@ def jax_known_view_draws(cfg, renderer, base_key, step: int, K: int,
     key = jax.random.fold_in(base_key, step)
     k_sel, k_noise, k_bg, k_render = jax.random.split(key, 4)
     nro, nrd = jax.random.split(k_noise)
-    S = cfg.grid_fine_steps
     k_march, k_perturb = jax_render_keys(renderer, k_render, 2)
+    march_u, pdf_u, S = jax_march_draws(cfg, k_march, R)
     draws = KnownViewDraws(
         tt(jax.random.randint(k_sel, (), 0, K)).long(),
         tt(jax.random.normal(nro, (3,))), tt(jax.random.normal(nrd, (3,))),
-        tt(jax.random.uniform(k_bg, (R, 3))),
-        tt((jnp.arange(S) + jax.random.uniform(k_march, (R, S))) / S))
+        tt(jax.random.uniform(k_bg, (R, 3))), tt(march_u), pdf_u=pdf_u)
     if cfg.lambda_3d_normal_smooth > 0:
         draws = draws._replace(perturb_noise=tt(jax.random.normal(
             k_perturb, (R, S, 3))).reshape(-1, 3))
