@@ -262,7 +262,33 @@
    --density_activation softplus --optim adam --grad_clip 1 --lambda_tv
    1e-4`` for 20 steps: ``field_select`` once each way a step, the shade
    pair never.
-13. Prints one JSON line with every kernel's route, source, the TPU
+13. Guidance snapshots, txt2img and the guidance sets at full width on
+   random weights from seed 0.  K10-K12 at every shape of the SD VAE
+   decoder at 512² and of zero123's at 256² (``SD_DECODER_*``,
+   ``ZERO123_DECODER_*``, held to the decoder's own calls recorded on the
+   meta device, ``record_towers``), each against its plain version on its
+   checked route with its event and graph ms, bound and cuDNN's /
+   F.group_norm's / SDPA's ms, logged and printed as one ``decoder rows``
+   JSON log line; a whole decode of each on the card (finite, K10-K12
+   exactly the recorded calls, its ms beside its calls' summed row ms and
+   bounds).  ``--save_guidance --save_guidance_interval 1`` through main:
+   the SD 2.1 triplane run (6 steps, 3 snapshots), IF, zero123 and the
+   DMTet stage under SD from step 4's checkpoint (one each): every
+   triptych [h, 3w, 3], finite, its noised panel unlike its render,
+   K10-K12 exactly (``tower_launches``: the forwards recorded from the
+   towers' own code, the encoder's backward from ``SD_DGRADS`` and the
+   K11 backward rows; each snapshot one encode, one CFG UNet call and two
+   decodes, IF's one UNet call), s a snapshot.  Both txt2img CLIs (3 DDIM
+   steps): a finite 512² and 64² PNG, K10-K12 exactly, ms a DDIM step.
+   ``--image_config`` (K = 2) with ``--text`` and ``--guidance SD zero123
+   clip`` for 12 steps: finite losses and gradients, a known-view step
+   every 4th, K10-K12 exactly (both UNets a step, both VAEs with their
+   backward after the warm-up, zero123's start-up embeddings, CLIP's patch
+   conv forward and input gradient a step), the synchronised median SDS
+   step and the peak memory; SD with ``--image_config`` and ``--text`` (4
+   steps, exact); the pixel oracle with the analytic reference image (8
+   steps, 2 known-view, no tower launch).
+14. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K2's vanilla launches: the
    -O2 SD run; K4's ``field_select``: the field-options run; K1-K4 and
    K10-K12: the SD run, K10's d = 40, 80 and 160 routes: the SD 1.5
@@ -737,6 +763,64 @@ SD21_UNET_ATTNS = {"attention_fwd_wgmma": 32}
 SD15_UNET_ATTNS = {"attention_fwd_wgmma_d40": 10,    # 64²: 5 + 5
                    "attention_fwd_wgmma_d80": 10,    # 32²: 5 + 5
                    "attention_fwd_wgmma_d160": 12}   # 16²: 5 + 5, 8²: 1 + 1
+
+
+# The SD VAE decoder at 512² (one decode of [1, 64, 64, 4] latents: the
+# --save_guidance snapshot's two, txt2img's one), in SD_CONVS' layout, each
+# distinct shape once; ``decoder_kernel_phases`` holds the lists to the
+# decoder's own calls (recorded on the meta device) and counts them.  Its
+# 1x1 convs (post_quant_conv, the shortcuts) are dense layers (F.linear),
+# as in the encoder and JAX.
+SD_DECODER_CONVS = [
+    (1, 64, 64, 4, 512, 3, 1, 1, "bf16", False),         # conv_in
+    (1, 64, 64, 512, 512, 3, 1, 1, "bf16", False),       # mid, up level 0
+    (1, 128, 128, 512, 512, 3, 1, 1, "bf16", False),     # up 1 (+ upsample)
+    (1, 256, 256, 512, 512, 3, 1, 1, "bf16", False),     # upsample to 256²
+    (1, 256, 256, 512, 256, 3, 1, 1, "bf16", False),     # up 2's entry
+    (1, 256, 256, 256, 256, 3, 1, 1, "bf16", False),     # up 2
+    (1, 512, 512, 256, 256, 3, 1, 1, "bf16", False),     # upsample to 512²
+    (1, 512, 512, 256, 128, 3, 1, 1, "bf16", False),     # up 3's entry
+    (1, 512, 512, 128, 128, 3, 1, 1, "bf16", False),     # up 3
+    (1, 512, 512, 128, 3, 3, 1, 1, "fp32", False),       # conv_out
+]
+# K11 in one decode: SD_GROUPNORMS' layout (eps 1e-6; the mid-block
+# attention's norm without SiLU), forward only
+SD_DECODER_GROUPNORMS = [
+    (1, 64, 64, 512, 1e-6, True, 10, False),
+    (1, 64, 64, 512, 1e-6, False, 1, False),
+    (1, 128, 128, 512, 1e-6, True, 6, False),
+    (1, 256, 256, 512, 1e-6, True, 1, False),
+    (1, 256, 256, 256, 1e-6, True, 5, False),
+    (1, 512, 512, 256, 1e-6, True, 1, False),
+    (1, 512, 512, 128, 1e-6, True, 6, False),
+]
+SD_DECODER_ATTNS = [(1, 4096, 4096, 1, 512, False)]     # the mid-block
+# zero123's decoder: the same tower at half the sides (256²)
+ZERO123_DECODER_CONVS = [(B, H // 2, W // 2, *r)
+                         for B, H, W, *r in SD_DECODER_CONVS]
+ZERO123_DECODER_GROUPNORMS = [(B, H // 2, W // 2, *r)
+                              for B, H, W, *r in SD_DECODER_GROUPNORMS]
+ZERO123_DECODER_ATTNS = [(1, 1024, 1024, 1, 512, False)]
+# Guidance snapshots, txt2img and the guidance sets at full width (random
+# weights from seed 0).  The SD 2.1 triplane run with --save_guidance
+# --save_guidance_interval 1 takes 6 steps in 2-step epochs (3 snapshots);
+# IF, zero123 and the DMTet stage under SD one snapshot each (2 steps); the
+# txt2img CLIs 3 DDIM steps; the multi-prior stage 1 (--image_config with
+# K = 2 and --text, --guidance SD zero123 clip) 12 steps, each its own
+# block (synchronised step times); SD with --image_config and --text 4
+# steps; the pixel oracle with the analytic reference image 8 steps.
+SNAP_FLAGS = ["--iters", "6", "--dataset_size_train", "2",
+              "--save_guidance", "--save_guidance_interval", "1"]
+TXT2IMG_STEPS = 3
+MULTI_STEPS = 12
+MULTI_FLAGS = ["--text", "a hamburger", "--guidance", "SD", "zero123",
+               "clip", "--backbone", "triplane", "--seed", "0",
+               "--lambda_3d_normal_smooth", "0", "--dataset_size_train", "1",
+               "--save_interval", "1000", "--eval_interval", "0", "--H",
+               "64", "--W", "64", "--dataset_size_test", "1", "--ckpt",
+               "scratch", "--iters", str(MULTI_STEPS)]
+REFS_SD_STEPS = 4
+ORACLE_REF_STEPS = 8
 
 
 class SmokeFailure(Exception):
@@ -1639,10 +1723,11 @@ def attention_rows(torch, results, rows, randn, graph=False,
                       _graph_where(where, call, graph), exps=B * h * N * M)
 
 
-def groupnorm_rows(torch, results, rows, randn, graph=False):
+def groupnorm_rows(torch, results, rows, randn, graph=False, times=None):
     """K11 (+ SiLU) forward and, for the rows with a backward (the VAE's),
     backward on the route ``group_norm_route`` gives, against the plain
-    versions and ``F.group_norm`` (+ ``F.silu``)."""
+    versions and ``F.group_norm`` (+ ``F.silu``); `times`: a dict given
+    each row's forward (kernel ms, library ms)."""
     import torch.nn.functional as F
 
     from dreamfusion_tpu_torch.ops import groupnorm as K11
@@ -1671,11 +1756,14 @@ def groupnorm_rows(torch, results, rows, randn, graph=False):
             return F.silu(y) if silu else y
 
         call = lambda: K11.group_norm_fwd_cuda(x, wt, bs, G, eps, silu)
-        record_kernel(results, fwd.name, err, median_ms(call, 10),
+        ms, lib = median_ms(call, 10), median_ms(lib_fwd, 10)
+        if times is not None:
+            times[(B, H, W, C, eps, silu, per_step, bwd)] = (ms, lib)
+        record_kernel(results, fwd.name, err, ms,
                       median_ms(lambda: K11.group_norm_plain(
                           x, wt, bs, G, eps, silu), 5),
                       "1 bf16 ulp + 1e-3 of max", nbytes(x, wt, bs, yk),
-                      10 * x.numel(), "fp32", median_ms(lib_fwd, 10),
+                      10 * x.numel(), "fp32", lib,
                       _graph_where(where, call, graph))
         if not bwd:
             continue
@@ -2878,21 +2966,24 @@ def zero123_towers(torch):
                 CLIPVisionEncoder(zc.vision_config()))
 
 
-def zero123_launches(torch, kernels, K: int, n_sds: int, embed: bool
-                     ) -> dict:
+def zero123_launches(torch, kernels, K: int, n_sds: int, embed: bool,
+                     n_vae=None) -> dict:
     """K10's, K11's and K12's launches by route in `n_sds` zero123 SDS
     steps over K references (one UNet call at CFG batch 2K, the VAE
     encoder forward and backward at 256²) and, with `embed`, the start-up's
     reference embeddings (the VAE encoder's forward at batch K, the ViT's
     patch conv), from the towers' topology: K10's route is each attention
     module's head dim, K12's each conv's (its route does not depend on the
-    spatial size), K11's each norm's shape (``zero123_groupnorms``)."""
+    spatial size), K11's each norm's shape (``zero123_groupnorms``).
+    `n_vae`: the SDS steps through the VAE (default: all; a warm-up step
+    renders the latents)."""
     from dreamfusion_tpu_torch.models.unet import Conv2d, CrossAttention
     from dreamfusion_tpu_torch.ops import attention as K10
     from dreamfusion_tpu_torch.ops import conv as K12
     from dreamfusion_tpu_torch.ops import groupnorm as K11
 
     unet, vae, vision = zero123_towers(torch)
+    n_vae = n_sds if n_vae is None else n_vae
     want = {}
 
     def add(name, n):
@@ -2911,19 +3002,19 @@ def zero123_launches(torch, kernels, K: int, n_sds: int, embed: bool
             add(route(m), n_sds)
     for m in vae.encoder.modules():
         if isinstance(m, Conv2d):
-            add(route(m), n_sds + embed)
-            add(route(m, dgrad=True), n_sds)
-    add("attention_fwd_wgmma_d512", n_sds + embed)
-    add("attention_bwd_wgmma", n_sds)
+            add(route(m), n_vae + embed)
+            add(route(m, dgrad=True), n_vae)
+    add("attention_fwd_wgmma_d512", n_vae + embed)
+    add("attention_bwd_wgmma", n_vae)
     sms = kernels.sm_count(torch.device("cuda"))
     bf = torch.bfloat16
     for B, H, W, C, eps, silu, n, bwd in zero123_groupnorms(K):
         G = K11.groups_for(C)
         name = lambda b, back: K11.group_norm_route((b, H, W, C), bf, back,
                                                     G, sms).name
-        add(name(B, False), n * n_sds)
+        add(name(B, False), n * (n_vae if bwd else n_sds))
         if bwd:
-            add(name(B, True), n * n_sds)
+            add(name(B, True), n * n_vae)
             if embed:
                 add(name(K, False), n)
     if embed:
@@ -3078,13 +3169,13 @@ def zero123_refs_phase(torch, port_main, kernels, png, ws):
             "--iters", str(ZERO123_K3_STEPS), "--workspace", ws]))
     trainer, state, gen = port_main.build_run(cfg, torch.device("cuda"),
                                               False, log=lambda *a: None)
-    emb = trainer.embeddings
+    guidance, emb = trainer.priors["zero123"]
     check(tuple(emb["c_crossattn"].shape) == (3, 1, 768) and
           tuple(emb["c_concat"].shape) == (3, 32, 32, 4),
           f"K = 3: embeddings {emb['c_crossattn'].shape}, "
           f"{emb['c_concat'].shape}")
     batches = []
-    hook = trainer.guidance.unet.register_forward_pre_hook(
+    hook = guidance.unet.register_forward_pre_hook(
         lambda mod, args: batches.append(args[0].shape[0]))
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -4167,6 +4258,508 @@ def options_select_rows(torch, results, smi_line):
            nbytes(h, normal, x, fi["light"], *gq, *bk), N * 50)
 
 
+# ---- guidance snapshots, txt2img and the guidance sets (slice 10) ---------
+
+def record_towers(torch, kernels, run):
+    """Run `run()`, which builds towers on the meta device and calls them,
+    with each K12 conv, K11 group norm and K10 attention recorded instead
+    of run → (forward launches by route, the calls: ("conv", B, H, W, I, O,
+    k, stride, dtype), ("gn", B, H, W, C, SiLU), ("attn", B, N, M, heads,
+    d))."""
+    from unittest import mock
+
+    from dreamfusion_tpu_torch.models import if_unet, unet, vae
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    sms = kernels.sm_count(torch.device("cuda"))
+    routes, calls = {}, []
+
+    def add(route, call):
+        routes[route] = routes.get(route, 0) + 1
+        calls.append(call)
+
+    def conv(x, w, bias, stride=1, padding=0, out_dtype=None):
+        st, pads = (stride, stride), K12.norm_padding(padding)
+        B, H, W, I = x.shape
+        O, kh, kw, _ = w.shape
+        dt = out_dtype or x.dtype
+        add(K12.conv_route(dt, I, O, st, kh * kw), (
+            "conv", B, H, W, I, O, kh, stride,
+            "fp32" if dt == torch.float32 else "bf16"))
+        return torch.empty(B, *K12.out_size(H, W, kh, kw, st, pads), O,
+                           dtype=dt, device=x.device)
+
+    def group_norm(x, weight, bias, groups, eps, silu=False):
+        add(K11.group_norm_route(tuple(x.shape), x.dtype, False, groups,
+                                 sms).name, ("gn", *x.shape, silu))
+        return torch.empty_like(x)
+
+    def attention(q, k, v):
+        add(K10.attention_route(q.shape[-1]),
+            ("attn", q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+             q.shape[3]))
+        return torch.empty_like(q)
+
+    with torch.device("meta"), mock.patch.object(unet, "conv2d", conv), \
+            mock.patch.object(unet, "group_norm", group_norm), \
+            mock.patch.object(unet, "attention", attention), \
+            mock.patch.object(vae, "attention", attention), \
+            mock.patch.object(if_unet, "attention", attention):
+        run()
+    return routes, calls
+
+
+def add_counts(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+_TOWER_FWD = {}
+
+
+def tower_forward(torch, kernels, prior, part, batch=1):
+    """One full-width forward of SD 2.1's or zero123's `part`: "unet" (a
+    CFG call at batch 2·`batch`: zero123's over `batch` references),
+    "encode" (the VAE encoder at batch `batch`) or "decode" (one decode of
+    [1, ls, ls, 4] latents) → ``record_towers``' (routes, calls), kept."""
+    key = (prior, part, batch)
+    if key not in _TOWER_FWD:
+        from dreamfusion_tpu_torch.models.unet import (UNet2DCondition,
+                                                       UNetConfig)
+        from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+        ls = 64 if prior == "SD" else 32
+
+        def run():
+            if part == "unet":
+                cfg = UNetConfig.sd21() if prior == "SD" else \
+                    UNetConfig.zero123()
+                n = 2 * batch
+                UNet2DCondition(cfg)(
+                    torch.empty(n, ls, ls, cfg.in_channels),
+                    torch.zeros(n, dtype=torch.long),
+                    torch.empty(n, 77 if prior == "SD" else 1,
+                                cfg.context_dim))
+            elif part == "encode":
+                AutoencoderKL(VAEConfig.sd()).encode(
+                    torch.empty(batch, 8 * ls, 8 * ls, 3))
+            else:
+                AutoencoderKL(VAEConfig.sd()).decode(
+                    torch.empty(1, ls, ls, 4))
+
+        _TOWER_FWD[key] = record_towers(torch, kernels, run)
+    return _TOWER_FWD[key]
+
+
+def vae_backward_launches(torch, kernels, prior) -> dict:
+    """The VAE encoder's backward in one SDS step through the VAE: K12's
+    dgrads (``SD_DGRADS``), K11's backwards (``SD_GROUPNORMS``' rows with
+    one, zero123's at half the sides) and K10's."""
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    sms = kernels.sm_count(torch.device("cuda"))
+    rows = SD_GROUPNORMS if prior == "SD" else zero123_groupnorms(1)
+    want = dict(SD_DGRADS, attention_bwd_wgmma=1)
+    for B, H, W, C, eps, silu, n, bwd in rows:
+        if bwd:
+            name = K11.group_norm_route((B, H, W, C), torch.bfloat16, True,
+                                        K11.groups_for(C), sms).name
+            want[name] = want.get(name, 0) + n
+    return want
+
+
+def tower_launches(torch, kernels, prior, unet=0, encode=0, encode_bwd=0,
+                   decode=0, K=1) -> dict:
+    """K10-K12 launches by route of `unet` CFG UNet calls (zero123's over K
+    references), `encode` VAE encodes (`encode_bwd` of them with their
+    backward) and `decode` decodes of SD 2.1's or zero123's full-width
+    towers: the forwards from the towers' own code (``tower_forward``)."""
+    fwd = lambda part, b=1: tower_forward(torch, kernels, prior, part, b)[0]
+    scale = lambda d, n: {k: v * n for k, v in d.items() if v * n}
+    return add_counts(scale(fwd("unet", K), unet), scale(fwd("encode"),
+                                                         encode),
+                      scale(vae_backward_launches(torch, kernels, prior),
+                            encode_bwd),
+                      scale(fwd("decode"), decode))
+
+
+def _call_bound(call) -> float:
+    """The least ms of one recorded call (``bound``): its inputs read once,
+    its output written once, its operations at the peak of their type."""
+    kind, *dims = call
+    if kind == "conv":
+        B, H, W, I, O, k, st, dt = dims
+        e = 4 if dt == "fp32" else 2
+        Ho, Wo = -(-H // st), -(-W // st)
+        return bound((B * H * W * I + O * k * k * I + B * Ho * Wo * O) * e
+                     + 4 * O, 2 * B * Ho * Wo * O * k * k * I, dt)[0]
+    if kind == "gn":
+        B, H, W, C, silu = dims
+        return bound(4 * B * H * W * C, 10 * B * H * W * C, "fp32")[0]
+    B, N, M, h, d = dims
+    return bound(2 * d * h * B * (2 * N + 2 * M) + 4 * B * h * N,
+                 4 * B * h * N * M * d, "bf16", B * h * N * M)[0]
+
+
+def decoder_kernel_phases(torch, kernels, results, smi_line) -> dict:
+    """K10-K12 against their plain versions at every shape of the SD VAE
+    decoder at 512² and of zero123's at 256² (``SD_DECODER_*``,
+    ``ZERO123_DECODER_*``, held to the decoder's own calls recorded on the
+    meta device), each on its checked route with its event and graph ms,
+    its bound and cuDNN's / F.group_norm's / SDPA's ms; then a whole decode
+    of each on random bf16 weights: finite, its K10-K12 launches exactly
+    the recorded ones, its ms beside the sum of its calls' row ms and
+    bounds → {prior: decode ms}.  The rows are logged as one JSON line."""
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(5))
+    out, rows_json = {}, {}
+    for prior, convs, gns, attns, ls in (
+            ("SD", SD_DECODER_CONVS, SD_DECODER_GROUPNORMS,
+             SD_DECODER_ATTNS, 64),
+            ("zero123", ZERO123_DECODER_CONVS, ZERO123_DECODER_GROUPNORMS,
+             ZERO123_DECODER_ATTNS, 32)):
+        routes, calls = tower_forward(torch, kernels, prior, "decode")
+        n_of = {}
+        for c in calls:
+            n_of[c] = n_of.get(c, 0) + 1
+        got = {kind: {c[1:]: n for c, n in n_of.items() if c[0] == kind}
+               for kind in ("conv", "gn", "attn")}
+        want_convs = {(B, H, W, I, O, k, st, dt) for B, H, W, I, O, k, st,
+                      _, dt, _ in convs}
+        check(set(got["conv"]) == want_convs, f"{prior} decoder convs "
+              f"{sorted(got['conv'])}, not the list's {sorted(want_convs)}")
+        want_gn = {(B, H, W, C, silu): n for B, H, W, C, _, silu, n, _ in gns}
+        check(got["gn"] == want_gn, f"{prior} decoder norms {got['gn']}, "
+              f"not {want_gn}")
+        check(got["attn"] == {a[:5]: 1 for a in attns}, f"{prior} decoder "
+              f"attention {got['attn']}, not {attns}")
+        times = {}
+        t0 = time.time()
+        conv_rows(torch, results, convs, randn, graph=True, times=times)
+        attention_rows(torch, results, attns, randn, graph=True, times=times)
+        groupnorm_rows(torch, results, gns, randn, graph=True, times=times)
+        # one decode: each call at its row's event ms (and library ms)
+        row_of = {}
+        for r in convs:
+            row_of[("conv",) + r[:7] + (r[8],)] = r
+        for r in gns:
+            row_of[("gn",) + r[:4] + (r[5],)] = r
+        for r in attns:
+            row_of[("attn",) + r[:5]] = r
+        k_ms = sum(times[row_of[c]][0] for c in calls)
+        lib_ms = sum(times[row_of[c]][1] or 0.0 for c in calls)
+        b_ms = sum(_call_bound(c) for c in calls)
+        flops = sum(2 * c[1] * c[2] * c[3] * c[4] * c[5] * c[6] ** 2
+                    for c in calls if c[0] == "conv")
+        # the whole decoder on random bf16 weights
+        with torch.device("cuda"):
+            vae = AutoencoderKL(VAEConfig.sd())
+        g = torch.Generator(device="cuda").manual_seed(0)
+        with torch.no_grad():
+            for p in vae.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda",
+                                    dtype=p.dtype) * 0.02)
+            z = torch.randn(1, ls, ls, 4, generator=g, device="cuda")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            img = vae.decode(z)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.LAUNCHES.items()
+                        if v and k.startswith(("conv_", "groupnorm_",
+                                               "attention_"))}
+            check(launched == routes, f"{prior} decode launched "
+                  f"{launched}, not {routes}")
+            check(tuple(img.shape) == (1, 8 * ls, 8 * ls, 3) and
+                  bool(torch.isfinite(img).all()),
+                  f"{prior} decode: {tuple(img.shape)}, finite "
+                  f"{bool(torch.isfinite(img).all())}")
+            ms = median_ms(lambda: vae.decode(z), 5, 2)
+        del vae
+        out[prior] = ms
+        log(f"{prior} VAE decode at {8 * ls}²: {ms:.3f} ms (event, median "
+            f"of 5), its {len(calls)} K10-K12 calls at their rows' event ms "
+            f"{k_ms:.3f} (cuDNN / F.group_norm / SDPA {lib_ms:.3f}), bound "
+            f"{b_ms:.3f} ms ({flops / 1e12:.3f} TFLOP of convs); launches "
+            f"{routes}; rows in {time.time() - t0:.1f} s; on {smi_line}")
+        rows_json[prior] = {
+            "decode_ms": ms, "calls_ms": k_ms, "calls_library_ms": lib_ms,
+            "calls_bound_ms": b_ms, "conv_tflop": flops / 1e12,
+            "rows": [{"row": list(r), "ms": times[r][0],
+                      "library_ms": times[r][1]}
+                     for r in list(convs) + list(gns) + list(attns)]}
+        # the recorder against the hand counts of the SDS step
+        if prior == "SD":
+            step = tower_launches(torch, kernels, "SD", unet=1, encode=1,
+                                  encode_bwd=1)
+            hand = sd_step_launches(torch, kernels, 1, 1)
+            diff = {k: (step.get(k, 0), n) for k, n in hand.items()
+                    if step.get(k, 0) != n}
+        else:
+            step = tower_launches(torch, kernels, "zero123", unet=1,
+                                  encode=1, encode_bwd=1)
+            hand = zero123_launches(torch, kernels, 1, 1, False)
+            diff = {k: (step.get(k, 0), hand.get(k, 0))
+                    for k in set(step) | set(hand)
+                    if step.get(k, 0) != hand.get(k, 0)}
+        check(not diff, f"{prior}: recorded step launches differ from the "
+              f"hand counts (recorded, hand): {diff}")
+    log(f"decoder rows {json.dumps(rows_json)}")
+    return out
+
+
+def _capture_snapshots(port_trainer):
+    """Patch the trainer module's ``save_image`` to keep whether each
+    snapshot's array is finite → (the patch, {path: finite})."""
+    from unittest import mock
+
+    import numpy as np
+    finite = {}
+    real = port_trainer.save_image
+
+    def save(path, img):
+        finite[path] = bool(np.isfinite(np.asarray(img, np.float64)).all())
+        real(path, img)
+
+    return mock.patch.object(port_trainer, "save_image", save), finite
+
+
+def snapshot_run(torch, port_main, kernels, flags, ws, what, n_snaps,
+                 want_of, smi_line) -> float:
+    """A run of `flags` through main with ``--save_guidance``, the counters
+    reset just before it: `n_snaps` triptychs [h, 3w, 3], finite, each
+    noised panel unlike its render; finite losses and gradients; K10-K12
+    exactly ``want_of(n_vae)``, `n_vae` the steps through the VAE (those
+    after the warm-up) → s per snapshot."""
+    from dreamfusion_tpu_torch.training import trainer as port_trainer
+    from dreamfusion_tpu_torch.utils.image import load_image
+    cfg = port_main.config_from_args(port_main.build_parser().parse_args(
+        flags))
+    patch, finite = _capture_snapshots(port_trainer)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with patch:
+        out = port_main.main(flags + ["--workspace", ws])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    snaps = out["guidance_snapshots"]
+    check(len(snaps) == n_snaps, f"{what}: {len(snaps)} snapshots, not "
+          f"{n_snaps}: {snaps}")
+    check(out["all_losses_finite"] and out["grad_ok"],
+          f"{what}: losses {out['losses']}, grad_ok {out['grad_ok']}")
+    for p in snaps:
+        img = load_image(p)
+        check(img.shape == (cfg.h, 3 * cfg.w, 3) and finite[p],
+              f"{what}: {p} is {img.shape}, finite {finite[p]}")
+        check(bool((img[:, cfg.w:2 * cfg.w] != img[:, :cfg.w]).any()),
+              f"{what}: {p}'s noised panel equals its render")
+    want = want_of(sum(not lat for lat in out["latent_phase"]))
+    check_tower_launches(launches, want, what)
+    per = out["phases"]["guidance_snapshot"] / n_snaps
+    log(f"{what}: {len(out['losses'])} logged blocks and {n_snaps} "
+        f"snapshots in {time.time() - t0:.1f} s (start-up included), "
+        f"{per:.3f} s a snapshot, K10-K12 exactly "
+        f"({sum(want.values())} launches); {os.path.basename(snaps[-1])}; "
+        f"on {smi_line}")
+    return per
+
+
+def snapshot_phases(torch, port_main, kernels, png, init_with, ws,
+                    smi_line) -> dict:
+    """``--save_guidance --save_guidance_interval 1`` at full width: the SD
+    2.1 triplane run (6 steps, 3 snapshots: one VAE encode, one CFG UNet
+    call and two 512² decodes each), IF (one snapshot: a UNet call),
+    zero123 (one: the encode and two 256² decodes) and the DMTet stage
+    under SD from the oracle stage 1's checkpoint (one, its view through
+    K8 and K7) → s per snapshot by run."""
+    out = {}
+    out["SD"] = snapshot_run(
+        torch, port_main, kernels, SD_FLAGS + SNAP_FLAGS, ws + "_sd",
+        "SD snapshots", 3, lambda n_vae: tower_launches(
+            torch, kernels, "SD", unet=6 + 3, encode=n_vae + 3,
+            encode_bwd=n_vae, decode=6), smi_line)
+    two = ["--iters", "2", "--dataset_size_train", "2", "--save_guidance",
+           "--save_guidance_interval", "1"]
+    out["IF"] = snapshot_run(
+        torch, port_main, kernels, IF_FLAGS + two, ws + "_if",
+        "IF snapshot", 1, lambda _: if_step_launches(torch, 3), smi_line)
+    out["zero123"] = snapshot_run(
+        torch, port_main, kernels, ["--image", png] + ZERO123_FLAGS + two,
+        ws + "_zero123", "zero123 snapshot", 1, lambda _: add_counts(
+            zero123_launches(torch, kernels, 1, 1, True),
+            tower_launches(torch, kernels, "zero123", unet=1, encode=1,
+                           decode=2)), smi_line)
+    dm = [f for f in DMTET_SD_FLAGS if f != "--save_mesh"] + two + [
+        "--eval_interval", "0", "--dataset_size_test", "1", "--init_with",
+        init_with]
+    out["DMTet SD"] = snapshot_run(
+        torch, port_main, kernels, dm, ws + "_dmtet_sd", "DMTet SD snapshot",
+        1, lambda n_vae: tower_launches(torch, kernels, "SD", unet=3,
+                                        encode=n_vae + 1, encode_bwd=n_vae,
+                                        decode=2), smi_line)
+    return out
+
+
+def _timed(obj, name, times):
+    """Patch `obj.name` to a synchronised, timed call appending its seconds
+    to `times`."""
+    from unittest import mock
+    import torch
+    real = getattr(obj, name)
+
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        r = real(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+        return r
+
+    return mock.patch.object(obj, name, call)
+
+
+def txt2img_phase(torch, kernels, ws, smi_line) -> dict:
+    """The SD and IF txt2img CLIs at full width, TXT2IMG_STEPS DDIM steps
+    each, the counters reset just before each: a finite 512² and 64² PNG,
+    K10-K12 exactly (SD: a CFG UNet call a step and one 512² decode; IF: a
+    UNet call a step), the sampling loop's synchronised seconds a step →
+    {cli: s per DDIM step}."""
+    import numpy as np
+
+    from dreamfusion_tpu_torch.guidance import deepfloyd, sd
+    from dreamfusion_tpu_torch.utils.image import load_image
+    n = TXT2IMG_STEPS
+    os.makedirs(ws, exist_ok=True)
+    out = {}
+    for name, mod, cls, method, side, want in (
+            ("sd", sd, sd.StableDiffusionGuidance, "produce_latents", 512,
+             tower_launches(torch, kernels, "SD", unet=n, decode=1)),
+            ("deepfloyd", deepfloyd, deepfloyd.IFGuidance, "produce_imgs",
+             64, if_step_launches(torch, n))):
+        path = os.path.join(ws, f"{name}.png")
+        times = []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        with _timed(cls, method, times):
+            mod._main(["a hamburger", "--steps", str(n), "--out", path])
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        img = load_image(path)
+        check(img.shape == (side, side, 3) and np.isfinite(img).all(),
+              f"txt2img {name}: {img.shape}")
+        check_tower_launches(dict(kernels.LAUNCHES), want,
+                             f"txt2img {name}")
+        out[name] = times[0] / n
+        log(f"txt2img CLI {name}: a finite {side}² PNG, {n} DDIM steps in "
+            f"{times[0]:.3f} s ({1e3 * out[name]:.2f} ms a step), "
+            f"{total:.1f} s in all (towers and prompts included), K10-K12 "
+            f"exactly ({sum(want.values())} launches); on {smi_line}")
+    return out
+
+
+def guidance_sets_phase(torch, port_main, kernels, png, ws, smi_line):
+    """Guidance sets through main at full width, the counters reset just
+    before each: ``--image_config`` (K = 2) with ``--text`` and
+    ``--guidance SD zero123 clip`` for MULTI_STEPS steps, each its own
+    block (finite losses and gradients, a known-view step every 4th, K10-K12
+    exactly: SD's and zero123's UNet a step, their VAEs through the encoder
+    with its backward after the warm-up, zero123's start-up embedding of
+    both references, CLIP's patch conv forward and input gradient a step
+    and its reference embedding; the synchronised median ms of the SDS
+    steps after the warm-up and the peak memory); SD with
+    ``--image_config`` and ``--text``; the pixel oracle with the analytic
+    reference image (known-view steps, no tower launch)."""
+    from dreamfusion_tpu_torch.utils.image import load_image, save_image
+    os.makedirs(ws, exist_ok=True)
+    img = load_image(png)
+    rows = ["image, polar, azimuth, radius, zero123_weight"]
+    for k, (a, w) in enumerate(((0.0, 1.0), (180.0, 0.5))):
+        path = os.path.join(ws, f"ref{k}_rgba.png")
+        save_image(path, img if k == 0 else img[:, ::-1])
+        rows.append(f"{path}, 90, {a:g}, 3.2, {w:g}")
+    csv = os.path.join(ws, "refs.csv")
+    with open(csv, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = port_main.main(["--image_config", csv] + MULTI_FLAGS +
+                         ["--workspace", ws + "_multi"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = MULTI_STEPS
+    known = [s % 4 == 0 for s in range(n)]
+    sds = [not k for k in known]
+    vae = [s and not lat for s, lat in zip(sds, out["latent_phase"])]
+    n_sds, n_vae = sum(sds), sum(vae)
+    check(out["all_losses_finite"] and out["grad_ok"],
+          f"multi-prior: losses {out['losses']}, grad_ok {out['grad_ok']}")
+    check(out["known_view_steps"] == sum(known),
+          f"multi-prior: {out['known_view_steps']} known-view steps")
+    want = add_counts(
+        tower_launches(torch, kernels, "SD", unet=n_sds, encode=n_vae,
+                       encode_bwd=n_vae),
+        zero123_launches(torch, kernels, 2, n_sds, True, n_vae=n_vae),
+        {"conv_fwd_mma": n_sds + 1, "conv_dgrad": n_sds})
+    check_tower_launches(launches, want, "multi-prior")
+    steps = [t / k for (k, t), v in zip(out["blocks"], vae) if v]
+    med = statistics.median(steps)
+    log(f"multi-prior stage 1 (--image_config K = 2, --text, --guidance SD "
+        f"zero123 clip): {n} steps ({n_sds} SDS, {n_vae} through both VAEs, "
+        f"{sum(known)} known-view) in {time.time() - t0:.1f} s (start-up "
+        f"included), losses {[round(x, 3) for x in out['losses']]}, SDS step "
+        f"after the warm-up {1e3 * med:.2f} ms (synchronised median of "
+        f"{len(steps)}, min {1e3 * min(steps):.2f}), peak device memory "
+        f"{peak:.2f} GiB, K10-K12 exactly ({sum(want.values())} launches); "
+        f"start-up (s) {_rounded(out['startup'])}; on {smi_line}")
+    # SD with --image_config and --text
+    n = REFS_SD_STEPS
+    flags = ["--image_config", csv] + [
+        f for f in MULTI_FLAGS if f not in ("zero123", "clip")]
+    flags[flags.index("--iters") + 1] = str(n)
+    kernels.reset_launch_counts()
+    out = port_main.main(flags + ["--workspace", ws + "_sd"])
+    torch.cuda.synchronize()
+    sds = [s % 4 != 0 for s in range(n)]
+    n_vae = sum(s and not lat for s, lat in zip(sds, out["latent_phase"]))
+    check(out["all_losses_finite"] and out["grad_ok"] and
+          out["known_view_steps"] == n - sum(sds),
+          f"SD with --image_config: {out['losses']}, "
+          f"{out['known_view_steps']} known-view steps")
+    check_tower_launches(dict(kernels.LAUNCHES), tower_launches(
+        torch, kernels, "SD", unet=sum(sds), encode=n_vae, encode_bwd=n_vae),
+        "SD with --image_config")
+    log(f"SD with --image_config and --text: {n} steps ({sum(sds)} SDS), "
+        f"finite, K10-K12 exactly")
+    # the pixel oracle with the analytic reference image
+    kernels.reset_launch_counts()
+    out = port_main.main(
+        ["--image", "analytic:two_sphere", "--guidance", "oracle",
+         "--backbone", "triplane", "--seed", "0", "--iters",
+         str(ORACLE_REF_STEPS), "--dataset_size_train", "4",
+         "--eval_interval", "0", "--H", "64", "--W", "64",
+         "--dataset_size_test", "1", "--ckpt", "scratch", "--workspace",
+         ws + "_oracle"])
+    torch.cuda.synchronize()
+    towers = {k: v for k, v in kernels.LAUNCHES.items() if v and
+              k.startswith(("conv_", "groupnorm_", "attention_"))}
+    check(out["all_losses_finite"] and out["grad_ok"] and
+          out["known_view_steps"] == 2 and not towers and
+          "kv_psnr_final" in out and "psnr_final" in out,
+          f"the pixel oracle with a reference image: {out['losses']}, "
+          f"{out['known_view_steps']} known-view steps, towers {towers}")
+    log(f"the pixel oracle with --image analytic:two_sphere: "
+        f"{ORACLE_REF_STEPS} steps (2 known-view), known-view PSNR "
+        f"{out['kv_psnr_init']:.3f} -> {out['kv_psnr_final']:.3f} dB, "
+        f"oracle PSNR {out['psnr_init']:.3f} -> {out['psnr_final']:.3f} dB")
+    return {"step_ms": 1e3 * med, "peak_gib": peak}
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -4357,6 +4950,24 @@ def run() -> dict:
                                 os.path.join(build, "chip_smoke_options_ws"),
                                 smi_line, results)
     log(f"-O2 and field-option paths in {time.time() - t_v:.1f} s")
+
+    # ---- snapshots, txt2img and the guidance sets (slice 10) ---------------
+    t_g = time.time()
+    decode_ms = decoder_kernel_phases(torch, kernels, results, smi_line)
+    snap_s = snapshot_phases(torch, port_main, kernels, png,
+                             os.path.join(build, "chip_smoke_ws",
+                                          "checkpoints"),
+                             os.path.join(build, "chip_smoke_snap_ws"),
+                             smi_line)
+    t2i = txt2img_phase(torch, kernels,
+                        os.path.join(build, "chip_smoke_txt2img"), smi_line)
+    sets = guidance_sets_phase(torch, port_main, kernels, png,
+                               os.path.join(build, "chip_smoke_sets_ws"),
+                               smi_line)
+    log(f"snapshots, txt2img and guidance sets in {time.time() - t_g:.1f} s:"
+        f" decode ms {_rounded(decode_ms)}, s a snapshot "
+        f"{_rounded(snap_s)}, s a DDIM step {_rounded(t2i)}, multi-prior "
+        f"{_rounded(sets)}; on {smi_line}")
 
     def launches_of(name):
         if name in ("vanilla_coarse", "vanilla_resample"):

@@ -175,6 +175,10 @@ class Config:
     # a text run's eval metric: the CLIP similarity of its eval renders
     # (``Trainer.set_clip_scorer``), so --ckpt best keeps the best snapshot
     clip_eval: bool = True
+    # after an eval, every save_guidance_interval epochs: a triptych per
+    # diffusion prior (render | noised | one-step denoised) under guidance/
+    save_guidance: bool = False
+    save_guidance_interval: int = 10
     exp_start_iter: Optional[int] = None
     exp_end_iter: Optional[int] = None
 

@@ -17,10 +17,19 @@ loaded (``load_pretrained`` with ``t5.npz`` or a raw ``text_encoder/``;
 tokenizer as JAX's ``main`` gives them; else JAX's fallback, an md5-seeded
 numpy normal draw per prompt, bit for bit.  The tower is freed with
 ``free_t5`` before the first step.
+
+``guidance_eval`` is the ``--save_guidance`` snapshot (the noised 64²
+render and the one-step denoised x0, both in pixels); ``produce_imgs`` and
+the CLI below are txt2img at 64² (DDIM with classifier-free guidance on
+the cosine schedule).
+
+    python -m dreamfusion_tpu_torch.guidance.deepfloyd "a hamburger" \\
+        --steps 20 --out if_sample.png [--weights root] [--tiny] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -40,7 +49,7 @@ from ..utils.params import load_params_npz
 from ..utils.raw_weights import convert_if
 from .embeddings import DIRECTION_SUFFIXES, HashTokenizer
 from .perpneg import weighted_perpendicular_aggregator
-from .schedule import NoiseSchedule, make_schedule
+from .schedule import NoiseSchedule, ddim_sample, make_schedule
 
 
 @dataclass(frozen=True)
@@ -219,6 +228,14 @@ class IFGuidance:
                             torch.cat([t] * copies), context)
         return out[..., :3]                       # the variance half dropped
 
+    def _cfg_eps(self, noisy, t, text_z_cond, text_z_uncond,
+                 guidance_scale: float) -> torch.Tensor:
+        """The classifier-free guided noise prediction (one UNet call at
+        batch 2B: uncond rows, then cond)."""
+        e_u, e_c = self._eps(noisy, t, torch.cat([text_z_uncond,
+                                                  text_z_cond]), 2).chunk(2)
+        return e_u + guidance_scale * (e_c - e_u)
+
     def _sds(self, images, noise, noise_pred, t,
              grad_scale: float) -> torch.Tensor:
         """0.5 |images - sg(images - g)|² / B, g = w(t)(ε̂ - ε)."""
@@ -237,10 +254,23 @@ class IFGuidance:
         del posterior_noise, as_latent
         images = self._images(pred_rgb)
         noisy = self.schedule.add_noise(images, noise, t).detach()
-        eps = self._eps(noisy, t, torch.cat([text_z_uncond, text_z_cond]), 2)
-        e_u, e_c = eps.chunk(2)
-        return self._sds(images, noise, e_u + guidance_scale * (e_c - e_u),
-                         t, grad_scale)
+        return self._sds(images, noise, self._cfg_eps(
+            noisy, t, text_z_cond, text_z_uncond, guidance_scale), t,
+            grad_scale)
+
+    @torch.no_grad()
+    def guidance_eval(self, text_z_cond, text_z_uncond, pred_rgb, t, noise,
+                      posterior_noise=None, guidance_scale: float = 100.0):
+        """The ``--save_guidance`` snapshot: pred_rgb [B, h, w, 3] resized
+        to the UNet's side, noised at `t` by `noise`, denoised in one step
+        by the guided prediction → (noised, x0), [B, 64, 64, 3] in [0, 1] at
+        full width.  `posterior_noise` is unused (no VAE)."""
+        del posterior_noise
+        noisy = self.schedule.add_noise(self._images(pred_rgb), noise, t)
+        x0 = self.schedule.predict_start_from_noise(noisy, t, self._cfg_eps(
+            noisy, t, text_z_cond, text_z_uncond, guidance_scale))
+        return (torch.clamp(noisy / 2 + 0.5, 0, 1),
+                torch.clamp(x0 / 2 + 0.5, 0, 1))
 
     def sds_loss_perpneg(self, text_z, weights, text_z_uncond, pred_rgb, t,
                          noise, posterior_noise=None,
@@ -259,3 +289,64 @@ class IFGuidance:
         noise_pred = e_u + guidance_scale * \
             weighted_perpendicular_aggregator(delta, weights, B)
         return self._sds(images, noise, noise_pred, t, grad_scale)
+
+    # ---- txt2img -------------------------------------------------------------
+    @torch.no_grad()
+    def produce_imgs(self, text_z_cond, text_z_uncond, images: torch.Tensor,
+                     num_inference_steps: int = 20,
+                     guidance_scale: float = 7.0) -> torch.Tensor:
+        """DDIM (eta 0) with classifier-free guidance on the cosine schedule
+        from `images` [B, s, s, 3] (standard normal pixels) → [B, s, s, 3]
+        in [0, 1]."""
+        x = ddim_sample(self.schedule, lambda x, t: self._cfg_eps(
+            x, t, text_z_cond, text_z_uncond, guidance_scale), images,
+            self.cfg.num_train_timesteps, num_inference_steps)
+        return torch.clamp(x / 2 + 0.5, 0, 1)
+
+
+def _main(argv=None) -> str:
+    """Text → image with IF stage 1 (JAX's ``_main``): the prompt's
+    embeddings (T5 where ``--weights`` holds one, else JAX's md5
+    stand-ins), ``produce_imgs`` from standard normal pixels drawn from the
+    seed, the first image written as a PNG (64² at full width) → its
+    path.  Random weights from the seed unless ``--weights`` names a
+    converted root or a diffusers IF directory; bf16 weights at full width;
+    on the GPU unless ``--device cpu``."""
+    from ..utils.image import save_image
+
+    ap = argparse.ArgumentParser("deepfloyd-if txt2img")
+    ap.add_argument("prompt", type=str)
+    ap.add_argument("--negative", default="")
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--weights", default=None)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--scale", type=float, default=7.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="if_sample.png")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    g = IFGuidance(IFConfig(tiny=args.tiny), dev,
+                   None if args.tiny else torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.weights:
+        g.load_pretrained(args.weights, gen)
+    else:
+        g.init_params(gen)
+    emb = g.prepare_embeddings(args.prompt, args.negative)
+    g.free_t5()
+    s = g.latent_size
+    images = torch.randn((1, s, s, 3), generator=gen, device=dev)
+    img = g.produce_imgs(emb["default"], emb["uncond"], images,
+                         num_inference_steps=args.steps,
+                         guidance_scale=args.scale)
+    if not bool(torch.isfinite(img).all()):
+        raise RuntimeError("the image is not finite")
+    save_image(args.out, img[0].float().cpu().numpy())
+    print(f"wrote {args.out}")
+    return args.out
+
+
+if __name__ == "__main__":
+    _main()

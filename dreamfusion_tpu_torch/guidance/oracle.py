@@ -1,12 +1,21 @@
-"""Pixel-space oracle SDS priors (``dreamfusion_tpu/guidance/oracle.py``,
-``PixelOracleGuidance.sds_loss_rays`` and the image oracle's
-``ImageOracleGuidance.sds_loss_rays_pose``).
+"""Oracle SDS priors (``dreamfusion_tpu/guidance/oracle.py``): the
+pixel-space ``PixelOracleGuidance.sds_loss_rays``, the image oracle's
+``ImageOracleGuidance.sds_loss_rays_pose`` and the latent
+``OracleGuidance``.
 
 The closed-form "denoiser" predicts the noise that maps the noised render
 back to the analytic target view of the same cameras,
 eps_hat = (x_t − sqrt(ᾱ_t)·x_target) / sqrt(1 − ᾱ_t), and the loss is
 the reference's reparameterized SDS loss.  The timestep and the noise are
 arguments, drawn by ``training/trainer.py::draw_step``.
+
+``OracleGuidance`` is the same denoiser in SD's latent space, toward a
+target image: SD's real machinery (the resize, the VAE encode with its
+gradient into the render, the noising, the reparameterized loss) with the
+UNet replaced by the closed form.  The target goes through the same
+encoder with the same posterior draw as the render, so the sampling noise
+cancels in z − z_target.  No run of ``main`` builds it (JAX's neither);
+its users drive a field toward a known view through a VAE.
 """
 
 from __future__ import annotations
@@ -17,7 +26,32 @@ import torch
 
 from ..evaluation.analytic import SCENES, scene_views
 from .schedule import make_schedule
+from .sd import StableDiffusionGuidance
 from .zero123 import pose_angle_grad_scale
+
+
+class OracleGuidance(StableDiffusionGuidance):
+    """SD's towers and schedule with a closed-form UNet: the target image
+    takes the text embedding's place."""
+
+    def sds_loss(self, target_rgb, _uncond, pred_rgb, t, noise,
+                 posterior_noise, guidance_scale: float = 1.0,
+                 as_latent: bool = False, grad_scale: float = 1.0):
+        """target_rgb and pred_rgb [B, h, w, 3] in [0, 1] (rgb + alpha with
+        `as_latent`); t int [B]; noise and posterior_noise [B, ls, ls, 4]
+        standard normal.  The gradient reaches the render through the VAE
+        encoder; `guidance_scale` and `_uncond` are unused (the oracle
+        predicts the conditioned direction)."""
+        latents = self._to_latents(pred_rgb, as_latent, posterior_noise)
+        with torch.no_grad():
+            z_tgt = self._to_latents(target_rgb, as_latent, posterior_noise)
+        latents_noisy = self.schedule.add_noise(latents, noise, t).detach()
+        ac = self.schedule.alphas_cumprod_at(t)
+        shape = (-1,) + (1,) * (latents.ndim - 1)
+        eps_hat = (latents_noisy - torch.sqrt(ac).reshape(shape) * z_tgt) \
+            / torch.sqrt(1.0 - ac).reshape(shape)
+        return self._sds_from_noise_pred(latents, noise, eps_hat, t,
+                                         grad_scale)
 
 
 class PixelOracleGuidance:

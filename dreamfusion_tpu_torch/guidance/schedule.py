@@ -3,7 +3,8 @@ SD's "scaled_linear" and DeepFloyd-IF's cosine "squaredcos_cap_v2", each
 a precomputed ᾱ table (betas and their cumulative product in float64, cast
 to float32 once, as JAX does: a cumulative product of float32 betas
 drifts), ``add_noise``, ``predict_start_from_noise`` and the deterministic
-DDIM step (zero123's ``novel_view``).  The table is copied to a device
+DDIM step and the sampling loop over it (``ddim_sample``: SD's and IF's
+txt2img, zero123's ``novel_view``).  The table is copied to a device
 once and kept there (``alphas_cumprod_at``)."""
 
 from __future__ import annotations
@@ -79,6 +80,21 @@ class NoiseSchedule:
         x0 = (x_t - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
         dir_xt = torch.sqrt(torch.clamp(1 - a_prev, min=0.0)) * eps
         return torch.sqrt(a_prev) * x0 + dir_xt
+
+
+def ddim_sample(schedule: NoiseSchedule, eps_fn, x: torch.Tensor, T: int,
+                n: int) -> torch.Tensor:
+    """`n` deterministic DDIM steps from `x` at the timesteps
+    ``range(T-1, -1, -T//n)[:n]``, ``eps_fn(x, t [B])`` the guided noise
+    prediction; the last step goes to t_prev = -1 (ᾱ = 1: x0)."""
+    steps = list(range(T - 1, -1, -(T // n)))[:n]
+    B, dev = x.shape[0], x.device
+    for i, tcur in enumerate(steps):
+        t_prev = steps[i + 1] if i + 1 < len(steps) else -1
+        t = torch.full((B,), tcur, dtype=torch.long, device=dev)
+        x = schedule.ddim_step(x, eps_fn(x, t), t, torch.full(
+            (B,), t_prev, dtype=torch.long, device=dev))
+    return x
 
 
 def make_schedule(name: str, T: int = 1000) -> NoiseSchedule:

@@ -45,7 +45,7 @@ from ..ops.resize import resize_bilinear
 from ..utils.device import resolve_device
 from ..utils.params import load_pretrained_towers
 from ..utils.raw_weights import convert_zero123
-from .schedule import NoiseSchedule, make_schedule
+from .schedule import NoiseSchedule, ddim_sample, make_schedule
 
 
 def spherical_angle_between(v1: torch.Tensor, v2: torch.Tensor
@@ -301,6 +301,15 @@ class Zero123Guidance:
         return (context.reshape(2 * K * B, 1, ctx_dim),
                 concat.reshape(2 * K * B, *c_cat.shape[1:]))
 
+    def _cfg_eps(self, x, t, context, concat, guidance_scale: float
+                 ) -> torch.Tensor:
+        """The guided noise prediction of latents x [B, ls, ls, 4] against
+        the first reference (``_conditioning``'s K = 1 context and
+        c_concat): one UNet call at batch 2B."""
+        x_in = torch.cat([torch.cat([x] * 2), concat.to(x.dtype)], dim=-1)
+        e_u, e_c = self.unet(x_in, t.repeat(2), context).chunk(2)
+        return e_u + guidance_scale * (e_c - e_u)
+
     # ---- SDS ---------------------------------------------------------------
     def sds_loss(self, embeddings, pred_rgb, polar, azimuth, radius, t,
                  noise, posterior_noise, guidance_scale: float = 5.0,
@@ -349,6 +358,26 @@ class Zero123Guidance:
         targets = (lat - grad).detach()
         return 0.5 * ((lat - targets) ** 2).sum() / B
 
+    @torch.no_grad()
+    def guidance_eval(self, embeddings, pred_rgb, polar, azimuth, radius, t,
+                      noise, posterior_noise, guidance_scale: float = 5.0):
+        """The ``--save_guidance`` snapshot, conditioned on the first
+        reference at pose deltas polar, azimuth, radius [B]: pred_rgb [B, h,
+        w, 3] resized to the VAE's side and encoded (the posterior draw
+        `posterior_noise`), noised at `t` by `noise`, denoised in one step
+        by the guided prediction → (the noised latents decoded, the
+        predicted x0 decoded), [B, 256, 256, 3] in [0, 1] at full width."""
+        rgb = resize_bilinear(pred_rgb[..., :3], (self.image_size,
+                                                  self.image_size))
+        latents = self.encode_imgs(rgb, posterior_noise)
+        latents_noisy = self.schedule.add_noise(latents, noise, t)
+        cond = self._conditioning(embeddings,
+                                  camera_T(polar, azimuth, radius), 1)
+        noise_pred = self._cfg_eps(latents_noisy, t, *cond, guidance_scale)
+        x0 = self.schedule.predict_start_from_noise(latents_noisy, t,
+                                                    noise_pred)
+        return self.decode_latents(latents_noisy), self.decode_latents(x0)
+
     # ---- novel views ---------------------------------------------------------
     @torch.no_grad()
     def novel_view(self, embeddings, polar, azimuth, radius,
@@ -357,23 +386,12 @@ class Zero123Guidance:
         """DDIM (eta 0) from `latents` [B, ls, ls, 4] (standard normal) at
         pose deltas [B] from the first reference, conditioned on it → the
         decoded views [B, H, W, 3] in [0, 1]."""
-        B = polar.shape[0]
-        context, concat = self._conditioning(
-            embeddings, camera_T(polar, azimuth, radius), 1)
-        T = self.cfg.num_train_timesteps
-        stride = T // num_inference_steps
-        steps = list(range(T - 1, -1, -stride))[:num_inference_steps]
-        dev = latents.device
-        for i, tcur in enumerate(steps):
-            t_prev = steps[i + 1] if i + 1 < len(steps) else -1
-            x_in = torch.cat([torch.cat([latents] * 2),
-                              concat.to(latents.dtype)], dim=-1)
-            t_in = torch.full((2 * B,), tcur, dtype=torch.long, device=dev)
-            e_u, e_c = self.unet(x_in, t_in, context).chunk(2)
-            eps = e_u + guidance_scale * (e_c - e_u)
-            latents = self.schedule.ddim_step(
-                latents, eps, t_in[:B],
-                torch.full((B,), t_prev, dtype=torch.long, device=dev))
+        cond = self._conditioning(embeddings,
+                                  camera_T(polar, azimuth, radius), 1)
+        latents = ddim_sample(
+            self.schedule,
+            lambda x, t: self._cfg_eps(x, t, *cond, guidance_scale),
+            latents, self.cfg.num_train_timesteps, num_inference_steps)
         return self.decode_latents(latents)
 
 

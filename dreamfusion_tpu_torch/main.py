@@ -42,6 +42,12 @@
         --workspace ws_it                   # image + text: SD + CLIP
     python -m dreamfusion_tpu_torch.main --text "a hamburger" --IF \\
         --fp16 true --backbone triplane --workspace ws_if   # DeepFloyd-IF
+    python -m dreamfusion_tpu_torch.main --image_config refs.csv \\
+        --text "a hamburger" --guidance SD zero123 clip \\
+        --backbone triplane --workspace ws_multi    # three priors summed
+    python -m dreamfusion_tpu_torch.main --text "a hamburger" \\
+        --backbone triplane --save_guidance --save_guidance_interval 1 \\
+        --workspace ws_snap           # guidance/step_*_SD.png triptychs
 
 Every ``Config`` field is a flag, as in ``dreamfusion_tpu.main``; ``-O``
 applies the fp16 + hash-grid preset after the flags (``config.apply_O``),
@@ -55,10 +61,12 @@ JAX's md5-seeded stand-ins without one; ``guidance/deepfloyd.py``),
 which overrides the command line's lambdas unless ``--dont_override_stuff``)
 and with ``--text`` the image + text preset (SD + CLIP guidance,
 ``config.apply_image_text_mode``), ``--dmtet`` the DMTet preset
-(``config.apply_dmtet``), in that order.  ``--guidance clip`` (alone, or
-``SD clip``) adds CLIP guidance (``guidance/clip.py``: ViT-B/16 at full
-width, the render's gradient through it); a text run scores its evals
-with CLIP where a CLIP tower is at hand (``install_clip_scorer``).
+(``config.apply_dmtet``), in that order.  ``--guidance`` names any set of
+the priors SD, IF, zero123, clip, oracle and image_oracle; their losses are
+summed in sorted name order, each with its own draws, as JAX sums them.
+``clip`` is CLIP guidance (``guidance/clip.py``: ViT-B/16 at full width,
+the render's gradient through it); a text run scores its evals with CLIP
+where a CLIP tower is at hand (``install_clip_scorer``).
 ``--image analytic:<scene>`` with ``--guidance image_oracle`` is the
 weight-free image → 3D run: the reference image is the analytic scene's
 default view (``training/image_data.py``), the prior the image oracle
@@ -67,7 +75,9 @@ known-view step.  ``--image file.png`` (an RGBA PNG) without ``--text``
 is Zero-1-to-3 guidance (``guidance/zero123.py``) toward that reference;
 ``--image_config refs.csv`` gives K references with their poses and
 weights (``training/image_data.py``; with ``--image`` for the image
-preset, or with ``--guidance zero123``).  The run goes on the GPU;
+preset, or alone beside any ``--guidance``: its known-view steps train
+with every prior, as ``--image file.png`` does beside ``--guidance
+oracle``).  The run goes on the GPU;
 ``--device cpu`` asks for the CPU (the kernels' plain versions).  SD
 guidance runs its towers at the full width of ``--sd_version`` (2.1 by
 default; 1.5: CLIP-L and the 8-head UNet), zero123 at its own (SD 1.5's
@@ -83,9 +93,13 @@ A run resumes from ``--ckpt`` (default ``latest``; ``scratch`` starts
 afresh), logs loss and it/s every ``dataset_size_train`` steps (an epoch),
 evaluates every ``eval_interval`` epochs (validation PNGs at H×W, the
 EMA-only ``df`` checkpoint kept best by the metric) and saves the rolling
-checkpoint every ``save_interval`` epochs; the block rates leave out the
-time of evals and saves.  It ends with the turntable video (or PNG frames)
-and, with ``--save_mesh``, ``mesh/mesh.obj`` with its albedo texture.
+checkpoint every ``save_interval`` epochs; with ``--save_guidance``, after
+the eval of every ``save_guidance_interval``-th epoch, a triptych of the
+default view per diffusion prior (``Trainer.save_guidance_snapshot``:
+render | noised | one-step denoised, ``guidance/step_*_<prior>.png``); the
+block rates leave out the time of evals, snapshots and saves.  It ends
+with the turntable video (or PNG frames) and, with ``--save_mesh``,
+``mesh/mesh.obj`` with its albedo texture.
 ``--test`` renders and exports from the checkpoint without training.
 Under the oracles it also logs the analytic-scene PSNR of the EMA weights at
 the start and the end, and under ``--image`` (stage 1) the known-view masked
@@ -93,9 +107,10 @@ PSNR.  A DMTet run logs when its surface outgrew the marching tets' face
 cap (the cap then grows) or K7's tile cap, and reports the steps that
 dropped faces or cut a tile's list, and the eval and test views whose
 fullest tile passed K7's cap (``view_tile_cut``).  Flags of parts not
-ported yet raise
-NotImplementedError naming the ROADMAP queue 1 item (by its title) that
-ports them.
+ported yet (``--gui``, ``--profile``) raise NotImplementedError naming the
+ROADMAP queue 1 item (by its title) that ports them; what JAX refuses
+(zero123 without a reference, the image oracle without ``--image
+analytic:<scene>``) raises ValueError.
 """
 
 from __future__ import annotations
@@ -304,8 +319,53 @@ def build_clip_guidance(cfg: Config, tiny: bool, device, seed: int, ref,
     return clip, clip_z
 
 
+def build_priors(cfg: Config, device, tiny: bool, seed: int, ref,
+                 log=print):
+    """The towers and embeddings of every prior ``--guidance`` names that
+    has weights (SD, IF, zero123, CLIP; the trainer builds the oracles),
+    each from the seed → ({name: (guidance, embeddings)}, the start-up
+    seconds)."""
+    priors, startup = {}, {}
+    if cfg.test:
+        return priors, startup
+    # each prior's seconds under its own name where several are built
+    several = len(set(cfg.guidance) & {"SD", "IF", "zero123"}) > 1
+
+    def add(name, seconds):
+        startup.update({(f"{name}_{k}" if several else k): v
+                        for k, v in seconds.items()})
+    if "SD" in cfg.guidance:
+        t_g = time.time()
+        guidance, emb = build_sd_guidance(cfg, tiny, device, seed)
+        priors["SD"] = (guidance, emb)
+        startup["towers_and_embeddings"] = time.time() - t_g
+        n = _counts(guidance.towers())
+        log(f"[startup] SD {cfg.sd_version} guidance "
+            f"({'tiny' if tiny else 'full width'}, "
+            f"{'converted' if cfg.pretrained_root and not tiny else 'random'}"
+            f" weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
+            f"{n['text']:.2f}M parameters) and embeddings in "
+            f"{time.time() - t_g:.1f} s")
+    if "IF" in cfg.guidance:
+        guidance, emb, s = build_if_guidance(cfg, tiny, device, seed, log)
+        priors["IF"] = (guidance, emb)
+        add("IF", s)
+    if "zero123" in cfg.guidance:
+        guidance, emb, s = build_zero123_guidance(cfg, tiny, device, seed,
+                                                  ref, log)
+        priors["zero123"] = (guidance, emb)
+        add("zero123", s)
+    if "clip" in cfg.guidance:
+        t_g = time.time()
+        priors["clip"] = build_clip_guidance(cfg, tiny, device, seed, ref,
+                                             log)
+        startup["clip"] = time.time() - t_g
+    return priors, startup
+
+
 def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
     """The trainer, its state and the step generator of a run."""
+    device = resolve_device(device)
     seed = cfg.seed or 0
     ref = None
     if cfg.image is not None and cfg.image.startswith("analytic:"):
@@ -314,33 +374,11 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
                                   cfg.image.split(":", 1)[1])
     elif cfg.image is not None or cfg.image_config is not None:
         ref = load_ref_images(cfg, cfg.h, cfg.w)
-    guidance = emb = clip = clip_z = None
-    startup: Dict[str, float] = {}
-    if "SD" in cfg.guidance and not cfg.test:
-        t_g = time.time()
-        guidance, emb = build_sd_guidance(cfg, tiny_guidance, device, seed)
-        startup["towers_and_embeddings"] = time.time() - t_g
-        n = _counts(guidance.towers())
-        log(f"[startup] SD {cfg.sd_version} guidance "
-            f"({'tiny' if tiny_guidance else 'full width'}, "
-            f"{'converted' if cfg.pretrained_root and not tiny_guidance else 'random'}"
-            f" weights: UNet {n['unet']:.2f}M, VAE {n['vae']:.2f}M, text "
-            f"{n['text']:.2f}M parameters) and embeddings in "
-            f"{time.time() - t_g:.1f} s")
-    elif cfg.guidance == ("IF",) and not cfg.test:
-        guidance, emb, startup = build_if_guidance(cfg, tiny_guidance,
-                                                   device, seed, log)
-    elif cfg.guidance == ("zero123",) and not cfg.test:
-        guidance, emb, startup = build_zero123_guidance(
-            cfg, tiny_guidance, device, seed, ref, log)
-    if "clip" in cfg.guidance and not cfg.test:
-        t_g = time.time()
-        clip, clip_z = build_clip_guidance(cfg, tiny_guidance, device, seed,
-                                           ref, log)
-        startup["clip"] = time.time() - t_g
-    kw = dict(ref_images=ref, clip=clip, clip_z=clip_z)
+    priors, startup = build_priors(cfg, device, tiny_guidance, seed, ref,
+                                   log)
+    kw = dict(ref_images=ref, priors=priors)
     if cfg.dmtet:
-        trainer = DMTetTrainer(cfg, device, guidance, emb, **kw)
+        trainer = DMTetTrainer(cfg, device, **kw)
         t_i = time.time()
         state = trainer.init_state(seed, cfg.init_with)
         _sync(trainer.device)
@@ -348,7 +386,7 @@ def build_run(cfg: Config, device, tiny_guidance: bool, log=print):
         log(f"[startup] DMTet state from {cfg.init_with or 'a sphere'} in "
             f"{trainer.init_seconds:.3f} s")
     else:
-        trainer = Trainer(cfg, device, guidance, emb, **kw)
+        trainer = Trainer(cfg, device, **kw)
         state = trainer.init_state(seed)
     trainer.startup = startup
     return trainer, state, torch.Generator(device=device).manual_seed(seed)
@@ -362,7 +400,7 @@ def install_clip_scorer(trainer, cfg: Config, tiny: bool, log=print) -> None:
     if cfg.test or not cfg.clip_eval or trainer.ref_images is not None or \
             not cfg.text:
         return
-    clip, clip_z = trainer.clip, trainer.clip_z
+    clip, clip_z = trainer.priors.get("clip", (None, None))
     if clip is None:
         root = cfg.pretrained_root
         has_w = bool(root) and os.path.exists(os.path.join(root, "clip.npz"))
@@ -378,7 +416,7 @@ def install_clip_scorer(trainer, cfg: Config, tiny: bool, log=print) -> None:
     if clip_z:
         trainer.set_clip_scorer(clip, clip_z)
         log(f"[startup] eval metric: the CLIP score "
-            f"({'the guidance' if clip is trainer.clip else 'a scorer'})")
+            f"({'the guidance' if 'clip' in trainer.priors else 'a scorer'})")
 
 
 def _sync(device) -> None:
@@ -403,7 +441,7 @@ def main(argv=None) -> Dict[str, Any]:
         with open(log_path, "a") as f:
             f.write(msg + "\n")
 
-    oracle = cfg.guidance in (("oracle",), ("image_oracle",))
+    oracle = any(g in ("oracle", "image_oracle") for g in cfg.guidance)
     trainer, state, gen = build_run(cfg, device, args.tiny_guidance, log)
     install_clip_scorer(trainer, cfg, args.tiny_guidance, log)
     known_view = trainer.ref_images is not None and not cfg.dmtet
@@ -478,6 +516,7 @@ def main(argv=None) -> Dict[str, Any]:
     t0 = t_blk = time.time()
     s_blk = start = state.step
     n_known = 0
+    snaps = []          # the --save_guidance triptychs
     for _ in range(start, cfg.iters):
         n_known += trainer.is_known_view_step(state.step)
         if cfg.dmtet:
@@ -512,9 +551,13 @@ def main(argv=None) -> Dict[str, Any]:
                 metric = timed("eval", trainer.evaluate, state)
                 timed("save", trainer.save_checkpoint, state, full=False,
                       metric=metric)
+            if cfg.save_guidance and trainer.priors and epoch > 0 and \
+                    epoch % max(cfg.save_guidance_interval, 1) == 0:
+                snaps += timed("guidance_snapshot",
+                               trainer.save_guidance_snapshot, state)
             if epoch % max(cfg.save_interval, 1) == 0 or done == cfg.iters:
                 timed("save", trainer.save_checkpoint, state)
-            # the block rates leave out evals and saves
+            # the block rates leave out evals, snapshots and saves
             t_blk, s_blk = time.time(), done
     n_run = state.step - start
     if blocks:
@@ -530,6 +573,7 @@ def main(argv=None) -> Dict[str, Any]:
         latent_phase=[trainer.latent_phase(s) for s in range(start,
                                                              cfg.iters)],
         steps_run=n_run, known_view_steps=n_known,
+        guidance_snapshots=snaps,
         **{f"{g}_grad_max": [row[k] for row in gm]
            for k, g in enumerate(groups)})
     if cfg.dmtet and extra:

@@ -6,10 +6,10 @@ mesh file>``): trainable (sdf, deform) on a tetrahedral grid beside the
 NeRF field, reused as a texture field.  One step: marching tets (K8) →
 rasterization (K7) → albedo query (K6 or K1, + K4) → shading → the SDS of
 the pixel oracle, the image oracle, Stable Diffusion (the VAE encodes the
-render at its own size, 512² at the DMTet preset) or Zero-1-to-3 (the
-render resized to its VAE's 256²; the gradient clamped by K5 under
-``--grad_clip_rgb``), with CLIP's term beside SD under the image + text
-recipe + normal-consistency and Laplacian
+render at its own size, 512² at the DMTet preset), DeepFloyd-IF or
+Zero-1-to-3 (the render resized to its VAE's 256²; the gradient clamped by
+K5 under ``--grad_clip_rgb``), and CLIP's term, summed as stage 1 sums
+them + normal-consistency and Laplacian
 regularizers → backward → guarded Adan → EMA.  Under ``--image`` every
 ``known_view_interval``-th step is a known-view step instead: the reference
 view rendered through K7 at the render's own size, with rgb, mask and the
@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,9 +55,10 @@ from ..models.renderer import NeRFRenderer
 from ..training import schedules
 from .data import CameraBatch
 from .image_data import RefImages
-from .trainer import (Trainer, _samplers, build_renderer, draw_t,
-                      draw_view, ema_copy, guarded_update, newest_checkpoint,
-                      optimizer_for, train_batch)
+from .trainer import (PIXELS, NoiseSpec, PriorDraws, Trainer,
+                      build_renderer, draw_priors, draw_view, ema_copy,
+                      guarded_update, newest_checkpoint, optimizer_for,
+                      prior_fields, train_batch)
 
 
 class DMTetDraws(NamedTuple):
@@ -65,29 +66,19 @@ class DMTetDraws(NamedTuple):
     pose: PoseDraws
     fov: torch.Tensor                  # [] degrees
     choice: schedules.ChoiceDraws
-    t: torch.Tensor                    # [B] int64 diffusion timestep
-    noise: torch.Tensor                # [B, h, w, 3] pixel noise (oracles),
-    #                                    [B, ls, ls, 4] latents (SD) or
-    #                                    [B, 64, 64, 3] pixels (IF)
-    posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
+    t: Optional[torch.Tensor] = None   # the first drawing prior's
+    noise: Optional[torch.Tensor] = None     # ``PriorDraws`` (none under
+    posterior_noise: Optional[torch.Tensor] = None   # CLIP alone)
+    extra: Optional[Dict[str, PriorDraws]] = None   # the other priors'
 
 
 def draw_dmtet_step(gen: torch.Generator, cfg: Config, device,
-                    latent_size: Optional[int] = None, channels: int = 4,
-                    posterior: bool = True) -> DMTetDraws:
-    """One step's draws; ``latent_size`` set means a diffusion prior's
-    noise at its own side and `channels` instead of the render's pixel
-    noise: SD's and zero123's latents with the VAE posterior draw
-    (`posterior`), DeepFloyd-IF's 64² pixels."""
+                    specs: Sequence[Tuple[str, NoiseSpec]] = PIXELS
+                    ) -> DMTetDraws:
+    """One step's draws: the view, then each prior's (``draw_priors``)."""
     pose, fov, choice = draw_view(gen, cfg, device)
-    t = draw_t(gen, cfg, device)
-    _, N = _samplers(gen, device)
-    B = cfg.batch_size
-    if latent_size is None:
-        return DMTetDraws(pose, fov, choice, t, N(B, cfg.h, cfg.w, 3))
-    ls = latent_size
-    return DMTetDraws(pose, fov, choice, t, N(B, ls, ls, channels),
-                      N(B, ls, ls, channels) if posterior else None)
+    return DMTetDraws(pose, fov, choice, **prior_fields(
+        draw_priors(gen, cfg, device, specs)))
 
 
 def face_cap(n_faces: int, tet_grid_size: int, num_tets: int) -> int:
@@ -132,14 +123,14 @@ class DMTetTrainer(Trainer):
     EXTRA_STATE = ("tet_scale",)
 
     def __init__(self, cfg: Config, device="cuda", guidance=None,
-                 embeddings: Optional[Dict[str, torch.Tensor]] = None,
-                 tet_grid: Optional[TetGrid] = None,
+                 embeddings=None, tet_grid: Optional[TetGrid] = None,
                  ref_images: Optional[RefImages] = None, clip=None,
-                 clip_z: Optional[Dict[str, torch.Tensor]] = None):
-        """``guidance`` and ``embeddings``: SD's or zero123's towers and
-        embeddings, ``clip`` and ``clip_z`` CLIP's, as ``Trainer``'s."""
+                 clip_z: Optional[Dict[str, torch.Tensor]] = None,
+                 priors: Optional[Dict[str, Tuple[Any, Any]]] = None):
+        """The priors as ``Trainer``'s."""
         super().__init__(cfg, device, guidance, embeddings,
-                         ref_images=ref_images, clip=clip, clip_z=clip_z)
+                         ref_images=ref_images, clip=clip, clip_z=clip_z,
+                         priors=priors)
         if tet_grid is None:
             # a cube lattice of n = size // 2 has the tet density of the
             # reference's quartet grid of that size
@@ -244,8 +235,7 @@ class DMTetTrainer(Trainer):
                      f"{dmr.tile_cap}")
 
     def draw_step(self, gen: torch.Generator) -> DMTetDraws:
-        return draw_dmtet_step(gen, self.cfg, self.device, self.latent_size,
-                               *self.noise_draw)
+        return draw_dmtet_step(gen, self.cfg, self.device, self.noise_specs)
 
     def draw_known_view(self, gen: torch.Generator) -> DMTetKnownViewDraws:
         K = self.ref_images.rgb.shape[0]

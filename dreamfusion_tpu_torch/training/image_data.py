@@ -9,9 +9,11 @@ alpha > 0.5) and its ``*_depth.png`` and ``*_normal.png`` sidecars where
 every reference has them, each resized to the known-view size by
 ``pil_bilinear_resize``: Pillow's ``BILINEAR`` resize of the uint8 image
 (clipped and truncated to uint8 first, as JAX hands it to Pillow), which
-the GPU host lacks, written out in numpy: the triangle filter widened by
-the scale when it shrinks, fixed-point weights of 22 fractional bits, the
-rows resized before the columns with a uint8 rounding between.
+the GPU host lacks, written out in numpy: the filter (triangle, or
+Pillow's default ``BICUBIC`` with a = -0.5 in ``pil_resize_uint8``)
+widened by the scale when it shrinks, fixed-point weights of 22 fractional
+bits, the rows resized before the columns with a uint8 rounding and clip
+between.
 """
 
 from __future__ import annotations
@@ -45,21 +47,40 @@ class RefImages:
     weights: Tuple[float, ...] = (1.0,)
 
 
+def _triangle(x: float) -> float:
+    return max(0.0, 1.0 - abs(x))
+
+
+def _bicubic(x: float) -> float:
+    """Pillow's ``bicubic_filter`` (a = -0.5)."""
+    a, x = -0.5, abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# Pillow's filters: (function, support)
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_bicubic, 2.0)}
+
+
 @functools.lru_cache(maxsize=32)
-def _pil_weights(n_in: int, n_out: int) -> np.ndarray:
-    """Pillow's fixed-point bilinear weights [n_out, n_in] (int64):
+def _pil_weights(n_in: int, n_out: int,
+                 resample: str = "bilinear") -> np.ndarray:
+    """Pillow's fixed-point weights [n_out, n_in] (int64) of a filter:
     ``precompute_coeffs`` + ``normalize_coeffs_8bpc``, sums in its
     order."""
+    fn, support = _FILTERS[resample]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = filterscale                    # BILINEAR's support is 1
+    support = support * filterscale
     out = np.zeros((n_out, n_in), np.int64)
     for o in range(n_out):
         center = (o + 0.5) * scale
         lo = max(int(center - support + 0.5), 0)
         n = min(int(center + support + 0.5), n_in) - lo
-        w = [max(0.0, 1.0 - abs((x + lo - center + 0.5) / filterscale))
-             for x in range(n)]
+        w = [fn((x + lo - center + 0.5) / filterscale) for x in range(n)]
         total = 0.0
         for v in w:
             total += v
@@ -77,6 +98,19 @@ def _pil_pass(x: np.ndarray, w: np.ndarray, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def pil_resize_uint8(x: np.ndarray, H: int, W: int,
+                     resample: str = "bicubic") -> np.ndarray:
+    """uint8 [h, w] or [h, w, 3] → uint8 [H, W(, 3)], as Pillow's
+    ``Image.fromarray(x).resize((W, H), resample)`` (its default filter,
+    ``BICUBIC``, unless asked)."""
+    h, w = x.shape[:2]
+    if w != W:
+        x = _pil_pass(x, _pil_weights(w, W, resample), 1)
+    if h != H:
+        x = _pil_pass(x, _pil_weights(h, H, resample), 0)
+    return x
+
+
 def pil_bilinear_resize(img: np.ndarray, H: int, W: int) -> np.ndarray:
     """Float [h, w] or [h, w, 3] → [H, W(, 3)] float32 in [0, 1], as
     ``Image.fromarray((clip(img, 0, 1) * 255).astype(uint8)).resize((W,
@@ -84,12 +118,8 @@ def pil_bilinear_resize(img: np.ndarray, H: int, W: int) -> np.ndarray:
     Pillow resizes RGBA premultiplied, which no reference needs."""
     if img.ndim == 3 and img.shape[-1] not in (1, 3):
         raise ValueError(f"grey or RGB images only, got {img.shape}")
-    x = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-    h, w = x.shape[:2]
-    if w != W:
-        x = _pil_pass(x, _pil_weights(w, W), 1)
-    if h != H:
-        x = _pil_pass(x, _pil_weights(h, H), 0)
+    x = pil_resize_uint8((np.clip(img, 0, 1) * 255).astype(np.uint8), H, W,
+                         "bilinear")
     return x.astype(np.float32) / 255.0
 
 

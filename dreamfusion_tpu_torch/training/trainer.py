@@ -1,15 +1,18 @@
-"""The training step (``dreamfusion_tpu/training/trainer.py``, cut to the
-ported paths): state init, the step (render → SDS from the pixel oracle,
-the image oracle, Stable Diffusion, DeepFloyd-IF (pixel space: the render
-resized to 64²) or Zero-1-to-3, and/or CLIP's
-similarity term → entropy, orient and normal-smoothness regularizers, the
-hash grid's tv and weight decay and the triplane's tv → backward → guarded
-Adan or Adam → EMA), the density-grid update (the grid and the triplane;
-the vanilla field renders without one and keeps JAX's zeros), and the
-run's end: eval renders with the analytic-scene PSNR (under ``--image``,
-the known-view masked PSNR; for a text run with a CLIP scorer, its CLIP score), the turntable video and the
-checkpoints (``torch.save``; the rolling ``df_ep*`` ones and the EMA-only
-``df`` kept best by the eval metric).
+"""The training step (``dreamfusion_tpu/training/trainer.py``): state init,
+the step (render → the summed loss of every prior of ``--guidance``, in
+sorted name order as JAX sums them: DeepFloyd-IF (pixel space: the render
+resized to 64²), Stable Diffusion, CLIP's similarity term, the image
+oracle, the pixel oracle and Zero-1-to-3 → entropy, orient and
+normal-smoothness regularizers, the hash grid's tv and weight decay and
+the triplane's tv → backward → guarded Adan or Adam → EMA), the
+density-grid update (the grid and the triplane; the vanilla field renders
+without one and keeps JAX's zeros), the ``--save_guidance`` triptychs
+(``save_guidance_snapshot``) and the run's end: eval renders with the
+analytic-scene PSNR (under ``--image`` or ``--image_config``, the
+known-view masked PSNR; for a text run with a CLIP scorer, its CLIP
+score), the turntable video and the checkpoints (``torch.save``; the
+rolling ``df_ep*`` ones and the EMA-only ``df`` kept best by the eval
+metric).
 
 Under SD the first ``latent_iter_ratio`` of the run is the warm-up phase:
 normal shading at ambient 1, no background MLP, and the rgb + alpha render
@@ -25,11 +28,16 @@ kinds of step (K5, ``ops/clip_grad.py``).
 Every random number a step uses is drawn up front by ``draw_step`` (and
 ``draw_grid`` for the grid update, ``draw_known_view`` for a known-view
 step) from a ``torch.Generator``; the step itself is deterministic, so the
-tests can hand it the JAX package's draws instead.  The pose and FOV draws
-are unit uniforms, scaled by the step's ranges (progressive under
-``--progressive_view``) in ``data.scale_view_draws``.  The JAX step is a
-pure function; this one updates the parameters, optimizer moments and EMA
-in place (``apply_updates_guarded``) to keep one copy of each.
+tests can hand it the JAX package's draws instead.  Each prior that draws
+(the diffusion priors and the oracles; CLIP draws nothing) takes its own
+timestep and noise, and the VAE priors a posterior draw, in sorted name
+order: the first one's in ``StepDraws.t``, ``noise`` and
+``posterior_noise``, the others' in ``StepDraws.extra`` by name.  The
+pose and FOV draws are unit uniforms, scaled by the step's ranges
+(progressive under ``--progressive_view``) in ``data.scale_view_draws``.
+The JAX step is a pure function; this one updates the parameters,
+optimizer moments and EMA in place (``apply_updates_guarded``) to keep one
+copy of each.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ import json
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -67,47 +76,33 @@ from ..utils.image import colorize_depth, save_image, save_video
 from . import schedules
 from .data import (CameraBatch, circle_view_batch, default_view_batch,
                    sample_train_batch, scale_view_draws, six_view_batch)
-from .image_data import RefImages, masked_pearson
+from .image_data import RefImages, masked_pearson, pil_resize_uint8
 from .optimizer import build_optimizer, state_tensors
 
 
-# titles of ROADMAP.md's queue 1 items, as the refusals name them
-_IMAGE = "Zero-1-to-3 and the file-based image mode"
-_CLIP = "CLIP guidance and image + text"
-# the guidance sets of the ported slice: one prior, or SD and CLIP summed
-_PORTED_GUIDANCE = (("oracle",), ("image_oracle",), ("SD",), ("IF",),
-                    ("zero123",), ("clip",), ("SD", "clip"))
+# the priors ``--guidance`` may name, and those that diffuse (their towers
+# and embeddings come from ``main.build_run``)
+PRIORS = ("IF", "SD", "clip", "image_oracle", "oracle", "zero123")
+DIFFUSION = ("IF", "SD", "zero123")
 
 
 def check_slice(cfg: Config) -> None:
-    """Refuse configurations outside the ported slice, naming the ROADMAP
-    queue 1 item (by its title) that ports them."""
-    gd = tuple(cfg.guidance)
-    analytic = cfg.image is not None and cfg.image.startswith("analytic:")
+    """Refuse what JAX's ``main`` refuses (a backbone it does not know,
+    zero123 without a reference image, the image oracle without an analytic
+    one), and a prior name it does not know."""
     refs = cfg.image is not None or cfg.image_config is not None
-    if gd == ("zero123",) and not refs:
+    for name in cfg.guidance:
+        if name not in PRIORS:
+            raise ValueError(f"unknown guidance {name!r}: one of {PRIORS}")
+    if "zero123" in cfg.guidance and not refs:
         raise ValueError("zero123 guidance needs a reference image: "
                          "--image or --image_config")
+    if "image_oracle" in cfg.guidance and not (
+            cfg.image is not None and cfg.image.startswith("analytic:")):
+        raise ValueError("--guidance image_oracle needs --image "
+                         "analytic:<scene>")
     if cfg.backbone not in ("grid", "triplane", "vanilla"):
         raise ValueError(f"unknown backbone {cfg.backbone!r}")
-    todo = {
-        "guidance other than the pixel oracle, the image oracle, SD, IF, "
-        "zero123 or CLIP alone, or SD with CLIP": (
-            tuple(sorted(gd)) not in _PORTED_GUIDANCE, _CLIP),
-        "SD or IF guidance with reference images but no CLIP "
-        "(--image_config without --image)": (
-            gd in (("SD",), ("IF",)) and refs, _CLIP),
-        "CLIP guidance alone with reference images": (
-            gd == ("clip",) and refs, _CLIP),
-        "the pixel oracle with a reference image": (
-            gd == ("oracle",) and refs, _IMAGE),
-        "--guidance image_oracle without --image analytic:<scene>": (
-            gd == ("image_oracle",) and not analytic, _IMAGE),
-    }
-    for what, (hit, item) in todo.items():
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1: {item})")
 
 
 GRID_FIELDS = ("grid_levels", "grid_features_per_level",
@@ -162,6 +157,24 @@ def draw_march(U, cfg: Config, R: int):
 # random draws
 # ---------------------------------------------------------------------------
 
+class NoiseSpec(NamedTuple):
+    """A prior's draws: noise of `side`² x `channels` (None: the render's
+    h x w pixels, 3 channels), and a VAE posterior draw of the same shape
+    with `posterior`."""
+    side: Optional[int] = None
+    channels: int = 3
+    posterior: bool = False
+
+
+class PriorDraws(NamedTuple):
+    """One prior's draws in a step or a snapshot."""
+    t: torch.Tensor                    # [B] int64 diffusion timestep
+    noise: torch.Tensor                # [B, h, w, 3] pixels (oracles),
+    #                                    [B, ls, ls, 4] latents (SD,
+    #                                    zero123) or [B, 64, 64, 3] (IF)
+    posterior_noise: Optional[torch.Tensor] = None   # like noise (VAE)
+
+
 class StepDraws(NamedTuple):
     """Every random number of one main step."""
     pose: PoseDraws
@@ -169,16 +182,15 @@ class StepDraws(NamedTuple):
     choice: schedules.ChoiceDraws
     march_u: torch.Tensor              # [B*h*w, grid_fine_steps] stratified
     #                                    (vanilla: [B*h*w, num_steps] unit)
-    t: torch.Tensor                    # [B] int64 diffusion timestep
-    noise: torch.Tensor                # [B, h, w, 3] pixels (oracle),
-    #                                    [B, ls, ls, 4] latents (SD) or
-    #                                    [B, 64, 64, 3] pixels (IF)
-    posterior_noise: Optional[torch.Tensor] = None   # [B, ls, ls, 4] (SD)
+    t: Optional[torch.Tensor] = None   # the first drawing prior's
+    noise: Optional[torch.Tensor] = None     # ``PriorDraws`` (none under
+    posterior_noise: Optional[torch.Tensor] = None   # CLIP alone)
     tv_cells: Optional[torch.Tensor] = None   # [L, 4096, 3] (grid, tv > 0)
     perturb_noise: Optional[torch.Tensor] = None  # [B*h*w*S, 3] normal
     #                                    (the 3-D normal-smoothness loss)
     pdf_u: Optional[torch.Tensor] = None  # [B*h*w, upsample_steps]
     #                                    stratified (vanilla)
+    extra: Optional[Dict[str, PriorDraws]] = None   # the other priors'
 
 
 class KnownViewDraws(NamedTuple):
@@ -229,34 +241,56 @@ def train_batch(cfg: Config, pose: PoseDraws, fov: torch.Tensor, step: int,
     return sample_train_batch(pose, fov, cfg, H, W)
 
 
-def draw_t(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
-    """[B] int64 diffusion timesteps in the t_range."""
+def draw_t(gen: torch.Generator, cfg: Config, device,
+           B: Optional[int] = None) -> torch.Tensor:
+    """[B] (default: the batch size) int64 diffusion timesteps in the
+    t_range."""
     lo, hi = (int(1000 * cfg.t_range[0]), int(1000 * cfg.t_range[1]))
-    return torch.randint(lo, hi + 1, (cfg.batch_size,), generator=gen,
+    return torch.randint(lo, hi + 1, (B or cfg.batch_size,), generator=gen,
                          device=device)
 
 
+PIXELS = (("oracle", NoiseSpec()),)
+
+
+def draw_priors(gen: torch.Generator, cfg: Config, device,
+                specs: Sequence[Tuple[str, NoiseSpec]],
+                B: Optional[int] = None) -> Dict[str, PriorDraws]:
+    """Each prior's t, noise and posterior draw, in the order of `specs`
+    ((name, NoiseSpec) pairs)."""
+    B = B or cfg.batch_size
+    _, N = _samplers(gen, device)
+    out = {}
+    for name, sp in specs:
+        t = draw_t(gen, cfg, device, B)
+        shape = (B, cfg.h, cfg.w, 3) if sp.side is None else \
+            (B, sp.side, sp.side, sp.channels)
+        out[name] = PriorDraws(t, N(*shape),
+                               N(*shape) if sp.posterior else None)
+    return out
+
+
+def prior_fields(draws: Dict[str, PriorDraws]) -> Dict[str, Any]:
+    """``draw_priors``' draws as StepDraws' (or DMTetDraws') fields: the
+    first prior's t, noise and posterior_noise, the rest in ``extra``."""
+    if not draws:
+        return {}
+    first, *rest = draws
+    return dict(draws[first]._asdict(),
+                extra={n: draws[n] for n in rest} or None)
+
+
 def draw_step(gen: torch.Generator, cfg: Config, device,
-              latent_size: Optional[int] = None, channels: int = 4,
-              posterior: bool = True) -> StepDraws:
-    """One step's draws; ``latent_size`` set means a diffusion prior's
-    noise at its own side and `channels` instead of the render's pixel
-    noise: SD's and zero123's latents, with the VAE posterior draw
-    (`posterior`), or DeepFloyd-IF's 64² pixels (3 channels, none)."""
+              specs: Sequence[Tuple[str, NoiseSpec]] = PIXELS) -> StepDraws:
+    """One step's draws: the view, the march, then each prior's
+    (``draw_priors``; by default one prior drawing pixel noise at h x w, an
+    oracle's)."""
     B = cfg.batch_size
     U, N = _samplers(gen, device)
     pose, fov, choice = draw_view(gen, cfg, device)
     march_u, pdf_u = draw_march(U, cfg, B * cfg.h * cfg.w)
-    t = draw_t(gen, cfg, device)
-    if latent_size is None:
-        draws = StepDraws(pose, fov, choice, march_u, t,
-                          N(B, cfg.h, cfg.w, 3))
-    else:
-        ls = latent_size
-        draws = StepDraws(pose, fov, choice, march_u, t,
-                          N(B, ls, ls, channels),
-                          N(B, ls, ls, channels) if posterior else None)
-    draws = draws._replace(pdf_u=pdf_u)
+    draws = StepDraws(pose, fov, choice, march_u, pdf_u=pdf_u,
+                      **prior_fields(draw_priors(gen, cfg, device, specs)))
     if cfg.backbone == "grid" and cfg.lambda_tv > 0:
         draws = draws._replace(tv_cells=draw_tv_cells(
             gen, grid_spec_of(cfg), device))
@@ -264,6 +298,16 @@ def draw_step(gen: torch.Generator, cfg: Config, device,
         draws = draws._replace(perturb_noise=N(
             B * cfg.h * cfg.w * samples_per_ray(cfg), 3))
     return draws
+
+
+def snapshot_panel(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """A snapshot's panel at H×W as JAX writes it: a panel of another size
+    clipped and truncated to uint8, resized by Pillow's default filter
+    (bicubic), over 255 (float64)."""
+    if img.shape[:2] == (H, W):
+        return img
+    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return pil_resize_uint8(u8, H, W) / 255.0
 
 
 def draw_grid(gen: torch.Generator, cfg: Config, device) -> torch.Tensor:
@@ -353,21 +397,22 @@ class Trainer:
     EXTRA_STATE = ("density_grid", "mean_density", "occ_grid")
 
     def __init__(self, cfg: Config, device="cuda", guidance=None,
-                 embeddings: Optional[Dict[str, torch.Tensor]] = None,
-                 ref_images: Optional[RefImages] = None, clip=None,
-                 clip_z: Optional[Dict[str, torch.Tensor]] = None):
-        """``guidance`` and ``embeddings`` are SD's (the prompt
-        embeddings, ``guidance/embeddings.py``), DeepFloyd-IF's
-        (``IFGuidance.prepare_embeddings``) or zero123's (the reference
-        images', ``Zero123Guidance.prepare_image_embeddings``); the oracles
-        build their own.  ``clip`` and ``clip_z`` are CLIP guidance's
-        towers and its targets (``CLIPGuidance.prepare_embeddings``), under
-        ``--guidance clip`` (alone, or beside SD: the terms are summed, SD's
-        first, as JAX sums its priors in sorted order).  A ``--test`` run,
-        which trains nothing, needs none of them.  ``ref_images`` are the
-        known views of ``--image`` or ``--image_config``
-        (``image_data.load_ref_images``, ``analytic_ref_images``).  The
-        device is the card unless the caller asks for the CPU."""
+                 embeddings=None, ref_images: Optional[RefImages] = None,
+                 clip=None, clip_z: Optional[Dict[str, torch.Tensor]] = None,
+                 priors: Optional[Dict[str, Tuple[Any, Any]]] = None):
+        """``priors``: {name: (guidance, embeddings)} for the towers of
+        ``--guidance`` (``main.build_run``): SD's (the prompt embeddings,
+        ``guidance/embeddings.py``), DeepFloyd-IF's
+        (``IFGuidance.prepare_embeddings``), zero123's (the reference
+        images', ``Zero123Guidance.prepare_image_embeddings``) and CLIP's
+        (its targets, ``CLIPGuidance.prepare_embeddings``).  ``guidance``
+        and ``embeddings`` name the one diffusion prior of ``--guidance``,
+        ``clip`` and ``clip_z`` CLIP's, where that is shorter.  The oracles
+        are built here.  A ``--test`` run, which trains nothing, needs none
+        of them.  ``ref_images`` are the known views of ``--image`` or
+        ``--image_config`` (``image_data.load_ref_images``,
+        ``analytic_ref_images``).  The device is the card unless the caller
+        asks for the CPU."""
         check_slice(cfg)
         # fp32 products stay fp32 on the card: no TF32 in matmuls or
         # convolutions (PyTorch turns it on for cuDNN by default)
@@ -375,32 +420,40 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = resolve_device(device)
-        # a text-conditioned diffusion prior: SD (latents) or IF (pixels)
-        self.sd = "SD" in cfg.guidance or "IF" in cfg.guidance
-        self.zero123 = cfg.guidance == ("zero123",)
-        self.clip = self.clip_z = None
-        if "clip" in cfg.guidance:
-            if (clip is None or clip_z is None) and not cfg.test:
-                raise ValueError("CLIP guidance needs its towers and "
-                                 "targets")
-            self.clip, self.clip_z = clip, clip_z
-        self.guidance = self.embeddings = None
-        if self.sd or self.zero123:
-            if (guidance is None or embeddings is None) and not cfg.test:
-                raise ValueError(f"{cfg.guidance[0]} guidance needs its "
-                                 f"towers and embeddings")
-            self.guidance, self.embeddings = guidance, embeddings
-        elif cfg.guidance == ("image_oracle",):
-            if ref_images is None:
-                raise ValueError("the image oracle needs the reference "
-                                 "images")
-            self.guidance = ImageOracleGuidance(
-                cfg.image.split(":", 1)[1], cfg.t_range,
-                cfg.zero123_grad_scale, ref_images.polars,
-                ref_images.azimuths, ref_images.radii)
-        elif cfg.guidance == ("oracle",):
-            self.guidance = PixelOracleGuidance(cfg.oracle_scene,
-                                                cfg.t_range)
+        priors = dict(priors or {})
+        if guidance is not None:
+            diffusion = [n for n in cfg.guidance if n in DIFFUSION]
+            if len(diffusion) != 1:
+                raise ValueError("several diffusion priors: pass them as "
+                                 "`priors`")
+            priors[diffusion[0]] = (guidance, embeddings)
+        if clip is not None:
+            priors["clip"] = (clip, clip_z)
+        for name in cfg.guidance:
+            if name == "oracle":
+                priors[name] = (PixelOracleGuidance(cfg.oracle_scene,
+                                                    cfg.t_range), None)
+            elif name == "image_oracle":
+                if ref_images is None:
+                    raise ValueError("the image oracle needs the reference "
+                                     "images")
+                priors[name] = (ImageOracleGuidance(
+                    cfg.image.split(":", 1)[1], cfg.t_range,
+                    cfg.zero123_grad_scale, ref_images.polars,
+                    ref_images.azimuths, ref_images.radii), None)
+            elif name not in priors and not cfg.test:
+                raise ValueError(f"{name} guidance needs its towers and "
+                                 f"embeddings")
+        # summed in sorted name order, as JAX's step sums them
+        self.priors = {n: priors[n] for n in sorted(priors)}
+        # each drawing prior's noise: its own side and channels (the
+        # oracles' the render's pixels), with the VAE posterior's draw
+        self.noise_specs = tuple(
+            (n, NoiseSpec() if isinstance(g, PixelOracleGuidance)
+             else NoiseSpec(g.latent_size, g.latent_channels, g.posterior))
+            for n, (g, _) in self.priors.items() if n != "clip")
+        sides = [sp.side for _, sp in self.noise_specs if sp.side]
+        self.latent_size = sides[0] if sides else None
         self.clip_scorer = None          # ``set_clip_scorer``
         self.ref_images = ref_images
         if ref_images is not None:
@@ -411,12 +464,6 @@ class Trainer:
             self.kv_batch = default_view_batch(
                 cfg, ref_images.radii, ref_images.polars,
                 ref_images.azimuths, cfg.h, cfg.w, self.device)
-        diffusion = (self.sd or self.zero123) and guidance is not None
-        self.latent_size = guidance.latent_size if diffusion else None
-        # the prior's noise draws: SD's and zero123's 4-channel latents with
-        # the VAE posterior's, IF's 3-channel pixels
-        self.noise_draw = (guidance.latent_channels, guidance.posterior) \
-            if diffusion else (4, True)
         self.workspace = cfg.workspace
         for sub in ("checkpoints", "validation", "results"):
             os.makedirs(os.path.join(self.workspace, sub), exist_ok=True)
@@ -453,8 +500,13 @@ class Trainer:
         return cfg.latent_iter_ratio > 0 and r <= cfg.latent_iter_ratio
 
     def draw_step(self, gen: torch.Generator) -> StepDraws:
-        return draw_step(gen, self.cfg, self.device, self.latent_size,
-                         *self.noise_draw)
+        return draw_step(gen, self.cfg, self.device, self.noise_specs)
+
+    def prior_draws(self, draws, name: str) -> PriorDraws:
+        """Prior `name`'s draws in a step's draws (``prior_fields``)."""
+        if name == self.noise_specs[0][0]:
+            return PriorDraws(draws.t, draws.noise, draws.posterior_noise)
+        return draws.extra[name]
 
     def is_known_view_step(self, step: int) -> bool:
         """Under ``--image``, every ``known_view_interval``-th step."""
@@ -574,73 +626,74 @@ class Trainer:
             image = torch.cat([image, wsum[..., None]], dim=-1)
         return image, reg, batch, choices.bg_color
 
-    def _sd_loss(self, pred_rgb, batch, draws: StepDraws,
-                 as_latent: bool) -> torch.Tensor:
+    def _text_sds(self, name: str, pred_rgb, batch, d: PriorDraws,
+                  as_latent: bool) -> torch.Tensor:
         """SD's or IF's SDS with the uncond embedding tiled to the batch
         and the view-interpolated (or Perp-Neg) cond embeddings; IF renders
         no latent (``as_latent`` False, as JAX passes it)."""
-        cfg, emb = self.cfg, self.embeddings
+        cfg = self.cfg
+        g, emb = self.priors[name]
         B = pred_rgb.shape[0]
         uncond = emb["uncond"].expand(B, -1, -1)
         kw = dict(guidance_scale=cfg.guidance_scale,
-                  as_latent=as_latent and "SD" in cfg.guidance,
+                  as_latent=as_latent and name == "SD",
                   grad_scale=cfg.lambda_guidance)
         if cfg.perpneg:
             pn = adjust_text_embeddings(emb, batch.delta_azimuth,
                                         cfg.negative_w,
                                         cfg.front_decay_factor,
                                         cfg.side_decay_factor)
-            return self.guidance.sds_loss_perpneg(
-                pn.text_z, pn.weights, uncond, pred_rgb, draws.t,
-                draws.noise, draws.posterior_noise, **kw)
+            return g.sds_loss_perpneg(pn.text_z, pn.weights, uncond,
+                                      pred_rgb, d.t, d.noise,
+                                      d.posterior_noise, **kw)
         cond = interpolate_view_embedding(emb, batch.delta_azimuth)
-        return self.guidance.sds_loss(cond, uncond, pred_rgb, draws.t,
-                                      draws.noise, draws.posterior_noise,
-                                      **kw)
+        return g.sds_loss(cond, uncond, pred_rgb, d.t, d.noise,
+                          d.posterior_noise, **kw)
 
     def guidance_loss(self, pred_rgb, batch: CameraBatch, draws, bg,
                       as_latent: bool) -> torch.Tensor:
-        """The priors' loss of the rendered views, their gradient clamped
-        first under ``--grad_clip_rgb`` (K5): the diffusion prior's or an
-        oracle's SDS, and CLIP's term (after SD's, as JAX sums in sorted
-        order) weighted 10·(1 − |Δazimuth|/180)·lambda_guidance by the
-        first view's azimuth."""
+        """The priors' summed loss of the rendered views, in sorted name
+        order, their gradient clamped first under ``--grad_clip_rgb``
+        (K5)."""
         cfg = self.cfg
         if cfg.grad_clip_rgb >= 0:
             pred_rgb = clip_grad(pred_rgb, cfg.grad_clip_rgb)
-        loss = self._prior_loss(pred_rgb, batch, draws, bg, as_latent)
-        if self.clip is not None:
-            w = 10.0 * (1.0 - batch.delta_azimuth[0].abs() / 180.0) * \
-                cfg.lambda_guidance
-            term = self.clip.loss(self.clip_z, pred_rgb, w)
+        loss = None
+        for name in self.priors:
+            term = self.prior_loss(name, pred_rgb, batch, draws, bg,
+                                   as_latent)
             loss = term if loss is None else loss + term
         return loss
 
-    def _prior_loss(self, pred_rgb, batch: CameraBatch, draws, bg,
-                    as_latent: bool) -> Optional[torch.Tensor]:
-        """The SDS loss of the guidance other than CLIP, None under CLIP
-        alone."""
+    def prior_loss(self, name: str, pred_rgb, batch: CameraBatch, draws,
+                   bg, as_latent: bool) -> torch.Tensor:
+        """Prior `name`'s term: SD's or IF's SDS, zero123's, CLIP's
+        weighted 10·(1 − |Δazimuth|/180)·lambda_guidance by the first
+        view's azimuth, or an oracle's."""
         cfg = self.cfg
-        if self.sd:
-            return self._sd_loss(pred_rgb, batch, draws, as_latent)
-        if self.zero123:
-            return self.guidance.sds_loss(
-                self.embeddings, pred_rgb, batch.delta_polar,
-                batch.delta_azimuth, batch.delta_radius, draws.t, draws.noise,
-                draws.posterior_noise, guidance_scale=cfg.guidance_scale,
-                as_latent=as_latent, grad_scale=cfg.lambda_guidance)
-        if self.guidance is None:
-            return None
+        g, emb = self.priors[name]
+        if name == "clip":
+            w = 10.0 * (1.0 - batch.delta_azimuth[0].abs() / 180.0) * \
+                cfg.lambda_guidance
+            return g.loss(emb, pred_rgb, w)
+        d = self.prior_draws(draws, name)
+        if name in ("SD", "IF"):
+            return self._text_sds(name, pred_rgb, batch, d, as_latent)
+        if name == "zero123":
+            return g.sds_loss(
+                emb, pred_rgb, batch.delta_polar, batch.delta_azimuth,
+                batch.delta_radius, d.t, d.noise, d.posterior_noise,
+                guidance_scale=cfg.guidance_scale, as_latent=as_latent,
+                grad_scale=cfg.lambda_guidance)
         if as_latent:
             raise ValueError("the oracles need latent_iter_ratio 0")
-        if isinstance(self.guidance, ImageOracleGuidance):
-            return self.guidance.sds_loss_rays_pose(
-                draws.t, draws.noise, batch.rays_o, batch.rays_d, bg,
-                pred_rgb, batch.delta_polar, batch.delta_azimuth,
-                batch.delta_radius, grad_scale=cfg.lambda_guidance)
-        return self.guidance.sds_loss_rays(
-            draws.t, draws.noise, batch.rays_o, batch.rays_d, bg, pred_rgb,
-            grad_scale=cfg.lambda_guidance)
+        if name == "image_oracle":
+            return g.sds_loss_rays_pose(
+                d.t, d.noise, batch.rays_o, batch.rays_d, bg, pred_rgb,
+                batch.delta_polar, batch.delta_azimuth, batch.delta_radius,
+                grad_scale=cfg.lambda_guidance)
+        return g.sds_loss_rays(d.t, d.noise, batch.rays_o, batch.rays_d, bg,
+                               pred_rgb, grad_scale=cfg.lambda_guidance)
 
     def loss_fn(self, state: TrainState, draws: StepDraws):
         latent_phase = self.latent_phase(state.step)
@@ -793,8 +846,10 @@ class Trainer:
 
     @property
     def scene(self) -> str:
-        """The analytic scene of the oracle priors."""
-        return self.guidance.scene
+        """The analytic scene of the oracle priors (the pixel oracle's where
+        both are built)."""
+        return (self.priors.get("oracle") or self.priors["image_oracle"]
+                )[0].scene
 
     def oracle_eval_metric(self, state) -> float:
         """PSNR of EMA renders of validation-circle views at h×w against
@@ -851,11 +906,61 @@ class Trainer:
         (``set_clip_scorer``); None otherwise."""
         if self.ref_images is not None:
             return self.known_view_psnr(state)
-        if self.cfg.guidance == ("oracle",):
+        if "oracle" in self.priors:
             return self.oracle_eval_metric(state)
         if self.clip_scorer is not None:
             return self.clip_eval_metric(state)
         return None
+
+    # ------------------------------------------------------------------
+    # the --save_guidance snapshot
+    def _snapshot_render(self, state) -> torch.Tensor:
+        """The default view (azimuth 0) at h×w as the eval renders it (the
+        DMTet stage's through the rasterizer) → [h, w, 3]."""
+        cfg = self.cfg
+        b = circle_view_batch(cfg, 0, 4, cfg.h, cfg.w, self.device)
+        return self.render_view(state, b, cfg.h, cfg.w)[0].reshape(
+            cfg.h, cfg.w, 3)
+
+    @torch.no_grad()
+    def save_guidance_snapshot(
+            self, state, draws: Optional[Dict[str, PriorDraws]] = None
+    ) -> List[str]:
+        """A triptych per prior with a ``guidance_eval`` (SD, IF and
+        zero123 at zero pose deltas, each at ``guidance_scale``): the
+        default view's render | the noised render | the one-step denoised
+        x0, written to ``guidance/step_{step:06d}_{name}.png``.  ``draws``:
+        each prior's at batch 1, else drawn from a generator seeded with the
+        step → the paths."""
+        cfg = self.cfg
+        render = self._snapshot_render(state)[None]
+        names = [n for n, (g, _) in self.priors.items()
+                 if hasattr(g, "guidance_eval")]
+        if draws is None:
+            gen = torch.Generator(device=self.device).manual_seed(state.step)
+            draws = draw_priors(gen, cfg, self.device, [
+                sp for sp in self.noise_specs if sp[0] in names], B=1)
+        rnd = render[0].float().cpu().numpy()
+        gdir = os.path.join(self.workspace, "guidance")
+        paths = []
+        for name in names:
+            g, emb = self.priors[name]
+            d = draws[name]
+            if name == "zero123":
+                zero = torch.zeros(1, device=self.device)
+                noisy, x0 = g.guidance_eval(
+                    emb, render, zero, zero, zero, d.t, d.noise,
+                    d.posterior_noise, guidance_scale=cfg.guidance_scale)
+            else:
+                noisy, x0 = g.guidance_eval(
+                    emb["default"], emb["uncond"], render, d.t, d.noise,
+                    d.posterior_noise, guidance_scale=cfg.guidance_scale)
+            panels = [snapshot_panel(a[0].float().cpu().numpy(), cfg.h,
+                                     cfg.w) for a in (noisy, x0)]
+            path = os.path.join(gdir, f"step_{state.step:06d}_{name}.png")
+            save_image(path, np.concatenate([rnd] + panels, axis=1))
+            paths.append(path)
+        return paths
 
     def _frame(self, state, batch: CameraBatch, view: str):
         """One eval/test view at H×W → (rgb [H,W,3], depth [H,W]) numpy.

@@ -335,7 +335,7 @@ def test_the_clip_term_is_in_the_step(tmp_path, clip_pair):
     pred, _, batch, bg = pt.render_part(ps, draws, False)
     pred = pred.detach()
     both = pt.guidance_loss(pred, batch, draws, bg, False)
-    sd_only = pt._prior_loss(pred, batch, draws, bg, False)
+    sd_only = pt.prior_loss("SD", pred, batch, draws, bg, False)
     w = 10.0 * (1.0 - float(batch.delta_azimuth[0].abs()) / 180.0)
     torch.testing.assert_close(both - sd_only, pc.loss(pz, pred, w),
                                rtol=1e-5, atol=1e-6)
@@ -496,16 +496,17 @@ def test_cli_image_text_config_matches_jax(extra):
 @pytest.mark.parametrize("guidance,image,ok", [
     (("SD", "clip"), "ref.png", True), (("clip",), None, True),
     (("SD", "clip"), None, True), (("clip", "SD"), None, True),
-    (("SD",), "config", False), (("clip",), "config", False),
-    (("zero123", "clip"), "config", False), (("SD", "zero123"), None, False),
+    (("SD",), "config", True), (("clip",), "config", True),
+    (("zero123", "clip"), "config", True), (("SD", "zero123"), None, False),
 ])
 def test_check_slice_admits_the_clip_guidance_sets(guidance, image, ok):
+    """Every set JAX's main builds; zero123 without a reference image is
+    what JAX refuses."""
     cfg = PConfig(text=PROMPT, guidance=guidance,
                   image=image if image != "config" else None,
                   image_config="refs.csv" if image == "config" else None)
     if ok:
         check_slice(cfg)
         return
-    with pytest.raises(NotImplementedError,
-                       match="CLIP guidance and image \\+ text"):
+    with pytest.raises(ValueError, match="needs a reference image"):
         check_slice(cfg)

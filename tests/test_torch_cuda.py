@@ -2495,3 +2495,102 @@ def test_narrow_if_unet_on_the_card(dev):
     assert kernels.LAUNCHES["attention_fwd_wgmma"] == 4
     assert kernels.LAUNCHES["conv_fwd_mma"] == 0
     _close_to(got.cpu(), want, 5e-2)
+
+
+# the SD VAE decoder's shapes that no encoder or UNet row has (512², and
+# zero123's at 256²): B, H, W, I, O; 3x3, stride 1, pad 1
+DECODER_CONVS = [(1, 64, 64, 4, 512), (1, 256, 256, 512, 512),
+                 (1, 256, 256, 512, 256), (1, 512, 512, 256, 256),
+                 (1, 512, 512, 256, 128), (1, 128, 128, 512, 256),
+                 (1, 256, 256, 256, 128), (1, 32, 32, 4, 512)]
+
+
+@pytest.mark.parametrize("B,H,W,I,O", DECODER_CONVS)
+def test_conv_at_the_decoder_shapes(dev, B, H, W, I, O):
+    """K12's forward at the decoder's shapes, one launch of its route,
+    within a bf16 ulp of the plain version."""
+    g = _gen(dev, 21)
+    bf = torch.bfloat16
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(bf)
+    w = (torch.randn(O, 3, 3, I, device=dev, generator=g) /
+         (9 * I) ** 0.5).to(bf)
+    bias = torch.randn(O, device=dev, generator=g)
+    route = conv_route(bf, I, O, (1, 1), 9)
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, 1, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    _within_ulp(y, conv2d_plain(x, w, bias, (1, 1), norm_padding(1), bf))
+
+
+def test_conv_out_of_the_decoder_in_fp32(dev):
+    """The decoder's conv_out at 512² (fp32, 128 → 3): K12's fp32 route."""
+    g = _gen(dev, 22)
+    x = torch.randn(1, 512, 512, 128, device=dev, generator=g)
+    w = torch.randn(3, 3, 3, 128, device=dev, generator=g) / 34.0
+    bias = torch.randn(3, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, 1, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_fwd_fp32"] == 1
+    _close_to(y, conv2d_plain(x, w, bias, (1, 1), norm_padding(1),
+                              torch.float32), 1e-5)
+
+
+@pytest.mark.parametrize("B,H,W,C,silu", [
+    (1, 512, 512, 256, True), (1, 256, 256, 512, True),
+    (1, 512, 512, 128, True), (1, 256, 256, 256, True),
+    (1, 128, 128, 512, True), (1, 64, 64, 512, False)])
+def test_groupnorm_at_the_decoder_shapes(dev, B, H, W, C, silu):
+    """K11's forward at the decoder's norms (eps 1e-6), one launch of the
+    route group_norm_route names (streaming above its resident limit)."""
+    g = _gen(dev, 23)
+    G = groups_for(C)
+    x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3 + 1).to(
+        torch.bfloat16)
+    wt = torch.randn(C, device=dev, generator=g).to(torch.bfloat16)
+    bs = torch.randn(C, device=dev, generator=g).to(torch.bfloat16)
+    route = group_norm_route(tuple(x.shape), torch.bfloat16, False, G,
+                             kernels.sm_count(dev))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y = group_norm(x, wt, bs, G, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route.name] == 1
+    if H * W * C * 2 > 64 << 20:
+        assert route.name == "groupnorm_fwd_stream"
+    _close_to(y, group_norm_plain(x, wt.float(), bs.float(), G, 1e-6, silu),
+              1e-2)
+
+
+def test_narrow_vae_decoder_on_the_card(dev):
+    """A narrow SD-topology VAE decoder (64 channels, 4 levels: three
+    nearest-2x upsamples, the mid-block attention at d = 64) in bf16 on the
+    card against the same weights on the CPU's plain versions; every conv,
+    norm and attention one launch of its route."""
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    cfg = VAEConfig(ch=64, ch_mult=(1, 1, 1, 1))
+    torch.manual_seed(0)
+    cpu = AutoencoderKL(cfg)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape) * 0.05)
+    card = AutoencoderKL(cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    z = torch.randn(1, 16, 16, 4, generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = card.decode(z.to(dev))
+        torch.cuda.synchronize()
+        want = cpu.decode(z)
+    assert got.shape == (1, 128, 128, 3)
+    # 2 mid resnets + 4 levels x 3 resnets, 2 convs each; 3 upsample convs;
+    # conv_in (4 channels) and conv_out (fp32)
+    assert kernels.LAUNCHES["conv_fwd_wgmma"] == 31
+    assert kernels.LAUNCHES["conv_fwd_wgmma_i8"] == 1
+    assert kernels.LAUNCHES["conv_fwd_fp32"] == 1
+    assert kernels.LAUNCHES["attention_fwd_wgmma"] == 1
+    assert sum(v for k, v in kernels.LAUNCHES.items()
+               if k.startswith("groupnorm_fwd")) == 30
+    _close_to(got.cpu(), want, 5e-2)

@@ -183,10 +183,9 @@ def test_cli_image_config_matches_jax(extra):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--text", "a hamburger", "--IF", "--guidance", "SD", "clip"],  # IF+CLIP
-    ["--guidance", "SD", "zero123", "--text", "a hamburger"],  # 2 priors
-    ["--guidance", "oracle", "--backbone", "triplane", "--dmtet",
-     "--image", "x.png"],
+    ["--text", "a hamburger", "--gui"],
+    ["--guidance", "oracle", "--backbone", "triplane", "--profile"],
+    ["--text", "a hamburger", "--IF", "--profile", "trace"],
 ])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -231,19 +230,8 @@ def _queue1_titles():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--text", "a hamburger", "--IF", "--image_config", "x.csv"],
     ["--text", "a hamburger", "--gui"],
     ["--text", "a hamburger", "--profile"],
-    ["--image_config", "x.json"],
-    ["--image_config", "x.csv", "--guidance", "clip"],
-    ["--guidance", "IF", "clip", "--text", "a hamburger"],
-    ["--guidance", "zero123", "clip", "--image_config", "x.csv"],
-    ["--guidance", "SD", "zero123", "--text", "a hamburger"],
-    ["--guidance", "oracle", "--backbone", "triplane", "--image", "x.png"],
-    ["--image", "analytic:two_sphere", "--guidance", "oracle",
-     "--backbone", "triplane"],
-    ["--guidance", "image_oracle", "--backbone", "triplane"],
-    ["--image_config", "x.csv", "--guidance", "SD", "--text", "a hamburger"],
 ])
 def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
     """Every refusal of the CLI and ``check_slice`` names the ROADMAP
@@ -257,6 +245,105 @@ def test_refusals_name_a_roadmap_queue1_title(flags, tmp_path):
     assert m.group(1) in _queue1_titles(), m.group(1)
 
 
+def _write_refs(tmp_path, K=2):
+    """K RGBA reference PNGs and an ``--image_config`` CSV naming them →
+    (the CSV's path, the first PNG's)."""
+    from dreamfusion_tpu_torch.utils.image import save_image
+    yy, xx = np.mgrid[0:24, 0:24]
+    rows = ["image, polar, azimuth, radius, zero123_weight"]
+    for k in range(K):
+        a = np.clip(1.5 - np.hypot(xx - 12 - 2 * k, yy - 11) / 6, 0, 1)
+        rgba = np.stack([0.7 * a, 0.4 * a, (0.3 + 0.2 * k) * a, a], -1)
+        save_image(str(tmp_path / f"r{k}_rgba.png"), rgba)
+        rows.append(f"{tmp_path / f'r{k}_rgba.png'}, {90 - 15 * k}, "
+                    f"{120 * k}, 3.2, 1.0")
+    (tmp_path / "refs.csv").write_text("\n".join(rows) + "\n")
+    return str(tmp_path / "refs.csv"), str(tmp_path / "r0_rgba.png")
+
+
+# the runs that once raised "not ported" (their flags): each builds now, with
+# the tiny towers, and trains one step on the CPU
+LIFTED_RUNS = {
+    "IF with --image_config": ["--text", "a hamburger", "--IF",
+                               "--image_config", "CSV"],
+    "SD with --image_config and no prompt": ["--image_config", "CSV"],
+    "CLIP alone with references": ["--image_config", "CSV", "--guidance",
+                                   "clip", "--text", "a hamburger"],
+    "IF and CLIP": ["--guidance", "IF", "clip", "--text", "a hamburger"],
+    "--IF turns SD clip into IF clip": ["--text", "a hamburger", "--IF",
+                                        "--guidance", "SD", "clip"],
+    "zero123 and CLIP": ["--guidance", "zero123", "clip", "--image_config",
+                         "CSV", "--text", "a hamburger"],
+    "SD and zero123 with references": ["--guidance", "SD", "zero123",
+                                       "--text", "a hamburger",
+                                       "--image_config", "CSV"],
+    "the pixel oracle with --image file.png": ["--guidance", "oracle",
+                                               "--image", "PNG"],
+    "the pixel oracle with --image analytic": [
+        "--image", "analytic:two_sphere", "--guidance", "oracle"],
+    "SD with --image_config and --text": ["--image_config", "CSV",
+                                          "--guidance", "SD", "--text",
+                                          "a hamburger"],
+}
+# what JAX's main refuses, with its message
+JAX_REFUSALS = {
+    "SD and zero123 without a reference image": (
+        ["--guidance", "SD", "zero123", "--text", "a hamburger"],
+        "zero123 guidance needs a reference image"),
+    "image_oracle without --image analytic": (
+        ["--guidance", "image_oracle"],
+        "--guidance image_oracle needs --image analytic:<scene>"),
+}
+
+
+DMTET_ORACLE_FILE = "DMTet under the pixel oracle with --image file.png"
+
+
+def _lifted_run(name, tmp_path):
+    """A guidance set or reference-image run that JAX's main builds builds
+    here too (priors summed in sorted order, known-view steps with any
+    prior) and trains a step on the CPU with the test-size towers; what JAX
+    refuses raises ValueError with its message."""
+    csv, png = _write_refs(tmp_path)
+    ws = ["--workspace", str(tmp_path / "ws")]
+    if name in JAX_REFUSALS:
+        flags, msg = JAX_REFUSALS[name]
+        with pytest.raises(ValueError, match=re.escape(msg)):
+            main(flags + TINY + ws + ["--device", "cpu", "--iters", "1"])
+        return
+    if name.startswith("DMTet"):
+        out = main(["--guidance", "oracle", "--image", png, "--dmtet",
+                    "--tet_grid_size", "16", "--w", "2", "--h", "2",
+                    "--lr", "0.002"] + TINY[:2] + TINY[6:] + ws +
+                   LIFTED_TINY)
+        assert out["grad_ok"] and out["known_view_steps"] == 1
+        return
+    flags = [{"CSV": csv, "PNG": png}.get(f, f) for f in LIFTED_RUNS[name]]
+    cfg = config_from_args(build_parser().parse_args(flags + TINY + ws))
+    if name.startswith("--IF"):
+        assert cfg.guidance == ("IF", "clip")
+    trainer, state, gen = build_run(cfg, "cpu", True)
+    assert list(trainer.priors) == sorted(cfg.guidance)
+    assert (trainer.ref_images is not None) == ("CSV" in LIFTED_RUNS[name]
+                                                or "PNG" in LIFTED_RUNS[name]
+                                                or "analytic" in name)
+    step = 1 if trainer.ref_images is not None else 0   # not a known view
+    state.step = step
+    metrics, _ = trainer.run_step(state, gen)
+    assert bool(metrics["grad_ok"]) and state.step == step + 1
+    assert np.isfinite(float(metrics["loss"]))
+    if trainer.ref_images is not None:
+        state.step = 0                                  # a known view
+        metrics, _ = trainer.run_step(state, gen)
+        assert bool(metrics["grad_ok"])
+
+
+LIFTED_TINY = ["--iters", "2", "--dataset_size_train", "2",
+               "--dataset_size_test", "1", "--H", "8", "--W", "8",
+               "--eval_interval", "0", "--ckpt", "scratch", "--device",
+               "cpu", "--tiny_guidance", "--known_view_interval", "2"]
+
+
 O2_TINY = ["--iters", "4", "--w", "8", "--h", "8", "--H", "8", "--W", "8",
            "--hidden_dim", "16", "--num_steps", "8", "--upsample_steps", "4",
            "--dataset_size_train", "2", "--dataset_size_test", "1",
@@ -268,13 +355,19 @@ OPTION_FLAGS = ["--guidance", "oracle", "--backbone", "triplane"]
     "--IF", "squaredcos_cap_v2", "-O2", "-O2 after -O, before --IF",
     "-O2 oracle run", "-O2 SD run", "--backbone vanilla", "--optim adam",
     "--grad_clip", "--lambda_tv on the triplane",
-    "--normal_mode finite_difference", "softplus and vanilla fields"])
+    "--normal_mode finite_difference", "softplus and vanilla fields"] +
+    list(LIFTED_RUNS) + list(JAX_REFUSALS) + [DMTET_ORACLE_FILE])
 def test_lifted_refusals_now_build(lifted, tmp_path):
     """DeepFloyd-IF is ported: ``--IF`` parses to IF guidance with no
     warm-up phase, and the cosine schedule builds.  So are ``-O2`` (fp16,
     the vanilla backbone, progressive levels; applied after ``-O`` and
-    before ``--IF``, as JAX's CLI) and the small field options: each
-    configuration that raised builds, and the -O2 runs train on the CPU."""
+    before ``--IF``, as JAX's CLI), the small field options and every
+    guidance set and reference-image run of JAX's main (``_lifted_run``):
+    each configuration that raised builds, and the -O2 runs and the guidance
+    sets train on the CPU."""
+    if lifted in LIFTED_RUNS or lifted in JAX_REFUSALS or \
+            lifted == DMTET_ORACLE_FILE:
+        return _lifted_run(lifted, tmp_path)
     import torch
 
     from dreamfusion_tpu_torch.guidance.schedule import make_schedule

@@ -21,7 +21,9 @@ from dreamfusion_tpu_torch.training import schedules as pschedules
 from dreamfusion_tpu_torch.training.dmtet_trainer import (DMTetDraws,
                                                           DMTetKnownViewDraws)
 from dreamfusion_tpu_torch.training.trainer import (KnownViewDraws,
-                                                    StepDraws, grid_spec_of)
+                                                    PriorDraws, StepDraws,
+                                                    grid_spec_of,
+                                                    prior_fields)
 
 GRID_SALT = 0x9e3779b9
 
@@ -248,10 +250,51 @@ def random_flax_params(init, *args, seed):
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
-        name, shape = path[-1].key, leaf.shape
+        # a list's entries (the triplanes) have no name
+        name, shape = getattr(path[-1], "key", None), leaf.shape
         a = rng.standard_normal(shape).astype(np.float32)
         if name == "kernel":
             return a / np.sqrt(np.prod(shape[:-1]))
         return 1 + 0.1 * a if name == "scale" else 0.05 * a
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_set_draws(draws, base, step: int, priors, n_split: int = 5):
+    """`draws` (a step's ``StepDraws`` or ``DMTetDraws``) with each prior's
+    draws as JAX's step makes them for a set of priors: the guide key (the
+    4th of ``fold_in(base, step)``'s 5 keys in stage 1, the 3rd of 3 in the
+    DMTet stage) split once per prior, key i to the i-th name in sorted
+    order.  `priors`: {name: a function of its key → (t, noise[,
+    posterior noise]), or None for a prior that draws nothing (CLIP)}."""
+    key = jax.random.fold_in(base, step)
+    k_guide = jax.random.split(key, n_split)[n_split - 2]
+    keys = jax.random.split(k_guide, len(priors))
+    out = {name: PriorDraws(*priors[name](k))
+           for name, k in zip(sorted(priors), keys) if priors[name]}
+    return draws._replace(**prior_fields(out))
+
+
+def jax_train_state(jt, step: int = 0, seed: int = 0):
+    """JAX ``Trainer.init_state``'s TrainState at `step`, its field's
+    params from ``random_flax_params`` (``jax.eval_shape`` of the
+    renderer's init) in place of the eager flax init, which runs a whole
+    render op by op on the CPU (tens of seconds a process); the optimizer
+    state from the optimizer's own init."""
+    from dreamfusion_tpu.models.renderer import RenderFlags
+    from dreamfusion_tpu.training.trainer import TrainState
+    cfg = jt.cfg
+    G = cfg.grid_size
+    occ = jnp.ones((cfg.cascade, G, G, G), bool)
+    grid = cfg.backbone in ("grid", "triplane")
+    params = random_flax_params(
+        lambda k: jt.renderer.init(
+            {"params": k, "render": k}, RenderFlags(), jnp.zeros((64, 3)),
+            jnp.ones((64, 3)), occ_grid=occ if grid else None,
+            method=jt.renderer.render), seed=seed)
+    params = jax.tree.map(jnp.asarray, params)
+    return TrainState(params=params, opt_state=jt.optimizer.init(params),
+                      ema_params=params,
+                      density_grid=jnp.zeros((cfg.cascade, G ** 3)),
+                      mean_density=jnp.zeros(()), occ_grid=occ,
+                      step=jnp.asarray(step, jnp.int32))
