@@ -302,6 +302,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -573,6 +574,9 @@ for _n, _line in (("hashgrid", 201), ("hashgrid_tv", 322),
             f"dreamfusion_tpu/ops/hashgrid.py:{_line}")
 KERNELS["hashgrid_bwd_dx"] = ("cuda", "dreamfusion_tpu_torch/csrc/hashgrid.cu",
                               "dreamfusion_tpu/ops/hashgrid.py:201")
+KERNELS["attention_fwd_fp32"] = (
+    "cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
+    "dreamfusion_tpu/ops/attention.py:72")
 KERNELS["clip_grad_bwd"] = ("cuda", "dreamfusion_tpu_torch/csrc/clip_grad.cu",
                             "dreamfusion_tpu/core/math.py:39")
 KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
@@ -1571,18 +1575,20 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=(),
         # same bf16 products, fp32 sums in another order, one rounding
         err = _close_to(route, yk, yp, 1e-5 if fp32 else 2 ** -7, 1e-4)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
-        lib = None
-        if pads[0][0] == pads[0][1]:      # one F.conv2d call: symmetric pad
-            # fp32 in full fp32, as the kernel's FMAs (cuDNN's default TF32
-            # would be another function)
-            tf32 = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                lib = median_ms(lambda: F.conv2d(
-                    xc, wc, None if bias is None else bias.to(dt), st,
-                    pads[0][0]), 10)
-            finally:
-                torch.backends.cudnn.allow_tf32 = tf32
+        # one F.conv2d call; an asymmetric (TF-SAME) pad is applied to its
+        # input first, outside the timing
+        sym = pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]
+        xl = xc if sym else F.pad(xc, (*pads[1], *pads[0]))
+        # fp32 in full fp32, as the kernel's FMAs (cuDNN's default TF32
+        # would be another function)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib = median_ms(lambda: F.conv2d(
+                xl, wc, None if bias is None else bias.to(dt), st,
+                pads[0][0] if sym else 0), 10)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
         flops = 2 * yk.numel() * k * k * I
         call = lambda: K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt)
         ms = median_ms(call, 10)
@@ -4760,6 +4766,421 @@ def guidance_sets_phase(torch, port_main, kernels, png, ws, smi_line):
     return {"step_ms": 1e3 * med, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# tooling (slice 11): the DPT of preprocess_image, mesh_to_video,
+# r_precision, the viewer and --profile
+# ---------------------------------------------------------------------------
+
+DPT_HW = 384
+TURNTABLE_FRAMES, TURNTABLE_SIZE = 4, 512
+PROFILE_FLAGS = ["--iters", "8", "--dataset_size_train", "4",
+                 "--dataset_size_test", "1", "--eval_interval", "-1",
+                 "--ckpt", "scratch", "--profile"]
+
+
+def dpt_calls(cfg, hw: int):
+    """K12's and K10's calls of one DPT forward at hw², from the model's own
+    forward on the meta device → ([(x shape, w shape, stride, pads)],
+    [q shape])."""
+    import torch
+
+    from dreamfusion_tpu_torch.models import dpt as D
+    from dreamfusion_tpu_torch.ops.conv import out_size
+    convs, attns = [], []
+
+    def conv2d(x, w, bias, stride, pads, out_dtype=None):
+        pads = tuple(map(tuple, pads))
+        convs.append((tuple(x.shape), tuple(w.shape), stride, pads))
+        Ho, Wo = out_size(x.shape[1], x.shape[2], w.shape[1], w.shape[2],
+                          (stride, stride), pads)
+        return torch.empty(x.shape[0], Ho, Wo, w.shape[0], device="meta")
+
+    def attention(q, k, v):
+        attns.append(tuple(q.shape))
+        return torch.empty_like(q)
+
+    saved = D.conv2d, D.attention
+    D.conv2d, D.attention = conv2d, attention
+    try:
+        with torch.device("meta"):
+            D.DPTDepthModel(cfg)(torch.empty(1, hw, hw, 3))
+    finally:
+        D.conv2d, D.attention = saved
+    return convs, attns
+
+
+def dpt_launches(torch, cfg, hw: int = DPT_HW) -> dict:
+    """{route: launches} of one DPT forward at hw² (``dpt_calls``)."""
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    convs, attns = dpt_calls(cfg, hw)
+    out = {}
+    for _, (O, kh, kw, I), st, _ in convs:
+        r = K12.conv_route(torch.float32, I, O, (st, st), kh * kw)
+        out[r] = out.get(r, 0) + 1
+    for q in attns:
+        r = K10.attention_route(q[-1], torch.float32)
+        out[r] = out.get(r, 0) + 1
+    return out
+
+
+def dpt_kernel_phases(torch, results) -> None:
+    """K10's fp32 forward at the ViT's [1, 577, 12, 64] against the plain
+    version and SDPA (fp32, TF32 off), its lse against the logits'
+    logsumexp, and K12 at every distinct fp32 conv shape of a 384² DPT
+    forward against the plain version and cuDNN (TF32 off)."""
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.models.dpt import DPTConfig
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import kernels
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    randn = _randn_on(torch, g)
+    convs, attns = dpt_calls(DPTConfig.depth(), DPT_HW)
+    B, N, h, d = attns[0]
+    q, k, v = (randn(B, N, h, d, dtype=torch.float32) for _ in range(3))
+    scale = d ** -0.5
+    kernels.reset_launch_counts()
+    o, lse = K10.attention_fwd_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["attention_fwd_fp32"] == 1,
+          "the fp32 attention did not take attention_fwd_fp32")
+    op = K10.attention_plain(q, k, v, scale)
+    # fp32 throughout: sums in another order and the online softmax's
+    # rescaling
+    err = _close_to("attention_fwd_fp32", o, op, 1e-5, 1e-5)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    lse_err = _close_to("attention_fwd_fp32 lse", lse,
+                        torch.logsumexp(logits, dim=-1), 1e-5, 1e-6)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    call = lambda: K10.attention_fwd_cuda(q, k, v, scale)
+    record_kernel(results, "attention_fwd_fp32", err, median_ms(call, 10),
+                  median_ms(lambda: K10.attention_plain(q, k, v, scale), 5),
+                  "1e-5 rel + 1e-5 of max", nbytes(q, k, v, o, lse),
+                  4 * B * h * N * N * d, "fp32", lib,
+                  f" q [{B},{N},{h},{d}] fp32 (lse err {lse_err:.2e}), graph "
+                  f"{graph_ms(call):.4f} ms", exps=B * h * N * N, main=True)
+    rows, seen = [], set()
+    for (B, H, W, I), (O, kh, _, _), st, pads in convs:
+        row = (B, H, W, I, O, kh, st, pads, "fp32", False)
+        if row not in seen:
+            seen.add(row)
+            rows.append(row)
+    times = {}
+    conv_rows(torch, results, rows, randn, times=times)
+    n = {r: sum(1 for (x, w, st, p) in convs
+                if (*x, w[0], w[1], st, p, "fp32", False) == r)
+         for r in rows}
+    total = sum(times[r][0] * n[r] for r in rows)
+    lib = sum(times[r][1] * n[r] for r in rows)
+    log(f"DPT K12: {len(convs)} fp32 convs a 384² forward over {len(rows)} "
+        f"shapes, {total:.3f} ms of kernels against cuDNN's {lib:.3f} ms")
+
+
+def random_dpt_state(torch, model, seed: int):
+    """Random weights for `model` in place, from the seed: kernels N(0,
+    1/fan_in), norm weights 1, biases 0, the tokens N(0, 0.02²)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("cls_token", "pos_embed")):
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * 0.02)
+            elif p.dim() >= 2:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda")
+                        * fan_in ** -0.5)
+            elif "norm" in name and name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+
+def write_omnidata_ckpt(torch, model, path: str) -> None:
+    """`model`'s weights as an omnidata checkpoint holds them: conv
+    [O, I, kh, kw], under ``state_dict`` and the Lightning ``model.``
+    prefix, with the dead refinenet4.resConfUnit1 unit."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().cpu()
+        sd["model." + k] = v.permute(0, 3, 1, 2).contiguous() \
+            if v.dim() == 4 else v
+    F_ = model.cfg.features
+    for c in (1, 2):
+        sd[f"model.scratch.refinenet4.resConfUnit1.conv{c}.weight"] = \
+            torch.zeros(F_, F_, 3, 3)
+        sd[f"model.scratch.refinenet4.resConfUnit1.conv{c}.bias"] = \
+            torch.zeros(F_)
+    torch.save({"state_dict": sd}, path)
+
+
+def dpt_path(torch, kernels, png, ws, smi_line) -> dict:
+    """The DPT at full width (vitb_rn50_384, random weights from a seed) as
+    ``preprocess_image`` runs it, on the reference PNG: depth from an
+    omnidata ``.ckpt`` (``convert_dpt`` on the fly), normals from the
+    ``.npz`` that ``utils.convert --kind dpt`` writes from another; each
+    run through ``run_omnidata`` with the counters reset just before and
+    K10/K12 exactly as ``dpt_launches``; the sidecars written where
+    ``load_ref_images`` reads them; the forward's wall time; the card's
+    output against the CPU's at 128² → {"depth_ms", "normal_ms",
+    "launches": the depth run's counts}."""
+    import numpy as np
+
+    import shutil
+
+    from dreamfusion_tpu_torch import preprocess_image as PI
+    from dreamfusion_tpu_torch.config import Config
+    from dreamfusion_tpu_torch.models import dpt as D
+    from dreamfusion_tpu_torch.training.image_data import load_ref_images
+    from dreamfusion_tpu_torch.utils import convert as PC
+    os.makedirs(ws, exist_ok=True)
+    rgb = PI.read_rgb(png)
+    out, want = {}, None
+    for task, seed in (("depth", 31), ("normal", 32)):
+        cfg = getattr(D.DPTConfig, task)()
+        with torch.device("cuda"):
+            model = D.DPTDepthModel(cfg)
+        random_dpt_state(torch, model, seed)
+        ckpt = os.path.join(ws, f"omnidata_dpt_{task}_v2.ckpt")
+        write_omnidata_ckpt(torch, model, ckpt)
+        if task == "normal":
+            PC.main(["--kind", "dpt", "--src", ckpt, "--out", ws])
+            ckpt = os.path.join(ws, "dpt_normal.npz")
+        want = dpt_launches(torch, cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        pred = PI.run_omnidata(rgb, ckpt, task)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(got == want, f"DPT {task}: launches {got}, want {want}")
+        out.setdefault("launches", got)
+        shape = rgb.shape[:2] if task == "depth" else (*rgb.shape[:2], 3)
+        # clamped to [0, 1], then resized: rows of weights that sum to 1
+        # within an ulp
+        check(pred.shape == shape and np.isfinite(pred).all() and
+              pred.min() >= 0 and pred.max() <= 1 + 1e-6,
+              f"DPT {task}: output {pred.shape} in [{pred.min()}, "
+              f"{pred.max()}]")
+        loaded = D.load_dpt(ckpt, cfg, "cuda")
+        sd = loaded.state_dict()
+        check(all(torch.equal(sd[k], v) for k, v in
+                  model.state_dict().items()),
+              f"DPT {task}: {os.path.basename(ckpt)} did not load the "
+              f"weights bit for bit")
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            PI.dpt_predict(loaded, rgb, task)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        out[f"{task}_ms"] = 1e3 * statistics.median(times[1:])
+        log(f"DPT {task} at {DPT_HW}² (vitb_rn50_384, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+            f"parameters, random): run_omnidata {load_s:.2f} s with the "
+            f"load from {os.path.basename(ckpt)}; the forward with its "
+            f"resizes {out[f'{task}_ms']:.2f} ms (median of 3, "
+            f"synchronised); launches {got}; output in [{pred.min():.4f}, "
+            f"{pred.max():.4f}]; on {smi_line}")
+        if task == "depth":
+            # the sidecars beside a copy of the reference, as
+            # preprocess_image writes them and load_ref_images reads them
+            ref = os.path.join(ws, "ref_rgba.png")
+            shutil.copyfile(png, ref)
+            PI.write_png(ref.replace("_rgba", "_depth"),
+                         (pred * 255).astype(np.uint8))
+            PI.write_png(ref.replace("_rgba", "_normal"),
+                         (PI.normal_from_depth(pred) * 255).astype(np.uint8))
+            refs = load_ref_images(Config(image=ref), 64, 64)
+            check(refs.depth is not None and refs.normal is not None,
+                  "load_ref_images did not read the DPT's sidecars")
+            # the card against the CPU at 128² on the raw head (no relu)
+            raw = D.DPTDepthModel(D.DPTConfig(num_channels=1,
+                                              non_negative=False))
+            raw.load_state_dict({k: v.cpu() for k, v in sd.items()})
+            x = torch.rand(1, 128, 128, 3, generator=torch.Generator(
+            ).manual_seed(5)) * 2 - 1
+            y_cpu = raw(x)
+            y_gpu = raw.cuda()(x.cuda()).cpu()
+            err = _close_to("DPT 128² card vs CPU", y_gpu, y_cpu, 1e-3, 1e-3)
+            log(f"DPT depth at 128² on the card against the CPU's plain "
+                f"versions: max abs err {err:.3e} of a largest "
+                f"{float(y_cpu.abs().max()):.3e} (tolerance 1e-3 rel + 1e-3 "
+                f"of max)")
+        del model, loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+def turntable_phase(torch, kernels, mesh_path, ws, smi_line) -> dict:
+    """``evaluation.mesh_to_video`` on the stage-1 mesh at 512², a few
+    frames, the counters reset just before: K7 exactly (a ``raster_fwd``
+    and an ``interpolate_fwd`` a frame), finite frames with the mesh in
+    them → {"frame_s": a frame's render, synchronised; "cli_s": the CLI's
+    wall, the OBJ and texture reads and the frames' writes included}."""
+    import numpy as np
+
+    from dreamfusion_tpu_torch.evaluation import mesh_to_video as MV
+    from dreamfusion_tpu_torch.mesh.export import read_obj
+    from dreamfusion_tpu_torch.utils.image import load_image
+    os.makedirs(ws, exist_ok=True)
+    args = ["--mesh", mesh_path, "--out", os.path.join(ws, "turntable.mp4"),
+            "--frames", str(TURNTABLE_FRAMES), "--size",
+            str(TURNTABLE_SIZE)]
+    MV.main(args[:5] + ["1", "--size", "64"])          # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    path = MV.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want = {"raster_fwd": TURNTABLE_FRAMES,
+            "interpolate_fwd": TURNTABLE_FRAMES}
+    check(got == want, f"mesh_to_video: launches {got}, want {want}")
+    frame = load_image(path) if path.endswith(".png") else None
+    if frame is not None:
+        check(frame.shape == (TURNTABLE_SIZE, TURNTABLE_SIZE, 3) and
+              np.isfinite(frame).all() and (frame < 0.99).any(),
+              f"mesh_to_video: frame {frame.shape}, all white or not finite")
+    verts, tris, uv, tex_path = read_obj(mesh_path)
+    tex = load_image(tex_path)[..., :3]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    MV.render_turntable(verts, tris, uv, tex, frames=TURNTABLE_FRAMES,
+                        size=TURNTABLE_SIZE)
+    torch.cuda.synchronize()
+    frame_s = (time.time() - t0) / TURNTABLE_FRAMES
+    log(f"mesh_to_video: {TURNTABLE_FRAMES} frames at {TURNTABLE_SIZE}² of "
+        f"the stage-1 mesh ({len(tris)} faces): the CLI {cli_s:.3f} s -> "
+        f"{os.path.basename(path)}, a frame's render {1e3 * frame_s:.2f} "
+        f"ms (synchronised, the copy to the host included); launches "
+        f"{got}; on {smi_line}")
+    return {"frame_s": frame_s, "cli_s": cli_s}
+
+
+def r_precision_phase(torch, kernels, stage1_ws, ws) -> dict:
+    """``evaluation.r_precision`` at full width (ViT-B/16, random weights
+    from the seed) on the stage-1 run's validation renders with two
+    distractors: one ``conv_fwd_mma`` for the batch, no K10 (the CLIP
+    towers' attention is plain, as JAX's), finite numbers."""
+    from dreamfusion_tpu_torch.evaluation import r_precision as RP
+    os.makedirs(ws, exist_ok=True)
+    dis = os.path.join(ws, "distractors.txt")
+    with open(dis, "w") as f:
+        f.write("a red car\na wooden chair\n")
+    images = os.path.join(stage1_ws, "validation")
+    n = len([f for f in os.listdir(images) if f.endswith(".png")])
+    kernels.reset_launch_counts()
+    out = RP.main(["--images", images, "--text", "a hamburger",
+                   "--distractors", dis])
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(got == {"conv_fwd_mma": 1}, f"r_precision: launches {got}")
+    check(out["n_images"] == n and out["n_prompts"] == 3 and
+          math.isfinite(out["mean_clip_similarity"]) and
+          0.0 <= out["r_precision"] <= 1.0, f"r_precision: {out}")
+    log(f"r_precision on {n} renders (random ViT-B/16): {out}")
+    return out
+
+
+def viewer_phase(torch, port_main, kernels, stage1_ws, smi_line) -> float:
+    """One 256² frame of the browser viewer on the stage-1 run (its
+    config.json and latest checkpoint), fetched over HTTP on localhost:
+    a PNG of the frame, K1-K4 launched → seconds the request took."""
+    import threading
+    import urllib.request
+
+    from dreamfusion_tpu_torch import viewer as V
+    from dreamfusion_tpu_torch.config import load_config_json
+    from dreamfusion_tpu_torch.utils.image import decode_png
+    cfg = load_config_json(os.path.join(stage1_ws, "config.json"))
+    trainer, state, gen = port_main.build_run(
+        dataclasses.replace(cfg, test=True), torch.device("cuda"), False,
+        log=lambda *a: None)
+    state, loaded = trainer.load_checkpoint(state, "latest")
+    check(loaded, "viewer: no stage-1 checkpoint")
+    srv = V.make_server(V.ViewerState(trainer, state, gen), False, 0,
+                        "127.0.0.1")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        page = urllib.request.urlopen(url + "/", timeout=60).read()
+        check(b"<canvas" in page, "viewer: no page")
+        urllib.request.urlopen(url + "/render?size=64", timeout=120).read()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        body = urllib.request.urlopen(
+            url + "/render?polar=70&azimuth=30&size=256&shading=lambertian",
+            timeout=120).read()
+        sec = time.time() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join()
+    img = decode_png(body)
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(img.shape == (256, 256, 3) and img.min() < 250,
+          f"viewer: frame {img.shape}, all white")
+    for k in ("triplane_fwd", "march_rays", "composite_fwd"):
+        check(got.get(k, 0) > 0, f"viewer: the frame never launched {k}")
+    log(f"viewer: a 256² lambertian frame over HTTP in {1e3 * sec:.1f} ms "
+        f"(the PNG encode included); launches {got}; on {smi_line}")
+    return sec
+
+
+def profile_phase(port_main, ws) -> dict:
+    """``main --profile`` on the flagship oracle, 8 steps with epochs of
+    4: the first epoch's Chrome trace, with device time in it."""
+    summary = port_main.main(FLAGSHIP + PROFILE_FLAGS + ["--workspace", ws])
+    prof = summary.get("profile") or {}
+    path = prof.get("trace", "")
+    check(os.path.exists(path) and os.path.getsize(path) > 0,
+          f"--profile wrote no trace ({path})")
+    with open(path) as f:
+        json.load(f)
+    check(sum(prof["device_ms"].values()) > 0,
+          f"--profile: no device time in the trace: {prof['device_ms']}")
+    log(f"--profile: {path} ({os.path.getsize(path) / 1e6:.1f} MB), device "
+        f"ms by group {_rounded(prof['device_ms'])}")
+    return prof
+
+
+def tooling_phases(torch, port_main, kernels, results, stage1_ws, mesh_path,
+                   png, smi_line) -> dict:
+    """Slice 11: the DPT's kernel rows and path, the turntable, r_precision,
+    the viewer and --profile → the DPT path's launches."""
+    build = os.path.join(ROOT, "build")
+    t0 = time.time()
+    dpt_kernel_phases(torch, results)
+    t_rows = time.time() - t0
+    dpt_ms = dpt_path(torch, kernels, png,
+                      os.path.join(build, "chip_smoke_dpt"), smi_line)
+    launches = dpt_ms.pop("launches")
+    turn = turntable_phase(torch, kernels, mesh_path,
+                           os.path.join(build, "chip_smoke_turntable"),
+                           smi_line)
+    r_precision_phase(torch, kernels, stage1_ws,
+                      os.path.join(build, "chip_smoke_rprec"))
+    view_s = viewer_phase(torch, port_main, kernels, stage1_ws, smi_line)
+    profile_phase(port_main, os.path.join(build, "chip_smoke_profile_ws"))
+    log(f"tooling phases in {time.time() - t0:.1f} s (the DPT's kernel rows "
+        f"{t_rows:.1f} s): DPT ms {_rounded(dpt_ms)}, turntable s "
+        f"{_rounded(turn)}, s a viewer frame {view_s:.4f}; on {smi_line}")
+    return launches
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -4969,7 +5390,15 @@ def run() -> dict:
         f"{_rounded(snap_s)}, s a DDIM step {_rounded(t2i)}, multi-prior "
         f"{_rounded(sets)}; on {smi_line}")
 
+    # ---- tooling: preprocess_image's DPT, mesh_to_video, r_precision, the
+    # viewer, --profile (slice 11) -------------------------------------------
+    dpt_l = tooling_phases(torch, port_main, kernels, results,
+                           os.path.join(build, "chip_smoke_ws"),
+                           summary["mesh_path"], png, smi_line)
+
     def launches_of(name):
+        if name == "attention_fwd_fp32":
+            return dpt_l[name]
         if name in ("vanilla_coarse", "vanilla_resample"):
             return o2_launches[name]
         if name.startswith("field_select"):

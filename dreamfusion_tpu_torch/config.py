@@ -5,7 +5,10 @@ name and default as there (tests/test_torch_package.py checks it), and
 only the fields the ported paths (the oracle, image-oracle, SD,
 DeepFloyd-IF, CLIP and Zero-1-to-3 guidance on the hash-grid, triplane
 and vanilla backbones, the run's end and the DMTet stage) read are
-carried, and ``t5_iters``, which JAX parses and never reads.
+carried, and those JAX parses and never reads (``t5_iters``,
+``test_interval``, ``hf_key``, ``vram_O``, ``learned_embeds_path``,
+``ckpt_extra``, ``max_steps``, ``lambda_clip``, ``freq_multires``,
+``freq_multires_bg``), so that every flag of its CLI parses here too.
 ``apply_O``, ``apply_O2``, ``apply_IF`` (``--IF``), ``apply_image_mode``
 (``--image`` alone), ``apply_image_text_mode`` (``--image`` with
 ``--text``) and ``apply_dmtet`` are the presets, applied in that order
@@ -15,8 +18,9 @@ and the resolved exposure range.
 
 from __future__ import annotations
 
+import json
 import math
-from dataclasses import dataclass, replace
+from dataclasses import asdict, dataclass, replace
 from typing import Optional, Tuple
 
 
@@ -30,11 +34,13 @@ class Config:
     test: bool = False
     six_views: bool = False
     eval_interval: int = 1
+    test_interval: int = 100           # parsed, never read (as in JAX)
     save_interval: int = 1
     save_mesh: bool = False
     mcubes_resolution: int = 256
     decimate_target: int = 50000
     ckpt: str = "latest"
+    ckpt_extra: Optional[str] = None   # parsed, never read (as in JAX)
 
     # ---- guidance ----
     guidance: Tuple[str, ...] = ("SD",)
@@ -44,6 +50,11 @@ class Config:
     # CLIP tokenizer's vocab.json + merges.txt; random weights without it
     pretrained_root: Optional[str] = None
     oracle_scene: str = "two_sphere"
+    # the reference's hub token, low-VRAM switch and textual-inversion
+    # embeddings: parsed, never read (as in JAX)
+    hf_key: Optional[str] = None
+    vram_O: bool = False
+    learned_embeds_path: Optional[str] = None
     fp16: bool = True
     t_range: Tuple[float, float] = (0.02, 0.98)
 
@@ -86,6 +97,7 @@ class Config:
     blob_density: float = 5.0
     blob_radius: float = 0.2
     grid_size: int = 128
+    max_steps: int = 1024              # parsed, never read (as in JAX)
     grid_coarse_steps: int = 32
     grid_fine_steps: int = 24
     occupancy_mode: str = "resample"
@@ -108,6 +120,10 @@ class Config:
     normal_mode: str = "autograd"
     hidden_dim_bg: int = 32
     num_layers_bg: int = 2
+    # parsed, never read: the vanilla field encodes at its own degrees
+    # (ROADMAP queue 3, "The vanilla field's degree 12")
+    freq_multires: int = 6
+    freq_multires_bg: int = 4
 
     # ---- camera / dataset ----
     w: int = 64
@@ -131,6 +147,10 @@ class Config:
     progressive_level: bool = False
     angle_overhead: float = 30.0
     angle_front: float = 60.0
+    # the viewer's light for its lambertian and textureless modes (polar
+    # and azimuth, degrees)
+    light_theta: float = 60.0
+    light_phi: float = 0.0
     t5_iters: int = -1                 # parsed, never read (as in JAX)
     dont_override_stuff: bool = False
 
@@ -149,6 +169,7 @@ class Config:
     lambda_depth: float = 10.0
     lambda_2d_normal_smooth: float = 0.0
     lambda_3d_normal_smooth: float = 0.0
+    lambda_clip: float = 1.0           # parsed, never read (as in JAX)
 
     # ---- Perp-Neg ----
     perpneg: bool = False
@@ -171,6 +192,8 @@ class Config:
 
     # ---- misc ----
     ema_decay: float = 0.95
+    # scalars under workspace/run through tensorboardX, where it imports
+    use_tensorboard: bool = True
     max_keep_ckpt: int = 2
     # a text run's eval metric: the CLIP similarity of its eval renders
     # (``Trainer.set_clip_scorer``), so --ckpt best keeps the best snapshot
@@ -185,6 +208,29 @@ class Config:
     @property
     def cascade(self) -> int:
         return 1 + max(0, int(math.ceil(math.log2(max(self.bound, 1.0)))))
+
+
+def save_config_json(cfg: Config, path: str) -> None:
+    """The run's Config as JSON (the viewer rebuilds a run's model from
+    it)."""
+    with open(path, "w") as f:
+        json.dump(asdict(cfg), f, indent=1)
+
+
+def load_config_json(path: str) -> Config:
+    """A Config from a workspace's ``config.json`` (the port's, or the JAX
+    package's: keys this Config lacks are left out, lists become
+    tuples)."""
+    with open(path) as f:
+        raw = json.load(f)
+    defaults = Config()
+    kw = {}
+    for k, v in raw.items():
+        if not hasattr(defaults, k):
+            continue
+        kw[k] = tuple(v) if isinstance(getattr(defaults, k), tuple) and \
+            isinstance(v, list) else v
+    return Config(**kw)
 
 
 def apply_O(cfg: Config) -> Config:

@@ -1133,3 +1133,158 @@ extern "C" int attention_bwd_wgmma(const void* q, const void* k,
       qq, N, M, H, D, Z, scale, scale);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// fp32 forward (DPT's ViT-B blocks: [1, 577, 12, 64] fp32, JAX's dense
+// branch: fp32 logits, softmax, P kept fp32, P V)
+// ---------------------------------------------------------------------------
+//
+// CUDA cores, no tensor cores: TF32 would part from the plain version by
+// ~1e-3.  A block takes BR = 64 query rows of one (b, h) and walks the keys
+// in tiles of BC = 64 with an online softmax (running max and sum in fp32,
+// exp of s - max as torch's softmax takes it; the last tile's keys past M
+// get -inf).  256 threads: for S = (Q K^T) * scale and for O += P V, thread
+// (ty, tx) of a 16 x 16 grid owns rows ty * 4 .. + 3 and columns tx + 16 j
+// (Q and P rows read as broadcasts, K and V rows with a one-float pad
+// against bank conflicts); the softmax takes four threads a row, reduced by
+// shuffles.  Q, K, V, S in shared memory: 4 x 64 x 65 floats.
+// Bound: operations (2 x 2 N M d FMA-flops a head: 1.02 GFLOP a DPT
+// attention, 15.3 us at 67 TFLOP/s fp32).
+namespace f32a {
+constexpr int D = 64, BR = 64, BC = 64, LD = D + 1, kThreads = 256;
+constexpr size_t kSmem = (size_t)(3 * BR * LD + BR * (BC + 1) + 2 * BR) *
+                         sizeof(float);
+}  // namespace f32a
+
+__global__ void __launch_bounds__(f32a::kThreads)
+    attn_fwd_fp32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int N, int M, int H,
+                         float scale) {
+  using namespace f32a;
+  extern __shared__ float sm[];
+  float* Qs = sm;                        // [BR][LD]
+  float* Ks = Qs + BR * LD;              // [BC][LD]
+  float* Vs = Ks + BC * LD;              // [BC][LD]
+  float* Ss = Vs + BC * LD;              // [BR][BC + 1]: S, then P
+  float* corr = Ss + BR * (BC + 1);      // [BR] per tile: exp(m_old - m)
+  float* lsum = corr + BR;               // [BR] the final row sums
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int z = blockIdx.y, b = z / H, h = z % H, n0 = blockIdx.x * BR;
+  const int64_t row = (int64_t)H * D;    // floats between tokens
+  const float* qz = q + (int64_t)b * N * row + (int64_t)h * D;
+  const float* kz = k + (int64_t)b * M * row + (int64_t)h * D;
+  const float* vz = v + (int64_t)b * M * row + (int64_t)h * D;
+  for (int i = tid; i < BR * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    Qs[r * LD + c] = n0 + r < N ? qz[(int64_t)(n0 + r) * row + c] : 0.f;
+  }
+  // the softmax's thread: row sr, columns sq * 16 .. + 15
+  const int sr = tid / 4, sq = tid % 4;
+  float m_run = -INFINITY, l_run = 0.f;
+  float acc[4][4] = {};
+  for (int m0 = 0; m0 < M; m0 += BC) {
+    __syncthreads();                     // the last tile's P V is done
+    for (int i = tid; i < BC * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = m0 + r < M;
+      Ks[r * LD + c] = in ? kz[(int64_t)(m0 + r) * row + c] : 0.f;
+      Vs[r * LD + c] = in ? vz[(int64_t)(m0 + r) * row + c] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4] = {};
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        Ss[(ty * 4 + i) * (BC + 1) + c] =
+            m0 + c < M ? s[i][j] * scale : -INFINITY;
+      }
+    __syncthreads();
+    // online softmax, four threads a row
+    float* srow = Ss + sr * (BC + 1) + sq * 16;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) mx = fmaxf(mx, srow[c]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const float p = expf(srow[c] - m_new);
+      srow[c] = p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffff, sum, 1);
+    sum += __shfl_xor_sync(0xffffffff, sum, 2);
+    const float cr = expf(m_run - m_new);   // 0 on the first tile
+    l_run = l_run * cr + sum;
+    m_run = m_new;
+    if (sq == 0) corr[sr] = cr;
+    __syncthreads();
+    // O = O * corr + P V
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float c = corr[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= c;
+    }
+    for (int kk = 0; kk < BC; ++kk) {
+      float pv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty * 4 + i) * (BC + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+  if (sq == 0) {
+    lsum[sr] = l_run;
+    if (n0 + sr < N) lse[(int64_t)z * N + n0 + sr] = m_run + logf(l_run);
+  }
+  __syncthreads();
+  float* oz = o + (int64_t)b * N * row + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (n0 + r >= N) continue;
+    const float inv = 1.f / lsum[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      oz[(int64_t)(n0 + r) * row + tx + 16 * j] = acc[i][j] * inv;
+  }
+}
+
+extern "C" int attention_fwd_fp32(const float* q, const float* k,
+                                  const float* v, float* o, float* lse,
+                                  int B, int N, int M, int H, int D,
+                                  float scale, cudaStream_t stream) {
+  using namespace f32a;
+  if (D != f32a::D || M < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0 || B * H == 0) return (int)cudaGetLastError();
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err =
+      hop::allow_smem(attn_fwd_fp32_kernel, (int)kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BR - 1) / BR, B * H);
+  attn_fwd_fp32_kernel<<<grid, kThreads, kSmem, stream>>>(q, k, v, o, lse, N,
+                                                          M, H, scale);
+  return (int)cudaGetLastError();
+}

@@ -16,7 +16,10 @@ loaded (``load_pretrained`` with ``t5.npz`` or a raw ``text_encoder/``;
 ``init_t5`` builds one on random weights), its tokens from the hash
 tokenizer as JAX's ``main`` gives them; else JAX's fallback, an md5-seeded
 numpy normal draw per prompt, bit for bit.  The tower is freed with
-``free_t5`` before the first step.
+``free_t5`` before the first step.  ``encode_text(text, pretrained_root)``
+tokenizes with T5's own tokenizer where the root holds a
+``tokenizer.json`` (``guidance/t5_tokenizer.py``), as JAX's method does;
+no run passes a root, as in JAX.
 
 ``guidance_eval`` is the ``--save_guidance`` snapshot (the noised 64²
 render and the one-step denoised x0, both in pixels); ``produce_imgs`` and
@@ -30,6 +33,7 @@ the cosine schedule).
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -50,6 +54,13 @@ from ..utils.raw_weights import convert_if
 from .embeddings import DIRECTION_SUFFIXES, HashTokenizer
 from .perpneg import weighted_perpendicular_aggregator
 from .schedule import NoiseSchedule, ddim_sample, make_schedule
+from .t5_tokenizer import T5Tokenizer
+
+
+@functools.lru_cache(maxsize=4)
+def t5_tokenizer(path: str, max_len: int) -> T5Tokenizer:
+    """T5's tokenizer of a ``tokenizer.json``, read once."""
+    return T5Tokenizer(path, max_len)
 
 
 @dataclass(frozen=True)
@@ -187,12 +198,23 @@ class IFGuidance:
 
     # ---- prompt embeddings ---------------------------------------------------
     @torch.no_grad()
-    def encode_text(self, text: str) -> torch.Tensor:
-        """The T5 tower's states of `text`'s hash tokens (all kept) → [1,
-        max_len, d_model] fp32."""
-        ids = HashTokenizer(self.t5.cfg.vocab_size, self.cfg.max_len)(text)
-        ids = torch.from_numpy(ids).long().to(self.t5.shared.weight.device)
-        return self.t5(ids, torch.ones_like(ids)).float()
+    def encode_text(self, text: str, pretrained_root: Optional[str] = None
+                    ) -> torch.Tensor:
+        """The T5 tower's states of `text` → [1, max_len, d_model] fp32:
+        its tokens by T5's tokenizer where `pretrained_root` holds a
+        ``tokenizer.json`` (padded, the padding masked), else its hash
+        tokens, all kept (JAX's rule)."""
+        path = os.path.join(pretrained_root, "tokenizer.json") \
+            if pretrained_root else None
+        if path and os.path.isfile(path):
+            ids, mask = t5_tokenizer(path, self.cfg.max_len)(text)
+        else:
+            ids = HashTokenizer(self.t5.cfg.vocab_size,
+                                self.cfg.max_len)(text)
+            mask = np.ones_like(ids)
+        dev = self.t5.shared.weight.device
+        return self.t5(torch.from_numpy(ids).long().to(dev),
+                       torch.from_numpy(mask).long().to(dev)).float()
 
     def fallback_embedding(self, text: str) -> torch.Tensor:
         """JAX's stand-in without T5 weights: N(0, 1) from numpy seeded by

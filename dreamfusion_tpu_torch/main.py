@@ -106,11 +106,22 @@ the start and the end, and under ``--image`` (stage 1) the known-view masked
 PSNR.  A DMTet run logs when its surface outgrew the marching tets' face
 cap (the cap then grows) or K7's tile cap, and reports the steps that
 dropped faces or cut a tile's list, and the eval and test views whose
-fullest tile passed K7's cap (``view_tile_cut``).  Flags of parts not
-ported yet (``--gui``, ``--profile``) raise NotImplementedError naming the
-ROADMAP queue 1 item (by its title) that ports them; what JAX refuses
+fullest tile passed K7's cap (``view_tile_cut``).  What JAX refuses
 (zero123 without a reference, the image oracle without ``--image
 analytic:<scene>``) raises ValueError.
+
+The run writes ``config.json`` to its workspace and, where tensorboardX
+imports and ``--use_tensorboard`` is on (the default), the loss and the
+SDS loss at each log step under ``run/``.  ``--profile`` traces the first
+epoch with ``torch.profiler`` into ``profile/trace.json`` (Chrome's trace
+format) and logs its device time by kernel group
+(``profile_step.GROUPS``).  ``--gui`` serves the browser viewer
+(``viewer.py``) on the run's state instead of training, on port
+``DFTPU_VIEWER_PORT`` (7860), with "train" where the run has guidance.
+JAX's flag surface parses: ``--file args.txt`` splices a file's flags in,
+``--radius`` and ``--fovy`` set ``default_radius`` and ``default_fovy``,
+and ``--cuda_ray``, ``--taichi_ray`` and ``--max_spp`` are accepted and do
+nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -119,6 +130,7 @@ import argparse
 import dataclasses
 import math
 import os
+import sys
 import time
 from dataclasses import replace
 from typing import Any, Dict
@@ -126,7 +138,8 @@ from typing import Any, Dict
 import torch
 
 from .config import (Config, apply_dmtet, apply_IF, apply_image_mode,
-                     apply_image_text_mode, apply_O, apply_O2, finalize)
+                     apply_image_text_mode, apply_O, apply_O2, finalize,
+                     save_config_json)
 from .guidance.clip import CLIPConfig, CLIPGuidance
 from .guidance.deepfloyd import IFConfig, IFGuidance
 from .guidance.embeddings import prepare_text_embeddings
@@ -143,14 +156,24 @@ TEX_RES = 1024        # the exported albedo texture's side
 _NONE_DEFAULT_TYPES = {"text": str, "seed": int, "image": str,
                        "image_config": str, "exp_start_iter": int,
                        "exp_end_iter": int, "pretrained_root": str,
-                       "zero123_config": str, "zero123_ckpt": str}
-# flag → the title of its ROADMAP queue 1 item
-_NOT_PORTED = {"--gui": "Tooling", "--profile": "Tooling"}
+                       "zero123_config": str, "zero123_ckpt": str,
+                       "hf_key": str, "learned_embeds_path": str,
+                       "ckpt_extra": str}
+
+
+class FileArgs(argparse.Action):
+    """``--file args.txt`` splices in the flags the file holds."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        with open(values) as f:
+            extra = f.read().split()
+        parser.parse_args(extra, namespace)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("dreamfusion_tpu_torch")
     defaults = Config()
+    p.add_argument("--file", type=str, action=FileArgs, help="args file")
     for f in dataclasses.fields(Config):
         if f.name == "guidance":
             continue
@@ -177,21 +200,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fp16, the vanilla backbone and progressive levels")
     p.add_argument("--IF", action="store_true",
                    help="DeepFloyd-IF guidance in SD's place")
-    for flag in _NOT_PORTED:        # a switch, or a flag with a value
-        p.add_argument(flag, nargs="?", const=True, default=None)
+    p.add_argument("--gui", action="store_true",
+                   help="serve the browser orbit viewer on the run's state")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the first epoch "
+                        "under workspace/profile")
+    # the JAX CLI's compatibility flags: accepted, no effect
+    p.add_argument("--cuda_ray", action="store_true",
+                   help="no effect (occupancy marching is built in)")
+    p.add_argument("--taichi_ray", action="store_true",
+                   help="no effect (occupancy marching is built in)")
+    p.add_argument("--max_spp", type=int, default=None,
+                   help="no effect (the viewer renders a full frame)")
+    p.add_argument("--radius", type=float, default=None,
+                   help="sets default_radius")
+    p.add_argument("--fovy", type=float, default=None,
+                   help="sets default_fovy")
     return p
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag.lstrip("-")):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1: {item})")
     overrides: Dict[str, Any] = {}
     for f in dataclasses.fields(Config):
         v = getattr(args, f.name, None)
         if v is not None:
             overrides[f.name] = tuple(v) if isinstance(v, list) else v
+    # --radius and --fovy set default_radius and default_fovy (the alias
+    # wins over both given, as in JAX)
+    for alias, field in (("radius", "default_radius"),
+                         ("fovy", "default_fovy")):
+        if getattr(args, alias, None) is not None:
+            if field in overrides:
+                print(f"[warn] both --{alias} and --{field} given; "
+                      f"--{alias} wins", file=sys.stderr)
+            overrides[field] = getattr(args, alias)
     cfg = replace(Config(), **overrides)
     if args.O:
         cfg = apply_O(cfg)
@@ -419,6 +461,54 @@ def install_clip_scorer(trainer, cfg: Config, tiny: bool, log=print) -> None:
             f"({'the guidance' if 'clip' in trainer.priors else 'a scorer'})")
 
 
+def tensorboard_writer(cfg: Config):
+    """tensorboardX's SummaryWriter under workspace/run, where
+    ``use_tensorboard`` is on and the package imports (JAX's rule), else
+    None."""
+    if not cfg.use_tensorboard:
+        return None
+    try:
+        from tensorboardX import SummaryWriter
+        return SummaryWriter(os.path.join(cfg.workspace, "run"))
+    except Exception:
+        return None
+
+
+def start_profile(device):
+    """A running ``torch.profiler`` over the host and, on the card, the
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(device)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, device, workspace: str, log=print) -> Dict[str, Any]:
+    """Stop `prof`, write its Chrome trace to workspace/profile/trace.json
+    and log the device time by kernel group (``profile_step.GROUPS``) →
+    {"trace": the path, "device_ms": {group: ms}}."""
+    from torch.autograd import DeviceType
+
+    from .profile_step import group_of
+    _sync(device)
+    prof.stop()
+    path = os.path.join(workspace, "profile", "trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    groups: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            g = group_of(e.name)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    log(f"[profile] first epoch traced -> {path}; device ms by group: "
+        f"{ {k: round(v, 3) for k, v in sorted(groups.items())} }")
+    return {"trace": path, "device_ms": groups}
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -434,6 +524,7 @@ def main(argv=None) -> Dict[str, Any]:
     check_slice(cfg)
     device = resolve_device(args.device)
     os.makedirs(cfg.workspace, exist_ok=True)
+    save_config_json(cfg, os.path.join(cfg.workspace, "config.json"))
     log_path = os.path.join(cfg.workspace, "log_df.txt")
 
     def log(msg: str) -> None:
@@ -455,6 +546,15 @@ def main(argv=None) -> Dict[str, Any]:
     summary: Dict[str, Any] = {"device": str(device), "steps": cfg.iters,
                                "phases": {}, "startup": trainer.startup}
     phases = summary["phases"]
+    if args.gui:
+        from .viewer import ViewerState, make_server
+        srv = make_server(ViewerState(trainer, state, gen),
+                          not cfg.test and bool(trainer.priors),
+                          int(os.environ.get("DFTPU_VIEWER_PORT", 7860)))
+        log(f"[gui] serving http://0.0.0.0:{srv.server_address[1]}")
+        srv.serve_forever()
+        srv.server_close()
+        return summary
 
     def timed(name: str, fn, *a, **kw):
         t = time.time()
@@ -513,11 +613,19 @@ def main(argv=None) -> Dict[str, Any]:
     if cfg.dmtet:
         groups.update(sdf=[names.index("geo.sdf")],
                       deform=[names.index("geo.deform")])
+    tb = tensorboard_writer(cfg)
     t0 = t_blk = time.time()
     s_blk = start = state.step
     n_known = 0
     snaps = []          # the --save_guidance triptychs
+    # --profile: the first epoch, as JAX's (steps up to dataset_size_train)
+    prof = start_profile(device) if args.profile else None
+    prof_end = min(cfg.iters, cfg.dataset_size_train)
     for _ in range(start, cfg.iters):
+        if prof is not None and state.step >= prof_end:
+            summary["profile"] = stop_profile(prof, device, cfg.workspace,
+                                              log)
+            prof = None
         n_known += trainer.is_known_view_step(state.step)
         if cfg.dmtet:
             caps.append(trainer.dmtet_renderer.max_tris)
@@ -541,6 +649,10 @@ def main(argv=None) -> Dict[str, Any]:
                 peak = torch.stack(extra[s_blk - start:])[:, 1:3].amax(0)
                 trainer.check_caps(*map(int, peak.tolist()), done)
             rate = (done - s_blk) / (now - t_blk)
+            if tb is not None:
+                tb.add_scalar("train/loss", loss, done)
+                tb.add_scalar("train/loss_sds",
+                              float(metrics.get("loss_sds", 0.0)), done)
             losses.append(loss)
             blocks.append((done - s_blk, now - t_blk))
             log(f"[step {done}/{cfg.iters}] loss={loss:.4f} "
@@ -559,6 +671,10 @@ def main(argv=None) -> Dict[str, Any]:
                 timed("save", trainer.save_checkpoint, state)
             # the block rates leave out evals, snapshots and saves
             t_blk, s_blk = time.time(), done
+    if prof is not None:
+        summary["profile"] = stop_profile(prof, device, cfg.workspace, log)
+    if tb is not None:
+        tb.close()
     n_run = state.step - start
     if blocks:
         steady = blocks[1:] or blocks

@@ -13,8 +13,11 @@ first (``chunked_attention`` :42), else q·kᵀ·scale in fp32.  The two agree
 where the scale is a power of two (d = 64: 1/8); SD 1.5's d = 40
 self-attention at 64² is the path's one call where they differ.
 
-On a CUDA tensor the forward is one launch of ``csrc/attention.cu``
-(flash-style, bf16, wgmma with operands by TMA): at the UNet's head dims
+On a CUDA tensor the forward is one launch of ``csrc/attention.cu``.
+fp32 q, k and v (DPT's ViT-B: [1, 577, 12, 64], JAX's dense branch) take
+``attention_fwd_fp32``: CUDA-core FMAs (no TF32), an online softmax over
+64-key tiles, P kept in fp32.  bf16 takes the flash-style wgmma kernels
+with operands by TMA: at the UNet's head dims
 one kernel parametrised on d, with a counter per d
 (``attention_fwd_wgmma`` at d = 64, ``attention_fwd_wgmma_d40``, ``_d80``
 and ``_d160`` at SD 1.5's), at d = 512 the VAE mid-block's
@@ -58,11 +61,12 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _check(q, k, v):
+def _check(q, k, v, dtypes=(torch.bfloat16,)):
     kernels.check_cuda(q, k, v)
     for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel takes bf16, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            raise ValueError(f"attention kernel takes q, k and v of one "
+                             f"dtype in {dtypes}, got {t.dtype}")
     B, N, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
         raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -73,12 +77,20 @@ def _check(q, k, v):
 _ROUTES = {40: "attention_fwd_wgmma_d40", 64: "attention_fwd_wgmma",
            80: "attention_fwd_wgmma_d80", 160: "attention_fwd_wgmma_d160",
            512: "attention_fwd_wgmma_d512"}
+_FP32_ROUTE, _FP32_D = "attention_fwd_fp32", 64
 _TILE_512 = 64          # d = 512: query rows per block, keys per KV tile
 _MAX_SPLITS = 4
 
 
-def attention_route(d: int) -> str:
-    """The launch counter (and kernel) of the forward at head dim `d`."""
+def attention_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The launch counter (and kernel) of the forward at head dim `d`:
+    fp32 q, k and v (DPT's ViT) take ``attention_fwd_fp32`` (d = 64), bf16
+    the wgmma routes."""
+    if dtype == torch.float32:
+        if d != _FP32_D:
+            raise ValueError(f"the fp32 attention kernel takes d = "
+                             f"{_FP32_D}, got {d}")
+        return _FP32_ROUTE
     if d not in _ROUTES:
         raise ValueError(f"attention kernel takes d = {sorted(_ROUTES)}, "
                          f"got {d}")
@@ -93,10 +105,20 @@ def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
 
 
 def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
-    """→ (out [B, N, h, d] bf16, lse [B, h, N] fp32, the log-sum-exp of
-    the logits as formed); `round_q` as in ``attention_plain``."""
-    B, N, M, H, D = _check(q, k, v)
-    route = attention_route(D)
+    """→ (out [B, N, h, d] in q's dtype, lse [B, h, N] fp32, the
+    log-sum-exp of the logits as formed); `round_q` as in
+    ``attention_plain``."""
+    B, N, M, H, D = _check(q, k, v, (torch.bfloat16, torch.float32))
+    route = attention_route(D, q.dtype)
+    if route == _FP32_ROUTE:
+        if round_q:
+            raise ValueError("the fp32 attention kernel takes JAX's dense "
+                             "branch only")
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
+        kernels.launch(route, *(kernels.ptr(t) for t in (q, k, v, o, lse)),
+                       B, N, M, H, D, float(scale))
+        return o, lse
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the attention kernels read q, k and v by TMA: "
                          "16-byte aligned tensors only")
@@ -125,7 +147,9 @@ def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
 
 def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
     """→ (dq, dk, dv), bf16: one call of ``attention_bwd_wgmma`` (the row
-    dots, the scores pass and the three products on wgmma + TMA)."""
+    dots, the scores pass and the three products on wgmma + TMA).  The fp32
+    forward has no backward (the DPT runs under ``no_grad``): fp32 q
+    raises here."""
     B, N, M, H, D = _check(q, k, v)
     do = do.to(torch.bfloat16).contiguous()
     kernels.check_cuda(o, lse, do)

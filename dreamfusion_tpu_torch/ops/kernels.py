@@ -64,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
     "attention_fwd_wgmma_d80": 0,               # K10 d = 80, CUDA C++
     "attention_fwd_wgmma_d160": 0,              # K10 d = 160, CUDA C++
     "attention_fwd_wgmma_d512": 0,              # K10 d = 512, CUDA C++
+    "attention_fwd_fp32": 0,                    # K10 fp32 (DPT), CUDA C++
     "attention_bwd_wgmma": 0,                   # K10 backward, CUDA C++
     "groupnorm_fwd_resident": 0, "groupnorm_fwd_stream": 0,  # K11, CUDA C++
     "groupnorm_bwd_resident": 0, "groupnorm_bwd_stream": 0,  # K11, CUDA C++
@@ -127,6 +128,7 @@ _SIGNATURES = {
     "attention_fwd_wgmma_d80": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d160": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
+    "attention_fwd_fp32": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_bwd_wgmma": [_P] * 12 + [_I] * 5 + [_F, _P],
     "groupnorm_fwd_resident": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "groupnorm_bwd_resident": [_P] * 6 + [_I] * 10 + [_P],

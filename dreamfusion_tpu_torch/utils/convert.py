@@ -12,7 +12,8 @@ checkpoints.  Zero-1-to-3's ``cc_projection`` (a Flax ``[772, 768]``
 kernel) becomes an ``nn.Linear`` ``[768, 772]`` weight.  DeepFloyd-IF's
 UNet (``if_unet``: its 1×1 shortcuts stay convs on K12, ``[O, 1, 1, I]``)
 and T5 encoder (``t5``) follow the JAX package's ``if_unet_mapper`` and
-``t5_mapper``.
+``t5_mapper``.  The DPT (``models/dpt.py``) takes the omnidata checkpoint's
+keys (JAX's ``dpt_mapper``); its 1×1 kernels stay ``[O, 1, 1, I]``.
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
             out["tet_scale"] = torch.from_numpy(
                 np.array(tree["tet_scale"], dtype=np.float32))
         return out
+    if "refinenet1" in tree.get("params", tree):
+        return dpt_from_jax(tree)
     if "field" not in tree:
         return _towers(tree)
     field = tree["field"]
@@ -361,6 +364,68 @@ def cc_projection_key(path: str) -> Optional[str]:
     return {"kernel": "weight", "bias": "bias"}.get(path)
 
 
+_DPT = "pretrained.model."
+
+
+def dpt_key(path: str) -> Optional[str]:
+    """A Flax path of JAX's ``DPTDepthModel`` → the port's key, which is
+    the omnidata checkpoint's (JAX ``dpt_mapper``)."""
+    wb = "weight" if path.endswith(("kernel", "scale")) else "bias"
+    if path.startswith("vit/"):
+        p = path[4:]
+        if p in ("cls_token", "pos_embed"):
+            return _DPT + p
+        simple = {"stem_conv": "patch_embed.backbone.stem.conv.weight",
+                  "stem_norm": f"patch_embed.backbone.stem.norm.{wb}",
+                  "patch_proj": f"patch_embed.proj.{wb}",
+                  "norm": f"norm.{wb}"}
+        top = p.split("/")[0]
+        if top in simple:
+            return _DPT + simple[top]
+        m = re.match(r"stage(\d+)_block(\d+)/(\w+)/", p)
+        if m:
+            s, b, sub = m.groups()
+            sub = {"downsample_conv": "downsample.conv",
+                   "downsample_norm": "downsample.norm"}.get(sub, sub)
+            return (_DPT + f"patch_embed.backbone.stages.{s}.blocks.{b}."
+                    f"{sub}.{wb}")
+        m = re.match(r"block(\d+)/(\w+)/", p)
+        if m:
+            i, sub = m.groups()
+            sub = {"qkv": "attn.qkv", "proj": "attn.proj",
+                   "fc1": "mlp.fc1", "fc2": "mlp.fc2"}.get(sub, sub)
+            return _DPT + f"blocks.{i}.{sub}.{wb}"
+        return None
+    m = re.match(r"readout(\d)/project/", path)
+    if m:
+        return f"pretrained.act_postprocess{m.group(1)}.0.project.0.{wb}"
+    post = {"post3_conv": "act_postprocess3.3",
+            "post4_conv": "act_postprocess4.3",
+            "post4_down": "act_postprocess4.4"}.get(path.split("/")[0])
+    if post:
+        return f"pretrained.{post}.{wb}"
+    m = re.match(r"layer(\d)_rn/", path)
+    if m:
+        return f"scratch.layer{m.group(1)}_rn.weight"
+    m = re.match(r"refinenet(\d)/(?:rcu(\d)/conv(\d)|out_conv)/", path)
+    if m:
+        i, rcu, conv = m.groups()
+        sub = f"resConfUnit{rcu}.conv{conv}" if rcu else "out_conv"
+        return f"scratch.refinenet{i}.{sub}.{wb}"
+    m = re.match(r"head_conv(\d)/", path)
+    if m:
+        return f"scratch.output_conv.{2 * int(m.group(1)) - 2}.{wb}"
+    return None
+
+
+def dpt_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DPTDepthModel`` params (``{'params': ...}`` or the tree
+    inside) → the port's ``DPTDepthModel`` state_dict: every conv kernel
+    ``[O, kh, kw, I]``, 1×1s included, every Dense an ``nn.Linear``
+    weight."""
+    return _tower(tree.get("params", tree), dpt_key, keep_1x1=True)
+
+
 def _tower(tree, key: Callable[[str], Optional[str]], keep_1x1: bool = False
            ) -> Dict[str, torch.Tensor]:
     out = {}
@@ -396,7 +461,9 @@ def tower_key(name: str, levels: int) -> Callable[[str], Optional[str]]:
             "if_unet": lambda p: if_unet_key(p, levels), "t5": t5_key,
             "vae": lambda p: vae_key(p, levels),
             "text": clip_text_key, "vision": clip_vision_key,
-            "cc_projection": cc_projection_key, "clip": clip_key}[name]
+            "cc_projection": cc_projection_key, "clip": clip_key,
+            "dpt": lambda p: dpt_key(p[7:] if p.startswith("params/")
+                                     else p)}[name]
 
 
 def _towers(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -414,3 +481,387 @@ def _towers(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
                 if name in ("unet", "vae") else 0
             out[name] = _tower(tree, tower_key(kind, L), kind == "if_unet")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the other way: the port's modules → JAX's ``<tower>.npz``
+# ---------------------------------------------------------------------------
+
+def _dpt_flax_path(key: str) -> str:
+    """The inverse of ``dpt_key``: a port DPT key → its Flax path."""
+    leaf = key.rsplit(".", 1)[1]
+    if key.startswith(_DPT):
+        p = key[len(_DPT):]
+        if p in ("cls_token", "pos_embed"):
+            return f"vit/{p}"
+        simple = {"patch_embed.backbone.stem.conv": "stem_conv",
+                  "patch_embed.backbone.stem.norm": "stem_norm",
+                  "patch_embed.proj": "patch_proj", "norm": "norm"}
+        mod = p.rsplit(".", 1)[0]
+        norm = "norm" in mod.rsplit(".", 1)[-1]
+        wb = "bias" if leaf == "bias" else ("scale" if norm else "kernel")
+        if mod in simple:
+            return f"vit/{simple[mod]}/{wb}"
+        m = re.match(r"patch_embed\.backbone\.stages\.(\d+)\.blocks\.(\d+)\."
+                     r"(.+)$", mod)
+        if m:
+            s, b, sub = m.groups()
+            sub = sub.replace("downsample.", "downsample_")
+            return f"vit/stage{s}_block{b}/{sub}/{wb}"
+        m = re.match(r"blocks\.(\d+)\.(?:attn|mlp)?\.?(\w+)$", mod)
+        if m:
+            return f"vit/block{m.group(1)}/{m.group(2)}/{wb}"
+    wb = "bias" if leaf == "bias" else "kernel"
+    m = re.match(r"pretrained\.act_postprocess(\d)\.(\d)\.", key)
+    if m:
+        i, j = m.groups()
+        if j == "0":
+            return f"readout{i}/project/{wb}"
+        return f"post{i}_{'down' if j == '4' else 'conv'}/{wb}"
+    m = re.match(r"scratch\.(layer\d_rn)\.", key)
+    if m:
+        return f"{m.group(1)}/kernel"
+    m = re.match(r"scratch\.refinenet(\d)\.(?:resConfUnit(\d)\.conv(\d)|"
+                 r"out_conv)\.", key)
+    if m:
+        i, rcu, conv = m.groups()
+        sub = f"rcu{rcu}/conv{conv}" if rcu else "out_conv"
+        return f"refinenet{i}/{sub}/{wb}"
+    m = re.match(r"scratch\.output_conv\.(\d)\.", key)
+    if m:
+        return f"head_conv{int(m.group(1)) // 2 + 1}/{wb}"
+    raise KeyError(f"no Flax path for DPT key {key}")
+
+
+def _flax_leaf(t: torch.Tensor) -> np.ndarray:
+    """A port tensor in the Flax layout: conv ``[O, kh, kw, I]`` →
+    ``[kh, kw, I, O]``, ``nn.Linear`` ``[out, in]`` → ``[in, out]``."""
+    a = t.detach().float().cpu().numpy()
+    if a.ndim == 4:
+        return a.transpose(1, 2, 3, 0)
+    return a.T if a.ndim == 2 else a
+
+
+_RES_INV = {"norm1": "GroupNorm32_0/GroupNorm_0",
+            "norm2": "GroupNorm32_1/GroupNorm_0", "conv1": "conv1",
+            "conv2": "conv2", "time_emb_proj": "time_emb_proj",
+            "conv_shortcut": "shortcut"}
+_VAE_ATTN_INV = {"group_norm": "GroupNorm32_0/GroupNorm_0", "to_q": "q",
+                 "to_k": "k", "to_v": "v", "to_out.0": "proj_out"}
+_CLIP_INV = {v: k for k, v in _CLIP.items()}
+# Flax modules that are 1×1 convs ([1, 1, I, O]) where the port keeps an
+# ``nn.Linear``-shaped weight
+_FLAX_1X1 = {"unet": ("proj_in", "proj_out", "shortcut"),
+             "vae": ("shortcut", "q", "k", "v", "proj_out", "quant_conv",
+                     "post_quant_conv")}
+
+
+def _level(d: str, i: str, levels: int) -> int:
+    return int(i) if d == "down" else levels - 1 - int(i)
+
+
+def _st_path(rest: str) -> str:
+    """The inverse of ``_spatial_transformer``."""
+    if rest in ("norm", "proj_in", "proj_out"):
+        return {"norm": "GroupNorm32_0/GroupNorm_0"}.get(rest, rest)
+    m = re.match(r"transformer_blocks\.(\d+)\.(.+)$", rest)
+    k, sub = m.groups()
+    sub = {"ff.net.0.proj": "ff_geglu/proj", "ff.net.2": "ff_out"}.get(
+        sub, sub.replace(".to_out.0", ".to_out").replace(".", "/"))
+    return f"block_{k}/{sub}"
+
+
+def _unet_module(mod: str, levels: int) -> str:
+    simple = {"time_embedding.linear_1": "time_dense_0",
+              "time_embedding.linear_2": "time_dense_1",
+              "conv_in": "conv_in", "conv_out": "conv_out",
+              "conv_norm_out": "GroupNorm32_0/GroupNorm_0"}
+    if mod in simple:
+        return simple[mod]
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\."
+                 r"(.+)$", mod)
+    if m:
+        d, i, kind, b, rest = m.groups()
+        top = f"{d}_{_level(d, i, levels)}_" \
+            f"{'res' if kind == 'resnets' else 'attn'}_{b}"
+        return f"{top}/{_RES_INV[rest] if kind == 'resnets' else _st_path(rest)}"
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(down|up)samplers\.0\.conv$", mod)
+    if m:
+        d, i = m.group(1), m.group(2)
+        return f"{d}_{_level(d, i, levels)}_{d}sample"
+    m = re.match(r"mid_block\.resnets\.(\d+)\.(.+)$", mod)
+    if m:
+        return f"mid_res_{m.group(1)}/{_RES_INV[m.group(2)]}"
+    return "mid_attn/" + _st_path(mod[len("mid_block.attentions.0."):])
+
+
+def _vae_module(mod: str, levels: int) -> str:
+    if mod in ("quant_conv", "post_quant_conv"):
+        return ("encoder/" if mod == "quant_conv" else "decoder/") + mod
+    side, _, p = mod.partition(".")
+    if p in ("conv_in", "conv_out"):
+        return f"{side}/{p}"
+    if p == "conv_norm_out":
+        return f"{side}/GroupNorm32_0/GroupNorm_0"
+    m = re.match(r"mid_block\.resnets\.(\d+)\.(\w+)$", p)
+    if m:
+        return f"{side}/mid_res_{m.group(1)}/{_RES_INV[m.group(2)]}"
+    m = re.match(r"mid_block\.attentions\.0\.(.+)$", p)
+    if m:
+        return f"{side}/mid_attn/{_VAE_ATTN_INV[m.group(1)]}"
+    m = re.match(r"(down|up)_blocks\.(\d+)\.resnets\.(\d+)\.(\w+)$", p)
+    if m:
+        d, i, b, sub = m.groups()
+        return f"{side}/{d}_{_level(d, i, levels)}_res_{b}/{_RES_INV[sub]}"
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(down|up)samplers\.0\.conv$", p)
+    d, i = m.group(1), m.group(2)
+    return f"{side}/{d}_{_level(d, i, levels)}_{d}sample"
+
+
+def _clip_text_module(mod: str) -> str:
+    simple = {"embeddings.token_embedding": "token_embedding",
+              "final_layer_norm": "final_ln"}
+    if mod in simple:
+        return simple[mod]
+    m = re.match(r"encoder\.layers\.(\d+)\.(.+)$", mod)
+    return f"layer_{m.group(1)}/{_CLIP_INV[m.group(2)]}"
+
+
+def _clip_vision_module(mod: str) -> str:
+    simple = {"embeddings.patch_embedding": "patch_embed",
+              "pre_layrnorm": "pre_ln", "post_layernorm": "post_ln",
+              "visual_projection": "visual_projection"}
+    if mod in simple:
+        return simple[mod]
+    m = re.match(r"encoder\.layers\.(\d+)\.(.+)$", mod)
+    return f"layer_{m.group(1)}/{_CLIP_INV[m.group(2)]}"
+
+
+def _if_sub(sub: str) -> str:
+    if sub in ("norm1", "norm2", "group_norm", "norm_cross"):
+        return f"{sub}/gn"
+    return "to_out" if sub == "to_out.0" else sub
+
+
+def _if_unet_module(mod: str, levels: int) -> str:
+    simple = {"time_embedding.linear_1": "time_dense_0",
+              "time_embedding.linear_2": "time_dense_1",
+              "encoder_hid_proj": "encoder_hid_proj", "conv_in": "conv_in",
+              "conv_out": "conv_out", "conv_norm_out": "norm_out/gn"}
+    if mod in simple:
+        return simple[mod]
+    if mod.startswith("add_embedding."):
+        return "add_embedding/" + mod[len("add_embedding."):].replace(
+            ".", "/")
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\."
+                 r"(.+)$", mod)
+    if m:
+        d, i, kind, b, sub = m.groups()
+        return f"{d}_{_level(d, i, levels)}_" \
+            f"{'res' if kind == 'resnets' else 'attn'}_{b}/{_if_sub(sub)}"
+    m = re.match(r"(down|up)_blocks\.(\d+)\.(down|up)samplers\.0\.(.+)$", mod)
+    if m:
+        d, i, _, sub = m.groups()
+        return f"{d}_{_level(d, i, levels)}_{d}/{_if_sub(sub)}"
+    m = re.match(r"mid_block\.resnets\.(\d+)\.(.+)$", mod)
+    if m:
+        return f"mid_res_{m.group(1)}/{_if_sub(m.group(2))}"
+    return "mid_attn/" + _if_sub(mod[len("mid_block.attentions.0."):])
+
+
+def _t5_path(key: str) -> str:
+    if key == "shared.weight":
+        return "shared/embedding"
+    if key == "encoder.final_layer_norm.weight":
+        return "final_ln/weight"
+    m = re.match(r"encoder\.block\.(\d+)\.layer\.(\d)\.(.+)\.weight$", key)
+    i, layer, sub = m.groups()
+    sub = {"SelfAttention.relative_attention_bias":
+           "attn/relative_attention_bias", "layer_norm":
+           "ln_attn/weight" if layer == "0" else "ln_ff/weight"}.get(sub)\
+        or ("attn/" + sub.split(".")[1] + "/kernel" if layer == "0" else
+            sub.split(".")[1] + "/kernel")
+    return f"block_{i}/{sub}"
+
+
+_MODULES = {"unet": _unet_module, "vae": _vae_module,
+            "if_unet": _if_unet_module,
+            "text": lambda m, L: _clip_text_module(m),
+            "vision": lambda m, L: _clip_vision_module(m)}
+_RAW = ("embeddings.class_embedding", "embeddings.position_embedding.weight",
+        "add_embedding.pool.positional_embedding")
+
+
+def flax_path(tower: str, key: str, levels: int = 0) -> str:
+    """The inverse of ``tower_key(tower, levels)``: a port key → its Flax
+    path."""
+    if tower == "t5":
+        return _t5_path(key)
+    if tower == "cc_projection":
+        return {"weight": "kernel", "bias": "bias"}[key]
+    if tower == "clip":
+        if key == "text_projection.weight":
+            return "text_projection"
+        sub, _, rest = key.partition(".")
+        return f"{sub}/{flax_path(sub, rest)}"
+    if key in _RAW:
+        return {"embeddings.class_embedding": "class_embedding",
+                "embeddings.position_embedding.weight": "position_embedding",
+                "add_embedding.pool.positional_embedding":
+                "add_embedding/pool/positional_embedding"}[key]
+    mod, leaf = key.rsplit(".", 1)
+    if mod == "embeddings.token_embedding":
+        return "token_embedding/embedding"
+    path = _MODULES[tower](mod, levels)
+    last = path.rsplit("/", 1)[-1]
+    norm = last in ("GroupNorm_0", "gn", "final_ln", "pre_ln", "post_ln") or \
+        re.fullmatch(r"(ln|norm)\d", last) is not None
+    leaf = "bias" if leaf == "bias" else ("scale" if norm else "kernel")
+    return f"{path}/{leaf}"
+
+
+def tower_to_flax(tower: str, state: Mapping[str, torch.Tensor],
+                  levels: int = 0) -> Dict[str, np.ndarray]:
+    """A port tower's state → the flat dict JAX's ``save_params_npz``
+    writes for it: Flax paths and layouts (conv ``[kh, kw, I, O]``, 1×1
+    convs the port keeps as a matrix back to ``[1, 1, I, O]``, Dense
+    ``[in, out]``)."""
+    one_by_one = _FLAX_1X1.get(tower, ())
+    out = {}
+    for key, t in state.items():
+        path = flax_path(tower, key, levels)
+        a = t.detach().float().cpu().numpy()
+        if path.endswith(("kernel", "text_projection")):
+            mod = path.rsplit("/", 2)[-2] if "/" in path else ""
+            if a.ndim == 2 and mod in one_by_one:
+                a = a.T[None, None]
+            else:
+                a = _flax_leaf(t)
+        out[path] = np.ascontiguousarray(a)
+    return out
+
+
+def dpt_to_flax(module) -> Dict[str, np.ndarray]:
+    """The port DPT's state → JAX ``save_params_npz``'s flat dict
+    (``params/vit/...``)."""
+    out = {}
+    for k, v in module.state_dict().items():
+        path = _dpt_flax_path(k)
+        a = _flax_leaf(v) if path.endswith("kernel") else \
+            v.detach().float().cpu().numpy()
+        out[f"params/{path}"] = a
+    return out
+
+
+def convert_dpt(src: str, model) -> None:
+    """``src``: omnidata_dpt_{depth,normal}_v2 ``.ckpt``/``.pt`` → the
+    port's ``DPTDepthModel`` (the ``state_dict`` and Lightning ``model.``
+    wrappers dropped, as JAX's ``convert_dpt``; the checkpoint's dead
+    ``scratch.refinenet4.resConfUnit1`` left unread)."""
+    from .raw_weights import fill_tower, load_torch_state_dict
+    sd = load_torch_state_dict(src)
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[6:]: v for k, v in sd.items() if k.startswith("model.")}
+    fill_tower(model, sd, "dpt")
+
+
+
+def towers_to_flax(kind: str, src: str, sd_version: str = "2.1"
+                   ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A raw checkpoint of `kind` (sd, zero123, clip, if) through the
+    port's raw converters (``utils/raw_weights.py``) into its towers on
+    the CPU → {file name: the flat dict JAX's ``save_params_npz`` writes},
+    the files JAX's converter CLI writes: ``unet``, ``vae``, ``text`` (SD);
+    ``unet``, ``vae``, ``vision``, ``cc_projection`` (zero123); ``clip``;
+    ``unet`` and, with a T5 encoder, ``t5`` (IF)."""
+    from .raw_weights import (convert_if, convert_sd, convert_zero123,
+                              fit_layout)
+    if kind == "sd":
+        from ..guidance.sd import SDConfig, StableDiffusionGuidance
+        g = StableDiffusionGuidance(SDConfig(sd_version=sd_version), "cpu")
+        convert_sd(src, g)
+        towers = {"unet": g.unet, "vae": g.vae, "text": g.text_encoder}
+    elif kind == "zero123":
+        from ..guidance.zero123 import Zero123Config, Zero123Guidance
+        g = Zero123Guidance(Zero123Config(), "cpu")
+        convert_zero123(src, g)
+        towers = {"unet": g.unet, "vae": g.vae, "vision": g.vision,
+                  "cc_projection": g.cc_projection}
+    elif kind == "if":
+        from ..guidance.deepfloyd import IFConfig, IFGuidance
+        g = IFGuidance(IFConfig(), "cpu")
+        convert_if(src, g)
+        towers = {"unet": g.unet}
+        if g.t5 is not None:
+            towers["t5"] = g.t5
+    elif kind == "clip":
+        from ..guidance.clip import CLIPConfig, CLIPGuidance
+        from .raw_weights import load_torch_state_dict
+        g = CLIPGuidance(CLIPConfig(), "cpu")
+        sd = load_torch_state_dict(src)
+        state = {}
+        for k in g.towers.state_dict():
+            tower, _, rest = k.partition(".")
+            raw = {"vision": "vision_model.", "text": "text_model."}.get(
+                tower, "") + rest
+            if rest.startswith("visual_projection."):
+                raw = rest
+            if tower == "text_projection":
+                raw = k
+            if raw in sd:
+                state[k] = fit_layout(sd[raw], g.towers.state_dict()[k].shape,
+                                      raw)
+        # JAX's converter reads what the file has (strict=False)
+        g.towers.load_state_dict(state, strict=False)
+        return {"clip": tower_to_flax("clip", g.towers.state_dict())}
+    else:
+        raise ValueError(f"unknown kind {kind}")
+    out = {}
+    for name, module in towers.items():
+        tower = "if_unet" if kind == "if" and name == "unet" else name
+        sd = module.state_dict()
+        out[name] = tower_to_flax(tower, sd, _port_levels(tower, sd))
+    return out
+
+
+def _port_levels(tower: str, state) -> int:
+    """Resolution levels of a port UNet or VAE from its keys (the down
+    blocks'; the VAE encoder's)."""
+    pre = "encoder.down_blocks." if tower == "vae" else "down_blocks."
+    if tower not in ("unet", "if_unet", "vae"):
+        return 0
+    return 1 + max(int(k[len(pre):].split(".")[0]) for k in state
+                   if k.startswith(pre))
+
+def main(argv=None):
+    """``python -m dreamfusion_tpu_torch.utils.convert --kind … --src …
+    --out dir``: a raw checkpoint → ``dir/<tower>.npz`` in JAX's
+    ``save_params_npz`` layout (Flax paths and layouts), which both
+    packages' ``--pretrained_root`` read."""
+    import argparse
+    import os
+    ap = argparse.ArgumentParser("convert")
+    ap.add_argument("--kind", choices=["sd", "zero123", "clip", "if", "dpt"],
+                    required=True)
+    ap.add_argument("--src", required=True)
+    ap.add_argument("--out", required=True, help="output dir for npz files")
+    ap.add_argument("--sd_version", default="2.1")
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    if args.kind == "dpt":
+        from ..models.dpt import DPTConfig, DPTDepthModel
+        normal = "normal" in os.path.basename(args.src)
+        model = DPTDepthModel(DPTConfig.normal() if normal
+                              else DPTConfig.depth())
+        convert_dpt(args.src, model)
+        name = "dpt_normal" if normal else "dpt_depth"
+        np.savez(os.path.join(args.out, f"{name}.npz"), **dpt_to_flax(model))
+    else:
+        for name, flat in towers_to_flax(args.kind, args.src,
+                                         args.sd_version).items():
+            np.savez(os.path.join(args.out, f"{name}.npz"), **flat)
+    print(f"converted {args.kind} weights from {args.src} → {args.out}")
+
+
+if __name__ == "__main__":
+    main()

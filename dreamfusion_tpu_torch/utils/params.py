@@ -26,8 +26,9 @@ from .convert import _leaf, tower_key, tower_levels
 
 def load_params_npz(path: str, module: nn.Module, tower: str) -> int:
     """Copy `path`'s arrays into `module`, the guidance tower `tower`
-    (``unet``, ``vae``, ``text``, ``vision``, ``cc_projection``, or
-    DeepFloyd-IF's ``if_unet`` and ``t5``) → the number of tensors read.  A key with no place in the module is left
+    (``unet``, ``vae``, ``text``, ``vision``, ``cc_projection``,
+    DeepFloyd-IF's ``if_unet`` and ``t5``, or the ``dpt``) → the number of
+    tensors read.  A key with no place in the module is left
     unread, as JAX's reader looks up only the template's keys."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
@@ -38,7 +39,7 @@ def load_params_npz(path: str, module: nn.Module, tower: str) -> int:
         name = key(path_key)
         if name is None or name not in state:
             continue
-        value = _leaf(path_key, arr, tower == "if_unet")
+        value = _leaf(path_key, arr, tower in ("if_unet", "dpt"))
         dst = state[name]
         if tuple(value.shape) != tuple(dst.shape):
             raise ValueError(f"{path}: {path_key}: npz shape {arr.shape} "

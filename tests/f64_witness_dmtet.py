@@ -32,10 +32,10 @@ import torch  # noqa: E402
 import dreamfusion_tpu.training.trainer as jtrainer  # noqa: E402
 import test_torch_image as T  # noqa: E402
 from dreamfusion_tpu_torch.utils.convert import params_from_jax  # noqa: E402
-from torch_parity import jax_dmtet_step_draws  # noqa: E402
+from torch_parity import (float64_port, float64_state,  # noqa: E402
+                          jax_dmtet_step_draws, widened)
 
 NAMES = ("geo.sdf", "geo.deform")
-F32, F64 = torch.float32, torch.float64
 
 
 def _pair():
@@ -74,67 +74,11 @@ def jax_and_port32():
             tiles)
 
 
-def _widened(draws):
-    """The draws with every float tensor in float64."""
-    def w(x):
-        if torch.is_tensor(x) and x.is_floating_point():
-            return x.double()
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*map(w, x))
-        return x
-    return w(draws)
-
-
 def port64(draws):
     """The port's step with float32 widened to float64 throughout."""
-    saved = {}
-
-    def patch(obj, name, new):
-        saved[(obj, name)] = getattr(obj, name)
-        setattr(obj, name, new)
-
-    def f64_dtype(fn):
-        def g(*a, **k):
-            if k.get("dtype") is F32:
-                k["dtype"] = F64
-            return fn(*a, **k)
-        return g
-
-    to = torch.Tensor.to
-
-    def to64(self, *a, **k):
-        a = tuple(F64 if x is F32 else x for x in a)
-        if k.get("dtype") is F32:
-            k["dtype"] = F64
-        return to(self, *a, **k)
-
-    es = torch.einsum
-
-    def einsum64(eq, *ops):
-        ops = ops[0] if len(ops) == 1 and isinstance(ops[0], (list, tuple)) \
-            else ops
-        return es(eq, *[o.double() if o.is_floating_point() else o
-                        for o in ops])
-
-    torch.set_default_dtype(F64)
-    patch(torch.Tensor, "float", lambda self, *a, **k: self.double())
-    patch(torch.Tensor, "to", to64)
-    patch(torch, "einsum", einsum64)
-    for name in ("zeros", "ones", "full", "empty", "tensor", "arange",
-                 "zeros_like", "ones_like", "full_like", "empty_like",
-                 "linspace", "as_tensor"):
-        patch(torch, name, f64_dtype(getattr(torch, name)))
-    try:
+    with float64_port():
         _, _, _, pt, ps = _pair()
-        ps.model.double()
-        for k in list(ps.ema_params):
-            ps.ema_params[k] = ps.ema_params[k].double()
-        ps.tet_scale = ps.tet_scale.double()
-        return _grads(pt, ps, _widened(draws))
-    finally:
-        for (obj, name), v in saved.items():
-            setattr(obj, name, v)
-        torch.set_default_dtype(F32)
+        return _grads(pt, float64_state(ps), widened(draws))
 
 
 def main():

@@ -2594,3 +2594,39 @@ def test_narrow_vae_decoder_on_the_card(dev):
     assert sum(v for k, v in kernels.LAUNCHES.items()
                if k.startswith("groupnorm_fwd")) == 30
     _close_to(got.cpu(), want, 5e-2)
+
+
+@pytest.mark.parametrize("B,N,M,H", [
+    (1, 577, 577, 12),       # the DPT's ViT-B at 384²
+    (2, 65, 1, 3),           # one key; a query tile of one row
+    (1, 50, 130, 2),         # ragged query and key tiles
+])
+def test_attention_fp32_kernel(dev, B, N, M, H):
+    """K10's fp32 forward (the DPT's, JAX's dense branch): out against the
+    plain version at 1e-5 of its largest, lse against the fp32 logits'
+    logsumexp, two launches bit for bit; fp32 q, k, v of d != 64 and its
+    backward refuse."""
+    g = _gen(dev, 21)
+    q = torch.randn(B, N, H, 64, device=dev, generator=g)
+    k, v = (torch.randn(B, M, H, 64, device=dev, generator=g)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    o, lse = attention_fwd_cuda(q, k, v, 0.125)
+    o2, lse2 = attention_fwd_cuda(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_fwd_fp32"] == 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ref = attention_plain(q, k, v, 0.125)
+    torch.testing.assert_close(o, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) * 0.125
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5,
+                               rtol=1e-5)
+    if M == 1:
+        assert torch.allclose(o, v.expand_as(o), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError):
+        attention_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous(), 0.125)
+    qr = q.clone().requires_grad_()
+    with pytest.raises(ValueError):
+        attention(qr, k, v).sum().backward()

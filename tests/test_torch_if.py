@@ -54,9 +54,10 @@ from dreamfusion_tpu_torch.utils import raw_weights as R
 from dreamfusion_tpu_torch.utils.convert import (_flat, _leaf, if_unet_key,
                                                  params_from_jax, t5_key)
 
-from torch_parity import (jax_dmtet_step_draws, jax_pixel_draws,
+from torch_parity import (float64_port, float64_state,
+                          jax_dmtet_step_draws, jax_pixel_draws,
                           jax_step_draws, port_cfg, random_flax_params,
-                          uncut_jax_tile_cap)
+                          uncut_jax_tile_cap, widened)
 
 torch.set_num_threads(2)
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -385,11 +386,14 @@ def _geometry(grid, seed):
     return pos, sdf
 
 
-def test_one_dmtet_if_step_matches_jax(towers, tmp_path, monkeypatch):
-    """One DMTet step under IF (the 16² raster render at the tiny UNet's
-    side) against the jitted JAX DMTet step."""
-    STEP = 5
-    jg, jp, pg = towers
+DMTET_STEP = 5
+
+
+def dmtet_if_pair(tmp_path, jp):
+    """The JAX and port DMTet trainers under the tiny IF with ``jp``'s UNet,
+    both at one perturbed surface of tet grid 8 (the 16² raster render at
+    the tiny UNet's side), JAX's tile cap raised so neither side cuts →
+    (cfg, JAX trainer, JAX state, port trainer, port state)."""
     cfg = finalize(apply_dmtet(apply_IF(Config(
         text="a hamburger", workspace=str(tmp_path / "ws"),
         backbone="triplane", w=2, h=2, iters=100, batch_size=1,
@@ -401,20 +405,21 @@ def test_one_dmtet_if_step_matches_jax(towers, tmp_path, monkeypatch):
     grid = jtets.generate_tet_grid(8)
     jg = JIF(JIFConfig(t_range=cfg.t_range, tiny=True))
     pg = _port_guidance(jp, cfg.t_range)
+    if torch.get_default_dtype() == torch.float64:
+        pg.unet.double()
     emb = pg.prepare_embeddings(cfg.text, "")
-    jemb = {k: jnp.asarray(v.numpy()) for k, v in emb.items()}
+    jemb = {k: jnp.asarray(v.float().numpy()) for k, v in emb.items()}
     jt = JDMTet(cfg, tet_grid=grid, guidances={"IF": jg},
                 guidance_params={"IF": jp}, embeddings={"IF": jemb})
     pt = DMTetTrainer(port_cfg(cfg), "cpu", pg, emb,
                       tet_grid=ptets.generate_tet_grid(8))
-    base = jax.random.PRNGKey(0)
     js = jt.init_state(jax.random.PRNGKey(0))
     pos, sdf = _geometry(grid, 3)
     geo = {"sdf": jnp.asarray(sdf),
            "deform": jnp.asarray(np.arctanh(np.clip(
                (pos - grid.vertices) * 2 * grid.resolution, -0.9, 0.9)))}
     params = {**js.params, "geo": geo}
-    js = js.replace(step=jnp.asarray(STEP, jnp.int32), params=params,
+    js = js.replace(step=jnp.asarray(DMTET_STEP, jnp.int32), params=params,
                     ema_params=params)
     ps = pt.init_state(0)
     sd = params_from_jax(_np({**js.params, "tet_scale": js.tet_scale}))
@@ -422,20 +427,60 @@ def test_one_dmtet_if_step_matches_jax(towers, tmp_path, monkeypatch):
     ps.model.load_state_dict(sd)
     for k, v in ps.ema_params.items():
         v.copy_(sd[k])
-    ps.step = STEP
+    ps.step = DMTET_STEP
     uncut_jax_tile_cap(jt, pt, ps)
+    return cfg, jt, js, pt, ps
+
+
+def test_one_dmtet_if_step_matches_jax(towers, tmp_path, monkeypatch):
+    """One DMTet step under IF (the 16² raster render at the tiny UNet's
+    side) against the jitted JAX DMTet step.  The loss, the field's
+    gradients and the updated parameters are held to JAX's as the other
+    steps are; the geometry's gradients are held, each side apart, to the
+    port's step in float64.  The rasterizer's backward multiplies the
+    image gradient's float32 rounding (~1e-5 of its largest entry on
+    either side) by up to ~10 at this surface's 1-4 px² triangles, so each
+    float32 side lies up to ~1.6e-4 of the largest from float64 and the two
+    sides' roundings add up (tests/f64_witness_dmtet_if.py)."""
+    jp = towers[1]
+    cfg, jt, js, pt, ps = dmtet_if_pair(tmp_path, jp)
+    base = jax.random.PRNGKey(0)
     captured = _capture_grads(monkeypatch)
     js2, jm = jt._make_train_step("main")(js, base)
     jax.block_until_ready(js2)
-    draws = jax_dmtet_step_draws(cfg, base, STEP, pixel_size=16)
+    draws = jax_dmtet_step_draws(cfg, base, DMTET_STEP, pixel_size=16)
     pm, pgrads = pt.train_step(ps, draws)
     np.testing.assert_allclose(float(pm["loss_sds"]), float(jm["loss_sds"]),
                                rtol=1e-5)
     assert int(pm["n_faces"]) == int(pm["n_faces_true"]) > 0
     names = [n for n, _ in ps.model.named_parameters()]
+    geo = ("geo.sdf", "geo.deform")
     _check_step(pm, jm, pgrads, names, captured,
                 dict(ps.model.named_parameters()), js2.params, 1e-4, 1e-4,
-                only=lambda n: n.startswith("geo.") or "triplanes" in n)
+                only=lambda n: "triplanes" in n)
+    with float64_port():
+        _, _, _, pt64, ps64 = dmtet_if_pair(tmp_path / "f64", jp)
+        _, g64 = pt64.train_step(float64_state(ps64), widened(draws))
+    g64 = dict(zip(names, g64))
+    jgrads = params_from_jax(_np(captured["grads"]))
+    for name, grad in zip(names, pgrads):
+        if name not in geo:
+            continue
+        ref = g64[name].numpy()
+        scale = np.abs(ref).max()
+        assert scale > 0, name
+        for side, got in (("port", grad.numpy()),
+                          ("JAX", jgrads[name].numpy())):
+            np.testing.assert_allclose(got, ref, rtol=0, atol=3e-4 * scale,
+                                       err_msg=f"{name}: {side} f32 - f64")
+    new_p, new_j = dict(ps.model.named_parameters()), \
+        params_from_jax(_np(js2.params))
+    for name in geo:
+        ref = jgrads[name].numpy()
+        clear = np.abs(ref) > 1e-2 * np.abs(ref).max()
+        np.testing.assert_allclose(new_p[name].detach().numpy()[clear],
+                                   new_j[name].numpy()[clear], atol=1e-5,
+                                   err_msg=name)
 
 
 # ---------------------------------------------------------------------------

@@ -298,3 +298,80 @@ def jax_train_state(jt, step: int = 0, seed: int = 0):
                       density_grid=jnp.zeros((cfg.cascade, G ** 3)),
                       mean_density=jnp.zeros(()), occ_grid=occ,
                       step=jnp.asarray(step, jnp.int32))
+
+
+def widened(x):
+    """``x`` (a tensor or a NamedTuple of draws) with every float tensor
+    in float64."""
+    if torch.is_tensor(x) and x.is_floating_point():
+        return x.double()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(widened, x))
+    return x
+
+
+class float64_port:
+    """A context in which the port's plain path computes in float64: the
+    default dtype, ``Tensor.float``, ``Tensor.to(float32)``, ``einsum`` and
+    the factories' ``dtype=float32`` widened.  Build the trainer and its
+    towers inside it, then ``.double()`` their modules; the float64 step is
+    the reference a float32 step's rounding is measured against
+    (tests/f64_witness_dmtet.py)."""
+
+    F32, F64 = torch.float32, torch.float64
+    FACTORIES = ("zeros", "ones", "full", "empty", "tensor", "arange",
+                 "zeros_like", "ones_like", "full_like", "empty_like",
+                 "linspace", "as_tensor")
+
+    def _patch(self, obj, name, new):
+        self.saved[(obj, name)] = getattr(obj, name)
+        setattr(obj, name, new)
+
+    def __enter__(self):
+        F32, F64 = self.F32, self.F64
+        self.saved = {}
+
+        def f64_dtype(fn):
+            def g(*a, **k):
+                if k.get("dtype") is F32:
+                    k["dtype"] = F64
+                return fn(*a, **k)
+            return g
+
+        to, es = torch.Tensor.to, torch.einsum
+
+        def to64(t, *a, **k):
+            a = tuple(F64 if x is F32 else x for x in a)
+            if k.get("dtype") is F32:
+                k["dtype"] = F64
+            return to(t, *a, **k)
+
+        def einsum64(eq, *ops):
+            ops = ops[0] if len(ops) == 1 and isinstance(
+                ops[0], (list, tuple)) else ops
+            return es(eq, *[o.double() if o.is_floating_point() else o
+                            for o in ops])
+
+        torch.set_default_dtype(F64)
+        self._patch(torch.Tensor, "float", lambda t, *a, **k: t.double())
+        self._patch(torch.Tensor, "to", to64)
+        self._patch(torch, "einsum", einsum64)
+        for name in self.FACTORIES:
+            self._patch(torch, name, f64_dtype(getattr(torch, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), v in self.saved.items():
+            setattr(obj, name, v)
+        torch.set_default_dtype(self.F32)
+        return False
+
+
+def float64_state(ps):
+    """A DMTet trainer state built under ``float64_port``, its model, EMA
+    parameters and tet scale widened in place → ``ps``."""
+    ps.model.double()
+    for k in list(ps.ema_params):
+        ps.ema_params[k] = ps.ema_params[k].double()
+    ps.tet_scale = ps.tet_scale.double()
+    return ps
