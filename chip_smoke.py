@@ -288,10 +288,21 @@
    step and the peak memory; SD with ``--image_config`` and ``--text`` (4
    steps, exact); the pixel oracle with the analytic reference image (8
    steps, 2 known-view, no tower launch).
-14. Prints one JSON line with every kernel's route, source, the TPU
+14. Tooling at full width on random weights: K10's fp32 forward at the
+   DPT's [1, 577, 12, 64] and K12's tiled fp32 route at each of the 17
+   distinct conv shapes of a 384² DPT forward (and at an odd shape,
+   ``FP32_TILED_CONVS``), each against its plain version, with its event
+   and graph ms beside SDPA's or cuDNN's (fp32, TF32 off), and the 40
+   convs' sums by both timers; the DPT (vitb_rn50_384) through
+   ``run_omnidata`` from an omnidata ``.ckpt`` (depth) and a converted
+   ``.npz`` (normals), K10/K12 exactly (``dpt_launches``), the forward's
+   ms at 384², the card against the CPU at 128²; a 512² turntable of the
+   stage-1 mesh (K7 exactly), R-precision, a viewer frame, ``--profile``.
+15. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K2's vanilla launches: the
    -O2 SD run; K4's ``field_select``: the field-options run; K1-K4 and
    K10-K12: the SD run, K10's d = 40, 80 and 160 routes: the SD 1.5
+   run, K10's fp32 forward and K12's tiled fp32 route: the DPT's depth
    run, ``conv_fwd_mma`` and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
@@ -541,6 +552,8 @@ KERNELS = {
                       "dreamfusion_tpu/ops/conv.py:58"),
     "conv_fwd_mma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                      "dreamfusion_tpu/ops/conv.py:58"),
+    "conv_fwd_fp32_tiled": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                            "dreamfusion_tpu/ops/conv.py:58"),
     "conv_dgrad_wgmma": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                          "dreamfusion_tpu/ops/conv.py:95"),
     "conv_dgrad_narrow": ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
@@ -670,13 +683,17 @@ SD_CONVS = [
 ]
 # Shapes of no path that K12's mma.sync forward (conv_fwd_mma) still takes,
 # in SD_CONVS's layout, at odd sizes: bf16 with 8 < I and I % 64 != 0 (at
-# stride 2 and 1) and fp32 with O > 8.  Held against the plain version as
-# SD_CONVS are; no path may launch it.
+# stride 2 and 1).  Held against the plain version as SD_CONVS are; no
+# path may launch it.
 MMA_CONVS = [
     (1, 17, 15, 32, 48, 3, 2, 1, "bf16", True),
     (2, 33, 31, 24, 40, 3, 1, 1, "bf16", True),
-    (1, 33, 31, 16, 16, 3, 1, 1, "fp32", True),
 ]
+# The tiled fp32 route (conv_fwd_fp32_tiled) at odd shapes of no path (the
+# DPT's own shapes come from dpt_calls): O > 8, and O <= 8 with I % 4 != 0
+# (4-byte copies); their dgrads on conv_dgrad's fp32 loop
+FP32_TILED_CONVS = [(1, 33, 31, 16, 16, 3, 1, 1, "fp32", True),
+                    (1, 33, 31, 3, 8, 3, 1, 1, "fp32", True)]
 # K11 in one SD 2.1 step: B, H, W, C, eps, SiLU, calls per step, and
 # whether the backward runs (the VAE encoder's, at 512²; the UNet at CFG
 # batch 2 on 64² latents runs forward only).  The UNet's resnet norms take
@@ -1542,13 +1559,15 @@ def _graph_where(where, fn, graph):
 
 
 def conv_rows(torch, results, rows, randn, graph=False, no_bias=(),
-              times=None):
+              times=None, main=()):
     """K12's forward (by route) and, where the row asks, its dgrad against
     the plain versions and cuDNN at each row of ``SD_CONVS``' layout;
-    `graph`: log each call's graph ms too; `no_bias`: rows whose conv has
-    no bias (the patch embeddings), whose forward and dgrad rows fill their
-    kernels' JSON entries (the path's own shapes); `times`: a dict given
-    each row's forward (kernel ms, library ms)."""
+    `graph`: log each call's graph ms too, the forward's cuDNN call's
+    beside it; `no_bias`: rows whose conv has no bias (the patch
+    embeddings), whose forward and dgrad rows fill their kernels' JSON
+    entries (the path's own shapes), as do the `main` rows; `times`: a
+    dict given each row's forward (kernel ms, library ms, and with `graph`
+    their graph ms, else None)."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input
 
@@ -1583,25 +1602,30 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=(),
         # would be another function)
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
+        lib_call = lambda: F.conv2d(xl, wc, None if bias is None else
+                                    bias.to(dt), st, pads[0][0] if sym else 0)
         try:
-            lib = median_ms(lambda: F.conv2d(
-                xl, wc, None if bias is None else bias.to(dt), st,
-                pads[0][0] if sym else 0), 10)
+            lib = median_ms(lib_call, 10)
+            # cuDNN's fp32 algorithm can take 0.2 s (the DPT's 192² conv):
+            # few calls
+            lib_g = graph_ms(lib_call, 5, 3) if graph else None
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
         flops = 2 * yk.numel() * k * k * I
         call = lambda: K12.conv2d_fwd_cuda(x, w, bias, (st, st), pads, dt)
         ms = median_ms(call, 10)
+        k_g = graph_ms(call) if graph else None
         if times is not None:
-            times[row] = (ms, lib)
+            times[row] = (ms, lib, k_g, lib_g)
         record_kernel(results, route, err, ms,
                       median_ms(lambda: K12.conv2d_plain(
                           x, w, bias, (st, st), pads, dt), 5),
                       "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
                       nbytes(x, w, bias, yk), flops,
                       "fp32" if fp32 else "bf16", lib,
-                      _graph_where(where, call, graph),
-                      main=row in no_bias)
+                      where + (f", graph {k_g:.4f} ms (cuDNN {lib_g:.4f})"
+                               if graph else ""),
+                      main=row in no_bias or row in main)
         if not dgrad:
             continue
         route = K12.dgrad_route(dt, I, O, (st, st), (k, k))
@@ -1637,7 +1661,7 @@ def conv_rows(torch, results, rows, randn, graph=False, no_bias=(),
                       "1e-5 rel" if fp32 else "1 bf16 ulp + 1e-4 of max",
                       nbytes(dy, w, dk), flops, "fp32" if fp32 else "bf16",
                       lib, _graph_where(where + " dgrad", call, graph),
-                      main=row in no_bias)
+                      main=row in no_bias or row in main)
 
 
 def attention_rows(torch, results, rows, randn, graph=False,
@@ -3837,8 +3861,8 @@ def if_kernel_phases(torch, results):
     k12 = [ct[key(*c)] for c in convs]
     k10 = [at[(*a, False)] for a in attns]
     log(f"IF UNet call (CFG batch 2), sums of the rows' event ms over its "
-        f"calls: K12 {sum(m for m, _ in k12):.3f} ms ({len(k12)} convs; "
-        f"F.conv2d {sum(l for _, l in k12):.3f}), K10 "
+        f"calls: K12 {sum(m for m, *_ in k12):.3f} ms ({len(k12)} convs; "
+        f"F.conv2d {sum(l for _, l, *_ in k12):.3f}), K10 "
         f"{sum(m for m, _ in k10):.3f} ms ({len(k10)} attentions; SDPA "
         f"{sum(l for _, l in k10):.3f}); bound of the convs "
         f"{tflop * 1e12 / PEAK['bf16'] * 1e3:.3f} ms (operations)")
@@ -4772,6 +4796,7 @@ def guidance_sets_phase(torch, port_main, kernels, png, ws, smi_line):
 # ---------------------------------------------------------------------------
 
 DPT_HW = 384
+DPT_MAIN_CONV = (1, 96, 96, 256, 256, 3, 1, ((1, 1), (1, 1)), "fp32", False)
 TURNTABLE_FRAMES, TURNTABLE_SIZE = 4, 512
 PROFILE_FLAGS = ["--iters", "8", "--dataset_size_train", "4",
                  "--dataset_size_test", "1", "--eval_interval", "-1",
@@ -4828,7 +4853,9 @@ def dpt_kernel_phases(torch, results) -> None:
     """K10's fp32 forward at the ViT's [1, 577, 12, 64] against the plain
     version and SDPA (fp32, TF32 off), its lse against the logits'
     logsumexp, and K12 at every distinct fp32 conv shape of a 384² DPT
-    forward against the plain version and cuDNN (TF32 off)."""
+    forward (and ``FP32_TILED_CONVS``) against the plain version and
+    cuDNN (TF32 off), each by CUDA events and in a CUDA graph (``graph_ms``),
+    the library's call by the same two timers; the 40 convs' sums."""
     import torch.nn.functional as F
 
     from dreamfusion_tpu_torch.models.dpt import DPTConfig
@@ -4854,11 +4881,11 @@ def dpt_kernel_phases(torch, results) -> None:
     lse_err = _close_to("attention_fwd_fp32 lse", lse,
                         torch.logsumexp(logits, dim=-1), 1e-5, 1e-6)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        lib = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                        10)
+        lib, lib_g = median_ms(sdpa, 10), graph_ms(sdpa)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     call = lambda: K10.attention_fwd_cuda(q, k, v, scale)
@@ -4867,7 +4894,9 @@ def dpt_kernel_phases(torch, results) -> None:
                   "1e-5 rel + 1e-5 of max", nbytes(q, k, v, o, lse),
                   4 * B * h * N * N * d, "fp32", lib,
                   f" q [{B},{N},{h},{d}] fp32 (lse err {lse_err:.2e}), graph "
-                  f"{graph_ms(call):.4f} ms", exps=B * h * N * N, main=True)
+                  f"{graph_ms(call):.4f} ms (SDPA {lib_g:.4f})",
+                  exps=B * h * N * N, main=True)
+    conv_rows(torch, results, FP32_TILED_CONVS, randn)
     rows, seen = [], set()
     for (B, H, W, I), (O, kh, _, _), st, pads in convs:
         row = (B, H, W, I, O, kh, st, pads, "fp32", False)
@@ -4875,14 +4904,51 @@ def dpt_kernel_phases(torch, results) -> None:
             seen.add(row)
             rows.append(row)
     times = {}
-    conv_rows(torch, results, rows, randn, times=times)
+    # the JSON entry: the 96² RCU conv (5 a forward, the most time)
+    conv_rows(torch, results, rows, randn, graph=True, times=times,
+              main=[DPT_MAIN_CONV])
     n = {r: sum(1 for (x, w, st, p) in convs
                 if (*x, w[0], w[1], st, p, "fp32", False) == r)
          for r in rows}
-    total = sum(times[r][0] * n[r] for r in rows)
-    lib = sum(times[r][1] * n[r] for r in rows)
+    total, lib, total_g, lib_g = (sum(times[r][i] * n[r] for r in rows)
+                                  for i in range(4))
+    ratio = {r: times[r][2] / times[r][3] for r in rows}
+    worst = max(rows, key=ratio.get)
     log(f"DPT K12: {len(convs)} fp32 convs a 384² forward over {len(rows)} "
-        f"shapes, {total:.3f} ms of kernels against cuDNN's {lib:.3f} ms")
+        f"shapes, {total:.3f} ms of kernels against cuDNN's {lib:.3f} ms "
+        f"(events); graph {total_g:.3f} ms against {lib_g:.3f}; the "
+        f"largest ratio to cuDNN's graph ms {ratio[worst]:.3f} at "
+        f"{worst[:8]}")
+
+
+def dpt_device_split(torch, run) -> dict:
+    """One call of `run` (a DPT forward) under ``torch.profiler``: its
+    kernels' summed device ms, by group (K12's tiled route and its split-K
+    reduce, K10's fp32 forward, cuBLAS's GEMMs) and the three largest
+    other kernels by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    groups = {"K12": 0.0, "K10": 0.0, "gemm": 0.0, "other": 0.0}
+    other = {}
+    for name, ms in by_name.items():
+        key = ("K12" if "conv_fp32_tiled" in name or "splitk" in name else
+               "K10" if "attn_fwd_fp32" in name else
+               "gemm" if "gemm" in name.lower() else "other")
+        groups[key] += ms
+        if key == "other":
+            other[name[:50]] = ms
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
+    return {"device_ms": sum(groups.values()), **groups,
+            "other_top": {k: round(v, 4) for k, v in top}}
 
 
 def random_dpt_state(torch, model, seed: int):
@@ -4985,6 +5051,13 @@ def dpt_path(torch, kernels, png, ws, smi_line) -> dict:
             torch.cuda.synchronize()
             times.append(time.time() - t0)
         out[f"{task}_ms"] = 1e3 * statistics.median(times[1:])
+        split = dpt_device_split(
+            torch, lambda: PI.dpt_predict(loaded, rgb, task))
+        top = split.pop("other_top")
+        log(f"DPT {task}, one forward under the profiler: device "
+            f"{split['device_ms']:.3f} ms of kernels against "
+            f"{out[f'{task}_ms']:.2f} ms of wall; ms by group "
+            f"{_rounded(split)}, the largest others {top}")
         log(f"DPT {task} at {DPT_HW}² (vitb_rn50_384, "
             f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
             f"parameters, random): run_omnidata {load_s:.2f} s with the "
@@ -5397,7 +5470,7 @@ def run() -> dict:
                            summary["mesh_path"], png, smi_line)
 
     def launches_of(name):
-        if name == "attention_fwd_fp32":
+        if name in ("attention_fwd_fp32", "conv_fwd_fp32_tiled"):
             return dpt_l[name]
         if name in ("vanilla_coarse", "vanilla_resample"):
             return o2_launches[name]

@@ -16,6 +16,9 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only render
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only sdf \
         --sdf_mesh ws/mesh/mesh.obj
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dpt
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only dpt_splits
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -107,6 +110,22 @@ clamped positions: ``march_region_call``), each timed as one region; a
 parent checkout's regions are its own kernel plus those torch ops, as its
 field and renderer ran them.  The backward regions run through autograd (events and the
 profiler, no graph ms).
+
+``--only dpt`` times the DPT that ``preprocess_image`` runs
+(``dpt_cases``): K12 at each of the 17 distinct fp32 conv shapes of a 384²
+forward (``chip_smoke.dpt_calls``; ``per_forward`` counts its convs) beside
+``F.conv2d`` with TF32 off, the TF-SAME pad applied to its input once,
+outside the timing (padding 0 then), and K10's fp32 forward at the ViT's
+[1, 577, 12, 64] beside ``scaled_dot_product_attention`` in fp32 (TF32
+off); the rows of 5 GFLOP and more are timed over fewer calls (cuDNN's
+fp32 algorithm takes ~0.2 s at the 192² conv); a last line sums the 40
+convs' graph ms, the kernels' and cuDNN's.
+
+``--only dpt_splits`` times the tiled fp32 route alone at each of those
+17 shapes for every N tile (32, 64) and split (1-32) it takes
+(``sweep_fp32_tiles``): graph ms, the pair ``fp32_tiling`` chooses and
+the fastest, and both summed over a forward's 40 convs: how far the rule
+falls behind the best split at each shape on this card.
 
 ``--only sdf`` times K9 at the DMTet mesh init's shape (``sdf_cases``:
 the 274,625 tet-grid-128 points against ``--sdf_mesh`` or a UV sphere of
@@ -695,19 +714,120 @@ def render_cases(smoke, dev):
     return [(row, fn, None) for row, fn in cases]
 
 
+def sweep_fp32_tiles(smoke, K12, kernels, graph_ms, dev, g, tag, card):
+    """The tiled fp32 route at every distinct conv shape of a 384² DPT
+    forward, launched directly at each N tile (32, 64) and split (1 to
+    32, at most one a K step): one JSON line a shape with each pair's
+    graph ms (or the error it raised), the pair ``fp32_tiling`` chooses and
+    the fastest pair, each with its ms; a last line sums both over the 40
+    convs of a forward."""
+    import torch
+
+    from dreamfusion_tpu_torch.models.dpt import DPTConfig
+    convs, _ = smoke.dpt_calls(DPTConfig.depth(), smoke.DPT_HW)
+    sms = kernels.sm_count(dev)
+    sums = {"chosen_ms": 0.0, "best_ms": 0.0}
+    for call in dict.fromkeys(convs):
+        (B, H, W, I), (O, kh, kw, _), st, pads = call
+        x = torch.randn(B, H, W, I, device=dev, generator=g)
+        w = torch.randn(O, kh, kw, I, device=dev, generator=g) / \
+            (kh * kw * I) ** 0.5
+        bias = torch.randn(O, device=dev, generator=g)
+        Ho, Wo = K12.out_size(H, W, kh, kw, (st, st), pads)
+        y = torch.empty(B, Ho, Wo, O, device=dev)
+        K = kh * kw * I
+        times = {}
+        for bn in (32, 64):
+            for sp in range(1, min(32, -(-K // 16)) + 1):
+                ws = torch.empty(sp * y.numel(), device=dev) \
+                    if sp > 1 else None
+                fn = functools.partial(
+                    kernels.launch, "conv_fwd_fp32_tiled", x.data_ptr(),
+                    w.data_ptr(), bias.data_ptr(), y.data_ptr(), B, H, W, I,
+                    Ho, Wo, O, kh, kw, st, st, pads[0][0], pads[1][0], bn, 1,
+                    sp, None if ws is None else ws.data_ptr())
+                try:
+                    times[f"{bn}/{sp}"] = graph_ms(fn, 10, 5)
+                except RuntimeError as e:
+                    times[f"{bn}/{sp}"] = str(e)[:80]
+        chosen = "/".join(map(str, K12.fp32_tiling(B * Ho * Wo, O, K, sms)))
+        ok = {k: v for k, v in times.items() if isinstance(v, float)}
+        best = min(ok, key=ok.get)
+        n = convs.count(call)
+        sums["chosen_ms"] += n * ok[chosen]
+        sums["best_ms"] += n * ok[best]
+        print(json.dumps({"tag": tag, "shape": [B, H, W, I, O], "k": kh,
+                          "stride": st, "per_forward": n, "chosen": chosen,
+                          "chosen_ms": ok[chosen], "best": best,
+                          "best_ms": ok[best], "graph_ms": times,
+                          "card": card}), flush=True)
+    print(json.dumps({"tag": tag, "dpt_convs_a_forward": len(convs), **sums,
+                      "card": card}), flush=True)
+
+
+def dpt_cases(smoke, dev):
+    """(row, the checkout's call, the library's call) for K12 at each
+    distinct conv shape of a 384² DPT forward and K10's fp32 forward at
+    the ViT's shape (see the module docstring); inputs from a fixed
+    seed."""
+    import torch
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.models.dpt import DPTConfig
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    convs, attns = smoke.dpt_calls(DPTConfig.depth(), smoke.DPT_HW)
+    cases = []
+    for call in dict.fromkeys(convs):
+        (B, H, W, I), (O, kh, kw, _), st, pads = call
+        x = torch.randn(B, H, W, I, device=dev, generator=g)
+        w = torch.randn(O, kh, kw, I, device=dev, generator=g) / \
+            (kh * kw * I) ** 0.5
+        bias = torch.randn(O, device=dev, generator=g)
+        Ho, Wo = K12.out_size(H, W, kh, kw, (st, st), pads)
+        xc = x.permute(0, 3, 1, 2)
+        sym = pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]
+        xl = xc if sym else F.pad(xc, (*pads[1], *pads[0]))
+        gflop = 2 * B * Ho * Wo * O * kh * kw * I / 1e9
+        cases.append(({"kernel": "K12 conv_fwd", "shape": [B, H, W, I, O],
+                       "k": kh, "stride": st, "pads": pads, "dtype": "fp32",
+                       "gflop": gflop, "per_forward": convs.count(call),
+                       "slow": gflop >= 5},
+                      functools.partial(K12.conv2d_fwd_cuda, x, w, bias,
+                                        (st, st), pads, torch.float32),
+                      functools.partial(F.conv2d, xl, w.permute(0, 3, 1, 2),
+                                        bias, st, pads[0][0] if sym else 0)))
+    B, N, h, d = attns[0]
+    q, k, v = (torch.randn(B, N, h, d, device=dev, generator=g)
+               for _ in range(3))
+    cases.append(({"kernel": "K10 attention_fwd", "shape": [B, N, N, h, d],
+                   "dtype": "fp32", "gflop": 4 * B * h * N * N * d / 1e9,
+                   "per_forward": len(attns)},
+                  functools.partial(K10.attention_fwd_cuda, q, k, v,
+                                    d ** -0.5),
+                  functools.partial(F.scaled_dot_product_attention,
+                                    *(t.transpose(1, 2) for t in (q, k, v)))))
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
     ap.add_argument("--tag", default="")
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
                                        "gn_routes", "field", "dmtet",
-                                       "render", "sdf"),
+                                       "render", "sdf", "dpt",
+                                       "dpt_splits"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
                     "it could take, only K1 and K6, only K7 and K8, "
-                    "only K2, K3 and K4, or only K9 (the last five not in "
-                    "the default set)")
+                    "only K2, K3 and K4, only K9, only the DPT's K10 "
+                    "and K12 calls, or K12's tiled fp32 route over its N "
+                    "tiles and splits (the last seven not in the default "
+                    "set)")
     ap.add_argument("--sdf_mesh", default=None,
                     help="with --only sdf: the OBJ whose signed distance "
                     "K9 measures (default: a 50,000-triangle UV sphere)")
@@ -804,7 +924,7 @@ def main(argv=None) -> None:
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
             [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet",
-                                "render", "sdf")
+                                "render", "sdf", "dpt", "dpt_splits")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -850,7 +970,7 @@ def main(argv=None) -> None:
     branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
-                                "dmtet", "render", "sdf")
+                                "dmtet", "render", "sdf", "dpt", "dpt_splits")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -928,6 +1048,8 @@ def main(argv=None) -> None:
         cases += render_cases(smoke, dev)
     if args.only == "sdf":
         cases += sdf_cases(smoke, dev, args.sdf_mesh)
+    if args.only == "dpt":
+        cases += dpt_cases(smoke, dev)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -935,6 +1057,10 @@ def main(argv=None) -> None:
     if args.only == "gn_routes":
         sweep_gn_routes(smoke, K11, kernels, graph_ms, dev, g, args.tag,
                         card)
+        return
+    if args.only == "dpt_splits":
+        sweep_fp32_tiles(smoke, K12, kernels, graph_ms, dev, g, args.tag,
+                         card)
         return
     if args.outputs:
         outs = {}
@@ -958,13 +1084,18 @@ def main(argv=None) -> None:
     # a row marked "slow" (K9: ~0.1 s a call) is timed over fewer calls
     n_of = lambda row, n, few: few if row.get("slow") else n
     hosts = [{**smoke.host_us(fn, n_of(row, 200, 5)),
-              **({f"library_{k}": v for k, v in smoke.host_us(lib_fn).items()}
-                 if lib_fn else {})} for row, fn, lib_fn in cases]
+              **({f"library_{k}": v for k, v in smoke.host_us(
+                  lib_fn, n_of(row, 200, 5)).items()} if lib_fn else {})}
+             for row, fn, lib_fn in cases]
     if args.only in (None, "conv"):
         print(json.dumps({"tag": args.tag, **map_cost(), "card": card}),
               flush=True)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False   # fp32 convs in full fp32
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    # fp32 convs and attention in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sums = {"graph_ms": 0.0, "library_graph_ms": 0.0}
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
             dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd") \
@@ -978,20 +1109,34 @@ def main(argv=None) -> None:
                 extra["library_kernel_names"] = None
                 if lib_ms:
                     lib_ms, extra["library_kernel_names"] = lib_ms
-            print(json.dumps({
+            out = {
                 "tag": args.tag, **row,
                 "ms": smoke.median_ms(fn, n_of(row, 20, 5)),
                 "kernel_ms": k_ms,
                 "graph_ms": None if row.get("autograd") else graph_ms(
                     fn, n_of(row, 20, 2), n_of(row, 10, 3)),
                 **host,
-                "library_ms": lib_fn and smoke.median_ms(lib_fn),
+                "library_ms": lib_fn and smoke.median_ms(
+                    lib_fn, n_of(row, 20, 5)),
                 "library_kernel_ms": lib_ms,
                 "library_graph_ms": (None if id(lib_fn) in autograd_libs
-                                     else graph_ms(lib_fn)), **extra,
-                "routes": route_of(fn), "card": card}), flush=True)
+                                     else lib_fn and graph_ms(
+                                         lib_fn, n_of(row, 20, 2),
+                                         n_of(row, 10, 3))), **extra,
+                "routes": route_of(fn), "card": card}
+            print(json.dumps(out), flush=True)
+            if row["kernel"] == "K12 conv_fwd" and "per_forward" in row:
+                for key in sums:
+                    sums[key] += out[key] * row["per_forward"]
     finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    if args.only == "dpt":
+        print(json.dumps({"tag": args.tag, "kernel": "K12 conv_fwd",
+                          "dpt_convs_a_forward": sum(
+                              r.get("per_forward", 0) for r, _, _ in cases
+                              if r["kernel"] == "K12 conv_fwd"),
+                          **sums, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

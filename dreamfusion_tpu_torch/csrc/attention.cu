@@ -1140,135 +1140,224 @@ extern "C" int attention_bwd_wgmma(const void* q, const void* k,
 // ---------------------------------------------------------------------------
 //
 // CUDA cores, no tensor cores: TF32 would part from the plain version by
-// ~1e-3.  A block takes BR = 64 query rows of one (b, h) and walks the keys
-// in tiles of BC = 64 with an online softmax (running max and sum in fp32,
-// exp of s - max as torch's softmax takes it; the last tile's keys past M
-// get -inf).  256 threads: for S = (Q K^T) * scale and for O += P V, thread
-// (ty, tx) of a 16 x 16 grid owns rows ty * 4 .. + 3 and columns tx + 16 j
-// (Q and P rows read as broadcasts, K and V rows with a one-float pad
-// against bank conflicts); the softmax takes four threads a row, reduced by
-// shuffles.  Q, K, V, S in shared memory: 4 x 64 x 65 floats.
-// Bound: operations (2 x 2 N M d FMA-flops a head: 1.02 GFLOP a DPT
-// attention, 15.3 us at 67 TFLOP/s fp32).
+// ~1e-3.  Bound: operations (2 x 2 N M d FMA-flops a head: 1.02 GFLOP a
+// DPT attention, 15.3 us at 67 TFLOP/s fp32).  The first design (a block
+// per 64 queries, 120 blocks on 132 SMs, scalar synchronous K/V loads, S
+// through shared memory with three barriers a tile) ran at 23% of that.
+// Here:
+//  - a block takes BR = 32 query rows of one (b, h): 19 x 12 = 228 blocks,
+//    two resident on each SM (88 KB of shared memory each);
+//  - four warps: warp (rh, kg) owns query rows rh*16 .. + 15 and the keys
+//    kg*32 .. + 31 of every 64-key tile, with its own online softmax
+//    (running max and sum in fp32, exp of s - max as torch's softmax takes
+//    it) and its own O; the two key halves merge once at the end, in a
+//    fixed order (deterministic);
+//  - K and V tiles come by 16-byte cp.async into a double buffer (rows
+//    past M zero-filled, their logits -inf; 577 keys leave a last tile of
+//    one key), so the next tile's copy runs under this tile's products:
+//    one __syncthreads a tile;
+//  - a lane is 4 rows x 4 keys of S (float4 reads along d: Q's rows are
+//    broadcasts, K's 8 consecutive rows over distinct banks at the padded
+//    stride) and 4 rows x 8 columns of O; the row max and sum reduce by
+//    shuffles among the 8 lanes of a row, P goes through the warp's own
+//    slice of shared memory (__syncwarp only) to be read as float4 along
+//    the keys for O += P V.
 namespace f32a {
-constexpr int D = 64, BR = 64, BC = 64, LD = D + 1, kThreads = 256;
-constexpr size_t kSmem = (size_t)(3 * BR * LD + BR * (BC + 1) + 2 * BR) *
-                         sizeof(float);
+constexpr int D = 64, BR = 32, BC = 64, LD = D + 4, PLD = 40, kThreads = 128;
+constexpr int HALF_BC = BC / 2;   // the keys of one warp's half of a tile
+constexpr size_t kSmem =
+    (size_t)(BR * LD + 4 * BC * LD + 4 * 16 * PLD) * sizeof(float);
 }  // namespace f32a
 
-__global__ void __launch_bounds__(f32a::kThreads)
+__global__ void __launch_bounds__(f32a::kThreads, 2)
     attn_fwd_fp32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int N, int M, int H,
                          float scale) {
   using namespace f32a;
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   float* Qs = sm;                        // [BR][LD]
-  float* Ks = Qs + BR * LD;              // [BC][LD]
-  float* Vs = Ks + BC * LD;              // [BC][LD]
-  float* Ss = Vs + BC * LD;              // [BR][BC + 1]: S, then P
-  float* corr = Ss + BR * (BC + 1);      // [BR] per tile: exp(m_old - m)
-  float* lsum = corr + BR;               // [BR] the final row sums
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float* Ks = Qs + BR * LD;              // [2][BC][LD]
+  float* Vs = Ks + 2 * BC * LD;          // [2][BC][LD]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rh = warp & 1, kg = warp >> 1;
+  const int ty = lane / 8, tx = lane % 8;
+  float* Ps = Vs + 2 * BC * LD + warp * 16 * PLD;   // this warp's [16][PLD]
   const int z = blockIdx.y, b = z / H, h = z % H, n0 = blockIdx.x * BR;
   const int64_t row = (int64_t)H * D;    // floats between tokens
   const float* qz = q + (int64_t)b * N * row + (int64_t)h * D;
   const float* kz = k + (int64_t)b * M * row + (int64_t)h * D;
   const float* vz = v + (int64_t)b * M * row + (int64_t)h * D;
-  for (int i = tid; i < BR * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    Qs[r * LD + c] = n0 + r < N ? qz[(int64_t)(n0 + r) * row + c] : 0.f;
+  // a thread copies 16-byte chunk tid % 16 of rows tid / 16 + 8 i
+  const int cc = (tid % 16) * 4, cr = tid / 16;
+  for (int r = cr; r < BR; r += kThreads / 16) {
+    const bool in = n0 + r < N;
+    dft::cp_async16(Qs + r * LD + cc,
+                    in ? qz + (int64_t)(n0 + r) * row + cc : qz, in);
   }
-  // the softmax's thread: row sr, columns sq * 16 .. + 15
-  const int sr = tid / 4, sq = tid % 4;
-  float m_run = -INFINITY, l_run = 0.f;
-  float acc[4][4] = {};
-  for (int m0 = 0; m0 < M; m0 += BC) {
-    __syncthreads();                     // the last tile's P V is done
-    for (int i = tid; i < BC * D; i += kThreads) {
-      const int r = i / D, c = i % D;
+  auto load_kv = [&](int buf, int m0) {
+    float* kb = Ks + buf * BC * LD;
+    float* vb = Vs + buf * BC * LD;
+    for (int r = cr; r < BC; r += kThreads / 16) {
       const bool in = m0 + r < M;
-      Ks[r * LD + c] = in ? kz[(int64_t)(m0 + r) * row + c] : 0.f;
-      Vs[r * LD + c] = in ? vz[(int64_t)(m0 + r) * row + c] : 0.f;
+      const int64_t off = in ? (int64_t)(m0 + r) * row + cc : 0;
+      dft::cp_async16(kb + r * LD + cc, kz + off, in);
+      dft::cp_async16(vb + r * LD + cc, vz + off, in);
     }
-    __syncthreads();
-    float s[4][4] = {};
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+  };
+  load_kv(0, 0);
+  dft::cp_async_commit();
+
+  // this lane's rows (of the warp's 16) i*4 + ty, keys kg*32 + j*8 + tx,
+  // O columns tx*4 .. + 3 and 32 + tx*4 .. + 3
+  const float* qrow = Qs + (rh * 16 + ty) * LD;
+  float m_run[4], l_run[4], acc[4][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * LD + d];
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+  const int tiles = (M + BC - 1) / BC;
+  for (int t = 0; t < tiles; ++t) {
+    dft::cp_async_wait<0>();
+    __syncthreads();                     // tile t landed; t - 1 is done
+    if (t + 1 < tiles) load_kv((t + 1) & 1, (t + 1) * BC);
+    dft::cp_async_commit();
+    const float* kb = Ks + (t & 1) * BC * LD + (kg * HALF_BC + tx) * LD;
+    const float* vb = Vs + (t & 1) * BC * LD + kg * HALF_BC * LD + tx * 4;
+    float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        Ss[(ty * 4 + i) * (BC + 1) + c] =
-            m0 + c < M ? s[i][j] * scale : -INFINITY;
-      }
-    __syncthreads();
-    // online softmax, four threads a row
-    float* srow = Ss + sr * (BC + 1) + sq * 16;
-    float mx = -INFINITY;
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
 #pragma unroll
-    for (int c = 0; c < 16; ++c) mx = fmaxf(mx, srow[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qrow + i * 4 * LD + d);
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const float p = expf(srow[c] - m_new);
-      srow[c] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffff, sum, 1);
-    sum += __shfl_xor_sync(0xffffffff, sum, 2);
-    const float cr = expf(m_run - m_new);   // 0 on the first tile
-    l_run = l_run * cr + sum;
-    m_run = m_new;
-    if (sq == 0) corr[sr] = cr;
-    __syncthreads();
-    // O = O * corr + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = corr[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= c;
-    }
-    for (int kk = 0; kk < BC; ++kk) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty * 4 + i) * (BC + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * LD + tx + 16 * j];
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(kb + j * 8 * LD + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+    const int key0 = t * BC + kg * HALF_BC + tx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = key0 + j * 8 < M ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[i], mx);
+      // a half with no key yet (M < 33) keeps its zeros
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pv = expf(s[i][j] - base);
+        Ps[(i * 4 + ty) * PLD + j * 8 + tx] = pv;
+        sum += pv;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float corr = expf(m_run[i] - base);  // 0 before the first key
+      l_run[i] = l_run[i] * corr + sum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
+    }
+    __syncwarp();
+    // O += P V over the warp's 32 keys
+#pragma unroll 2
+    for (int kk = 0; kk < HALF_BC; kk += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (i * 4 + ty) * PLD +
+                                                 kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 v0 =
+            *reinterpret_cast<const float4*>(vb + (kk + u) * LD);
+        const float4 v1 =
+            *reinterpret_cast<const float4*>(vb + (kk + u) * LD + 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z : pv[i].w;
+          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
+          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
+          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
+          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
+          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
+          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
+          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
+          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
+        }
+      }
     }
   }
-  if (sq == 0) {
-    lsum[sr] = l_run;
-    if (n0 + sr < N) lse[(int64_t)z * N + n0 + sr] = m_run + logf(l_run);
+
+  // merge the key halves: kg = 1 hands (m, l, O) over through the K/V
+  // buffers, kg = 0 combines and stores
+  dft::cp_async_wait<0>();
+  __syncthreads();
+  float* xo = Ks + rh * 16 * LD;              // [16][LD]: O, then m, l
+  float* xm = Ks + 32 * LD + rh * 32;         // [16] m, [16] l
+  if (kg == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* r = xo + (i * 4 + ty) * LD + tx * 4;
+      *reinterpret_cast<float4*>(r) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(r + 32) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      if (tx == 0) {
+        xm[i * 4 + ty] = m_run[i];
+        xm[16 + i * 4 + ty] = l_run[i];
+      }
+    }
   }
   __syncthreads();
+  if (kg == 1) return;
   float* oz = o + (int64_t)b * N * row + (int64_t)h * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+    const int r = rh * 16 + i * 4 + ty;
+    const float m1 = xm[i * 4 + ty], l1 = xm[16 + i * 4 + ty];
+    const float mm = fmaxf(m_run[i], m1);     // finite: key 0 is in half 0
+    const float a0 = expf(m_run[i] - mm), a1 = expf(m1 - mm);
+    const float l = l_run[i] * a0 + l1 * a1;
     if (n0 + r >= N) continue;
-    const float inv = 1.f / lsum[r];
+    if (tx == 0) lse[(int64_t)z * N + n0 + r] = mm + logf(l);
+    const float inv = 1.f / l;
+    const float* x1 = xo + (i * 4 + ty) * LD + tx * 4;
+    float* dst = oz + (int64_t)(n0 + r) * row + tx * 4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      oz[(int64_t)(n0 + r) * row + tx + 16 * j] = acc[i][j] * inv;
+    for (int hlf = 0; hlf < 2; ++hlf) {
+      const float4 w = *reinterpret_cast<const float4*>(x1 + 32 * hlf);
+      const float* a = acc[i] + 4 * hlf;
+      *reinterpret_cast<float4*>(dst + 32 * hlf) = make_float4(
+          (a[0] * a0 + w.x * a1) * inv, (a[1] * a0 + w.y * a1) * inv,
+          (a[2] * a0 + w.z * a1) * inv, (a[3] * a0 + w.w * a1) * inv);
+    }
   }
 }
 

@@ -11,7 +11,7 @@
 // Bound on the card: operations at the UNet and VAE shapes (512x512x128 ->
 // 128 at 3x3 is 77 GFLOP over 134 MB of traffic), bytes for the narrow
 // fp32 conv_outs and the VAE's conv_in (a 64 MB output from 3 channels).
-// Four forward routes, picked by shape alone (ops/conv.py::conv_route):
+// Five forward routes, picked by shape alone (ops/conv.py::conv_route):
 //
 // wgmma (conv_fwd_wgmma; bf16, stride 1 or 2, I % 64 == 0: every 3x3 and
 // 1x1 conv of the UNet's and the VAE's levels, and their downsamplers).
@@ -62,16 +62,47 @@
 // tile's whole K is one stage; the epilogue is the wgmma route's, TMA
 // stores at full width (the VAE's 64 MB output).
 //
-// mma.sync (conv_fwd_mma; the rest: fp32 with O > 8 or I % 4 != 0, bf16
-// with 8 < I, I % 64 != 0 or a stride above 2 -- no conv of the SD step --
-// and conv_dgrad, the dgrads no route below takes): 128x128x32 tiles in
-// shared memory, filled by 16-byte cp.async copies (zero-filled outside the
-// image and past K) in a two-stage ring, fragments by ldmatrix, products by
-// mma.sync m16n8k16 bf16 with fp32 accumulation.  The weights are [O, kh,
-// kw, I] (I contiguous), so a B tile row is one output channel's contiguous
-// K slice; the path needs I % 8 == 0 (the wrapper pads narrower inputs with
-// zero channels).  fp32 convs that the narrow route does not take run one
-// thread per output value.
+// mma.sync (conv_fwd_mma; the bf16 rest: 8 < I, I % 64 != 0 or a stride
+// above 2 -- no conv of the SD step: the ViT patch embeddings -- and
+// conv_dgrad, the dgrads no route below takes): 128x128x32 tiles in shared
+// memory, filled by 16-byte cp.async
+// copies (zero-filled outside the image and past K) in a two-stage ring,
+// fragments by ldmatrix, products by mma.sync m16n8k16 bf16 with fp32
+// accumulation.  The weights are [O, kh, kw, I] (I contiguous), so a B tile
+// row is one output channel's contiguous K slice; the path needs I % 8 == 0
+// (the wrapper pads narrower inputs with zero channels).  The dgrads it
+// cannot take (fp32; bf16 with O % 8 != 0) run one thread per value.
+//
+// fp32 tiled (conv_fwd_fp32_tiled; every fp32 conv but the narrow route's
+// O <= 8 with I % 4 == 0, any stride: the 40
+// convs of the DPT that preprocess_image runs, 123 GFLOP at 384², from the
+// 3-channel 7x7 stem to 768 channels).  Bound by operations (the fp32 CUDA
+// cores: 67 TFLOP/s; TF32 would keep ~3 digits, another function).  The
+// one-thread-per-output loop it replaces ran ~0.5 TFLOP/s: no reuse of an
+// operand, each thread streaming its own weight row at a stride of K.
+// Here a classic register-blocked SIMT GEMM:
+//  - a block owns 128 output pixels (a linear run of (b, oy, ox): the A
+//    rows are gathered per pixel, so no box is needed) x BN output
+//    channels, BN 64, or 32 where O fits in it; 2*BN threads, each an 8 x 8
+//    block of outputs (pixels ty + 16 i, channels tx + BN/8 j), so a
+//    float4 read of A and one of B feed 64 FMAs x 4.  168 registers a
+//    thread: three blocks an SM at BN 64 (BN 128 took 206-252 and one
+//    block an SM, and lost to 64 at every DPT shape);
+//  - K (tap, channel) in steps of 16 through a 3-stage ring of cp.async
+//    copies: A by implicit im2col (a table of the tile's pixels in shared
+//    memory; zero fill outside the image, past K and past M), B one output
+//    channel's contiguous K slice; 16 bytes a copy where I % 4 == 0 (4
+//    channels of one tap), 4 bytes otherwise (the stem's I = 3).  Both
+//    tiles are stored K-contiguous at a padded stride of 20 floats: the
+//    inner loop's float4 reads are broadcasts (A) or 8 consecutive rows
+//    over distinct banks (B).  One __syncthreads a K step;
+//  - split-K where the tiles alone leave SMs idle (the 12² and 24² convs:
+//    8-20 tiles) or leave the busiest SM a ragged last wave: the split of
+//    fewest waves x K steps a wave, 8 K steps a split at least
+//    (ops/conv.py::fp32_tiling);
+//    fp32 partials summed in split order by conv_splitk_reduce
+//    (deterministic);
+//  - epilogue: + bias in fp32, fp32 stores.
 //
 // fp32 narrow (conv_fwd_fp32; fp32, O <= 8, I % 4 == 0: the UNet's and
 // the VAE encoder's conv_out, the quant convs): a few hundred MFLOP over a
@@ -351,7 +382,7 @@ __global__ void conv_splitk_reduce(ConvParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core path: one thread per output value, fp32 FMA
+// CUDA-core path of the dgrads mma.sync cannot take: one thread per value
 // ---------------------------------------------------------------------------
 
 template <typename T, bool DGRAD>
@@ -387,6 +418,184 @@ __global__ void conv_simple_kernel(ConvParams p) {
     static_cast<float*>(p.y)[o] = acc;
   else
     static_cast<bf16*>(p.y)[o] = __float2bfloat16(acc);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 tiled implicit GEMM on the CUDA cores (conv_fwd_fp32_tiled)
+// ---------------------------------------------------------------------------
+
+namespace ft {
+constexpr int BM = 128, BK = 16, LDK = BK + 4, STAGES = 3;
+constexpr int kFarRow = -(1 << 29);   // a pixel past M: every tap misses
+// A block of 2*BN threads (BN 64 or 32) is a 16 x BN/8 grid, each thread
+// 8 pixels x 8 channels: pixels ty + 16 i, channels tx + (BN/8) j.  A warp
+// spans the BN/8 threads along N, so that one float4 read of B covers
+// BN/8 consecutive rows (conflict-free at the padded stride LDK) and one
+// of A at most 32/(BN/8) rows.
+template <int BN>
+struct Cfg {
+  static_assert(BN == 32 || BN == 64, "a warp spans the N tile");
+  static constexpr int kThreads = 2 * BN;
+  static constexpr int TX = BN / 8;
+  static constexpr size_t kSmem =
+      (size_t)STAGES * (BM + BN) * LDK * sizeof(float) +
+      BM * (sizeof(int64_t) + 2 * sizeof(int));
+};
+}  // namespace ft
+
+template <bool VEC>
+__device__ __forceinline__ void ft_copy(float* dst, const float* src,
+                                        bool ok) {
+  if (VEC)
+    dft::cp_async16(dst, src, ok);
+  else
+    dft::cp_async4(dst, src, ok);
+}
+
+// y[m, n] = sum_k A[m, k] w[n, k] + bias[n] over pixels m = (b, oy, ox) and
+// k = (tap, channel), for the K steps of split blockIdx.z (partials to ws
+// when p.splits > 1).  VEC: I % 4 == 0, each copy 4 channels of one tap.
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
+    conv_fp32_tiled_kernel(ConvParams p) {
+  using Cf = ft::Cfg<BN>;
+  constexpr int TBM = ft::BM, TBK = ft::BK, LDK = ft::LDK,
+                STAGES = ft::STAGES;
+  constexpr int T = Cf::kThreads;
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  float* As = reinterpret_cast<float*>(ft_smem);   // [STAGES][TBM][LDK]
+  float* Bs = As + STAGES * TBM * LDK;              // [STAGES][BN][LDK]
+  int64_t* pix_img = reinterpret_cast<int64_t*>(Bs + STAGES * BN * LDK);
+  int* pix_y = reinterpret_cast<int*>(pix_img + TBM);
+  int* pix_x = pix_y + TBM;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = lane % Cf::TX, ty = warp * (32 / Cf::TX) + lane / Cf::TX;
+  const int M = p.B * p.OH * p.OW;
+  const int K = p.KH * p.KW * p.C;
+  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int KT_all = (K + TBK - 1) / TBK;
+  const int kt0 = (int)((int64_t)KT_all * split / p.splits);
+  const int KT = (int)((int64_t)KT_all * (split + 1) / p.splits) - kt0;
+  const float* __restrict__ X = static_cast<const float*>(p.x);
+  const float* __restrict__ Wt = static_cast<const float*>(p.w);
+
+  // the tile's pixels: their image's offset and tap (0, 0)'s source pixel
+  for (int r = tid; r < TBM; r += T) {
+    const int m = m0 + r;
+    const bool in = m < M;
+    const int mm = in ? m : 0;
+    const int ox = mm % p.OW, oy = (mm / p.OW) % p.OH, b = mm / (p.OW * p.OH);
+    pix_img[r] = (int64_t)b * p.SH * p.SW * p.C;
+    pix_y[r] = in ? oy * p.sh - p.pt : ft::kFarRow;
+    pix_x[r] = ox * p.sw - p.pl;
+  }
+  __syncthreads();
+
+  // each thread copies one fixed k column of the tile (VEC: 4 floats) for
+  // rows row0 + i * ROWS; outside the image, past K and past O: zeros
+  constexpr int CW = VEC ? 4 : 1;
+  constexpr int CPR = TBK / CW;                 // copies per tile row
+  constexpr int ROWS = T / CPR;
+  constexpr int A_COPIES = TBM / ROWS, B_COPIES = BN / ROWS;
+  const int kc = (tid % CPR) * CW, row0 = tid / CPR;
+  auto load_stage = [&](int slot, int kt) {
+    const int k = (kt0 + kt) * TBK + kc;
+    const bool k_ok = k < K;
+    const int tap = k_ok ? k / p.C : 0;
+    const int c = k - tap * p.C;
+    const int r = tap / p.KW, s = tap - r * p.KW;
+    float* as = As + slot * TBM * LDK;
+    float* bs = Bs + slot * BN * LDK;
+#pragma unroll
+    for (int i = 0; i < A_COPIES; ++i) {
+      const int row = row0 + i * ROWS;
+      const int iy = pix_y[row] + r, ix = pix_x[row] + s;
+      const bool ok = k_ok && (unsigned)iy < (unsigned)p.SH &&
+                      (unsigned)ix < (unsigned)p.SW;
+      const float* src =
+          ok ? X + pix_img[row] + ((int64_t)iy * p.SW + ix) * p.C + c : X;
+      ft_copy<VEC>(as + row * LDK + kc, src, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < B_COPIES; ++i) {
+      const int row = row0 + i * ROWS;
+      const bool ok = k_ok && n0 + row < p.N;
+      const float* src = ok ? Wt + (int64_t)(n0 + row) * K + k : Wt;
+      ft_copy<VEC>(bs + row * LDK + kc, src, ok);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    dft::cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    // K step kt has landed, and every thread is done with step kt - 1,
+    // whose slot the next copy refills
+    dft::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < KT)
+      load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    dft::cp_async_commit();
+    const float* at = As + (kt % STAGES) * TBM * LDK + ty * LDK;
+    const float* bt = Bs + (kt % STAGES) * BN * LDK + tx * LDK;
+#pragma unroll
+    for (int kq = 0; kq < TBK; kq += 4) {
+      float a[8][4], b[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(at + i * 16 * LDK + kq);
+        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(bt + j * Cf::TX * LDK + kq);
+        b[j][0] = v.x; b[j][1] = v.y; b[j][2] = v.z; b[j][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);
+    }
+  }
+
+  // epilogue: + bias in fp32, or this split's partial sums
+  float* part =
+      p.splits > 1 ? p.ws + (int64_t)split * M * p.N : nullptr;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + i * 16 + ty;
+    if (m >= M) continue;
+    const int64_t row = (int64_t)m * p.N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + j * Cf::TX + tx;
+      if (n >= p.N) continue;
+      float v = acc[i][j];
+      if (part) {
+        part[row + n] = v;
+        continue;
+      }
+      if (p.bias) v += p.bias[n];
+      if (p.out_f32)
+        static_cast<float*>(p.y)[row + n] = v;
+      else
+        static_cast<bf16*>(p.y)[row + n] = __float2bfloat16(v);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1067,31 +1276,59 @@ int launch_conv(const ConvParams& p, int is_bf16, cudaStream_t stream) {
       conv_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0,
                            stream>>>(p);
     }
-  } else {
+  } else if constexpr (DGRAD) {
     const int threads = 256;
     dim3 grid((unsigned)((M * p.N + threads - 1) / threads), classes);
     if (is_bf16)
       conv_simple_kernel<bf16, DGRAD><<<grid, threads, 0, stream>>>(p);
     else
       conv_simple_kernel<float, DGRAD><<<grid, threads, 0, stream>>>(p);
+  } else {
+    return (int)cudaErrorInvalidValue;   // the forward: bf16, I % 8 == 0
   }
   return (int)cudaGetLastError();
+}
+
+template <int BN, bool VEC>
+int launch_fp32_tiled(const ConvParams& p, cudaStream_t stream) {
+  using Cf = ft::Cfg<BN>;
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err = hop::allow_smem(conv_fp32_tiled_kernel<BN, VEC>,
+                                          (int)Cf::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t M = (int64_t)p.B * p.OH * p.OW;
+  dim3 grid((unsigned)((M + ft::BM - 1) / ft::BM), (p.N + BN - 1) / BN,
+            p.splits);
+  conv_fp32_tiled_kernel<BN, VEC>
+      <<<grid, Cf::kThreads, Cf::kSmem, stream>>>(p);
+  if (p.splits > 1) {
+    const int64_t total = M * p.N;
+    conv_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_fp32_tiled_bn(const ConvParams& p, cudaStream_t stream) {
+  return p.C % 4 == 0 ? launch_fp32_tiled<BN, true>(p, stream)
+                      : launch_fp32_tiled<BN, false>(p, stream);
 }
 
 }  // namespace
 
 // y[B,Ho,Wo,O] = conv(x[B,H,W,I], w[O,kh,kw,I]) + bias; top/left padding
-// pt/pl (bottom/right padding only sets Ho/Wo).  is_bf16 selects bf16 x and
-// w (else fp32); out_f32 selects the output type.  splits > 1 (tensor-core
-// path only) needs ws, fp32 [splits * B*Ho*Wo*O].
+// pt/pl (bottom/right padding only sets Ho/Wo).  bf16 x and w with I % 8
+// == 0 (ops/conv.py pads narrower inputs with zero channels); out_f32
+// selects the output type.  splits > 1 needs ws, fp32 [splits * B*Ho*Wo*O].
 extern "C" int conv_fwd_mma(const void* x, const void* w, const float* bias,
                             void* y, int B, int H, int W, int I, int Ho,
                             int Wo, int O, int kh, int kw, int sh, int sw,
-                            int pt, int pl, int is_bf16, int out_f32,
-                            int splits, float* ws, cudaStream_t stream) {
+                            int pt, int pl, int out_f32, int splits,
+                            float* ws, cudaStream_t stream) {
   ConvParams p{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl,
                out_f32, splits, ws};
-  return launch_conv<false>(p, is_bf16, stream);
+  return launch_conv<false>(p, 1, stream);
 }
 
 // dx[B,H,W,I] from dy[B,Ho,Wo,O] and the transposed weight wT[I,kh,kw,O];
@@ -1204,6 +1441,27 @@ extern "C" int conv_fwd_fp32(const void* x, const void* w, const float* bias,
                out_f32, 1, nullptr};
   conv_narrow_kernel<<<(unsigned)((M + 7) / 8), 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The fp32 tiled route: fp32 x and w (I % 4 == 0 copies 16 bytes, else 4;
+// with 16 bytes x and w must be 16-byte aligned), any stride and top/left
+// padding pt/pl as for conv_fwd_mma; output tiles of 128 pixels x bn
+// channels (32 or 64); splits > 1 needs ws, fp32 [splits * B*Ho*Wo*O],
+// summed in split order with the bias added.
+extern "C" int conv_fwd_fp32_tiled(const void* x, const void* w,
+                                   const float* bias, void* y, int B, int H,
+                                   int W, int I, int Ho, int Wo, int O,
+                                   int kh, int kw, int sh, int sw, int pt,
+                                   int pl, int bn, int out_f32, int splits,
+                                   float* ws, cudaStream_t stream) {
+  if ((bn != 32 && bn != 64) || splits < 1 || sh < 1 ||
+      sw < 1 || I < 1 || kh < 1 || kw < 1 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Ho * Wo == 0 || O == 0) return (int)cudaGetLastError();
+  const ConvParams p{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                     pt, pl, out_f32, splits, ws};
+  return bn == 64 ? launch_fp32_tiled_bn<64>(p, stream)
+                  : launch_fp32_tiled_bn<32>(p, stream);
 }
 
 // The Hopper route of the input gradient: dx[B,H,W,I] from dy[B,Ho,Wo,O]

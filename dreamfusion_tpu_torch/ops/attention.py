@@ -15,8 +15,10 @@ self-attention at 64² is the path's one call where they differ.
 
 On a CUDA tensor the forward is one launch of ``csrc/attention.cu``.
 fp32 q, k and v (DPT's ViT-B: [1, 577, 12, 64], JAX's dense branch) take
-``attention_fwd_fp32``: CUDA-core FMAs (no TF32), an online softmax over
-64-key tiles, P kept in fp32.  bf16 takes the flash-style wgmma kernels
+``attention_fwd_fp32``: CUDA-core FMAs (no TF32), blocks of 32 queries
+whose two key halves each run an online softmax over 64-key tiles (K and
+V double-buffered by cp.async, so q, k and v are 16-byte aligned) and
+merge at the end, P kept in fp32.  bf16 takes the flash-style wgmma kernels
 with operands by TMA: at the UNet's head dims
 one kernel parametrised on d, with a counter per d
 (``attention_fwd_wgmma`` at d = 64, ``attention_fwd_wgmma_d40``, ``_d80``
@@ -110,6 +112,10 @@ def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
     ``attention_plain``."""
     B, N, M, H, D = _check(q, k, v, (torch.bfloat16, torch.float32))
     route = attention_route(D, q.dtype)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the attention kernels read q, k and v in 16-byte "
+                         "units (TMA, cp.async): 16-byte aligned tensors "
+                         "only")
     if route == _FP32_ROUTE:
         if round_q:
             raise ValueError("the fp32 attention kernel takes JAX's dense "
@@ -119,9 +125,6 @@ def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
         kernels.launch(route, *(kernels.ptr(t) for t in (q, k, v, o, lse)),
                        B, N, M, H, D, float(scale))
         return o, lse
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the attention kernels read q, k and v by TMA: "
-                         "16-byte aligned tensors only")
     # rounding q·scale changes the logits only where scale is not 2^k
     prescale = round_q and math.frexp(scale)[0] != 0.5
     o = torch.empty_like(q)

@@ -9,7 +9,7 @@ downsample is padding ((0, 1), (0, 1)) at stride 2, the same as JAX's
 added in fp32, as ``mm_conv`` + ``MMConv`` do; the output is x's dtype or
 fp32.
 
-On a CUDA tensor the forward is one launch of one of four routes of
+On a CUDA tensor the forward is one launch of one of five routes of
 ``csrc/conv.cu``, chosen by ``conv_route`` on the shape alone: the Hopper
 implicit GEMM (wgmma, operands by TMA; ``conv_fwd_wgmma``) for bf16 at
 stride 1 or 2 with I % 64 == 0 (every conv of the UNet's and the VAE's
@@ -17,27 +17,29 @@ levels and their downsamplers), its narrow-input form
 (``conv_fwd_wgmma_i8``) for bf16 stride-1 convs with I <= 8 (the 3- and
 4-channel conv_ins: x zero-padded to 8 channels first, one more launch
 where I < 8, the weight packed once and cached), the warp-per-pixel fp32
-kernel for the narrow fp32 convs (O <= 8), and the mma.sync implicit GEMM
-(or, for other fp32, one thread per output) for the rest, which no SD-step
-shape reaches; the tensor-core routes split over K where the output tiles
-alone cannot fill the card.  The input gradient is one launch of one of
-four routes, chosen by ``dgrad_route`` on the shape alone: the wgmma
-kernel over dx's parity classes (``conv_dgrad_wgmma``; bf16, O % 64 == 0,
-stride 1 or 2: at stride 1 a forward conv of dy with the flipped,
-transposed weight, packed once per weight version and cached: 70.6 MB for
-the SD VAE encoder, whose weights are 65.8 MB), mma.sync with A fragments
-from device memory for the narrow dx of the conv_ins
-(``conv_dgrad_narrow``), CUDA cores for the fp32 conv_outs
-(``conv_dgrad_fp32``), and mma.sync (``conv_dgrad``) for the rest, which
-no SD-step shape reaches.  The weight gradient is on no path (every
-tower is frozen): backward gives none and raises if the weight asks for
-one.  On a CPU tensor the plain versions run: the JAX package's
+kernel for the narrow fp32 convs (O <= 8, I % 4 == 0), the tiled fp32
+implicit GEMM on the CUDA cores (``conv_fwd_fp32_tiled``) for every other
+fp32 conv (the DPT's 40), and the mma.sync implicit GEMM for the bf16
+rest, which no SD-step shape reaches; the tensor-core routes and the tiled
+fp32 one split over K where the output tiles alone cannot fill the card.
+The input gradient is one launch of one of four routes, chosen by
+``dgrad_route`` on the shape alone: the wgmma kernel over dx's parity
+classes (``conv_dgrad_wgmma``; bf16, O % 64 == 0, stride 1 or 2: at stride
+1 a forward conv of dy with the flipped, transposed weight, packed once per
+weight version and cached: 70.6 MB for the SD VAE encoder, whose weights
+are 65.8 MB), mma.sync with A fragments from device memory for the narrow
+dx of the conv_ins (``conv_dgrad_narrow``), CUDA cores for the fp32
+conv_outs (``conv_dgrad_fp32``), and mma.sync (``conv_dgrad``) for the
+rest, which no SD-step shape reaches.  The weight gradient is on no path
+(every tower is frozen): backward gives none and raises if the weight asks
+for one.  On a CPU tensor the plain versions run: the JAX package's
 shifted-einsum form (``_einsum_conv``), and for dx the kernels' own
 decomposition through it (``conv2d_dgrad_plain``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -97,6 +99,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _TILE = 128                    # output tile of both tensor-core routes
 _BK_MMA, _BK_WGMMA = 32, 64    # their K steps
 _NARROW_O = 8                  # widest output of the fp32 route
+_FP32_BM, _FP32_BK = 128, 16   # the tiled fp32 route's pixels a tile, K step
+_FP32_BLOCKS_PER_SM = 3        # its blocks an SM holds (168 registers)
+_FP32_MIN_STEPS, _FP32_MAX_SPLITS = 8, 32   # K steps a split, splits
 _NARROW_I, _NARROW_K = 8, 10   # the narrow-input route: 8 channels a tap,
                                # at most 10 taps (K chunks of 8)
 _DX_NARROW_I, _DX_NARROW_O = 8, 256   # the narrow dgrad: dx <= 8 channels
@@ -118,18 +123,21 @@ def conv_route(dtype: torch.dtype, I: int, O: int,
     "conv_fwd_wgmma" for bf16 at strides of 1 or 2 with I % 64 == 0 (a K
     block is 64 input channels; at stride 2 TMA walks every other pixel),
     "conv_fwd_wgmma_i8" for bf16 at stride 1 with I <= 8 and at most 10
-    taps (the conv_ins), "conv_fwd_fp32" for fp32 with O <= 8 and I % 4 ==
-    0 (16-byte loads), else "conv_fwd_mma": fp32 with O > 8 or I % 4 != 0,
-    and bf16 with 8 < I, I % 64 != 0 or a stride above 2.  No conv of the
-    SD step takes "conv_fwd_mma" (the towers' test widths do)."""
+    taps (the conv_ins), else "conv_fwd_mma" for bf16 (8 < I, I % 64 !=
+    0 or a stride above 2); "conv_fwd_fp32" for fp32 with O <= 8 and I %
+    4 == 0 (16-byte loads), else "conv_fwd_fp32_tiled" for fp32 at any
+    stride, I and O (the DPT's convs, its 3-channel stem included).  No
+    conv of the SD step or the DPT takes "conv_fwd_mma" (the towers' test
+    widths and the ViT patch embeddings do)."""
     if dtype == torch.bfloat16:
         if I % 64 == 0 and max(stride) <= 2:
             return "conv_fwd_wgmma"
         if I <= _NARROW_I and tuple(stride) == (1, 1) and taps <= _NARROW_K:
             return "conv_fwd_wgmma_i8"
-    if dtype == torch.float32 and O <= _NARROW_O and I % 4 == 0:
+        return "conv_fwd_mma"
+    if O <= _NARROW_O and I % 4 == 0:
         return "conv_fwd_fp32"
-    return "conv_fwd_mma"
+    return "conv_fwd_fp32_tiled"
 
 
 def pixel_box(B: int, Ho: int, Wo: int) -> Tuple[int, int, int]:
@@ -173,6 +181,26 @@ def wgmma_tiling(B: int, Ho: int, Wo: int, O: int, k_steps: int, sms: int,
     return box, bn, split_k(pix * _cdiv(O, bn), k_steps, sms, 4, 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def fp32_tiling(M: int, O: int, K: int, sms: int) -> Tuple[int, int]:
+    """(N tile, split-K factor) of the tiled fp32 route for M output
+    pixels, O channels and K = kh*kw*I on a card with `sms`
+    multiprocessors.  The N tile is 32 where O fits in it, else 64 (128
+    lost to 64 at every DPT shape: 206-252 registers a thread left one
+    block an SM).  The split is the one of fewest waves x K steps a wave
+    (waves of three blocks an SM), fewest splits on a tie, among those
+    that leave each split 8 K steps (at most 32 splits) and put at least
+    `sms` blocks on the card, or the most splits where K cannot split that
+    far."""
+    ks = _cdiv(K, _FP32_BK)
+    top = max(1, min(_FP32_MAX_SPLITS, ks // _FP32_MIN_STEPS))
+    bn = 32 if O <= 32 else 64
+    tiles = _cdiv(M, _FP32_BM) * _cdiv(O, bn)
+    fill = [s for s in range(1, top + 1) if tiles * s >= sms] or [top]
+    return bn, min(fill, key=lambda s: (
+        _cdiv(tiles * s, _FP32_BLOCKS_PER_SM * sms) * _cdiv(ks, s), s))
+
+
 def _workspace(splits: int, out_numel: int, device):
     if splits == 1:
         return None
@@ -184,7 +212,7 @@ def _pad_channels(x: torch.Tensor, w: torch.Tensor):
     """The mma.sync path reads 8 input channels at a time: pad narrower
     inputs with zero channels."""
     I = x.shape[-1]
-    if x.dtype != torch.bfloat16 or I % 8 == 0:
+    if I % 8 == 0:
         return x, w
     pad = 8 - I % 8
     return F.pad(x, (0, pad)), F.pad(w, (0, pad))
@@ -249,8 +277,10 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
     f32 = int(out_dtype == torch.float32)
     (pt, _), (pl, _) = pads
     # what the route reads in 16-byte units (the narrow-input route reads
-    # x elementwise, into its padded copy, and packs w)
-    direct = () if route == "conv_fwd_wgmma_i8" else (x, w)
+    # x elementwise, into its padded copy, and packs w; the tiled fp32
+    # route copies 4 bytes at a time where I % 4 != 0)
+    direct = () if route == "conv_fwd_wgmma_i8" or (
+        route == "conv_fwd_fp32_tiled" and I % 4) else (x, w)
     if route != "conv_fwd_mma" and any(t.data_ptr() % 16 for t in direct):
         raise ValueError(f"{route} reads x and w in 16-byte units: 16-byte "
                          "aligned tensors only")
@@ -260,6 +290,14 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                        O, kh, kw, stride[0], stride[1], pt, pl, f32)
         return y
     sms = kernels.sm_count(x.device)
+    if route == "conv_fwd_fp32_tiled":
+        bn, splits = fp32_tiling(B * Ho * Wo, O, kh * kw * I, sms)
+        ws = _workspace(splits, y.numel(), x.device)
+        kernels.launch(route, kernels.ptr(x), kernels.ptr(w),
+                       kernels.ptr(bias), kernels.ptr(y), B, H, W, I, Ho, Wo,
+                       O, kh, kw, stride[0], stride[1], pt, pl, bn, f32,
+                       splits, kernels.ptr(ws))
+        return y
     if route == "conv_fwd_wgmma_i8":
         (bw, bh, bb), bn, _ = wgmma_tiling(B, Ho, Wo, O, 1, sms, True)
         # x padded to 8 channels and by the taps' reach, in the launch, with
@@ -281,15 +319,12 @@ def conv2d_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
                        O, kh, kw, stride[0], stride[1], pt, pl, bw, bh, bb, bn,
                        f32, splits, sms, kernels.ptr(ws))
         return y
-    bf16 = x.dtype == torch.bfloat16
-    splits = 1
-    if bf16:
-        tiles = _cdiv(B * Ho * Wo, _TILE) * _cdiv(O, _TILE)
-        splits = split_k(tiles, kh * kw * I // _BK_MMA, sms, 8)
+    splits = split_k(_cdiv(B * Ho * Wo, _TILE) * _cdiv(O, _TILE),
+                     kh * kw * I // _BK_MMA, sms, 8)
     ws = _workspace(splits, y.numel(), x.device)
     kernels.launch(route, kernels.ptr(x), kernels.ptr(w), kernels.ptr(bias),
                    kernels.ptr(y), B, H, W, I, Ho, Wo, O, kh, kw, stride[0],
-                   stride[1], pt, pl, int(bf16), f32, splits, kernels.ptr(ws))
+                   stride[1], pt, pl, f32, splits, kernels.ptr(ws))
     return y
 
 

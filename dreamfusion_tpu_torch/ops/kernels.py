@@ -71,6 +71,7 @@ LAUNCHES: Dict[str, int] = {
     "conv_fwd_wgmma": 0, "conv_fwd_wgmma_i8": 0,  # K12, CUDA C++
     "conv_fwd_mma": 0,                          # K12, CUDA C++
     "conv_fwd_fp32": 0,                         # K12, CUDA C++
+    "conv_fwd_fp32_tiled": 0,                   # K12 fp32 (DPT), CUDA C++
     "conv_dgrad_wgmma": 0, "conv_dgrad_narrow": 0,  # K12 dgrad, CUDA C++
     "conv_dgrad_fp32": 0, "conv_dgrad": 0,      # K12 dgrad, CUDA C++
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
@@ -114,10 +115,11 @@ _SIGNATURES = {
     [_F] * 2 + [_P] * 3,
     "field_select_bwd": [_P] * 3 + [_I, _I, _I, _P, _I, _P, _F, _P, _I] +
     [_F] * 2 + [_P] * 5,
-    "conv_fwd_mma": [_P] * 4 + [_I] * 16 + [_P, _P],
+    "conv_fwd_mma": [_P] * 4 + [_I] * 15 + [_P, _P],
     "conv_fwd_wgmma": [_P] * 4 + [_I] * 20 + [_P, _P],
     "conv_fwd_wgmma_i8": [_P] * 5 + [_I] * 17 + [_P],
     "conv_fwd_fp32": [_P] * 4 + [_I] * 14 + [_P],
+    "conv_fwd_fp32_tiled": [_P] * 4 + [_I] * 16 + [_P, _P],
     "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
     "conv_dgrad_wgmma": [_P] * 3 + [_I] * 21 + [_P, _P],
     "conv_dgrad_narrow": [_P] * 3 + [_I] * 13 + [_P],

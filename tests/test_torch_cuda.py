@@ -1056,16 +1056,58 @@ def test_conv_fp32_narrow_kernel(dev, B, H, W, I, O, k, stride):
     _close_to(_border(y), _border(ref), 1e-5)
 
 
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad", [
+    (1, 13, 11, 32, 40, 3, 1, 1),          # odd grid, a ragged N tile
+    (2, 9, 7, 16, 32, 3, 1, 1),            # O = 32: the 32-wide N tile
+    (1, 17, 19, 64, 200, 3, 1, 1),         # O = 200: a partial 64 tile
+    (1, 7, 9, 64, 768, 3, 2, ((0, 1), (0, 1))),   # O = 768, TF-SAME s2
+    (1, 38, 38, 3, 64, 7, 2, ((2, 3), (2, 3))),   # the stem: I = 3 (4-byte)
+    (1, 15, 13, 5, 12, 3, 1, 1),           # I = 5: 4-byte copies, O < 16
+    (1, 33, 31, 3, 8, 3, 1, 1),            # O = 8 with I = 3: not narrow
+    (1, 19, 17, 96, 128, 1, 2, 0),         # 1x1 at stride 2
+    (1, 12, 12, 768, 256, 3, 1, 1),        # split-K (the DPT's 12²)
+    (1, 24, 24, 256, 256, 3, 1, 1),        # split-K (the DPT's 24²)
+])
+def test_conv_fp32_tiled_kernel(dev, B, H, W, I, O, k, stride, pad):
+    """K12's tiled fp32 route (the DPT's convs) against the plain version
+    at 1e-5 rel + 1e-4 of the largest value, the border pixels on their
+    own: odd pixel grids, N tiles of 32 and 64 (a partial one at O = 200),
+    O <= 8 where I % 4 != 0 keeps it off the narrow route, the stem's 3
+    channels at 7x7 stride 2 with TF-SAME's pads (4-byte
+    copies), a 1x1 at stride 2, split-K at the DPT's 12² and 24² shapes;
+    two launches agree bit for bit (partials summed in split order)."""
+    assert conv_route(torch.float32, I, O, (stride, stride), k * k) == \
+        "conv_fwd_fp32_tiled"
+    g = _gen(dev, 23)
+    x = torch.randn(B, H, W, I, device=dev, generator=g)
+    w = torch.randn(O, k, k, I, device=dev, generator=g) / (k * k * I) ** 0.5
+    bias = torch.randn(O, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    y = conv2d(x, w, bias, stride, pad)
+    y2 = conv2d(x, w, bias, stride, pad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_fwd_fp32_tiled"] == 2
+    assert kernels.LAUNCHES["conv_fwd_mma"] == 0
+    assert torch.equal(y, y2)
+    ref = conv2d_plain(x, w, bias, (stride, stride), norm_padding(pad),
+                       torch.float32)
+    assert y.shape == ref.shape
+    for got, want in ((y, ref), (_border(y), _border(ref))):
+        torch.testing.assert_close(
+            got, want, rtol=1e-5, atol=1e-4 * float(ref.abs().max()))
+
+
 @pytest.mark.parametrize("I,O,dtype,stride", [
     (128, 128, torch.bfloat16, 1), (320, 4, torch.float32, 1),
-    (128, 64, torch.bfloat16, 2)])
+    (128, 64, torch.bfloat16, 2), (64, 64, torch.float32, 1)])
 def test_conv_16_byte_routes_refuse_misaligned_views(dev, I, O, dtype,
                                                      stride):
-    """The wgmma routes (stride 1 and 2) and the fp32 route read x and w in
-    16-byte units: a contiguous view at an odd offset raises instead of
-    faulting on the card."""
+    """The wgmma routes (stride 1 and 2) and the fp32 routes (narrow and
+    tiled, I % 4 == 0) read x and w in 16-byte units: a contiguous view at
+    an odd offset raises instead of faulting on the card."""
     route = conv_route(dtype, I, O, (stride, stride), 9)
-    assert route in ("conv_fwd_wgmma", "conv_fwd_fp32")
+    assert route in ("conv_fwd_wgmma", "conv_fwd_fp32",
+                     "conv_fwd_fp32_tiled")
     n = 2 * 6 * 6 * I
     x = torch.randn(n + 1, device=dev).to(dtype)[1:].view(2, 6, 6, I)
     w = (torch.randn(O, 3, 3, I, device=dev) / (9 * I) ** 0.5).to(dtype)
@@ -2600,12 +2642,16 @@ def test_narrow_vae_decoder_on_the_card(dev):
     (1, 577, 577, 12),       # the DPT's ViT-B at 384²
     (2, 65, 1, 3),           # one key; a query tile of one row
     (1, 50, 130, 2),         # ragged query and key tiles
+    (2, 97, 65, 3),          # 32-row query tiles, the last of one row; a
+                             # last key tile of one key: its upper key half
+                             # all masked
 ])
 def test_attention_fp32_kernel(dev, B, N, M, H):
     """K10's fp32 forward (the DPT's, JAX's dense branch): out against the
     plain version at 1e-5 of its largest, lse against the fp32 logits'
-    logsumexp, two launches bit for bit; fp32 q, k, v of d != 64 and its
-    backward refuse."""
+    logsumexp, two launches bit for bit (the two key halves of a block
+    merge in a fixed order); fp32 q, k, v of d != 64 and its backward
+    refuse."""
     g = _gen(dev, 21)
     q = torch.randn(B, N, H, 64, device=dev, generator=g)
     k, v = (torch.randn(B, M, H, 64, device=dev, generator=g)

@@ -129,8 +129,8 @@ def test_full_dpt_on_meta_has_jax_count_keys_and_card_routes(task):
     omnidata checkpoint's keys (all but the dead refinenet4.resConfUnit1)
     and shapes (conv [O, I, kh, kw] as the port's [O, kh, kw, I]), and the
     route every K12 conv and K10 attention of a 384² forward takes on the
-    card: every conv fp32 on conv_fwd_mma, every attention on the fp32
-    forward."""
+    card: every conv fp32 on the tiled fp32 route (none left on
+    conv_fwd_mma), every attention on the fp32 forward."""
     import chip_smoke
     cfg = getattr(pdpt.DPTConfig, task)()
     with torch.device("meta"):
@@ -160,7 +160,7 @@ def test_full_dpt_on_meta_has_jax_count_keys_and_card_routes(task):
     for q_shape in attns:
         r = K10.attention_route(q_shape[-1], torch.float32)
         routes[r] = routes.get(r, 0) + 1
-    assert routes == {"conv_fwd_mma": 40, "attention_fwd_fp32": 12}
+    assert routes == {"conv_fwd_fp32_tiled": 40, "attention_fwd_fp32": 12}
     assert attns[0] == (1, 577, 12, 64)
     # the stem, the 96² RCU convs, head_conv1 at 192² and head_conv2
     assert ((1, 384, 384, 3), (64, 7, 7, 3), 2, ((2, 3), (2, 3))) in convs
@@ -169,6 +169,40 @@ def test_full_dpt_on_meta_has_jax_count_keys_and_card_routes(task):
             ((1, 1), (1, 1))) in convs
     assert ((1, 384, 384, 128), (32, 3, 3, 128), 1,
             ((1, 1), (1, 1))) in convs
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_fp32_tiling_fills_the_card_at_every_dpt_shape(sms):
+    """The tiled fp32 route's tiling (``fp32_tiling``) at each of the 17
+    distinct conv shapes of a 384² DPT forward, on an H100 SXM's 132 SMs
+    and a PCIe part's 114: an N tile that fits O (32 for head_conv2's 32
+    channels, 64 for 64), a split of at most 32 that leaves every split 8
+    K steps, and at least `sms` blocks on the card or, where K cannot split
+    that far, the most splits K allows; and ``conv_route`` sends every
+    fp32 conv but the narrow route's (O <= 8, I % 4 == 0), at any stride
+    and any I, to that route."""
+    import chip_smoke
+    convs, _ = chip_smoke.dpt_calls(pdpt.DPTConfig.depth(), 384)
+    shapes = list(dict.fromkeys(convs))
+    assert len(shapes) == 17
+    for (B, H, W, I), (O, kh, kw, _), st, pads in shapes:
+        assert K12.conv_route(torch.float32, I, O, (st, st), kh * kw) == \
+            "conv_fwd_fp32_tiled"
+        Ho, Wo = K12.out_size(H, W, kh, kw, (st, st), pads)
+        M, K = B * Ho * Wo, kh * kw * I
+        bn, splits = K12.fp32_tiling(M, O, K, sms)
+        assert bn == (32 if O <= 32 else 64)
+        top = max(1, min(32, -(-K // 16) // 8))
+        assert 1 <= splits <= top
+        blocks = -(-M // 128) * -(-O // bn) * splits
+        assert blocks >= sms or splits == top, \
+            ((B, H, W, I, O, kh, st), bn, splits, blocks)
+    for I, O, st in ((3, 64, 2), (5, 9, 1), (64, 768, 1), (128, 200, 2),
+                     (3, 8, 1)):
+        assert K12.conv_route(torch.float32, I, O, (st, st), 9) == \
+            "conv_fwd_fp32_tiled"
+    # the narrow fp32 route keeps O <= 8 with I % 4 == 0
+    assert K12.conv_route(torch.float32, 64, 8, (1, 1), 9) == "conv_fwd_fp32"
 
 
 def _torch_state(pm):

@@ -395,7 +395,10 @@ def test_sd_step_convs_and_attentions_take_their_routes():
     assert conv_route(torch.bfloat16, 3, 16, (2, 2), 9) == "conv_fwd_mma"
     assert conv_route(torch.bfloat16, 64, 64, (3, 3), 9) == "conv_fwd_mma"
     assert conv_route(torch.bfloat16, 4, 8, (1, 1), 25) == "conv_fwd_mma"
-    assert conv_route(torch.float32, 64, 64, (1, 1), 9) == "conv_fwd_mma"
+    assert conv_route(torch.float32, 64, 64, (1, 1), 9) == \
+        "conv_fwd_fp32_tiled"
+    assert conv_route(torch.float32, 3, 8, (1, 1), 9) == \
+        "conv_fwd_fp32_tiled"
     assert attention_route(64) == "attention_fwd_wgmma"
     assert attention_route(512) == "attention_fwd_wgmma_d512"
     with pytest.raises(ValueError):
@@ -605,8 +608,9 @@ def _load_root_script(name):
 def test_chip_smoke_conv_rows_take_their_routes():
     """chip_smoke.py holds every forward route of K12 against its plain
     version: its SD rows never reach the mma.sync forward, its MMA_CONVS
-    rows all do, and the kernels line lists that kernel; the same for the
-    dgrad's routes."""
+    rows all do, its FP32_TILED_CONVS rows all take the tiled fp32 route,
+    and the kernels line lists those kernels; the same for the dgrad's
+    routes."""
     from dreamfusion_tpu_torch.ops.conv import conv_route, dgrad_route
 
     smoke = _load_root_script("chip_smoke")
@@ -633,9 +637,15 @@ def test_chip_smoke_conv_rows_take_their_routes():
     assert all(r[9] for r in smoke.MMA_CONVS)
     assert {dgrad(r) for r in smoke.MMA_CONVS} == {"conv_dgrad"}
     assert set(smoke.SD_DGRADS) | {"conv_dgrad"} <= set(smoke.KERNELS)
-    assert {r[8] for r in smoke.MMA_CONVS} == {"bf16", "fp32"}
+    assert {r[8] for r in smoke.MMA_CONVS} == {"bf16"}
     assert {r[6] for r in smoke.MMA_CONVS} == {1, 2}
-    assert sd | {"conv_fwd_mma"} <= set(smoke.KERNELS)
+    # the fp32 rows of no path: the tiled forward, the fp32 dgrad loop
+    assert {route(r) for r in smoke.FP32_TILED_CONVS} == \
+        {"conv_fwd_fp32_tiled"}
+    assert {dgrad(r) for r in smoke.FP32_TILED_CONVS} == {"conv_dgrad"}
+    assert {r[8] for r in smoke.FP32_TILED_CONVS} == {"fp32"}
+    assert sd | {"conv_fwd_mma", "conv_fwd_fp32_tiled"} <= \
+        set(smoke.KERNELS)
     assert "conv_fwd_mma" not in smoke.SD_KERNELS
 
 
