@@ -298,12 +298,31 @@
    ``.npz`` (normals), K10/K12 exactly (``dpt_launches``), the forward's
    ms at 384², the card against the CPU at 128²; a 512² turntable of the
    stage-1 mesh (K7 exactly), R-precision, a viewer frame, ``--profile``.
-15. Prints one JSON line with every kernel's route, source, the TPU
+15. The towers' backward to their weights at full width on random weights
+   from seed 0: K12's weight gradient (``conv_wgrad_mma``, bf16 on the
+   tensor cores; ``conv_wgrad_fp32``, the conv_outs), K11's backward with
+   the affine gradients (``groupnorm_bwd_{resident,stream}_affine``) and
+   K10's backward at d = 40, 80 and 160 (``attention_bwd_wgmma_d*``), each
+   against its plain version at every distinct shape the four towers
+   launch it at (98 rows: recorded from the towers' own forwards on the
+   meta device), with event and graph ms, bound and the library call's ms
+   (``aten.convolution_backward`` with the weight's mask,
+   ``aten.native_group_norm_backward`` with the affine mask, SDPA's
+   backward), logged as one ``tower backward rows`` JSON line; then the SD
+   2.1 UNet (CFG batch 2, 64², 77 keys), the SD 1.5 UNet, zero123's UNet
+   (K = 1, 32², one key, 8 input channels) and the SD VAE encoder (512²),
+   each with every parameter and the input wanting gradients: one forward
+   and one backward of a seeded cotangent, every gradient finite, K10-K12
+   launched exactly as ``tower_launches(..., unet_grad=1)`` derives them,
+   the synchronised forward and backward walls (median of 3) and the peak
+   memory.
+16. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K2's vanilla launches: the
    -O2 SD run; K4's ``field_select``: the field-options run; K1-K4 and
    K10-K12: the SD run, K10's d = 40, 80 and 160 routes: the SD 1.5
    run, K10's fp32 forward and K12's tiled fp32 route: the DPT's depth
-   run, ``conv_fwd_mma`` and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
+   run, the new kernels of step 15: the four towers' backwards summed,
+   ``conv_fwd_mma`` and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
    image stage 1; K9: the DMTet stage from its mesh), error, times and
@@ -594,6 +613,20 @@ KERNELS["clip_grad_bwd"] = ("cuda", "dreamfusion_tpu_torch/csrc/clip_grad.cu",
                             "dreamfusion_tpu/core/math.py:39")
 KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
                               "dreamfusion_tpu/mesh/sdf.py:214")
+# the towers' backward to their weights: mm_conv's dk (f_bwd :112),
+# group_norm_fused's dscale and dbias (:148-149), attention's backward at
+# SD 1.5's head dims (d = 40's 64² self-attention on the chunked branch)
+for _r in ("mma", "fp32"):
+    KERNELS[f"conv_wgrad_{_r}"] = ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
+                                   "dreamfusion_tpu/ops/conv.py:112")
+for _r in ("resident", "stream"):
+    KERNELS[f"groupnorm_bwd_{_r}_affine"] = (
+        "cuda", "dreamfusion_tpu_torch/csrc/groupnorm.cu",
+        "dreamfusion_tpu/models/unet.py:148")
+for _d, _line in ((40, 27), (80, 72), (160, 72)):
+    KERNELS[f"attention_bwd_wgmma_d{_d}"] = (
+        "cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
+        f"dreamfusion_tpu/ops/attention.py:{_line}")
 # the stage-1 step: K4's head with the normals and the shading (and the head
 # alone in the density refresh)
 GRID_KERNELS = ("hashgrid_fwd", "hashgrid_bwd", "march_rays",
@@ -4290,12 +4323,14 @@ def options_select_rows(torch, results, smi_line):
 
 # ---- guidance snapshots, txt2img and the guidance sets (slice 10) ---------
 
-def record_towers(torch, kernels, run):
+def record_towers(torch, kernels, run, full=None):
     """Run `run()`, which builds towers on the meta device and calls them,
     with each K12 conv, K11 group norm and K10 attention recorded instead
     of run → (forward launches by route, the calls: ("conv", B, H, W, I, O,
     k, stride, dtype), ("gn", B, H, W, C, SiLU), ("attn", B, N, M, heads,
-    d))."""
+    d)); `full`, a list, gets each call with all it takes: ("conv", B, H,
+    W, I, O, k, stride, pads, dtype), ("gn", B, H, W, C, eps, SiLU, dtype),
+    ("attn", B, N, M, heads, d)."""
     from unittest import mock
 
     from dreamfusion_tpu_torch.models import if_unet, unet, vae
@@ -4314,21 +4349,28 @@ def record_towers(torch, kernels, run):
         B, H, W, I = x.shape
         O, kh, kw, _ = w.shape
         dt = out_dtype or x.dtype
+        name = "fp32" if dt == torch.float32 else "bf16"
         add(K12.conv_route(dt, I, O, st, kh * kw), (
-            "conv", B, H, W, I, O, kh, stride,
-            "fp32" if dt == torch.float32 else "bf16"))
+            "conv", B, H, W, I, O, kh, stride, name))
+        if full is not None:
+            full.append(("conv", B, H, W, I, O, kh, stride, pads, name))
         return torch.empty(B, *K12.out_size(H, W, kh, kw, st, pads), O,
                            dtype=dt, device=x.device)
 
     def group_norm(x, weight, bias, groups, eps, silu=False):
         add(K11.group_norm_route(tuple(x.shape), x.dtype, False, groups,
                                  sms).name, ("gn", *x.shape, silu))
+        if full is not None:
+            full.append(("gn", *x.shape, eps, silu,
+                         "fp32" if x.dtype == torch.float32 else "bf16"))
         return torch.empty_like(x)
 
     def attention(q, k, v):
-        add(K10.attention_route(q.shape[-1]),
-            ("attn", q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-             q.shape[3]))
+        call = ("attn", q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                q.shape[3])
+        add(K10.attention_route(q.shape[-1]), call)
+        if full is not None:
+            full.append(call)
         return torch.empty_like(q)
 
     with torch.device("meta"), mock.patch.object(unet, "conv2d", conv), \
@@ -4349,29 +4391,32 @@ def add_counts(*counts) -> dict:
 
 
 _TOWER_FWD = {}
+_TOWER_FULL = {}
 
 
 def tower_forward(torch, kernels, prior, part, batch=1):
-    """One full-width forward of SD 2.1's or zero123's `part`: "unet" (a
-    CFG call at batch 2·`batch`: zero123's over `batch` references),
-    "encode" (the VAE encoder at batch `batch`) or "decode" (one decode of
-    [1, ls, ls, 4] latents) → ``record_towers``' (routes, calls), kept."""
+    """One full-width forward of SD 2.1's ("SD"), SD 1.5's ("SD15": its
+    UNet) or zero123's `part`: "unet" (a CFG call at batch 2·`batch`:
+    zero123's over `batch` references), "encode" (the VAE encoder at batch
+    `batch`) or "decode" (one decode of [1, ls, ls, 4] latents) →
+    ``record_towers``' (routes, calls), kept; its calls with all they take
+    (``full``) in ``_TOWER_FULL``."""
     key = (prior, part, batch)
     if key not in _TOWER_FWD:
         from dreamfusion_tpu_torch.models.unet import (UNet2DCondition,
                                                        UNetConfig)
         from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-        ls = 64 if prior == "SD" else 32
+        ls = 32 if prior == "zero123" else 64
 
         def run():
             if part == "unet":
-                cfg = UNetConfig.sd21() if prior == "SD" else \
-                    UNetConfig.zero123()
+                cfg = {"SD": UNetConfig.sd21, "SD15": UNetConfig.sd15,
+                       "zero123": UNetConfig.zero123}[prior]()
                 n = 2 * batch
                 UNet2DCondition(cfg)(
                     torch.empty(n, ls, ls, cfg.in_channels),
                     torch.zeros(n, dtype=torch.long),
-                    torch.empty(n, 77 if prior == "SD" else 1,
+                    torch.empty(n, 1 if prior == "zero123" else 77,
                                 cfg.context_dim))
             elif part == "encode":
                 AutoencoderKL(VAEConfig.sd()).encode(
@@ -4380,8 +4425,38 @@ def tower_forward(torch, kernels, prior, part, batch=1):
                 AutoencoderKL(VAEConfig.sd()).decode(
                     torch.empty(1, ls, ls, 4))
 
-        _TOWER_FWD[key] = record_towers(torch, kernels, run)
+        full = _TOWER_FULL[key] = []
+        _TOWER_FWD[key] = record_towers(torch, kernels, run, full)
     return _TOWER_FWD[key]
+
+
+def grad_routes(torch, kernels, full) -> dict:
+    """K10-K12's backward launches by route of recorded calls (``full``)
+    whose weights and input all want gradients: per conv its dgrad and its
+    wgrad, per group norm its backward's ``_affine`` route, per attention
+    the head dim's backward."""
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    sms = kernels.sm_count(torch.device("cuda"))
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    out = {}
+    for call in full:
+        kind, B, *dims = call
+        if kind == "conv":
+            H, W, I, O, k, st, _, dt = dims
+            names = [K12.dgrad_route(dtype[dt], I, O, (st, st), (k, k)),
+                     K12.wgrad_route(dtype[dt])]
+        elif kind == "gn":
+            H, W, C, _, _, dt = dims
+            names = [K11.group_norm_route(
+                (B, H, W, C), dtype[dt], True, K11.groups_for(C),
+                sms).name + "_affine"]
+        else:
+            names = [K10.attention_bwd_route(dims[-1])]
+        for n in names:
+            out[n] = out.get(n, 0) + 1
+    return out
 
 
 def vae_backward_launches(torch, kernels, prior) -> dict:
@@ -4401,18 +4476,32 @@ def vae_backward_launches(torch, kernels, prior) -> dict:
 
 
 def tower_launches(torch, kernels, prior, unet=0, encode=0, encode_bwd=0,
-                   decode=0, K=1) -> dict:
+                   decode=0, K=1, unet_grad=0, encode_grad=0) -> dict:
     """K10-K12 launches by route of `unet` CFG UNet calls (zero123's over K
     references), `encode` VAE encodes (`encode_bwd` of them with their
-    backward) and `decode` decodes of SD 2.1's or zero123's full-width
-    towers: the forwards from the towers' own code (``tower_forward``)."""
+    backward to the image) and `decode` decodes of SD 2.1's, SD 1.5's or
+    zero123's full-width towers: the forwards from the towers' own code
+    (``tower_forward``); `unet_grad` and `encode_grad` of the UNet calls and
+    encodes also run the backward to every weight and the input
+    (``grad_routes`` of the same calls)."""
     fwd = lambda part, b=1: tower_forward(torch, kernels, prior, part, b)[0]
     scale = lambda d, n: {k: v * n for k, v in d.items() if v * n}
-    return add_counts(scale(fwd("unet", K), unet), scale(fwd("encode"),
-                                                         encode),
-                      scale(vae_backward_launches(torch, kernels, prior),
-                            encode_bwd),
-                      scale(fwd("decode"), decode))
+
+    def grads(part, b=1):
+        tower_forward(torch, kernels, prior, part, b)
+        return grad_routes(torch, kernels, _TOWER_FULL[(prior, part, b)])
+
+    out = [scale(fwd("unet", K), unet)] if unet else []
+    if encode:
+        out.append(scale(fwd("encode"), encode))
+    if decode:
+        out.append(scale(fwd("decode"), decode))
+    if unet_grad:
+        out.append(scale(grads("unet", K), unet_grad))
+    if encode_grad:
+        out.append(scale(grads("encode"), encode_grad))
+    return add_counts(*out, scale(vae_backward_launches(torch, kernels,
+                                                        prior), encode_bwd))
 
 
 def _call_bound(call) -> float:
@@ -5254,6 +5343,352 @@ def tooling_phases(torch, port_main, kernels, results, stage1_ws, mesh_path,
     return launches
 
 
+# ---- the towers' backward to their weights (slice 12) ----------------------
+
+# The new kernels of the towers' backward: K12's weight gradient, K11's
+# backward with the affine gradients, K10's backward at SD 1.5's head dims
+GRAD_KERNELS = ("conv_wgrad_mma", "conv_wgrad_fp32",
+                "groupnorm_bwd_resident_affine", "groupnorm_bwd_stream_affine",
+                "attention_bwd_wgmma_d40", "attention_bwd_wgmma_d80",
+                "attention_bwd_wgmma_d160")
+# tower → (tower_forward's prior, part): each runs at the SD step's shapes
+# (the UNets at CFG batch 2, SD's on 64² latents and 77 text keys, zero123's
+# at K = 1 on 32² latents with one key; the VAE encoder at 512²)
+GRAD_TOWERS = {"SD 2.1 UNet": ("SD", "unet"), "SD 1.5 UNet": ("SD15", "unet"),
+               "zero123 UNet": ("zero123", "unet"),
+               "SD VAE encoder": ("SD", "encode")}
+# the rows whose numbers fill the kernels' JSON entries: the UNet's 64²
+# level (and its fp32 conv_out), SD 1.5's first attention of each head dim
+GRAD_MAIN_CONVS = {(2, 64, 64, 320, 320, 3, 1, ((1, 1), (1, 1)), "bf16"),
+                   (2, 64, 64, 320, 4, 3, 1, ((1, 1), (1, 1)), "fp32")}
+
+
+def wgrad_rows(torch, results, convs, randn, rows_json):
+    """K12's weight gradient (by route) at each recorded conv shape
+    (``record_towers``' full calls) against the transposed shifted einsum
+    in fp32 (``conv2d_wgrad_plain``), beside cuDNN's weight gradient alone
+    (``aten.convolution_backward`` with the weight's output mask, TF32 off);
+    event and graph ms, bound: the forward's operations."""
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import kernels
+
+    for row in convs:
+        B, H, W, I, O, k, st, pads, dt = row
+        fp32 = dt == "fp32"
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        route = K12.wgrad_route(dtype)
+        where = (f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} {dt} "
+                 f"wgrad")
+        Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
+        x = randn(B, H, W, I, dtype=dtype)
+        dy = randn(B, Ho, Wo, O, dtype=dtype)
+        wshape = (O, k, k, I)
+        call = lambda: K12.conv2d_wgrad_cuda(x, dy, wshape, (st, st), pads,
+                                             dtype)
+        kernels.reset_launch_counts()
+        dw = call()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route] == 1 and
+              sum(kernels.LAUNCHES.values()) == 1, f"{where}: not on {route}")
+        plain = lambda: K12.conv2d_wgrad_plain(x, dy, wshape, (st, st), pads)
+        # bf16: one rounding of fp32 sums taken in another order
+        err = _close_to(route, dw, plain(), 1e-5 if fp32 else 2 ** -7,
+                        1e-4 if fp32 else 2 ** -8)
+        sym = pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]
+        xc = x.permute(0, 3, 1, 2)
+        xl = xc if sym else F.pad(xc, (*pads[1], *pads[0]))
+        wc = torch.empty(O, I, k, k, device="cuda", dtype=dtype)
+        dyc = dy.permute(0, 3, 1, 2)
+        pad = [pads[0][0], pads[1][0]] if sym else [0, 0]
+        lib_call = lambda: torch.ops.aten.convolution_backward(
+            dyc, xl, wc, None, [st, st], pad, [1, 1], False, [0, 0], 1,
+            [False, True, False])
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib = median_ms(lib_call, 10)
+            lib_g = graph_ms(lib_call, 5, 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        ms, k_g = median_ms(call, 10), graph_ms(call)
+        flops = 2 * B * Ho * Wo * O * k * k * I
+        n_bytes = nbytes(x, dy, dw)
+        record_kernel(results, route, err, ms, median_ms(plain, 3),
+                      "1e-5 rel + 1e-4 of max" if fp32 else
+                      "1 bf16 ulp + 2^-8 of max", n_bytes, flops,
+                      "fp32" if fp32 else "bf16", lib,
+                      where + f", graph {k_g:.4f} ms (cuDNN {lib_g:.4f})",
+                      main=row in GRAD_MAIN_CONVS)
+        rows_json.append({"kernel": route, "row": [B, H, W, I, O, k, st,
+                                                   pads, dt],
+                          "ms": ms, "graph_ms": k_g, "library_ms": lib,
+                          "library_graph_ms": lib_g,
+                          "bound_ms": bound(n_bytes, flops, "fp32" if fp32
+                                            else "bf16")[0]})
+
+
+def groupnorm_affine_rows(torch, results, gns, randn, rows_json):
+    """K11's backward with the affine gradients at each recorded norm shape
+    (bf16 x, dy and weights, the towers' dtypes): dscale and dbias against
+    autograd of the plain version in fp32, dx bit for bit the frozen
+    route's; beside ``aten.native_group_norm_backward`` with the affine
+    mask (NCHW, no SiLU)."""
+    from dreamfusion_tpu_torch.ops import groupnorm as K11
+    from dreamfusion_tpu_torch.ops import kernels
+
+    bf = torch.bfloat16
+    sms = kernels.sm_count(torch.device("cuda"))
+    for B, H, W, C, eps, silu, dt in gns:
+        check(dt == "bf16", f"a {dt} group norm in the towers")
+        G = K11.groups_for(C)
+        x = randn(B, H, W, C, scale=3.0)
+        wt = (1 + randn(C, dtype=torch.float32) * 0.1).to(bf)
+        bs = randn(C, scale=0.1)
+        dy = randn(B, H, W, C)
+        route = K11.group_norm_route((B, H, W, C), bf, True, G, sms)
+        name = route.name + "_affine"
+        where = (f" [{B},{H},{W},{C}] Cg {C // G}, slab {route.slab}, "
+                 f"cluster {route.cluster}{' + SiLU' if silu else ''} "
+                 f"backward + affine")
+        _, stats = K11.group_norm_fwd_cuda(x, wt, bs, G, eps, silu)
+        call = lambda: K11.group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu,
+                                               affine=True)
+        kernels.reset_launch_counts()
+        dx, dw, db = call()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[name] == 1 and
+              sum(kernels.LAUNCHES.values()) == 1, f"{where}: not on {name}")
+        check(torch.equal(dx, K11.group_norm_bwd_cuda(x, wt, bs, stats, dy,
+                                                      G, silu)),
+              f"{where}: dx is not the frozen route's")
+
+        def plain():
+            ins = [t.float().requires_grad_() for t in (x, wt, bs)]
+            return torch.autograd.grad(K11.group_norm_plain(
+                *ins, G, eps, silu), ins, dy.float())
+
+        want = plain()
+        err = max(_close_to(name, dw, want[1], 2 ** -7, 2 ** -8),
+                  _close_to(name, db, want[2], 2 ** -7, 2 ** -8))
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        dyc = dy.permute(0, 3, 1, 2).contiguous()
+        _, mean, rstd = torch.ops.aten.native_group_norm(
+            xc, wt, bs, B, C, H * W, G, eps)
+        lib_call = lambda: torch.ops.aten.native_group_norm_backward(
+            dyc, xc, mean, rstd, wt, B, C, H * W, G, [True, True, True])
+        lib, lib_g = median_ms(lib_call, 10), graph_ms(lib_call, 5, 3)
+        ms, k_g = median_ms(call, 10), graph_ms(call)
+        n_bytes = nbytes(x, dy, wt, bs, dx, dw, db)
+        record_kernel(results, name, err, ms, median_ms(plain, 3),
+                      "1 bf16 ulp + 2^-8 of max", n_bytes, 24 * x.numel(),
+                      "fp32", lib,
+                      where + f", graph {k_g:.4f} ms (library {lib_g:.4f})")
+        rows_json.append({"kernel": name, "row": [B, H, W, C, eps, silu],
+                          "ms": ms, "graph_ms": k_g, "library_ms": lib,
+                          "library_graph_ms": lib_g,
+                          "bound_ms": bound(n_bytes, 24 * x.numel(),
+                                            "fp32")[0]})
+
+
+def attention_bwd_rows(torch, results, attns, randn, rows_json):
+    """K10's backward at each recorded attention shape of d = 40, 80, 160
+    on JAX's branch (bf16(q·scale) on the chunked one) against the kernels'
+    arithmetic in torch (``attention_bwd_plain``), beside SDPA's backward;
+    over one key dQ and dK are 0 in exact arithmetic and are held to dV's
+    largest entry."""
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import kernels
+
+    for B, N, M, h, d in attns:
+        rq = K10.chunked_branch(B, N, M, h)
+        route = K10.attention_bwd_route(d)
+        where = (f" q [{B},{N},{h},{d}] kv [{B},{M},{h},{d}]"
+                 f"{' (chunked branch: bf16(q·scale))' if rq else ''} "
+                 f"backward")
+        q, k, v, do = (randn(B, n, h, d) for n in (N, M, M, N))
+        scale = d ** -0.5
+        o, lse = K10.attention_fwd_cuda(q, k, v, scale, rq)
+        call = lambda: K10.attention_bwd_cuda(q, k, v, o, lse, do, scale, rq)
+        kernels.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route] == 1 and
+              sum(kernels.LAUNCHES.values()) == 1, f"{where}: not on {route}")
+        plain = lambda: K10.attention_bwd_plain(q, k, v, o, do, scale, rq)
+        want = plain()
+        if M == 1:
+            ref = float(want[2].float().abs().max())
+            for a in got[:2]:
+                check(float(a.float().abs().max()) <= 2 ** -8 * ref,
+                      f"{where}: dQ or dK over one key not 0")
+            err = _close_to(route, got[2], want[2], 2 ** -7, 2 ** -8)
+        else:
+            err = max(_close_to(route, a, b, 2 ** -7, 2 ** -8)
+                      for a, b in zip(got, want))
+        qkvt = [t.transpose(1, 2).detach().requires_grad_()
+                for t in (q, k, v)]
+        ot, dot = F.scaled_dot_product_attention(*qkvt), do.transpose(1, 2)
+        lib = median_ms(lambda: torch.autograd.grad(ot, qkvt, dot,
+                                                    retain_graph=True), 10)
+        ms, k_g = median_ms(call, 10), graph_ms(call)
+        n_bytes = nbytes(q, k, v, o, lse, do, *got)
+        flops, exps = 10 * B * h * N * M * d, B * h * N * M
+        record_kernel(results, route, err, ms, median_ms(plain, 3),
+                      "1 bf16 ulp + 2^-8 of max", n_bytes, flops, "bf16",
+                      lib, where + f", graph {k_g:.4f} ms", exps=exps)
+        rows_json.append({"kernel": route, "row": [B, N, M, h, d],
+                          "ms": ms, "graph_ms": k_g, "library_ms": lib,
+                          "bound_ms": bound(n_bytes, flops, "bf16",
+                                            exps)[0]})
+
+
+def _random_tower(torch, module, g):
+    """Random weights from `g`: norm scales (the 1-D weights) 1 + N(0,
+    0.1²), every other parameter N(0, 0.02²)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=g, device="cuda")
+            norm = p.ndim == 1 and name.endswith("weight")
+            p.copy_(1 + 0.1 * r if norm else 0.02 * r)
+
+
+def tower_grad_run(torch, kernels, what, prior, part, want):
+    """One full-width tower on the card, random weights from seed 0, every
+    parameter (the VAE's: its encoder's and quant_conv's) and the input
+    wanting gradients: a forward and the backward of a seeded cotangent,
+    the counters reset just before; every such parameter's gradient and
+    the input's finite, K10-K12 launched exactly as `want`; then two more
+    iterations for the synchronised walls → {fwd_ms, bwd_ms, peak_gib}."""
+    from dreamfusion_tpu_torch.models.unet import (UNet2DCondition,
+                                                   UNetConfig)
+    from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("cuda"):
+        if part == "unet":
+            cfg = {"SD": UNetConfig.sd21, "SD15": UNetConfig.sd15,
+                   "zero123": UNetConfig.zero123}[prior]()
+            net = UNet2DCondition(cfg)
+            trained = [net]
+        else:
+            net = AutoencoderKL(VAEConfig.sd())
+            trained = [net.encoder, net.quant_conv]
+    params = [p for m in trained for p in m.parameters()]
+    for m in trained:
+        _random_tower(torch, m, g)
+        m.requires_grad_(True)
+    if part == "unet":
+        ls = 32 if prior == "zero123" else 64
+        x = torch.randn(2, ls, ls, cfg.in_channels, generator=g,
+                        device="cuda")
+        t = torch.tensor([20, 731], device="cuda")
+        ctx = torch.randn(2, 1 if prior == "zero123" else 77,
+                          cfg.context_dim, generator=g, device="cuda")
+        fwd = lambda xr: net(xr, t, ctx)
+    else:
+        x = torch.tanh(torch.randn(1, 512, 512, 3, generator=g,
+                                   device="cuda"))
+
+        def fwd(xr):
+            m = net.encode(xr)
+            return torch.cat([m.mean, m.logvar], -1)
+
+    walls = []
+    for it in range(3):
+        for p in params:
+            p.grad = None
+        xr = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        if it == 0:
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fwd(xr)
+        if it == 0:
+            ct = torch.randn(out.shape, generator=g, device="cuda")
+        loss = (out.float() * ct).sum()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        if it == 0:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launched = {k: v for k, v in kernels.LAUNCHES.items()
+                        if v and k.startswith(("conv_", "groupnorm_",
+                                               "attention_"))}
+            check(launched == want, f"{what}: launched {launched}, not the "
+                  f"towers' {want}")
+            bad = [n for m in trained for n, p in m.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad)
+                                                 .all())]
+            check(not bad, f"{what}: {len(bad)} parameters without a finite "
+                  f"gradient, e.g. {bad[:3]}")
+            check(xr.grad is not None and bool(torch.isfinite(xr.grad).all())
+                  and bool(torch.isfinite(out).all()),
+                  f"{what}: the output or the input's gradient not finite")
+    n_par = sum(p.numel() for p in params)
+    del net, trained, params
+    torch.cuda.empty_cache()
+    fwd_ms = statistics.median(w[0] for w in walls)
+    bwd_ms = statistics.median(w[1] for w in walls)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "first_bwd_ms": walls[0][1],
+            "peak_gib": peak, "params": n_par}
+
+
+def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
+    """The towers' backward to their weights at full width: K12's wgrad,
+    K11's affine gradients and K10's backward at d = 40, 80, 160 held to
+    their plain versions at every distinct shape the four towers launch
+    them at (recorded on the meta device, ``record_towers``), with event
+    and graph ms, bound and the library call's ms, logged as one JSON
+    line; then each tower's forward and backward on the card
+    (``tower_grad_run``), launches exactly as ``tower_launches`` derives
+    them → the new kernels' launches summed over the four towers."""
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(7))
+    t0 = time.time()
+    convs, gns, attns = [], [], []
+    for prior, part in GRAD_TOWERS.values():
+        tower_forward(torch, kernels, prior, part)
+        for call in _TOWER_FULL[(prior, part, 1)]:
+            kind, shape = call[0], call[1:]
+            lst = {"conv": convs, "gn": gns, "attn": attns}[kind]
+            if shape not in lst and (kind != "attn" or shape[-1] in
+                                     (40, 80, 160)):
+                lst.append(shape)
+    rows = []
+    wgrad_rows(torch, results, convs, randn, rows)
+    groupnorm_affine_rows(torch, results, gns, randn, rows)
+    attention_bwd_rows(torch, results, attns, randn, rows)
+    log(f"tower backward rows: {len(convs)} wgrad, {len(gns)} norm and "
+        f"{len(attns)} attention shapes in {time.time() - t0:.1f} s")
+    log(f"tower backward rows {json.dumps(rows)}")
+    total = {}
+    walls = {}
+    for what, (prior, part) in GRAD_TOWERS.items():
+        want = tower_launches(torch, kernels, prior,
+                              **({"unet": 1, "unet_grad": 1} if part ==
+                                 "unet" else {"encode": 1,
+                                              "encode_grad": 1}))
+        t1 = time.time()
+        run = tower_grad_run(torch, kernels, what, prior, part, want)
+        walls[what] = run
+        total = add_counts(total, {k: want.get(k, 0) for k in GRAD_KERNELS})
+        log(f"{what} backward to its {run['params'] / 1e6:.2f}M weights: "
+            f"forward {run['fwd_ms']:.2f} ms, backward {run['bwd_ms']:.2f} "
+            f"ms (median of 3, synchronised; the first "
+            f"{run['first_bwd_ms']:.2f}), peak {run['peak_gib']:.2f} GiB; "
+            f"launches {want} ({time.time() - t1:.1f} s; {smi_line})")
+    log(f"tower backward walls {json.dumps(walls)}")
+    for k in GRAD_KERNELS:
+        check(total.get(k, 0) > 0, f"{k}: no tower launched it")
+    return total
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -5469,7 +5904,14 @@ def run() -> dict:
                            os.path.join(build, "chip_smoke_ws"),
                            summary["mesh_path"], png, smi_line)
 
+    # ---- the towers' backward to their weights (slice 12) ------------------
+    t_b = time.time()
+    grad_l = tower_backward_phase(torch, kernels, results, smi_line)
+    log(f"tower backward phase in {time.time() - t_b:.1f} s")
+
     def launches_of(name):
+        if name in GRAD_KERNELS:
+            return grad_l[name]
         if name in ("attention_fwd_fp32", "conv_fwd_fp32_tiled"):
             return dpt_l[name]
         if name in ("vanilla_coarse", "vanilla_resample"):

@@ -64,18 +64,28 @@
 //    into o and lse.  Bound by the tiles' traffic out of L2 (64 query rows
 //    per 128 KB of K and V) more than by the products.
 //
-// Backward (the VAE mid-block, d = 512, N = M = 4096; any d % 64 == 0):
-// D = rowsum(dO o O) (attn_bwd_dot_kernel); a scores pass recomputes S =
-// Q K^T and dP = dO V^T for each 128 x 128 (query, key) tile in wgmma
-// accumulators (two consumer warpgroups of 64 query rows, Q, dO, K and V
-// by TMA through a 3-stage ring over d in 64-wide steps), forms P =
+// Backward (the VAE mid-block, d = 512, N = M = 4096, and the UNets' head
+// dims 64, 40, 80 and 160, each head dim its own entry point as the
+// forward's): D = rowsum(dO o O) (attn_bwd_dot_kernel); a scores pass
+// recomputes S = Q K^T and dP = dO V^T for each 128 x 128 (query, key) tile
+// in wgmma accumulators (two consumer warpgroups of 64 query rows, Q, dO, K
+// and V by TMA through a 3-stage ring over d in ceil(d / 64) steps of 64
+// columns: at d = 40, 80 and 160 the last step's columns past d are TMA's
+// zero fill, which adds nothing to S or dP), forms P =
 // exp(S - lse) and dS = P o (dP - D) in fp32 and stores both in bf16,
 // row-major [z][N][Mp] (2 x 33.5 MB at the VAE's shape), by TMA from
 // swizzled staging; one wgmma GEMM kernel then gives dV = P^T dO and dK =
 // scale * dS^T Q in one launch (A read MN-major through the descriptor's
 // transpose bit, B = dO or Q MN-major) and dQ = scale * dS K in a second
-// (A K-major), 128 x 128 tiles over a 4-stage ring.  Bound by operations
-// (86 GFLOP at the VAE's shape against ~0.2 GB of traffic); the mma.sync
+// (A K-major), 128 x 128 tiles over a 4-stage ring; their 64-column boxes
+// past d are zero-filled on load and clipped on store.  Where the forward
+// took JAX's chunked branch with a scale that is not a power of two (SD
+// 1.5's [2, 4096, 8, 40] self-attention), the logits were bf16(q * scale)
+// k^T (chunked_attention :42, whose derivative passes straight through the
+// rounding): attn_bwd_prescale_kernel first writes qs = bf16(q * scale) to
+// scratch, the scores pass recomputes S = qs K^T with scale 1, dK = dS^T qs
+// and dQ = scale * dS K.  Bound by operations (86 GFLOP at the VAE's shape
+// against ~0.2 GB of traffic; at d = 40, the exponentials); the mma.sync
 // backward it replaces (64 x 64 tiles, plain loads, 5 launches) ran 0.64
 // ms.
 
@@ -651,6 +661,23 @@ __global__ void attn_fwd_combine_kernel(const float* __restrict__ ows,
 // backward
 // ---------------------------------------------------------------------------
 
+// qs = bf16(q * scale), 8 values a thread (n % 8 == 0: d * 2 bytes is a
+// multiple of 16 at every head dim)
+__global__ void attn_bwd_prescale_kernel(const uint4* __restrict__ q,
+                                         uint4* __restrict__ qs, int64_t n8,
+                                         float scale) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  uint4 v = q[i];
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  }
+  qs[i] = v;
+}
+
 // Dv[z, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]; one warp per row.
 __global__ void attn_bwd_dot_kernel(const bf16* __restrict__ dout,
                                     const bf16* __restrict__ out,
@@ -724,7 +751,7 @@ attn_bwd_scores_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int z = blockIdx.z, b = z / H, hh = z % H;
   const int i0 = blockIdx.x * BR, j0 = blockIdx.y * BC;
-  const int nk = D / 64;
+  const int nk = (D + 63) / 64;        // the last step's columns past D: 0
 
   if (grp == 0) {
     // ---- producer: per k step, Q and dO rows i0.., K and V rows j0.. ----
@@ -1067,22 +1094,28 @@ static bool token_map(CUtensorMap* map, const void* p, int B, int tokens,
   return hop::encode_bf16_map(map, p, 4, dims, strides, box);
 }
 
-// dq, dk, dv from q, k, v, o, do and lse, d % 64 == 0 (64 and 512 on the
-// paths); all of them 16-byte aligned.  Scratch: dvec [B*H*N] fp32, p and
-// ds [B*H][N][Mp] bf16 (Mp = M rounded up to 8).  Four launches: the row
-// dots D, the scores pass, dV and dK, dQ.
-extern "C" int attention_bwd_wgmma(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, const float* lse,
-                                   void* dq, void* dk, void* dv, float* dvec,
-                                   void* p, void* ds, int B, int N, int M,
-                                   int H, int D, float scale,
-                                   cudaStream_t stream) {
-  if (D % 64 || N < 1 || M < 1 || B * H < 1) return (int)cudaErrorInvalidValue;
+// dq, dk, dv from q, k, v, o, do and lse at head dim D (D * 2 bytes a
+// multiple of 16); all of them 16-byte aligned.  Scratch: dvec [B*H*N]
+// fp32, p and ds [B*H][N][Mp] bf16 (Mp = M rounded up to 8), and with
+// prescale qs like q.  Four launches (five with prescale): the row dots D,
+// the scores pass, dV and dK, dQ.
+static int attn_bwd_launch(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse,
+                           void* dq, void* dk, void* dv, float* dvec, void* p,
+                           void* ds, void* qs, int B, int N, int M, int H,
+                           int D, int prescale, float scale,
+                           cudaStream_t stream) {
+  if (D % 8 || D < 8 || N < 1 || M < 1 || B * H < 1 ||
+      (prescale && qs == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int Mp = (M + 7) / 8 * 8, Z = B * H;
+  // with prescale the logits are bf16(q * scale) k^T: qs takes q's place in
+  // S and in dK, and only dQ keeps the scale
+  const void* qq_ptr = prescale ? qs : q;
+  const float s_scale = prescale ? 1.f : scale;
   // scores pass: Q, dO, K, V in 128-row boxes; P and dS [z][N][Mp]
   CUtensorMap qm, om, km, vm, pm, sm;
-  bool ok = token_map(&qm, q, B, N, H, D, 128) &&
+  bool ok = token_map(&qm, qq_ptr, B, N, H, D, 128) &&
             token_map(&om, dout, B, N, H, D, 128) &&
             token_map(&km, k, B, M, H, D, 128) &&
             token_map(&vm, v, B, M, H, D, 128);
@@ -1099,7 +1132,7 @@ extern "C" int attention_bwd_wgmma(const void* q, const void* k,
   kv.a[1] = sm;
   qq.a[0] = qq.a[1] = sm;
   ok = ok && token_map(&kv.b[0], dout, B, N, H, D, 64) &&
-       token_map(&kv.b[1], q, B, N, H, D, 64) &&
+       token_map(&kv.b[1], qq_ptr, B, N, H, D, 64) &&
        token_map(&kv.o[0], dv, B, M, H, D, 64) &&
        token_map(&kv.o[1], dk, B, M, H, D, 64) &&
        token_map(&qq.b[0], k, B, M, H, D, 64) &&
@@ -1117,22 +1150,57 @@ extern "C" int attention_bwd_wgmma(const void* q, const void* k,
     err = hop::allow_smem(attn_bwd_gemm_kernel<false>, (int)bg::kSmem, set_q);
   if (err != cudaSuccess) return (int)err;
 
+  if (prescale) {
+    const int64_t n8 = (int64_t)B * N * H * D / 8;
+    attn_bwd_prescale_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0,
+                               stream>>>(static_cast<const uint4*>(q),
+                                         static_cast<uint4*>(qs), n8, scale);
+  }
   const int64_t rows = (int64_t)Z * N;
   attn_bwd_dot_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const bf16*>(dout), static_cast<const bf16*>(o), dvec, B,
       N, H, D);
   dim3 sgrid((N + bs::BR - 1) / bs::BR, (M + bs::BC - 1) / bs::BC, Z);
   attn_bwd_scores_kernel<<<sgrid, bs::kThreads, bs::kSmem, stream>>>(
-      qm, om, km, vm, pm, sm, lse, dvec, N, M, H, D, scale);
+      qm, om, km, vm, pm, sm, lse, dvec, N, M, H, D, s_scale);
   const int nt = (D + bg::BN - 1) / bg::BN;
   dim3 gkv((M + bg::BM - 1) / bg::BM, nt, 2 * Z);
   attn_bwd_gemm_kernel<true><<<gkv, bg::kThreads, bg::kSmem, stream>>>(
-      kv, M, N, H, D, Z, 1.f, scale);
+      kv, M, N, H, D, Z, 1.f, s_scale);
   dim3 gq((N + bg::BM - 1) / bg::BM, nt, Z);
   attn_bwd_gemm_kernel<false><<<gq, bg::kThreads, bg::kSmem, stream>>>(
       qq, N, M, H, D, Z, scale, scale);
   return (int)cudaGetLastError();
 }
+
+// The backward at d % 64 == 0 (64 and 512 on the paths).
+extern "C" int attention_bwd_wgmma(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   void* dq, void* dk, void* dv, float* dvec,
+                                   void* p, void* ds, void* qs, int B, int N,
+                                   int M, int H, int D, int prescale,
+                                   float scale, cudaStream_t stream) {
+  if (D % 64) return (int)cudaErrorInvalidValue;
+  return attn_bwd_launch(q, k, v, o, dout, lse, dq, dk, dv, dvec, p, ds, qs,
+                         B, N, M, H, D, prescale, scale, stream);
+}
+
+// One entry point (and launch counter) per head dim of SD 1.x's UNet, as
+// the forward's: the same kernels, the k steps over d ceil(D / 64).
+#define ATTN_BWD_WGMMA(name, D)                                               \
+  extern "C" int name(const void* q, const void* k, const void* v,            \
+                      const void* o, const void* dout, const float* lse,      \
+                      void* dq, void* dk, void* dv, float* dvec, void* p,     \
+                      void* ds, void* qs, int B, int N, int M, int H,         \
+                      int prescale, float scale, cudaStream_t stream) {       \
+    return attn_bwd_launch(q, k, v, o, dout, lse, dq, dk, dv, dvec, p, ds,   \
+                           qs, B, N, M, H, D, prescale, scale, stream);       \
+  }
+ATTN_BWD_WGMMA(attention_bwd_wgmma_d40, 40)
+ATTN_BWD_WGMMA(attention_bwd_wgmma_d80, 80)
+ATTN_BWD_WGMMA(attention_bwd_wgmma_d160, 160)
+#undef ATTN_BWD_WGMMA
 
 // ---------------------------------------------------------------------------
 // fp32 forward (DPT's ViT-B blocks: [1, 577, 12, 64] fp32, JAX's dense

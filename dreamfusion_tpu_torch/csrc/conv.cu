@@ -1,4 +1,5 @@
-// K12: NHWC 2-D convolution, forward and input gradient (dgrad).
+// K12: NHWC 2-D convolution, forward, input gradient (dgrad) and weight
+// gradient (wgrad).
 //
 // Replaces dreamfusion_tpu/ops/conv.py::mm_conv (:58; shifted einsums on the
 // TPU with a custom_vjp that transposes each einsum, :95), as MMConv calls
@@ -138,6 +139,27 @@
 //    FMAs, a thread per 4 channels x 8 pixels.
 //  - conv_dgrad: mma.sync as above over the classes (grid z), the weight
 //    transposed to [I, kh, kw, O] per call; fp32 one thread per value.
+//
+// wgrad (f_bwd's dk, :112-114: the transpose of the shifted einsums in the
+// kernel).  dW[o, r, s, c] = sum_{b, oh, ow} dy[b, oh, ow, o] *
+// x[b, oh*sh - pt + r, ow*sw - pl + s, c]: one GEMM per tap, [O x P] x
+// [P x I] with P = B*Ho*Wo pixels, all taps in one N = kh*kw*I.  Its
+// reduction is the pixels (8,192 at the UNet's 64² level at CFG batch 2,
+// 262,144 at the VAE's 512²) and its output small (128 x 1,152 at the
+// VAE's level 0: 9 tiles of 128 x 128), so split-K over the pixels is the
+// design: each split writes its fp32 partial dW to a workspace and
+// conv_wgrad_reduce sums them in split order (deterministic, no atomics)
+// into dW's dtype; a launch of one split writes dW directly.  The splits (ops/conv.py::wgrad_splits) aim at two
+// blocks an SM, at least 16 steps of 32 pixels each.  Bound by operations
+// at the path's shapes (the forward's FLOPs: 77 GFLOP at the VAE's 512²
+// level).  Two routes (ops/conv.py::wgrad_route):
+//  - conv_wgrad_mma (bf16): mma.sync m16n8k16 on 128 x 128 tiles of dW,
+//    dy and the tap-shifted x by 16-byte cp.async into [32 pixels][128]
+//    tiles (two stages), both read by ldmatrix.trans; the padding is the
+//    copies' zero fill; the conv_ins' 3-, 4- and 8-channel x by element
+//    loads where I % 8 != 0.  A first, simple kernel: no wgmma yet.
+//  - conv_wgrad_fp32 (fp32, the conv_outs' O = 4 and 8): CUDA cores, a
+//    thread per dW column for 8 output channels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1315,6 +1337,284 @@ int launch_fp32_tiled_bn(const ConvParams& p, cudaStream_t stream) {
                       : launch_fp32_tiled<BN, false>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// weight gradient (wgrad, see the note above): a GEMM per tap, split over
+// the pixels, partials summed in split order
+// ---------------------------------------------------------------------------
+
+struct WgradParams {
+  const void* x;      // [B, H, W, I]
+  const void* dy;     // [B, Ho, Wo, O]
+  float* ws;          // [splits][O][kh*kw*I] partial sums (splits > 1)
+  void* dw;           // [O][kh*kw*I], fp32 (out_f32) or bf16
+  int B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl;
+  int splits, out_f32;
+};
+
+// dW[i] = v when there is one split, else split `split`'s partial
+__device__ __forceinline__ void wgrad_store(const WgradParams& p, int split,
+                                            int64_t i, float v) {
+  if (p.splits > 1)
+    p.ws[(int64_t)split * p.O * p.kh * p.kw * p.I + i] = v;
+  else if (p.out_f32)
+    static_cast<float*>(p.dw)[i] = v;
+  else
+    static_cast<bf16*>(p.dw)[i] = __float2bfloat16(v);
+}
+
+namespace wgr {
+constexpr int BM = 128, BN = 128, BK = 32, LDS = BM + 8, kThreads = 256;
+constexpr int FP_N = 128, FP_O = 8, FP_PIX = 32;   // the fp32 route's block
+}  // namespace wgr
+
+// The bf16 route.  A block owns 128 output channels (M) x 128 columns
+// (tap, input channel) of dW (N) and walks its split's pixels (K) 32 at a
+// time through a two-stage ring: A = dy's [32 pixels][128 channels], B =
+// x's [32 pixels][128 columns] at each column's tap offset (zero outside
+// the image: the padding, the VAE's (0, 1) included), both stored with the
+// M or N index contiguous, so ldmatrix.trans gives both fragments.  8
+// warps of 64 x 32, mma.sync m16n8k16 with fp32 accumulation; the split's
+// partial sums go to ws (one split: dW itself).  VA: O % 8 == 0 (dy by 16-byte cp.async);
+// VB: I % 8 == 0 (8 columns of x are one tap's 16 bytes).  Otherwise
+// element loads (the conv_ins' 3 and 4 channels).
+template <bool VA, bool VB>
+__global__ void __launch_bounds__(wgr::kThreads)
+conv_wgrad_mma_kernel(WgradParams p) {
+  // the forward's mma.sync tile constants share these names
+  constexpr int BM = wgr::BM, BN = wgr::BN, BK = wgr::BK, LDS = wgr::LDS;
+  __shared__ __align__(16) bf16 sA[2][BK * LDS];
+  __shared__ __align__(16) bf16 sB[2][BK * LDS];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int m_base = blockIdx.x * BM, n_base = blockIdx.y * BN;
+  const int split = blockIdx.z;
+  const int64_t P = (int64_t)p.B * p.Ho * p.Wo;
+  const int Kn = p.kh * p.kw * p.I;
+  const int64_t steps = (P + BK - 1) / BK;
+  const int64_t s0 = steps * split / p.splits;
+  const int64_t KT = steps * (split + 1) / p.splits - s0;
+  const bf16* __restrict__ X = static_cast<const bf16*>(p.x);
+  const bf16* __restrict__ DY = static_cast<const bf16*>(p.dy);
+  const bf16 zero = __float2bfloat16(0.f);
+
+  // this thread's 8 columns of A and of B, pixel rows tid / 16 (+ 16)
+  const int col = (tid % 16) * 8;
+  int er[8], es[8], ec[8];              // (tap row, tap column, channel)
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int n = n_base + col + (VB ? 0 : e);
+    const int tap = n / p.I;
+    er[e] = n < Kn ? tap / p.kw : -(1 << 29);   // past N: every read misses
+    es[e] = tap - (tap / p.kw) * p.kw;
+    ec[e] = n - tap * p.I;
+  }
+
+  auto load_stage = [&](int stage, int64_t kt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = tid / 16 + 16 * i;
+      const int64_t pix = kt * BK + row;
+      const bool in = pix < P;
+      int b = 0, oy = 0, ox = 0;
+      if (in) {
+        ox = (int)(pix % p.Wo);
+        const int64_t t = pix / p.Wo;
+        oy = (int)(t % p.Ho);
+        b = (int)(t / p.Ho);
+      }
+      bf16* da = &sA[stage][row * LDS + col];
+      if (VA) {
+        const bool ok = in && m_base + col < p.O;
+        dft::cp_async16(da, ok ? DY + pix * p.O + m_base + col : DY, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int o = m_base + col + e;
+          da[e] = in && o < p.O ? DY[pix * p.O + o] : zero;
+        }
+      }
+      bf16* db = &sB[stage][row * LDS + col];
+      const int y0 = oy * p.sh - p.pt, x0 = ox * p.sw - p.pl;
+      const int64_t img = (int64_t)b * p.H;
+      if (VB) {
+        const int iy = y0 + er[0], ix = x0 + es[0];
+        const bool ok = in && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
+        dft::cp_async16(db, ok ? X + ((img + iy) * p.W + ix) * p.I + ec[0]
+                               : X, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int iy = y0 + er[e], ix = x0 + es[e];
+          const bool ok = in && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
+          db[e] = ok ? X[((img + iy) * p.W + ix) * p.I + ec[e]] : zero;
+        }
+      }
+    }
+  };
+
+  const int wm = warp / 4, wn = warp % 4;   // 2 x 4 warps, 64 x 32 each
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if (KT > 0) load_stage(0, s0);
+  dft::cp_async_commit();
+  for (int64_t kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) load_stage((kt + 1) & 1, s0 + kt + 1);
+    dft::cp_async_commit();
+    dft::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* tA = sA[kt & 1];
+    const bf16* tB = sB[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        dft::load_a_frag_km(af[mi], tA + ks * 16 * LDS + wm * 64 + mi * 16,
+                            LDS, lane);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        dft::load_b_frag_kn(bfr[nj], tB + ks * 16 * LDS + wn * 32 + nj * 16,
+                            LDS, lane);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          dft::mma_bf16(acc[mi][ni], af[mi], &bfr[ni / 2][(ni % 2) * 2]);
+    }
+    __syncthreads();
+  }
+
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m_base + wm * 64 + mi * 16 + g + 8 * h;
+      if (m >= p.O) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n_base + wn * 32 + ni * 8 + 2 * q + e;
+          if (n < Kn)
+            wgrad_store(p, split, (int64_t)m * Kn + n, acc[mi][ni][2 * h + e]);
+        }
+    }
+}
+
+// The fp32 route (the conv_outs: O <= 8 over 320-512 input channels, so
+// dW is a few thousand columns deep and a GEMM tile would waste its M).
+// CUDA cores: a block of 128 threads owns 128 columns (tap, channel) of dW,
+// one a thread, for FP_O output channels, over its split's pixels, 32 at a
+// time: their dy values and grid positions staged in shared memory, then
+// each thread reads x at its column's tap offset (neighbouring threads on
+// neighbouring channels) for FP_O FMAs a read.
+__global__ void __launch_bounds__(wgr::FP_N) conv_wgrad_fp32_kernel(
+    WgradParams p) {
+  using wgr::FP_N;
+  using wgr::FP_O;
+  using wgr::FP_PIX;
+  __shared__ float sdy[FP_PIX][FP_O];
+  __shared__ int sb[FP_PIX], sy[FP_PIX], sx[FP_PIX];
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x * FP_N + tid, o0 = blockIdx.y * FP_O;
+  const int split = blockIdx.z;
+  const int Kn = p.kh * p.kw * p.I;
+  const int64_t P = (int64_t)p.B * p.Ho * p.Wo;
+  const int64_t pix0 = P * split / p.splits;
+  const int64_t pix1 = P * (split + 1) / p.splits;
+  const float* __restrict__ X = static_cast<const float*>(p.x);
+  const float* __restrict__ DY = static_cast<const float*>(p.dy);
+  const int tap = n / p.I, ch = n - tap * p.I;
+  const int r = tap / p.kw, s = tap - (tap / p.kw) * p.kw;
+  float acc[FP_O];
+#pragma unroll
+  for (int o = 0; o < FP_O; ++o) acc[o] = 0.f;
+  for (int64_t base = pix0; base < pix1; base += FP_PIX) {
+    __syncthreads();                    // the previous chunk is consumed
+    for (int i = tid; i < FP_PIX * FP_O; i += FP_N) {
+      const int row = i / FP_O, o = i % FP_O;
+      const int64_t pix = base + row;
+      sdy[row][o] = pix < pix1 && o0 + o < p.O ? DY[pix * p.O + o0 + o] : 0.f;
+    }
+    if (tid < FP_PIX) {
+      const int64_t pix = base + tid;
+      const int64_t t = pix / p.Wo;
+      sb[tid] = pix < pix1 ? (int)(t / p.Ho) : -1;
+      sy[tid] = (int)(t % p.Ho) * p.sh - p.pt;
+      sx[tid] = (int)(pix % p.Wo) * p.sw - p.pl;
+    }
+    __syncthreads();
+    if (n >= Kn) continue;
+    for (int row = 0; row < FP_PIX; ++row) {
+      const int b = sb[row];
+      if (b < 0) break;
+      const int iy = sy[row] + r, ix = sx[row] + s;
+      if (iy < 0 || iy >= p.H || ix < 0 || ix >= p.W) continue;
+      const float xv = __ldg(X + (((int64_t)b * p.H + iy) * p.W + ix) * p.I +
+                             ch);
+#pragma unroll
+      for (int o = 0; o < FP_O; ++o) acc[o] = fmaf(sdy[row][o], xv, acc[o]);
+    }
+  }
+  if (n >= Kn) return;
+#pragma unroll
+  for (int o = 0; o < FP_O; ++o)
+    if (o0 + o < p.O) wgrad_store(p, split, (int64_t)(o0 + o) * Kn + n,
+                                  acc[o]);
+}
+
+// dW = sum over splits of the partials, in split order, in dW's dtype
+__global__ void conv_wgrad_reduce(const float* __restrict__ ws, void* dw,
+                                  int64_t total, int splits, int out_f32) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += ws[s * total + idx];
+  if (out_f32)
+    static_cast<float*>(dw)[idx] = v;
+  else
+    static_cast<bf16*>(dw)[idx] = __float2bfloat16(v);
+}
+
+int launch_wgrad(const WgradParams& p, bool bf16_in, cudaStream_t stream) {
+  using wgr::BM;
+  using wgr::BN;
+  using wgr::FP_N;
+  using wgr::FP_O;
+  constexpr int kThreads = wgr::kThreads;
+  const int64_t total = (int64_t)p.O * p.kh * p.kw * p.I;
+  if (p.splits < 1 || (p.splits > 1 && p.ws == nullptr) || p.sh < 1 ||
+      p.sw < 1)
+    return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaGetLastError();
+  const int Kn = p.kh * p.kw * p.I;
+  if (bf16_in) {
+    dim3 grid((p.O + BM - 1) / BM, (Kn + BN - 1) / BN, p.splits);
+    const bool va = p.O % 8 == 0, vb = p.I % 8 == 0;
+    if (va && vb)
+      conv_wgrad_mma_kernel<true, true><<<grid, kThreads, 0, stream>>>(p);
+    else if (va)
+      conv_wgrad_mma_kernel<true, false><<<grid, kThreads, 0, stream>>>(p);
+    else if (vb)
+      conv_wgrad_mma_kernel<false, true><<<grid, kThreads, 0, stream>>>(p);
+    else
+      conv_wgrad_mma_kernel<false, false><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    dim3 grid((Kn + FP_N - 1) / FP_N, (p.O + FP_O - 1) / FP_O, p.splits);
+    conv_wgrad_fp32_kernel<<<grid, FP_N, 0, stream>>>(p);
+  }
+  if (p.splits > 1)
+    conv_wgrad_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        p.ws, p.dw, total, p.splits, p.out_f32);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // y[B,Ho,Wo,O] = conv(x[B,H,W,I], w[O,kh,kw,I]) + bias; top/left padding
@@ -1584,4 +1884,31 @@ extern "C" int conv_dgrad_fp32(const void* dy, const void* w, void* dx, int B,
     conv_dgrad_fp32_kernel<false, false><<<blocks, 256, 0, stream>>>(
         d, wt, x, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl);
   return (int)cudaGetLastError();
+}
+
+// The weight gradient dW[O,kh,kw,I] (out_f32: fp32, else bf16) of a conv of
+// x[B,H,W,I] with output gradient dy[B,Ho,Wo,O] at strides sh, sw and
+// top/left padding pt, pl: bf16 x and dy on the tensor cores (16-byte
+// aligned where I % 8 == 0, O % 8 == 0).  With splits > 1, ws fp32
+// [splits * O*kh*kw*I]: each split's partial sums over its share of the
+// B*Ho*Wo pixels, summed in split order into dW.
+extern "C" int conv_wgrad_mma(const void* x, const void* dy, void* dw,
+                              float* ws, int B, int H, int W, int I, int Ho,
+                              int Wo, int O, int kh, int kw, int sh, int sw,
+                              int pt, int pl, int out_f32, int splits,
+                              cudaStream_t stream) {
+  const WgradParams p{x, dy, ws, dw, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                      pt, pl, splits, out_f32};
+  return launch_wgrad(p, true, stream);
+}
+
+// The same for fp32 x and dy on the CUDA cores (any I and O).
+extern "C" int conv_wgrad_fp32(const void* x, const void* dy, void* dw,
+                               float* ws, int B, int H, int W, int I, int Ho,
+                               int Wo, int O, int kh, int kw, int sh, int sw,
+                               int pt, int pl, int out_f32, int splits,
+                               cudaStream_t stream) {
+  const WgradParams p{x, dy, ws, dw, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                      pt, pl, splits, out_f32};
+  return launch_wgrad(p, false, stream);
 }

@@ -5,11 +5,14 @@
 // custom_vjp f_fwd :133 and f_bwd :143, dx :153) and GroupNorm32 (:177,
 // flax nn.GroupNorm in fp32, then cast back), as the SD towers call it.
 // x is channel-last [B, HW, C] (bf16 or fp32), the C/G channels of a group
-// contiguous; weight and bias [C] fp32 or bf16 (frozen: no gradient):
+// contiguous; weight and bias [C] fp32 or bf16:
 //
 //   y  = silu?((x - mean) * rstd * w + b)          rstd = 1/sqrt(var + eps)
 //   dx = rstd * (dxh - mean_g(dxh) - xh * mean_g(dxh * xh)),
-//        dxh = dy * silu'(u) * w,  xh = (x - mean) * rstd,  u = xh * w + b
+//        dxh = dy' * w,  dy' = dy * silu'(u),  xh = (x - mean) * rstd,
+//        u = xh * w + b
+//   dw = sum over batch and pixels of dy' * xh,  db = the same of dy'
+//        (f_bwd's dscale, dbias :148-149; the _affine entry points)
 //
 // Bound on the card: memory (x read, y written forward; x and dy read, dx
 // written backward; a few operations per element).  The design keeps each
@@ -40,6 +43,13 @@
 //    walks the CTA's range backwards, so that the rows pass 1 read last
 //    (still in the 50 MB L2) are read again first.  Forward 3 transfers,
 //    backward 5 at most.
+//  Affine gradients (groupnorm_bwd_{resident,stream}_affine, where the
+//  weights want gradients): beside its group sums, each thread keeps per
+//  channel the sums of dy' and dy' * xh over its pixels; after the block's
+//  group reduction they take the same shuffles and row-block order to one
+//  partial per (CTA, channel), written to a workspace [batch x CTAs][C][2];
+//  gn_affine_finish, in the same launch, sums each channel's partials in
+//  row order (deterministic: no float atomics) into the weights' dtype.
 //  ops/groupnorm.py::group_norm_route picks between them by shape.  On the
 //  H100 the streaming route won above a few MB (15 MiB forward, 4 MiB
 //  backward; bench_sd_kernels.py --only gn_routes): a resident CTA cannot
@@ -176,6 +186,7 @@ struct GnParams {
   float* stats;        // [B*G][2] mean, rstd (forward writes, backward reads)
   float* part;         // streaming: [B][R][G][3] the CTAs' partials
   float* fin;          // streaming backward: [B*G][2] mean(dxh), mean(dxh xh)
+  float* apart;        // affine backward: [B * ctas][C][2] sums of dy', dy' xh
   int HW, C, G, Cg;
   int W;               // channels of a CTA's rows: the slab, or C (streaming)
   int V, Vp;           // 16-byte vectors of those channels; V rounded to 2^k
@@ -198,12 +209,12 @@ __host__ __device__ __forceinline__ int scratch_floats(int threads, int W,
 }
 
 // The block's per-thread, per-channel statistics (forward: count n, Welford
-// mean a and M2 b; backward: sums a and b) → per-group statistics of the
-// block in gstat [W / Cg][K] (forward: n, mean, M2; backward: the sums).
-// red [row blocks][W][K] and chan [W][K] are scratch.
+// mean a and M2 b; backward: sums a and b) → per channel of the block in
+// chan [W][K] (forward: n, mean, M2; backward: the sums), over the threads
+// of a slot in a fixed order.  red [row blocks][W][K] is scratch.
 template <bool kBwd, int E>
-__device__ void block_reduce(const GnParams& p, float n, float* a, float* b,
-                             float* red, float* chan, float* gstat) {
+__device__ void reduce_channels(const GnParams& p, float n, float* a,
+                                float* b, float* red, float* chan) {
   constexpr int K = kBwd ? 2 : 3;
   const int t = threadIdx.x, T = blockDim.x, lane = t & 31, warp = t >> 5;
   const int Vp = p.Vp, v = t & (Vp - 1), W = p.W;
@@ -264,6 +275,17 @@ __device__ void block_reduce(const GnParams& p, float n, float* a, float* b,
     if (!kBwd) chan[c * K + 2] = s2;
   }
   __syncthreads();
+}
+
+// The same → per-group statistics of the block in gstat [W / Cg][K]
+// (forward: n, mean, M2; backward: the sums); red and chan are scratch.
+template <bool kBwd, int E>
+__device__ void block_reduce(const GnParams& p, float n, float* a, float* b,
+                             float* red, float* chan, float* gstat) {
+  constexpr int K = kBwd ? 2 : 3;
+  const int t = threadIdx.x, T = blockDim.x, lane = t & 31, warp = t >> 5;
+  const int W = p.W;
+  reduce_channels<kBwd, E>(p, n, a, b, red, chan);
   // per group, a warp each: lanes over the group's channels, then a tree
   const int Gs = W / p.Cg, nwarps = T >> 5;
   for (int gi = warp; gi < Gs; gi += nwarps) {
@@ -298,6 +320,17 @@ __device__ void block_reduce(const GnParams& p, float n, float* a, float* b,
   __syncthreads();
 }
 
+// The affine sums of a thread's slot (sums of dy' and dy' xh per channel)
+// → this CTA's partial per channel, row `row` of p.apart, channels c0 ..
+// c0 + W - 1; red and chan are scratch (free after block_reduce).
+template <int E>
+__device__ void affine_partials(const GnParams& p, float* ga, float* gb,
+                                float* red, float* chan, size_t row, int c0) {
+  reduce_channels<true, E>(p, 0.f, ga, gb, red, chan);
+  float* out = p.apart + (row * p.C + c0) * 2;
+  for (int c = threadIdx.x; c < p.W * 2; c += blockDim.x) out[c] = chan[c];
+}
+
 // Per-channel constants of a thread's slot (channels c0 + v*E .. + E - 1 of
 // the tensor; group statistics of the block's groups in fin [Gs][2] and
 // the forward's [B*G][2] from gmean/grstd at group index g0 + gi).
@@ -307,12 +340,15 @@ struct Slot {
   float a[E], c[E];      // forward: y = x a + c (a = rstd w, c = b - mean a)
 };
 
-// Accumulate one 16-byte vector of x (and dy) into a thread's statistics.
-template <typename T, bool kBwd>
+// Accumulate one 16-byte vector of x (and dy) into a thread's statistics
+// (kAffine: and the sums of dy' and dy' xh into ga and gb).
+template <typename T, bool kBwd, bool kAffine = false>
 __device__ __forceinline__ void accumulate(const GnParams& p,
                                            const Slot<Vec16<T>::N>& s,
                                            const uint4& xv, const uint4& dv,
-                                           float& n, float* a, float* b) {
+                                           float& n, float* a, float* b,
+                                           float* ga = nullptr,
+                                           float* gb = nullptr) {
   constexpr int E = Vec16<T>::N;
   float x[E];
   Vec16<T>::unpack(xv, x);
@@ -339,6 +375,10 @@ __device__ __forceinline__ void accumulate(const GnParams& p,
       const float dxh = g * s.w[e];
       a[e] += dxh;
       b[e] = fmaf(dxh, xh, b[e]);
+      if (kAffine) {
+        ga[e] += g;
+        gb[e] = fmaf(g, xh, gb[e]);
+      }
     }
   }
 }
@@ -417,7 +457,7 @@ __device__ __forceinline__ void finish_slot(const GnParams& p, int v,
 // Cluster (slab, batch = blockIdx.y); rank r of p.ctas holds pixels
 // [HW r / n, HW (r + 1) / n) of the slab's W channels.  Shared memory: the
 // slab's vectors [P][V] of x (and dy), then the scratch.
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kAffine = false>
 __global__ void __launch_bounds__(kMaxThreads)
 gn_resident_kernel(const GnParams p) {
   constexpr int E = Vec16<T>::N, K = kBwd ? 2 : 3;
@@ -456,9 +496,9 @@ gn_resident_kernel(const GnParams p) {
 
   Slot<E> s;
   if (v < V) load_slot<T, kBwd>(p, bidx, c0, v, s);
-  float cnt = 0.f, a[E], b[E];
+  float cnt = 0.f, a[E], b[E], ga[E], gb[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) a[e] = b[e] = 0.f;
+  for (int e = 0; e < E; ++e) a[e] = b[e] = ga[e] = gb[e] = 0.f;
   const int RP = T_ / Vp;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -472,11 +512,14 @@ gn_resident_kernel(const GnParams p) {
 #pragma unroll 4
       for (int r = P * k / 4 + t / Vp; r < r1; r += RP) {
         const int i = r * V + v;
-        accumulate<T, kBwd>(p, s, sx[i], kBwd ? sdy[i] : sx[i], cnt, a, b);
+        accumulate<T, kBwd, kAffine>(p, s, sx[i], kBwd ? sdy[i] : sx[i],
+                                     cnt, a, b, ga, gb);
       }
     }
   }
   block_reduce<kBwd, E>(p, cnt, a, b, red, chan, gstat);
+  if (kAffine)
+    affine_partials<E>(p, ga, gb, red, chan, (size_t)bidx * n + rank, c0);
 
   // ---- merge the cluster's partials (every CTA, ranks in order) ----
   cl.sync();
@@ -532,7 +575,7 @@ constexpr int kUnroll = kBwd ? 4 : 8;
 // CTA (r, batch = blockIdx.y) of p.ctas per batch: pixels [HW r / R,
 // HW (r + 1) / R), all C channels.  One cooperative launch.  (Two CTAs an
 // SM, at 64 registers a thread, spilled and ran slower.)
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kAffine = false>
 __global__ void __launch_bounds__(kMaxThreads)
 gn_stream_kernel(const GnParams p) {
   constexpr int E = Vec16<T>::N, K = kBwd ? 2 : 3, U = kUnroll<kBwd>;
@@ -556,9 +599,9 @@ gn_stream_kernel(const GnParams p) {
 
   Slot<E> s;
   if (kBwd && on) load_slot<T, kBwd>(p, bidx, 0, v, s);
-  float cnt = 0.f, a[E], b[E];
+  float cnt = 0.f, a[E], b[E], ga[E], gb[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) a[e] = b[e] = 0.f;
+  for (int e = 0; e < E; ++e) a[e] = b[e] = ga[e] = gb[e] = 0.f;
   const int r0 = t / Vp, step = RP * U;
   // ---- pass 1: statistics, rows ascending ----
   for (int rb = r0; rb < P; rb += step) {
@@ -575,10 +618,13 @@ gn_stream_kernel(const GnParams p) {
     for (int u = 0; u < U; ++u) {
       const int row = rb + u * RP;
       if (on && row < P)
-        accumulate<T, kBwd>(p, s, xb[u], kBwd ? db[u] : xb[u], cnt, a, b);
+        accumulate<T, kBwd, kAffine>(p, s, xb[u], kBwd ? db[u] : xb[u], cnt,
+                                     a, b, ga, gb);
     }
   }
   block_reduce<kBwd, E>(p, cnt, a, b, red, chan, gstat);
+  if (kAffine)
+    affine_partials<E>(p, ga, gb, red, chan, (size_t)bidx * R + r, 0);
   float* part = p.part + ((size_t)bidx * R + r) * p.G * 3;
   for (int i = t; i < p.G; i += T_)
 #pragma unroll
@@ -673,6 +719,27 @@ gn_stream_kernel(const GnParams p) {
   }
 }
 
+// dscale and dbias per channel: the affine partials' `rows` summed in row
+// order, in the weights' dtype (w_bf16)
+__global__ void gn_affine_finish(const float* __restrict__ apart, int rows,
+                                 int C, void* dw, void* db, int w_bf16) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float sb = 0.f, sw = 0.f;
+  for (int r = 0; r < rows; ++r) {
+    const float* a = apart + ((size_t)r * C + c) * 2;
+    sb += a[0];
+    sw += a[1];
+  }
+  if (w_bf16) {
+    static_cast<bf16*>(dw)[c] = __float2bfloat16(sw);
+    static_cast<bf16*>(db)[c] = __float2bfloat16(sb);
+  } else {
+    static_cast<float*>(dw)[c] = sw;
+    static_cast<float*>(db)[c] = sb;
+  }
+}
+
 // ---- host ---------------------------------------------------------------------
 
 int vectors(int W, int elt) { return W * elt / 16; }
@@ -728,7 +795,7 @@ struct ClusterOk {
 };
 constexpr int kOkSlots = 64;
 
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kAffine>
 int launch_resident(GnParams p, int B, int threads, cudaStream_t stream) {
   const int n = p.ctas;
   if (n < 1 || n > 16 || p.HW < n) return (int)cudaErrorInvalidValue;
@@ -737,7 +804,7 @@ int launch_resident(GnParams p, int B, int threads, cudaStream_t stream) {
       (size_t)Pmax * p.V * 16 * (kBwd ? 2 : 1) +
       (size_t)scratch_floats(threads, p.W, p.Cg, p.Vp, kBwd) * 4;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = gn_resident_kernel<T, kBwd>;
+  auto kernel = gn_resident_kernel<T, kBwd, kAffine>;
   static bool done[kMaxDevices] = {};
   cudaError_t err = prepare(kernel, true, done);
   if (err != cudaSuccess) return (int)err;
@@ -774,14 +841,14 @@ int launch_resident(GnParams p, int B, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kAffine>
 int launch_stream(GnParams p, int B, int threads, cudaStream_t stream) {
   if (p.ctas < 1 || p.part == nullptr || (kBwd && p.fin == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)scratch_floats(threads, p.W, p.Cg, p.Vp, kBwd) * 4;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = gn_stream_kernel<T, kBwd>;
+  auto kernel = gn_stream_kernel<T, kBwd, kAffine>;
   static bool done[kMaxDevices] = {};
   cudaError_t err = prepare(kernel, false, done);
   if (err != cudaSuccess) return (int)err;
@@ -800,12 +867,28 @@ int launch_stream(GnParams p, int B, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kBwd>
+int launch_route(bool resident, bool affine, const GnParams& p, int B,
+                 int threads, cudaStream_t stream) {
+  if constexpr (kBwd) {
+    if (affine)
+      return resident ? launch_resident<T, true, true>(p, B, threads, stream)
+                      : launch_stream<T, true, true>(p, B, threads, stream);
+  }
+  return resident ? launch_resident<T, kBwd, false>(p, B, threads, stream)
+                  : launch_stream<T, kBwd, false>(p, B, threads, stream);
+}
+
+// affine (backward): apart, dw and db given; the finish runs after the
+// route's kernel
 template <bool kBwd>
 int groupnorm_launch(bool resident, const void* x, const void* dy,
                      const void* w, const void* b, float* stats, float* part,
                      float* fin, void* out, int B, int HW, int C, int G,
                      int W, int ctas, int threads, float eps, int silu,
-                     int fp32, int w_bf16, cudaStream_t stream) {
+                     int fp32, int w_bf16, cudaStream_t stream,
+                     float* apart = nullptr, void* dw = nullptr,
+                     void* db = nullptr) {
   GnParams p = {};
   const int elt = fp32 ? 4 : 2;
   if (!shape_ok(p, B, HW, C, G, resident ? W : C, threads, elt))
@@ -825,11 +908,18 @@ int groupnorm_launch(bool resident, const void* x, const void* dy,
   p.eps = eps;
   p.silu = silu;
   p.w_bf16 = w_bf16;
-  if (resident)
-    return fp32 ? launch_resident<float, kBwd>(p, B, threads, stream)
-                : launch_resident<bf16, kBwd>(p, B, threads, stream);
-  return fp32 ? launch_stream<float, kBwd>(p, B, threads, stream)
-              : launch_stream<bf16, kBwd>(p, B, threads, stream);
+  p.apart = apart;
+  const bool affine = apart != nullptr;
+  if (affine && (!kBwd || dw == nullptr || db == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int err = fp32 ? launch_route<float, kBwd>(resident, affine, p, B,
+                                                    threads, stream)
+                       : launch_route<bf16, kBwd>(resident, affine, p, B,
+                                                   threads, stream);
+  if (err != 0 || !affine) return err;
+  gn_affine_finish<<<(C + 255) / 256, 256, 0, stream>>>(apart, B * ctas, C,
+                                                        dw, db, w_bf16);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -884,4 +974,29 @@ extern "C" int groupnorm_bwd_stream(const void* x, const void* dy,
   return groupnorm_launch<true>(false, x, dy, w, b, stats, part, fin, dx, B,
                                 HW, C, G, C, ctas, threads, 0.f, silu, fp32,
                                 w_bf16, stream);
+}
+
+// The resident backward with the affine gradients: dx as
+// groupnorm_bwd_resident, and dw, db [C] in the weights' dtype; apart fp32
+// [B * cluster * C * 2] is scratch.
+extern "C" int groupnorm_bwd_resident_affine(
+    const void* x, const void* dy, const void* w, const void* b, float* stats,
+    void* dx, float* apart, void* dw, void* db, int B, int HW, int C, int G,
+    int W, int cluster, int threads, int silu, int fp32, int w_bf16,
+    cudaStream_t stream) {
+  return groupnorm_launch<true>(true, x, dy, w, b, stats, nullptr, nullptr,
+                                dx, B, HW, C, G, W, cluster, threads, 0.f,
+                                silu, fp32, w_bf16, stream, apart, dw, db);
+}
+
+// The streaming backward with the affine gradients; apart fp32
+// [B * ctas * C * 2] is scratch.
+extern "C" int groupnorm_bwd_stream_affine(
+    const void* x, const void* dy, const void* w, const void* b, float* stats,
+    float* part, float* fin, void* dx, float* apart, void* dw, void* db,
+    int B, int HW, int C, int G, int ctas, int threads, int silu, int fp32,
+    int w_bf16, cudaStream_t stream) {
+  return groupnorm_launch<true>(false, x, dy, w, b, stats, part, fin, dx, B,
+                                HW, C, G, C, ctas, threads, 0.f, silu, fp32,
+                                w_bf16, stream, apart, dw, db);
 }

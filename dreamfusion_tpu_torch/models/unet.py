@@ -12,8 +12,11 @@ with a diffusers UNet key for key (conv weights are [O, kh, kw, I] here,
 
 Parameters live in the tower's dtype (bf16 at SD width, fp32 for the tiny
 test config); each layer computes in its own dtype as the Flax modules do
-(bf16, with the final ``conv_out`` in fp32).  The towers are frozen: no
-weight gradient is ever formed.
+(bf16, with the final ``conv_out`` in fp32).  The towers are frozen on
+every guidance path (``requires_grad=False``); switched on with
+``requires_grad_(True)``, K10-K12 give every weight's gradient as
+``jax.grad`` of the Flax ``apply`` does, and the ``.to(dt)`` casts carry
+it back to each parameter's dtype.
 """
 
 from __future__ import annotations

@@ -25,11 +25,18 @@ one kernel parametrised on d, with a counter per d
 and ``_d160`` at SD 1.5's), at d = 512 the VAE mid-block's
 (``attention_fwd_wgmma_d512``: its KV range split over ``kv_splits``
 blocks, merged by a second kernel of the same launch);
-``attention_route`` picks by d alone.  The backward (d % 64 == 0) is one
-call of ``attention_bwd_wgmma`` (four kernels: the row dots, a scores pass
-storing P and dS, dV and dK in one wgmma GEMM launch, dQ in another); it
-recomputes the logits as q·kᵀ·scale.  On a CPU tensor the plain version
-runs and its backward is autograd of it.
+``attention_route`` picks by d alone.  The backward is one call of
+``attention_bwd_wgmma`` at d % 64 == 0 (64 and 512) or of its entry point
+at SD 1.5's head dims (``attention_bwd_wgmma_d40``, ``_d80``, ``_d160``),
+``attention_bwd_route`` by d: four kernels (the row dots, a scores pass
+storing P and dS, dV and dK in one wgmma GEMM launch, dQ in another), the
+k steps over d ceil(d / 64) with TMA's zero fill past d.  It recomputes
+the logits as the forward formed them: on JAX's chunked branch with a scale
+that is not a power of two, from bf16(q·scale) (a fifth kernel writes it
+first), whose derivative passes straight through the rounding as in JAX.
+``attention_bwd_plain`` is the kernels' arithmetic in torch (P and dS
+rounded to bf16 between the products), the card's reference.  On a CPU
+tensor the plain version runs and its backward is autograd of it.
 """
 
 from __future__ import annotations
@@ -125,8 +132,7 @@ def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
         kernels.launch(route, *(kernels.ptr(t) for t in (q, k, v, o, lse)),
                        B, N, M, H, D, float(scale))
         return o, lse
-    # rounding q·scale changes the logits only where scale is not 2^k
-    prescale = round_q and math.frexp(scale)[0] != 0.5
+    prescale = _prescale(round_q, scale)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
     args = [kernels.ptr(t) for t in (q, k, v, o, lse)] + [B, N, M, H]
@@ -148,31 +154,80 @@ def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
     return o, lse
 
 
-def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
-    """→ (dq, dk, dv), bf16: one call of ``attention_bwd_wgmma`` (the row
-    dots, the scores pass and the three products on wgmma + TMA).  The fp32
-    forward has no backward (the DPT runs under ``no_grad``): fp32 q
-    raises here."""
+_BWD_ROUTES = {40: "attention_bwd_wgmma_d40", 80: "attention_bwd_wgmma_d80",
+               160: "attention_bwd_wgmma_d160"}
+
+
+def attention_bwd_route(d: int) -> str:
+    """The launch counter (and entry point) of the backward at head dim
+    `d`: SD 1.5's 40, 80 and 160 each their own, "attention_bwd_wgmma" at d
+    % 64 == 0 (64 and 512 on the paths)."""
+    if d in _BWD_ROUTES:
+        return _BWD_ROUTES[d]
+    if d % 64:
+        raise ValueError(f"attention backward takes d = 40, 80, 160 or a "
+                         f"multiple of 64, got {d}")
+    return "attention_bwd_wgmma"
+
+
+def _prescale(round_q: bool, scale: float) -> bool:
+    """Rounding q·scale changes the logits only where scale is not 2^k."""
+    return round_q and math.frexp(scale)[0] != 0.5
+
+
+def attention_bwd_plain(q, k, v, o, do, scale: float,
+                        round_q: bool = False):
+    """→ (dq, dk, dv) in q's dtype, the backward kernels' arithmetic in
+    fp32: the logits as the forward formed them (`round_q` as in
+    ``attention_plain``), P = their softmax rounded to q's dtype, dP = dO
+    Vᵀ, D = rowsum(dO ∘ O), dS = P ∘ (dP − D) rounded likewise, dV = Pᵀ dO,
+    dK = scale dSᵀ q (with the rounded q·scale, dSᵀ of it) and dQ = scale
+    dS K."""
+    dt = q.dtype
+    qs, s_scale = q.float(), scale
+    if _prescale(round_q, scale):
+        qs, s_scale = (q.float() * scale).to(dt).float(), 1.0
+    kf, vf, dof = k.float(), v.float(), do.float()
+    s = torch.einsum("bnhd,bmhd->bhnm", qs, kf) * s_scale
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    dvec = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - dvec)).to(dt).float()
+    p = p.to(dt).float()
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qs) * s_scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_bwd_cuda(q, k, v, o, lse, do, scale: float,
+                       round_q: bool = False):
+    """→ (dq, dk, dv), bf16: one call of the route
+    ``attention_bwd_route`` names (the row dots, the scores pass and the
+    three products on wgmma + TMA; with `round_q` on a scale that is not
+    2^k, bf16(q·scale) first).  The fp32 forward has no backward (the DPT
+    runs under ``no_grad``): fp32 q raises here."""
     B, N, M, H, D = _check(q, k, v)
+    route = attention_bwd_route(D)
     do = do.to(torch.bfloat16).contiguous()
     kernels.check_cuda(o, lse, do)
-    if D % 64:
-        raise ValueError(f"attention backward takes d % 64 == 0, got {D}")
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
         raise ValueError("the attention kernels read q, k, v, o and do by "
                          "TMA: 16-byte aligned tensors only")
+    prescale = _prescale(round_q, scale)
     Mp = -(-M // 8) * 8
     Z = B * H
     dev = q.device
     dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
     p = torch.empty(Z, N, Mp, device=dev, dtype=torch.bfloat16)
     ds = torch.empty_like(p)
+    qs = torch.empty_like(q) if prescale else None
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    kernels.launch("attention_bwd_wgmma", kernels.ptr(q), kernels.ptr(k),
-                   kernels.ptr(v), kernels.ptr(o), kernels.ptr(do),
-                   kernels.ptr(lse), kernels.ptr(dq), kernels.ptr(dk),
-                   kernels.ptr(dv), kernels.ptr(dvec), kernels.ptr(p),
-                   kernels.ptr(ds), B, N, M, H, D, float(scale))
+    args = [kernels.ptr(t) for t in (q, k, v, o, do, lse, dq, dk, dv, dvec,
+                                     p, ds, qs)] + [B, N, M, H]
+    if route == "attention_bwd_wgmma":
+        args.append(D)
+    kernels.launch(route, *args, int(prescale), float(scale))
     return dq, dk, dv
 
 
@@ -194,8 +249,8 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, do):
         if do.is_cuda:
             q, k, v, o, lse = ctx.saved_tensors
-            return (*attention_bwd_cuda(q, k, v, o, lse, do, ctx.scale),
-                    None, None)
+            return (*attention_bwd_cuda(q, k, v, o, lse, do, ctx.scale,
+                                        ctx.round_q), None, None)
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]

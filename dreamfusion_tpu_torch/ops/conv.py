@@ -30,11 +30,16 @@ weight version and cached: 70.6 MB for the SD VAE encoder, whose weights
 are 65.8 MB), mma.sync with A fragments from device memory for the narrow
 dx of the conv_ins (``conv_dgrad_narrow``), CUDA cores for the fp32
 conv_outs (``conv_dgrad_fp32``), and mma.sync (``conv_dgrad``) for the
-rest, which no SD-step shape reaches.  The weight gradient is on no path
-(every tower is frozen): backward gives none and raises if the weight asks
-for one.  On a CPU tensor the plain versions run: the JAX package's
-shifted-einsum form (``_einsum_conv``), and for dx the kernels' own
-decomposition through it (``conv2d_dgrad_plain``).
+rest, which no SD-step shape reaches.  The weight gradient (``f_bwd``'s
+dk) is one launch of one of two routes, chosen by ``wgrad_route`` on the
+dtype: mma.sync for bf16 (``conv_wgrad_mma``) and CUDA cores for fp32
+(``conv_wgrad_fp32``), each a GEMM per tap split over the pixels, the
+splits' partials summed in order in the same launch; the bias's gradient
+is one sum of dy.  x is saved for the backward only where the weight asks
+for a gradient (the frozen towers keep none).  On a CPU tensor the plain
+versions run: the JAX package's shifted-einsum form (``_einsum_conv``),
+for dx the kernels' own decomposition through it
+(``conv2d_dgrad_plain``), for dW its transpose (``conv2d_wgrad_plain``).
 """
 
 from __future__ import annotations
@@ -243,7 +248,8 @@ def _cached_pack(w: torch.Tensor, layout, make) -> torch.Tensor:
     hit = packs.get(layout)
     if hit is not None and hit[:2] == (w.data_ptr(), w._version):
         return hit[2]
-    pk = make()
+    with torch.no_grad():          # a weight that wants a gradient: no graph
+        pk = make()
     packs[layout] = (w.data_ptr(), w._version, pk)
     return pk
 
@@ -519,12 +525,108 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
     return dx
 
 
+# ---------------------------------------------------------------------------
+# weight gradient
+# ---------------------------------------------------------------------------
+
+_WGRAD_TILE, _WGRAD_BK = 128, 32      # conv_wgrad_mma's dW tile, pixel step
+_WGRAD_FP32_N, _WGRAD_FP32_O = 128, 8  # conv_wgrad_fp32's columns x channels
+_WGRAD_MIN_STEPS, _WGRAD_MAX_SPLITS = 16, 64
+
+
+def wgrad_route(dtype: torch.dtype) -> str:
+    """The launch counter (and kernel) of a conv's weight gradient:
+    "conv_wgrad_mma" for bf16 x and dy (tensor cores), "conv_wgrad_fp32"
+    for fp32 (the conv_outs; CUDA cores)."""
+    if dtype == torch.bfloat16:
+        return "conv_wgrad_mma"
+    if dtype == torch.float32:
+        return "conv_wgrad_fp32"
+    raise ValueError(f"conv wgrad takes fp32 or bf16, got {dtype}")
+
+
+def wgrad_splits(route: str, O: int, K: int, pixels: int, sms: int) -> int:
+    """Split-K factor of the weight gradient over its `pixels` (the
+    reduction) for dW [O, K] (K = kh*kw*I) on a card with `sms`
+    multiprocessors: about two blocks an SM where dW's tiles alone leave
+    SMs idle, at least 16 steps of 32 pixels a split, at most 64 splits."""
+    if route == "conv_wgrad_mma":
+        tiles = _cdiv(O, _WGRAD_TILE) * _cdiv(K, _WGRAD_TILE)
+    else:
+        tiles = _cdiv(O, _WGRAD_FP32_O) * _cdiv(K, _WGRAD_FP32_N)
+    if tiles >= 2 * sms:
+        return 1
+    steps = _cdiv(pixels, _WGRAD_BK)
+    return max(1, min(2 * sms // tiles, steps // _WGRAD_MIN_STEPS,
+                      _WGRAD_MAX_SPLITS))
+
+
+def conv2d_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
+                       w_shape: Sequence[int], stride: Tuple[int, int],
+                       pads: Pads) -> torch.Tensor:
+    """dW [O, kh, kw, I] in fp32: the transpose of ``conv2d_plain``'s
+    shifted-slice einsums (``_einsum_conv``'s, as ``mm_conv``'s custom_vjp
+    transposes them), per tap dW[:, i, j] = dyᵀ · x's strided window."""
+    O, kh, kw, I = w_shape
+    (pt, pb), (pl, pr) = pads
+    sh, sw = stride
+    _, Ho, Wo, _ = dy.shape
+    xp = F.pad(x.float(), (0, 0, pl, pr, pt, pb))
+    dyf = dy.float()
+    dw = torch.empty(O, kh, kw, I, device=dy.device, dtype=torch.float32)
+    for i in range(kh):
+        for j in range(kw):
+            sl = xp[:, i:i + (Ho - 1) * sh + 1:sh, j:j + (Wo - 1) * sw + 1:sw]
+            dw[:, i, j] = torch.einsum("bhwo,bhwc->oc", dyf, sl)
+    return dw
+
+
+def conv2d_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
+                      w_shape: Sequence[int], stride: Tuple[int, int],
+                      pads: Pads, out_dtype: torch.dtype) -> torch.Tensor:
+    """dW [O, kh, kw, I] in `out_dtype` from x [B, H, W, I] and dy [B,
+    Ho, Wo, O] (dy is cast to x's dtype): one launch of the route
+    ``wgrad_route`` names, its split partials summed in the launch."""
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"conv wgrad takes fp32 or bf16, got {x.dtype}, "
+                         f"{out_dtype}")
+    O, kh, kw, I = w_shape
+    if x.shape[-1] != I or dy.shape[-1] != O:
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} do "
+                         f"not fit a weight {tuple(w_shape)}")
+    x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+    kernels.check_cuda(x, dy)
+    route = wgrad_route(x.dtype)
+    vec = ((x, I), (dy, O)) if route == "conv_wgrad_mma" else ()
+    if any(n % 8 == 0 and t.data_ptr() % 16 for t, n in vec):
+        raise ValueError(f"{route} reads x and dy in 16-byte units: 16-byte "
+                         "aligned tensors only")
+    B, H, W, _ = x.shape
+    _, Ho, Wo, _ = dy.shape
+    if (Ho, Wo) != out_size(H, W, kh, kw, stride, pads):
+        raise ValueError(f"dy {tuple(dy.shape)} is not the output of x "
+                         f"{tuple(x.shape)} at stride {stride}, pads {pads}")
+    (pt, _), (pl, _) = pads
+    K = kh * kw * I
+    splits = wgrad_splits(route, O, K, B * Ho * Wo,
+                          kernels.sm_count(x.device))
+    ws = _workspace(splits, O * K, x.device)
+    dw = torch.empty(O, kh, kw, I, device=x.device, dtype=out_dtype)
+    kernels.launch(route, kernels.ptr(x), kernels.ptr(dy), kernels.ptr(dw),
+                   kernels.ptr(ws), B, H, W, I, Ho, Wo, O, kh, kw, stride[0],
+                   stride[1], pt, pl, int(out_dtype == torch.float32), splits)
+    return dw
+
+
 class _Conv2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bias, stride, pads, out_dtype):
-        ctx.save_for_backward(w)
-        ctx.cfg = (tuple(x.shape), x.dtype, stride, pads)
+        # x only where the weight wants a gradient: the frozen towers'
+        # backwards keep none
+        ctx.save_for_backward(w, x if ctx.needs_input_grad[1] else None)
+        ctx.cfg = (tuple(x.shape), x.dtype, stride, pads,
+                   None if bias is None else bias.dtype)
         if x.is_cuda:
             return conv2d_fwd_cuda(x, w, bias, stride, pads, out_dtype)
         if x.device.type != "cpu":
@@ -533,18 +635,26 @@ class _Conv2d(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            raise NotImplementedError(
-                "conv weight gradient (wgrad) is not ported (ROADMAP queue "
-                "2, K12 wgrad); freeze the weights with requires_grad_(False)")
-        (w,) = ctx.saved_tensors
-        x_shape, x_dtype, stride, pads = ctx.cfg
-        if dy.is_cuda:
-            dx = conv2d_dgrad_cuda(dy, w, x_shape, stride, pads, x_dtype)
-        else:
-            dx = conv2d_dgrad_plain(dy.float(), w, x_shape, stride, pads,
-                                    x_dtype)
-        return dx, None, None, None, None, None
+        w, x = ctx.saved_tensors
+        x_shape, x_dtype, stride, pads, bias_dtype = ctx.cfg
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        if need_x:
+            if dy.is_cuda:
+                dx = conv2d_dgrad_cuda(dy, w, x_shape, stride, pads, x_dtype)
+            else:
+                dx = conv2d_dgrad_plain(dy.float(), w, x_shape, stride, pads,
+                                        x_dtype)
+        if need_w:
+            if dy.is_cuda:
+                dw = conv2d_wgrad_cuda(x, dy, w.shape, stride, pads, w.dtype)
+            else:
+                dw = conv2d_wgrad_plain(x, dy.to(x.dtype), w.shape, stride,
+                                        pads).to(w.dtype)
+        if need_b:
+            # JAX adds the bias outside mm_conv: its gradient is Σ dy
+            db = dy.sum(dim=(0, 1, 2), dtype=torch.float32).to(bias_dtype)
+        return dx, dw, db, None, None, None
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],

@@ -8,7 +8,8 @@ per (batch, group):
 
     y  = silu?((x - mean) * rstd * scale + bias)        rstd = 1/sqrt(var+eps)
     dx = rstd * (dxh - mean_g(dxh) - xh * mean_g(dxh * xh)),
-         dxh = dy * silu'(u) * scale,   xh = (x - mean) * rstd
+         dxh = dy' * scale,   dy' = dy * silu'(u),   xh = (x - mean) * rstd
+    dscale = Σ dy' · xh,   dbias = Σ dy'   (per channel, over batch and pixels)
 
 On a CUDA tensor the forward and the backward are each one launch of a
 CUDA C++ kernel (``csrc/groupnorm.cu``), by the route
@@ -22,9 +23,12 @@ counter; a shape neither takes, or a cluster the card refuses, raises.
 Bound on the card: memory (one read of x and one write of y forward; x and
 dy in, dx out backward; a few operations per element).  Statistics are
 Welford means and M2 per thread, merged with Chan's formula (numerically
-safe in fp32, unlike E[x²] − E[x]²).  The weights are frozen on every
-path: the backward gives no gradient for scale and bias and refuses
-tensors that ask for one.
+safe in fp32, unlike E[x²] − E[x]²).  Where scale and bias ask for
+gradients, the backward launches the route's ``_affine`` entry point
+instead (its own counter): dx as the plain route's, and each CTA's
+per-channel sums of dy' and dy'·xh, finished in a fixed order in the same
+launch (no float atomics) into the weights' dtype.  The frozen towers'
+backwards keep the plain routes.
 """
 
 from __future__ import annotations
@@ -206,8 +210,12 @@ def group_norm_fwd_cuda(x, weight, bias, groups: int, eps: float,
 
 
 def group_norm_bwd_cuda(x, weight, bias, stats, dy, groups: int,
-                        silu: bool, route: GNRoute | None = None):
-    """dx like x, from the forward's stats (`route` as the forward's)."""
+                        silu: bool, route: GNRoute | None = None,
+                        affine: bool = False):
+    """dx like x, from the forward's stats (`route` as the forward's);
+    with `affine`, (dx, dscale, dbias), the weights' gradients in their
+    dtype (fp32 where the two differ: ``_check``), from one launch of the
+    route's ``_affine`` entry point."""
     dy = dy.to(x.dtype).contiguous()
     B, HW, C, w, b, fp32, w_bf16 = _check(x, weight, bias, groups)
     kernels.check_cuda(stats, dy)
@@ -219,19 +227,26 @@ def group_norm_bwd_cuda(x, weight, bias, stats, dy, groups: int,
                                       groups, sms)
     dx = torch.empty_like(x)
     P = kernels.ptr
+    ctas = route.cluster or max(1, sms // B)
+    name, extra = route.name, []
+    if affine:
+        # each CTA's per-channel partials, then dscale and dbias
+        apart = torch.empty(B * ctas * C * 2, device=x.device,
+                            dtype=torch.float32)
+        dw, db = torch.empty_like(w), torch.empty_like(b)
+        name, extra = name + "_affine", [P(apart), P(dw), P(db)]
     if route.cluster:
-        kernels.launch(route.name, P(x), P(dy), P(w), P(b), P(stats), P(dx),
-                       B, HW, C, groups, route.slab, route.cluster,
+        kernels.launch(name, P(x), P(dy), P(w), P(b), P(stats), P(dx),
+                       *extra, B, HW, C, groups, route.slab, route.cluster,
                        route.threads, int(silu), fp32, w_bf16)
     else:
-        ctas = max(1, sms // B)
         part = torch.empty(B * ctas * groups * 3 + B * groups * 2,
                            device=x.device, dtype=torch.float32)
         fin = part[B * ctas * groups * 3:]
-        kernels.launch(route.name, P(x), P(dy), P(w), P(b), P(stats),
-                       P(part), P(fin), P(dx), B, HW, C, groups, ctas,
-                       route.threads, int(silu), fp32, w_bf16)
-    return dx
+        kernels.launch(name, P(x), P(dy), P(w), P(b), P(stats),
+                       P(part), P(fin), P(dx), *extra, B, HW, C, groups,
+                       ctas, route.threads, int(silu), fp32, w_bf16)
+    return (dx, dw, db) if affine else dx
 
 
 class _GroupNorm(torch.autograd.Function):
@@ -251,22 +266,27 @@ class _GroupNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            raise NotImplementedError(
-                "groupnorm gives no gradient for its weights (frozen "
-                "guidance towers); freeze them with requires_grad_(False)")
         groups, eps, silu = ctx.cfg
+        need = ctx.needs_input_grad[:3]
+        affine = need[1] or need[2]
         if dy.is_cuda:
             x, weight, bias, stats = ctx.saved_tensors
-            dx = group_norm_bwd_cuda(x, weight, bias, stats, dy, groups,
-                                     silu)
+            out = group_norm_bwd_cuda(x, weight, bias, stats, dy, groups,
+                                      silu, affine=affine)
+            dx, dw, db = out if affine else (out, None, None)
+            if affine:
+                dw, db = dw.to(weight.dtype), db.to(bias.dtype)
         else:
             x, weight, bias = ctx.saved_tensors
             with torch.enable_grad():
-                xr = x.detach().requires_grad_()
-                y = group_norm_plain(xr, weight, bias, groups, eps, silu)
-                (dx,) = torch.autograd.grad(y, xr, dy)
-        return dx, None, None, None, None, None
+                ins = [t.detach().requires_grad_() for t in (x, weight, bias)]
+                y = group_norm_plain(*ins, groups, eps, silu)
+                grads = torch.autograd.grad(
+                    y, [t for t, n in zip(ins, need) if n], dy)
+            it = iter(grads)
+            dx, dw, db = (next(it) if n else None for n in need)
+        return (dx if need[0] else None), (dw if need[1] else None), \
+            (db if need[2] else None), None, None, None
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

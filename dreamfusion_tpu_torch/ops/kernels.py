@@ -18,8 +18,9 @@ resets it with ``reset_launch_counts()`` and reads it afterwards to show
 that a path went through the kernels.  It is process-wide state by design:
 the counters must see launches from every caller.  A kernel with several
 routes (K10's and K12's forwards, chosen by shape) counts each route under
-its own name, which is also its C entry point's; so do K10's backward,
-K11's resident and streaming routes, K1's and K6's backwards (the
+its own name, which is also its C entry point's; so do K10's backward (by
+head dim), K12's dgrad and wgrad, K11's resident and streaming routes
+(each with and without the affine gradients), K1's and K6's backwards (the
 table-only route and the ``_dx`` route that also gives the positions'
 gradient), K2's (the occupancy march, and the vanilla render's coarse
 and resample launches) and K4's three entry point pairs (the head alone,
@@ -66,14 +67,20 @@ LAUNCHES: Dict[str, int] = {
     "attention_fwd_wgmma_d512": 0,              # K10 d = 512, CUDA C++
     "attention_fwd_fp32": 0,                    # K10 fp32 (DPT), CUDA C++
     "attention_bwd_wgmma": 0,                   # K10 backward, CUDA C++
+    "attention_bwd_wgmma_d40": 0,               # K10 backward d = 40
+    "attention_bwd_wgmma_d80": 0,               # K10 backward d = 80
+    "attention_bwd_wgmma_d160": 0,              # K10 backward d = 160
     "groupnorm_fwd_resident": 0, "groupnorm_fwd_stream": 0,  # K11, CUDA C++
     "groupnorm_bwd_resident": 0, "groupnorm_bwd_stream": 0,  # K11, CUDA C++
+    "groupnorm_bwd_resident_affine": 0,         # K11 + dscale, dbias
+    "groupnorm_bwd_stream_affine": 0,           # K11 + dscale, dbias
     "conv_fwd_wgmma": 0, "conv_fwd_wgmma_i8": 0,  # K12, CUDA C++
     "conv_fwd_mma": 0,                          # K12, CUDA C++
     "conv_fwd_fp32": 0,                         # K12, CUDA C++
     "conv_fwd_fp32_tiled": 0,                   # K12 fp32 (DPT), CUDA C++
     "conv_dgrad_wgmma": 0, "conv_dgrad_narrow": 0,  # K12 dgrad, CUDA C++
     "conv_dgrad_fp32": 0, "conv_dgrad": 0,      # K12 dgrad, CUDA C++
+    "conv_wgrad_mma": 0, "conv_wgrad_fp32": 0,  # K12 wgrad, CUDA C++
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
     "marching_tets_fwd": 0, "marching_tets_bwd": 0,          # K8, CUDA C++
@@ -124,6 +131,8 @@ _SIGNATURES = {
     "conv_dgrad_wgmma": [_P] * 3 + [_I] * 21 + [_P, _P],
     "conv_dgrad_narrow": [_P] * 3 + [_I] * 13 + [_P],
     "conv_dgrad_fp32": [_P] * 3 + [_I] * 13 + [_P],
+    "conv_wgrad_mma": [_P] * 4 + [_I] * 15 + [_P],
+    "conv_wgrad_fp32": [_P] * 4 + [_I] * 15 + [_P],
     "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
     "attention_fwd_wgmma": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d40": [_P] * 5 + [_I] * 5 + [_F, _P],
@@ -131,11 +140,16 @@ _SIGNATURES = {
     "attention_fwd_wgmma_d160": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
     "attention_fwd_fp32": [_P] * 5 + [_I] * 5 + [_F, _P],
-    "attention_bwd_wgmma": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "attention_bwd_wgmma": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "attention_bwd_wgmma_d40": [_P] * 13 + [_I] * 5 + [_F, _P],
+    "attention_bwd_wgmma_d80": [_P] * 13 + [_I] * 5 + [_F, _P],
+    "attention_bwd_wgmma_d160": [_P] * 13 + [_I] * 5 + [_F, _P],
     "groupnorm_fwd_resident": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "groupnorm_bwd_resident": [_P] * 6 + [_I] * 10 + [_P],
     "groupnorm_fwd_stream": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     "groupnorm_bwd_stream": [_P] * 8 + [_I] * 9 + [_P],
+    "groupnorm_bwd_resident_affine": [_P] * 9 + [_I] * 10 + [_P],
+    "groupnorm_bwd_stream_affine": [_P] * 11 + [_I] * 9 + [_P],
     "raster_fwd": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 10 + [_P],
     "raster_bwd": [_P] * 12 + [_I] * 4 + [_F] + [_P] + [_P],
     "interpolate_fwd": [_P] * 4 + [_I] * 2 + [_P, _P],

@@ -27,7 +27,10 @@ from dreamfusion_tpu_torch.ops.occupancy import (march_plain, march_region,
                                                  march_region_cuda,
                                                  march_region_plain,
                                                  probe_edges)
-from dreamfusion_tpu_torch.ops.attention import (attention, attention_fwd_cuda,
+from dreamfusion_tpu_torch.ops.attention import (attention,
+                                                 attention_bwd_cuda,
+                                                 attention_bwd_plain,
+                                                 attention_fwd_cuda,
                                                  attention_plain)
 from dreamfusion_tpu_torch.ops.conv import (conv2d, conv2d_plain, conv_route,
                                             norm_padding)
@@ -1235,8 +1238,10 @@ def test_attention_sd15_head_dims_kernel(dev, B, N, M, H, D, rq):
 def test_attention_sd15_head_dims_through_the_wrapper(dev):
     """``attention`` at d = 40, 80, 160 is one launch of its route, on
     JAX's branch (the [2, 4096, 8, 40] self-attention rounds q·scale: the
-    plain version's chunked form); its backward is not ported at these
-    dims and raises."""
+    plain version's chunked form); its backward through autograd is one
+    launch of the head dim's backward route, within a bf16 ulp plus 2^-8
+    of the largest entry of the kernels' arithmetic in torch
+    (``attention_bwd_plain``) on the same branch."""
     g = _gen(dev, 3)
     bf = torch.bfloat16
     for B, N, M, H, D in ((2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80),
@@ -1253,9 +1258,22 @@ def test_attention_sd15_head_dims_through_the_wrapper(dev):
         amax = float(ref.float().abs().max())
         torch.testing.assert_close(o.float(), ref.float(), atol=1e-2 * amax,
                                    rtol=2 ** -7)
-    qkv = [t[:, :64].clone().requires_grad_() for t in (q, k, v)]
-    with pytest.raises(ValueError, match="d % 64"):
-        attention(*qkv).float().sum().backward()
+    for B, N, M, H, D in ((2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80),
+                          (2, 256, 256, 8, 160)):
+        q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
+                   for n in (N, M, M))
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = attention(*qkv)
+        do = torch.randn(o.shape, device=dev, generator=g).to(bf)
+        kernels.reset_launch_counts()
+        grads = torch.autograd.grad(o, qkv, do)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[f"attention_bwd_wgmma_d{D}"] == 1
+        assert sum(kernels.LAUNCHES.values()) == 1
+        want = attention_bwd_plain(q, k, v, o.detach(), do, D ** -0.5,
+                                   D == 40)
+        for got, ref in zip(grads, want):
+            _within_ulp(got, ref, 2 ** -8)
 
 
 @pytest.mark.parametrize("B,N,M,H,D", [
@@ -2676,3 +2694,276 @@ def test_attention_fp32_kernel(dev, B, N, M, H):
     qr = q.clone().requires_grad_()
     with pytest.raises(ValueError):
         attention(qr, k, v).sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# the towers' backward to their weights: K12's wgrad, K11's affine
+# gradients, K10's backward at d = 40, 80 and 160
+# ---------------------------------------------------------------------------
+
+def _rel_close(got, want, ulp, floor):
+    """|got - want| <= ulp·|want| + floor·max|want| everywhere."""
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=floor * scale,
+                               rtol=ulp)
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad,dt", [
+    (2, 64, 64, 320, 320, 3, 1, 1, "bf16"),       # the UNet's 64² level
+    (2, 8, 8, 1280, 1280, 3, 1, 1, "bf16"),       # 8²: no split
+    (2, 32, 32, 320, 640, 1, 1, 0, "bf16"),       # a 1x1 skip
+    (2, 64, 64, 320, 320, 3, 2, 1, "bf16"),       # a UNet downsampler
+    (1, 512, 512, 128, 128, 3, 1, 1, "bf16"),     # the VAE's 512²: 29 splits
+    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16"),  # its down
+    (1, 512, 512, 3, 128, 3, 1, 1, "bf16"),       # the VAE conv_in
+    (2, 64, 64, 4, 320, 3, 1, 1, "bf16"),         # SD's conv_in
+    (2, 32, 32, 8, 320, 3, 1, 1, "bf16"),         # zero123's conv_in
+    (2, 64, 64, 320, 4, 3, 1, 1, "fp32"),         # the UNet's conv_out
+    (1, 64, 64, 512, 8, 3, 1, 1, "fp32"),         # the VAE's conv_out
+    (1, 9, 11, 24, 40, 3, 2, 1, "bf16"),          # ragged tiles
+    (2, 7, 5, 12, 20, 3, 1, 1, "bf16"),           # O, I % 8 != 0
+    (1, 13, 9, 5, 7, 3, 2, ((0, 1), (0, 1)), "fp32"),
+    (1, 6, 6, 16, 12, 1, 1, 0, "fp32"),
+])
+def test_conv_wgrad_kernel(dev, B, H, W, I, O, k, stride, pad, dt):
+    """K12's weight gradient on its route (mma.sync for bf16, CUDA cores
+    for fp32) against the transposed shifted einsum in fp32: bf16 dW
+    within one bf16 ulp plus 2^-8 of its largest entry, fp32 within 1e-5
+    relative plus 1e-4 of its largest; two launches bit for bit (the
+    splits summed in order); then through autograd with x and the weight
+    and bias asking: one wgrad and one dgrad launch, Σ dy for the bias."""
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_wgrad_cuda,
+                                                conv2d_wgrad_plain,
+                                                dgrad_route, wgrad_route)
+    dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+    g = _gen(dev, 31)
+    pads = norm_padding(pad)
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
+    w = (torch.randn(O, k, k, I, device=dev, generator=g) /
+         (k * k * I) ** 0.5).to(dtype)
+    Ho, Wo = ((H + sum(pads[0]) - k) // stride + 1,
+              (W + sum(pads[1]) - k) // stride + 1)
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
+    route = wgrad_route(dtype)
+    kernels.reset_launch_counts()
+    dw = conv2d_wgrad_cuda(x, dy, w.shape, (stride, stride), pads, dtype)
+    dw2 = conv2d_wgrad_cuda(x, dy, w.shape, (stride, stride), pads, dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 2 and sum(kernels.LAUNCHES.values()) \
+        == 2
+    assert dw.dtype == dtype and torch.equal(dw, dw2)
+    ref = conv2d_wgrad_plain(x, dy, w.shape, (stride, stride), pads)
+    if dtype == torch.float32:
+        _rel_close(dw, ref, 1e-5, 1e-4)
+    else:
+        _rel_close(dw, ref, 2 ** -7, 2 ** -8)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    bias = torch.zeros(O, device=dev, dtype=dtype, requires_grad=True)
+    y = conv2d(xr, wr, bias, stride, pad)
+    kernels.reset_launch_counts()
+    dx, dwa, db = torch.autograd.grad(y, (xr, wr, bias), dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 1
+    assert kernels.LAUNCHES[dgrad_route(dtype, I, O, (stride, stride),
+                                        (k, k))] == 1
+    assert torch.equal(dwa, dw) and dx.shape == x.shape
+    _rel_close(db, dy.float().sum((0, 1, 2)), 2 ** -7, 1e-5)
+
+
+def test_conv_wgrad_refuses_what_it_cannot_take(dev):
+    """A misaligned view on the tensor-core route, a dy of another grid and
+    an fp16 input raise instead of launching."""
+    from dreamfusion_tpu_torch.ops.conv import conv2d_wgrad_cuda
+    bf = torch.bfloat16
+    buf = torch.randn(2 * 6 * 6 * 16 + 1, device=dev).to(bf)
+    x = buf[1:].view(2, 6, 6, 16)
+    dy = torch.randn(2, 6, 6, 8, device=dev).to(bf)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        conv2d_wgrad_cuda(x, dy, (8, 3, 3, 16), (1, 1), norm_padding(1), bf)
+    with pytest.raises(ValueError):
+        conv2d_wgrad_cuda(x.clone(), dy[:, :5], (8, 3, 3, 16), (1, 1),
+                          norm_padding(1), bf)
+    with pytest.raises(ValueError):
+        conv2d_wgrad_cuda(x.clone().half(), dy.half(), (8, 3, 3, 16),
+                          (1, 1), norm_padding(1), torch.float16)
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("B,H,W,C,eps,silu,dtype,wdt", [
+    (2, 64, 64, 320, 1e-5, True, torch.bfloat16, torch.bfloat16),
+    (2, 8, 8, 1280, 1e-6, False, torch.bfloat16, torch.bfloat16),
+    (2, 16, 16, 2560, 1e-5, True, torch.bfloat16, torch.bfloat16),
+    (1, 64, 64, 512, 1e-6, True, torch.bfloat16, torch.bfloat16),
+    (1, 512, 512, 128, 1e-6, True, torch.bfloat16, torch.bfloat16),  # stream
+    (1, 256, 256, 256, 1e-6, True, torch.bfloat16, torch.bfloat16),  # stream
+    (2, 5, 7, 40, 1e-6, False, torch.float32, torch.float32),
+    (1, 200, 190, 24, 1e-6, True, torch.float32, torch.float32),     # Cg 3
+    (1, 400, 400, 32, 1e-6, False, torch.float32, torch.float32),    # stream
+    (2, 32, 32, 1920, 1e-5, True, torch.bfloat16, torch.float32),    # Cg 60
+])
+def test_groupnorm_affine_kernel(dev, B, H, W, C, eps, silu, dtype, wdt):
+    """K11's backward with the affine gradients (resident and streaming
+    routes, Cg = 1, 3, 10, 40, 60, 80, bf16 and fp32 weights): dx as the
+    frozen route's bit for bit, dscale and dbias against autograd of the
+    plain version in fp32 within one ulp of their dtype plus 2^-8 (bf16)
+    or 1e-4 (fp32) of their largest entry; one launch of the route's
+    ``_affine`` entry point; two launches bit for bit."""
+    from dreamfusion_tpu_torch.ops.groupnorm import (group_norm_bwd_cuda,
+                                                     group_norm_fwd_cuda)
+    g = _gen(dev, 32)
+    G = groups_for(C)
+    x = (torch.randn(B, H, W, C, device=dev, generator=g) * 3 + 1).to(dtype)
+    wt = (1 + 0.3 * torch.randn(C, device=dev, generator=g)).to(wdt)
+    bs = (0.3 * torch.randn(C, device=dev, generator=g)).to(wdt)
+    dy = torch.randn(B, H, W, C, device=dev, generator=g).to(dtype)
+    route = group_norm_route(tuple(x.shape), dtype, True, G,
+                             kernels.sm_count(dev))
+    _, stats = group_norm_fwd_cuda(x, wt, bs, G, eps, silu)
+    kernels.reset_launch_counts()
+    dx, dw, db = group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu,
+                                     affine=True)
+    dx2, dw2, db2 = group_norm_bwd_cuda(x, wt, bs, stats, dy, G, silu,
+                                        affine=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route.name + "_affine"] == 2
+    assert sum(kernels.LAUNCHES.values()) == 2
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert dw.dtype == wdt and db.dtype == wdt
+    assert torch.equal(dx, group_norm_bwd_cuda(x, wt, bs, stats, dy, G,
+                                               silu))
+    ins = [t.float().requires_grad_() for t in (x, wt, bs)]
+    want = torch.autograd.grad(group_norm_plain(*ins, G, eps, silu), ins,
+                               dy.float())
+    ulp, floor = (1e-5, 1e-4) if wdt == torch.float32 else (2 ** -7,
+                                                            2 ** -8)
+    _rel_close(dw, want[1], ulp, floor)
+    _rel_close(db, want[2], ulp, floor)
+    _close_to(dx, want[0], 1e-4 if dtype == torch.float32 else 2e-2)
+    # through autograd: the affine route once, in the parameters' dtype
+    xr = x.clone().requires_grad_()
+    wr, br = wt.clone().requires_grad_(), bs.clone().requires_grad_()
+    y = group_norm(xr, wr, br, G, eps, silu)
+    kernels.reset_launch_counts()
+    gx, gw, gb = torch.autograd.grad(y, (xr, wr, br), dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route.name + "_affine"] == 1
+    assert torch.equal(gw, dw) and torch.equal(gb, db) and torch.equal(gx, dx)
+
+
+@pytest.mark.parametrize("B,N,M,H,D,rq", [
+    (2, 4096, 4096, 8, 40, True),      # SD 1.5's 64² self (chunked)
+    (2, 4096, 77, 8, 40, False),       # its cross-attention
+    (2, 1024, 1024, 8, 80, False),
+    (2, 1024, 77, 8, 80, False),
+    (2, 256, 256, 8, 160, False),
+    (2, 64, 77, 8, 160, False),        # the 8² cross-attention
+    (2, 1024, 1, 8, 40, False),        # zero123's one key
+    (2, 64, 1, 8, 160, False),
+    (1, 300, 512, 2, 80, True),        # rounded q·scale at d = 80
+    (2, 200, 130, 3, 40, False),       # ragged query and key tiles
+    (1, 100, 77, 2, 160, True),
+])
+def test_attention_bwd_sd15_head_dims_kernel(dev, B, N, M, H, D, rq):
+    """K10's backward at d = 40, 80 and 160 (the k steps over d in 64
+    columns, TMA's zero fill past d), with rq the logits of bf16(q·scale)
+    (JAX's chunked branch): dQ, dK and dV against the kernels' arithmetic
+    in torch (``attention_bwd_plain`` on the same branch) within one bf16
+    ulp plus 2^-8 of their largest entry; one launch of the head dim's
+    route; two launches bit for bit; over one key dQ and dK are 0 in exact
+    arithmetic (dS = P (dP - D) with P = 1): within 2^-8 of dV's largest
+    entry."""
+    g = _gen(dev, D + M)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
+               for n in (N, M, M))
+    q = (q.float() * 3).to(bf)          # logits of a few units
+    scale = D ** -0.5
+    o, lse = attention_fwd_cuda(q, k, v, scale, rq)
+    do = torch.randn(o.shape, device=dev, generator=g).to(bf)
+    route = f"attention_bwd_wgmma_d{D}"
+    kernels.reset_launch_counts()
+    got = attention_bwd_cuda(q, k, v, o, lse, do, scale, rq)
+    got2 = attention_bwd_cuda(q, k, v, o, lse, do, scale, rq)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[route] == 2 and sum(kernels.LAUNCHES.values()) \
+        == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, got2))
+    want = attention_bwd_plain(q, k, v, o, do, scale, rq)
+    for name, a, b in zip("qkv", got, want):
+        if M == 1 and name in "qk":
+            ref = float(want[2].float().abs().max())
+            assert float(a.float().abs().max()) <= 2 ** -8 * ref, name
+            continue
+        _within_ulp(a, b, 2 ** -8)
+    if rq:
+        # the rounded q·scale is the one the forward used: the unrounded
+        # logits' backward lies measurably further off
+        off = attention_bwd_plain(q, k, v, o, do, scale, False)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        other = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, off))
+        assert err <= other, (err, other)
+
+
+def test_narrow_unet_gradients_on_the_card(dev):
+    """The sd15-form UNet at test width (head dims 40 and 80, 32² latents,
+    bf16, every parameter trainable) on the card against the same weights
+    on the CPU's plain versions: every parameter's gradient and the
+    input's, each within 5e-2 of its largest entry (bf16 activations and
+    weights, rounded at other places on the two sides); each K10-K12
+    backward route launched as often as the forward calls its layer."""
+    from dreamfusion_tpu_torch.models.unet import (GroupNorm32,
+                                                   UNet2DCondition,
+                                                   UNetConfig)
+    cfg = UNetConfig(model_channels=80, channel_mult=(1, 2),
+                     num_res_blocks=1, attn_levels=(True, True), num_heads=2,
+                     head_dim=None, context_dim=768, dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    cpu = UNet2DCondition(cfg)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            norm = name.endswith("weight") and p.ndim == 1
+            p.copy_((1 + 0.1 * torch.randn(p.shape)) if norm else
+                    torch.randn(p.shape) * 0.05)
+    card = UNet2DCondition(cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 32, 32, 4, generator=gen)
+    t = torch.tensor([20, 731])
+    ctx = torch.randn(2, 77, 768, generator=gen)
+    ct = torch.randn(2, 32, 32, 4, generator=gen)
+    grads = {}
+    for name, net, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        net.requires_grad_(True)
+        xr = x.to(d, copy=True).requires_grad_()
+        out = net(xr, t.to(d), ctx.to(d))
+        kernels.reset_launch_counts()
+        (out.float() * ct.to(d)).sum().backward()
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        grads[name] = {"input": xr.grad, **{
+            n: p.grad for n, p in net.named_parameters()}}
+    convs = sum(1 for m in card.modules() if type(m).__name__ == "Conv2d")
+    norms = sum(1 for m in card.modules() if isinstance(m, GroupNorm32))
+    assert launches["conv_wgrad_mma"] + launches["conv_wgrad_fp32"] == convs
+    assert launches["conv_wgrad_fp32"] == 1
+    assert sum(v for k, v in launches.items()
+               if k.startswith("groupnorm_bwd") and k.endswith("_affine")) \
+        == norms
+    assert launches["attention_bwd_wgmma_d40"] > 0
+    assert launches["attention_bwd_wgmma_d80"] > 0
+    assert launches["conv_dgrad"] + launches["conv_dgrad_wgmma"] + \
+        launches["conv_dgrad_fp32"] + launches["conv_dgrad_narrow"] == convs
+    worst = []
+    for n, want in grads["cpu"].items():
+        got = grads["card"][n]
+        assert got is not None and bool(torch.isfinite(got).all()), n
+        scale = float(want.float().abs().max())
+        err = float((got.cpu().float() - want.float()).abs().max())
+        worst.append((err / max(scale, 1e-30), n))
+    worst.sort(reverse=True)
+    print("narrow UNet gradients, worst err / max:", worst[:5])
+    assert worst[0][0] <= 5e-2, worst[:5]
