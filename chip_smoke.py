@@ -316,12 +316,30 @@
    launched exactly as ``tower_launches(..., unet_grad=1)`` derives them,
    the synchronised forward and backward walls (median of 3) and the peak
    memory.
-16. Prints one JSON line with every kernel's route, source, the TPU
+16. The DPT's backward and the encoders' second derivative on random
+   weights: K10's fp32 backward (``attention_bwd_fp32``) at the ViT's
+   [1, 577, 12, 64] against its plain version and SDPA's fp32 backward;
+   K12's tiled fp32 input gradient (``conv_dgrad_fp32_tiled``) and its
+   fp32 weight gradient (``conv_wgrad_fp32``) at each of the 17 distinct
+   conv shapes of a 384² DPT against their plain versions and cuDNN's
+   (TF32 off), with the 40 convs' sums; K1's and K6's ``_dx``
+   backwards with cotangents on the jacobian at stage 1's 98,304 samples
+   (and, among step 3's rows, at the DMTet query's 262,144), beside the same
+   launch without them; event and graph ms, bound and library ms as one
+   ``DPT backward rows`` JSON line; then the DPT (vitb_rn50_384, depth) at
+   384² with every weight and the input trainable: one forward and
+   backward with the counters reset just before, K10/K12 launched exactly
+   as ``dpt_grad_launches`` derives them on the meta device (12
+   ``attention_bwd_fp32``, 40 ``conv_dgrad_fp32_tiled``, 40
+   ``conv_wgrad_fp32``, no ``conv_dgrad``), every gradient finite, the
+   synchronised walls (median of 3) and the peak memory.
+17. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K2's vanilla launches: the
    -O2 SD run; K4's ``field_select``: the field-options run; K1-K4 and
    K10-K12: the SD run, K10's d = 40, 80 and 160 routes: the SD 1.5
    run, K10's fp32 forward and K12's tiled fp32 route: the DPT's depth
    run, the new kernels of step 15: the four towers' backwards summed,
+   those of step 16: the DPT's backward run,
    ``conv_fwd_mma`` and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
@@ -627,6 +645,14 @@ for _d, _line in ((40, 27), (80, 72), (160, 72)):
     KERNELS[f"attention_bwd_wgmma_d{_d}"] = (
         "cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
         f"dreamfusion_tpu/ops/attention.py:{_line}")
+# the DPT's backward: attention's fp32 VJP (dense_attention, JAX's branch
+# for the DPT's ViT) and mm_conv's dx (f_bwd :112) at fp32
+KERNELS["attention_bwd_fp32"] = (
+    "cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
+    "dreamfusion_tpu/ops/attention.py:72")
+KERNELS["conv_dgrad_fp32_tiled"] = ("cuda",
+                                    "dreamfusion_tpu_torch/csrc/conv.cu",
+                                    "dreamfusion_tpu/ops/conv.py:95")
 # the stage-1 step: K4's head with the normals and the shading (and the head
 # alone in the density refresh)
 GRID_KERNELS = ("hashgrid_fwd", "hashgrid_bwd", "march_rays",
@@ -724,9 +750,12 @@ MMA_CONVS = [
 ]
 # The tiled fp32 route (conv_fwd_fp32_tiled) at odd shapes of no path (the
 # DPT's own shapes come from dpt_calls): O > 8, and O <= 8 with I % 4 != 0
-# (4-byte copies); their dgrads on conv_dgrad's fp32 loop
+# (4-byte copies); their dgrads on the tiled fp32 dgrad (a 3-channel dx in
+# the second; 4-byte copies of a 5-channel dy over 4 parity classes in the
+# third)
 FP32_TILED_CONVS = [(1, 33, 31, 16, 16, 3, 1, 1, "fp32", True),
-                    (1, 33, 31, 3, 8, 3, 1, 1, "fp32", True)]
+                    (1, 33, 31, 3, 8, 3, 1, 1, "fp32", True),
+                    (1, 21, 19, 6, 5, 3, 2, 1, "fp32", True)]
 # K11 in one SD 2.1 step: B, H, W, C, eps, SiLU, calls per step, and
 # whether the backward runs (the VAE encoder's, at 512²; the UNet at CFG
 # batch 2 on 64² latents runs forward only).  The UNet's resnet norms take
@@ -2311,6 +2340,12 @@ def field_query_phase(torch, results, x01, covered):
         "1e-5 of max |dtable|, of max |dx| (fp32 reductions in any order)",
         nbytes(x01, gh, tk, xk) + rows, N * L * 8 * Cg * 4, "fp32", None,
         where)
+    # the same positions with cotangents on the jacobian too (slice 13)
+    hess = []
+    encoder_hessian_rows(torch, results, x01, covered,
+                         f" [{N} DMTet queries, "
+                         f"{float(covered.float().mean()):.3f} covered]", hess)
+    log(f"encoder second-derivative rows {json.dumps(hess)}")
 
 
 def bake_kernel_phase(torch, results, obj_path):
@@ -4892,50 +4927,112 @@ PROFILE_FLAGS = ["--iters", "8", "--dataset_size_train", "4",
                  "--ckpt", "scratch", "--profile"]
 
 
-def dpt_calls(cfg, hw: int):
-    """K12's and K10's calls of one DPT forward at hw², from the model's own
-    forward on the meta device → ([(x shape, w shape, stride, pads)],
-    [q shape])."""
+def dpt_grad_calls(cfg, hw: int, grad: bool = True):
+    """K12's and K10's calls of one DPT at hw² on the meta device, from the
+    model's own ``forward_grad`` and, with `grad`, autograd's backward of
+    it with every weight and the input wanting gradients → [(kind, shapes
+    ...)]: ("conv", x shape, w shape, stride, pads) and ("attn", q shape)
+    in the forward; ("dgrad", ...) and ("wgrad", ...) where the backward
+    asks a conv's input or weight gradient, ("attn_bwd", q shape) where it
+    asks an attention's."""
     import torch
 
     from dreamfusion_tpu_torch.models import dpt as D
     from dreamfusion_tpu_torch.ops.conv import out_size
-    convs, attns = [], []
+    calls = []
+
+    class Conv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, bias, stride, pads):
+            ctx.key = (tuple(x.shape), tuple(w.shape), stride, pads)
+            calls.append(("conv", *ctx.key))
+            Ho, Wo = out_size(x.shape[1], x.shape[2], w.shape[1], w.shape[2],
+                              (stride, stride), pads)
+            return x.new_empty(x.shape[0], Ho, Wo, w.shape[0])
+
+        @staticmethod
+        def backward(ctx, dy):
+            need_x, need_w, need_b = ctx.needs_input_grad[:3]
+            x_shape, w_shape = ctx.key[:2]
+            if need_x:
+                calls.append(("dgrad", *ctx.key))
+            if need_w:
+                calls.append(("wgrad", *ctx.key))
+            return (dy.new_empty(x_shape) if need_x else None,
+                    dy.new_empty(w_shape) if need_w else None,
+                    dy.new_empty(w_shape[0]) if need_b else None, None, None)
+
+    class Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            calls.append(("attn", tuple(q.shape)))
+            return torch.empty_like(q)
+
+        @staticmethod
+        def backward(ctx, do):
+            calls.append(("attn_bwd", tuple(do.shape)))
+            return torch.empty_like(do), torch.empty_like(do), \
+                torch.empty_like(do)
 
     def conv2d(x, w, bias, stride, pads, out_dtype=None):
-        pads = tuple(map(tuple, pads))
-        convs.append((tuple(x.shape), tuple(w.shape), stride, pads))
-        Ho, Wo = out_size(x.shape[1], x.shape[2], w.shape[1], w.shape[2],
-                          (stride, stride), pads)
-        return torch.empty(x.shape[0], Ho, Wo, w.shape[0], device="meta")
-
-    def attention(q, k, v):
-        attns.append(tuple(q.shape))
-        return torch.empty_like(q)
+        return Conv.apply(x, w, bias, stride, tuple(map(tuple, pads)))
 
     saved = D.conv2d, D.attention
-    D.conv2d, D.attention = conv2d, attention
+    D.conv2d, D.attention = conv2d, Attention.apply
     try:
         with torch.device("meta"):
-            D.DPTDepthModel(cfg)(torch.empty(1, hw, hw, 3))
+            model = D.DPTDepthModel(cfg)
+            x = torch.empty(1, hw, hw, 3)
+            if grad:
+                model.requires_grad_(True)
+                x.requires_grad_(True)
+            out = model.forward_grad(x) if grad else model(x)
+            if grad:
+                out.sum().backward()
     finally:
         D.conv2d, D.attention = saved
-    return convs, attns
+    return calls
+
+
+def dpt_calls(cfg, hw: int):
+    """K12's and K10's calls of one DPT forward at hw² (``dpt_grad_calls``
+    without the backward) → ([(x shape, w shape, stride, pads)], [q
+    shape])."""
+    calls = dpt_grad_calls(cfg, hw, grad=False)
+    return ([c[1:] for c in calls if c[0] == "conv"],
+            [c[1] for c in calls if c[0] == "attn"])
+
+
+def _dpt_routes(torch, calls) -> dict:
+    """{route: launches} of recorded DPT calls (``dpt_grad_calls``)."""
+    from dreamfusion_tpu_torch.ops import attention as K10
+    from dreamfusion_tpu_torch.ops import conv as K12
+    f32 = torch.float32
+    out = {}
+    for kind, *shapes in calls:
+        if kind in ("attn", "attn_bwd"):
+            d = shapes[0][-1]
+            r = (K10.attention_route(d, f32) if kind == "attn" else
+                 K10.attention_bwd_route(d, f32))
+        else:
+            _, (O, kh, kw, I), st, _ = shapes
+            r = (K12.conv_route(f32, I, O, (st, st), kh * kw)
+                 if kind == "conv" else
+                 K12.dgrad_route(f32, I, O, (st, st), (kh, kw))
+                 if kind == "dgrad" else K12.wgrad_route(f32))
+        out[r] = out.get(r, 0) + 1
+    return out
 
 
 def dpt_launches(torch, cfg, hw: int = DPT_HW) -> dict:
     """{route: launches} of one DPT forward at hw² (``dpt_calls``)."""
-    from dreamfusion_tpu_torch.ops import attention as K10
-    from dreamfusion_tpu_torch.ops import conv as K12
-    convs, attns = dpt_calls(cfg, hw)
-    out = {}
-    for _, (O, kh, kw, I), st, _ in convs:
-        r = K12.conv_route(torch.float32, I, O, (st, st), kh * kw)
-        out[r] = out.get(r, 0) + 1
-    for q in attns:
-        r = K10.attention_route(q[-1], torch.float32)
-        out[r] = out.get(r, 0) + 1
-    return out
+    return _dpt_routes(torch, dpt_grad_calls(cfg, hw, grad=False))
+
+
+def dpt_grad_launches(torch, cfg, hw: int = DPT_HW) -> dict:
+    """{route: launches} of one DPT forward and backward at hw², every
+    weight and the input wanting gradients (``dpt_grad_calls``)."""
+    return _dpt_routes(torch, dpt_grad_calls(cfg, hw))
 
 
 def dpt_kernel_phases(torch, results) -> None:
@@ -5689,6 +5786,318 @@ def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
     return total
 
 
+# ---- the DPT's backward and the encoders' second derivative (slice 13) -----
+
+# The new kernels of the DPT's backward: K10's fp32 backward, K12's tiled
+# fp32 input gradient (its fp32 weight gradient is step 15's conv_wgrad_fp32)
+DPT_GRAD_KERNELS = ("attention_bwd_fp32", "conv_dgrad_fp32_tiled")
+
+
+def encoder_hessian_rows(torch, results, x01, keep, where, rows_json):
+    """K1's and K6's ``_dx`` backwards with cotangents on the jacobian too
+    (the second derivative into the positions; the planes' or table's
+    gradient from all four) at positions `x01` [N, 3], on the flagship's
+    3x256²x16 planes and L4C8 table, bf16 cotangents (zero on the rows
+    `keep` leaves out), each against its plain version, beside the same
+    launch with the features' cotangent alone (the frozen path); no
+    library call computes it.  Bound: bytes (the cotangents, the outputs
+    and the table rows the positions touch)."""
+    from dreamfusion_tpu_torch.config import Config
+    from dreamfusion_tpu_torch.ops import hashgrid as K6
+    from dreamfusion_tpu_torch.ops import kernels
+    from dreamfusion_tpu_torch.ops import triplane as K1
+    from dreamfusion_tpu_torch.training.trainer import grid_spec_of
+
+    dev = x01.device
+    g = torch.Generator(device=dev).manual_seed(9)
+    N = x01.shape[0]
+    k = keep[:, None].to(torch.float32)
+    cfg = Config()
+    R, C = cfg.triplane_resolution, cfg.triplane_channels
+    planes = torch.randn(3, R, R, C, device=dev, generator=g) * 0.1
+    spec = grid_spec_of(cfg)
+    L, Cg = spec.num_levels, spec.level_dim
+    table = (torch.rand(spec.table_size, Cg, device=dev, generator=g)
+             - 0.5) * 0.2
+    cases = {
+        "triplane_bwd_dx": (
+            3 * C, lambda gf, gj: K1.triplane_bwd_dx_cuda(x01, planes, gf, gj),
+            lambda gf, gj: K1.triplane_bwd_dx_plain(x01, planes, gf, gj),
+            int(torch.unique(K1._corners(x01, R)[0]).numel()) * C * 4,
+            N * 3 * 4 * C, f", {R}²x{C} planes"),
+        "hashgrid_bwd_dx": (
+            L * Cg, lambda gf, gj: K6.hash_bwd_dx_cuda(x01, table, spec, L,
+                                                       gf, gj),
+            lambda gf, gj: K6.hash_bwd_dx_plain(x01, table, spec, L, gf, gj),
+            int(torch.unique(torch.cat([K6._corners(x01, spec, l)[0]
+                                        .reshape(-1) for l in range(L)]))
+                .numel()) * Cg * 4,
+            N * L * 8 * Cg, f", L{L}C{Cg} {spec.interpolation}, "
+                            f"{spec.table_size} rows")}
+    for name, (D, cuda, plain, rows, terms, shape) in cases.items():
+        cots = [(torch.randn(N, D, device=dev, generator=g) * k).to(
+            torch.bfloat16) for _ in range(4)]
+        ms_of = {}
+        for jac in (True, False):
+            g_j = cots[1:] if jac else (None,) * 3
+            call = lambda: cuda(cots[0], g_j)
+            kernels.reset_launch_counts()
+            dt, dx = call()
+            torch.cuda.synchronize()
+            check(kernels.LAUNCHES[name] == 1 and
+                  sum(kernels.LAUNCHES.values()) == 1,
+                  f"{name}{where}: not one launch")
+            tp, xp = plain(cots[0], g_j)
+            err = max(assert_close(name, [dt], [tp],
+                                   1e-5 * float(tp.abs().max()), 1e-5),
+                      assert_close(name, [dx], [xp],
+                                   1e-5 * float(xp.abs().max()), 1e-5))
+            check(bool(torch.isfinite(dx).all()), f"{name}: dx not finite")
+            ms, k_g = median_ms(call), graph_ms(call)
+            n_bytes = nbytes(x01, *cots[:4 if jac else 1], dt, dx) + rows
+            flops = terms * (12 if jac else 4)
+            what = (f"{where}{shape}, " + ("+ jacobian cotangents" if jac
+                                           else "the features alone") +
+                    f", graph {k_g:.4f} ms")
+            if jac:
+                record_kernel(results, name, err, ms,
+                              median_ms(lambda: plain(cots[0], g_j), 3),
+                              "1e-5 of max |dtable|, of max |dx| (fp32 "
+                              "reductions in any order)", n_bytes, flops,
+                              "fp32", None, what)
+            else:
+                log(f"{name}{what}: kernel {ms:.4f} ms, max_abs_err "
+                    f"{err:.3e}")
+            ms_of[jac] = (ms, k_g, err, bound(n_bytes, flops, "fp32")[0])
+        rows_json.append({"kernel": name, "samples": N, "where": where,
+                          "ms": ms_of[True][0], "graph_ms": ms_of[True][1],
+                          "max_abs_err": ms_of[True][2],
+                          "bound_ms": ms_of[True][3],
+                          "frozen_ms": ms_of[False][0],
+                          "frozen_graph_ms": ms_of[False][1],
+                          "frozen_bound_ms": ms_of[False][3]})
+
+
+def dgrad_fp32_rows(torch, results, convs, counts, randn, rows_json):
+    """K12's tiled fp32 input gradient at each distinct conv shape of the
+    DPT against autograd of the plain forward (1e-5 relative plus 1e-4 of
+    the largest), beside cuDNN's input gradient alone
+    (``aten.convolution_backward`` with the input's mask, TF32 off; a
+    TF-SAME pad applied to x's shape first, as cuDNN pads symmetrically);
+    event and graph ms; bound: the forward's operations → the sums over
+    the 40 convs (event, graph, bound, cuDNN event and graph)."""
+    from dreamfusion_tpu_torch.ops import conv as K12
+    from dreamfusion_tpu_torch.ops import kernels
+
+    route = "conv_dgrad_fp32_tiled"
+    sums = [0.0] * 5
+    for row in convs:
+        B, H, W, I, O, k, st, pads, _ = row
+        where = f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} fp32 dgrad"
+        Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
+        w = randn(O, k, k, I, scale=(k * k * I) ** -0.5, dtype=torch.float32)
+        dy = randn(B, Ho, Wo, O, dtype=torch.float32)
+        call = lambda: K12.conv2d_dgrad_cuda(dy, w, (B, H, W, I), (st, st),
+                                             pads, torch.float32)
+        kernels.reset_launch_counts()
+        dx = call()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[route] == 1 and
+              sum(kernels.LAUNCHES.values()) == 1, f"{where}: not on {route}")
+
+        def plain():
+            xr = torch.zeros(B, H, W, I, device="cuda", requires_grad=True)
+            return torch.autograd.grad(K12.conv2d_plain(
+                xr, w, None, (st, st), pads, torch.float32), xr, dy)[0]
+
+        err = _close_to(route, dx, plain(), 1e-5, 1e-4)
+        (pt, pb), (pl, pr) = pads
+        wc = w.permute(0, 3, 1, 2)
+        dyc = dy.permute(0, 3, 1, 2)
+        xl = torch.empty(B, I, H + pt + pb, W + pl + pr, device="cuda")
+        lib_call = lambda: torch.ops.aten.convolution_backward(
+            dyc, xl, wc, None, [st, st], [0, 0], [1, 1], False, [0, 0], 1,
+            [True, False, False])
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib = median_ms(lib_call, 10)
+            lib_g = graph_ms(lib_call, 5, 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        ms, k_g = median_ms(call, 10), graph_ms(call)
+        flops = 2 * B * Ho * Wo * O * k * k * I
+        n_bytes = nbytes(dy, w, dx)
+        b_ms = bound(n_bytes, flops, "fp32")[0]
+        record_kernel(results, route, err, ms, median_ms(plain, 3),
+                      "1e-5 rel + 1e-4 of max", n_bytes, flops, "fp32", lib,
+                      where + f", graph {k_g:.4f} ms (cuDNN {lib_g:.4f})",
+                      main=row[:8] == DPT_MAIN_CONV[:8])
+        n = counts[row]
+        for i, v in enumerate((ms, k_g, b_ms, lib, lib_g)):
+            sums[i] += v * n
+        rows_json.append({"kernel": route, "row": [B, H, W, I, O, k, st,
+                                                   pads, "fp32"],
+                          "calls": n, "ms": ms, "graph_ms": k_g,
+                          "library_ms": lib, "library_graph_ms": lib_g,
+                          "bound_ms": b_ms})
+    return sums
+
+
+def dpt_backward_phase(torch, kernels, results, x01, smi_line) -> dict:
+    """The DPT's backward at full width on random weights and K1's and
+    K6's second derivative: K10's fp32 backward at the ViT's [1, 577, 12,
+    64] against its plain version and SDPA's fp32 backward (TF32 off); K12's
+    tiled fp32 dgrad and its fp32 wgrad at each of the 17 distinct conv
+    shapes of a 384² DPT against their plain versions and cuDNN's (TF32
+    off), the 40 convs' sums; the ``_dx`` rows with jacobian cotangents at stage
+    1's samples (`x01`; ``field_query_phase`` adds the DMTet query's 262,144
+    of a 512² view); all as one JSON line; then the DPT (depth head) at
+    384² with every weight and the input trainable: one forward and
+    backward, the counters reset just before, K10/K12 exactly as
+    ``dpt_grad_launches`` derives them on the meta device, every gradient
+    finite, the synchronised walls (median of 3) and the peak → the new
+    kernels' launches."""
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.models import dpt as D
+    from dreamfusion_tpu_torch.ops import attention as K10
+
+    randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(13))
+    cfg = D.DPTConfig.depth()
+    calls = dpt_grad_calls(cfg, DPT_HW)
+    rows_json = []
+    t0 = time.time()
+
+    # ---- K10's fp32 backward at the ViT's shape ---------------------------
+    (B, N, h, d), = {c[1] for c in calls if c[0] == "attn_bwd"}
+    q, k, v, do = (randn(B, N, h, d, dtype=torch.float32) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = K10.attention_fwd_cuda(q, k, v, scale)
+    call = lambda: K10.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    kernels.reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["attention_bwd_fp32"] == 1 and
+          sum(kernels.LAUNCHES.values()) == 1,
+          "the fp32 attention backward did not take attention_bwd_fp32")
+    plain = lambda: K10.attention_bwd_plain(q, k, v, o, do, scale)
+    err = max(_close_to("attention_bwd_fp32", a, b, 1e-5, 1e-4)
+              for a, b in zip(got, plain()))
+    # SDPA's backward through autograd (the engine's thread: events only)
+    qkvt = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ot, dot = F.scaled_dot_product_attention(*qkvt), do.transpose(1, 2)
+        lib = median_ms(lambda: torch.autograd.grad(ot, qkvt, dot,
+                                                    retain_graph=True), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ms, k_g = median_ms(call, 10), graph_ms(call)
+    n_bytes = nbytes(q, k, v, o, lse, do, *got)
+    flops, exps = 10 * B * h * N * N * d, B * h * N * N
+    record_kernel(results, "attention_bwd_fp32", err, ms,
+                  median_ms(plain, 3), "1e-5 rel + 1e-4 of max", n_bytes,
+                  flops, "fp32", lib,
+                  f" q [{B},{N},{h},{d}] fp32 backward, graph {k_g:.4f} ms",
+                  exps=exps, main=True)
+    rows_json.append({"kernel": "attention_bwd_fp32", "row": [B, N, h, d],
+                      "calls": 12, "ms": ms, "graph_ms": k_g,
+                      "library_ms": lib,
+                      "bound_ms": bound(n_bytes, flops, "fp32", exps)[0]})
+
+    # ---- K12's fp32 dgrad and wgrad at the 17 shapes ----------------------
+    counts = {}
+    for kind, x_shape, (O, kh, _, _), st, pads in (c for c in calls
+                                                   if c[0] == "dgrad"):
+        row = (*x_shape, O, kh, st, pads, "fp32")
+        counts[row] = counts.get(row, 0) + 1
+    convs = list(counts)
+    check(len(convs) == 17 and sum(counts.values()) == 40,
+          f"{len(convs)} DPT dgrad shapes, {sum(counts.values())} calls")
+    dg = dgrad_fp32_rows(torch, results, convs, counts, randn, rows_json)
+    n_wg = len(rows_json)
+    wgrad_rows(torch, results, convs, randn, rows_json)
+    wg = [0.0] * 5
+    for r in rows_json[n_wg:]:
+        n = counts[tuple(r["row"][:7]) + (tuple(map(tuple, r["row"][7])),
+                                          "fp32")]
+        for i, key in enumerate(("ms", "graph_ms", "bound_ms", "library_ms",
+                                 "library_graph_ms")):
+            wg[i] += r[key] * n
+    for name, sums in (("conv_dgrad_fp32_tiled", dg),
+                       ("conv_wgrad_fp32", wg)):
+        log(f"DPT {name}: the 40 convs of a 384² backward summed: event "
+            f"{sums[0]:.3f} ms, graph {sums[1]:.3f} ms against a bound of "
+            f"{sums[2]:.3f} ms; cuDNN (TF32 off) event {sums[3]:.3f}, graph "
+            f"{sums[4]:.3f} ms; on {smi_line}")
+
+    # ---- K1's and K6's second derivative ----------------------------------
+    encoder_hessian_rows(torch, results, x01, torch.ones(
+        x01.shape[0], dtype=torch.bool, device=x01.device),
+        f" [{x01.shape[0]} stage-1 samples]", rows_json)
+    log(f"DPT backward and encoder rows in {time.time() - t0:.1f} s")
+    log(f"DPT backward rows {json.dumps(rows_json)}")
+
+    # ---- the DPT's forward and backward at 384² ---------------------------
+    want = dpt_grad_launches(torch, cfg)
+    with torch.device("cuda"):
+        model = D.DPTDepthModel(cfg)
+    random_dpt_state(torch, model, 33)
+    model.requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(34)
+    x = torch.rand(1, DPT_HW, DPT_HW, 3, device="cuda", generator=g) * 2 - 1
+    walls = []
+    for it in range(3):
+        model.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        if it == 0:
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = model.forward_grad(xr)
+        if it == 0:
+            ct = torch.randn(out.shape, device="cuda", generator=g)
+        loss = (out * ct).sum()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append(((t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3))
+        if it == 0:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launched = {kk: vv for kk, vv in kernels.LAUNCHES.items()
+                        if vv and kk.startswith(("conv_", "attention_"))}
+            check(launched == want, f"DPT backward: launched {launched}, not "
+                  f"{want}")
+            # the checkpoint's final LayerNorm is dead in the reference too
+            bad = [n for n, p in model.named_parameters()
+                   if not n.startswith("pretrained.model.norm.") and
+                   (p.grad is None or not bool(torch.isfinite(p.grad).all()))]
+            check(not bad, f"DPT backward: {len(bad)} parameters without a "
+                  f"finite gradient, e.g. {bad[:3]}")
+            check(xr.grad is not None and bool(torch.isfinite(xr.grad).all())
+                  and bool(torch.isfinite(out).all()),
+                  "DPT backward: the output or the input's gradient not "
+                  "finite")
+            got_l = launched
+    n_par = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    run = {"fwd_ms": statistics.median(w[0] for w in walls),
+           "bwd_ms": statistics.median(w[1] for w in walls),
+           "first_bwd_ms": walls[0][1], "peak_gib": peak, "params": n_par}
+    log(f"DPT (vitb_rn50_384, depth) backward to its {n_par / 1e6:.2f}M "
+        f"weights and the input at {DPT_HW}²: forward {run['fwd_ms']:.2f} "
+        f"ms, backward {run['bwd_ms']:.2f} ms (median of 3, synchronised; "
+        f"the first {run['first_bwd_ms']:.2f}), peak {peak:.2f} GiB; "
+        f"launches {got_l}; on {smi_line}")
+    log(f"DPT backward walls {json.dumps(run)}")
+    return {k_: got_l.get(k_, 0) for k_ in DPT_GRAD_KERNELS}
+
+
 def run() -> dict:
     t_run = time.time()
     try:
@@ -5909,7 +6318,15 @@ def run() -> dict:
     grad_l = tower_backward_phase(torch, kernels, results, smi_line)
     log(f"tower backward phase in {time.time() - t_b:.1f} s")
 
+    # ---- the DPT's backward and the encoders' second derivative (slice
+    # 13) -------------------------------------------------------------------
+    t_b = time.time()
+    dpt_grad_l = dpt_backward_phase(torch, kernels, results, x01, smi_line)
+    log(f"DPT backward phase in {time.time() - t_b:.1f} s")
+
     def launches_of(name):
+        if name in DPT_GRAD_KERNELS:
+            return dpt_grad_l[name]
         if name in GRAD_KERNELS:
             return grad_l[name]
         if name in ("attention_fwd_fp32", "conv_fwd_fp32_tiled"):

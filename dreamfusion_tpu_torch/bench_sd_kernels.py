@@ -19,6 +19,8 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only dpt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
         --only dpt_splits
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only dpt_dgrad
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -120,6 +122,14 @@ outside the timing (padding 0 then), and K10's fp32 forward at the ViT's
 off); the rows of 5 GFLOP and more are timed over fewer calls (cuDNN's
 fp32 algorithm takes ~0.2 s at the 192² conv); a last line sums the 40
 convs' graph ms, the kernels' and cuDNN's.
+
+``--only dpt_dgrad`` times K12's input gradient (``conv2d_dgrad_cuda``:
+the route the checkout takes, the parent's one-thread-per-value loop or
+the tiled one) at each of the 17 distinct fp32 conv shapes of a 384²
+backward (``dpt_dgrad_cases``: the forward's 40 convs, the stem's
+3-channel dx included) beside cuDNN's input gradient alone
+(``aten.convolution_backward``, input mask, TF32 off, on an input of the
+TF-SAME padded shape); a last line sums the 40 dgrads' graph ms.
 
 ``--only dpt_splits`` times the tiled fp32 route alone at each of those
 17 shapes for every N tile (32, 64) and split (1-32) it takes
@@ -812,6 +822,44 @@ def dpt_cases(smoke, dev):
     return cases
 
 
+def dpt_dgrad_cases(smoke, dev):
+    """(row, the checkout's call, cuDNN's call) for K12's input gradient
+    at each distinct conv shape of a 384² DPT backward (see the module
+    docstring); inputs from a fixed seed."""
+    import torch
+
+    from dreamfusion_tpu_torch.models.dpt import DPTConfig
+    from dreamfusion_tpu_torch.ops import conv as K12
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    # each conv of the forward asks its input's gradient where the input
+    # wants one (the stem's too): the forward's calls, which any checkout's
+    # DPT gives
+    dgrads, _ = smoke.dpt_calls(DPTConfig.depth(), smoke.DPT_HW)
+    cases = []
+    for call in dict.fromkeys(dgrads):
+        (B, H, W, I), (O, kh, kw, _), st, pads = call
+        Ho, Wo = K12.out_size(H, W, kh, kw, (st, st), pads)
+        w = torch.randn(O, kh, kw, I, device=dev, generator=g) / \
+            (kh * kw * I) ** 0.5
+        dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g)
+        (pt, pb), (pl, pr) = pads
+        xl = torch.empty(B, I, H + pt + pb, W + pl + pr, device=dev)
+        gflop = 2 * B * Ho * Wo * O * kh * kw * I / 1e9
+        cases.append((
+            {"kernel": "K12 conv_dgrad", "shape": [B, H, W, I, O], "k": kh,
+             "stride": st, "pads": pads, "dtype": "fp32", "gflop": gflop,
+             "per_backward": dgrads.count(call), "slow": gflop >= 5},
+            functools.partial(K12.conv2d_dgrad_cuda, dy, w, (B, H, W, I),
+                              (st, st), pads, torch.float32),
+            functools.partial(torch.ops.aten.convolution_backward,
+                              dy.permute(0, 3, 1, 2), xl,
+                              w.permute(0, 3, 1, 2), None, [st, st], [0, 0],
+                              [1, 1], False, [0, 0], 1,
+                              [True, False, False])))
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
@@ -819,15 +867,15 @@ def main(argv=None) -> None:
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
                                        "gn_routes", "field", "dmtet",
                                        "render", "sdf", "dpt",
-                                       "dpt_splits"),
+                                       "dpt_splits", "dpt_dgrad"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
                     "it could take, only K1 and K6, only K7 and K8, "
                     "only K2, K3 and K4, only K9, only the DPT's K10 "
-                    "and K12 calls, or K12's tiled fp32 route over its N "
-                    "tiles and splits (the last seven not in the default "
-                    "set)")
+                    "and K12 calls, K12's tiled fp32 route over its N "
+                    "tiles and splits, or K12's dgrads at the DPT's shapes "
+                    "(the last eight not in the default set)")
     ap.add_argument("--sdf_mesh", default=None,
                     help="with --only sdf: the OBJ whose signed distance "
                     "K9 measures (default: a 50,000-triangle UV sphere)")
@@ -924,7 +972,8 @@ def main(argv=None) -> None:
     dgrads = []
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
             [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet",
-                                "render", "sdf", "dpt", "dpt_splits")
+                                "render", "sdf", "dpt", "dpt_splits",
+                                "dpt_dgrad")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -970,7 +1019,8 @@ def main(argv=None) -> None:
     branch = getattr(K10, "chunked_branch", None)
     for B, N, M, h, d, bwd in (
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
-                                "dmtet", "render", "sdf", "dpt", "dpt_splits")
+                                "dmtet", "render", "sdf", "dpt", "dpt_splits",
+                                "dpt_dgrad")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -1050,6 +1100,8 @@ def main(argv=None) -> None:
         cases += sdf_cases(smoke, dev, args.sdf_mesh)
     if args.only == "dpt":
         cases += dpt_cases(smoke, dev)
+    if args.only == "dpt_dgrad":
+        cases += dpt_dgrad_cases(smoke, dev)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -1125,9 +1177,10 @@ def main(argv=None) -> None:
                                          n_of(row, 10, 3))), **extra,
                 "routes": route_of(fn), "card": card}
             print(json.dumps(out), flush=True)
-            if row["kernel"] == "K12 conv_fwd" and "per_forward" in row:
+            n = row.get("per_forward", row.get("per_backward"))
+            if row["kernel"].startswith("K12 conv_") and n:
                 for key in sums:
-                    sums[key] += out[key] * row["per_forward"]
+                    sums[key] += out[key] * n
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1136,6 +1189,11 @@ def main(argv=None) -> None:
                           "dpt_convs_a_forward": sum(
                               r.get("per_forward", 0) for r, _, _ in cases
                               if r["kernel"] == "K12 conv_fwd"),
+                          **sums, "card": card}), flush=True)
+    if args.only == "dpt_dgrad":
+        print(json.dumps({"tag": args.tag, "kernel": "K12 conv_dgrad",
+                          "dpt_dgrads_a_backward": sum(
+                              r["per_backward"] for r, _, _ in cases),
                           **sums, "card": card}), flush=True)
 
 

@@ -1445,3 +1445,277 @@ extern "C" int attention_fwd_fp32(const float* q, const float* k,
                                                           M, H, scale);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// fp32 backward (the DPT's ViT-B blocks: [1, 577, 12, 64] fp32, JAX's dense
+// branch differentiated: P and dS kept in fp32)
+// ---------------------------------------------------------------------------
+//
+// CUDA cores, no TF32, as the forward.  Bound: operations, five products of
+// 2 N M d a head (S and dP recomputed for dK and dV, again for dQ: the
+// kernels do seven) = 2.56 GFLOP a DPT attention, 0.038 ms at 67 TFLOP/s.
+// Three kernels in one launch:
+//  - attn_bwd_fp32_dot_kernel: D = rowsum(dO o O), [B*h, N];
+//  - attn_bwd_fp32_kernel<true>: a block per (b, h, 32 keys) keeps K and V
+//    of its keys in shared memory and walks the queries in tiles of 64 (Q,
+//    dO, lse and D by cp.async into a double buffer): S^T and dP^T of its
+//    keys x the tile, P = exp(S scale - lse) and dS = P o (dP - D) into
+//    shared memory, then dV += P^T dO and dK += dS^T Q in registers;
+//  - attn_bwd_fp32_kernel<false>: a block per (b, h, 32 queries) keeps Q and
+//    dO (and their lse and D) and walks the keys in tiles of 64: the same S,
+//    dP, P and dS, then dQ += dS K.
+// The two walks share one kernel: a block's resident rows A1, A2 (K, V or Q,
+// dO) against the streamed tile's B1, B2 (Q, dO or K, V).  Each lane holds
+// 4 resident rows x 4 tile rows of S and dP (float4 reads along d: the
+// resident rows are broadcasts, the tile's 16 rows of a half-warp fall on
+// distinct banks at the padded stride), then 4 resident rows x 4 columns of
+// d of the outputs (float4 reads of P, dS and the tile along its rows).
+// Rows past N or M are zero-filled and their P set to 0.  No atomics: the
+// sums run in a fixed order (deterministic).
+namespace b32 {
+constexpr int D = 64, R = 32, T = 64, LD = D + 4, PLD = R + 4, kThreads = 128;
+constexpr size_t kSmem =
+    (size_t)(2 * R * LD + 2 * 2 * T * LD + 2 * T * PLD + 2 * 2 * T) *
+    sizeof(float);
+}  // namespace b32
+
+// D[z, n] = sum_d dO[b, n, h, d] O[b, n, h, d]: 16 lanes a row
+__global__ void attn_bwd_fp32_dot_kernel(const float* __restrict__ o,
+                                         const float* __restrict__ dout,
+                                         float* __restrict__ dvec, int N,
+                                         int H, int64_t rows) {
+  const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 16;
+  const int c = (threadIdx.x % 16) * 4;
+  float s = 0.f;
+  if (r < rows) {
+    const float4 a = *reinterpret_cast<const float4*>(o + r * b32::D + c);
+    const float4 g = *reinterpret_cast<const float4*>(dout + r * b32::D + c);
+    s = a.x * g.x + a.y * g.y + a.z * g.z + a.w * g.w;
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (r < rows && threadIdx.x % 16 == 0) {
+    // row r = (b N + n) H + h → D[(b H + h) N + n]
+    const int h = (int)(r % H);
+    const int64_t bn = r / H;
+    const int64_t b = bn / N, n = bn % N;
+    dvec[(b * H + h) * N + n] = s;
+  }
+}
+
+// KV: resident keys (A1 = K, A2 = V), streamed queries (B1 = Q, B2 = dO);
+// else resident queries (A1 = Q, A2 = dO), streamed keys (B1 = K, B2 = V).
+template <bool KV>
+__global__ void __launch_bounds__(b32::kThreads, 2)
+    attn_bwd_fp32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dvec,
+                         float* __restrict__ dq, float* __restrict__ dk,
+                         float* __restrict__ dv, int N, int M, int H,
+                         float scale) {
+  using namespace b32;
+  extern __shared__ __align__(16) float sm[];
+  float* A1 = sm;                          // [R][LD]
+  float* A2 = A1 + R * LD;                 // [R][LD]
+  float* B1 = A2 + R * LD;                 // [2][T][LD]
+  float* B2 = B1 + 2 * T * LD;             // [2][T][LD]
+  float* Ps = B2 + 2 * T * LD;             // [T][PLD]: P[t][r]
+  float* Gs = Ps + T * PLD;                // [T][PLD]: dS[t][r]
+  float* Ls = Gs + T * PLD;                // [2][T] lse of streamed queries
+  float* Ds = Ls + 2 * T;                  // [2][T] D of streamed queries
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int z = blockIdx.y, b = z / H, h = z % H, r0 = blockIdx.x * R;
+  const int nres = KV ? M : N, nstr = KV ? N : M;
+  const int64_t row = (int64_t)H * D;
+  const float* qz = q + (int64_t)b * N * row + (int64_t)h * D;
+  const float* kz = k + (int64_t)b * M * row + (int64_t)h * D;
+  const float* vz = v + (int64_t)b * M * row + (int64_t)h * D;
+  const float* gz = dout + (int64_t)b * N * row + (int64_t)h * D;
+  const float* a1g = KV ? kz : qz;
+  const float* a2g = KV ? vz : gz;
+  const float* b1g = KV ? qz : kz;
+  const float* b2g = KV ? gz : vz;
+  const float* lz = lse + (int64_t)z * N;
+  const float* dz = dvec + (int64_t)z * N;
+
+  // a thread copies 16-byte chunk tid % 16 of rows tid / 16 + 8 i
+  const int cc = (tid % 16) * 4, cr = tid / 16;
+  for (int r = cr; r < R; r += kThreads / 16) {
+    const bool in = r0 + r < nres;
+    const int64_t off = in ? (int64_t)(r0 + r) * row + cc : 0;
+    dft::cp_async16(A1 + r * LD + cc, a1g + off, in);
+    dft::cp_async16(A2 + r * LD + cc, a2g + off, in);
+  }
+  auto load_tile = [&](int buf, int t0) {
+    float* b1 = B1 + buf * T * LD;
+    float* b2 = B2 + buf * T * LD;
+    for (int r = cr; r < T; r += kThreads / 16) {
+      const bool in = t0 + r < nstr;
+      const int64_t off = in ? (int64_t)(t0 + r) * row + cc : 0;
+      dft::cp_async16(b1 + r * LD + cc, b1g + off, in);
+      dft::cp_async16(b2 + r * LD + cc, b2g + off, in);
+    }
+    if (KV && tid < T) {
+      const bool in = t0 + tid < N;
+      dft::cp_async4(Ls + buf * T + tid, in ? lz + t0 + tid : lz, in);
+      dft::cp_async4(Ds + buf * T + tid, in ? dz + t0 + tid : dz, in);
+    }
+  };
+  load_tile(0, 0);
+  dft::cp_async_commit();
+
+  // phase 1: resident rows tr + 8 j, tile rows tt + 16 i
+  const int tr = warp * 2 + lane / 16, tt = lane % 16;
+  // phase 2: resident rows pr*4 .. + 3, columns pd*4 .. + 3 of d
+  const int pr = tid / 16, pd = tid % 16;
+  float lse_r[4], d_r[4];                 // the resident queries' (not KV)
+  if (!KV) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = r0 + tr + 8 * j;
+      lse_r[j] = n < N ? lz[n] : 0.f;
+      d_r[j] = n < N ? dz[n] : 0.f;
+    }
+  }
+  float acc1[4][4], acc2[4][4];           // KV: dV, dK; else dQ in acc2
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc1[i][c] = acc2[i][c] = 0.f;
+
+  const int tiles = (nstr + T - 1) / T;
+  for (int it = 0; it < tiles; ++it) {
+    dft::cp_async_wait<0>();
+    __syncthreads();                       // tile it landed; it - 1 is done
+    if (it + 1 < tiles) load_tile((it + 1) & 1, (it + 1) * T);
+    dft::cp_async_commit();
+    const float* b1 = B1 + (it & 1) * T * LD;
+    const float* b2 = B2 + (it & 1) * T * LD;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 x1[4], x2[4], y1[4], y2[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x1[j] = *reinterpret_cast<const float4*>(A1 + (tr + 8 * j) * LD + d);
+        x2[j] = *reinterpret_cast<const float4*>(A2 + (tr + 8 * j) * LD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y1[i] = *reinterpret_cast<const float4*>(b1 + (tt + 16 * i) * LD + d);
+        y2[i] = *reinterpret_cast<const float4*>(b2 + (tt + 16 * i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[j][i] = fmaf(x1[j].x, y1[i].x, s[j][i]);
+          s[j][i] = fmaf(x1[j].y, y1[i].y, s[j][i]);
+          s[j][i] = fmaf(x1[j].z, y1[i].z, s[j][i]);
+          s[j][i] = fmaf(x1[j].w, y1[i].w, s[j][i]);
+          dp[j][i] = fmaf(x2[j].x, y2[i].x, dp[j][i]);
+          dp[j][i] = fmaf(x2[j].y, y2[i].y, dp[j][i]);
+          dp[j][i] = fmaf(x2[j].z, y2[i].z, dp[j][i]);
+          dp[j][i] = fmaf(x2[j].w, y2[i].w, dp[j][i]);
+        }
+    }
+    const float* lt = Ls + (it & 1) * T;
+    const float* dt = Ds + (it & 1) * T;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = tt + 16 * i;
+      const bool in = it * T + t < nstr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float l = KV ? lt[t] : lse_r[j];
+        const float dd = KV ? dt[t] : d_r[j];
+        const float p = in ? expf(s[j][i] * scale - l) : 0.f;
+        Ps[t * PLD + tr + 8 * j] = p;
+        Gs[t * PLD + tr + 8 * j] = p * (dp[j][i] - dd);
+      }
+    }
+    __syncthreads();
+    // phase 2: KV: dV += P^T dO (acc1), dK += dS^T Q (acc2); else
+    // dQ += dS K (acc2)
+#pragma unroll 4
+    for (int t = 0; t < T; ++t) {
+      const float4 g4 = *reinterpret_cast<const float4*>(Gs + t * PLD +
+                                                         pr * 4);
+      const float4 y1 = *reinterpret_cast<const float4*>(b1 + t * LD +
+                                                         pd * 4);
+      const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
+      const float yy1[4] = {y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc2[i][c] = fmaf(gg[i], yy1[c], acc2[i][c]);
+      if (KV) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Ps + t * PLD +
+                                                           pr * 4);
+        const float4 y2 = *reinterpret_cast<const float4*>(b2 + t * LD +
+                                                           pd * 4);
+        const float pp[4] = {p4.x, p4.y, p4.z, p4.w};
+        const float yy2[4] = {y2.x, y2.y, y2.z, y2.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc1[i][c] = fmaf(pp[i], yy2[c], acc1[i][c]);
+      }
+    }
+  }
+  dft::cp_async_wait<0>();
+  float* out2 = KV ? dk : dq;
+  const int64_t zb = (int64_t)b * nres * row + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + pr * 4 + i;
+    if (r >= nres) continue;
+    const int64_t at = zb + (int64_t)r * row + pd * 4;
+    *reinterpret_cast<float4*>(out2 + at) =
+        make_float4(acc2[i][0] * scale, acc2[i][1] * scale,
+                    acc2[i][2] * scale, acc2[i][3] * scale);
+    if (KV)
+      *reinterpret_cast<float4*>(dv + at) =
+          make_float4(acc1[i][0], acc1[i][1], acc1[i][2], acc1[i][3]);
+  }
+}
+
+// dq, dk, dv [B, N|M, H, 64] fp32 from q, k, v, o, dout (fp32, 16-byte
+// aligned, q's layout) and the forward's lse [B, H, N]; dvec [B*H*N] fp32
+// scratch for D = rowsum(dO o O).
+extern "C" int attention_bwd_fp32(const float* q, const float* k,
+                                  const float* v, const float* o,
+                                  const float* dout, const float* lse,
+                                  float* dq, float* dk, float* dv,
+                                  float* dvec, int B, int N, int M, int H,
+                                  int D, float scale, cudaStream_t stream) {
+  using namespace b32;
+  if (D != b32::D || M < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0 || B * H == 0) return (int)cudaGetLastError();
+  static bool set_kv[hop::kMaxDevices] = {}, set_q[hop::kMaxDevices] = {};
+  cudaError_t err =
+      hop::allow_smem(attn_bwd_fp32_kernel<true>, (int)kSmem, set_kv);
+  if (err == cudaSuccess)
+    err = hop::allow_smem(attn_bwd_fp32_kernel<false>, (int)kSmem, set_q);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)B * N * H;
+  attn_bwd_fp32_dot_kernel<<<(unsigned)((rows * 16 + 255) / 256), 256, 0,
+                             stream>>>(o, dout, dvec, N, H, rows);
+  attn_bwd_fp32_kernel<true>
+      <<<dim3((M + R - 1) / R, B * H), kThreads, kSmem, stream>>>(
+          q, k, v, dout, lse, dvec, dq, dk, dv, N, M, H, scale);
+  attn_bwd_fp32_kernel<false>
+      <<<dim3((N + R - 1) / R, B * H), kThreads, kSmem, stream>>>(
+          q, k, v, dout, lse, dvec, dq, dk, dv, N, M, H, scale);
+  return (int)cudaGetLastError();
+}

@@ -137,8 +137,20 @@
 //    its kernel); a wgmma tile would waste 125 of its 128 columns.
 //  - conv_dgrad_fp32 (fp32, O <= 8: the conv_outs' dx): CUDA cores, fp32
 //    FMAs, a thread per 4 channels x 8 pixels.
-//  - conv_dgrad: mma.sync as above over the classes (grid z), the weight
-//    transposed to [I, kh, kw, O] per call; fp32 one thread per value.
+//  - conv_dgrad_fp32_tiled (every other fp32 dgrad: the DPT's 40, its
+//    3-channel stem's dx included): the tiled fp32 forward's design below
+//    (conv_dgrad_fp32_tiled_kernel).  Bound by operations, as the forward (the
+//    DPT's 40: 123.19 GFLOP, 1.84 ms at 67 TFLOP/s).  A tile is 128 pixels
+//    of one class's grid x 32 or 64 channels of dx; the A operand gathers
+//    dy at the class's taps (a stride-1 conv of dy with its flipped
+//    sub-kernel), B reads the class's rows of the packed weight (as the
+//    wgmma dgrad's, cached); all classes and splits walk in one launch
+//    (grid z = class x split), and a class without taps (three of the 1x1
+//    stride-2 downsample's four) writes its zeros, so the split partials
+//    cover dx and the split-K reduce sums them in order.
+//  - conv_dgrad (bf16 only): mma.sync as above over the classes (grid z),
+//    the weight transposed to [I, kh, kw, O] per call; one thread a value
+//    where O % 8 != 0.
 //
 // wgrad (f_bwd's dk, :112-114: the transpose of the shifted einsums in the
 // kernel).  dW[o, r, s, c] = sum_{b, oh, ow} dy[b, oh, ow, o] *
@@ -404,10 +416,11 @@ __global__ void conv_splitk_reduce(ConvParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core path of the dgrads mma.sync cannot take: one thread per value
+// CUDA-core path of the bf16 dgrads mma.sync cannot take (O % 8 != 0): one
+// thread per value
 // ---------------------------------------------------------------------------
 
-template <typename T, bool DGRAD>
+template <bool DGRAD>
 __global__ void conv_simple_kernel(ConvParams p) {
   const ConvClass cc = conv_class<DGRAD>(p, blockIdx.y);
   const int64_t total = (int64_t)p.B * cc.Hc * cc.Wc * p.N;
@@ -417,9 +430,9 @@ __global__ void conv_simple_kernel(ConvParams p) {
   const int64_t m = idx / p.N;
   const int cx = m % cc.Wc, cy = (m / cc.Wc) % cc.Hc,
             b = m / ((int64_t)cc.Wc * cc.Hc);
-  const T* __restrict__ X = static_cast<const T*>(p.x);
-  const T* __restrict__ Wt =
-      static_cast<const T*>(p.w) + (int64_t)n * p.KH * p.KW * p.C;
+  const bf16* __restrict__ X = static_cast<const bf16*>(p.x);
+  const bf16* __restrict__ Wt =
+      static_cast<const bf16*>(p.w) + (int64_t)n * p.KH * p.KW * p.C;
   float acc = 0.f;
   for (int t = 0; t < cc.nt; ++t) {
     for (int u = 0; u < cc.nu; ++u) {
@@ -427,8 +440,8 @@ __global__ void conv_simple_kernel(ConvParams p) {
       conv_src<DGRAD>(p, cc, cy, cx, t, u, sy, sx);
       if (sy < 0 || sy >= p.SH || sx < 0 || sx >= p.SW) continue;
       const int r = cc.r0 + cc.rstep * t, s = cc.s0 + cc.sstep * u;
-      const T* xp = X + (((int64_t)b * p.SH + sy) * p.SW + sx) * p.C;
-      const T* wp = Wt + (int64_t)(r * p.KW + s) * p.C;
+      const bf16* xp = X + (((int64_t)b * p.SH + sy) * p.SW + sx) * p.C;
+      const bf16* wp = Wt + (int64_t)(r * p.KW + s) * p.C;
       for (int c = 0; c < p.C; ++c)
         acc = fmaf(dft::to_f32(xp[c]), dft::to_f32(wp[c]), acc);
     }
@@ -443,7 +456,8 @@ __global__ void conv_simple_kernel(ConvParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 tiled implicit GEMM on the CUDA cores (conv_fwd_fp32_tiled)
+// fp32 tiled implicit GEMM on the CUDA cores (conv_fwd_fp32_tiled, and its
+// input gradient conv_dgrad_fp32_tiled)
 // ---------------------------------------------------------------------------
 
 namespace ft {
@@ -474,12 +488,23 @@ __device__ __forceinline__ void ft_copy(float* dst, const float* src,
     dft::cp_async4(dst, src, ok);
 }
 
-// y[m, n] = sum_k A[m, k] w[n, k] + bias[n] over pixels m = (b, oy, ox) and
-// k = (tap, channel), for the K steps of split blockIdx.z (partials to ws
-// when p.splits > 1).  VEC: I % 4 == 0, each copy 4 channels of one tap.
+// The implicit GEMM both tiled kernels run: acc[i][j] = sum_k A[m, k] B[n, k]
+// over the tile's pixels m = m0 + ty + 16 i of a GH x GW grid on each of the
+// p.B images and channels n = n0 + tx + TX j, for the K steps of split
+// `split` of p.splits; k = (tap, channel) over KW-wide rows of taps and the
+// p.C channels of X (p.x [B, SH, SW, C]), K = taps * C.  A gathers X at
+// pixel (oy * ys - y0 + r, ox * xs - x0 + s) for tap (r, s) (zeros outside
+// the image, past K or past M); B reads rows n0.. of Wt, ldw floats apart
+// (zeros past p.N).  VEC: C % 4 == 0, each copy 4 channels of one tap.
+// Sets tx, ty (the thread's place in the tile) first: computed by the
+// caller instead, the forward's 32-channel tile ran 7% slower on an H100.
 template <int BN, bool VEC>
-__global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
-    conv_fp32_tiled_kernel(ConvParams p) {
+__device__ __forceinline__ void ft_gemm(const ConvParams& p,
+                                        const float* __restrict__ Wt, int ldw,
+                                        int GH, int GW, int ys, int y0, int xs,
+                                        int x0, int KW, int K, int m0, int n0,
+                                        int split, int& tx, int& ty,
+                                        float (&acc)[8][8]) {
   using Cf = ft::Cfg<BN>;
   constexpr int TBM = ft::BM, TBK = ft::BK, LDK = ft::LDK,
                 STAGES = ft::STAGES;
@@ -492,25 +517,23 @@ __global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
   int* pix_x = pix_y + TBM;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tx = lane % Cf::TX, ty = warp * (32 / Cf::TX) + lane / Cf::TX;
-  const int M = p.B * p.OH * p.OW;
-  const int K = p.KH * p.KW * p.C;
-  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  tx = lane % Cf::TX;
+  ty = warp * (32 / Cf::TX) + lane / Cf::TX;
+  const int M = p.B * GH * GW;
   const int KT_all = (K + TBK - 1) / TBK;
   const int kt0 = (int)((int64_t)KT_all * split / p.splits);
   const int KT = (int)((int64_t)KT_all * (split + 1) / p.splits) - kt0;
   const float* __restrict__ X = static_cast<const float*>(p.x);
-  const float* __restrict__ Wt = static_cast<const float*>(p.w);
 
   // the tile's pixels: their image's offset and tap (0, 0)'s source pixel
   for (int r = tid; r < TBM; r += T) {
     const int m = m0 + r;
     const bool in = m < M;
     const int mm = in ? m : 0;
-    const int ox = mm % p.OW, oy = (mm / p.OW) % p.OH, b = mm / (p.OW * p.OH);
+    const int ox = mm % GW, oy = (mm / GW) % GH, b = mm / (GW * GH);
     pix_img[r] = (int64_t)b * p.SH * p.SW * p.C;
-    pix_y[r] = in ? oy * p.sh - p.pt : ft::kFarRow;
-    pix_x[r] = ox * p.sw - p.pl;
+    pix_y[r] = in ? oy * ys - y0 : ft::kFarRow;
+    pix_x[r] = ox * xs - x0;
   }
   __syncthreads();
 
@@ -526,7 +549,7 @@ __global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
     const bool k_ok = k < K;
     const int tap = k_ok ? k / p.C : 0;
     const int c = k - tap * p.C;
-    const int r = tap / p.KW, s = tap - r * p.KW;
+    const int r = tap / KW, s = tap - r * KW;
     float* as = As + slot * TBM * LDK;
     float* bs = Bs + slot * BN * LDK;
 #pragma unroll
@@ -543,12 +566,11 @@ __global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
     for (int i = 0; i < B_COPIES; ++i) {
       const int row = row0 + i * ROWS;
       const bool ok = k_ok && n0 + row < p.N;
-      const float* src = ok ? Wt + (int64_t)(n0 + row) * K + k : Wt;
+      const float* src = ok ? Wt + (int64_t)(n0 + row) * ldw + k : Wt;
       ft_copy<VEC>(bs + row * LDK + kc, src, ok);
     }
   };
 
-  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -593,6 +615,23 @@ __global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
             acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);
     }
   }
+}
+
+// y[m, n] = sum_k A[m, k] w[n, k] + bias[n] over pixels m = (b, oy, ox) and
+// k = (tap, channel), for the K steps of split blockIdx.z (partials to ws
+// when p.splits > 1).  VEC: I % 4 == 0, each copy 4 channels of one tap.
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
+    conv_fp32_tiled_kernel(ConvParams p) {
+  using Cf = ft::Cfg<BN>;
+  int tx, ty;
+  const int M = p.B * p.OH * p.OW;
+  const int K = p.KH * p.KW * p.C;
+  const int m0 = blockIdx.x * ft::BM, n0 = blockIdx.y * BN,
+            split = blockIdx.z;
+  float acc[8][8];
+  ft_gemm<BN, VEC>(p, static_cast<const float*>(p.w), K, p.OH, p.OW, p.sh,
+                   p.pt, p.sw, p.pl, p.KW, K, m0, n0, split, tx, ty, acc);
 
   // epilogue: + bias in fp32, or this split's partial sums
   float* part =
@@ -616,6 +655,57 @@ __global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
         static_cast<float*>(p.y)[row + n] = v;
       else
         static_cast<bf16*>(p.y)[row + n] = __float2bfloat16(v);
+    }
+  }
+}
+
+// The input gradient on the forward's tiles, ring and inner loop
+// (conv_dgrad_fp32_tiled; ft_gemm above).  p as conv_dgrad's (x: dy [B, SH,
+// SW, C], w: the packed weight [classes * N, ldw] of
+// ops/conv.py::pack_dgrad_weight, y: dx [B, OH, OW, N]).  blockIdx.z is
+// class * splits + split; a class is a stride-1 conv of dy with its flipped
+// sub-kernel (nt x nu taps, K = nt nu C, its weight rows class * N ..) over
+// its grid Hc x Wc, each pixel written to dx[:, py::sh, px::sw]; a class
+// without taps writes zeros (its partials too).  VEC: C (and ldw) a
+// multiple of 4, each copy 4 channels of one tap.
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(ft::Cfg<BN>::kThreads)
+    conv_dgrad_fp32_tiled_kernel(ConvParams p, int ldw) {
+  using Cf = ft::Cfg<BN>;
+  int tx, ty;
+  const int split = blockIdx.z % p.splits;
+  const ConvClass cls = conv_class<true>(p, blockIdx.z / p.splits);
+  // this class's grid
+  const int GH = cls.Hc, GW = cls.Wc;
+  const int M = p.B * GH * GW;
+  const int m0 = blockIdx.x * ft::BM, n0 = blockIdx.y * BN;
+  if (m0 >= M) return;                     // a smaller class's ragged grid
+  const float* Wt = static_cast<const float*>(p.w) +
+                    (int64_t)(blockIdx.z / p.splits) * p.N * ldw;
+  float acc[8][8];
+  // tap (0, 0)'s source offset, as a stride-1 conv of dy with the flipped
+  // sub-kernel
+  ft_gemm<BN, VEC>(p, Wt, ldw, GH, GW, 1, cls.nt - 1 - cls.oy, 1,
+                   cls.nu - 1 - cls.ox, cls.nu, cls.nt * cls.nu * p.C, m0, n0,
+                   split, tx, ty, acc);
+
+  // epilogue: dx, or this split's partial sums (over all of dx)
+  float* part = p.splits > 1
+                    ? p.ws + (int64_t)split * p.B * p.OH * p.OW * p.N
+                    : nullptr;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + i * 16 + ty;
+    if (m >= M) continue;
+    // the class's pixel → its place in dx
+    const int cx = m % GW, cy = (m / GW) % GH, b = m / (GW * GH);
+    const int64_t row = (((int64_t)b * p.OH + cls.py + p.sh * cy) * p.OW +
+                         cls.px + p.sw * cx) * p.N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + j * Cf::TX + tx;
+      if (n >= p.N) continue;
+      (part ? part : static_cast<float*>(p.y))[row + n] = acc[i][j];
     }
   }
 }
@@ -1280,14 +1370,14 @@ inline void forward_class(WgConv& p, int pt, int pl, int kw, int kblocks) {
 }
 
 template <bool DGRAD>
-int launch_conv(const ConvParams& p, int is_bf16, cudaStream_t stream) {
+int launch_conv(const ConvParams& p, cudaStream_t stream) {
   const int classes = DGRAD ? p.sh * p.sw : 1;
   // rows of the largest class (class 0)
   const int Hc = DGRAD ? (p.OH + p.sh - 1) / p.sh : p.OH;
   const int Wc = DGRAD ? (p.OW + p.sw - 1) / p.sw : p.OW;
   const int64_t M = (int64_t)p.B * Hc * Wc;
   if (M == 0 || p.N == 0) return (int)cudaGetLastError();
-  if (is_bf16 && p.C % 8 == 0) {
+  if (p.C % 8 == 0) {
     if (p.splits < 1 || (p.splits > 1 && p.ws == nullptr))
       return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)((M + BM - 1) / BM), (p.N + BN - 1) / BN,
@@ -1301,10 +1391,7 @@ int launch_conv(const ConvParams& p, int is_bf16, cudaStream_t stream) {
   } else if constexpr (DGRAD) {
     const int threads = 256;
     dim3 grid((unsigned)((M * p.N + threads - 1) / threads), classes);
-    if (is_bf16)
-      conv_simple_kernel<bf16, DGRAD><<<grid, threads, 0, stream>>>(p);
-    else
-      conv_simple_kernel<float, DGRAD><<<grid, threads, 0, stream>>>(p);
+    conv_simple_kernel<DGRAD><<<grid, threads, 0, stream>>>(p);
   } else {
     return (int)cudaErrorInvalidValue;   // the forward: bf16, I % 8 == 0
   }
@@ -1335,6 +1422,38 @@ template <int BN>
 int launch_fp32_tiled_bn(const ConvParams& p, cudaStream_t stream) {
   return p.C % 4 == 0 ? launch_fp32_tiled<BN, true>(p, stream)
                       : launch_fp32_tiled<BN, false>(p, stream);
+}
+
+// the sh*sw parity classes in one launch, the grid over class (0, 0)'s (the
+// largest), ldw the packed weight's row length
+template <int BN, bool VEC>
+int launch_dgrad_fp32_tiled(const ConvParams& p, int ldw,
+                            cudaStream_t stream) {
+  using Cf = ft::Cfg<BN>;
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err = hop::allow_smem(
+      conv_dgrad_fp32_tiled_kernel<BN, VEC>, (int)Cf::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t M = (int64_t)p.B * ((p.OH + p.sh - 1) / p.sh) *
+                    ((p.OW + p.sw - 1) / p.sw);
+  dim3 grid((unsigned)((M + ft::BM - 1) / ft::BM), (p.N + BN - 1) / BN,
+            p.sh * p.sw * p.splits);
+  conv_dgrad_fp32_tiled_kernel<BN, VEC>
+      <<<grid, Cf::kThreads, Cf::kSmem, stream>>>(p, ldw);
+  if (p.splits > 1) {
+    const int64_t total = (int64_t)p.B * p.OH * p.OW * p.N;
+    conv_splitk_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_dgrad_fp32_tiled_bn(const ConvParams& p, int ldw,
+                               cudaStream_t stream) {
+  return p.C % 4 == 0 && ldw % 4 == 0
+             ? launch_dgrad_fp32_tiled<BN, true>(p, ldw, stream)
+             : launch_dgrad_fp32_tiled<BN, false>(p, ldw, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1628,19 +1747,18 @@ extern "C" int conv_fwd_mma(const void* x, const void* w, const float* bias,
                             float* ws, cudaStream_t stream) {
   ConvParams p{x, w, bias, y, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw, pt, pl,
                out_f32, splits, ws};
-  return launch_conv<false>(p, 1, stream);
+  return launch_conv<false>(p, stream);
 }
 
-// dx[B,H,W,I] from dy[B,Ho,Wo,O] and the transposed weight wT[I,kh,kw,O];
-// splits and ws as for conv_fwd_mma (ws [splits * B*H*W*I]).
+// dx[B,H,W,I] from bf16 dy[B,Ho,Wo,O] and the transposed weight
+// wT[I,kh,kw,O]; splits and ws as for conv_fwd_mma (ws [splits * B*H*W*I]).
 extern "C" int conv_dgrad(const void* dy, const void* wT, void* dx, int B,
                           int H, int W, int I, int Ho, int Wo, int O, int kh,
-                          int kw, int sh, int sw, int pt, int pl, int is_bf16,
-                          int out_f32, int splits, float* ws,
-                          cudaStream_t stream) {
+                          int kw, int sh, int sw, int pt, int pl, int out_f32,
+                          int splits, float* ws, cudaStream_t stream) {
   ConvParams p{dy, wT, nullptr, dx, B, Ho, Wo, O, H, W, I, kh, kw, sh, sw,
                pt, pl, out_f32, splits, ws};
-  return launch_conv<true>(p, is_bf16, stream);
+  return launch_conv<true>(p, stream);
 }
 
 // The Hopper route: y[B,Ho,Wo,O] = conv(x[B,H,W,I], w[O,kh,kw,I]) + bias at
@@ -1762,6 +1880,37 @@ extern "C" int conv_fwd_fp32_tiled(const void* x, const void* w,
                      pt, pl, out_f32, splits, ws};
   return bn == 64 ? launch_fp32_tiled_bn<64>(p, stream)
                   : launch_fp32_tiled_bn<32>(p, stream);
+}
+
+// The fp32 tiled input gradient: dx[B,H,W,I] from dy[B,Ho,Wo,O] (fp32; with
+// O % 4 == 0, 16-byte aligned dy and wp) of a conv at any strides sh, sw
+// with top/left padding pt, pl, as its sh*sw parity classes in one launch
+// (the dgrad note above) on the tiled forward's design.  wp is the weight
+// packed per class, [sh*sw*I, kmax] with kmax % 4 == 0
+// (ops/conv.py::pack_dgrad_weight).  Tiles of 128 pixels of a class x bn
+// (32 or 64) channels of dx; splits > 1 needs ws, fp32 [splits * B*H*W*I],
+// summed in split order (a class without taps writes its zeros there too).
+extern "C" int conv_dgrad_fp32_tiled(const void* dy, const void* wp,
+                                     void* dx, int B, int H, int W, int I,
+                                     int Ho, int Wo, int O, int kh, int kw,
+                                     int sh, int sw, int pt, int pl,
+                                     int kmax, int bn, int splits,
+                                     float* ws, cudaStream_t stream) {
+  if ((bn != 32 && bn != 64) || splits < 1 || sh < 1 || sw < 1 || O < 1 ||
+      kh < 1 || kw < 1 || kmax < 1 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int py = 0; py < sh; ++py)
+    for (int px = 0; px < sw; ++px) {
+      const int r0 = (py + pt) % sh, s0 = (px + pl) % sw;
+      const int nt = r0 < kh ? (kh - r0 + sh - 1) / sh : 0;
+      const int nu = s0 < kw ? (kw - s0 + sw - 1) / sw : 0;
+      if ((int64_t)nt * nu * O > kmax) return (int)cudaErrorInvalidValue;
+    }
+  if ((int64_t)B * H * W == 0 || I == 0) return (int)cudaGetLastError();
+  const ConvParams p{dy, wp, nullptr, dx, B, Ho, Wo, O, H, W, I, kh, kw, sh,
+                     sw, pt, pl, 1, splits, ws};
+  return bn == 64 ? launch_dgrad_fp32_tiled_bn<64>(p, kmax, stream)
+                  : launch_dgrad_fp32_tiled_bn<32>(p, kmax, stream);
 }
 
 // The Hopper route of the input gradient: dx[B,H,W,I] from dy[B,Ho,Wo,O]

@@ -26,7 +26,11 @@
 // meet; csrc/field.cuh) and adds each corner row with float4 (C = 2:
 // float2) reductions.  hashgrid_bwd_dx gives, in the same walk, dL/dx =
 // sum g_feat * dfeat/dx from the corner rows it reads (the DMTet albedo
-// query's positions); the levels' partials are summed in shared memory.
+// query's positions) and, with cotangents on the jacobian, sum_d g_j_d *
+// dj_d/dx (jax.grad through jax.jvp of hash_encode): per corner, the
+// weights' mixed terms t_f * (+-ds_d dpos_d) * (+-ds_e dpos_e) and, under
+// smoothstep, the pure one t_e t_f * (+-s''(f_d) dpos_d^2), s'' = 6 - 12 f;
+// the levels' partials are summed in shared memory.
 //
 // Rules kept from hash_encode: pos = clip(x*res - 0.5, 0, res - 1) (x*res
 // and the subtraction rounded separately, as the plain version and XLA do);
@@ -77,6 +81,7 @@ struct Geom {
   unsigned base[3];
   float t[3][2];      // per axis: the factor of corner bit 0 (1-s), bit 1 (s)
   float dt[3];        // d s / d x_d, d pos / d x included
+  float ddt[3];       // d2 s / d x_d2 (d pos / d x twice; 0 when linear)
 };
 
 __device__ __forceinline__ void level_geom(const float xs[3], int res,
@@ -88,13 +93,15 @@ __device__ __forceinline__ void level_geom(const float xs[3], int res,
     const float pos = fminf(fmaxf(raw, 0.f), hi);
     const float fl = floorf(pos);
     const float f = __fsub_rn(pos, fl);
-    float s, ds;
+    float s, ds, d2s;
     if (smooth) {
       s = __fmul_rn(__fmul_rn(f, f), __fsub_rn(3.f, __fmul_rn(2.f, f)));
       ds = __fmul_rn(__fmul_rn(6.f, f), __fsub_rn(1.f, f));
+      d2s = __fsub_rn(6.f, __fmul_rn(12.f, f));
     } else {
       s = f;
       ds = 1.f;
+      d2s = 0.f;
     }
     const float dpos = (raw > 0.f && raw < hi) ? fres
                        : (raw == 0.f || raw == hi) ? 0.5f * fres : 0.f;
@@ -102,6 +109,7 @@ __device__ __forceinline__ void level_geom(const float xs[3], int res,
     g.t[d][0] = __fsub_rn(1.f, s);
     g.t[d][1] = s;
     g.dt[d] = __fmul_rn(ds, dpos);
+    g.ddt[d] = __fmul_rn(__fmul_rn(d2s, dpos), dpos);
   }
 }
 
@@ -188,8 +196,9 @@ __global__ void hash_fwd_kernel(const float* __restrict__ x,
 }
 
 // The table's gradient for cotangents on feat and on jx, jy, jz (any may be
-// null), and with DX the positions' gradient dx [N, 3] from g_feat (the
-// jacobians' cotangents are null there).  A warp per (level, 32 consecutive
+// null), and with DX the positions' gradient dx [N, 3] from all of them
+// (g_feat through the first derivative, the jacobians' through the
+// second).  A warp per (level, 32 consecutive
 // samples); a block holds the L levels of G such groups (blockDim.x =
 // 32 L G), and sums their dx partials in shared memory.  Lanes whose
 // cotangents are all zero, or whose sample is outside or level inactive,
@@ -223,6 +232,7 @@ __global__ void __launch_bounds__(kBwdThreads)
              field::any_nonzero(g1) || field::any_nonzero(g2);
   }
   float d[3] = {0.f, 0.f, 0.f};            // this level's share of dx
+  const bool hess = DX && (g_jx || g_jy || g_jz);
   if (__any_sync(field::kFull, active)) {
     const Level lp = load_level(levels, l);
     Geom g;
@@ -239,6 +249,34 @@ __global__ void __launch_bounds__(kBwdThreads)
         for (int c = 0; c < C; ++c) s += gf[c] * row[c];
 #pragma unroll
         for (int e = 0; e < 3; ++e) d[e] += q.dw[e] * s;
+        if (hess) {
+          // sum_d (g_j_d . row) * d dw_d / d x_e (untouched, bit for bit,
+          // where the jacobian's cotangents are null)
+          float sj[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            sj[0] += g0[c] * row[c];
+            sj[1] += g1[c] * row[c];
+            sj[2] += g2[c] * row[c];
+          }
+          const int bits[3] = {k & 1, (k >> 1) & 1, (k >> 2) & 1};
+          float tk[3], sg[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            tk[a] = g.t[a][bits[a]];
+            sg[a] = bits[a] ? g.dt[a] : -g.dt[a];
+          }
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const int b = (a + 1) % 3, f = (a + 2) % 3;
+            // pure: t_b t_f (+-ddt_a); mixed (a, b): t_f sg_a sg_b
+            d[a] += sj[a] * tk[b] * tk[f] *
+                    (bits[a] ? g.ddt[a] : -g.ddt[a]);
+            const float m = tk[f] * sg[a] * sg[b];
+            d[b] += sj[a] * m;
+            d[a] += sj[b] * m;
+          }
+        }
       }
       float coef[C];
 #pragma unroll
@@ -478,20 +516,21 @@ extern "C" int hashgrid_bwd(const float* x, const int* levels, int N, int L,
   return (int)cudaGetLastError();
 }
 
+// dtable and dx for cotangents on feat and on jx, jy, jz (any may be null;
+// with the three jacobian ones null, the first derivative alone)
 extern "C" int hashgrid_bwd_dx(const float* x, const float* table,
                                const int* levels, int N, int L, int C,
                                int n_active, int smooth, int xor_hash,
-                               const void* g_feat, int g_bf16, float* dtable,
-                               float* dx, void* stream) {
+                               const void* g_feat, const void* g_jx,
+                               const void* g_jy, const void* g_jz, int g_bf16,
+                               float* dtable, float* dx, void* stream) {
   const cudaError_t e =
       g_bf16 ? bwd_dispatch<__nv_bfloat16, true>(
                    C, (cudaStream_t)stream, x, table, levels, N, L, n_active,
-                   smooth, xor_hash, g_feat, nullptr, nullptr, nullptr,
-                   dtable, dx)
+                   smooth, xor_hash, g_feat, g_jx, g_jy, g_jz, dtable, dx)
              : bwd_dispatch<float, true>(
                    C, (cudaStream_t)stream, x, table, levels, N, L, n_active,
-                   smooth, xor_hash, g_feat, nullptr, nullptr, nullptr,
-                   dtable, dx);
+                   smooth, xor_hash, g_feat, g_jx, g_jy, g_jz, dtable, dx);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

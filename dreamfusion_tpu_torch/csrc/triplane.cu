@@ -25,8 +25,13 @@
 // view, all at one point), merges the contributions of neighbouring lanes
 // in the same cell (csrc/field.cuh) and adds each corner chunk with float4
 // reductions.  triplane_bwd_dx gives, in the same walk, dL/dx = sum g *
-// dfeat/dx from the corner values it reads; a block holds the three planes
-// of 64 samples, and their (u, v) partials are summed in shared memory.
+// dfeat/dx from the corner values it reads, and with cotangents on the
+// jacobian the second derivative sum g_j * dj/dx too (jax.grad over
+// triplane_encode_with_xgrad): per plane, d ju / d v = d jv / d u = (R-1)^2
+// (v00 - v01 - v10 + v11), each masked by the jacobian's strict rule on its
+// own axis and by the autodiff rule on the other (d2/du2 = 0: bilinear).  A
+// block holds the three planes of 64 samples, and their (u, v) partials are
+// summed in shared memory.
 //
 // Rules kept from _bilinear_plane_with_grad: coordinates are clipped to
 // [0,1]; the jacobian along a plane axis is zero unless 0 < coord < 1
@@ -52,6 +57,7 @@ struct Setup {
   float w[4];       // bilinear weights
   float du[4];      // d w / d u, scaled by (R-1) and the strict inside mask
   float dv[4];      // d w / d v, likewise
+  float su, sv;     // (R-1) times the strict inside masks of u and v
   float fy, fx;     // fractional positions along u and v
   unsigned cell;    // i0 * R + j0: the merge key
 };
@@ -96,6 +102,8 @@ __device__ __forceinline__ Setup setup(float u, float v, int p, int R, int C) {
   q.w[2] = fy * (1.f - fx);
   q.w[3] = fy * fx;
   const float su = scale * mu, sv = scale * mv;
+  q.su = su;
+  q.sv = sv;
   q.du[0] = -(1.f - fx) * su;
   q.du[1] = -fx * su;
   q.du[2] = (1.f - fx) * su;
@@ -168,8 +176,8 @@ __global__ void __launch_bounds__(kFwdThreads)
 }
 
 // The planes' gradient for cotangents on feat and on jx, jy, jz (any may be
-// null), and with DX the positions' gradient dx [N, 3] from g_feat (the
-// jacobians' cotangents are null there).
+// null), and with DX the positions' gradient dx [N, 3] from all of them (g_feat
+// through the first derivative, the jacobians' through the second).
 template <typename G, int V, bool DX>
 __global__ void __launch_bounds__(kThreads)
     triplane_bwd_kernel(const float* __restrict__ x,
@@ -241,6 +249,17 @@ __global__ void __launch_bounds__(kThreads)
                            q.fy * (val[3][i] - val[2][i]);
           su += gf[i] * fu;
           sv += gf[i] * fv;
+        }
+        // the jacobian's cotangents: d jv / d u and d ju / d v, the mixed
+        // term (untouched, bit for bit, where both are null)
+        if (gu || gv) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float mixed =
+                (val[0][i] - val[1][i]) - (val[2][i] - val[3][i]);
+            if (gv) su += gb[i] * mixed * q.sv;
+            if (gu) sv += ga[i] * mixed * q.su;
+          }
         }
       }
 #pragma unroll
@@ -356,18 +375,22 @@ extern "C" int triplane_bwd(const float* x, int N, int R, int C,
   return (int)cudaGetLastError();
 }
 
+// dplanes and dx for cotangents on feat and on jx, jy, jz (any may be null;
+// with the three jacobian ones null, the first derivative alone)
 extern "C" int triplane_bwd_dx(const float* x, const float* planes, int N,
-                               int R, int C, const void* g_feat, int g_bf16,
-                               float* dplanes, float* dx, void* stream) {
+                               int R, int C, const void* g_feat,
+                               const void* g_jx, const void* g_jy,
+                               const void* g_jz, int g_bf16, float* dplanes,
+                               float* dx, void* stream) {
   if (N > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     if (g_bf16)
       bwd_dispatch<__nv_bfloat16, true>(chunk_of(C), s, x, planes, N, R, C,
-                                        g_feat, nullptr, nullptr, nullptr,
-                                        dplanes, dx);
+                                        g_feat, g_jx, g_jy, g_jz, dplanes,
+                                        dx);
     else
       bwd_dispatch<float, true>(chunk_of(C), s, x, planes, N, R, C, g_feat,
-                                nullptr, nullptr, nullptr, dplanes, dx);
+                                g_jx, g_jy, g_jz, dplanes, dx);
   }
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,16 @@ flax's fp32 ``GroupNorm(32)`` in plain torch, as in JAX (not K11).  The ViT
 blocks take flax's LayerNorm (epsilon 1e-6), the exact GELU and K10
 (``ops/attention.py::attention``: fp32 q, k, v over 577 tokens, the
 dense branch).
+
+The weights load frozen and ``forward`` runs under ``no_grad``, as
+``preprocess_image`` infers with it.  ``forward_grad`` is the same network
+with autograd, as ``jax.grad`` differentiates JAX's ``apply``: with
+``requires_grad_(True)`` on the model (or on the input) it takes the
+gradient of every weight and the input, through K10's fp32 backward
+(``attention_bwd_fp32``), K12's fp32 input and weight gradients
+(``conv_dgrad_fp32_tiled``, ``conv_wgrad_fp32``) and plain torch for the
+rest (the weight standardisation, the norms, the max pool, the resizes),
+as JAX's are plain XLA.
 """
 
 from __future__ import annotations
@@ -70,6 +80,8 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 
 
 def _param(*shape) -> nn.Parameter:
+    """A weight, frozen until ``requires_grad_(True)`` asks for its
+    gradient."""
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
 
 
@@ -399,6 +411,12 @@ class DPTDepthModel(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Inference: ``forward_grad`` without autograd."""
+        return self.forward_grad(x)
+
+    def forward_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward with autograd: differentiable with respect to every
+        weight that wants a gradient and to x."""
         cfg, pre, sc = self.cfg, self.pretrained, self.scratch
         x = x.float()
         B, H, W, _ = x.shape

@@ -35,8 +35,13 @@ the logits as the forward formed them: on JAX's chunked branch with a scale
 that is not a power of two, from bf16(q·scale) (a fifth kernel writes it
 first), whose derivative passes straight through the rounding as in JAX.
 ``attention_bwd_plain`` is the kernels' arithmetic in torch (P and dS
-rounded to bf16 between the products), the card's reference.  On a CPU
-tensor the plain version runs and its backward is autograd of it.
+rounded to bf16 between the products), the card's reference.  The fp32
+forward's backward (the DPT's, JAX's dense branch differentiated) is
+``attention_bwd_fp32`` on the CUDA cores: the row dots, then a pass a
+(head, 32 keys) that recomputes P from q, k and the forward's lse for dV
+and dK, and a pass a (head, 32 queries) for dQ, P and dS in fp32 (the
+plain version's, with no rounding in fp32).  On a CPU tensor the plain
+version runs and its backward is autograd of it.
 """
 
 from __future__ import annotations
@@ -158,10 +163,16 @@ _BWD_ROUTES = {40: "attention_bwd_wgmma_d40", 80: "attention_bwd_wgmma_d80",
                160: "attention_bwd_wgmma_d160"}
 
 
-def attention_bwd_route(d: int) -> str:
+def attention_bwd_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The launch counter (and entry point) of the backward at head dim
-    `d`: SD 1.5's 40, 80 and 160 each their own, "attention_bwd_wgmma" at d
-    % 64 == 0 (64 and 512 on the paths)."""
+    `d`: fp32 (the DPT's) "attention_bwd_fp32" at d = 64; bf16 SD 1.5's 40,
+    80 and 160 each their own, "attention_bwd_wgmma" at d % 64 == 0 (64 and
+    512 on the paths)."""
+    if dtype == torch.float32:
+        if d != _FP32_D:
+            raise ValueError(f"the fp32 attention backward takes d = "
+                             f"{_FP32_D}, got {d}")
+        return "attention_bwd_fp32"
     if d in _BWD_ROUTES:
         return _BWD_ROUTES[d]
     if d % 64:
@@ -182,7 +193,8 @@ def attention_bwd_plain(q, k, v, o, do, scale: float,
     ``attention_plain``), P = their softmax rounded to q's dtype, dP = dO
     Vᵀ, D = rowsum(dO ∘ O), dS = P ∘ (dP − D) rounded likewise, dV = Pᵀ dO,
     dK = scale dSᵀ q (with the rounded q·scale, dSᵀ of it) and dQ = scale
-    dS K."""
+    dS K.  For fp32 q (JAX's dense branch, P cast to fp32) nothing is
+    rounded: ``jax.vjp`` of ``dense_attention``."""
     dt = q.dtype
     qs, s_scale = q.float(), scale
     if _prescale(round_q, scale):
@@ -202,27 +214,36 @@ def attention_bwd_plain(q, k, v, o, do, scale: float,
 
 def attention_bwd_cuda(q, k, v, o, lse, do, scale: float,
                        round_q: bool = False):
-    """→ (dq, dk, dv), bf16: one call of the route
-    ``attention_bwd_route`` names (the row dots, the scores pass and the
-    three products on wgmma + TMA; with `round_q` on a scale that is not
-    2^k, bf16(q·scale) first).  The fp32 forward has no backward (the DPT
-    runs under ``no_grad``): fp32 q raises here."""
-    B, N, M, H, D = _check(q, k, v)
-    route = attention_bwd_route(D)
-    do = do.to(torch.bfloat16).contiguous()
+    """→ (dq, dk, dv) in q's dtype: one call of the route
+    ``attention_bwd_route`` names.  bf16: the row dots, the scores pass and
+    the three products on wgmma + TMA; with `round_q` on a scale that is
+    not 2^k, bf16(q·scale) first.  fp32 (d = 64, JAX's dense branch only):
+    the row dots and the two CUDA-core passes of ``attention_bwd_fp32``."""
+    B, N, M, H, D = _check(q, k, v, (torch.bfloat16, torch.float32))
+    route = attention_bwd_route(D, q.dtype)
+    do = do.to(q.dtype).contiguous()
     kernels.check_cuda(o, lse, do)
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
-        raise ValueError("the attention kernels read q, k, v, o and do by "
-                         "TMA: 16-byte aligned tensors only")
-    prescale = _prescale(round_q, scale)
-    Mp = -(-M // 8) * 8
+        raise ValueError("the attention kernels read q, k, v, o and do in "
+                         "16-byte units (TMA, cp.async): 16-byte aligned "
+                         "tensors only")
     Z = B * H
     dev = q.device
     dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if route == "attention_bwd_fp32":
+        if round_q:
+            raise ValueError("the fp32 attention backward takes JAX's dense "
+                             "branch only")
+        kernels.launch(route, *(kernels.ptr(t) for t in (
+            q, k, v, o, do, lse, dq, dk, dv, dvec)), B, N, M, H, D,
+            float(scale))
+        return dq, dk, dv
+    prescale = _prescale(round_q, scale)
+    Mp = -(-M // 8) * 8
     p = torch.empty(Z, N, Mp, device=dev, dtype=torch.bfloat16)
     ds = torch.empty_like(p)
     qs = torch.empty_like(q) if prescale else None
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     args = [kernels.ptr(t) for t in (q, k, v, o, do, lse, dq, dk, dv, dvec,
                                      p, ds, qs)] + [B, N, M, H]
     if route == "attention_bwd_wgmma":

@@ -22,24 +22,28 @@ implicit GEMM on the CUDA cores (``conv_fwd_fp32_tiled``) for every other
 fp32 conv (the DPT's 40), and the mma.sync implicit GEMM for the bf16
 rest, which no SD-step shape reaches; the tensor-core routes and the tiled
 fp32 one split over K where the output tiles alone cannot fill the card.
-The input gradient is one launch of one of four routes, chosen by
+The input gradient is one launch of one of five routes, chosen by
 ``dgrad_route`` on the shape alone: the wgmma kernel over dx's parity
 classes (``conv_dgrad_wgmma``; bf16, O % 64 == 0, stride 1 or 2: at stride
 1 a forward conv of dy with the flipped, transposed weight, packed once per
 weight version and cached: 70.6 MB for the SD VAE encoder, whose weights
 are 65.8 MB), mma.sync with A fragments from device memory for the narrow
 dx of the conv_ins (``conv_dgrad_narrow``), CUDA cores for the fp32
-conv_outs (``conv_dgrad_fp32``), and mma.sync (``conv_dgrad``) for the
-rest, which no SD-step shape reaches.  The weight gradient (``f_bwd``'s
-dk) is one launch of one of two routes, chosen by ``wgrad_route`` on the
-dtype: mma.sync for bf16 (``conv_wgrad_mma``) and CUDA cores for fp32
-(``conv_wgrad_fp32``), each a GEMM per tap split over the pixels, the
-splits' partials summed in order in the same launch; the bias's gradient
-is one sum of dy.  x is saved for the backward only where the weight asks
-for a gradient (the frozen towers keep none).  On a CPU tensor the plain
-versions run: the JAX package's shifted-einsum form (``_einsum_conv``),
-for dx the kernels' own decomposition through it
-(``conv2d_dgrad_plain``), for dW its transpose (``conv2d_wgrad_plain``).
+conv_outs (``conv_dgrad_fp32``), the tiled fp32 forward's design over dx's
+parity classes for every other fp32 dgrad (``conv_dgrad_fp32_tiled``: the
+DPT's 40, its 3-channel stem's dx and the 1x1 stride-2 downsamples, whose
+three tapless classes come out as zeros, included; the same packed
+weight), and mma.sync (``conv_dgrad``) for the bf16 rest, which no SD-step
+shape reaches.  The weight gradient (``f_bwd``'s dk) is one launch of one
+of two routes, chosen by ``wgrad_route`` on the dtype: mma.sync for bf16
+(``conv_wgrad_mma``) and CUDA cores for fp32 (``conv_wgrad_fp32``), each a
+GEMM per tap split over the pixels, the splits' partials summed in order
+in the same launch; the bias's gradient is one sum of dy.  x is saved for
+the backward only where the weight asks for a gradient (the frozen towers
+keep none).  On a CPU tensor the plain versions run: the JAX package's
+shifted-einsum form (``_einsum_conv``), for dx the kernels' own
+decomposition through it (``conv2d_dgrad_plain``), for dW its transpose
+(``conv2d_wgrad_plain``).
 """
 
 from __future__ import annotations
@@ -342,18 +346,21 @@ def dgrad_route(dtype: torch.dtype, I: int, O: int,
     O <= 256, O % 32 == 0 and kh, kw <= 3 (the VAE's 3-channel conv_in),
     "conv_dgrad_wgmma" for other bf16 with O % 64 == 0 at strides of 1 or 2
     (a K block is 64 of dy's channels: every level and downsampler of the
-    VAE encoder), "conv_dgrad_fp32" for fp32 with O <= 8 and I % 4 == 0 (the
-    conv_outs), else "conv_dgrad" (mma.sync; fp32 one thread per value),
-    which no dgrad of the SD step takes (the towers' test widths do)."""
+    VAE encoder), else "conv_dgrad" for bf16 (mma.sync), which no dgrad of
+    the SD step takes (the towers' test widths do); "conv_dgrad_fp32" for
+    fp32 with O <= 8 and I % 4 == 0 (the conv_outs), else
+    "conv_dgrad_fp32_tiled" for fp32 at any stride, I and O (the DPT's
+    convs, its 3-channel stem included)."""
     kh, kw = kernel
-    if dtype == torch.bfloat16:
-        if (I <= _DX_NARROW_I and tuple(stride) == (1, 1) and O % 32 == 0
-                and O <= _DX_NARROW_O and kh <= 3 and kw <= 3):
-            return "conv_dgrad_narrow"
-        if O % 64 == 0 and max(stride) <= 2:
-            return "conv_dgrad_wgmma"
-    if dtype == torch.float32 and O <= _NARROW_O and I % 4 == 0:
-        return "conv_dgrad_fp32"
+    if dtype == torch.float32:
+        if O <= _NARROW_O and I % 4 == 0:
+            return "conv_dgrad_fp32"
+        return "conv_dgrad_fp32_tiled"
+    if (I <= _DX_NARROW_I and tuple(stride) == (1, 1) and O % 32 == 0
+            and O <= _DX_NARROW_O and kh <= 3 and kw <= 3):
+        return "conv_dgrad_narrow"
+    if O % 64 == 0 and max(stride) <= 2:
+        return "conv_dgrad_wgmma"
     return "conv_dgrad"
 
 
@@ -475,10 +482,32 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
     (pt, _), (pl, _) = pads
     route = dgrad_route(w.dtype, I, O, stride, (kh, kw))
     kernels.check_cuda(dy, w)
-    if route != "conv_dgrad" and any(t.data_ptr() % 16 for t in (dy, w)):
+    # what the route reads in 16-byte units (the tiled fp32 route reads dy
+    # 4 bytes at a time where O % 4 != 0, and its own packed weight)
+    if route == "conv_dgrad":
+        direct = ()
+    elif route == "conv_dgrad_fp32_tiled":
+        direct = (dy,) if O % 4 == 0 else ()
+    else:
+        direct = (dy, w)
+    if any(t.data_ptr() % 16 for t in direct):
         raise ValueError(f"{route} reads dy and w in 16-byte units: 16-byte "
                          "aligned tensors only")
     f32 = int(out_dtype == torch.float32)
+    sms = kernels.sm_count(dy.device)
+    if route == "conv_dgrad_fp32_tiled":
+        if out_dtype != torch.float32:
+            raise ValueError("conv_dgrad_fp32_tiled writes an fp32 dx")
+        pk = _packed_dgrad_weight(w, stride, pads)
+        taps = max(c["nt"] * c["nu"] for c in
+                   dgrad_classes(H, W, kh, kw, stride, pads))
+        bn, splits = fp32_tiling(B * H * W, I, taps * O, sms)
+        dx = torch.empty(B, H, W, I, device=dy.device, dtype=torch.float32)
+        ws = _workspace(splits, dx.numel(), dy.device)
+        kernels.launch(route, kernels.ptr(dy), kernels.ptr(pk),
+                       kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                       pt, pl, pk.shape[1], bn, splits, kernels.ptr(ws))
+        return dx
     if route == "conv_dgrad_fp32":
         if out_dtype != torch.float32:
             raise ValueError("conv_dgrad_fp32 writes an fp32 dx")
@@ -488,7 +517,6 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
                        pt, pl)
         return dx
     dx = torch.empty(B, H, W, I, device=dy.device, dtype=out_dtype)
-    sms = kernels.sm_count(dy.device)
     if route == "conv_dgrad_narrow":
         wf = _cached_pack(w, ("dgrad_narrow",),
                           lambda: pack_dgrad_narrow_weight(w))
@@ -511,9 +539,8 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
                        kernels.ptr(ws))
         return dx
     wT = w.permute(3, 1, 2, 0).contiguous()          # [I, kh, kw, O]
-    bf16 = w.dtype == torch.bfloat16
     splits = 1
-    if bf16 and O % 8 == 0:
+    if O % 8 == 0:
         tiles = (_cdiv(B * _cdiv(H, sh) * _cdiv(W, sw), _TILE) *
                  _cdiv(I, _TILE) * sh * sw)
         splits = split_k(tiles, _cdiv(kh, sh) * _cdiv(kw, sw) * O // _BK_MMA,
@@ -521,7 +548,7 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
     ws = _workspace(splits, dx.numel(), dy.device)
     kernels.launch(route, kernels.ptr(dy), kernels.ptr(wT),
                    kernels.ptr(dx), B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
-                   pt, pl, int(bf16), f32, splits, kernels.ptr(ws))
+                   pt, pl, f32, splits, kernels.ptr(ws))
     return dx
 
 

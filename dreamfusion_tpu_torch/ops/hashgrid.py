@@ -18,8 +18,12 @@ tensor the plain versions below run.  The table receives gradients through
 both the features and the jacobian, so normals built from the jacobian
 differentiate into it with first-order autograd.  The positions receive the
 features' gradient when they ask for one (dL/dx = Σ g·∂feat/∂x), from the
-same backward launch as the table's (``hashgrid_bwd_dx``); the jacobian's
-own gradient into the positions raises.
+same backward launch as the table's (``hashgrid_bwd_dx``), and in that
+launch the jacobian's own gradient too (the second derivative ``jax.grad``
+takes through ``jax.jvp`` of ``hash_encode``): the trilinear weights'
+mixed terms on every level, and under ``interpolation="smoothstep"`` the
+pure one, smoothstep″(t) = 6 − 12t; the clip's tie rule enters once per
+derivative (a quarter at the lattice's ends for the pure term).
 
 ``hashgrid_tv_loss`` (squared differences between sampled lattice cells and
 their +x, +y, +z neighbours) and ``hashgrid_wd_loss`` (level-meaned weight
@@ -139,11 +143,14 @@ def _level_index(c: torch.Tensor, res: int, size: int, dense: bool,
     return h % size
 
 
-def _corners(x: torch.Tensor, spec: HashGridSpec, l: int):
+def _corners(x: torch.Tensor, spec: HashGridSpec, l: int,
+             hessian: bool = False):
     """One level: flat table rows of the 8 corners [N, 8] (corner bit d =
     axis d), their weights [N, 8] and the weights' derivatives along x, y,
     z [N, 8, 3] (zero outside the clip interval, half at its ends, as the
-    JAX package's clip differentiates)."""
+    JAX package's clip differentiates); with ``hessian``, also the
+    derivatives of those along x, y, z [N, 8, 3, 3] ([k, d, e] = ∂dw[k,
+    d]/∂x_e), the clip's factor taken once more for each."""
     res, size = spec.resolutions[l], spec.level_sizes[l]
     dense = spec.dense(l)
     raw = x * res - 0.5
@@ -153,30 +160,40 @@ def _corners(x: torch.Tensor, spec: HashGridSpec, l: int):
     if spec.interpolation == "smoothstep":
         s = f * f * (3.0 - 2.0 * f)
         ds = 6.0 * f * (1.0 - f)
+        d2s = 6.0 - 12.0 * f
     else:
-        s, ds = f, torch.ones_like(f)
+        s, ds, d2s = f, torch.ones_like(f), torch.zeros_like(f)
     inside = (raw > 0) & (raw < res - 1)
     edge = (raw == 0) | (raw == res - 1)
     dpos = torch.where(inside, float(res),
                        torch.where(edge, 0.5 * res, 0.0))
     dt = ds * dpos                                        # [N, 3]
+    ddt = d2s * dpos * dpos
     t = torch.stack([1.0 - s, s], -1)                     # [N, 3, 2]
     base = fl.long()
-    ws, dws, ids = [], [], []
+    ws, dws, d2ws, ids = [], [], [], []
     for k in range(8):
         bits = [(k >> d) & 1 for d in range(_D)]
-        t0, t1, t2 = (t[:, d, b] for d, b in enumerate(bits))
+        t0, t1, t2 = tk = [t[:, d, b] for d, b in enumerate(bits)]
         sg = [dt[:, d] if b else -dt[:, d] for d, b in enumerate(bits)]
         ws.append(t0 * t1 * t2)
         dws.append(torch.stack([t1 * t2 * sg[0], t0 * t2 * sg[1],
                                 t0 * t1 * sg[2]], -1))
+        if hessian:
+            h = [[None] * _D for _ in range(_D)]
+            for d in range(_D):
+                e, g = (d + 1) % _D, (d + 2) % _D
+                h[d][d] = tk[e] * tk[g] * (ddt[:, d] if bits[d] else
+                                           -ddt[:, d])
+                h[d][e] = h[e][d] = tk[g] * sg[d] * sg[e]
+            d2ws.append(torch.stack([torch.stack(r, -1) for r in h], -2))
         c = base + torch.tensor(bits, device=x.device)
         if dense or spec.gridtype == "hash":
             c = torch.clamp(c, max=res - 1)
         ids.append(_level_index(c, res, size, dense, spec.gridtype))
     off = spec.offsets[l]
-    return (torch.stack(ids, 1) + off, torch.stack(ws, 1),
-            torch.stack(dws, 1))
+    out = (torch.stack(ids, 1) + off, torch.stack(ws, 1), torch.stack(dws, 1))
+    return out + (torch.stack(d2ws, 1),) if hessian else out
 
 
 def _oob(x: torch.Tensor) -> torch.Tensor:
@@ -229,21 +246,33 @@ def hash_bwd_plain(x: torch.Tensor, spec: HashGridSpec, n_active: int,
 
 def hash_bwd_dx_plain(x: torch.Tensor, table: torch.Tensor,
                       spec: HashGridSpec, n_active: int,
-                      g_feat: torch.Tensor
+                      g_feat: Optional[torch.Tensor],
+                      g_j: Sequence[Optional[torch.Tensor]] = (None,) * 3
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dtable [T, C], dx [N, 3]) for a cotangent on feat [N, L·C]:
-    dx = Σ_l Σ_c g·∂feat/∂x, the weights' derivatives under the clip's tie
-    rule (``_corners``)."""
+    """(dtable [T, C], dx [N, 3]) for cotangents on feat and on jx, jy, jz
+    (each [N, L·C] or None): dx = Σ_l Σ_c g_feat·∂feat/∂x + Σ_d
+    g_j_d·∂j_d/∂x, the weights' derivatives under the clip's tie rule
+    (``_corners``)."""
     N, C, L = x.shape[0], spec.level_dim, spec.num_levels
-    dtable = hash_bwd_plain(x, spec, n_active, g_feat, (None,) * 3)
-    g = g_feat.float().reshape(N, L, C) * (~_oob(x)).to(torch.float32)[
-        :, None, None]
+    dtable = hash_bwd_plain(x, spec, n_active, g_feat, g_j)
+    keep = (~_oob(x)).to(torch.float32)[:, None, None]
+
+    def per_level(g):
+        return None if g is None else g.float().reshape(N, L, C) * keep
+
+    gf, gj = per_level(g_feat), [per_level(g) for g in g_j]
+    hess = any(g is not None for g in gj)
     dx = torch.zeros(N, 3, device=x.device)
     for l in range(n_active):
-        ids, _, dw = _corners(x, spec, l)
+        ids, _, dw, *d2w = _corners(x, spec, l, hessian=hess)
         vals = table[ids.reshape(-1)].reshape(N, 8, C)
-        s = (vals * g[:, l, None]).sum(-1)                   # [N, 8]
-        dx = dx + (dw * s[..., None]).sum(1)
+        if gf is not None:
+            s = (vals * gf[:, l, None]).sum(-1)              # [N, 8]
+            dx = dx + (dw * s[..., None]).sum(1)
+        for d, g in enumerate(gj):
+            if g is not None:
+                s = (vals * g[:, l, None]).sum(-1)           # [N, 8]
+                dx = dx + (d2w[0][:, :, d] * s[..., None]).sum(1)
     return dtable, dx
 
 
@@ -393,11 +422,14 @@ def hash_bwd_cuda(x: torch.Tensor, spec: HashGridSpec, n_active: int,
 
 
 def hash_bwd_dx_cuda(x: torch.Tensor, table: torch.Tensor,
-                     spec: HashGridSpec, n_active: int, g_feat: torch.Tensor
+                     spec: HashGridSpec, n_active: int,
+                     g_feat: Optional[torch.Tensor],
+                     g_j: Sequence[Optional[torch.Tensor]] = (None,) * 3
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dtable, dx) in one launch: ``hash_bwd_dx_plain``'s function."""
-    (g_feat,), bf16 = kernels.cotangents(g_feat)
-    kernels.check_cuda(x, table, g_feat)
+    """(dtable, dx) in one launch: ``hash_bwd_dx_plain``'s function (null
+    jacobian cotangents: the frozen path's arithmetic, bit for bit)."""
+    (g_feat, *g_j), bf16 = kernels.cotangents(g_feat, *g_j)
+    kernels.check_cuda(x, table, g_feat, *g_j)
     _check_table(table, spec)
     _check_bwd(spec)
     dtable = torch.zeros(spec.table_size, spec.level_dim, device=x.device)
@@ -405,8 +437,8 @@ def hash_bwd_dx_cuda(x: torch.Tensor, table: torch.Tensor,
     kernels.launch("hashgrid_bwd_dx", kernels.ptr(x), kernels.ptr(table),
                    kernels.ptr(_levels(spec, x.device)), x.shape[0],
                    spec.num_levels, spec.level_dim, n_active, *_modes(spec),
-                   kernels.ptr(g_feat), bf16, kernels.ptr(dtable),
-                   kernels.ptr(dx))
+                   kernels.ptr(g_feat), *(kernels.ptr(g) for g in g_j), bf16,
+                   kernels.ptr(dtable), kernels.ptr(dx))
     return dtable, dx
 
 
@@ -507,12 +539,8 @@ class _HashEncode(torch.autograd.Function):
             return None, None, None, None, None, None
         dx = dtable = None
         if ctx.needs_input_grad[0]:
-            if any(g is not None for g in g_j):
-                raise NotImplementedError(
-                    "the jacobian's gradient into the positions is not "
-                    "implemented")
             bwd = hash_bwd_dx_cuda if x.is_cuda else hash_bwd_dx_plain
-            dtable, dx = bwd(x, table.detach(), spec, n_active, g_feat)
+            dtable, dx = bwd(x, table.detach(), spec, n_active, g_feat, g_j)
             if not ctx.needs_input_grad[1]:
                 dtable = None
         elif ctx.needs_input_grad[1]:

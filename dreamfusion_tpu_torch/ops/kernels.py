@@ -19,10 +19,11 @@ that a path went through the kernels.  It is process-wide state by design:
 the counters must see launches from every caller.  A kernel with several
 routes (K10's and K12's forwards, chosen by shape) counts each route under
 its own name, which is also its C entry point's; so do K10's backward (by
-head dim), K12's dgrad and wgrad, K11's resident and streaming routes
-(each with and without the affine gradients), K1's and K6's backwards (the
-table-only route and the ``_dx`` route that also gives the positions'
-gradient), K2's (the occupancy march, and the vanilla render's coarse
+head dim and dtype), K12's dgrad and wgrad, K11's resident and streaming
+routes (each with and without the affine gradients), K1's and K6's
+backwards (the table-only route and the ``_dx`` route that also gives the
+positions' gradient, the second derivative too where the jacobian has
+cotangents), K2's (the occupancy march, and the vanilla render's coarse
 and resample launches) and K4's three entry point pairs (the head alone,
 the head with the normals and the shading, and the head with given
 normals and the select).
@@ -70,6 +71,7 @@ LAUNCHES: Dict[str, int] = {
     "attention_bwd_wgmma_d40": 0,               # K10 backward d = 40
     "attention_bwd_wgmma_d80": 0,               # K10 backward d = 80
     "attention_bwd_wgmma_d160": 0,              # K10 backward d = 160
+    "attention_bwd_fp32": 0,                    # K10 fp32 backward (DPT)
     "groupnorm_fwd_resident": 0, "groupnorm_fwd_stream": 0,  # K11, CUDA C++
     "groupnorm_bwd_resident": 0, "groupnorm_bwd_stream": 0,  # K11, CUDA C++
     "groupnorm_bwd_resident_affine": 0,         # K11 + dscale, dbias
@@ -80,6 +82,7 @@ LAUNCHES: Dict[str, int] = {
     "conv_fwd_fp32_tiled": 0,                   # K12 fp32 (DPT), CUDA C++
     "conv_dgrad_wgmma": 0, "conv_dgrad_narrow": 0,  # K12 dgrad, CUDA C++
     "conv_dgrad_fp32": 0, "conv_dgrad": 0,      # K12 dgrad, CUDA C++
+    "conv_dgrad_fp32_tiled": 0,                 # K12 fp32 dgrad (DPT)
     "conv_wgrad_mma": 0, "conv_wgrad_fp32": 0,  # K12 wgrad, CUDA C++
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
@@ -101,7 +104,7 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "triplane_fwd": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "triplane_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
-    "triplane_bwd_dx": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    "triplane_bwd_dx": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "march_rays": [_P, _L, _L, _P, _L, _L, _F, _P, _I, _I, _F, _P, _I, _P,
                    _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "composite_fwd": [_P] * 5 + [_I, _I, _F, _I, _P, _F, _I, _I] +
@@ -127,10 +130,11 @@ _SIGNATURES = {
     "conv_fwd_wgmma_i8": [_P] * 5 + [_I] * 17 + [_P],
     "conv_fwd_fp32": [_P] * 4 + [_I] * 14 + [_P],
     "conv_fwd_fp32_tiled": [_P] * 4 + [_I] * 16 + [_P, _P],
-    "conv_dgrad": [_P] * 3 + [_I] * 16 + [_P, _P],
+    "conv_dgrad": [_P] * 3 + [_I] * 15 + [_P, _P],
     "conv_dgrad_wgmma": [_P] * 3 + [_I] * 21 + [_P, _P],
     "conv_dgrad_narrow": [_P] * 3 + [_I] * 13 + [_P],
     "conv_dgrad_fp32": [_P] * 3 + [_I] * 13 + [_P],
+    "conv_dgrad_fp32_tiled": [_P] * 3 + [_I] * 16 + [_P, _P],
     "conv_wgrad_mma": [_P] * 4 + [_I] * 15 + [_P],
     "conv_wgrad_fp32": [_P] * 4 + [_I] * 15 + [_P],
     "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
@@ -144,6 +148,7 @@ _SIGNATURES = {
     "attention_bwd_wgmma_d40": [_P] * 13 + [_I] * 5 + [_F, _P],
     "attention_bwd_wgmma_d80": [_P] * 13 + [_I] * 5 + [_F, _P],
     "attention_bwd_wgmma_d160": [_P] * 13 + [_I] * 5 + [_F, _P],
+    "attention_bwd_fp32": [_P] * 10 + [_I] * 5 + [_F, _P],
     "groupnorm_fwd_resident": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "groupnorm_bwd_resident": [_P] * 6 + [_I] * 10 + [_P],
     "groupnorm_fwd_stream": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
@@ -164,7 +169,7 @@ _SIGNATURES = {
     "normal_consistency_bwd": [_P] * 11 + [_I] * 2 + [_P] * 2 + [_P],
     "hashgrid_fwd": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P],
     "hashgrid_bwd": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_I, _P, _P],
-    "hashgrid_bwd_dx": [_P] * 3 + [_I] * 6 + [_P, _I, _P, _P, _P],
+    "hashgrid_bwd_dx": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_I, _P, _P, _P],
     "hashgrid_tv_fwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P],
     "hashgrid_tv_bwd": [_P] * 3 + [_I] * 4 + [_F, _P, _P, _P],
     "hashgrid_wd_fwd": [_P] * 2 + [_I] * 3 + [_P, _P],

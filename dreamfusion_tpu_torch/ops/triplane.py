@@ -17,7 +17,11 @@ from the same backward launch as the planes' gradient (``triplane_bwd_dx``),
 with JAX's autodiff rule at the box's faces (a quarter of the slope at a
 coordinate exactly 0: ``triplane_encode`` clips twice, and each clip
 passes half at its tie).  The jacobian's own gradient into the positions
-(a second derivative) is on no path and raises.
+(a second derivative, as ``jax.grad`` over ``triplane_encode_with_xgrad``
+takes it) comes from the same launch: under the bilinear blend ∂²/∂u² is
+0, and the mixed term of plane (u, v) is (R−1)²·(v00 − v01 − v10 + v11),
+masked by the jacobian's strict inside rule on its own axis and by the
+autodiff rule on the other.
 """
 
 from __future__ import annotations
@@ -138,19 +142,40 @@ def triplane_bwd_plain(x: torch.Tensor, planes_shape: Sequence[int],
 
 
 def triplane_bwd_dx_plain(x: torch.Tensor, planes: torch.Tensor,
-                          g_feat: torch.Tensor
+                          g_feat: Optional[torch.Tensor],
+                          g_j: Sequence[Optional[torch.Tensor]] = (None,) * 3
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dplanes [3,R,R,C], dx [N,3]) for a cotangent on feat [N, 3C]:
-    dx = Σ_c g·∂feat/∂x under JAX's autodiff rule at the faces."""
+    """(dplanes [3,R,R,C], dx [N,3]) for cotangents on feat and on jx, jy,
+    jz (each [N, 3C] or None): dx = Σ_c g_feat·∂feat/∂x + Σ_j g_j·∂j/∂x
+    under JAX's autodiff rule at the faces."""
     _, R, _, C = planes.shape
     N = x.shape[0]
-    dplanes = triplane_bwd_plain(x, planes.shape, g_feat, (None,) * 3)
+    dplanes = triplane_bwd_plain(x, planes.shape, g_feat, g_j)
     ids, _, du, dv, oob = _corners(x, R, autodiff=True)
     vals = planes.reshape(-1, C)[ids.reshape(-1)].reshape(N, 3, 4, C)
-    g = g_feat.float().reshape(N, 3, C) * (~oob).to(torch.float32)[:, None,
-                                                                    None]
-    s = (vals * g[:, :, None]).sum(-1)                        # [N, 3, 4]
-    su, sv = (du * s).sum(-1), (dv * s).sum(-1)               # [N, 3]
+    keep = (~oob).to(torch.float32)[:, None, None]
+
+    def per_plane(g):
+        return None if g is None else g.float().reshape(N, 3, C) * keep
+
+    su = sv = torch.zeros(N, 3, device=x.device)
+    if g_feat is not None:
+        s = (vals * per_plane(g_feat)[:, :, None]).sum(-1)    # [N, 3, 4]
+        su, sv = (du * s).sum(-1), (dv * s).sum(-1)           # [N, 3]
+    if any(g is not None for g in g_j):
+        zero = torch.zeros(N, 3, C, device=x.device)
+        gx, gy, gz = (zero if g is None else per_plane(g) for g in g_j)
+        gu = torch.stack([gx[:, 0], gx[:, 1], gy[:, 2]], 1)   # [N, 3, C]
+        gv = torch.stack([gy[:, 0], gz[:, 1], gz[:, 2]], 1)
+        mixed = vals[:, :, 0] - vals[:, :, 1] - vals[:, :, 2] + vals[:, :, 3]
+        uv = torch.stack([x[:, list(ax)] for ax in _PLANE_AXES], dim=1)
+        inside = ((uv > 0.0) & (uv < 1.0)).float()            # [N, 3, 2]
+        tie = inside + 0.25 * (uv == 0.0).float()
+        k = float((R - 1) ** 2)
+        # ∂ju/∂v and ∂jv/∂u: the mixed term, masked by the jacobian's rule
+        # on its own axis and by the autodiff rule on the other
+        su = su + k * inside[..., 1] * tie[..., 0] * (gv * mixed).sum(-1)
+        sv = sv + k * inside[..., 0] * tie[..., 1] * (gu * mixed).sum(-1)
     # planes xy, xz, yz: u is x, x, y and v is y, z, z
     dx = torch.stack([su[:, 0] + su[:, 1], sv[:, 0] + su[:, 2],
                       sv[:, 1] + sv[:, 2]], -1)
@@ -198,20 +223,22 @@ def triplane_bwd_cuda(x: torch.Tensor, planes_shape: Sequence[int],
 
 
 def triplane_bwd_dx_cuda(x: torch.Tensor, planes: torch.Tensor,
-                         g_feat: torch.Tensor
+                         g_feat: Optional[torch.Tensor],
+                         g_j: Sequence[Optional[torch.Tensor]] = (None,) * 3
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dplanes, dx) in one launch: ``triplane_bwd_dx_plain``'s function."""
+    """(dplanes, dx) in one launch: ``triplane_bwd_dx_plain``'s function
+    (null jacobian cotangents: the frozen path's arithmetic, bit for bit)."""
     _, R, _, C = planes.shape
     N = x.shape[0]
-    (g_feat,), bf16 = kernels.cotangents(g_feat)
-    kernels.check_cuda(x, planes, g_feat)
+    (g_feat, *g_j), bf16 = kernels.cotangents(g_feat, *g_j)
+    kernels.check_cuda(x, planes, g_feat, *g_j)
     kernels.check_aligned(planes)
     dplanes = torch.zeros(tuple(planes.shape), device=x.device,
                           dtype=torch.float32)
     dx = torch.empty(N, 3, device=x.device, dtype=torch.float32)
     kernels.launch("triplane_bwd_dx", kernels.ptr(x), kernels.ptr(planes), N,
-                   R, C, kernels.ptr(g_feat), bf16, kernels.ptr(dplanes),
-                   kernels.ptr(dx))
+                   R, C, kernels.ptr(g_feat), *(kernels.ptr(g) for g in g_j),
+                   bf16, kernels.ptr(dplanes), kernels.ptr(dx))
     return dplanes, dx
 
 
@@ -239,12 +266,8 @@ class _TriplaneScale(torch.autograd.Function):
         if g_feat is None and all(g is None for g in g_j):
             return None, None, None, None
         if ctx.needs_input_grad[0]:
-            if any(g is not None for g in g_j):
-                raise NotImplementedError(
-                    "the jacobian's gradient into the positions is not "
-                    "implemented")
             bwd = triplane_bwd_dx_cuda if x.is_cuda else triplane_bwd_dx_plain
-            dplanes, dx = bwd(x, planes.detach(), g_feat)
+            dplanes, dx = bwd(x, planes.detach(), g_feat, g_j)
             return dx, dplanes, None, None
         bwd = triplane_bwd_cuda if x.is_cuda else triplane_bwd_plain
         return None, bwd(x, ctx.planes_shape, g_feat, g_j), None, None

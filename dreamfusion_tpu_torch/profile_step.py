@@ -41,8 +41,8 @@ from .training.trainer import check_slice, guarded_update
 GROUPS = [  # (group, kernel-name pattern), first match wins
     ("K7 raster", r"\b(raster|interpolate)_\w+_kernel"),
     ("K8 marching tets", r"\b(mt|vn|lap|nc)_\w+_kernel"),
-    ("K12 conv", r"conv_(dgrad_)?(wgmma|mma|simple|narrow|fp32)_kernel"
-                 r"|conv_splitk_reduce|pad_channels8_kernel"),
+    ("K12 conv", r"conv_\w*_kernel|conv_splitk_reduce|conv_wgrad_reduce"
+                 r"|pad_channels8_kernel"),
     ("K5 clip_grad", r"\bclip_(f32|bf16)_kernel"),
     ("K10 attention", r"attn_"),
     ("K11 groupnorm", r"^(fwd_stats|fwd_apply|bwd_sums|bwd_apply)"
@@ -63,7 +63,7 @@ GROUPS = [  # (group, kernel-name pattern), first match wins
 # instantiations)
 PARTS = [("K12 conv", "of which input gradients",
           r"conv_wgmma_kernel<false, 128, true>|conv_dgrad_\w+_kernel"
-          r"|conv_mma_kernel<true>|conv_simple_kernel<\w+, true>"),
+          r"|conv_mma_kernel<true>|conv_simple_kernel<true>"),
          ("K10 attention", "of which d = 40, 80, 160 forwards",
           r"attn_fwd_wgmma_kernel<(40|80|160)>")]
 

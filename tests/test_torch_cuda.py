@@ -2668,8 +2668,8 @@ def test_attention_fp32_kernel(dev, B, N, M, H):
     """K10's fp32 forward (the DPT's, JAX's dense branch): out against the
     plain version at 1e-5 of its largest, lse against the fp32 logits'
     logsumexp, two launches bit for bit (the two key halves of a block
-    merge in a fixed order); fp32 q, k, v of d != 64 and its backward
-    refuse."""
+    merge in a fixed order); fp32 q, k, v of d != 64 refuse, and the
+    backward through autograd takes ``attention_bwd_fp32``."""
     g = _gen(dev, 21)
     q = torch.randn(B, N, H, 64, device=dev, generator=g)
     k, v = (torch.randn(B, M, H, 64, device=dev, generator=g)
@@ -2692,8 +2692,11 @@ def test_attention_fp32_kernel(dev, B, N, M, H):
         attention_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
                            v[..., :32].contiguous(), 0.125)
     qr = q.clone().requires_grad_()
-    with pytest.raises(ValueError):
-        attention(qr, k, v).sum().backward()
+    kernels.reset_launch_counts()
+    attention(qr, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_bwd_fp32"] == 1
+    assert qr.grad.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -2967,3 +2970,237 @@ def test_narrow_unet_gradients_on_the_card(dev):
     worst.sort(reverse=True)
     print("narrow UNet gradients, worst err / max:", worst[:5])
     assert worst[0][0] <= 5e-2, worst[:5]
+
+
+# ---------------------------------------------------------------------------
+# the DPT's backward (K10's fp32 backward, K12's tiled fp32 dgrad and its
+# fp32 wgrad) and K1's and K6's second derivative into the positions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,M,H", [
+    (1, 577, 577, 12),       # the DPT's ViT-B at 384²
+    (2, 65, 1, 3),           # one key
+    (1, 50, 130, 2),         # ragged query and key blocks
+    (2, 97, 65, 3),          # a last block of one query, of one key
+])
+def test_attention_bwd_fp32_kernel(dev, B, N, M, H):
+    """K10's fp32 backward (``attention_bwd_fp32``) against the plain
+    version (P and dS unrounded in fp32): dq, dk, dv within 1e-5 relative
+    plus 1e-4 of each one's largest; two launches bit for bit (no atomics);
+    over one key dQ and dK are 0 in exact arithmetic and are held to dV's
+    largest."""
+    g = _gen(dev, 41)
+    q, do = (torch.randn(B, N, H, 64, device=dev, generator=g)
+             for _ in range(2))
+    k, v = (torch.randn(B, M, H, 64, device=dev, generator=g)
+            for _ in range(2))
+    o, lse = attention_fwd_cuda(q, k, v, 0.125)
+    kernels.reset_launch_counts()
+    got = attention_bwd_cuda(q, k, v, o, lse, do, 0.125)
+    again = attention_bwd_cuda(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention_bwd_fp32"] == 2
+    assert sum(kernels.LAUNCHES.values()) == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = attention_bwd_plain(q, k, v, o, do, 0.125)
+    if M == 1:
+        ref = float(want[2].abs().max())
+        for a in got[:2]:
+            assert float(a.abs().max()) <= 1e-4 * ref
+        _rel_close(got[2], want[2], 1e-5, 1e-4)
+    else:
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            _rel_close(a, b, 1e-5, 1e-4)
+    with pytest.raises(ValueError):
+        attention_bwd_cuda(q, k, v, o, lse, do, 0.125, round_q=True)
+
+
+# (B, H, W, I, O, k, stride): TF-SAME pads as the DPT takes them
+DGRAD_FP32_TILED_CASES = [
+    (1, 38, 38, 3, 64, 7, 2),        # the stem: a 3-channel dx
+    (1, 16, 18, 64, 256, 1, 2),      # the downsample: 3 classes of zeros
+    (1, 24, 24, 32, 48, 3, 2),       # post4_down's form
+    (2, 9, 11, 40, 72, 3, 1),        # stride 1, ragged tiles
+    (1, 6, 6, 256, 256, 3, 1),       # split over K
+    (1, 13, 11, 6, 5, 3, 2),         # 4-byte copies of a 5-channel dy
+    (1, 12, 12, 768, 256, 3, 1),     # the 12² convs' widths
+]
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride", DGRAD_FP32_TILED_CASES)
+def test_conv_dgrad_fp32_tiled_kernel(dev, B, H, W, I, O, k, stride):
+    """K12's tiled fp32 input gradient over dx's parity classes against
+    autograd of the plain forward: within 1e-5 relative plus 1e-4 of the
+    largest, the borders too; two launches bit for bit (the splits summed
+    in order); through autograd with the weight asking, one dgrad and one
+    wgrad launch."""
+    from dreamfusion_tpu_torch.models.dpt import same_pads
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_dgrad_cuda,
+                                                dgrad_route, out_size)
+    assert dgrad_route(torch.float32, I, O, (stride, stride), (k, k)) == \
+        "conv_dgrad_fp32_tiled"
+    g = _gen(dev, 43)
+    pads = (same_pads(H, k, stride), same_pads(W, k, stride))
+    w = torch.randn(O, k, k, I, device=dev, generator=g) / (k * k * I) ** 0.5
+    Ho, Wo = out_size(H, W, k, k, (stride, stride), pads)
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    dx = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (stride, stride), pads,
+                           torch.float32)
+    dx2 = conv2d_dgrad_cuda(dy, w, (B, H, W, I), (stride, stride), pads,
+                            torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_dgrad_fp32_tiled"] == 2
+    assert kernels.LAUNCHES["conv_dgrad"] == 0
+    assert torch.equal(dx, dx2)
+    xr = torch.zeros(B, H, W, I, device=dev, requires_grad=True)
+    (ref,) = torch.autograd.grad(conv2d_plain(
+        xr, w, None, (stride, stride), pads, torch.float32), xr, dy)
+    _rel_close(dx, ref, 1e-5, 1e-4)
+    _rel_close(_border(dx), _border(ref), 1e-5, 1e-4)
+    xg = torch.randn(B, H, W, I, device=dev, generator=g,
+                     requires_grad=True)
+    wg = w.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    torch.autograd.grad(conv2d(xg, wg, None, stride, pads), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_dgrad_fp32_tiled"] == 1
+    assert kernels.LAUNCHES["conv_wgrad_fp32"] == 1
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,stride", [
+    (1, 24, 24, 256, 256, 3, 1), (1, 48, 48, 64, 128, 3, 1),
+    (1, 38, 38, 3, 64, 7, 2), (1, 16, 16, 512, 256, 1, 2)])
+def test_conv_wgrad_fp32_at_dpt_widths(dev, B, H, W, I, O, k, stride):
+    """K12's fp32 weight gradient at the DPT's widths (O = 64-768, the
+    stem's 3 input channels, TF-SAME pads) against the transposed shifted
+    einsum: 1e-5 relative plus 1e-4 of the largest."""
+    from dreamfusion_tpu_torch.models.dpt import same_pads
+    from dreamfusion_tpu_torch.ops.conv import (conv2d_wgrad_cuda,
+                                                conv2d_wgrad_plain, out_size)
+    g = _gen(dev, 47)
+    pads = (same_pads(H, k, stride), same_pads(W, k, stride))
+    x = torch.randn(B, H, W, I, device=dev, generator=g)
+    Ho, Wo = out_size(H, W, k, k, (stride, stride), pads)
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    dw = conv2d_wgrad_cuda(x, dy, (O, k, k, I), (stride, stride), pads,
+                           torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv_wgrad_fp32"] == 1
+    _rel_close(dw, conv2d_wgrad_plain(x, dy, (O, k, k, I), (stride, stride),
+                                      pads), 1e-5, 1e-4)
+
+
+def _jac_cots(dev, g, x, D, case, gdtype, with_feat):
+    cots = [_field_cots(dev, g, x, D, case, gdtype) for _ in range(4)]
+    if not with_feat:
+        cots[0] = None
+    return cots
+
+
+@pytest.mark.parametrize("with_feat", [True, False])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,case", FIELD_CASES[:3])
+@pytest.mark.parametrize("R,C", [(64, 16), (17, 6)])
+def test_triplane_bwd_dx_with_jacobian_cotangents(dev, R, C, N, case, gdtype,
+                                                  with_feat):
+    """triplane_bwd_dx with cotangents on the jacobian (the second
+    derivative into the positions, and the planes' gradient from all
+    four) in one launch, against the plain version: the planes within
+    1e-5 of the largest, dx within 1e-5 relative plus 1e-5 of the largest
+    (fp32 sums in another order, reductions in any order)."""
+    g = _gen(dev, 5)
+    planes = torch.randn(3, R, R, C, device=dev, generator=g) * 0.1
+    x = _field_positions(dev, g, N, case)
+    cots = _jac_cots(dev, g, x, 3 * C, case, gdtype, with_feat)
+    kernels.reset_launch_counts()
+    dpk, dxk = triplane_bwd_dx_cuda(x, planes, cots[0], cots[1:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["triplane_bwd_dx"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    dpp, dxp = triplane_bwd_dx_plain(x, planes, cots[0], cots[1:])
+    _close_to(dpk, dpp, 1e-5)
+    _close_to(dxk, dxp, 1e-5)
+    if case == "ties":
+        assert not dxk[:2].any() and not dxk[40:90].any()
+
+
+@pytest.mark.parametrize("with_feat", [True, False])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,case", FIELD_CASES[:3])
+@pytest.mark.parametrize("L,C,log2,res,hash_,interp,max_level", [
+    (4, 8, 19, 2048, "affine", "smoothstep", None),
+    (16, 2, 19, 2048, "xor", "smoothstep", None),
+    (8, 4, 12, 256, "affine", "linear", 0.6)])
+def test_hashgrid_bwd_dx_with_jacobian_cotangents(dev, L, C, log2, res, hash_,
+                                                  interp, max_level, N, case,
+                                                  gdtype, with_feat):
+    """hashgrid_bwd_dx with cotangents on the jacobian (the second
+    derivative into the positions: the mixed terms and, under smoothstep,
+    the pure one; the table's gradient from all four) in one launch,
+    against the plain version, as the triplane's."""
+    from dreamfusion_tpu_torch.models.nerf import make_grid_spec
+    from dreamfusion_tpu_torch.ops.hashgrid import (hash_bwd_dx_cuda,
+                                                    hash_bwd_dx_plain,
+                                                    n_active_levels)
+    spec = make_grid_spec(L, C, log2, res, interp, hash_)
+    n_act = n_active_levels(spec, max_level)
+    g = _gen(dev, 6)
+    table = (torch.rand(spec.table_size, C, device=dev, generator=g)
+             - 0.5) * 0.2
+    x = _field_positions(dev, g, N, case)
+    cots = _jac_cots(dev, g, x, L * C, case, gdtype, with_feat)
+    kernels.reset_launch_counts()
+    dtk, dxk = hash_bwd_dx_cuda(x, table, spec, n_act, cots[0], cots[1:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hashgrid_bwd_dx"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    dtp, dxp = hash_bwd_dx_plain(x, table, spec, n_act, cots[0], cots[1:])
+    _close_to(dtk, dtp, 1e-5)
+    _close_to(dxk, dxp, 1e-5)
+    if case == "ties":
+        assert not dxk[:2].any() and not dxk[40:90].any()
+
+
+def test_a_dpt_backward_on_the_card_launches_its_kernels(dev):
+    """A narrow DPT (the CPU tests' tiny config at 64²) with every weight
+    and the input trainable: one forward and backward launches
+    ``attention_bwd_fp32`` once a ViT block and one
+    ``conv_dgrad_fp32_tiled`` and one ``conv_wgrad_fp32`` a K12 conv, no
+    ``conv_dgrad``; its gradients against the same model's on the CPU
+    (plain versions) within 1e-3 of each one's largest."""
+    from dreamfusion_tpu_torch.models import dpt as D
+    cfg = D.DPTConfig(num_channels=3, features=32, vit_dim=64, vit_depth=2,
+                      vit_heads=1, vit_mlp=128, hooks=(0, 1),
+                      resnet_depths=(1, 1, 1), grid=6)
+    torch.manual_seed(0)
+    cpu = D.DPTDepthModel(cfg)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            p.copy_(torch.randn(p.shape) * (p[0].numel() ** -0.5
+                                            if p.dim() >= 2 else 0.05))
+    card = D.DPTDepthModel(cfg).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(1, 64, 64, 3) * 2 - 1
+    ct = torch.randn(1, 64, 64, 3)
+    grads = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        m.requires_grad_(True)
+        xr = x.to(d).clone().requires_grad_()
+        kernels.reset_launch_counts()
+        (m.forward_grad(xr) * ct.to(d)).sum().backward()
+        grads.append([xr.grad] + [p.grad for p in m.parameters()])
+    torch.cuda.synchronize()
+    n_conv = sum(1 for mod in card.modules() if isinstance(mod, D.Conv) and
+                 not (mod.k == 1 and mod.stride == 1))
+    assert kernels.LAUNCHES["attention_bwd_fp32"] == cfg.vit_depth
+    assert kernels.LAUNCHES["conv_dgrad_fp32_tiled"] == n_conv
+    assert kernels.LAUNCHES["conv_wgrad_fp32"] == n_conv
+    assert kernels.LAUNCHES["conv_dgrad"] == 0
+    for a, b in zip(*grads):
+        if a is None:
+            assert b is None
+            continue
+        _close_to(b.cpu(), a, 1e-3)

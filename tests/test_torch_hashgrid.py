@@ -131,9 +131,14 @@ def test_hash_encode_position_grad(name):
     (dx,) = torch.autograd.grad(feat, [xp], tt(g))
     _rel(dx.numpy(), ref, 1e-5)
     assert not dx[:2].any()                           # outside: no gradient
-    with pytest.raises(NotImplementedError, match="jacobian"):
-        _, jac = P.hash_encode(xp, tt(table), ps, need_jacobian=True)
-        torch.autograd.grad(jac[0].sum(), [xp])
+    # the jacobian's own gradient into x: JAX's through jax.jvp along x
+    _, vjp = jax.vjp(lambda xx: jax.jvp(
+        lambda y: J.hash_encode(y, jnp.asarray(table), js), (xx,),
+        (jnp.zeros_like(xx).at[:, 0].set(1.0),))[1], jnp.asarray(x))
+    (ref,) = vjp(jnp.ones((len(x), ps.output_dim), jnp.float32))
+    _, jac = P.hash_encode(xp, tt(table), ps, need_jacobian=True)
+    (dx,) = torch.autograd.grad(jac[0].sum(), [xp])
+    _rel(dx.numpy(), ref, 1e-5)
 
 
 def test_outside_rows_give_zeros_and_no_table_grad():

@@ -639,10 +639,11 @@ def test_chip_smoke_conv_rows_take_their_routes():
     assert set(smoke.SD_DGRADS) | {"conv_dgrad"} <= set(smoke.KERNELS)
     assert {r[8] for r in smoke.MMA_CONVS} == {"bf16"}
     assert {r[6] for r in smoke.MMA_CONVS} == {1, 2}
-    # the fp32 rows of no path: the tiled forward, the fp32 dgrad loop
+    # the fp32 rows of no path: the tiled forward, the tiled fp32 dgrad
     assert {route(r) for r in smoke.FP32_TILED_CONVS} == \
         {"conv_fwd_fp32_tiled"}
-    assert {dgrad(r) for r in smoke.FP32_TILED_CONVS} == {"conv_dgrad"}
+    assert {dgrad(r) for r in smoke.FP32_TILED_CONVS} == \
+        {"conv_dgrad_fp32_tiled"}
     assert {r[8] for r in smoke.FP32_TILED_CONVS} == {"fp32"}
     assert sd | {"conv_fwd_mma", "conv_fwd_fp32_tiled"} <= \
         set(smoke.KERNELS)
@@ -732,7 +733,15 @@ def test_profile_groups_name_the_new_kernels():
            "const*, uint4*, long, int)",
            "void (anonymous namespace)::conv_mma_kernel<false>((anonymous "
            "namespace)::ConvParams)",
-           "void (anonymous namespace)::conv_simple_kernel<float, true>("
+           "(anonymous namespace)::conv_wgrad_fp32_kernel((anonymous "
+           "namespace)::WgradParams)",
+           "void (anonymous namespace)::conv_wgrad_mma_kernel<true, false>("
+           "(anonymous namespace)::WgradParams)",
+           "(anonymous namespace)::conv_wgrad_reduce(float const*, void*, "
+           "long, int, int)",
+           "void (anonymous namespace)::conv_fp32_tiled_kernel<64, true>("
+           "(anonymous namespace)::ConvParams)",
+           "void (anonymous namespace)::conv_simple_kernel<true>("
            "(anonymous namespace)::ConvParams)",
            "void (anonymous namespace)::conv_wgmma_kernel<false, 128, true>"
            "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::"
@@ -742,7 +751,9 @@ def test_profile_groups_name_the_new_kernels():
            "int, int, int, int, int, int, int, int, int)",
            "(anonymous namespace)::conv_dgrad_fp32_kernel(float const*, "
            "float const*, float*, int, int, int, int, int, int, int, int, "
-           "int, int, int, int, int)"]
+           "int, int, int, int, int)",
+           "void (anonymous namespace)::conv_dgrad_fp32_tiled_kernel<32, "
+           "false>((anonymous namespace)::ConvParams, int)"]
     k10 = ["(anonymous namespace)::attn_fwd_wgmma_kernel(CUtensorMap_st, "
            "CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, "
            "int, int, float)",
@@ -753,10 +764,11 @@ def test_profile_groups_name_the_new_kernels():
            "float const*, __nv_bfloat16*, float*, int, int, int, int)"]
     assert [group_of(n) for n in k12] == ["K12 conv"] * len(k12)
     # the input gradients apart within K12: the dgrad instantiation of the
-    # wgmma kernel, the narrow and fp32 dgrads, mma.sync's and the
-    # one-thread dgrads; not the forwards or the split-K reduces
+    # wgmma kernel, the narrow, fp32 and tiled fp32 dgrads, mma.sync's and
+    # the one-thread dgrads; not the forwards, the weight gradients or the
+    # split-K reduces
     dgrads = [part_of(n) is not None for n in k12]
-    assert dgrads == [False] * 5 + [False, True, True, True, True]
+    assert dgrads == [False] * 10 + [True] * 5
     k5 = ["(anonymous namespace)::clip_f32_kernel(float const*, float*, "
           "long, float)",
           "(anonymous namespace)::clip_bf16_kernel(__nv_bfloat16 const*, "
@@ -771,8 +783,13 @@ def test_profile_groups_name_the_new_kernels():
                "int, int, int, int, float)",
                "void (anonymous namespace)::attn_bwd_gemm_kernel<true>("
                "(anonymous namespace)::GemmMaps, int, int, int, int, int, "
-               "float, float)"]
-    assert [group_of(n) for n in k10_bwd] == ["K10 attention"] * 3
+               "float, float)",
+               "(anonymous namespace)::attn_bwd_fp32_dot_kernel(float const*, "
+               "float const*, float*, int, int, long)",
+               "void (anonymous namespace)::attn_bwd_fp32_kernel<true>(float "
+               "const*, float const*, float const*, float const*, float "
+               "const*, float const*, float*, float*, int, int, int, float)"]
+    assert [group_of(n) for n in k10_bwd] == ["K10 attention"] * 5
     # the forward's template at each head dim; SD 1.5's apart within K10
     k10_dims = [f"void (anonymous namespace)::attn_fwd_wgmma_kernel<{d}>("
                 "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
