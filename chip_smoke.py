@@ -299,8 +299,9 @@
    ms at 384², the card against the CPU at 128²; a 512² turntable of the
    stage-1 mesh (K7 exactly), R-precision, a viewer frame, ``--profile``.
 15. The towers' backward to their weights at full width on random weights
-   from seed 0: K12's weight gradient (``conv_wgrad_mma``, bf16 on the
-   tensor cores; ``conv_wgrad_fp32``, the conv_outs), K11's backward with
+   from seed 0: K12's weight gradient (``conv_wgrad_wgmma``, bf16 on
+   wgmma + TMA; ``conv_wgrad_mma``, the conv_ins' on mma.sync;
+   ``conv_wgrad_fp32_tiled``, the conv_outs), K11's backward with
    the affine gradients (``groupnorm_bwd_{resident,stream}_affine``) and
    K10's backward at d = 40, 80 and 160 (``attention_bwd_wgmma_d*``), each
    against its plain version at every distinct shape the four towers
@@ -308,7 +309,9 @@
    meta device), with event and graph ms, bound and the library call's ms
    (``aten.convolution_backward`` with the weight's mask,
    ``aten.native_group_norm_backward`` with the affine mask, SDPA's
-   backward), logged as one ``tower backward rows`` JSON line; then the SD
+   backward), logged as one ``tower backward rows`` JSON line, and each
+   tower's wgrad rows summed over its calls (kernel, cuDNN and bound,
+   event and graph ms); then the SD
    2.1 UNet (CFG batch 2, 64², 77 keys), the SD 1.5 UNet, zero123's UNet
    (K = 1, 32², one key, 8 input channels) and the SD VAE encoder (512²),
    each with every parameter and the input wanting gradients: one forward
@@ -320,7 +323,8 @@
    weights: K10's fp32 backward (``attention_bwd_fp32``) at the ViT's
    [1, 577, 12, 64] against its plain version and SDPA's fp32 backward;
    K12's tiled fp32 input gradient (``conv_dgrad_fp32_tiled``) and its
-   fp32 weight gradient (``conv_wgrad_fp32``) at each of the 17 distinct
+   tiled fp32 weight gradient (``conv_wgrad_fp32_tiled``) at each of the
+   17 distinct
    conv shapes of a 384² DPT against their plain versions and cuDNN's
    (TF32 off), with the 40 convs' sums; K1's and K6's ``_dx``
    backwards with cotangents on the jacobian at stage 1's 98,304 samples
@@ -331,7 +335,7 @@
    backward with the counters reset just before, K10/K12 launched exactly
    as ``dpt_grad_launches`` derives them on the meta device (12
    ``attention_bwd_fp32``, 40 ``conv_dgrad_fp32_tiled``, 40
-   ``conv_wgrad_fp32``, no ``conv_dgrad``), every gradient finite, the
+   ``conv_wgrad_fp32_tiled``, no ``conv_dgrad``), every gradient finite, the
    synchronised walls (median of 3) and the peak memory.
 17. Prints one JSON line with every kernel's route, source, the TPU
    function it replaces, launches on its path (K2's vanilla launches: the
@@ -634,7 +638,7 @@ KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
 # the towers' backward to their weights: mm_conv's dk (f_bwd :112),
 # group_norm_fused's dscale and dbias (:148-149), attention's backward at
 # SD 1.5's head dims (d = 40's 64² self-attention on the chunked branch)
-for _r in ("mma", "fp32"):
+for _r in ("wgmma", "mma", "fp32_tiled"):
     KERNELS[f"conv_wgrad_{_r}"] = ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                                    "dreamfusion_tpu/ops/conv.py:112")
 for _r in ("resident", "stream"):
@@ -4481,7 +4485,7 @@ def grad_routes(torch, kernels, full) -> dict:
         if kind == "conv":
             H, W, I, O, k, st, _, dt = dims
             names = [K12.dgrad_route(dtype[dt], I, O, (st, st), (k, k)),
-                     K12.wgrad_route(dtype[dt])]
+                     K12.wgrad_route(dtype[dt], I, O, (st, st))]
         elif kind == "gn":
             H, W, C, _, _, dt = dims
             names = [K11.group_norm_route(
@@ -5019,7 +5023,8 @@ def _dpt_routes(torch, calls) -> dict:
             r = (K12.conv_route(f32, I, O, (st, st), kh * kw)
                  if kind == "conv" else
                  K12.dgrad_route(f32, I, O, (st, st), (kh, kw))
-                 if kind == "dgrad" else K12.wgrad_route(f32))
+                 if kind == "dgrad" else
+                 K12.wgrad_route(f32, I, O, (st, st)))
         out[r] = out.get(r, 0) + 1
     return out
 
@@ -5444,7 +5449,8 @@ def tooling_phases(torch, port_main, kernels, results, stage1_ws, mesh_path,
 
 # The new kernels of the towers' backward: K12's weight gradient, K11's
 # backward with the affine gradients, K10's backward at SD 1.5's head dims
-GRAD_KERNELS = ("conv_wgrad_mma", "conv_wgrad_fp32",
+GRAD_KERNELS = ("conv_wgrad_wgmma", "conv_wgrad_mma",
+                "conv_wgrad_fp32_tiled",
                 "groupnorm_bwd_resident_affine", "groupnorm_bwd_stream_affine",
                 "attention_bwd_wgmma_d40", "attention_bwd_wgmma_d80",
                 "attention_bwd_wgmma_d160")
@@ -5475,7 +5481,7 @@ def wgrad_rows(torch, results, convs, randn, rows_json):
         B, H, W, I, O, k, st, pads, dt = row
         fp32 = dt == "fp32"
         dtype = torch.float32 if fp32 else torch.bfloat16
-        route = K12.wgrad_route(dtype)
+        route = K12.wgrad_route(dtype, I, O, (st, st))
         where = (f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} {dt} "
                  f"wgrad")
         Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
@@ -5517,7 +5523,8 @@ def wgrad_rows(torch, results, convs, randn, rows_json):
                       "1 bf16 ulp + 2^-8 of max", n_bytes, flops,
                       "fp32" if fp32 else "bf16", lib,
                       where + f", graph {k_g:.4f} ms (cuDNN {lib_g:.4f})",
-                      main=row in GRAD_MAIN_CONVS)
+                      main=row in GRAD_MAIN_CONVS or
+                      tuple(row) == DPT_MAIN_CONV[:9])
         rows_json.append({"kernel": route, "row": [B, H, W, I, O, k, st,
                                                    pads, dt],
                           "ms": ms, "graph_ms": k_g, "library_ms": lib,
@@ -5764,6 +5771,22 @@ def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
     log(f"tower backward rows: {len(convs)} wgrad, {len(gns)} norm and "
         f"{len(attns)} attention shapes in {time.time() - t0:.1f} s")
     log(f"tower backward rows {json.dumps(rows)}")
+    wgrad_of = {tuple(r["row"]): r for r in rows
+                if r["kernel"].startswith("conv_wgrad_")}
+    for what, (prior, part) in GRAD_TOWERS.items():
+        sums, by_route = [0.0] * 5, {}
+        calls = [c[1:] for c in _TOWER_FULL[(prior, part, 1)]
+                 if c[0] == "conv"]
+        for c in calls:
+            r = wgrad_of[c]
+            by_route[r["kernel"]] = by_route.get(r["kernel"], 0) + 1
+            for i, key in enumerate(("ms", "graph_ms", "bound_ms",
+                                     "library_ms", "library_graph_ms")):
+                sums[i] += r[key]
+        log(f"{what} wgrad: its {len(calls)} convs summed ({by_route}): "
+            f"event {sums[0]:.3f} ms, graph {sums[1]:.3f} ms against a bound "
+            f"of {sums[2]:.3f} ms; cuDNN event {sums[3]:.3f}, graph "
+            f"{sums[4]:.3f} ms; on {smi_line}")
     total = {}
     walls = {}
     for what, (prior, part) in GRAD_TOWERS.items():
@@ -5788,9 +5811,11 @@ def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
 
 # ---- the DPT's backward and the encoders' second derivative (slice 13) -----
 
-# The new kernels of the DPT's backward: K10's fp32 backward, K12's tiled
-# fp32 input gradient (its fp32 weight gradient is step 15's conv_wgrad_fp32)
-DPT_GRAD_KERNELS = ("attention_bwd_fp32", "conv_dgrad_fp32_tiled")
+# The kernels of the DPT's backward: K10's fp32 backward, K12's tiled fp32
+# input and weight gradients (the latter also the towers' conv_outs', step
+# 15; its launches here are the DPT's)
+DPT_GRAD_KERNELS = ("attention_bwd_fp32", "conv_dgrad_fp32_tiled",
+                    "conv_wgrad_fp32_tiled")
 
 
 def encoder_hessian_rows(torch, results, x01, keep, where, rows_json):
@@ -6027,7 +6052,7 @@ def dpt_backward_phase(torch, kernels, results, x01, smi_line) -> dict:
                                  "library_graph_ms")):
             wg[i] += r[key] * n
     for name, sums in (("conv_dgrad_fp32_tiled", dg),
-                       ("conv_wgrad_fp32", wg)):
+                       ("conv_wgrad_fp32_tiled", wg)):
         log(f"DPT {name}: the 40 convs of a 384² backward summed: event "
             f"{sums[0]:.3f} ms, graph {sums[1]:.3f} ms against a bound of "
             f"{sums[2]:.3f} ms; cuDNN (TF32 off) event {sums[3]:.3f}, graph "

@@ -21,6 +21,9 @@ GPU.
         --only dpt_splits
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
         --only dpt_dgrad
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only wgrad
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only dpt_wgrad
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -130,6 +133,24 @@ backward (``dpt_dgrad_cases``: the forward's 40 convs, the stem's
 3-channel dx included) beside cuDNN's input gradient alone
 (``aten.convolution_backward``, input mask, TF32 off, on an input of the
 TF-SAME padded shape); a last line sums the 40 dgrads' graph ms.
+
+``--only wgrad`` times K12's weight gradient (``conv2d_wgrad_cuda``: the
+route the checkout takes) at each distinct conv shape of the four towers'
+backward (``wgrad_cases``: the SD 2.1, SD 1.5 and zero123 UNets at CFG
+batch 2 and the SD VAE encoder at 512², recorded from the towers' own
+forwards on the meta device by ``chip_smoke.tower_forward``; bf16, the
+fp32 conv_outs too) beside cuDNN's weight gradient alone
+(``aten.convolution_backward``, weight mask, TF32 off, on an input padded
+outside the timing where the pads are asymmetric); a last line a tower
+sums its convs' graph ms, the kernels' and cuDNN's.  ``--only dpt_wgrad``
+does the same at the 17 distinct fp32 conv shapes of a 384² DPT backward
+(``dpt_wgrad_cases``), summed over the 40.
+
+``--only wgrad_splits`` times the weight gradient's wgmma route (the
+towers' bf16 shapes) and tiled fp32 route (the DPT's and the conv_outs'
+shapes) alone at splits of 1 to 64 (``sweep_wgrad_splits``): graph ms,
+the split ``wgmma_wgrad_splits`` or ``fp32_wgrad_tiling`` chooses and the
+fastest, both summed over the towers' and the DPT's calls.
 
 ``--only dpt_splits`` times the tiled fp32 route alone at each of those
 17 shapes for every N tile (32, 64) and split (1-32) it takes
@@ -775,6 +796,80 @@ def sweep_fp32_tiles(smoke, K12, kernels, graph_ms, dev, g, tag, card):
                       "card": card}), flush=True)
 
 
+def sweep_wgrad_splits(smoke, K12, kernels, graph_ms, dev, g, tag, card):
+    """The weight gradient's split rules against the fastest split: the
+    wgmma route at every distinct bf16 shape of the four towers' backward
+    (``wgrad_cases``) and the tiled fp32 route at the DPT's 17 shapes and
+    the conv_outs', each launched directly at every split of 1-16 and at
+    20-64 in steps of 4 or 8 (at most one a step): one JSON line a shape
+    with each split's graph ms, the split the rule chooses and the fastest,
+    each with its ms; a last line a group sums both over its calls."""
+    import torch
+
+    from dreamfusion_tpu_torch.models.dpt import DPTConfig
+    sms = kernels.sm_count(dev)
+    shapes = {}
+    for row, _, _ in wgrad_cases(smoke, kernels, dev):
+        B, H, W, I, O = row["shape"]
+        route = K12.wgrad_route(torch.bfloat16 if row["dtype"] == "bf16"
+                                else torch.float32, I, O,
+                                (row["stride"], row["stride"]))
+        if route != "conv_wgrad_mma":
+            key = (B, H, W, I, O, row["k"], row["stride"], row["pads"],
+                   row["dtype"])
+            shapes[key] = {"towers": sum(row["calls"].values())}
+    convs, _ = smoke.dpt_calls(DPTConfig.depth(), smoke.DPT_HW)
+    for (B, H, W, I), (O, k, _, _), st, pads in convs:
+        key = (B, H, W, I, O, k, st, pads, "fp32")
+        shapes.setdefault(key, {"dpt": 0})["dpt"] += 1
+    sums = {}
+    for (B, H, W, I, O, k, st, pads, dt), calls in shapes.items():
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
+        x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
+        dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
+        dw = torch.empty(O, k, k, I, device=dev, dtype=dtype)
+        K = k * k * I
+        shape = (B, H, W, I, Ho, Wo, O, k, k, st, st, pads[0][0],
+                 pads[1][0])
+        if dt == "bf16":
+            route = "conv_wgrad_wgmma"
+            steps = K12.wgrad_boxes(B, Ho, Wo)
+            chosen = K12.wgmma_wgrad_splits(O, K, steps, sms)
+            extra = lambda sp: (*K12.wgrad_box(B, Ho, Wo), 0, sp, sms)
+            top = min(32, steps)
+        else:
+            route = "conv_wgrad_fp32_tiled"
+            steps = -(-B * Ho * Wo // 16)
+            bn, chosen = K12.fp32_wgrad_tiling(O, K, B * Ho * Wo, sms)
+            extra = lambda sp: (bn, sp)
+            top = min(64, steps)
+        times = {}
+        for sp in sorted({s for s in list(range(1, 17)) +
+                          list(range(20, 33, 4)) + list(range(40, 65, 8))
+                          if s <= top} | {chosen}):
+            ws = torch.empty(sp * dw.numel(), device=dev) if sp > 1 else None
+            fn = functools.partial(
+                kernels.launch, route, x.data_ptr(), dy.data_ptr(),
+                dw.data_ptr(), None if ws is None else ws.data_ptr(), *shape,
+                *extra(sp))
+            times[sp] = graph_ms(fn, 10, 5)
+        best = min(times, key=times.get)
+        print(json.dumps({"tag": tag, "kernel": route,
+                          "shape": [B, H, W, I, O], "k": k, "stride": st,
+                          "calls": calls, "chosen": chosen,
+                          "chosen_ms": times[chosen], "best": best,
+                          "best_ms": times[best], "graph_ms": times,
+                          "card": card}), flush=True)
+        for group, n in calls.items():
+            s = sums.setdefault(group, {"chosen_ms": 0.0, "best_ms": 0.0})
+            s["chosen_ms"] += n * times[chosen]
+            s["best_ms"] += n * times[best]
+    for group, s in sums.items():
+        print(json.dumps({"tag": tag, "group": group, **s, "card": card}),
+              flush=True)
+
+
 def dpt_cases(smoke, dev):
     """(row, the checkout's call, the library's call) for K12 at each
     distinct conv shape of a 384² DPT forward and K10's fp32 forward at
@@ -860,6 +955,75 @@ def dpt_dgrad_cases(smoke, dev):
     return cases
 
 
+def _wgrad_case(dev, g, B, H, W, I, O, k, st, pads, dtype):
+    """(the checkout's weight gradient, cuDNN's, GFLOP) of one conv shape;
+    inputs from `g`."""
+    import torch
+    import torch.nn.functional as F
+
+    from dreamfusion_tpu_torch.ops import conv as K12
+    Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
+    x = torch.randn(B, H, W, I, device=dev, generator=g).to(dtype)
+    dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
+    sym = pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]
+    xc = x.permute(0, 3, 1, 2)
+    xl = xc if sym else F.pad(xc, (*pads[1], *pads[0]))
+    wc = torch.empty(O, I, k, k, device=dev, dtype=dtype)
+    pad = [pads[0][0], pads[1][0]] if sym else [0, 0]
+    return (functools.partial(K12.conv2d_wgrad_cuda, x, dy, (O, k, k, I),
+                              (st, st), pads, dtype),
+            functools.partial(torch.ops.aten.convolution_backward,
+                              dy.permute(0, 3, 1, 2), xl, wc, None, [st, st],
+                              pad, [1, 1], False, [0, 0], 1,
+                              [False, True, False]),
+            2 * B * Ho * Wo * O * k * k * I / 1e9)
+
+
+def wgrad_cases(smoke, kernels, dev):
+    """(row, the checkout's call, cuDNN's call) for K12's weight gradient
+    at each distinct conv shape of the four towers' backward (see the
+    module docstring), each row with its calls a tower (``calls``)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    calls = {}
+    for tower, (prior, part) in smoke.GRAD_TOWERS.items():
+        smoke.tower_forward(torch, kernels, prior, part)
+        for c in smoke._TOWER_FULL[(prior, part, 1)]:
+            if c[0] == "conv":
+                n = calls.setdefault(c[1:], {})
+                n[tower] = n.get(tower, 0) + 1
+    cases = []
+    for (B, H, W, I, O, k, st, pads, dt), n in calls.items():
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        fn, lib, gflop = _wgrad_case(dev, g, B, H, W, I, O, k, st, pads,
+                                     dtype)
+        cases.append(({"kernel": "K12 conv_wgrad", "shape": [B, H, W, I, O],
+                       "k": k, "stride": st, "pads": pads, "dtype": dt,
+                       "gflop": gflop, "calls": n}, fn, lib))
+    return cases
+
+
+def dpt_wgrad_cases(smoke, dev):
+    """(row, the checkout's call, cuDNN's call) for K12's weight gradient
+    at each distinct conv shape of a 384² DPT backward."""
+    import torch
+
+    from dreamfusion_tpu_torch.models.dpt import DPTConfig
+    g = torch.Generator(device=dev).manual_seed(24)
+    convs, _ = smoke.dpt_calls(DPTConfig.depth(), smoke.DPT_HW)
+    cases = []
+    for call in dict.fromkeys(convs):
+        (B, H, W, I), (O, kh, _, _), st, pads = call
+        fn, lib, gflop = _wgrad_case(dev, g, B, H, W, I, O, kh, st, pads,
+                                     torch.float32)
+        cases.append(({"kernel": "K12 conv_wgrad", "shape": [B, H, W, I, O],
+                       "k": kh, "stride": st, "pads": pads, "dtype": "fp32",
+                       "gflop": gflop, "per_backward": convs.count(call),
+                       "slow": gflop >= 5}, fn, lib))
+    return cases
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=".")
@@ -867,15 +1031,19 @@ def main(argv=None) -> None:
     ap.add_argument("--only", choices=("conv", "dgrad", "attn", "gn",
                                        "gn_routes", "field", "dmtet",
                                        "render", "sdf", "dpt",
-                                       "dpt_splits", "dpt_dgrad"),
+                                       "dpt_splits", "dpt_dgrad",
+                                       "wgrad", "dpt_wgrad",
+                                       "wgrad_splits"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
                     "it could take, only K1 and K6, only K7 and K8, "
                     "only K2, K3 and K4, only K9, only the DPT's K10 "
                     "and K12 calls, K12's tiled fp32 route over its N "
-                    "tiles and splits, or K12's dgrads at the DPT's shapes "
-                    "(the last eight not in the default set)")
+                    "tiles and splits, K12's dgrads at the DPT's shapes, "
+                    "K12's weight gradients at the towers' or the "
+                    "DPT's shapes, or their split rules against every "
+                    "split (the last eleven not in the default set)")
     ap.add_argument("--sdf_mesh", default=None,
                     help="with --only sdf: the OBJ whose signed distance "
                     "K9 measures (default: a 50,000-triangle UV sphere)")
@@ -973,7 +1141,8 @@ def main(argv=None) -> None:
     for B, H, W, I, O, k, st, pad, dt, dgrad in (
             [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet",
                                 "render", "sdf", "dpt", "dpt_splits",
-                                "dpt_dgrad")
+                                "dpt_dgrad", "wgrad", "dpt_wgrad",
+                                "wgrad_splits")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -1020,7 +1189,8 @@ def main(argv=None) -> None:
     for B, N, M, h, d, bwd in (
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
                                 "dmtet", "render", "sdf", "dpt", "dpt_splits",
-                                "dpt_dgrad")
+                                "dpt_dgrad", "wgrad", "dpt_wgrad",
+                                "wgrad_splits")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -1102,6 +1272,10 @@ def main(argv=None) -> None:
         cases += dpt_cases(smoke, dev)
     if args.only == "dpt_dgrad":
         cases += dpt_dgrad_cases(smoke, dev)
+    if args.only == "wgrad":
+        cases += wgrad_cases(smoke, kernels, dev)
+    if args.only == "dpt_wgrad":
+        cases += dpt_wgrad_cases(smoke, dev)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -1114,10 +1288,14 @@ def main(argv=None) -> None:
         sweep_fp32_tiles(smoke, K12, kernels, graph_ms, dev, g, args.tag,
                          card)
         return
+    if args.only == "wgrad_splits":
+        sweep_wgrad_splits(smoke, K12, kernels, graph_ms, dev, g, args.tag,
+                           card)
+        return
     if args.outputs:
         outs = {}
         for row, fn, _ in cases:
-            if row["kernel"] == "K12 conv_dgrad":
+            if row["kernel"] in ("K12 conv_dgrad", "K12 conv_wgrad"):
                 continue
             y = fn()
             key = json.dumps({k: row[k] for k in row if k != "gflop"})
@@ -1148,9 +1326,11 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     sums = {"graph_ms": 0.0, "library_graph_ms": 0.0}
+    towers = {}                      # --only wgrad: a tower's sums
     try:
         for (row, fn, lib_fn), host in zip(cases, hosts):
-            dgrad = row["kernel"] in ("K12 conv_dgrad", "K10 attention_bwd") \
+            dgrad = row["kernel"] in ("K12 conv_dgrad", "K12 conv_wgrad",
+                                      "K10 attention_bwd") \
                 or row["kernel"].startswith(("K1 ", "K2 ", "K3 ", "K4 ",
                                              "K6 ", "K7 ", "K8 ", "K9 "))
             k_ms = kernel_ms(fn, n_of(row, 10, 3), by_name=dgrad)
@@ -1181,6 +1361,12 @@ def main(argv=None) -> None:
             if row["kernel"].startswith("K12 conv_") and n:
                 for key in sums:
                     sums[key] += out[key] * n
+            for tower, n in row.get("calls", {}).items():
+                t = towers.setdefault(tower, {"convs": 0, "graph_ms": 0.0,
+                                              "library_graph_ms": 0.0})
+                t["convs"] += n
+                for key in ("graph_ms", "library_graph_ms"):
+                    t[key] += out[key] * n
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1190,11 +1376,15 @@ def main(argv=None) -> None:
                               r.get("per_forward", 0) for r, _, _ in cases
                               if r["kernel"] == "K12 conv_fwd"),
                           **sums, "card": card}), flush=True)
-    if args.only == "dpt_dgrad":
-        print(json.dumps({"tag": args.tag, "kernel": "K12 conv_dgrad",
-                          "dpt_dgrads_a_backward": sum(
+    if args.only in ("dpt_dgrad", "dpt_wgrad"):
+        kind = args.only[4:]
+        print(json.dumps({"tag": args.tag, "kernel": f"K12 conv_{kind}",
+                          f"dpt_{kind}s_a_backward": sum(
                               r["per_backward"] for r, _, _ in cases),
                           **sums, "card": card}), flush=True)
+    for tower, t in towers.items():
+        print(json.dumps({"tag": args.tag, "kernel": "K12 conv_wgrad",
+                          "tower": tower, **t, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -161,17 +161,47 @@
 // VAE's level 0: 9 tiles of 128 x 128), so split-K over the pixels is the
 // design: each split writes its fp32 partial dW to a workspace and
 // conv_wgrad_reduce sums them in split order (deterministic, no atomics)
-// into dW's dtype; a launch of one split writes dW directly.  The splits (ops/conv.py::wgrad_splits) aim at two
-// blocks an SM, at least 16 steps of 32 pixels each.  Bound by operations
-// at the path's shapes (the forward's FLOPs: 77 GFLOP at the VAE's 512²
-// level).  Two routes (ops/conv.py::wgrad_route):
-//  - conv_wgrad_mma (bf16): mma.sync m16n8k16 on 128 x 128 tiles of dW,
-//    dy and the tap-shifted x by 16-byte cp.async into [32 pixels][128]
-//    tiles (two stages), both read by ldmatrix.trans; the padding is the
-//    copies' zero fill; the conv_ins' 3-, 4- and 8-channel x by element
-//    loads where I % 8 != 0.  A first, simple kernel: no wgmma yet.
-//  - conv_wgrad_fp32 (fp32, the conv_outs' O = 4 and 8): CUDA cores, a
-//    thread per dW column for 8 output channels.
+// into dW's dtype; a launch of one split writes dW directly.  Bound by
+// operations at the path's shapes (the forward's FLOPs: 77 GFLOP at the
+// VAE's 512² level, 123 GFLOP over the DPT's 40 fp32 convs), by bytes at
+// the conv_outs (O = 4 and 8).  Three routes (ops/conv.py::wgrad_route):
+//  - conv_wgrad_wgmma (bf16, I % 64 == 0, O % 8 == 0, stride 1 or 2: every
+//    UNet and VAE conv but the conv_ins).  The forward's machinery with the
+//    roles turned: a block owns 128 output channels (M; two consumer
+//    warpgroups of 64 rows) x 128 columns (N) of dW and walks its split's
+//    pixels in boxes of 64 of the output grid (64 x 1 on wide rows, 8 x 8
+//    at 8², across the batch where the grid is smaller;
+//    ops/conv.py::wgrad_box), so that both operands of a step cover the
+//    same pixels in the same order.  A producer thread issues per box one
+//    TMA copy of dy from a 4-D map over [B, Ho, Wo, O] per 64 channels
+//    (A = dyᵀ) and one of x per 64-column box from the forward's map over
+//    x, at that box's tap (x0*sw + s - pl, y0*sh + r - pt; stride 2 by the
+//    map's traversal strides, the padding and the ragged box by its zero
+//    fill; I % 64 == 0 keeps a box in one tap).  Both tiles are
+//    [64 pixels][64] channel-contiguous 128-byte-swizzled rows: MN-major A
+//    and B, as K10's dV = Pᵀ·dO (wgmma_m64n128k16_ss_t<1, 1>).  A ring of
+//    6 stages with full/empty mbarriers; persistent blocks, one an SM,
+//    whose producer runs ahead into the next tile while the consumers
+//    store the last (a bf16 dW through a swizzled staging tile and TMA
+//    stores, fp32 partials from the registers); splits over the boxes by a
+//    cost model of tiles a block, steps and the partials' traffic
+//    (wgmma_wgrad_splits).
+//  - conv_wgrad_mma (the bf16 rest: the conv_ins' I = 3, 4, 8, off-path
+//    shapes): mma.sync m16n8k16 on 128 x 128 tiles of dW, dy and the
+//    tap-shifted x by 16-byte cp.async into [32 pixels][128] tiles (two
+//    stages), both read by ldmatrix.trans; the padding is the copies' zero
+//    fill; x by element loads where I % 8 != 0.  Splits for two blocks an
+//    SM, at least 16 steps of 32 pixels each (wgrad_splits).
+//  - conv_wgrad_fp32_tiled (every fp32 wgrad: the DPT's 40, the conv_outs):
+//    the tiled fp32 forward's design (ft_gemm) with the gather moved from
+//    the output side to the reduction: M = the kh*kw*I columns of dW, N =
+//    O, the reduction the pixels in steps of 16.  Per step, dy's rows
+//    [16 pixels][BN channels] and x at each column's tap offset [16][BM]
+//    (zero outside the image) by cp.async, 16 bytes where I and O are
+//    multiples of 4, in a 3-stage ring; both tiles pixel-major, so each
+//    thread's 8 columns x 8 channels are two float4 reads of each.  The N
+//    tile follows O: 64 (BM 128, 128 threads), 32 (BM 128, 64 threads) or 8
+//    for the conv_outs (BM 512, 64 threads); splits by fp32_wgrad_tiling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1483,7 +1513,6 @@ __device__ __forceinline__ void wgrad_store(const WgradParams& p, int split,
 
 namespace wgr {
 constexpr int BM = 128, BN = 128, BK = 32, LDS = BM + 8, kThreads = 256;
-constexpr int FP_N = 128, FP_O = 8, FP_PIX = 32;   // the fp32 route's block
 }  // namespace wgr
 
 // The bf16 route.  A block owns 128 output channels (M) x 128 columns
@@ -1626,68 +1655,6 @@ conv_wgrad_mma_kernel(WgradParams p) {
     }
 }
 
-// The fp32 route (the conv_outs: O <= 8 over 320-512 input channels, so
-// dW is a few thousand columns deep and a GEMM tile would waste its M).
-// CUDA cores: a block of 128 threads owns 128 columns (tap, channel) of dW,
-// one a thread, for FP_O output channels, over its split's pixels, 32 at a
-// time: their dy values and grid positions staged in shared memory, then
-// each thread reads x at its column's tap offset (neighbouring threads on
-// neighbouring channels) for FP_O FMAs a read.
-__global__ void __launch_bounds__(wgr::FP_N) conv_wgrad_fp32_kernel(
-    WgradParams p) {
-  using wgr::FP_N;
-  using wgr::FP_O;
-  using wgr::FP_PIX;
-  __shared__ float sdy[FP_PIX][FP_O];
-  __shared__ int sb[FP_PIX], sy[FP_PIX], sx[FP_PIX];
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * FP_N + tid, o0 = blockIdx.y * FP_O;
-  const int split = blockIdx.z;
-  const int Kn = p.kh * p.kw * p.I;
-  const int64_t P = (int64_t)p.B * p.Ho * p.Wo;
-  const int64_t pix0 = P * split / p.splits;
-  const int64_t pix1 = P * (split + 1) / p.splits;
-  const float* __restrict__ X = static_cast<const float*>(p.x);
-  const float* __restrict__ DY = static_cast<const float*>(p.dy);
-  const int tap = n / p.I, ch = n - tap * p.I;
-  const int r = tap / p.kw, s = tap - (tap / p.kw) * p.kw;
-  float acc[FP_O];
-#pragma unroll
-  for (int o = 0; o < FP_O; ++o) acc[o] = 0.f;
-  for (int64_t base = pix0; base < pix1; base += FP_PIX) {
-    __syncthreads();                    // the previous chunk is consumed
-    for (int i = tid; i < FP_PIX * FP_O; i += FP_N) {
-      const int row = i / FP_O, o = i % FP_O;
-      const int64_t pix = base + row;
-      sdy[row][o] = pix < pix1 && o0 + o < p.O ? DY[pix * p.O + o0 + o] : 0.f;
-    }
-    if (tid < FP_PIX) {
-      const int64_t pix = base + tid;
-      const int64_t t = pix / p.Wo;
-      sb[tid] = pix < pix1 ? (int)(t / p.Ho) : -1;
-      sy[tid] = (int)(t % p.Ho) * p.sh - p.pt;
-      sx[tid] = (int)(pix % p.Wo) * p.sw - p.pl;
-    }
-    __syncthreads();
-    if (n >= Kn) continue;
-    for (int row = 0; row < FP_PIX; ++row) {
-      const int b = sb[row];
-      if (b < 0) break;
-      const int iy = sy[row] + r, ix = sx[row] + s;
-      if (iy < 0 || iy >= p.H || ix < 0 || ix >= p.W) continue;
-      const float xv = __ldg(X + (((int64_t)b * p.H + iy) * p.W + ix) * p.I +
-                             ch);
-#pragma unroll
-      for (int o = 0; o < FP_O; ++o) acc[o] = fmaf(sdy[row][o], xv, acc[o]);
-    }
-  }
-  if (n >= Kn) return;
-#pragma unroll
-  for (int o = 0; o < FP_O; ++o)
-    if (o0 + o < p.O) wgrad_store(p, split, (int64_t)(o0 + o) * Kn + n,
-                                  acc[o]);
-}
-
 // dW = sum over splits of the partials, in split order, in dW's dtype
 __global__ void conv_wgrad_reduce(const float* __restrict__ ws, void* dw,
                                   int64_t total, int splits, int out_f32) {
@@ -1701,37 +1668,431 @@ __global__ void conv_wgrad_reduce(const float* __restrict__ ws, void* dw,
     static_cast<bf16*>(dw)[idx] = __float2bfloat16(v);
 }
 
-int launch_wgrad(const WgradParams& p, bool bf16_in, cudaStream_t stream) {
+// the split partials of a launch of p.splits > 1, summed in split order
+void wgrad_reduce(const WgradParams& p, cudaStream_t stream) {
+  if (p.splits == 1) return;
+  const int64_t total = (int64_t)p.O * p.kh * p.kw * p.I;
+  conv_wgrad_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      p.ws, p.dw, total, p.splits, p.out_f32);
+}
+
+int launch_wgrad_mma(const WgradParams& p, cudaStream_t stream) {
   using wgr::BM;
   using wgr::BN;
-  using wgr::FP_N;
-  using wgr::FP_O;
   constexpr int kThreads = wgr::kThreads;
-  const int64_t total = (int64_t)p.O * p.kh * p.kw * p.I;
-  if (p.splits < 1 || (p.splits > 1 && p.ws == nullptr) || p.sh < 1 ||
-      p.sw < 1)
-    return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaGetLastError();
   const int Kn = p.kh * p.kw * p.I;
-  if (bf16_in) {
-    dim3 grid((p.O + BM - 1) / BM, (Kn + BN - 1) / BN, p.splits);
-    const bool va = p.O % 8 == 0, vb = p.I % 8 == 0;
-    if (va && vb)
-      conv_wgrad_mma_kernel<true, true><<<grid, kThreads, 0, stream>>>(p);
-    else if (va)
-      conv_wgrad_mma_kernel<true, false><<<grid, kThreads, 0, stream>>>(p);
-    else if (vb)
-      conv_wgrad_mma_kernel<false, true><<<grid, kThreads, 0, stream>>>(p);
-    else
-      conv_wgrad_mma_kernel<false, false><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    dim3 grid((Kn + FP_N - 1) / FP_N, (p.O + FP_O - 1) / FP_O, p.splits);
-    conv_wgrad_fp32_kernel<<<grid, FP_N, 0, stream>>>(p);
-  }
-  if (p.splits > 1)
-    conv_wgrad_reduce<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        p.ws, p.dw, total, p.splits, p.out_f32);
+  dim3 grid((p.O + BM - 1) / BM, (Kn + BN - 1) / BN, p.splits);
+  const bool va = p.O % 8 == 0, vb = p.I % 8 == 0;
+  if (va && vb)
+    conv_wgrad_mma_kernel<true, true><<<grid, kThreads, 0, stream>>>(p);
+  else if (va)
+    conv_wgrad_mma_kernel<true, false><<<grid, kThreads, 0, stream>>>(p);
+  else if (vb)
+    conv_wgrad_mma_kernel<false, true><<<grid, kThreads, 0, stream>>>(p);
+  else
+    conv_wgrad_mma_kernel<false, false><<<grid, kThreads, 0, stream>>>(p);
+  wgrad_reduce(p, stream);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32 weight gradient: a tiled GEMM on the CUDA cores (see the note above)
+// ---------------------------------------------------------------------------
+
+namespace fw {
+constexpr int BK = 16, STAGES = 3;   // pixels a step, ring stages
+constexpr int kFar = -(1 << 29);     // a column past K: every tap misses
+// A block of kThreads threads is a TM x TN grid (TN = BN / 8 along N), each
+// thread 8 columns x 8 channels: columns 4 ty + {0..3} and BM/2 + 4 ty +
+// {0..3}, channels 4 tx + {0..3} and BN/2 + 4 tx + {0..3}, so a float4
+// read of each tile's row gives four of them.  A warp spans the TN
+// threads along N: its A reads are 32/TN consecutive float4s (broadcast
+// along N), its B reads TN consecutive ones.  TPR threads copy each pixel
+// row of a step.
+template <int BN>
+struct Cfg {
+  static_assert(BN == 8 || BN == 32 || BN == 64, "N tile");
+  static constexpr int kThreads = BN == 64 ? 128 : 64;
+  static constexpr int TN = BN / 8;
+  static constexpr int TM = kThreads / TN;
+  static constexpr int BM = 8 * TM;               // 128, 128, 512 columns
+  static constexpr int TPR = kThreads / BK;
+  static constexpr size_t kSmem =
+      (size_t)STAGES * BK * (BM + BN) * sizeof(float) + BM * sizeof(int4);
+};
+}  // namespace fw
+
+// dW[n, m] (n: output channel, m = (tap, channel) column) of a BM x BN
+// tile over split blockIdx.z's pixel steps: A = x at each column's tap
+// offset [BK pixels][BM], B = dy [BK pixels][BN], both pixel-major in a
+// 3-stage cp.async ring (zeros outside the image, past P, past K and past
+// O); sums in pixel order, partials to ws when p.splits > 1.  VEC: I and
+// O multiples of 4, each copy 4 channels (16 bytes).
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(fw::Cfg<BN>::kThreads)
+conv_wgrad_fp32_tiled_kernel(WgradParams p) {
+  using Cf = fw::Cfg<BN>;
+  constexpr int BM = Cf::BM, BK = fw::BK, STAGES = fw::STAGES;
+  constexpr int T = Cf::kThreads, TPR = Cf::TPR;
+  extern __shared__ __align__(16) unsigned char fw_smem[];
+  float* As = reinterpret_cast<float*>(fw_smem);         // [STAGES][BK][BM]
+  float* Bs = As + STAGES * BK * BM;                     // [STAGES][BK][BN]
+  int4* ctab = reinterpret_cast<int4*>(Bs + STAGES * BK * BN);   // [BM]
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int Kn = p.kh * p.kw * p.I;
+  const int64_t P = (int64_t)p.B * p.Ho * p.Wo;
+  const int64_t steps = (P + BK - 1) / BK;
+  const int64_t s0 = steps * split / p.splits;
+  const int KT = (int)(steps * (split + 1) / p.splits - s0);
+  const float* __restrict__ X = static_cast<const float*>(p.x);
+  const float* __restrict__ DY = static_cast<const float*>(p.dy);
+
+  // the tile's columns: x's offset from a pixel's tap (0, 0) source, the
+  // tap (r, s)
+  for (int m = tid; m < BM; m += T) {
+    const int n = m0 + m;
+    const int tap = n / p.I, c = n - tap * p.I;
+    const int r = tap / p.kw, s = tap - r * p.kw;
+    ctab[m] = n < Kn ? make_int4((r * p.W + s) * p.I + c, r, s, 0)
+                     : make_int4(0, fw::kFar, 0, 0);
+  }
+  __syncthreads();
+
+  // each thread copies pixel row `row` of a step: A's column groups part,
+  // part + TPR, ..., B's likewise
+  constexpr int CW = VEC ? 4 : 1;
+  constexpr int A_GROUPS = BM / CW, B_GROUPS = BN / CW;
+  static_assert(A_GROUPS % TPR == 0, "A copies");
+  const int row = tid / TPR, part = tid % TPR;
+  auto load_stage = [&](int slot, int kt) {
+    const int64_t pix = (s0 + kt) * BK + row;
+    const bool in = pix < P;
+    int iy0 = fw::kFar, ix0 = 0;
+    int64_t xrow = 0;
+    if (in) {
+      const int ox = (int)(pix % p.Wo);
+      const int64_t t = pix / p.Wo;
+      const int oy = (int)(t % p.Ho), b = (int)(t / p.Ho);
+      iy0 = oy * p.sh - p.pt;
+      ix0 = ox * p.sw - p.pl;
+      xrow = (((int64_t)b * p.H + iy0) * p.W + ix0) * p.I;
+    }
+    float* as = As + (slot * BK + row) * BM;
+#pragma unroll
+    for (int j = 0; j < A_GROUPS / TPR; ++j) {
+      const int gcol = (part + j * TPR) * CW;
+      const int4 e = ctab[gcol];
+      const int iy = iy0 + e.y, ix = ix0 + e.z;
+      const bool ok = (unsigned)iy < (unsigned)p.H &&
+                      (unsigned)ix < (unsigned)p.W;
+      ft_copy<VEC>(as + gcol, ok ? X + xrow + e.x : X, ok);
+    }
+    float* bs = Bs + (slot * BK + row) * BN;
+#pragma unroll
+    for (int j = 0; j < (B_GROUPS + TPR - 1) / TPR; ++j) {
+      const int gcol = (part + j * TPR) * CW;
+      if (gcol >= BN) break;
+      const bool ok = in && n0 + gcol < p.O;
+      ft_copy<VEC>(bs + gcol, ok ? DY + pix * p.O + n0 + gcol : DY, ok);
+    }
+  };
+
+  const int tx = tid % Cf::TN, ty = tid / Cf::TN;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    dft::cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    // step kt has landed, and every thread is done with step kt - 1, whose
+    // slot the next copy refills
+    dft::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < KT)
+      load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    dft::cp_async_commit();
+    const float* at = As + (kt % STAGES) * BK * BM + 4 * ty;
+    const float* bt = Bs + (kt % STAGES) * BK * BN + 4 * tx;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(at + k * BM);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(at + k * BM + BM / 2);
+      const float4 b0 = *reinterpret_cast<const float4*>(bt + k * BN);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bt + k * BN + BN / 2);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  // epilogue: dW [O][Kn] (or this split's partial)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + (j < 4 ? 4 * tx + j : BN / 2 + 4 * tx + j - 4);
+    if (n >= p.O) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
+      if (m < Kn) wgrad_store(p, split, (int64_t)n * Kn + m, acc[i][j]);
+    }
+  }
+}
+
+template <int BN, bool VEC>
+int launch_wgrad_fp32_tiled(const WgradParams& p, cudaStream_t stream) {
+  using Cf = fw::Cfg<BN>;
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err = hop::allow_smem(
+      conv_wgrad_fp32_tiled_kernel<BN, VEC>, (int)Cf::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int Kn = p.kh * p.kw * p.I;
+  dim3 grid((Kn + Cf::BM - 1) / Cf::BM, (p.O + BN - 1) / BN, p.splits);
+  conv_wgrad_fp32_tiled_kernel<BN, VEC>
+      <<<grid, Cf::kThreads, Cf::kSmem, stream>>>(p);
+  wgrad_reduce(p, stream);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_wgrad_fp32_tiled_bn(const WgradParams& p, cudaStream_t stream) {
+  return p.I % 4 == 0 && p.O % 4 == 0
+             ? launch_wgrad_fp32_tiled<BN, true>(p, stream)
+             : launch_wgrad_fp32_tiled<BN, false>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 weight gradient on wgmma, operands by TMA (see the note above)
+// ---------------------------------------------------------------------------
+
+namespace wgw {
+constexpr int BM = 128, BN = 128, kThreads = 384, STAGES = 6;
+constexpr int PIX = 64;                        // pixels a step (a box)
+constexpr int BOX = PIX * 64 * 2;              // [64 pixels][64] bf16: 8 KB
+constexpr int STAGE = 4 * BOX;                 // dy: 2 boxes, x: 2 boxes
+constexpr int OUT = 2 * 64 * 64 * 2;           // a warpgroup's bf16 staging
+constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE + 2 * OUT +
+                         2 * STAGES * sizeof(uint64_t);
+static_assert(kSmem <= 232448, "shared memory");
+}  // namespace wgw
+
+struct WgradBoxes {
+  int O, I, Kn, kw, sh, sw, pt, pl;
+  int bw, bh, bb;                // a step's pixel box (bw * bh * bb = 64)
+  int tiles_x, tiles_y, steps;   // the boxes over [B, Ho, Wo]
+  int tiles_n, tiles_m, splits;  // dW's tiles and the splits of the steps
+  int out_f32;
+  int tma_store;                 // bf16 dW, one split: TMA stores
+  float* ws;                     // [splits][O][Kn] when splits > 1
+  void* dw;                      // [O][Kn]
+};
+
+// A tile's place: its 128 x 128 corner of dW, its split's steps, the boxes
+// of A (dy, na of 2) and B (x, nb of 2) it loads
+struct WgradTile {
+  int n0, m0, split, st0, st1, na, nb;
+};
+
+__device__ __forceinline__ WgradTile wgrad_tile(const WgradBoxes& p, int t) {
+  WgradTile w;
+  w.n0 = (t % p.tiles_n) * wgw::BN;
+  t /= p.tiles_n;
+  w.m0 = (t % p.tiles_m) * wgw::BM;
+  w.split = t / p.tiles_m;
+  w.st0 = (int)((int64_t)p.steps * w.split / p.splits);
+  w.st1 = (int)((int64_t)p.steps * (w.split + 1) / p.splits);
+  // boxes wholly past O (A) or K (B) are not loaded: the rows and columns
+  // they would feed are not stored
+  w.na = w.m0 + 64 < p.O ? 2 : 1;
+  w.nb = w.n0 + 64 < p.Kn ? 2 : 1;
+  return w;
+}
+
+// Persistent: block i takes tiles i, i + gridDim.x, ... (a tile: 128 o x
+// 128 columns of dW over one split of the pixel boxes; consecutive tiles
+// share their dy boxes).  The producer thread streams every tile's boxes
+// through one ring, running ahead into the next tile while the consumers
+// finish one: per box dy's [64 pixels][64 o] (A, MN-major) for each 64
+// rows of the tile and x's [64 pixels][64 channels] (B, MN-major) for
+// each 64 columns at the columns' tap.  Consumer warpgroup cw runs wgmma
+// m64n128k16 on rows 64 cw .. of every tile (none where they are past O:
+// it only passes the stages on), then stores them: a bf16 dW of one
+// split through a 128-byte-swizzled staging tile and two TMA stores (which
+// clip the rows past O and the columns past K), partials and fp32 dW from
+// its registers.  A form in which the two warpgroups took whole tiles in
+// turns (the forward's "pingpong") ran 1.4-1.5x slower at the shapes of
+// one or two long tiles a block.
+__global__ void __launch_bounds__(wgw::kThreads, 1)
+conv_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap dymap,
+                        const __grid_constant__ CUtensorMap dwmap,
+                        WgradBoxes p) {
+  // (the forward's mma.sync tile constants share the names)
+  constexpr int STAGES = wgw::STAGES, STAGE = wgw::STAGE, BOX = wgw::BOX;
+  constexpr int PIX = wgw::PIX;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  bf16* stage_out = reinterpret_cast<bf16*>(base + STAGES * STAGE);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + STAGES * STAGE + 2 * wgw::OUT);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);   // both consumer warpgroups
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  const int tiles = p.tiles_n * p.tiles_m * p.splits;
+
+  if (grp == 0) {
+    // ---- producer: one thread streams every tile's boxes ----
+    hop::regs_dec<40>();
+    if (tid != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const WgradTile w = wgrad_tile(p, t);
+      int bc[2], br[2], bs[2];          // the B boxes' channel and tap
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w.n0 + 64 * h, tap = col / p.I;
+        bc[h] = col - tap * p.I;
+        br[h] = tap / p.kw;
+        bs[h] = tap - br[h] * p.kw;
+      }
+      for (int st = w.st0; st < w.st1; ++st, ++it) {
+        const int s = it % STAGES;
+        hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int row = st / p.tiles_x;
+        const int x0 = (st - row * p.tiles_x) * p.bw;
+        const int y0 = (row % p.tiles_y) * p.bh;
+        const int b0 = row / p.tiles_y * p.bb;
+        unsigned char* stg = base + s * STAGE;
+        hop::mbar_expect_tx(&full[s], (w.na + w.nb) * BOX);
+        for (int h = 0; h < w.na; ++h)
+          hop::tma_load_4d(stg + h * BOX, &dymap, &full[s], w.m0 + 64 * h,
+                           x0, y0, b0);
+        // at stride 2 the map walks every other pixel (its traversal
+        // strides): the box starts at the tap's first source pixel
+        for (int h = 0; h < w.nb; ++h)
+          hop::tma_load_4d(stg + (2 + h) * BOX, &xmap, &full[s], bc[h],
+                           x0 * p.sw + bs[h] - p.pl,
+                           y0 * p.sh + br[h] - p.pt, b0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns rows m0 + 64 cw .. of each tile ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lt = tid % 128, lane = lt % 32, warp = lt / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int64_t total = (int64_t)p.O * p.Kn;
+  bf16* so = stage_out + cw * (wgw::OUT / 2);   // [2 boxes][64][64]
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WgradTile w = wgrad_tile(p, t);
+    const bool mine = cw < w.na;
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    hop::fence_regs<64>(acc);
+    int prev = -1;
+#pragma unroll 1
+    for (int st = w.st0; st < w.st1; ++st, ++it) {
+      const int s = it % STAGES;
+      const unsigned char* stg = base + s * STAGE;
+      hop::mbar_wait(&full[s], (it / STAGES) & 1);
+      if (mine) {
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < PIX / 16; ++kk) {
+          // both MN-major: 16 pixel rows (2048 bytes) a k16 step; B's two
+          // 64-column boxes BOX apart (LBO)
+          const uint64_t da = hop::desc_sw128(stg + cw * BOX + kk * 2048);
+          const uint64_t db =
+              hop::desc_sw128(stg + 2 * BOX + kk * 2048, BOX);
+          hop::wgmma_m64n128k16_ss_t<1, 1>(acc, da, db);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();        // the previous stage's products
+      }
+      if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    if (mine) hop::wgmma_wait<0>();
+    hop::fence_regs<64>(acc);
+    if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+    if (!mine) continue;
+
+    if (p.tma_store) {
+      // ---- epilogue: bf16 into this warpgroup's staging (128-byte
+      // swizzle, as the map's), the last tile's stores done reading it,
+      // then one TMA store a 64-column box ----
+      if (lt == 0) hop::bulk_wait_read();
+      hop::bar_sync(1 + cw, 128);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        bf16* box = so + (j / 8) * (64 * 64);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = warp * 16 + g + 8 * h;
+          *reinterpret_cast<uint32_t*>(
+              box + row * 64 + (((j % 8) ^ (row % 8)) * 8) + 2 * q) =
+              dft::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+      hop::fence_proxy_async();
+      hop::bar_sync(1 + cw, 128);
+      if (lt == 0) {
+        for (int h = 0; h < w.nb; ++h)
+          hop::tma_store_4d(&dwmap, so + h * (64 * 64), w.n0 + 64 * h,
+                            w.m0 + 64 * cw, 0, 0);
+        hop::bulk_commit();
+      }
+      continue;
+    }
+    // ---- epilogue: fp32 dW or this split's partial, two columns a store
+    // (Kn and the column even) ----
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = w.n0 + 8 * j + 2 * q;
+      if (col >= p.Kn) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = w.m0 + 64 * cw + warp * 16 + g + 8 * h;
+        if (o >= p.O) continue;
+        const int64_t idx = (int64_t)o * p.Kn + col;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (p.splits > 1)
+          *reinterpret_cast<float2*>(p.ws + w.split * total + idx) =
+              make_float2(v0, v1);
+        else if (p.out_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.dw) + idx) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.dw) + idx) =
+              dft::pack_bf16(v0, v1);
+      }
+    }
+  }
+  if (lt == 0) hop::bulk_wait();     // stores done before the block ends
 }
 
 }  // namespace
@@ -2035,6 +2396,17 @@ extern "C" int conv_dgrad_fp32(const void* dy, const void* w, void* dx, int B,
   return (int)cudaGetLastError();
 }
 
+// Arguments every weight-gradient route refuses; else 0.
+static int wgrad_invalid(const WgradParams& p) {
+  return p.splits < 1 || (p.splits > 1 && p.ws == nullptr) || p.sh < 1 ||
+         p.sw < 1 || p.kh < 1 || p.kw < 1;
+}
+
+// dW has no element
+static bool wgrad_empty(const WgradParams& p) {
+  return (int64_t)p.O * p.kh * p.kw * p.I == 0;
+}
+
 // The weight gradient dW[O,kh,kw,I] (out_f32: fp32, else bf16) of a conv of
 // x[B,H,W,I] with output gradient dy[B,Ho,Wo,O] at strides sh, sw and
 // top/left padding pt, pl: bf16 x and dy on the tensor cores (16-byte
@@ -2048,16 +2420,98 @@ extern "C" int conv_wgrad_mma(const void* x, const void* dy, void* dw,
                               cudaStream_t stream) {
   const WgradParams p{x, dy, ws, dw, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
                       pt, pl, splits, out_f32};
-  return launch_wgrad(p, true, stream);
+  if (wgrad_invalid(p)) return (int)cudaErrorInvalidValue;
+  if (wgrad_empty(p)) return (int)cudaGetLastError();
+  return launch_wgrad_mma(p, stream);
 }
 
-// The same for fp32 x and dy on the CUDA cores (any I and O).
-extern "C" int conv_wgrad_fp32(const void* x, const void* dy, void* dw,
-                               float* ws, int B, int H, int W, int I, int Ho,
-                               int Wo, int O, int kh, int kw, int sh, int sw,
-                               int pt, int pl, int out_f32, int splits,
-                               cudaStream_t stream) {
+// The same for fp32 x and dy on the CUDA cores, any I and O (16-byte
+// aligned x and dy where I % 4 == 0 and O % 4 == 0), dW in fp32, as a
+// tiled GEMM of bn (8, 32 or 64) output channels by 512, 128 or 128
+// columns.
+extern "C" int conv_wgrad_fp32_tiled(const void* x, const void* dy,
+                                     void* dw, float* ws, int B, int H,
+                                     int W, int I, int Ho, int Wo, int O,
+                                     int kh, int kw, int sh, int sw, int pt,
+                                     int pl, int bn, int splits,
+                                     cudaStream_t stream) {
   const WgradParams p{x, dy, ws, dw, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
+                      pt, pl, splits, 1};
+  if (wgrad_invalid(p) || (bn != 8 && bn != 32 && bn != 64))
+    return (int)cudaErrorInvalidValue;
+  if (wgrad_empty(p)) return (int)cudaGetLastError();
+  return bn == 64   ? launch_wgrad_fp32_tiled_bn<64>(p, stream)
+         : bn == 32 ? launch_wgrad_fp32_tiled_bn<32>(p, stream)
+                    : launch_wgrad_fp32_tiled_bn<8>(p, stream);
+}
+
+// The bf16 weight gradient on wgmma: x[B,H,W,I] and dy[B,Ho,Wo,O] bf16,
+// 16-byte aligned, I % 64 == 0, O % 8 == 0, strides 1 or 2; the pixels in
+// boxes of bw x bh x bb of the output grid (product 64; bw * sw and
+// bh * sh at most 256, TMA's box limit), splits as for conv_wgrad_mma;
+// persistent blocks on at most `sms` multiprocessors.
+extern "C" int conv_wgrad_wgmma(const void* x, const void* dy, void* dw,
+                                float* ws, int B, int H, int W, int I,
+                                int Ho, int Wo, int O, int kh, int kw,
+                                int sh, int sw, int pt, int pl, int bw,
+                                int bh, int bb, int out_f32, int splits,
+                                int sms, cudaStream_t stream) {
+  const WgradParams q{x, dy, ws, dw, B, H, W, I, Ho, Wo, O, kh, kw, sh, sw,
                       pt, pl, splits, out_f32};
-  return launch_wgrad(p, false, stream);
+  if (wgrad_invalid(q) || I % 64 || O % 8 || sh > 2 || sw > 2 ||
+      bw * bh * bb != wgw::PIX || bw * sw > 256 || bh * sh > 256 ||
+      bb > 256 || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  if (wgrad_empty(q)) return (int)cudaGetLastError();
+  const int64_t total = (int64_t)O * kh * kw * I;
+  if ((int64_t)B * Ho * Wo == 0)     // no pixel: dW is zero
+    return (int)cudaMemsetAsync(dw, 0, total * (out_f32 ? 4 : 2), stream);
+  CUtensorMap xmap, dymap;
+  // x [B, H, W, I]: a box of bw x bh x bb pixels, every sw-th along W and
+  // sh-th along H (the map's traversal strides); dy [B, Ho, Wo, O]
+  const cuuint64_t xd[4] = {(cuuint64_t)I, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)B};
+  const cuuint64_t xs[3] = {(cuuint64_t)I * 2, (cuuint64_t)W * I * 2,
+                            (cuuint64_t)H * W * I * 2};
+  const cuuint32_t xbox[4] = {64, (cuuint32_t)(bw * sw),
+                              (cuuint32_t)(bh * sh), (cuuint32_t)bb};
+  const cuuint32_t elem[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
+  const cuuint64_t dd[4] = {(cuuint64_t)O, (cuuint64_t)Wo, (cuuint64_t)Ho,
+                            (cuuint64_t)B};
+  const cuuint64_t ds[3] = {(cuuint64_t)O * 2, (cuuint64_t)Wo * O * 2,
+                            (cuuint64_t)Ho * Wo * O * 2};
+  const cuuint32_t dbox[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh,
+                              (cuuint32_t)bb};
+  if (!hop::encode_bf16_map(&xmap, x, 4, xd, xs, xbox, elem) ||
+      !hop::encode_bf16_map(&dymap, dy, 4, dd, ds, dbox))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap dwmap;                 // dW [O, Kn] bf16: [64][64] boxes
+  memset(&dwmap, 0, sizeof dwmap);   // unused without TMA stores
+  const int tma_store = !out_f32 && splits == 1;
+  const cuuint64_t Kn = (cuuint64_t)kh * kw * I;
+  const cuuint64_t wd[4] = {Kn, (cuuint64_t)O, 1, 1};
+  const cuuint64_t wst[3] = {Kn * 2, Kn * O * 2, Kn * O * 2};
+  const cuuint32_t wbox[4] = {64, 64, 1, 1};
+  if (tma_store && !hop::encode_bf16_map(&dwmap, dw, 4, wd, wst, wbox))
+    return (int)cudaErrorInvalidValue;
+  WgradBoxes p{};
+  p.O = O; p.I = I; p.Kn = kh * kw * I; p.kw = kw;
+  p.sh = sh; p.sw = sw; p.pt = pt; p.pl = pl;
+  p.bw = bw; p.bh = bh; p.bb = bb;
+  p.tiles_x = (Wo + bw - 1) / bw;
+  p.tiles_y = (Ho + bh - 1) / bh;
+  p.steps = p.tiles_x * p.tiles_y * ((B + bb - 1) / bb);
+  p.tiles_n = (p.Kn + wgw::BN - 1) / wgw::BN;
+  p.tiles_m = (O + wgw::BM - 1) / wgw::BM;
+  p.splits = splits; p.out_f32 = out_f32; p.tma_store = tma_store;
+  p.ws = ws; p.dw = dw;
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err = hop::allow_smem(conv_wgrad_wgmma_kernel,
+                                          (int)wgw::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = p.tiles_n * p.tiles_m * splits;
+  conv_wgrad_wgmma_kernel<<<tiles < sms ? tiles : sms, wgw::kThreads,
+                            wgw::kSmem, stream>>>(xmap, dymap, dwmap, p);
+  wgrad_reduce(q, stream);
+  return (int)cudaGetLastError();
 }

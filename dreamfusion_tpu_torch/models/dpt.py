@@ -26,7 +26,7 @@ with autograd, as ``jax.grad`` differentiates JAX's ``apply``: with
 ``requires_grad_(True)`` on the model (or on the input) it takes the
 gradient of every weight and the input, through K10's fp32 backward
 (``attention_bwd_fp32``), K12's fp32 input and weight gradients
-(``conv_dgrad_fp32_tiled``, ``conv_wgrad_fp32``) and plain torch for the
+(``conv_dgrad_fp32_tiled``, ``conv_wgrad_fp32_tiled``) and plain torch for the
 rest (the weight standardisation, the norms, the max pool, the resizes),
 as JAX's are plain XLA.
 """

@@ -35,10 +35,15 @@ DPT's 40, its 3-channel stem's dx and the 1x1 stride-2 downsamples, whose
 three tapless classes come out as zeros, included; the same packed
 weight), and mma.sync (``conv_dgrad``) for the bf16 rest, which no SD-step
 shape reaches.  The weight gradient (``f_bwd``'s dk) is one launch of one
-of two routes, chosen by ``wgrad_route`` on the dtype: mma.sync for bf16
-(``conv_wgrad_mma``) and CUDA cores for fp32 (``conv_wgrad_fp32``), each a
-GEMM per tap split over the pixels, the splits' partials summed in order
-in the same launch; the bias's gradient is one sum of dy.  x is saved for
+of three routes, chosen by ``wgrad_route`` on the dtype and shape: the
+wgmma kernel with dy and x by TMA over 64-pixel boxes of the output grid
+(``conv_wgrad_wgmma``; bf16, I % 64 == 0, O % 8 == 0, stride 1 or 2: every
+UNet and VAE conv but the conv_ins), mma.sync for the other bf16 shapes
+(``conv_wgrad_mma``: the conv_ins), and a tiled GEMM on the CUDA cores
+for fp32 (``conv_wgrad_fp32_tiled``: the DPT's 40 and the conv_outs),
+each split over the pixels where dW's tiles alone cannot fill the card,
+the splits' partials summed in order in the same launch; the bias's
+gradient is one sum of dy.  x is saved for
 the backward only where the weight asks for a gradient (the frozen towers
 keep none).  On a CPU tensor the plain versions run: the JAX package's
 shifted-einsum form (``_einsum_conv``), for dx the kernels' own
@@ -557,35 +562,109 @@ def conv2d_dgrad_cuda(dy: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _WGRAD_TILE, _WGRAD_BK = 128, 32      # conv_wgrad_mma's dW tile, pixel step
-_WGRAD_FP32_N, _WGRAD_FP32_O = 128, 8  # conv_wgrad_fp32's columns x channels
 _WGRAD_MIN_STEPS, _WGRAD_MAX_SPLITS = 16, 64
+_WGRAD_PIX = 64                        # conv_wgrad_wgmma's pixels a step
+# conv_wgrad_wgmma's split model: µs of a step of a 128 x 128 tile near the
+# bf16 peak (2.1 MFLOP at 989 TFLOP/s over 132 SMs: 0.28), of a tile's
+# start and epilogue, and bytes a µs of the partials' writes and reads
+_WG_STEP_US, _WG_FILL_US, _WG_BYTES_PER_US = 0.3, 0.5, 3.0e6
+_WG_MAX_SPLITS = 32
+# conv_wgrad_fp32_tiled: N tile → (columns a tile, blocks an SM: 127
+# registers a thread, and the BN = 8 tile's 108 KB of shared memory)
+_FW_TILES = {8: (512, 2), 32: (128, 6), 64: (128, 4)}
+_FW_BK, _FW_MIN_STEPS, _FW_MAX_SPLITS = 16, 8, 64
+_FW_SPLIT_ELEMS = 5e5   # dW elements whose partials (8 bytes) take a step
 
 
-def wgrad_route(dtype: torch.dtype) -> str:
-    """The launch counter (and kernel) of a conv's weight gradient:
-    "conv_wgrad_mma" for bf16 x and dy (tensor cores), "conv_wgrad_fp32"
-    for fp32 (the conv_outs; CUDA cores)."""
+def wgrad_route(dtype: torch.dtype, I: int, O: int,
+                stride: Tuple[int, int]) -> str:
+    """The launch counter (and kernel) of a conv's weight gradient, by
+    shape: "conv_wgrad_wgmma" for bf16 with I % 64 == 0 (a 64-column box
+    lies in one tap), O % 8 == 0 (dy's rows 16-byte multiples for TMA) at
+    strides of 1 or 2 (every UNet and VAE conv but the conv_ins), else
+    "conv_wgrad_mma" for bf16 (mma.sync: the conv_ins' 3, 4 and 8
+    channels, the towers' test widths); "conv_wgrad_fp32_tiled" for fp32
+    (the DPT's convs and the conv_outs; CUDA cores)."""
     if dtype == torch.bfloat16:
+        if I % 64 == 0 and O % 8 == 0 and max(stride) <= 2:
+            return "conv_wgrad_wgmma"
         return "conv_wgrad_mma"
     if dtype == torch.float32:
-        return "conv_wgrad_fp32"
+        return "conv_wgrad_fp32_tiled"
     raise ValueError(f"conv wgrad takes fp32 or bf16, got {dtype}")
 
 
-def wgrad_splits(route: str, O: int, K: int, pixels: int, sms: int) -> int:
-    """Split-K factor of the weight gradient over its `pixels` (the
+def wgrad_splits(O: int, K: int, pixels: int, sms: int) -> int:
+    """Split-K factor of ``conv_wgrad_mma`` over its `pixels` (the
     reduction) for dW [O, K] (K = kh*kw*I) on a card with `sms`
     multiprocessors: about two blocks an SM where dW's tiles alone leave
     SMs idle, at least 16 steps of 32 pixels a split, at most 64 splits."""
-    if route == "conv_wgrad_mma":
-        tiles = _cdiv(O, _WGRAD_TILE) * _cdiv(K, _WGRAD_TILE)
-    else:
-        tiles = _cdiv(O, _WGRAD_FP32_O) * _cdiv(K, _WGRAD_FP32_N)
+    tiles = _cdiv(O, _WGRAD_TILE) * _cdiv(K, _WGRAD_TILE)
     if tiles >= 2 * sms:
         return 1
     steps = _cdiv(pixels, _WGRAD_BK)
     return max(1, min(2 * sms // tiles, steps // _WGRAD_MIN_STEPS,
                       _WGRAD_MAX_SPLITS))
+
+
+def wgrad_box(B: int, Ho: int, Wo: int) -> Tuple[int, int, int]:
+    """``conv_wgrad_wgmma``'s 64 pixels a step as a box (bw, bh, bb) of the
+    output grid, built as ``pixel_box``'s: as wide as the row allows, then
+    rows, then images (64x1x1 at W = 64 and wider, 32x2 at 32², 8x8x1 at
+    8², 4x4x4 at 4²)."""
+    bw = min(_WGRAD_PIX, _pow2_at_least(Wo))
+    bh = min(_WGRAD_PIX // bw, _pow2_at_least(Ho))
+    return bw, bh, _WGRAD_PIX // (bw * bh)
+
+
+def wgrad_boxes(B: int, Ho: int, Wo: int) -> int:
+    """The pixel boxes (steps) of ``conv_wgrad_wgmma`` over [B, Ho, Wo]."""
+    bw, bh, bb = wgrad_box(B, Ho, Wo)
+    return _cdiv(Wo, bw) * _cdiv(Ho, bh) * _cdiv(B, bb)
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_wgrad_splits(O: int, K: int, steps: int, sms: int) -> int:
+    """Split factor of ``conv_wgrad_wgmma`` for dW [O, K] over `steps`
+    pixel boxes on `sms` multiprocessors (one persistent block an SM):
+    the split of least modelled time, fewest on a tie; an SM's share of
+    the tiles x splits takes their steps at ``_WG_STEP_US`` each plus
+    ``_WG_FILL_US`` a tile, and a split above one adds its partials'
+    traffic (written and read in fp32, dW written once) at
+    ``_WG_BYTES_PER_US``."""
+    tiles = _cdiv(O, _TILE) * _cdiv(K, _TILE)
+
+    def cost(s):
+        t = _cdiv(tiles * s, sms) * (_cdiv(steps, s) * _WG_STEP_US +
+                                     _WG_FILL_US)
+        return t + ((8 * s + 4) * O * K / _WG_BYTES_PER_US if s > 1 else 0)
+
+    return min(range(1, max(1, min(_WG_MAX_SPLITS, steps)) + 1),
+               key=lambda s: (cost(s), s))
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_wgrad_tiling(O: int, K: int, pixels: int,
+                      sms: int) -> Tuple[int, int]:
+    """(N tile, split factor) of ``conv_wgrad_fp32_tiled`` for dW [O, K]
+    (K = kh*kw*I) over `pixels` on a card with `sms` multiprocessors.  The
+    N tile follows O: 8 (the conv_outs' 4 and 8, tiles 512 columns wide),
+    32 or 64 (128 columns).  The split is the one of least waves x steps of
+    16 pixels a wave (waves of the blocks an SM holds: 2, 6, 4) plus its
+    partials' traffic, a step for each ``_FW_SPLIT_ELEMS`` elements of dW a
+    split writes and the reduce reads; fewest splits on a tie, at least 8
+    steps a split where the pixels allow two, at most 64 splits."""
+    bn = 8 if O <= 8 else 32 if O <= 32 else 64
+    bm, per_sm = _FW_TILES[bn]
+    steps = _cdiv(pixels, _FW_BK)
+    tiles = _cdiv(K, bm) * _cdiv(O, bn)
+
+    def cost(s):
+        return (_cdiv(tiles * s, per_sm * sms) * _cdiv(steps, s) +
+                (s * O * K / _FW_SPLIT_ELEMS if s > 1 else 0))
+
+    top = max(1, min(_FW_MAX_SPLITS, steps // _FW_MIN_STEPS))
+    return bn, min(range(1, top + 1), key=lambda s: (cost(s), s))
 
 
 def conv2d_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
@@ -623,9 +702,19 @@ def conv2d_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
                          f"not fit a weight {tuple(w_shape)}")
     x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
     kernels.check_cuda(x, dy)
-    route = wgrad_route(x.dtype)
-    vec = ((x, I), (dy, O)) if route == "conv_wgrad_mma" else ()
-    if any(n % 8 == 0 and t.data_ptr() % 16 for t, n in vec):
+    route = wgrad_route(x.dtype, I, O, stride)
+    if route == "conv_wgrad_fp32_tiled" and out_dtype != torch.float32:
+        raise ValueError("conv_wgrad_fp32_tiled writes an fp32 dW")
+    # what the route reads in 16-byte units (TMA: both; mma.sync: x where
+    # I % 8 == 0, dy where O % 8 == 0; the fp32 route both where I and O
+    # are multiples of 4)
+    if route == "conv_wgrad_wgmma":
+        direct = (x, dy)
+    elif route == "conv_wgrad_mma":
+        direct = tuple(t for t, n in ((x, I), (dy, O)) if n % 8 == 0)
+    else:
+        direct = (x, dy) if I % 4 == 0 and O % 4 == 0 else ()
+    if any(t.data_ptr() % 16 for t in direct):
         raise ValueError(f"{route} reads x and dy in 16-byte units: 16-byte "
                          "aligned tensors only")
     B, H, W, _ = x.shape
@@ -635,13 +724,24 @@ def conv2d_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
                          f"{tuple(x.shape)} at stride {stride}, pads {pads}")
     (pt, _), (pl, _) = pads
     K = kh * kw * I
-    splits = wgrad_splits(route, O, K, B * Ho * Wo,
-                          kernels.sm_count(x.device))
-    ws = _workspace(splits, O * K, x.device)
+    sms = kernels.sm_count(x.device)
     dw = torch.empty(O, kh, kw, I, device=x.device, dtype=out_dtype)
-    kernels.launch(route, kernels.ptr(x), kernels.ptr(dy), kernels.ptr(dw),
-                   kernels.ptr(ws), B, H, W, I, Ho, Wo, O, kh, kw, stride[0],
-                   stride[1], pt, pl, int(out_dtype == torch.float32), splits)
+    args = (kernels.ptr(x), kernels.ptr(dy), kernels.ptr(dw))
+    shape = (B, H, W, I, Ho, Wo, O, kh, kw, stride[0], stride[1], pt, pl)
+    f32 = int(out_dtype == torch.float32)
+    if route == "conv_wgrad_wgmma":
+        splits = wgmma_wgrad_splits(O, K, wgrad_boxes(B, Ho, Wo), sms)
+        ws = _workspace(splits, O * K, x.device)
+        kernels.launch(route, *args, kernels.ptr(ws), *shape,
+                       *wgrad_box(B, Ho, Wo), f32, splits, sms)
+    elif route == "conv_wgrad_fp32_tiled":
+        bn, splits = fp32_wgrad_tiling(O, K, B * Ho * Wo, sms)
+        ws = _workspace(splits, O * K, x.device)
+        kernels.launch(route, *args, kernels.ptr(ws), *shape, bn, splits)
+    else:
+        splits = wgrad_splits(O, K, B * Ho * Wo, sms)
+        ws = _workspace(splits, O * K, x.device)
+        kernels.launch(route, *args, kernels.ptr(ws), *shape, f32, splits)
     return dw
 
 

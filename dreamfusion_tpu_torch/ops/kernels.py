@@ -83,7 +83,8 @@ LAUNCHES: Dict[str, int] = {
     "conv_dgrad_wgmma": 0, "conv_dgrad_narrow": 0,  # K12 dgrad, CUDA C++
     "conv_dgrad_fp32": 0, "conv_dgrad": 0,      # K12 dgrad, CUDA C++
     "conv_dgrad_fp32_tiled": 0,                 # K12 fp32 dgrad (DPT)
-    "conv_wgrad_mma": 0, "conv_wgrad_fp32": 0,  # K12 wgrad, CUDA C++
+    "conv_wgrad_wgmma": 0, "conv_wgrad_mma": 0,  # K12 wgrad, CUDA C++
+    "conv_wgrad_fp32_tiled": 0,                 # K12 fp32 wgrad
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
     "marching_tets_fwd": 0, "marching_tets_bwd": 0,          # K8, CUDA C++
@@ -136,7 +137,8 @@ _SIGNATURES = {
     "conv_dgrad_fp32": [_P] * 3 + [_I] * 13 + [_P],
     "conv_dgrad_fp32_tiled": [_P] * 3 + [_I] * 16 + [_P, _P],
     "conv_wgrad_mma": [_P] * 4 + [_I] * 15 + [_P],
-    "conv_wgrad_fp32": [_P] * 4 + [_I] * 15 + [_P],
+    "conv_wgrad_fp32_tiled": [_P] * 4 + [_I] * 15 + [_P],
+    "conv_wgrad_wgmma": [_P] * 4 + [_I] * 19 + [_P],
     "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
     "attention_fwd_wgmma": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d40": [_P] * 5 + [_I] * 5 + [_F, _P],

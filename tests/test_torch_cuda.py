@@ -2711,33 +2711,40 @@ def _rel_close(got, want, ulp, floor):
                                rtol=ulp)
 
 
-@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad,dt", [
-    (2, 64, 64, 320, 320, 3, 1, 1, "bf16"),       # the UNet's 64² level
-    (2, 8, 8, 1280, 1280, 3, 1, 1, "bf16"),       # 8²: no split
-    (2, 32, 32, 320, 640, 1, 1, 0, "bf16"),       # a 1x1 skip
-    (2, 64, 64, 320, 320, 3, 2, 1, "bf16"),       # a UNet downsampler
-    (1, 512, 512, 128, 128, 3, 1, 1, "bf16"),     # the VAE's 512²: 29 splits
-    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16"),  # its down
-    (1, 512, 512, 3, 128, 3, 1, 1, "bf16"),       # the VAE conv_in
-    (2, 64, 64, 4, 320, 3, 1, 1, "bf16"),         # SD's conv_in
-    (2, 32, 32, 8, 320, 3, 1, 1, "bf16"),         # zero123's conv_in
-    (2, 64, 64, 320, 4, 3, 1, 1, "fp32"),         # the UNet's conv_out
-    (1, 64, 64, 512, 8, 3, 1, 1, "fp32"),         # the VAE's conv_out
-    (1, 9, 11, 24, 40, 3, 2, 1, "bf16"),          # ragged tiles
-    (2, 7, 5, 12, 20, 3, 1, 1, "bf16"),           # O, I % 8 != 0
-    (1, 13, 9, 5, 7, 3, 2, ((0, 1), (0, 1)), "fp32"),
-    (1, 6, 6, 16, 12, 1, 1, 0, "fp32"),
+@pytest.mark.parametrize("B,H,W,I,O,k,stride,pad,dt,want", [
+    (2, 64, 64, 320, 320, 3, 1, 1, "bf16", "split"),  # the UNet's 64² level
+    (2, 8, 8, 1280, 1280, 3, 1, 1, "bf16", "one"),    # 8²: no split
+    (2, 32, 32, 320, 640, 1, 1, 0, "bf16", "split"),  # 1x1, I = 320: K 2.5
+    (2, 64, 64, 320, 320, 3, 2, 1, "bf16", "wgmma"),  # a UNet downsampler
+    (1, 512, 512, 128, 128, 3, 1, 1, "bf16", "split"),  # the VAE's 512²
+    (1, 512, 512, 128, 128, 3, 2, ((0, 1), (0, 1)), "bf16", "wgmma"),
+    (1, 34, 30, 128, 64, 3, 2, ((0, 1), (0, 1)), "bf16", "wgmma"),  # ragged
+    (2, 6, 6, 128, 64, 3, 1, 1, "bf16", "wgmma"),     # a ragged 8x8 box
+    (2, 4, 4, 256, 136, 3, 1, 1, "bf16", "wgmma"),    # 4x4x4: past B, O
+    (3, 5, 7, 64, 72, 3, 1, 1, "bf16", "wgmma"),      # ragged x, y and B
+    (1, 512, 512, 3, 128, 3, 1, 1, "bf16", "mma"),    # the VAE conv_in
+    (2, 64, 64, 4, 320, 3, 1, 1, "bf16", "mma"),      # SD's conv_in
+    (2, 32, 32, 8, 320, 3, 1, 1, "bf16", "mma"),      # zero123's conv_in
+    (2, 64, 64, 320, 4, 3, 1, 1, "fp32", "fp32"),     # the UNet's conv_out
+    (1, 64, 64, 512, 8, 3, 1, 1, "fp32", "fp32"),     # the VAE's conv_out
+    (1, 9, 11, 24, 40, 3, 2, 1, "bf16", "mma"),       # ragged tiles
+    (2, 7, 5, 12, 20, 3, 1, 1, "bf16", "mma"),        # O, I % 8 != 0
+    (1, 8, 8, 64, 12, 3, 1, 1, "bf16", "mma"),        # O % 8 != 0
+    (1, 13, 9, 5, 7, 3, 2, ((0, 1), (0, 1)), "fp32", "fp32"),
+    (1, 6, 6, 16, 12, 1, 1, 0, "fp32", "fp32"),
 ])
-def test_conv_wgrad_kernel(dev, B, H, W, I, O, k, stride, pad, dt):
-    """K12's weight gradient on its route (mma.sync for bf16, CUDA cores
-    for fp32) against the transposed shifted einsum in fp32: bf16 dW
-    within one bf16 ulp plus 2^-8 of its largest entry, fp32 within 1e-5
-    relative plus 1e-4 of its largest; two launches bit for bit (the
-    splits summed in order); then through autograd with x and the weight
-    and bias asking: one wgrad and one dgrad launch, Σ dy for the bias."""
+def test_conv_wgrad_kernel(dev, B, H, W, I, O, k, stride, pad, dt, want):
+    """K12's weight gradient on its route (`want`: wgmma, with one split or
+    several; mma.sync for the other bf16 shapes; the tiled fp32 GEMM)
+    against the transposed shifted einsum in fp32: bf16 dW within one bf16
+    ulp plus 2^-8 of its largest entry, fp32 within 1e-5 relative plus
+    1e-4 of its largest; two launches bit for bit (the splits summed in
+    order); then through autograd with x and the weight and bias asking:
+    one wgrad and one dgrad launch, Σ dy for the bias."""
     from dreamfusion_tpu_torch.ops.conv import (conv2d_wgrad_cuda,
                                                 conv2d_wgrad_plain,
-                                                dgrad_route, wgrad_route)
+                                                dgrad_route, wgmma_wgrad_splits,
+                                                wgrad_boxes, wgrad_route)
     dtype = torch.float32 if dt == "fp32" else torch.bfloat16
     g = _gen(dev, 31)
     pads = norm_padding(pad)
@@ -2747,7 +2754,14 @@ def test_conv_wgrad_kernel(dev, B, H, W, I, O, k, stride, pad, dt):
     Ho, Wo = ((H + sum(pads[0]) - k) // stride + 1,
               (W + sum(pads[1]) - k) // stride + 1)
     dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
-    route = wgrad_route(dtype)
+    route = wgrad_route(dtype, I, O, (stride, stride))
+    assert route == {"split": "conv_wgrad_wgmma", "one": "conv_wgrad_wgmma",
+                     "wgmma": "conv_wgrad_wgmma", "mma": "conv_wgrad_mma",
+                     "fp32": "conv_wgrad_fp32_tiled"}[want]
+    if want in ("split", "one"):
+        splits = wgmma_wgrad_splits(O, k * k * I, wgrad_boxes(B, Ho, Wo),
+                                    kernels.sm_count(dev))
+        assert (splits > 1) == (want == "split")
     kernels.reset_launch_counts()
     dw = conv2d_wgrad_cuda(x, dy, w.shape, (stride, stride), pads, dtype)
     dw2 = conv2d_wgrad_cuda(x, dy, w.shape, (stride, stride), pads, dtype)
@@ -2951,8 +2965,9 @@ def test_narrow_unet_gradients_on_the_card(dev):
             n: p.grad for n, p in net.named_parameters()}}
     convs = sum(1 for m in card.modules() if type(m).__name__ == "Conv2d")
     norms = sum(1 for m in card.modules() if isinstance(m, GroupNorm32))
-    assert launches["conv_wgrad_mma"] + launches["conv_wgrad_fp32"] == convs
-    assert launches["conv_wgrad_fp32"] == 1
+    assert launches["conv_wgrad_wgmma"] + launches["conv_wgrad_mma"] + \
+        launches["conv_wgrad_fp32_tiled"] == convs
+    assert launches["conv_wgrad_fp32_tiled"] == 1
     assert sum(v for k, v in launches.items()
                if k.startswith("groupnorm_bwd") and k.endswith("_affine")) \
         == norms
@@ -3066,16 +3081,24 @@ def test_conv_dgrad_fp32_tiled_kernel(dev, B, H, W, I, O, k, stride):
     torch.autograd.grad(conv2d(xg, wg, None, stride, pads), (xg, wg), dy)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["conv_dgrad_fp32_tiled"] == 1
-    assert kernels.LAUNCHES["conv_wgrad_fp32"] == 1
+    assert kernels.LAUNCHES["conv_wgrad_fp32_tiled"] == 1
 
 
 @pytest.mark.parametrize("B,H,W,I,O,k,stride", [
     (1, 24, 24, 256, 256, 3, 1), (1, 48, 48, 64, 128, 3, 1),
-    (1, 38, 38, 3, 64, 7, 2), (1, 16, 16, 512, 256, 1, 2)])
+    (1, 38, 38, 3, 64, 7, 2), (1, 16, 16, 512, 256, 1, 2),
+    (1, 384, 384, 3, 64, 7, 2),                # the stem
+    (1, 6, 384, 128, 32, 3, 1),                # O = 32 at 384²'s width
+    (1, 12, 12, 768, 256, 3, 1),               # one 9-step split
+    (2, 64, 64, 320, 4, 3, 1), (1, 64, 64, 512, 8, 3, 1),  # the conv_outs
+    (1, 20, 18, 6, 36, 3, 1),                  # I % 4 != 0, 4-byte copies
+    (2, 9, 7, 16, 10, 3, 2),                   # O % 4 != 0
+])
 def test_conv_wgrad_fp32_at_dpt_widths(dev, B, H, W, I, O, k, stride):
-    """K12's fp32 weight gradient at the DPT's widths (O = 64-768, the
-    stem's 3 input channels, TF-SAME pads) against the transposed shifted
-    einsum: 1e-5 relative plus 1e-4 of the largest."""
+    """K12's fp32 weight gradient (``conv_wgrad_fp32_tiled``) at the DPT's
+    widths (O = 32-768, the stem's 3 input channels, TF-SAME pads) and the
+    conv_outs' O = 4 and 8 against the transposed shifted einsum: 1e-5
+    relative plus 1e-4 of the largest; two launches bit for bit."""
     from dreamfusion_tpu_torch.models.dpt import same_pads
     from dreamfusion_tpu_torch.ops.conv import (conv2d_wgrad_cuda,
                                                 conv2d_wgrad_plain, out_size)
@@ -3087,8 +3110,12 @@ def test_conv_wgrad_fp32_at_dpt_widths(dev, B, H, W, I, O, k, stride):
     kernels.reset_launch_counts()
     dw = conv2d_wgrad_cuda(x, dy, (O, k, k, I), (stride, stride), pads,
                            torch.float32)
+    dw2 = conv2d_wgrad_cuda(x, dy, (O, k, k, I), (stride, stride), pads,
+                            torch.float32)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["conv_wgrad_fp32"] == 1
+    assert kernels.LAUNCHES["conv_wgrad_fp32_tiled"] == 2
+    assert sum(kernels.LAUNCHES.values()) == 2
+    assert torch.equal(dw, dw2)
     _rel_close(dw, conv2d_wgrad_plain(x, dy, (O, k, k, I), (stride, stride),
                                       pads), 1e-5, 1e-4)
 
@@ -3168,7 +3195,7 @@ def test_a_dpt_backward_on_the_card_launches_its_kernels(dev):
     """A narrow DPT (the CPU tests' tiny config at 64²) with every weight
     and the input trainable: one forward and backward launches
     ``attention_bwd_fp32`` once a ViT block and one
-    ``conv_dgrad_fp32_tiled`` and one ``conv_wgrad_fp32`` a K12 conv, no
+    ``conv_dgrad_fp32_tiled`` and one ``conv_wgrad_fp32_tiled`` a K12 conv, no
     ``conv_dgrad``; its gradients against the same model's on the CPU
     (plain versions) within 1e-3 of each one's largest."""
     from dreamfusion_tpu_torch.models import dpt as D
@@ -3197,7 +3224,7 @@ def test_a_dpt_backward_on_the_card_launches_its_kernels(dev):
                  not (mod.k == 1 and mod.stride == 1))
     assert kernels.LAUNCHES["attention_bwd_fp32"] == cfg.vit_depth
     assert kernels.LAUNCHES["conv_dgrad_fp32_tiled"] == n_conv
-    assert kernels.LAUNCHES["conv_wgrad_fp32"] == n_conv
+    assert kernels.LAUNCHES["conv_wgrad_fp32_tiled"] == n_conv
     assert kernels.LAUNCHES["conv_dgrad"] == 0
     for a, b in zip(*grads):
         if a is None:

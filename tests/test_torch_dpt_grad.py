@@ -281,7 +281,7 @@ def test_full_dpt_backward_routes_on_meta(task):
     """vitb_rn50_384 at 384² on the meta device, every weight and the input
     wanting gradients: the backward asks 40 input gradients (the stem's
     3-channel dx included) and 40 weight gradients of K12, all on the
-    fp32 routes (``conv_dgrad_fp32_tiled``, ``conv_wgrad_fp32``; none on
+    fp32 routes (``conv_dgrad_fp32_tiled``, ``conv_wgrad_fp32_tiled``; none on
     ``conv_dgrad``), and 12 fp32 attention backwards; ``dpt_grad_launches``
     gives them beside the forward's."""
     import chip_smoke
@@ -296,7 +296,8 @@ def test_full_dpt_backward_routes_on_meta(task):
             ((2, 3), (2, 3))) in calls
     launches = chip_smoke.dpt_grad_launches(torch, cfg)
     assert launches == {"conv_fwd_fp32_tiled": 40, "attention_fwd_fp32": 12,
-                        "conv_dgrad_fp32_tiled": 40, "conv_wgrad_fp32": 40,
+                        "conv_dgrad_fp32_tiled": 40,
+                        "conv_wgrad_fp32_tiled": 40,
                         "attention_bwd_fp32": 12}
     # the 17 distinct shapes of the forward, each with its backward
     shapes = {c[1:] for c in calls if c[0] == "dgrad"}
@@ -331,3 +332,27 @@ def test_bench_dpt_dgrad_rows_time_cudnn_on_the_same_function():
         dx = lib()[0][:, :, pt:pt + H, pl:pl + W].permute(0, 2, 3, 1)
         _close(dx.numpy(), K12.conv2d_dgrad_plain(
             dy, w, x_shape, stride, pads, torch.float32).numpy(), 1e-5)
+
+
+def test_bench_dpt_wgrad_rows_time_cudnn_on_the_same_function():
+    """``bench_sd_kernels.py --only dpt_wgrad``'s rows (the full-width DPT
+    at 64² here): one a distinct conv, 40 in a backward, the stem among
+    them; the row's call is the checkout's weight gradient, and cuDNN's
+    (``aten.convolution_backward`` with the weight mask, on the TF-SAME
+    padded input) gives the plain version's dW from the same x and dy
+    (1e-5 of the largest)."""
+    import types
+
+    import chip_smoke
+    from dreamfusion_tpu_torch import bench_sd_kernels as bench
+
+    smoke = types.SimpleNamespace(dpt_calls=chip_smoke.dpt_calls, DPT_HW=64)
+    cases = bench.dpt_wgrad_cases(smoke, "cpu")
+    assert sum(row["per_backward"] for row, _, _ in cases) == 40
+    assert any(row["shape"][3] == 3 and row["k"] == 7 for row, _, _ in cases)
+    for row, fn, lib in cases:
+        x, dy, w_shape, stride, pads, dt = fn.args
+        assert fn.func is K12.conv2d_wgrad_cuda and dt == torch.float32
+        dw = lib()[1].permute(0, 2, 3, 1)
+        _close(dw.numpy(), K12.conv2d_wgrad_plain(
+            x, dy, w_shape, stride, pads).numpy(), 1e-5)

@@ -733,8 +733,10 @@ def test_profile_groups_name_the_new_kernels():
            "const*, uint4*, long, int)",
            "void (anonymous namespace)::conv_mma_kernel<false>((anonymous "
            "namespace)::ConvParams)",
-           "(anonymous namespace)::conv_wgrad_fp32_kernel((anonymous "
-           "namespace)::WgradParams)",
+           "void (anonymous namespace)::conv_wgrad_fp32_tiled_kernel<8, "
+           "true>((anonymous namespace)::WgradParams)",
+           "(anonymous namespace)::conv_wgrad_wgmma_kernel(CUtensorMap_st, "
+           "CUtensorMap_st, (anonymous namespace)::WgradBoxes)",
            "void (anonymous namespace)::conv_wgrad_mma_kernel<true, false>("
            "(anonymous namespace)::WgradParams)",
            "(anonymous namespace)::conv_wgrad_reduce(float const*, void*, "
@@ -765,10 +767,10 @@ def test_profile_groups_name_the_new_kernels():
     assert [group_of(n) for n in k12] == ["K12 conv"] * len(k12)
     # the input gradients apart within K12: the dgrad instantiation of the
     # wgmma kernel, the narrow, fp32 and tiled fp32 dgrads, mma.sync's and
-    # the one-thread dgrads; not the forwards, the weight gradients or the
-    # split-K reduces
+    # the one-thread dgrads; not the forwards, the weight gradients (the
+    # wgmma, mma.sync and tiled fp32 routes) or the split-K reduces
     dgrads = [part_of(n) is not None for n in k12]
-    assert dgrads == [False] * 10 + [True] * 5
+    assert dgrads == [False] * 11 + [True] * 5
     k5 = ["(anonymous namespace)::clip_f32_kernel(float const*, float*, "
           "long, float)",
           "(anonymous namespace)::clip_bf16_kernel(__nv_bfloat16 const*, "

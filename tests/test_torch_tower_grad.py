@@ -172,27 +172,142 @@ def test_packed_weight_cache_follows_a_trainable_weight():
 
 
 def test_wgrad_routes_and_splits():
-    """bf16 takes the tensor cores, fp32 the CUDA cores; the splits over
-    the pixels: none where dW's tiles fill two blocks an SM, two blocks an
-    SM of them otherwise, at least 16 steps of 32 pixels a split, at most
-    64."""
-    assert K12.wgrad_route(torch.bfloat16) == "conv_wgrad_mma"
-    assert K12.wgrad_route(torch.float32) == "conv_wgrad_fp32"
+    """bf16 with I % 64 == 0, O % 8 == 0 at strides 1 and 2 takes wgmma,
+    the other bf16 shapes mma.sync, fp32 the tiled CUDA-core GEMM;
+    mma.sync's splits over the pixels: none where dW's tiles fill two
+    blocks an SM, two blocks an SM of them otherwise, at least 16 steps of
+    32 pixels a split, at most 64; the fp32 route's N tile and split."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert K12.wgrad_route(bf, 320, 320, (1, 1)) == "conv_wgrad_wgmma"
+    assert K12.wgrad_route(bf, 128, 128, (2, 2)) == "conv_wgrad_wgmma"
+    assert K12.wgrad_route(bf, 64, 72, (1, 1)) == "conv_wgrad_wgmma"
+    for I, O, st in ((4, 320, 1), (3, 128, 1), (8, 320, 1), (64, 12, 1),
+                     (96, 128, 1), (128, 128, 3)):
+        assert K12.wgrad_route(bf, I, O, (st, st)) == "conv_wgrad_mma"
+    for I, O in ((320, 4), (512, 8), (3, 64), (256, 256)):
+        assert K12.wgrad_route(f32, I, O, (1, 1)) == "conv_wgrad_fp32_tiled"
     with pytest.raises(ValueError):
-        K12.wgrad_route(torch.float16)
-    # the VAE's 512² level 0: 9 tiles of dW, 8,192 steps
-    assert K12.wgrad_splits("conv_wgrad_mma", 128, 1152, 512 * 512, 132) \
-        == 29
-    # the UNet's 64² level at CFG batch 2: 69 tiles, 256 steps
-    assert K12.wgrad_splits("conv_wgrad_mma", 320, 2880, 2 * 64 * 64,
-                            132) == 3
-    # the 8² level: 900 tiles, no split
-    assert K12.wgrad_splits("conv_wgrad_mma", 1280, 11520, 128, 132) == 1
-    # the UNet's fp32 conv_out: 23 column blocks of 128
-    assert K12.wgrad_splits("conv_wgrad_fp32", 4, 2880, 8192, 132) == 11
+        K12.wgrad_route(torch.float16, 64, 64, (1, 1))
+    # 9 tiles of dW (the VAE's 512² level 0's shape), 8,192 steps
+    assert K12.wgrad_splits(128, 1152, 512 * 512, 132) == 29
+    # the VAE conv_in's 512² (mma.sync): 1 tile of dW, 8,192 steps
+    assert K12.wgrad_splits(128, 27, 512 * 512, 132) == 64
+    # a 64² level on mma.sync: 69 tiles, 256 steps
+    assert K12.wgrad_splits(320, 2880, 2 * 64 * 64, 132) == 3
+    # 900 tiles, no split
+    assert K12.wgrad_splits(1280, 11520, 128, 132) == 1
     # one tile: as many splits as 16-step shares of the pixels allow
-    assert K12.wgrad_splits("conv_wgrad_mma", 8, 72, 1000, 132) == 2
-    assert K12.wgrad_splits("conv_wgrad_mma", 8, 72, 500, 132) == 1
+    assert K12.wgrad_splits(8, 72, 1000, 132) == 2
+    assert K12.wgrad_splits(8, 72, 500, 132) == 1
+    # the UNet's fp32 conv_out: N tiles of 8 over 6 x 512 columns, 512
+    # steps of 16 pixels: 43 splits (258 blocks of 264 places)
+    assert K12.fp32_wgrad_tiling(4, 2880, 8192, 132) == (8, 43)
+    assert K12.fp32_wgrad_tiling(8, 4608, 4096, 132) == (8, 29)
+
+
+@pytest.mark.parametrize("B,H,W,I,O,k,st,pad", [
+    (1, 12, 10, 8, 16, 3, 2, ((0, 1), (0, 1))),   # the VAE's down, ragged
+    (2, 8, 8, 16, 8, 3, 1, ((1, 1), (1, 1))),
+    (1, 9, 9, 3, 8, 7, 2, ((2, 3), (2, 3))),      # the DPT stem's TF-SAME
+])
+def test_bench_wgrad_case_times_cudnn_on_the_same_function(B, H, W, I, O,
+                                                           k, st, pad):
+    """``bench_sd_kernels.py --only wgrad``'s row calls at small shapes:
+    the checkout's weight gradient, and cuDNN's weight gradient alone on
+    the same x and dy (padded outside the call where the pads are
+    asymmetric) equal to the plain version's dW (1e-5 of the largest)."""
+    from dreamfusion_tpu_torch import bench_sd_kernels as bench
+    g = torch.Generator().manual_seed(3)
+    fn, lib, gflop = bench._wgrad_case("cpu", g, B, H, W, I, O, k, st, pad,
+                                       torch.float32)
+    x, dy, w_shape, stride, pads, dt = fn.args
+    assert fn.func is K12.conv2d_wgrad_cuda and w_shape == (O, k, k, I)
+    Ho, Wo = K12.out_size(H, W, k, k, (st, st), pad)
+    assert dy.shape == (B, Ho, Wo, O)
+    assert gflop == 2 * B * Ho * Wo * O * k * k * I / 1e9
+    _close(lib()[1].permute(0, 2, 3, 1),
+           K12.conv2d_wgrad_plain(x, dy, w_shape, stride, pads), 1e-5)
+
+
+# the towers' bf16 and fp32 wgrad shapes (chip_smoke's recorded calls: B,
+# Ho, Wo, I, O, k, stride) → (box, boxes, splits) of the wgmma route
+TOWER_WGMMA = {
+    (2, 64, 64, 320, 320, 3, 1): ((64, 1, 1), 128, 3),
+    (2, 64, 64, 640, 640, 3, 1): ((64, 1, 1), 128, 1),
+    (2, 32, 32, 320, 320, 3, 2): ((32, 2, 1), 32, 1),   # the downsampler
+    (2, 32, 32, 1280, 1280, 3, 1): ((32, 2, 1), 32, 1),
+    (2, 8, 8, 1280, 1280, 3, 1): ((8, 8, 1), 2, 1),
+    (2, 8, 8, 2560, 1280, 3, 1): ((8, 8, 1), 2, 1),
+    (2, 4, 4, 1280, 1280, 3, 1): ((4, 4, 4), 1, 1),      # zero123's 4²
+    (1, 512, 512, 128, 128, 3, 1): ((64, 1, 1), 4096, 14),
+    (1, 256, 256, 128, 128, 3, 2): ((64, 1, 1), 1024, 14),
+    (1, 128, 128, 512, 512, 3, 1): ((64, 1, 1), 256, 4),
+    (1, 64, 64, 512, 512, 3, 1): ((64, 1, 1), 64, 1),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(TOWER_WGMMA))
+def test_wgmma_wgrad_tiling_at_the_towers_shapes(shape):
+    """``conv_wgrad_wgmma``'s pixel box, steps and split at the towers'
+    real shapes: 64 pixels a box, as wide as the output row allows, the
+    steps covering every pixel, each split at least one box; the split of
+    least modelled time (4 at the VAE's 128²: 144 tiles alone would leave
+    a second round of 12 on 132 SMs)."""
+    B, Ho, Wo, I, O, k, st = shape
+    assert K12.wgrad_route(torch.bfloat16, I, O, (st, st)) == \
+        "conv_wgrad_wgmma"
+    box, steps, splits = TOWER_WGMMA[shape]
+    bw, bh, bb = K12.wgrad_box(B, Ho, Wo)
+    assert (bw, bh, bb) == box and bw * bh * bb == 64
+    assert bw * st <= 256 and bh * st <= 256
+    assert K12.wgrad_boxes(B, Ho, Wo) == steps
+    assert steps * 64 >= B * Ho * Wo
+    K = k * k * I
+    assert K12.wgmma_wgrad_splits(O, K, steps, 132) == splits <= steps
+
+
+# the DPT's 17 fp32 wgrad shapes at 384² (B, H, W, I, O, k, stride) →
+# fp32_wgrad_tiling's (N tile, splits)
+DPT_FP32 = {
+    (1, 384, 384, 128, 32, 3, 1): (32, 64),
+    (1, 192, 192, 256, 128, 3, 1): (64, 14),
+    (1, 96, 96, 256, 256, 3, 1): (64, 7),
+    (1, 48, 48, 256, 256, 3, 1): (64, 7),
+    (1, 24, 24, 256, 256, 3, 1): (64, 4),
+    (1, 12, 12, 256, 256, 3, 1): (64, 1),
+    (1, 12, 12, 768, 256, 3, 1): (64, 1),
+    (1, 24, 24, 768, 256, 3, 1): (64, 2),
+    (1, 48, 48, 512, 256, 3, 1): (64, 3),
+    (1, 24, 24, 768, 768, 3, 2): (64, 1),
+    (1, 48, 48, 256, 256, 3, 2): (64, 4),
+    (1, 48, 48, 512, 1024, 1, 2): (64, 4),
+    (1, 48, 48, 128, 128, 3, 1): (64, 18),
+    (1, 96, 96, 128, 128, 3, 2): (64, 18),
+    (1, 96, 96, 256, 512, 1, 2): (64, 18),
+    (1, 96, 96, 64, 64, 3, 1): (64, 64),
+    (1, 384, 384, 3, 64, 7, 2): (64, 64),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(DPT_FP32))
+def test_fp32_wgrad_tiling_at_the_dpt_shapes(shape):
+    """``conv_wgrad_fp32_tiled``'s N tile and split at the DPT's 17 shapes
+    (TF-SAME pads): 32 where O fits, else 64; each split at least 8 steps
+    of 16 pixels where the pixels allow more than one, at most 64; the
+    modelled cost of the chosen split no more than one split's."""
+    B, H, W, I, O, k, st = shape
+    assert K12.wgrad_route(torch.float32, I, O, (st, st)) == \
+        "conv_wgrad_fp32_tiled"
+    Ho, Wo = -(-H // st), -(-W // st)
+    K, P = k * k * I, B * Ho * Wo
+    bn, splits = K12.fp32_wgrad_tiling(O, K, P, 132)
+    assert (bn, splits) == DPT_FP32[shape]
+    steps = -(-P // 16)
+    assert 1 <= splits <= 64 and (splits == 1 or steps // splits >= 8)
+    tiles = -(-K // 128) * -(-O // bn)
+    waves = -(-tiles * splits // (4 * 132))
+    assert waves * -(-steps // splits) + splits * O * K / 5e5 * \
+        (splits > 1) <= -(-tiles // (4 * 132)) * steps
 
 
 # ---------------------------------------------------------------------------
@@ -460,16 +575,19 @@ def _full_width(kind):
 @pytest.mark.parametrize("kind", ["sd21", "sd15", "zero123", "vae"])
 def test_full_width_convs_take_a_wgrad_route(kind):
     """Every conv of the full-width towers has a weight-gradient route:
-    the bf16 convs the tensor-core one, the fp32 conv_out the CUDA-core
-    one; the conv_ins' 3-, 4- and 8-channel inputs and the stride-2
-    downsamplers among them."""
+    the bf16 convs wgmma's (the stride-2 downsamplers among them) but the
+    conv_in's 3-, 4- and 8-channel inputs, on mma.sync; the fp32 conv_out
+    the tiled CUDA-core one."""
     tower = _full_width(kind)
     routes = {}
     for name, m in tower.named_modules():
         if isinstance(m, punet.Conv2d):
-            routes[name] = K12.wgrad_route(m.compute_dtype)
-    assert routes.pop("conv_out") == "conv_wgrad_fp32"
-    assert set(routes.values()) == {"conv_wgrad_mma"}
+            O, _, _, I = m.weight.shape
+            routes[name] = K12.wgrad_route(m.compute_dtype, I, O,
+                                           (m.stride, m.stride))
+    assert routes.pop("conv_out") == "conv_wgrad_fp32_tiled"
+    assert routes.pop("conv_in") == "conv_wgrad_mma"
+    assert set(routes.values()) == {"conv_wgrad_wgmma"}
     convs = {n: m for n, m in tower.named_modules()
              if isinstance(m, punet.Conv2d)}
     assert convs["conv_in"].weight.shape[-1] == {
