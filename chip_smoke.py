@@ -300,16 +300,20 @@
    stage-1 mesh (K7 exactly), R-precision, a viewer frame, ``--profile``.
 15. The towers' backward to their weights at full width on random weights
    from seed 0: K12's weight gradient (``conv_wgrad_wgmma``, bf16 on
-   wgmma + TMA; ``conv_wgrad_mma``, the conv_ins' on mma.sync;
+   wgmma + TMA; ``conv_wgrad_wgmma_i8``, the conv_ins' on wgmma n72;
    ``conv_wgrad_fp32_tiled``, the conv_outs), K11's backward with
    the affine gradients (``groupnorm_bwd_{resident,stream}_affine``) and
-   K10's backward at d = 40, 80 and 160 (``attention_bwd_wgmma_d*``), each
-   against its plain version at every distinct shape the four towers
-   launch it at (98 rows: recorded from the towers' own forwards on the
-   meta device), with event and graph ms, bound and the library call's ms
+   K10's flash-style backward at d = 40, 64, 80 and 160
+   (``attention_bwd_flash*``), each against its plain version at every
+   distinct shape the four towers launch it at (recorded from the towers'
+   own forwards on the meta device), two launches bit for bit, with event
+   and graph ms, bound and the library call's ms
    (``aten.convolution_backward`` with the weight's mask,
    ``aten.native_group_norm_backward`` with the affine mask, SDPA's
-   backward), logged as one ``tower backward rows`` JSON line, and each
+   backward by events and, as its autograd node alone, in a CUDA graph);
+   ``conv_wgrad_mma`` (no tower's any more) at shapes of its own
+   (``MMA_WGRAD_CONVS``); logged as one ``tower backward rows`` JSON line,
+   and each
    tower's wgrad rows summed over its calls (kernel, cuDNN and bound,
    event and graph ms); then the SD
    2.1 UNet (CFG batch 2, 64², 77 keys), the SD 1.5 UNet, zero123's UNet
@@ -342,8 +346,9 @@
    -O2 SD run; K4's ``field_select``: the field-options run; K1-K4 and
    K10-K12: the SD run, K10's d = 40, 80 and 160 routes: the SD 1.5
    run, K10's fp32 forward and K12's tiled fp32 route: the DPT's depth
-   run, the new kernels of step 15: the four towers' backwards summed,
-   those of step 16: the DPT's backward run,
+   run, the new kernels of step 15: the four towers' backwards summed
+   (``conv_wgrad_mma``: 0, no tower's), those of step 16: the DPT's
+   backward run,
    ``conv_fwd_mma`` and ``conv_dgrad``: the image + text run; K7, K8 and K1's ``_dx``
    route: the DMTet run; K6's encode: the SD -O run, its ``_dx`` route:
    the DMTet run from the grid, its tv and wd: the grid stage 1; K5: the
@@ -637,16 +642,16 @@ KERNELS["signed_distance"] = ("cuda", "dreamfusion_tpu_torch/csrc/sdf.cu",
                               "dreamfusion_tpu/mesh/sdf.py:214")
 # the towers' backward to their weights: mm_conv's dk (f_bwd :112),
 # group_norm_fused's dscale and dbias (:148-149), attention's backward at
-# SD 1.5's head dims (d = 40's 64² self-attention on the chunked branch)
-for _r in ("wgmma", "mma", "fp32_tiled"):
+# the UNets' head dims (d = 40's 64² self-attention on the chunked branch)
+for _r in ("wgmma", "wgmma_i8", "mma", "fp32_tiled"):
     KERNELS[f"conv_wgrad_{_r}"] = ("cuda", "dreamfusion_tpu_torch/csrc/conv.cu",
                                    "dreamfusion_tpu/ops/conv.py:112")
 for _r in ("resident", "stream"):
     KERNELS[f"groupnorm_bwd_{_r}_affine"] = (
         "cuda", "dreamfusion_tpu_torch/csrc/groupnorm.cu",
         "dreamfusion_tpu/models/unet.py:148")
-for _d, _line in ((40, 27), (80, 72), (160, 72)):
-    KERNELS[f"attention_bwd_wgmma_d{_d}"] = (
+for _n, _line in (("", 27), ("_d40", 27), ("_d80", 72), ("_d160", 72)):
+    KERNELS[f"attention_bwd_flash{_n}"] = (
         "cuda", "dreamfusion_tpu_torch/csrc/attention.cu",
         f"dreamfusion_tpu/ops/attention.py:{_line}")
 # the DPT's backward: attention's fp32 VJP (dense_attention, JAX's branch
@@ -4485,7 +4490,7 @@ def grad_routes(torch, kernels, full) -> dict:
         if kind == "conv":
             H, W, I, O, k, st, _, dt = dims
             names = [K12.dgrad_route(dtype[dt], I, O, (st, st), (k, k)),
-                     K12.wgrad_route(dtype[dt], I, O, (st, st))]
+                     K12.wgrad_route(dtype[dt], I, O, (st, st), k * k)]
         elif kind == "gn":
             H, W, C, _, _, dt = dims
             names = [K11.group_norm_route(
@@ -5024,7 +5029,7 @@ def _dpt_routes(torch, calls) -> dict:
                  if kind == "conv" else
                  K12.dgrad_route(f32, I, O, (st, st), (kh, kw))
                  if kind == "dgrad" else
-                 K12.wgrad_route(f32, I, O, (st, st)))
+                 K12.wgrad_route(f32, I, O, (st, st), kh * kw))
         out[r] = out.get(r, 0) + 1
     return out
 
@@ -5448,12 +5453,19 @@ def tooling_phases(torch, port_main, kernels, results, stage1_ws, mesh_path,
 # ---- the towers' backward to their weights (slice 12) ----------------------
 
 # The new kernels of the towers' backward: K12's weight gradient, K11's
-# backward with the affine gradients, K10's backward at SD 1.5's head dims
-GRAD_KERNELS = ("conv_wgrad_wgmma", "conv_wgrad_mma",
+# backward with the affine gradients, K10's flash-style backward at the
+# UNets' head dims (the VAE's d = 512 backward is the SD step's
+# attention_bwd_wgmma)
+GRAD_KERNELS = ("conv_wgrad_wgmma", "conv_wgrad_wgmma_i8",
                 "conv_wgrad_fp32_tiled",
                 "groupnorm_bwd_resident_affine", "groupnorm_bwd_stream_affine",
-                "attention_bwd_wgmma_d40", "attention_bwd_wgmma_d80",
-                "attention_bwd_wgmma_d160")
+                "attention_bwd_flash", "attention_bwd_flash_d40",
+                "attention_bwd_flash_d80", "attention_bwd_flash_d160")
+# conv_wgrad_mma's shapes (no tower's: bf16 with 8 < I, I % 64 != 0, or a
+# narrow input at stride 2), in record_towers' full layout; held to the
+# plain version as the towers' rows, its kernels-line row reads 0 launches
+MMA_WGRAD_CONVS = [(2, 33, 31, 24, 40, 3, 1, ((1, 1), (1, 1)), "bf16"),
+                   (1, 17, 15, 3, 16, 3, 2, ((1, 1), (1, 1)), "bf16")]
 # tower → (tower_forward's prior, part): each runs at the SD step's shapes
 # (the UNets at CFG batch 2, SD's on 64² latents and 77 text keys, zero123's
 # at K = 1 on 32² latents with one key; the VAE encoder at 512²)
@@ -5461,9 +5473,11 @@ GRAD_TOWERS = {"SD 2.1 UNet": ("SD", "unet"), "SD 1.5 UNet": ("SD15", "unet"),
                "zero123 UNet": ("zero123", "unet"),
                "SD VAE encoder": ("SD", "encode")}
 # the rows whose numbers fill the kernels' JSON entries: the UNet's 64²
-# level (and its fp32 conv_out), SD 1.5's first attention of each head dim
+# level (and its fp32 conv_out), the VAE's conv_in; the first attention of
+# each head dim (the UNets' 64² self-attention)
 GRAD_MAIN_CONVS = {(2, 64, 64, 320, 320, 3, 1, ((1, 1), (1, 1)), "bf16"),
-                   (2, 64, 64, 320, 4, 3, 1, ((1, 1), (1, 1)), "fp32")}
+                   (2, 64, 64, 320, 4, 3, 1, ((1, 1), (1, 1)), "fp32"),
+                   (1, 512, 512, 3, 128, 3, 1, ((1, 1), (1, 1)), "bf16")}
 
 
 def wgrad_rows(torch, results, convs, randn, rows_json):
@@ -5481,7 +5495,7 @@ def wgrad_rows(torch, results, convs, randn, rows_json):
         B, H, W, I, O, k, st, pads, dt = row
         fp32 = dt == "fp32"
         dtype = torch.float32 if fp32 else torch.bfloat16
-        route = K12.wgrad_route(dtype, I, O, (st, st))
+        route = K12.wgrad_route(dtype, I, O, (st, st), k * k)
         where = (f" [{B},{H},{W},{I}->{O}] {k}x{k} s{st} pad {pads} {dt} "
                  f"wgrad")
         Ho, Wo = K12.out_size(H, W, k, k, (st, st), pads)
@@ -5495,6 +5509,7 @@ def wgrad_rows(torch, results, convs, randn, rows_json):
         torch.cuda.synchronize()
         check(kernels.LAUNCHES[route] == 1 and
               sum(kernels.LAUNCHES.values()) == 1, f"{where}: not on {route}")
+        check(torch.equal(dw, call()), f"{where}: two launches differ")
         plain = lambda: K12.conv2d_wgrad_plain(x, dy, wshape, (st, st), pads)
         # bf16: one rounding of fp32 sums taken in another order
         err = _close_to(route, dw, plain(), 1e-5 if fp32 else 2 ** -7,
@@ -5596,12 +5611,32 @@ def groupnorm_affine_rows(torch, results, gns, randn, rows_json):
                                             "fp32")[0]})
 
 
+def sdpa_backward(torch, q, k, v, do):
+    """SDPA's backward on [B, N, h, d] tensors as one library call: its
+    autograd node (the kernel PyTorch picks for these inputs: flash or
+    memory-efficient), from a graph built once here, called directly in
+    this thread, so that a CUDA graph can capture it → (call, the node's
+    name)."""
+    import torch.nn.functional as F
+    qkvt = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    node = F.scaled_dot_product_attention(*qkvt).grad_fn
+    dot = do.transpose(1, 2)
+    if not node.name().startswith("ScaledDotProduct"):
+        return None, node.name()       # the math fallback: not one call
+
+    def call():
+        with torch.no_grad():          # no graph of the gradients' own
+            return node(dot)
+    return call, node.name()
+
+
 def attention_bwd_rows(torch, results, attns, randn, rows_json):
-    """K10's backward at each recorded attention shape of d = 40, 80, 160
-    on JAX's branch (bf16(q·scale) on the chunked one) against the kernels'
-    arithmetic in torch (``attention_bwd_plain``), beside SDPA's backward;
-    over one key dQ and dK are 0 in exact arithmetic and are held to dV's
-    largest entry."""
+    """K10's backward at each recorded attention shape of d = 40, 64, 80,
+    160 on JAX's branch (bf16(q·scale) on the chunked one) against the
+    kernels' arithmetic in torch (``attention_bwd_plain``), two launches
+    bit for bit; beside SDPA's backward (autograd by events; its node alone
+    in a CUDA graph); over one key dQ and dK are 0 in exact arithmetic and
+    are held to dV's largest entry."""
     import torch.nn.functional as F
 
     from dreamfusion_tpu_torch.ops import attention as K10
@@ -5622,6 +5657,8 @@ def attention_bwd_rows(torch, results, attns, randn, rows_json):
         torch.cuda.synchronize()
         check(kernels.LAUNCHES[route] == 1 and
               sum(kernels.LAUNCHES.values()) == 1, f"{where}: not on {route}")
+        check(all(torch.equal(a, b) for a, b in zip(got, call())),
+              f"{where}: two launches differ")
         plain = lambda: K10.attention_bwd_plain(q, k, v, o, do, scale, rq)
         want = plain()
         if M == 1:
@@ -5638,14 +5675,19 @@ def attention_bwd_rows(torch, results, attns, randn, rows_json):
         ot, dot = F.scaled_dot_product_attention(*qkvt), do.transpose(1, 2)
         lib = median_ms(lambda: torch.autograd.grad(ot, qkvt, dot,
                                                     retain_graph=True), 10)
+        lib_call, lib_node = sdpa_backward(torch, q, k, v, do)
+        lib_g = lib_call and graph_ms(lib_call, 5, 3)
         ms, k_g = median_ms(call, 10), graph_ms(call)
         n_bytes = nbytes(q, k, v, o, lse, do, *got)
         flops, exps = 10 * B * h * N * M * d, B * h * N * M
         record_kernel(results, route, err, ms, median_ms(plain, 3),
                       "1 bf16 ulp + 2^-8 of max", n_bytes, flops, "bf16",
-                      lib, where + f", graph {k_g:.4f} ms", exps=exps)
+                      lib, where + f", graph {k_g:.4f} ms (SDPA's "
+                      f"{lib_node} {lib_g})", exps=exps)
         rows_json.append({"kernel": route, "row": [B, N, M, h, d],
                           "ms": ms, "graph_ms": k_g, "library_ms": lib,
+                          "library_graph_ms": lib_g,
+                          "library_node": lib_node,
                           "bound_ms": bound(n_bytes, flops, "bf16",
                                             exps)[0]})
 
@@ -5665,8 +5707,9 @@ def tower_grad_run(torch, kernels, what, prior, part, want):
     parameter (the VAE's: its encoder's and quant_conv's) and the input
     wanting gradients: a forward and the backward of a seeded cotangent,
     the counters reset just before; every such parameter's gradient and
-    the input's finite, K10-K12 launched exactly as `want`; then two more
-    iterations for the synchronised walls → {fwd_ms, bwd_ms, peak_gib}."""
+    the input's finite, K10-K12 launched exactly as `want` (None: not
+    checked, for another checkout's routes); then two more iterations for
+    the synchronised walls → {fwd_ms, bwd_ms, peak_gib}."""
     from dreamfusion_tpu_torch.models.unet import (UNet2DCondition,
                                                    UNetConfig)
     from dreamfusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -5725,8 +5768,8 @@ def tower_grad_run(torch, kernels, what, prior, part, want):
             launched = {k: v for k, v in kernels.LAUNCHES.items()
                         if v and k.startswith(("conv_", "groupnorm_",
                                                "attention_"))}
-            check(launched == want, f"{what}: launched {launched}, not the "
-                  f"towers' {want}")
+            check(want is None or launched == want, f"{what}: launched "
+                  f"{launched}, not the towers' {want}")
             bad = [n for m in trained for n, p in m.named_parameters()
                    if p.grad is None or not bool(torch.isfinite(p.grad)
                                                  .all())]
@@ -5746,13 +5789,15 @@ def tower_grad_run(torch, kernels, what, prior, part, want):
 
 def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
     """The towers' backward to their weights at full width: K12's wgrad,
-    K11's affine gradients and K10's backward at d = 40, 80, 160 held to
-    their plain versions at every distinct shape the four towers launch
-    them at (recorded on the meta device, ``record_towers``), with event
-    and graph ms, bound and the library call's ms, logged as one JSON
-    line; then each tower's forward and backward on the card
-    (``tower_grad_run``), launches exactly as ``tower_launches`` derives
-    them → the new kernels' launches summed over the four towers."""
+    K11's affine gradients and K10's backward at d = 40, 64, 80, 160 held
+    to their plain versions at every distinct shape the four towers launch
+    them at (recorded on the meta device, ``record_towers``), and
+    ``conv_wgrad_mma`` at ``MMA_WGRAD_CONVS``, with event and graph ms,
+    bound and the library call's ms, logged as one JSON line; then each
+    tower's forward and backward on the card (``tower_grad_run``),
+    launches exactly as ``tower_launches`` derives them → the new kernels'
+    launches (and ``conv_wgrad_mma``'s, none) summed over the four
+    towers."""
     randn = _randn_on(torch, torch.Generator(device="cuda").manual_seed(7))
     t0 = time.time()
     convs, gns, attns = [], [], []
@@ -5762,10 +5807,10 @@ def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
             kind, shape = call[0], call[1:]
             lst = {"conv": convs, "gn": gns, "attn": attns}[kind]
             if shape not in lst and (kind != "attn" or shape[-1] in
-                                     (40, 80, 160)):
+                                     (40, 64, 80, 160)):
                 lst.append(shape)
     rows = []
-    wgrad_rows(torch, results, convs, randn, rows)
+    wgrad_rows(torch, results, convs + MMA_WGRAD_CONVS, randn, rows)
     groupnorm_affine_rows(torch, results, gns, randn, rows)
     attention_bwd_rows(torch, results, attns, randn, rows)
     log(f"tower backward rows: {len(convs)} wgrad, {len(gns)} norm and "
@@ -5797,7 +5842,8 @@ def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
         t1 = time.time()
         run = tower_grad_run(torch, kernels, what, prior, part, want)
         walls[what] = run
-        total = add_counts(total, {k: want.get(k, 0) for k in GRAD_KERNELS})
+        total = add_counts(total, {k: want.get(k, 0) for k in
+                                   GRAD_KERNELS + ("conv_wgrad_mma",)})
         log(f"{what} backward to its {run['params'] / 1e6:.2f}M weights: "
             f"forward {run['fwd_ms']:.2f} ms, backward {run['bwd_ms']:.2f} "
             f"ms (median of 3, synchronised; the first "
@@ -5806,6 +5852,7 @@ def tower_backward_phase(torch, kernels, results, smi_line) -> dict:
     log(f"tower backward walls {json.dumps(walls)}")
     for k in GRAD_KERNELS:
         check(total.get(k, 0) > 0, f"{k}: no tower launched it")
+    check(total["conv_wgrad_mma"] == 0, "a tower's wgrad on mma.sync")
     return total
 
 
@@ -6352,7 +6399,7 @@ def run() -> dict:
     def launches_of(name):
         if name in DPT_GRAD_KERNELS:
             return dpt_grad_l[name]
-        if name in GRAD_KERNELS:
+        if name in GRAD_KERNELS or name == "conv_wgrad_mma":
             return grad_l[name]
         if name in ("attention_fwd_fp32", "conv_fwd_fp32_tiled"):
             return dpt_l[name]

@@ -24,6 +24,12 @@ GPU.
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . --only wgrad
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
         --only dpt_wgrad
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only attn_bwd
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only attn_bwd_splits
+    python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root . \
+        --only tower_bwd
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --root <parent> \\
         --tag parent --outputs parent.pt
     python3 dreamfusion_tpu_torch/bench_sd_kernels.py --compare parent.pt \\
@@ -145,6 +151,25 @@ outside the timing where the pads are asymmetric); a last line a tower
 sums its convs' graph ms, the kernels' and cuDNN's.  ``--only dpt_wgrad``
 does the same at the 17 distinct fp32 conv shapes of a 384² DPT backward
 (``dpt_wgrad_cases``), summed over the 40.
+
+``--only attn_bwd`` times K10's backward (``attention_bwd_cuda``: the
+route the checkout takes) at each distinct attention shape of d = 40, 64,
+80 and 160 in the four towers' backward (``attn_bwd_cases``, recorded as
+``--only wgrad``'s; on JAX's branch) and at the DPT's fp32 [1, 577, 12,
+64], beside SDPA's backward as one library call: its autograd node (the
+flash or memory-efficient kernel PyTorch picks), called directly so that
+a CUDA graph captures it (``chip_smoke.sdpa_backward``), with graph ms on
+both sides; a last line a tower sums its attentions' graph ms, the
+kernels' and SDPA's.  ``--only tower_bwd`` runs each of the four towers
+(``chip_smoke.GRAD_TOWERS``) at full width on random weights with every
+parameter and the input wanting gradients: one forward and backward
+(``chip_smoke.tower_grad_run``, its launches not checked), the
+synchronised walls (median of 3) and the peak memory, a JSON line each.
+
+``--only attn_bwd_splits`` times K10's flash backward at the same bf16
+shapes at every split of its dK/dV pass, 1 to 16 (``sweep_flash_splits``):
+graph ms, the split ``flash_bwd_splits`` chooses and the fastest, both
+summed a tower.
 
 ``--only wgrad_splits`` times the weight gradient's wgmma route (the
 towers' bf16 shapes) and tiled fp32 route (the DPT's and the conv_outs'
@@ -1004,6 +1029,80 @@ def wgrad_cases(smoke, kernels, dev):
     return cases
 
 
+def sweep_flash_splits(K10, kernels, graph_ms, cases, tag, card):
+    """The flash backward's split rule against the fastest split: at every
+    bf16 shape of ``attn_bwd_cases`` the backward at each split of the
+    dK/dV pass from 1 to 16 (at most one a query tile; the rule replaced
+    for the call): one JSON line a shape with each split's graph ms, the
+    split ``flash_bwd_splits`` chooses and the fastest, each with its ms;
+    a last line a tower sums both over its calls."""
+    rule = K10.flash_bwd_splits
+    sums = {}
+    for row, fn, _ in cases:
+        if row["kernel"] != "K10 attention_bwd" or row["dtype"] != "bf16":
+            continue
+        B, N, M, h, d = row["shape"]
+        chosen = rule(B * h, N, M, d, kernels.sm_count(fn.args[0].device))
+        times = {}
+        try:
+            for sp in range(1, min(16, -(-N // K10._FLASH_BR[d])) + 1):
+                K10.flash_bwd_splits = lambda *a, sp=sp: sp
+                times[sp] = graph_ms(fn, 10, 5)
+        finally:
+            K10.flash_bwd_splits = rule
+        best = min(times, key=times.get)
+        print(json.dumps({"tag": tag, "kernel": "K10 attention_bwd",
+                          "shape": row["shape"], "calls": row["calls"],
+                          "chosen": chosen, "chosen_ms": times[chosen],
+                          "best": best, "best_ms": times[best],
+                          "graph_ms": times, "card": card}), flush=True)
+        for tower, n in row["calls"].items():
+            t = sums.setdefault(tower, {"chosen_ms": 0.0, "best_ms": 0.0})
+            t["chosen_ms"] += n * times[chosen]
+            t["best_ms"] += n * times[best]
+    for tower, t in sums.items():
+        print(json.dumps({"tag": tag, "tower": tower, **t, "card": card}),
+              flush=True)
+
+
+def attn_bwd_cases(smoke, kernels, dev):
+    """(row, the checkout's backward, SDPA's backward node) for K10 at each
+    distinct attention shape of d = 40, 64, 80, 160 of the four towers'
+    backward (see the module docstring), each row with its calls a tower
+    (``calls``), and at the DPT's fp32 [1, 577, 12, 64]."""
+    import torch
+
+    from dreamfusion_tpu_torch.ops import attention as K10
+    g = torch.Generator(device=dev).manual_seed(25)
+    calls = {}
+    for tower, (prior, part) in smoke.GRAD_TOWERS.items():
+        smoke.tower_forward(torch, kernels, prior, part)
+        for c in smoke._TOWER_FULL[(prior, part, 1)]:
+            if c[0] == "attn" and c[-1] in (40, 64, 80, 160):
+                n = calls.setdefault(c[1:], {})
+                n[tower] = n.get(tower, 0) + 1
+    branch = getattr(K10, "chunked_branch", None)
+    cases = []
+    for (B, N, M, h, d), n, dtype in (
+            [(c, n, torch.bfloat16) for c, n in calls.items()] +
+            [((1, 577, 577, 12, 64), {}, torch.float32)]):
+        q, k, v, do = (torch.randn(B, t, h, d, device=dev, generator=g)
+                       .to(dtype) for t in (N, M, M, N))
+        rq = (branch(B, N, M, h),) if branch and dtype != torch.float32 \
+            else ()
+        o, lse = K10.attention_fwd_cuda(q, k, v, d ** -0.5, *rq)
+        lib, node = smoke.sdpa_backward(torch, q, k, v, do)
+        cases.append(({"kernel": "K10 attention_bwd",
+                       "shape": [B, N, M, h, d],
+                       "dtype": "fp32" if dtype == torch.float32 else "bf16",
+                       "chunked": bool(rq and rq[0]),
+                       "gflop": 10 * B * h * N * M * d / 1e9, "calls": n,
+                       "library_node": node},
+                      functools.partial(K10.attention_bwd_cuda, q, k, v, o,
+                                        lse, do, d ** -0.5, *rq), lib))
+    return cases
+
+
 def dpt_wgrad_cases(smoke, dev):
     """(row, the checkout's call, cuDNN's call) for K12's weight gradient
     at each distinct conv shape of a 384² DPT backward."""
@@ -1033,7 +1132,8 @@ def main(argv=None) -> None:
                                        "render", "sdf", "dpt",
                                        "dpt_splits", "dpt_dgrad",
                                        "wgrad", "dpt_wgrad",
-                                       "wgrad_splits"),
+                                       "wgrad_splits", "attn_bwd",
+                                       "attn_bwd_splits", "tower_bwd"),
                     default=None, help="time only K12 (forwards and "
                     "dgrads), only K12's dgrads, only K10 (forwards and "
                     "the backward), only K11, K11 through every route "
@@ -1043,7 +1143,10 @@ def main(argv=None) -> None:
                     "tiles and splits, K12's dgrads at the DPT's shapes, "
                     "K12's weight gradients at the towers' or the "
                     "DPT's shapes, or their split rules against every "
-                    "split (the last eleven not in the default set)")
+                    "split, K10's backward at the towers' shapes or its "
+                    "split rule against every split, or the towers' "
+                    "forward and backward walls (the last fourteen not "
+                    "in the default set)")
     ap.add_argument("--sdf_mesh", default=None,
                     help="with --only sdf: the OBJ whose signed distance "
                     "K9 measures (default: a 50,000-triangle UV sphere)")
@@ -1142,7 +1245,8 @@ def main(argv=None) -> None:
             [] if args.only in ("attn", "gn", "gn_routes", "field", "dmtet",
                                 "render", "sdf", "dpt", "dpt_splits",
                                 "dpt_dgrad", "wgrad", "dpt_wgrad",
-                                "wgrad_splits")
+                                "wgrad_splits", "attn_bwd",
+                                "attn_bwd_splits", "tower_bwd")
             else smoke.SD_CONVS):
         if args.only == "dgrad" and not dgrad:
             continue
@@ -1190,7 +1294,8 @@ def main(argv=None) -> None:
             [] if args.only in ("conv", "dgrad", "gn", "gn_routes", "field",
                                 "dmtet", "render", "sdf", "dpt", "dpt_splits",
                                 "dpt_dgrad", "wgrad", "dpt_wgrad",
-                                "wgrad_splits")
+                                "wgrad_splits", "attn_bwd",
+                                "attn_bwd_splits", "tower_bwd")
             else smoke.SD_ATTNS):
         if d not in unet_dims + (512,):
             continue
@@ -1276,6 +1381,8 @@ def main(argv=None) -> None:
         cases += wgrad_cases(smoke, kernels, dev)
     if args.only == "dpt_wgrad":
         cases += dpt_wgrad_cases(smoke, dev)
+    if args.only in ("attn_bwd", "attn_bwd_splits"):
+        cases += attn_bwd_cases(smoke, kernels, dev)
 
     print(json.dumps({"tag": args.tag, "root": os.path.abspath(args.root),
                       "sources_sha256": sources_sha256(args.root),
@@ -1291,6 +1398,16 @@ def main(argv=None) -> None:
     if args.only == "wgrad_splits":
         sweep_wgrad_splits(smoke, K12, kernels, graph_ms, dev, g, args.tag,
                            card)
+        return
+    if args.only == "attn_bwd_splits":
+        sweep_flash_splits(K10, kernels, graph_ms, cases, args.tag, card)
+        return
+    if args.only == "tower_bwd":
+        for tower, (prior, part) in smoke.GRAD_TOWERS.items():
+            run = smoke.tower_grad_run(torch, kernels, tower, prior, part,
+                                       None)
+            print(json.dumps({"tag": args.tag, "tower": tower, **run,
+                              "card": card}), flush=True)
         return
     if args.outputs:
         outs = {}
@@ -1362,11 +1479,14 @@ def main(argv=None) -> None:
                 for key in sums:
                     sums[key] += out[key] * n
             for tower, n in row.get("calls", {}).items():
-                t = towers.setdefault(tower, {"convs": 0, "graph_ms": 0.0,
+                t = towers.setdefault(tower, {"kernel": row["kernel"],
+                                              "calls": 0, "graph_ms": 0.0,
                                               "library_graph_ms": 0.0})
-                t["convs"] += n
+                t["calls"] += n
                 for key in ("graph_ms", "library_graph_ms"):
-                    t[key] += out[key] * n
+                    # a row without the time leaves its tower's sum out
+                    t[key] = (None if t[key] is None or out[key] is None
+                              else t[key] + out[key] * n)
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1383,8 +1503,8 @@ def main(argv=None) -> None:
                               r["per_backward"] for r, _, _ in cases),
                           **sums, "card": card}), flush=True)
     for tower, t in towers.items():
-        print(json.dumps({"tag": args.tag, "kernel": "K12 conv_wgrad",
-                          "tower": tower, **t, "card": card}), flush=True)
+        print(json.dumps({"tag": args.tag, "tower": tower, **t,
+                          "card": card}), flush=True)
 
 
 if __name__ == "__main__":

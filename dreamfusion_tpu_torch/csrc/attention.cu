@@ -64,30 +64,50 @@
 //    into o and lse.  Bound by the tiles' traffic out of L2 (64 query rows
 //    per 128 KB of K and V) more than by the products.
 //
-// Backward (the VAE mid-block, d = 512, N = M = 4096, and the UNets' head
-// dims 64, 40, 80 and 160, each head dim its own entry point as the
-// forward's): D = rowsum(dO o O) (attn_bwd_dot_kernel); a scores pass
-// recomputes S = Q K^T and dP = dO V^T for each 128 x 128 (query, key) tile
-// in wgmma accumulators (two consumer warpgroups of 64 query rows, Q, dO, K
-// and V by TMA through a 3-stage ring over d in ceil(d / 64) steps of 64
-// columns: at d = 40, 80 and 160 the last step's columns past d are TMA's
-// zero fill, which adds nothing to S or dP), forms P =
-// exp(S - lse) and dS = P o (dP - D) in fp32 and stores both in bf16,
-// row-major [z][N][Mp] (2 x 33.5 MB at the VAE's shape), by TMA from
-// swizzled staging; one wgmma GEMM kernel then gives dV = P^T dO and dK =
-// scale * dS^T Q in one launch (A read MN-major through the descriptor's
-// transpose bit, B = dO or Q MN-major) and dQ = scale * dS K in a second
-// (A K-major), 128 x 128 tiles over a 4-stage ring; their 64-column boxes
-// past d are zero-filled on load and clipped on store.  Where the forward
-// took JAX's chunked branch with a scale that is not a power of two (SD
-// 1.5's [2, 4096, 8, 40] self-attention), the logits were bf16(q * scale)
-// k^T (chunked_attention :42, whose derivative passes straight through the
-// rounding): attn_bwd_prescale_kernel first writes qs = bf16(q * scale) to
-// scratch, the scores pass recomputes S = qs K^T with scale 1, dK = dS^T qs
-// and dQ = scale * dS K.  Bound by operations (86 GFLOP at the VAE's shape
-// against ~0.2 GB of traffic; at d = 40, the exponentials); the mma.sync
-// backward it replaces (64 x 64 tiles, plain loads, 5 launches) ran 0.64
-// ms.
+// Backward.  D = rowsum(dO o O) per query row; the logits are recomputed
+// as the forward formed them.  Where the forward took JAX's chunked branch
+// with a scale that is not a power of two (SD 1.5's [2, 4096, 8, 40]
+// self-attention), they were bf16(q * scale) k^T (chunked_attention :42,
+// whose derivative passes straight through the rounding):
+// attn_bwd_prescale_kernel first writes qs = bf16(q * scale) to scratch,
+// S = qs K^T with scale 1, dK = dS^T qs and dQ = scale * dS K.  Two forms:
+//  - the UNet's head dims, d = 40, 64, 80, 160 (attention_bwd_flash and
+//    its _d40, _d80, _d160 entry points; one template on d): flash-style,
+//    nothing of size N x M in device memory.  The four-kernel form it
+//    replaces stored P and dS in bf16 (2 x 537 MB at SD 1.5's [2, 4096, 8,
+//    40]) and read them back for three GEMM launches: ~2.7 GB of traffic,
+//    most of its 1.35 ms against a bound of 0.11 ms (the exponentials).
+//    Here attn_bwd_rows_kernel writes each row's lse (log2 units) and D,
+//    padded to 128 rows (+inf and 0: P = 0 there); then one launch holds
+//    two passes side by side (attn_bwd_flash_kernel), each block two
+//    consumer warpgroups fed by one TMA producer thread.  The dK/dV pass:
+//    a block per (b, h, 128 keys) keeps K and V in shared memory and walks
+//    the query tiles (64 queries, 32 at d = 160) through a ring: Sᵀ = K Qᵀ
+//    and dPᵀ = V dOᵀ by wgmma, P = exp(S - lse) and dS = P (dP - D) on the
+//    accumulators in fp32, rounded to bf16 in registers as the register A
+//    operand of dV += P dO and dK += dS Q (dO, Q MN-major), dK and dV
+//    accumulated in registers over the tiles (where few key tiles leave
+//    SMs idle, the query range splits and a reduce kernel sums the fp32
+//    partials in split order).  The dQ pass: a block per (b, h, 128
+//    queries), the forward's layout, recomputes S and dP against each
+//    64-key tile for dQ += dS K, rather than adding into dQ with fp32
+//    atomics: two launches agree bit for bit.  Rows past N and M are TMA's
+//    zero fill; keys past M get P = 0 in the dQ pass (77 text keys,
+//    zero123's one) and are not stored by the dK/dV pass.
+//  - d = 512 (the VAE mid-block, N = M = 4096: P and dS are 2 x 33.5 MB;
+//    attention_bwd_wgmma): the row dots (attn_bwd_dot_kernel); a scores
+//    pass recomputes S = Q K^T and dP = dO V^T for each 128 x 128 (query,
+//    key) tile in wgmma accumulators (two consumer warpgroups of 64 query
+//    rows, Q, dO, K and V by TMA through a 3-stage ring over d in steps of
+//    64 columns), forms P = exp(S - lse) and dS = P o (dP - D) in fp32 and
+//    stores both in bf16, row-major [z][N][Mp], by TMA from swizzled
+//    staging; one wgmma GEMM kernel then gives dV = P^T dO and dK = scale *
+//    dS^T Q in one launch (A read MN-major through the descriptor's
+//    transpose bit, B = dO or Q MN-major) and dQ = scale * dS K in a
+//    second (A K-major), 128 x 128 tiles over a 4-stage ring.  Bound by
+//    operations (86 GFLOP against ~0.2 GB of traffic); the mma.sync
+//    backward it replaced (64 x 64 tiles, plain loads, 5 launches) ran
+//    0.64 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -751,7 +771,7 @@ attn_bwd_scores_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int z = blockIdx.z, b = z / H, hh = z % H;
   const int i0 = blockIdx.x * BR, j0 = blockIdx.y * BC;
-  const int nk = (D + 63) / 64;        // the last step's columns past D: 0
+  const int nk = D / 64;
 
   if (grp == 0) {
     // ---- producer: per k step, Q and dO rows i0.., K and V rows j0.. ----
@@ -862,7 +882,7 @@ attn_bwd_scores_kernel(const __grid_constant__ CUtensorMap qmap,
 // 128 x 128 tile per block, two consumer warpgroups of 64 rows, a 4-stage
 // TMA ring over K in 64-deep steps; blockIdx.z / Z picks one of two
 // products (dV and dK share A's layout and one launch).  Rows past the
-// output's tokens and columns past D are clipped by the TMA store.
+// output's tokens are clipped by the TMA store.
 namespace bg {
 constexpr int BM = 128, BN = 128, STAGES = 4, kThreads = 384;
 constexpr int BOX = 64 * 64 * 2;                 // a 64 x 64 box: 8 KB
@@ -900,9 +920,9 @@ attn_bwd_gemm_kernel(const __grid_constant__ GemmMaps maps, int Mrows,
   const int prod = blockIdx.z / Z, z = blockIdx.z % Z, b = z / H, hh = z % H;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nks = (Kdim + 63) / 64;
-  // boxes wholly past the output's rows (A) or D (B) are not loaded: the
-  // rows and columns they would feed are not stored
-  const int na = m0 + 64 < Mrows ? 2 : 1, nb = n0 + 64 < D ? 2 : 1;
+  // a box of A wholly past the output's rows is not loaded: the rows it
+  // would feed are not stored
+  const int na = m0 + 64 < Mrows ? 2 : 1;
   const CUtensorMap* am = &maps.a[prod];
   const CUtensorMap* bm = &maps.b[prod];
 
@@ -913,7 +933,7 @@ attn_bwd_gemm_kernel(const __grid_constant__ GemmMaps maps, int Mrows,
         const int s = ks % STAGES, k0 = 64 * ks;
         unsigned char* st = base + s * STAGE;
         hop::mbar_wait(&empty[s], ((ks / STAGES) & 1) ^ 1);
-        hop::mbar_expect_tx(&full[s], (na + nb) * BOX);
+        hop::mbar_expect_tx(&full[s], (na + 2) * BOX);
         for (int h = 0; h < na; ++h) {
           if (A_MN)        // [64 k rows][64 m]: keys m0 + 64h.. inner
             hop::tma_load_4d(st + h * BOX, am, &full[s], m0 + 64 * h, k0, z,
@@ -922,7 +942,7 @@ attn_bwd_gemm_kernel(const __grid_constant__ GemmMaps maps, int Mrows,
             hop::tma_load_4d(st + h * BOX, am, &full[s], k0, m0 + 64 * h, z,
                              0);
         }
-        for (int h = 0; h < nb; ++h)   // [64 k tokens][64 n]
+        for (int h = 0; h < 2; ++h)    // [64 k tokens][64 n]
           hop::tma_load_4d(st + (2 + h) * BOX, bm, &full[s], n0 + 64 * h, hh,
                            k0, b);
       }
@@ -979,12 +999,496 @@ attn_bwd_gemm_kernel(const __grid_constant__ GemmMaps maps, int Mrows,
   hop::fence_proxy_async();
   hop::bar_sync(1 + cw, 128);
   if (tid % 128 == 0 && cw < na) {
-    for (int h = 0; h < nb; ++h)
+    for (int h = 0; h < 2; ++h)
       hop::tma_store_4d(&maps.o[prod], sO + h * BOX, n0 + 64 * h, hh,
                         m0 + 64 * cw, b);
     hop::bulk_commit();
     hop::bulk_wait();
   }
+}
+
+// ---- the flash-style backward at the UNet's head dims --------------------
+
+// One template on d (40, 64, 80, 160) in two passes, nothing of size N x M
+// in device memory (see the note above).  A row of Q, dO, K or V is
+// ceil(d / 64) chunks of 64 columns (128-byte swizzled rows, TMA's zero
+// fill past d), as the forward's.
+namespace fb {
+template <int D_>
+struct Cfg {
+  static constexpr int D = D_;
+  static constexpr int CH = (D + 63) / 64;     // 64-column chunks of a row
+  static constexpr int KS = (D + 15) / 16;     // k16 steps over d
+  static constexpr int kThreads = 384;
+  // dK/dV pass: BC keys a block (64 a consumer warpgroup), BR queries a
+  // step; BR = 32 at d = 160 keeps S, dP and the two d-wide accumulators
+  // within a consumer's registers
+  static constexpr int BC = 128, BR = D <= 80 ? 64 : 32;
+  static constexpr int KCH = BC * 128, QCH = BR * 128;   // bytes of a chunk
+  static constexpr int STAGES = D <= 64 ? 4 : 3;
+  // a stage: Q and dO chunks, then the tile's lse (log2 units) and D
+  static constexpr int STAGE =
+      (2 * CH * QCH + 2 * BR * 4 + 1023) / 1024 * 1024;
+  static constexpr size_t kSmem = 1024 + (size_t)2 * CH * KCH +
+                                  (size_t)STAGES * STAGE +
+                                  (1 + 2 * STAGES) * sizeof(uint64_t);
+  // dQ pass: QR queries a block (64 a consumer warpgroup), KT keys a step
+  static constexpr int QR = 128, KT = 64;
+  static constexpr int QCH2 = QR * 128, KCH2 = KT * 128;
+  static constexpr int STAGES2 = D <= 80 ? 3 : 2;
+  static constexpr size_t kSmem2 = 1024 + (size_t)2 * CH * QCH2 +
+                                   (size_t)STAGES2 * 2 * CH * KCH2 +
+                                   (1 + 2 * STAGES2) * sizeof(uint64_t);
+  static_assert(kSmem <= 232448 && kSmem2 <= 232448, "shared memory");
+  // the launch holds either pass's block
+  static constexpr size_t kSmemAll = kSmem > kSmem2 ? kSmem : kSmem2;
+};
+constexpr int ROWS = 128;      // the rows' lse and D padded to a multiple
+}  // namespace fb
+
+// lse2[z, i] = lse[z, i] * log2(e) and Dv[z, i] = sum_c dO[b, i, h, c] *
+// O[b, i, h, c] for i < N; +inf and 0 for N <= i < Np (their P is 0).
+// ROW_LANES lanes a row of [B*H][Np]: lane j reads the row's 16-byte vectors
+// j, j + ROW_LANES, ... (D % 8 == 0; a group's reads are contiguous), and
+// the lanes' sums meet by a fixed butterfly.  Several lanes a row so that
+// the UNets' 256-query rows (4096 rows at B*H = 16) spread over the SMs.
+constexpr int ROW_LANES = 8;
+__global__ void attn_bwd_rows_kernel(const bf16* __restrict__ dout,
+                                     const bf16* __restrict__ out,
+                                     const float* __restrict__ lse,
+                                     float* __restrict__ lse2,
+                                     float* __restrict__ dv, int B, int N,
+                                     int H, int D, int Np) {
+  const int64_t row =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / ROW_LANES;
+  const int j = threadIdx.x % ROW_LANES;
+  // a group of lanes returns whole: blockDim is a multiple of ROW_LANES
+  if (row >= (int64_t)B * H * Np) return;
+  const int i = (int)(row % Np);
+  const int64_t z = row / Np;
+  if (i >= N) {
+    if (j == 0) {
+      lse2[row] = INFINITY;
+      dv[row] = 0.f;
+    }
+    return;
+  }
+  const int b = (int)(z / H), hh = (int)(z % H);
+  const int64_t base = (((int64_t)b * N + i) * H + hh) * D / 8;
+  const uint4* dov = reinterpret_cast<const uint4*>(dout) + base;
+  const uint4* ov = reinterpret_cast<const uint4*>(out) + base;
+  float s = 0.f;
+  for (int c = j; c < D / 8; c += ROW_LANES) {
+    uint4 a = dov[c], o = ov[c];
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(o2[e]);
+      s += x.x * y.x;
+      s += x.y * y.y;
+    }
+  }
+  const unsigned group = 0xffu << (threadIdx.x % 32 / ROW_LANES * ROW_LANES);
+#pragma unroll
+  for (int off = ROW_LANES / 2; off > 0; off /= 2)
+    s += __shfl_xor_sync(group, s, off, ROW_LANES);
+  if (j == 0) {
+    dv[row] = s;
+    lse2[row] = lse[z * N + i] * 1.4426950408889634f;
+  }
+}
+
+// The tensor maps of the two passes: the dK/dV pass's Q and dO in BR-row
+// boxes, K and V in BC-row boxes; the dQ pass's Q and dO in QR-row boxes,
+// K and V in KT-row boxes.
+struct FlashMaps {
+  CUtensorMap q1, o1, k1, v1, q2, o2, k2, v2;
+};
+
+// dK and dV of BC keys (key tile jb) of (b, h) = z, over the query tiles of
+// split `split`.  K and V stay in shared memory; per query tile the
+// consumer warpgroup cw (keys 64 cw ..) forms Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
+// (wgmma m64nBRk16, both operands K-major), then P = exp(S scale - lse)
+// and dS = P (dP - D) in fp32 on the accumulator fragments, rounded to
+// bf16 in registers as wgmma's register A operand: dV += P dO and dK +=
+// dS Q (m64ndk16, dO and Q read MN-major across their chunks).  Queries
+// past N have lse +inf (P = 0); keys past M are zero rows whose dK and dV
+// are not stored.  One split writes dK (times s_scale) and dV in bf16, more
+// write their fp32 partials to ws [2][splits][B*M*H*D] (dK's, then dV's).
+template <int D>
+__device__ __forceinline__ void flash_dkdv(
+    const FlashMaps& maps, unsigned char* base, const float* __restrict__ lse2,
+    const float* __restrict__ dvec, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, float* __restrict__ ws, int jb, int z, int split,
+    int splits, int Z, int N, int M, int H, int Np, float s_scale) {
+  using C = fb::Cfg<D>;
+  constexpr int BR = C::BR, BC = C::BC, CH = C::CH, KS = C::KS;
+  constexpr int STAGES = C::STAGES, STAGE = C::STAGE;
+  constexpr int QCH = C::QCH, KCH = C::KCH;
+  constexpr int NS = BR / 2, NP = BR / 16, NA = D / 2;
+  unsigned char* sK = base;                      // [CH][BC keys][64]
+  unsigned char* sV = sK + CH * KCH;             // [CH][BC keys][64]
+  unsigned char* ring = sV + CH * KCH;           // [STAGES][STAGE]
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    hop::mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);   // both consumer warpgroups
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int b = z / H, hh = z % H;
+  const int j0 = jb * BC;
+  const int q_tiles = (N + BR - 1) / BR;
+  const int t0 = (int)((int64_t)q_tiles * split / splits);
+  const int t1 = (int)((int64_t)q_tiles * (split + 1) / splits);
+
+  if (grp == 0) {
+    // ---- producer: K and V once, then the query tiles through the ring --
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      hop::mbar_expect_tx(kvbar, 2 * CH * KCH);
+      for (int c = 0; c < CH; ++c) {
+        hop::tma_load_4d(sK + c * KCH, &maps.k1, kvbar, 64 * c, hh, j0, b);
+        hop::tma_load_4d(sV + c * KCH, &maps.v1, kvbar, 64 * c, hh, j0, b);
+      }
+      for (int it = t0; it < t1; ++it) {
+        const int n = it - t0, s = n % STAGES;
+        unsigned char* st = ring + s * STAGE;
+        hop::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], 2 * CH * QCH + 2 * BR * 4);
+        const int i0 = it * BR;
+        for (int c = 0; c < CH; ++c) {
+          hop::tma_load_4d(st + c * QCH, &maps.q1, &full[s], 64 * c, hh, i0,
+                           b);
+          hop::tma_load_4d(st + (CH + c) * QCH, &maps.o1, &full[s], 64 * c,
+                           hh, i0, b);
+        }
+        // the rows' padding keeps i0 + BR <= Np; 128-byte aligned
+        const int64_t r0 = (int64_t)z * Np + i0;
+        hop::bulk_load(st + 2 * CH * QCH, lse2 + r0, BR * 4, &full[s]);
+        hop::bulk_load(st + 2 * CH * QCH + BR * 4, dvec + r0, BR * 4,
+                       &full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns keys j0 + 64 cw .. ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lane = tid % 32, warp = (tid / 32) % 4;
+  const int qd = lane % 4, g = lane / 4;
+  const float sl2 = s_scale * 1.4426950408889634f;
+  float dka[NA], dva[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+  // Descriptors as a base and constant offsets (a descriptor + n moves
+  // its start by 16n bytes), so that few registers hold them beside the
+  // two d-wide accumulators.  A: this warpgroup's 64 rows of K and V,
+  // K-major: +32 bytes a k16 step within a chunk, chunks KCH apart.
+  const uint64_t kd = hop::desc_sw128(sK + cw * 64 * 128);
+  const uint64_t vd = hop::desc_sw128(sV + cw * 64 * 128);
+  hop::mbar_wait(kvbar, 0);
+
+#pragma unroll 1
+  for (int it = t0; it < t1; ++it) {
+    const int n = it - t0, s = n % STAGES;
+    const unsigned char* st = ring + s * STAGE;
+    // B operands: Q and dO K-major for S and dP (as K and V); MN-major (16
+    // queries, 2048 bytes, a k16 step; chunks QCH apart) for dK and dV
+    const uint64_t qk = hop::desc_sw128(st);
+    const uint64_t ok = hop::desc_sw128(st + CH * QCH);
+    const uint64_t qm = hop::desc_sw128(st, CH > 1 ? QCH : 16);
+    const uint64_t om = hop::desc_sw128(st + CH * QCH, CH > 1 ? QCH : 16);
+    float sacc[NS], pacc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = pacc[i] = 0.f;
+    hop::fence_regs<NS>(sacc);
+    hop::fence_regs<NS>(pacc);
+    hop::mbar_wait(&full[s], (n / STAGES) & 1);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      hop::wgmma_ss<BR>(sacc, kd + (k / 4) * (KCH >> 4) + 2 * (k % 4),
+                        qk + (k / 4) * (QCH >> 4) + 2 * (k % 4));
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      hop::wgmma_ss<BR>(pacc, vd + (k / 4) * (KCH >> 4) + 2 * (k % 4),
+                        ok + (k / 4) * (QCH >> 4) + 2 * (k % 4));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs<NS>(sacc);
+    hop::fence_regs<NS>(pacc);
+
+    // P and dS on rows (keys) g, g + 8 of the warp's 16, columns (queries)
+    // 8j + 2qd, + 1, as the register A operand of the next products
+    const float* sl = reinterpret_cast<const float*>(st + 2 * CH * QCH);
+    const float* sd = sl + BR;
+    uint32_t pf[NP][4], df[NP][4];
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j) {
+      float pv[4], dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * qd + (e % 2);
+        pv[e] = hop::exp2_approx(fmaf(sacc[4 * j + e], sl2, -sl[col]));
+        dsv[e] = pv[e] * (pacc[4 * j + e] - sd[col]);
+      }
+      pf[j / 2][(j % 2) * 2] = dft::pack_bf16(pv[0], pv[1]);
+      pf[j / 2][(j % 2) * 2 + 1] = dft::pack_bf16(pv[2], pv[3]);
+      df[j / 2][(j % 2) * 2] = dft::pack_bf16(dsv[0], dsv[1]);
+      df[j / 2][(j % 2) * 2 + 1] = dft::pack_bf16(dsv[2], dsv[3]);
+    }
+    hop::fence_regs<4 * NP>(&pf[0][0]);
+    hop::fence_regs<4 * NP>(&df[0][0]);
+    hop::fence_regs<NA>(dva);
+    hop::fence_regs<NA>(dka);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk)
+      hop::wgmma_rs_tb<D>(dva, pf[kk], om + kk * (2048 >> 4));
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk)
+      hop::wgmma_rs_tb<D>(dka, df[kk], qm + kk * (2048 >> 4));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs<NA>(dva);
+    hop::fence_regs<NA>(dka);
+    hop::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: rows past M are not stored ----
+  const int64_t total = (int64_t)Z * M * D;      // B*M*H*D
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = j0 + cw * 64 + warp * 16 + g + 8 * r;
+    if (key >= M) continue;
+    const int64_t row = (((int64_t)b * M + key) * H + hh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int64_t i = row + 8 * j + 2 * qd;
+      const float k0 = dka[4 * j + 2 * r], k1 = dka[4 * j + 2 * r + 1];
+      const float v0 = dva[4 * j + 2 * r], v1 = dva[4 * j + 2 * r + 1];
+      if (splits == 1) {
+        *reinterpret_cast<uint32_t*>(dk + i) =
+            dft::pack_bf16(s_scale * k0, s_scale * k1);
+        *reinterpret_cast<uint32_t*>(dv + i) = dft::pack_bf16(v0, v1);
+      } else {
+        *reinterpret_cast<float2*>(ws + split * total + i) =
+            make_float2(k0, k1);
+        *reinterpret_cast<float2*>(ws + (splits + split) * total + i) =
+            make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// dQ of QR queries (query tile ib) of (b, h) = z over every key tile: the
+// forward's layout (Q and dO resident, K and V through a ring) with dP =
+// dO Vᵀ beside S = Q Kᵀ, P and dS recomputed from lse and D as in the dK/dV
+// pass (keys past M masked to P = 0), and dQ += dS K with K read again as
+// the MN-major B operand.  dQ = q_scale * the sum, bf16, rows past N not
+// stored.
+template <int D>
+__device__ __forceinline__ void flash_dq(
+    const FlashMaps& maps, unsigned char* base, const float* __restrict__ lse2,
+    const float* __restrict__ dvec, bf16* __restrict__ dq, int ib, int z,
+    int N, int M, int H, int Np, float s_scale, float q_scale) {
+  using C = fb::Cfg<D>;
+  constexpr int QR = C::QR, KT = C::KT, CH = C::CH, KS = C::KS;
+  constexpr int STAGES = C::STAGES2, QCH = C::QCH2, KCH = C::KCH2;
+  constexpr int NS = KT / 2, NP = KT / 16, NA = D / 2;
+  unsigned char* sQ = base;                      // [CH][QR rows][64]
+  unsigned char* sO = sQ + CH * QCH;             // [CH][QR rows][64]
+  unsigned char* ring = sO + CH * QCH;           // [STAGES][K, V: CH][KT][64]
+  uint64_t* qbar =
+      reinterpret_cast<uint64_t*>(ring + STAGES * 2 * CH * KCH);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    hop::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int b = z / H, hh = z % H;
+  const int i0 = ib * QR;
+  const int n_tiles = (M + KT - 1) / KT;
+
+  if (grp == 0) {
+    hop::regs_dec<40>();
+    if (tid == 0) {
+      hop::mbar_expect_tx(qbar, 2 * CH * QCH);
+      for (int c = 0; c < CH; ++c) {
+        hop::tma_load_4d(sQ + c * QCH, &maps.q2, qbar, 64 * c, hh, i0, b);
+        hop::tma_load_4d(sO + c * QCH, &maps.o2, qbar, 64 * c, hh, i0, b);
+      }
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int s = jt % STAGES;
+        unsigned char* st = ring + s * 2 * CH * KCH;
+        hop::mbar_wait(&empty[s], ((jt / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], 2 * CH * KCH);
+        for (int c = 0; c < CH; ++c) {
+          hop::tma_load_4d(st + c * KCH, &maps.k2, &full[s], 64 * c, hh,
+                           jt * KT, b);
+          hop::tma_load_4d(st + (CH + c) * KCH, &maps.v2, &full[s], 64 * c,
+                           hh, jt * KT, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns query rows i0 + 64 cw .. ----
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lane = tid % 32, warp = (tid / 32) % 4;
+  const int qd = lane % 4, g = lane / 4;
+  const float sl2 = s_scale * 1.4426950408889634f;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {      // i0 + 128 <= Np: padded rows
+    const int64_t row = (int64_t)z * Np + i0 + cw * 64 + warp * 16 + g +
+                        8 * r;
+    l2[r] = lse2[row];
+    dd[r] = dvec[row];
+  }
+  float dqa[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dqa[i] = 0.f;
+  // descriptors as a base and constant offsets, as in the dK/dV pass
+  const uint64_t qk = hop::desc_sw128(sQ + cw * 64 * 128);
+  const uint64_t ok = hop::desc_sw128(sO + cw * 64 * 128);
+  hop::mbar_wait(qbar, 0);
+
+#pragma unroll 1
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int s = jt % STAGES;
+    const unsigned char* st = ring + s * 2 * CH * KCH;
+    // K and V K-major for S and dP; K MN-major (16 keys a k16 step) for dQ
+    const uint64_t kt = hop::desc_sw128(st);
+    const uint64_t vk = hop::desc_sw128(st + CH * KCH);
+    const uint64_t km = hop::desc_sw128(st, CH > 1 ? KCH : 16);
+    float sacc[NS], pacc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = pacc[i] = 0.f;
+    hop::fence_regs<NS>(sacc);
+    hop::fence_regs<NS>(pacc);
+    hop::mbar_wait(&full[s], (jt / STAGES) & 1);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      hop::wgmma_ss<KT>(sacc, qk + (k / 4) * (QCH >> 4) + 2 * (k % 4),
+                        kt + (k / 4) * (KCH >> 4) + 2 * (k % 4));
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      hop::wgmma_ss<KT>(pacc, ok + (k / 4) * (QCH >> 4) + 2 * (k % 4),
+                        vk + (k / 4) * (KCH >> 4) + 2 * (k % 4));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs<NS>(sacc);
+    hop::fence_regs<NS>(pacc);
+
+    // dS on rows g (e = 0, 1) and g + 8 (e = 2, 3), keys 8j + 2qd, + 1
+    const int j0 = jt * KT;
+    const bool ragged = j0 + KT > M;
+    uint32_t df[NP][4];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      float dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = hop::exp2_approx(fmaf(sacc[4 * j + e], sl2, -l2[e / 2]));
+        if (ragged && j0 + 8 * j + 2 * qd + (e % 2) >= M) pv = 0.f;
+        dsv[e] = pv * (pacc[4 * j + e] - dd[e / 2]);
+      }
+      df[j / 2][(j % 2) * 2] = dft::pack_bf16(dsv[0], dsv[1]);
+      df[j / 2][(j % 2) * 2 + 1] = dft::pack_bf16(dsv[2], dsv[3]);
+    }
+    hop::fence_regs<4 * NP>(&df[0][0]);
+    hop::fence_regs<NA>(dqa);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk)
+      hop::wgmma_rs_tb<D>(dqa, df[kk], km + kk * (2048 >> 4));
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs<NA>(dqa);
+    hop::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + cw * 64 + warp * 16 + g + 8 * r;
+    if (row >= N) continue;
+    bf16* qrow = dq + (((int64_t)b * N + row) * H + hh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(qrow + 8 * j + 2 * qd) = dft::pack_bf16(
+          q_scale * dqa[4 * j + 2 * r], q_scale * dqa[4 * j + 2 * r + 1]);
+  }
+}
+
+// Both passes in one launch, so that they share the card: the first
+// ceil(M / BC) * Z * splits blocks are the dK/dV pass's (key tile fastest,
+// then (b, h), then the split), the rest the dQ pass's (query tile, then
+// (b, h)).  The passes read only the inputs and the rows' lse and D.
+template <int D>
+__global__ void __launch_bounds__(fb::Cfg<D>::kThreads, 1)
+attn_bwd_flash_kernel(const __grid_constant__ FlashMaps maps,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ dvec, bf16* __restrict__ dq,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      float* __restrict__ ws, int Z, int N, int M, int H,
+                      int Np, int splits, float s_scale, float q_scale) {
+  using C = fb::Cfg<D>;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  const int kt = (M + C::BC - 1) / C::BC, kv_blocks = kt * Z * splits;
+  const int x = blockIdx.x;
+  if (x < kv_blocks) {
+    flash_dkdv<D>(maps, base, lse2, dvec, dk, dv, ws, x % kt, (x / kt) % Z,
+                  x / (kt * Z), splits, Z, N, M, H, Np, s_scale);
+  } else {
+    const int y = x - kv_blocks, qt = (N + C::QR - 1) / C::QR;
+    flash_dq<D>(maps, base, lse2, dvec, dq, y % qt, y / qt, N, M, H, Np,
+                s_scale, q_scale);
+  }
+}
+
+// dK = dk_scale * sum_s ws[0][s] and dV = sum_s ws[1][s], in split order
+__global__ void attn_bwd_split_reduce_kernel(const float* __restrict__ ws,
+                                             bf16* __restrict__ dk,
+                                             bf16* __restrict__ dv,
+                                             int64_t total, int splits,
+                                             float dk_scale) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 2 * total) return;
+  const int which = idx >= total;
+  const int64_t i = idx - which * total;
+  const float* w = ws + (int64_t)which * splits * total + i;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += w[s * total];
+  if (which)
+    dv[i] = __float2bfloat16(v);
+  else
+    dk[i] = __float2bfloat16(dk_scale * v);
 }
 
 }  // namespace
@@ -1094,8 +1598,8 @@ static bool token_map(CUtensorMap* map, const void* p, int B, int tokens,
   return hop::encode_bf16_map(map, p, 4, dims, strides, box);
 }
 
-// dq, dk, dv from q, k, v, o, do and lse at head dim D (D * 2 bytes a
-// multiple of 16); all of them 16-byte aligned.  Scratch: dvec [B*H*N]
+// dq, dk, dv from q, k, v, o, do and lse at head dim D = 512; all of them
+// 16-byte aligned.  Scratch: dvec [B*H*N]
 // fp32, p and ds [B*H][N][Mp] bf16 (Mp = M rounded up to 8), and with
 // prescale qs like q.  Four launches (five with prescale): the row dots D,
 // the scores pass, dV and dK, dQ.
@@ -1105,8 +1609,7 @@ static int attn_bwd_launch(const void* q, const void* k, const void* v,
                            void* ds, void* qs, int B, int N, int M, int H,
                            int D, int prescale, float scale,
                            cudaStream_t stream) {
-  if (D % 8 || D < 8 || N < 1 || M < 1 || B * H < 1 ||
-      (prescale && qs == nullptr))
+  if (N < 1 || M < 1 || B * H < 1 || (prescale && qs == nullptr))
     return (int)cudaErrorInvalidValue;
   const int Mp = (M + 7) / 8 * 8, Z = B * H;
   // with prescale the logits are bf16(q * scale) k^T: qs takes q's place in
@@ -1163,7 +1666,7 @@ static int attn_bwd_launch(const void* q, const void* k, const void* v,
   dim3 sgrid((N + bs::BR - 1) / bs::BR, (M + bs::BC - 1) / bs::BC, Z);
   attn_bwd_scores_kernel<<<sgrid, bs::kThreads, bs::kSmem, stream>>>(
       qm, om, km, vm, pm, sm, lse, dvec, N, M, H, D, s_scale);
-  const int nt = (D + bg::BN - 1) / bg::BN;
+  const int nt = D / bg::BN;
   dim3 gkv((M + bg::BM - 1) / bg::BM, nt, 2 * Z);
   attn_bwd_gemm_kernel<true><<<gkv, bg::kThreads, bg::kSmem, stream>>>(
       kv, M, N, H, D, Z, 1.f, s_scale);
@@ -1173,7 +1676,8 @@ static int attn_bwd_launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The backward at d % 64 == 0 (64 and 512 on the paths).
+// The four-kernel backward at d = 512 (the VAE mid-block; the UNet's head
+// dims take attention_bwd_flash*).
 extern "C" int attention_bwd_wgmma(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -1181,26 +1685,93 @@ extern "C" int attention_bwd_wgmma(const void* q, const void* k,
                                    void* p, void* ds, void* qs, int B, int N,
                                    int M, int H, int D, int prescale,
                                    float scale, cudaStream_t stream) {
-  if (D % 64) return (int)cudaErrorInvalidValue;
+  if (D != 512) return (int)cudaErrorInvalidValue;
   return attn_bwd_launch(q, k, v, o, dout, lse, dq, dk, dv, dvec, p, ds, qs,
                          B, N, M, H, D, prescale, scale, stream);
 }
 
-// One entry point (and launch counter) per head dim of SD 1.x's UNet, as
-// the forward's: the same kernels, the k steps over d ceil(D / 64).
-#define ATTN_BWD_WGMMA(name, D)                                               \
+// The flash-style backward at head dim D (40, 64, 80 or 160): dq, dk, dv
+// from q, k, v, o, do and lse (all 16-byte aligned).  Scratch: lse2 and
+// dvec fp32 [B*H*Np] (Np = N rounded up to 128), qs like q with prescale,
+// ws fp32 [2 * splits * B*M*H*D] with splits > 1 (1 <= splits <= the
+// query tiles of the dK/dV pass).  Launches: bf16(q * scale) with
+// prescale, the rows' lse and D, both passes in one (and with splits, the
+// reduce of the dK/dV partials).
+template <int D>
+static int attn_bwd_flash_launch(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const float* lse, void* dq, void* dk,
+                                 void* dv, float* lse2, float* dvec, void* qs,
+                                 float* ws, int B, int N, int M, int H,
+                                 int splits, int prescale, float scale,
+                                 cudaStream_t stream) {
+  using C = fb::Cfg<D>;
+  const int Z = B * H;
+  if (N < 1 || M < 1 || Z < 1 || splits < 1 ||
+      splits > (N + C::BR - 1) / C::BR || (splits > 1 && ws == nullptr) ||
+      (prescale && qs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int Np = (N + fb::ROWS - 1) / fb::ROWS * fb::ROWS;
+  // with prescale the logits are bf16(q * scale) k^T: qs takes q's place in
+  // S and in dK, and only dQ keeps the scale
+  const void* qq = prescale ? qs : q;
+  const float s_scale = prescale ? 1.f : scale;
+  FlashMaps maps;
+  if (!token_map(&maps.q1, qq, B, N, H, D, C::BR) ||
+      !token_map(&maps.o1, dout, B, N, H, D, C::BR) ||
+      !token_map(&maps.k1, k, B, M, H, D, C::BC) ||
+      !token_map(&maps.v1, v, B, M, H, D, C::BC) ||
+      !token_map(&maps.q2, qq, B, N, H, D, C::QR) ||
+      !token_map(&maps.o2, dout, B, N, H, D, C::QR) ||
+      !token_map(&maps.k2, k, B, M, H, D, C::KT) ||
+      !token_map(&maps.v2, v, B, M, H, D, C::KT))
+    return (int)cudaErrorInvalidValue;
+  static bool set[hop::kMaxDevices] = {};
+  const cudaError_t err =
+      hop::allow_smem(attn_bwd_flash_kernel<D>, (int)C::kSmemAll, set);
+  if (err != cudaSuccess) return (int)err;
+  if (prescale) {
+    const int64_t n8 = (int64_t)B * N * H * D / 8;
+    attn_bwd_prescale_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0,
+                               stream>>>(static_cast<const uint4*>(q),
+                                         static_cast<uint4*>(qs), n8, scale);
+  }
+  const int64_t lanes = (int64_t)Z * Np * ROW_LANES;
+  attn_bwd_rows_kernel<<<(unsigned)((lanes + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(o), lse, lse2,
+      dvec, B, N, H, D, Np);
+  const int blocks = (M + C::BC - 1) / C::BC * Z * splits +
+                     (N + C::QR - 1) / C::QR * Z;
+  attn_bwd_flash_kernel<D><<<blocks, C::kThreads, C::kSmemAll, stream>>>(
+      maps, lse2, dvec, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), ws, Z, N, M, H, Np, splits, s_scale, scale);
+  if (splits > 1) {
+    const int64_t total = (int64_t)Z * M * D;
+    attn_bwd_split_reduce_kernel<<<(unsigned)((2 * total + 255) / 256), 256,
+                                   0, stream>>>(
+        ws, static_cast<bf16*>(dk), static_cast<bf16*>(dv), total, splits,
+        s_scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One entry point (and launch counter) per head dim, as the forward's.
+#define ATTN_BWD_FLASH(name, D)                                               \
   extern "C" int name(const void* q, const void* k, const void* v,            \
                       const void* o, const void* dout, const float* lse,      \
-                      void* dq, void* dk, void* dv, float* dvec, void* p,     \
-                      void* ds, void* qs, int B, int N, int M, int H,         \
-                      int prescale, float scale, cudaStream_t stream) {       \
-    return attn_bwd_launch(q, k, v, o, dout, lse, dq, dk, dv, dvec, p, ds,   \
-                           qs, B, N, M, H, D, prescale, scale, stream);       \
+                      void* dq, void* dk, void* dv, float* lse2, float* dvec, \
+                      void* qs, float* ws, int B, int N, int M, int H,        \
+                      int splits, int prescale, float scale,                  \
+                      cudaStream_t stream) {                                  \
+    return attn_bwd_flash_launch<D>(q, k, v, o, dout, lse, dq, dk, dv, lse2, \
+                                    dvec, qs, ws, B, N, M, H, splits,         \
+                                    prescale, scale, stream);                 \
   }
-ATTN_BWD_WGMMA(attention_bwd_wgmma_d40, 40)
-ATTN_BWD_WGMMA(attention_bwd_wgmma_d80, 80)
-ATTN_BWD_WGMMA(attention_bwd_wgmma_d160, 160)
-#undef ATTN_BWD_WGMMA
+ATTN_BWD_FLASH(attention_bwd_flash, 64)
+ATTN_BWD_FLASH(attention_bwd_flash_d40, 40)
+ATTN_BWD_FLASH(attention_bwd_flash_d80, 80)
+ATTN_BWD_FLASH(attention_bwd_flash_d160, 160)
+#undef ATTN_BWD_FLASH
 
 // ---------------------------------------------------------------------------
 // fp32 forward (DPT's ViT-B blocks: [1, 577, 12, 64] fp32, JAX's dense

@@ -164,7 +164,7 @@
 // into dW's dtype; a launch of one split writes dW directly.  Bound by
 // operations at the path's shapes (the forward's FLOPs: 77 GFLOP at the
 // VAE's 512² level, 123 GFLOP over the DPT's 40 fp32 convs), by bytes at
-// the conv_outs (O = 4 and 8).  Three routes (ops/conv.py::wgrad_route):
+// the conv_outs (O = 4 and 8).  Four routes (ops/conv.py::wgrad_route):
 //  - conv_wgrad_wgmma (bf16, I % 64 == 0, O % 8 == 0, stride 1 or 2: every
 //    UNet and VAE conv but the conv_ins).  The forward's machinery with the
 //    roles turned: a block owns 128 output channels (M; two consumer
@@ -186,7 +186,27 @@
 //    stores, fp32 partials from the registers); splits over the boxes by a
 //    cost model of tiles a block, steps and the partials' traffic
 //    (wgmma_wgrad_splits).
-//  - conv_wgrad_mma (the bf16 rest: the conv_ins' I = 3, 4, 8, off-path
+//  - conv_wgrad_wgmma_i8 (bf16, I <= 8, O % 8 == 0, stride 1, at most 9
+//    taps: the conv_ins' 3, 4 and 8 channels).  Bound by reading dy once
+//    (the VAE's [1, 512², 3 -> 128]: 67 MB, 0.0205 ms): N = kh*kw*I is
+//    only 27 or 36 columns, so on the 128 x 128 tiles of conv_wgrad_mma
+//    72-79% of every product was padding and x came by element loads (15x
+//    the bound).  Here x is padded to 8 channels first (pad_channels8_kernel,
+//    in the launch; zero123's 8 channels are read as they are), so one
+//    tap's channels are one 16-byte core-matrix row, and N = 9 taps x 8 =
+//    72 columns of one wgmma m64n72k16.  A = dyᵀ by TMA as conv_wgrad_wgmma's
+//    ([64 pixels][64 o] boxes, MN-major, 128-byte swizzle); B = x at the
+//    nine tap offsets, nine 1 KB boxes [64 pixels][8] a step from a map
+//    over the padded x without swizzle (MN-major core matrices 128 bytes
+//    apart along the pixels, 1 KB along the taps), whose zero fill is the
+//    padding and the ragged box.  A block owns 128 o (two consumer
+//    warpgroups of 64) and walks its split's boxes through an 8-stage ring
+//    (25 KB a stage: enough bytes in flight to stream dy at the card's
+//    rate); the splits (narrow_wgrad_splits: one wave of blocks, at least
+//    4 boxes each) write fp32 partials [O][72], which
+//    conv_wgrad_i8_reduce_kernel sums in split order (no atomics) into dW
+//    [O, kh, kw, I], the padded channels dropped; one split writes dW.
+//  - conv_wgrad_mma (the bf16 rest: the towers' test widths, off-path
 //    shapes): mma.sync m16n8k16 on 128 x 128 tiles of dW, dy and the
 //    tap-shifted x by 16-byte cp.async into [32 pixels][128] tiles (two
 //    stages), both read by ldmatrix.trans; the padding is the copies' zero
@@ -2095,6 +2115,192 @@ conv_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   if (lt == 0) hop::bulk_wait();     // stores done before the block ends
 }
 
+// ---------------------------------------------------------------------------
+// the conv_ins' bf16 weight gradient on wgmma (see the note above)
+// ---------------------------------------------------------------------------
+
+namespace wgn {
+constexpr int BM = 128, kThreads = 384, STAGES = 8;
+constexpr int PIX = 64;                        // pixels a step (a box)
+constexpr int TAPS = 9;                        // B's columns: 9 taps x 8 = 72
+constexpr int NCOL = TAPS * 8;
+constexpr int DYBOX = PIX * 64 * 2;            // dy's [64 pixels][64 o]: 8 KB
+constexpr int XTAP = PIX * 16;                 // x's [64 pixels][8]: 1 KB
+constexpr int STAGE = 2 * DYBOX + TAPS * XTAP;   // 25 KB
+constexpr size_t kSmem = 1024 + (size_t)STAGES * STAGE +
+                         2 * STAGES * sizeof(uint64_t);
+static_assert(kSmem <= 232448, "shared memory");
+static_assert(STAGE % 1024 == 0, "stages on swizzle-atom boundaries");
+}  // namespace wgn
+
+struct WgradNarrow {
+  int O, I, taps, kw, pt, pl;
+  int bw, bh, bb;                // a step's pixel box (bw * bh * bb = 64)
+  int tiles_x, tiles_y, steps;   // the boxes over [B, Ho, Wo]
+  int tiles_m, splits, out_f32;
+  float* ws;                     // [splits][O][72] when splits > 1
+  void* dw;                      // [O][taps * I]
+};
+
+// Block (128-channel tile of O, split) walks its split's 64-pixel boxes.
+// Per box the producer thread copies dy's [64 pixels][64 o] (A = dyᵀ,
+// MN-major, 128-byte swizzle) for each 64 rows of the tile and x's
+// [64 pixels][8 channels] at each tap (B, MN-major without swizzle: one
+// 1 KB box a tap from a map over x padded to 8 channels, whose zero fill
+// is the conv's padding and the ragged box), through an 8-stage ring.
+// Consumer warpgroup cw runs wgmma m64n72k16 on rows 64 cw .. of the tile
+// (4 k16 steps a box; none where they are past O), then writes its split's
+// partial [64 o][72] in fp32, or with one split dW itself without the
+// padded channels.
+__global__ void __launch_bounds__(wgn::kThreads, 1)
+conv_wgrad_wgmma_i8_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap dymap,
+                           WgradNarrow p) {
+  constexpr int STAGES = wgn::STAGES, STAGE = wgn::STAGE;
+  constexpr int DYBOX = wgn::DYBOX, XTAP = wgn::XTAP, NCOL = wgn::NCOL;
+  extern __shared__ unsigned char smem_buf[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_buf) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, grp = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);   // both consumer warpgroups
+    }
+    hop::mbar_fence_init();
+  }
+  // B's columns past the conv's taps are never loaded: zero them once
+  // (0 x stale bits may be NaN)
+  for (int s = 0; s < STAGES; ++s) {
+    uint4* xs = reinterpret_cast<uint4*>(base + s * STAGE + 2 * DYBOX);
+    for (int i = p.taps * XTAP / 16 + tid; i < wgn::TAPS * XTAP / 16;
+         i += wgn::kThreads)
+      xs[i] = make_uint4(0, 0, 0, 0);
+  }
+  hop::fence_proxy_async();
+  __syncthreads();
+
+  const int m0 = (blockIdx.x % p.tiles_m) * wgn::BM;
+  const int split = blockIdx.x / p.tiles_m;
+  const int st0 = (int)((int64_t)p.steps * split / p.splits);
+  const int st1 = (int)((int64_t)p.steps * (split + 1) / p.splits);
+  // dy's second box wholly past O is not loaded: its rows are not stored
+  const int na = m0 + 64 < p.O ? 2 : 1;
+
+  if (grp == 0) {
+    // ---- producer: one thread streams the split's boxes ----
+    hop::regs_dec<40>();
+    if (tid != 0) return;
+    for (int st = st0; st < st1; ++st) {
+      const int n = st - st0, s = n % STAGES;
+      hop::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      const int row = st / p.tiles_x;
+      const int x0 = (st - row * p.tiles_x) * p.bw;
+      const int y0 = (row % p.tiles_y) * p.bh;
+      const int b0 = row / p.tiles_y * p.bb;
+      unsigned char* stg = base + s * STAGE;
+      hop::mbar_expect_tx(&full[s], na * DYBOX + p.taps * XTAP);
+      for (int h = 0; h < na; ++h)
+        hop::tma_load_4d(stg + h * DYBOX, &dymap, &full[s], m0 + 64 * h, x0,
+                         y0, b0);
+      for (int t = 0; t < p.taps; ++t) {
+        const int r = t / p.kw, u = t - r * p.kw;
+        hop::tma_load_4d(stg + 2 * DYBOX + t * XTAP, &xmap, &full[s], 0,
+                         x0 + u - p.pl, y0 + r - p.pt, b0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns rows m0 + 64 cw .. of the tile ----
+  // (where they are past O its products read the stage's unloaded second
+  // dy box and are not stored: no branch around the wgmmas, which ptxas
+  // would serialize)
+  hop::regs_inc<232>();
+  const int cw = grp - 1;
+  const int lt = tid % 128, lane = lt % 32, warp = lt / 32;
+  const int g = lane / 4, q = lane % 4;
+  float acc[NCOL / 2];
+#pragma unroll
+  for (int e = 0; e < NCOL / 2; ++e) acc[e] = 0.f;
+  hop::fence_regs<NCOL / 2>(acc);
+  int prev = -1;
+#pragma unroll 1
+  for (int st = st0; st < st1; ++st) {
+    const int n = st - st0, s = n % STAGES;
+    const unsigned char* stg = base + s * STAGE;
+    // A: 16 pixel rows (2048 bytes) a k16 step; B: the two 8-pixel core
+    // matrices of a step 128 bytes apart (LBO), the taps 1 KB apart (SBO)
+    const uint64_t da = hop::desc_sw128(stg + cw * DYBOX);
+    const uint64_t db = hop::desc_plain(stg + 2 * DYBOX, 128, XTAP);
+    hop::mbar_wait(&full[s], (n / STAGES) & 1);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < wgn::PIX / 16; ++kk)
+      hop::wgmma_m64n72k16_ss_t<1, 1>(acc, da + kk * (2048 >> 4),
+                                      db + kk * (256 >> 4));
+    hop::wgmma_commit();
+    hop::wgmma_wait<1>();            // the previous box's products
+    if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  hop::wgmma_wait<0>();
+  hop::fence_regs<NCOL / 2>(acc);
+  if (prev >= 0) hop::mbar_arrive(&empty[prev]);
+  if (cw >= na) return;
+
+  // ---- epilogue: column 8 t + c is tap t's channel c ----
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = m0 + 64 * cw + warp * 16 + g + 8 * h;
+    if (o >= p.O) continue;
+#pragma unroll
+    for (int t = 0; t < wgn::TAPS; ++t) {
+      const float v0 = acc[4 * t + 2 * h], v1 = acc[4 * t + 2 * h + 1];
+      if (p.splits > 1) {
+        *reinterpret_cast<float2*>(p.ws + ((int64_t)split * p.O + o) * NCOL +
+                                   8 * t + 2 * q) = make_float2(v0, v1);
+        continue;
+      }
+      if (t >= p.taps) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * q + e;
+        if (c >= p.I) continue;
+        const int64_t i = ((int64_t)o * p.taps + t) * p.I + c;
+        const float v = e ? v1 : v0;
+        if (p.out_f32)
+          static_cast<float*>(p.dw)[i] = v;
+        else
+          static_cast<bf16*>(p.dw)[i] = __float2bfloat16(v);
+      }
+    }
+  }
+}
+
+// dW[o, t, c] = sum over splits of the partials' column 8 t + c, in split
+// order, in dW's dtype (the padded channels dropped)
+__global__ void conv_wgrad_i8_reduce_kernel(const float* __restrict__ ws,
+                                            void* dw, int O, int taps, int I,
+                                            int splits, int out_f32) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)O * taps * I) return;
+  const int o = (int)(idx / (taps * I));
+  const int rem = (int)(idx - (int64_t)o * taps * I);
+  const int t = rem / I, c = rem - t * I;
+  const int64_t src = (int64_t)o * wgn::NCOL + 8 * t + c;
+  const int64_t stride = (int64_t)O * wgn::NCOL;
+  float v = 0.f;
+#pragma unroll 32    // loads ahead of the ordered adds
+  for (int s = 0; s < splits; ++s) v += ws[s * stride + src];
+  if (out_f32)
+    static_cast<float*>(dw)[idx] = v;
+  else
+    static_cast<bf16*>(dw)[idx] = __float2bfloat16(v);
+}
+
 }  // namespace
 
 // y[B,Ho,Wo,O] = conv(x[B,H,W,I], w[O,kh,kw,I]) + bias; top/left padding
@@ -2513,5 +2719,74 @@ extern "C" int conv_wgrad_wgmma(const void* x, const void* dy, void* dw,
   conv_wgrad_wgmma_kernel<<<tiles < sms ? tiles : sms, wgw::kThreads,
                             wgw::kSmem, stream>>>(xmap, dymap, dwmap, p);
   wgrad_reduce(q, stream);
+  return (int)cudaGetLastError();
+}
+
+// The conv_ins' bf16 weight gradient on wgmma: x[B,H,W,I] with I <= 8,
+// dy[B,Ho,Wo,O] with O % 8 == 0 (16-byte aligned), stride 1, top/left
+// padding pt, pl, kh * kw <= 9 taps; the pixels in boxes of bw x bh x bb of
+// the output grid (product 64, each at most 256) as for conv_wgrad_wgmma,
+// splits over them (ws fp32 [splits * O * 72] when splits > 1).  xp is x
+// padded to 8 channels, [B, H, W, 8] (16-byte aligned): written here first
+// unless it is x itself (I == 8).
+extern "C" int conv_wgrad_wgmma_i8(const void* x, void* xp, const void* dy,
+                                   void* dw, float* ws, int B, int H, int W,
+                                   int I, int Ho, int Wo, int O, int kh,
+                                   int kw, int pt, int pl, int bw, int bh,
+                                   int bb, int out_f32, int splits,
+                                   cudaStream_t stream) {
+  if (I < 1 || I > 8 || O % 8 || kh < 1 || kw < 1 ||
+      kh * kw > wgn::TAPS || bw * bh * bb != wgn::PIX || bw > 256 ||
+      bh > 256 || bb > 256 || splits < 1 || xp == nullptr ||
+      (I < 8 && xp == x) || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)O * kh * kw * I;
+  if (total == 0) return (int)cudaGetLastError();
+  if ((int64_t)B * Ho * Wo == 0)     // no pixel: dW is zero
+    return (int)cudaMemsetAsync(dw, 0, total * (out_f32 ? 4 : 2), stream);
+  WgradNarrow p{};
+  p.O = O; p.I = I; p.taps = kh * kw; p.kw = kw; p.pt = pt; p.pl = pl;
+  p.bw = bw; p.bh = bh; p.bb = bb;
+  p.tiles_x = (Wo + bw - 1) / bw;
+  p.tiles_y = (Ho + bh - 1) / bh;
+  p.steps = p.tiles_x * p.tiles_y * ((B + bb - 1) / bb);
+  p.tiles_m = (O + wgn::BM - 1) / wgn::BM;
+  p.splits = splits; p.out_f32 = out_f32;
+  p.ws = ws; p.dw = dw;
+  if (splits > p.steps) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, dymap;
+  // x [B, H, W, 8]: a box of bw x bh x bb pixels x 8 channels, 16-byte
+  // rows, no swizzle; dy [B, Ho, Wo, O]: boxes of 64 channels
+  const cuuint64_t xd[4] = {8, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t xs[3] = {16, (cuuint64_t)W * 16, (cuuint64_t)H * W * 16};
+  const cuuint32_t xbox[4] = {8, (cuuint32_t)bw, (cuuint32_t)bh,
+                              (cuuint32_t)bb};
+  const cuuint64_t dd[4] = {(cuuint64_t)O, (cuuint64_t)Wo, (cuuint64_t)Ho,
+                            (cuuint64_t)B};
+  const cuuint64_t ds[3] = {(cuuint64_t)O * 2, (cuuint64_t)Wo * O * 2,
+                            (cuuint64_t)Ho * Wo * O * 2};
+  const cuuint32_t dbox[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh,
+                              (cuuint32_t)bb};
+  if (!hop::encode_bf16_map(&xmap, xp, 4, xd, xs, xbox, nullptr,
+                            CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !hop::encode_bf16_map(&dymap, dy, 4, dd, ds, dbox))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set[hop::kMaxDevices] = {};
+  const cudaError_t err = hop::allow_smem(conv_wgrad_wgmma_i8_kernel,
+                                          (int)wgn::kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  if (xp != x) {
+    const int64_t pixels = (int64_t)B * H * W;
+    pad_channels8_kernel<<<(unsigned)((pixels + 255) / 256), 256, 0,
+                           stream>>>(static_cast<const bf16*>(x),
+                                     static_cast<uint4*>(xp), B, H, W, I, H,
+                                     W, 0, 0);
+  }
+  conv_wgrad_wgmma_i8_kernel<<<p.tiles_m * splits, wgn::kThreads, wgn::kSmem,
+                               stream>>>(xmap, dymap, p);
+  if (splits > 1)
+    conv_wgrad_i8_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                                  stream>>>(ws, dw, O, kh * kw, I, splits,
+                                            out_f32);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by conv.cu (K12) and attention.cu
-// (K10, forward and backward): TMA tensor maps, bulk tensor and plain bulk copies, mbarriers,
+// (K10, forward and backward): TMA tensor maps, bulk tensor and plain bulk
+// copies, mbarriers,
 // wgmma on shared-memory tiles (128-byte-swizzled or not), and setmaxnreg.
 //
 // Shared-memory operands.  Most tiles here are rows of 64 bf16 (one
@@ -19,6 +20,11 @@
 //    bytes a pixel): a core matrix is 8 rows x 16 bytes, 128 contiguous
 //    bytes; core matrices along M or N are SBO apart, the two along K of a
 //    k16 step LBO apart (desc_plain).
+//  - MN-major without swizzle (the narrow weight gradient's x, 8 channels
+//    of a tap = 8 N, pixels = K): a core matrix is 8 K rows x 16 bytes of
+//    N, 128 contiguous bytes; the two along K of a k16 step are LBO apart,
+//    those along N SBO apart (desc_plain, with the transpose bit; CUTLASS's
+//    canonical INTERLEAVE MN-major layout).
 //
 // wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup owns rows
 // 16w..16w+15; with g = lane / 4, q = lane % 4, registers 4j..4j+3 hold
@@ -190,9 +196,9 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p,
          (64ull << 32) | (1ull << 62);
 }
 
-// descriptor of a K-major tile without swizzle (core matrices of 8 rows x
-// 16 bytes): LBO between the two core matrices along K, SBO between
-// those along M or N
+// descriptor of a tile without swizzle (core matrices of 8 rows x 16
+// bytes), K-major or MN-major: LBO between the core matrices along K, SBO
+// between those along M or N
 __device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
   const uint64_t a = smem_u32(p);
@@ -342,6 +348,49 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64x32] += A[64x16] B[16x32]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64x72] += A[64x16] B[16x72], both from shared memory; TA (TB) = 1
+// reads A (B) MN-major (transposed), 0 K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n72k16_ss_t(float* d, uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1, %39, %40;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // d[64x256] += A[64x16] B[16x256]; A in registers (a[4], mma.sync's A
 // layout per warp), B MN-major in shared memory (transposed)
 __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float* d,
@@ -483,11 +532,15 @@ __device__ __forceinline__ void wgmma_m64n160k16_rs_tb(float* d,
 }
 
 
-// S += Q K^T over one k16 step at N = 64 or 128 keys, both K-major
+// S += Q K^T over one k16 step at N = 32, 64 or 128 keys (or queries),
+// both K-major
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64)
+  static_assert(N == 32 || N == 64 || N == 128,
+                "wgmma_ss: N is 32, 64 or 128");
+  if constexpr (N == 32)
+    wgmma_m64n32k16_ss(d, da, db);
+  else if constexpr (N == 64)
     wgmma_m64n64k16_ss(d, da, db);
   else
     wgmma_m64n128k16_ss(d, da, db);
@@ -537,7 +590,7 @@ struct MapKey {
   const void* base;
   cuuint64_t dims[5], strides[4];
   cuuint32_t box[5], elem[5];
-  int rank;
+  int rank, swizzle;
 };
 
 struct MapEntry {
@@ -549,7 +602,8 @@ struct MapEntry {
 constexpr int kMapCache = 1024;
 
 // A bf16 tiled map of `rank` (<= 5) dims (dims[0] contiguous; strides in
-// bytes of dims 1..rank-1), 128-byte swizzle, zero fill out of bounds
+// bytes of dims 1..rank-1), 128-byte swizzle (or `swizzle`: none for boxes
+// of 16-byte rows), zero fill out of bounds
 // (negative coordinates included).  `elem` (null: all 1) are the traversal
 // strides: with elem[i] = 2 a box of 2n along dim i loads every other
 // element, n of them (the stride-2 conv's taps).  Returns false when
@@ -561,12 +615,15 @@ constexpr int kMapCache = 1024;
 inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
                             const cuuint32_t* box,
-                            const cuuint32_t* elem = nullptr) {
+                            const cuuint32_t* elem = nullptr,
+                            CUtensorMapSwizzle swizzle =
+                                CU_TENSOR_MAP_SWIZZLE_128B) {
   if (rank < 1 || rank > 5) return false;
   MapKey key;
   memset(&key, 0, sizeof key);     // the padding too: keys compare as bytes
   key.base = base;
   key.rank = rank;
+  key.swizzle = (int)swizzle;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -586,7 +643,7 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
   if (fn == nullptr) return false;
   if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
          const_cast<void*>(base), dims, strides, box, key.elem,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;

@@ -25,22 +25,31 @@ one kernel parametrised on d, with a counter per d
 and ``_d160`` at SD 1.5's), at d = 512 the VAE mid-block's
 (``attention_fwd_wgmma_d512``: its KV range split over ``kv_splits``
 blocks, merged by a second kernel of the same launch);
-``attention_route`` picks by d alone.  The backward is one call of
-``attention_bwd_wgmma`` at d % 64 == 0 (64 and 512) or of its entry point
-at SD 1.5's head dims (``attention_bwd_wgmma_d40``, ``_d80``, ``_d160``),
-``attention_bwd_route`` by d: four kernels (the row dots, a scores pass
-storing P and dS, dV and dK in one wgmma GEMM launch, dQ in another), the
-k steps over d ceil(d / 64) with TMA's zero fill past d.  It recomputes
-the logits as the forward formed them: on JAX's chunked branch with a scale
-that is not a power of two, from bf16(q·scale) (a fifth kernel writes it
-first), whose derivative passes straight through the rounding as in JAX.
-``attention_bwd_plain`` is the kernels' arithmetic in torch (P and dS
-rounded to bf16 between the products), the card's reference.  The fp32
-forward's backward (the DPT's, JAX's dense branch differentiated) is
-``attention_bwd_fp32`` on the CUDA cores: the row dots, then a pass a
-(head, 32 keys) that recomputes P from q, k and the forward's lse for dV
-and dK, and a pass a (head, 32 queries) for dQ, P and dS in fp32 (the
-plain version's, with no rounding in fp32).  On a CPU tensor the plain
+``attention_route`` picks by d alone.  The backward is one call of the
+route ``attention_bwd_route`` names by d.  At the UNet's head dims it is
+flash-style, one kernel template on d (``attention_bwd_flash`` at d = 64,
+``attention_bwd_flash_d40``, ``_d80`` and ``_d160`` at SD 1.5's): the rows'
+lse and D (``dO · O``), then one launch of two passes side by side: blocks
+of (b, h, 128 keys) that recompute S and dP against each query tile and
+keep dK and dV in registers, and blocks of (b, h, 128 queries) for dQ that
+recompute them again against each key tile; nothing of size N x M
+reaches device memory, and no atomics (two launches agree bit for bit).
+Where the key tiles leave SMs idle (77 text keys, zero123's one) the dK/dV
+pass splits the queries (``flash_bwd_splits``) and a reduce sums the
+splits' fp32 partials in order.  At d = 512 (the VAE mid-block) it is
+``attention_bwd_wgmma``: four kernels (the row dots, a scores pass storing
+P and dS, dV and dK in one wgmma GEMM launch, dQ in another).  Both
+recompute the logits as the forward formed them: on JAX's chunked branch
+with a scale that is not a power of two, from bf16(q·scale) (a kernel
+writes it first), whose derivative passes straight through the rounding
+as in JAX.  ``attention_bwd_plain`` is the kernels' arithmetic in torch
+(P and dS rounded to bf16 between the products), the card's reference.
+The fp32 forward's backward (the DPT's, JAX's dense branch
+differentiated) is ``attention_bwd_fp32`` on the CUDA cores: the row
+dots, then a pass a (head, 32 keys) that recomputes P from q, k and the
+forward's lse for dV and dK, and a pass a (head, 32 queries) for dQ, P and
+dS in fp32 (the plain version's, with no rounding in fp32).  On a CPU
+tensor the plain
 version runs and its backward is autograd of it.
 """
 
@@ -159,26 +168,45 @@ def attention_fwd_cuda(q, k, v, scale: float, round_q: bool = False):
     return o, lse
 
 
-_BWD_ROUTES = {40: "attention_bwd_wgmma_d40", 80: "attention_bwd_wgmma_d80",
-               160: "attention_bwd_wgmma_d160"}
+_BWD_ROUTES = {40: "attention_bwd_flash_d40", 64: "attention_bwd_flash",
+               80: "attention_bwd_flash_d80", 160: "attention_bwd_flash_d160",
+               512: "attention_bwd_wgmma"}
+_FLASH_BR = {40: 64, 64: 64, 80: 64, 160: 32}   # the dK/dV pass's query tile
+_FLASH_BC = 128                                 # and its keys a block
+_FLASH_ROWS = 128                               # lse and D padded to it
+_FLASH_MIN_TILES, _FLASH_MAX_SPLITS = 4, 16
 
 
 def attention_bwd_route(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The launch counter (and entry point) of the backward at head dim
-    `d`: fp32 (the DPT's) "attention_bwd_fp32" at d = 64; bf16 SD 1.5's 40,
-    80 and 160 each their own, "attention_bwd_wgmma" at d % 64 == 0 (64 and
-    512 on the paths)."""
+    `d`: fp32 (the DPT's) "attention_bwd_fp32" at d = 64; bf16 the
+    flash-style routes at the UNet's head dims, 40, 64, 80 and 160 each
+    its own ("attention_bwd_flash", "_d40", ...), "attention_bwd_wgmma" at
+    the VAE's 512."""
     if dtype == torch.float32:
         if d != _FP32_D:
             raise ValueError(f"the fp32 attention backward takes d = "
                              f"{_FP32_D}, got {d}")
         return "attention_bwd_fp32"
-    if d in _BWD_ROUTES:
-        return _BWD_ROUTES[d]
-    if d % 64:
-        raise ValueError(f"attention backward takes d = 40, 80, 160 or a "
-                         f"multiple of 64, got {d}")
-    return "attention_bwd_wgmma"
+    if d not in _BWD_ROUTES:
+        raise ValueError(f"attention backward takes d = "
+                         f"{sorted(_BWD_ROUTES)}, got {d}")
+    return _BWD_ROUTES[d]
+
+
+def flash_bwd_splits(Z: int, N: int, M: int, d: int, sms: int) -> int:
+    """Query splits of the flash backward's dK/dV pass for `Z` = B·h heads
+    of N queries and M keys on `sms` multiprocessors: as many as bring its
+    blocks (one a head and 128 keys) to half the card, the rest of it left
+    to the dQ pass's blocks of the same launch, with at least 4 query tiles
+    a split (shorter splits cost more in fp32 partials and their reduce
+    than they save) and at most 16.  Both constants come from
+    ``bench_sd_kernels.py --only attn_bwd_splits``: on an H100 the rule is
+    within 6% of the fastest split at every tower shape."""
+    blocks = Z * -(-M // _FLASH_BC)
+    tiles = -(-N // _FLASH_BR[d])
+    return max(1, min(sms // (2 * blocks), tiles // _FLASH_MIN_TILES,
+                      _FLASH_MAX_SPLITS))
 
 
 def _prescale(round_q: bool, scale: float) -> bool:
@@ -215,10 +243,11 @@ def attention_bwd_plain(q, k, v, o, do, scale: float,
 def attention_bwd_cuda(q, k, v, o, lse, do, scale: float,
                        round_q: bool = False):
     """→ (dq, dk, dv) in q's dtype: one call of the route
-    ``attention_bwd_route`` names.  bf16: the row dots, the scores pass and
-    the three products on wgmma + TMA; with `round_q` on a scale that is
-    not 2^k, bf16(q·scale) first.  fp32 (d = 64, JAX's dense branch only):
-    the row dots and the two CUDA-core passes of ``attention_bwd_fp32``."""
+    ``attention_bwd_route`` names.  bf16: the flash-style passes at the
+    UNet's head dims, the four-kernel route at d = 512; with `round_q` on a
+    scale that is not 2^k, bf16(q·scale) first.  fp32 (d = 64, JAX's dense
+    branch only): the row dots and the two CUDA-core passes of
+    ``attention_bwd_fp32``."""
     B, N, M, H, D = _check(q, k, v, (torch.bfloat16, torch.float32))
     route = attention_bwd_route(D, q.dtype)
     do = do.to(q.dtype).contiguous()
@@ -229,26 +258,35 @@ def attention_bwd_cuda(q, k, v, o, lse, do, scale: float,
                          "tensors only")
     Z = B * H
     dev = q.device
-    dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if route == "attention_bwd_fp32":
         if round_q:
             raise ValueError("the fp32 attention backward takes JAX's dense "
                              "branch only")
+        dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
         kernels.launch(route, *(kernels.ptr(t) for t in (
             q, k, v, o, do, lse, dq, dk, dv, dvec)), B, N, M, H, D,
             float(scale))
         return dq, dk, dv
     prescale = _prescale(round_q, scale)
-    Mp = -(-M // 8) * 8
-    p = torch.empty(Z, N, Mp, device=dev, dtype=torch.bfloat16)
-    ds = torch.empty_like(p)
     qs = torch.empty_like(q) if prescale else None
-    args = [kernels.ptr(t) for t in (q, k, v, o, do, lse, dq, dk, dv, dvec,
-                                     p, ds, qs)] + [B, N, M, H]
     if route == "attention_bwd_wgmma":
-        args.append(D)
-    kernels.launch(route, *args, int(prescale), float(scale))
+        dvec = torch.empty(Z * N, device=dev, dtype=torch.float32)
+        Mp = -(-M // 8) * 8
+        p = torch.empty(Z, N, Mp, device=dev, dtype=torch.bfloat16)
+        ds = torch.empty_like(p)
+        kernels.launch(route, *(kernels.ptr(t) for t in (
+            q, k, v, o, do, lse, dq, dk, dv, dvec, p, ds, qs)), B, N, M, H,
+            D, int(prescale), float(scale))
+        return dq, dk, dv
+    Np = -(-N // _FLASH_ROWS) * _FLASH_ROWS
+    lse2, dvec = torch.empty(2, Z * Np, device=dev, dtype=torch.float32)
+    splits = flash_bwd_splits(Z, N, M, D, kernels.sm_count(dev))
+    ws = (torch.empty(2 * splits * dk.numel(), device=dev,
+                      dtype=torch.float32) if splits > 1 else None)
+    kernels.launch(route, *(kernels.ptr(t) for t in (
+        q, k, v, o, do, lse, dq, dk, dv, lse2, dvec, qs, ws)), B, N, M, H,
+        splits, int(prescale), float(scale))
     return dq, dk, dv
 
 

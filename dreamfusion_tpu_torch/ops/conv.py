@@ -35,15 +35,18 @@ DPT's 40, its 3-channel stem's dx and the 1x1 stride-2 downsamples, whose
 three tapless classes come out as zeros, included; the same packed
 weight), and mma.sync (``conv_dgrad``) for the bf16 rest, which no SD-step
 shape reaches.  The weight gradient (``f_bwd``'s dk) is one launch of one
-of three routes, chosen by ``wgrad_route`` on the dtype and shape: the
+of four routes, chosen by ``wgrad_route`` on the dtype and shape: the
 wgmma kernel with dy and x by TMA over 64-pixel boxes of the output grid
 (``conv_wgrad_wgmma``; bf16, I % 64 == 0, O % 8 == 0, stride 1 or 2: every
-UNet and VAE conv but the conv_ins), mma.sync for the other bf16 shapes
-(``conv_wgrad_mma``: the conv_ins), and a tiled GEMM on the CUDA cores
-for fp32 (``conv_wgrad_fp32_tiled``: the DPT's 40 and the conv_outs),
-each split over the pixels where dW's tiles alone cannot fill the card,
-the splits' partials summed in order in the same launch; the bias's
-gradient is one sum of dy.  x is saved for
+UNet and VAE conv but the conv_ins), its narrow-input form
+(``conv_wgrad_wgmma_i8``; bf16, I <= 8, O % 8 == 0, stride 1, at most 9
+taps: the conv_ins' 3, 4 and 8 channels, x padded to 8 channels in the
+launch, one wgmma n72 over the nine taps' 8 channels), mma.sync for the
+other bf16 shapes (``conv_wgrad_mma``: the towers' test widths), and a
+tiled GEMM on the CUDA cores for fp32 (``conv_wgrad_fp32_tiled``: the
+DPT's 40 and the conv_outs), each split over the pixels where dW's tiles
+alone cannot fill the card, the splits' partials summed in order in the
+same launch; the bias's gradient is one sum of dy.  x is saved for
 the backward only where the weight asks for a gradient (the frozen towers
 keep none).  On a CPU tensor the plain versions run: the JAX package's
 shifted-einsum form (``_einsum_conv``), for dx the kernels' own
@@ -569,6 +572,8 @@ _WGRAD_PIX = 64                        # conv_wgrad_wgmma's pixels a step
 # start and epilogue, and bytes a µs of the partials' writes and reads
 _WG_STEP_US, _WG_FILL_US, _WG_BYTES_PER_US = 0.3, 0.5, 3.0e6
 _WG_MAX_SPLITS = 32
+# conv_wgrad_wgmma_i8: B's columns (9 taps x 8 channels), boxes a split
+_WGN_COLS, _WGN_TAPS, _WGN_MIN_STEPS = 72, 9, 4
 # conv_wgrad_fp32_tiled: N tile → (columns a tile, blocks an SM: 127
 # registers a thread, and the BN = 8 tile's 108 KB of shared memory)
 _FW_TILES = {8: (512, 2), 32: (128, 6), 64: (128, 4)}
@@ -577,17 +582,22 @@ _FW_SPLIT_ELEMS = 5e5   # dW elements whose partials (8 bytes) take a step
 
 
 def wgrad_route(dtype: torch.dtype, I: int, O: int,
-                stride: Tuple[int, int]) -> str:
-    """The launch counter (and kernel) of a conv's weight gradient, by
-    shape: "conv_wgrad_wgmma" for bf16 with I % 64 == 0 (a 64-column box
-    lies in one tap), O % 8 == 0 (dy's rows 16-byte multiples for TMA) at
-    strides of 1 or 2 (every UNet and VAE conv but the conv_ins), else
-    "conv_wgrad_mma" for bf16 (mma.sync: the conv_ins' 3, 4 and 8
-    channels, the towers' test widths); "conv_wgrad_fp32_tiled" for fp32
-    (the DPT's convs and the conv_outs; CUDA cores)."""
+                stride: Tuple[int, int], taps: int) -> str:
+    """The launch counter (and kernel) of a conv's weight gradient with
+    `taps` = kh * kw, by shape: "conv_wgrad_wgmma" for bf16 with I % 64 ==
+    0 (a 64-column box lies in one tap), O % 8 == 0 (dy's rows 16-byte
+    multiples for TMA) at strides of 1 or 2 (every UNet and VAE conv but
+    the conv_ins); "conv_wgrad_wgmma_i8" for bf16 with I <= 8, O % 8 == 0
+    at stride 1 and at most 9 taps (the conv_ins' 3, 4 and 8 channels);
+    else "conv_wgrad_mma" for bf16 (mma.sync: the towers' test widths);
+    "conv_wgrad_fp32_tiled" for fp32 (the DPT's convs and the conv_outs;
+    CUDA cores)."""
     if dtype == torch.bfloat16:
         if I % 64 == 0 and O % 8 == 0 and max(stride) <= 2:
             return "conv_wgrad_wgmma"
+        if (I <= _NARROW_I and O % 8 == 0 and tuple(stride) == (1, 1)
+                and taps <= _WGN_TAPS):
+            return "conv_wgrad_wgmma_i8"
         return "conv_wgrad_mma"
     if dtype == torch.float32:
         return "conv_wgrad_fp32_tiled"
@@ -641,6 +651,15 @@ def wgmma_wgrad_splits(O: int, K: int, steps: int, sms: int) -> int:
 
     return min(range(1, max(1, min(_WG_MAX_SPLITS, steps)) + 1),
                key=lambda s: (cost(s), s))
+
+
+def narrow_wgrad_splits(O: int, steps: int, sms: int) -> int:
+    """Split factor of ``conv_wgrad_wgmma_i8`` for O output channels over
+    `steps` pixel boxes on `sms` multiprocessors: a block a (128-channel
+    tile of O, split), as many splits as fill the card once (the kernel
+    streams dy, so one block an SM keeps it busy), at least 4 boxes a
+    split."""
+    return max(1, min(sms // _cdiv(O, _TILE), steps // _WGN_MIN_STEPS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -702,14 +721,17 @@ def conv2d_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
                          f"not fit a weight {tuple(w_shape)}")
     x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
     kernels.check_cuda(x, dy)
-    route = wgrad_route(x.dtype, I, O, stride)
+    route = wgrad_route(x.dtype, I, O, stride, kh * kw)
     if route == "conv_wgrad_fp32_tiled" and out_dtype != torch.float32:
         raise ValueError("conv_wgrad_fp32_tiled writes an fp32 dW")
-    # what the route reads in 16-byte units (TMA: both; mma.sync: x where
-    # I % 8 == 0, dy where O % 8 == 0; the fp32 route both where I and O
-    # are multiples of 4)
+    # what the route reads in 16-byte units (TMA: both, the narrow route x
+    # only where it reads it unpadded (I == 8); mma.sync: x where I % 8 ==
+    # 0, dy where O % 8 == 0; the fp32 route both where I and O are
+    # multiples of 4)
     if route == "conv_wgrad_wgmma":
         direct = (x, dy)
+    elif route == "conv_wgrad_wgmma_i8":
+        direct = (x, dy) if I == _NARROW_I else (dy,)
     elif route == "conv_wgrad_mma":
         direct = tuple(t for t, n in ((x, I), (dy, O)) if n % 8 == 0)
     else:
@@ -734,6 +756,16 @@ def conv2d_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
         ws = _workspace(splits, O * K, x.device)
         kernels.launch(route, *args, kernels.ptr(ws), *shape,
                        *wgrad_box(B, Ho, Wo), f32, splits, sms)
+    elif route == "conv_wgrad_wgmma_i8":
+        splits = narrow_wgrad_splits(O, wgrad_boxes(B, Ho, Wo), sms)
+        ws = _workspace(splits, O * _WGN_COLS, x.device)
+        # x padded to 8 channels in the launch (zero123's 8 read as given)
+        xp = x if I == _NARROW_I else torch.empty(
+            B, H, W, _NARROW_I, device=x.device, dtype=x.dtype)
+        kernels.launch(route, kernels.ptr(x), kernels.ptr(xp),
+                       kernels.ptr(dy), kernels.ptr(dw), kernels.ptr(ws), B,
+                       H, W, I, Ho, Wo, O, kh, kw, pt, pl,
+                       *wgrad_box(B, Ho, Wo), f32, splits)
     elif route == "conv_wgrad_fp32_tiled":
         bn, splits = fp32_wgrad_tiling(O, K, B * Ho * Wo, sms)
         ws = _workspace(splits, O * K, x.device)

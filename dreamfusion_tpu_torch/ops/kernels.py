@@ -67,10 +67,11 @@ LAUNCHES: Dict[str, int] = {
     "attention_fwd_wgmma_d160": 0,              # K10 d = 160, CUDA C++
     "attention_fwd_wgmma_d512": 0,              # K10 d = 512, CUDA C++
     "attention_fwd_fp32": 0,                    # K10 fp32 (DPT), CUDA C++
-    "attention_bwd_wgmma": 0,                   # K10 backward, CUDA C++
-    "attention_bwd_wgmma_d40": 0,               # K10 backward d = 40
-    "attention_bwd_wgmma_d80": 0,               # K10 backward d = 80
-    "attention_bwd_wgmma_d160": 0,              # K10 backward d = 160
+    "attention_bwd_wgmma": 0,                   # K10 backward d = 512
+    "attention_bwd_flash": 0,                   # K10 backward d = 64
+    "attention_bwd_flash_d40": 0,               # K10 backward d = 40
+    "attention_bwd_flash_d80": 0,               # K10 backward d = 80
+    "attention_bwd_flash_d160": 0,              # K10 backward d = 160
     "attention_bwd_fp32": 0,                    # K10 fp32 backward (DPT)
     "groupnorm_fwd_resident": 0, "groupnorm_fwd_stream": 0,  # K11, CUDA C++
     "groupnorm_bwd_resident": 0, "groupnorm_bwd_stream": 0,  # K11, CUDA C++
@@ -84,6 +85,7 @@ LAUNCHES: Dict[str, int] = {
     "conv_dgrad_fp32": 0, "conv_dgrad": 0,      # K12 dgrad, CUDA C++
     "conv_dgrad_fp32_tiled": 0,                 # K12 fp32 dgrad (DPT)
     "conv_wgrad_wgmma": 0, "conv_wgrad_mma": 0,  # K12 wgrad, CUDA C++
+    "conv_wgrad_wgmma_i8": 0,                   # K12 wgrad of the conv_ins
     "conv_wgrad_fp32_tiled": 0,                 # K12 fp32 wgrad
     "raster_fwd": 0, "raster_bwd": 0,           # K7, CUDA C++
     "interpolate_fwd": 0, "interpolate_bwd": 0,  # K7, CUDA C++
@@ -139,6 +141,7 @@ _SIGNATURES = {
     "conv_wgrad_mma": [_P] * 4 + [_I] * 15 + [_P],
     "conv_wgrad_fp32_tiled": [_P] * 4 + [_I] * 15 + [_P],
     "conv_wgrad_wgmma": [_P] * 4 + [_I] * 19 + [_P],
+    "conv_wgrad_wgmma_i8": [_P] * 5 + [_I] * 16 + [_P],
     "clip_grad_bwd": [_P, _P, _L, _F, _I, _P],
     "attention_fwd_wgmma": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_fwd_wgmma_d40": [_P] * 5 + [_I] * 5 + [_F, _P],
@@ -147,9 +150,10 @@ _SIGNATURES = {
     "attention_fwd_wgmma_d512": [_P] * 5 + [_I] * 5 + [_P, _P, _F, _P],
     "attention_fwd_fp32": [_P] * 5 + [_I] * 5 + [_F, _P],
     "attention_bwd_wgmma": [_P] * 13 + [_I] * 6 + [_F, _P],
-    "attention_bwd_wgmma_d40": [_P] * 13 + [_I] * 5 + [_F, _P],
-    "attention_bwd_wgmma_d80": [_P] * 13 + [_I] * 5 + [_F, _P],
-    "attention_bwd_wgmma_d160": [_P] * 13 + [_I] * 5 + [_F, _P],
+    "attention_bwd_flash": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "attention_bwd_flash_d40": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "attention_bwd_flash_d80": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "attention_bwd_flash_d160": [_P] * 13 + [_I] * 6 + [_F, _P],
     "attention_bwd_fp32": [_P] * 10 + [_I] * 5 + [_F, _P],
     "groupnorm_fwd_resident": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "groupnorm_bwd_resident": [_P] * 6 + [_I] * 10 + [_P],

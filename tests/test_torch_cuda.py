@@ -30,6 +30,7 @@ from dreamfusion_tpu_torch.ops.occupancy import (march_plain, march_region,
 from dreamfusion_tpu_torch.ops.attention import (attention,
                                                  attention_bwd_cuda,
                                                  attention_bwd_plain,
+                                                 attention_bwd_route,
                                                  attention_fwd_cuda,
                                                  attention_plain)
 from dreamfusion_tpu_torch.ops.conv import (conv2d, conv2d_plain, conv_route,
@@ -1268,7 +1269,7 @@ def test_attention_sd15_head_dims_through_the_wrapper(dev):
         kernels.reset_launch_counts()
         grads = torch.autograd.grad(o, qkv, do)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES[f"attention_bwd_wgmma_d{D}"] == 1
+        assert kernels.LAUNCHES[f"attention_bwd_flash_d{D}"] == 1
         assert sum(kernels.LAUNCHES.values()) == 1
         want = attention_bwd_plain(q, k, v, o.detach(), do, D ** -0.5,
                                    D == 40)
@@ -1286,8 +1287,10 @@ def test_attention_sd15_head_dims_through_the_wrapper(dev):
 ])
 def test_attention_kernel(dev, B, N, M, H, D):
     """Forward and backward through the autograd wrapper: the backward is
-    attention_bwd_wgmma (wgmma + TMA scores pass and products), one launch
-    per call, at ragged tiles of both sides and several (b, h)."""
+    one launch of its route per call (d = 64: the flash-style
+    attention_bwd_flash; d = 512: attention_bwd_wgmma, the wgmma + TMA
+    scores pass and products), at ragged tiles of both sides and several
+    (b, h)."""
     g = _gen(dev, 5)
     bf = torch.bfloat16
     q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
@@ -1300,7 +1303,8 @@ def test_attention_kernel(dev, B, N, M, H, D):
     kernels.reset_launch_counts()
     grads = torch.autograd.grad(o, qkv, do)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["attention_bwd_wgmma"] == 1
+    assert kernels.LAUNCHES[attention_bwd_route(D)] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
     qkv32 = [t.float().requires_grad_() for t in (q, k, v)]
     grads_ref = torch.autograd.grad(attention_plain(*qkv32, D ** -0.5), qkv32,
                                     do.float())
@@ -1530,7 +1534,7 @@ def test_new_wrappers_count_their_launches(dev):
     attention(q, q, q).float().sum().backward()
     for name in ("conv_fwd_mma", "conv_dgrad", "groupnorm_fwd_resident",
                  "groupnorm_bwd_resident", "attention_fwd_wgmma",
-                 "attention_bwd_wgmma"):
+                 "attention_bwd_flash"):
         assert kernels.LAUNCHES[name] == 1, name
 
 
@@ -2701,7 +2705,7 @@ def test_attention_fp32_kernel(dev, B, N, M, H):
 
 # ---------------------------------------------------------------------------
 # the towers' backward to their weights: K12's wgrad, K11's affine
-# gradients, K10's backward at d = 40, 80 and 160
+# gradients, K10's backward at the UNets' head dims
 # ---------------------------------------------------------------------------
 
 def _rel_close(got, want, ulp, floor):
@@ -2722,9 +2726,14 @@ def _rel_close(got, want, ulp, floor):
     (2, 6, 6, 128, 64, 3, 1, 1, "bf16", "wgmma"),     # a ragged 8x8 box
     (2, 4, 4, 256, 136, 3, 1, 1, "bf16", "wgmma"),    # 4x4x4: past B, O
     (3, 5, 7, 64, 72, 3, 1, 1, "bf16", "wgmma"),      # ragged x, y and B
-    (1, 512, 512, 3, 128, 3, 1, 1, "bf16", "mma"),    # the VAE conv_in
-    (2, 64, 64, 4, 320, 3, 1, 1, "bf16", "mma"),      # SD's conv_in
-    (2, 32, 32, 8, 320, 3, 1, 1, "bf16", "mma"),      # zero123's conv_in
+    (1, 512, 512, 3, 128, 3, 1, 1, "bf16", "i8"),     # the VAE conv_in
+    (2, 64, 64, 4, 320, 3, 1, 1, "bf16", "i8"),       # SD's conv_in
+    (2, 32, 32, 8, 320, 3, 1, 1, "bf16", "i8"),       # zero123's conv_in
+    (1, 37, 45, 3, 64, 3, 1, 1, "bf16", "i8"),        # 1,665 pixels: ragged
+    (2, 13, 70, 4, 72, 3, 1, 1, "bf16", "i8"),        # O past a 64 box
+    (1, 20, 9, 8, 16, 3, 1, 1, "bf16", "i8"),         # I = 8, one split
+    (1, 16, 16, 3, 8, 1, 1, 0, "bf16", "i8"),         # 1x1: one tap
+    (1, 17, 15, 3, 16, 3, 2, 1, "bf16", "mma"),       # narrow at stride 2
     (2, 64, 64, 320, 4, 3, 1, 1, "fp32", "fp32"),     # the UNet's conv_out
     (1, 64, 64, 512, 8, 3, 1, 1, "fp32", "fp32"),     # the VAE's conv_out
     (1, 9, 11, 24, 40, 3, 2, 1, "bf16", "mma"),       # ragged tiles
@@ -2735,7 +2744,8 @@ def _rel_close(got, want, ulp, floor):
 ])
 def test_conv_wgrad_kernel(dev, B, H, W, I, O, k, stride, pad, dt, want):
     """K12's weight gradient on its route (`want`: wgmma, with one split or
-    several; mma.sync for the other bf16 shapes; the tiled fp32 GEMM)
+    several; its narrow-input form for the conv_ins' I <= 8 at stride 1;
+    mma.sync for the other bf16 shapes; the tiled fp32 GEMM)
     against the transposed shifted einsum in fp32: bf16 dW within one bf16
     ulp plus 2^-8 of its largest entry, fp32 within 1e-5 relative plus
     1e-4 of its largest; two launches bit for bit (the splits summed in
@@ -2754,9 +2764,10 @@ def test_conv_wgrad_kernel(dev, B, H, W, I, O, k, stride, pad, dt, want):
     Ho, Wo = ((H + sum(pads[0]) - k) // stride + 1,
               (W + sum(pads[1]) - k) // stride + 1)
     dy = torch.randn(B, Ho, Wo, O, device=dev, generator=g).to(dtype)
-    route = wgrad_route(dtype, I, O, (stride, stride))
+    route = wgrad_route(dtype, I, O, (stride, stride), k * k)
     assert route == {"split": "conv_wgrad_wgmma", "one": "conv_wgrad_wgmma",
                      "wgmma": "conv_wgrad_wgmma", "mma": "conv_wgrad_mma",
+                     "i8": "conv_wgrad_wgmma_i8",
                      "fp32": "conv_wgrad_fp32_tiled"}[want]
     if want in ("split", "one"):
         splits = wgmma_wgrad_splits(O, k * k * I, wgrad_boxes(B, Ho, Wo),
@@ -2871,6 +2882,13 @@ def test_groupnorm_affine_kernel(dev, B, H, W, C, eps, silu, dtype, wdt):
 @pytest.mark.parametrize("B,N,M,H,D,rq", [
     (2, 4096, 4096, 8, 40, True),      # SD 1.5's 64² self (chunked)
     (2, 4096, 77, 8, 40, False),       # its cross-attention
+    (2, 4096, 4096, 5, 64, False),     # SD 2.1's 64² self
+    (2, 4096, 77, 5, 64, False),       # its cross-attention: query splits
+    (2, 256, 256, 20, 64, False),
+    (1, 257, 77, 2, 64, False),        # N = 257: a ragged query tile
+    (1, 257, 1, 2, 64, False),
+    (1, 257, 300, 3, 40, True),        # ragged both sides, rounded q·scale
+    (1, 1000, 77, 1, 40, False),       # ragged N over 4 query splits
     (2, 1024, 1024, 8, 80, False),
     (2, 1024, 77, 8, 80, False),
     (2, 256, 256, 8, 160, False),
@@ -2882,14 +2900,15 @@ def test_groupnorm_affine_kernel(dev, B, H, W, C, eps, silu, dtype, wdt):
     (1, 100, 77, 2, 160, True),
 ])
 def test_attention_bwd_sd15_head_dims_kernel(dev, B, N, M, H, D, rq):
-    """K10's backward at d = 40, 80 and 160 (the k steps over d in 64
-    columns, TMA's zero fill past d), with rq the logits of bf16(q·scale)
-    (JAX's chunked branch): dQ, dK and dV against the kernels' arithmetic
-    in torch (``attention_bwd_plain`` on the same branch) within one bf16
-    ulp plus 2^-8 of their largest entry; one launch of the head dim's
-    route; two launches bit for bit; over one key dQ and dK are 0 in exact
-    arithmetic (dS = P (dP - D) with P = 1): within 2^-8 of dV's largest
-    entry."""
+    """K10's flash-style backward at the UNets' head dims 40, 64, 80 and
+    160 (the k steps over d in 64 columns, TMA's zero fill past d; query
+    splits of the dK/dV pass where its blocks leave SMs idle), with rq the
+    logits of bf16(q·scale) (JAX's chunked branch): dQ, dK and dV against
+    the kernels' arithmetic in torch (``attention_bwd_plain`` on the same
+    branch) within one bf16 ulp plus 2^-8 of their largest entry; one
+    launch of the head dim's route; two launches bit for bit; over one key
+    dQ and dK are 0 in exact arithmetic (dS = P (dP - D) with P = 1):
+    within 2^-8 of dV's largest entry."""
     g = _gen(dev, D + M)
     bf = torch.bfloat16
     q, k, v = (torch.randn(B, n, H, D, device=dev, generator=g).to(bf)
@@ -2898,7 +2917,9 @@ def test_attention_bwd_sd15_head_dims_kernel(dev, B, N, M, H, D, rq):
     scale = D ** -0.5
     o, lse = attention_fwd_cuda(q, k, v, scale, rq)
     do = torch.randn(o.shape, device=dev, generator=g).to(bf)
-    route = f"attention_bwd_wgmma_d{D}"
+    route = attention_bwd_route(D)
+    assert route == ("attention_bwd_flash" if D == 64 else
+                     f"attention_bwd_flash_d{D}")
     kernels.reset_launch_counts()
     got = attention_bwd_cuda(q, k, v, o, lse, do, scale, rq)
     got2 = attention_bwd_cuda(q, k, v, o, lse, do, scale, rq)
@@ -2966,13 +2987,15 @@ def test_narrow_unet_gradients_on_the_card(dev):
     convs = sum(1 for m in card.modules() if type(m).__name__ == "Conv2d")
     norms = sum(1 for m in card.modules() if isinstance(m, GroupNorm32))
     assert launches["conv_wgrad_wgmma"] + launches["conv_wgrad_mma"] + \
-        launches["conv_wgrad_fp32_tiled"] == convs
+        launches["conv_wgrad_wgmma_i8"] + launches["conv_wgrad_fp32_tiled"] \
+        == convs
     assert launches["conv_wgrad_fp32_tiled"] == 1
+    assert launches["conv_wgrad_wgmma_i8"] == 1          # the conv_in
     assert sum(v for k, v in launches.items()
                if k.startswith("groupnorm_bwd") and k.endswith("_affine")) \
         == norms
-    assert launches["attention_bwd_wgmma_d40"] > 0
-    assert launches["attention_bwd_wgmma_d80"] > 0
+    assert launches["attention_bwd_flash_d40"] > 0
+    assert launches["attention_bwd_flash_d80"] > 0
     assert launches["conv_dgrad"] + launches["conv_dgrad_wgmma"] + \
         launches["conv_dgrad_fp32"] + launches["conv_dgrad_narrow"] == convs
     worst = []

@@ -714,6 +714,35 @@ def test_narrow_weight_is_packed_once_per_version(rng):
     torch.testing.assert_close(again, 2 * first)
 
 
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::attn_bwd_flash_kernel<40>((anonymous "
+     "namespace)::FlashMaps, float const*, float const*, __nv_bfloat16*, "
+     "__nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int, int, int, "
+     "float, float)", "K10 attention"),
+    ("void (anonymous namespace)::attn_bwd_flash_kernel<160>((anonymous "
+     "namespace)::FlashMaps, float const*, float const*, __nv_bfloat16*, "
+     "__nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int, int, int, "
+     "float, float)", "K10 attention"),
+    ("(anonymous namespace)::attn_bwd_rows_kernel(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, float const*, float*, float*, int, int, int, "
+     "int, int)", "K10 attention"),
+    ("(anonymous namespace)::attn_bwd_split_reduce_kernel(float const*, "
+     "__nv_bfloat16*, __nv_bfloat16*, long, int, float)", "K10 attention"),
+    ("(anonymous namespace)::conv_wgrad_wgmma_i8_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::WgradNarrow)", "K12 conv"),
+    ("(anonymous namespace)::conv_wgrad_i8_reduce_kernel(float const*, "
+     "void*, int, int, int, int, int)", "K12 conv"),
+])
+def test_profile_groups_name_the_backward_kernels(name, group):
+    """profile_step files K10's flash backward (the launch of both passes,
+    the rows' lse and D, the split reduce) under K10 and the conv_ins' narrow weight
+    gradient (and its reduce) under K12, not among the input gradients."""
+    from dreamfusion_tpu_torch.profile_step import group_of, part_of
+
+    assert group_of(name) == group
+    assert group == "K10 attention" or part_of(name) is None
+
+
 def test_profile_groups_name_the_new_kernels():
     """profile_step files the Hopper kernels (as the profiler names them)
     under K12 and K10, not under the library's matrix products."""

@@ -115,6 +115,91 @@ def test_conv_weight_gradient_matches_mm_conv_vjp(rng, H, W, I, O, k,
     _close(dw_plain.permute(1, 2, 3, 0), dk_j, what="conv2d_wgrad_plain")
 
 
+def _narrow_wgrad_twin(x, dy, kh, kw, pt, pl, sms=132):
+    """``conv_wgrad_wgmma_i8``'s layout in plain torch: x padded to 8
+    channels, the [pixels][72] operand (tap t's 8 channels at columns 8t
+    .., zero outside the image and past the taps), the products summed
+    over the 64-pixel boxes of each split in the kernel's order and the
+    splits' [O][72] partials in split order, then the compaction to [O,
+    kh, kw, I] without the padded channels."""
+    B, H, W, I = x.shape
+    _, Ho, Wo, O = dy.shape
+    x8 = torch.nn.functional.pad(x, (0, 8 - I))
+    xz = torch.nn.functional.pad(
+        x8, (0, 0, pl, max(0, Wo + kw - 1 - pl - W), pt,
+             max(0, Ho + kh - 1 - pt - H)))
+    tap = torch.zeros(B, Ho, Wo, 72)
+    for t in range(kh * kw):
+        r, u = divmod(t, kw)
+        tap[..., 8 * t:8 * t + 8] = xz[:, r:r + Ho, u:u + Wo]
+    bw, bh, bb = K12.wgrad_box(B, Ho, Wo)
+    tx, ty = -(-Wo // bw), -(-Ho // bh)
+    steps = K12.wgrad_boxes(B, Ho, Wo)
+    splits = K12.narrow_wgrad_splits(O, steps, sms)
+    dw72 = torch.zeros(O, 72)
+    for sp in range(splits):
+        part = torch.zeros(O, 72)
+        for st in range(steps * sp // splits, steps * (sp + 1) // splits):
+            row = st // tx
+            x0, y0, b0 = (st % tx) * bw, (row % ty) * bh, row // ty * bb
+            a = dy[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw].reshape(-1, O)
+            bm = tap[b0:b0 + bb, y0:y0 + bh, x0:x0 + bw].reshape(-1, 72)
+            part += a.T @ bm
+        dw72 += part
+    return dw72.reshape(O, 9, 8)[:, :kh * kw, :I].reshape(O, kh, kw, I), \
+        splits
+
+
+@pytest.mark.parametrize("B,H,W,I,O", [
+    (2, 20, 20, 3, 16),             # the VAE's 3 channels; 5 splits
+    (2, 9, 11, 4, 8),               # the UNets' 4, ragged boxes
+    (1, 12, 17, 8, 24),             # zero123's 8, read unpadded
+])
+def test_narrow_wgrad_layout_matches_mm_conv_vjp(rng, B, H, W, I, O):
+    """The narrow weight gradient's layout (``_narrow_wgrad_twin``: the
+    8-channel padding, the [pixels][72] tap operand, the box and split
+    order, the compaction) against ``jax.vjp`` of ``mm_conv``'s kernel
+    gradient at a 3x3 stride-1 pad-1 conv_in, 1e-5 of its largest entry
+    (float32); its route is the narrow one."""
+    assert K12.wgrad_route(torch.bfloat16, I, O, (1, 1), 9) == \
+        "conv_wgrad_wgmma_i8"
+    x = _rand(rng, B, H, W, I)
+    kern = _rand(rng, 3, 3, I, O, scale=0.3)
+    y_j, vjp = jax.vjp(lambda kk: mm_conv(jnp.asarray(x), kk, (1, 1), 1),
+                       jnp.asarray(kern))
+    gy = _rand(rng, *y_j.shape)
+    (dk_j,) = vjp(jnp.asarray(gy))
+    dw, splits = _narrow_wgrad_twin(torch.from_numpy(x),
+                                    torch.from_numpy(gy), 3, 3, 1, 1)
+    assert splits == (5 if H == 20 else 1)
+    _close(dw.permute(1, 2, 3, 0), dk_j, rtol=1e-5, what="narrow twin dW")
+
+
+# the conv_ins' (O, 64-pixel boxes) → narrow_wgrad_splits on 132 SMs
+NARROW_SPLITS = {
+    (128, 4096): 132,       # the VAE's [1, 512², 3 -> 128]: one wave
+    (320, 128): 32,         # the SD UNets' [2, 64², 4 -> 320]: 4 boxes each
+    (320, 32): 8,           # zero123's [2, 32², 8 -> 320]
+    (64, 3): 1,             # too few boxes to split
+}
+
+
+@pytest.mark.parametrize("shape", sorted(NARROW_SPLITS))
+def test_narrow_wgrad_splits_stay_in_bounds(shape):
+    """The narrow route's splits: a block a (128-channel tile, split), at
+    most one wave of them, each split at least 4 boxes where there are
+    enough to split."""
+    O, steps = shape
+    splits = K12.narrow_wgrad_splits(O, steps, 132)
+    assert splits == NARROW_SPLITS[shape]
+    assert splits >= 1 and -(-O // 128) * splits <= 132
+    assert splits == 1 or 4 * splits <= steps
+    # the towers' real boxes
+    assert K12.wgrad_boxes(1, 512, 512) == 4096
+    assert K12.wgrad_boxes(2, 64, 64) == 128 and K12.wgrad_boxes(2, 32, 32) \
+        == 32
+
+
 def test_conv_saves_x_only_for_a_weight_gradient():
     """A frozen weight's conv keeps no x for its backward (the SD step's
     memory), a trainable one does; with only x asking, the backward gives
@@ -173,21 +258,30 @@ def test_packed_weight_cache_follows_a_trainable_weight():
 
 def test_wgrad_routes_and_splits():
     """bf16 with I % 64 == 0, O % 8 == 0 at strides 1 and 2 takes wgmma,
-    the other bf16 shapes mma.sync, fp32 the tiled CUDA-core GEMM;
-    mma.sync's splits over the pixels: none where dW's tiles fill two
-    blocks an SM, two blocks an SM of them otherwise, at least 16 steps of
-    32 pixels a split, at most 64; the fp32 route's N tile and split."""
+    bf16 with I <= 8, O % 8 == 0 at stride 1 and at most 9 taps the
+    narrow-input wgmma route (the conv_ins), the other bf16 shapes
+    mma.sync, fp32 the tiled CUDA-core GEMM; mma.sync's splits over the
+    pixels: none where dW's tiles fill two blocks an SM, two blocks an SM
+    of them otherwise, at least 16 steps of 32 pixels a split, at most 64;
+    the fp32 route's N tile and split."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert K12.wgrad_route(bf, 320, 320, (1, 1)) == "conv_wgrad_wgmma"
-    assert K12.wgrad_route(bf, 128, 128, (2, 2)) == "conv_wgrad_wgmma"
-    assert K12.wgrad_route(bf, 64, 72, (1, 1)) == "conv_wgrad_wgmma"
-    for I, O, st in ((4, 320, 1), (3, 128, 1), (8, 320, 1), (64, 12, 1),
-                     (96, 128, 1), (128, 128, 3)):
-        assert K12.wgrad_route(bf, I, O, (st, st)) == "conv_wgrad_mma"
+    assert K12.wgrad_route(bf, 320, 320, (1, 1), 9) == "conv_wgrad_wgmma"
+    assert K12.wgrad_route(bf, 128, 128, (2, 2), 9) == "conv_wgrad_wgmma"
+    assert K12.wgrad_route(bf, 64, 72, (1, 1), 1) == "conv_wgrad_wgmma"
+    for I, O, taps in ((4, 320, 9), (3, 128, 9), (8, 320, 9), (1, 8, 1),
+                       (5, 64, 4)):
+        assert K12.wgrad_route(bf, I, O, (1, 1), taps) == \
+            "conv_wgrad_wgmma_i8"
+    for I, O, st, taps in ((4, 320, 2, 9), (3, 12, 1, 9), (3, 128, 1, 25),
+                           (9, 128, 1, 9), (64, 12, 1, 9), (96, 128, 1, 9),
+                           (128, 128, 3, 9)):
+        assert K12.wgrad_route(bf, I, O, (st, st), taps) == \
+            "conv_wgrad_mma"
     for I, O in ((320, 4), (512, 8), (3, 64), (256, 256)):
-        assert K12.wgrad_route(f32, I, O, (1, 1)) == "conv_wgrad_fp32_tiled"
+        assert K12.wgrad_route(f32, I, O, (1, 1), 9) == \
+            "conv_wgrad_fp32_tiled"
     with pytest.raises(ValueError):
-        K12.wgrad_route(torch.float16, 64, 64, (1, 1))
+        K12.wgrad_route(torch.float16, 64, 64, (1, 1), 9)
     # 9 tiles of dW (the VAE's 512² level 0's shape), 8,192 steps
     assert K12.wgrad_splits(128, 1152, 512 * 512, 132) == 29
     # the VAE conv_in's 512² (mma.sync): 1 tile of dW, 8,192 steps
@@ -254,7 +348,7 @@ def test_wgmma_wgrad_tiling_at_the_towers_shapes(shape):
     least modelled time (4 at the VAE's 128²: 144 tiles alone would leave
     a second round of 12 on 132 SMs)."""
     B, Ho, Wo, I, O, k, st = shape
-    assert K12.wgrad_route(torch.bfloat16, I, O, (st, st)) == \
+    assert K12.wgrad_route(torch.bfloat16, I, O, (st, st), k * k) == \
         "conv_wgrad_wgmma"
     box, steps, splits = TOWER_WGMMA[shape]
     bw, bh, bb = K12.wgrad_box(B, Ho, Wo)
@@ -296,7 +390,7 @@ def test_fp32_wgrad_tiling_at_the_dpt_shapes(shape):
     of 16 pixels where the pixels allow more than one, at most 64; the
     modelled cost of the chosen split no more than one split's."""
     B, H, W, I, O, k, st = shape
-    assert K12.wgrad_route(torch.float32, I, O, (st, st)) == \
+    assert K12.wgrad_route(torch.float32, I, O, (st, st), k * k) == \
         "conv_wgrad_fp32_tiled"
     Ho, Wo = -(-H // st), -(-W // st)
     K, P = k * k * I, B * Ho * Wo
@@ -420,15 +514,50 @@ def test_attention_vjp_on_the_chunked_branch(rng, monkeypatch, d, M, dtype):
 
 
 def test_attention_backward_routes():
-    """The backward's entry point by head dim: SD 1.5's 40, 80 and 160
-    each their own, 64 and 512 the d % 64 one; any other raises."""
+    """The backward's entry point by head dim: the UNets' 40, 64, 80 and
+    160 each their own flash-style one, the VAE's 512 the four-kernel one;
+    fp32 the CUDA-core one at 64 only; any other raises."""
     assert {d: K10.attention_bwd_route(d) for d in (40, 64, 80, 160, 512)} \
-        == {40: "attention_bwd_wgmma_d40", 64: "attention_bwd_wgmma",
-            80: "attention_bwd_wgmma_d80", 160: "attention_bwd_wgmma_d160",
+        == {40: "attention_bwd_flash_d40", 64: "attention_bwd_flash",
+            80: "attention_bwd_flash_d80", 160: "attention_bwd_flash_d160",
             512: "attention_bwd_wgmma"}
-    for d in (32, 48, 100):
+    assert K10.attention_bwd_route(64, torch.float32) == "attention_bwd_fp32"
+    for d in (32, 48, 100, 128):
         with pytest.raises(ValueError):
             K10.attention_bwd_route(d)
+    for d in (40, 512):
+        with pytest.raises(ValueError):
+            K10.attention_bwd_route(d, torch.float32)
+
+
+# (B·h, N, M, d) → the flash backward's query splits on 132 SMs
+FLASH_SPLITS = {
+    (16, 4096, 4096, 40): 1,        # SD 1.5's 64² self-attention: 512 blocks
+    (16, 4096, 77, 40): 4,          # its text cross-attention: 16 blocks
+    (16, 1024, 1024, 80): 1,        # 128 blocks, 16 query tiles each
+    (16, 256, 256, 160): 2,         # 32 blocks, 8 query tiles
+    (16, 256, 77, 160): 2,          # 16 blocks, 8 query tiles: 4 a split
+    (16, 1024, 1, 40): 4,           # zero123's one key
+    (10, 4096, 4096, 64): 1,        # SD 2.1's [2, 4096, 5, 64]
+    (10, 4096, 77, 64): 6,          # 10 blocks: 60 fill half the card
+    (2, 257, 77, 64): 1,            # 5 query tiles: fewer than 4 a split
+    (1, 1000, 77, 40): 4,           # 16 query tiles, the last ragged
+    (1, 70, 200, 160): 1,           # 3 tiles of 32
+}
+
+
+@pytest.mark.parametrize("shape", sorted(FLASH_SPLITS))
+def test_flash_backward_splits_stay_in_bounds(shape):
+    """The dK/dV pass's query splits: as many as bring its blocks (a head
+    and 128 keys) to half the card (the dQ blocks of the same launch take
+    the rest), at most 16 and with at least 4 query tiles (64 queries, 32
+    at d = 160) a split."""
+    Z, N, M, d = shape
+    splits = K10.flash_bwd_splits(Z, N, M, d, 132)
+    assert splits == FLASH_SPLITS[shape]
+    tiles = -(-N // (32 if d == 160 else 64))
+    assert 1 <= splits <= min(16, max(1, tiles // 4))
+    assert splits == 1 or Z * -(-M // 128) * splits <= 66
 
 
 # ---------------------------------------------------------------------------
@@ -576,17 +705,17 @@ def _full_width(kind):
 def test_full_width_convs_take_a_wgrad_route(kind):
     """Every conv of the full-width towers has a weight-gradient route:
     the bf16 convs wgmma's (the stride-2 downsamplers among them) but the
-    conv_in's 3-, 4- and 8-channel inputs, on mma.sync; the fp32 conv_out
-    the tiled CUDA-core one."""
+    conv_in's 3-, 4- and 8-channel inputs, on its narrow-input form; the
+    fp32 conv_out the tiled CUDA-core one; none on mma.sync."""
     tower = _full_width(kind)
     routes = {}
     for name, m in tower.named_modules():
         if isinstance(m, punet.Conv2d):
-            O, _, _, I = m.weight.shape
+            O, kh, kw, I = m.weight.shape
             routes[name] = K12.wgrad_route(m.compute_dtype, I, O,
-                                           (m.stride, m.stride))
+                                           (m.stride, m.stride), kh * kw)
     assert routes.pop("conv_out") == "conv_wgrad_fp32_tiled"
-    assert routes.pop("conv_in") == "conv_wgrad_mma"
+    assert routes.pop("conv_in") == "conv_wgrad_wgmma_i8"
     assert set(routes.values()) == {"conv_wgrad_wgmma"}
     convs = {n: m for n, m in tower.named_modules()
              if isinstance(m, punet.Conv2d)}
@@ -595,6 +724,50 @@ def test_full_width_convs_take_a_wgrad_route(kind):
     assert any(m.stride == 2 for m in convs.values())
     assert len(convs) == {"sd21": 52, "sd15": 52, "zero123": 52,
                           "vae": 25}[kind]
+
+
+# chip_smoke.py's towers → the new backward routes' launches a forward and
+# backward of each (the conv_in's narrow wgrad, K10's flash routes)
+TOWER_GRAD_LAUNCHES = {
+    "SD 2.1 UNet": {"conv_wgrad_wgmma_i8": 1, "attention_bwd_flash": 32},
+    "SD 1.5 UNet": {"conv_wgrad_wgmma_i8": 1, "attention_bwd_flash_d40": 10,
+                    "attention_bwd_flash_d80": 10,
+                    "attention_bwd_flash_d160": 12},
+    "zero123 UNet": {"conv_wgrad_wgmma_i8": 1,
+                     "attention_bwd_flash_d40": 10,
+                     "attention_bwd_flash_d80": 10,
+                     "attention_bwd_flash_d160": 12},
+    "SD VAE encoder": {"conv_wgrad_wgmma_i8": 1, "attention_bwd_wgmma": 1},
+}
+
+
+@pytest.mark.parametrize("tower", sorted(TOWER_GRAD_LAUNCHES))
+def test_chip_smoke_tower_launches_take_the_new_routes(tower):
+    """``chip_smoke.tower_launches`` derives each full-width tower's
+    backward launches from its forward on the meta device (a card of 132
+    SMs stubbed): the conv_in's weight gradient on the narrow wgmma route,
+    the attentions' backward on the flash routes at the UNets' head dims
+    and the four-kernel one at the VAE's 512, mma.sync's wgrad and the
+    old per-head-dim entry points nowhere; ``GRAD_KERNELS`` lists them."""
+    import importlib.util
+    import pathlib
+    import types
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    card = types.SimpleNamespace(sm_count=lambda dev: 132)
+    prior, part = smoke.GRAD_TOWERS[tower]
+    want = smoke.tower_launches(
+        torch, card, prior, **({"unet": 1, "unet_grad": 1} if part == "unet"
+                               else {"encode": 1, "encode_grad": 1}))
+    new = {k: v for k, v in want.items()
+           if k == "conv_wgrad_wgmma_i8" or k.startswith("attention_bwd")}
+    assert new == TOWER_GRAD_LAUNCHES[tower]
+    assert "conv_wgrad_mma" not in want
+    assert set(new) <= set(smoke.GRAD_KERNELS) | {"attention_bwd_wgmma"}
+    assert not any(k.startswith("attention_bwd_wgmma_d") for k in want)
 
 
 @pytest.mark.parametrize("kind", ["sd21", "sd15", "zero123", "vae"])
